@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its NaCAGaT serving path on one GPU.
+"""Build the port's CUDA kernels and drive its NaCAGaT serving and training
+paths on one GPU.
 
-    python3 chip_smoke.py              # phases 1-3 below
-    python3 chip_smoke.py --profile    # where one predict_bags call's time goes
+    python3 chip_smoke.py              # phases 1-6 below
+    python3 chip_smoke.py --profile    # where one predict_bags call's and one
+                                       # training step's time goes
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -20,6 +22,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    versions) on a few bags.
 3. Timings with CUDA events: each kernel, its plain version and its bound;
    ``predict_bags`` bags/s.
+4. The training kernels (fuse-K training forward with dropout 0.25, ssq and
+   sumw; the fuse-K backward) against their plain versions at B=32, N=6,
+   E=F=256, M in {8192, 4000 (ragged, one fully-masked row)}; the backward
+   run twice must agree bitwise; the drop share of the Philox bits.
+5. The NaCAGaT ``medium`` trainer (cesar, dropout 0.25 at every site, Adam
+   lr 2e-4, weight decay 1e-5) on one 32-bag batch of the 8192 bucket,
+   staged on the card once: 5 steps with the counts reset just before and
+   read just after (one training-forward and one backward launch per
+   accumulation chunk, no other kernel), every loss finite; then one step
+   from the same state and seed with the kernels and with their plain
+   versions, whose gradients must agree.
+6. Timings: the training kernels beside their plain versions and bounds;
+   the training step's ms and train bags/s.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -29,7 +44,9 @@ JAX; runs only where CUDA is available and the port package sits beside it.
 phase-2 Predictor for each loss on the same bags, and traces one
 ``predict_bags`` call with ``torch.profiler``: device time by kernel / copy
 name, wall time and the device busy share (summed device time over wall
-time), then one JSON line per loss with the same numbers.
+time), then one JSON line per loss with the same numbers. It then traces one
+phase-5 training step the same way, with its device time split into
+matrix-product, co-attention-kernel, optimizer and other kernels.
 """
 
 from __future__ import annotations
@@ -56,13 +73,22 @@ B, N, E = 32, 6, 256
 SIZES = (100, 200, 300, 400, 500, 600)
 BUCKETS = (4096, 8192)
 N_BAGS = 40
-SOURCE = "multimodal_path_omic_tpu_torch/csrc/coattn.cu"
+SOURCES = {
+    "coattn_fwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_stats": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_weights": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_bwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+}
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
     "coattn_fwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_stats": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_weights": "multimodal_path_omic_tpu/ops/coattn.py:908",
+    "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_bwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:508",
 }
+TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
 WANT = {"ces": ("coattn_fwd_fused_k",), "cesar": ("coattn_stats", "coattn_weights")}
 # kernel vs plain version on the card: both float32, other summation
@@ -83,6 +109,24 @@ W_RTOL, W_ATOL = 1e-4, 1e-8
 # GPU Predictor vs CPU Predictor (plain versions, other BLAS): 1e-4 on
 # hazards / survs / y / risk.
 MODEL_ATOL = 1e-4
+# Training (phases 4-6): the default NaCAGaT configuration
+# (examples/nacagat.yaml: cesar, dropout 0.25, Adam lr 2e-4, weight decay
+# 1e-5), B=32 bags in the 8192 bucket.
+TRAIN_RATE, TRAIN_M, TRAIN_STEPS = 0.25, 8192, 5
+# Gradients (kernel vs plain, and a training step's parameter gradients with
+# the kernels vs with the plain versions) are held relative to each tensor's
+# largest magnitude: dwk and dbk are sums over B*M = 262,144 terms, so their
+# absolute rounding error grows with them; float32 in other summation orders
+# moves them by ~1e-5 of their scale, an indexing or mask fault by O(1).
+GRAD_RTOL = 1e-4
+# A training step's parameter gradients add an absolute floor: the MIL pool
+# scorers' output bias has a zero gradient by construction (the softmax over
+# the bag is shift-invariant), so both sides hold only float32 noise (~1e-11)
+# there, and a limit relative to that noise would measure nothing.
+GRAD_ATOL = 1e-8
+# The drop share of the Philox bits over B*N*M = 1.57M draws: its standard
+# error is 3.5e-4, so 0.002 is ~6 of them.
+DROP_TOL = 0.002
 
 
 def log(msg: str) -> None:
@@ -155,7 +199,7 @@ def make_inputs(m_len, f_dim, seed, dev):
 def phase1_kernels(dev) -> dict:
     from multimodal_path_omic_tpu_torch.ops import coattn
 
-    errs = {name: 0.0 for name in REPLACES}
+    errs = {}
     for m_len, f_dim in ((8192, 256), (4096, 256), (4000, 256), (4096, 1024)):
         log(f"phase 1: B={B} N={N} E={E} M={m_len} F={f_dim}")
         q, kv, wk, bk, k, mask = make_inputs(m_len, f_dim, m_len + f_dim, dev)
@@ -167,17 +211,17 @@ def phase1_kernels(dev) -> dict:
             err = check_close(f"fused_k.{name}", a, b, KERNEL_ATOL, rtol)
             if name != "l":
                 e = max(e, err)
-        errs["coattn_fwd_fused_k"] = max(errs["coattn_fwd_fused_k"], e)
+        errs["coattn_fwd_fused_k"] = max(errs.get("coattn_fwd_fused_k", 0.0), e)
         if f_dim != E:
             continue  # the plain-K forms take k [B, M, E]
         l, m = coattn.coattn_stats(q, k, mask, pre_gate=True)
         l_ref, m_ref = coattn.coattn_stats_plain(q, k, mask, pre_gate=True)
         check_close("stats.l", l, l_ref, KERNEL_ATOL, L_RTOL)
-        errs["coattn_stats"] = max(errs["coattn_stats"],
+        errs["coattn_stats"] = max(errs.get("coattn_stats", 0.0),
                                    check_close("stats.m", m, m_ref, KERNEL_ATOL))
         w = coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=True)
         w_ref = coattn.coattn_weights_plain(q, k, mask, l_ref, m_ref, pre_gate=True)
-        errs["coattn_weights"] = max(errs["coattn_weights"],
+        errs["coattn_weights"] = max(errs.get("coattn_weights", 0.0),
                                      check_close("weights.w", w, w_ref, W_ATOL, W_RTOL))
         # the fully-masked filler row: uniform over its M keys, never NaN
         check_close("weights.filler_row", w[-1], w_ref.new_full(w[-1].shape, 1.0 / w.shape[-1]),
@@ -206,7 +250,7 @@ def phase2_predictor(dev, bags, omics) -> dict:
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
-    launches = {name: 0 for name in REPLACES}
+    launches = {}
     results = {}
     for loss in ("ces", "cesar"):
         log(f"phase 2: NaCAGaT medium Predictor, loss={loss}, {len(bags)} bags, "
@@ -219,7 +263,7 @@ def phase2_predictor(dev, bags, omics) -> dict:
         counts = dict(coattn.LAUNCH_COUNTS)
         log(f"  launches: {counts}")
         for name, c in counts.items():
-            launches[name] += c
+            launches[name] = launches.get(name, 0) + c
             if (name in WANT[loss]) != (c > 0):
                 raise AssertionError(f"{loss}: kernel {name} launched {c} times")
         for k, v in out.items():
@@ -243,20 +287,29 @@ def phase2_predictor(dev, bags, omics) -> dict:
             if err > MODEL_ATOL:
                 raise AssertionError(f"{loss}: {k} disagrees with the CPU plain path")
         results[loss] = pred
-    for name, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
+    for name in {n for names in WANT.values() for n in names}:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the serving path")
     log(f"phase 2: kernels launched per loss as expected ({WANT})")
     return {"launches": launches, "predictors": results}
 
 
 def bound_ms(name, m_len, f_dim) -> tuple:
     """(bound ms, 'bytes' | 'operations'): each input read once, each output
-    written once; float32 multiply-adds counted as 2 operations."""
-    if name == "coattn_fwd_fused_k":
-        nbytes = 4 * (B * N * E + B * m_len * f_dim + f_dim * E + E + B * N * f_dim
-                      + 3 * B * N) + B * m_len
+    written once; float32 multiply-adds counted as 2 operations (the
+    training kernels' integer Philox work, ~1e8 operations, is left out)."""
+    ins = 4 * (B * N * E + B * m_len * f_dim + f_dim * E + E) + B * m_len  # q kv wk bk mask
+    if name in ("coattn_fwd_fused_k", "coattn_fwd_fused_k_train"):
+        n_stats = 3 if name == "coattn_fwd_fused_k" else 4  # l, m, sumw (+ ssq)
+        nbytes = ins + 4 * (B * N * f_dim + n_stats * B * N)
         ops = 2 * B * m_len * f_dim * E + 4 * B * N * m_len * E + 2 * B * N * m_len * f_dim
+    elif name == "coattn_bwd_fused_k":
+        # in: + dout, l, m, di, dssq, dsumw; out: dq, dkv, dwk, dbk
+        nbytes = ins + 4 * (B * N * f_dim + 5 * B * N) + 4 * (
+            B * N * E + B * m_len * f_dim + f_dim * E + E)
+        # k, dk wk^T, kv^T dk; scores + gate; dO.kv and pd^T dO; dq and dk terms
+        ops = (6 * B * m_len * f_dim * E + 4 * B * N * m_len * E + 4 * B * N * m_len * f_dim
+               + 8 * B * N * m_len * E)
     else:
         out = 2 * B * N if name == "coattn_stats" else B * N * m_len
         nbytes = 4 * (B * N * E + B * m_len * E + out) + B * m_len
@@ -291,7 +344,7 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
         log(f"phase 3: {name} B={B} N={N} M={m_len} F=E={E}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes a pre-gated (tanh-gated) attention
@@ -312,6 +365,274 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
     return rows
 
 
+def check_rel(name, got, ref, rtol) -> float:
+    """Hold got to ref within rtol of ref's largest magnitude; returns the
+    max abs error."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = max_err(got, ref)
+    scale = float(ref.abs().max().item())
+    ok = err <= rtol * scale
+    log(f"  {name}: max_abs_err={err:.3e}, {err / max(scale, 1e-30):.3e} of max |ref| "
+        f"{scale:.3e} (tolerance {rtol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def train_kernel_inputs(m_len, dev, seed):
+    """Phase-1 style inputs plus a dropout seed, the backward's cotangents and
+    the forward statistics it needs."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    q, kv, wk, bk, _, mask = make_inputs(m_len, E, seed, dev)
+    dseed = torch.tensor([seed], dtype=torch.int32, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    dout = torch.randn(B, N, E, generator=g).to(dev)
+    dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
+    fwd = coattn.coattn_fwd_fused_k_train_plain(q, kv, wk, bk, mask, dseed, TRAIN_RATE)
+    _, l, m, ssq, sumw = fwd
+    di = (fwd[0] * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    return (q, kv, wk, bk, mask, dseed), (dout, l, m, di, dssq, dsumw), fwd
+
+
+def phase4_train_kernels(dev) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    errs = {}
+    for m_len in (TRAIN_M, 4000):
+        log(f"phase 4: training kernels B={B} N={N} E=F={E} M={m_len} dropout {TRAIN_RATE}")
+        ins, (dout, l, m, di, dssq, dsumw), ref = train_kernel_inputs(m_len, dev, 97 + m_len)
+        got = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
+        e = 0.0
+        for name, a, r, rtol in zip(("o", "l", "m", "ssq", "sumw"), got, ref,
+                                    (0.0, L_RTOL, 0.0, 0.0, 0.0)):
+            err = check_close(f"fwd_train.{name}", a, r, KERNEL_ATOL, rtol)
+            if name != "l":
+                e = max(e, err)
+        errs["coattn_fwd_fused_k_train"] = max(errs.get("coattn_fwd_fused_k_train", 0.0), e)
+        got = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+        again = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+        ref = coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw)
+        for name, a, r in zip(("dq", "dkv", "dwk", "dbk"), got, ref):
+            errs["coattn_bwd_fused_k"] = max(errs.get("coattn_bwd_fused_k", 0.0),
+                                             check_rel(f"bwd.{name}", a, r, GRAD_RTOL))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("two backward runs differ")
+        log("  bwd: two runs bitwise equal")
+        keep = coattn.dropout_bits(ins[-1], (B, N, m_len), dev) >= coattn.dropout_threshold(
+            TRAIN_RATE)
+        drop = 1.0 - float(keep.double().mean().item())
+        log(f"  drop share of the Philox bits over {keep.numel()} draws: {drop:.6f} "
+            f"(tolerance {TRAIN_RATE} +- {DROP_TOL})")
+        if abs(drop - TRAIN_RATE) > DROP_TOL:
+            raise AssertionError("the dropout bits miss the rate")
+    return errs
+
+
+def make_trainer(dev):
+    """The training configuration: NaCAGaT medium, random weights from seed
+    0, cesar, dropout 0.25, Adam lr 2e-4 / weight decay 1e-5, dropout
+    generator seeded with 0."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    model = build_model("NaCAGaT", omic_sizes=SIZES, model_size="medium", dropout=TRAIN_RATE)
+    model = seeded_init_(model, 0).to(dev)
+    opt = make_optimizer("adam", 2e-4, 1e-5)
+    return model, init_train_state(model, opt, seed=0), make_train_step(model, "cesar", opt)
+
+
+def stage_train_batch(dev, bags, omics) -> dict:
+    """One 32-bag batch of the 8192 bucket (the first 32 serving bags,
+    1500..8192 patches) and labels from a numpy seed, on the card once."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    wsi = torch.zeros((B, TRAIN_M, bags[0].shape[1]), device=dev)
+    mask = torch.zeros((B, TRAIN_M), dtype=torch.bool, device=dev)
+    for row in range(B):
+        wsi[row, :len(bags[row])] = torch.from_numpy(bags[row]).to(dev)
+        mask[row, :len(bags[row])] = True
+    return {
+        "wsi": wsi, "mask": mask,
+        "omics": [torch.from_numpy(np.stack([omics[r][j] for r in range(B)])).to(dev)
+                  for j in range(len(SIZES))],
+        "label": torch.from_numpy(rng.integers(0, 4, B)).to(dev),
+        "censorship": torch.from_numpy(rng.integers(0, 2, B).astype(np.float32)).to(dev),
+        "weight": torch.ones(B, device=dev),
+    }
+
+
+def train_step_grads(dev, batch, plain: bool) -> dict:
+    """Parameter gradients of one training step from the phase-5 start state
+    and seed, through the kernels or through their plain versions."""
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    model, state, step = make_trainer(dev)
+    saved = coattn.coattn_fwd_fused_k_train, coattn.coattn_bwd_fused_k
+    if plain:
+        coattn.coattn_fwd_fused_k_train = coattn.coattn_fwd_fused_k_train_plain
+        coattn.coattn_bwd_fused_k = (
+            lambda q, kv, wk, bk, mk, seed, rate, dout, l, m, di, dssq, dsumw:
+            coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mk, seed, rate, dout, dssq, dsumw))
+    try:
+        step(state, batch)
+    finally:
+        coattn.coattn_fwd_fused_k_train, coattn.coattn_bwd_fused_k = saved
+    return {name: p.grad.clone() for name, p in model.named_parameters()}
+
+
+def phase5_training(dev, batch) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+    from multimodal_path_omic_tpu_torch.train.loop import accumulation_chunks
+
+    log(f"phase 5: NaCAGaT medium trainer, cesar, dropout {TRAIN_RATE}, Adam; batch "
+        f"[{B}, {TRAIN_M}, 1024], {TRAIN_STEPS} steps")
+    model, state, step = make_trainer(dev)
+    coattn.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics.loss)
+    torch.cuda.synchronize()
+    counts = dict(coattn.LAUNCH_COUNTS)
+    losses = [float(x) for x in losses]
+    log(f"  losses: {losses}")
+    log(f"  launches: {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a training loss is not finite")
+    chunks = accumulation_chunks(B, TRAIN_M, 262_144, "cesar")
+    want = {name: (TRAIN_STEPS * chunks if name in TRAIN_KERNELS else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"training launches {counts}, expected {want}")
+    log("phase 5: one step from the same state and seed, kernels vs plain versions")
+    got = train_step_grads(dev, batch, plain=False)
+    ref = train_step_grads(dev, batch, plain=True)
+    worst = 0.0
+    for k in ref:
+        err, scale = float((got[k] - ref[k]).abs().max()), float(ref[k].abs().max())
+        limit = GRAD_RTOL * scale + GRAD_ATOL
+        worst = max(worst, err / limit)
+        if not (err <= limit and bool(torch.isfinite(got[k]).all())):
+            raise AssertionError(f"grad {k}: max_abs_err {err:.3e} over the limit {limit:.3e} "
+                                 f"(max |ref| {scale:.3e})")
+    log(f"  {len(ref)} parameter gradients within {GRAD_RTOL:g} of each one's max + "
+        f"{GRAD_ATOL:g} (worst at {worst:.3f} of its limit)")
+    return {"launches": counts, "model": model, "state": state, "step": step}
+
+
+def phase6_train_timings(dev, errs, launches, trainer, batch) -> list:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    ins, (dout, l, m, di, dssq, dsumw), _ = train_kernel_inputs(TRAIN_M, dev, 5)
+    calls = {
+        "coattn_fwd_fused_k_train": (
+            lambda: coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE),
+            lambda: coattn.coattn_fwd_fused_k_train_plain(*ins, TRAIN_RATE)),
+        "coattn_bwd_fused_k": (
+            lambda: coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw),
+            lambda: coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw)),
+    }
+    rows = []
+    for name, (kern, plain) in calls.items():
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        bms, by = bound_ms(name, TRAIN_M, E)
+        log(f"phase 6: {name} B={B} N={N} M={TRAIN_M} F=E={E} dropout {TRAIN_RATE}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+    step, state = trainer["step"], trainer["state"]
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    log(f"phase 6: training step, {B} bags of the {TRAIN_M} bucket: "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms (host clock, synchronized); median "
+        f"{med:.3f} ms = {B / med * 1e3:.1f} train bags/s")
+    return rows
+
+
+def device_rows(prof) -> list:
+    """(name, device ms, count) of the device-side events of a trace, largest
+    first: the host-side aten ops also carry their kernels' device time and
+    would count it twice."""
+    import torch
+
+    rows = []
+    for ev in prof.key_averages():
+        # user annotations (e.g. "Optimizer.step#Adam.step") span kernels
+        # already counted on the device timeline
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_training(dev, batch, top=20) -> None:
+    import torch
+
+    model, state, step = make_trainer(dev)
+    for _ in range(2):  # warm: library load, cuBLAS handles, allocator
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    split = {"matmul": 0.0, "coattn kernels": 0.0, "optimizer": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        if "fused_k" in low or "combine_kernel" in low or "bwd_reduce_kernel" in low:
+            split["coattn kernels"] += ms
+        elif "gemm" in low or "xmma" in low or "cutlass" in low:
+            split["matmul"] += ms
+        elif "adam" in low or "multi_tensor" in low:
+            split["optimizer"] += ms
+        else:
+            split["other"] += ms
+    device_ms = sum(r[1] for r in rows)
+    log(f"profile: training step, {B} bags of the {TRAIN_M} bucket; wall {wall_ms:.3f} ms; "
+        f"device {device_ms:.3f} ms; busy share {device_ms / wall_ms:.4f}; split "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    for name, ms, count in rows[:top]:
+        log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
+    log(json.dumps({
+        "training_step": True, "bags": B, "wall_ms": wall_ms, "device_ms": device_ms,
+        "busy_share": device_ms / wall_ms, "split_ms": split,
+        "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in rows[:top]],
+    }))
+
+
 def profile_serving(dev, loss, bags, omics, top=15) -> None:
     import torch
 
@@ -324,20 +645,7 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
         pred.predict_bags(bags, omics)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpy, memset): the host-side aten
-    # ops also carry their kernels' device time and would count it twice
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3, ev.count))
-    if not rows:
-        raise AssertionError("the profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)  # kernels, memcpy, memset
     device_ms = sum(r[1] for r in rows)
     log(f"profile: loss={loss}; {len(bags)} bags; wall {wall_ms:.3f} ms; "
         f"device {device_ms:.3f} ms; busy share {device_ms / wall_ms:.4f}")
@@ -353,7 +661,8 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one predict_bags call per loss instead of phases 1-3")
+                    help="trace one predict_bags call per loss and one training step "
+                         "instead of phases 1-6")
     args = ap.parse_args()
     try:
         import torch
@@ -386,11 +695,17 @@ def main() -> int:
     if args.profile:
         for loss in WANT:
             profile_serving(dev, loss, bags, omics)
+        profile_training(dev, stage_train_batch(dev, bags, omics))
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)
     p2 = phase2_predictor(dev, bags, omics)
     rows = phase3_timings(dev, errs, p2["launches"], p2["predictors"], bags, omics)
+    del p2
+    errs.update(phase4_train_kernels(dev))
+    batch = stage_train_batch(dev, bags, omics)
+    p5 = phase5_training(dev, batch)
+    rows += phase6_train_timings(dev, errs, p5["launches"], p5, batch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,25 @@
 // Replaces the Pallas TPU kernels of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_fwd_fused_k  <- _coattn_fwd_impl with _make_fwd_kernel(
 //       fuse_k=True, pre_gate=True, emit_sumw=True), no dropout (lean-V eval)
+//   * mpo_coattn_fwd_fused_k_train <- the same with dropout_rate > 0,
+//       emit_ssq=True, emit_sumw=True, l and m kept for the backward (lean-V
+//       training; the backward is csrc/coattn_bwd.cu)
 //   * mpo_coattn_stats        <- _coattn_fwd_impl with the plain K operand,
 //       used for the (l, m) statistics in coattention_weights (export pass 1)
 //   * mpo_coattn_weights      <- _make_weights_kernel / coattention_weights
 //       (export pass 2)
 //
-// Semantics shared by all three (N queries, M keys, one bag per b):
+// Semantics shared by all of them (N queries, M keys, one bag per b):
 //   s[n, m]  = (q[n] . k[m]) / sqrt(E) * (tanh(q[n]) . tanh(k[m]) + 1) / 2
 //   s[n, m]  = NEG where the key mask is false (finite NEG, as the TPU kernel:
 //              a fully-masked row gets uniform weights, never NaN)
 //   m[n]     = max_m s,  l[n] = sum_m exp(s - m[n]),  w = exp(s - m[n]) / l[n]
 // Keys at index >= M do not exist (no padding of M is ever counted), so a
 // fully-masked row is uniform over exactly M keys, like the JAX package's
-// plain attention_core path.
+// plain attention_core path. The training form drops the normalized weights
+// (torch semantics): pd = keep * w / (1 - rate), keep iff
+// dropout_bits(seed, b, n, key) >= threshold; l sums the undropped weights,
+// o = sum pd kv, ssq = sum pd^2, sumw = sum pd.
 //
 // What bounds them on an H100, and what the design does about it:
 //   * fused_k: k = kv @ wk + bk is 2*B*M*F*E float32 operations (34 GFLOP at
@@ -33,7 +39,11 @@
 //     axis is split over several blocks per bag so B=32 bags fill the 132
 //     SMs; a second small kernel merges the per-split (m, l, o) partials.
 //     Tensor cores (TF32 wgmma) are left out on purpose: TF32 breaks the
-//     float32 parity the port is held to.
+//     float32 parity the port is held to. The training form is the same
+//     kernel (template flag): the Philox bits, ssq and sumw cost a few
+//     instructions per key in the softmax step, outside the GEMM, and the
+//     per-split (ssq, sumw) partials are merged by rescaling with the split's
+//     e^(m_p - m) (squared for ssq).
 //   * stats / weights: read k [B, M, D] once (268 MB at B=32, M=8192,
 //     D=256: 0.08 ms at 3.35 TB/s) and do under 2 GFLOP, so they are bound
 //     by bytes. One warp scores one key at a time with coalesced float4
@@ -45,45 +55,31 @@
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
 // everything runs on the caller's stream.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "coattn_common.cuh"
 
 namespace {
 
-constexpr float NEG = -0.7f * 3.4e38f;  // finite mask value (coattn.py NEG)
-constexpr int NMAX = 8;                  // queries per bag (one warp each)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int FK_BM = 64;                // keys per fused_k tile
-constexpr int FK_BF = 16;                // F depth per GEMM step
-constexpr int FK_RPW = FK_BM / WARPS;    // key rows owned by one warp
-constexpr int FK_FMAX = 1024;            // widest kv row (4 columns per thread)
-constexpr int MAX_PARTS = 1024;          // partials merged per bag
+using namespace mpo;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int FK_FMAX = 1024;  // widest kv row (4 columns per thread)
 
 // ---------------------------------------------------------------------------
 // K2, fuse-K form: one block = (bag b, split of the key tiles).
-// Writes unnormalized partials: o_part [B, P, N, F], ml_part [B, P, N, 2].
+// Writes unnormalized partials: o_part [B, P, N, F], ml_part [B, P, N, 2]
+// (m, l); TRAIN adds sq_part [B, P, N, 2] (ssq, sumw of the dropped
+// weights). TRAIN: attention dropout after normalization (l sums the
+// undropped p; o, ssq and sumw take the dropped pd = keep * p / (1 - rate)),
+// bits from dropout_bits(seed, b, n, key) with keep iff bits >= thresh
+// (thresh 0: no dropout).
 // ---------------------------------------------------------------------------
-template <int E, int FC>
+template <int E, int FC, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                const float* __restrict__ wk, const float* __restrict__ bk,
                const uint8_t* __restrict__ mask, float* __restrict__ o_part,
-               float* __restrict__ ml_part, int N, int M, int F,
-               int tiles_per_split, float scale) {
+               float* __restrict__ ml_part, float* __restrict__ sq_part,
+               const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
+               int N, int M, int F, int tiles_per_split, float scale) {
   // Lane `lane` owns the E columns col(j) = (j / 4) * 128 + 4 * lane + j % 4
   // (float4 groups: conflict-free 128-bit shared-memory reads); warp w owns
   // key rows 8w .. 8w + 7 of the tile. kv_s is stored transposed, so a
@@ -110,6 +106,8 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   for (int j = 0; j < EPT; ++j) bias[j] = bk[(j >> 2) * 128 + 4 * lane + (j & 3)];
 
   float m_run = NEG, l_run = 0.f;  // the softmax state of query `warp`
+  float ssq_run = 0.f, sumw_run = 0.f;  // TRAIN: sums of pd^2 and pd
+  const uint32_t seed = TRAIN ? (uint32_t)seed_ptr[0] : 0u;
   float oacc[NMAX][FC];
 #pragma unroll
   for (int n = 0; n < NMAX; ++n)
@@ -227,9 +225,18 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       const float s0 = s_s[warp][lane], s1 = s_s[warp][lane + 32];
       const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
       const float alpha = expf(m_run - m_new);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       l_run = l_run * alpha + warp_sum(p0 + p1);
       m_run = m_new;
+      if constexpr (TRAIN) {
+        if (thresh != 0u) {
+          const uint32_t key = (uint32_t)(m0 + lane);
+          p0 = dropout_bits(seed, b, warp, key) >= thresh ? p0 * keep_scale : 0.f;
+          p1 = dropout_bits(seed, b, warp, key + 32u) >= thresh ? p1 * keep_scale : 0.f;
+        }
+        ssq_run = ssq_run * (alpha * alpha) + warp_sum(p0 * p0 + p1 * p1);
+        sumw_run = sumw_run * alpha + warp_sum(p0 + p1);
+      }
       s_s[warp][lane] = p0;
       s_s[warp][lane + 32] = p1;
       if (lane == 0) alpha_s[warp] = alpha;
@@ -281,22 +288,27 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   if (warp < N && lane == 0) {
     ml_part[(pb * N + warp) * 2 + 0] = m_run;
     ml_part[(pb * N + warp) * 2 + 1] = l_run;
+    if constexpr (TRAIN) {
+      sq_part[(pb * N + warp) * 2 + 0] = ssq_run;
+      sq_part[(pb * N + warp) * 2 + 1] = sumw_run;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Merge P partial (m, l[, o]) states per (bag, query):
 //   m = max_p m_p;  l = sum_p l_p e^(m_p - m);  o = sum_p o_p e^(m_p - m) / l
-// with the l == 0 guard of the TPU kernel. sumw = l / l (the weight mass of
-// the final row; no dropout in eval).
+// with the l == 0 guard of the TPU kernel. Without sq_part, sumw = l / l (the
+// weight mass of the final row; no dropout in eval); with it (training form)
+//   ssq = sum_p ssq_p e^(2 (m_p - m)) / l^2,  sumw = sum_p sumw_p e^(m_p - m) / l.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
-               float* __restrict__ o, float* __restrict__ l_out,
-               float* __restrict__ m_out, float* __restrict__ sumw, int N, int F,
-               int P) {
+               const float* __restrict__ sq_part, float* __restrict__ o,
+               float* __restrict__ l_out, float* __restrict__ m_out,
+               float* __restrict__ ssq, float* __restrict__ sumw, int N, int F, int P) {
   __shared__ float fac[MAX_PARTS];
-  __shared__ float red[WARPS];
+  __shared__ float red[WARPS], red_sq[WARPS], red_sw[WARPS];
   const int b = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const float* ml = ml_part + ((size_t)b * P * N + n) * 2;  // stride N*2 per part
@@ -311,18 +323,35 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
   for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, red[w]);
   __syncthreads();
 
-  float lsum = 0.f;
+  float lsum = 0.f, sq = 0.f, sw = 0.f;
   for (int p = tid; p < P; p += THREADS) {
     const float e = expf(ml[(size_t)p * N * 2] - mx);
     fac[p] = e;
     lsum += ml[(size_t)p * N * 2 + 1] * e;
+    if (sq_part != nullptr) {
+      const size_t i = (((size_t)b * P + p) * N + n) * 2;  // ml_part's layout
+      sq += sq_part[i] * (e * e);
+      sw += sq_part[i + 1] * e;
+    }
   }
   lsum = warp_sum(lsum);
-  if (lane == 0) red[warp] = lsum;
+  sq = warp_sum(sq);
+  sw = warp_sum(sw);
+  if (lane == 0) {
+    red[warp] = lsum;
+    red_sq[warp] = sq;
+    red_sw[warp] = sw;
+  }
   __syncthreads();
   float l = 0.f;
+  sq = 0.f;
+  sw = 0.f;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) l += red[w];
+  for (int w = 0; w < WARPS; ++w) {
+    l += red[w];
+    sq += red_sq[w];
+    sw += red_sw[w];
+  }
   const float l_inv = l == 0.f ? 1.f : 1.f / l;
 
   if (o != nullptr) {
@@ -336,7 +365,12 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
   if (tid == 0) {
     l_out[(size_t)b * N + n] = l;
     m_out[(size_t)b * N + n] = mx;
-    if (sumw != nullptr) sumw[(size_t)b * N + n] = l * l_inv;
+    if (sq_part != nullptr) {
+      ssq[(size_t)b * N + n] = sq * (l_inv * l_inv);
+      sumw[(size_t)b * N + n] = sw * l_inv;
+    } else if (sumw != nullptr) {
+      sumw[(size_t)b * N + n] = l * l_inv;
+    }
   }
 }
 
@@ -489,6 +523,38 @@ int launch_weights(const float* q, const float* k, const uint8_t* mask, const fl
   return (int)cudaGetLastError();
 }
 
+// fused_k_kernel over (B, splits) blocks, then combine_kernel. sq_part and
+// ssq are used by the TRAIN form only.
+template <bool TRAIN>
+int launch_fused_k(const float* q, const float* kv, const float* wk, const float* bk,
+                   const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
+                   float* o, float* l, float* m, float* ssq, float* sumw, float* o_part,
+                   float* ml_part, float* sq_part, int B, int N, int M, int F, int E,
+                   int splits, float scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || F % FK_BF != 0 || F > FK_FMAX || splits < 1 ||
+      splits > MAX_PARTS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = (n_tiles + splits - 1) / splits;
+  const dim3 grid(B, splits);
+  const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // kv columns per thread in o += p kv
+#define MPO_FK(E_, FC_)                                                           \
+  if (E == E_ && fc == FC_)                                                       \
+    fused_k_kernel<E_, FC_, TRAIN><<<grid, THREADS, 0, st>>>(                     \
+        q, kv, wk, bk, mask, o_part, ml_part, sq_part, seed, thresh, keep_scale, N, \
+        M, F, per, scale);
+  MPO_FK(256, 1) else MPO_FK(256, 2) else MPO_FK(256, 4)
+  else MPO_FK(128, 1) else MPO_FK(128, 2) else MPO_FK(128, 4)
+  else return (int)cudaErrorInvalidValue;
+#undef MPO_FK
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq,
+                                                 sumw, N, F, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -501,27 +567,25 @@ int mpo_coattn_fwd_fused_k(const float* q, const float* kv, const float* wk,
                            float* m, float* sumw, float* o_part, float* ml_part, int B,
                            int N, int M, int F, int E, int splits, float scale,
                            void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || F % FK_BF != 0 || F > FK_FMAX || splits < 1 ||
-      splits > MAX_PARTS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  const int per = (n_tiles + splits - 1) / splits;
-  const dim3 grid(B, splits);
-  const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // kv columns per thread in o += p kv
-#define MPO_FK(E_, FC_)                                                          \
-  if (E == E_ && fc == FC_)                                                      \
-    fused_k_kernel<E_, FC_><<<grid, THREADS, 0, st>>>(q, kv, wk, bk, mask, o_part, \
-                                                      ml_part, N, M, F, per, scale);
-  MPO_FK(256, 1) else MPO_FK(256, 2) else MPO_FK(256, 4)
-  else MPO_FK(128, 1) else MPO_FK(128, 2) else MPO_FK(128, 4)
-  else return (int)cudaErrorInvalidValue;
-#undef MPO_FK
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, o, l, m, sumw, N, F,
-                                                 splits);
-  return (int)cudaGetLastError();
+  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, o, l, m, nullptr,
+                               sumw, o_part, ml_part, nullptr, B, N, M, F, E, splits,
+                               scale, stream);
+}
+
+// The training form: as above plus attention dropout (seed: one int32 on the
+// device; keep iff dropout_bits >= thresh, kept weights times keep_scale;
+// thresh 0 = no dropout) and the ssq side output. Out: o [B, N, F], l, m
+// (saved for the backward), ssq, sumw [B, N]. Extra scratch: sq_part
+// [B, splits, N, 2].
+int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* wk,
+                                 const float* bk, const uint8_t* mask, const int* seed,
+                                 float* o, float* l, float* m, float* ssq, float* sumw,
+                                 float* o_part, float* ml_part, float* sq_part, int B,
+                                 int N, int M, int F, int E, int splits, float scale,
+                                 uint32_t thresh, float keep_scale, void* stream) {
+  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, o, l, m, ssq,
+                              sumw, o_part, ml_part, sq_part, B, N, M, F, E, splits,
+                              scale, stream);
 }
 
 // q [B, N, D], k [B, M, D], mask [B, M] bool or NULL -> l, m [B, N].
@@ -538,8 +602,8 @@ int mpo_coattn_stats(const float* q, const float* k, const uint8_t* mask, float*
   else if (D == 512) err = launch_stats<4>(q, k, mask, ml_part, B, N, M, pre_gate, scale, splits, st);
   else return (int)cudaErrorInvalidValue;
   if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, l, m, nullptr,
-                                                 N, 0, splits * WARPS);
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l, m,
+                                                 nullptr, nullptr, N, 0, splits * WARPS);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
 """NaCAGaT: Narrow Contextual Attention Gate Transformer
-(``multimodal_path_omic_tpu/models/nacagat.py``), eval forward.
+(``multimodal_path_omic_tpu/models/nacagat.py``): the forward in eval and
+training mode (dropout at every site, drawn from the ``generator`` passed to
+``forward``).
 
 The MCAT skeleton with the pre-gated contextual co-attention. The JAX model
 runs its two branch modules (slot 0 = path, slot 1 = omic) as one vmapped
@@ -38,7 +40,7 @@ class NaCAGaT(nn.Module):
         d1, d2 = MODEL_SIZES[model_size]
         self.H = WSIEncoder(wsi_dim, d1, dropout_rate)
         self.G = OmicEncoderStack(omic_sizes, d1, d2, dropout_rate)
-        self.co_attention = PreGatingContextualAttention(d2, 1)
+        self.co_attention = PreGatingContextualAttention(d2, 1, dropout_rate)
         self.branch_transformer = nn.ModuleList(
             TransformerEncoder(d2, num_layers=2, dropout_rate=dropout_rate)
             for _ in range(2)
@@ -51,26 +53,34 @@ class NaCAGaT(nn.Module):
 
     def forward(self, wsi: torch.Tensor, omics: Sequence[torch.Tensor],
                 mask: Optional[torch.Tensor] = None, *,
-                need_attention: bool = True) -> SurvivalOutput:
+                need_attention=True,
+                generator: Optional[torch.Generator] = None) -> SurvivalOutput:
         """wsi [B, M, wsi_dim], omics: list of [B, s_i], mask [B, M] bool.
         ``need_attention``: True returns the co-attention map [B, N, M] under
         ``attention['coattn']`` (export branch); False skips it (lean-V
-        branch, fuse-K kernel)."""
-        h_bag = self.H(wsi)
-        g_bag = self.G(omics)
+        branch, fuse-K kernels); "ssq" returns the per-query sum of squares
+        of the final co-attention weights [B, N] under
+        ``attention['coattn_ssq']`` (lean-V branch; all the cesar loss
+        needs). ``generator`` feeds every dropout site in training mode."""
+        want_ssq = need_attention == "ssq"
+        h_bag = self.H(wsi, generator)
+        g_bag = self.G(omics, generator)
         h_coattn, a_coattn = self.co_attention(
-            g_bag, h_bag, h_bag, mask, need_weights=need_attention
+            g_bag, h_bag, h_bag, mask, need_weights="ssq" if want_ssq else bool(need_attention),
+            generator=generator,
         )
         pooled, scores = [], []
         for slot, tokens in enumerate((h_coattn, g_bag)):
-            p, s = self.branch_pool[slot](self.branch_transformer[slot](tokens))
+            p, s = self.branch_pool[slot](
+                self.branch_transformer[slot](tokens, None, generator), None, generator)
             pooled.append(p)
             scores.append(s)
         h = self.fusion_layer(pooled[0], pooled[1])
         hazards, survs, y = survival_head(self.classifier(h))
-        attention = {
-            "path": scores[0],
-            "omic": scores[1],
-            "coattn": a_coattn if need_attention else None,
-        }
+        attention = {"path": scores[0], "omic": scores[1]}
+        if want_ssq:
+            attention["coattn"] = None
+            attention["coattn_ssq"] = a_coattn
+        else:
+            attention["coattn"] = a_coattn if need_attention else None
         return SurvivalOutput(hazards=hazards, survs=survs, y=y, attention=attention)

@@ -3,7 +3,9 @@ the branches of ``MultiheadAttention`` that NaCAGaT's eval takes, the
 contextual attention gate and the pre-gated contextual co-attention.
 
 Inputs are batched ``[B, seq, dim]`` with an optional boolean key-validity
-mask ``[B, M]`` (True = valid). Eval only: every dropout is the identity.
+mask ``[B, M]`` (True = valid). Attention dropout (torch semantics: weights
+normalized, then dropped and rescaled) is active in training mode and draws
+from the ``generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from multimodal_path_omic_tpu_torch.ops.coattn import (
     attention_with_weights,
     fused_attention_leank,
 )
-from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear, masked_softmax
+from multimodal_path_omic_tpu_torch.ops.layers import (
+    TorchLinear,
+    dropout,
+    masked_softmax,
+    require_generator,
+)
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -34,10 +41,12 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
-def tiny_attention(q, k, v, key_mask, num_heads: int) -> torch.Tensor:
+def tiny_attention(q, k, v, key_mask, num_heads: int, *, dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Few-token attention as broadcast-multiply-reduce (the 6-token branch
     transformers). q [B, N, E]; k, v [B, M, E] -> [B, N, E]. Same math as
-    :func:`attention_core`: 1/sqrt(D) scale, masked softmax over keys."""
+    :func:`attention_core`: 1/sqrt(D) scale, masked softmax over keys,
+    dropout on the weights at ``dropout_rate``."""
     b, n, e = q.shape
     m = k.shape[1]
     d = e // num_heads
@@ -47,24 +56,28 @@ def tiny_attention(q, k, v, key_mask, num_heads: int) -> torch.Tensor:
     # scores [B, N, M, H]
     scores = ((q4 * (1.0 / math.sqrt(d)))[:, :, None] * k4[:, None]).sum(-1)
     mask4 = None if key_mask is None else key_mask[:, None, :, None]
-    weights = masked_softmax(scores, mask4, dim=2)
+    weights = dropout(masked_softmax(scores, mask4, dim=2), dropout_rate, generator)
     out = (weights[..., None] * v4[:, None]).sum(2)  # [B, N, H, D]
     return out.reshape(b, n, e)
 
 
-def attention_core(q, k, v, key_mask, *, pre_gate: bool, need_weights: bool = True):
+def attention_core(q, k, v, key_mask, *, pre_gate: bool, need_weights: bool = True,
+                   dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None):
     """Scaled-dot attention on projected heads.
 
     q [B, H, N, D]; k, v [B, H, M, D]; key_mask [B, M]. With ``pre_gate``,
     scores are multiplied by (tanh(q).tanh(k)^T + 1)/2 before the softmax.
-    Returns (out [B, H, N, D], weights [B, H, N, M] or None)."""
+    ``dropout_rate`` drops the normalized weights (the returned weights are
+    the dropped ones). Returns (out [B, H, N, D], weights [B, H, N, M] or
+    None)."""
     d = q.shape[-1]
     scores = torch.matmul(q / math.sqrt(d), k.transpose(-1, -2))
     if pre_gate:
         p = (torch.matmul(torch.tanh(q), torch.tanh(k).transpose(-1, -2)) + 1.0) / 2.0
         scores = scores * p
     mask4 = None if key_mask is None else key_mask[:, None, None, :]
-    weights = masked_softmax(scores, mask4)
+    weights = dropout(masked_softmax(scores, mask4), dropout_rate, generator)
     out = torch.matmul(weights, v)
     return out, (weights if need_weights else None)
 
@@ -72,21 +85,30 @@ def attention_core(q, k, v, key_mask, *, pre_gate: bool, need_weights: bool = Tr
 class MultiheadAttention(nn.Module):
     """``nn.MultiheadAttention`` parity: packed in-projection (torch layout
     ``in_proj_weight [3E, E]``, the transpose of the JAX ``[E, 3E]``
-    kernel), optional pre-gating. Branches, in the JAX module's order:
+    kernel), optional pre-gating, attention dropout at ``dropout_rate`` in
+    training mode. Branches, in the JAX module's order:
 
-    * lean-V (one head, pre-gated cross-attention, no weights): the K
-      projection happens in the fuse-K kernel, the V projection is
+    * lean-V (one head, pre-gated cross-attention, weights not requested):
+      the K projection happens in the fuse-K kernel, the V projection is
       reassociated onto the pooled rows: out = (w.kv) @ wv + bv * sum(w);
+      in training the kernels' training form (dropout, ssq, backward);
     * tiny: few-token attention without weights (branch transformers);
-    * export (weights requested, cross-attention): two-pass weights emission;
+    * export (weights requested, cross-attention, no dropout): two-pass
+      weights emission;
     * otherwise :func:`attention_core`.
+
+    ``need_weights``: True returns the [B, N, M] weights, False None, and
+    "ssq" the per-query sum of squares of the final weights [B, N] (the
+    cesar penalty's input, without the N x M map on the lean-V branch).
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, pre_gate: bool = False):
+    def __init__(self, embed_dim: int, num_heads: int, pre_gate: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.pre_gate = pre_gate
+        self.dropout_rate = float(dropout_rate)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = TorchLinear(embed_dim, embed_dim)
@@ -99,24 +121,34 @@ class MultiheadAttention(nn.Module):
                         self.in_proj_bias[lo * e:hi * e])
 
     def forward(self, query, key, value, key_mask=None, *, need_weights=True,
-                average_attn_weights: bool = True, return_projected_q: bool = False):
-        if need_weights not in (True, False):
-            raise NotImplementedError(f"need_weights={need_weights!r} (ssq) comes with training")
+                average_attn_weights: bool = True, return_projected_q: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if need_weights not in (True, False, "ssq"):
+            raise ValueError(f"need_weights must be True, False or 'ssq', got {need_weights!r}")
+        want_ssq = need_weights == "ssq"
         e, heads = self.embed_dim, self.num_heads
+        rate = self.dropout_rate if self.training else 0.0
         self_attn = query is key
         lean_v = (
             heads == 1 and not self_attn and key is value and self.pre_gate
-            and need_weights is False
+            and need_weights is not True
             and query.shape[1] <= 32 and key.shape[1] > 32
         )
-        out_h = weights = None
+        out_h = weights = ssq = None
         if lean_v:
             q = self._proj(query, 0, 1)
             wk = self.in_proj_weight[e:2 * e].t().contiguous()  # [F, E]
-            out_raw, sumw = fused_attention_leank(
+            seed = None
+            if rate > 0.0:  # the kernel's dropout seed, drawn per call
+                seed = torch.randint(0, 2**31 - 1, (1,), generator=require_generator(generator),
+                                     device=query.device, dtype=torch.int32)
+            res = fused_attention_leank(
                 q, key.contiguous(), wk, self.in_proj_bias[e:2 * e], key_mask,
-                need_sumw=True,
+                dropout_rate=rate, dropout_seed=seed, need_ssq=want_ssq, need_sumw=True,
             )
+            out_raw, sumw = res[0], res[-1]
+            if want_ssq:
+                ssq = res[1]
             # V projection after the patch-axis contraction, bias weighted by
             # the row's weight mass
             out_flat = (F.linear(out_raw, self.in_proj_weight[2 * e:])
@@ -130,24 +162,30 @@ class MultiheadAttention(nn.Module):
                 v = self._proj(value, 2, 3)
             if (need_weights is False and not self.pre_gate
                     and query.shape[1] <= 32 and key.shape[1] <= 32):
-                out_flat = tiny_attention(q, k, v, key_mask, heads)
+                out_flat = tiny_attention(q, k, v, key_mask, heads, dropout_rate=rate,
+                                          generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if need_weights is True and not self_attn:
+                if need_weights is True and not self_attn and rate == 0.0:
                     out_h, weights = attention_with_weights(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate
                     )
                 else:
                     out_h, weights = attention_core(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate,
-                        need_weights=bool(need_weights),
+                        need_weights=need_weights is not False, dropout_rate=rate,
+                        generator=generator,
                     )
+                if want_ssq:  # of the head-averaged weights, as the map returned
+                    w = weights.mean(dim=1)
+                    ssq, weights = (w * w).sum(dim=-1), None
         out = self.out_proj(out_flat if out_h is None else _merge_heads(out_h))
         if weights is not None and average_attn_weights:
             weights = weights.mean(dim=1)  # [B, N, M]
+        second = ssq if want_ssq else weights
         if return_projected_q:
-            return out, weights, q
-        return out, weights
+            return out, second, q
+        return out, second
 
 
 class ContextualAttentionGate(nn.Module):
@@ -176,17 +214,21 @@ class ContextualAttentionGate(nn.Module):
 class PreGatingContextualAttention(nn.Module):
     """NaCAGaT co-attention: pre-gated MHA plus a CAG residual computed from
     the original and the projected query: out, A = PreGatedMHA(Q, K, V);
-    return out + CAG(Q, W_q Q), A."""
+    return out + CAG(Q, W_q Q), A. ``need_weights`` as in
+    :class:`MultiheadAttention` (A is the ssq [B, N] for "ssq")."""
 
-    def __init__(self, embed_dim: int, num_heads: int = 1):
+    def __init__(self, embed_dim: int, num_heads: int = 1, dropout_rate: float = 0.25):
         super().__init__()
-        self.mha = MultiheadAttention(embed_dim, num_heads, pre_gate=True)
+        self.mha = MultiheadAttention(embed_dim, num_heads, pre_gate=True,
+                                      dropout_rate=dropout_rate)
         self.cag = ContextualAttentionGate(embed_dim, embed_dim)
 
     def forward(self, query, key, value, key_mask: Optional[torch.Tensor] = None, *,
-                need_weights=True, average_attn_weights: bool = True):
+                need_weights=True, average_attn_weights: bool = True,
+                generator: Optional[torch.Generator] = None):
         attn_out, weights, q_proj = self.mha(
             query, key, value, key_mask, need_weights=need_weights,
             average_attn_weights=average_attn_weights, return_projected_q=True,
+            generator=generator,
         )
         return attn_out + self.cag(query, q_proj), weights

@@ -1,6 +1,7 @@
 """Model blocks (``multimodal_path_omic_tpu/ops/blocks.py``): the MIL
 scoring head, the masked MIL pooling, the fused SNN omic encoders and the
-WSI patch encoder."""
+WSI patch encoder. Dropout sites are active in training mode and draw from
+the ``generator`` passed to ``forward``."""
 
 from __future__ import annotations
 
@@ -31,9 +32,10 @@ class AttentionNetGated(nn.Module):
         self.drop_a = FastDropout(dropout_rate)
         self.drop_b = FastDropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        a = self.drop_a(torch.tanh(self.attention_a(x)))
-        b = self.drop_b(torch.sigmoid(self.attention_b(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = self.drop_a(torch.tanh(self.attention_a(x)), generator)
+        b = self.drop_b(torch.sigmoid(self.attention_b(x)), generator)
         return self.attention_c(a * b), x
 
 
@@ -51,13 +53,14 @@ class GatedMILPool(nn.Module):
         self.drop = FastDropout(dropout_rate)
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        scores, h = self.attention_head(x)
+        scores, h = self.attention_head(x, generator)
         a = scores.transpose(-1, -2)  # [B, 1, L]
         weights = masked_softmax(a, None if mask is None else mask[:, None, :])
         pooled = torch.matmul(weights, h)[:, 0, :]  # [B, D]
-        pooled = self.drop(F.relu(self.rho(pooled)))
+        pooled = self.drop(F.relu(self.rho(pooled)), generator)
         return pooled, a
 
 
@@ -69,8 +72,9 @@ class WSIEncoder(nn.Module):
         self.fc = TorchLinear(in_dim, dim)
         self.drop = FastDropout(dropout_rate)
 
-    def forward(self, wsi: torch.Tensor) -> torch.Tensor:
-        return self.drop(F.relu(self.fc(wsi)))
+    def forward(self, wsi: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.drop(F.relu(self.fc(wsi)), generator)
 
 
 class OmicEncoderStack(nn.Module):
@@ -94,7 +98,8 @@ class OmicEncoderStack(nn.Module):
         self.drop1 = AlphaDropout(dropout_rate)
         self.drop2 = AlphaDropout(dropout_rate)
 
-    def forward(self, omics: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, omics: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if len(omics) != len(self.sizes):
             raise ValueError(f"expected {len(self.sizes)} signatures, got {len(omics)}")
         max_s = self.fc1_kernel.shape[1]
@@ -102,6 +107,6 @@ class OmicEncoderStack(nn.Module):
             [F.pad(o.float(), (0, max_s - o.shape[-1])) for o in omics], dim=1
         )  # [B, N, max_s]
         h = torch.einsum("bns,nsd->bnd", x, self.fc1_kernel) + self.fc1_bias
-        h = self.drop1(F.elu(h))
+        h = self.drop1(F.elu(h), generator)
         h = torch.einsum("bnd,nde->bne", h, self.fc2_kernel) + self.fc2_bias
-        return self.drop2(F.elu(h))
+        return self.drop2(F.elu(h), generator)

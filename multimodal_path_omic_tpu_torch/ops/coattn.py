@@ -1,13 +1,18 @@
 """Pre-gated few-query co-attention: CUDA kernel wrappers, their plain
 PyTorch versions, and the dispatchers of ``multimodal_path_omic_tpu/ops/coattn.py``.
 
-Three kernels (``csrc/coattn.cu``) replace the TPU kernels of the NaCAGaT
-serving path:
+Five kernels (``csrc/coattn.cu``, ``csrc/coattn_bwd.cu``) replace the TPU
+kernels of the NaCAGaT serving and training paths:
 
 * :func:`coattn_fwd_fused_k` — the forward kernel in its fuse-K form: K is
   projected from the raw key-side input in-kernel (``k = kv @ wk + bk``),
   pre-gated, masked, online-softmaxed, and the raw values ``kv`` pooled;
   emits o, l, m and sumw (``coattention_fused_k``, eval: no dropout);
+* :func:`coattn_fwd_fused_k_train` — the same forward in its training form:
+  attention dropout in-kernel, the ssq and sumw side outputs of the dropped
+  weights, l and m saved for the backward;
+* :func:`coattn_bwd_fused_k` — the recompute backward of the fuse-K form:
+  dq, dkv, dwk, dbk (``_coattn_fk_bwd``), with its partial-sum reduce;
 * :func:`coattn_stats` — the forward kernel's plain-K form, statistics only
   (pass 1 of the attention-map export, ``coattention_weights``);
 * :func:`coattn_weights` — the weights-emission kernel (export pass 2).
@@ -21,6 +26,14 @@ mask value ``NEG``: a fully-masked row has uniform weights over its M keys,
 never NaN. (The TPU kernel pads M to its tile and spreads such a row over
 the padded length; the port, like the JAX package's plain attention_core,
 spreads it over exactly M.)
+
+Attention dropout (training form) follows torch: weights are normalized
+first, then dropped and rescaled by ``1 / (1 - rate)``. The TPU kernel draws
+its bits from the TPU's own generator per (seed, tile); the port uses a
+counter-based Philox4x32-10 per element (:func:`dropout_bits`), which the
+kernels and the plain versions compute identically, so the backward
+regenerates the forward's mask exactly. The keep rule is the TPU kernel's:
+keep iff bits >= :func:`dropout_threshold` (uint32).
 """
 
 from __future__ import annotations
@@ -34,10 +47,14 @@ from multimodal_path_omic_tpu_torch.ops import kernels
 
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
-FK_TILE = 64  # keys per fuse-K tile (csrc/coattn.cu FK_BM)
+FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
 STATS_MIN_KEYS_PER_WARP = 32
+TRAIN_DIMS = (128, 256)  # E and F the training kernels take
 
-LAUNCH_COUNTS = {"coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0}
+LAUNCH_COUNTS = {
+    "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
+    "coattn_fwd_fused_k_train": 0, "coattn_bwd_fused_k": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -78,14 +95,82 @@ def coattn_weights_plain(q, k, key_mask, l, m, *, pre_gate=True):
 
 
 def coattn_fwd_fused_k_plain(q, kv, wk, bk, key_mask=None):
+    """The eval form: the training form without dropout, no ssq."""
+    o, l, m, _, sumw = coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, None, 0.0)
+    return o, l, m, sumw
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, c: torch.Tensor):
+    """(a * c) >> 32 and (a * c) mod 2^32 for a uint32 constant ``a`` and
+    uint32 values ``c`` held in int64, in 16-bit halves so that no
+    intermediate leaves int64."""
+    lo_part = c * (a & 0xFFFF)
+    hi_part = c * (a >> 16)
+    t = ((hi_part & 0xFFFF) << 16) + lo_part
+    return (hi_part >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11) in torch integer ops: four
+    uint32 counter words and two key words (int64 tensors or ints, broadcast
+    together) -> the four uint32 output words as int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _U32
+            k1 = (k1 + 0xBB67AE85) & _U32
+        hi0, lo0 = _mulhilo(0xD2511F53, torch.as_tensor(c0))
+        hi1, lo1 = _mulhilo(0xCD9E8D57, torch.as_tensor(c2))
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_bits(seed: torch.Tensor, shape, device) -> torch.Tensor:
+    """[B, N, M] int64 attention-dropout bits of element (b, n, key): word 0
+    of Philox4x32-10 at counter (key, n, b, 0) under key (seed, 0), as
+    ``dropout_bits`` in csrc/coattn_common.cuh computes it. ``seed``: one
+    int32 (a [1] tensor)."""
+    b, n, m = shape
+    ar = [torch.arange(x, device=device, dtype=torch.int64) for x in (b, n, m)]
+    k0 = seed.to(device=device, dtype=torch.int64).reshape(()) & _U32
+    return philox4x32_10(
+        (ar[2][None, None, :], ar[1][None, :, None], ar[0][:, None, None], 0), (k0, 0)
+    )[0]
+
+
+def dropout_threshold(rate: float) -> int:
+    """uint32 threshold t with P(bits < t) = rate (coattn.py _dropout_threshold)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
+    """The training form: (o, l, m, ssq, sumw) with attention dropout at
+    ``rate`` from :func:`dropout_bits` (``seed`` is read only when rate >
+    0); l sums the undropped weights, o, ssq and sumw use the dropped ones.
+    Differentiable (m is a constant shift)."""
     k = torch.matmul(kv, wk) + bk
     s = _scores(q, k, key_mask, True)
-    m = s.amax(dim=-1)
+    m = s.amax(dim=-1).detach()
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    l_inv = _inv(l)
-    o = torch.matmul(p, kv) * l_inv[..., None]
-    return o, l, m, l * l_inv
+    w = p * _inv(l)[..., None]
+    if rate > 0.0:
+        keep = dropout_bits(seed, w.shape, w.device) >= dropout_threshold(rate)
+        w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
+    return torch.matmul(w, kv), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
+
+
+def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw):
+    """(dq, dkv, dwk, dbk): autograd through the plain training form, with
+    the cotangents of o, ssq and sumw."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, kv, wk, bk)]
+        o, _, _, ssq, sumw = coattn_fwd_fused_k_train_plain(*ins, key_mask, seed, rate)
+        return torch.autograd.grad((o, ssq, sumw), ins, (dout, dssq, dsumw))
 
 
 # =============================================================================
@@ -128,6 +213,28 @@ def _check_queries(n):
         raise ValueError(f"the co-attention kernels take 1..{MAX_QUERIES} queries, got {n}")
 
 
+def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
+    """Shapes and the split count of the fuse-K kernels: the (bag, split)
+    grid fills the SMs with every split owning at least one 64-key tile."""
+    b, n, e = q.shape
+    m_len, f = kv.shape[1], kv.shape[2]
+    _check_queries(n)
+    ok = e in TRAIN_DIMS and f in TRAIN_DIMS if train else (
+        e in (128, 256) and f % 16 == 0 and f <= 1024)
+    if not ok or m_len < 1:
+        raise ValueError(f"fuse-K kernel{' (training)' if train else ''}: "
+                         f"unsupported E={e}, F={f}, M={m_len}")
+    _require(q, "q", (b, n, e))
+    _require(kv, "kv", (b, m_len, f))
+    _require(wk, "wk", (f, e))
+    _require(bk, "bk", (e,))
+    mask_ptr = _mask_ptr(key_mask, b, m_len, q.device)
+    n_tiles = -(-m_len // FK_TILE)
+    splits = max(1, min(n_tiles, _sm_count(q.device) // b, 1024))
+    splits = -(-n_tiles // -(-n_tiles // splits))  # no split without a tile
+    return b, n, e, m_len, f, splits, mask_ptr
+
+
 def coattn_fwd_fused_k(
     q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,
@@ -137,19 +244,8 @@ def coattn_fwd_fused_k(
     F % 16 == 0 and F <= 1024, N <= 8, float32."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_plain(q, kv, wk, bk, key_mask)
-    b, n, e = q.shape
-    m_len, f = kv.shape[1], kv.shape[2]
-    _check_queries(n)
-    if e not in (128, 256) or f % 16 != 0 or f > 1024 or m_len < 1:
-        raise ValueError(f"fuse-K kernel: unsupported E={e}, F={f}, M={m_len}")
-    _require(q, "q", (b, n, e))
-    _require(kv, "kv", (b, m_len, f))
-    _require(wk, "wk", (f, e))
-    _require(bk, "bk", (e,))
+    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=False)
     dev = q.device
-    mask_ptr = _mask_ptr(key_mask, b, m_len, dev)
-    n_tiles = -(-m_len // FK_TILE)
-    splits = max(1, min(n_tiles, _sm_count(dev) // b, 1024))
     o = torch.empty((b, n, f), device=dev)
     l, m, sumw = (torch.empty((b, n), device=dev) for _ in range(3))
     o_part = torch.empty((b, splits, n, f), device=dev)
@@ -163,6 +259,104 @@ def coattn_fwd_fused_k(
     kernels.check(err, "coattn_fwd_fused_k")
     LAUNCH_COUNTS["coattn_fwd_fused_k"] += 1
     return o, l, m, sumw
+
+
+def _dropout_args(seed, rate, device):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate must lie in [0, 1), got {rate}")
+    _require(seed, "seed", (1,), torch.int32)
+    if seed.device != device:
+        raise ValueError("seed is on another device")
+    thresh = dropout_threshold(rate) if rate > 0.0 else 0
+    return thresh, (1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
+
+
+def coattn_fwd_fused_k_train(
+    q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
+    key_mask: Optional[torch.Tensor], seed: torch.Tensor, rate: float,
+) -> Tuple[torch.Tensor, ...]:
+    """The training form of the fuse-K forward: shapes as
+    :func:`coattn_fwd_fused_k`, plus ``seed`` (a [1] int32 tensor on the
+    same device) and the attention-dropout ``rate`` -> (o [B, N, F], l, m,
+    ssq, sumw [B, N]). Kernel: E, F in {128, 256}, N <= 8, float32."""
+    if q.device.type == "cpu":
+        return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate)
+    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
+    dev = q.device
+    thresh, keep_scale = _dropout_args(seed, rate, dev)
+    o = torch.empty((b, n, f), device=dev)
+    l, m, ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(4))
+    o_part = torch.empty((b, splits, n, f), device=dev)
+    ml_part, sq_part = (torch.empty((b, splits, n, 2), device=dev) for _ in range(2))
+    err = kernels.library("coattn").mpo_coattn_fwd_fused_k_train(
+        q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
+        o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
+        o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(),
+        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, _stream(dev),
+    )
+    kernels.check(err, "coattn_fwd_fused_k_train")
+    LAUNCH_COUNTS["coattn_fwd_fused_k_train"] += 1
+    return o, l, m, ssq, sumw
+
+
+def coattn_bwd_fused_k(
+    q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
+    key_mask: Optional[torch.Tensor], seed: torch.Tensor, rate: float,
+    dout: torch.Tensor, l: torch.Tensor, m: torch.Tensor, di: torch.Tensor,
+    dssq: torch.Tensor, dsumw: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Backward of :func:`coattn_fwd_fused_k_train` -> (dq [B, N, E],
+    dkv [B, M, F], dwk [F, E], dbk [E]), given the cotangents dout [B, N, F],
+    dssq, dsumw [B, N], the forward's l, m and
+    di = rowsum(o * dout) + 2 dssq ssq + dsumw sumw [B, N] (the plain
+    version recomputes what it needs and takes no l, m, di)."""
+    if q.device.type == "cpu":
+        return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
+    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
+    dev = q.device
+    thresh, keep_scale = _dropout_args(seed, rate, dev)
+    _require(dout, "dout", (b, n, f))
+    for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
+        _require(t, name, (b, n))
+    dq = torch.empty((b, n, e), device=dev)
+    dkv = torch.empty((b, m_len, f), device=dev)
+    dwk = torch.empty((f, e), device=dev)
+    dbk = torch.empty((e,), device=dev)
+    dq_part = torch.empty((b, splits, n, e), device=dev)
+    dwk_part = torch.empty((b * splits, f, e), device=dev)
+    dbk_part = torch.empty((b * splits, e), device=dev)
+    err = kernels.library("coattn_bwd").mpo_coattn_bwd_fused_k(
+        q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
+        dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
+        dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
+        dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(),
+        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, _stream(dev),
+    )
+    kernels.check(err, "coattn_bwd_fused_k")
+    LAUNCH_COUNTS["coattn_bwd_fused_k"] += 1
+    return dq, dkv, dwk, dbk
+
+
+class FusedKTrain(torch.autograd.Function):
+    """The training form of the fuse-K co-attention with its backward kernel
+    (JAX: the custom VJP ``_coattn_fk``): (q, kv, wk, bk) -> (o, ssq, sumw).
+    di is computed here in plain torch, as ``_coattn_fk_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, kv, wk, bk, key_mask, seed, rate):
+        o, l, m, ssq, sumw = coattn_fwd_fused_k_train(q, kv, wk, bk, key_mask, seed, rate)
+        ctx.save_for_backward(q, kv, wk, bk, key_mask, seed, o, l, m, ssq, sumw)
+        ctx.rate = rate
+        return o, ssq, sumw
+
+    @staticmethod
+    def backward(ctx, dout, dssq, dsumw):
+        q, kv, wk, bk, key_mask, seed, o, l, m, ssq, sumw = ctx.saved_tensors
+        dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
+        di = (o * dout).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
+        grads = coattn_bwd_fused_k(q, kv, wk, bk, key_mask, seed, ctx.rate, dout, l, m,
+                                   di, dssq, dsumw)
+        return (*grads, None, None, None)
 
 
 def _plain_k_checks(q, k):
@@ -233,6 +427,7 @@ def coattn_weights(
 def fused_attention_leank(
     q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None, *,
+    dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
     need_ssq: bool = False, need_sumw: bool = False,
 ):
     """Pre-gated attention from the raw key-side input, K projected
@@ -240,14 +435,28 @@ def fused_attention_leank(
     projection to the [B, N, F] result: ops/attention.py lean-V).
 
     q [B, N, E], kv [B, M, F], wk [F, E], bk [E] -> o [B, N, F], extended to
-    a tuple by ``need_sumw`` (sumw [B, N]). On CUDA the kernel runs at every
-    shape it supports (the TPU-tuned M cut-over is not carried over).
-    ``need_ssq`` (the training-time cesar side output) comes with training.
+    a tuple by ``need_ssq`` (ssq [B, N]) then ``need_sumw`` (sumw [B, N]).
+    ``dropout_rate`` > 0 drops attention weights with bits keyed by
+    ``dropout_seed`` (a [1] int32 tensor on q's device). With dropout, ssq,
+    or a gradient to take, the training form runs (:class:`FusedKTrain`:
+    training forward + backward kernels); otherwise the eval kernel. On
+    CUDA the kernels run at every shape they support (the TPU-tuned M
+    cut-overs are not carried over).
     """
-    if need_ssq:
-        raise NotImplementedError("need_ssq belongs to the training slice")
-    o, _, _, sumw = coattn_fwd_fused_k(q, kv, wk, bk, key_mask)
-    return (o, sumw) if need_sumw else o
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, kv, wk, bk))
+    if dropout_rate > 0.0 or need_ssq or wants_grad:
+        if dropout_seed is None:
+            if dropout_rate > 0.0:
+                raise ValueError("dropout_rate > 0 requires a dropout_seed")
+            dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+        o, ssq, sumw = FusedKTrain.apply(q, kv, wk, bk, key_mask, dropout_seed,
+                                         float(dropout_rate))
+    else:
+        o, _, _, sumw = coattn_fwd_fused_k(q, kv, wk, bk, key_mask)
+        ssq = None
+    extras = ([ssq] if need_ssq else []) + ([sumw] if need_sumw else [])
+    return tuple([o] + extras) if extras else o
 
 
 def coattention_weights(

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared library
 with a plain C interface, loaded with ``ctypes``. The build happens at first
 use, from the package's sources only, into ``<package>/_build/``
-(gitignored); a library is named by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is reused.
+(gitignored); a library is named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: this module imports on machines without
@@ -31,13 +32,18 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signatures of every exported function, by library.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "coattn": {
         "mpo_coattn_fwd_fused_k": [_P] * 11 + [_I] * 6 + [_F, _P],
+        "mpo_coattn_fwd_fused_k_train": [_P] * 14 + [_I] * 6 + [_F, _U, _F, _P],
         "mpo_coattn_stats": [_P] * 6 + [_I] * 6 + [_F, _P],
         "mpo_coattn_weights": [_P] * 6 + [_I] * 6 + [_F, _P],
+    },
+    "coattn_bwd": {
+        "mpo_coattn_bwd_fused_k": [_P] * 19 + [_I] * 6 + [_F, _U, _F, _P],
     },
 }
 
@@ -54,9 +60,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:  # every source may include any header
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str) -> Optional[subprocess.Popen]:

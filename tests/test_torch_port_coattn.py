@@ -210,8 +210,8 @@ def test_attention_core_and_tiny_attention_match_jax():
 
 
 def test_leank_dispatcher_returns_jax_layout():
-    """fused_attention_leank keeps the JAX signature: o [B, N, F] alone, or
-    (o, sumw) with need_sumw; need_ssq (training) is refused."""
+    """fused_attention_leank keeps the JAX signature: o [B, N, F] alone, or a
+    tuple extended by need_ssq (ssq [B, N]) then need_sumw (sumw [B, N])."""
     q, kv, wk, bk, _, mask = _data(1024, 9)
     o = tcoattn.fused_attention_leank(_t(q), _t(kv), _t(wk), _t(bk), _t(mask))
     o2, sumw = tcoattn.fused_attention_leank(
@@ -219,5 +219,10 @@ def test_leank_dispatcher_returns_jax_layout():
     )
     assert o.shape == (B, N, F) and sumw.shape == (B, N)
     assert torch.equal(o, o2)
-    with pytest.raises(NotImplementedError):
-        tcoattn.fused_attention_leank(_t(q), _t(kv), _t(wk), _t(bk), need_ssq=True)
+    o3, ssq = tcoattn.fused_attention_leank(_t(q), _t(kv), _t(wk), _t(bk), _t(mask),
+                                            need_ssq=True)
+    assert o3.shape == (B, N, F) and ssq.shape == (B, N)
+    o_j, ssq_j = jcoattn.coattention_fused_k(
+        _j(q), _j(kv), _j(wk), _j(bk), _j(mask), need_ssq=True, interpret=True)
+    _close(o3, o_j)
+    _close(ssq, ssq_j)

@@ -143,7 +143,7 @@ def test_pregating_contextual_attention_matches_jax(world, need_weights, monkeyp
     )
     if not need_weights:
         assert jcoattn.DISPATCH_COUNTS["kernel"] > before  # the Pallas kernel ran
-    module = load_jax_params(tattention.PreGatingContextualAttention(D), p)
+    module = load_jax_params(tattention.PreGatingContextualAttention(D), p).eval()
     ht = _t(h)
     out, w = module(_t(g), ht, ht, _t(mask), need_weights=need_weights)
     _close(out, out_j)
