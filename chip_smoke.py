@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its NaCAGaT serving and training
-paths on one GPU.
+paths and its GE-NaCAGaT serving path on one GPU.
 
-    python3 chip_smoke.py              # phases 1-6 below
+    python3 chip_smoke.py              # phases 1-9 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -35,6 +35,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    versions, whose gradients must agree.
 6. Timings: the training kernels beside their plain versions and bounds;
    the training step's ms and train bags/s.
+7. The GE kernels against their plain versions on the card: the gated-MIL
+   pool at D=H=256, B=8, M in {16384, 24576, 5000 (ragged)}, ragged masks,
+   one fully-masked bag, one call without a mask; the flash forward at
+   (heads, width) = (1, 256) and (8, 32), read in place from a packed
+   [B, M, 768] projection, at the main path's batch (B=8, M=16384), at B=2
+   with M in {16384, 5000} and at B=1 with M=24576, ragged masks and one
+   fully-masked bag, valid and pad rows alike.
+8. The GE-NaCAGaT ``Predictor`` at full width (``medium``, 1024-wide patch
+   features, 3 classes, buckets 8192/16384, batch 8, random weights from a
+   seed) through ``predict_bags`` (12 bags of 5000..16384 patches, no omics)
+   and ``predict_bag``. Launch counts are reset just before and read just
+   after: three flash launches and one pool launch per batch, no
+   co-attention kernel. ``y`` must be finite, sum to 1 per row and match the
+   same Predictor on the CPU on two bags of the 8192 bucket, as must the raw
+   MIL scores of an eval step.
+9. Timings: the pool and the flash forward (both head shapes) beside their
+   plain versions, their bounds and, for the flash forward, one
+   ``scaled_dot_product_attention`` call; GE ``predict_bags`` bags/s.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -46,7 +64,9 @@ phase-2 Predictor for each loss on the same bags, and traces one
 name, wall time and the device busy share (summed device time over wall
 time), then one JSON line per loss with the same numbers. It then traces one
 phase-5 training step the same way, with its device time split into
-matrix-product, co-attention-kernel, optimizer and other kernels.
+matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
+``predict_bags`` call of phase 8, split into flash kernel, MIL-pool kernel,
+matrix products, copies and other.
 """
 
 from __future__ import annotations
@@ -79,6 +99,9 @@ SOURCES = {
     "coattn_weights": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "milpool": "multimodal_path_omic_tpu_torch/csrc/milpool.cu",
+    "flash_fwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
+    "flash_fwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -87,6 +110,9 @@ REPLACES = {
     "coattn_weights": "multimodal_path_omic_tpu/ops/coattn.py:908",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:508",
+    "milpool": "multimodal_path_omic_tpu/ops/milpool.py:131",
+    "flash_fwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
+    "flash_fwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -127,6 +153,23 @@ GRAD_ATOL = 1e-8
 # The drop share of the Philox bits over B*N*M = 1.57M draws: its standard
 # error is 3.5e-4, so 0.002 is ~6 of them.
 DROP_TOL = 0.002
+# GE serving (phases 7-9): examples/ge_nacagat.yaml's buckets and batch size
+# (the 24576 bucket is held by phase 7 at the kernel level), medium width.
+GE_B, GE_M, GE_D = 8, 16384, 256
+GE_BUCKETS = (8192, 16384)
+GE_N_BAGS = 12
+# (heads, width) of GE's three self-attentions: the first once, the second in
+# each of the path transformer's two layers. The flash kernel has one template
+# instance per width, each with its own count and row (flash_fwd_d<width>).
+GE_HEADS = ((1, 256), (8, 32))
+# The GE kernels against their plain versions, both float32: the pool sums
+# up to 24,576 weighted rows of magnitude ~1 per split and merges splits; the
+# flash forward sums 256 (or 32) products per score and up to 24,576 weighted
+# values per output, per 128-key tile, where cuBLAS and torch.softmax take
+# other orders. Outputs of magnitude ~1 move by ~1e-6 to 1e-5; a tiling,
+# stride or mask fault moves them by O(0.1-1). 1e-4 absolute for the pooled
+# rows, the raw scores and every attention output row, pad rows included.
+GE_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -248,19 +291,17 @@ def make_predictor(dev, loss, batch_size=B):
 def phase2_predictor(dev, bags, omics) -> dict:
     import torch
 
-    from multimodal_path_omic_tpu_torch.ops import coattn
-
     launches = {}
     results = {}
     for loss in ("ces", "cesar"):
         log(f"phase 2: NaCAGaT medium Predictor, loss={loss}, {len(bags)} bags, "
             f"buckets {BUCKETS}, batch_size {B}")
         pred = make_predictor(dev, loss)
-        coattn.reset_launch_counts()
+        reset_counts()
         out = pred.predict_bags(bags, omics)
         single = pred.predict_bag(bags[1], omics[1])
         torch.cuda.synchronize()
-        counts = dict(coattn.LAUNCH_COUNTS)
+        counts = read_counts()
         log(f"  launches: {counts}")
         for name, c in counts.items():
             launches[name] = launches.get(name, 0) + c
@@ -494,19 +535,18 @@ def train_step_grads(dev, batch, plain: bool) -> dict:
 def phase5_training(dev, batch) -> dict:
     import torch
 
-    from multimodal_path_omic_tpu_torch.ops import coattn
     from multimodal_path_omic_tpu_torch.train.loop import accumulation_chunks
 
     log(f"phase 5: NaCAGaT medium trainer, cesar, dropout {TRAIN_RATE}, Adam; batch "
         f"[{B}, {TRAIN_M}, 1024], {TRAIN_STEPS} steps")
     model, state, step = make_trainer(dev)
-    coattn.reset_launch_counts()
+    reset_counts()
     losses = []
     for _ in range(TRAIN_STEPS):
         state, metrics = step(state, batch)
         losses.append(metrics.loss)
     torch.cuda.synchronize()
-    counts = dict(coattn.LAUNCH_COUNTS)
+    counts = read_counts()
     losses = [float(x) for x in losses]
     log(f"  losses: {losses}")
     log(f"  launches: {counts}")
@@ -570,6 +610,330 @@ def phase6_train_timings(dev, errs, launches, trainer, batch) -> list:
         f"{', '.join(f'{t:.3f}' for t in times)} ms (host clock, synchronized); median "
         f"{med:.3f} ms = {B / med * 1e3:.1f} train bags/s")
     return rows
+
+
+def ge_pool_inputs(m_len, seed, dev, masked=True):
+    """Pool inputs of GE's scale: x like a post-LayerNorm transformer output
+    (std 1), gating weights that give a and g of order 1 and scores of std
+    ~2 (a peaked, non-uniform softmax), ragged masks, the last bag fully
+    masked (a filler row)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(GE_B, m_len, GE_D, generator=g)
+    wa, wb = (torch.randn(GE_D, GE_D, generator=g) / math.sqrt(GE_D) for _ in range(2))
+    ba, bb = (0.1 * torch.randn(GE_D, generator=g) for _ in range(2))
+    wc = 0.25 * torch.randn(GE_D, 1, generator=g)
+    bc = 0.1 * torch.randn(1, generator=g)
+    mask = None
+    if masked:
+        lengths = torch.randint(m_len // 5, m_len + 1, (GE_B,), generator=g)
+        lengths[0] = m_len
+        lengths[-1] = 0
+        mask = (torch.arange(m_len)[None, :] < lengths[:, None]).to(dev)
+    return [x.to(dev), mask] + [t.to(dev) for t in (wa, ba, wb, bb, wc, bc)]
+
+
+def ge_flash_inputs(b, heads, m_len, seed, dev):
+    """q, k, v as MultiheadAttention hands them over: the head views of one
+    packed [B, M, 3E] projection (strided, read in place), q and k of std
+    ~1.5 and 1 (scores of std ~1.5: a peaked softmax); ragged masks, the
+    last bag fully masked when there is more than one."""
+    import torch
+
+    e = GE_D
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(b, m_len, 3 * e, generator=g)
+    qkv[..., :e] *= 1.5
+    qkv = qkv.to(dev)
+    lengths = torch.randint(m_len // 5, m_len + 1, (b,), generator=g)
+    if b > 1:
+        lengths[-1] = 0
+    mask = (torch.arange(m_len)[None, :] < lengths[:, None]).to(dev)
+    q, k, v = (t.reshape(b, m_len, heads, e // heads).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    return q, k, v, mask
+
+
+def plain_chunk(b, heads, m_len) -> int:
+    """Query rows per step of the plain attention: scores of at most 1 GiB."""
+    return max(1, min(1024, 2**28 // (b * heads * m_len)))
+
+
+def phase7_ge_kernels(dev) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash, milpool
+
+    errs = {"milpool": 0.0, "flash_fwd_d256": 0.0, "flash_fwd_d32": 0.0}
+    for m_len, masked in ((GE_M, True), (24576, True), (5000, True), (5000, False)):
+        log(f"phase 7: MIL pool B={GE_B} M={m_len} D=H={GE_D} "
+            f"{'ragged masks, one fully-masked bag' if masked else 'mask=None'}")
+        args = ge_pool_inputs(m_len, m_len + int(masked), dev, masked)
+        pooled, scores = milpool.fused_gated_mil_pool(*args)
+        pooled_ref, scores_ref = milpool.gated_mil_pool_plain(*args)
+        errs["milpool"] = max(errs["milpool"],
+                              check_close("milpool.pooled", pooled, pooled_ref, GE_ATOL),
+                              check_close("milpool.scores", scores, scores_ref, GE_ATOL))
+        if masked:  # the fully-masked filler bag pools uniformly, never NaN
+            check_close("milpool.filler_bag", pooled[-1], args[0][-1].mean(dim=0), GE_ATOL)
+    for heads, width in GE_HEADS:
+        name = f"flash_fwd_d{width}"
+        for b, m_len in ((GE_B, GE_M), (2, GE_M), (2, 5000), (1, 24576)):
+            log(f"phase 7: flash forward B={b} H={heads} dh={width} M={m_len}, strided "
+                f"q/k/v, ragged masks{', one fully-masked bag' if b > 1 else ''}")
+            q, k, v, mask = ge_flash_inputs(b, heads, m_len, m_len + heads, dev)
+            out = flash.flash_attention(q, k, v, mask)
+            ref = flash.flash_attention_plain(q, k, v, mask, chunk=plain_chunk(b, heads, m_len))
+            if out.shape != ref.shape:
+                raise AssertionError(f"flash output shape {tuple(out.shape)}")
+            valid = mask[:, None, :, None].expand_as(out)
+            errs[name] = max(
+                errs[name],
+                check_close("flash.valid_rows", out[valid], ref[valid], GE_ATOL),
+                check_close("flash.pad_rows", out[~valid], ref[~valid], GE_ATOL))
+            if b > 1:  # no valid key: the uniform mean of v
+                check_close("flash.filler_bag", out[-1],
+                            v[-1].mean(dim=1, keepdim=True).expand_as(out[-1]), GE_ATOL)
+            del out, ref, valid
+    torch.cuda.synchronize()
+    return errs
+
+
+def make_ge_bags(seed):
+    """12 bags of 5000..16384 patches; the first two sit in the 8192 bucket."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(5000, GE_BUCKETS[-1] + 1, size=GE_N_BAGS)
+    lengths[0], lengths[1] = 5000, 7001
+    return [rng.standard_normal((int(n), 1024), dtype=np.float32) for n in lengths]
+
+
+def make_ge_predictor(dev, batch_size=GE_B):
+    """The GE serving configuration: GE-NaCAGaT medium, random weights from
+    seed 0, 3 classes, loss ce."""
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+
+    return Predictor("GE-NaCAGaT", model_size="medium", buckets=GE_BUCKETS,
+                     batch_size=batch_size, seed=0, device=dev)
+
+
+def reset_counts() -> None:
+    from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool
+
+    for mod in (coattn, flash, milpool):
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool
+
+    return {**coattn.LAUNCH_COUNTS, **flash.LAUNCH_COUNTS, **milpool.LAUNCH_COUNTS}
+
+
+def ge_eval_scores(pred, bags):
+    """The raw MIL scores [len(bags), 8192] of one eval step on ``bags``
+    padded into the 8192 bucket."""
+    import torch
+
+    bucket = GE_BUCKETS[0]
+    wsi = torch.zeros((len(bags), bucket, 1024))
+    mask = torch.zeros((len(bags), bucket), dtype=torch.bool)
+    for row, bag in enumerate(bags):
+        wsi[row, :len(bag)] = torch.from_numpy(bag)
+        mask[row, :len(bag)] = True
+    dev = pred.device
+    out = pred.eval_step({
+        "wsi": wsi.to(dev), "mask": mask.to(dev),
+        "label": torch.zeros(len(bags), dtype=torch.long, device=dev),
+        "weight": torch.ones(len(bags), device=dev),
+    })
+    return out["attention"]["path"][:, 0].cpu(), mask
+
+
+def phase8_ge_predictor(dev, bags) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.bags import bucket_for
+
+    log(f"phase 8: GE-NaCAGaT medium Predictor, {len(bags)} bags of "
+        f"{min(map(len, bags))}..{max(map(len, bags))} patches, buckets {GE_BUCKETS}, "
+        f"batch_size {GE_B}, no omics")
+    pred = make_ge_predictor(dev)
+    per_bucket = {}
+    for bag in bags:
+        bucket = bucket_for(len(bag), GE_BUCKETS)
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+    batches = sum(-(-n // GE_B) for n in per_bucket.values()) + 1  # + predict_bag
+    reset_counts()
+    out = pred.predict_bags(bags)
+    single = pred.predict_bag(bags[1])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches over {batches} batches: {counts}")
+    want = {name: 0 for name in counts}
+    want.update(flash_fwd_d256=batches, flash_fwd_d32=2 * batches, milpool=batches)
+    if counts != want:
+        raise AssertionError(f"GE launches {counts}, expected {want}")
+    y = out["y"]
+    if set(out) != {"y"} or y.shape != (len(bags), 3) or not np.isfinite(y).all():
+        raise AssertionError(f"GE outputs {set(out)}, y {y.shape}")
+    if float(np.abs(y.sum(axis=1) - 1.0).max()) > 1e-5:
+        raise AssertionError("GE class probabilities do not sum to 1")
+    log(f"  y over {len(bags)} bags: min {y.min():.6f} max {y.max():.6f}; spread over bags "
+        f"{y.std(axis=0).max():.3e}")
+    d = float(np.abs(single["y"] - y[1:2]).max())
+    log(f"  predict_bag vs predict_bags row 1: |y diff| = {d:.3e}")
+    if d > MODEL_ATOL:
+        raise AssertionError("GE predict_bag and predict_bags disagree")
+    # against the plain path: the same Predictor (same seed) on the CPU, on the
+    # two bags of the 8192 bucket (the CPU's chunked M x M attention is slow)
+    cpu = make_ge_predictor("cpu", batch_size=2)
+    t0 = time.perf_counter()
+    ref = cpu.predict_bags(bags[:2])
+    err = float(np.abs(y[:2] - ref["y"]).max())
+    log(f"  y vs CPU plain path: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g}; CPU "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if err > MODEL_ATOL:
+        raise AssertionError("GE y disagrees with the CPU plain path")
+    # y is a softmax over 3 classes and hides much; the raw MIL scores of the
+    # valid patches carry every layer's output
+    got_s, mask = ge_eval_scores(pred, bags[:2])
+    ref_s, _ = ge_eval_scores(cpu, bags[:2])
+    err = float((got_s - ref_s)[mask].abs().max())
+    log(f"  raw MIL scores of the valid patches vs CPU plain path: max_abs_err={err:.3e} "
+        f"(tolerance {MODEL_ATOL:g}; max |score| {float(ref_s[mask].abs().max()):.3e})")
+    if not (err <= MODEL_ATOL and bool(torch.isfinite(got_s).all())):
+        raise AssertionError("GE MIL scores disagree with the CPU plain path")
+    return {"launches": counts, "predictor": pred}
+
+
+def ge_bound_ms(name, mask=None) -> tuple:
+    """Bounds of the GE kernels at B=8, M=16384, D=H=256. The flash forward
+    needs only the valid keys' products (a masked key's weight is exactly 0;
+    a bag with no valid key needs all of them): counted from ``mask``."""
+    import torch
+
+    b, m, d = GE_B, GE_M, GE_D
+    if name == "milpool":
+        nbytes = 4 * (b * m * d + 2 * d * d + 3 * d + 1 + b * d + b * m) + b * m
+        ops = 4 * b * m * d * d + 2 * b * m * d + 2 * b * m * d
+    else:
+        n_valid = mask.sum(dim=1)
+        keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
+        nbytes = 4 * 4 * b * m * d + b * m
+        ops = 4 * m * keys * d  # heads * width = d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_ms(q, k, v, mask):
+    """One scaled_dot_product_attention call on the same inputs (timed as the
+    yardstick; the port never calls it), restricted to its memory-efficient
+    backend: the math backend would materialize the M x M scores."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :])
+
+    return cuda_ms(call, iters=5, warmup=1), call()
+
+
+def phase9_ge_timings(dev, errs, launches, pred, bags) -> list:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash, milpool
+
+    def row(name, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
+    args = ge_pool_inputs(GE_M, 11, dev)
+    ms = cuda_ms(lambda: milpool.fused_gated_mil_pool(*args))
+    plain_ms = cuda_ms(lambda: milpool.gated_mil_pool_plain(*args))
+    bound = ge_bound_ms("milpool")
+    log(f"phase 9: milpool B={GE_B} M={GE_M} D=H={GE_D}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    # no single PyTorch call computes a gated scoring head with its pooled sum
+    rows = [row("milpool", ms, plain_ms, bound, None)]
+    del args
+    for heads, width in GE_HEADS:
+        name = f"flash_fwd_d{width}"
+        q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, 13 + heads, dev)
+        chunk = plain_chunk(GE_B, heads, GE_M)
+        ms = cuda_ms(lambda: flash.flash_attention(q, k, v, mask), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, mask, chunk=chunk),
+                           iters=3, warmup=1)
+        lib_ms, lib_out = sdpa_ms(q, k, v, mask)
+        bound = ge_bound_ms(name, mask)
+        log(f"phase 9: {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (chunks of {chunk} rows), "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}, valid keys only; all keys: "
+            f"{4 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms)")
+        # the library call is a second reference on the bags with valid keys
+        # (its -inf fill makes the bag without one NaN)
+        out = flash.flash_attention(q, k, v, mask)
+        check_close(f"{name} vs scaled_dot_product_attention", out[:-1], lib_out[:-1], GE_ATOL)
+        rows.append(row(name, ms, plain_ms, bound, lib_ms))
+        del q, k, v, mask, out, lib_out
+    pred.predict_bags(bags)  # warm
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_bags(bags)
+        torch.cuda.synchronize()
+        rates.append(len(bags) / (time.perf_counter() - t0))
+    log(f"phase 9: GE predict_bags: {len(bags)} bags, 3 calls: "
+        f"{', '.join(repr(r) for r in rates)} bags/s (host clock, batches of {GE_B}, "
+        f"buckets {GE_BUCKETS})")
+    return rows
+
+
+def profile_ge_serving(dev, bags, top=15) -> None:
+    import torch
+
+    pred = make_ge_predictor(dev)
+    pred.predict_bags(bags)  # warm: library load, cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pred.predict_bags(bags)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    split = {"flash kernel": 0.0, "MIL pool kernel": 0.0, "matmul": 0.0, "copies": 0.0,
+             "other": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        if "flash_fwd_kernel" in low:
+            split["flash kernel"] += ms
+        elif "milpool" in low:
+            split["MIL pool kernel"] += ms
+        elif "gemm" in low or "xmma" in low or "cutlass" in low:
+            split["matmul"] += ms
+        elif "memcpy" in low or "memset" in low:
+            split["copies"] += ms
+        else:
+            split["other"] += ms
+    device_ms = sum(r[1] for r in rows)
+    log(f"profile: GE predict_bags; {len(bags)} bags; wall {wall_ms:.3f} ms; device "
+        f"{device_ms:.3f} ms; busy share {device_ms / wall_ms:.4f}; split "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    for name, ms, count in rows[:top]:
+        log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
+    log(json.dumps({
+        "ge_serving": True, "bags": len(bags), "wall_ms": wall_ms, "device_ms": device_ms,
+        "busy_share": device_ms / wall_ms, "split_ms": split,
+        "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in rows[:top]],
+    }))
 
 
 def device_rows(prof) -> list:
@@ -661,8 +1025,8 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one predict_bags call per loss and one training step "
-                         "instead of phases 1-6")
+                    help="trace one predict_bags call per loss, one training step and "
+                         "one GE predict_bags call instead of phases 1-9")
     args = ap.parse_args()
     try:
         import torch
@@ -696,6 +1060,8 @@ def main() -> int:
         for loss in WANT:
             profile_serving(dev, loss, bags, omics)
         profile_training(dev, stage_train_batch(dev, bags, omics))
+        del bags, omics
+        profile_ge_serving(dev, make_ge_bags(2))
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)
@@ -706,6 +1072,12 @@ def main() -> int:
     batch = stage_train_batch(dev, bags, omics)
     p5 = phase5_training(dev, batch)
     rows += phase6_train_timings(dev, errs, p5["launches"], p5, batch)
+    del p5, batch, bags, omics
+    torch.cuda.empty_cache()
+    errs.update(phase7_ge_kernels(dev))
+    ge_bags = make_ge_bags(2)
+    p8 = phase8_ge_predictor(dev, ge_bags)
+    rows += phase9_ge_timings(dev, errs, p8["launches"], p8["predictor"], ge_bags)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

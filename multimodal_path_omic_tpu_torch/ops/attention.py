@@ -1,5 +1,5 @@
 """Attention primitives (``multimodal_path_omic_tpu/ops/attention.py``):
-the branches of ``MultiheadAttention`` that NaCAGaT's eval takes, the
+the branches of ``MultiheadAttention`` that NaCAGaT and GE-NaCAGaT take, the
 contextual attention gate and the pre-gated contextual co-attention.
 
 Inputs are batched ``[B, seq, dim]`` with an optional boolean key-validity
@@ -21,6 +21,7 @@ from multimodal_path_omic_tpu_torch.ops.coattn import (
     attention_with_weights,
     fused_attention_leank,
 )
+from multimodal_path_omic_tpu_torch.ops.flash import flash_attention
 from multimodal_path_omic_tpu_torch.ops.layers import (
     TorchLinear,
     dropout,
@@ -93,6 +94,10 @@ class MultiheadAttention(nn.Module):
       reassociated onto the pooled rows: out = (w.kv) @ wv + bv * sum(w);
       in training the kernels' training form (dropout, ssq, backward);
     * tiny: few-token attention without weights (branch transformers);
+    * flash (eval, self-attention over more than 32 positions, no pre-gate,
+      weights not requested: GE's bag self-attention and path transformer):
+      :func:`flash_attention`, the L x L scores never in device memory; the
+      heads are read in place from the packed projection;
     * export (weights requested, cross-attention, no dropout): two-pass
       weights emission;
     * otherwise :func:`attention_core`.
@@ -166,7 +171,10 @@ class MultiheadAttention(nn.Module):
                                           generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if need_weights is True and not self_attn and rate == 0.0:
+                if (need_weights is False and not self.pre_gate and not self.training
+                        and self_attn and key is value and query.shape[1] > 32):
+                    out_h = flash_attention(qh, kh, vh, key_mask)
+                elif need_weights is True and not self_attn and rate == 0.0:
                     out_h, weights = attention_with_weights(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate
                     )

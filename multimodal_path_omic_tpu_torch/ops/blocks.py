@@ -17,6 +17,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import (
     TorchLinear,
     masked_softmax,
 )
+from multimodal_path_omic_tpu_torch.ops.milpool import fused_gated_mil_pool
 
 
 class AttentionNetGated(nn.Module):
@@ -40,10 +41,15 @@ class AttentionNetGated(nn.Module):
 
 
 class GatedMILPool(nn.Module):
-    """Masked gated-attention MIL pooling + rho head (the eager branch of the
-    JAX module; its fused kernel serves GE eval, a later slice).
+    """Masked gated-attention MIL pooling + rho head.
 
     x: [B, L, D], mask: [B, L] or None -> (pooled [B, D], raw scores [B, 1, L]).
+
+    In eval, a pool over more than 32 positions (GE pools the patch axis)
+    goes through :func:`fused_gated_mil_pool`: on a CUDA tensor the streaming
+    kernel, with no [B, L, D] branch activations in device memory; on a CPU
+    tensor its plain version. Few-token pools (the 6-token branches) and
+    training (two dropout sites, no backward kernel) take the eager branch.
     """
 
     def __init__(self, dim: int, dropout_rate: float = 0.25):
@@ -56,10 +62,19 @@ class GatedMILPool(nn.Module):
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        scores, h = self.attention_head(x, generator)
-        a = scores.transpose(-1, -2)  # [B, 1, L]
-        weights = masked_softmax(a, None if mask is None else mask[:, None, :])
-        pooled = torch.matmul(weights, h)[:, 0, :]  # [B, D]
+        if not self.training and x.shape[1] > 32:
+            head = self.attention_head
+            pooled, s = fused_gated_mil_pool(
+                x, mask, head.attention_a.weight.t(), head.attention_a.bias,
+                head.attention_b.weight.t(), head.attention_b.bias,
+                head.attention_c.weight.t(), head.attention_c.bias,
+            )
+            a = s[:, None, :]  # [B, 1, L] raw scores
+        else:
+            scores, h = self.attention_head(x, generator)
+            a = scores.transpose(-1, -2)  # [B, 1, L]
+            weights = masked_softmax(a, None if mask is None else mask[:, None, :])
+            pooled = torch.matmul(weights, h)[:, 0, :]  # [B, D]
         pooled = self.drop(F.relu(self.rho(pooled)), generator)
         return pooled, a
 

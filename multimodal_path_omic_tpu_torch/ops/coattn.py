@@ -178,36 +178,6 @@ def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, ds
 # =============================================================================
 
 
-def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16 != 0:
-        raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
-
-
-def _mask_ptr(key_mask, b, m_len, device):
-    if key_mask is None:
-        return None
-    _require(key_mask, "key_mask", (b, m_len), torch.bool)
-    if key_mask.device != device:
-        raise ValueError("key_mask is on another device")
-    return key_mask.data_ptr()
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check_queries(n):
     if not 1 <= n <= MAX_QUERIES:
         raise ValueError(f"the co-attention kernels take 1..{MAX_QUERIES} queries, got {n}")
@@ -224,14 +194,13 @@ def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
     if not ok or m_len < 1:
         raise ValueError(f"fuse-K kernel{' (training)' if train else ''}: "
                          f"unsupported E={e}, F={f}, M={m_len}")
-    _require(q, "q", (b, n, e))
-    _require(kv, "kv", (b, m_len, f))
-    _require(wk, "wk", (f, e))
-    _require(bk, "bk", (e,))
-    mask_ptr = _mask_ptr(key_mask, b, m_len, q.device)
+    kernels.require(q, "q", (b, n, e))
+    kernels.require(kv, "kv", (b, m_len, f))
+    kernels.require(wk, "wk", (f, e))
+    kernels.require(bk, "bk", (e,))
+    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, q.device)
     n_tiles = -(-m_len // FK_TILE)
-    splits = max(1, min(n_tiles, _sm_count(q.device) // b, 1024))
-    splits = -(-n_tiles // -(-n_tiles // splits))  # no split without a tile
+    splits = kernels.tile_splits(n_tiles, kernels.sm_count(q.device) // b)
     return b, n, e, m_len, f, splits, mask_ptr
 
 
@@ -254,7 +223,7 @@ def coattn_fwd_fused_k(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), sumw.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), _stream(dev),
+        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_fused_k")
     LAUNCH_COUNTS["coattn_fwd_fused_k"] += 1
@@ -264,7 +233,7 @@ def coattn_fwd_fused_k(
 def _dropout_args(seed, rate, device):
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention dropout rate must lie in [0, 1), got {rate}")
-    _require(seed, "seed", (1,), torch.int32)
+    kernels.require(seed, "seed", (1,), torch.int32)
     if seed.device != device:
         raise ValueError("seed is on another device")
     thresh = dropout_threshold(rate) if rate > 0.0 else 0
@@ -292,7 +261,7 @@ def coattn_fwd_fused_k_train(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, _stream(dev),
+        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_fused_k_train")
     LAUNCH_COUNTS["coattn_fwd_fused_k_train"] += 1
@@ -315,9 +284,9 @@ def coattn_bwd_fused_k(
     b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
-    _require(dout, "dout", (b, n, f))
+    kernels.require(dout, "dout", (b, n, f))
     for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
-        _require(t, name, (b, n))
+        kernels.require(t, name, (b, n))
     dq = torch.empty((b, n, e), device=dev)
     dkv = torch.empty((b, m_len, f), device=dev)
     dwk = torch.empty((f, e), device=dev)
@@ -330,7 +299,7 @@ def coattn_bwd_fused_k(
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
         dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, _stream(dev),
+        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_fused_k")
     LAUNCH_COUNTS["coattn_bwd_fused_k"] += 1
@@ -365,11 +334,11 @@ def _plain_k_checks(q, k):
     _check_queries(n)
     if d not in (128, 256, 512) or m_len < 1:
         raise ValueError(f"plain-K kernels: unsupported D={d}, M={m_len}")
-    _require(q, "q", (b, n, d))
-    _require(k, "k", (b, m_len, d))
+    kernels.require(q, "q", (b, n, d))
+    kernels.require(k, "k", (b, m_len, d))
     # enough warps per bag to keep loads in flight, >= 32 keys per warp
     splits = max(1, min(-(-m_len // (8 * STATS_MIN_KEYS_PER_WARP)),
-                        -(-4 * _sm_count(q.device) // b), 128))
+                        -(-4 * kernels.sm_count(q.device) // b), 128))
     return b, n, d, m_len, splits
 
 
@@ -383,13 +352,13 @@ def coattn_stats(
         return coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
     b, n, d, m_len, splits = _plain_k_checks(q, k)
     dev = q.device
-    mask_ptr = _mask_ptr(key_mask, b, m_len, dev)
+    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, dev)
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
     ml_part = torch.empty((b, splits * 8, n, 2), device=dev)
     err = kernels.library("coattn").mpo_coattn_stats(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(),
         ml_part.data_ptr(), b, n, m_len, d, int(pre_gate), splits,
-        1.0 / math.sqrt(d), _stream(dev),
+        1.0 / math.sqrt(d), kernels.stream(dev),
     )
     kernels.check(err, "coattn_stats")
     LAUNCH_COUNTS["coattn_stats"] += 1
@@ -404,15 +373,15 @@ def coattn_weights(
     if q.device.type == "cpu":
         return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
     b, n, d, m_len, splits = _plain_k_checks(q, k)
-    _require(l, "l", (b, n))
-    _require(m, "m", (b, n))
+    kernels.require(l, "l", (b, n))
+    kernels.require(m, "m", (b, n))
     dev = q.device
-    mask_ptr = _mask_ptr(key_mask, b, m_len, dev)
+    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, dev)
     w = torch.empty((b, n, m_len), device=dev)
     err = kernels.library("coattn").mpo_coattn_weights(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(),
         w.data_ptr(), b, n, m_len, d, int(pre_gate), splits,
-        1.0 / math.sqrt(d), _stream(dev),
+        1.0 / math.sqrt(d), kernels.stream(dev),
     )
     kernels.check(err, "coattn_weights")
     LAUNCH_COUNTS["coattn_weights"] += 1

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Dict, List, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -34,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every exported function, by library.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "coattn": {
@@ -44,6 +47,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "coattn_bwd": {
         "mpo_coattn_bwd_fused_k": [_P] * 19 + [_I] * 6 + [_F, _U, _F, _P],
+    },
+    "milpool": {
+        "mpo_milpool": [_P] * 10 + [_I] * 5 + [_P],
+    },
+    "flash": {
+        "mpo_flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _P],
     },
 }
 
@@ -132,3 +141,64 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} (cudaGetLastError after launch)")
+
+
+# ---------------------------------------------------------------------------
+# Argument checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def require(t: torch.Tensor, name: str, shape, dtype=torch.float32, *,
+            strided: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of the
+    given shape and type (what every kernel's float4 loads assume). With
+    ``strided`` a view the kernel reads in place also passes: unit stride on
+    the last axis and every other stride a multiple of 4 elements."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if strided:
+        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]):
+            raise ValueError(f"{name} needs unit stride on its last axis and every other "
+                             f"stride a multiple of 4, got strides {t.stride()}")
+    elif not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+
+
+def mask_ptr(key_mask: Optional[torch.Tensor], b: int, m_len: int, device) -> Optional[int]:
+    """The pointer of a [B, M] bool mask on ``device``, or None for no mask."""
+    if key_mask is None:
+        return None
+    require(key_mask, "key_mask", (b, m_len), torch.bool)
+    if key_mask.device != device:
+        raise ValueError("key_mask is on another device")
+    return key_mask.data_ptr()
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_splits(n_tiles: int, per_bag: int, cap: int = 1024) -> int:
+    """How many blocks share one bag's ``n_tiles`` tiles: at most ``per_bag``
+    (the SMs over the bags) and ``cap`` (the merge kernel's partials), and no
+    split without a tile."""
+    splits = max(1, min(n_tiles, per_bag, cap))
+    return -(-n_tiles // -(-n_tiles // splits))
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """A forward-only kernel cannot serve a call autograd would differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward kernel: call it under torch.no_grad() / "
+            "inference_mode(), or on the CPU (the plain version is differentiable)")

@@ -15,6 +15,10 @@ port mirrors those names, so the bridge is a handful of rules:
 * ``branch_transformer`` / ``branch_pool`` leaves carry a leading stacked
   axis of 2 (the vmapped branch pair): slot i goes to ``<name>.<i>``, and a
   flax ``layer_<j>`` is the port's ``layers.<j>``.
+
+GE-NaCAGaT's tree (``H``, ``self_attention``, ``path_transformer``,
+``path_pool``, ``classifier``) has no stacked axis and needs only the first
+two rules and ``layer_<j>``.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ def _port_name(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarra
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a JAX NaCAGaT parameter tree onto the port's state_dict names."""
+    """Map a JAX NaCAGaT or GE-NaCAGaT parameter tree onto the port's
+    state_dict names."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         if path[0] in STACKED:

@@ -15,6 +15,9 @@ The weights w are held relative to themselves (1e-4, floor 1e-8 absolute):
 a row sums to 1 over up to 4096 keys, so an absolute 1e-4 would pass a kernel
 that wrote 0 for every small weight; the scores differ by ~1e-5 absolute
 between the two summation orders, which exp turns into ~1e-5 relative in w.
+The GE kernels (gated-MIL pool, flash forward) are held to 1e-4 absolute on
+pooled rows, raw scores and attention outputs (valid and pad rows alike):
+outputs of magnitude ~1 in other summation orders move by ~1e-6 to 1e-5.
 """
 
 import math
@@ -24,7 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from multimodal_path_omic_tpu_torch.ops import coattn  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool  # noqa: E402
 from multimodal_path_omic_tpu_torch.serve import Predictor  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -227,3 +230,157 @@ def test_train_step_on_card_matches_cpu(dev):
         params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     for k, v in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), v.numpy(), atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# GE-NaCAGaT serving: the gated-MIL pool and the flash forward
+# ---------------------------------------------------------------------------
+
+
+def _pool_inputs(dev, b, m_len, d, h, seed, masked=True):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, m_len, d, generator=g)
+    wa, wb = (torch.randn(d, h, generator=g) / math.sqrt(d) for _ in range(2))
+    ba, bb = (0.1 * torch.randn(h, generator=g) for _ in range(2))
+    wc, bc = 0.25 * torch.randn(h, 1, generator=g), 0.1 * torch.randn(1, generator=g)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, m_len + 1, (b,), generator=g)
+        lengths[-1] = 0  # a fully-masked filler bag
+        mask = (torch.arange(m_len)[None] < lengths[:, None]).to(dev)
+    return [x.to(dev), mask] + [t.to(dev) for t in (wa, ba, wb, bb, wc, bc)]
+
+
+@pytest.mark.parametrize(
+    "b,m_len,d,h,masked",
+    [(2, 1000, 128, 128, True), (8, 4096, 256, 256, True), (3, 777, 512, 384, True),
+     (2, 300, 1024, 128, True), (1, 70, 256, 256, True), (4, 2000, 256, 256, False),
+     (140, 130, 128, 128, True)],
+)
+def test_mil_pool_kernel_matches_plain_on_card(dev, b, m_len, d, h, masked):
+    args = _pool_inputs(dev, b, m_len, d, h, m_len + d, masked)
+    before = milpool.LAUNCH_COUNTS["milpool"]
+    pooled, scores = milpool.fused_gated_mil_pool(*args)
+    pooled_ref, scores_ref = milpool.gated_mil_pool_plain(*args)
+    _close(pooled, pooled_ref)
+    _close(scores, scores_ref)  # raw, pad positions included
+    if masked:  # the filler bag pools uniformly over its M patches
+        _close(pooled[-1], args[0][-1].mean(dim=0))
+    # the module's transposed torch weights (strided views) give the same
+    x, mask, wa, ba, wb, bb, wc, bc = args
+    again = milpool.fused_gated_mil_pool(x, mask, wa.t().contiguous().t(), ba,
+                                         wb.t().contiguous().t(), bb, wc, bc)
+    assert torch.equal(again[0], pooled) and torch.equal(again[1], scores)
+    torch.cuda.synchronize()
+    assert milpool.LAUNCH_COUNTS["milpool"] == before + 2
+
+
+def _flash_inputs(dev, b, heads, width, m_len, seed, packed):
+    g = torch.Generator().manual_seed(seed)
+    e = heads * width
+    qkv = torch.randn(b, m_len, 3 * e, generator=g)
+    qkv[..., :e] *= 1.5
+    qkv = qkv.to(dev)
+    q, k, v = (t.reshape(b, m_len, heads, width).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    lengths = torch.randint(1, m_len + 1, (b,), generator=g)
+    if b > 1:
+        lengths[-1] = 0  # no valid key
+    return q, k, v, (torch.arange(m_len)[None] < lengths[:, None]).to(dev)
+
+
+@pytest.mark.parametrize(
+    "b,heads,width,m_len,packed",
+    [(2, 1, 256, 1000, True), (3, 8, 32, 777, True), (1, 1, 256, 70, False),
+     (2, 8, 32, 4096, False), (2, 1, 256, 4096, True), (1, 8, 32, 1, True), (2, 2, 32, 129, True)],
+)
+def test_flash_kernel_matches_plain_on_card(dev, b, heads, width, m_len, packed):
+    q, k, v, mask = _flash_inputs(dev, b, heads, width, m_len, m_len + heads, packed)
+    name = f"flash_fwd_d{width}"
+    before = flash.LAUNCH_COUNTS[name]
+    out = flash.flash_attention(q, k, v, mask)
+    ref = flash.flash_attention_plain(q, k, v, mask, chunk=512)
+    assert out.shape == ref.shape
+    _close(out, ref)  # every query row, pad rows too
+    if b > 1:  # the uniform mean of v
+        _close(out[-1], v[-1].mean(dim=1, keepdim=True).expand_as(out[-1]))
+    _close(flash.flash_attention(q, k, v, None), flash.flash_attention_plain(q, k, v, None))
+    _close(flash.flash_attention(q, k, v, mask, sm_scale=0.05),
+           flash.flash_attention_plain(q, k, v, mask, sm_scale=0.05))
+    # merging the heads of the result is a view: [B, L, H, D] underneath
+    assert out.transpose(1, 2).is_contiguous()
+    torch.cuda.synchronize()
+    assert flash.LAUNCH_COUNTS[name] == before + 3
+
+
+def test_ge_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, mask = _flash_inputs(dev, 2, 8, 32, 100, 0, True)
+    with pytest.raises(ValueError, match="unsupported head width"):
+        flash.flash_attention(q[..., :16], k[..., :16], v[..., :16], mask)
+    with pytest.raises(TypeError):
+        flash.flash_attention(q.double(), k.double(), v.double(), mask)
+    with pytest.raises(ValueError, match="stride"):
+        flash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, k.cpu(), v, mask)
+    with pytest.raises(ValueError, match="key_mask"):
+        flash.flash_attention(q, k, v, mask[:, :50])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash.flash_attention(q.clone().requires_grad_(True), k, v, mask)
+    args = _pool_inputs(dev, 2, 100, 256, 256, 0)
+    with pytest.raises(ValueError, match="unsupported"):
+        milpool.fused_gated_mil_pool(args[0][..., :250].contiguous(), args[1],
+                                     args[2][:250].contiguous(), *args[3:])
+    with pytest.raises(ValueError, match="unsupported"):  # H not a multiple of 128
+        milpool.fused_gated_mil_pool(args[0], args[1], args[2][:, :64], args[3][:64],
+                                     args[4][:, :64], args[5][:64], args[6][:64], args[7])
+    with pytest.raises(TypeError):
+        milpool.fused_gated_mil_pool(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="wa"):
+        milpool.fused_gated_mil_pool(args[0], args[1], args[2].cpu(), *args[3:])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        milpool.fused_gated_mil_pool(args[0].clone().requires_grad_(True), *args[1:])
+
+
+def test_ge_predictor_on_card_matches_cpu(dev):
+    """GE-NaCAGaT medium (the widths the flash kernel takes) on short bags:
+    three flash launches and one pool launch per batch, y as on the CPU."""
+    rng = np.random.default_rng(0)
+    bags = [rng.standard_normal((n, 64), dtype=np.float32) for n in (300, 900, 450)]
+    kw = dict(model_size="medium", wsi_dim=64, buckets=(512, 1024), batch_size=2, seed=3)
+    for mod in (coattn, flash, milpool):
+        mod.reset_launch_counts()
+    pred = Predictor("GE-NaCAGaT", device=dev, **kw)
+    got = pred.predict_bags(bags)
+    torch.cuda.synchronize()
+    assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 2, "flash_fwd_d32": 4}
+    assert milpool.LAUNCH_COUNTS["milpool"] == 2
+    assert not any(coattn.LAUNCH_COUNTS.values())
+    cpu = Predictor("GE-NaCAGaT", device="cpu", **kw)
+    ref = cpu.predict_bags(bags)
+    assert set(got) == {"y"}
+    np.testing.assert_allclose(got["y"], ref["y"], atol=ATOL, rtol=0)
+    # the raw MIL scores of an eval step carry every layer's output
+    wsi = torch.zeros(2, 512, 64)
+    mask = torch.zeros(2, 512, dtype=torch.bool)
+    for row, i in enumerate((0, 2)):
+        wsi[row, :len(bags[i])] = torch.from_numpy(bags[i])
+        mask[row, :len(bags[i])] = True
+    scores = []
+    for p in (pred, cpu):
+        out = p.eval_step({"wsi": wsi.to(p.device), "mask": mask.to(p.device),
+                           "label": torch.zeros(2, dtype=torch.long, device=p.device),
+                           "weight": torch.ones(2, device=p.device)})
+        scores.append(out["attention"]["path"][:, 0].cpu())
+    np.testing.assert_allclose(scores[0][mask].numpy(), scores[1][mask].numpy(), atol=ATOL, rtol=0)
+
+
+def test_ge_widths_without_a_kernel_instance_raise_on_card(dev):
+    """GE small has heads of width 128 and 16, for which the flash kernel has
+    no instance: on a CUDA tensor the model raises, it never drops to the
+    plain version."""
+    pred = Predictor("GE-NaCAGaT", model_size="small", wsi_dim=64, buckets=(64,), batch_size=1,
+                     device=dev)
+    with pytest.raises(ValueError, match="unsupported head width"):
+        pred.predict_bag(np.zeros((40, 64), np.float32))
