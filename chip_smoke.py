@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its NaCAGaT serving and training
-paths and its GE-NaCAGaT serving path on one GPU.
+paths and its GE-NaCAGaT serving and training paths on one GPU.
 
-    python3 chip_smoke.py              # phases 1-9 below
+    python3 chip_smoke.py              # phases 1-12 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -53,6 +53,25 @@ Phases (any failure exits non-zero, and no result line is printed):
 9. Timings: the pool and the flash forward (both head shapes) beside their
    plain versions, their bounds and, for the flash forward, one
    ``scaled_dot_product_attention`` call; GE ``predict_bags`` bags/s.
+10. The flash backward (both head shapes) against its plain version on the
+    card, from the forward kernel's own out and row statistics (m, l): at
+    the main path's B=8, M=16384 and at B=2 with M in {5000, 24576}, q, k, v
+    read in place from a packed projection, ragged masks, one bag without a
+    valid key, a random cotangent that is non-zero on pad rows too. dq, dk,
+    dv within 1e-4 of each one's largest magnitude; two runs bitwise equal;
+    masked keys get exactly no dq/dk; (m, l) against the plain forward; the
+    forward's out the same bits with and without (m, l).
+11. The GE-NaCAGaT ``medium`` trainer (ce, dropout 0.25, Adam lr 2e-4, weight
+    decay 1e-5; ``make_train_step(..., ge_mode=True)``) on one 8-row batch
+    of the 16384 bucket (seven bags and one zero-weight filler row), staged
+    on the card once: 3 steps with the counts reset just before and read
+    just after (per step 1 + 2 flash forward and 1 + 2 flash backward
+    launches, no other kernel), every loss finite; then one step from the
+    same state and seed with the kernels and with their plain versions,
+    whose parameter gradients must agree.
+12. Timings: each flash backward instance beside its plain version, its
+    bound and the backward of one ``scaled_dot_product_attention`` call; the
+    GE training step's ms and GE train bags/s.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -66,7 +85,9 @@ time), then one JSON line per loss with the same numbers. It then traces one
 phase-5 training step the same way, with its device time split into
 matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
 ``predict_bags`` call of phase 8, split into flash kernel, MIL-pool kernel,
-matrix products, copies and other.
+matrix products, copies and other; and one GE training step of phase 11,
+split into flash forward, flash backward, matrix products, optimizer and
+other.
 """
 
 from __future__ import annotations
@@ -102,6 +123,8 @@ SOURCES = {
     "milpool": "multimodal_path_omic_tpu_torch/csrc/milpool.cu",
     "flash_fwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
     "flash_fwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
+    "flash_bwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -113,6 +136,9 @@ REPLACES = {
     "milpool": "multimodal_path_omic_tpu/ops/milpool.py:131",
     "flash_fwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
     "flash_fwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
+    # the library kernel's custom VJP, reached through the same call
+    "flash_bwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
+    "flash_bwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -170,6 +196,15 @@ GE_HEADS = ((1, 256), (8, 32))
 # stride or mask fault moves them by O(0.1-1). 1e-4 absolute for the pooled
 # rows, the raw scores and every attention output row, pad rows included.
 GE_ATOL = 1e-4
+# GE training (phases 10-12): examples/ge_nacagat.yaml's training settings
+# (ce, dropout 0.25, Adam lr 2e-4, weight decay 1e-5), 8 rows of the 16384
+# bucket (B * M = 131,072: one accumulation chunk). The flash backward's
+# gradients are held like the co-attention backward's, to GRAD_RTOL of each
+# tensor's largest magnitude: dk and dv sum up to 16,384 query rows' terms,
+# ds = p * (dp - delta) cancels, and cuBLAS takes other orders; float32
+# moves them by ~1e-6 to 1e-5 of their scale, a tile, stride or mask fault
+# by O(1).
+GE_TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -532,6 +567,24 @@ def train_step_grads(dev, batch, plain: bool) -> dict:
     return {name: p.grad.clone() for name, p in model.named_parameters()}
 
 
+def check_step_grads(got: dict, ref: dict) -> None:
+    """Hold a step's parameter gradients to GRAD_RTOL of each one's largest
+    magnitude plus GRAD_ATOL."""
+    import torch
+
+    worst, worst_name = 0.0, ""
+    for k in ref:
+        err, scale = float((got[k] - ref[k]).abs().max()), float(ref[k].abs().max())
+        limit = GRAD_RTOL * scale + GRAD_ATOL
+        if err / limit > worst:
+            worst, worst_name = err / limit, f"{k}, max_abs_err {err:.3e}, max |ref| {scale:.3e}"
+        if not (err <= limit and bool(torch.isfinite(got[k]).all())):
+            raise AssertionError(f"grad {k}: max_abs_err {err:.3e} over the limit {limit:.3e} "
+                                 f"(max |ref| {scale:.3e})")
+    log(f"  {len(ref)} parameter gradients within {GRAD_RTOL:g} of each one's max + "
+        f"{GRAD_ATOL:g} (worst at {worst:.3f} of its limit: {worst_name})")
+
+
 def phase5_training(dev, batch) -> dict:
     import torch
 
@@ -559,16 +612,7 @@ def phase5_training(dev, batch) -> dict:
     log("phase 5: one step from the same state and seed, kernels vs plain versions")
     got = train_step_grads(dev, batch, plain=False)
     ref = train_step_grads(dev, batch, plain=True)
-    worst = 0.0
-    for k in ref:
-        err, scale = float((got[k] - ref[k]).abs().max()), float(ref[k].abs().max())
-        limit = GRAD_RTOL * scale + GRAD_ATOL
-        worst = max(worst, err / limit)
-        if not (err <= limit and bool(torch.isfinite(got[k]).all())):
-            raise AssertionError(f"grad {k}: max_abs_err {err:.3e} over the limit {limit:.3e} "
-                                 f"(max |ref| {scale:.3e})")
-    log(f"  {len(ref)} parameter gradients within {GRAD_RTOL:g} of each one's max + "
-        f"{GRAD_ATOL:g} (worst at {worst:.3f} of its limit)")
+    check_step_grads(got, ref)
     return {"launches": counts, "model": model, "state": state, "step": step}
 
 
@@ -896,6 +940,251 @@ def phase9_ge_timings(dev, errs, launches, pred, bags) -> list:
     return rows
 
 
+def flash_bwd_inputs(b, heads, m_len, seed, dev):
+    """The flash backward's inputs as autograd hands them over: q, k, v and
+    the mask of :func:`ge_flash_inputs`, the forward kernel's own out and
+    (m, l), and a random cotangent laid out [B, M, E] (the out-projection's
+    input gradient), non-zero on pad rows too."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    q, k, v, mask = ge_flash_inputs(b, heads, m_len, seed, dev)
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    dout = torch.randn(b, m_len, GE_D, generator=g).to(dev)
+    dout = dout.reshape(b, m_len, heads, GE_D // heads).transpose(1, 2)
+    return q, k, v, mask, out, m, l, dout
+
+
+def phase10_flash_bwd_kernels(dev) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    errs = {}
+    for heads, width in GE_HEADS:
+        name = f"flash_bwd_d{width}"
+        errs[name] = 0.0
+        for b, m_len in ((GE_B, GE_M), (2, 5000), (2, 24576)):
+            log(f"phase 10: flash backward B={b} H={heads} dh={width} M={m_len}, strided "
+                f"q/k/v, ragged masks, one bag without a valid key")
+            q, k, v, mask, out, m, l, dout = flash_bwd_inputs(b, heads, m_len, m_len + heads, dev)
+            chunk = plain_chunk(b, heads, m_len)
+            if not torch.equal(out, flash.flash_fwd(q, k, v, mask)[0]):
+                raise AssertionError("the forward's out differs with and without (m, l)")
+            ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, chunk=chunk,
+                                                               return_stats=True)
+            check_close("flash.out", out, ref_out, GE_ATOL)
+            check_close("flash.m", m, ref_m, GE_ATOL)
+            check_close("flash.l", l, ref_l, GE_ATOL, L_RTOL)
+            if not (bool((m[-1] == -1e9).all()) and bool((l[-1] == m_len).all())):
+                raise AssertionError("the bag without a valid key must have m = -1e9, l = M")
+            del ref_out, ref_m, ref_l
+            got = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+            again = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+            ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout, chunk=chunk)
+            for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+                errs[name] = max(errs[name], check_rel(f"flash_bwd.{gname}", a, r, GRAD_RTOL))
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError("two flash backward runs differ")
+            log("  flash_bwd: two runs bitwise equal")
+            # the mask is a where: no dq or dk through a masked key, even in
+            # the bag without a valid key, whose weights 1/M still feed dv
+            dq, dk, dv = got
+            pad = ~mask[:, None, :, None].expand_as(dk)
+            if float(dk[pad].abs().max()) != 0.0 or float(dq[-1].abs().max()) != 0.0:
+                raise AssertionError("a masked key passed a gradient to q or k")
+            if not float(dv[-1].abs().min()) > 0.0:
+                raise AssertionError("the bag without a valid key must still feed dv")
+            del got, again, ref, dq, dk, dv, pad
+    torch.cuda.synchronize()
+    return errs
+
+
+def make_ge_trainer(dev):
+    """The GE training configuration: GE-NaCAGaT medium, random weights from
+    seed 0, ce, dropout 0.25, Adam lr 2e-4 / weight decay 1e-5, dropout
+    generator seeded with 0."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    model = seeded_init_(build_model("GE-NaCAGaT", model_size="medium", dropout=TRAIN_RATE),
+                         0).to(dev)
+    opt = make_optimizer("adam", 2e-4, 1e-5)
+    return model, init_train_state(model, opt, seed=0), make_train_step(model, "ce", opt,
+                                                                        ge_mode=True)
+
+
+def stage_ge_train_batch(dev, bags) -> dict:
+    """One 8-row batch of the 16384 bucket, on the card once: the first seven
+    serving bags (numpy seed 2) and one zero-weight filler row without a
+    valid patch; labels from numpy seed 3."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    wsi = torch.zeros((GE_B, GE_M, bags[0].shape[1]), device=dev)
+    mask = torch.zeros((GE_B, GE_M), dtype=torch.bool, device=dev)
+    weight = torch.ones(GE_B, device=dev)
+    for row in range(GE_B - 1):
+        wsi[row, :len(bags[row])] = torch.from_numpy(bags[row]).to(dev)
+        mask[row, :len(bags[row])] = True
+    weight[-1] = 0.0
+    return {"wsi": wsi, "mask": mask, "weight": weight,
+            "label": torch.from_numpy(rng.integers(0, 3, GE_B)).to(dev)}
+
+
+def ge_train_step_grads(dev, batch, plain: bool) -> dict:
+    """Parameter gradients of one GE training step from the phase-11 start
+    state and seed, through the flash kernels or through their plain
+    versions (in the row chunks that fit the card)."""
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    model, state, step = make_ge_trainer(dev)
+    saved = flash.flash_fwd, flash.flash_bwd
+
+    def fwd_plain(q, k, v, key_mask=None, sm_scale=None, *, need_stats=False):
+        res = flash.flash_attention_plain(q, k, v, key_mask, sm_scale, return_stats=need_stats,
+                                          chunk=plain_chunk(*q.shape[:3]))
+        return res if need_stats else (res, None, None)
+
+    def bwd_plain(q, k, v, key_mask, out, m, l, dout, sm_scale=None):
+        return flash.flash_attention_bwd_plain(q, k, v, key_mask, out, m, l, dout, sm_scale,
+                                               chunk=plain_chunk(*q.shape[:3]))
+
+    if plain:
+        flash.flash_fwd, flash.flash_bwd = fwd_plain, bwd_plain
+    try:
+        step(state, batch)
+    finally:
+        flash.flash_fwd, flash.flash_bwd = saved
+    return {name: p.grad.clone() for name, p in model.named_parameters()}
+
+
+def phase11_ge_training(dev, batch) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.train.loop import accumulation_chunks
+
+    n_real = int(batch["weight"].sum().item())
+    log(f"phase 11: GE-NaCAGaT medium trainer, ce, dropout {TRAIN_RATE}, Adam; batch "
+        f"[{GE_B}, {GE_M}, 1024] ({n_real} bags, {GE_B - n_real} zero-weight filler row), "
+        f"{GE_TRAIN_STEPS} steps")
+    if accumulation_chunks(GE_B, GE_M, 262_144, "ce") != 1:
+        raise AssertionError("the GE batch must fit one accumulation chunk")
+    model, state, step = make_ge_trainer(dev)
+    reset_counts()
+    losses = []
+    for _ in range(GE_TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics.loss)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    log(f"  losses: {losses}")
+    log(f"  launches: {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a GE training loss is not finite")
+    want = {name: 0 for name in counts}
+    for width, per_step in ((256, 1), (32, 2)):  # GE's own self-attention; two layers
+        want[f"flash_fwd_d{width}"] = want[f"flash_bwd_d{width}"] = per_step * GE_TRAIN_STEPS
+    if counts != want:
+        raise AssertionError(f"GE training launches {counts}, expected {want}")
+    log("phase 11: one step from the same state and seed, kernels vs plain versions")
+    got = ge_train_step_grads(dev, batch, plain=False)
+    ref = ge_train_step_grads(dev, batch, plain=True)
+    check_step_grads(got, ref)
+    return {"launches": counts, "state": state, "step": step, "n_real": n_real}
+
+
+def ge_bwd_bound_ms(heads, mask) -> tuple:
+    """Bound of one flash backward at B=8, M=16384, heads * width = 256: the
+    five necessary products (s, dp, dv, dq, dk) over the valid keys (a bag
+    with no valid key needs all of them); q, k, v, out, dout, m, l and the
+    mask read once, dq, dk, dv written once."""
+    import torch
+
+    b, m, d = GE_B, GE_M, GE_D
+    n_valid = mask.sum(dim=1)
+    keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
+    nbytes = 4 * (8 * b * m * d + 2 * b * heads * m) + b * m
+    ops = 10 * m * keys * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_bwd_ms(q, k, v, mask, dout):
+    """The backward of one scaled_dot_product_attention call on the same
+    inputs (memory-efficient backend; timed as the yardstick, the port never
+    calls it): (ms, (dq, dk, dv))."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None, None, :])
+
+    def call():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return cuda_ms(call, iters=3, warmup=1), call()
+
+
+def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    rows = []
+    for heads, width in GE_HEADS:
+        name = f"flash_bwd_d{width}"
+        q, k, v, mask, out, m, l, dout = flash_bwd_inputs(GE_B, heads, GE_M, 17 + heads, dev)
+        chunk = plain_chunk(GE_B, heads, GE_M)
+        ms = cuda_ms(lambda: flash.flash_bwd(q, k, v, mask, out, m, l, dout), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+            q, k, v, mask, out, m, l, dout, chunk=chunk), iters=2, warmup=1)
+        lib_ms, lib = sdpa_bwd_ms(q, k, v, mask, dout)
+        bound = ge_bwd_bound_ms(heads, mask)
+        log(f"phase 12: {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (chunks of {chunk} rows), "
+            f"scaled_dot_product_attention backward {lib_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}, five products over the valid keys; all "
+            f"keys: {10 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms; the "
+            f"kernel's seven products over all keys: "
+            f"{14 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms)")
+        # the library's gradients are a second reference on the bags with
+        # valid keys (its -inf fill makes the bag without one NaN)
+        got = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+        for gname, a, r in zip(("dq", "dk", "dv"), got, lib):
+            check_rel(f"{name}.{gname} vs scaled_dot_product_attention", a[:-1], r[:-1],
+                      GRAD_RTOL)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms,
+        })
+        del q, k, v, mask, out, m, l, dout, got, lib
+    step, state = trainer["step"], trainer["state"]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    n_real = trainer["n_real"]
+    log(f"phase 12: GE training step, {n_real} bags and {GE_B - n_real} filler row of the "
+        f"{GE_M} bucket: {', '.join(f'{t:.3f}' for t in times)} ms (host clock, "
+        f"synchronized); median {med:.3f} ms = {n_real / med * 1e3:.3f} GE train bags/s")
+    return rows
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -959,10 +1248,19 @@ def device_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_training(dev, batch, top=20) -> None:
+# device-kernel name fragments -> the part of a training step they belong to
+TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("combine_kernel", "coattn kernels"),
+               ("bwd_reduce_kernel", "coattn kernels"), ("flash_fwd_kernel", "flash forward"),
+               ("flash_bwd", "flash backward"), ("gemm", "matmul"), ("xmma", "matmul"),
+               ("cutlass", "matmul"), ("adam", "optimizer"), ("multi_tensor", "optimizer"))
+
+
+def profile_training(title, tag, make, batch, top=20) -> None:
+    """Trace one training step of the trainer ``make()`` returns, after two
+    warm-up steps: device time by part (TRAIN_SPLIT) and by kernel."""
     import torch
 
-    model, state, step = make_trainer(dev)
+    model, state, step = make()
     for _ in range(2):  # warm: library load, cuBLAS handles, allocator
         state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -973,25 +1271,18 @@ def profile_training(dev, batch, top=20) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
-    split = {"matmul": 0.0, "coattn kernels": 0.0, "optimizer": 0.0, "other": 0.0}
+    split = {}
     for name, ms, _ in rows:
-        low = name.lower()
-        if "fused_k" in low or "combine_kernel" in low or "bwd_reduce_kernel" in low:
-            split["coattn kernels"] += ms
-        elif "gemm" in low or "xmma" in low or "cutlass" in low:
-            split["matmul"] += ms
-        elif "adam" in low or "multi_tensor" in low:
-            split["optimizer"] += ms
-        else:
-            split["other"] += ms
+        part = next((part for frag, part in TRAIN_SPLIT if frag in name.lower()), "other")
+        split[part] = split.get(part, 0.0) + ms
     device_ms = sum(r[1] for r in rows)
-    log(f"profile: training step, {B} bags of the {TRAIN_M} bucket; wall {wall_ms:.3f} ms; "
-        f"device {device_ms:.3f} ms; busy share {device_ms / wall_ms:.4f}; split "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    log(f"profile: {title}; wall {wall_ms:.3f} ms; device {device_ms:.3f} ms; busy share "
+        f"{device_ms / wall_ms:.4f}; split "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
     for name, ms, count in rows[:top]:
         log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
     log(json.dumps({
-        "training_step": True, "bags": B, "wall_ms": wall_ms, "device_ms": device_ms,
+        tag: True, "rows": len(batch["weight"]), "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms, "split_ms": split,
         "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in rows[:top]],
     }))
@@ -1025,8 +1316,8 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one predict_bags call per loss, one training step and "
-                         "one GE predict_bags call instead of phases 1-9")
+                    help="trace one predict_bags call per loss, one training step, one GE "
+                         "predict_bags call and one GE training step instead of phases 1-12")
     args = ap.parse_args()
     try:
         import torch
@@ -1059,9 +1350,14 @@ def main() -> int:
     if args.profile:
         for loss in WANT:
             profile_serving(dev, loss, bags, omics)
-        profile_training(dev, stage_train_batch(dev, bags, omics))
+        profile_training(f"training step, {B} bags of the {TRAIN_M} bucket", "training_step",
+                         lambda: make_trainer(dev), stage_train_batch(dev, bags, omics))
         del bags, omics
-        profile_ge_serving(dev, make_ge_bags(2))
+        ge_bags = make_ge_bags(2)
+        profile_ge_serving(dev, ge_bags)
+        profile_training(f"GE training step, {GE_B} rows of the {GE_M} bucket",
+                         "ge_training_step", lambda: make_ge_trainer(dev),
+                         stage_ge_train_batch(dev, ge_bags))
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)
@@ -1078,6 +1374,15 @@ def main() -> int:
     ge_bags = make_ge_bags(2)
     p8 = phase8_ge_predictor(dev, ge_bags)
     rows += phase9_ge_timings(dev, errs, p8["launches"], p8["predictor"], ge_bags)
+    del p8
+    torch.cuda.empty_cache()
+    errs.update(phase10_flash_bwd_kernels(dev))
+    ge_batch = stage_ge_train_batch(dev, ge_bags)
+    p11 = phase11_ge_training(dev, ge_batch)
+    for row in rows:  # the flash forward is on the GE training path too
+        if row["name"].startswith("flash_fwd"):
+            row["launches"] += p11["launches"][row["name"]]
+    rows += phase12_ge_train_timings(dev, errs, p11["launches"], p11, ge_batch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

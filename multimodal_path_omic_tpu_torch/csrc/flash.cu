@@ -37,13 +37,11 @@
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launch (0 = success); allocates nothing, runs on the caller's stream.
 
-#include "coattn_common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace mpo;
-
-constexpr float MASK_NEG = -1e9f;  // ops/layers.py NEG_INF
 
 template <int DH, int BQ, int BK, int KC, int VC>
 struct FlashCfg {
@@ -61,64 +59,19 @@ struct FlashCfg {
   static_assert(K_V4 * THREADS * 4 == BK * KC && V_V4 * THREADS * 4 == VC * DH, "chunk copy");
 };
 
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
-// A chunk of K: rows k0 .. k0+BK-1, depths d0 .. d0+KC-1 (zero rows past L).
-template <int BK, int KC, int N>
-__device__ __forceinline__ void load_k(float4 (&reg)[N], const float* __restrict__ k_b,
-                                       long long k_sl, int k0, int d0, int L) {
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int idx = threadIdx.x + u * THREADS, row = idx / (KC / 4), c = idx % (KC / 4);
-    reg[u] = k0 + row < L
-                 ? *reinterpret_cast<const float4*>(k_b + (long long)(k0 + row) * k_sl + d0 + 4 * c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-template <int KC, int KS, int N>
-__device__ __forceinline__ void store_k(const float4 (&reg)[N], float* __restrict__ kv_s) {
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int idx = threadIdx.x + u * THREADS, row = idx / (KC / 4), c = idx % (KC / 4);
-    *reinterpret_cast<float4*>(&kv_s[row * KS + 4 * c]) = reg[u];
-  }
-}
-
-// A chunk of V: rows r0 .. r0+VC-1, all DH columns (zero rows past L).
-template <int DH, int N>
-__device__ __forceinline__ void load_v(float4 (&reg)[N], const float* __restrict__ v_b,
-                                       long long v_sl, int r0, int L) {
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int idx = threadIdx.x + u * THREADS, row = idx / (DH / 4), c = idx % (DH / 4);
-    reg[u] = r0 + row < L
-                 ? *reinterpret_cast<const float4*>(v_b + (long long)(r0 + row) * v_sl + 4 * c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-template <int DH, int N>
-__device__ __forceinline__ void store_v(const float4 (&reg)[N], float* __restrict__ kv_s) {
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int idx = threadIdx.x + u * THREADS, row = idx / (DH / 4), c = idx % (DH / 4);
-    *reinterpret_cast<float4*>(&kv_s[row * DH + 4 * c]) = reg[u];
-  }
-}
-
 // q, k, v: element (b, h, i, d) at base + b*sb + h*sh + i*sl + d (strides in
 // floats, multiples of 4; bases 16-byte aligned). mask [B, L] bool or NULL.
-// out [B, L, H, DH] contiguous.
+// out [B, L, H, DH] contiguous. m_out, l_out [B, H, L] (each row's running
+// maximum and the sum of exp(s - m) over its keys, what the backward
+// recomputes p from) or both NULL.
 template <int DH, int BQ, int BK, int KC, int VC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ out, int H, int L, long long q_sb, long long q_sh,
-                 long long q_sl, long long k_sb, long long k_sh, long long k_sl,
-                 long long v_sb, long long v_sh, long long v_sl, float scale) {
+                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int H, int L, long long q_sb, long long q_sh, long long q_sl, long long k_sb,
+                 long long k_sh, long long k_sl, long long v_sb, long long v_sh, long long v_sl,
+                 float scale) {
   using C = FlashCfg<DH, BQ, BK, KC, VC>;
   constexpr int RPW = C::RPW, KPL = C::KPL, CPL = C::CPL, QS = C::QS, KS = C::KS;
   constexpr int NKC = DH / KC, NVC = BK / VC;
@@ -175,27 +128,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // also orders qt_s (first pass) before its reads
       if (c + 1 < NKC) load_k<BK, KC>(kreg, k_b, k_sl, k0, (c + 1) * KC, L);
       else load_v<DH>(vreg, v_b, v_sl, k0, L);
-#pragma unroll
-      for (int dd = 0; dd < KC; dd += 4) {
-        float4 kf[KPL];
-#pragma unroll
-        for (int tt = 0; tt < KPL; ++tt)
-          kf[tt] = *reinterpret_cast<const float4*>(&kv_s[(lane + 32 * tt) * KS + dd]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float a[RPW];
-          const float* qrow = &qt_s[(c * KC + dd + u) * QS + warp * RPW];
-#pragma unroll
-          for (int g = 0; g < RPW / 4; ++g) {
-            const float4 a4 = *reinterpret_cast<const float4*>(qrow + 4 * g);
-            a[4 * g + 0] = a4.x; a[4 * g + 1] = a4.y; a[4 * g + 2] = a4.z; a[4 * g + 3] = a4.w;
-          }
-#pragma unroll
-          for (int i = 0; i < RPW; ++i)
-#pragma unroll
-            for (int tt = 0; tt < KPL; ++tt) s[i][tt] = fmaf(a[i], comp(kf[tt], u), s[i][tt]);
-        }
-      }
+      dot_chunk<RPW, KPL, KC, KS, QS>(s, qt_s + c * KC * QS, kv_s, warp, lane);
       __syncthreads();  // kv_s is rewritten by the next chunk
     }
 
@@ -231,12 +164,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPL; ++j) o[i][j] *= alpha;
     }
-#pragma unroll
-    for (int tt = 0; tt < KPL; ++tt)
-#pragma unroll
-      for (int g = 0; g < RPW / 4; ++g)
-        *reinterpret_cast<float4*>(&pt_s[(lane + 32 * tt) * QS + warp * RPW + 4 * g]) =
-            make_float4(s[4 * g + 0][tt], s[4 * g + 1][tt], s[4 * g + 2][tt], s[4 * g + 3][tt]);
+    store_transposed<RPW, KPL, QS>(s, pt_s, warp, lane);
     // a warp reads back only the rows it wrote: the barrier below orders it
 
     // ---- O += P V over the key chunks ----
@@ -246,48 +174,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       if (c + 1 < NVC) load_v<DH>(vreg, v_b, v_sl, k0 + (c + 1) * VC, L);
       else if (t + 1 < n_tiles) load_k<BK, KC>(kreg, k_b, k_sl, k0 + BK, 0, L);
-#pragma unroll 4
-      for (int kk = 0; kk < VC; ++kk) {
-        float p[RPW], vv[CPL];
-        const float* prow = &pt_s[(c * VC + kk) * QS + warp * RPW];
-#pragma unroll
-        for (int g = 0; g < RPW / 4; ++g) {
-          const float4 p4 = *reinterpret_cast<const float4*>(prow + 4 * g);
-          p[4 * g + 0] = p4.x; p[4 * g + 1] = p4.y; p[4 * g + 2] = p4.z; p[4 * g + 3] = p4.w;
-        }
-        if constexpr (CPL == 1) {
-          vv[0] = kv_s[kk * DH + lane];
-        } else {
-#pragma unroll
-          for (int j4 = 0; j4 < CPL / 4; ++j4) {
-            const float4 v4 = *reinterpret_cast<const float4*>(&kv_s[kk * DH + j4 * 128 + 4 * lane]);
-            vv[4 * j4 + 0] = v4.x; vv[4 * j4 + 1] = v4.y; vv[4 * j4 + 2] = v4.z; vv[4 * j4 + 3] = v4.w;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) o[i][j] = fmaf(p[i], vv[j], o[i][j]);
-      }
+      acc_chunk<RPW, CPL, VC, DH, QS>(o, pt_s + c * VC * QS, kv_s, warp, lane);
       __syncthreads();  // kv_s (and, after the last chunk, pt_s) is rewritten next
     }
   }
 
-  // ---- out[b, row, h, :] = o / l ----
+  // ---- out[b, row, h, :] = o / l; m and l [B, H, L] where asked for ----
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int row = q0 + warp * RPW + i;
     if (row < L) {
       const float inv = l_run[i] == 0.f ? 1.f : 1.f / l_run[i];
-      float* orow = out + (((size_t)b * L + row) * H + h) * DH;
-      if constexpr (CPL == 1) {
-        orow[lane] = o[i][0] * inv;
-      } else {
-#pragma unroll
-        for (int j4 = 0; j4 < CPL / 4; ++j4)
-          *reinterpret_cast<float4*>(orow + j4 * 128 + 4 * lane) =
-              make_float4(o[i][4 * j4 + 0] * inv, o[i][4 * j4 + 1] * inv,
-                          o[i][4 * j4 + 2] * inv, o[i][4 * j4 + 3] * inv);
+      store_row<CPL>(o[i], inv, out + (((size_t)b * L + row) * H + h) * DH, lane);
+      if (m_out != nullptr && lane == 0) {  // the backward's softmax statistics
+        m_out[((size_t)b * H + h) * L + row] = m_run[i];
+        l_out[((size_t)b * H + h) * L + row] = l_run[i];
       }
     }
   }
@@ -295,25 +196,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH, int BQ, int BK, int KC, int VC>
 int launch_flash(const float* q, const float* k, const float* v, const uint8_t* mask,
-                 float* out, int B, int H, int L, const long long* st, float scale,
-                 cudaStream_t stream) {
+                 float* out, float* m_out, float* l_out, int B, int H, int L,
+                 const long long* st, float scale, cudaStream_t stream) {
   constexpr int smem = FlashCfg<DH, BQ, BK, KC, VC>::SMEM_BYTES;
-  // the attribute belongs to (instance, device): set once for each
-  constexpr int MAX_DEVICES = 64;
-  static bool smem_allowed[MAX_DEVICES] = {};
-  int device = 0;
-  int err = (int)cudaGetDevice(&device);
+  static bool smem_allowed[64] = {};
+  const int err = allow_dynamic_smem(flash_fwd_kernel<DH, BQ, BK, KC, VC>, smem, smem_allowed);
   if (err) return err;
-  if (device >= MAX_DEVICES || !smem_allowed[device]) {
-    err = (int)cudaFuncSetAttribute(flash_fwd_kernel<DH, BQ, BK, KC, VC>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err) return err;
-    if (device < MAX_DEVICES) smem_allowed[device] = true;
-  }
   const dim3 grid((L + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<DH, BQ, BK, KC, VC><<<grid, THREADS, smem, stream>>>(
-      q, k, v, mask, out, H, L, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale);
+      q, k, v, mask, out, m_out, l_out, H, L, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], scale);
   return (int)cudaGetLastError();
 }
 
@@ -323,19 +215,25 @@ extern "C" {
 
 // q, k, v: [B, H, L, DH] views with unit stride on DH; strides (batch, head,
 // position) in floats, each a multiple of 4, bases 16-byte aligned. mask
-// [B, L] bool or NULL. Out: [B, L, H, DH] contiguous. DH in {256, 32};
-// B * H <= 65535.
+// [B, L] bool or NULL. Out: [B, L, H, DH] contiguous; m_out and l_out [B, H, L]
+// contiguous, or both NULL. DH in {256, 32}; B * H <= 65535.
 int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* mask,
-                  float* out, int B, int H, int L, int DH, long long q_sb, long long q_sh,
-                  long long q_sl, long long k_sb, long long k_sh, long long k_sl,
-                  long long v_sb, long long v_sh, long long v_sl, float scale, void* stream) {
+                  float* out, float* m_out, float* l_out, int B, int H, int L, int DH,
+                  long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
+                  long long k_sl, long long v_sb, long long v_sh, long long v_sl, float scale,
+                  void* stream) {
   if (B < 1 || H < 1 || L < 1 || (long long)B * H > 65535) return (int)cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
   for (int i = 0; i < 9; ++i)
     if (st[i] % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  if (DH == 256) return launch_flash<256, 64, 128, 16, 16>(q, k, v, mask, out, B, H, L, st, scale, stream_);
-  if (DH == 32) return launch_flash<32, 128, 128, 32, 128>(q, k, v, mask, out, B, H, L, st, scale, stream_);
+  if (DH == 256)
+    return launch_flash<256, 64, 128, 16, 16>(q, k, v, mask, out, m_out, l_out, B, H, L, st, scale,
+                                              stream_);
+  if (DH == 32)
+    return launch_flash<32, 128, 128, 32, 128>(q, k, v, mask, out, m_out, l_out, B, H, L, st,
+                                               scale, stream_);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,11 +8,15 @@ self-attention over the patch bag (Q = K = V = the patch embeddings), a
 
 It is the worst case for memory: M x M self-attention over bags of up to
 ~24k patches, three times per forward. The bag mask reaches the
-self-attention, the path transformer and the pool. In eval the three
+self-attention, the path transformer and the pool. The three
 self-attentions take the flash branch of ``MultiheadAttention`` (scores
-never materialized) and the pool the streaming MIL-pool kernel; the full
-M x M map is formed only when ``need_attention`` asks for it, which is
-usable at small M only.
+never materialized): always in eval; in training the model's own
+self-attention (dropout 0) always, and the path transformer's layers from
+4096 patches up, where their attention-probability dropout site is dropped
+(below that they keep the materialized attention with dropout). The pool
+takes the streaming MIL-pool kernel in eval and its eager branch, with its
+two dropout sites, in training. The full M x M map is formed only when
+``need_attention`` asks for it, which is usable at small M only.
 """
 
 from __future__ import annotations

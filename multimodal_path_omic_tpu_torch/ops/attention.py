@@ -94,10 +94,15 @@ class MultiheadAttention(nn.Module):
       reassociated onto the pooled rows: out = (w.kv) @ wv + bv * sum(w);
       in training the kernels' training form (dropout, ssq, backward);
     * tiny: few-token attention without weights (branch transformers);
-    * flash (eval, self-attention over more than 32 positions, no pre-gate,
-      weights not requested: GE's bag self-attention and path transformer):
-      :func:`flash_attention`, the L x L scores never in device memory; the
-      heads are read in place from the packed projection;
+    * flash (self-attention over more than 32 positions, no pre-gate, weights
+      not requested: GE's bag self-attention and path transformer), in eval
+      and in training: :func:`flash_attention`, forward and backward, the
+      L x L scores never in device memory; the heads are read in place from
+      the packed projection. With attention dropout active the branch is
+      taken from 4096 positions up, and the attention-probability dropout
+      site is dropped there (a dropout mask over L x L weights cannot be
+      materialized; every other dropout site of the layer remains), as in the
+      JAX module; below that, active dropout keeps :func:`attention_core`;
     * export (weights requested, cross-attention, no dropout): two-pass
       weights emission;
     * otherwise :func:`attention_core`.
@@ -171,8 +176,9 @@ class MultiheadAttention(nn.Module):
                                           generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if (need_weights is False and not self.pre_gate and not self.training
-                        and self_attn and key is value and query.shape[1] > 32):
+                if (need_weights is False and not self.pre_gate and self_attn
+                        and key is value and query.shape[1] > 32
+                        and (rate == 0.0 or query.shape[1] >= 4096)):
                     out_h = flash_attention(qh, kh, vh, key_mask)
                 elif need_weights is True and not self_attn and rate == 0.0:
                     out_h, weights = attention_with_weights(

@@ -52,7 +52,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mpo_milpool": [_P] * 10 + [_I] * 5 + [_P],
     },
     "flash": {
-        "mpo_flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _P],
+        "mpo_flash_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_F, _P],
+    },
+    "flash_bwd": {
+        "mpo_flash_bwd": [_P] * 12 + [_I] * 4 + [_P, _F, _P],
     },
 }
 

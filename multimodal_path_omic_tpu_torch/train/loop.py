@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from multimodal_path_omic_tpu_torch.ops.losses import survival_loss
+from multimodal_path_omic_tpu_torch.ops.losses import cross_entropy_on_probs, survival_loss
 from multimodal_path_omic_tpu_torch.train.optim import OptimizerSpec
 
 
@@ -61,11 +61,17 @@ def accumulation_chunks(batch: int, m_len: int, patch_budget: Optional[int],
 def make_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
+    ge_mode: bool = False,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, batch) -> (state, metrics)``. Batch fields (tensors on
     the model's device): wsi [B, M, D], mask [B, M] bool, omics (list of
     [B, s_i]), label [B], censorship [B], weight [B] (0 for filler rows),
     survival_months [B] (cox only).
+
+    ``ge_mode`` trains the WSI-only GE-NaCAGaT: the batch holds wsi, mask,
+    label and weight only, the model is called without omics, the loss is
+    ``ce`` on its class probabilities (other names raise), and the metrics'
+    ``attn_loss`` is 0 and ``risk`` zeros.
 
     ``l1_lambda`` > 0 adds the L1 penalty as the JAX step does: its
     gradient scaled by the batch's weight mass (the reference backwards it
@@ -74,6 +80,8 @@ def make_train_step(
     # cesar needs only the penalty, not the map: "ssq" keeps the model on the
     # fused kernels
     need_attention = "ssq" if loss_name == "cesar" else False
+    if ge_mode and loss_name != "ce":
+        raise NotImplementedError(f"GE-NaCAGaT trains with the ce loss, not {loss_name!r}")
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         model.train()
@@ -89,19 +97,25 @@ def make_train_step(
         loss_sum, attn_sum, w_sum, risks = zero, zero, zero, []
         for i in range(accum):
             sl = slice(i * chunk, (i + 1) * chunk)
-            out = model(wsi[sl], [o[sl] for o in batch["omics"]], batch["mask"][sl],
-                        need_attention=need_attention, generator=state.generator)
             weight = batch["weight"][sl]
-            loss, attn_loss = survival_loss(
-                loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
-                None if months is None else months[sl],
-            )
+            if ge_mode:
+                y, _ = model(wsi[sl], batch["mask"][sl], generator=state.generator)
+                loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
+                attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
+            else:
+                out = model(wsi[sl], [o[sl] for o in batch["omics"]], batch["mask"][sl],
+                            need_attention=need_attention, generator=state.generator)
+                loss, attn_loss = survival_loss(
+                    loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
+                    None if months is None else months[sl],
+                )
+                risk = -out.survs.detach().sum(dim=1)
             w_i = weight.sum()
             (loss * w_i).backward()  # scaled by the chunk's weight mass
             loss_sum = loss_sum + (loss * w_i).detach()
             attn_sum = attn_sum + (attn_loss * w_i).detach()
             w_sum = w_sum + w_i
-            risks.append(-out.survs.detach().sum(dim=1))
+            risks.append(risk)
         w_sum = torch.clamp(w_sum, min=1.0)
         loss, attn_loss = loss_sum / w_sum, attn_sum / w_sum
         with torch.no_grad():

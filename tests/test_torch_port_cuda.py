@@ -18,6 +18,8 @@ between the two summation orders, which exp turns into ~1e-5 relative in w.
 The GE kernels (gated-MIL pool, flash forward) are held to 1e-4 absolute on
 pooled rows, raw scores and attention outputs (valid and pad rows alike):
 outputs of magnitude ~1 in other summation orders move by ~1e-6 to 1e-5.
+The flash backward's dq, dk, dv are held like the other gradients, to 1e-4 of
+each tensor's largest magnitude, and two runs must agree bitwise.
 """
 
 import math
@@ -326,8 +328,9 @@ def test_ge_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash.flash_attention(q, k.cpu(), v, mask)
     with pytest.raises(ValueError, match="key_mask"):
         flash.flash_attention(q, k, v, mask[:, :50])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        flash.flash_attention(q.clone().requires_grad_(True), k, v, mask)
+    with pytest.raises(ValueError, match="unsupported head width"):  # in training too
+        flash.flash_attention(q[..., :16].clone().requires_grad_(True), k[..., :16], v[..., :16],
+                              mask)
     args = _pool_inputs(dev, 2, 100, 256, 256, 0)
     with pytest.raises(ValueError, match="unsupported"):
         milpool.fused_gated_mil_pool(args[0][..., :250].contiguous(), args[1],
@@ -354,7 +357,8 @@ def test_ge_predictor_on_card_matches_cpu(dev):
     pred = Predictor("GE-NaCAGaT", device=dev, **kw)
     got = pred.predict_bags(bags)
     torch.cuda.synchronize()
-    assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 2, "flash_fwd_d32": 4}
+    assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 2, "flash_fwd_d32": 4,
+                                   "flash_bwd_d256": 0, "flash_bwd_d32": 0}
     assert milpool.LAUNCH_COUNTS["milpool"] == 2
     assert not any(coattn.LAUNCH_COUNTS.values())
     cpu = Predictor("GE-NaCAGaT", device="cpu", **kw)
@@ -384,3 +388,122 @@ def test_ge_widths_without_a_kernel_instance_raise_on_card(dev):
                      device=dev)
     with pytest.raises(ValueError, match="unsupported head width"):
         pred.predict_bag(np.zeros((40, 64), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# GE-NaCAGaT training: the flash backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,heads,width,m_len,packed",
+    [(2, 1, 256, 1000, True), (3, 8, 32, 777, True), (1, 1, 256, 70, False),
+     (2, 8, 32, 4096, False), (2, 1, 256, 4096, True), (1, 8, 32, 3, True), (2, 2, 32, 129, True),
+     (2, 1, 256, 33, True)],
+)
+def test_flash_backward_kernel_matches_plain_on_card(dev, b, heads, width, m_len, packed):
+    """The forward's (m, l) and the backward's dq, dk, dv against the plain
+    versions, from the forward kernel's own out and statistics; a random
+    cotangent on every row, laid out [B, L, E] as the out-projection's input
+    gradient is; two runs bitwise equal; no dq/dk through a masked key."""
+    q, k, v, mask = _flash_inputs(dev, b, heads, width, m_len, m_len + heads, packed)
+    before = dict(flash.LAUNCH_COUNTS)
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    assert torch.equal(out, flash.flash_fwd(q, k, v, mask)[0])  # the same bits without (m, l)
+    ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, chunk=512,
+                                                        return_stats=True)
+    _close(out, ref_out)
+    _close(m, ref_m)
+    _close(l, ref_l, L_RTOL)
+    g = torch.Generator().manual_seed(m_len)
+    dout = torch.randn(b, m_len, heads * width, generator=g).to(dev)
+    dout = dout.reshape(b, m_len, heads, width).transpose(1, 2)
+    grads = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    again = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout, chunk=512)
+    for a, r in zip(grads, ref):
+        assert a.shape == r.shape
+        _close_rel(a, r)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    dq, dk, dv = grads
+    # three views of one packed buffer: the in-projection's gradient needs no gather
+    assert dq.untyped_storage().data_ptr() == dv.untyped_storage().data_ptr()
+    pad = ~mask[:, None, :, None].expand_as(dk)
+    if bool(pad.any()):
+        assert float(dk[pad].abs().max()) == 0.0
+    if b > 1:  # no valid key: m = -1e9, l = L, weights 1/L that feed dv alone
+        assert bool((m[-1] == -1e9).all()) and bool((l[-1] == m_len).all())
+        assert float(dq[-1].abs().max()) == 0.0 and float(dv[-1].abs().max()) > 0.0
+    # without a mask and with another scale; a cotangent the kernel cannot
+    # read in place is copied, not refused
+    out, m, l = flash.flash_fwd(q, k, v, None, sm_scale=0.05, need_stats=True)
+    odd = dout.transpose(2, 3).contiguous().transpose(2, 3)
+    for a, r in zip(flash.flash_bwd(q, k, v, None, out, m, l, odd, sm_scale=0.05),
+                    flash.flash_attention_bwd_plain(q, k, v, None, out, m, l, dout,
+                                                    sm_scale=0.05)):
+        _close_rel(a, r)
+    torch.cuda.synchronize()
+    assert flash.LAUNCH_COUNTS[f"flash_fwd_d{width}"] == before[f"flash_fwd_d{width}"] + 3
+    assert flash.LAUNCH_COUNTS[f"flash_bwd_d{width}"] == before[f"flash_bwd_d{width}"] + 3
+
+
+@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32)])
+def test_flash_attention_gradients_on_card(dev, heads, width):
+    """flash_attention on tensors that require grad (the autograd Function
+    over both kernels, through the packed projection's head views) against
+    autograd through the plain forward."""
+    g = torch.Generator().manual_seed(heads)
+    qkv0 = torch.randn(2, 600, 3 * heads * width, generator=g).to(dev)
+    mask = (torch.arange(600)[None] < torch.tensor([600, 250])[:, None]).to(dev)
+    w = torch.randn(2, heads, 600, width, generator=g).to(dev)
+    grads = []
+    for fn in (flash.flash_attention, flash.flash_attention_plain):
+        qkv = qkv0.clone().requires_grad_(True)
+        q, k, v = (t.reshape(2, 600, heads, width).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        (fn(q, k, v, mask) * w).sum().backward()
+        grads.append(qkv.grad)
+    _close_rel(*grads)
+    with pytest.raises(ValueError, match="CUDA"):
+        out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+        flash.flash_bwd(q, k, v, mask, out, m.cpu(), l, w)
+
+
+def test_ge_train_step_on_card_matches_cpu(dev):
+    """Three SGD steps of GE-NaCAGaT medium (the widths the flash kernels
+    take; dropout 0, ce) on short bags, on the card and on the CPU from the
+    same weights: the same parameters, 1 + 2 forward and 1 + 2 backward flash
+    launches a step and no other kernel."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    rng = np.random.default_rng(0)
+    m_len = 700
+    host = {
+        "wsi": rng.standard_normal((4, m_len, 64), dtype=np.float32),
+        "mask": np.arange(m_len)[None] < np.array([700, 500, 90, 0])[:, None],
+        "label": np.array([0, 1, 2, 0]),
+        "weight": np.array([1.0, 1.0, 1.0, 0.0], np.float32),
+    }
+    params = {}
+    for device in (dev, torch.device("cpu")):
+        model = seeded_init_(build_model("GE-NaCAGaT", model_size="medium", dropout=0.0,
+                                         wsi_dim=64), 0).to(device)
+        opt = make_optimizer("sgd", 0.1)
+        state = init_train_state(model, opt, 0)
+        step = make_train_step(model, "ce", opt, ge_mode=True)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        for mod in (coattn, flash, milpool):
+            mod.reset_launch_counts()
+        for _ in range(3):
+            state, metrics = step(state, batch)
+        assert np.isfinite(float(metrics.loss))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 3, "flash_fwd_d32": 6,
+                                           "flash_bwd_d256": 3, "flash_bwd_d32": 6}
+            assert not any(coattn.LAUNCH_COUNTS.values()) and not milpool.LAUNCH_COUNTS["milpool"]
+        params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k, v in params["cpu"].items():
+        np.testing.assert_allclose(params["cuda"][k].numpy(), v.numpy(), atol=ATOL, rtol=0)

@@ -220,12 +220,20 @@ def test_flash_plain_scale_and_strided_views():
 
 
 def test_forward_only_kernels_refuse_a_call_autograd_would_differentiate():
+    """The MIL pool has no backward kernel and refuses; the flash attention
+    has one behind its autograd Function and differentiates."""
     x = torch.zeros(2, 3, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward kernel"):
-        tkernels.refuse_grad("flash_attention", torch.zeros(2), x)
+        tkernels.refuse_grad("fused_gated_mil_pool", torch.zeros(2), x)
     with torch.no_grad():
-        tkernels.refuse_grad("flash_attention", x)
-    tkernels.refuse_grad("flash_attention", x.detach())
+        tkernels.refuse_grad("fused_gated_mil_pool", x)
+    tkernels.refuse_grad("fused_gated_mil_pool", x.detach())
+    rng = np.random.default_rng(0)
+    q, k, v = (_t(a).requires_grad_(True) for a in _qkv(2, 2, 40, 8, rng))
+    out = tflash.flash_attention(q, k, v, _t(_mask("ragged", 2, 40, rng)))
+    assert isinstance(out.grad_fn, tflash.FlashAttention._backward_cls)
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape for t in (q, k, v))
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +325,8 @@ def test_self_attention_flash_branch_matches_jax(world, heads, monkeypatch):
 
 def test_transformer_layers_take_the_flash_branch_with_the_mask(world, monkeypatch):
     """Each layer of a long path transformer hands the bag mask to
-    self_attn and takes the flash branch in eval; in training (attention
-    dropout live) and at 6 tokens it does not."""
+    self_attn and takes the flash branch in eval; in training with attention
+    dropout live below 4096 positions, and at 6 tokens, it does not."""
     p = world["params"]["path_transformer"]
     rng = np.random.default_rng(7)
     x = rng.normal(size=(B, M, D)).astype(np.float32)
