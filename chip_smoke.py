@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its NaCAGaT serving and training
-paths and its GE-NaCAGaT serving and training paths on one GPU.
+"""Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
+serving and training paths and its device-cache training step on one GPU.
 
-    python3 chip_smoke.py              # phases 1-12 below
+    python3 chip_smoke.py              # phases 1-16 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -72,6 +72,37 @@ Phases (any failure exits non-zero, and no result line is printed):
 12. Timings: each flash backward instance beside its plain version, its
     bound and the backward of one ``scaled_dot_product_attention`` call; the
     GE training step's ms and GE train bags/s.
+13. The plain-K co-attention kernels with values against their plain
+    versions at B=32, N=6, D=256, M in {8192, 5000 (not a multiple of any
+    tile)}, ragged masks with one fully-masked row, with and without the
+    pre-gate: the forward's eval form and training form (dropout 0.25, ssq,
+    sumw); the backward's dq, dk, dv under random cotangents of o, ssq and
+    sumw, two runs bitwise equal, exactly no dk through masked keys; the
+    drop share. The row gather against ``index_select``, bit for bit, for
+    float32, bfloat16 and int8 pools and repeated indices.
+14. MCAT at full width (``medium``, six signatures, seed-0 weights) on the
+    40 bags of phase 2: (a) the lean ``Predictor`` (``ces``): no kernel
+    launch, the GPU within 1e-4 of the CPU Predictor, and the [B, 6, M]
+    co-attention map of an eval step with ``need_attention=True``; (b) the
+    ``lean=False`` Predictor: one ``coattn_plain`` launch a batch and no
+    other kernel, within 1e-4 of (a); (c) NaCAGaT ``lean=False`` (``ces``,
+    pre-gated): one ``coattn_plain`` launch a batch, within 1e-4 of the
+    lean-V Predictor of phase 2; (d) training on the 32-bag batch of phase 5
+    (MCAT ``ces``, dropout 0.25, Adam): 3 steps lean (no kernel), 3 steps
+    ``lean=False`` (one forward and one backward launch a step), a
+    kernels-vs-plain step's parameter gradients, then 2 steps of NaCAGaT
+    ``cesar`` with ``lean=False`` (dropout and ssq through the kernels).
+15. The device cache: a cohort of 96 seeded bags (64 in the 8192 bucket, 32
+    in the 4096 bucket) uploaded once into ``DeviceBagCache``; 4 cached MCAT
+    steps (lean, ``ces``) over ``build_meta`` batches of 32, 32, 20 and 12
+    bags (short batches filled with zero-weight repeats), one ``gather_rows``
+    launch a step; then the same 4 batches host-fed from the same state and
+    seed: losses and final parameters bitwise equal.
+16. Timings: the three kernels beside their plain versions, bounds and
+    library calls (``scaled_dot_product_attention`` and its backward for the
+    form without pre-gate and dropout, ``index_select`` for the gather); MCAT
+    ``predict_bags`` bags/s and train bags/s, lean and ``lean=False``; the
+    cached step against the host-fed step including the batch's staging.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -87,7 +118,8 @@ matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
 ``predict_bags`` call of phase 8, split into flash kernel, MIL-pool kernel,
 matrix products, copies and other; and one GE training step of phase 11,
 split into flash forward, flash backward, matrix products, optimizer and
-other.
+other; and one cached MCAT training step (lean) over a 32-bag cohort of the
+8192 bucket.
 """
 
 from __future__ import annotations
@@ -125,6 +157,9 @@ SOURCES = {
     "flash_fwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
     "flash_bwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
+    "coattn_plain": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_plain_bwd": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "gather_rows": "multimodal_path_omic_tpu_torch/csrc/gather.cu",
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -139,6 +174,9 @@ REPLACES = {
     # the library kernel's custom VJP, reached through the same call
     "flash_bwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
     "flash_bwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
+    "coattn_plain": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_plain_bwd": "multimodal_path_omic_tpu/ops/coattn.py:508",
+    "gather_rows": "multimodal_path_omic_tpu/ops/gather.py:63",
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -204,11 +242,21 @@ GE_ATOL = 1e-4
 # ds = p * (dp - delta) cancels, and cuBLAS takes other orders; float32
 # moves them by ~1e-6 to 1e-5 of their scale, a tile, stride or mask fault
 # by O(1).
-GE_TRAIN_STEPS = 3
+GE_TRAIN_STEPS = 2
+# MCAT and the device cache (phases 13-16): examples/mcat.yaml's model (medium,
+# concat, ces, dropout 0.25, Adam lr 2e-4, weight decay 1e-5) on phase 2's
+# bags; the cache cohort's bags per bucket and the cached run's batches (rows
+# of a bucket, in bucket order; batch size 32).
+MCAT_STEPS = 3
+CACHE_COHORT = {8192: 64, 4096: 32}
+CACHE_BATCHES = ((8192, 0, 32), (8192, 32, 64), (4096, 0, 20), (4096, 20, 32))
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -315,12 +363,13 @@ def make_bags(seed):
     return bags, omics
 
 
-def make_predictor(dev, loss, batch_size=B):
-    """The serving configuration: NaCAGaT medium, random weights from seed 0."""
+def make_predictor(dev, loss, batch_size=B, model="NaCAGaT", **kw):
+    """The serving configuration: NaCAGaT (or MCAT) medium, random weights
+    from seed 0."""
     from multimodal_path_omic_tpu_torch.serve import Predictor
 
-    return Predictor("NaCAGaT", omic_sizes=SIZES, model_size="medium",
-                     buckets=BUCKETS, batch_size=batch_size, loss=loss, seed=0, device=dev)
+    return Predictor(model, omic_sizes=SIZES, model_size="medium", buckets=BUCKETS,
+                     batch_size=batch_size, loss=loss, seed=0, device=dev, **kw)
 
 
 def phase2_predictor(dev, bags, omics) -> dict:
@@ -512,19 +561,21 @@ def phase4_train_kernels(dev) -> dict:
     return errs
 
 
-def make_trainer(dev):
-    """The training configuration: NaCAGaT medium, random weights from seed
-    0, cesar, dropout 0.25, Adam lr 2e-4 / weight decay 1e-5, dropout
-    generator seeded with 0."""
+def make_trainer(dev, model="NaCAGaT", loss="cesar", lean=True, cached=False):
+    """The training configuration: NaCAGaT (cesar) or MCAT (ces) medium,
+    random weights from seed 0, dropout 0.25, Adam lr 2e-4 / weight decay
+    1e-5, dropout generator seeded with 0; ``cached``: the device-cache step."""
     from multimodal_path_omic_tpu_torch.models import build_model
-    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train import loop
     from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
     from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
-    model = build_model("NaCAGaT", omic_sizes=SIZES, model_size="medium", dropout=TRAIN_RATE)
-    model = seeded_init_(model, 0).to(dev)
+    net = build_model(model, omic_sizes=SIZES, model_size="medium", dropout=TRAIN_RATE,
+                      lean=lean)
+    net = seeded_init_(net, 0).to(dev)
     opt = make_optimizer("adam", 2e-4, 1e-5)
-    return model, init_train_state(model, opt, seed=0), make_train_step(model, "cesar", opt)
+    make = loop.make_cached_train_step if cached else loop.make_train_step
+    return net, loop.init_train_state(net, opt, seed=0), make(net, loss, opt, omic_sizes=SIZES)
 
 
 def stage_train_batch(dev, bags, omics) -> dict:
@@ -762,16 +813,17 @@ def make_ge_predictor(dev, batch_size=GE_B):
 
 
 def reset_counts() -> None:
-    from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool
+    from multimodal_path_omic_tpu_torch.ops import coattn, flash, gather, milpool
 
-    for mod in (coattn, flash, milpool):
+    for mod in (coattn, flash, gather, milpool):
         mod.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool
+    from multimodal_path_omic_tpu_torch.ops import coattn, flash, gather, milpool
 
-    return {**coattn.LAUNCH_COUNTS, **flash.LAUNCH_COUNTS, **milpool.LAUNCH_COUNTS}
+    return {**coattn.LAUNCH_COUNTS, **flash.LAUNCH_COUNTS, **gather.LAUNCH_COUNTS,
+            **milpool.LAUNCH_COUNTS}
 
 
 def ge_eval_scores(pred, bags):
@@ -1171,7 +1223,7 @@ def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
         del q, k, v, mask, out, m, l, dout, got, lib
     step, state = trainer["step"], trainer["state"]
     times = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step(state, batch)
@@ -1182,6 +1234,495 @@ def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
     log(f"phase 12: GE training step, {n_real} bags and {GE_B - n_real} filler row of the "
         f"{GE_M} bucket: {', '.join(f'{t:.3f}' for t in times)} ms (host clock, "
         f"synchronized); median {med:.3f} ms = {n_real / med * 1e3:.3f} GE train bags/s")
+    return rows
+
+
+def plain_k_inputs(m_len, seed, dev):
+    """q, k and the mask of :func:`make_inputs` (projected queries and keys),
+    ReLU-free projected values, a dropout seed and the backward's cotangents."""
+    import torch
+
+    q, _, _, _, k, mask = make_inputs(m_len, E, seed, dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    v = 0.7 * torch.randn(B, m_len, E, generator=g)
+    dout = torch.randn(B, N, E, generator=g)
+    dssq, dsumw = (torch.randn(B, N, generator=g) for _ in range(2))
+    dseed = torch.tensor([seed], dtype=torch.int32)
+    return (q, k, v.to(dev), mask, dseed.to(dev)), tuple(t.to(dev) for t in (dout, dssq, dsumw))
+
+
+def phase13_plain_kernels(dev) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn, gather
+
+    errs = {"coattn_plain": 0.0, "coattn_plain_bwd": 0.0, "gather_rows": 0.0}
+    for m_len in (TRAIN_M, 5000):
+        ins, (dout, dssq, dsumw) = plain_k_inputs(m_len, 131 + m_len, dev)
+        q, k, v, mask, dseed = ins
+        for pre_gate in (True, False):
+            log(f"phase 13: plain-K kernels B={B} N={N} D={E} M={m_len} pre_gate={pre_gate}")
+            got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+            ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate)
+            if got[3] is not None or got[4] is not None:
+                raise AssertionError("the eval form returns no ssq / sumw")
+            e = 0.0
+            for name, a, r, rtol in zip(("o", "l", "m"), got, ref, (0.0, L_RTOL, 0.0)):
+                err = check_close(f"plain_fwd_eval.{name}", a, r, KERNEL_ATOL, rtol)
+                e = max(e, 0.0 if name == "l" else err)
+            # the fully-masked filler row: uniform over its M keys
+            check_close("plain_fwd_eval.filler_row", got[0][-1],
+                        v[-1].mean(dim=0).expand_as(got[0][-1]), KERNEL_ATOL)
+            got = coattn.coattn_fwd_plain_k(*ins, TRAIN_RATE, pre_gate=pre_gate)
+            ref = coattn.coattn_fwd_plain_k_plain(*ins, TRAIN_RATE, pre_gate=pre_gate)
+            for name, a, r, rtol in zip(("o", "l", "m", "ssq", "sumw"), got, ref,
+                                        (0.0, L_RTOL, 0.0, 0.0, 0.0)):
+                err = check_close(f"plain_fwd_train.{name}", a, r, KERNEL_ATOL, rtol)
+                e = max(e, 0.0 if name == "l" else err)
+            errs["coattn_plain"] = max(errs["coattn_plain"], e)
+            o, l, m, ssq, sumw = ref
+            di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+            args = (*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+            got = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+            again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+            ref = coattn.coattn_bwd_plain_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw,
+                                                  pre_gate=pre_gate)
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                errs["coattn_plain_bwd"] = max(errs["coattn_plain_bwd"],
+                                               check_rel(f"plain_bwd.{name}", a, r, GRAD_RTOL))
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError("two plain-K backward runs differ")
+            dq, dk, dv = got
+            pad = ~mask[:, :, None].expand_as(dk)
+            if float(dk[pad].abs().max()) != 0.0 or float(dq[-1].abs().max()) != 0.0:
+                raise AssertionError("a masked key passed a gradient to q or k")
+            if not float(dv[-1].abs().max()) > 0.0:
+                raise AssertionError("the fully-masked row must still feed dv")
+            log("  plain_bwd: two runs bitwise equal; no dk, dq through masked keys")
+        keep = coattn.dropout_bits(dseed, (B, N, m_len), dev) >= coattn.dropout_threshold(
+            TRAIN_RATE)
+        drop = 1.0 - float(keep.double().mean().item())
+        log(f"  drop share of the Philox bits over {keep.numel()} draws: {drop:.6f} "
+            f"(tolerance {TRAIN_RATE} +- {DROP_TOL})")
+        if abs(drop - TRAIN_RATE) > DROP_TOL:
+            raise AssertionError("the dropout bits miss the rate")
+        del ins, got, again, ref, dq, dk, dv, pad, keep
+    g = torch.Generator(device="cpu").manual_seed(17)
+    idx = torch.randint(0, 12, (B,), generator=g)
+    idx[1] = idx[0]  # a repeated index
+    for dtype, shape in ((torch.float32, (12, TRAIN_M, 1024)), (torch.bfloat16, (12, 4096, 1024)),
+                         (torch.int8, (12, 4096, 1024)), (torch.int8, (12, 100, 24)),
+                         (torch.float32, (3, 5000, 1024))):
+        if dtype == torch.int8:
+            pool = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8).to(dev)
+        else:
+            pool = torch.randn(shape, generator=g).to(dev).to(dtype)
+        for ix in (idx % shape[0]).to(dev), (idx % shape[0]).to(dev).int():
+            got = gather.gather_rows(pool, ix)
+            if not torch.equal(got, torch.index_select(pool, 0, ix.long())):
+                raise AssertionError(f"gather_rows differs from index_select ({dtype}, {shape})")
+        log(f"phase 13: gather_rows {dtype} pool {shape}, {B} indices (int64 and int32, "
+            f"repeats): equal to index_select bit for bit")
+        del pool, got
+    torch.cuda.synchronize()
+    return errs
+
+
+def expect_counts(what, counts, **want) -> None:
+    full = {name: 0 for name in counts}
+    full.update(want)
+    log(f"  launches ({what}): { {k: v for k, v in counts.items() if v} }")
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def check_outputs_close(what, got, ref, idx=None) -> None:
+    for k in ("hazards", "survs", "y", "risk"):
+        a = got[k] if idx is None else got[k][idx]
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{what}: non-finite {k}")
+        err = float(np.abs(a - ref[k]).max())
+        log(f"  {k} vs {what}: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g})")
+        if err > MODEL_ATOL:
+            raise AssertionError(f"{k} disagrees with {what}")
+
+
+def n_batches(bags) -> int:
+    from multimodal_path_omic_tpu_torch.data.bags import bucket_for
+
+    per_bucket = {}
+    for bag in bags:
+        bucket = bucket_for(len(bag), BUCKETS)
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+    return sum(-(-n // B) for n in per_bucket.values())
+
+
+def mcat_train_step_grads(dev, batch, plain: bool) -> dict:
+    """Parameter gradients of one MCAT ``lean=False`` training step from the
+    phase-14 start state and seed, through the plain-K kernels or through
+    their plain versions."""
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    model, state, step = make_trainer(dev, "MCAT", "ces", lean=False)
+    saved = coattn.coattn_fwd_plain_k, coattn.coattn_bwd_plain_k
+    if plain:
+        coattn.coattn_fwd_plain_k = (
+            lambda q, k, v, mk, seed=None, rate=0.0, *, pre_gate, train=True:
+            coattn.coattn_fwd_plain_k_plain(q, k, v, mk, seed, rate, pre_gate=pre_gate))
+        coattn.coattn_bwd_plain_k = (
+            lambda q, k, v, mk, seed, rate, dout, l, m, di, dssq, dsumw, *, pre_gate:
+            coattn.coattn_bwd_plain_k_plain(q, k, v, mk, seed, rate, dout, dssq, dsumw,
+                                            pre_gate=pre_gate))
+    try:
+        step(state, batch)
+    finally:
+        coattn.coattn_fwd_plain_k, coattn.coattn_bwd_plain_k = saved
+    return {name: p.grad.clone() for name, p in model.named_parameters()}
+
+
+def run_steps(what, step, state, batch, steps):
+    import torch
+
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics.loss)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    log(f"  {what}: losses {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: a training loss is not finite")
+    if losses[-1] > losses[0] + 0.1:
+        raise AssertionError(f"{what}: the loss rises")
+    return state
+
+
+def phase14_mcat(dev, bags, omics, batch, nacagat_ces) -> dict:
+    import torch
+
+    launches = {"coattn_plain": 0, "coattn_plain_bwd": 0}
+    batches = n_batches(bags) + 1  # + predict_bag
+    log(f"phase 14a: MCAT medium Predictor (lean), ces, {len(bags)} bags, buckets {BUCKETS}, "
+        f"batch_size {B}")
+    lean = make_predictor(dev, "ces", model="MCAT")
+    reset_counts()
+    out_lean = lean.predict_bags(bags, omics)
+    single = lean.predict_bag(bags[1], omics[1])
+    torch.cuda.synchronize()
+    expect_counts("MCAT lean serving", read_counts())
+    assert out_lean["risk"].shape == (len(bags),) and out_lean["hazards"].shape == (len(bags), 4)
+    log(f"  risk over {len(bags)} bags: min {out_lean['risk'].min():.6f} max "
+        f"{out_lean['risk'].max():.6f} std {out_lean['risk'].std():.3e}")
+    if float(np.abs(single["risk"] - out_lean["risk"][1:2]).max()) > MODEL_ATOL:
+        raise AssertionError("MCAT predict_bag and predict_bags disagree")
+    idx = [0, 1, 2]
+    cpu = make_predictor("cpu", "ces", batch_size=4, model="MCAT")
+    ref = cpu.predict_bags([bags[i] for i in idx], [omics[i] for i in idx])
+    check_outputs_close("the CPU Predictor", out_lean, ref, idx)
+    # the map of an eval step with need_attention=True, on the training batch
+    attn = make_predictor(dev, "ces", model="MCAT", need_attention=True).eval_step(
+        batch)["attention"]["coattn"]
+    mask = batch["mask"]
+    row_sums = (attn * mask[:, None, :]).sum(-1)
+    if (tuple(attn.shape) != (B, N, TRAIN_M) or not bool(torch.isfinite(attn).all())
+            or float((row_sums - 1.0).abs().max()) > 1e-4
+            or float((attn * ~mask[:, None, :]).abs().max()) > 1e-12):
+        raise AssertionError("the exported co-attention map is not a masked softmax")
+    log(f"  need_attention=True: map {tuple(attn.shape)}, rows sum to 1 over the valid keys "
+        f"(max deviation {float((row_sums - 1.0).abs().max()):.3e})")
+    del attn, row_sums
+
+    log("phase 14b: MCAT medium Predictor, lean=False (k, v projected; plain-K kernel)")
+    pred = make_predictor(dev, "ces", model="MCAT", lean=False)
+    reset_counts()
+    out = pred.predict_bags(bags, omics)
+    pred.predict_bag(bags[1], omics[1])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("MCAT lean=False serving", counts, coattn_plain=batches)
+    launches["coattn_plain"] += counts["coattn_plain"]
+    check_outputs_close("the lean route", out, out_lean)
+
+    log("phase 14c: NaCAGaT medium Predictor, ces, lean=False (pre-gated plain-K kernel)")
+    pred_n = make_predictor(dev, "ces", lean=False)
+    reset_counts()
+    out = pred_n.predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("NaCAGaT lean=False serving", counts, coattn_plain=batches - 1)
+    launches["coattn_plain"] += counts["coattn_plain"]
+    check_outputs_close("the lean-V route", out, nacagat_ces.predict_bags(bags, omics))
+
+    log(f"phase 14d: MCAT medium trainer, ces, dropout {TRAIN_RATE}, Adam; batch "
+        f"[{B}, {TRAIN_M}, 1024]")
+    from multimodal_path_omic_tpu_torch.train.loop import accumulation_chunks
+
+    if accumulation_chunks(B, TRAIN_M, 262_144, "ces") != 1:
+        raise AssertionError("the MCAT batch must fit one accumulation chunk")
+    trainers = {}
+    for is_lean in (True, False):
+        _, state, step = make_trainer(dev, "MCAT", "ces", lean=is_lean)
+        reset_counts()
+        state = run_steps(f"MCAT lean={is_lean}, {MCAT_STEPS} steps", step, state, batch,
+                          MCAT_STEPS)
+        counts = read_counts()
+        want = {} if is_lean else {"coattn_plain": MCAT_STEPS, "coattn_plain_bwd": MCAT_STEPS}
+        expect_counts(f"MCAT lean={is_lean} training", counts, **want)
+        for name in launches:
+            launches[name] += counts[name]
+        trainers[is_lean] = (step, state)
+    log("phase 14d: one lean=False step from the same state and seed, kernels vs plain versions")
+    check_step_grads(mcat_train_step_grads(dev, batch, plain=False),
+                     mcat_train_step_grads(dev, batch, plain=True))
+    _, state, step = make_trainer(dev, "NaCAGaT", "cesar", lean=False)
+    reset_counts()
+    run_steps("NaCAGaT cesar lean=False, 2 steps", step, state, batch, 2)
+    counts = read_counts()
+    expect_counts("NaCAGaT lean=False training", counts, coattn_plain=2, coattn_plain_bwd=2)
+    for name in launches:
+        launches[name] += counts[name]
+    return {"launches": launches, "predictors": {True: lean, False: pred}, "trainers": trainers}
+
+
+class CacheCohort:
+    """A seeded survival cohort held in host memory: ``bag(i)`` [M_i, 1024]
+    and the ``table`` columns ``survival_extras`` reads. Bags are ordered
+    bucket by bucket (``cohort``: bucket -> number of bags)."""
+
+    def __init__(self, cohort, seed):
+        rng = np.random.default_rng(seed)
+        lengths = []
+        for bucket, count in cohort.items():
+            lengths += list(rng.integers(bucket // 2 + 1, bucket + 1, size=count))
+        self.lengths = np.array(lengths)
+        # uniform draws: several times cheaper on the host than normal ones
+        self.bags = [rng.random((int(n), 1024), dtype=np.float32) * 2.0 - 1.0 for n in lengths]
+        n = len(lengths)
+        self.table = self
+        self.survival_months = rng.uniform(1, 100, n).astype(np.float32)
+        self.survival_class = rng.integers(0, 4, n)
+        self.censorship = rng.integers(0, 2, n).astype(np.float32)
+        self.signature_names = [f"sig{j}" for j in range(len(SIZES))]
+        self.signature_data = {name: rng.standard_normal((n, s), dtype=np.float32)
+                               for name, s in zip(self.signature_names, SIZES)}
+
+    def __len__(self):
+        return len(self.bags)
+
+    def bag(self, i):
+        return self.bags[i]
+
+
+def cache_metas(ds, cache, batches=None):
+    """(bucket, meta) of each cached batch (default: CACHE_BATCHES): rows
+    lo..hi of a bucket's bags."""
+    from multimodal_path_omic_tpu_torch.data.device_cache import build_meta
+
+    out = []
+    for bucket, lo, hi in batches or CACHE_BATCHES:
+        rows = np.flatnonzero(cache.bucket_of == bucket)[lo:hi]
+        out.append((bucket, build_meta([int(r) for r in rows], B, cache)[0]))
+    return out
+
+
+def stage_host_batch(ds, bucket, meta, dev) -> dict:
+    """The host-fed batch of the same rows: each bag copied into its row of a
+    zeroed device batch, the label and omics columns from the host table."""
+    import torch
+
+    rows = meta["row"]
+    wsi = torch.zeros((len(rows), bucket, 1024), device=dev)
+    mask = torch.zeros((len(rows), bucket), dtype=torch.bool, device=dev)
+    for j, r in enumerate(rows):
+        bag = ds.bag(int(r))
+        wsi[j, :len(bag)] = torch.from_numpy(bag).to(dev)
+        mask[j, :len(bag)] = True
+    return {
+        "wsi": wsi, "mask": mask,
+        "omics": [torch.from_numpy(ds.signature_data[n][rows]).to(dev)
+                  for n in ds.signature_names],
+        "label": torch.from_numpy(ds.survival_class[rows].astype(np.int64)).to(dev),
+        "censorship": torch.from_numpy(ds.censorship[rows]).to(dev),
+        "weight": torch.from_numpy(meta["weight"]).to(dev),
+    }
+
+
+def phase15_device_cache(dev) -> dict:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache
+    from multimodal_path_omic_tpu_torch.data.pipeline import survival_extras
+
+    t0 = time.perf_counter()
+    ds = CacheCohort(CACHE_COHORT, seed=4)
+    log(f"phase 15: cohort of {len(ds)} bags ({CACHE_COHORT}), made on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cache = DeviceBagCache(ds, survival_extras, BUCKETS, device=dev, lengths=ds.lengths,
+                           upload_chunk=16)
+    torch.cuda.synchronize()
+    want = DeviceBagCache.nbytes(ds.lengths, BUCKETS, 1024)
+    held = torch.cuda.memory_allocated() - before
+    log(f"  uploaded once in {time.perf_counter() - t0:.1f} s: DeviceBagCache.nbytes {want} "
+        f"bytes of wsi; torch.cuda.memory_allocated grew by {held} bytes (masks and the "
+        f"label / omics table included)")
+    if not want <= held <= want * 1.01 + (1 << 22):
+        raise AssertionError("the cache holds other than its planned bytes")
+    metas = cache_metas(ds, cache)
+    model_c, state, step = make_trainer(dev, "MCAT", "ces", cached=True)
+    reset_counts()
+    losses_c = []
+    for bucket, meta in metas:
+        state, metrics = step(state, cache.caches[bucket], meta)
+        losses_c.append(metrics.loss)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("cached MCAT steps", counts, gather_rows=len(metas))
+    model_h, state, step = make_trainer(dev, "MCAT", "ces")
+    losses_h = []
+    for bucket, meta in metas:
+        state, metrics = step(state, stage_host_batch(ds, bucket, meta, dev))
+        losses_h.append(metrics.loss)
+    torch.cuda.synchronize()
+    losses_c, losses_h = ([float(x) for x in ls] for ls in (losses_c, losses_h))
+    log(f"  cached losses   {losses_c}")
+    log(f"  host-fed losses {losses_h}")
+    if losses_c != losses_h or not all(math.isfinite(x) for x in losses_c):
+        raise AssertionError("cached and host-fed losses differ")
+    for (name, p), q in zip(model_c.named_parameters(), model_h.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"cached and host-fed parameter {name} differ")
+    log(f"  {len(metas)} cached steps (batches of "
+        f"{[int(m['weight'].sum()) for _, m in metas]} bags) and the same batches host-fed: "
+        f"losses and all parameters bitwise equal")
+    return {"launches": counts, "ds": ds, "cache": cache}
+
+
+def plain_k_bound_ms(name, m_len) -> tuple:
+    """Bounds of the plain-K kernels at B=32, N=6, D=256 (pre-gated form: its
+    gate product is counted; float32 multiply-adds as 2 operations) and of
+    the gather at B=32 rows of [m_len, 1024] float32."""
+    d = E
+    if name == "coattn_plain":  # in: q, k, v, mask; out: o, l, m, ssq, sumw
+        nbytes = 4 * (2 * B * N * d + 2 * B * m_len * d + 4 * B * N) + B * m_len
+        ops = 6 * B * N * m_len * d  # q.k, the gate, p.v
+    elif name == "coattn_plain_bwd":  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
+        nbytes = 4 * (3 * B * N * d + 4 * B * m_len * d + 5 * B * N) + B * m_len
+        ops = 16 * B * N * m_len * d  # q.k, gate, dO.v, dv, two terms each of dq and dk
+    else:
+        nbytes, ops = 2 * B * m_len * 1024 * 4 + 8 * B, 0
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_path_omic_tpu_torch.ops import coattn, gather
+
+    def row(name, ms, plain_ms, library_ms, m_len=TRAIN_M):
+        bound = plain_k_bound_ms(name, m_len)
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
+    ins, (dout, dssq, dsumw) = plain_k_inputs(TRAIN_M, 23, dev)
+    q, k, v, mask, dseed = ins
+    # The rows of the kernels line: MCAT's form (no pre-gate, no dropout), the
+    # one a single PyTorch call also computes; the other forms are logged.
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))
+    amask = mask[:, None, None, :]
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q4, k4, v4)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dout[:, None],
+                                                  retain_graph=True))
+    zeros = torch.zeros_like(dssq)
+    rows = []
+    for pre_gate, rate in ((False, 0.0), (True, 0.0), (True, TRAIN_RATE)):
+        o, l, m, ssq, sumw = coattn.coattn_fwd_plain_k_plain(*ins, rate, pre_gate=pre_gate)
+        cot = (dout, zeros, zeros) if not pre_gate else (dout, dssq, dsumw)
+        di = (o * cot[0]).sum(-1) + 2.0 * cot[1] * ssq + cot[2] * sumw
+        ev = cuda_ms(lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate,
+                                                       train=False)) if rate == 0.0 else None
+        tr = cuda_ms(lambda: coattn.coattn_fwd_plain_k(*ins, rate, pre_gate=pre_gate))
+        fp = cuda_ms(lambda: coattn.coattn_fwd_plain_k_plain(*ins, rate, pre_gate=pre_gate))
+        bw = cuda_ms(lambda: coattn.coattn_bwd_plain_k(*ins, rate, cot[0], l, m, di, cot[1],
+                                                       cot[2], pre_gate=pre_gate))
+        bp = cuda_ms(lambda: coattn.coattn_bwd_plain_k_plain(*ins, rate, *cot,
+                                                             pre_gate=pre_gate))
+        log(f"phase 16: plain-K B={B} N={N} M={TRAIN_M} D={E} pre_gate={pre_gate} dropout "
+            f"{rate}: forward eval form {'%.4f ms' % ev if ev is not None else 'n/a'}, "
+            f"training form {tr:.4f} ms, plain {fp:.4f} ms; backward {bw:.4f} ms, plain "
+            f"{bp:.4f} ms")
+        if not pre_gate:
+            rows.append(row("coattn_plain", ev, fp, lib_fwd))
+            rows.append(row("coattn_plain_bwd", bw, bp, lib_bwd))
+            log(f"  scaled_dot_product_attention on the same inputs: forward {lib_fwd:.4f} ms, "
+                f"backward {lib_bwd:.4f} ms; bounds {rows[-2]['bound_ms']:.4f} / "
+                f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    del ins, q, k, v, q4, k4, v4, leaves, lib_out
+    pool = p15["cache"].caches[TRAIN_M]["wsi"]
+    idx = torch.randperm(pool.shape[0], device=dev)[:B]
+    ms = cuda_ms(lambda: gather.gather_rows(pool, idx))
+    lib = cuda_ms(lambda: torch.index_select(pool, 0, idx))
+    rows.append(row("gather_rows", ms, lib, lib))
+    log(f"phase 16: gather_rows pool {tuple(pool.shape)} float32, {B} rows: kernel {ms:.4f} ms, "
+        f"index_select (the plain version and the library call) {lib:.4f} ms, bound "
+        f"{rows[-1]['bound_ms']:.4f} ms (bytes)")
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    for is_lean, pred in p14["predictors"].items():
+        pred.predict_bags(bags, omics)  # warm
+        rates = [len(bags) / t for t in timed(lambda: pred.predict_bags(bags, omics), 3)]
+        log(f"phase 16: MCAT predict_bags lean={is_lean}: {len(bags)} bags, 3 calls: "
+            f"{', '.join(repr(r) for r in rates)} bags/s (host clock, batches of {B}, "
+            f"buckets {BUCKETS})")
+    for is_lean, (step, state) in p14["trainers"].items():
+        box = [state]
+
+        def one():
+            box[0], _ = step(box[0], batch)
+
+        times = [t * 1e3 for t in timed(one, 10)]
+        med = float(np.median(times))
+        log(f"phase 16: MCAT training step lean={is_lean}, {B} bags of the {TRAIN_M} bucket: "
+            f"{', '.join(f'{t:.3f}' for t in times)} ms (host clock, synchronized); median "
+            f"{med:.3f} ms = {B / med * 1e3:.1f} train bags/s")
+    ds, cache = p15["ds"], p15["cache"]
+    metas = cache_metas(ds, cache, CACHE_BATCHES[:2])  # the two full batches
+    for cached in (True, False):
+        _, state, step = make_trainer(dev, "MCAT", "ces", cached=cached)
+        box = [state, 0]
+
+        def one():
+            bucket, meta = metas[box[1] % len(metas)]
+            box[1] += 1
+            if cached:
+                box[0], _ = step(box[0], cache.caches[bucket], meta)
+            else:
+                box[0], _ = step(box[0], stage_host_batch(ds, bucket, meta, dev))
+
+        timed(one, 2)  # warm
+        times = [t * 1e3 for t in timed(one, 8)]
+        med = float(np.median(times))
+        log(f"phase 16: MCAT training step (lean) {'from the device cache' if cached else 'host-fed, staging included'}"
+            f", {B} bags of the {TRAIN_M} bucket: {', '.join(f'{t:.3f}' for t in times)} ms "
+            f"(host clock, synchronized); median {med:.3f} ms = {B / med * 1e3:.1f} train bags/s")
     return rows
 
 
@@ -1252,7 +1793,9 @@ def device_rows(prof) -> list:
 TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("combine_kernel", "coattn kernels"),
                ("bwd_reduce_kernel", "coattn kernels"), ("flash_fwd_kernel", "flash forward"),
                ("flash_bwd", "flash backward"), ("gemm", "matmul"), ("xmma", "matmul"),
-               ("cutlass", "matmul"), ("adam", "optimizer"), ("multi_tensor", "optimizer"))
+               ("cutlass", "matmul"), ("adam", "optimizer"), ("multi_tensor", "optimizer"),
+               ("gather_rows", "row gather"), ("plain_kernel", "coattn kernels"),
+               ("plain_bwd_kernel", "coattn kernels"))
 
 
 def profile_training(title, tag, make, batch, top=20) -> None:
@@ -1317,7 +1860,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one predict_bags call per loss, one training step, one GE "
-                         "predict_bags call and one GE training step instead of phases 1-12")
+                         "predict_bags call, one GE training step and one cached MCAT "
+                         "training step instead of phases 1-16")
     args = ap.parse_args()
     try:
         import torch
@@ -1358,6 +1902,22 @@ def main() -> int:
         profile_training(f"GE training step, {GE_B} rows of the {GE_M} bucket",
                          "ge_training_step", lambda: make_ge_trainer(dev),
                          stage_ge_train_batch(dev, ge_bags))
+        del ge_bags
+        torch.cuda.empty_cache()
+        from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache
+        from multimodal_path_omic_tpu_torch.data.pipeline import survival_extras
+
+        ds = CacheCohort({TRAIN_M: B}, seed=4)
+        cache = DeviceBagCache(ds, survival_extras, BUCKETS, device=dev, lengths=ds.lengths,
+                               upload_chunk=16)
+        (bucket, meta), = cache_metas(ds, cache, ((TRAIN_M, 0, B),))
+
+        def make_cached():
+            model, state, step = make_trainer(dev, "MCAT", "ces", cached=True)
+            return model, state, lambda st, m: step(st, cache.caches[bucket], m)
+
+        profile_training(f"cached MCAT training step (lean), {B} bags of the {TRAIN_M} bucket",
+                         "mcat_cached_training_step", make_cached, meta)
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)
@@ -1368,7 +1928,7 @@ def main() -> int:
     batch = stage_train_batch(dev, bags, omics)
     p5 = phase5_training(dev, batch)
     rows += phase6_train_timings(dev, errs, p5["launches"], p5, batch)
-    del p5, batch, bags, omics
+    del p5  # bags, omics and the staged batch serve phases 14-16 again
     torch.cuda.empty_cache()
     errs.update(phase7_ge_kernels(dev))
     ge_bags = make_ge_bags(2)
@@ -1383,6 +1943,14 @@ def main() -> int:
         if row["name"].startswith("flash_fwd"):
             row["launches"] += p11["launches"][row["name"]]
     rows += phase12_ge_train_timings(dev, errs, p11["launches"], p11, ge_batch)
+    del p11, ge_batch, ge_bags
+    torch.cuda.empty_cache()
+    errs.update(phase13_plain_kernels(dev))
+    torch.cuda.empty_cache()
+    p14 = phase14_mcat(dev, bags, omics, batch, make_predictor(dev, "ces"))
+    p15 = phase15_device_cache(dev)
+    launches = {**p14["launches"], "gather_rows": p15["launches"]["gather_rows"]}
+    rows += phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@
 //       used for the (l, m) statistics in coattention_weights (export pass 1)
 //   * mpo_coattn_weights      <- _make_weights_kernel / coattention_weights
 //       (export pass 2)
+//   * mpo_coattn_plain_fwd    <- _coattn_fwd_impl with the plain K operand and
+//       values (coattention / _coattn: attention off the lean routes), with or
+//       without the pre-gate, eval form and training form (dropout, ssq, sumw)
 //
 // Semantics shared by all of them (N queries, M keys, one bag per b):
 //   s[n, m]  = (q[n] . k[m]) / sqrt(E) * (tanh(q[n]) . tanh(k[m]) + 1) / 2
@@ -50,6 +53,18 @@
 //     loads (the whole D row in one or two instructions per lane) and many
 //     blocks per bag keep enough loads in flight; the stats partials of every
 //     warp are merged by the same combine kernel.
+//   * plain (plain-K with values): reads k and v [B, M, D] once each (537 MB at
+//     B=32, M=8192, D=256: 0.16 ms) for 2.4 GFLOP of products (0.04 ms): bound
+//     by bytes. One warp owns a contiguous run of keys: it loads a key's k and
+//     v rows with coalesced float4 loads (the next key's rows are requested
+//     before the current one is scored), scores it against all N queries
+//     (score_row), and keeps an online softmax and the N x D output sums in
+//     registers, rescaling them only when a row maximum moves (the branch is
+//     uniform over the warp). The dropout bits of the N queries are drawn by
+//     lanes 0..N-1 and shared by a ballot. A block merges its 8 warps in
+//     shared memory in warp order, writes one unnormalized partial per (bag,
+//     split), and combine_kernel merges the splits: a fixed order throughout,
+//     so two runs give the same bits.
 //
 // Interface: plain C, called through ctypes. Every function returns
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
@@ -379,16 +394,24 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
 // N queries. Lane `lane` holds k[c*128 + 4*lane .. +3] for c < DV (D = 128*DV).
 // ---------------------------------------------------------------------------
 template <int DV>
-__device__ __forceinline__ void score_key(const float* __restrict__ krow,
+__device__ __forceinline__ void load_row(const float* __restrict__ row, int lane,
+                                         float4 (&x)[DV]) {
+#pragma unroll
+  for (int c = 0; c < DV; ++c) x[c] = *reinterpret_cast<const float4*>(row + c * 128 + 4 * lane);
+}
+
+// Scores of one key row held in registers (kx, load_row's layout) against all
+// N queries; tk receives tanh(kx) when pre_gate.
+template <int DV>
+__device__ __forceinline__ void score_row(const float4 (&kx)[DV], float4 (&tk)[DV],
                                           const float (*q_s)[DV * 128],
                                           const float (*tq_s)[DV * 128], int N,
                                           bool pre_gate, float scale, int lane,
                                           float (&s)[NMAX]) {
-  float4 kx[DV], tk[DV];
+  if (pre_gate) {
 #pragma unroll
-  for (int c = 0; c < DV; ++c) {
-    kx[c] = *reinterpret_cast<const float4*>(krow + c * 128 + 4 * lane);
-    tk[c] = make_float4(tanhf(kx[c].x), tanhf(kx[c].y), tanhf(kx[c].z), tanhf(kx[c].w));
+    for (int c = 0; c < DV; ++c)
+      tk[c] = make_float4(tanhf(kx[c].x), tanhf(kx[c].y), tanhf(kx[c].z), tanhf(kx[c].w));
   }
 #pragma unroll
   for (int n = 0; n < NMAX; ++n) {
@@ -408,6 +431,17 @@ __device__ __forceinline__ void score_key(const float* __restrict__ krow,
       s[n] = v;
     }
   }
+}
+
+template <int DV>
+__device__ __forceinline__ void score_key(const float* __restrict__ krow,
+                                          const float (*q_s)[DV * 128],
+                                          const float (*tq_s)[DV * 128], int N,
+                                          bool pre_gate, float scale, int lane,
+                                          float (&s)[NMAX]) {
+  float4 kx[DV], tk[DV];
+  load_row<DV>(krow, lane, kx);
+  score_row<DV>(kx, tk, q_s, tq_s, N, pre_gate, scale, lane, s);
 }
 
 template <int DV>
@@ -500,6 +534,160 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (n < N && lane == n) {
         const float v = valid ? s[n] : NEG;
         w[((size_t)b * N + n) * M + key] = expf(v - mv[n]) * linv[n];
+      }
+    }
+  }
+}
+
+// K2, plain-K form with values: one block = (bag b, split of the keys), one
+// warp = a contiguous run of keys. Writes one unnormalized partial per block:
+// o_part [B, P, N, D], ml_part [B, P, N, 2] (m, l); TRAIN adds sq_part
+// [B, P, N, 2] (ssq, sumw of the dropped weights), with the dropout rule of
+// fused_k_kernel (keep iff dropout_bits >= thresh; thresh 0: no dropout).
+template <int DV, bool TRAIN>
+__global__ void __launch_bounds__(THREADS)
+plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const uint8_t* __restrict__ mask,
+             float* __restrict__ o_part, float* __restrict__ ml_part,
+             float* __restrict__ sq_part, const int* __restrict__ seed_ptr, uint32_t thresh,
+             float keep_scale, int N, int M, int pre_gate, float scale) {
+  constexpr int D = DV * 128;
+  __shared__ __align__(16) float q_s[NMAX][D];
+  __shared__ __align__(16) float tq_s[NMAX][D];
+  __shared__ __align__(16) float o_s[NMAX][D];
+  __shared__ float m_s[WARPS][NMAX];
+  __shared__ float st_s[3][NMAX];  // l, ssq, sumw of the block
+  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = split * WARPS + warp, W = P * WARPS;
+  load_queries<DV>(q, b, N, q_s, tq_s);
+
+  float mr[NMAX], lr[NMAX], sq[NMAX], sw[NMAX], s[NMAX];
+  float4 o[NMAX][DV];
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) {
+    mr[n] = NEG;
+    lr[n] = sq[n] = sw[n] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) o[n][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const uint32_t seed = TRAIN ? (uint32_t)seed_ptr[0] : 0u;
+  const int chunk = (M + W - 1) / W;
+  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
+  const float* k_b = k + (size_t)b * M * D;
+  const float* v_b = v + (size_t)b * M * D;
+  float4 kx[DV], vx[DV], kn[DV], vn[DV], tk[DV];
+  if (k0 < k1) {
+    load_row<DV>(k_b + (size_t)k0 * D, lane, kn);
+    load_row<DV>(v_b + (size_t)k0 * D, lane, vn);
+  }
+  for (int key = k0; key < k1; ++key) {
+#pragma unroll
+    for (int c = 0; c < DV; ++c) { kx[c] = kn[c]; vx[c] = vn[c]; }
+    if (key + 1 < k1) {  // the next key's rows land while this one is scored
+      load_row<DV>(k_b + (size_t)(key + 1) * D, lane, kn);
+      load_row<DV>(v_b + (size_t)(key + 1) * D, lane, vn);
+    }
+    score_row<DV>(kx, tk, q_s, tq_s, N, pre_gate != 0, scale, lane, s);
+    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
+    uint32_t keep = 0xffffffffu;
+    if constexpr (TRAIN) {
+      if (thresh != 0u)  // lane n draws query n's bits
+        keep = __ballot_sync(0xffffffffu, dropout_bits(seed, (uint32_t)b,
+                                                       (uint32_t)(lane < N ? lane : 0),
+                                                       (uint32_t)key) >= thresh);
+    }
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < N) {
+        const float sv = valid ? s[n] : NEG;
+        if (sv > mr[n]) {  // the same in every lane: warp_sum leaves all lanes equal
+          const float alpha = expf(mr[n] - sv);
+          mr[n] = sv;
+          lr[n] *= alpha;
+          if constexpr (TRAIN) {
+            sq[n] *= alpha * alpha;
+            sw[n] *= alpha;
+          }
+#pragma unroll
+          for (int c = 0; c < DV; ++c) {
+            o[n][c].x *= alpha; o[n][c].y *= alpha; o[n][c].z *= alpha; o[n][c].w *= alpha;
+          }
+        }
+        float p = expf(sv - mr[n]);
+        lr[n] += p;
+        if constexpr (TRAIN) {
+          p = (keep >> n) & 1u ? p * keep_scale : 0.f;
+          sq[n] = fmaf(p, p, sq[n]);
+          sw[n] += p;
+        }
+#pragma unroll
+        for (int c = 0; c < DV; ++c) {
+          o[n][c].x = fmaf(p, vx[c].x, o[n][c].x); o[n][c].y = fmaf(p, vx[c].y, o[n][c].y);
+          o[n][c].z = fmaf(p, vx[c].z, o[n][c].z); o[n][c].w = fmaf(p, vx[c].w, o[n][c].w);
+        }
+      }
+    }
+  }
+
+  // ---- merge the block's warps in warp order (a fixed order) ----
+  if (lane == 0) {
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n)
+      if (n < N) m_s[warp][n] = mr[n];
+  }
+  __syncthreads();
+  float fac[NMAX], mb[NMAX];
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) {
+    if (n < N) {
+      float mx = m_s[0][n];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, m_s[w][n]);
+      mb[n] = mx;
+      fac[n] = expf(mr[n] - mx);
+    }
+  }
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) {
+#pragma unroll
+          for (int c = 0; c < DV; ++c) {
+            float4* dst = reinterpret_cast<float4*>(&o_s[n][c * 128 + 4 * lane]);
+            float4 acc = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
+            acc.x = fmaf(o[n][c].x, fac[n], acc.x); acc.y = fmaf(o[n][c].y, fac[n], acc.y);
+            acc.z = fmaf(o[n][c].z, fac[n], acc.z); acc.w = fmaf(o[n][c].w, fac[n], acc.w);
+            *dst = acc;
+          }
+          if (lane == 0) {
+            const float l0 = w == 0 ? 0.f : st_s[0][n];
+            st_s[0][n] = fmaf(lr[n], fac[n], l0);
+            if constexpr (TRAIN) {
+              const float q0 = w == 0 ? 0.f : st_s[1][n], w0 = w == 0 ? 0.f : st_s[2][n];
+              st_s[1][n] = fmaf(sq[n], fac[n] * fac[n], q0);
+              st_s[2][n] = fmaf(sw[n], fac[n], w0);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const size_t pb = (size_t)b * P + split;
+  for (int i = threadIdx.x; i < N * D; i += THREADS)
+    o_part[pb * N * D + i] = o_s[i / D][i % D];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < N) {
+        ml_part[(pb * N + n) * 2 + 0] = mb[n];
+        ml_part[(pb * N + n) * 2 + 1] = st_s[0][n];
+        if constexpr (TRAIN) {
+          sq_part[(pb * N + n) * 2 + 0] = st_s[1][n];
+          sq_part[(pb * N + n) * 2 + 1] = st_s[2][n];
+        }
       }
     }
   }
@@ -617,6 +805,40 @@ int mpo_coattn_weights(const float* q, const float* k, const uint8_t* mask,
   if (D == 256) return launch_weights<2>(q, k, mask, l, m, w, B, N, M, pre_gate, scale, splits, st);
   if (D == 512) return launch_weights<4>(q, k, mask, l, m, w, B, N, M, pre_gate, scale, splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The plain-K form with values: q [B, N, D], k, v [B, M, D], mask [B, M] bool
+// or NULL -> o [B, N, D], l, m [B, N]. train != 0: the training form, with
+// attention dropout (seed, thresh, keep_scale as mpo_coattn_fwd_fused_k_train)
+// and ssq, sumw [B, N] of the dropped weights; else seed, ssq, sumw and
+// sq_part may be NULL. Scratch: o_part [B, splits, N, D], ml_part and sq_part
+// [B, splits, N, 2]. D in {128, 256}; N <= 8.
+int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
+                         const uint8_t* mask, const int* seed, float* o, float* l, float* m,
+                         float* ssq, float* sumw, float* o_part, float* ml_part,
+                         float* sq_part, int B, int N, int M, int D, int pre_gate,
+                         int splits, int train, float scale, uint32_t thresh,
+                         float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || splits < 1 || splits > MAX_PARTS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, splits);
+#define MPO_PLAIN(DV_, TRAIN_)                                                      \
+  plain_kernel<DV_, TRAIN_><<<grid, THREADS, 0, st>>>(q, k, v, mask, o_part, ml_part, \
+                                                      sq_part, seed, thresh, keep_scale, \
+                                                      N, M, pre_gate, scale)
+  if (D == 128 && train) MPO_PLAIN(1, true);
+  else if (D == 128) MPO_PLAIN(1, false);
+  else if (D == 256 && train) MPO_PLAIN(2, true);
+  else if (D == 256) MPO_PLAIN(2, false);
+  else return (int)cudaErrorInvalidValue;
+#undef MPO_PLAIN
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, train ? sq_part : nullptr, o,
+                                                 l, m, ssq, train ? sumw : nullptr, N, D,
+                                                 splits);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
-// Backward of the pre-gated fuse-K few-query co-attention for Hopper
-// (sm_90a), float32.
+// Backward of the few-query co-attention for Hopper (sm_90a), float32: the
+// pre-gated fuse-K form and the plain-K form.
 //
 // Replaces the Pallas TPU kernel of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_bwd_fused_k <- _coattn_bwd_impl with _make_bwd_kernel(
 //       fuse_k=True, pre_gate=True, emit_ssq, emit_sumw, dropout): the lean-V
 //       training backward (VJP glue _coattn_fk_bwd), K3 in PERF.md.
+//   * mpo_coattn_plain_bwd <- _coattn_bwd_impl with the plain K operand
+//       (VJP glue _coattn_bwd): dq, dk, dv of the attention off the lean
+//       routes, with or without the pre-gate; described above plain_bwd_kernel.
 //
+// The fuse-K form:
 // Per key tile, with the forward's (l, m) and dropout bits (N queries, key r):
 //   k = kv wk + bk,  a = q.k / sqrt(E),  u = tanh(q).tanh(k),  g = (u + 1) / 2,
 //   s = a g (NEG where masked),  p = exp(s - m) / l,  pd = keep p / (1 - rate),
@@ -438,14 +442,16 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 }
 
 // dq [B, N, E] = sum_p dq_part[b, p]; dwk [F, E], dbk [E] = sum over every
-// block's partial. Each output element is summed by one thread in a fixed
-// order (no atomics: deterministic).
+// block's partial (dwk == NULL: dq only, the plain-K form). Each output
+// element is summed by one thread in a fixed order (no atomics:
+// deterministic).
 __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dwk_part,
               const float* __restrict__ dbk_part, float* __restrict__ dq,
               float* __restrict__ dwk, float* __restrict__ dbk, int B, int P, int N, int E,
               int F) {
-  const size_t nq = (size_t)B * N * E, nw = (size_t)F * E, total = nq + nw + E;
+  const size_t nq = (size_t)B * N * E, nw = (size_t)F * E;
+  const size_t total = dwk != nullptr ? nq + nw + E : nq;
   const size_t ne = (size_t)N * E;
   const int blocks = B * P;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -465,6 +471,206 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
       dbk[j] = acc;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K3, plain-K form: q [B, N, D], k, v [B, M, D]; per key r and query n, from
+// the forward's (l, m) and dropout bits:
+//   a = q.k / sqrt(D),  g = (tanh(q).tanh(k) + 1) / 2 (1 without the pre-gate),
+//   s = a g (NEG where masked),  p = exp(s - m) / l,  pd = keep p / (1 - rate),
+//   dp = dO.v_r,  ds = pd dp - p di + 2 dssq pd^2 + dsumw pd (0 where masked),
+//   da = ds g,  du = ds a / 2,
+//   dq_n += da k_r / sqrt(D) + (1 - tanh(q_n)^2) (du tanh(k_r)),
+//   dk_r  = sum_n da q_n / sqrt(D) + (1 - tanh(k_r)^2) (du tanh(q_n)),
+//   dv_r  = sum_n pd dO_n.
+// What bounds it on an H100: it reads k and v and writes dk and dv once each
+// (1.07 GB at B=32, M=8192, D=256: 0.32 ms at 3.35 TB/s) for 6 GFLOP of
+// products (0.09 ms): bound by bytes. Design: as the forward (csrc/coattn.cu
+// plain_kernel), one block = (bag, split of the keys) and one warp = a
+// contiguous run of keys, a key's rows in registers (4 columns per lane and
+// 128-column group). dk_r and dv_r belong to the key, so the warp that owns
+// it writes them once, coalesced. Only dq sums over keys: each lane carries
+// its columns of the N x D sums (two sets with the pre-gate), the block adds
+// its 8 warps in shared memory in warp order, writes one partial per
+// (bag, split), and bwd_reduce_kernel sums the splits in a fixed order: no
+// atomics, two runs give the same bits.
+// ---------------------------------------------------------------------------
+template <int DV>
+__device__ __forceinline__ void load_row(const float* __restrict__ row, int lane,
+                                         float4 (&x)[DV]) {
+#pragma unroll
+  for (int c = 0; c < DV; ++c) x[c] = *reinterpret_cast<const float4*>(row + c * 128 + 4 * lane);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
+__device__ __forceinline__ void axpy4(float a, const float4& x, float4& y) {
+  y.x = fmaf(a, x.x, y.x); y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z); y.w = fmaf(a, x.w, y.w);
+}
+
+template <int DV, bool PG>
+__global__ void __launch_bounds__(THREADS)
+plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
+                 const float* __restrict__ dout, const float* __restrict__ l,
+                 const float* __restrict__ m, const float* __restrict__ di,
+                 const float* __restrict__ dssq, const float* __restrict__ dsumw,
+                 float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part,
+                 int N, int M, float scale) {
+  constexpr int D = DV * 128;
+  __shared__ __align__(16) float q_s[NMAX][D];
+  __shared__ __align__(16) float tq_s[NMAX][D];
+  __shared__ __align__(16) float do_s[NMAX][D];
+  __shared__ __align__(16) float dq_s[NMAX][D];
+  __shared__ float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
+  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gw = split * WARPS + warp, W = P * WARPS;
+  const uint32_t seed = (uint32_t)seed_ptr[0];
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = tid; i < N * D; i += THREADS) {
+    const float x = q[(size_t)b * N * D + i];
+    q_s[i / D][i % D] = x;
+    tq_s[i / D][i % D] = PG ? tanhf(x) : 0.f;
+    do_s[i / D][i % D] = dout[(size_t)b * N * D + i];
+  }
+  if (tid < N) {
+    const size_t bn = (size_t)b * N + tid;
+    const float lv = l[bn];
+    stat[0][tid] = m[bn];
+    stat[1][tid] = lv == 0.f ? 1.f : 1.f / lv;
+    stat[2][tid] = di[bn];
+    stat[3][tid] = dssq != nullptr ? dssq[bn] : 0.f;
+    stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
+  }
+  __syncthreads();
+
+  float4 qa[NMAX][DV];              // sum_r da k_r
+  float4 qu[PG ? NMAX : 1][DV];     // sum_r du tanh(k_r)
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n)
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      qa[n][c] = zero4;
+      if constexpr (PG) qu[n][c] = zero4;
+    }
+
+  const int chunk = (M + W - 1) / W;
+  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
+  const float* k_b = k + (size_t)b * M * D;
+  const float* v_b = v + (size_t)b * M * D;
+  float4 kx[DV], vx[DV], kn[DV], vn[DV], tk[DV];
+  if (k0 < k1) {
+    load_row<DV>(k_b + (size_t)k0 * D, lane, kn);
+    load_row<DV>(v_b + (size_t)k0 * D, lane, vn);
+  }
+  for (int key = k0; key < k1; ++key) {
+#pragma unroll
+    for (int c = 0; c < DV; ++c) { kx[c] = kn[c]; vx[c] = vn[c]; }
+    if (key + 1 < k1) {  // the next key's rows land while this one is worked on
+      load_row<DV>(k_b + (size_t)(key + 1) * D, lane, kn);
+      load_row<DV>(v_b + (size_t)(key + 1) * D, lane, vn);
+    }
+    if (PG) {
+#pragma unroll
+      for (int c = 0; c < DV; ++c)
+        tk[c] = make_float4(tanhf(kx[c].x), tanhf(kx[c].y), tanhf(kx[c].z), tanhf(kx[c].w));
+    }
+    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
+    uint32_t keep = 0xffffffffu;
+    if (thresh != 0u)  // lane n draws query n's bits
+      keep = __ballot_sync(0xffffffffu, dropout_bits(seed, (uint32_t)b,
+                                                     (uint32_t)(lane < N ? lane : 0),
+                                                     (uint32_t)key) >= thresh);
+    float4 ka[DV], ku[DV], va[DV];  // dk's two terms and dv of this key
+#pragma unroll
+    for (int c = 0; c < DV; ++c) ka[c] = ku[c] = va[c] = zero4;
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < N) {
+        float a = 0.f, u = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < DV; ++c) {
+          const int col = c * 128 + 4 * lane;
+          a = dot4(*reinterpret_cast<const float4*>(&q_s[n][col]), kx[c], a);
+          if (PG) u = dot4(*reinterpret_cast<const float4*>(&tq_s[n][col]), tk[c], u);
+          dp = dot4(*reinterpret_cast<const float4*>(&do_s[n][col]), vx[c], dp);
+        }
+        a = warp_sum(a) * scale;
+        const float g = PG ? (warp_sum(u) + 1.f) * 0.5f : 1.f;
+        dp = warp_sum(dp);
+        const float p = expf((valid ? a * g : NEG) - stat[0][n]) * stat[1][n];
+        float pd = p;
+        if (thresh != 0u) pd = (keep >> n) & 1u ? p * keep_scale : 0.f;
+        const float ds = valid
+            ? pd * dp - p * stat[2][n] + 2.f * stat[3][n] * pd * pd + stat[4][n] * pd : 0.f;
+        const float da = ds * g, du = ds * a * 0.5f;
+#pragma unroll
+        for (int c = 0; c < DV; ++c) {
+          const int col = c * 128 + 4 * lane;
+          axpy4(da, kx[c], qa[n][c]);
+          axpy4(da, *reinterpret_cast<const float4*>(&q_s[n][col]), ka[c]);
+          axpy4(pd, *reinterpret_cast<const float4*>(&do_s[n][col]), va[c]);
+          if constexpr (PG) {
+            axpy4(du, tk[c], qu[n][c]);
+            axpy4(du, *reinterpret_cast<const float4*>(&tq_s[n][col]), ku[c]);
+          }
+        }
+      }
+    }
+    float* dk_r = dk + ((size_t)b * M + key) * D;
+    float* dv_r = dv + ((size_t)b * M + key) * D;
+#pragma unroll
+    for (int c = 0; c < DV; ++c) {
+      float4 r = make_float4(scale * ka[c].x, scale * ka[c].y, scale * ka[c].z, scale * ka[c].w);
+      if (PG) {
+        r.x = fmaf(1.f - tk[c].x * tk[c].x, ku[c].x, r.x);
+        r.y = fmaf(1.f - tk[c].y * tk[c].y, ku[c].y, r.y);
+        r.z = fmaf(1.f - tk[c].z * tk[c].z, ku[c].z, r.z);
+        r.w = fmaf(1.f - tk[c].w * tk[c].w, ku[c].w, r.w);
+      }
+      *reinterpret_cast<float4*>(dk_r + c * 128 + 4 * lane) = r;
+      *reinterpret_cast<float4*>(dv_r + c * 128 + 4 * lane) = va[c];
+    }
+  }
+
+  // ---- this block's dq partial: its warps added in warp order ----
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) {
+#pragma unroll
+          for (int c = 0; c < DV; ++c) {
+            const int col = c * 128 + 4 * lane;
+            float4 r = make_float4(scale * qa[n][c].x, scale * qa[n][c].y, scale * qa[n][c].z,
+                                   scale * qa[n][c].w);
+            if constexpr (PG) {
+              const float4 t = *reinterpret_cast<const float4*>(&tq_s[n][col]);
+              r.x = fmaf(1.f - t.x * t.x, qu[n][c].x, r.x);
+              r.y = fmaf(1.f - t.y * t.y, qu[n][c].y, r.y);
+              r.z = fmaf(1.f - t.z * t.z, qu[n][c].z, r.z);
+              r.w = fmaf(1.f - t.w * t.w, qu[n][c].w, r.w);
+            }
+            float4* dst = reinterpret_cast<float4*>(&dq_s[n][col]);
+            if (w != 0) {
+              const float4 acc = *dst;
+              r.x += acc.x; r.y += acc.y; r.z += acc.z; r.w += acc.w;
+            }
+            *dst = r;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const size_t pb = (size_t)b * P + split;
+  for (int i = tid; i < N * D; i += THREADS) dq_part[pb * N * D + i] = dq_s[i / D][i % D];
 }
 
 template <int E, int F>
@@ -522,6 +728,37 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
   const int grid = (int)((total + THREADS - 1) / THREADS);
   bwd_reduce_kernel<<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, dq, dwk, dbk, B,
                                           splits, N, E, F);
+  return (int)cudaGetLastError();
+}
+
+// The plain-K form: q [B, N, D], k, v [B, M, D], mask [B, M] bool or NULL,
+// seed / thresh / keep_scale as the forward, dout [B, N, D], l, m, di [B, N];
+// dssq, dsumw [B, N] or NULL (zero cotangents). Out: dq [B, N, D], dk, dv
+// [B, M, D]. Scratch: dq_part [B, splits, N, D]. D in {128, 256}; N <= 8.
+int mpo_coattn_plain_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
+                         const int* seed, const float* dout, const float* l, const float* m,
+                         const float* di, const float* dssq, const float* dsumw, float* dq,
+                         float* dk, float* dv, float* dq_part, int B, int N, int M, int D,
+                         int pre_gate, int splits, float scale, uint32_t thresh,
+                         float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, splits);
+#define MPO_PLAIN_BWD(DV_, PG_)                                                          \
+  plain_bwd_kernel<DV_, PG_><<<grid, THREADS, 0, st>>>(q, k, v, mask, seed, thresh,        \
+                                                       keep_scale, dout, l, m, di, dssq,   \
+                                                       dsumw, dk, dv, dq_part, N, M, scale)
+  if (D == 128 && pre_gate) MPO_PLAIN_BWD(1, true);
+  else if (D == 128) MPO_PLAIN_BWD(1, false);
+  else if (D == 256 && pre_gate) MPO_PLAIN_BWD(2, true);
+  else if (D == 256) MPO_PLAIN_BWD(2, false);
+  else return (int)cudaErrorInvalidValue;
+#undef MPO_PLAIN_BWD
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t total = (size_t)B * N * D;
+  bwd_reduce_kernel<<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      dq_part, nullptr, nullptr, dq, nullptr, nullptr, B, splits, N, D, 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Attention primitives (``multimodal_path_omic_tpu/ops/attention.py``):
-the branches of ``MultiheadAttention`` that NaCAGaT and GE-NaCAGaT take, the
-contextual attention gate and the pre-gated contextual co-attention.
+the branches of ``MultiheadAttention`` that MCAT, NaCAGaT and GE-NaCAGaT
+take, the contextual attention gate and the pre-gated contextual
+co-attention.
 
 Inputs are batched ``[B, seq, dim]`` with an optional boolean key-validity
 mask ``[B, M]`` (True = valid). Attention dropout (torch semantics: weights
@@ -18,13 +19,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.coattn import (
+    MAX_QUERIES,
     attention_with_weights,
+    fused_attention,
     fused_attention_leank,
 )
 from multimodal_path_omic_tpu_torch.ops.flash import flash_attention
 from multimodal_path_omic_tpu_torch.ops.layers import (
     TorchLinear,
     dropout,
+    fast_keep_mask,
     masked_softmax,
     require_generator,
 )
@@ -62,6 +66,34 @@ def tiny_attention(q, k, v, key_mask, num_heads: int, *, dropout_rate: float = 0
     return out.reshape(b, n, e)
 
 
+def lean_single_head_cross_attention(q, kv, wk, bk, wv, bv, key_mask, *,
+                                     dropout_rate: float = 0.0,
+                                     generator: Optional[torch.Generator] = None):
+    """Few-query single-head cross-attention with the K and V projections
+    reassociated off the patch axis:
+
+        scores = (q/sqrt(d)) (kv wk + bk)^T = ((q/sqrt(d)) wk^T) kv^T + (q/sqrt(d)).bk
+        out    = w (kv wv + bv)            = (w kv) wv + bv sum_m(w)
+
+    so every patch-axis product contracts against the N queries and the
+    [B, M, E] k and v never exist. q [B, N, E] (projected, unscaled), kv
+    [B, M, F] raw patch-side input, wk, wv [F, E], bk, bv [E]. The dropout
+    mask is drawn in :func:`attention_core`'s [B, 1, N, M] layout. Returns
+    (out [B, N, E], weights [B, N, M], the dropped ones)."""
+    b, n, e = q.shape
+    qs = q * (1.0 / math.sqrt(e))
+    qk = torch.matmul(qs, wk.t())  # [B, N, F]
+    scores = torch.matmul(qk, kv.transpose(-1, -2)) + torch.matmul(qs, bk)[..., None]
+    weights = masked_softmax(scores, None if key_mask is None else key_mask[:, None, :])
+    if dropout_rate > 0.0:
+        keep, keep_prob = fast_keep_mask(generator, dropout_rate,
+                                         (b, 1, n, weights.shape[-1]), q.device)
+        weights = torch.where(keep[:, 0], weights / keep_prob, torch.zeros_like(weights))
+    pooled = torch.matmul(weights, kv)
+    out = torch.matmul(pooled, wv) + bv * weights.sum(dim=-1, keepdim=True)
+    return out, weights
+
+
 def attention_core(q, k, v, key_mask, *, pre_gate: bool, need_weights: bool = True,
                    dropout_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None):
@@ -89,11 +121,20 @@ class MultiheadAttention(nn.Module):
     kernel), optional pre-gating, attention dropout at ``dropout_rate`` in
     training mode. Branches, in the JAX module's order:
 
+    * lean (one head, few-query cross-attention without the pre-gate, key is
+      value: MCAT): :func:`lean_single_head_cross_attention`, plain PyTorch,
+      no kernel; serves every ``need_weights``;
     * lean-V (one head, pre-gated cross-attention, weights not requested):
       the K projection happens in the fuse-K kernel, the V projection is
       reassociated onto the pooled rows: out = (w.kv) @ wv + bv * sum(w);
       in training the kernels' training form (dropout, ssq, backward);
     * tiny: few-token attention without weights (branch transformers);
+    * fused (cross-attention of at most 8 queries over more than 32 keys,
+      weights not requested, or "ssq" with one head): k and v are projected
+      over the patch axis and :func:`fused_attention` runs the plain-K
+      kernels with values, forward and backward, in eval and in training
+      (dropout in-kernel). Reached when the lean routes do not apply
+      (several heads, key is not value) or are switched off;
     * flash (self-attention over more than 32 positions, no pre-gate, weights
       not requested: GE's bag self-attention and path transformer), in eval
       and in training: :func:`flash_attention`, forward and backward, the
@@ -110,11 +151,16 @@ class MultiheadAttention(nn.Module):
     ``need_weights``: True returns the [B, N, M] weights, False None, and
     "ssq" the per-query sum of squares of the final weights [B, N] (the
     cesar penalty's input, without the N x M map on the lean-V branch).
+
+    ``lean=False`` switches the lean and lean-V routes off (the JAX
+    package's ``MPO_NO_LEAN_ATTENTION=1``; here a constructor argument, no
+    environment variable): the same numbers through the fused branch.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, pre_gate: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, lean: bool = True):
         super().__init__()
+        self.lean = bool(lean)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.pre_gate = pre_gate
@@ -139,13 +185,23 @@ class MultiheadAttention(nn.Module):
         e, heads = self.embed_dim, self.num_heads
         rate = self.dropout_rate if self.training else 0.0
         self_attn = query is key
-        lean_v = (
-            heads == 1 and not self_attn and key is value and self.pre_gate
-            and need_weights is not True
-            and query.shape[1] <= 32 and key.shape[1] > 32
-        )
+        lean_shape = (self.lean and heads == 1 and not self_attn and key is value
+                      and query.shape[1] <= 32 and key.shape[1] > 32)
+        lean = lean_shape and not self.pre_gate
+        lean_v = lean_shape and self.pre_gate and need_weights is not True
         out_h = weights = ssq = None
-        if lean_v:
+        if lean:
+            q = self._proj(query, 0, 1)
+            w = self.in_proj_weight
+            out_flat, w_lean = lean_single_head_cross_attention(
+                q, key, w[e:2 * e].t(), self.in_proj_bias[e:2 * e], w[2 * e:].t(),
+                self.in_proj_bias[2 * e:], key_mask, dropout_rate=rate, generator=generator,
+            )
+            if need_weights is True:
+                weights = w_lean[:, None]
+            elif want_ssq:  # one head: the head-averaged weights are the weights
+                ssq = (w_lean * w_lean).sum(dim=-1)
+        elif lean_v:
             q = self._proj(query, 0, 1)
             wk = self.in_proj_weight[e:2 * e].t().contiguous()  # [F, E]
             seed = None
@@ -176,7 +232,13 @@ class MultiheadAttention(nn.Module):
                                           generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if (need_weights is False and not self.pre_gate and self_attn
+                if (not self_attn and query.shape[1] <= MAX_QUERIES and key.shape[1] > 32
+                        and (need_weights is False or (want_ssq and heads == 1))):
+                    res = fused_attention(qh, kh, vh, key_mask, pre_gate=self.pre_gate,
+                                          dropout_rate=rate, generator=generator,
+                                          need_ssq=want_ssq)
+                    out_h, ssq = (res[0], res[1][:, 0]) if want_ssq else (res, None)
+                elif (need_weights is False and not self.pre_gate and self_attn
                         and key is value and query.shape[1] > 32
                         and (rate == 0.0 or query.shape[1] >= 4096)):
                     out_h = flash_attention(qh, kh, vh, key_mask)
@@ -190,7 +252,7 @@ class MultiheadAttention(nn.Module):
                         need_weights=need_weights is not False, dropout_rate=rate,
                         generator=generator,
                     )
-                if want_ssq:  # of the head-averaged weights, as the map returned
+                if want_ssq and ssq is None:  # of the head-averaged weights, as the map returned
                     w = weights.mean(dim=1)
                     ssq, weights = (w * w).sum(dim=-1), None
         out = self.out_proj(out_flat if out_h is None else _merge_heads(out_h))
@@ -231,10 +293,11 @@ class PreGatingContextualAttention(nn.Module):
     return out + CAG(Q, W_q Q), A. ``need_weights`` as in
     :class:`MultiheadAttention` (A is the ssq [B, N] for "ssq")."""
 
-    def __init__(self, embed_dim: int, num_heads: int = 1, dropout_rate: float = 0.25):
+    def __init__(self, embed_dim: int, num_heads: int = 1, dropout_rate: float = 0.25,
+                 lean: bool = True):
         super().__init__()
         self.mha = MultiheadAttention(embed_dim, num_heads, pre_gate=True,
-                                      dropout_rate=dropout_rate)
+                                      dropout_rate=dropout_rate, lean=lean)
         self.cag = ContextualAttentionGate(embed_dim, embed_dim)
 
     def forward(self, query, key, value, key_mask: Optional[torch.Tensor] = None, *,

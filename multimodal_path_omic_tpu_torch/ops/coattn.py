@@ -1,8 +1,8 @@
-"""Pre-gated few-query co-attention: CUDA kernel wrappers, their plain
-PyTorch versions, and the dispatchers of ``multimodal_path_omic_tpu/ops/coattn.py``.
+"""Few-query co-attention: CUDA kernel wrappers, their plain PyTorch
+versions, and the dispatchers of ``multimodal_path_omic_tpu/ops/coattn.py``.
 
-Five kernels (``csrc/coattn.cu``, ``csrc/coattn_bwd.cu``) replace the TPU
-kernels of the NaCAGaT serving and training paths:
+Seven kernels (``csrc/coattn.cu``, ``csrc/coattn_bwd.cu``) replace the TPU
+kernels of the NaCAGaT and MCAT serving and training paths:
 
 * :func:`coattn_fwd_fused_k` — the forward kernel in its fuse-K form: K is
   projected from the raw key-side input in-kernel (``k = kv @ wk + bk``),
@@ -15,7 +15,13 @@ kernels of the NaCAGaT serving and training paths:
   dq, dkv, dwk, dbk (``_coattn_fk_bwd``), with its partial-sum reduce;
 * :func:`coattn_stats` — the forward kernel's plain-K form, statistics only
   (pass 1 of the attention-map export, ``coattention_weights``);
-* :func:`coattn_weights` — the weights-emission kernel (export pass 2).
+* :func:`coattn_weights` — the weights-emission kernel (export pass 2);
+* :func:`coattn_fwd_plain_k` — the forward kernel's plain-K form with values
+  (``coattention``: attention over projected k and v, with or without the
+  pre-gate; eval form, and training form with dropout, ssq and sumw), counted
+  as ``coattn_plain``;
+* :func:`coattn_bwd_plain_k` — its recompute backward: dq, dk, dv
+  (``_coattn_bwd``), counted as ``coattn_plain_bwd``.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises on what the
 kernel does not take) and uses the plain version only for a CPU tensor.
@@ -54,6 +60,7 @@ TRAIN_DIMS = (128, 256)  # E and F the training kernels take
 LAUNCH_COUNTS = {
     "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
     "coattn_fwd_fused_k_train": 0, "coattn_bwd_fused_k": 0,
+    "coattn_plain": 0, "coattn_plain_bwd": 0,
 }
 
 
@@ -147,13 +154,12 @@ def dropout_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
-    """The training form: (o, l, m, ssq, sumw) with attention dropout at
-    ``rate`` from :func:`dropout_bits` (``seed`` is read only when rate >
-    0); l sums the undropped weights, o, ssq and sumw use the dropped ones.
-    Differentiable (m is a constant shift)."""
-    k = torch.matmul(kv, wk) + bk
-    s = _scores(q, k, key_mask, True)
+def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: bool):
+    """The plain-K form with values, training form: (o, l, m, ssq, sumw) with
+    attention dropout at ``rate`` from :func:`dropout_bits` (``seed`` is read
+    only when rate > 0); l sums the undropped weights, o, ssq and sumw use
+    the dropped ones. Differentiable (m is a constant shift)."""
+    s = _scores(q, k, key_mask, pre_gate)
     m = s.amax(dim=-1).detach()
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
@@ -161,7 +167,25 @@ def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
     if rate > 0.0:
         keep = dropout_bits(seed, w.shape, w.device) >= dropout_threshold(rate)
         w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
-    return torch.matmul(w, kv), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
+    return torch.matmul(w, v), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
+
+
+def coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw, *,
+                             pre_gate: bool):
+    """(dq, dk, dv): autograd through the plain training form, with the
+    cotangents of o, ssq and sumw."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o, _, _, ssq, sumw = coattn_fwd_plain_k_plain(*ins, key_mask, seed, rate,
+                                                      pre_gate=pre_gate)
+        return torch.autograd.grad((o, ssq, sumw), ins, (dout, dssq, dsumw))
+
+
+def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
+    """The fuse-K training form: the pre-gated plain-K form on
+    k = kv wk + bk with the raw kv as values."""
+    return coattn_fwd_plain_k_plain(q, torch.matmul(kv, wk) + bk, kv, key_mask, seed, rate,
+                                    pre_gate=True)
 
 
 def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw):
@@ -388,6 +412,117 @@ def coattn_weights(
     return w
 
 
+def _plain_kv_checks(q, k, v, key_mask):
+    """Shapes, the mask pointer and the split count of the plain-K kernels
+    with values (D in ``TRAIN_DIMS``)."""
+    if q.shape[-1] not in TRAIN_DIMS:
+        raise ValueError(f"plain-K kernels with values: unsupported D={q.shape[-1]}")
+    b, n, d, m_len, splits = _plain_k_checks(q, k)
+    kernels.require(v, "v", (b, m_len, d))
+    return b, n, d, m_len, splits, kernels.mask_ptr(key_mask, b, m_len, q.device)
+
+
+def coattn_fwd_plain_k(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    seed: Optional[torch.Tensor] = None, rate: float = 0.0, *, pre_gate: bool,
+    train: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """The plain-K forward with values: q [B, N, D], k, v [B, M, D], key_mask
+    [B, M] bool -> (o [B, N, D], l, m, ssq, sumw [B, N]). ``train`` selects
+    the kernel's training form (dropout at ``rate`` keyed by ``seed``, a [1]
+    int32 tensor on the same device; ssq and sumw of the dropped weights);
+    the eval form takes no dropout and returns None for ssq and sumw.
+    Kernel: D in {128, 256}, N <= 8, float32."""
+    if not train and rate > 0.0:
+        raise ValueError("the eval form takes no dropout")
+    if q.device.type == "cpu":
+        out = coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate, pre_gate=pre_gate)
+        return out if train else (*out[:3], None, None)
+    b, n, d, m_len, splits, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
+    dev = q.device
+    thresh, keep_scale, seed_ptr = 0, 1.0, None
+    ssq = sumw = sq_part = None
+    if train:
+        if seed is None:
+            seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+        thresh, keep_scale = _dropout_args(seed, rate, dev)
+        seed_ptr = seed.data_ptr()
+        ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(2))
+        sq_part = torch.empty((b, splits, n, 2), device=dev)
+    o = torch.empty((b, n, d), device=dev)
+    l, m = (torch.empty((b, n), device=dev) for _ in range(2))
+    o_part = torch.empty((b, splits, n, d), device=dev)
+    ml_part = torch.empty((b, splits, n, 2), device=dev)
+    side_ptrs = [None if t is None else t.data_ptr() for t in (ssq, sumw, sq_part)]
+    err = kernels.library("coattn").mpo_coattn_plain_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed_ptr,
+        o.data_ptr(), l.data_ptr(), m.data_ptr(), side_ptrs[0], side_ptrs[1],
+        o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2],
+        b, n, m_len, d, int(pre_gate), splits, int(train), 1.0 / math.sqrt(d),
+        thresh, keep_scale, kernels.stream(dev),
+    )
+    kernels.check(err, "coattn_fwd_plain_k")
+    LAUNCH_COUNTS["coattn_plain"] += 1
+    return o, l, m, ssq, sumw
+
+
+def coattn_bwd_plain_k(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    seed: torch.Tensor, rate: float, dout: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+    di: torch.Tensor, dssq: torch.Tensor, dsumw: torch.Tensor, *, pre_gate: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`coattn_fwd_plain_k` -> (dq [B, N, D], dk, dv
+    [B, M, D]), given the cotangents dout [B, N, D], dssq, dsumw [B, N], the
+    forward's l, m and di = rowsum(o * dout) + 2 dssq ssq + dsumw sumw
+    [B, N] (the plain version recomputes what it needs and takes no l, m,
+    di)."""
+    if q.device.type == "cpu":
+        return coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw,
+                                        pre_gate=pre_gate)
+    b, n, d, m_len, splits, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
+    dev = q.device
+    thresh, keep_scale = _dropout_args(seed, rate, dev)
+    kernels.require(dout, "dout", (b, n, d))
+    for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
+        kernels.require(t, name, (b, n))
+    dq = torch.empty((b, n, d), device=dev)
+    dk, dv = (torch.empty((b, m_len, d), device=dev) for _ in range(2))
+    dq_part = torch.empty((b, splits, n, d), device=dev)
+    err = kernels.library("coattn_bwd").mpo_coattn_plain_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed.data_ptr(),
+        dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
+        dsumw.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
+        b, n, m_len, d, int(pre_gate), splits, 1.0 / math.sqrt(d), thresh, keep_scale,
+        kernels.stream(dev),
+    )
+    kernels.check(err, "coattn_bwd_plain_k")
+    LAUNCH_COUNTS["coattn_plain_bwd"] += 1
+    return dq, dk, dv
+
+
+class PlainKAttention(torch.autograd.Function):
+    """The training form of the plain-K co-attention with its backward kernel
+    (JAX: the custom VJP ``_coattn``): (q, k, v) -> (o, ssq, sumw). di is
+    computed here in plain torch, as ``_coattn_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, seed, rate, pre_gate):
+        o, l, m, ssq, sumw = coattn_fwd_plain_k(q, k, v, key_mask, seed, rate,
+                                                pre_gate=pre_gate)
+        ctx.save_for_backward(q, k, v, key_mask, seed, o, l, m, ssq, sumw)
+        ctx.rate, ctx.pre_gate = rate, pre_gate
+        return o, ssq, sumw
+
+    @staticmethod
+    def backward(ctx, dout, dssq, dsumw):
+        q, k, v, key_mask, seed, o, l, m, ssq, sumw = ctx.saved_tensors
+        dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
+        di = (o * dout).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
+        grads = coattn_bwd_plain_k(q, k, v, key_mask, seed, ctx.rate, dout, l, m, di,
+                                   dssq, dsumw, pre_gate=ctx.pre_gate)
+        return (*grads, None, None, None, None)
+
+
 # =============================================================================
 # Dispatchers (same signatures and layouts as the JAX package's)
 # =============================================================================
@@ -426,6 +561,69 @@ def fused_attention_leank(
         ssq = None
     extras = ([ssq] if need_ssq else []) + ([sumw] if need_sumw else [])
     return tuple([o] + extras) if extras else o
+
+
+def coattention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None, *, pre_gate: bool = False,
+    dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
+    need_ssq: bool = False, need_sumw: bool = False,
+):
+    """Few-query attention over projected keys and values: q [B, N, D], k, v
+    [B, M, D], key_mask [B, M] bool -> o [B, N, D], extended to a tuple by
+    ``need_ssq`` (ssq [B, N], the per-row sum of squares of the final
+    weights) then ``need_sumw`` (sumw [B, N], their per-row sum).
+    ``dropout_rate`` > 0 drops attention weights with bits keyed by
+    ``dropout_seed`` (a [1] int32 tensor on q's device). With dropout, a side
+    output, or a gradient to take, the training form runs
+    (:class:`PlainKAttention`: forward + backward kernels); otherwise the
+    eval form."""
+    wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if dropout_rate > 0.0 or need_ssq or need_sumw or wants_grad:
+        if dropout_seed is None:
+            if dropout_rate > 0.0:
+                raise ValueError("dropout_rate > 0 requires a dropout_seed")
+            dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+        o, ssq, sumw = PlainKAttention.apply(q, k, v, key_mask, dropout_seed,
+                                             float(dropout_rate), bool(pre_gate))
+    else:
+        o = coattn_fwd_plain_k(q, k, v, key_mask, pre_gate=pre_gate, train=False)[0]
+        ssq = sumw = None
+    extras = ([ssq] if need_ssq else []) + ([sumw] if need_sumw else [])
+    return tuple([o] + extras) if extras else o
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None, *, pre_gate: bool = False,
+    dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+    need_ssq: bool = False, need_sumw: bool = False,
+):
+    """Masked (pre-gated) few-query attention on projected heads without the
+    scores in device memory: q [B, H, N, D], k, v [B, H, M, D], key_mask
+    [B, M] -> [B, H, N, D], extended to a tuple by ``need_ssq`` then
+    ``need_sumw`` ([B, H, N] each). Heads fold into the batch, the mask is
+    repeated per head, and the kernel's dropout seed is drawn per call from
+    ``generator``. On CUDA the kernel runs at every shape it supports (the
+    TPU-tuned M cut-overs are not carried over)."""
+    b, h, n, d = q.shape
+    m_len = k.shape[2]
+    qf, kf, vf = (t.reshape(b * h, t.shape[2], d).contiguous() for t in (q, k, v))
+    mf = key_mask
+    if key_mask is not None and h > 1:
+        mf = key_mask.repeat_interleave(h, dim=0)
+    seed = None
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout draws its seed from an explicit "
+                             "torch.Generator: pass generator=")
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=q.device,
+                             dtype=torch.int32)
+    out = coattention(qf, kf, vf, mf, pre_gate=pre_gate, dropout_rate=dropout_rate,
+                      dropout_seed=seed, need_ssq=need_ssq, need_sumw=need_sumw)
+    if need_ssq or need_sumw:
+        return tuple([out[0].reshape(b, h, n, d)] + [e.reshape(b, h, n) for e in out[1:]])
+    return out.reshape(b, h, n, d)
 
 
 def coattention_weights(

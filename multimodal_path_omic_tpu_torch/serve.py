@@ -3,9 +3,10 @@
 fixed-shape batches.
 
 The eval step mirrors the JAX package's ``train/loop.py::make_eval_step``.
-Survival models (``ces`` and ``cesar`` losses): a deterministic forward (the
-co-attention map is requested only for ``cesar``, whose loss consumes it),
-then the loss, risk = -sum(survs), hazards, survs and y. GE-NaCAGaT (WSI
+Survival models (MCAT and NaCAGaT, ``ces`` and ``cesar`` losses): a
+deterministic forward (the co-attention map is requested for ``cesar``,
+whose loss consumes it, or with ``need_attention=True``), then the loss,
+risk = -sum(survs), hazards, survs and y. GE-NaCAGaT (WSI
 only, loss ``ce``): the class probabilities y and the raw MIL scores; bags
 come without omics.
 """
@@ -33,7 +34,11 @@ class Predictor:
     to load; None draws random weights from ``seed``. ``device`` defaults to
     the GPU (see ``device.resolve_device``). A GE model name (``GE-NaCAGaT``,
     ``GeneExpr-NaCAGaT``) selects GE mode: no ``omic_sizes``, 3 classes and
-    the ``ce`` loss by default.
+    the ``ce`` loss by default. ``need_attention=True`` makes ``eval_step``
+    return the survival models' co-attention map [B, N, M] under
+    ``attention['coattn']`` for every loss. ``lean=False`` switches the
+    co-attention off its lean routes (``ops/attention.py``): k and v are
+    projected over the patch axis and the plain-K kernels run.
     """
 
     def __init__(self, model_name: str = "NaCAGaT", *, omic_sizes: Sequence[int] = (),
@@ -42,7 +47,7 @@ class Predictor:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, batch_size: int = 32,
                  loss: Optional[str] = None, alpha: float = 0.75,
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
-                 device=None):
+                 device=None, lean: bool = True, need_attention: bool = False):
         self.ge_mode = is_ge_model(model_name)
         allowed = ("ce",) if self.ge_mode else LOSSES
         loss = loss or allowed[0]
@@ -57,10 +62,12 @@ class Predictor:
         self.batch_size = int(batch_size)
         self.loss_name = loss
         self.alpha = alpha
+        self.need_attention = bool(need_attention)
         self.min_rows = 1  # smallest servable batch (no data-parallel mesh)
         model = build_model(model_name, omic_sizes=self.omic_sizes,
                             model_size=model_size, fusion=fusion,
-                            n_classes=n_classes, wsi_dim=wsi_dim)  # None: the model's own
+                            n_classes=n_classes, wsi_dim=wsi_dim,  # None: the model's own
+                            lean=lean)
         if params is not None:
             load_jax_params(model, params)
         else:
@@ -84,7 +91,7 @@ class Predictor:
                 "attention": attn,
                 "n_real": weight.sum(),
             }
-        want_attn = self.loss_name == "cesar"
+        want_attn = self.need_attention or self.loss_name == "cesar"
         out = self.model(batch["wsi"], batch["omics"], batch["mask"],
                          need_attention=want_attn)
         loss, attn_loss = survival_loss(self.loss_name, out, batch["label"],

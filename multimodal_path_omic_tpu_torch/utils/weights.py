@@ -16,9 +16,13 @@ port mirrors those names, so the bridge is a handful of rules:
   axis of 2 (the vmapped branch pair): slot i goes to ``<name>.<i>``, and a
   flax ``layer_<j>`` is the port's ``layers.<j>``.
 
-GE-NaCAGaT's tree (``H``, ``self_attention``, ``path_transformer``,
+MCAT's tree has NaCAGaT's names with a plain ``co_attention``
+(``in_proj_kernel``, ``in_proj_bias``, ``out_proj``) in place of the
+pre-gated one (``co_attention.mha`` / ``co_attention.cag``); the same rules
+carry it. GE-NaCAGaT's tree (``H``, ``self_attention``, ``path_transformer``,
 ``path_pool``, ``classifier``) has no stacked axis and needs only the first
-two rules and ``layer_<j>``.
+two rules and ``layer_<j>``. Loading is strict: a tree of another model
+(unknown or missing names) raises.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ def _port_name(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarra
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a JAX NaCAGaT or GE-NaCAGaT parameter tree onto the port's
+    """Map a JAX MCAT, NaCAGaT or GE-NaCAGaT parameter tree onto the port's
     state_dict names."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):

@@ -20,6 +20,9 @@ pooled rows, raw scores and attention outputs (valid and pad rows alike):
 outputs of magnitude ~1 in other summation orders move by ~1e-6 to 1e-5.
 The flash backward's dq, dk, dv are held like the other gradients, to 1e-4 of
 each tensor's largest magnitude, and two runs must agree bitwise.
+The plain-K kernels with values are held like the fuse-K ones (1e-4 absolute
+forward, gradients 1e-4 of each tensor's largest magnitude, two backward runs
+bitwise equal); the row gather must equal ``index_select`` bit for bit.
 """
 
 import math
@@ -29,7 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import coattn, flash, gather, milpool  # noqa: E402
 from multimodal_path_omic_tpu_torch.serve import Predictor  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -507,3 +510,234 @@ def test_ge_train_step_on_card_matches_cpu(dev):
         params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     for k, v in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), v.numpy(), atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The plain-K kernels with values, the row gather, MCAT and the device cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,n,d,m_len,pre_gate,rate",
+    [(2, 3, 128, 1000, True, 0.25), (4, 6, 256, 4096, False, 0.0), (3, 8, 256, 333, True, 0.0),
+     (1, 1, 128, 70, False, 0.5), (5, 6, 256, 5000, True, 0.25)],
+)
+def test_plain_k_kernels_match_plain_on_card(dev, b, n, d, m_len, pre_gate, rate):
+    """The plain-K forward with values (eval form and training form: dropout,
+    ssq, sumw, l, m) and its backward against their plain versions; two
+    backward runs agree bitwise; no gradient reaches k through a masked key."""
+    q, _, _, _, k, mask = _inputs(dev, b, n, d, m_len, d, m_len)
+    g = torch.Generator().manual_seed(m_len + 1)
+    v = torch.randn(b, m_len, d, generator=g).to(dev)
+    dout = torch.randn(b, n, d, generator=g).to(dev)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    seed = torch.tensor([m_len * 3 + 1], dtype=torch.int32, device=dev)
+    before = dict(coattn.LAUNCH_COUNTS)
+    got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate)
+    assert got[3] is None and got[4] is None
+    for a, r, rtol in zip(got[:3], ref, (0.0, L_RTOL, 0.0)):
+        _close(a, r, rtol)
+    got = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate, pre_gate=pre_gate)
+    ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, rate, pre_gate=pre_gate)
+    for a, r, rtol in zip(got, ref, (0.0, L_RTOL, 0.0, 0.0, 0.0)):
+        _close(a, r, rtol)
+    o, l, m, ssq, sumw = got
+    di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, k, v, mask, seed, rate, dout, l, m, di, dssq, dsumw)
+    grads = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, rate, dout, dssq, dsumw,
+                                          pre_gate=pre_gate)
+    for a, r in zip(grads, ref):
+        _close_rel(a, r)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert float(grads[1][~mask].abs().max()) == 0.0
+    torch.cuda.synchronize()
+    assert coattn.LAUNCH_COUNTS["coattn_plain"] == before["coattn_plain"] + 2
+    assert coattn.LAUNCH_COUNTS["coattn_plain_bwd"] == before["coattn_plain_bwd"] + 2
+
+
+@pytest.mark.parametrize("pre_gate", [False, True])
+def test_coattention_gradients_on_card(dev, pre_gate):
+    """coattention with dropout, ssq and sumw (the autograd Function over
+    both plain-K kernels) against autograd through the plain training form;
+    fused_attention folds two heads into the batch."""
+    q, _, _, _, k, mask = _inputs(dev, 3, 6, 256, 900, 256, 5)
+    g = torch.Generator().manual_seed(3)
+    v = torch.randn(3, 900, 256, generator=g).to(dev)
+    w_o = torch.randn(3, 6, 256, generator=g).to(dev)
+    w_s, w_w = (torch.randn(3, 6, generator=g).to(dev) for _ in range(2))
+    seed = torch.tensor([11], dtype=torch.int32, device=dev)
+    grads = []
+    for fn in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if fn == "kernel":
+            o, ssq, sumw = coattn.coattention(*ins, mask, pre_gate=pre_gate, dropout_rate=0.25,
+                                              dropout_seed=seed, need_ssq=True, need_sumw=True)
+        else:
+            o, _, _, ssq, sumw = coattn.coattn_fwd_plain_k_plain(*ins, mask, seed, 0.25,
+                                                                 pre_gate=pre_gate)
+        ((o * w_o).sum() + (ssq * w_s).sum() + (sumw * w_w).sum()).backward()
+        grads.append([t.grad for t in ins])
+    for a, r in zip(*grads):
+        _close_rel(a, r)
+    q4, k4, v4 = (torch.stack([t, t.flip(0)], dim=1) for t in (q, k, v))  # [B, 2, ., D]
+    out = coattn.fused_attention(q4, k4, v4, None, pre_gate=pre_gate)
+    ref = coattn.coattn_fwd_plain_k_plain(q, k, v, None, None, 0.0, pre_gate=pre_gate)[0]
+    _close(out[:, 0], ref)
+    _close(out[:, 1], ref.flip(0))
+
+
+def test_plain_k_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, _, _, _, k, mask = _inputs(dev, 2, 3, 256, 256, 256, 0)
+    v = torch.zeros_like(k)
+    seed = torch.tensor([1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        coattn.coattn_fwd_plain_k(torch.zeros(2, 3, 512, device=dev),
+                                  torch.zeros(2, 256, 512, device=dev),
+                                  torch.zeros(2, 256, 512, device=dev), mask, pre_gate=False)
+    with pytest.raises(ValueError, match="queries"):
+        coattn.coattn_fwd_plain_k(torch.zeros(2, 9, 256, device=dev), k, v, mask, pre_gate=False)
+    with pytest.raises(ValueError, match="shape"):
+        coattn.coattn_fwd_plain_k(q, k, v[:, :100].contiguous(), mask, pre_gate=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        coattn.coattn_fwd_plain_k(q, k, v.cpu(), mask, pre_gate=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        coattn.coattn_fwd_plain_k(q, k, v, mask, seed.cpu(), 0.25, pre_gate=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        coattn.coattn_fwd_plain_k(q, k, v.transpose(1, 2).contiguous().transpose(1, 2), mask,
+                                  pre_gate=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_gather_rows_on_card_is_index_select(dev, dtype):
+    g = torch.Generator().manual_seed(1)
+    for shape in ((7, 512, 1024), (3, 100, 24), (5, 1, 16)):
+        if dtype == torch.int8:
+            pool = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8).to(dev)
+        else:
+            pool = torch.randn(shape, generator=g).to(dev).to(dtype)
+        if pool[0].numel() * pool.element_size() % 16:
+            with pytest.raises(ValueError, match="multiple of 16|16 bytes"):
+                gather.gather_rows(pool, torch.zeros(2, dtype=torch.int64, device=dev))
+            continue
+        idx = torch.randint(0, shape[0], (9,), generator=g).to(dev)
+        before = gather.LAUNCH_COUNTS["gather_rows"]
+        for ix in (idx, idx.int()):
+            got = gather.take_rows(pool, ix)
+            assert got.dtype == dtype and torch.equal(got, torch.index_select(pool, 0, idx))
+        assert gather.LAUNCH_COUNTS["gather_rows"] == before + 2
+
+
+def test_gather_rows_refuses_what_the_kernel_does_not_take(dev):
+    pool = torch.zeros(4, 8, 16, device=dev)
+    idx = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="idx is on"):
+        gather.gather_rows(pool, idx.cpu())
+    with pytest.raises(TypeError, match="pool must be"):
+        gather.gather_rows(pool.double(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(pool.transpose(1, 2).contiguous().transpose(1, 2), idx)
+    with pytest.raises(ValueError, match="B=0"):
+        gather.gather_rows(pool, idx[:0])
+
+
+@pytest.mark.parametrize("model_name", ["MCAT", "NaCAGaT"])
+def test_lean_false_predictor_on_card(dev, model_name):
+    """lean=False on the card: one plain-K launch a batch and no other
+    kernel; MCAT's lean route launches none; both within 1e-4 of the CPU."""
+    rng = np.random.default_rng(0)
+    sizes = (10, 20, 30)
+    bags = [rng.standard_normal((n, 256), dtype=np.float32) for n in (300, 900, 450)]
+    omics = [[rng.standard_normal(s, dtype=np.float32) for s in sizes] for _ in bags]
+    kw = dict(omic_sizes=sizes, model_size="small", wsi_dim=256, buckets=(512, 1024),
+              batch_size=2, loss="ces", seed=3)
+    ref = Predictor(model_name, device="cpu", **kw).predict_bags(bags, omics)
+    for lean in (True, False):
+        coattn.reset_launch_counts()
+        got = Predictor(model_name, device=dev, lean=lean, **kw).predict_bags(bags, omics)
+        counts = {k: v for k, v in coattn.LAUNCH_COUNTS.items() if v}
+        if not lean:
+            assert counts == {"coattn_plain": 2}
+        else:
+            assert counts == ({} if model_name == "MCAT" else {"coattn_fwd_fused_k": 2})
+        for key in ("hazards", "survs", "y", "risk"):
+            np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0)
+
+
+class _Cohort:
+    """Six seeded bags of one bucket with the columns survival_extras reads."""
+
+    SIZES, LENGTHS = (10, 20, 30), (300, 40, 512, 100, 257, 500)
+
+    def __init__(self):
+        rng = np.random.default_rng(0)
+        n = len(self.LENGTHS)
+        self.bags = [rng.standard_normal((m, 64), dtype=np.float32) for m in self.LENGTHS]
+        self.table = self
+        self.survival_months = rng.uniform(1, 100, n).astype(np.float32)
+        self.survival_class = rng.integers(0, 4, n)
+        self.censorship = rng.integers(0, 2, n).astype(np.float32)
+        self.signature_names = [f"s{j}" for j in range(len(self.SIZES))]
+        self.signature_data = {k: rng.standard_normal((n, s), dtype=np.float32)
+                               for k, s in zip(self.signature_names, self.SIZES)}
+
+    def __len__(self):
+        return len(self.bags)
+
+    def bag(self, i):
+        return self.bags[i]
+
+
+def test_mcat_cached_train_step_on_card(dev):
+    """MCAT medium (the width the plain-K kernels take on the card), lean=False,
+    dropout 0.25, SGD: three cached steps equal three host-fed steps bitwise,
+    with one gather, one plain-K forward and one plain-K backward launch a
+    cached step."""
+    from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache, build_meta
+    from multimodal_path_omic_tpu_torch.data.pipeline import survival_extras
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import (
+        init_train_state,
+        make_cached_train_step,
+        make_train_step,
+    )
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    ds = _Cohort()
+    cache = DeviceBagCache(ds, survival_extras, (512,), device=dev, upload_chunk=4)
+    params = {}
+    for cached in (True, False):
+        model = seeded_init_(build_model("MCAT", omic_sizes=ds.SIZES, model_size="medium",
+                                         dropout=0.25, wsi_dim=64, lean=False), 0).to(dev)
+        opt = make_optimizer("sgd", 0.1)
+        state = init_train_state(model, opt, 0)
+        make = make_cached_train_step if cached else make_train_step
+        step = make(model, "ces", opt, omic_sizes=ds.SIZES)
+        for mod in (coattn, gather):
+            mod.reset_launch_counts()
+        for rows in ([0, 2, 4, 5], [5, 0], [4]):
+            meta, _ = build_meta(rows, 4, cache)
+            if cached:
+                state, metrics = step(state, cache.caches[512], meta)
+            else:
+                wsi = np.zeros((4, 512, 64), np.float32)
+                for j, r in enumerate(meta["row"]):
+                    wsi[j, :ds.LENGTHS[r]] = ds.bag(r)
+                rows_ = meta["row"]
+                state, metrics = step(state, {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in {
+                    "wsi": wsi, "mask": np.arange(512)[None] < np.array(ds.LENGTHS)[rows_][:, None],
+                    "omics_packed": np.concatenate(
+                        [ds.signature_data[n][rows_] for n in ds.signature_names], axis=1),
+                    "label": ds.survival_class[rows_], "censorship": ds.censorship[rows_],
+                    "weight": meta["weight"]}.items()})
+            assert np.isfinite(float(metrics.loss))
+        torch.cuda.synchronize()
+        assert gather.LAUNCH_COUNTS["gather_rows"] == (3 if cached else 0)
+        assert {k: v for k, v in coattn.LAUNCH_COUNTS.items() if v} == {
+            "coattn_plain": 3, "coattn_plain_bwd": 3}
+        params[cached] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for k, v in params[True].items():
+        assert torch.equal(v, params[False][k]), k

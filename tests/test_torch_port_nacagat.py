@@ -257,7 +257,8 @@ def test_port_imports_nothing_of_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "want = ['ops.milpool', 'ops.flash', 'ops.kernels', 'models.ge_nacagat', 'serve',\n"
-        "        'train.loop', 'train.optim']\n"
+        "        'train.loop', 'train.optim', 'ops.gather', 'models.mcat',\n"
+        "        'data.device_cache', 'data.pipeline']\n"
         "missing = [w for w in want if pkg.__name__ + '.' + w not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
