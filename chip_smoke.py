@@ -2,7 +2,7 @@
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
 serving and training paths and its device-cache training step on one GPU.
 
-    python3 chip_smoke.py              # phases 1-16 below
+    python3 chip_smoke.py              # phases 1-18 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -38,10 +38,13 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. The GE kernels against their plain versions on the card: the gated-MIL
    pool at D=H=256, B=8, M in {16384, 24576, 5000 (ragged)}, ragged masks,
    one fully-masked bag, one call without a mask; the flash forward at
-   (heads, width) = (1, 256) and (8, 32), read in place from a packed
-   [B, M, 768] projection, at the main path's batch (B=8, M=16384), at B=2
-   with M in {16384, 5000} and at B=1 with M=24576, ragged masks and one
-   fully-masked bag, valid and pad rows alike.
+   every (heads, width) instance, read in place from a packed [B, M, 3E]
+   projection (and from contiguous q, k, v at B=2, M=5000): GE medium's
+   (1, 256) and (8, 32) at the main path's batch (B=8, M=16384), at B=2
+   with M in {16384, 5000} and at B=1 with M=24576; GE small's (1, 128),
+   (8, 16) and big's (1, 512), (8, 64) at phase 17's B=4, M=4096 and at
+   B=2, M=5000; ragged masks and one fully-masked bag, valid and pad rows
+   alike.
 8. The GE-NaCAGaT ``Predictor`` at full width (``medium``, 1024-wide patch
    features, 3 classes, buckets 8192/16384, batch 8, random weights from a
    seed) through ``predict_bags`` (12 bags of 5000..16384 patches, no omics)
@@ -50,13 +53,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    co-attention kernel. ``y`` must be finite, sum to 1 per row and match the
    same Predictor on the CPU on two bags of the 8192 bucket, as must the raw
    MIL scores of an eval step.
-9. Timings: the pool and the flash forward (both head shapes) beside their
-   plain versions, their bounds and, for the flash forward, one
+9. Timings: the pool and every flash forward instance (at B=8, M=16384)
+   beside their plain versions, their bounds (the flash kernels: 3xTF32 and
+   float32 FMA, valid keys) and, for the flash forward, one
    ``scaled_dot_product_attention`` call; GE ``predict_bags`` bags/s.
-10. The flash backward (both head shapes) against its plain version on the
-    card, from the forward kernel's own out and row statistics (m, l): at
-    the main path's B=8, M=16384 and at B=2 with M in {5000, 24576}, q, k, v
-    read in place from a packed projection, ragged masks, one bag without a
+10. Every flash backward instance against its plain version on the card,
+    from the forward kernel's own out and row statistics (m, l): medium's at
+    the main path's B=8, M=16384 and at B=2 with M in {5000, 24576}, small's
+    and big's at B=4, M=4096 and B=2, M=5000; q, k, v read in place from a
+    packed projection (contiguous at M=5000), ragged masks, one bag without a
     valid key, a random cotangent that is non-zero on pad rows too. dq, dk,
     dv within 1e-4 of each one's largest magnitude; two runs bitwise equal;
     masked keys get exactly no dq/dk; (m, l) against the plain forward; the
@@ -69,9 +74,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     launches, no other kernel), every loss finite; then one step from the
     same state and seed with the kernels and with their plain versions,
     whose parameter gradients must agree.
-12. Timings: each flash backward instance beside its plain version, its
-    bound and the backward of one ``scaled_dot_product_attention`` call; the
-    GE training step's ms and GE train bags/s.
+12. Timings: every flash backward instance (at B=8, M=16384) beside its
+    plain version, its bounds and the backward of one
+    ``scaled_dot_product_attention`` call; the GE training step's ms and GE
+    train bags/s.
 13. The plain-K co-attention kernels with values against their plain
     versions at B=32, N=6, D=256, M in {8192, 5000 (not a multiple of any
     tile)}, ragged masks with one fully-masked row, with and without the
@@ -103,6 +109,20 @@ Phases (any failure exits non-zero, and no result line is printed):
     form without pre-gate and dropout, ``index_select`` for the gather); MCAT
     ``predict_bags`` bags/s and train bags/s, lean and ``lean=False``; the
     cached step against the host-fed step including the batch's staging.
+
+17. GE-NaCAGaT ``small`` and ``big`` (heads of width 128 and 16, 512 and 64)
+    at full width, random weights from seed 0: ``predict_bags`` on 6 bags of
+    1000..4096 patches (bucket 4096, batch 4) and one training step (ce,
+    dropout 0.25, Adam) on 3 bags and a filler row, each with the flash
+    kernels and with their plain versions on the card (y and the raw MIL
+    scores within 1e-4, the 40 parameter gradients within GRAD_RTOL), the
+    launch counts of their flash instances exact.
+18. Shapes the co-attention kernels do not take, routed to
+    ``attention_core`` by the kernels' predicates: cross-attention of 6
+    queries over 100 keys in 8 heads of width 32, NaCAGaT with 12 signature
+    groups (``ces``; ``cesar``, whose map has 12 queries) and NaCAGaT
+    ``big`` (``ces``): the card within 1e-4 of the CPU, no co-attention
+    launch.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -138,9 +158,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
-# outside the tensor cores (the kernels run float32 FMAs for parity).
+# outside the tensor cores (the co-attention and pool kernels run float32 FMAs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# TF32 on the tensor cores, dense: the flash kernels (K6) run each float32
+# product as three TF32 products (3xTF32), so their bound is 3 x operations
+# over this rate; the float32-FMA bound is logged beside it.
+PEAK_TF32_FLOP_PER_S = 495e12
 
 B, N, E = 32, 6, 256
 SIZES = (100, 200, 300, 400, 500, 600)
@@ -153,10 +177,9 @@ SOURCES = {
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "milpool": "multimodal_path_omic_tpu_torch/csrc/milpool.cu",
-    "flash_fwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
-    "flash_fwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash.cu",
-    "flash_bwd_d256": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
-    "flash_bwd_d32": "multimodal_path_omic_tpu_torch/csrc/flash_bwd.cu",
+    **{f"flash_{way}_d{w}": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
+       for way, src in (("fwd", "flash"), ("bwd", "flash_bwd"))
+       for w in (16, 32, 64, 128, 256, 512)},
     "coattn_plain": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_plain_bwd": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "gather_rows": "multimodal_path_omic_tpu_torch/csrc/gather.cu",
@@ -169,11 +192,9 @@ REPLACES = {
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "milpool": "multimodal_path_omic_tpu/ops/milpool.py:131",
-    "flash_fwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
-    "flash_fwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
-    # the library kernel's custom VJP, reached through the same call
-    "flash_bwd_d256": "multimodal_path_omic_tpu/ops/flash.py:44",
-    "flash_bwd_d32": "multimodal_path_omic_tpu/ops/flash.py:44",
+    # the backward: the library kernel's custom VJP, reached through the same call
+    **{f"flash_{way}_d{w}": "multimodal_path_omic_tpu/ops/flash.py:44"
+       for way in ("fwd", "bwd") for w in (16, 32, 64, 128, 256, 512)},
     "coattn_plain": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_plain_bwd": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "gather_rows": "multimodal_path_omic_tpu/ops/gather.py:63",
@@ -226,6 +247,13 @@ GE_N_BAGS = 12
 # each of the path transformer's two layers. The flash kernel has one template
 # instance per width, each with its own count and row (flash_fwd_d<width>).
 GE_HEADS = ((1, 256), (8, 32))
+# The same for GE small and big (phase 17: GE_WIDE_B bags of the GE_WIDE_M
+# bucket); every flash instance is held and timed (phases 7, 9, 10, 12).
+GE_SIZE_HEADS = {"small": ((1, 128), (8, 16)), "medium": GE_HEADS, "big": ((1, 512), (8, 64))}
+GE_SIZE_E = {"small": 128, "medium": 256, "big": 512}
+FLASH_INSTANCES = tuple((h, w, GE_SIZE_E[size]) for size in ("medium", "small", "big")
+                        for h, w in GE_SIZE_HEADS[size])
+GE_WIDE_B, GE_WIDE_M = 4, 4096
 # The GE kernels against their plain versions, both float32: the pool sums
 # up to 24,576 weighted rows of magnitude ~1 per split and merges splits; the
 # flash forward sums 256 (or 32) products per score and up to 24,576 weighted
@@ -729,14 +757,13 @@ def ge_pool_inputs(m_len, seed, dev, masked=True):
     return [x.to(dev), mask] + [t.to(dev) for t in (wa, ba, wb, bb, wc, bc)]
 
 
-def ge_flash_inputs(b, heads, m_len, seed, dev):
+def ge_flash_inputs(b, heads, m_len, seed, dev, e=GE_D):
     """q, k, v as MultiheadAttention hands them over: the head views of one
     packed [B, M, 3E] projection (strided, read in place), q and k of std
     ~1.5 and 1 (scores of std ~1.5: a peaked softmax); ragged masks, the
     last bag fully masked when there is more than one."""
     import torch
 
-    e = GE_D
     g = torch.Generator(device="cpu").manual_seed(seed)
     qkv = torch.randn(b, m_len, 3 * e, generator=g)
     qkv[..., :e] *= 1.5
@@ -760,7 +787,7 @@ def phase7_ge_kernels(dev) -> dict:
 
     from multimodal_path_omic_tpu_torch.ops import flash, milpool
 
-    errs = {"milpool": 0.0, "flash_fwd_d256": 0.0, "flash_fwd_d32": 0.0}
+    errs = {"milpool": 0.0, **{f"flash_fwd_d{w}": 0.0 for _, w, _ in FLASH_INSTANCES}}
     for m_len, masked in ((GE_M, True), (24576, True), (5000, True), (5000, False)):
         log(f"phase 7: MIL pool B={GE_B} M={m_len} D=H={GE_D} "
             f"{'ragged masks, one fully-masked bag' if masked else 'mask=None'}")
@@ -772,12 +799,18 @@ def phase7_ge_kernels(dev) -> dict:
                               check_close("milpool.scores", scores, scores_ref, GE_ATOL))
         if masked:  # the fully-masked filler bag pools uniformly, never NaN
             check_close("milpool.filler_bag", pooled[-1], args[0][-1].mean(dim=0), GE_ATOL)
-    for heads, width in GE_HEADS:
+    for heads, width, e in FLASH_INSTANCES:
         name = f"flash_fwd_d{width}"
-        for b, m_len in ((GE_B, GE_M), (2, GE_M), (2, 5000), (1, 24576)):
-            log(f"phase 7: flash forward B={b} H={heads} dh={width} M={m_len}, strided "
-                f"q/k/v, ragged masks{', one fully-masked bag' if b > 1 else ''}")
-            q, k, v, mask = ge_flash_inputs(b, heads, m_len, m_len + heads, dev)
+        # medium at its own path's shapes; small and big at phase 17's
+        shapes = (((GE_B, GE_M, False), (2, GE_M, False), (2, 5000, True), (1, 24576, False))
+                  if e == GE_D else ((GE_WIDE_B, GE_WIDE_M, False), (2, 5000, True)))
+        for b, m_len, contiguous in shapes:
+            log(f"phase 7: flash forward B={b} H={heads} dh={width} M={m_len}, "
+                f"{'contiguous' if contiguous else 'strided'} q/k/v, ragged masks"
+                f"{', one fully-masked bag' if b > 1 else ''}")
+            q, k, v, mask = ge_flash_inputs(b, heads, m_len, m_len + heads, dev, e)
+            if contiguous:
+                q, k, v = (t.contiguous() for t in (q, k, v))
             out = flash.flash_attention(q, k, v, mask)
             ref = flash.flash_attention_plain(q, k, v, mask, chunk=plain_chunk(b, heads, m_len))
             if out.shape != ref.shape:
@@ -803,12 +836,12 @@ def make_ge_bags(seed):
     return [rng.standard_normal((int(n), 1024), dtype=np.float32) for n in lengths]
 
 
-def make_ge_predictor(dev, batch_size=GE_B):
-    """The GE serving configuration: GE-NaCAGaT medium, random weights from
+def make_ge_predictor(dev, batch_size=GE_B, size="medium", buckets=GE_BUCKETS):
+    """The GE serving configuration: GE-NaCAGaT (medium), random weights from
     seed 0, 3 classes, loss ce."""
     from multimodal_path_omic_tpu_torch.serve import Predictor
 
-    return Predictor("GE-NaCAGaT", model_size="medium", buckets=GE_BUCKETS,
+    return Predictor("GE-NaCAGaT", model_size=size, buckets=buckets,
                      batch_size=batch_size, seed=0, device=dev)
 
 
@@ -826,12 +859,11 @@ def read_counts() -> dict:
             **milpool.LAUNCH_COUNTS}
 
 
-def ge_eval_scores(pred, bags):
-    """The raw MIL scores [len(bags), 8192] of one eval step on ``bags``
-    padded into the 8192 bucket."""
+def ge_eval_scores(pred, bags, bucket=GE_BUCKETS[0]):
+    """The raw MIL scores [len(bags), bucket] of one eval step on ``bags``
+    padded into ``bucket``."""
     import torch
 
-    bucket = GE_BUCKETS[0]
     wsi = torch.zeros((len(bags), bucket, 1024))
     mask = torch.zeros((len(bags), bucket), dtype=torch.bool)
     for row, bag in enumerate(bags):
@@ -903,24 +935,29 @@ def phase8_ge_predictor(dev, bags) -> dict:
     return {"launches": counts, "predictor": pred}
 
 
-def ge_bound_ms(name, mask=None) -> tuple:
-    """Bounds of the GE kernels at B=8, M=16384, D=H=256. The flash forward
-    needs only the valid keys' products (a masked key's weight is exactly 0;
-    a bag with no valid key needs all of them): counted from ``mask``."""
+def ge_bound_ms(name, mask=None, e=GE_D) -> tuple:
+    """(bound ms, 'bytes' | 'operations', float32-FMA bound ms or None) of the
+    GE kernels at B=8, M=16384, D=H=256 (the pool) or heads * width = e (the
+    flash forward). The flash forward needs only the valid keys' products (a
+    masked key's weight is exactly 0; a bag with no valid key needs all of
+    them): counted from ``mask``. Its operations run as 3xTF32 on the tensor
+    cores (three TF32 products each); the float32-FMA bound comes beside."""
     import torch
 
     b, m, d = GE_B, GE_M, GE_D
+    t_f32 = None
     if name == "milpool":
         nbytes = 4 * (b * m * d + 2 * d * d + 3 * d + 1 + b * d + b * m) + b * m
-        ops = 4 * b * m * d * d + 2 * b * m * d + 2 * b * m * d
+        t_ops = (4 * b * m * d * d + 2 * b * m * d + 2 * b * m * d) / PEAK_F32_FLOP_PER_S * 1e3
     else:
         n_valid = mask.sum(dim=1)
         keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
-        nbytes = 4 * 4 * b * m * d + b * m
-        ops = 4 * m * keys * d  # heads * width = d
+        nbytes = 4 * 4 * b * m * e + b * m
+        ops = 4 * m * keys * e  # heads * width = e
+        t_ops = 3 * ops / PEAK_TF32_FLOP_PER_S * 1e3
+        t_f32 = ops / PEAK_F32_FLOP_PER_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
 
 
 def sdpa_ms(q, k, v, mask):
@@ -935,7 +972,7 @@ def sdpa_ms(q, k, v, mask):
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :])
 
-    return cuda_ms(call, iters=5, warmup=1), call()
+    return cuda_ms(call, iters=2, warmup=1), call()
 
 
 def phase9_ge_timings(dev, errs, launches, pred, bags) -> list:
@@ -958,20 +995,21 @@ def phase9_ge_timings(dev, errs, launches, pred, bags) -> list:
     # no single PyTorch call computes a gated scoring head with its pooled sum
     rows = [row("milpool", ms, plain_ms, bound, None)]
     del args
-    for heads, width in GE_HEADS:
+    for heads, width, e in FLASH_INSTANCES:  # every instance at the medium path's B and M
         name = f"flash_fwd_d{width}"
-        q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, 13 + heads, dev)
+        q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, 13 + heads, dev, e)
         chunk = plain_chunk(GE_B, heads, GE_M)
-        ms = cuda_ms(lambda: flash.flash_attention(q, k, v, mask), iters=5, warmup=1)
+        ms = cuda_ms(lambda: flash.flash_attention(q, k, v, mask), iters=3, warmup=1)
         plain_ms = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, mask, chunk=chunk),
-                           iters=3, warmup=1)
+                           iters=1, warmup=1)
         lib_ms, lib_out = sdpa_ms(q, k, v, mask)
-        bound = ge_bound_ms(name, mask)
+        bound = ge_bound_ms(name, mask, e)
         log(f"phase 9: {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (chunks of {chunk} rows), "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms, "
-            f"bound {bound[0]:.4f} ms ({bound[1]}, valid keys only; all keys: "
-            f"{4 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms)")
+            f"scaled_dot_product_attention {lib_ms:.4f} ms; bounds over the valid keys: "
+            f"3xTF32 {bound[0]:.4f} ms ({bound[1]}; {bound[0] / ms:.3f} of it reached), "
+            f"float32 FMA {bound[2]:.4f} ms (all keys: "
+            f"{4 * GE_B * GE_M * GE_M * e / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms)")
         # the library call is a second reference on the bags with valid keys
         # (its -inf fill makes the bag without one NaN)
         out = flash.flash_attention(q, k, v, mask)
@@ -992,7 +1030,7 @@ def phase9_ge_timings(dev, errs, launches, pred, bags) -> list:
     return rows
 
 
-def flash_bwd_inputs(b, heads, m_len, seed, dev):
+def flash_bwd_inputs(b, heads, m_len, seed, dev, e=GE_D, contiguous=False):
     """The flash backward's inputs as autograd hands them over: q, k, v and
     the mask of :func:`ge_flash_inputs`, the forward kernel's own out and
     (m, l), and a random cotangent laid out [B, M, E] (the out-projection's
@@ -1001,11 +1039,13 @@ def flash_bwd_inputs(b, heads, m_len, seed, dev):
 
     from multimodal_path_omic_tpu_torch.ops import flash
 
-    q, k, v, mask = ge_flash_inputs(b, heads, m_len, seed, dev)
+    q, k, v, mask = ge_flash_inputs(b, heads, m_len, seed, dev, e)
+    if contiguous:
+        q, k, v = (t.contiguous() for t in (q, k, v))
     out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    dout = torch.randn(b, m_len, GE_D, generator=g).to(dev)
-    dout = dout.reshape(b, m_len, heads, GE_D // heads).transpose(1, 2)
+    dout = torch.randn(b, m_len, e, generator=g).to(dev)
+    dout = dout.reshape(b, m_len, heads, e // heads).transpose(1, 2)
     return q, k, v, mask, out, m, l, dout
 
 
@@ -1015,13 +1055,17 @@ def phase10_flash_bwd_kernels(dev) -> dict:
     from multimodal_path_omic_tpu_torch.ops import flash
 
     errs = {}
-    for heads, width in GE_HEADS:
+    for heads, width, e in FLASH_INSTANCES:
         name = f"flash_bwd_d{width}"
         errs[name] = 0.0
-        for b, m_len in ((GE_B, GE_M), (2, 5000), (2, 24576)):
-            log(f"phase 10: flash backward B={b} H={heads} dh={width} M={m_len}, strided "
-                f"q/k/v, ragged masks, one bag without a valid key")
-            q, k, v, mask, out, m, l, dout = flash_bwd_inputs(b, heads, m_len, m_len + heads, dev)
+        shapes = (((GE_B, GE_M, False), (2, 5000, True), (2, 24576, False)) if e == GE_D
+                  else ((GE_WIDE_B, GE_WIDE_M, False), (2, 5000, True)))
+        for b, m_len, contiguous in shapes:
+            log(f"phase 10: flash backward B={b} H={heads} dh={width} M={m_len}, "
+                f"{'contiguous' if contiguous else 'strided'} q/k/v, ragged masks, one bag "
+                f"without a valid key; dq, dk, dv packed")
+            q, k, v, mask, out, m, l, dout = flash_bwd_inputs(b, heads, m_len, m_len + heads, dev,
+                                                              e, contiguous)
             chunk = plain_chunk(b, heads, m_len)
             if not torch.equal(out, flash.flash_fwd(q, k, v, mask)[0]):
                 raise AssertionError("the forward's out differs with and without (m, l)")
@@ -1054,8 +1098,8 @@ def phase10_flash_bwd_kernels(dev) -> dict:
     return errs
 
 
-def make_ge_trainer(dev):
-    """The GE training configuration: GE-NaCAGaT medium, random weights from
+def make_ge_trainer(dev, size="medium"):
+    """The GE training configuration: GE-NaCAGaT (medium), random weights from
     seed 0, ce, dropout 0.25, Adam lr 2e-4 / weight decay 1e-5, dropout
     generator seeded with 0."""
     from multimodal_path_omic_tpu_torch.models import build_model
@@ -1063,39 +1107,35 @@ def make_ge_trainer(dev):
     from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
     from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
-    model = seeded_init_(build_model("GE-NaCAGaT", model_size="medium", dropout=TRAIN_RATE),
+    model = seeded_init_(build_model("GE-NaCAGaT", model_size=size, dropout=TRAIN_RATE),
                          0).to(dev)
     opt = make_optimizer("adam", 2e-4, 1e-5)
     return model, init_train_state(model, opt, seed=0), make_train_step(model, "ce", opt,
                                                                         ge_mode=True)
 
 
-def stage_ge_train_batch(dev, bags) -> dict:
-    """One 8-row batch of the 16384 bucket, on the card once: the first seven
-    serving bags (numpy seed 2) and one zero-weight filler row without a
-    valid patch; labels from numpy seed 3."""
+def stage_ge_train_batch(dev, bags, b=GE_B, m_len=GE_M, seed=3) -> dict:
+    """One b-row batch of the m_len bucket, on the card once: the first b - 1
+    bags (phase 8's: numpy seed 2) and one zero-weight filler row without a
+    valid patch; labels from numpy ``seed``."""
     import torch
 
-    rng = np.random.default_rng(3)
-    wsi = torch.zeros((GE_B, GE_M, bags[0].shape[1]), device=dev)
-    mask = torch.zeros((GE_B, GE_M), dtype=torch.bool, device=dev)
-    weight = torch.ones(GE_B, device=dev)
-    for row in range(GE_B - 1):
+    rng = np.random.default_rng(seed)
+    wsi = torch.zeros((b, m_len, bags[0].shape[1]), device=dev)
+    mask = torch.zeros((b, m_len), dtype=torch.bool, device=dev)
+    weight = torch.ones(b, device=dev)
+    for row in range(b - 1):
         wsi[row, :len(bags[row])] = torch.from_numpy(bags[row]).to(dev)
         mask[row, :len(bags[row])] = True
     weight[-1] = 0.0
     return {"wsi": wsi, "mask": mask, "weight": weight,
-            "label": torch.from_numpy(rng.integers(0, 3, GE_B)).to(dev)}
+            "label": torch.from_numpy(rng.integers(0, 3, b)).to(dev)}
 
 
-def ge_train_step_grads(dev, batch, plain: bool) -> dict:
-    """Parameter gradients of one GE training step from the phase-11 start
-    state and seed, through the flash kernels or through their plain
-    versions (in the row chunks that fit the card)."""
+def plain_flash():
+    """The flash wrappers' plain versions, on the card, in the row chunks that
+    fit it: (forward, backward) with the wrappers' signatures."""
     from multimodal_path_omic_tpu_torch.ops import flash
-
-    model, state, step = make_ge_trainer(dev)
-    saved = flash.flash_fwd, flash.flash_bwd
 
     def fwd_plain(q, k, v, key_mask=None, sm_scale=None, *, need_stats=False):
         res = flash.flash_attention_plain(q, k, v, key_mask, sm_scale, return_stats=need_stats,
@@ -1106,8 +1146,19 @@ def ge_train_step_grads(dev, batch, plain: bool) -> dict:
         return flash.flash_attention_bwd_plain(q, k, v, key_mask, out, m, l, dout, sm_scale,
                                                chunk=plain_chunk(*q.shape[:3]))
 
+    return fwd_plain, bwd_plain
+
+
+def ge_train_step_grads(dev, batch, plain: bool, size="medium") -> dict:
+    """Parameter gradients of one GE training step from the phase-11 start
+    state and seed, through the flash kernels or through their plain
+    versions."""
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    model, state, step = make_ge_trainer(dev, size)
+    saved = flash.flash_fwd, flash.flash_bwd
     if plain:
-        flash.flash_fwd, flash.flash_bwd = fwd_plain, bwd_plain
+        flash.flash_fwd, flash.flash_bwd = plain_flash()
     try:
         step(state, batch)
     finally:
@@ -1151,21 +1202,23 @@ def phase11_ge_training(dev, batch) -> dict:
     return {"launches": counts, "state": state, "step": step, "n_real": n_real}
 
 
-def ge_bwd_bound_ms(heads, mask) -> tuple:
-    """Bound of one flash backward at B=8, M=16384, heads * width = 256: the
-    five necessary products (s, dp, dv, dq, dk) over the valid keys (a bag
-    with no valid key needs all of them); q, k, v, out, dout, m, l and the
-    mask read once, dq, dk, dv written once."""
+def ge_bwd_bound_ms(heads, mask, e=GE_D) -> tuple:
+    """(bound ms, 'bytes' | 'operations', float32-FMA bound ms) of one flash
+    backward at B=8, M=16384, heads * width = e: the five necessary products
+    (s, dp, dv, dq, dk) over the valid keys (a bag with no valid key needs all
+    of them) as 3xTF32; q, k, v, out, dout, m, l and the mask read once, dq,
+    dk, dv written once."""
     import torch
 
-    b, m, d = GE_B, GE_M, GE_D
+    b, m = GE_B, GE_M
     n_valid = mask.sum(dim=1)
     keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
-    nbytes = 4 * (8 * b * m * d + 2 * b * heads * m) + b * m
-    ops = 10 * m * keys * d
+    nbytes = 4 * (8 * b * m * e + 2 * b * heads * m) + b * m
+    ops = 10 * m * keys * e
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = 3 * ops / PEAK_TF32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (
+        ops / PEAK_F32_FLOP_PER_S * 1e3,)
 
 
 def sdpa_bwd_ms(q, k, v, mask, dout):
@@ -1183,7 +1236,7 @@ def sdpa_bwd_ms(q, k, v, mask, dout):
     def call():
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
-    return cuda_ms(call, iters=3, warmup=1), call()
+    return cuda_ms(call, iters=2, warmup=1), call()
 
 
 def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
@@ -1192,22 +1245,20 @@ def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
     from multimodal_path_omic_tpu_torch.ops import flash
 
     rows = []
-    for heads, width in GE_HEADS:
+    for heads, width, e in FLASH_INSTANCES:  # every instance at the medium path's B and M
         name = f"flash_bwd_d{width}"
-        q, k, v, mask, out, m, l, dout = flash_bwd_inputs(GE_B, heads, GE_M, 17 + heads, dev)
+        q, k, v, mask, out, m, l, dout = flash_bwd_inputs(GE_B, heads, GE_M, 17 + heads, dev, e)
         chunk = plain_chunk(GE_B, heads, GE_M)
         ms = cuda_ms(lambda: flash.flash_bwd(q, k, v, mask, out, m, l, dout), iters=3, warmup=1)
         plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
-            q, k, v, mask, out, m, l, dout, chunk=chunk), iters=2, warmup=1)
+            q, k, v, mask, out, m, l, dout, chunk=chunk), iters=1, warmup=1)
         lib_ms, lib = sdpa_bwd_ms(q, k, v, mask, dout)
-        bound = ge_bwd_bound_ms(heads, mask)
+        bound = ge_bwd_bound_ms(heads, mask, e)
         log(f"phase 12: {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (chunks of {chunk} rows), "
-            f"scaled_dot_product_attention backward {lib_ms:.4f} ms, "
-            f"bound {bound[0]:.4f} ms ({bound[1]}, five products over the valid keys; all "
-            f"keys: {10 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms; the "
-            f"kernel's seven products over all keys: "
-            f"{14 * GE_B * GE_M * GE_M * GE_D / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms)")
+            f"scaled_dot_product_attention backward {lib_ms:.4f} ms; bounds of the five "
+            f"products over the valid keys: 3xTF32 {bound[0]:.4f} ms ({bound[1]}; "
+            f"{bound[0] / ms:.3f} of it reached), float32 FMA {bound[2]:.4f} ms")
         # the library's gradients are a second reference on the bags with
         # valid keys (its -inf fill makes the bag without one NaN)
         got = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
@@ -1726,6 +1777,126 @@ def phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch) -> list:
     return rows
 
 
+def make_wide_ge_bags(seed):
+    """Six bags of 1000..4096 patches for GE small and big (phase 17)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1000, GE_WIDE_M + 1, size=6)
+    return [rng.standard_normal((int(n), 1024), dtype=np.float32) for n in lengths]
+
+
+def phase17_ge_sizes(dev) -> dict:
+    """GE-NaCAGaT small and big on the card: predict_bags and one training
+    step, the flash kernels against their plain versions on the card, with the
+    launch counts of every flash instance."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    bags = make_wide_ge_bags(5)
+    batches = -(-len(bags) // GE_WIDE_B)
+    launches = {}
+    for size in ("small", "big"):
+        (h1, w1), (h2, w2) = GE_SIZE_HEADS[size]
+        log(f"phase 17: GE-NaCAGaT {size} Predictor (heads {h1} x {w1}, {h2} x {w2}), "
+            f"{len(bags)} bags of {min(map(len, bags))}..{max(map(len, bags))} patches, bucket "
+            f"{GE_WIDE_M}, batch_size {GE_WIDE_B}")
+        pred = make_ge_predictor(dev, GE_WIDE_B, size, (GE_WIDE_M,))
+        reset_counts()
+        out = pred.predict_bags(bags)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"GE {size} serving", counts, milpool=batches,
+                      **{f"flash_fwd_d{w1}": batches, f"flash_fwd_d{w2}": 2 * batches})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        y = out["y"]
+        if y.shape != (len(bags), 3) or not np.isfinite(y).all():
+            raise AssertionError(f"GE {size}: y {y.shape}")
+        got_s, mask = ge_eval_scores(pred, bags[:2], GE_WIDE_M)
+        # the same Predictor with the flash kernels' plain versions, on the card
+        saved = flash.flash_fwd, flash.flash_bwd
+        flash.flash_fwd, flash.flash_bwd = plain_flash()
+        try:
+            plain_pred = make_ge_predictor(dev, GE_WIDE_B, size, (GE_WIDE_M,))
+            ref = plain_pred.predict_bags(bags)
+            ref_s, _ = ge_eval_scores(plain_pred, bags[:2], GE_WIDE_M)
+        finally:
+            flash.flash_fwd, flash.flash_bwd = saved
+        err = float(np.abs(y - ref["y"]).max())
+        err_s = float((got_s - ref_s)[mask].abs().max())
+        log(f"  y vs the plain versions: max_abs_err={err:.3e}; raw MIL scores of the valid "
+            f"patches: {err_s:.3e} (tolerance {MODEL_ATOL:g})")
+        if not (err <= MODEL_ATOL and err_s <= MODEL_ATOL):
+            raise AssertionError(f"GE {size}: the kernels disagree with their plain versions")
+        log(f"phase 17: GE-NaCAGaT {size}, one training step (ce, dropout {TRAIN_RATE}, Adam) "
+            f"on {GE_WIDE_B - 1} bags and a filler row of the {GE_WIDE_M} bucket, kernels vs "
+            f"plain versions")
+        batch = stage_ge_train_batch(dev, bags, GE_WIDE_B, GE_WIDE_M, seed=6)
+        reset_counts()
+        got = ge_train_step_grads(dev, batch, plain=False, size=size)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"GE {size} training step", counts,
+                      **{f"flash_{way}_d{w}": n for way in ("fwd", "bwd")
+                         for w, n in ((w1, 1), (w2, 2))})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check_step_grads(got, ge_train_step_grads(dev, batch, plain=True, size=size))
+        del pred, plain_pred, batch, got
+    return launches
+
+
+def phase18_refused_shapes(dev) -> None:
+    """Shapes the co-attention kernels do not take, routed to attention_core
+    by the kernels' predicates: on the card against the CPU, with no
+    co-attention launch."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import attention, coattn
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(7)
+    torch.manual_seed(0)
+    mha = attention.MultiheadAttention(256, 8).eval()
+    q = torch.from_numpy(rng.standard_normal((2, 6, 256), dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 100, 256), dtype=np.float32))
+    mask = torch.arange(100)[None] < torch.tensor([[93], [0]])
+    log("phase 18: cross-attention of 6 queries over 100 keys in 8 heads of width 32")
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        reset_counts()
+        with torch.no_grad():
+            outs[device.type] = mha.to(device)(q.to(device), kv.to(device), kv.to(device),
+                                               mask.to(device), need_weights=False)[0].cpu()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            expect_counts("6 queries, width 32", read_counts())
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    log(f"  card vs CPU: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g})")
+    if err > MODEL_ATOL:
+        raise AssertionError("6 queries at width 32: the card disagrees with the CPU")
+    bags = [rng.standard_normal((n, 1024), dtype=np.float32) for n in (300, 900, 640)]
+    sizes12 = tuple(range(20, 260, 20))
+    for what, sizes, model_size, loss in (
+            ("NaCAGaT medium, 12 signature groups, ces", sizes12, "medium", "ces"),
+            ("NaCAGaT medium, 12 signature groups, cesar (the map of 12 queries)", sizes12,
+             "medium", "cesar"),
+            ("NaCAGaT big, ces", SIZES, "big", "ces")):
+        log(f"phase 18: {what}: {len(bags)} bags, bucket 1024")
+        omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
+        kw = dict(omic_sizes=sizes, model_size=model_size, buckets=(1024,), batch_size=4,
+                  loss=loss, seed=0)
+        reset_counts()
+        got = Predictor("NaCAGaT", device=dev, **kw).predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"  launches: { {k: v for k, v in counts.items() if v} }")
+        if any(counts[k] for k in coattn.LAUNCH_COUNTS):
+            raise AssertionError(f"{what}: a co-attention kernel launched on a refused shape")
+        check_outputs_close("the CPU", got,
+                            Predictor("NaCAGaT", device="cpu", **kw).predict_bags(bags, omics))
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -1861,7 +2032,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one predict_bags call per loss, one training step, one GE "
                          "predict_bags call, one GE training step and one cached MCAT "
-                         "training step instead of phases 1-16")
+                         "training step instead of phases 1-18")
     args = ap.parse_args()
     try:
         import torch
@@ -1944,6 +2115,12 @@ def main() -> int:
             row["launches"] += p11["launches"][row["name"]]
     rows += phase12_ge_train_timings(dev, errs, p11["launches"], p11, ge_batch)
     del p11, ge_batch, ge_bags
+    torch.cuda.empty_cache()
+    wide = phase17_ge_sizes(dev)
+    for row in rows:  # GE small and big launch the other flash instances
+        if row["name"].startswith("flash_"):
+            row["launches"] += wide[row["name"]]
+    phase18_refused_shapes(dev)
     torch.cuda.empty_cache()
     errs.update(phase13_plain_kernels(dev))
     torch.cuda.empty_cache()

@@ -12,27 +12,27 @@
 // Keys at index >= L do not exist (weight exactly 0).
 //
 // What bounds it on an H100, and what the design does about it: 4*B*H*L^2*dh
-// float32 operations (2.2 TFLOP at B=8, L=16384, H*dh=256: 32.8 ms at
-// 67 TFLOP/s) against 0.5 GB of q, k, v, out, so it is bound by operations,
-// and both products must stay float32 FMAs (no TF32: the port is held to
-// float32 parity). One block = (bag, head, tile of BQ queries), 8 warps; warp
-// w owns RPW = BQ/8 query rows across all keys of a key tile, so the online
-// softmax (m, l per row) is warp-local: shuffles, no block barrier. Per key
-// tile of BK keys:
-//   * S = Q K^T as a register-tiled SIMT GEMM: a thread holds RPW rows x
-//     BK/32 keys (keys lane, lane+32, ...); Q (pre-scaled) sits transposed in
-//     shared memory for the whole block, so a warp's rows at one depth are
-//     broadcast float4 reads; K streams through shared memory in depth chunks.
-//   * mask, online softmax, P written transposed to shared memory.
-//   * O += P V with O in registers (RPW rows x dh/32 columns a thread), V
-//     streaming through the same shared buffer in key chunks.
-// K and V chunks are straight float4 copies (no transposition), prefetched
-// into registers one chunk ahead across the phase boundaries, so global
-// latency hides behind the math. Two instances for the two GE shapes: dh=256
-// (one head; 64 queries x 128 keys, O = 64 registers a thread) and dh=32
-// (eight heads; 128 x 128). q, k, v are taken with their strides, so the
-// packed [B, L, 3E] in-projection is read in place; out is written as
-// [B, L, H, dh], so merging the heads is free.
+// operations (2.2 TFLOP at B=8, L=16384, H*dh=256) against 0.5 GB of q, k,
+// v, out, so it is bound by operations. Both products run on the tensor cores
+// as 3xTF32 mma.sync (flash_common.cuh: float32 accuracy, three TF32
+// products each, 495/3 = 165 TFLOP/s at best instead of float32 FMAs' 67).
+// mma.sync, not wgmma: its fragments sit in registers, so P V needs no
+// K-major transposed copy of P or V in shared memory (wgmma's rule for TF32
+// operands). One block = (bag, head, tile of BR queries), 8 warps; per key
+// tile of BC keys:
+//   * S = (q * scale) K^T: warp w takes 16 query rows and a column group (and,
+//     at width 512, a depth half), writes its scores to shared memory;
+//   * the online softmax, one warp a row (m, l and the rescale factor of each
+//     row in shared memory), P written over the scores;
+//   * O = O * alpha + P V with O in registers: 16 rows x dh / (8 / (BR / 16))
+//     columns a warp.
+// Key tiles without a valid key are skipped when the bag has one (their
+// weights are exactly 0). K and V tiles come in by cp.async, read in place
+// with their strides from the packed [B, L, 3E] in-projection: V of a tile
+// lands while its scores are computed, the next valid K tile while P V runs.
+// out is written as [B, L, H, dh], so merging the heads is free. Instances:
+// dh 16, 32, 64 (128 queries x 64 keys), 128, 256 (64 x 64) and 512 (32 x 32,
+// scores split over two depth halves).
 //
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launch (0 = success); allocates nothing, runs on the caller's stream.
@@ -43,20 +43,13 @@ namespace {
 
 using namespace mpo;
 
-template <int DH, int BQ, int BK, int KC, int VC>
-struct FlashCfg {
-  static constexpr int RPW = BQ / WARPS;               // query rows per warp
-  static constexpr int KPL = BK / 32;                  // keys per lane
-  static constexpr int CPL = DH / 32;                  // output columns per lane
-  static constexpr int QS = BQ + 4;                    // row stride of qt_s and pt_s
-  static constexpr int KS = KC + 4;                    // row stride of a K chunk
-  static constexpr int K_V4 = BK * KC / 4 / THREADS;   // K float4s per thread per chunk
-  static constexpr int V_V4 = VC * DH / 4 / THREADS;   // V float4s per thread per chunk
-  static constexpr int KV_FLOATS = BK * KS > VC * DH ? BK * KS : VC * DH;
-  static constexpr int SMEM_BYTES = 4 * (DH * QS + BK * QS + KV_FLOATS);
-  static_assert(RPW % 4 == 0 && KPL >= 1 && (CPL == 1 || CPL % 4 == 0), "tile shape");
-  static_assert(KC % 4 == 0 && DH % KC == 0 && BK % VC == 0, "chunk shape");
-  static_assert(K_V4 * THREADS * 4 == BK * KC && V_V4 * THREADS * 4 == VC * DH, "chunk copy");
+template <int DH, int BR, int BC, int WK, int NW>
+struct FwdCfg {
+  using T = Tiles<DH, BR, BC, WK, NW>;
+  // q, K, V tiles; WK partial score tiles (slice 0 then holds P); m, l, alpha
+  static constexpr int SMEM_BYTES =
+      4 * (BR * T::XS + 2 * BC * T::XS + WK * BR * T::SS + 3 * BR);
+  static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 };
 
 // q, k, v: element (b, h, i, d) at base + b*sb + h*sh + i*sl + d (strides in
@@ -64,146 +57,157 @@ struct FlashCfg {
 // out [B, L, H, DH] contiguous. m_out, l_out [B, H, L] (each row's running
 // maximum and the sum of exp(s - m) over its keys, what the backward
 // recomputes p from) or both NULL.
-template <int DH, int BQ, int BK, int KC, int VC>
-__global__ void __launch_bounds__(THREADS)
+template <int DH, int BR, int BC, int WK, int NW, int MINB>
+__global__ void __launch_bounds__(32 * NW, MINB)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                  int H, int L, long long q_sb, long long q_sh, long long q_sl, long long k_sb,
                  long long k_sh, long long k_sl, long long v_sb, long long v_sh, long long v_sl,
                  float scale) {
-  using C = FlashCfg<DH, BQ, BK, KC, VC>;
-  constexpr int RPW = C::RPW, KPL = C::KPL, CPL = C::CPL, QS = C::QS, KS = C::KS;
-  constexpr int NKC = DH / KC, NVC = BK / VC;
+  using T = Tiles<DH, BR, BC, WK, NW>;
+  constexpr int XS = T::XS, SS = T::SS, NT = T::NT, NA = T::NA;
   extern __shared__ __align__(16) float smem[];
-  float* qt_s = smem;              // [DH][QS]: q * scale, transposed
-  float* pt_s = qt_s + DH * QS;    // [BK][QS]: p of the key tile, transposed
-  float* kv_s = pt_s + BK * QS;    // a K chunk [BK][KS] or a V chunk [VC][DH]
+  float* q_s = smem;                // [BR][XS]: q * scale
+  float* k_s = q_s + BR * XS;       // [BC][XS]: the key tile
+  float* v_s = k_s + BC * XS;       // [BC][XS]: the value tile
+  float* s_s = v_s + BC * XS;       // [WK][BR][SS]: partial scores; slice 0 then p
+  float* m_s = s_s + WK * BR * SS;  // [BR]: running maximum
+  float* l_s = m_s + BR;            // [BR]: running sum
+  float* a_s = l_s + BR;            // [BR]: this tile's rescale factor
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T tl(warp);
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BR;
   const float* q_b = q + (long long)b * q_sb + (long long)h * q_sh;
   const float* k_b = k + (long long)b * k_sb + (long long)h * k_sh;
   const float* v_b = v + (long long)b * v_sb + (long long)h * v_sh;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
 
-  float4 kreg[C::K_V4], vreg[C::V_V4];
-  load_k<BK, KC>(kreg, k_b, k_sl, 0, 0, L);
-
-  // the block's queries, scaled, transposed (zero rows past L)
-  for (int idx = tid; idx < BQ * DH / 4; idx += THREADS) {
-    const int row = idx / (DH / 4), c = idx % (DH / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + row < L)
-      x = *reinterpret_cast<const float4*>(q_b + (long long)(q0 + row) * q_sl + 4 * c);
-    qt_s[(4 * c + 0) * QS + row] = x.x * scale;
-    qt_s[(4 * c + 1) * QS + row] = x.y * scale;
-    qt_s[(4 * c + 2) * QS + row] = x.z * scale;
-    qt_s[(4 * c + 3) * QS + row] = x.w * scale;
+  const int n_tiles = (L + BC - 1) / BC;
+  const bool skip = mask_b != nullptr && bag_has_valid_key(mask_b, L);
+  int t = next_tile<BC>(mask_b, 0, n_tiles, L, skip);  // < n_tiles: L >= 1
+  load_tile_async<BC, DH, XS>(k_s, k_b, k_sl, t * BC, L);
+  cp_async_commit();
+  load_tile<BR, DH, XS>(q_s, q_b, q_sl, q0, L, scale);
+  for (int i = tid; i < BR; i += 32 * NW) {
+    m_s[i] = -3.0e38f;
+    l_s[i] = 0.f;
   }
 
-  float m_run[RPW], l_run[RPW], o[RPW][CPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = -3.0e38f;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) o[i][j] = 0.f;
-  }
+  const int r0 = 16 * tl.wr;                  // the warp's rows
+  const int n0s = 8 * NT * tl.wn, k0s = T::KD * tl.wk;  // its scores' columns, depths
+  const int n0a = 8 * NA * tl.wc;             // its output columns
+  float o[NA][4];
+  zero_c<NA>(o);
 
-  const int n_tiles = (L + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
+  while (t < n_tiles) {
+    const int c0 = t * BC;
+    load_tile_async<BC, DH, XS>(v_s, v_b, v_sl, c0, L);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // the key tile (and q_s, m_s, l_s the first time) ready
 
-    // ---- S = (q * scale) K^T over the depth chunks ----
-    float s[RPW][KPL];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) s[i][tt] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < NKC; ++c) {
-      store_k<KC, KS>(kreg, kv_s);
-      __syncthreads();  // also orders qt_s (first pass) before its reads
-      if (c + 1 < NKC) load_k<BK, KC>(kreg, k_b, k_sl, k0, (c + 1) * KC, L);
-      else load_v<DH>(vreg, v_b, v_sl, k0, L);
-      dot_chunk<RPW, KPL, KC, KS, QS>(s, qt_s + c * KC * QS, kv_s, warp, lane);
-      __syncthreads();  // kv_s is rewritten by the next chunk
+    // ---- S = (q * scale) K^T ----
+    {
+      float s[NT][4];
+      zero_c<NT>(s);
+      row_product<NT, T::KD, T::GR>(s, q_s, XS, k_s, XS, r0, n0s, k0s, lane);
+      store_c<NT>(s, s_s + tl.wk * BR * SS, SS, r0, n0s, lane);
     }
+    __syncthreads();  // scores complete, k_s free
+    const int tn = next_tile<BC>(mask_b, t + 1, n_tiles, L, skip);
+    if (tn < n_tiles) load_tile_async<BC, DH, XS>(k_s, k_b, k_sl, tn * BC, L);
+    cp_async_commit();
 
-    // ---- key mask, online softmax (warp-local), P -> pt_s ----
-    bool exists[KPL], valid[KPL];
-#pragma unroll
-    for (int tt = 0; tt < KPL; ++tt) {
-      const int key = k0 + lane + 32 * tt;
-      exists[tt] = key < L;
-      valid[tt] = exists[tt] && (mask_b == nullptr || mask_b[key] != 0);
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
+    // ---- key mask, online softmax (one warp a row), P over the scores ----
+    constexpr int CPL = (BC + 31) / 32;
+    for (int i = warp; i < BR; i += NW) {
+      float x[CPL];
       float mx = -INFINITY;
 #pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) {
-        // a key past L does not exist: weight exactly 0
-        const float x = exists[tt] ? (valid[tt] ? s[i][tt] : MASK_NEG) : -INFINITY;
-        s[i][tt] = x;
-        mx = fmaxf(mx, x);
+      for (int u = 0; u < CPL; ++u) {
+        const int c = lane + 32 * u, key = c0 + c;
+        x[u] = -INFINITY;  // a key past L does not exist: weight exactly 0
+        if (c < BC && key < L) {
+          float sum = s_s[i * SS + c];
+#pragma unroll
+          for (int w = 1; w < WK; ++w) sum += s_s[(w * BR + i) * SS + c];
+          x[u] = (mask_b == nullptr || mask_b[key] != 0) ? sum : MASK_NEG;
+        }
+        mx = fmaxf(mx, x[u]);
       }
-      const float m_new = fmaxf(m_run[i], warp_max(mx));  // finite: key k0 exists
-      const float alpha = expf(m_run[i] - m_new);
+      const float m_old = m_s[i];
+      const float m_new = fmaxf(m_old, warp_max(mx));  // finite: key c0 exists
       float ps = 0.f;
 #pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) {
-        const float p = expf(s[i][tt] - m_new);
-        s[i][tt] = p;
+      for (int u = 0; u < CPL; ++u) {
+        const int c = lane + 32 * u;
+        const float p = expf(x[u] - m_new);
         ps += p;
+        if (c < BC) s_s[i * SS + c] = p;
       }
-      l_run[i] = l_run[i] * alpha + warp_sum(ps);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) o[i][j] *= alpha;
+      ps = warp_sum(ps);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[i] = alpha;
+        l_s[i] = l_s[i] * alpha + ps;
+        m_s[i] = m_new;
+      }
     }
-    store_transposed<RPW, KPL, QS>(s, pt_s, warp, lane);
-    // a warp reads back only the rows it wrote: the barrier below orders it
+    cp_async_wait<1>();
+    __syncthreads();  // the value tile ready; p and alpha complete
 
-    // ---- O += P V over the key chunks ----
-#pragma unroll 1
-    for (int c = 0; c < NVC; ++c) {
-      store_v<DH>(vreg, kv_s);
-      __syncthreads();
-      if (c + 1 < NVC) load_v<DH>(vreg, v_b, v_sl, k0 + (c + 1) * VC, L);
-      else if (t + 1 < n_tiles) load_k<BK, KC>(kreg, k_b, k_sl, k0 + BK, 0, L);
-      acc_chunk<RPW, CPL, VC, DH, QS>(o, pt_s + c * VC * QS, kv_s, warp, lane);
-      __syncthreads();  // kv_s (and, after the last chunk, pt_s) is rewritten next
+    // ---- O = O * alpha + P V ----
+    {
+      const int g = lane >> 2;
+      const float a0 = a_s[r0 + g], a1 = a_s[r0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        o[j][0] *= a0;
+        o[j][1] *= a0;
+        o[j][2] *= a1;
+        o[j][3] *= a1;
+      }
     }
+    acc_product<NA, BC, T::GA>(o, s_s, SS, v_s, XS, r0, n0a, lane);
+    __syncthreads();  // v_s and s_s are rewritten by the next tile
+    t = tn;
   }
+  cp_async_wait<0>();
 
   // ---- out[b, row, h, :] = o / l; m and l [B, H, L] where asked for ----
+  const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = q0 + warp * RPW + i;
+  for (int half = 0; half < 2; ++half) {
+    const int i = r0 + g + 8 * half, row = q0 + i;
     if (row < L) {
-      const float inv = l_run[i] == 0.f ? 1.f : 1.f / l_run[i];
-      store_row<CPL>(o[i], inv, out + (((size_t)b * L + row) * H + h) * DH, lane);
-      if (m_out != nullptr && lane == 0) {  // the backward's softmax statistics
-        m_out[((size_t)b * H + h) * L + row] = m_run[i];
-        l_out[((size_t)b * H + h) * L + row] = l_run[i];
-      }
+      const float l = l_s[i], inv = l == 0.f ? 1.f : 1.f / l;
+      float* orow = out + (((size_t)b * L + row) * H + h) * DH + n0a + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
     }
   }
+  if (m_out != nullptr)  // the backward's softmax statistics
+    for (int i = tid; i < BR && q0 + i < L; i += 32 * NW) {
+      m_out[((size_t)b * H + h) * L + q0 + i] = m_s[i];
+      l_out[((size_t)b * H + h) * L + q0 + i] = l_s[i];
+    }
 }
 
-template <int DH, int BQ, int BK, int KC, int VC>
+template <int DH, int BR, int BC, int WK, int NW, int MINB>
 int launch_flash(const float* q, const float* k, const float* v, const uint8_t* mask,
                  float* out, float* m_out, float* l_out, int B, int H, int L,
                  const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem = FlashCfg<DH, BQ, BK, KC, VC>::SMEM_BYTES;
+  constexpr int smem = FwdCfg<DH, BR, BC, WK, NW>::SMEM_BYTES;
   static bool smem_allowed[64] = {};
-  const int err = allow_dynamic_smem(flash_fwd_kernel<DH, BQ, BK, KC, VC>, smem, smem_allowed);
+  const int err = allow_dynamic_smem(flash_fwd_kernel<DH, BR, BC, WK, NW, MINB>, smem, smem_allowed);
   if (err) return err;
-  const dim3 grid((L + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DH, BQ, BK, KC, VC><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((L + BR - 1) / BR, B * H);
+  flash_fwd_kernel<DH, BR, BC, WK, NW, MINB><<<grid, 32 * NW, smem, stream>>>(
       q, k, v, mask, out, m_out, l_out, H, L, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale);
   return (int)cudaGetLastError();
@@ -216,7 +220,7 @@ extern "C" {
 // q, k, v: [B, H, L, DH] views with unit stride on DH; strides (batch, head,
 // position) in floats, each a multiple of 4, bases 16-byte aligned. mask
 // [B, L] bool or NULL. Out: [B, L, H, DH] contiguous; m_out and l_out [B, H, L]
-// contiguous, or both NULL. DH in {256, 32}; B * H <= 65535.
+// contiguous, or both NULL. DH in {16, 32, 64, 128, 256, 512}; B * H <= 65535.
 int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* mask,
                   float* out, float* m_out, float* l_out, int B, int H, int L, int DH,
                   long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
@@ -227,14 +231,22 @@ int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t*
   const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
   for (int i = 0; i < 9; ++i)
     if (st[i] % 4 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  if (DH == 256)
-    return launch_flash<256, 64, 128, 16, 16>(q, k, v, mask, out, m_out, l_out, B, H, L, st, scale,
-                                              stream_);
-  if (DH == 32)
-    return launch_flash<32, 128, 128, 32, 128>(q, k, v, mask, out, m_out, l_out, B, H, L, st,
-                                               scale, stream_);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // (width, queries a block, keys a tile, depth slices of the scores, warps
+  // a block, blocks an SM: two where the shared memory allows, which caps
+  // registers at 128)
+#define MPO_FWD(D, BR, BC, WK, NW, MINB) \
+  launch_flash<D, BR, BC, WK, NW, MINB>(q, k, v, mask, out, m_out, l_out, B, H, L, st, scale, s)
+  switch (DH) {
+    case 16: return MPO_FWD(16, 128, 64, 1, 8, 2);
+    case 32: return MPO_FWD(32, 128, 64, 1, 8, 2);
+    case 64: return MPO_FWD(64, 128, 64, 1, 8, 2);
+    case 128: return MPO_FWD(128, 64, 64, 1, 8, 1);
+    case 256: return MPO_FWD(256, 64, 64, 1, 8, 1);
+    case 512: return MPO_FWD(512, 32, 32, 2, 8, 1);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MPO_FWD
 }
 
 }  // extern "C"

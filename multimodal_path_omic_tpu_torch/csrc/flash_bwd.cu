@@ -15,29 +15,34 @@
 // it feeds dv there, but never dq or dk. Pad query rows are computed like any
 // other row.
 //
-// What bounds it on an H100, and what the design does about it: float32
-// FMAs, as the forward. dq sums over key tiles and dk, dv over query tiles;
-// to stay bitwise repeatable without atomics and without L/tile partial
-// copies of dq there are two passes of one kernel template, each block
-// holding its sums in registers for its whole life:
+// What bounds it on an H100, and what the design does about it: operations.
+// Every product runs on the tensor cores as 3xTF32 mma.sync at float32
+// accuracy (flash_common.cuh). dq sums over key tiles and dk, dv over query
+// tiles; to stay bitwise repeatable without atomics and without L / tile
+// partial copies of dq there are two passes of one kernel template, each
+// block holding its sums in registers for its whole life:
 //   * dq pass  (DKV = false): a block owns a tile of queries (rows) and walks
-//     the key tiles (columns): S and dP, then dq += ds K. 3 products.
+//     the key tiles (columns): dP = dout V^T, S = (q * scale) K^T, then
+//     dq += ds K. 3 products. Key tiles without a valid key are skipped when
+//     the bag has one (ds is 0 there).
 //   * dkv pass (DKV = true): a block owns a tile of keys (rows) and walks the
-//     query tiles (columns), everything transposed: S^T = (k * scale) q^T and
-//     dP^T = v dout^T, then dv += p^T dout and dk += ds^T q. 4 products.
-// That is 7 products where 5 are necessary (14*B*H*L^2*dh operations: 7.7
-// TFLOP at B=8, L=16384, H*dh=256, 115 ms at 67 TFLOP/s). A small first
-// kernel writes delta. Per column tile a pass runs the forward's two
-// register-tiled SIMT products (flash_common.cuh): the row side (q * scale
-// and dout, or k * scale and v) sits transposed in shared memory for the
-// block's life, the column side streams through shared memory in chunks
-// prefetched into registers one chunk ahead, p and ds go through shared
-// memory transposed. With two accumulators of dh = 256 columns a thread, the
-// dkv pass owns 32 keys a block (4 rows a warp: 64 accumulator registers)
-// where the dq pass owns 64 queries. All operands are taken with their
-// strides: q, k, v are read in place from the packed [B, L, 3E]
-// in-projection, and dq, dk, dv are written into one packed buffer, so the
-// in-projection's backward is one product.
+//     query tiles (columns), everything transposed: dP^T = v dout^T,
+//     S^T = (k * scale) q^T, then dv += p^T dout and dk += ds^T q. 4
+//     products. A block whose keys are all masked, in a bag with a valid key,
+//     writes dk = dv = 0 and returns (its p underflows to exactly 0).
+// 7 products where 5 are necessary: fusing the passes would need dq partials
+// per key tile, or atomics. A small first kernel writes delta. The row side
+// (q * scale and dout, or k * scale and v) sits in shared memory for the
+// block's life; the column side comes in tile by tile by cp.async, each tile
+// landing while a product that does not read it runs; scores and dP go
+// through shared memory as partial tiles (summed in a fixed order at width
+// 512, whose score products split the depth over four warps), p and ds with
+// them. Instances: dh 16, 32 (128 rows x 32 columns), 64 (64 x 64), 128
+// (64 x 64), 256 (64 x 32: the dkv pass owns 64 keys, its two sums 128
+// registers a thread) and 512 (32 x 16, the scores over four depth slices).
+// All operands are taken with their strides: q, k, v are read in place from
+// the packed [B, L, 3E] in-projection, and dq, dk, dv are written into one
+// packed buffer, so the in-projection's backward is one product.
 //
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing, runs on the caller's stream.
@@ -48,22 +53,13 @@ namespace {
 
 using namespace mpo;
 
-template <int DH, int R, int C, int KC, int VC, bool DKV>
+template <int DH, int BR, int BC, int WK, int NW>
 struct BwdCfg {
-  static constexpr int RPW = R / WARPS;                // rows per warp
-  static constexpr int KPL = C / 32;                   // columns per lane
-  static constexpr int CPL = DH / 32;                  // output columns per lane
-  static constexpr int RS = R + 4;                     // row stride of the transposed tiles
-  static constexpr int KS = KC + 4;                    // row stride of a depth chunk
-  static constexpr int K_V4 = C * KC / 4 / THREADS;    // float4s per thread per depth chunk
-  static constexpr int V_V4 = VC * DH / 4 / THREADS;   // float4s per thread per row chunk
-  static constexpr int KV_FLOATS = C * KS > VC * DH ? C * KS : VC * DH;
-  static constexpr int NP = DKV ? 2 : 1;               // ds, and p beside it for dv
-  static constexpr int ST = DKV ? C : R;               // queries whose statistics are held
-  static constexpr int SMEM_BYTES = 4 * (2 * DH * RS + NP * C * RS + KV_FLOATS + 3 * ST);
-  static_assert(RPW % 4 == 0 && KPL >= 1 && (CPL == 1 || CPL % 4 == 0), "tile shape");
-  static_assert(KC % 4 == 0 && DH % KC == 0 && C % VC == 0, "chunk shape");
-  static_assert(K_V4 * THREADS * 4 == C * KC && V_V4 * THREADS * 4 == VC * DH, "chunk copy");
+  using T = Tiles<DH, BR, BC, WK, NW>;
+  // x1, x2 (rows), y1, y2 (columns); WK partial tiles each of s (then p) and
+  // dp (then ds); m, 1/l, delta of the queries (rows or columns)
+  static constexpr int SMEM_BYTES =
+      4 * (2 * BR * T::XS + 2 * BC * T::XS + 2 * WK * BR * T::SS + 3 * (BR > BC ? BR : BC));
   static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 };
 
@@ -92,7 +88,7 @@ struct BwdArgs {
 template <int ST>
 __device__ __forceinline__ void load_stats(float* __restrict__ st_s, const BwdArgs& a,
                                            size_t stat_b, int first, int n) {
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
     const bool ok = first + idx < a.L;
     st_s[idx] = ok ? a.m[stat_b + first + idx] : 0.f;
     st_s[ST + idx] = ok ? 1.f / a.l[stat_b + first + idx] : 1.f;
@@ -100,186 +96,157 @@ __device__ __forceinline__ void load_stats(float* __restrict__ st_s, const BwdAr
   }
 }
 
-template <int DH, int R, int C, int KC, int VC, bool DKV>
-__global__ void __launch_bounds__(THREADS) flash_bwd_kernel(const BwdArgs a) {
-  using Cf = BwdCfg<DH, R, C, KC, VC, DKV>;
-  constexpr int RPW = Cf::RPW, KPL = Cf::KPL, CPL = Cf::CPL, RS = Cf::RS, KS = Cf::KS;
-  constexpr int ST = Cf::ST, NKC = DH / KC, NVC = C / VC;
+// The warp's sums (rows r0 .. r0+15 of the block, columns n0 ..) times
+// `scale`, to rows < L of an output operand.
+template <int NA>
+__device__ __forceinline__ void store_rows(const float (&acc)[NA][4], float scale,
+                                           const Operand& out, int b, int h, int row0, int n0,
+                                           int L, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= L) continue;
+    float* p = const_cast<float*>(out.p) + (long long)b * out.sb + (long long)h * out.sh +
+               (long long)row * out.sl + n0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+      *reinterpret_cast<float2*>(p + 8 * j) =
+          make_float2(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+  }
+}
+
+template <int DH, int BR, int BC, int WK, int NW, int MINB, bool DKV>
+__global__ void __launch_bounds__(32 * NW, MINB) flash_bwd_kernel(const BwdArgs a) {
+  using T = Tiles<DH, BR, BC, WK, NW>;
+  constexpr int XS = T::XS, SS = T::SS, NT = T::NT, NA = T::NA, ST = BR > BC ? BR : BC;
+  // the dkv pass holds two sums: at 16 column tiles each, two in flight (registers)
+  constexpr int GA = DKV && NA >= 16 ? 2 : T::GA;
   extern __shared__ __align__(16) float smem[];
-  float* x1t_s = smem;                       // [DH][RS]: x1 * scale, transposed
-  float* x2t_s = x1t_s + DH * RS;            // [DH][RS]: x2, transposed
-  float* ds_s = x2t_s + DH * RS;             // [C][RS]: ds of the column tile, transposed
-  float* p_s = DKV ? ds_s + C * RS : ds_s;   // [C][RS]: p (dq pass: overwritten by ds)
-  float* kv_s = ds_s + Cf::NP * C * RS;      // a depth chunk [C][KS] or a row chunk [VC][DH]
-  float* st_s = kv_s + Cf::KV_FLOATS;        // [3][ST]: m, 1/l, delta of the queries
+  float* x1_s = smem;                   // [BR][XS]: x1 * scale
+  float* x2_s = x1_s + BR * XS;         // [BR][XS]: x2
+  float* y1_s = x2_s + BR * XS;         // [BC][XS]: the column tile of y1
+  float* y2_s = y1_s + BC * XS;         // [BC][XS]: the column tile of y2
+  float* s_s = y2_s + BC * XS;          // [WK][BR][SS]: partial s; slice 0 then p
+  float* d_s = s_s + WK * BR * SS;      // [WK][BR][SS]: partial dp; slice 0 then ds
+  float* st_s = d_s + WK * BR * SS;     // [3][ST]: m, 1/l, delta of the queries
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T tl(warp);
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int r0 = blockIdx.x * R, L = a.L;
+  const int rb = blockIdx.x * BR, L = a.L;
   const float* x1_b = a.x1.p + (long long)b * a.x1.sb + (long long)h * a.x1.sh;
   const float* x2_b = a.x2.p + (long long)b * a.x2.sb + (long long)h * a.x2.sh;
   const float* y1_b = a.y1.p + (long long)b * a.y1.sb + (long long)h * a.y1.sh;
   const float* y2_b = a.y2.p + (long long)b * a.y2.sb + (long long)h * a.y2.sh;
-  const long long y1_sl = a.y1.sl, y2_sl = a.y2.sl;
   const uint8_t* mask_b = a.mask == nullptr ? nullptr : a.mask + (size_t)b * L;
   const size_t stat_b = ((size_t)b * a.H + h) * L;
 
-  float4 kreg[Cf::K_V4], vreg[Cf::V_V4];
-  load_k<C, KC>(kreg, y1_b, y1_sl, 0, 0, L);
+  const int r0 = 16 * tl.wr;                             // the warp's rows
+  const int n0s = 8 * NT * tl.wn, k0s = T::KD * tl.wk;  // its scores' columns, depths
+  const int n0a = 8 * NA * tl.wc;                        // its sums' columns
+  float acc1[NA][4], acc2[DKV ? NA : 1][4];
+  zero_c<NA>(acc1);
+  zero_c<DKV ? NA : 1>(acc2);
 
-  // the block's rows, transposed (zero rows past L)
-  for (int idx = tid; idx < R * DH / 4; idx += THREADS) {
-    const int row = idx / (DH / 4), c = idx % (DH / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-    if (r0 + row < L) {
-      x = *reinterpret_cast<const float4*>(x1_b + (long long)(r0 + row) * a.x1.sl + 4 * c);
-      y = *reinterpret_cast<const float4*>(x2_b + (long long)(r0 + row) * a.x2.sl + 4 * c);
+  const int n_tiles = (L + BC - 1) / BC;
+  const bool skip = mask_b != nullptr && bag_has_valid_key(mask_b, L);
+  if constexpr (DKV) {
+    // keys all masked in a bag with a valid key: dk = dv = 0
+    if (skip && !__syncthreads_or(tid < BR && rb + tid < L && mask_b[rb + tid] != 0)) {
+      store_rows<NA>(acc1, 1.f, a.out1, b, h, rb + r0, n0a, L, lane);
+      store_rows<NA>(acc1, 1.f, a.out2, b, h, rb + r0, n0a, L, lane);
+      return;
     }
-    x1t_s[(4 * c + 0) * RS + row] = x.x * a.scale;
-    x1t_s[(4 * c + 1) * RS + row] = x.y * a.scale;
-    x1t_s[(4 * c + 2) * RS + row] = x.z * a.scale;
-    x1t_s[(4 * c + 3) * RS + row] = x.w * a.scale;
-    x2t_s[(4 * c + 0) * RS + row] = y.x;
-    x2t_s[(4 * c + 1) * RS + row] = y.y;
-    x2t_s[(4 * c + 2) * RS + row] = y.z;
-    x2t_s[(4 * c + 3) * RS + row] = y.w;
   }
-  if constexpr (!DKV) load_stats<ST>(st_s, a, stat_b, r0, R);  // the rows are the queries
+  // the dq pass skips key tiles without a valid key; the dkv pass walks every
+  // query tile
+  int t = next_tile<BC>(mask_b, 0, n_tiles, L, !DKV && skip);
+  load_tile_async<BC, DH, XS>(y2_s, y2_b, a.y2.sl, t * BC, L);
+  cp_async_commit();
+  load_tile_async<BC, DH, XS>(y1_s, y1_b, a.y1.sl, t * BC, L);
+  cp_async_commit();
+  load_tile<BR, DH, XS>(x1_s, x1_b, a.x1.sl, rb, L, a.scale);
+  load_tile<BR, DH, XS>(x2_s, x2_b, a.x2.sl, rb, L, 1.f);
+  if constexpr (!DKV) load_stats<ST>(st_s, a, stat_b, rb, BR);  // the rows are the queries
 
-  // dkv pass: the rows are the keys, valid or masked (a row past L: masked)
-  bool rvalid[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int key = r0 + warp * RPW + i;
-    rvalid[i] = DKV && key < L && (mask_b == nullptr || mask_b[key] != 0);
-  }
+  while (t < n_tiles) {
+    const int c0 = t * BC;
+    // the columns are the queries: this tile's statistics (the previous
+    // tile's reads of st_s ended before its last barriers)
+    if constexpr (DKV) load_stats<ST>(st_s, a, stat_b, c0, BC);
+    cp_async_wait<1>();
+    __syncthreads();  // the y2 tile ready (and the rows, statistics)
 
-  float acc1[RPW][CPL], acc2[DKV ? RPW : 1][CPL];
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc1[i][j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < (DKV ? RPW : 1); ++i) acc2[i][j] = 0.f;
-  }
-
-  const int n_tiles = (L + C - 1) / C;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * C;
-    // the columns are the queries: this tile's statistics (the barriers of
-    // the first product order the writes before their reads)
-    if constexpr (DKV) load_stats<ST>(st_s, a, stat_b, c0, C);
-
-    // ---- S = (x1 * scale) y1^T over the depth chunks ----
-    float s[RPW][KPL];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) s[i][tt] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < NKC; ++c) {
-      store_k<KC, KS>(kreg, kv_s);
-      __syncthreads();  // also orders x1t_s, x2t_s, st_s before their reads
-      if (c + 1 < NKC) load_k<C, KC>(kreg, y1_b, y1_sl, c0, (c + 1) * KC, L);
-      else load_k<C, KC>(kreg, y2_b, y2_sl, c0, 0, L);
-      dot_chunk<RPW, KPL, KC, KS, RS>(s, x1t_s + c * KC * RS, kv_s, warp, lane);
-      __syncthreads();  // kv_s is rewritten by the next chunk
+    // ---- dP = x2 y2^T ----
+    {
+      float s[NT][4];
+      zero_c<NT>(s);
+      row_product<NT, T::KD, T::GR>(s, x2_s, XS, y2_s, XS, r0, n0s, k0s, lane);
+      store_c<NT>(s, d_s + tl.wk * BR * SS, SS, r0, n0s, lane);
     }
-
-    // ---- p = exp(s - m) / l with the forward's fill at masked keys ----
-    bool cexists[KPL], kvalid[KPL];  // kvalid: dq pass, the columns are the keys
-#pragma unroll
-    for (int tt = 0; tt < KPL; ++tt) {
-      const int col = c0 + lane + 32 * tt;
-      cexists[tt] = col < L;
-      kvalid[tt] = !DKV && cexists[tt] && (mask_b == nullptr || mask_b[col] != 0);
+    int tn = t + 1;
+    if constexpr (!DKV) {
+      __syncthreads();  // y2_s free: the next valid tile's values come in
+      tn = next_tile<BC>(mask_b, t + 1, n_tiles, L, skip);
+      if (tn < n_tiles) load_tile_async<BC, DH, XS>(y2_s, y2_b, a.y2.sl, tn * BC, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // the y1 tile ready
+
+    // ---- S = (x1 * scale) y1^T ----
+    {
+      float s[NT][4];
+      zero_c<NT>(s);
+      row_product<NT, T::KD, T::GR>(s, x1_s, XS, y1_s, XS, r0, n0s, k0s, lane);
+      store_c<NT>(s, s_s + tl.wk * BR * SS, SS, r0, n0s, lane);
+    }
+    __syncthreads();  // s and dp complete
+
+    // ---- p = exp(s - m) / l with the forward's fill; ds = p (dp - delta),
+    // 0 at masked keys ----
+    for (int idx = tid; idx < BR * BC; idx += 32 * NW) {
+      const int i = idx / BC, c = idx % BC, col = c0 + c;
+      float s = s_s[i * SS + c], dp = d_s[i * SS + c];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) {
-        const int qi = DKV ? lane + 32 * tt : warp * RPW + i;  // the query's slot in st_s
-        const bool valid = DKV ? rvalid[i] : kvalid[tt];
-        const float x = valid ? s[i][tt] : MASK_NEG;
-        // a column past L does not exist: weight exactly 0
-        s[i][tt] = cexists[tt] ? expf(x - st_s[qi]) * st_s[ST + qi] : 0.f;
+      for (int w = 1; w < WK; ++w) {
+        s += s_s[(w * BR + i) * SS + c];
+        dp += d_s[(w * BR + i) * SS + c];
       }
-    store_transposed<RPW, KPL, RS>(s, p_s, warp, lane);
-
-    // ---- dP = x2 y2^T over the depth chunks ----
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int tt = 0; tt < KPL; ++tt) s[i][tt] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < NKC; ++c) {
-      store_k<KC, KS>(kreg, kv_s);
-      __syncthreads();
-      if (c + 1 < NKC) load_k<C, KC>(kreg, y2_b, y2_sl, c0, (c + 1) * KC, L);
-      else if constexpr (DKV) load_v<DH>(vreg, y2_b, y2_sl, c0, L);
-      else load_v<DH>(vreg, y1_b, y1_sl, c0, L);
-      dot_chunk<RPW, KPL, KC, KS, RS>(s, x2t_s + c * KC * RS, kv_s, warp, lane);
-      __syncthreads();
-    }
-
-    // ---- ds = p * (dP - delta), 0 at masked keys; a thread reads back the p
-    // it wrote itself ----
-#pragma unroll
-    for (int tt = 0; tt < KPL; ++tt)
-#pragma unroll
-      for (int g = 0; g < RPW / 4; ++g) {
-        const int at = (lane + 32 * tt) * RS + warp * RPW + 4 * g;
-        const float4 p4 = *reinterpret_cast<const float4*>(&p_s[at]);
-        float d[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = 4 * g + u;
-          const int qi = DKV ? lane + 32 * tt : warp * RPW + i;
-          const bool valid = DKV ? rvalid[i] : kvalid[tt];
-          d[u] = valid ? comp(p4, u) * (s[i][tt] - st_s[2 * ST + qi]) : 0.f;
-        }
-        *reinterpret_cast<float4*>(&ds_s[at]) = make_float4(d[0], d[1], d[2], d[3]);
+      const int key = DKV ? rb + i : col, qi = DKV ? c : i;  // qi: the query's slot in st_s
+      const bool valid = key < L && (mask_b == nullptr || mask_b[key] != 0);
+      float p = 0.f, ds = 0.f;
+      if (col < L) {  // a column past L does not exist: weight exactly 0
+        p = expf((valid ? s : MASK_NEG) - st_s[qi]) * st_s[ST + qi];
+        ds = valid ? p * (dp - st_s[2 * ST + qi]) : 0.f;
       }
-    // a warp reads back only the rows it wrote: the barrier below orders it
+      s_s[i * SS + c] = p;
+      d_s[i * SS + c] = ds;
+    }
+    __syncthreads();  // p and ds complete
 
-    // ---- dkv pass: dv += p^T dout over the row chunks of dout ----
+    // ---- dkv pass: dv += p^T dout ----
     if constexpr (DKV) {
-#pragma unroll 1
-      for (int c = 0; c < NVC; ++c) {
-        store_v<DH>(vreg, kv_s);
-        __syncthreads();
-        if (c + 1 < NVC) load_v<DH>(vreg, y2_b, y2_sl, c0 + (c + 1) * VC, L);
-        else load_v<DH>(vreg, y1_b, y1_sl, c0, L);
-        acc_chunk<RPW, CPL, VC, DH, RS>(acc2, p_s + c * VC * RS, kv_s, warp, lane);
-        __syncthreads();
-      }
+      acc_product<NA, BC, GA>(acc2, s_s, SS, y2_s, XS, r0, n0a, lane);
+      __syncthreads();  // y2_s free: the next query tile's dout comes in
+      if (tn < n_tiles) load_tile_async<BC, DH, XS>(y2_s, y2_b, a.y2.sl, tn * BC, L);
+      cp_async_commit();
     }
 
-    // ---- dq += ds k, or dk += ds^T q, over the row chunks of y1 ----
-#pragma unroll 1
-    for (int c = 0; c < NVC; ++c) {
-      store_v<DH>(vreg, kv_s);
-      __syncthreads();
-      if (c + 1 < NVC) load_v<DH>(vreg, y1_b, y1_sl, c0 + (c + 1) * VC, L);
-      else if (t + 1 < n_tiles) load_k<C, KC>(kreg, y1_b, y1_sl, c0 + C, 0, L);
-      acc_chunk<RPW, CPL, VC, DH, RS>(acc1, ds_s + c * VC * RS, kv_s, warp, lane);
-      __syncthreads();  // kv_s, p_s, ds_s and st_s are rewritten by the next tile
-    }
+    // ---- dq += ds k, or dk += ds^T q ----
+    acc_product<NA, BC, GA>(acc1, d_s, SS, y1_s, XS, r0, n0a, lane);
+    __syncthreads();  // y1_s, s_s, d_s and st_s are rewritten by the next tile
+    if (tn < n_tiles) load_tile_async<BC, DH, XS>(y1_s, y1_b, a.y1.sl, tn * BC, L);
+    cp_async_commit();
+    t = tn;
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = r0 + warp * RPW + i;
-    if (row < L) {
-      store_row<CPL>(acc1[i], a.scale, const_cast<float*>(a.out1.p) + (long long)b * a.out1.sb +
-                                           (long long)h * a.out1.sh + (long long)row * a.out1.sl,
-                     lane);
-      if constexpr (DKV)
-        store_row<CPL>(acc2[i], 1.f, const_cast<float*>(a.out2.p) + (long long)b * a.out2.sb +
-                                         (long long)h * a.out2.sh + (long long)row * a.out2.sl,
-                       lane);
-    }
-  }
+  store_rows<NA>(acc1, a.scale, a.out1, b, h, rb + r0, n0a, L, lane);
+  if constexpr (DKV) store_rows<NA>(acc2, 1.f, a.out2, b, h, rb + r0, n0a, L, lane);
 }
 
 // delta[b, h, i] = sum_d dout[b, h, i, d] * out[b, i, h, d]: one warp a row.
@@ -300,20 +267,21 @@ flash_bwd_delta_kernel(const Operand dout, const float* __restrict__ out,
   if (lane == 0) delta[row] = sum;
 }
 
-template <int DH, int R, int C, int KC, int VC, bool DKV>
+template <int DH, int BR, int BC, int WK, int NW, int MINB, bool DKV>
 int launch_pass(const BwdArgs& args, int B, cudaStream_t stream) {
-  constexpr int smem = BwdCfg<DH, R, C, KC, VC, DKV>::SMEM_BYTES;
+  constexpr int smem = BwdCfg<DH, BR, BC, WK, NW>::SMEM_BYTES;
   static bool smem_allowed[64] = {};
-  const int err = allow_dynamic_smem(flash_bwd_kernel<DH, R, C, KC, VC, DKV>, smem, smem_allowed);
+  const int err = allow_dynamic_smem(flash_bwd_kernel<DH, BR, BC, WK, NW, MINB, DKV>, smem, smem_allowed);
   if (err) return err;
-  const dim3 grid((args.L + R - 1) / R, B * args.H);
-  flash_bwd_kernel<DH, R, C, KC, VC, DKV><<<grid, THREADS, smem, stream>>>(args);
+  const dim3 grid((args.L + BR - 1) / BR, B * args.H);
+  flash_bwd_kernel<DH, BR, BC, WK, NW, MINB, DKV><<<grid, 32 * NW, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-// The three launches of one backward: delta, the dq pass, the dkv pass.
-// RQ: queries a block of the dq pass owns; RK: keys a block of the dkv pass owns.
-template <int DH, int RQ, int RK, int C, int KC, int VC>
+// The three launches of one backward: delta, the dq pass, the dkv pass (both
+// passes with the same tile shape: BR rows a block, BC columns a step, WK
+// depth slices of the score products, NW warps a block, MINB blocks an SM).
+template <int DH, int BR, int BC, int WK, int NW, int MINB>
 int launch_bwd(const Operand& q, const Operand& k, const Operand& v, const Operand& dout,
                const uint8_t* mask, const float* out, const float* m, const float* l,
                float* delta, const Operand& dq, const Operand& dk, const Operand& dv, int B,
@@ -324,10 +292,10 @@ int launch_bwd(const Operand& q, const Operand& k, const Operand& v, const Opera
   int err = (int)cudaGetLastError();
   if (err) return err;
   const BwdArgs dq_pass = {q, dout, k, v, mask, m, l, delta, dq, dq, H, L, scale};
-  err = launch_pass<DH, RQ, C, KC, VC, false>(dq_pass, B, stream);
+  err = launch_pass<DH, BR, BC, WK, NW, MINB, false>(dq_pass, B, stream);
   if (err) return err;
   const BwdArgs dkv_pass = {k, v, q, dout, mask, m, l, delta, dk, dv, H, L, scale};
-  return launch_pass<DH, RK, C, KC, VC, true>(dkv_pass, B, stream);
+  return launch_pass<DH, BR, BC, WK, NW, MINB, true>(dkv_pass, B, stream);
 }
 
 }  // namespace
@@ -338,8 +306,8 @@ extern "C" {
 // stride on DH; st holds their (batch, head, position) strides in floats, in
 // that order (21 values), each a multiple of 4; bases 16-byte aligned. mask
 // [B, L] bool or NULL. out [B, L, H, DH] and m, l, delta [B, H, L] contiguous;
-// delta is scratch the call fills. DH in {256, 32}; B * H <= 65535;
-// B * H * L / 8 < 2^31.
+// delta is scratch the call fills. DH in {16, 32, 64, 128, 256, 512};
+// B * H <= 65535; B * H * L / 8 < 2^31.
 int mpo_flash_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
                   const float* out, const float* m, const float* l, const float* dout,
                   float* delta, float* dq, float* dk, float* dv, int B, int H, int L, int DH,
@@ -352,14 +320,24 @@ int mpo_flash_bwd(const float* q, const float* k, const float* v, const uint8_t*
   const Operand v_ = {v, st[6], st[7], st[8]}, dout_ = {dout, st[9], st[10], st[11]};
   const Operand dq_ = {dq, st[12], st[13], st[14]}, dk_ = {dk, st[15], st[16], st[17]};
   const Operand dv_ = {dv, st[18], st[19], st[20]};
-  cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  if (DH == 256)
-    return launch_bwd<256, 64, 32, 128, 16, 16>(q_, k_, v_, dout_, mask, out, m, l, delta, dq_,
-                                                 dk_, dv_, B, H, L, scale, stream_);
-  if (DH == 32)
-    return launch_bwd<32, 128, 128, 128, 32, 128>(q_, k_, v_, dout_, mask, out, m, l, delta, dq_,
-                                                  dk_, dv_, B, H, L, scale, stream_);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // (width, rows a block, columns a step, depth slices of the scores, warps a
+  // block, blocks an SM: two where the shared memory allows, which caps
+  // registers at 128). Chosen on the card among 8 and 16 warps, one and two
+  // blocks an SM, and 16 to 128 rows by 16 to 64 columns.
+#define MPO_BWD(D, BR, BC, WK, NW, MINB)                                                        \
+  launch_bwd<D, BR, BC, WK, NW, MINB>(q_, k_, v_, dout_, mask, out, m, l, delta, dq_, dk_, dv_, \
+                                      B, H, L, scale, s)
+  switch (DH) {
+    case 16: return MPO_BWD(16, 128, 32, 1, 8, 2);
+    case 32: return MPO_BWD(32, 128, 32, 1, 8, 2);
+    case 64: return MPO_BWD(64, 64, 64, 1, 8, 2);
+    case 128: return MPO_BWD(128, 64, 64, 1, 8, 1);
+    case 256: return MPO_BWD(256, 64, 32, 1, 8, 1);
+    case 512: return MPO_BWD(512, 32, 16, 4, 8, 1);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MPO_BWD
 }
 
 }  // extern "C"

@@ -19,12 +19,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.coattn import (
-    MAX_QUERIES,
     attention_with_weights,
     fused_attention,
     fused_attention_leank,
+    fused_k_supports,
+    leank_train_form,
+    plain_k_supports,
 )
 from multimodal_path_omic_tpu_torch.ops.flash import flash_attention
+from multimodal_path_omic_tpu_torch.ops.flash import supports as flash_supports
 from multimodal_path_omic_tpu_torch.ops.layers import (
     TorchLinear,
     dropout,
@@ -124,13 +127,15 @@ class MultiheadAttention(nn.Module):
     * lean (one head, few-query cross-attention without the pre-gate, key is
       value: MCAT): :func:`lean_single_head_cross_attention`, plain PyTorch,
       no kernel; serves every ``need_weights``;
-    * lean-V (one head, pre-gated cross-attention, weights not requested):
-      the K projection happens in the fuse-K kernel, the V projection is
-      reassociated onto the pooled rows: out = (w.kv) @ wv + bv * sum(w);
-      in training the kernels' training form (dropout, ssq, backward);
+    * lean-V (one head, pre-gated cross-attention, weights not requested,
+      a shape :func:`fused_k_supports` admits): the K projection happens in
+      the fuse-K kernel, the V projection is reassociated onto the pooled
+      rows: out = (w.kv) @ wv + bv * sum(w); in training the kernels'
+      training form (dropout, ssq, backward);
     * tiny: few-token attention without weights (branch transformers);
-    * fused (cross-attention of at most 8 queries over more than 32 keys,
-      weights not requested, or "ssq" with one head): k and v are projected
+    * fused (cross-attention over more than 32 keys of a shape
+      :func:`plain_k_supports` admits, weights not requested, or "ssq" with
+      one head): k and v are projected
       over the patch axis and :func:`fused_attention` runs the plain-K
       kernels with values, forward and backward, in eval and in training
       (dropout in-kernel). Reached when the lean routes do not apply
@@ -143,10 +148,15 @@ class MultiheadAttention(nn.Module):
       taken from 4096 positions up, and the attention-probability dropout
       site is dropped there (a dropout mask over L x L weights cannot be
       materialized; every other dropout site of the layer remains), as in the
-      JAX module; below that, active dropout keeps :func:`attention_core`;
+      JAX module; below that, active dropout keeps :func:`attention_core`.
+      A head width ``flash.supports`` refuses takes :func:`attention_core`
+      without dropout in this branch (JAX: ``_xla_fused``);
     * export (weights requested, cross-attention, no dropout): two-pass
       weights emission;
-    * otherwise :func:`attention_core`.
+    * otherwise :func:`attention_core`, also for every shape a kernel's
+      predicate refuses (the JAX dispatchers' ``_xla_fused`` /
+      ``attention_core`` fallback): the route is decided by shape alone, on
+      the CPU and on the card alike.
 
     ``need_weights``: True returns the [B, N, M] weights, False None, and
     "ssq" the per-query sum of squares of the final weights [B, N] (the
@@ -185,10 +195,16 @@ class MultiheadAttention(nn.Module):
         e, heads = self.embed_dim, self.num_heads
         rate = self.dropout_rate if self.training else 0.0
         self_attn = query is key
+        n, m_len = query.shape[1], key.shape[1]
         lean_shape = (self.lean and heads == 1 and not self_attn and key is value
-                      and query.shape[1] <= 32 and key.shape[1] > 32)
+                      and n <= 32 and m_len > 32)
         lean = lean_shape and not self.pre_gate
-        lean_v = lean_shape and self.pre_gate and need_weights is not True
+        # lean-V only where the fuse-K kernels take the shape, in the form the
+        # call will run
+        train_form = leank_train_form(rate, want_ssq, query, key, self.in_proj_weight,
+                                      self.in_proj_bias)
+        lean_v = (lean_shape and self.pre_gate and need_weights is not True
+                  and fused_k_supports(n, e, key.shape[-1], m_len, train=train_form))
         out_h = weights = ssq = None
         if lean:
             q = self._proj(query, 0, 1)
@@ -227,21 +243,25 @@ class MultiheadAttention(nn.Module):
                 k = self._proj(key, 1, 2)
                 v = self._proj(value, 2, 3)
             if (need_weights is False and not self.pre_gate
-                    and query.shape[1] <= 32 and key.shape[1] <= 32):
+                    and n <= 32 and m_len <= 32):
                 out_flat = tiny_attention(q, k, v, key_mask, heads, dropout_rate=rate,
                                           generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if (not self_attn and query.shape[1] <= MAX_QUERIES and key.shape[1] > 32
+                if (not self_attn and m_len > 32
+                        and plain_k_supports(n, e // heads, m_len, values=True)
                         and (need_weights is False or (want_ssq and heads == 1))):
                     res = fused_attention(qh, kh, vh, key_mask, pre_gate=self.pre_gate,
                                           dropout_rate=rate, generator=generator,
                                           need_ssq=want_ssq)
                     out_h, ssq = (res[0], res[1][:, 0]) if want_ssq else (res, None)
                 elif (need_weights is False and not self.pre_gate and self_attn
-                        and key is value and query.shape[1] > 32
-                        and (rate == 0.0 or query.shape[1] >= 4096)):
-                    out_h = flash_attention(qh, kh, vh, key_mask)
+                        and key is value and n > 32 and (rate == 0.0 or n >= 4096)):
+                    if flash_supports(*qh.shape):
+                        out_h = flash_attention(qh, kh, vh, key_mask)
+                    else:  # no kernel instance (JAX: _xla_fused); the site dropped alike
+                        out_h, _ = attention_core(qh, kh, vh, key_mask, pre_gate=False,
+                                                  need_weights=False)
                 elif need_weights is True and not self_attn and rate == 0.0:
                     out_h, weights = attention_with_weights(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate

@@ -24,7 +24,11 @@ kernels of the NaCAGaT and MCAT serving and training paths:
   (``_coattn_bwd``), counted as ``coattn_plain_bwd``.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises on what the
-kernel does not take) and uses the plain version only for a CPU tensor.
+kernel does not take) and uses the plain version only for a CPU tensor. What
+the kernels take is stated once, in :func:`fused_k_supports` and
+:func:`plain_k_supports`: the wrappers raise on a CUDA shape outside them, and
+the dispatchers (``ops/attention.py``, :func:`attention_with_weights`) send
+such a shape to ``attention_core`` before any launch.
 ``LAUNCH_COUNTS`` counts kernel launches, one per wrapper call on CUDA.
 
 Scores are ``s = (q.k)/sqrt(d) * (tanh(q).tanh(k) + 1)/2`` with the finite
@@ -202,9 +206,38 @@ def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, ds
 # =============================================================================
 
 
-def _check_queries(n):
-    if not 1 <= n <= MAX_QUERIES:
-        raise ValueError(f"the co-attention kernels take 1..{MAX_QUERIES} queries, got {n}")
+def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool) -> bool:
+    """The shapes the fuse-K kernels take: 1..``MAX_QUERIES`` queries (one
+    warp each), M >= 1 keys, and E in {128, 256} with F % 16 == 0, F <= 1024
+    (eval form) or E, F in ``TRAIN_DIMS`` (training form and backward). The
+    wrappers raise on a CUDA shape outside it; ``MultiheadAttention`` routes
+    such a shape off the lean-V branch (the JAX package's ``leank_eligible``)."""
+    dims = (e in TRAIN_DIMS and f in TRAIN_DIMS) if train else (
+        e in (128, 256) and f % 16 == 0 and f <= 1024)
+    return 1 <= n <= MAX_QUERIES and m_len >= 1 and dims
+
+
+def leank_train_form(dropout_rate: float, need_ssq: bool, *tensors: torch.Tensor) -> bool:
+    """Whether :func:`fused_attention_leank` runs the fuse-K training form:
+    dropout, ssq, or a gradient to take through any of ``tensors``. The
+    lean-V gate reads it to ask :func:`fused_k_supports` about that form."""
+    return dropout_rate > 0.0 or need_ssq or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def plain_k_supports(n: int, d: int, m_len: int, *, values: bool) -> bool:
+    """The shapes the plain-K kernels take: 1..``MAX_QUERIES`` queries, M >= 1
+    keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
+    ``values``, D in ``TRAIN_DIMS`` (the forward with values and its
+    backward). Shapes outside it take ``attention_core`` in the dispatchers
+    (the JAX package's ``kernel_eligible``)."""
+    dims = TRAIN_DIMS if values else (128, 256, 512)
+    return 1 <= n <= MAX_QUERIES and m_len >= 1 and d in dims
+
+
+def _refuse(what: str, n: int, d: str) -> None:
+    raise ValueError(f"{what}: unsupported shape ({n} queries, the kernels take "
+                     f"1..{MAX_QUERIES}; {d})")
 
 
 def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
@@ -212,12 +245,8 @@ def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
     grid fills the SMs with every split owning at least one 64-key tile."""
     b, n, e = q.shape
     m_len, f = kv.shape[1], kv.shape[2]
-    _check_queries(n)
-    ok = e in TRAIN_DIMS and f in TRAIN_DIMS if train else (
-        e in (128, 256) and f % 16 == 0 and f <= 1024)
-    if not ok or m_len < 1:
-        raise ValueError(f"fuse-K kernel{' (training)' if train else ''}: "
-                         f"unsupported E={e}, F={f}, M={m_len}")
+    if not fused_k_supports(n, e, f, m_len, train=train):
+        _refuse(f"fuse-K kernel{' (training)' if train else ''}", n, f"E={e}, F={f}, M={m_len}")
     kernels.require(q, "q", (b, n, e))
     kernels.require(kv, "kv", (b, m_len, f))
     kernels.require(wk, "wk", (f, e))
@@ -352,12 +381,11 @@ class FusedKTrain(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def _plain_k_checks(q, k):
+def _plain_k_checks(q, k, *, values: bool = False):
     b, n, d = q.shape
     m_len = k.shape[1]
-    _check_queries(n)
-    if d not in (128, 256, 512) or m_len < 1:
-        raise ValueError(f"plain-K kernels: unsupported D={d}, M={m_len}")
+    if not plain_k_supports(n, d, m_len, values=values):
+        _refuse(f"plain-K kernels{' with values' if values else ''}", n, f"D={d}, M={m_len}")
     kernels.require(q, "q", (b, n, d))
     kernels.require(k, "k", (b, m_len, d))
     # enough warps per bag to keep loads in flight, >= 32 keys per warp
@@ -415,9 +443,7 @@ def coattn_weights(
 def _plain_kv_checks(q, k, v, key_mask):
     """Shapes, the mask pointer and the split count of the plain-K kernels
     with values (D in ``TRAIN_DIMS``)."""
-    if q.shape[-1] not in TRAIN_DIMS:
-        raise ValueError(f"plain-K kernels with values: unsupported D={q.shape[-1]}")
-    b, n, d, m_len, splits = _plain_k_checks(q, k)
+    b, n, d, m_len, splits = _plain_k_checks(q, k, values=True)
     kernels.require(v, "v", (b, m_len, d))
     return b, n, d, m_len, splits, kernels.mask_ptr(key_mask, b, m_len, q.device)
 
@@ -547,9 +573,7 @@ def fused_attention_leank(
     CUDA the kernels run at every shape they support (the TPU-tuned M
     cut-overs are not carried over).
     """
-    wants_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, kv, wk, bk))
-    if dropout_rate > 0.0 or need_ssq or wants_grad:
+    if leank_train_form(dropout_rate, need_ssq, q, kv, wk, bk):
         if dropout_seed is None:
             if dropout_rate > 0.0:
                 raise ValueError("dropout_rate > 0 requires a dropout_seed")
@@ -642,9 +666,14 @@ def attention_with_weights(
 ):
     """(out [B, H, N, D], weights [B, H, N, M]) for need_weights=True:
     weights from the two-pass emission, out as one matmul over them (out and
-    weights exactly consistent)."""
+    weights exactly consistent); ``attention_core`` on a shape the kernels do
+    not take (:func:`plain_k_supports`)."""
     b, h, n, d = q.shape
     m_len = k.shape[2]
+    if not plain_k_supports(n, d, m_len, values=False):  # JAX: not kernel_eligible
+        from multimodal_path_omic_tpu_torch.ops.attention import attention_core
+
+        return attention_core(q, k, v, key_mask, pre_gate=pre_gate, need_weights=True)
     qf = q.reshape(b * h, n, d).contiguous()
     kf = k.reshape(b * h, m_len, d).contiguous()
     mf = key_mask

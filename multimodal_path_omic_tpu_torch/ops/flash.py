@@ -37,7 +37,9 @@ import torch
 from multimodal_path_omic_tpu_torch.ops import kernels
 from multimodal_path_omic_tpu_torch.ops.layers import NEG_INF
 
-HEAD_DIMS = (256, 32)  # the kernels' instances: GE medium's one head and its 8-head layers
+# The kernels' instances: GE small (one head of 128, eight of 16), medium
+# (256, 32) and big (512, 64).
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 
 # one count per template instance of each kernel
 LAUNCH_COUNTS = {f"flash_{way}_d{d}": 0 for way in ("fwd", "bwd") for d in HEAD_DIMS}
@@ -127,12 +129,21 @@ def flash_attention_bwd_plain(q, k, v, key_mask, out, m, l, dout,
 # ---------------------------------------------------------------------------
 
 
+def supports(b: int, h: int, l: int, d: int) -> bool:
+    """The shapes the kernels take, [B, H, L, D] for q, k and v alike: a head
+    width with an instance, L >= 1, B * H <= 65535 (the grid's y). The
+    modules take :func:`flash_attention` only where this holds and
+    ``attention_core`` elsewhere, as the JAX dispatcher takes ``_xla_fused``
+    where ``flash.supported`` says no."""
+    return d in HEAD_DIMS and l >= 1 and 1 <= b * h <= 65535
+
+
 def _check_qkv(q, k, v, key_mask):
     """Raise on what the kernels do not take; (b, h, l, d, device, mask pointer)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, L, D], got {tuple(q.shape)}")
     b, h, l, d = q.shape
-    if d not in HEAD_DIMS or l < 1 or not 1 <= b * h <= 65535:
+    if not supports(b, h, l, d):
         raise ValueError(f"flash kernel: unsupported head width D={d} (takes {HEAD_DIMS}), "
                          f"L={l}, B*H={b * h}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):  # read in place: strided views pass
@@ -145,7 +156,7 @@ def _check_qkv(q, k, v, key_mask):
 
 def flash_fwd(q, k, v, key_mask=None, sm_scale: Optional[float] = None, *,
               need_stats: bool = False):
-    """The forward kernel: (out, m, l). Float32, D in {256, 32}, any L >= 1;
+    """The forward kernel: (out, m, l). Float32, D in ``HEAD_DIMS``, any L >= 1;
     q, k, v may be strided views (the heads of a packed [B, L, 3E]
     projection are read in place). ``out`` is a [B, H, L, D] view of a
     [B, L, H, D] buffer, so merging the heads afterwards copies nothing;

@@ -295,10 +295,36 @@ def _flash_inputs(dev, b, heads, width, m_len, seed, packed):
     return q, k, v, (torch.arange(m_len)[None] < lengths[:, None]).to(dev)
 
 
+def _close_flash_grads(grads, ref, q, k, mask, out, dout, sm_scale):
+    """dq, dk, dv against the plain backward's. In a bag with one valid key
+    every weight is 0 or 1, so dq and dk are 0 in exact arithmetic: ds =
+    p (dp - delta) with dp = delta, and both sides hold float32 noise alone,
+    which a bound relative to the tensor's own largest value cannot compare.
+    There dq and dk are held to 1e-4 of the terms that cancel (sm_scale
+    |delta_i| |k| for a dq row, the sum over query rows i of sm_scale
+    |delta_i| |q_i| for dk); every other bag to 1e-4 of the tensor's largest
+    value, as before."""
+    one = (torch.zeros(q.shape[0], dtype=torch.bool, device=q.device) if mask is None
+           else mask.sum(-1) == 1)
+    delta = (dout * out).sum(-1).abs()  # [B, H, L]
+    floor_dq = GRAD_RTOL * sm_scale * delta.amax(-1) * k.abs().amax((-2, -1))  # [B, H]
+    floor_dk = GRAD_RTOL * sm_scale * (delta[..., None] * q.abs()).sum(-2).amax(-1)  # [B, H]
+    for a, r, floor in zip(grads, ref, (floor_dq, floor_dk, None)):
+        assert torch.isfinite(a).all()
+        if floor is not None and bool(one.any()):
+            limit = floor[one][..., None, None]
+            assert bool((a[one].abs() <= limit).all()) and bool((r[one].abs() <= limit).all())
+            a, r = a[~one], r[~one]
+        if a.numel():
+            _close_rel(a, r)
+
+
 @pytest.mark.parametrize(
     "b,heads,width,m_len,packed",
     [(2, 1, 256, 1000, True), (3, 8, 32, 777, True), (1, 1, 256, 70, False),
-     (2, 8, 32, 4096, False), (2, 1, 256, 4096, True), (1, 8, 32, 1, True), (2, 2, 32, 129, True)],
+     (2, 8, 32, 4096, False), (2, 1, 256, 4096, True), (1, 8, 32, 1, True), (2, 2, 32, 129, True),
+     (2, 1, 128, 1000, True), (3, 8, 16, 777, True), (2, 1, 512, 1000, True),
+     (3, 8, 64, 777, False), (1, 2, 512, 70, True), (2, 4, 64, 129, True)],
 )
 def test_flash_kernel_matches_plain_on_card(dev, b, heads, width, m_len, packed):
     q, k, v, mask = _flash_inputs(dev, b, heads, width, m_len, m_len + heads, packed)
@@ -321,8 +347,8 @@ def test_flash_kernel_matches_plain_on_card(dev, b, heads, width, m_len, packed)
 
 def test_ge_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q, k, v, mask = _flash_inputs(dev, 2, 8, 32, 100, 0, True)
-    with pytest.raises(ValueError, match="unsupported head width"):
-        flash.flash_attention(q[..., :16], k[..., :16], v[..., :16], mask)
+    with pytest.raises(ValueError, match="unsupported head width"):  # no instance for 24
+        flash.flash_attention(q[..., :24], k[..., :24], v[..., :24], mask)
     with pytest.raises(TypeError):
         flash.flash_attention(q.double(), k.double(), v.double(), mask)
     with pytest.raises(ValueError, match="stride"):
@@ -332,7 +358,7 @@ def test_ge_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="key_mask"):
         flash.flash_attention(q, k, v, mask[:, :50])
     with pytest.raises(ValueError, match="unsupported head width"):  # in training too
-        flash.flash_attention(q[..., :16].clone().requires_grad_(True), k[..., :16], v[..., :16],
+        flash.flash_attention(q[..., :24].clone().requires_grad_(True), k[..., :24], v[..., :24],
                               mask)
     args = _pool_inputs(dev, 2, 100, 256, 256, 0)
     with pytest.raises(ValueError, match="unsupported"):
@@ -360,8 +386,8 @@ def test_ge_predictor_on_card_matches_cpu(dev):
     pred = Predictor("GE-NaCAGaT", device=dev, **kw)
     got = pred.predict_bags(bags)
     torch.cuda.synchronize()
-    assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 2, "flash_fwd_d32": 4,
-                                   "flash_bwd_d256": 0, "flash_bwd_d32": 0}
+    assert flash.LAUNCH_COUNTS == {**{name: 0 for name in flash.LAUNCH_COUNTS},
+                                   "flash_fwd_d256": 2, "flash_fwd_d32": 4}
     assert milpool.LAUNCH_COUNTS["milpool"] == 2
     assert not any(coattn.LAUNCH_COUNTS.values())
     cpu = Predictor("GE-NaCAGaT", device="cpu", **kw)
@@ -384,13 +410,155 @@ def test_ge_predictor_on_card_matches_cpu(dev):
 
 
 def test_ge_widths_without_a_kernel_instance_raise_on_card(dev):
-    """GE small has heads of width 128 and 16, for which the flash kernel has
-    no instance: on a CUDA tensor the model raises, it never drops to the
-    plain version."""
-    pred = Predictor("GE-NaCAGaT", model_size="small", wsi_dim=64, buckets=(64,), batch_size=1,
-                     device=dev)
-    with pytest.raises(ValueError, match="unsupported head width"):
-        pred.predict_bag(np.zeros((40, 64), np.float32))
+    """GE small (heads of width 128 and 16) and big (512 and 64) once had no
+    flash instance and raised on the card; every GE width has one now, so
+    this holds them against the CPU: y within 1e-4, through the flash
+    kernels of their own widths and no other."""
+    rng = np.random.default_rng(1)
+    bags = [rng.standard_normal((n, 64), dtype=np.float32) for n in (40, 300, 250)]
+    for size, widths in (("small", (128, 16)), ("big", (512, 64))):
+        kw = dict(model_size=size, wsi_dim=64, buckets=(64, 512), batch_size=2, seed=2)
+        flash.reset_launch_counts()
+        got = Predictor("GE-NaCAGaT", device=dev, **kw).predict_bags(bags)
+        torch.cuda.synchronize()
+        # bucket 64 holds one bag (40 > 32 positions: flash), bucket 512 two
+        assert flash.LAUNCH_COUNTS == {**{name: 0 for name in flash.LAUNCH_COUNTS},
+                                       f"flash_fwd_d{widths[0]}": 2,
+                                       f"flash_fwd_d{widths[1]}": 4}
+        ref = Predictor("GE-NaCAGaT", device="cpu", **kw).predict_bags(bags)
+        np.testing.assert_allclose(got["y"], ref["y"], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32), (1, 128), (8, 16), (1, 512), (8, 64)])
+def test_flash_kernels_skip_masked_key_tiles_on_card(dev, heads, width):
+    """Masks with whole key tiles masked (runs of valid keys between long
+    masked runs) and a bag without a valid key: forward, (m, l) and the
+    backward against the plain versions; dk and dv exactly 0 on every key of
+    a skipped block, dq and dk exactly 0 through every masked key."""
+    b, m_len = 3, 1500
+    q, k, v, _ = _flash_inputs(dev, b, heads, width, m_len, width, True)
+    mask = torch.zeros(b, m_len, dtype=torch.bool)
+    mask[:, 5:60] = True
+    mask[:, 700:790] = True
+    mask[0, 1300:] = True
+    mask[-1] = False
+    mask = mask.to(dev)
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, return_stats=True)
+    _close(out, ref_out)
+    _close(m, ref_m)
+    _close(l, ref_l, L_RTOL)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    grads = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    for a, r in zip(grads, flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout)):
+        _close_rel(a, r)
+    dq, dk, dv = grads
+    assert float(dk[~mask[:, None, :, None].expand_as(dk)].abs().max()) == 0.0
+    assert float(dv[:2, :, 900:1300].abs().max()) == 0.0  # keys masked in both bags
+    assert float(dq[-1].abs().max()) == 0.0 and float(dv[-1].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32), (1, 128), (8, 16), (1, 512), (8, 64)])
+def test_flash_kernels_one_valid_key_on_card(dev, heads, width):
+    """Bags with one valid key among 1500 (the first key; a key in a late
+    tile) and a bag without one: every other key tile is skipped, the output
+    is the key's value row on every query row, dv on the key is the sum of
+    the cotangent over the query rows and exactly 0 on every other key, dk
+    exactly 0 on the masked keys, and the rest against the plain versions."""
+    b, m_len, keys = 3, 1500, (0, 1337)
+    q, k, v, _ = _flash_inputs(dev, b, heads, width, m_len, width + 1, True)
+    mask = torch.zeros(b, m_len, dtype=torch.bool)
+    for i, key in enumerate(keys):
+        mask[i, key] = True
+    mask = mask.to(dev)
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    for i, key in enumerate(keys):
+        _close(out[i], v[i, :, key:key + 1].expand_as(out[i]))
+    ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, return_stats=True)
+    _close(out, ref_out)
+    _close(m, ref_m)
+    _close(l, ref_l, L_RTOL)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    grads = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout)
+    _close_flash_grads(grads, ref, q, k, mask, out, dout, width ** -0.5)
+    dq, dk, dv = grads
+    assert float(dk[~mask[:, None, :, None].expand_as(dk)].abs().max()) == 0.0
+    for i, key in enumerate(keys):
+        _close_rel(dv[i, :, key], dout[i].sum(dim=1))
+        assert float(dv[i, :, :key].abs().sum() + dv[i, :, key + 1:].abs().sum()) == 0.0
+
+
+def test_refused_coattention_shapes_on_card_match_cpu(dev):
+    """Shapes the co-attention kernels do not take go to attention_core by
+    the kernels' predicates, never to a raise: cross-attention of 6 queries
+    over 100 keys in 8 heads of width 32; NaCAGaT with 12 signature groups
+    (ces: lean-V refused; cesar: the map of 12 queries); NaCAGaT big (ces).
+    The card within 1e-4 of the CPU, no co-attention launch."""
+    rng = np.random.default_rng(3)
+    torch.manual_seed(0)
+    from multimodal_path_omic_tpu_torch.ops import attention
+
+    mha = attention.MultiheadAttention(256, 8).eval()
+    q = torch.from_numpy(rng.standard_normal((2, 6, 256), dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 100, 256), dtype=np.float32))
+    mask = torch.arange(100)[None] < torch.tensor([[93], [0]])
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        coattn.reset_launch_counts()
+        with torch.no_grad():
+            outs.append(mha.to(device)(q.to(device), kv.to(device), kv.to(device),
+                                       mask.to(device), need_weights=False)[0].cpu())
+        assert not any(coattn.LAUNCH_COUNTS.values())
+    _close(outs[0], outs[1])
+    bags = [rng.standard_normal((n, 256), dtype=np.float32) for n in (300, 700, 90)]
+    for sizes, model_size, loss in (((12,) * 12, "small", "ces"), ((12,) * 12, "small", "cesar"),
+                                    ((10, 20, 30), "big", "ces")):
+        omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
+        kw = dict(omic_sizes=sizes, model_size=model_size, wsi_dim=256, buckets=(1024,),
+                  batch_size=2, loss=loss, seed=1)
+        coattn.reset_launch_counts()
+        got = Predictor(device=dev, **kw).predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        assert not any(coattn.LAUNCH_COUNTS.values())
+        ref = Predictor(device="cpu", **kw).predict_bags(bags, omics)
+        for key in ("hazards", "survs", "y", "risk"):
+            np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0)
+
+
+def test_nacagat_big_cesar_train_step_on_card_matches_cpu(dev):
+    """One cesar SGD step of NaCAGaT big (E = 512: no co-attention kernel
+    instance; attention_core and its autograd) on the card and on the CPU
+    from the same weights: the same parameters, no co-attention launch."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    rng = np.random.default_rng(4)
+    sizes, m_len = (10, 20, 30), 300
+    host = {
+        "wsi": rng.standard_normal((3, m_len, 256), dtype=np.float32),
+        "mask": np.arange(m_len)[None] < np.array([300, 120, 0])[:, None],
+        "omics": [rng.standard_normal((3, s), dtype=np.float32) for s in sizes],
+        "label": np.array([0, 1, 2]), "censorship": np.array([0.0, 1.0, 0.0], np.float32),
+        "weight": np.array([1.0, 1.0, 0.0], np.float32),
+    }
+    params = {}
+    for device in (dev, torch.device("cpu")):
+        model = seeded_init_(build_model("NaCAGaT", omic_sizes=sizes, model_size="big",
+                                         dropout=0.0, wsi_dim=256), 0).to(device)
+        opt = make_optimizer("sgd", 0.1)
+        state, step = init_train_state(model, opt, 0), make_train_step(model, "cesar", opt)
+        batch = {k: ([torch.from_numpy(o).to(device) for o in v] if k == "omics"
+                     else torch.from_numpy(v).to(device)) for k, v in host.items()}
+        coattn.reset_launch_counts()
+        state, metrics = step(state, batch)
+        assert np.isfinite(float(metrics.loss))
+        assert not any(coattn.LAUNCH_COUNTS.values())
+        params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k, v in params["cpu"].items():
+        np.testing.assert_allclose(params["cuda"][k].numpy(), v.numpy(), atol=ATOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +570,9 @@ def test_ge_widths_without_a_kernel_instance_raise_on_card(dev):
     "b,heads,width,m_len,packed",
     [(2, 1, 256, 1000, True), (3, 8, 32, 777, True), (1, 1, 256, 70, False),
      (2, 8, 32, 4096, False), (2, 1, 256, 4096, True), (1, 8, 32, 3, True), (2, 2, 32, 129, True),
-     (2, 1, 256, 33, True)],
+     (2, 1, 256, 33, True), (2, 1, 128, 1000, True), (3, 8, 16, 777, True),
+     (2, 1, 512, 1000, True), (3, 8, 64, 777, False), (1, 1, 512, 33, True),
+     (2, 8, 16, 129, False)],
 )
 def test_flash_backward_kernel_matches_plain_on_card(dev, b, heads, width, m_len, packed):
     """The forward's (m, l) and the backward's dq, dk, dv against the plain
@@ -424,9 +594,8 @@ def test_flash_backward_kernel_matches_plain_on_card(dev, b, heads, width, m_len
     grads = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
     again = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
     ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout, chunk=512)
-    for a, r in zip(grads, ref):
-        assert a.shape == r.shape
-        _close_rel(a, r)
+    assert all(a.shape == r.shape for a, r in zip(grads, ref))
+    _close_flash_grads(grads, ref, q, k, mask, out, dout, width ** -0.5)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     dq, dk, dv = grads
     # three views of one packed buffer: the in-projection's gradient needs no gather
@@ -450,7 +619,7 @@ def test_flash_backward_kernel_matches_plain_on_card(dev, b, heads, width, m_len
     assert flash.LAUNCH_COUNTS[f"flash_bwd_d{width}"] == before[f"flash_bwd_d{width}"] + 3
 
 
-@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32)])
+@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32), (1, 128), (8, 16), (1, 512), (8, 64)])
 def test_flash_attention_gradients_on_card(dev, heads, width):
     """flash_attention on tensors that require grad (the autograd Function
     over both kernels, through the packed projection's head views) against
@@ -504,7 +673,8 @@ def test_ge_train_step_on_card_matches_cpu(dev):
         assert np.isfinite(float(metrics.loss))
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert flash.LAUNCH_COUNTS == {"flash_fwd_d256": 3, "flash_fwd_d32": 6,
+            assert flash.LAUNCH_COUNTS == {**{name: 0 for name in flash.LAUNCH_COUNTS},
+                                           "flash_fwd_d256": 3, "flash_fwd_d32": 6,
                                            "flash_bwd_d256": 3, "flash_bwd_d32": 6}
             assert not any(coattn.LAUNCH_COUNTS.values()) and not milpool.LAUNCH_COUNTS["milpool"]
         params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}

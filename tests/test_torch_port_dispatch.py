@@ -1,0 +1,203 @@
+"""The port's kernel dispatch against the JAX package's, on the CPU.
+
+Each kernel wrapper states what its CUDA kernel takes in one predicate
+(``coattn.fused_k_supports``, ``coattn.plain_k_supports``, ``flash.supports``,
+the counterparts of the JAX package's ``leank_eligible``, ``kernel_eligible``
+and ``flash.supported``). The wrapper's raise on a CUDA shape and the
+module's gate both read it, so a shape the kernels refuse is routed to
+``attention_core`` (the JAX dispatchers' ``_xla_fused`` / ``attention_core``
+fallback) by its shape alone, before any launch, on the CPU and on the card
+alike. These tests hold
+
+* each predicate against the wrapper's own checks on a grid of shapes (the
+  checks raise "unsupported" on a refused shape and, on an admitted one, go on
+  to the device check, which a CPU tensor fails);
+* the routes ``MultiheadAttention`` takes at shapes on both sides of the
+  predicates, and the output at each refused shape against the JAX module
+  (``use_pallas=True``) on the same weights, within 5e-5 (float32 on both
+  sides, other summation orders; the tolerance of the port's module tests).
+
+The same shapes run on the card in ``tests/test_torch_port_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from multimodal_path_omic_tpu.ops import attention as jattention  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import attention as tattention  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import coattn, flash  # noqa: E402
+from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params  # noqa: E402
+
+MODEL_ATOL = 5e-5
+
+
+def _refusal(fn, *args, **kw) -> bool:
+    """True where the check refuses the shape, False where it admits it (and
+    the device check that follows refuses the CPU tensor)."""
+    with pytest.raises(ValueError) as info:
+        fn(*args, **kw)
+    msg = str(info.value)
+    assert ("unsupported" in msg) != ("must be a CUDA tensor" in msg), msg
+    return "unsupported" in msg
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_fused_k_supports_is_the_wrappers_check(train):
+    seen = set()
+    for n in (1, 6, 8, 9, 12):
+        for e in (64, 128, 256, 512):
+            for f in (128, 256, 512, 1024, 1040):
+                q, kv = torch.zeros(2, n, e), torch.zeros(2, 40, f)
+                wk, bk = torch.zeros(f, e), torch.zeros(e)
+                refused = _refusal(coattn._fused_k_checks, q, kv, wk, bk, None, train=train)
+                assert refused == (not coattn.fused_k_supports(n, e, f, 40, train=train))
+                seen.add(refused)
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("values", [False, True])
+def test_plain_k_supports_is_the_wrappers_check(values):
+    seen = set()
+    for n in (1, 6, 8, 9, 12, 32):
+        for d in (16, 32, 64, 128, 256, 512):
+            q, k = torch.zeros(2, n, d), torch.zeros(2, 40, d)
+            refused = _refusal(coattn._plain_k_checks, q, k, values=values)
+            assert refused == (not coattn.plain_k_supports(n, d, 40, values=values))
+            seen.add(refused)
+    assert seen == {True, False}
+
+
+class _Ran(Exception):
+    pass
+
+
+@pytest.mark.parametrize("rate,ssq,grad", [(0.0, False, False), (0.25, False, False),
+                                           (0.0, True, False), (0.0, False, True)])
+def test_leank_train_form_is_the_form_the_dispatcher_runs(monkeypatch, rate, ssq, grad):
+    """The lean-V gate asks ``fused_k_supports`` about the form that
+    ``leank_train_form`` names; ``fused_attention_leank`` runs that form."""
+    def stop(form):
+        def run(*args, **kw):
+            raise _Ran(form)
+        return run
+
+    monkeypatch.setattr(coattn.FusedKTrain, "apply", stop("train"))
+    monkeypatch.setattr(coattn, "coattn_fwd_fused_k", stop("eval"))
+    q, kv = torch.zeros(2, 3, 128), torch.zeros(2, 40, 128)
+    wk, bk = torch.zeros(128, 128, requires_grad=grad), torch.zeros(128)
+    seed = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(_Ran) as info:
+        coattn.fused_attention_leank(q, kv, wk, bk, None, dropout_rate=rate, dropout_seed=seed,
+                                     need_ssq=ssq)
+    assert coattn.leank_train_form(rate, ssq, q, kv, wk, bk) == (str(info.value) == "train")
+    assert str(info.value) == ("eval" if (rate, ssq, grad) == (0.0, False, False) else "train")
+    with torch.no_grad():  # no gradient to take: the eval form unless dropout or ssq
+        assert coattn.leank_train_form(rate, ssq, q, kv, wk, bk) == (rate > 0.0 or ssq)
+
+
+def test_flash_supports_is_the_wrappers_check():
+    for d in (2, 8, 16, 24, 32, 64, 96, 128, 256, 512, 1024):
+        q = torch.zeros(2, 3, 40, d)
+        refused = _refusal(flash._check_qkv, q, q, q, None)
+        assert refused == (not flash.supports(2, 3, 40, d))
+        assert refused == (d not in (16, 32, 64, 128, 256, 512))
+
+
+# ---------------------------------------------------------------------------
+# The routes MultiheadAttention takes
+# ---------------------------------------------------------------------------
+
+ROUTES = ("fused_attention_leank", "fused_attention", "flash_attention",
+          "attention_with_weights", "attention_core", "tiny_attention")
+
+
+def _spy_all(monkeypatch):
+    calls = {name: 0 for name in ROUTES}
+    for name in ROUTES:
+        inner = getattr(tattention, name)
+
+        def wrapper(*args, _inner=inner, _name=name, **kw):
+            calls[_name] += 1
+            return _inner(*args, **kw)
+
+        monkeypatch.setattr(tattention, name, wrapper)
+    return calls
+
+
+def _params(e, rng):
+    return {
+        "in_proj_kernel": rng.normal(size=(e, 3 * e), scale=e ** -0.5).astype(np.float32),
+        "in_proj_bias": rng.normal(size=(3 * e,), scale=0.1).astype(np.float32),
+        "out_proj": {"kernel": rng.normal(size=(e, e), scale=e ** -0.5).astype(np.float32),
+                     "bias": rng.normal(size=(e,), scale=0.1).astype(np.float32)},
+    }
+
+
+# (id, embed width, heads, pre-gate, queries (None: self-attention), keys,
+#  need_weights, the route the port takes, whether a kernel takes the shape)
+CASES = [
+    # F1: cross-attention of 6 queries over 100 keys in 8 heads of width 32
+    ("f1-6q-width32", 256, 8, False, 6, 100, False, "attention_core", False),
+    ("6q-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
+    # F2: NaCAGaT with 12 signature groups; NaCAGaT big (E = F = 512)
+    ("f2-nacagat-12-groups", 256, 1, True, 12, 100, False, "attention_core", False),
+    ("f2-nacagat-12-groups-ssq", 256, 1, True, 12, 100, "ssq", "attention_core", False),
+    ("f2-nacagat-big", 512, 1, True, 6, 100, False, "attention_core", False),
+    ("f2-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "attention_core", False),
+    ("nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
+    # F3: the map requested for 12 queries
+    ("f3-weights-12q", 256, 1, True, 12, 100, True, "attention_with_weights", False),
+    ("weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
+    # F4: self-attention at head widths with and without a flash instance
+    ("f4-width8", 16, 2, False, None, 64, False, "attention_core", False),
+    ("f4-width2", 16, 8, False, None, 64, False, "attention_core", False),
+    ("f4-ge-small-width16", 128, 8, False, None, 64, False, "flash_attention", True),
+    ("f4-ge-big-width512", 512, 1, False, None, 64, False, "flash_attention", True),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
+    _, e, heads, pre_gate, n, m_len, need_weights, route, kernel = case
+    rng = np.random.default_rng(e + heads + m_len)
+    p = _params(e, rng)
+    kv = rng.normal(size=(2, m_len, e)).astype(np.float32)
+    query = kv if n is None else rng.normal(size=(2, n, e)).astype(np.float32)
+    mask = np.arange(m_len)[None] < np.array([m_len - 7, 0])[:, None]
+    module = load_jax_params(tattention.MultiheadAttention(e, heads, pre_gate=pre_gate), p).eval()
+    calls = _spy_all(monkeypatch)
+    tkv = torch.from_numpy(kv)
+    tq = tkv if n is None else torch.from_numpy(query)
+    with torch.no_grad():
+        out, second = module(tq, tkv, tkv, torch.from_numpy(mask), need_weights=need_weights)
+    assert calls[route] >= 1, calls
+    if route == "attention_with_weights":
+        # inside it: the kernels' two passes, or attention_core where refused
+        assert calls["attention_core"] == int(not kernel), calls
+    else:
+        assert sum(calls.values()) == 1, calls
+    # the predicate that decided
+    d = e // heads
+    if route in ("fused_attention", "attention_with_weights") or (
+            route == "attention_core" and n is not None and heads > 1):
+        assert coattn.plain_k_supports(n, d, m_len, values=route != "attention_with_weights") \
+            == kernel
+    if n is None:
+        assert flash.supports(2, heads, m_len, d) == kernel
+    if pre_gate and heads == 1 and need_weights is not True:
+        assert coattn.fused_k_supports(n, e, e, m_len, train=need_weights == "ssq") == (
+            route == "fused_attention_leank")
+
+    jmodule = jattention.MultiheadAttention(embed_dim=e, num_heads=heads, pre_gate=pre_gate,
+                                            use_pallas=True)
+    jkv = jnp.asarray(kv)
+    jq = jkv if n is None else jnp.asarray(query)
+    jout, jsecond = jmodule.apply({"params": p}, jq, jkv, jkv, jnp.asarray(mask),
+                                  need_weights=need_weights)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=MODEL_ATOL, rtol=0)
+    if need_weights:
+        np.testing.assert_allclose(second.numpy(), np.asarray(jsecond), atol=MODEL_ATOL, rtol=0)

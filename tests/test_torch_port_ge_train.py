@@ -198,7 +198,8 @@ def test_flash_function_gradcheck_in_float64():
 def test_flash_counts_no_launch_on_cpu():
     q, k, v, mask, dout = (_t(x) for x in _attn_data(1, 64, "ragged"))
     before = dict(tflash.LAUNCH_COUNTS)
-    assert set(before) == {"flash_fwd_d256", "flash_fwd_d32", "flash_bwd_d256", "flash_bwd_d32"}
+    assert set(before) == {f"flash_{way}_d{w}" for way in ("fwd", "bwd")
+                           for w in (16, 32, 64, 128, 256, 512)}
     tflash.flash_attention(q.requires_grad_(True), k, v, mask).backward(dout)
     assert tflash.LAUNCH_COUNTS == before  # launches are counted on CUDA only
 
@@ -242,8 +243,10 @@ def test_training_self_attention_branch_choice(rate, m_len, heads, want, monkeyp
     """The JAX module's semantic rule in training mode: flash without active
     attention dropout and from 4096 positions up (the attention-probability
     dropout site dropped: no keep mask is drawn); attention_core with its
-    dropout site in between."""
-    d = 16
+    dropout site in between. d = 128: every head width here (128, 64, 16)
+    has a kernel instance; widths without one are pinned in
+    tests/test_torch_port_dispatch.py."""
+    d = 128
     rng = np.random.default_rng(m_len)
     module = load_jax_params(tattention.MultiheadAttention(d, heads, dropout_rate=rate),
                              _mha_params(d, rng)).train()
