@@ -24,8 +24,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``predict_bags`` bags/s.
 4. The training kernels (fuse-K training forward with dropout 0.25, ssq and
    sumw; the fuse-K backward) against their plain versions at B=32, N=6,
-   E=F=256, M in {8192, 4000 (ragged, one fully-masked row)}; the backward
-   run twice must agree bitwise; the drop share of the Philox bits.
+   E=F=256, M in {8192, 4000 (ragged, one fully-masked row)}, M=8192 with
+   whole masked key tiles in the middle of every bag, and M=1500 with one bag
+   of a single valid key (its dq held to the noise of the terms that
+   cancel); the backward run twice must agree bitwise, its dkv exactly 0 at
+   the masked keys of bags with a valid key; the drop share of the Philox
+   bits.
 5. The NaCAGaT ``medium`` trainer (cesar, dropout 0.25 at every site, Adam
    lr 2e-4, weight decay 1e-5) on one 32-bag batch of the 8192 bucket,
    staged on the card once: 5 steps with the counts reset just before and
@@ -33,8 +37,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    accumulation chunk, no other kernel), every loss finite; then one step
    from the same state and seed with the kernels and with their plain
    versions, whose gradients must agree.
-6. Timings: the training kernels beside their plain versions and bounds;
-   the training step's ms and train bags/s.
+6. Timings: the training kernels beside their plain versions and bounds
+   (the backward: 3xTF32 over the valid keys, float32 FMA over the valid
+   keys and over every key, with the share of each reached); the training
+   step's ms and train bags/s.
 7. The GE kernels against their plain versions on the card: the gated-MIL
    pool at D=H=256, B=8, M in {16384, 24576, 5000 (ragged)}, ragged masks,
    one fully-masked bag, one call without a mask; the flash forward at
@@ -161,9 +167,10 @@ sys.path.insert(0, HERE)
 # outside the tensor cores (the co-attention and pool kernels run float32 FMAs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-# TF32 on the tensor cores, dense: the flash kernels (K6) run each float32
-# product as three TF32 products (3xTF32), so their bound is 3 x operations
-# over this rate; the float32-FMA bound is logged beside it.
+# TF32 on the tensor cores, dense: the flash kernels (K6) and the fuse-K
+# backward (K3) run each float32 product as three TF32 products (3xTF32), so
+# their bound is 3 x operations over this rate; the float32-FMA bound is
+# logged beside it.
 PEAK_TF32_FLOP_PER_S = 495e12
 
 B, N, E = 32, 6, 256
@@ -447,10 +454,11 @@ def phase2_predictor(dev, bags, omics) -> dict:
     return {"launches": launches, "predictors": results}
 
 
-def bound_ms(name, m_len, f_dim) -> tuple:
-    """(bound ms, 'bytes' | 'operations'): each input read once, each output
-    written once; float32 multiply-adds counted as 2 operations (the
-    training kernels' integer Philox work, ~1e8 operations, is left out)."""
+def fk_bytes_ops(name, m_len, f_dim) -> tuple:
+    """(bytes, operations) of one co-attention kernel call at B=32, N=6:
+    each input read once, each output written once; float32 multiply-adds
+    counted as 2 operations (the training kernels' integer Philox work,
+    ~1e8 operations, is left out)."""
     ins = 4 * (B * N * E + B * m_len * f_dim + f_dim * E + E) + B * m_len  # q kv wk bk mask
     if name in ("coattn_fwd_fused_k", "coattn_fwd_fused_k_train"):
         n_stats = 3 if name == "coattn_fwd_fused_k" else 4  # l, m, sumw (+ ssq)
@@ -469,9 +477,37 @@ def bound_ms(name, m_len, f_dim) -> tuple:
         if name == "coattn_weights":
             nbytes += 4 * 2 * B * N  # l, m in
         ops = 4 * B * N * m_len * E
+    return nbytes, ops
+
+
+def bound_ms(name, m_len, f_dim) -> tuple:
+    """(bound ms, 'bytes' | 'operations') at the float32 rate of the CUDA
+    cores, every key counted."""
+    nbytes, ops = fk_bytes_ops(name, m_len, f_dim)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fk_bwd_bound_ms(mask) -> tuple:
+    """(bound ms, 'bytes' | 'operations', float32-FMA bound ms over the same
+    keys, float32-FMA bound ms over every key) of the fuse-K backward at
+    B=32, N=6, E=F=256. Its three products (k = kv wk, dk wk^T, kv^T dk) run
+    as 3xTF32 on the tensor cores (three TF32 products each) and are needed
+    only for the valid keys (a tile without one is skipped; a bag without a
+    valid key needs all of its keys): counted from ``mask``. The bytes are
+    ``bound_ms``'s (each input read once, each output written once); so is
+    the float32-FMA bound over every key."""
+    import torch
+
+    m_len = mask.shape[1]
+    n_valid = mask.sum(dim=1)
+    keys = int(torch.where(n_valid == 0, m_len, n_valid).sum().item())
+    ops = 6 * keys * E * E
+    t_bytes = fk_bytes_ops("coattn_bwd_fused_k", m_len, E)[0] / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * ops / PEAK_TF32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (
+        ops / PEAK_F32_FLOP_PER_S * 1e3, bound_ms("coattn_bwd_fused_k", m_len, E)[0])
 
 
 def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
@@ -535,14 +571,23 @@ def check_rel(name, got, ref, rtol) -> float:
     return err
 
 
-def train_kernel_inputs(m_len, dev, seed):
+def train_kernel_inputs(m_len, dev, seed, kind="prefix"):
     """Phase-1 style inputs plus a dropout seed, the backward's cotangents and
-    the forward statistics it needs."""
+    the forward statistics it needs. ``kind``: "prefix" (phase 1's ragged
+    masks), "holes" (the same with keys 1024..2047 and 3000..3199 masked in
+    every bag: whole masked 64-key tiles in the middle of a bag, which the
+    backward skips) or "one" (bag 0 with a single valid key, key 1337)."""
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     q, kv, wk, bk, _, mask = make_inputs(m_len, E, seed, dev)
+    if kind == "holes":
+        mask[:, 1024:2048] = False
+        mask[:, 3000:3200] = False
+    elif kind == "one":
+        mask[0] = False
+        mask[0, 1337] = True
     dseed = torch.tensor([seed], dtype=torch.int32, device=dev)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     dout = torch.randn(B, N, E, generator=g).to(dev)
@@ -553,16 +598,42 @@ def train_kernel_inputs(m_len, dev, seed):
     return (q, kv, wk, bk, mask, dseed), (dout, l, m, di, dssq, dsumw), fwd
 
 
+def check_one_key_dq(got, ref, q, kv, wk, bk, fwd, dout, dssq, dsumw, di) -> None:
+    """dq of bags with a single valid key. That key's weight is 1 and
+    o = pd kv_r, so ds = pd dp - p di + 2 dssq pd^2 + dsumw pd is 0 in exact
+    arithmetic and dq holds float32 noise alone on both sides, which a bound
+    relative to dq's own largest value cannot compare: held to GRAD_RTOL of
+    the terms that cancel, c_n = |o_n.dO_n| + |di_n| + 2 |dssq_n ssq_n| +
+    |dsumw_n sumw_n|, times the largest factor ds meets on its way to dq
+    (scale |k|max + |a|max / 2, with |a| <= scale |q_n|_1 |k|max)."""
+    import torch
+
+    o, _, _, ssq, sumw = fwd
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kmax = (torch.matmul(kv, wk) + bk).abs().amax((1, 2))[:, None]  # [bags, 1]
+    c = (o * dout).sum(-1).abs() + di.abs() + 2 * (dssq * ssq).abs() + (dsumw * sumw).abs()
+    limit = (GRAD_RTOL * c * (scale * kmax + scale * q.abs().sum(-1) * kmax / 2))[..., None]
+    worst = max(float((got.abs() / limit).max()), float((ref.abs() / limit).max()))
+    log(f"  bwd.dq, {got.shape[0]} bag(s) with one valid key: max |dq| {got.abs().max():.3e} "
+        f"(plain {ref.abs().max():.3e}), at {worst:.3f} of the limit {GRAD_RTOL:g} x the "
+        f"terms that cancel {'ok' if worst <= 1.0 else 'FAIL'}")
+    if not (worst <= 1.0 and bool(torch.isfinite(got).all())):
+        raise AssertionError("dq of a bag with one valid key is above its noise limit")
+
+
 def phase4_train_kernels(dev) -> dict:
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     errs = {}
-    for m_len in (TRAIN_M, 4000):
-        log(f"phase 4: training kernels B={B} N={N} E=F={E} M={m_len} dropout {TRAIN_RATE}")
-        ins, (dout, l, m, di, dssq, dsumw), ref = train_kernel_inputs(m_len, dev, 97 + m_len)
-        got = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
+    for m_len, kind in ((TRAIN_M, "prefix"), (4000, "prefix"), (TRAIN_M, "holes"),
+                        (1500, "one")):
+        log(f"phase 4: training kernels B={B} N={N} E=F={E} M={m_len} dropout {TRAIN_RATE}, "
+            f"{kind} masks")
+        ins, (dout, l, m, di, dssq, dsumw), ref = train_kernel_inputs(m_len, dev, 97 + m_len,
+                                                                      kind)
+        got = fwd = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
         e = 0.0
         for name, a, r, rtol in zip(("o", "l", "m", "ssq", "sumw"), got, ref,
                                     (0.0, L_RTOL, 0.0, 0.0, 0.0)):
@@ -573,12 +644,23 @@ def phase4_train_kernels(dev) -> dict:
         got = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         again = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         ref = coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw)
+        mask = ins[4]
+        one = mask.sum(-1) == 1
+        if bool(one.any()):  # dq of a bag with one valid key: float32 noise on both sides
+            q, kv, wk, bk = ins[:4]
+            check_one_key_dq(got[0][one], ref[0][one], q[one], kv[one], wk, bk,
+                             [t[one] for t in fwd], dout[one], dssq[one], dsumw[one], di[one])
         for name, a, r in zip(("dq", "dkv", "dwk", "dbk"), got, ref):
+            if name == "dq":
+                a, r = a[~one], r[~one]
             errs["coattn_bwd_fused_k"] = max(errs.get("coattn_bwd_fused_k", 0.0),
                                              check_rel(f"bwd.{name}", a, r, GRAD_RTOL))
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("two backward runs differ")
-        log("  bwd: two runs bitwise equal")
+        has = mask.any(-1)
+        if not bool((got[1][has][~mask[has]] == 0).all()):
+            raise AssertionError("dkv is not exactly 0 at a masked key of a bag with a valid key")
+        log("  bwd: two runs bitwise equal; dkv exactly 0 at the masked keys of bags with one")
         keep = coattn.dropout_bits(ins[-1], (B, N, m_len), dev) >= coattn.dropout_threshold(
             TRAIN_RATE)
         drop = 1.0 - float(keep.double().mean().item())
@@ -712,9 +794,17 @@ def phase6_train_timings(dev, errs, launches, trainer, batch) -> list:
     rows = []
     for name, (kern, plain) in calls.items():
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        bms, by = bound_ms(name, TRAIN_M, E)
-        log(f"phase 6: {name} B={B} N={N} M={TRAIN_M} F=E={E} dropout {TRAIN_RATE}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        line = (f"phase 6: {name} B={B} N={N} M={TRAIN_M} F=E={E} dropout {TRAIN_RATE}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ")
+        if name == "coattn_bwd_fused_k":  # 3xTF32 products over the valid keys
+            bms, by, f32_valid, f32_all = fk_bwd_bound_ms(ins[4])
+            log(line + f"bounds: 3xTF32 over the valid keys {bms:.4f} ms ({by}; "
+                f"{bms / ms:.3f} of it reached), float32 FMA over the valid keys "
+                f"{f32_valid:.4f} ms ({f32_valid / ms:.3f} reached), over every key "
+                f"{f32_all:.4f} ms ({f32_all / ms:.3f} reached)")
+        else:
+            bms, by = bound_ms(name, TRAIN_M, E)
+            log(line + f"bound {bms:.4f} ms ({by})")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,

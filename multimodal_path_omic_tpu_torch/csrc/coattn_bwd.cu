@@ -21,37 +21,56 @@
 // di = rowsum(o dO) + 2 dssq ssq + dsumw sumw comes from the caller
 // (ops/coattn.py, as JAX's _coattn_fk_bwd computes it outside the kernel).
 //
-// What bounds it on an H100: three [64 x F] x [F x E]-sized float32 products
-// per 64-key tile (k, dk wk^T, kv^T dk): 3 * 2 B M F E = 103 GFLOP at B=32,
-// M=8192, E=F=256, 1.5 ms at the 67 TFLOP/s of the CUDA cores, against
-// 0.16 ms for the 0.54 GB it must move: bound by operations. Tensor cores
-// (TF32) are left out for the same reason as in the forward (float32 parity).
+// What bounds it on an H100: three [M x F] x [F x E]-sized products (k,
+// dk wk^T, kv^T dk), 6 B M F E = 103 GFLOP at B=32, M=8192, E=F=256 over
+// every key. They run on the tensor cores as 3xTF32 mma.sync at float32
+// accuracy (flash_common.cuh: three TF32 products each, 3 x 103 GFLOP /
+// 495 TFLOP/s = 0.62 ms), against 0.16 ms for the 0.54 GB the function must
+// move: bound by operations. Key tiles without a valid key need none.
 //
-// Design. The TPU runs the grid in order and accumulates dq, dwk and dbk in
-// resident blocks. Here one block = (bag, split of the key tiles), as in the
-// forward, so that B=32 bags fill the 132 SMs. A tile's kv rows and its
-// tanh(k) (then dk) live in dynamic shared memory (180 KB at E=F=256); the
-// three products are register-tiled SIMT loops (8 keys x 8 columns a thread,
-// 128-bit shared reads). Each block writes its own float32 partials: dwk
-// [F, E] in device memory (written by its first tile, then read-modified-
-// written once per tile), dbk and dq once at its end. bwd_reduce_kernel sums
-// the partials in a fixed order: no atomics, so two runs give identical
-// gradients. dq's k term is taken off the key axis,
-//   sum_r da_r k_r = (sum_r da_r kv_r) wk + (sum_r da_r) bk,
-// so the block never needs k and tanh(k) at once.
-//
+// Design: five launches, no atomics.
+//  * fk_tiles_kernel flags the 64-key tiles to compute: with a valid key in
+//    the bag, a tile without one is skipped (flash_common.cuh
+//    bag_has_valid_key / next_tile): p is exactly 0 there and ds is 0 by
+//    the mask, so it adds nothing to dq, dwk or dbk, and the pass writes its
+//    dkv = 0; a bag without a valid key computes every tile.
+//    fk_list_kernel lists the computed (bag, tile) units in order.
+//  * fused_k_bwd_kernel: one block an SM; block g takes an even share of
+//    the list (so a full bag and a short one cost the same per tile), 8
+//    warps, each product's [64 x width] output over a 2 x 4 warp grid (32
+//    rows x width / 4 columns a warp, two row groups sharing each split B
+//    fragment). Per tile: k = kv wk ("acc" product: the kv tile as A, wk in
+//    16-row chunks [16][E]); a, g, dp and ds of the N <= 8 queries on the
+//    CUDA cores through shared memory (8 keys a warp, the dot products
+//    summed by a transposing butterfly); dk over k's place; dkv = pd^T dO +
+//    dk wk^T ("row" product: wk in 16-column chunks [F][16], read as they
+//    lie: no transposing store). The wk chunks pass through a three-slot
+//    cp.async ring, each issued two chunk steps ahead, one barrier a step;
+//    the next unit's kv tile comes in slices during the dkv product (its
+//    slot is free once dp and the key sums are taken). dk goes to a scratch
+//    [B, M, E]. dq and dbk are column sums over a bag's tiles; a block
+//    writes a bag's dq partial when it leaves the bag (dq's k term taken off
+//    the key axis, sum_r da_r k_r = (sum_r da_r kv_r) wk + (sum_r da_r) bk,
+//    so the block never needs k and tanh(k) at once) and dbk once.
+//  * dwk_kernel: dwk = kv^T dk over the listed units (split-K: no block
+//    reads and writes a dwk partial per tile), one block = (a 128 x 128
+//    tile of dwk, an even share of the list): kv and dk slices staged
+//    [keys][128] by cp.async, two stages;
+//    A = kv read column-major from its slice (acc_product_rows with TA: no
+//    transposed copy), B = dk. The output tile stays in registers over the
+//    share and is written once, as that block's partial.
+//  * bwd_reduce_kernel sums the partials in a fixed order (dq over the
+//    blocks that held the bag, dbk over blocks, dwk over shares): two runs
+//    give identical gradients.
+
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
 
-#include "coattn_common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace mpo;
-
-__device__ __forceinline__ float f4get(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
 
 // Column j (< width / 32) of lane `lane` in the register-tiled layouts:
 // float4 groups, so a warp's 128-bit shared-memory accesses never conflict.
@@ -59,18 +78,117 @@ __device__ __forceinline__ int lane_col(int j, int lane) {
   return (j >> 2) * 128 + 4 * lane + (j & 3);
 }
 
+// Sums each of v[0..7] over the warp's 32 lanes (a transposing butterfly:
+// 9 shuffles where eight warp_sums take 40). Returns, in every lane, the
+// total of value sum8_index(lane).
+__device__ __forceinline__ float sum8(float (&v)[8], int lane) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool hi = lane & 16;
+    const float send = hi ? v[k] : v[k + 4];
+    v[k] = (hi ? v[k + 4] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool hi = lane & 8;
+    const float send = hi ? v[k] : v[k + 2];
+    v[k] = (hi ? v[k + 2] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const bool hi = lane & 4;
+  float r = (hi ? v[1] : v[0]) + __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[1], 4);
+  r += __shfl_xor_sync(0xffffffffu, r, 2);
+  return r + __shfl_xor_sync(0xffffffffu, r, 1);
+}
+
+__device__ __forceinline__ int sum8_index(int lane) {
+  return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+}
+
 template <int E, int F>
-struct BwdSmem {
-  alignas(16) float kv[FK_BM][F];               // kv tile (zero rows past M)
-  alignas(16) float tk[FK_BM][E];               // tanh(k), then dk
-  alignas(16) float w[FK_BF][E > F ? E : F];    // wk chunk [16][E], or wk^T chunk [16][F]
+struct FkSmem {
+  static constexpr int WC = 16;       // wk rows (k product) or columns (dkv) a chunk
+  static constexpr int KVS = F + 8;   // kv tile: acc-product A, 8 mod 32
+  static constexpr int KS = E + 4;    // k / tanh(k) / dk: row-product A, 4 mod 32
+  static constexpr int RS = E + 4;    // wk row chunk [WC][E]: acc-product B, 4 mod 32
+  static constexpr int CS = WC + 4;   // wk column chunk [F][WC]: row-product B (20: no conflict)
+  static constexpr int SLOT = WC * RS > F * CS ? WC * RS : F * CS;
+  static constexpr int NCF = F / WC, NCE = E / WC;  // chunks of the k and dkv products
+  static constexpr int NTE = E / 32, NTF = F / 32;  // column tiles a warp (4 column quarters)
+  static constexpr int GK = NTE < 4 ? NTE : 4, GD = NTF < 4 ? NTF : 4;  // tiles in flight
+  static constexpr int KV_ROWS = FK_BM / NCE;       // next unit's kv rows a dkv chunk brings
+  alignas(16) float kv[FK_BM][KVS];   // kv tile (zero rows past M)
+  alignas(16) float k[FK_BM][KS];     // k, then tanh(k), then dk
+  alignas(16) float ring[3][SLOT];    // wk chunks: a three-slot ring
   alignas(16) float q[NMAX][E];
   alignas(16) float tq[NMAX][E];
   alignas(16) float dout[NMAX][F];
-  float a[NMAX][FK_BM], g[NMAX][FK_BM], dp[NMAX][FK_BM];
-  float pd[NMAX][FK_BM], da[NMAX][FK_BM], du[NMAX][FK_BM];
+  // per (query, key): a, g, dp, overwritten in place by pd, da, du
+  alignas(16) float a_pd[NMAX][FK_BM];
+  alignas(16) float g_da[NMAX][FK_BM];
+  alignas(16) float dp_du[NMAX][FK_BM];
   float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
 };
+
+// Pass 1 (blocks of FK_FLAG_TILES tiles of one bag): which 64-key tiles the
+// backward computes. With a valid key in the bag, a tile without one is
+// skipped: flag 0 and dkv = 0 on its keys (p is exactly 0 there and ds 0 by
+// the mask, so it adds nothing to dq, dwk or dbk); a bag without a valid key
+// computes every tile.
+constexpr int FK_FLAG_TILES = 16;
+
+template <int F>
+__global__ void __launch_bounds__(THREADS)
+fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
+                uint8_t* __restrict__ flags, int M) {
+  const int b = blockIdx.x, n_tiles = (M + FK_BM - 1) / FK_BM;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
+  const bool skip = mask_b != nullptr && bag_has_valid_key(mask_b, M);
+  const int t1 = min(n_tiles, ((int)blockIdx.y + 1) * FK_FLAG_TILES);
+  for (int t = blockIdx.y * FK_FLAG_TILES; t < t1; ++t) {
+    const bool computed = next_tile<FK_BM>(mask_b, t, t + 1, M, skip) == t;
+    if (threadIdx.x == 0) flags[(size_t)b * n_tiles + t] = computed;
+    if (computed) continue;
+    const int r1 = min((t + 1) * FK_BM, M);
+    float4* dst = reinterpret_cast<float4*>(dkv + ((size_t)b * M + (size_t)t * FK_BM) * F);
+    for (int i = threadIdx.x; i < (r1 - t * FK_BM) * F / 4; i += blockDim.x)
+      dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Pass 2 (one block): the computed units u = bag * n_tiles + tile in order
+// into list, off[b] = the position of bag b's first unit, off[B] = their
+// count T. Every bag has at least one computed tile.
+__global__ void __launch_bounds__(THREADS)
+fk_list_kernel(const uint8_t* __restrict__ flags, int* __restrict__ list,
+               int* __restrict__ off, int B, int n_tiles) {
+  __shared__ int warp_tot[WARPS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = B * n_tiles;
+  int base = 0;
+  for (int c0 = 0; c0 < n; c0 += THREADS) {
+    const int u = c0 + tid;
+    const bool f = u < n && flags[u] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_tot[warp] = __popc(bal);
+    __syncthreads();
+    int pos = base + __popc(bal & ((1u << lane) - 1u)), tot = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      if (w < warp) pos += warp_tot[w];
+      tot += warp_tot[w];
+    }
+    if (f) list[pos] = u;
+    if (u < n && u % n_tiles == 0) off[u / n_tiles] = pos;
+    __syncthreads();  // warp_tot is rewritten by the next chunk
+    base += tot;
+  }
+  if (tid == 0) off[B] = base;
+}
+
+// Blocks of the main pass and of dwk_kernel split the T computed units
+// evenly: block g of G takes positions [g * per, min(T, (g + 1) * per)).
+__device__ __forceinline__ int units_per_block(const int* __restrict__ off, int B, int G) {
+  return (off[B] + G - 1) / G;
+}
 
 template <int E, int F>
 __global__ void __launch_bounds__(THREADS)
@@ -81,153 +199,212 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                    const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ di, const float* __restrict__ dssq,
                    const float* __restrict__ dsumw, float* __restrict__ dkv,
-                   float* __restrict__ dq_part, float* __restrict__ dwk_part,
-                   float* __restrict__ dbk_part, int N, int M, int tiles_per_split,
-                   float scale) {
+                   float* __restrict__ dk_out, const int* __restrict__ list,
+                   const int* __restrict__ off, float* __restrict__ dq_part,
+                   float* __restrict__ dbk_part, int B, int N, int M, float scale) {
+  using S_ = FkSmem<E, F>;
   constexpr int EPT = E / 32;  // E columns per lane
   constexpr int FPT = F / 32;  // F columns per lane
+  constexpr int WC = S_::WC, KVS = S_::KVS, KS = S_::KS, RS = S_::RS, CS = S_::CS;
+  constexpr int NTE = S_::NTE, NTF = S_::NTF, NCF = S_::NCF, NC = S_::NCF + S_::NCE;
   extern __shared__ float4 smem4[];
-  BwdSmem<E, F>& S = *reinterpret_cast<BwdSmem<E, F>*>(smem4);
+  S_& S = *reinterpret_cast<S_*>(smem4);
 
-  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp & 1, wc = warp >> 1;  // the products' warp grid: rows 32 wr, quarter wc
+  const int g4 = lane >> 2, t4 = lane & 3;
   const uint32_t seed = (uint32_t)seed_ptr[0];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int i = tid; i < N * E; i += THREADS) {
-    const float v = q[(size_t)b * N * E + i];
-    S.q[i / E][i % E] = v;
-    S.tq[i / E][i % E] = tanhf(v);
-  }
-  for (int i = tid; i < N * F; i += THREADS) S.dout[i / F][i % F] = dout[(size_t)b * N * F + i];
-  if (tid < N) {
-    const size_t bn = (size_t)b * N + tid;
-    const float lv = l[bn];
-    S.stat[0][tid] = m[bn];
-    S.stat[1][tid] = lv == 0.f ? 1.f : 1.f / lv;
-    S.stat[2][tid] = di[bn];
-    S.stat[3][tid] = dssq != nullptr ? dssq[bn] : 0.f;
-    S.stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
-  }
-  float bias[EPT];
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) bias[j] = bk[lane_col(j, lane)];
-  // column-owner accumulators: thread tid owns E column tid (dq's tanh term,
-  // dbk) and F column tid (z = sum_r da_r kv_r); thread n < N owns sum_r da
-  float dqu[NMAX], z[NMAX], sda = 0.f, dbk_acc = 0.f;
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) dqu[n] = z[n] = 0.f;
-
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, n_tiles);
-  const float* kv_b = kv + (size_t)b * M * F;
-  float* dwk_blk = dwk_part + ((size_t)b * P + split) * F * E;
-  __syncthreads();
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
 
-  for (int t = t0; t < t1; ++t) {
-    const int m0 = t * FK_BM;
-    // ---- kv tile -> shared ----
-    for (int i = tid; i < FK_BM * F / 4; i += THREADS) {
-      const int r = i / (F / 4), c4 = i % (F / 4);
-      const float4 v = m0 + r < M
-          ? reinterpret_cast<const float4*>(kv_b + (size_t)(m0 + r) * F)[c4] : zero4;
-      reinterpret_cast<float4*>(&S.kv[r][0])[c4] = v;
+  // wk chunk s of the block's sequence (NC a unit: NCF row chunks [WC][E]
+  // for k, then NCE column chunks [F][WC] for dkv) into ring slot s % 3
+  auto issue_chunk = [&](int s) {
+    if (i0 + s / NC >= i1) return;
+    const int c = s % NC;
+    if (c < NCF) load_tile_async<WC, E, RS>(S.ring[s % 3], wk, E, c * WC, F);
+    else load_tile_async<F, WC, CS>(S.ring[s % 3], wk + (c - NCF) * WC, E, 0, F);
+  };
+  if (i0 < i1) {
+    const int u = list[i0];
+    load_tile_async<FK_BM, F, KVS>(&S.kv[0][0], kv + (size_t)(u / n_tiles) * M * F, F,
+                                   (u % n_tiles) * FK_BM, M);
+  }
+  issue_chunk(0);
+  cp_async_commit();
+  issue_chunk(1);
+  cp_async_commit();
+
+  // column-owner accumulators of the current bag: thread tid owns E column
+  // tid (dq's tanh term) and F column tid (z = sum_r da_r kv_r); thread
+  // n < N owns sum_r da; dbk sums over every bag of the block
+  float dqu[NMAX], z[NMAX], sda = 0.f, dbk_acc = 0.f;
+  int b = -1;
+  // The bag's dq partial (partial g + b: unique per visited (block, bag)
+  // pair, as both rise along the unit list); z and sda pass through S.k.
+  auto flush = [&]() {
+    __syncthreads();  // the last tile's dkv product is done with S.k
+    float* zs = &S.k[0][0];  // [NMAX][F], then sda [NMAX]
+    if (tid < F)
+      for (int n = 0; n < N; ++n) zs[n * F + tid] = z[n];
+    if (tid < N) zs[NMAX * F + tid] = sda;
+    __syncthreads();
+    if (tid < E) {
+      float v[NMAX];
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
+      for (int f = 0; f < F; ++f) {
+        const float w = wk[(size_t)f * E + tid];
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n)
+          if (n < N) v[n] = fmaf(zs[n * F + f], w, v[n]);
+      }
+      const float bkv = bk[tid];
+      float* dst = dq_part + ((size_t)blockIdx.x + b) * N * E;
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) {
+          const float tq = S.tq[n][tid];
+          dst[n * E + tid] = scale * (v[n] + zs[NMAX * F + n] * bkv) + (1.f - tq * tq) * dqu[n];
+        }
+      }
+    }
+    __syncthreads();  // zs and S.tq read before they are rewritten
+  };
+
+  int s = 0;  // the block's chunk step
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, m0 = (u % n_tiles) * FK_BM;
+    if (ub != b) {  // a new bag: flush the last one's dq partial, load this one's rows
+      if (b >= 0) flush();
+      b = ub;
+      for (int j = tid; j < N * E; j += THREADS) {
+        const float v = q[(size_t)b * N * E + j];
+        S.q[j / E][j % E] = v;
+        S.tq[j / E][j % E] = tanhf(v);
+      }
+      for (int j = tid; j < N * F; j += THREADS) S.dout[j / F][j % F] = dout[(size_t)b * N * F + j];
+      if (tid < N) {
+        const size_t bn = (size_t)b * N + tid;
+        const float lv = l[bn];
+        S.stat[0][tid] = m[bn];
+        S.stat[1][tid] = lv == 0.f ? 1.f : 1.f / lv;
+        S.stat[2][tid] = di[bn];
+        S.stat[3][tid] = dssq != nullptr ? dssq[bn] : 0.f;
+        S.stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) dqu[n] = z[n] = 0.f;
+      sda = 0.f;
+    }
+    const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
+    const float* kv_next = nullptr;  // the next unit's kv tile, loaded during dkv
+    int m0_next = 0;
+    if (i + 1 < i1) {
+      const int un = list[i + 1];
+      kv_next = kv + (size_t)(un / n_tiles) * M * F;
+      m0_next = (un % n_tiles) * FK_BM;
+    }
+
+    // ---- k tile = kv wk + bk -> S.k ----
+    {
+      float c[2][NTE][4];
+      zero_c<NTE>(c[0]);
+      zero_c<NTE>(c[1]);
+#pragma unroll 1
+      for (int ch = 0; ch < NCF; ++ch, ++s) {
+        if (ch == 0) cp_async_wait<0>();  // this tile's kv too
+        else cp_async_wait<1>();
+        __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
+        issue_chunk(s + 2);
+        cp_async_commit();
+        acc_product_rows<2, NTE, WC, S_::GK>(c, &S.kv[0][ch * WC], KVS, S.ring[s % 3], RS,
+                                             32 * wr, 8 * NTE * wc, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        const int col = 8 * NTE * wc + 8 * j + 2 * t4;
+        const float b0 = bk[col], b1 = bk[col + 1];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          c[r][j][0] += b0; c[r][j][1] += b1;
+          c[r][j][2] += b0; c[r][j][3] += b1;
+        }
+      }
+      store_c<NTE>(c[0], &S.k[0][0], KS, 32 * wr, 8 * NTE * wc, lane);
+      store_c<NTE>(c[1], &S.k[0][0], KS, 32 * wr + 16, 8 * NTE * wc, lane);
     }
     __syncthreads();
-
-    // ---- k tile = kv @ wk + bk (warp: 8 key rows, lane: EPT columns) ----
-    float acc[FK_RPW][EPT];
+    // ---- a = q.k * scale; tanh(k) over k; gate; dp = dO.kv (warp: 8 keys) ----
+    {
+      float kr[FK_RPW][EPT];
 #pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
+      for (int i = 0; i < FK_RPW; ++i)
 #pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] = 0.f;
-    for (int f0 = 0; f0 < F; f0 += FK_BF) {
-      for (int i = tid; i < FK_BF * E / 4; i += THREADS) {
-        const int r = i / (E / 4), c = i % (E / 4);
-        reinterpret_cast<float4*>(&S.w[r][0])[c] =
-            reinterpret_cast<const float4*>(wk + (size_t)(f0 + r) * E)[c];
+        for (int j4 = 0; j4 < EPT / 4; ++j4) {
+          const float4 v = *reinterpret_cast<const float4*>(&S.k[warp * FK_RPW + i][j4 * 128 + 4 * lane]);
+          kr[i][4 * j4] = v.x; kr[i][4 * j4 + 1] = v.y; kr[i][4 * j4 + 2] = v.z; kr[i][4 * j4 + 3] = v.w;
+        }
+      static_assert(FK_RPW == 8, "sum8: 8 keys a warp");
+      const int ri = warp * FK_RPW + sum8_index(lane);  // the key this lane's sums belong to
+      const bool writer = (lane & 3) == 0;
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float qv[EPT], p[FK_RPW];
+#pragma unroll
+        for (int j = 0; j < EPT; ++j) qv[j] = S.q[n][lane_col(j, lane)];
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) {
+          p[i] = 0.f;
+#pragma unroll
+          for (int j = 0; j < EPT; ++j) p[i] = fmaf(kr[i][j], qv[j], p[i]);
+        }
+        const float a = sum8(p, lane);
+        if (writer) S.a_pd[n][ri] = a * scale;
       }
-      __syncthreads();
 #pragma unroll
-      for (int k4 = 0; k4 < FK_BF; k4 += 4) {
-        float4 a4[FK_RPW];
+      for (int i = 0; i < FK_RPW; ++i) {
 #pragma unroll
-        for (int i = 0; i < FK_RPW; ++i)
-          a4[i] = *reinterpret_cast<const float4*>(&S.kv[warp * FK_RPW + i][f0 + k4]);
+        for (int j = 0; j < EPT; ++j) kr[i][j] = tanhf(kr[i][j]);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float w[EPT];
+        for (int j4 = 0; j4 < EPT / 4; ++j4)
+          *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][j4 * 128 + 4 * lane]) =
+              make_float4(kr[i][4 * j4], kr[i][4 * j4 + 1], kr[i][4 * j4 + 2], kr[i][4 * j4 + 3]);
+      }
 #pragma unroll
-          for (int j4 = 0; j4 < EPT / 4; ++j4) {
-            const float4 wv = *reinterpret_cast<const float4*>(&S.w[k4 + kk][j4 * 128 + 4 * lane]);
-            w[4 * j4 + 0] = wv.x; w[4 * j4 + 1] = wv.y; w[4 * j4 + 2] = wv.z; w[4 * j4 + 3] = wv.w;
-          }
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float tv[EPT], u[FK_RPW];
 #pragma unroll
-          for (int i = 0; i < FK_RPW; ++i) {
-            const float av = f4get(a4[i], kk);
+        for (int j = 0; j < EPT; ++j) tv[j] = S.tq[n][lane_col(j, lane)];
 #pragma unroll
-            for (int j = 0; j < EPT; ++j) acc[i][j] = fmaf(av, w[j], acc[i][j]);
+        for (int i = 0; i < FK_RPW; ++i) {
+          u[i] = 0.f;
+#pragma unroll
+          for (int j = 0; j < EPT; ++j) u[i] = fmaf(kr[i][j], tv[j], u[i]);
+        }
+        const float us = sum8(u, lane);
+        if (writer) S.g_da[n][ri] = (us + 1.f) * 0.5f;
+      }
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float dv[FPT], p[FK_RPW];
+#pragma unroll
+        for (int j = 0; j < FPT; ++j) dv[j] = S.dout[n][lane_col(j, lane)];
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) {
+          p[i] = 0.f;
+#pragma unroll
+          for (int j4 = 0; j4 < FPT / 4; ++j4) {
+            const float4 x = *reinterpret_cast<const float4*>(&S.kv[warp * FK_RPW + i][j4 * 128 + 4 * lane]);
+            p[i] = fmaf(x.x, dv[4 * j4], fmaf(x.y, dv[4 * j4 + 1], fmaf(x.z, dv[4 * j4 + 2], fmaf(x.w, dv[4 * j4 + 3], p[i]))));
           }
         }
-      }
-      __syncthreads();
-    }
-
-    // ---- a = q.k * scale; tanh(k) -> shared; gate; dp = dO.kv ----
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] += bias[j];
-    for (int n = 0; n < N; ++n) {
-      float qv[EPT];
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) qv[j] = S.q[n][lane_col(j, lane)];
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float p = 0.f;
-#pragma unroll
-        for (int j = 0; j < EPT; ++j) p = fmaf(acc[i][j], qv[j], p);
-        p = warp_sum(p);
-        if (lane == i) S.a[n][warp * FK_RPW + i] = p * scale;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i) {
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] = tanhf(acc[i][j]);
-#pragma unroll
-      for (int j4 = 0; j4 < EPT / 4; ++j4)
-        *reinterpret_cast<float4*>(&S.tk[warp * FK_RPW + i][j4 * 128 + 4 * lane]) =
-            make_float4(acc[i][4 * j4], acc[i][4 * j4 + 1], acc[i][4 * j4 + 2], acc[i][4 * j4 + 3]);
-    }
-    for (int n = 0; n < N; ++n) {
-      float tv[EPT];
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) tv[j] = S.tq[n][lane_col(j, lane)];
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float u = 0.f;
-#pragma unroll
-        for (int j = 0; j < EPT; ++j) u = fmaf(acc[i][j], tv[j], u);
-        u = warp_sum(u);
-        if (lane == i) S.g[n][warp * FK_RPW + i] = (u + 1.f) * 0.5f;
-      }
-    }
-    for (int n = 0; n < N; ++n) {
-      float dv[FPT];
-#pragma unroll
-      for (int j = 0; j < FPT; ++j) dv[j] = S.dout[n][lane_col(j, lane)];
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float p = 0.f;
-#pragma unroll
-        for (int j4 = 0; j4 < FPT / 4; ++j4) {
-          const float4 x = *reinterpret_cast<const float4*>(&S.kv[warp * FK_RPW + i][j4 * 128 + 4 * lane]);
-          p = fmaf(x.x, dv[4 * j4], fmaf(x.y, dv[4 * j4 + 1], fmaf(x.z, dv[4 * j4 + 2], fmaf(x.w, dv[4 * j4 + 3], p))));
-        }
-        p = warp_sum(p);
-        if (lane == i) S.dp[n][warp * FK_RPW + i] = p;
+        const float dp = sum8(p, lane);
+        if (writer) S.dp_du[n][ri] = dp;
       }
     }
     __syncthreads();
@@ -237,8 +414,8 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       const int n = idx / FK_BM, r = idx % FK_BM, key = m0 + r;
       float pd = 0.f, da = 0.f, du = 0.f;
       if (key < M) {  // keys past M do not exist: p = 0
-        const bool valid = mask == nullptr || mask[(size_t)b * M + key];
-        const float a = S.a[n][r], g = S.g[n][r];
+        const bool valid = mask_b == nullptr || mask_b[key];
+        const float a = S.a_pd[n][r], g = S.g_da[n][r];
         const float s = valid ? a * g : NEG;
         const float p = expf(s - S.stat[0][n]) * S.stat[1][n];
         pd = p;
@@ -246,25 +423,25 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
           pd = dropout_bits(seed, (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
               ? p * keep_scale : 0.f;
         if (valid) {
-          const float ds = pd * S.dp[n][r] - p * S.stat[2][n]
+          const float ds = pd * S.dp_du[n][r] - p * S.stat[2][n]
               + 2.f * S.stat[3][n] * pd * pd + S.stat[4][n] * pd;
           da = ds * g;
           du = ds * a * 0.5f;
         }
       }
-      S.pd[n][r] = pd;
-      S.da[n][r] = da;
-      S.du[n][r] = du;
+      S.a_pd[n][r] = pd;
+      S.g_da[n][r] = da;
+      S.dp_du[n][r] = du;
     }
     __syncthreads();
 
     // ---- column-owner sums over the tile's keys ----
     if (tid < E) {
       for (int r = 0; r < FK_BM; ++r) {
-        const float tkv = S.tk[r][tid];
+        const float tkv = S.k[r][tid];
 #pragma unroll
         for (int n = 0; n < NMAX; ++n)
-          if (n < N) dqu[n] = fmaf(S.du[n][r], tkv, dqu[n]);
+          if (n < N) dqu[n] = fmaf(S.dp_du[n][r], tkv, dqu[n]);
       }
     }
     if (tid < F) {
@@ -272,202 +449,195 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         const float x = S.kv[r][tid];
 #pragma unroll
         for (int n = 0; n < NMAX; ++n)
-          if (n < N) z[n] = fmaf(S.da[n][r], x, z[n]);
+          if (n < N) z[n] = fmaf(S.g_da[n][r], x, z[n]);
       }
     }
     if (tid < N)
-      for (int r = 0; r < FK_BM; ++r) sda += S.da[tid][r];
+      for (int r = 0; r < FK_BM; ++r) sda += S.g_da[tid][r];
     __syncthreads();
 
-    // ---- dk, in place over tanh(k) ----
+    // ---- dk, over tanh(k) (warp: 8 keys, lane: 4 columns of each 128) ----
 #pragma unroll
-    for (int i = 0; i < FK_RPW; ++i) {
-      const int row = warp * FK_RPW + i;
+    for (int j4 = 0; j4 < EPT / 4; ++j4) {
+      const int c = j4 * 128 + 4 * lane;
+      float4 sa[FK_RPW], su[FK_RPW];
 #pragma unroll
-      for (int j4 = 0; j4 < EPT / 4; ++j4) {
-        const int c = j4 * 128 + 4 * lane;
-        const float4 t4 = *reinterpret_cast<const float4*>(&S.tk[row][c]);
-        float4 sa = zero4, su = zero4;
-        for (int n = 0; n < N; ++n) {
-          const float dav = S.da[n][row], duv = S.du[n][row];
-          const float4 q4 = *reinterpret_cast<const float4*>(&S.q[n][c]);
-          const float4 u4 = *reinterpret_cast<const float4*>(&S.tq[n][c]);
-          sa.x = fmaf(dav, q4.x, sa.x); sa.y = fmaf(dav, q4.y, sa.y);
-          sa.z = fmaf(dav, q4.z, sa.z); sa.w = fmaf(dav, q4.w, sa.w);
-          su.x = fmaf(duv, u4.x, su.x); su.y = fmaf(duv, u4.y, su.y);
-          su.z = fmaf(duv, u4.z, su.z); su.w = fmaf(duv, u4.w, su.w);
+      for (int i = 0; i < FK_RPW; ++i) sa[i] = su[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        const float4 q4 = *reinterpret_cast<const float4*>(&S.q[n][c]);
+        const float4 u4 = *reinterpret_cast<const float4*>(&S.tq[n][c]);
+        float dav[FK_RPW], duv[FK_RPW];
+#pragma unroll
+        for (int h = 0; h < FK_RPW / 4; ++h) {
+          const float4 a4 = *reinterpret_cast<const float4*>(&S.g_da[n][warp * FK_RPW + 4 * h]);
+          const float4 b4 = *reinterpret_cast<const float4*>(&S.dp_du[n][warp * FK_RPW + 4 * h]);
+          dav[4 * h] = a4.x; dav[4 * h + 1] = a4.y; dav[4 * h + 2] = a4.z; dav[4 * h + 3] = a4.w;
+          duv[4 * h] = b4.x; duv[4 * h + 1] = b4.y; duv[4 * h + 2] = b4.z; duv[4 * h + 3] = b4.w;
         }
-        *reinterpret_cast<float4*>(&S.tk[row][c]) = make_float4(
-            scale * sa.x + (1.f - t4.x * t4.x) * su.x, scale * sa.y + (1.f - t4.y * t4.y) * su.y,
-            scale * sa.z + (1.f - t4.z * t4.z) * su.z, scale * sa.w + (1.f - t4.w * t4.w) * su.w);
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) {
+          sa[i].x = fmaf(dav[i], q4.x, sa[i].x); sa[i].y = fmaf(dav[i], q4.y, sa[i].y);
+          sa[i].z = fmaf(dav[i], q4.z, sa[i].z); sa[i].w = fmaf(dav[i], q4.w, sa[i].w);
+          su[i].x = fmaf(duv[i], u4.x, su[i].x); su[i].y = fmaf(duv[i], u4.y, su[i].y);
+          su[i].z = fmaf(duv[i], u4.z, su[i].z); su[i].w = fmaf(duv[i], u4.w, su[i].w);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < FK_RPW; ++i) {
+        float4* kp = reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][c]);
+        const float4 t4v = *kp;
+        *kp = make_float4(scale * sa[i].x + (1.f - t4v.x * t4v.x) * su[i].x,
+                          scale * sa[i].y + (1.f - t4v.y * t4v.y) * su[i].y,
+                          scale * sa[i].z + (1.f - t4v.z * t4v.z) * su[i].z,
+                          scale * sa[i].w + (1.f - t4v.w * t4v.w) * su[i].w);
       }
     }
     __syncthreads();
     if (tid < E)
-      for (int r = 0; r < FK_BM; ++r) dbk_acc += S.tk[r][tid];
-
-    // ---- dkv = pd^T dO + dk wk^T (warp: 8 key rows, lane: FPT columns) ----
-    float acc2[FK_RPW][FPT];
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < FPT; ++j) acc2[i][j] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float dv[FPT];
-#pragma unroll
-      for (int j = 0; j < FPT; ++j) dv[j] = S.dout[n][lane_col(j, lane)];
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        const float pdv = S.pd[n][warp * FK_RPW + i];
-#pragma unroll
-        for (int j = 0; j < FPT; ++j) acc2[i][j] = fmaf(pdv, dv[j], acc2[i][j]);
-      }
-    }
-    for (int e0 = 0; e0 < E; e0 += FK_BF) {
-      for (int f = tid; f < F; f += THREADS) {  // S.w[ee][f] = wk[f][e0 + ee]
-        const float4* src = reinterpret_cast<const float4*>(wk + (size_t)f * E + e0);
-#pragma unroll
-        for (int c = 0; c < FK_BF / 4; ++c) {
-          const float4 v = src[c];
-          S.w[4 * c + 0][f] = v.x; S.w[4 * c + 1][f] = v.y;
-          S.w[4 * c + 2][f] = v.z; S.w[4 * c + 3][f] = v.w;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k4 = 0; k4 < FK_BF; k4 += 4) {
-        float4 a4[FK_RPW];
-#pragma unroll
-        for (int i = 0; i < FK_RPW; ++i)
-          a4[i] = *reinterpret_cast<const float4*>(&S.tk[warp * FK_RPW + i][e0 + k4]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float w[FPT];
-#pragma unroll
-          for (int j4 = 0; j4 < FPT / 4; ++j4) {
-            const float4 wv = *reinterpret_cast<const float4*>(&S.w[k4 + kk][j4 * 128 + 4 * lane]);
-            w[4 * j4 + 0] = wv.x; w[4 * j4 + 1] = wv.y; w[4 * j4 + 2] = wv.z; w[4 * j4 + 3] = wv.w;
-          }
-#pragma unroll
-          for (int i = 0; i < FK_RPW; ++i) {
-            const float av = f4get(a4[i], kk);
-#pragma unroll
-            for (int j = 0; j < FPT; ++j) acc2[i][j] = fmaf(av, w[j], acc2[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i) {
-      const int key = m0 + warp * FK_RPW + i;
-      if (key < M) {
-        float* dst = dkv + ((size_t)b * M + key) * F;
-#pragma unroll
-        for (int j4 = 0; j4 < FPT / 4; ++j4)
-          *reinterpret_cast<float4*>(dst + j4 * 128 + 4 * lane) = make_float4(
-              acc2[i][4 * j4], acc2[i][4 * j4 + 1], acc2[i][4 * j4 + 2], acc2[i][4 * j4 + 3]);
-      }
+      for (int r = 0; r < FK_BM; ++r) dbk_acc += S.k[r][tid];
+    for (int idx = tid; idx < FK_BM * E / 4; idx += THREADS) {  // dk -> scratch, for dwk_kernel
+      const int r = idx / (E / 4), c4 = idx % (E / 4);
+      if (m0 + r < M)
+        reinterpret_cast<float4*>(dk_out + ((size_t)b * M + m0 + r) * E)[c4] =
+            reinterpret_cast<const float4*>(&S.k[r][0])[c4];
     }
 
-    // ---- dwk partial += kv^T dk (warp: 8 F rows of a 64-row pass, lane: EPT columns) ----
-    const bool first = t == t0;
-    for (int fc0 = 0; fc0 < F; fc0 += FK_BM) {
-      float acc3[FK_RPW][EPT];
+    // ---- dkv = pd^T dO + dk wk^T ----
+    {
+      float d[2][NTF][4];
+      zero_c<NTF>(d[0]);
+      zero_c<NTF>(d[1]);
+      for (int n = 0; n < N; ++n) {
+        float pr[2][2];
 #pragma unroll
-      for (int i = 0; i < FK_RPW; ++i)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int j = 0; j < EPT; ++j) acc3[i][j] = 0.f;
-      for (int r = 0; r < FK_BM; ++r) {
-        const float4 x0 = *reinterpret_cast<const float4*>(&S.kv[r][fc0 + warp * FK_RPW]);
-        const float4 x1 = *reinterpret_cast<const float4*>(&S.kv[r][fc0 + warp * FK_RPW + 4]);
-        const float xf[FK_RPW] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        float dk[EPT];
+          for (int h = 0; h < 2; ++h) pr[r][h] = S.a_pd[n][32 * wr + 16 * r + g4 + 8 * h];
 #pragma unroll
-        for (int j4 = 0; j4 < EPT / 4; ++j4) {
-          const float4 v = *reinterpret_cast<const float4*>(&S.tk[r][j4 * 128 + 4 * lane]);
-          dk[4 * j4 + 0] = v.x; dk[4 * j4 + 1] = v.y; dk[4 * j4 + 2] = v.z; dk[4 * j4 + 3] = v.w;
-        }
+        for (int j = 0; j < NTF; ++j) {
+          const float2 dv = *reinterpret_cast<const float2*>(&S.dout[n][8 * NTF * wc + 8 * j + 2 * t4]);
 #pragma unroll
-        for (int i = 0; i < FK_RPW; ++i)
+          for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int j = 0; j < EPT; ++j) acc3[i][j] = fmaf(xf[i], dk[j], acc3[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float* dst = dwk_blk + (size_t)(fc0 + warp * FK_RPW + i) * E;
-#pragma unroll
-        for (int j4 = 0; j4 < EPT / 4; ++j4) {
-          float4* p4 = reinterpret_cast<float4*>(dst + j4 * 128 + 4 * lane);
-          float4 v = first ? zero4 : *p4;
-          v.x += acc3[i][4 * j4]; v.y += acc3[i][4 * j4 + 1];
-          v.z += acc3[i][4 * j4 + 2]; v.w += acc3[i][4 * j4 + 3];
-          *p4 = v;
+            for (int h = 0; h < 2; ++h) {
+              d[r][j][2 * h] = fmaf(pr[r][h], dv.x, d[r][j][2 * h]);
+              d[r][j][2 * h + 1] = fmaf(pr[r][h], dv.y, d[r][j][2 * h + 1]);
+            }
         }
       }
-    }
-    __syncthreads();  // kv / tk / per-key arrays are rewritten by the next tile
-  }
-
-  // ---- this block's dq and dbk partials ----
-  if (tid < F) {
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) S.kv[n][tid] = z[n];
-  }
-  if (tid < N) S.stat[0][tid] = sda;
-  __syncthreads();
-  if (tid < E) {
-    float v[NMAX];
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float w = wk[(size_t)f * E + tid];
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n)
-        if (n < N) v[n] = fmaf(S.kv[n][f], w, v[n]);
-    }
-    const float bkv = bk[tid];
-    const size_t pb = (size_t)b * P + split;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        const float tq = S.tq[n][tid];
-        dq_part[(pb * N + n) * E + tid] =
-            scale * (v[n] + S.stat[0][n] * bkv) + (1.f - tq * tq) * dqu[n];
+#pragma unroll 1
+      for (int ch = 0; ch < S_::NCE; ++ch, ++s) {
+        cp_async_wait<1>();
+        __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
+        issue_chunk(s + 2);
+        if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
+          load_tile_async<S_::KV_ROWS, F, KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
+                                               m0_next + ch * S_::KV_ROWS, M);
+        cp_async_commit();
+        row_product_rows<2, NTF, WC, S_::GD>(d, &S.k[0][ch * WC], KS, S.ring[s % 3], CS, 32 * wr,
+                                             8 * NTF * wc, 0, lane);
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = m0 + 32 * wr + 16 * r + g4 + 8 * h;
+          if (key >= M) continue;
+          float* dst = dkv + ((size_t)b * M + key) * F + 8 * NTF * wc + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < NTF; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(d[r][j][2 * h], d[r][j][2 * h + 1]);
+        }
     }
-    dbk_part[pb * E + tid] = dbk_acc;
   }
+  cp_async_wait<0>();
+  if (b >= 0) flush();
+  if (tid < E) dbk_part[(size_t)blockIdx.x * E + tid] = dbk_acc;
 }
 
-// dq [B, N, E] = sum_p dq_part[b, p]; dwk [F, E], dbk [E] = sum over every
-// block's partial (dwk == NULL: dq only, the plain-K form). Each output
-// element is summed by one thread in a fixed order (no atomics:
-// deterministic).
+// dwk partial of one block: rows f0 .. f0+127 and columns e0 .. e0+127 of
+// kv^T dk over its share of the computed units (block y of W takes list
+// positions [y * per, (y + 1) * per)). 8 warps: 64 rows (four row groups) x
+// 32 columns each.
+constexpr int DW_T = 128;                     // dwk tile side a block
+constexpr int DW_S = DW_T + 4;                // staged slice stride: 4 mod 32
+constexpr int DW_STAGE = 2 * FK_BM * DW_S;    // kv slice + dk slice (floats)
+constexpr int DW_SMEM = 2 * DW_STAGE * 4;     // two stages, bytes
+
+template <int E, int F>
+__global__ void __launch_bounds__(THREADS)
+dwk_kernel(const float* __restrict__ kv, const float* __restrict__ dk,
+           const int* __restrict__ list, const int* __restrict__ off,
+           float* __restrict__ dwk_part, int B, int M) {
+  extern __shared__ __align__(16) float dw_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp & 1, wc = warp >> 1;
+  const int f0 = (blockIdx.x / (E / DW_T)) * DW_T, e0 = (blockIdx.x % (E / DW_T)) * DW_T;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = units_per_block(off, B, gridDim.y);
+  const int i0 = min(off[B], (int)blockIdx.y * per), i1 = min(off[B], i0 + per);
+  float c[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) zero_c<4>(c[i]);
+  auto stage_in = [&](int i, float* dst) {
+    const int u = list[i], bb = u / n_tiles, r0 = (u % n_tiles) * FK_BM;
+    load_tile_async<FK_BM, DW_T, DW_S>(dst, kv + (size_t)bb * M * F + f0, F, r0, M);
+    load_tile_async<FK_BM, DW_T, DW_S>(dst + FK_BM * DW_S, dk + (size_t)bb * M * E + e0, E, r0, M);
+  };
+  if (i0 < i1) stage_in(i0, dw_smem);
+  cp_async_commit();
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage st landed; stage st ^ 1 is free
+    if (i + 1 < i1) stage_in(i + 1, dw_smem + (st ^ 1) * DW_STAGE);
+    cp_async_commit();
+    const float* sp = dw_smem + st * DW_STAGE;
+    acc_product_rows<4, 4, FK_BM, 4, true>(c, sp, DW_S, sp + FK_BM * DW_S, DW_S, 64 * wr, 32 * wc,
+                                           lane);
+  }
+  cp_async_wait<0>();
+  float* part = dwk_part + (size_t)blockIdx.y * F * E;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) store_c<4>(c[i], part, E, f0 + 64 * wr + 16 * i, e0 + 32 * wc, lane);
+}
+
+// The fuse-K form (off != NULL): dq [B, N, E] = sum of bag b's partials
+// g + b over the main pass's blocks g that held its units, in g order;
+// dwk [F, E] = sum of the W partials dwk_part; dbk [E] = sum of the P main
+// blocks' partials. The plain-K form (off == NULL, dwk == NULL): dq = sum
+// over the P splits of each bag. Each output element is summed by one
+// thread in a fixed order (no atomics: deterministic).
 __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dwk_part,
-              const float* __restrict__ dbk_part, float* __restrict__ dq,
-              float* __restrict__ dwk, float* __restrict__ dbk, int B, int P, int N, int E,
-              int F) {
+                  const float* __restrict__ dbk_part, const int* __restrict__ off,
+                  float* __restrict__ dq, float* __restrict__ dwk, float* __restrict__ dbk,
+                  int B, int P, int W, int N, int E, int F) {
   const size_t nq = (size_t)B * N * E, nw = (size_t)F * E;
   const size_t total = dwk != nullptr ? nq + nw + E : nq;
   const size_t ne = (size_t)N * E;
-  const int blocks = B * P;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
     float acc = 0.f;
     if (i < nq) {
       const size_t b = i / ne, j = i % ne;
-      for (int p = 0; p < P; ++p) acc += dq_part[(b * P + p) * ne + j];
+      if (off != nullptr) {
+        const int per = units_per_block(off, B, P);
+        for (int g = off[b] / per; g <= (off[b + 1] - 1) / per; ++g)
+          acc += dq_part[(g + b) * ne + j];
+      } else {
+        for (int p = 0; p < P; ++p) acc += dq_part[(b * P + p) * ne + j];
+      }
       dq[i] = acc;
     } else if (i < nq + nw) {
       const size_t j = i - nq;
-      for (int k = 0; k < blocks; ++k) acc += dwk_part[(size_t)k * nw + j];
+      for (int k = 0; k < W; ++k) acc += dwk_part[(size_t)k * nw + j];
       dwk[j] = acc;
     } else {
       const size_t j = i - nq - nw;
-      for (int k = 0; k < blocks; ++k) acc += dbk_part[(size_t)k * E + j];
+      for (int k = 0; k < P; ++k) acc += dbk_part[(size_t)k * E + j];
       dbk[j] = acc;
     }
   }
@@ -677,16 +847,26 @@ template <int E, int F>
 int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk,
                const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
                const float* dout, const float* l, const float* m, const float* di,
-               const float* dssq, const float* dsumw, float* dkv, float* dq_part,
-               float* dwk_part, float* dbk_part, int B, int N, int M, int splits, int per,
-               float scale, cudaStream_t st) {
-  const int smem = (int)sizeof(BwdSmem<E, F>);
-  int err = (int)cudaFuncSetAttribute(fused_k_bwd_kernel<E, F>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+               const float* dssq, const float* dsumw, float* dkv, float* dk_scratch,
+               uint8_t* flags, int* list, int* off, float* dq_part, float* dwk_part,
+               float* dbk_part, int B, int N, int M, int blocks, int wsplits, float scale,
+               cudaStream_t st) {
+  static bool allowed_main[64] = {}, allowed_dwk[64] = {};
+  constexpr int smem = (int)sizeof(FkSmem<E, F>);
+  static_assert(smem <= 232448, "shared memory of one block");
+  int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F>, smem, allowed_main);
   if (err) return err;
-  fused_k_bwd_kernel<E, F><<<dim3(B, splits), THREADS, smem, st>>>(
+  err = allow_dynamic_smem(dwk_kernel<E, F>, DW_SMEM, allowed_dwk);
+  if (err) return err;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  fk_tiles_kernel<F><<<dim3(B, (n_tiles + FK_FLAG_TILES - 1) / FK_FLAG_TILES), THREADS, 0, st>>>(
+      mask, dkv, flags, M);
+  fk_list_kernel<<<1, THREADS, 0, st>>>(flags, list, off, B, n_tiles);
+  fused_k_bwd_kernel<E, F><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dkv,
-      dq_part, dwk_part, dbk_part, N, M, per, scale);
+      dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);
+  dwk_kernel<E, F><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
+      kv, dk_scratch, list, off, dwk_part, B, M);
   return (int)cudaGetLastError();
 }
 
@@ -698,36 +878,35 @@ extern "C" {
 // bk [E], mask [B, M] bool or NULL, seed: one int32 on the device, thresh /
 // keep_scale as there) plus dout [B, N, F] and l, m, di [B, N]; dssq, dsumw
 // [B, N] or NULL (zero cotangents). Out: dq [B, N, E], dkv [B, M, F],
-// dwk [F, E], dbk [E]. Scratch: dq_part [B, splits, N, E], dwk_part
-// [B * splits, F, E], dbk_part [B * splits, E]. Every split must own at least
-// one of the ceil(M / 64) key tiles. E, F in {128, 256}; N <= 8.
+// dwk [F, E], dbk [E]. Scratch: dk_scratch [B, M, E], flags [B * T] uint8,
+// list [B * T] and off [B + 1] int32 (T = ceil(M / 64) key tiles a bag),
+// dq_part [blocks + B, N, E], dbk_part [blocks, E], dwk_part [wsplits, F, E].
+// E, F in {128, 256}; N <= 8.
 int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, const float* bk,
                            const uint8_t* mask, const int* seed, const float* dout,
                            const float* l, const float* m, const float* di,
                            const float* dssq, const float* dsumw, float* dq, float* dkv,
                            float* dwk, float* dbk, float* dq_part, float* dwk_part,
-                           float* dbk_part, int B, int N, int M, int F, int E, int splits,
+                           float* dbk_part, float* dk_scratch, uint8_t* flags, int* list,
+                           int* off, int B, int N, int M, int F, int E, int blocks, int wsplits,
                            float scale, uint32_t thresh, float keep_scale, void* stream) {
-  const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  if (N < 1 || N > NMAX || M < 1 || B < 1 || splits < 1 || splits > n_tiles)
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || blocks < 1 || wsplits < 1)
     return (int)cudaErrorInvalidValue;
-  const int per = (n_tiles + splits - 1) / splits;
-  if ((splits - 1) * per >= n_tiles) return (int)cudaErrorInvalidValue;  // an empty split
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
-#define MPO_BWD(E_, F_)                                                                  \
-  if (E == E_ && F == F_)                                                                \
-    err = launch_bwd<E_, F_>(q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, \
-                             dssq, dsumw, dkv, dq_part, dwk_part, dbk_part, B, N, M,        \
-                             splits, per, scale, st);
+#define MPO_BWD(E_, F_)                                                                    \
+  if (E == E_ && F == F_)                                                                  \
+    err = launch_bwd<E_, F_>(q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di,   \
+                             dssq, dsumw, dkv, dk_scratch, flags, list, off, dq_part,        \
+                             dwk_part, dbk_part, B, N, M, blocks, wsplits, scale, st);
   MPO_BWD(256, 256) else MPO_BWD(128, 128) else MPO_BWD(256, 128) else MPO_BWD(128, 256)
   else return (int)cudaErrorInvalidValue;
 #undef MPO_BWD
   if (err) return err;
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;
   const int grid = (int)((total + THREADS - 1) / THREADS);
-  bwd_reduce_kernel<<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, dq, dwk, dbk, B,
-                                          splits, N, E, F);
+  bwd_reduce_kernel<<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, off, dq, dwk, dbk, B,
+                                              blocks, wsplits, N, E, F);
   return (int)cudaGetLastError();
 }
 
@@ -758,7 +937,7 @@ int mpo_coattn_plain_bwd(const float* q, const float* k, const float* v, const u
   if (err) return err;
   const size_t total = (size_t)B * N * D;
   bwd_reduce_kernel<<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      dq_part, nullptr, nullptr, dq, nullptr, nullptr, B, splits, N, D, 0);
+      dq_part, nullptr, nullptr, nullptr, dq, nullptr, nullptr, B, splits, 0, N, D, 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-// Shared by csrc/flash.cu (forward) and csrc/flash_bwd.cu (backward): the
-// mask value, the tile copies between device and shared memory (cp.async),
-// the key-tile flags, and the two tensor-core products every phase of both
-// kernels is made of.
+// Shared by csrc/flash.cu (forward), csrc/flash_bwd.cu (backward) and
+// csrc/coattn_bwd.cu (the fuse-K co-attention backward): the mask value, the
+// tile copies between device and shared memory (cp.async), the key-tile
+// flags, and the two tensor-core products every phase of these kernels is
+// made of.
 //
 // Products run on the tensor cores as warp-level
 // mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 at float32 accuracy ("3xTF32",
@@ -21,7 +22,10 @@
 //   * "row" products C[16 x 8n] = X[16 rows][depth] Y[8n rows][depth]^T
 //     (scores; A = X rows, B = Y rows, both indexed (row, depth));
 //   * "acc" products C[16 x 8n] += P[16 rows][k] Y[k][8n columns]
-//     (P V and its kin; A = P, B = Y indexed (k, column)).
+//     (P V and its kin; A = P, B = Y indexed (k, column)), P optionally
+//     read transposed.
+// Either kind takes MR row groups of 16 at once (the _rows forms), splitting
+// each B fragment once for all of them.
 // Each 8-deep step sums in fresh registers and is added into the float32
 // sums with a rounded add (mma_group).
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, t = lane % 4:
@@ -176,18 +180,21 @@ __device__ __forceinline__ void mma_group(float (&c)[NT][4], int j0, const uint3
     for (int e = 0; e < 4; ++e) c[j0 + u][e] += t[u][e];
 }
 
-// "row" product: c[j] += X[r0.. +16][k] Y[n0 + 8j .. +8][k]^T over depths
-// k0 .. k0+KD-1, for NT column tiles of 8, G at a time.
-template <int NT, int KD, int G>
-__device__ __forceinline__ void row_product(float (&c)[NT][4], const float* __restrict__ x,
-                                            int xs, const float* __restrict__ y, int ys, int r0,
-                                            int n0, int k0, int lane) {
+// "row" product over MR row groups at once: c[i][j] += X[r0 + 16 i .. +16][k]
+// Y[n0 + 8j .. +8][k]^T over depths k0 .. k0+KD-1, for NT column tiles of 8,
+// G at a time; each B fragment is split once for all MR row groups.
+template <int MR, int NT, int KD, int G>
+__device__ __forceinline__ void row_product_rows(float (&c)[MR][NT][4],
+                                                 const float* __restrict__ x, int xs,
+                                                 const float* __restrict__ y, int ys, int r0,
+                                                 int n0, int k0, int lane) {
   static_assert(NT % G == 0, "column tile groups");
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 2
   for (int kk = 0; kk < KD; kk += 8) {
-    uint32_t ab[4], as[4];
-    load_a(ab, as, x, xs, r0, k0 + kk, lane);
+    uint32_t ab[MR][4], as[MR][4];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) load_a(ab[i], as[i], x, xs, r0 + 16 * i, k0 + kk, lane);
 #pragma unroll
     for (int j0 = 0; j0 < NT; j0 += G) {
       uint32_t bb[G][2], bs[G][2];
@@ -197,33 +204,57 @@ __device__ __forceinline__ void row_product(float (&c)[NT][4], const float* __re
         split_tf32(p[0], bb[u][0], bs[u][0]);
         split_tf32(p[4], bb[u][1], bs[u][1]);
       }
-      mma_group<NT, G>(c, j0, ab, as, bb, bs);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) mma_group<NT, G>(c[i], j0, ab[i], as[i], bb, bs);
     }
   }
 }
 
-// "acc" product: c[j] += P[r0.. +16][k] Y[k][n0 + 8j .. +8] over k in
-// 0 .. KC-1, for NT column tiles of 8, G at a time. The 8 k of a step are
-// taken in the order lane t holds k = 2t, 2t+1 (a0/a2 and b0/b1), not t, t+4:
-// the sum is the same, the A pair is one 8-byte load, and with the row
-// strides of Tiles (P: 8 mod 32 floats, Y: 4 mod 32) no load of the step has
-// a bank conflict.
-template <int NT, int KC, int G>
-__device__ __forceinline__ void acc_product(float (&c)[NT][4], const float* __restrict__ p,
-                                            int ps, const float* __restrict__ y, int ys, int r0,
-                                            int n0, int lane) {
+// "row" product of one row group: c[j] += X[r0.. +16][k] Y[n0 + 8j .. +8][k]^T.
+template <int NT, int KD, int G>
+__device__ __forceinline__ void row_product(float (&c)[NT][4], const float* __restrict__ x,
+                                            int xs, const float* __restrict__ y, int ys, int r0,
+                                            int n0, int k0, int lane) {
+  row_product_rows<1, NT, KD, G>(*reinterpret_cast<float(*)[1][NT][4]>(&c), x, xs, y, ys, r0,
+                                 n0, k0, lane);
+}
+
+// "acc" product over MR row groups at once: c[i][j] += P[r0 + 16 i .. +16][k]
+// Y[k][n0 + 8j .. +8] over k in 0 .. KC-1, for NT column tiles of 8, G at a
+// time; each B fragment is split once for all MR row groups. The 8 k of a
+// step are taken in the order lane t holds k = 2t, 2t+1 (a0/a2 and b0/b1),
+// not t, t+4: the sum is the same, the A pair is one 8-byte load, and with
+// the row strides of Tiles (P: 8 mod 32 floats, Y: 4 mod 32) no load of the
+// step has a bank conflict. TA: P lies transposed, element (row, k) at
+// p[k * ps + row] (an A fragment read column-major: kvT dk, whose kv tile
+// lies [keys][features]); conflict free with ps = 4 mod 32.
+template <int MR, int NT, int KC, int G, bool TA = false>
+__device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
+                                                 const float* __restrict__ p, int ps,
+                                                 const float* __restrict__ y, int ys, int r0,
+                                                 int n0, int lane) {
   static_assert(NT % G == 0, "column tile groups");
   const int g = lane >> 2, t = lane & 3;
-  const float* pa = p + (r0 + g) * ps + 2 * t;
 #pragma unroll 1
   for (int kk = 0; kk < KC; kk += 8) {
-    uint32_t ab[4], as[4];
-    const float2 lo = *reinterpret_cast<const float2*>(pa + kk);
-    const float2 hi = *reinterpret_cast<const float2*>(pa + 8 * ps + kk);
-    split_tf32(lo.x, ab[0], as[0]);
-    split_tf32(hi.x, ab[1], as[1]);
-    split_tf32(lo.y, ab[2], as[2]);
-    split_tf32(hi.y, ab[3], as[3]);
+    uint32_t ab[MR][4], as[MR][4];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int r = r0 + 16 * i + g;
+      float x0, x1, x2, x3;  // (r, 2t), (r + 8, 2t), (r, 2t + 1), (r + 8, 2t + 1)
+      if constexpr (TA) {
+        const float* pk = p + (kk + 2 * t) * ps + r;
+        x0 = pk[0]; x1 = pk[8]; x2 = pk[ps]; x3 = pk[ps + 8];
+      } else {
+        const float2 lo = *reinterpret_cast<const float2*>(p + r * ps + kk + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(p + (r + 8) * ps + kk + 2 * t);
+        x0 = lo.x; x1 = hi.x; x2 = lo.y; x3 = hi.y;
+      }
+      split_tf32(x0, ab[i][0], as[i][0]);
+      split_tf32(x1, ab[i][1], as[i][1]);
+      split_tf32(x2, ab[i][2], as[i][2]);
+      split_tf32(x3, ab[i][3], as[i][3]);
+    }
     const float* yk = y + (kk + 2 * t) * ys + n0 + g;
 #pragma unroll
     for (int j0 = 0; j0 < NT; j0 += G) {
@@ -233,9 +264,19 @@ __device__ __forceinline__ void acc_product(float (&c)[NT][4], const float* __re
         split_tf32(yk[8 * (j0 + u)], bb[u][0], bs[u][0]);
         split_tf32(yk[8 * (j0 + u) + ys], bb[u][1], bs[u][1]);
       }
-      mma_group<NT, G>(c, j0, ab, as, bb, bs);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) mma_group<NT, G>(c[i], j0, ab[i], as[i], bb, bs);
     }
   }
+}
+
+// "acc" product of one row group: c[j] += P[r0.. +16][k] Y[k][n0 + 8j .. +8].
+template <int NT, int KC, int G>
+__device__ __forceinline__ void acc_product(float (&c)[NT][4], const float* __restrict__ p,
+                                            int ps, const float* __restrict__ y, int ys, int r0,
+                                            int n0, int lane) {
+  acc_product_rows<1, NT, KC, G>(*reinterpret_cast<float(*)[1][NT][4]>(&c), p, ps, y, ys, r0,
+                                 n0, lane);
 }
 
 // A warp's C fragments (rows r0 .. r0+15, columns n0 .. n0+8*NT-1) into a

@@ -334,25 +334,36 @@ def coattn_bwd_fused_k(
     version recomputes what it needs and takes no l, m, di)."""
     if q.device.type == "cpu":
         return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
-    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
+    b, n, e, m_len, f, _, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
     kernels.require(dout, "dout", (b, n, f))
     for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
         kernels.require(t, name, (b, n))
+    # One block an SM shares out the 64-key tiles that hold a valid key (or
+    # every tile of a bag without one) evenly, across bags; dwk = kv^T dk in
+    # a second kernel, blocks of (a 128 x 128 tile of dwk, a share of those
+    # tiles), each writing one partial.
+    sms = kernels.sm_count(dev)
+    n_units = b * -(-m_len // FK_TILE)
+    wsplits = max(1, sms // ((f // 128) * (e // 128)))
     dq = torch.empty((b, n, e), device=dev)
     dkv = torch.empty((b, m_len, f), device=dev)
     dwk = torch.empty((f, e), device=dev)
     dbk = torch.empty((e,), device=dev)
-    dq_part = torch.empty((b, splits, n, e), device=dev)
-    dwk_part = torch.empty((b * splits, f, e), device=dev)
-    dbk_part = torch.empty((b * splits, e), device=dev)
+    dq_part = torch.empty((sms + b, n, e), device=dev)
+    dwk_part = torch.empty((wsplits, f, e), device=dev)
+    dbk_part = torch.empty((sms, e), device=dev)
+    dk_scratch = torch.empty((b, m_len, e), device=dev)
+    flags = torch.empty((n_units,), dtype=torch.uint8, device=dev)
+    units = torch.empty((n_units + b + 1,), dtype=torch.int32, device=dev)  # list, offsets
     err = kernels.library("coattn_bwd").mpo_coattn_bwd_fused_k(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
-        dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
+        dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(), dk_scratch.data_ptr(),
+        flags.data_ptr(), units.data_ptr(), units[n_units:].data_ptr(), b, n, m_len, f, e,
+        sms, wsplits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_fused_k")
     LAUNCH_COUNTS["coattn_bwd_fused_k"] += 1

@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mpo_coattn_plain_fwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _P],
     },
     "coattn_bwd": {
-        "mpo_coattn_bwd_fused_k": [_P] * 19 + [_I] * 6 + [_F, _U, _F, _P],
+        "mpo_coattn_bwd_fused_k": [_P] * 23 + [_I] * 7 + [_F, _U, _F, _P],
         "mpo_coattn_plain_bwd": [_P] * 15 + [_I] * 6 + [_F, _U, _F, _P],
     },
     "milpool": {

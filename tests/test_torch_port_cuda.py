@@ -130,15 +130,74 @@ def _close_rel(got, ref, rtol=GRAD_RTOL):
     assert (got - ref).abs().max() <= rtol * ref.abs().max()
 
 
+def _close_fk_grads(grads, ref, q, kv, wk, bk, mask, fwd, dout, dssq, dsumw, di):
+    """dq, dkv, dwk, dbk against the plain backward's. In a bag with one valid
+    key that key's weight is 1 and o = pd kv_r, so ds = pd dp - p di +
+    2 dssq pd^2 + dsumw pd is 0 in exact arithmetic, and so are the bag's dq
+    and dk (its dkv keeps pd^T dO): both sides hold float32 noise alone,
+    which a bound relative to the tensor's own largest value cannot compare.
+    There dq is held to 1e-4 of the terms that cancel, c_n = |o_n.dO_n| +
+    |di_n| + 2 |dssq_n ssq_n| + |dsumw_n sumw_n|, times the largest factor ds
+    meets on its way to dq (scale |k|max + |a|max / 2, |a| bounded by
+    scale |q_n|_1 |k|max); those bags' dk, bounded the same way, adds its
+    share to the limits of dwk (times |kv|max) and dbk. Every other bag, and
+    dkv, to 1e-4 of the tensor's largest value, as before."""
+    o, _, _, ssq, sumw = fwd
+    scale = q.shape[-1] ** -0.5
+    one = mask.sum(-1) == 1
+    kmax = (torch.matmul(kv, wk) + bk).abs().amax((1, 2))  # [B]
+    c = (o * dout).sum(-1).abs() + di.abs() + 2 * (dssq * ssq).abs() + (dsumw * sumw).abs()
+    amax = scale * q.abs().sum(-1) * kmax[:, None]  # [B, N]
+    floor_dq = GRAD_RTOL * c * (scale * kmax[:, None] + amax / 2)  # [B, N]
+    floor_dk = torch.where(one, GRAD_RTOL * (c * (scale * q.abs().amax(-1) + amax / 2)).sum(-1), 0.0)
+    floors = ((floor_dk * kv.abs().amax((1, 2))).sum(), floor_dk.sum())
+    dq, dkv, dwk, dbk = grads
+    for a in (dq, dkv, dwk, dbk):
+        assert torch.isfinite(a).all()
+    if bool(one.any()):
+        limit = floor_dq[one][..., None]
+        assert bool((dq[one].abs() <= limit).all()) and bool((ref[0][one].abs() <= limit).all())
+    _close_rel(dq[~one], ref[0][~one])
+    _close_rel(dkv, ref[1])
+    for a, r, floor in zip((dwk, dbk), ref[2:], floors):
+        assert (a - r).abs().max() <= GRAD_RTOL * r.abs().max() + floor
+
+
+def _training_mask(dev, b, m_len, kind, seed):
+    """prefix: ragged lengths from 1, the last bag without a valid key;
+    holes: the same with keys 64..191 (two whole 64-key tiles) and 300..399
+    masked in every bag; one: bag 0 with a single valid key late in the bag
+    (1337 of 1500), bag 1 ragged, the last without a valid key."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, m_len + 1, (b,), generator=g)
+    lengths[-1] = 0
+    mask = torch.arange(m_len)[None] < lengths[:, None]
+    if kind == "holes":
+        mask[:, 64:192] = False
+        mask[:, 300:400] = False
+    elif kind == "one":
+        mask[0] = False
+        mask[0, min(1337, m_len - 1)] = True
+    return mask.to(dev)
+
+
 @pytest.mark.parametrize(
-    "b,n,e,f,m_len,rate",
-    [(2, 3, 128, 128, 1000, 0.25), (4, 6, 256, 256, 4096, 0.25), (3, 8, 128, 256, 333, 0.0),
-     (1, 1, 256, 128, 70, 0.5)],
+    "b,n,e,f,m_len,rate,kind",
+    [(2, 3, 128, 128, 1000, 0.25, "prefix"), (4, 6, 256, 256, 4096, 0.25, "prefix"),
+     (3, 8, 128, 256, 333, 0.0, "prefix"), (1, 1, 256, 128, 70, 0.5, "prefix"),
+     (3, 6, 256, 256, 4000, 0.25, "holes"), (2, 6, 128, 256, 1000, 0.0, "holes"),
+     (3, 6, 256, 256, 1500, 0.25, "one"), (3, 6, 256, 128, 1, 0.25, "prefix"),
+     (2, 8, 256, 256, 4001, 0.25, "prefix"), (4, 6, 256, 256, 8192, 0.25, "holes")],
 )
-def test_training_kernels_match_plain_on_card(dev, b, n, e, f, m_len, rate):
+def test_training_kernels_match_plain_on_card(dev, b, n, e, f, m_len, rate, kind):
     """The training forward (dropout, ssq, sumw, l, m) and the backward
-    against their plain versions; two backward runs agree bitwise."""
-    q, kv, wk, bk, _, mask = _inputs(dev, b, n, e, m_len, f, m_len)
+    against their plain versions, on prefix masks, masks with whole masked
+    key tiles in the middle of a bag (skipped by the backward), a bag with a
+    single valid key, M = 1 and M not a multiple of the 64-key tile; dkv is
+    exactly 0 at masked keys of bags with a valid key; two backward runs
+    agree bitwise."""
+    q, kv, wk, bk, _, _ = _inputs(dev, b, n, e, m_len, f, m_len)
+    mask = _training_mask(dev, b, m_len, kind, m_len + 1)
     seed = torch.tensor([m_len * 7 + 1], dtype=torch.int32, device=dev)
     before = dict(coattn.LAUNCH_COUNTS)
     got = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, rate)
@@ -154,12 +213,42 @@ def test_training_kernels_match_plain_on_card(dev, b, n, e, f, m_len, rate):
     grads = coattn.coattn_bwd_fused_k(*args)
     again = coattn.coattn_bwd_fused_k(*args)
     ref = coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mask, seed, rate, dout, dssq, dsumw)
-    for a, r in zip(grads, ref):
-        _close_rel(a, r)
+    _close_fk_grads(grads, ref, q, kv, wk, bk, mask, got, dout, dssq, dsumw, di)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    has = mask.any(-1)
+    assert bool((grads[1][has][~mask[has]] == 0).all())
     torch.cuda.synchronize()
     assert coattn.LAUNCH_COUNTS["coattn_fwd_fused_k_train"] == before["coattn_fwd_fused_k_train"] + 1
     assert coattn.LAUNCH_COUNTS["coattn_bwd_fused_k"] == before["coattn_bwd_fused_k"] + 2
+
+
+@pytest.mark.parametrize("sms", [1, 7])
+def test_fused_k_backward_grid_does_not_change_the_gradients(dev, monkeypatch, sms):
+    """The backward's main pass shares the computed key tiles out over one
+    block an SM, its dwk pass over SM / (dwk tiles) blocks, and a reduction
+    sums their partials: with one block (one dq partial a bag, one dwk and
+    dbk partial) or 7 (bags split at other places) the gradients agree with
+    the full grid's and with the plain version's."""
+    b, n, e, f, m_len = 4, 6, 256, 256, 3000
+    q, kv, wk, bk, _, _ = _inputs(dev, b, n, e, m_len, f, 3)
+    mask = _training_mask(dev, b, m_len, "holes", 4)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    o, l, m, ssq, sumw = coattn.coattn_fwd_fused_k_train_plain(q, kv, wk, bk, mask, seed, 0.25)
+    g = torch.Generator().manual_seed(6)
+    dout = torch.randn(b, n, f, generator=g).to(dev)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, kv, wk, bk, mask, seed, 0.25, dout, l, m, di, dssq, dsumw)
+    full = coattn.coattn_bwd_fused_k(*args)
+    from multimodal_path_omic_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(kernels, "sm_count", lambda device: sms)
+    few = coattn.coattn_bwd_fused_k(*args)
+    ref = coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mask, seed, 0.25, dout, dssq, dsumw)
+    assert torch.equal(few[1], full[1])  # dkv is per key: the grid does not touch it
+    for a, r, x in zip(few, ref, full):
+        _close_rel(a, r)
+        _close_rel(a, x)
 
 
 def test_leank_training_form_gradients_on_card(dev):
