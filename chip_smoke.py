@@ -2,7 +2,7 @@
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
 serving and training paths and its device-cache training step on one GPU.
 
-    python3 chip_smoke.py              # phases 1-18 below
+    python3 chip_smoke.py              # phases 1-19 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -11,7 +11,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. Build every kernel from ``multimodal_path_omic_tpu_torch/csrc`` with nvcc
    (sm_90a), then hold each kernel against its plain PyTorch version on the
    card at the serving shapes (B=32 bags, N=6 queries, E=256, M up to 8192,
-   ragged masks, one fully-masked row, a non-tile-multiple M).
+   ragged masks, one fully-masked row, a non-tile-multiple M); the fuse-K
+   forward also at E = F = 512 (NaCAGaT big; M 8192 and 4000), E = 512 with
+   F = 1024, E = 128, on masks with whole masked key tiles in mid-bag and with
+   a bag of one valid key (o = that key's kv row), two runs bitwise equal.
 2. The NaCAGaT ``Predictor`` at full width (``medium``, 1024-wide patch
    features, six signatures of 100..600 genes, buckets 4096/8192, batch 32,
    random weights from a seed) through ``predict_bags`` and ``predict_bag``,
@@ -20,16 +23,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    reset just before and read just after; every kernel must have launched.
    Outputs must be finite and match the same Predictor on the CPU (plain
    versions) on a few bags.
-3. Timings with CUDA events: each kernel, its plain version and its bound;
-   ``predict_bags`` bags/s.
+3. Timings with CUDA events: each kernel, its plain version and its bound
+   (the fuse-K forward: 3xTF32 over the valid keys, float32 FMA over the
+   valid keys and over every key, with the share of each reached); the E =
+   512 instance at B=32, M=8192 beside the route it replaces (k by
+   torch.matmul, then ``attention_core``); ``predict_bags`` bags/s.
 4. The training kernels (fuse-K training forward with dropout 0.25, ssq and
    sumw; the fuse-K backward) against their plain versions at B=32, N=6,
    E=F=256, M in {8192, 4000 (ragged, one fully-masked row)}, M=8192 with
-   whole masked key tiles in the middle of every bag, and M=1500 with one bag
+   whole masked key tiles in the middle of every bag, M=1500 with one bag
    of a single valid key (its dq held to the noise of the terms that
-   cancel); the backward run twice must agree bitwise, its dkv exactly 0 at
-   the masked keys of bags with a valid key; the drop share of the Philox
-   bits.
+   cancel), and E=F=128 at M=4000 with masked tiles; each run twice must
+   agree bitwise, the backward's dkv exactly 0 at the masked keys of bags
+   with a valid key; the drop share of the Philox bits.
 5. The NaCAGaT ``medium`` trainer (cesar, dropout 0.25 at every site, Adam
    lr 2e-4, weight decay 1e-5) on one 32-bag batch of the 8192 bucket,
    staged on the card once: 5 steps with the counts reset just before and
@@ -38,9 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    from the same state and seed with the kernels and with their plain
    versions, whose gradients must agree.
 6. Timings: the training kernels beside their plain versions and bounds
-   (the backward: 3xTF32 over the valid keys, float32 FMA over the valid
-   keys and over every key, with the share of each reached); the training
-   step's ms and train bags/s.
+   (3xTF32 over the valid keys, float32 FMA over the valid keys and over
+   every key, with the share of each reached); the training step's ms and
+   train bags/s.
 7. The GE kernels against their plain versions on the card: the gated-MIL
    pool at D=H=256, B=8, M in {16384, 24576, 5000 (ragged)}, ragged masks,
    one fully-masked bag, one call without a mask; the flash forward at
@@ -125,10 +131,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     launch counts of their flash instances exact.
 18. Shapes the co-attention kernels do not take, routed to
     ``attention_core`` by the kernels' predicates: cross-attention of 6
-    queries over 100 keys in 8 heads of width 32, NaCAGaT with 12 signature
-    groups (``ces``; ``cesar``, whose map has 12 queries) and NaCAGaT
-    ``big`` (``ces``): the card within 1e-4 of the CPU, no co-attention
-    launch.
+    queries over 100 keys in 8 heads of width 32 and NaCAGaT with 12
+    signature groups (``ces``; ``cesar``, whose map has 12 queries): the card
+    within 1e-4 of the CPU, no co-attention launch.
+19. NaCAGaT ``big`` (E = F = 512) serving with ``ces`` at full width on the
+    40 bags of phase 2 (buckets 4096/8192, batch 32): one launch of the
+    fuse-K eval kernel's E = 512 instance a batch and no other kernel, the
+    card within 1e-4 of the CPU Predictor on 8 bags (the longest among
+    them), ``predict_bags`` bags/s over three calls.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -174,11 +184,13 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
 
 B, N, E = 32, 6, 256
+ONE_KEY = 1337  # the valid key of the single-key masks
 SIZES = (100, 200, 300, 400, 500, 600)
 BUCKETS = (4096, 8192)
 N_BAGS = 40
 SOURCES = {
     "coattn_fwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_fwd_fused_k_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_stats": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
@@ -194,6 +206,7 @@ SOURCES = {
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
     "coattn_fwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_fwd_fused_k_e512": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_stats": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_weights": "multimodal_path_omic_tpu/ops/coattn.py:908",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu/ops/coattn.py:221",
@@ -337,44 +350,87 @@ def check_close(name, got, ref, atol, rtol=0.0) -> float:
     return err
 
 
-def make_inputs(m_len, f_dim, seed, dev):
+def make_inputs(m_len, f_dim, seed, dev, e=E, kind="prefix", with_k=True):
     """Serving-like inputs: projected queries and keys of NaCAGaT's scale
-    (std ~0.7: ELU / ReLU activations through a xavier-initialized [256, 256]
+    (std ~0.7: ELU / ReLU activations through a xavier-initialized [e, e]
     projection), ReLU patch embeddings as kv, ragged key masks, the last bag
-    fully masked (a filler row)."""
+    fully masked (a filler row). ``kind``: "prefix" (those masks), "holes"
+    (the same with keys 1024..2047 and 3000..3199 masked in every bag: whole
+    masked 64-key tiles in the middle of a bag, which the fuse-K kernels skip)
+    or "one" (bag 0 with a single valid key, key 1337). ``with_k`` False: no
+    plain-K keys (k None; the masks then come from other draws)."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = 0.7 * torch.randn(B, N, E, generator=g)
+    q = 0.7 * torch.randn(B, N, e, generator=g)
     kv = torch.relu(torch.randn(B, m_len, f_dim, generator=g))
-    wk = 0.7 * torch.randn(f_dim, E, generator=g) / math.sqrt(f_dim)
-    bk = 0.1 * torch.randn(E, generator=g)
-    k = 0.7 * torch.randn(B, m_len, E, generator=g)
+    wk = 0.7 * torch.randn(f_dim, e, generator=g) / math.sqrt(f_dim)
+    bk = 0.1 * torch.randn(e, generator=g)
+    k = 0.7 * torch.randn(B, m_len, e, generator=g) if with_k else None
     lengths = torch.randint(m_len // 5, m_len + 1, (B,), generator=g)
     lengths[0] = m_len
     lengths[-1] = 0
     mask = torch.arange(m_len)[None, :] < lengths[:, None]
-    return [t.to(dev) for t in (q, kv, wk, bk, k, mask)]
+    if kind == "holes":
+        mask[:, 1024:2048] = False
+        mask[:, 3000:3200] = False
+    elif kind == "one":
+        mask[0] = False
+        mask[0, ONE_KEY] = True
+    return [None if t is None else t.to(dev) for t in (q, kv, wk, bk, k, mask)]
+
+
+def check_fk_forward(name, got, ref, again, kv, mask) -> float:
+    """A fuse-K forward (o, l, m[, ssq], sumw) against its plain version:
+    1e-4 absolute, l 1e-5 relative; a second run bitwise equal; a bag with
+    a single valid key pools exactly that key's kv row (eval: o = kv_r).
+    Returns the largest error but l's."""
+    import torch
+
+    names = ("o", "l", "m", "sumw") if len(got) == 4 else ("o", "l", "m", "ssq", "sumw")
+    e = 0.0
+    for what, a, b in zip(names, got, ref):
+        err = check_close(f"{name}.{what}", a, b, KERNEL_ATOL, L_RTOL if what == "l" else 0.0)
+        if what != "l":
+            e = max(e, err)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    one = mask.sum(-1) == 1
+    if len(got) == 4 and bool(one.any()):
+        row = kv[one][torch.arange(int(one.sum()), device=kv.device), mask[one].float().argmax(-1)]
+        check_close(f"{name}.o of the bag with one valid key, its kv row", got[0][one],
+                    row[:, None, :].expand_as(got[0][one]), KERNEL_ATOL)
+    log(f"  {name}: two runs bitwise equal")
+    return e
+
+
+# Phase 1's fuse-K eval shapes (M, F, E, mask kind): the serving path's
+# (E = F = 256; NaCAGaT big's E = F = 512), the widest F the eval form takes,
+# the tile-skipping masks, and E = 128.
+# The holes masks keep the prefix masks' ragged and fully-masked rows.
+PHASE1_CASES = ((8192, 256, 256, "prefix"), (4096, 256, 256, "prefix"), (4000, 256, 256, "prefix"),
+                (4096, 1024, 256, "prefix"), (8192, 256, 256, "holes"), (1500, 256, 256, "one"),
+                (4000, 128, 128, "holes"), (8192, 512, 512, "holes"), (4000, 512, 512, "prefix"),
+                (4096, 1024, 512, "prefix"), (1500, 512, 512, "one"))
 
 
 def phase1_kernels(dev) -> dict:
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     errs = {}
-    for m_len, f_dim in ((8192, 256), (4096, 256), (4000, 256), (4096, 1024)):
-        log(f"phase 1: B={B} N={N} E={E} M={m_len} F={f_dim}")
-        q, kv, wk, bk, k, mask = make_inputs(m_len, f_dim, m_len + f_dim, dev)
+    for m_len, f_dim, e_dim, kind in PHASE1_CASES:
+        log(f"phase 1: B={B} N={N} E={e_dim} M={m_len} F={f_dim}, {kind} masks")
+        plain_k = f_dim == E and e_dim == E and kind == "prefix"  # the plain-K forms' shapes
+        q, kv, wk, bk, k, mask = make_inputs(m_len, f_dim, m_len + f_dim, dev, e_dim, kind,
+                                             with_k=plain_k)
         got = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
+        again = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
         ref = coattn.coattn_fwd_fused_k_plain(q, kv, wk, bk, mask)
-        e = 0.0
-        for name, a, b, rtol in zip(("o", "l", "m", "sumw"), got, ref,
-                                    (0.0, L_RTOL, 0.0, 0.0)):
-            err = check_close(f"fused_k.{name}", a, b, KERNEL_ATOL, rtol)
-            if name != "l":
-                e = max(e, err)
-        errs["coattn_fwd_fused_k"] = max(errs.get("coattn_fwd_fused_k", 0.0), e)
-        if f_dim != E:
-            continue  # the plain-K forms take k [B, M, E]
+        row = "coattn_fwd_fused_k_e512" if e_dim == 512 else "coattn_fwd_fused_k"
+        errs[row] = max(errs.get(row, 0.0), check_fk_forward("fused_k", got, ref, again, kv, mask))
+        del got, again, ref
+        if not plain_k:
+            continue
         l, m = coattn.coattn_stats(q, k, mask, pre_gate=True)
         l_ref, m_ref = coattn.coattn_stats_plain(q, k, mask, pre_gate=True)
         check_close("stats.l", l, l_ref, KERNEL_ATOL, L_RTOL)
@@ -454,16 +510,16 @@ def phase2_predictor(dev, bags, omics) -> dict:
     return {"launches": launches, "predictors": results}
 
 
-def fk_bytes_ops(name, m_len, f_dim) -> tuple:
+def fk_bytes_ops(name, m_len, f_dim, e=E) -> tuple:
     """(bytes, operations) of one co-attention kernel call at B=32, N=6:
     each input read once, each output written once; float32 multiply-adds
     counted as 2 operations (the training kernels' integer Philox work,
-    ~1e8 operations, is left out)."""
-    ins = 4 * (B * N * E + B * m_len * f_dim + f_dim * E + E) + B * m_len  # q kv wk bk mask
-    if name in ("coattn_fwd_fused_k", "coattn_fwd_fused_k_train"):
-        n_stats = 3 if name == "coattn_fwd_fused_k" else 4  # l, m, sumw (+ ssq)
+    ~1e8 operations, is left out). ``e``: the fuse-K forms' E."""
+    ins = 4 * (B * N * e + B * m_len * f_dim + f_dim * e + e) + B * m_len  # q kv wk bk mask
+    if name.startswith("coattn_fwd_fused_k"):
+        n_stats = 4 if name == "coattn_fwd_fused_k_train" else 3  # l, m, sumw (+ ssq)
         nbytes = ins + 4 * (B * N * f_dim + n_stats * B * N)
-        ops = 2 * B * m_len * f_dim * E + 4 * B * N * m_len * E + 2 * B * N * m_len * f_dim
+        ops = 2 * B * m_len * f_dim * e + 4 * B * N * m_len * e + 2 * B * N * m_len * f_dim
     elif name == "coattn_bwd_fused_k":
         # in: + dout, l, m, di, dssq, dsumw; out: dq, dkv, dwk, dbk
         nbytes = ins + 4 * (B * N * f_dim + 5 * B * N) + 4 * (
@@ -498,16 +554,49 @@ def fk_bwd_bound_ms(mask) -> tuple:
     valid key needs all of its keys): counted from ``mask``. The bytes are
     ``bound_ms``'s (each input read once, each output written once); so is
     the float32-FMA bound over every key."""
-    import torch
-
     m_len = mask.shape[1]
-    n_valid = mask.sum(dim=1)
-    keys = int(torch.where(n_valid == 0, m_len, n_valid).sum().item())
-    ops = 6 * keys * E * E
+    ops = 6 * valid_keys(mask) * E * E
     t_bytes = fk_bytes_ops("coattn_bwd_fused_k", m_len, E)[0] / PEAK_BYTES_PER_S * 1e3
     t_ops = 3 * ops / PEAK_TF32_FLOP_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (
         ops / PEAK_F32_FLOP_PER_S * 1e3, bound_ms("coattn_bwd_fused_k", m_len, E)[0])
+
+
+def valid_keys(mask) -> int:
+    """The keys a fuse-K kernel must compute for ``mask``: the valid ones,
+    and every key of a bag without one."""
+    import torch
+
+    n_valid = mask.sum(dim=1)
+    return int(torch.where(n_valid == 0, mask.shape[1], n_valid).sum().item())
+
+
+def fk_fwd_bound_ms(name, mask, e=E) -> tuple:
+    """(bound ms, 'bytes' | 'operations', float32-FMA bound ms over the same
+    keys, float32-FMA bound ms over every key) of a fuse-K forward at B=32,
+    N=6, E=F=``e``. Its projection k = kv wk runs as 3xTF32 on the tensor
+    cores (three TF32 products) and is needed only for the valid keys (a
+    tile without one is skipped; a bag without a valid key needs all of its
+    keys): 3 x 2 keys F E operations over the TF32 rate. The bytes are
+    ``bound_ms``'s (each input read once, each output written once); the
+    float32-FMA bounds count the projection, the scores and o += p kv."""
+    m_len = mask.shape[1]
+    keys = valid_keys(mask)
+    nbytes, ops_all = fk_bytes_ops(name, m_len, e, e)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * keys * e * e / PEAK_TF32_FLOP_PER_S * 1e3
+    f32_all = ops_all / PEAK_F32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (
+        f32_all * keys / (B * m_len), f32_all)
+
+
+def fk_bound_line(ms, bounds) -> str:
+    """A fuse-K kernel's three bounds beside its time, with the share of
+    each reached."""
+    bms, by, f32_valid, f32_all = bounds
+    return (f"bounds: 3xTF32 over the valid keys {bms:.4f} ms ({by}; {bms / ms:.3f} of it "
+            f"reached), float32 FMA over the valid keys {f32_valid:.4f} ms ({f32_valid / ms:.3f} "
+            f"reached), over every key {f32_all:.4f} ms ({f32_all / ms:.3f} reached)")
 
 
 def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
@@ -529,9 +618,14 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
     rows = []
     for name, (kern, plain) in calls.items():
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        bms, by = bound_ms(name, m_len, E)
-        log(f"phase 3: {name} B={B} N={N} M={m_len} F=E={E}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        line = (f"phase 3: {name} B={B} N={N} M={m_len} F=E={E}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, ")
+        if name == "coattn_fwd_fused_k":
+            bms, by, _, _ = bounds = fk_fwd_bound_ms(name, mask)
+            log(line + fk_bound_line(ms, bounds))
+        else:
+            bms, by = bound_ms(name, m_len, E)
+            log(line + f"bound {bms:.4f} ms ({by})")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -539,6 +633,7 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
             # no single PyTorch call computes a pre-gated (tanh-gated) attention
             "library_ms": None,
         })
+    rows.append(time_e512(dev, errs))
     for loss, pred in predictors.items():
         pred.predict_bags(bags, omics)  # warm
         rates = []
@@ -552,6 +647,37 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
             f"{', '.join(repr(r) for r in rates)} bags/s (host clock, batches of {B}, "
             f"buckets {BUCKETS})")
     return rows
+
+
+def time_e512(dev, errs) -> dict:
+    """The E = F = 512 eval instance (NaCAGaT big serving) at B=32, N=6,
+    M=8192 beside its plain version, its bounds and the route it replaces:
+    k = kv wk + bk formed by torch.matmul, then ``attention_core`` over it
+    (the lean-V gate's refusal before the instance existed). Its launches
+    are phase 19's."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+    from multimodal_path_omic_tpu_torch.ops.attention import attention_core
+
+    name, m_len, e = "coattn_fwd_fused_k_e512", 8192, 512
+    q, kv, wk, bk, _, mask = make_inputs(m_len, e, 11, dev, e, with_k=False)
+
+    def replaced():
+        k = torch.matmul(kv, wk) + bk
+        return attention_core(q[:, None], k[:, None], kv[:, None], mask, pre_gate=True,
+                              need_weights=False)[0]
+
+    ms = cuda_ms(lambda: coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask))
+    plain_ms = cuda_ms(lambda: coattn.coattn_fwd_fused_k_plain(q, kv, wk, bk, mask), 3, 1)
+    core_ms = cuda_ms(replaced, 3, 1)
+    bms, by, _, _ = bounds = fk_fwd_bound_ms(name, mask, e)
+    log(f"phase 3: {name} B={B} N={N} M={m_len} F=E={e}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, the route it replaces (k by torch.matmul, then attention_core) "
+        f"{core_ms:.4f} ms, " + fk_bound_line(ms, bounds))
+    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": 0, "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def check_rel(name, got, ref, rtol) -> float:
@@ -571,26 +697,18 @@ def check_rel(name, got, ref, rtol) -> float:
     return err
 
 
-def train_kernel_inputs(m_len, dev, seed, kind="prefix"):
-    """Phase-1 style inputs plus a dropout seed, the backward's cotangents and
-    the forward statistics it needs. ``kind``: "prefix" (phase 1's ragged
-    masks), "holes" (the same with keys 1024..2047 and 3000..3199 masked in
-    every bag: whole masked 64-key tiles in the middle of a bag, which the
-    backward skips) or "one" (bag 0 with a single valid key, key 1337)."""
+def train_kernel_inputs(m_len, dev, seed, kind="prefix", e=E):
+    """Phase-1 style inputs at E = F = ``e`` (``kind``: make_inputs' masks)
+    plus a dropout seed, the backward's cotangents and the forward
+    statistics it needs."""
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
-    q, kv, wk, bk, _, mask = make_inputs(m_len, E, seed, dev)
-    if kind == "holes":
-        mask[:, 1024:2048] = False
-        mask[:, 3000:3200] = False
-    elif kind == "one":
-        mask[0] = False
-        mask[0, 1337] = True
+    q, kv, wk, bk, _, mask = make_inputs(m_len, e, seed, dev, e, kind, with_k=e == E)
     dseed = torch.tensor([seed], dtype=torch.int32, device=dev)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    dout = torch.randn(B, N, E, generator=g).to(dev)
+    dout = torch.randn(B, N, e, generator=g).to(dev)
     dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
     fwd = coattn.coattn_fwd_fused_k_train_plain(q, kv, wk, bk, mask, dseed, TRAIN_RATE)
     _, l, m, ssq, sumw = fwd
@@ -627,20 +745,17 @@ def phase4_train_kernels(dev) -> dict:
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     errs = {}
-    for m_len, kind in ((TRAIN_M, "prefix"), (4000, "prefix"), (TRAIN_M, "holes"),
-                        (1500, "one")):
-        log(f"phase 4: training kernels B={B} N={N} E=F={E} M={m_len} dropout {TRAIN_RATE}, "
+    for m_len, kind, e_dim in ((TRAIN_M, "prefix", E), (4000, "prefix", E), (TRAIN_M, "holes", E),
+                               (1500, "one", E), (4000, "holes", 128)):
+        log(f"phase 4: training kernels B={B} N={N} E=F={e_dim} M={m_len} dropout {TRAIN_RATE}, "
             f"{kind} masks")
         ins, (dout, l, m, di, dssq, dsumw), ref = train_kernel_inputs(m_len, dev, 97 + m_len,
-                                                                      kind)
+                                                                      kind, e_dim)
         got = fwd = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
-        e = 0.0
-        for name, a, r, rtol in zip(("o", "l", "m", "ssq", "sumw"), got, ref,
-                                    (0.0, L_RTOL, 0.0, 0.0, 0.0)):
-            err = check_close(f"fwd_train.{name}", a, r, KERNEL_ATOL, rtol)
-            if name != "l":
-                e = max(e, err)
-        errs["coattn_fwd_fused_k_train"] = max(errs.get("coattn_fwd_fused_k_train", 0.0), e)
+        again = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
+        errs["coattn_fwd_fused_k_train"] = max(
+            errs.get("coattn_fwd_fused_k_train", 0.0),
+            check_fk_forward("fwd_train", got, ref, again, ins[1], ins[4]))
         got = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         again = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         ref = coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw)
@@ -796,15 +911,11 @@ def phase6_train_timings(dev, errs, launches, trainer, batch) -> list:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         line = (f"phase 6: {name} B={B} N={N} M={TRAIN_M} F=E={E} dropout {TRAIN_RATE}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ")
-        if name == "coattn_bwd_fused_k":  # 3xTF32 products over the valid keys
-            bms, by, f32_valid, f32_all = fk_bwd_bound_ms(ins[4])
-            log(line + f"bounds: 3xTF32 over the valid keys {bms:.4f} ms ({by}; "
-                f"{bms / ms:.3f} of it reached), float32 FMA over the valid keys "
-                f"{f32_valid:.4f} ms ({f32_valid / ms:.3f} reached), over every key "
-                f"{f32_all:.4f} ms ({f32_all / ms:.3f} reached)")
-        else:
-            bms, by = bound_ms(name, TRAIN_M, E)
-            log(line + f"bound {bms:.4f} ms ({by})")
+        # 3xTF32 products over the valid keys
+        bounds = (fk_bwd_bound_ms(ins[4]) if name == "coattn_bwd_fused_k"
+                  else fk_fwd_bound_ms(name, ins[4]))
+        bms, by = bounds[:2]
+        log(line + fk_bound_line(ms, bounds))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -1970,8 +2081,7 @@ def phase18_refused_shapes(dev) -> None:
     for what, sizes, model_size, loss in (
             ("NaCAGaT medium, 12 signature groups, ces", sizes12, "medium", "ces"),
             ("NaCAGaT medium, 12 signature groups, cesar (the map of 12 queries)", sizes12,
-             "medium", "cesar"),
-            ("NaCAGaT big, ces", SIZES, "big", "ces")):
+             "medium", "cesar")):
         log(f"phase 18: {what}: {len(bags)} bags, bucket 1024")
         omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
         kw = dict(omic_sizes=sizes, model_size=model_size, buckets=(1024,), batch_size=4,
@@ -1985,6 +2095,42 @@ def phase18_refused_shapes(dev) -> None:
             raise AssertionError(f"{what}: a co-attention kernel launched on a refused shape")
         check_outputs_close("the CPU", got,
                             Predictor("NaCAGaT", device="cpu", **kw).predict_bags(bags, omics))
+
+
+def phase19_nacagat_big(dev, bags, omics) -> int:
+    """NaCAGaT big (E = F = 512) serving with ces at full width: the fuse-K
+    eval kernel's E = 512 instance through the lean-V gate. Returns its
+    launches."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+
+    log(f"phase 19: NaCAGaT big Predictor, loss=ces, {len(bags)} bags, buckets {BUCKETS}, "
+        f"batch_size {B}")
+    kw = dict(omic_sizes=SIZES, model_size="big", buckets=BUCKETS, loss="ces", seed=0)
+    pred = Predictor("NaCAGaT", batch_size=B, device=dev, **kw)
+    reset_counts()
+    out = pred.predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("NaCAGaT big, ces", counts, coattn_fwd_fused_k=n_batches(bags))
+    # against the same Predictor on the CPU: 8 bags, the longest among them
+    idx = sorted(set(range(7)) | {int(np.argmax([len(b) for b in bags]))})
+    log(f"  against the CPU Predictor on bags {idx} ({[len(bags[i]) for i in idx]} patches)")
+    ref = Predictor("NaCAGaT", batch_size=4, device="cpu", **kw).predict_bags(
+        [bags[i] for i in idx], [omics[i] for i in idx])
+    check_outputs_close("the CPU Predictor", out, ref, idx)
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        rates.append(len(bags) / (time.perf_counter() - t0))
+    log(f"phase 19: NaCAGaT big predict_bags loss=ces: {len(bags)} bags, 3 calls: "
+        f"{', '.join(repr(r) for r in rates)} bags/s (host clock, batches of {B}, "
+        f"buckets {BUCKETS})")
+    return counts["coattn_fwd_fused_k"]
 
 
 def profile_ge_serving(dev, bags, top=15) -> None:
@@ -2051,12 +2197,13 @@ def device_rows(prof) -> list:
 
 
 # device-kernel name fragments -> the part of a training step they belong to
-TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("combine_kernel", "coattn kernels"),
+TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("fk_", "coattn kernels"),
+               ("combine_kernel", "coattn kernels"),
                ("bwd_reduce_kernel", "coattn kernels"), ("flash_fwd_kernel", "flash forward"),
                ("flash_bwd", "flash backward"), ("gemm", "matmul"), ("xmma", "matmul"),
                ("cutlass", "matmul"), ("adam", "optimizer"), ("multi_tensor", "optimizer"),
                ("gather_rows", "row gather"), ("plain_kernel", "coattn kernels"),
-               ("plain_bwd_kernel", "coattn kernels"))
+               ("plain_bwd_kernel", "coattn kernels"), ("dwk_kernel", "coattn kernels"))
 
 
 def profile_training(title, tag, make, batch, top=20) -> None:
@@ -2122,7 +2269,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one predict_bags call per loss, one training step, one GE "
                          "predict_bags call, one GE training step and one cached MCAT "
-                         "training step instead of phases 1-18")
+                         "training step instead of phases 1-19")
     args = ap.parse_args()
     try:
         import torch
@@ -2211,6 +2358,10 @@ def main() -> int:
         if row["name"].startswith("flash_"):
             row["launches"] += wide[row["name"]]
     phase18_refused_shapes(dev)
+    e512 = phase19_nacagat_big(dev, bags, omics)
+    for row in rows:
+        if row["name"] == "coattn_fwd_fused_k_e512":
+            row["launches"] = e512
     torch.cuda.empty_cache()
     errs.update(phase13_plain_kernels(dev))
     torch.cuda.empty_cache()

@@ -29,24 +29,37 @@
 // What bounds them on an H100, and what the design does about it:
 //   * fused_k: k = kv @ wk + bk is 2*B*M*F*E float32 operations (34 GFLOP at
 //     B=32, M=8192, F=E=256, NaCAGaT medium, where kv is the 256-wide patch
-//     embedding), so it is bound by the float32 rate of the CUDA cores
-//     (67 TFLOP/s: 0.51 ms), not by the 268 MB of kv it reads (0.08 ms at
-//     3.35 TB/s). Each block streams 64-key tiles of kv, projects them with a
-//     register-tiled SIMT GEMM (8x8 outputs per thread for E=256) through
-//     shared memory (the next F chunk prefetched into registers while the
-//     current one is multiplied; 128-bit shared reads in the inner loop), so
-//     the [B, M, E] k never reaches device memory; the
-//     pre-gate and key mask are applied in the epilogue with warp-shuffle
-//     reductions (one warp owns 8 keys across all E columns), then an online
-//     softmax (one warp per query) and o += p * kv re-read from L2. The M
-//     axis is split over several blocks per bag so B=32 bags fill the 132
-//     SMs; a second small kernel merges the per-split (m, l, o) partials.
-//     Tensor cores (TF32 wgmma) are left out on purpose: TF32 breaks the
-//     float32 parity the port is held to. The training form is the same
-//     kernel (template flag): the Philox bits, ssq and sumw cost a few
-//     instructions per key in the softmax step, outside the GEMM, and the
-//     per-split (ssq, sumw) partials are merged by rescaling with the split's
-//     e^(m_p - m) (squared for ssq).
+//     embedding; 137 GFLOP at E=F=512, NaCAGaT big), against 268 MB of kv
+//     read at medium (0.08 ms at 3.35 TB/s): bound by operations. The
+//     projection runs on the tensor cores as 3xTF32 mma.sync at float32
+//     accuracy (flash_common.cuh: three TF32 products each, 3 x 34 GFLOP /
+//     495 TFLOP/s = 0.21 ms over every key), and only for the key tiles that
+//     need it. Four launches, no atomics:
+//     - fk_tiles_kernel / fk_list_kernel (fused_k_common.cuh, shared with
+//       the backward) flag the 64-key tiles to compute (with a valid key in
+//       the bag, a tile without one adds exactly 0 to o, l, ssq and sumw; a
+//       bag without a valid key computes every tile) and list them.
+//     - fused_k_kernel: one block an SM, block g an even share of the list
+//       across bags (a full bag and a short one cost the same per tile).
+//       Per tile and per chunk of at most 256 E columns: the k chunk = kv wk
+//       in 32-deep steps, each step's kv slice [64][32] and wk slice
+//       [32][EC] through a three-slot cp.async ring issued two
+//       steps ahead (across tiles too, so the next tile's first slices land
+//       during this tile's softmax); the [64 x EC] product over a 2 x 4 warp
+//       grid, + bk, into shared memory; then the chunk's share of q.k and
+//       tanh(q).tanh(k) for the N <= 8 queries on the CUDA cores (a warp's 8
+//       keys, summed by a transposing butterfly), carried in registers
+//       across chunks: a chunk changes only the summation order, so E = 512
+//       is one more instance. Then the pre-gate, the mask, an online softmax
+//       (one warp a query; the training form's Philox dropout, ssq and sumw)
+//       and o += p kv on the CUDA cores, 2 N F operations a key (2% of the
+//       projection's at N=6, E=256), the kv rows re-read from L2 (the ring
+//       brought them in just before): copied into shared memory during the
+//       softmax where F <= EC, read in place otherwise, so every F <= 1024
+//       is taken. The [B, M, E] k never reaches device memory.
+//     - combine_kernel merges a bag's partials (m, l, o and, in training,
+//       ssq, sumw: one per block that held the bag, written at block + bag)
+//       in block order: two runs give the same bits.
 //   * stats / weights: read k [B, M, D] once (268 MB at B=32, M=8192,
 //     D=256: 0.08 ms at 3.35 TB/s) and do under 2 GFLOP, so they are bound
 //     by bytes. One warp scores one key at a time with coalesced float4
@@ -70,7 +83,7 @@
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
 // everything runs on the caller's stream.
 
-#include "coattn_common.cuh"
+#include "fused_k_common.cuh"
 
 namespace {
 
@@ -79,165 +92,247 @@ using namespace mpo;
 constexpr int FK_FMAX = 1024;  // widest kv row (4 columns per thread)
 
 // ---------------------------------------------------------------------------
-// K2, fuse-K form: one block = (bag b, split of the key tiles).
-// Writes unnormalized partials: o_part [B, P, N, F], ml_part [B, P, N, 2]
-// (m, l); TRAIN adds sq_part [B, P, N, 2] (ssq, sumw of the dropped
-// weights). TRAIN: attention dropout after normalization (l sums the
+// K2, fuse-K form. Shared memory of one block: the ring of chunk steps (a kv
+// slice [64][WC] and a wk slice [WC][EC] each), the current E chunk of the k
+// tile (then, where F <= EC, the tile's kv rows for o += p kv), the bag's q
+// and tanh(q), the tile's scores: 231,968 bytes at E = 512.
+// ---------------------------------------------------------------------------
+template <int E>
+struct FkFwdSmem {
+  static constexpr int EC = E < 256 ? E : 256;  // E columns a chunk
+  static constexpr int NEC = E / EC;            // E chunks a tile
+  static constexpr int WC = 32;                 // depth a chunk step
+  static constexpr int KVS = WC + 8;            // kv slice: acc-product A, 8 mod 32
+  static constexpr int RS = EC + 4;             // wk slice: acc-product B, 4 mod 32
+  static constexpr int KS = EC + 4;             // k chunk: float4 rows
+  static constexpr int SLOT = FK_BM * KVS + WC * RS;
+  static constexpr int NT = EC / 32;            // column tiles a warp (4 column quarters)
+  static constexpr int G = NT < 4 ? NT : 4;     // column tiles in flight
+  alignas(16) float ring[3][SLOT];
+  alignas(16) float k[FK_BM][KS];  // k chunk, then (F <= EC) kv rows
+  alignas(16) float q[NMAX][E];
+  alignas(16) float tq[NMAX][E];
+  alignas(16) float s[NMAX][FK_BM];  // scores, then the weights p
+  float alpha[NMAX];
+};
+
+// One block walks an even share of the computed (bag, tile) units in list
+// order (fused_k_common.cuh). For each bag it visits it writes one
+// unnormalized partial at index block + bag: o_part [G + B, N, F], ml_part
+// [G + B, N, 2] (m, l); TRAIN adds sq_part [G + B, N, 2] (ssq, sumw of the
+// dropped weights). TRAIN: attention dropout after normalization (l sums the
 // undropped p; o, ssq and sumw take the dropped pd = keep * p / (1 - rate)),
 // bits from dropout_bits(seed, b, n, key) with keep iff bits >= thresh
-// (thresh 0: no dropout).
-// ---------------------------------------------------------------------------
+// (thresh 0: no dropout). Thread tid owns the o columns tid + 256 c, c < FC.
 template <int E, int FC, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                const float* __restrict__ wk, const float* __restrict__ bk,
-               const uint8_t* __restrict__ mask, float* __restrict__ o_part,
+               const uint8_t* __restrict__ mask, const int* __restrict__ list,
+               const int* __restrict__ off, float* __restrict__ o_part,
                float* __restrict__ ml_part, float* __restrict__ sq_part,
-               const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
-               int N, int M, int F, int tiles_per_split, float scale) {
-  // Lane `lane` owns the E columns col(j) = (j / 4) * 128 + 4 * lane + j % 4
-  // (float4 groups: conflict-free 128-bit shared-memory reads); warp w owns
-  // key rows 8w .. 8w + 7 of the tile. kv_s is stored transposed, so a
-  // warp's 8 rows at one depth are two broadcast float4 reads.
-  constexpr int EPT = E / 32;                     // E columns per lane
-  constexpr int WK_V4 = FK_BF * E / 4 / THREADS;  // wk float4s per thread per chunk
-  __shared__ __align__(16) float kv_s[FK_BF][FK_BM + 4];
-  __shared__ __align__(16) float wk_s[FK_BF][E];
-  __shared__ __align__(16) float q_s[NMAX][E];
-  __shared__ __align__(16) float tq_s[NMAX][E];
-  __shared__ float s_s[NMAX][FK_BM];
-  __shared__ float alpha_s[NMAX];
+               const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale, int B,
+               int N, int M, int F, float scale) {
+  using S_ = FkFwdSmem<E>;
+  constexpr int EC = S_::EC, NEC = S_::NEC, WC = S_::WC, KVS = S_::KVS, RS = S_::RS;
+  constexpr int KS = S_::KS, NT = S_::NT, EPT = EC / 32;
+  static_assert(FK_RPW == 8, "sum8: 8 keys a warp");
+  extern __shared__ float4 smem4[];
+  S_& S = *reinterpret_cast<S_*>(smem4);
 
-  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < N * E; i += THREADS) {
-    const float v = q[(size_t)b * N * E + i];
-    q_s[i / E][i % E] = v;
-    tq_s[i / E][i % E] = tanhf(v);
-  }
-  float bias[EPT];
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) bias[j] = bk[(j >> 2) * 128 + 4 * lane + (j & 3)];
-
-  float m_run = NEG, l_run = 0.f;  // the softmax state of query `warp`
-  float ssq_run = 0.f, sumw_run = 0.f;  // TRAIN: sums of pd^2 and pd
-  const uint32_t seed = TRAIN ? (uint32_t)seed_ptr[0] : 0u;
-  float oacc[NMAX][FC];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n)
-#pragma unroll
-    for (int c = 0; c < FC; ++c) oacc[n][c] = 0.f;
-
+  const int wr = warp & 1, wc = warp >> 1;  // the product's warp grid: rows 32 wr, quarter wc
+  const int t4 = lane & 3;
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, n_tiles);
-  const float* kv_b = kv + (size_t)b * M * F;
-  const int kv_row = tid >> 2, kv_c4 = tid & 3;  // this thread's kv float4 per chunk
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
+  const int NCF = (F + WC - 1) / WC, NC = NEC * NCF;  // chunk steps an E chunk, a unit
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
+  const uint32_t seed = TRAIN ? (uint32_t)seed_ptr[0] : 0u;
 
-  for (int t = t0; t < t1; ++t) {
-    const int m0 = t * FK_BM;
-    // ---- k tile = kv[m0:m0+64] @ wk, register-tiled over (key rows, E);
-    //      the next F chunk is prefetched into registers during the math ----
-    float acc[FK_RPW][EPT];
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] = 0.f;
-
-    const bool kv_ok = m0 + kv_row < M;  // zero rows past M
-    const float* kv_src = kv_b + (size_t)(m0 + kv_row) * F + kv_c4 * 4;
-    float4 kreg = kv_ok ? *reinterpret_cast<const float4*>(kv_src) : zero4;
-    float4 wreg[WK_V4];
-#pragma unroll
-    for (int v = 0; v < WK_V4; ++v) {
-      const int idx = tid + v * THREADS, r = idx / (E / 4), c = idx % (E / 4);
-      wreg[v] = reinterpret_cast<const float4*>(wk + (size_t)r * E)[c];
+  // chunk step s of the block's sequence (NC a unit: E chunk c / NCF, depth
+  // slice c % NCF) into ring slot s % 3; zeros past M and past F (F % 16 ==
+  // 0, so a 32-deep step may hold only 16 columns)
+  auto issue_chunk = [&](int s) {
+    const int i = i0 + s / NC;
+    if (i >= i1) return;
+    const int u = list[i], c = s % NC, ec = c / NCF, f0 = (c % NCF) * WC;
+    const int r0 = (u % n_tiles) * FK_BM;
+    const float* src = kv + (size_t)(u / n_tiles) * M * F;
+    float* slot = S.ring[s % 3];
+    for (int idx = tid; idx < FK_BM * WC / 4; idx += THREADS) {
+      const int row = idx / (WC / 4), col = 4 * (idx % (WC / 4));
+      const bool ok = r0 + row < M && f0 + col < F;
+      cp_async16(slot + row * KVS + col, ok ? src + (size_t)(r0 + row) * F + f0 + col : src, ok);
     }
-    for (int f0 = 0; f0 < F; f0 += FK_BF) {
-      kv_s[kv_c4 * 4 + 0][kv_row] = kreg.x;
-      kv_s[kv_c4 * 4 + 1][kv_row] = kreg.y;
-      kv_s[kv_c4 * 4 + 2][kv_row] = kreg.z;
-      kv_s[kv_c4 * 4 + 3][kv_row] = kreg.w;
+    load_tile_async<WC, EC, RS>(slot + FK_BM * KVS, wk + ec * EC, E, f0, F);
+  };
+  issue_chunk(0);
+  cp_async_commit();
+  issue_chunk(1);
+  cp_async_commit();
+
+  float oacc[NMAX][FC];  // set when the first bag begins
+  float m_run = NEG, l_run = 0.f;       // the softmax state of query `warp`
+  float ssq_run = 0.f, sumw_run = 0.f;  // TRAIN: sums of pd^2 and pd
+  int b = -1;
+  // the partial of bag b at index block + b
+  auto flush = [&]() {
+    const size_t pb = (size_t)blockIdx.x + b;
 #pragma unroll
-      for (int v = 0; v < WK_V4; ++v) {
-        const int idx = tid + v * THREADS, r = idx / (E / 4), c = idx % (E / 4);
-        reinterpret_cast<float4*>(&wk_s[r][0])[c] = wreg[v];
-      }
-      __syncthreads();
-      if (f0 + FK_BF < F) {  // prefetch the next chunk; lands during the math
-        kreg = kv_ok ? *reinterpret_cast<const float4*>(kv_src + f0 + FK_BF) : zero4;
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < N) {
 #pragma unroll
-        for (int v = 0; v < WK_V4; ++v) {
-          const int idx = tid + v * THREADS, r = idx / (E / 4), c = idx % (E / 4);
-          wreg[v] = reinterpret_cast<const float4*>(wk + (size_t)(f0 + FK_BF + r) * E)[c];
+        for (int c = 0; c < FC; ++c) {
+          const int f = tid + THREADS * c;
+          if (f < F) o_part[(pb * N + n) * F + f] = oacc[n][c];
         }
       }
+    }
+    if (warp < N && lane == 0) {
+      ml_part[(pb * N + warp) * 2 + 0] = m_run;
+      ml_part[(pb * N + warp) * 2 + 1] = l_run;
+      if constexpr (TRAIN) {
+        sq_part[(pb * N + warp) * 2 + 0] = ssq_run;
+        sq_part[(pb * N + warp) * 2 + 1] = sumw_run;
+      }
+    }
+  };
+
+  const int ri = warp * FK_RPW + sum8_index(lane);  // the key this lane's sums belong to
+  int s = 0;  // the block's chunk step
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, m0 = (u % n_tiles) * FK_BM;
+    if (ub != b) {  // a new bag: flush the last one's partial, load this one's queries
+      if (b >= 0) flush();
+      b = ub;
+      // the last unit's score pass is done with S.q (two barriers since)
+      for (int j = tid; j < N * E; j += THREADS) {
+        const float v = q[(size_t)b * N * E + j];
+        S.q[j / E][j % E] = v;
+        S.tq[j / E][j % E] = tanhf(v);
+      }
 #pragma unroll
-      for (int kk = 0; kk < FK_BF; ++kk) {
-        float a[FK_RPW], w[EPT];
-        const float4 a0 = *reinterpret_cast<const float4*>(&kv_s[kk][warp * FK_RPW]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&kv_s[kk][warp * FK_RPW + 4]);
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      for (int n = 0; n < NMAX; ++n)
+#pragma unroll
+        for (int c = 0; c < FC; ++c) oacc[n][c] = 0.f;
+      m_run = NEG;
+      l_run = ssq_run = sumw_run = 0.f;
+    }
+
+    // ---- per E chunk: k = kv wk + bk, then its share of q.k and tanh(q).tanh(k) ----
+    float a_acc[NMAX], u_acc[NMAX];
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) a_acc[n] = u_acc[n] = 0.f;
+#pragma unroll 1
+    for (int ec = 0; ec < NEC; ++ec) {
+      {
+        float c[2][NT][4];
+        zero_c<NT>(c[0]);
+        zero_c<NT>(c[1]);
+#pragma unroll 1
+        for (int ch = 0; ch < NCF; ++ch, ++s) {
+          cp_async_wait<1>();
+          __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
+          issue_chunk(s + 2);
+          cp_async_commit();
+          const float* slot = S.ring[s % 3];
+          acc_product_rows<2, NT, WC, S_::G>(c, slot, KVS, slot + FK_BM * KVS, RS, 32 * wr,
+                                             8 * NT * wc, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = ec * EC + 8 * NT * wc + 8 * j + 2 * t4;
+          const float b0 = bk[col], b1 = bk[col + 1];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            c[r][j][0] += b0; c[r][j][1] += b1;
+            c[r][j][2] += b0; c[r][j][3] += b1;
+          }
+        }
+        // S.k is free: the last chunk's score pass ended before this chunk's
+        // first step barrier
+        store_c<NT>(c[0], &S.k[0][0], KS, 32 * wr, 8 * NT * wc, lane);
+        store_c<NT>(c[1], &S.k[0][0], KS, 32 * wr + 16, 8 * NT * wc, lane);
+      }
+      __syncthreads();
+      float kr[FK_RPW][EPT];
+#pragma unroll
+      for (int r = 0; r < FK_RPW; ++r)
 #pragma unroll
         for (int j4 = 0; j4 < EPT / 4; ++j4) {
-          const float4 wv = *reinterpret_cast<const float4*>(&wk_s[kk][j4 * 128 + 4 * lane]);
-          w[4 * j4 + 0] = wv.x; w[4 * j4 + 1] = wv.y; w[4 * j4 + 2] = wv.z; w[4 * j4 + 3] = wv.w;
+          const float4 v = *reinterpret_cast<const float4*>(&S.k[warp * FK_RPW + r][j4 * 128 + 4 * lane]);
+          kr[r][4 * j4] = v.x; kr[r][4 * j4 + 1] = v.y; kr[r][4 * j4 + 2] = v.z; kr[r][4 * j4 + 3] = v.w;
         }
 #pragma unroll
-        for (int i = 0; i < FK_RPW; ++i)
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float qv[EPT], p[FK_RPW];
 #pragma unroll
-          for (int j = 0; j < EPT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        for (int j4 = 0; j4 < EPT / 4; ++j4) {  // lane_col's order, one float4 a group
+          const float4 v = *reinterpret_cast<const float4*>(&S.q[n][ec * EC + j4 * 128 + 4 * lane]);
+          qv[4 * j4] = v.x; qv[4 * j4 + 1] = v.y; qv[4 * j4 + 2] = v.z; qv[4 * j4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < FK_RPW; ++r) {
+          p[r] = 0.f;
+#pragma unroll
+          for (int j = 0; j < EPT; ++j) p[r] = fmaf(kr[r][j], qv[j], p[r]);
+        }
+        a_acc[n] += sum8(p, lane);
       }
-      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < FK_RPW; ++r)
+#pragma unroll
+        for (int j = 0; j < EPT; ++j) kr[r][j] = tanhf(kr[r][j]);
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float tv[EPT], p[FK_RPW];
+#pragma unroll
+        for (int j4 = 0; j4 < EPT / 4; ++j4) {  // lane_col's order, one float4 a group
+          const float4 v = *reinterpret_cast<const float4*>(&S.tq[n][ec * EC + j4 * 128 + 4 * lane]);
+          tv[4 * j4] = v.x; tv[4 * j4 + 1] = v.y; tv[4 * j4 + 2] = v.z; tv[4 * j4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < FK_RPW; ++r) {
+          p[r] = 0.f;
+#pragma unroll
+          for (int j = 0; j < EPT; ++j) p[r] = fmaf(kr[r][j], tv[j], p[r]);
+        }
+        u_acc[n] += sum8(p, lane);
+      }
     }
 
-    // ---- epilogue: bias, q.k, pre-gate, mask -> s_s[n][key] ----
+    // ---- pre-gate and mask -> S.s[n][key] (one lane of the four that hold a key's sums) ----
+    if ((lane & 3) == 0) {
+      const int key = m0 + ri;
+      const bool exists = key < M;  // keys past M do not exist: weight exactly 0
+      const bool valid = exists && (mask == nullptr || mask[(size_t)b * M + key]);
 #pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] += bias[j];
-    for (int n = 0; n < N; ++n) {
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float p = 0.f;
-#pragma unroll
-        for (int j = 0; j < EPT; ++j)
-          p = fmaf(acc[i][j], q_s[n][(j >> 2) * 128 + 4 * lane + (j & 3)], p);
-        p = warp_sum(p);
-        if (lane == i) s_s[n][warp * FK_RPW + i] = p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < FK_RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) acc[i][j] = tanhf(acc[i][j]);
-    for (int n = 0; n < N; ++n) {
-#pragma unroll
-      for (int i = 0; i < FK_RPW; ++i) {
-        float g = 0.f;
-#pragma unroll
-        for (int j = 0; j < EPT; ++j)
-          g = fmaf(acc[i][j], tq_s[n][(j >> 2) * 128 + 4 * lane + (j & 3)], g);
-        g = warp_sum(g);
-        if (lane == i) {  // the same lane wrote q.k above: no barrier needed
-          const int row = warp * FK_RPW + i, key = m0 + row;
-          float s = s_s[n][row] * scale;
-          s = s * (g + 1.f) * 0.5f;
-          if (key >= M) s = -INFINITY;  // does not exist: weight exactly 0
-          else if (mask != nullptr && !mask[(size_t)b * M + key]) s = NEG;
-          s_s[n][row] = s;
-        }
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        float sv = a_acc[n] * scale;
+        sv = sv * (u_acc[n] + 1.f) * 0.5f;
+        S.s[n][ri] = !exists ? -INFINITY : (valid ? sv : NEG);
       }
     }
     __syncthreads();
+    // F <= EC: the tile's kv rows (in L2: the ring just read them) into S.k,
+    // which the score pass is done with, during the softmax
+    const bool kv_in_smem = F <= EC;
+    if (kv_in_smem) {
+      const float* src = kv + ((size_t)b * M + m0) * F;
+      for (int idx = tid; idx < FK_BM * F / 4; idx += THREADS) {
+        const int row = idx / (F / 4), c4 = idx % (F / 4);
+        const bool ok = m0 + row < M;
+        cp_async16(&S.k[row][4 * c4], ok ? src + (size_t)row * F + 4 * c4 : src, ok);
+      }
+      cp_async_commit();
+    }
 
     // ---- online softmax, one warp per query ----
     if (warp < N) {
-      const float s0 = s_s[warp][lane], s1 = s_s[warp][lane + 32];
+      const float s0 = S.s[warp][lane], s1 = S.s[warp][lane + 32];
       const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
       const float alpha = expf(m_run - m_new);
       float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
@@ -252,81 +347,78 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         ssq_run = ssq_run * (alpha * alpha) + warp_sum(p0 * p0 + p1 * p1);
         sumw_run = sumw_run * alpha + warp_sum(p0 + p1);
       }
-      s_s[warp][lane] = p0;
-      s_s[warp][lane + 32] = p1;
-      if (lane == 0) alpha_s[warp] = alpha;
+      S.s[warp][lane] = p0;
+      S.s[warp][lane + 32] = p1;
+      if (lane == 0) S.alpha[warp] = alpha;
     }
     __syncthreads();
 
-    // ---- o[n, f] = alpha * o + sum_r p[n, r] * kv[r, f] (kv re-read, L2) ----
+    // ---- o[n, f] = alpha o + sum_r p[n, r] kv[r, f] (kv rows from S.k, else from L2) ----
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       if (n < N) {
-        const float a = alpha_s[n];
+        const float a = S.alpha[n];
 #pragma unroll
         for (int c = 0; c < FC; ++c) oacc[n][c] *= a;
       }
     }
     const int rows = min(FK_BM, M - m0);
+    const float* kv_t = kv + ((size_t)b * M + m0) * F;
+    if (kv_in_smem) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
 #pragma unroll 8
     for (int r = 0; r < rows; ++r) {
-      const float* kvr = kv_b + (size_t)(m0 + r) * F;
       float x[FC];
 #pragma unroll
       for (int c = 0; c < FC; ++c) {
         const int f = tid + THREADS * c;
-        x[c] = f < F ? kvr[f] : 0.f;
+        x[c] = f < F ? (kv_in_smem ? S.k[r][f] : kv_t[(size_t)r * F + f]) : 0.f;
       }
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
         if (n < N) {
-          const float p = s_s[n][r];
+          const float p = S.s[n][r];
 #pragma unroll
           for (int c = 0; c < FC; ++c) oacc[n][c] = fmaf(p, x[c], oacc[n][c]);
         }
       }
     }
-    __syncthreads();  // s_s / alpha_s are rewritten by the next tile
+    // S.s and S.alpha are rewritten after the next unit's chunk barriers
   }
-
-  const size_t pb = (size_t)b * P + split;
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    if (n < N) {
-#pragma unroll
-      for (int c = 0; c < FC; ++c) {
-        const int f = tid + THREADS * c;
-        if (f < F) o_part[(pb * N + n) * F + f] = oacc[n][c];
-      }
-    }
-  }
-  if (warp < N && lane == 0) {
-    ml_part[(pb * N + warp) * 2 + 0] = m_run;
-    ml_part[(pb * N + warp) * 2 + 1] = l_run;
-    if constexpr (TRAIN) {
-      sq_part[(pb * N + warp) * 2 + 0] = ssq_run;
-      sq_part[(pb * N + warp) * 2 + 1] = sumw_run;
-    }
-  }
+  cp_async_wait<0>();
+  if (b >= 0) flush();
 }
 
 // ---------------------------------------------------------------------------
-// Merge P partial (m, l[, o]) states per (bag, query):
+// Merge a bag's partial (m, l[, o]) states per (bag, query), in order:
 //   m = max_p m_p;  l = sum_p l_p e^(m_p - m);  o = sum_p o_p e^(m_p - m) / l
 // with the l == 0 guard of the TPU kernel. Without sq_part, sumw = l / l (the
 // weight mass of the final row; no dropout in eval); with it (training form)
 //   ssq = sum_p ssq_p e^(2 (m_p - m)) / l^2,  sumw = sum_p sumw_p e^(m_p - m) / l.
+// Partials [*, N, F] (o) and [*, N, 2]: with off == NULL bag b's are
+// b * P .. b * P + P - 1; with off (the fuse-K forward's unit list over P
+// blocks, fused_k_common.cuh) those of the blocks g that held its units, at
+// g + b.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
                const float* __restrict__ sq_part, float* __restrict__ o,
                float* __restrict__ l_out, float* __restrict__ m_out,
-               float* __restrict__ ssq, float* __restrict__ sumw, int N, int F, int P) {
+               float* __restrict__ ssq, float* __restrict__ sumw, int N, int F, int P,
+               const int* __restrict__ off) {
   __shared__ float fac[MAX_PARTS];
   __shared__ float red[WARPS], red_sq[WARPS], red_sw[WARPS];
   const int b = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const float* ml = ml_part + ((size_t)b * P * N + n) * 2;  // stride N*2 per part
+  size_t base = (size_t)b * P;  // bag b's first partial
+  if (off != nullptr) {
+    const int per = units_per_block(off, gridDim.x, P), g0 = off[b] / per;
+    base = (size_t)g0 + b;
+    P = (off[b + 1] - 1) / per - g0 + 1;
+  }
+  const float* ml = ml_part + (base * N + n) * 2;  // stride N*2 per part
 
   float mx = NEG;
   for (int p = tid; p < P; p += THREADS) mx = fmaxf(mx, ml[(size_t)p * N * 2]);
@@ -344,7 +436,7 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
     fac[p] = e;
     lsum += ml[(size_t)p * N * 2 + 1] * e;
     if (sq_part != nullptr) {
-      const size_t i = (((size_t)b * P + p) * N + n) * 2;  // ml_part's layout
+      const size_t i = ((base + p) * N + n) * 2;  // ml_part's layout
       sq += sq_part[i] * (e * e);
       sw += sq_part[i + 1] * e;
     }
@@ -373,7 +465,7 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
     for (int f = tid; f < F; f += THREADS) {
       float acc = 0.f;
       for (int p = 0; p < P; ++p)
-        acc = fmaf(o_part[(((size_t)b * P + p) * N + n) * F + f], fac[p], acc);
+        acc = fmaf(o_part[((base + p) * N + n) * F + f], fac[p], acc);
       o[((size_t)b * N + n) * F + f] = acc * l_inv;
     }
   }
@@ -711,35 +803,57 @@ int launch_weights(const float* q, const float* k, const uint8_t* mask, const fl
   return (int)cudaGetLastError();
 }
 
-// fused_k_kernel over (B, splits) blocks, then combine_kernel. sq_part and
-// ssq are used by the TRAIN form only.
+// The fuse-K forward's launches: the tile flags and list, fused_k_kernel
+// over `blocks` blocks, combine_kernel. sq_part and ssq are used by the
+// TRAIN form only.
+template <int E, int FC, bool TRAIN>
+int launch_fk_instance(const float* q, const float* kv, const float* wk, const float* bk,
+                       const uint8_t* mask, const int* list, const int* off, float* o_part,
+                       float* ml_part, float* sq_part, const int* seed, uint32_t thresh,
+                       float keep_scale, int B, int N, int M, int F, int blocks, float scale,
+                       cudaStream_t st) {
+  static bool allowed[64] = {};
+  constexpr int smem = (int)sizeof(FkFwdSmem<E>);
+  static_assert(smem <= 232448, "shared memory of one block");
+  const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN>, smem, allowed);
+  if (err) return err;
+  fused_k_kernel<E, FC, TRAIN><<<blocks, THREADS, smem, st>>>(
+      q, kv, wk, bk, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N,
+      M, F, scale);
+  return (int)cudaGetLastError();
+}
+
 template <bool TRAIN>
 int launch_fused_k(const float* q, const float* kv, const float* wk, const float* bk,
                    const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
                    float* o, float* l, float* m, float* ssq, float* sumw, float* o_part,
-                   float* ml_part, float* sq_part, int B, int N, int M, int F, int E,
-                   int splits, float scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || F % FK_BF != 0 || F > FK_FMAX || splits < 1 ||
-      splits > MAX_PARTS)
+                   float* ml_part, float* sq_part, uint8_t* flags, int* list, int* off, int B,
+                   int N, int M, int F, int E, int blocks, float scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || F < 16 || F % 16 != 0 || F > FK_FMAX ||
+      blocks < 1 || blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  const int per = (n_tiles + splits - 1) / splits;
-  const dim3 grid(B, splits);
-  const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // kv columns per thread in o += p kv
-#define MPO_FK(E_, FC_)                                                           \
-  if (E == E_ && fc == FC_)                                                       \
-    fused_k_kernel<E_, FC_, TRAIN><<<grid, THREADS, 0, st>>>(                     \
-        q, kv, wk, bk, mask, o_part, ml_part, sq_part, seed, thresh, keep_scale, N, \
-        M, F, per, scale);
-  MPO_FK(256, 1) else MPO_FK(256, 2) else MPO_FK(256, 4)
-  else MPO_FK(128, 1) else MPO_FK(128, 2) else MPO_FK(128, 4)
-  else return (int)cudaErrorInvalidValue;
-#undef MPO_FK
+  launch_tile_list(mask, nullptr, flags, list, off, B, M, 0, st);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq,
-                                                 sumw, N, F, splits);
+  const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // o columns a thread
+#define MPO_FK(E_, FC_)                                                                    \
+  if (E == E_ && fc == FC_)                                                                \
+    err = launch_fk_instance<E_, FC_, TRAIN>(q, kv, wk, bk, mask, list, off, o_part, ml_part, \
+                                             sq_part, seed, thresh, keep_scale, B, N, M, F,  \
+                                             blocks, scale, st);
+  if constexpr (TRAIN) {  // E, F in {128, 256}
+    MPO_FK(256, 1) else MPO_FK(128, 1) else return (int)cudaErrorInvalidValue;
+  } else {
+    MPO_FK(256, 1) else MPO_FK(256, 2) else MPO_FK(256, 4)
+    else MPO_FK(128, 1) else MPO_FK(128, 2) else MPO_FK(128, 4)
+    else MPO_FK(512, 1) else MPO_FK(512, 2) else MPO_FK(512, 4)
+    else return (int)cudaErrorInvalidValue;
+  }
+#undef MPO_FK
+  if (err) return err;
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq, sumw,
+                                                 N, F, blocks, off);
   return (int)cudaGetLastError();
 }
 
@@ -748,32 +862,35 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
 extern "C" {
 
 // q [B, N, E], kv [B, M, F], wk [F, E], bk [E], mask [B, M] bool or NULL.
-// Out: o [B, N, F], l, m, sumw [B, N]. Scratch: o_part [B, splits, N, F],
-// ml_part [B, splits, N, 2]. E in {128, 256}; F % 16 == 0, F <= 1024; N <= 8.
+// Out: o [B, N, F], l, m, sumw [B, N]. blocks: the main pass's grid (one
+// block an SM). Scratch: o_part [blocks + B, N, F], ml_part [blocks + B, N,
+// 2], flags [B * T] uint8, list [B * T] and off [B + 1] int32 (T = ceil(M /
+// 64) key tiles a bag). E in {128, 256, 512}; F % 16 == 0, F <= 1024; N <= 8.
 int mpo_coattn_fwd_fused_k(const float* q, const float* kv, const float* wk,
                            const float* bk, const uint8_t* mask, float* o, float* l,
-                           float* m, float* sumw, float* o_part, float* ml_part, int B,
-                           int N, int M, int F, int E, int splits, float scale,
-                           void* stream) {
+                           float* m, float* sumw, float* o_part, float* ml_part,
+                           uint8_t* flags, int* list, int* off, int B, int N, int M, int F,
+                           int E, int blocks, float scale, void* stream) {
   return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, o, l, m, nullptr,
-                               sumw, o_part, ml_part, nullptr, B, N, M, F, E, splits,
-                               scale, stream);
+                               sumw, o_part, ml_part, nullptr, flags, list, off, B, N, M, F,
+                               E, blocks, scale, stream);
 }
 
 // The training form: as above plus attention dropout (seed: one int32 on the
 // device; keep iff dropout_bits >= thresh, kept weights times keep_scale;
 // thresh 0 = no dropout) and the ssq side output. Out: o [B, N, F], l, m
 // (saved for the backward), ssq, sumw [B, N]. Extra scratch: sq_part
-// [B, splits, N, 2].
+// [blocks + B, N, 2]. E, F in {128, 256}.
 int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* wk,
                                  const float* bk, const uint8_t* mask, const int* seed,
                                  float* o, float* l, float* m, float* ssq, float* sumw,
-                                 float* o_part, float* ml_part, float* sq_part, int B,
-                                 int N, int M, int F, int E, int splits, float scale,
-                                 uint32_t thresh, float keep_scale, void* stream) {
+                                 float* o_part, float* ml_part, float* sq_part, uint8_t* flags,
+                                 int* list, int* off, int B, int N, int M, int F, int E,
+                                 int blocks, float scale, uint32_t thresh, float keep_scale,
+                                 void* stream) {
   return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, o, l, m, ssq,
-                              sumw, o_part, ml_part, sq_part, B, N, M, F, E, splits,
-                              scale, stream);
+                              sumw, o_part, ml_part, sq_part, flags, list, off, B, N, M, F, E,
+                              blocks, scale, stream);
 }
 
 // q [B, N, D], k [B, M, D], mask [B, M] bool or NULL -> l, m [B, N].
@@ -791,7 +908,7 @@ int mpo_coattn_stats(const float* q, const float* k, const uint8_t* mask, float*
   else return (int)cudaErrorInvalidValue;
   if (err) return err;
   combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l, m,
-                                                 nullptr, nullptr, N, 0, splits * WARPS);
+                                                 nullptr, nullptr, N, 0, splits * WARPS, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -837,7 +954,7 @@ int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
   if (err) return err;
   combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, train ? sq_part : nullptr, o,
                                                  l, m, ssq, train ? sumw : nullptr, N, D,
-                                                 splits);
+                                                 splits, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,8 @@
 //    bag_has_valid_key / next_tile): p is exactly 0 there and ds is 0 by
 //    the mask, so it adds nothing to dq, dwk or dbk, and the pass writes its
 //    dkv = 0; a bag without a valid key computes every tile.
-//    fk_list_kernel lists the computed (bag, tile) units in order.
+//    fk_list_kernel lists the computed (bag, tile) units in order. Both are
+//    in fused_k_common.cuh, shared with the forward (csrc/coattn.cu).
 //  * fused_k_bwd_kernel: one block an SM; block g takes an even share of
 //    the list (so a full bag and a short one cost the same per tile), 8
 //    warps, each product's [64 x width] output over a 2 x 4 warp grid (32
@@ -66,43 +67,11 @@
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
 
-#include "flash_common.cuh"
+#include "fused_k_common.cuh"
 
 namespace {
 
 using namespace mpo;
-
-// Column j (< width / 32) of lane `lane` in the register-tiled layouts:
-// float4 groups, so a warp's 128-bit shared-memory accesses never conflict.
-__device__ __forceinline__ int lane_col(int j, int lane) {
-  return (j >> 2) * 128 + 4 * lane + (j & 3);
-}
-
-// Sums each of v[0..7] over the warp's 32 lanes (a transposing butterfly:
-// 9 shuffles where eight warp_sums take 40). Returns, in every lane, the
-// total of value sum8_index(lane).
-__device__ __forceinline__ float sum8(float (&v)[8], int lane) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const bool hi = lane & 16;
-    const float send = hi ? v[k] : v[k + 4];
-    v[k] = (hi ? v[k + 4] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const bool hi = lane & 8;
-    const float send = hi ? v[k] : v[k + 2];
-    v[k] = (hi ? v[k + 2] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-  const bool hi = lane & 4;
-  float r = (hi ? v[1] : v[0]) + __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[1], 4);
-  r += __shfl_xor_sync(0xffffffffu, r, 2);
-  return r + __shfl_xor_sync(0xffffffffu, r, 1);
-}
-
-__device__ __forceinline__ int sum8_index(int lane) {
-  return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
-}
 
 template <int E, int F>
 struct FkSmem {
@@ -128,67 +97,6 @@ struct FkSmem {
   alignas(16) float dp_du[NMAX][FK_BM];
   float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
 };
-
-// Pass 1 (blocks of FK_FLAG_TILES tiles of one bag): which 64-key tiles the
-// backward computes. With a valid key in the bag, a tile without one is
-// skipped: flag 0 and dkv = 0 on its keys (p is exactly 0 there and ds 0 by
-// the mask, so it adds nothing to dq, dwk or dbk); a bag without a valid key
-// computes every tile.
-constexpr int FK_FLAG_TILES = 16;
-
-template <int F>
-__global__ void __launch_bounds__(THREADS)
-fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
-                uint8_t* __restrict__ flags, int M) {
-  const int b = blockIdx.x, n_tiles = (M + FK_BM - 1) / FK_BM;
-  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
-  const bool skip = mask_b != nullptr && bag_has_valid_key(mask_b, M);
-  const int t1 = min(n_tiles, ((int)blockIdx.y + 1) * FK_FLAG_TILES);
-  for (int t = blockIdx.y * FK_FLAG_TILES; t < t1; ++t) {
-    const bool computed = next_tile<FK_BM>(mask_b, t, t + 1, M, skip) == t;
-    if (threadIdx.x == 0) flags[(size_t)b * n_tiles + t] = computed;
-    if (computed) continue;
-    const int r1 = min((t + 1) * FK_BM, M);
-    float4* dst = reinterpret_cast<float4*>(dkv + ((size_t)b * M + (size_t)t * FK_BM) * F);
-    for (int i = threadIdx.x; i < (r1 - t * FK_BM) * F / 4; i += blockDim.x)
-      dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// Pass 2 (one block): the computed units u = bag * n_tiles + tile in order
-// into list, off[b] = the position of bag b's first unit, off[B] = their
-// count T. Every bag has at least one computed tile.
-__global__ void __launch_bounds__(THREADS)
-fk_list_kernel(const uint8_t* __restrict__ flags, int* __restrict__ list,
-               int* __restrict__ off, int B, int n_tiles) {
-  __shared__ int warp_tot[WARPS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = B * n_tiles;
-  int base = 0;
-  for (int c0 = 0; c0 < n; c0 += THREADS) {
-    const int u = c0 + tid;
-    const bool f = u < n && flags[u] != 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) warp_tot[warp] = __popc(bal);
-    __syncthreads();
-    int pos = base + __popc(bal & ((1u << lane) - 1u)), tot = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      if (w < warp) pos += warp_tot[w];
-      tot += warp_tot[w];
-    }
-    if (f) list[pos] = u;
-    if (u < n && u % n_tiles == 0) off[u / n_tiles] = pos;
-    __syncthreads();  // warp_tot is rewritten by the next chunk
-    base += tot;
-  }
-  if (tid == 0) off[B] = base;
-}
-
-// Blocks of the main pass and of dwk_kernel split the T computed units
-// evenly: block g of G takes positions [g * per, min(T, (g + 1) * per)).
-__device__ __forceinline__ int units_per_block(const int* __restrict__ off, int B, int G) {
-  return (off[B] + G - 1) / G;
-}
 
 template <int E, int F>
 __global__ void __launch_bounds__(THREADS)
@@ -858,10 +766,7 @@ int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk
   if (err) return err;
   err = allow_dynamic_smem(dwk_kernel<E, F>, DW_SMEM, allowed_dwk);
   if (err) return err;
-  const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  fk_tiles_kernel<F><<<dim3(B, (n_tiles + FK_FLAG_TILES - 1) / FK_FLAG_TILES), THREADS, 0, st>>>(
-      mask, dkv, flags, M);
-  fk_list_kernel<<<1, THREADS, 0, st>>>(flags, list, off, B, n_tiles);
+  launch_tile_list(mask, dkv, flags, list, off, B, M, F, st);
   fused_k_bwd_kernel<E, F><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dkv,
       dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);

@@ -1,5 +1,6 @@
-// Shared by csrc/flash.cu (forward), csrc/flash_bwd.cu (backward) and
-// csrc/coattn_bwd.cu (the fuse-K co-attention backward): the mask value, the
+// Shared by csrc/flash.cu (forward), csrc/flash_bwd.cu (backward) and,
+// through fused_k_common.cuh, csrc/coattn.cu and csrc/coattn_bwd.cu (the
+// fuse-K co-attention forward and backward): the mask value, the
 // tile copies between device and shared memory (cp.async), the key-tile
 // flags, and the two tensor-core products every phase of these kernels is
 // made of.

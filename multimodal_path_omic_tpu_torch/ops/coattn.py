@@ -5,12 +5,14 @@ Seven kernels (``csrc/coattn.cu``, ``csrc/coattn_bwd.cu``) replace the TPU
 kernels of the NaCAGaT and MCAT serving and training paths:
 
 * :func:`coattn_fwd_fused_k` — the forward kernel in its fuse-K form: K is
-  projected from the raw key-side input in-kernel (``k = kv @ wk + bk``),
-  pre-gated, masked, online-softmaxed, and the raw values ``kv`` pooled;
-  emits o, l, m and sumw (``coattention_fused_k``, eval: no dropout);
+  projected from the raw key-side input in-kernel (``k = kv @ wk + bk``, on
+  the tensor cores as 3xTF32 at float32 accuracy, only for the 64-key tiles
+  that hold a valid key), pre-gated, masked, online-softmaxed, and the raw
+  values ``kv`` pooled; emits o, l, m and sumw (``coattention_fused_k``,
+  eval: no dropout; E up to 512, NaCAGaT ``big``);
 * :func:`coattn_fwd_fused_k_train` — the same forward in its training form:
   attention dropout in-kernel, the ssq and sumw side outputs of the dropped
-  weights, l and m saved for the backward;
+  weights, l and m saved for the backward (E, F in ``TRAIN_DIMS``);
 * :func:`coattn_bwd_fused_k` — the recompute backward of the fuse-K form:
   dq, dkv, dwk, dbk (``_coattn_fk_bwd``), with its partial-sum reduce;
 * :func:`coattn_stats` — the forward kernel's plain-K form, statistics only
@@ -60,6 +62,7 @@ MAX_QUERIES = 8  # one warp per query in the kernels
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
 STATS_MIN_KEYS_PER_WARP = 32
 TRAIN_DIMS = (128, 256)  # E and F the training kernels take
+EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
 
 LAUNCH_COUNTS = {
     "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
@@ -208,12 +211,12 @@ def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, ds
 
 def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool) -> bool:
     """The shapes the fuse-K kernels take: 1..``MAX_QUERIES`` queries (one
-    warp each), M >= 1 keys, and E in {128, 256} with F % 16 == 0, F <= 1024
+    warp each), M >= 1 keys, and E in ``EVAL_E`` with F % 16 == 0, F <= 1024
     (eval form) or E, F in ``TRAIN_DIMS`` (training form and backward). The
     wrappers raise on a CUDA shape outside it; ``MultiheadAttention`` routes
     such a shape off the lean-V branch (the JAX package's ``leank_eligible``)."""
     dims = (e in TRAIN_DIMS and f in TRAIN_DIMS) if train else (
-        e in (128, 256) and f % 16 == 0 and f <= 1024)
+        e in EVAL_E and f % 16 == 0 and f <= 1024)
     return 1 <= n <= MAX_QUERIES and m_len >= 1 and dims
 
 
@@ -241,8 +244,7 @@ def _refuse(what: str, n: int, d: str) -> None:
 
 
 def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
-    """Shapes and the split count of the fuse-K kernels: the (bag, split)
-    grid fills the SMs with every split owning at least one 64-key tile."""
+    """Shapes and the mask pointer of the fuse-K kernels."""
     b, n, e = q.shape
     m_len, f = kv.shape[1], kv.shape[2]
     if not fused_k_supports(n, e, f, m_len, train=train):
@@ -251,10 +253,16 @@ def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
     kernels.require(kv, "kv", (b, m_len, f))
     kernels.require(wk, "wk", (f, e))
     kernels.require(bk, "bk", (e,))
-    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, q.device)
-    n_tiles = -(-m_len // FK_TILE)
-    splits = kernels.tile_splits(n_tiles, kernels.sm_count(q.device) // b)
-    return b, n, e, m_len, f, splits, mask_ptr
+    return b, n, e, m_len, f, kernels.mask_ptr(key_mask, b, m_len, q.device)
+
+
+def _tile_list(b: int, m_len: int, dev):
+    """Scratch of the fuse-K kernels' key-tile passes (csrc/fused_k_common.cuh):
+    (flags [B * T] uint8, the list of computed tiles [B * T] and the bags'
+    offsets into it [B + 1], int32), T = ceil(M / 64) tiles a bag."""
+    n_units = b * -(-m_len // FK_TILE)
+    units = torch.empty((n_units + b + 1,), dtype=torch.int32, device=dev)
+    return torch.empty((n_units,), dtype=torch.uint8, device=dev), units, units[n_units:]
 
 
 def coattn_fwd_fused_k(
@@ -262,21 +270,25 @@ def coattn_fwd_fused_k(
     key_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """q [B, N, E], kv [B, M, F], wk [F, E], bk [E], key_mask [B, M] bool ->
-    (o [B, N, F], l [B, N], m [B, N], sumw [B, N]). Kernel: E in {128, 256},
-    F % 16 == 0 and F <= 1024, N <= 8, float32."""
+    (o [B, N, F], l [B, N], m [B, N], sumw [B, N]). Kernel: E in
+    {128, 256, 512}, F % 16 == 0 and F <= 1024, N <= 8, float32."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_plain(q, kv, wk, bk, key_mask)
-    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=False)
+    b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=False)
     dev = q.device
+    # one block an SM over the 64-key tiles that hold a valid key (or every
+    # tile of a bag without one), each writing a partial per bag it visits
+    blocks = kernels.sm_count(dev)
     o = torch.empty((b, n, f), device=dev)
     l, m, sumw = (torch.empty((b, n), device=dev) for _ in range(3))
-    o_part = torch.empty((b, splits, n, f), device=dev)
-    ml_part = torch.empty((b, splits, n, 2), device=dev)
+    o_part = torch.empty((blocks + b, n, f), device=dev)
+    ml_part = torch.empty((blocks + b, n, 2), device=dev)
+    flags, units, offsets = _tile_list(b, m_len, dev)
     err = kernels.library("coattn").mpo_coattn_fwd_fused_k(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), sumw.data_ptr(),
-        o_part.data_ptr(), ml_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), kernels.stream(dev),
+        o_part.data_ptr(), ml_part.data_ptr(), flags.data_ptr(), units.data_ptr(),
+        offsets.data_ptr(), b, n, m_len, f, e, blocks, 1.0 / math.sqrt(e), kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_fused_k")
     LAUNCH_COUNTS["coattn_fwd_fused_k"] += 1
@@ -303,18 +315,21 @@ def coattn_fwd_fused_k_train(
     ssq, sumw [B, N]). Kernel: E, F in {128, 256}, N <= 8, float32."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate)
-    b, n, e, m_len, f, splits, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
+    b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
+    blocks = kernels.sm_count(dev)  # the eval form's grid
     o = torch.empty((b, n, f), device=dev)
     l, m, ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(4))
-    o_part = torch.empty((b, splits, n, f), device=dev)
-    ml_part, sq_part = (torch.empty((b, splits, n, 2), device=dev) for _ in range(2))
+    o_part = torch.empty((blocks + b, n, f), device=dev)
+    ml_part, sq_part = (torch.empty((blocks + b, n, 2), device=dev) for _ in range(2))
+    flags, units, offsets = _tile_list(b, m_len, dev)
     err = kernels.library("coattn").mpo_coattn_fwd_fused_k_train(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
-        o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(),
-        b, n, m_len, f, e, splits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
+        o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(), flags.data_ptr(),
+        units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e, blocks, 1.0 / math.sqrt(e),
+        thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_fused_k_train")
     LAUNCH_COUNTS["coattn_fwd_fused_k_train"] += 1
@@ -334,7 +349,7 @@ def coattn_bwd_fused_k(
     version recomputes what it needs and takes no l, m, di)."""
     if q.device.type == "cpu":
         return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
-    b, n, e, m_len, f, _, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
+    b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
     kernels.require(dout, "dout", (b, n, f))
@@ -345,7 +360,6 @@ def coattn_bwd_fused_k(
     # a second kernel, blocks of (a 128 x 128 tile of dwk, a share of those
     # tiles), each writing one partial.
     sms = kernels.sm_count(dev)
-    n_units = b * -(-m_len // FK_TILE)
     wsplits = max(1, sms // ((f // 128) * (e // 128)))
     dq = torch.empty((b, n, e), device=dev)
     dkv = torch.empty((b, m_len, f), device=dev)
@@ -355,14 +369,13 @@ def coattn_bwd_fused_k(
     dwk_part = torch.empty((wsplits, f, e), device=dev)
     dbk_part = torch.empty((sms, e), device=dev)
     dk_scratch = torch.empty((b, m_len, e), device=dev)
-    flags = torch.empty((n_units,), dtype=torch.uint8, device=dev)
-    units = torch.empty((n_units + b + 1,), dtype=torch.int32, device=dev)  # list, offsets
+    flags, units, offsets = _tile_list(b, m_len, dev)
     err = kernels.library("coattn_bwd").mpo_coattn_bwd_fused_k(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
         dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(), dk_scratch.data_ptr(),
-        flags.data_ptr(), units.data_ptr(), units[n_units:].data_ptr(), b, n, m_len, f, e,
+        flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e,
         sms, wsplits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_fused_k")

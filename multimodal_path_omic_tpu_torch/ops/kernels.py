@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 # C signatures of every exported function, by library.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "coattn": {
-        "mpo_coattn_fwd_fused_k": [_P] * 11 + [_I] * 6 + [_F, _P],
-        "mpo_coattn_fwd_fused_k_train": [_P] * 14 + [_I] * 6 + [_F, _U, _F, _P],
+        "mpo_coattn_fwd_fused_k": [_P] * 14 + [_I] * 6 + [_F, _P],
+        "mpo_coattn_fwd_fused_k_train": [_P] * 17 + [_I] * 6 + [_F, _U, _F, _P],
         "mpo_coattn_stats": [_P] * 6 + [_I] * 6 + [_F, _P],
         "mpo_coattn_weights": [_P] * 6 + [_I] * 6 + [_F, _P],
         "mpo_coattn_plain_fwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _P],

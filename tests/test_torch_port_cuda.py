@@ -70,7 +70,8 @@ def _close(got, ref, rtol=0.0, atol=ATOL):
 
 @pytest.mark.parametrize(
     "b,n,e,m_len,f",
-    [(2, 3, 128, 1000, 256), (4, 6, 256, 4096, 256), (3, 8, 256, 777, 1024), (1, 1, 256, 70, 256)],
+    [(2, 3, 128, 1000, 256), (4, 6, 256, 4096, 256), (3, 8, 256, 777, 1024), (1, 1, 256, 70, 256),
+     (2, 6, 512, 4096, 512), (3, 8, 512, 777, 1024), (2, 3, 256, 1000, 80)],
 )
 def test_kernels_match_plain_on_card(dev, b, n, e, m_len, f):
     q, kv, wk, bk, k, mask = _inputs(dev, b, n, e, m_len, f, m_len)
@@ -187,7 +188,8 @@ def _training_mask(dev, b, m_len, kind, seed):
      (3, 8, 128, 256, 333, 0.0, "prefix"), (1, 1, 256, 128, 70, 0.5, "prefix"),
      (3, 6, 256, 256, 4000, 0.25, "holes"), (2, 6, 128, 256, 1000, 0.0, "holes"),
      (3, 6, 256, 256, 1500, 0.25, "one"), (3, 6, 256, 128, 1, 0.25, "prefix"),
-     (2, 8, 256, 256, 4001, 0.25, "prefix"), (4, 6, 256, 256, 8192, 0.25, "holes")],
+     (2, 8, 256, 256, 4001, 0.25, "prefix"), (4, 6, 256, 256, 8192, 0.25, "holes"),
+     (3, 6, 128, 128, 1500, 0.25, "one"), (2, 8, 256, 128, 3000, 0.0, "holes")],
 )
 def test_training_kernels_match_plain_on_card(dev, b, n, e, f, m_len, rate, kind):
     """The training forward (dropout, ssq, sumw, l, m) and the backward
@@ -271,6 +273,58 @@ def test_leank_training_form_gradients_on_card(dev):
         grads.append([t.grad for t in ins])
     for a, r in zip(*grads):
         _close_rel(a, r)
+
+
+@pytest.mark.parametrize("e,f,kind", [(128, 128, "holes"), (256, 256, "one"), (256, 128, "prefix")])
+def test_fused_k_eval_and_training_forms_agree_at_dropout_0(dev, e, f, kind):
+    """The two forms share one kernel (a template flag): at dropout 0 the
+    training form's o, l, m and sumw are the eval form's, within 1e-4."""
+    b, n, m_len = 3, 6, 1500
+    q, kv, wk, bk, _, _ = _inputs(dev, b, n, e, m_len, f, 21)
+    mask = _training_mask(dev, b, m_len, kind, 22)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    ev = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
+    o, l, m, _, sumw = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.0)
+    for a, r, rtol in zip((o, l, m, sumw), ev, (0.0, L_RTOL, 0.0, 0.0)):
+        _close(a, r, rtol)
+
+
+@pytest.mark.parametrize("e,f,kind", [(256, 256, "holes"), (512, 512, "prefix"),
+                                      (512, 1024, "one"), (128, 256, "one")])
+def test_fused_k_forward_runs_agree_bitwise(dev, e, f, kind):
+    """Each form run twice gives the same bits: every block writes its
+    partials at fixed places and the merge sums them in block order."""
+    b, n, m_len = 4, 6, 3000
+    q, kv, wk, bk, _, _ = _inputs(dev, b, n, e, m_len, f, 31)
+    mask = _training_mask(dev, b, m_len, kind, 32)
+    runs = [coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    if e in coattn.TRAIN_DIMS and f in coattn.TRAIN_DIMS:
+        seed = torch.tensor([9], dtype=torch.int32, device=dev)
+        runs = [coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.25) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("e,f", [(256, 256), (512, 512), (128, 1024)])
+@pytest.mark.parametrize("key", [3, 1337])
+def test_fused_k_one_valid_key_pools_its_row(dev, e, f, key):
+    """A bag whose only valid key lies in the first tile (key 3) or a late one
+    (1337 of 2000): every other tile is skipped, the key's weight is 1, so o
+    is that key's kv row, l is 1 and sumw is 1, within 1e-4."""
+    b, n, m_len = 2, 6, 2000
+    q, kv, wk, bk, _, _ = _inputs(dev, b, n, e, m_len, f, 41)
+    mask = torch.zeros(b, m_len, dtype=torch.bool, device=dev)
+    mask[0, key] = True
+    mask[1, : m_len // 2] = True
+    forms = [coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)]
+    if e in coattn.TRAIN_DIMS and f in coattn.TRAIN_DIMS:
+        seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+        o, l, m, _, sumw = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.0)
+        forms.append((o, l, m, sumw))
+    for o, l, _, sumw in forms:
+        _close(o[0], kv[0, key].expand(n, f))
+        _close(l[0], torch.ones_like(l[0]))
+        _close(sumw[0], torch.ones_like(sumw[0]))
 
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -582,8 +636,8 @@ def test_refused_coattention_shapes_on_card_match_cpu(dev):
     """Shapes the co-attention kernels do not take go to attention_core by
     the kernels' predicates, never to a raise: cross-attention of 6 queries
     over 100 keys in 8 heads of width 32; NaCAGaT with 12 signature groups
-    (ces: lean-V refused; cesar: the map of 12 queries); NaCAGaT big (ces).
-    The card within 1e-4 of the CPU, no co-attention launch."""
+    (ces: lean-V refused; cesar: the map of 12 queries). The card within 1e-4
+    of the CPU, no co-attention launch."""
     rng = np.random.default_rng(3)
     torch.manual_seed(0)
     from multimodal_path_omic_tpu_torch.ops import attention
@@ -601,8 +655,7 @@ def test_refused_coattention_shapes_on_card_match_cpu(dev):
         assert not any(coattn.LAUNCH_COUNTS.values())
     _close(outs[0], outs[1])
     bags = [rng.standard_normal((n, 256), dtype=np.float32) for n in (300, 700, 90)]
-    for sizes, model_size, loss in (((12,) * 12, "small", "ces"), ((12,) * 12, "small", "cesar"),
-                                    ((10, 20, 30), "big", "ces")):
+    for sizes, model_size, loss in (((12,) * 12, "small", "ces"), ((12,) * 12, "small", "cesar")):
         omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
         kw = dict(omic_sizes=sizes, model_size=model_size, wsi_dim=256, buckets=(1024,),
                   batch_size=2, loss=loss, seed=1)
@@ -613,6 +666,26 @@ def test_refused_coattention_shapes_on_card_match_cpu(dev):
         ref = Predictor(device="cpu", **kw).predict_bags(bags, omics)
         for key in ("hazards", "survs", "y", "risk"):
             np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0)
+
+
+def test_nacagat_big_ces_predictor_on_card_matches_cpu(dev):
+    """NaCAGaT big (E = F = 512) serving with ces takes the fuse-K eval
+    kernel's E = 512 instance through the lean-V gate: one launch a batch and
+    no other co-attention kernel, the card within 1e-4 of the CPU."""
+    rng = np.random.default_rng(3)
+    sizes = (10, 20, 30)
+    bags = [rng.standard_normal((n, 256), dtype=np.float32) for n in (300, 700, 90)]
+    omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
+    kw = dict(omic_sizes=sizes, model_size="big", wsi_dim=256, buckets=(1024,), batch_size=2,
+              loss="ces", seed=1)
+    coattn.reset_launch_counts()
+    got = Predictor(device=dev, **kw).predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    counts = dict(coattn.LAUNCH_COUNTS)
+    assert counts == {**{k: 0 for k in counts}, "coattn_fwd_fused_k": 2}, counts  # 2 batches
+    ref = Predictor(device="cpu", **kw).predict_bags(bags, omics)
+    for key in ("hazards", "survs", "y", "risk"):
+        np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0)
 
 
 def test_nacagat_big_cesar_train_step_on_card_matches_cpu(dev):

@@ -143,10 +143,11 @@ CASES = [
     # F1: cross-attention of 6 queries over 100 keys in 8 heads of width 32
     ("f1-6q-width32", 256, 8, False, 6, 100, False, "attention_core", False),
     ("6q-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
-    # F2: NaCAGaT with 12 signature groups; NaCAGaT big (E = F = 512)
+    # F2: NaCAGaT with 12 signature groups; NaCAGaT big (E = F = 512): its
+    # eval form on the fuse-K kernel, its training form on attention_core
     ("f2-nacagat-12-groups", 256, 1, True, 12, 100, False, "attention_core", False),
     ("f2-nacagat-12-groups-ssq", 256, 1, True, 12, 100, "ssq", "attention_core", False),
-    ("f2-nacagat-big", 512, 1, True, 6, 100, False, "attention_core", False),
+    ("f2-nacagat-big", 512, 1, True, 6, 100, False, "fused_attention_leank", True),
     ("f2-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "attention_core", False),
     ("nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
     # F3: the map requested for 12 queries
