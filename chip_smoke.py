@@ -2,7 +2,7 @@
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
 serving and training paths and its device-cache training step on one GPU.
 
-    python3 chip_smoke.py              # phases 1-19 below
+    python3 chip_smoke.py              # phases 1-20 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -33,9 +33,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    E=F=256, M in {8192, 4000 (ragged, one fully-masked row)}, M=8192 with
    whole masked key tiles in the middle of every bag, M=1500 with one bag
    of a single valid key (its dq held to the noise of the terms that
-   cancel), and E=F=128 at M=4000 with masked tiles; each run twice must
-   agree bitwise, the backward's dkv exactly 0 at the masked keys of bags
-   with a valid key; the drop share of the Philox bits.
+   cancel), E=F=128 at M=4000 with masked tiles, and E=F=512 (NaCAGaT big)
+   at M=8192 (prefix and masked-tile masks) and M=1500 with the single-key
+   bag; each run twice must agree bitwise, the backward's dkv exactly 0 at
+   the masked keys of bags with a valid key; the drop share of the Philox
+   bits.
 5. The NaCAGaT ``medium`` trainer (cesar, dropout 0.25 at every site, Adam
    lr 2e-4, weight decay 1e-5) on one 32-bag batch of the 8192 bucket,
    staged on the card once: 5 steps with the counts reset just before and
@@ -139,6 +141,15 @@ Phases (any failure exits non-zero, and no result line is printed):
     fuse-K eval kernel's E = 512 instance a batch and no other kernel, the
     card within 1e-4 of the CPU Predictor on 8 bags (the longest among
     them), ``predict_bags`` bags/s over three calls.
+20. NaCAGaT ``big`` training (cesar, dropout 0.25, Adam lr 2e-4, weight decay
+    1e-5) on phase 5's staged batch: 5 steps with exactly one launch of the
+    fuse-K training forward's and backward's E = F = 512 instances a step
+    and no other kernel; one step from the same state and seed with the
+    kernels and with their plain versions, whose parameter gradients must
+    agree; train bags/s over 5 more steps; both instances timed at B=32,
+    M=8192 beside their plain versions, bounds and the route they replace
+    (k by torch.matmul, then ``attention_core``; for the backward, with
+    autograd's backward).
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -149,7 +160,9 @@ phase-2 Predictor for each loss on the same bags, and traces one
 ``predict_bags`` call with ``torch.profiler``: device time by kernel / copy
 name, wall time and the device busy share (summed device time over wall
 time), then one JSON line per loss with the same numbers. It then traces one
-phase-5 training step the same way, with its device time split into
+phase-5 training step the same way (``medium``, then ``big``: phase 20's
+trainer), after the host-clock median of 10 steps and their peak device
+memory, with its device time split into
 matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
 ``predict_bags`` call of phase 8, split into flash kernel, MIL-pool kernel,
 matrix products, copies and other; and one GE training step of phase 11,
@@ -194,7 +207,9 @@ SOURCES = {
     "coattn_stats": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_fwd_fused_k_train_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "coattn_bwd_fused_k_e512": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "milpool": "multimodal_path_omic_tpu_torch/csrc/milpool.cu",
     **{f"flash_{way}_d{w}": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
        for way, src in (("fwd", "flash"), ("bwd", "flash_bwd"))
@@ -210,7 +225,9 @@ REPLACES = {
     "coattn_stats": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_weights": "multimodal_path_omic_tpu/ops/coattn.py:908",
     "coattn_fwd_fused_k_train": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_fwd_fused_k_train_e512": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_bwd_fused_k": "multimodal_path_omic_tpu/ops/coattn.py:508",
+    "coattn_bwd_fused_k_e512": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "milpool": "multimodal_path_omic_tpu/ops/milpool.py:131",
     # the backward: the library kernel's custom VJP, reached through the same call
     **{f"flash_{way}_d{w}": "multimodal_path_omic_tpu/ops/flash.py:44"
@@ -517,16 +534,17 @@ def fk_bytes_ops(name, m_len, f_dim, e=E) -> tuple:
     ~1e8 operations, is left out). ``e``: the fuse-K forms' E."""
     ins = 4 * (B * N * e + B * m_len * f_dim + f_dim * e + e) + B * m_len  # q kv wk bk mask
     if name.startswith("coattn_fwd_fused_k"):
-        n_stats = 4 if name == "coattn_fwd_fused_k_train" else 3  # l, m, sumw (+ ssq)
+        # l, m, sumw (+ ssq in the training form)
+        n_stats = 4 if name.startswith("coattn_fwd_fused_k_train") else 3
         nbytes = ins + 4 * (B * N * f_dim + n_stats * B * N)
         ops = 2 * B * m_len * f_dim * e + 4 * B * N * m_len * e + 2 * B * N * m_len * f_dim
-    elif name == "coattn_bwd_fused_k":
+    elif name.startswith("coattn_bwd_fused_k"):
         # in: + dout, l, m, di, dssq, dsumw; out: dq, dkv, dwk, dbk
         nbytes = ins + 4 * (B * N * f_dim + 5 * B * N) + 4 * (
-            B * N * E + B * m_len * f_dim + f_dim * E + E)
+            B * N * e + B * m_len * f_dim + f_dim * e + e)
         # k, dk wk^T, kv^T dk; scores + gate; dO.kv and pd^T dO; dq and dk terms
-        ops = (6 * B * m_len * f_dim * E + 4 * B * N * m_len * E + 4 * B * N * m_len * f_dim
-               + 8 * B * N * m_len * E)
+        ops = (6 * B * m_len * f_dim * e + 4 * B * N * m_len * e + 4 * B * N * m_len * f_dim
+               + 8 * B * N * m_len * e)
     else:
         out = 2 * B * N if name == "coattn_stats" else B * N * m_len
         nbytes = 4 * (B * N * E + B * m_len * E + out) + B * m_len
@@ -536,30 +554,30 @@ def fk_bytes_ops(name, m_len, f_dim, e=E) -> tuple:
     return nbytes, ops
 
 
-def bound_ms(name, m_len, f_dim) -> tuple:
+def bound_ms(name, m_len, f_dim, e=E) -> tuple:
     """(bound ms, 'bytes' | 'operations') at the float32 rate of the CUDA
     cores, every key counted."""
-    nbytes, ops = fk_bytes_ops(name, m_len, f_dim)
+    nbytes, ops = fk_bytes_ops(name, m_len, f_dim, e)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fk_bwd_bound_ms(mask) -> tuple:
+def fk_bwd_bound_ms(mask, e=E) -> tuple:
     """(bound ms, 'bytes' | 'operations', float32-FMA bound ms over the same
     keys, float32-FMA bound ms over every key) of the fuse-K backward at
-    B=32, N=6, E=F=256. Its three products (k = kv wk, dk wk^T, kv^T dk) run
+    B=32, N=6, E=F=``e``. Its three products (k = kv wk, dk wk^T, kv^T dk) run
     as 3xTF32 on the tensor cores (three TF32 products each) and are needed
     only for the valid keys (a tile without one is skipped; a bag without a
     valid key needs all of its keys): counted from ``mask``. The bytes are
     ``bound_ms``'s (each input read once, each output written once); so is
     the float32-FMA bound over every key."""
     m_len = mask.shape[1]
-    ops = 6 * valid_keys(mask) * E * E
-    t_bytes = fk_bytes_ops("coattn_bwd_fused_k", m_len, E)[0] / PEAK_BYTES_PER_S * 1e3
+    ops = 6 * valid_keys(mask) * e * e
+    t_bytes = fk_bytes_ops("coattn_bwd_fused_k", m_len, e, e)[0] / PEAK_BYTES_PER_S * 1e3
     t_ops = 3 * ops / PEAK_TF32_FLOP_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (
-        ops / PEAK_F32_FLOP_PER_S * 1e3, bound_ms("coattn_bwd_fused_k", m_len, E)[0])
+        ops / PEAK_F32_FLOP_PER_S * 1e3, bound_ms("coattn_bwd_fused_k", m_len, e, e)[0])
 
 
 def valid_keys(mask) -> int:
@@ -739,23 +757,31 @@ def check_one_key_dq(got, ref, q, kv, wk, bk, fwd, dout, dssq, dsumw, di) -> Non
         raise AssertionError("dq of a bag with one valid key is above its noise limit")
 
 
+# Phase 4's (M, mask kind, E = F): NaCAGaT medium's width on the training
+# batch's M, a ragged M, the tile-skipping masks; E = F = 128; NaCAGaT big's
+# E = F = 512 on the training batch's M (prefix and holes) and the single-key
+# bag.
+PHASE4_CASES = ((TRAIN_M, "prefix", E), (4000, "prefix", E), (TRAIN_M, "holes", E),
+                (1500, "one", E), (4000, "holes", 128), (TRAIN_M, "prefix", 512),
+                (TRAIN_M, "holes", 512), (1500, "one", 512))
+
+
 def phase4_train_kernels(dev) -> dict:
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     errs = {}
-    for m_len, kind, e_dim in ((TRAIN_M, "prefix", E), (4000, "prefix", E), (TRAIN_M, "holes", E),
-                               (1500, "one", E), (4000, "holes", 128)):
+    for m_len, kind, e_dim in PHASE4_CASES:
         log(f"phase 4: training kernels B={B} N={N} E=F={e_dim} M={m_len} dropout {TRAIN_RATE}, "
             f"{kind} masks")
         ins, (dout, l, m, di, dssq, dsumw), ref = train_kernel_inputs(m_len, dev, 97 + m_len,
                                                                       kind, e_dim)
+        fwd_row, bwd_row = (name + ("_e512" if e_dim == 512 else "") for name in TRAIN_KERNELS)
         got = fwd = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
         again = coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE)
-        errs["coattn_fwd_fused_k_train"] = max(
-            errs.get("coattn_fwd_fused_k_train", 0.0),
-            check_fk_forward("fwd_train", got, ref, again, ins[1], ins[4]))
+        errs[fwd_row] = max(errs.get(fwd_row, 0.0),
+                            check_fk_forward("fwd_train", got, ref, again, ins[1], ins[4]))
         got = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         again = coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
         ref = coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw)
@@ -768,8 +794,7 @@ def phase4_train_kernels(dev) -> dict:
         for name, a, r in zip(("dq", "dkv", "dwk", "dbk"), got, ref):
             if name == "dq":
                 a, r = a[~one], r[~one]
-            errs["coattn_bwd_fused_k"] = max(errs.get("coattn_bwd_fused_k", 0.0),
-                                             check_rel(f"bwd.{name}", a, r, GRAD_RTOL))
+            errs[bwd_row] = max(errs.get(bwd_row, 0.0), check_rel(f"bwd.{name}", a, r, GRAD_RTOL))
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("two backward runs differ")
         has = mask.any(-1)
@@ -786,17 +811,17 @@ def phase4_train_kernels(dev) -> dict:
     return errs
 
 
-def make_trainer(dev, model="NaCAGaT", loss="cesar", lean=True, cached=False):
-    """The training configuration: NaCAGaT (cesar) or MCAT (ces) medium,
-    random weights from seed 0, dropout 0.25, Adam lr 2e-4 / weight decay
-    1e-5, dropout generator seeded with 0; ``cached``: the device-cache step."""
+def make_trainer(dev, model="NaCAGaT", loss="cesar", lean=True, cached=False, size="medium"):
+    """The training configuration: NaCAGaT (cesar) or MCAT (ces), ``size``
+    medium (or big: NaCAGaT's E = F = 512), random weights from seed 0,
+    dropout 0.25, Adam lr 2e-4 / weight decay 1e-5, dropout generator seeded
+    with 0; ``cached``: the device-cache step."""
     from multimodal_path_omic_tpu_torch.models import build_model
     from multimodal_path_omic_tpu_torch.train import loop
     from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
     from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
-    net = build_model(model, omic_sizes=SIZES, model_size="medium", dropout=TRAIN_RATE,
-                      lean=lean)
+    net = build_model(model, omic_sizes=SIZES, model_size=size, dropout=TRAIN_RATE, lean=lean)
     net = seeded_init_(net, 0).to(dev)
     opt = make_optimizer("adam", 2e-4, 1e-5)
     make = loop.make_cached_train_step if cached else loop.make_train_step
@@ -824,12 +849,13 @@ def stage_train_batch(dev, bags, omics) -> dict:
     }
 
 
-def train_step_grads(dev, batch, plain: bool) -> dict:
-    """Parameter gradients of one training step from the phase-5 start state
-    and seed, through the kernels or through their plain versions."""
+def train_step_grads(dev, batch, plain: bool, size="medium") -> dict:
+    """Parameter gradients of one training step from the phase-5 (``size``
+    big: phase-20) start state and seed, through the kernels or through
+    their plain versions."""
     from multimodal_path_omic_tpu_torch.ops import coattn
 
-    model, state, step = make_trainer(dev)
+    model, state, step = make_trainer(dev, size=size)
     saved = coattn.coattn_fwd_fused_k_train, coattn.coattn_bwd_fused_k
     if plain:
         coattn.coattn_fwd_fused_k_train = coattn.coattn_fwd_fused_k_train_plain
@@ -2133,6 +2159,101 @@ def phase19_nacagat_big(dev, bags, omics) -> int:
     return counts["coattn_fwd_fused_k"]
 
 
+def phase20_nacagat_big_training(dev, batch) -> dict:
+    """NaCAGaT big (E = F = 512) training at full width on phase 5's staged
+    batch: the fuse-K training forward's and backward's E = F = 512
+    instances through the lean-V gate, one launch of each a step and no
+    other kernel; a step's parameter gradients with the kernels and with
+    their plain versions; train bags/s. Returns the launches."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.train.loop import accumulation_chunks
+
+    log(f"phase 20: NaCAGaT big trainer, cesar, dropout {TRAIN_RATE}, Adam; batch "
+        f"[{B}, {TRAIN_M}, 1024], {TRAIN_STEPS} steps")
+    _, state, step = make_trainer(dev, size="big")
+    reset_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics.loss)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    log(f"  losses: {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a NaCAGaT big training loss is not finite")
+    steps = TRAIN_STEPS * accumulation_chunks(B, TRAIN_M, 262_144, "cesar")
+    expect_counts("NaCAGaT big training", counts, **{name: steps for name in TRAIN_KERNELS})
+    log("phase 20: one step from the same state and seed, kernels vs plain versions")
+    check_step_grads(train_step_grads(dev, batch, plain=False, size="big"),
+                     train_step_grads(dev, batch, plain=True, size="big"))
+    times = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    log(f"phase 20: NaCAGaT big training step, {B} bags of the {TRAIN_M} bucket: "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms (host clock, synchronized); median "
+        f"{med:.3f} ms = {B / med * 1e3:.1f} train bags/s")
+    return counts
+
+
+def time_train_e512(dev, errs, launches) -> list:
+    """The E = F = 512 training instances (NaCAGaT big training) at B=32,
+    N=6, M=8192, dropout 0.25, beside their plain versions, their bounds and
+    the route they replace: k = kv wk + bk by torch.matmul, then
+    ``attention_core`` with dropout and the weights' ssq and sumw (the
+    lean-V gate's refusal before the instances existed), the forward alone
+    beside K2, the forward and autograd's backward beside K3. Their launches
+    are phase 20's."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+    from multimodal_path_omic_tpu_torch.ops.attention import attention_core
+
+    e = 512
+    ins, (dout, l, m, di, dssq, dsumw), _ = train_kernel_inputs(TRAIN_M, dev, 5, e=e)
+    q, kv, wk, bk, mask, _ = ins
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def replaced(q_, kv_, wk_, bk_):
+        k = torch.matmul(kv_, wk_) + bk_
+        o, w = attention_core(q_[:, None], k[:, None], kv_[:, None], mask, pre_gate=True,
+                              dropout_rate=TRAIN_RATE, generator=gen)
+        return o[:, 0], (w[:, 0] * w[:, 0]).sum(-1), w[:, 0].sum(-1)
+
+    def replaced_with_backward():
+        leaves = [t.detach().requires_grad_(True) for t in (q, kv, wk, bk)]
+        torch.autograd.backward(replaced(*leaves), (dout, dssq, dsumw))
+
+    fwd, bwd = (name + "_e512" for name in TRAIN_KERNELS)
+    calls = {
+        fwd: (lambda: coattn.coattn_fwd_fused_k_train(*ins, TRAIN_RATE),
+              lambda: coattn.coattn_fwd_fused_k_train_plain(*ins, TRAIN_RATE),
+              lambda: replaced(q, kv, wk, bk), "the forward", fk_fwd_bound_ms(fwd, mask, e)),
+        bwd: (lambda: coattn.coattn_bwd_fused_k(*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw),
+              lambda: coattn.coattn_bwd_fused_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw),
+              replaced_with_backward, "the forward and autograd's backward",
+              fk_bwd_bound_ms(mask, e)),
+    }
+    rows = []
+    for (name, (kern, plain, route, what, bounds)), base in zip(calls.items(), TRAIN_KERNELS):
+        ms = cuda_ms(kern, 10, 2)
+        plain_ms, route_ms = cuda_ms(plain, 3, 1), cuda_ms(route, 3, 1)
+        log(f"phase 20: {name} B={B} N={N} M={TRAIN_M} F=E={e} dropout {TRAIN_RATE}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the route it replaces (k by torch.matmul, then "
+            f"attention_core; {what}) {route_ms:.4f} ms, " + fk_bound_line(ms, bounds))
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": launches[base],
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bounds[0], "bound_by": bounds[1], "library_ms": None})
+    return rows
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -2207,14 +2328,25 @@ TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("fk_", "coattn kernels"),
 
 
 def profile_training(title, tag, make, batch, top=20) -> None:
-    """Trace one training step of the trainer ``make()`` returns, after two
-    warm-up steps: device time by part (TRAIN_SPLIT) and by kernel."""
+    """After two warm-up steps of the trainer ``make()`` returns, the
+    host-clock median of 10 steps and their peak device memory, then one
+    traced step: device time by part (TRAIN_SPLIT) and by kernel."""
     import torch
 
     model, state, step = make()
     for _ in range(2):  # warm: library load, cuBLAS handles, allocator
         state, _ = step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms, peak_gib = float(np.median(times)), torch.cuda.max_memory_allocated() / 2**30
+    log(f"profile: {title}; 10 steps {', '.join(f'{t:.3f}' for t in times)} ms (host clock, "
+        f"synchronized), median {step_ms:.3f} ms; peak device memory {peak_gib:.3f} GiB")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -2233,8 +2365,9 @@ def profile_training(title, tag, make, batch, top=20) -> None:
     for name, ms, count in rows[:top]:
         log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
     log(json.dumps({
-        tag: True, "rows": len(batch["weight"]), "wall_ms": wall_ms, "device_ms": device_ms,
-        "busy_share": device_ms / wall_ms, "split_ms": split,
+        tag: True, "rows": len(batch["weight"]), "step_ms_median": step_ms, "peak_gib": peak_gib,
+        "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+        "split_ms": split,
         "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in rows[:top]],
     }))
 
@@ -2267,9 +2400,9 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one predict_bags call per loss, one training step, one GE "
-                         "predict_bags call, one GE training step and one cached MCAT "
-                         "training step instead of phases 1-19")
+                    help="trace one predict_bags call per loss, one training step (medium "
+                         "and big), one GE predict_bags call, one GE training step and one "
+                         "cached MCAT training step instead of phases 1-20")
     args = ap.parse_args()
     try:
         import torch
@@ -2302,9 +2435,12 @@ def main() -> int:
     if args.profile:
         for loss in WANT:
             profile_serving(dev, loss, bags, omics)
+        batch = stage_train_batch(dev, bags, omics)
         profile_training(f"training step, {B} bags of the {TRAIN_M} bucket", "training_step",
-                         lambda: make_trainer(dev), stage_train_batch(dev, bags, omics))
-        del bags, omics
+                         lambda: make_trainer(dev), batch)
+        profile_training(f"NaCAGaT big training step, {B} bags of the {TRAIN_M} bucket",
+                         "big_training_step", lambda: make_trainer(dev, size="big"), batch)
+        del bags, omics, batch
         ge_bags = make_ge_bags(2)
         profile_ge_serving(dev, ge_bags)
         profile_training(f"GE training step, {GE_B} rows of the {GE_M} bucket",
@@ -2362,6 +2498,8 @@ def main() -> int:
     for row in rows:
         if row["name"] == "coattn_fwd_fused_k_e512":
             row["launches"] = e512
+    torch.cuda.empty_cache()
+    rows += time_train_e512(dev, errs, phase20_nacagat_big_training(dev, batch))
     torch.cuda.empty_cache()
     errs.update(phase13_plain_kernels(dev))
     torch.cuda.empty_cache()

@@ -842,8 +842,9 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
     err = launch_fk_instance<E_, FC_, TRAIN>(q, kv, wk, bk, mask, list, off, o_part, ml_part, \
                                              sq_part, seed, thresh, keep_scale, B, N, M, F,  \
                                              blocks, scale, st);
-  if constexpr (TRAIN) {  // E, F in {128, 256}
-    MPO_FK(256, 1) else MPO_FK(128, 1) else return (int)cudaErrorInvalidValue;
+  if constexpr (TRAIN) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py FUSED_K_TRAIN_EF)
+    MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
+    else return (int)cudaErrorInvalidValue;
   } else {
     MPO_FK(256, 1) else MPO_FK(256, 2) else MPO_FK(256, 4)
     else MPO_FK(128, 1) else MPO_FK(128, 2) else MPO_FK(128, 4)
@@ -880,7 +881,7 @@ int mpo_coattn_fwd_fused_k(const float* q, const float* kv, const float* wk,
 // device; keep iff dropout_bits >= thresh, kept weights times keep_scale;
 // thresh 0 = no dropout) and the ssq side output. Out: o [B, N, F], l, m
 // (saved for the backward), ssq, sumw [B, N]. Extra scratch: sq_part
-// [blocks + B, N, 2]. E, F in {128, 256}.
+// [blocks + B, N, 2]. E, F in {128, 256}, or E = F = 512.
 int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* wk,
                                  const float* bk, const uint8_t* mask, const int* seed,
                                  float* o, float* l, float* m, float* ssq, float* sumw,

@@ -23,10 +23,10 @@
 //
 // What bounds it on an H100: three [M x F] x [F x E]-sized products (k,
 // dk wk^T, kv^T dk), 6 B M F E = 103 GFLOP at B=32, M=8192, E=F=256 over
-// every key. They run on the tensor cores as 3xTF32 mma.sync at float32
-// accuracy (flash_common.cuh: three TF32 products each, 3 x 103 GFLOP /
-// 495 TFLOP/s = 0.62 ms), against 0.16 ms for the 0.54 GB the function must
-// move: bound by operations. Key tiles without a valid key need none.
+// every key (412 GFLOP at E=F=512). They run on the tensor cores as 3xTF32
+// mma.sync at float32 accuracy (flash_common.cuh: three TF32 products each,
+// 3 x 103 GFLOP / 495 TFLOP/s = 0.62 ms), against 0.16 ms for the 0.54 GB
+// the function must move: bound by operations. Key tiles without a valid key need none.
 //
 // Design: five launches, no atomics.
 //  * fk_tiles_kernel flags the 64-key tiles to compute: with a valid key in
@@ -53,6 +53,21 @@
 //    writes a bag's dq partial when it leaves the bag (dq's k term taken off
 //    the key axis, sum_r da_r k_r = (sum_r da_r kv_r) wk + (sum_r da_r) bk,
 //    so the block never needs k and tanh(k) at once) and dbk once.
+//  * E = F = 512 (NaCAGaT big; FkWideSmem, the `WIDE` branches): the kv
+//    tile [64][520] and k [64][516] together (265,216 bytes) exceed one
+//    block's 232,448, so kv is not resident. It streams through the ring with
+//    the wk rows, as in the forward (csrc/coattn.cu): each 8-deep step
+//    brings a kv slice [64][8] and a wk slice [8][256], and the k product
+//    runs in two E chunks of 256 into the whole k [64][516], which stays
+//    (k, then tanh(k), then dk). dp = dO.kv_r and z = sum_r da_r kv_r read
+//    the kv rows in place from L2 (the ring has just passed them). The dkv
+//    product runs in two F halves of 256, its wk column chunks [256][8]
+//    through the same ring. Ring 36,864 + k 132,096 + q, tq 32,768 + dout
+//    16,384 + per-key rows 6,144 + stats 160 = 224,416 bytes. A thread owns
+//    two E columns and two F columns of the column sums, and the products'
+//    accumulators are the 256 instance's ([2][8][4] a thread): ptxas gives
+//    255 registers and no spill (64 bytes of stack hold z, which the flush
+//    indexes by query, as 32 bytes do at 256).
 //  * dwk_kernel: dwk = kv^T dk over the listed units (split-K: no block
 //    reads and writes a dwk partial per tile), one block = (a 128 x 128
 //    tile of dwk, an even share of the list): kv and dk slices staged
@@ -67,6 +82,8 @@
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
 
+#include <type_traits>
+
 #include "fused_k_common.cuh"
 
 namespace {
@@ -75,6 +92,7 @@ using namespace mpo;
 
 template <int E, int F>
 struct FkSmem {
+  static constexpr bool WIDE = false;
   static constexpr int WC = 16;       // wk rows (k product) or columns (dkv) a chunk
   static constexpr int KVS = F + 8;   // kv tile: acc-product A, 8 mod 32
   static constexpr int KS = E + 4;    // k / tanh(k) / dk: row-product A, 4 mod 32
@@ -84,6 +102,7 @@ struct FkSmem {
   static constexpr int NCF = F / WC, NCE = E / WC;  // chunks of the k and dkv products
   static constexpr int NTE = E / 32, NTF = F / 32;  // column tiles a warp (4 column quarters)
   static constexpr int GK = NTE < 4 ? NTE : 4, GD = NTF < 4 ? NTF : 4;  // tiles in flight
+  static constexpr int NK = NCF, FH = F, NFH = 1;   // the k product's chunks; dkv in one pass
   static constexpr int KV_ROWS = FK_BM / NCE;       // next unit's kv rows a dkv chunk brings
   alignas(16) float kv[FK_BM][KVS];   // kv tile (zero rows past M)
   alignas(16) float k[FK_BM][KS];     // k, then tanh(k), then dk
@@ -98,6 +117,36 @@ struct FkSmem {
   float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
 };
 
+// E = F = 512: kv streams through the ring (see the design notes).
+template <int E, int F>
+struct FkWideSmem {
+  static constexpr bool WIDE = true;
+  static constexpr int WC = 8;                  // depth of a chunk step, both products
+  static constexpr int EC = 256, NEC = E / EC;  // k product: E columns a chunk
+  static constexpr int FH = 256, NFH = F / FH;  // dkv product: F columns a pass
+  static constexpr int KVS = WC;                // kv slice [64][8]: acc-product A, 8 mod 32
+  static constexpr int RS = EC + 4;             // wk row slice [WC][EC]: acc-product B, 4 mod 32
+  static constexpr int KS = E + 4;              // k / tanh(k) / dk: row-product A, 4 mod 32
+  static constexpr int CS = WC + 4;             // wk column chunk [FH][WC]: row-product B (12: no conflict)
+  static constexpr int SLOT = FK_BM * KVS + WC * RS > FH * CS ? FK_BM * KVS + WC * RS : FH * CS;
+  static constexpr int NCF = F / WC, NCE = E / WC;  // chunk steps an E chunk, an F half
+  static constexpr int NK = NEC * NCF;              // chunk steps of the k product
+  static constexpr int NTE = EC / 32, NTF = FH / 32;
+  static constexpr int GK = 4, GD = 4;
+  alignas(16) float ring[3][SLOT];
+  alignas(16) float k[FK_BM][KS];  // k, then tanh(k), then dk
+  alignas(16) float q[NMAX][E];
+  alignas(16) float tq[NMAX][E];
+  alignas(16) float dout[NMAX][F];
+  alignas(16) float a_pd[NMAX][FK_BM];
+  alignas(16) float g_da[NMAX][FK_BM];
+  alignas(16) float dp_du[NMAX][FK_BM];
+  float stat[5][NMAX];
+};
+
+template <int E, int F>
+using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F>, FkSmem<E, F>>;
+
 template <int E, int F>
 __global__ void __launch_bounds__(THREADS)
 fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
@@ -110,11 +159,15 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                    float* __restrict__ dk_out, const int* __restrict__ list,
                    const int* __restrict__ off, float* __restrict__ dq_part,
                    float* __restrict__ dbk_part, int B, int N, int M, float scale) {
-  using S_ = FkSmem<E, F>;
+  using S_ = FkBwdSmem<E, F>;
+  constexpr bool WIDE = S_::WIDE;
   constexpr int EPT = E / 32;  // E columns per lane
   constexpr int FPT = F / 32;  // F columns per lane
-  constexpr int WC = S_::WC, KVS = S_::KVS, KS = S_::KS, RS = S_::RS, CS = S_::CS;
-  constexpr int NTE = S_::NTE, NTF = S_::NTF, NCF = S_::NCF, NC = S_::NCF + S_::NCE;
+  constexpr int CE = (E + THREADS - 1) / THREADS;  // E columns a column owner holds
+  constexpr int CF = (F + THREADS - 1) / THREADS;  // F columns a column owner holds
+  constexpr int WC = S_::WC, KS = S_::KS, RS = S_::RS, CS = S_::CS;
+  constexpr int NTE = S_::NTE, NTF = S_::NTF, NCF = S_::NCF, NCE = S_::NCE;
+  constexpr int NC = S_::NK + S_::NFH * NCE;  // chunk steps a unit
   extern __shared__ float4 smem4[];
   S_& S = *reinterpret_cast<S_*>(smem4);
 
@@ -126,55 +179,86 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   const int per = units_per_block(off, B, gridDim.x);
   const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
 
-  // wk chunk s of the block's sequence (NC a unit: NCF row chunks [WC][E]
-  // for k, then NCE column chunks [F][WC] for dkv) into ring slot s % 3
+  // Chunk step s of the block's sequence into ring slot s % 3, NC a unit.
+  // Narrow: NCF wk row chunks [WC][E] for k, then NCE column chunks [F][WC]
+  // for dkv. WIDE: for each E chunk, NCF steps of a kv slice [64][WC] and a
+  // wk row slice [WC][EC] (zero kv rows past M); then for each F half, NCE
+  // wk column chunks [FH][WC].
   auto issue_chunk = [&](int s) {
-    if (i0 + s / NC >= i1) return;
+    const int i = i0 + s / NC;
+    if (i >= i1) return;
     const int c = s % NC;
-    if (c < NCF) load_tile_async<WC, E, RS>(S.ring[s % 3], wk, E, c * WC, F);
-    else load_tile_async<F, WC, CS>(S.ring[s % 3], wk + (c - NCF) * WC, E, 0, F);
+    if constexpr (WIDE) {
+      float* slot = S.ring[s % 3];
+      if (c < S_::NK) {
+        const int u = list[i], f0 = (c % NCF) * WC;
+        load_tile_async<FK_BM, WC, S_::KVS>(slot, kv + (size_t)(u / n_tiles) * M * F + f0, F,
+                                            (u % n_tiles) * FK_BM, M);
+        load_tile_async<WC, S_::EC, RS>(slot + FK_BM * S_::KVS, wk + (c / NCF) * S_::EC, E, f0, F);
+      } else {
+        const int c2 = c - S_::NK;
+        load_tile_async<S_::FH, WC, CS>(slot, wk + (size_t)(c2 / NCE) * S_::FH * E +
+                                                  (c2 % NCE) * WC, E, 0, S_::FH);
+      }
+    } else {
+      if (c < NCF) load_tile_async<WC, E, RS>(S.ring[s % 3], wk, E, c * WC, F);
+      else load_tile_async<F, WC, CS>(S.ring[s % 3], wk + (c - NCF) * WC, E, 0, F);
+    }
   };
-  if (i0 < i1) {
-    const int u = list[i0];
-    load_tile_async<FK_BM, F, KVS>(&S.kv[0][0], kv + (size_t)(u / n_tiles) * M * F, F,
-                                   (u % n_tiles) * FK_BM, M);
+  if constexpr (!WIDE) {
+    if (i0 < i1) {
+      const int u = list[i0];
+      load_tile_async<FK_BM, F, S_::KVS>(&S.kv[0][0], kv + (size_t)(u / n_tiles) * M * F, F,
+                                         (u % n_tiles) * FK_BM, M);
+    }
   }
   issue_chunk(0);
   cp_async_commit();
   issue_chunk(1);
   cp_async_commit();
 
-  // column-owner accumulators of the current bag: thread tid owns E column
-  // tid (dq's tanh term) and F column tid (z = sum_r da_r kv_r); thread
-  // n < N owns sum_r da; dbk sums over every bag of the block
-  float dqu[NMAX], z[NMAX], sda = 0.f, dbk_acc = 0.f;
+  // column-owner accumulators of the current bag: thread tid owns E columns
+  // tid + 256 h, h < CE (dq's tanh term) and F columns tid + 256 h, h < CF
+  // (z = sum_r da_r kv_r); thread n < N owns sum_r da; dbk sums over every
+  // bag of the block
+  float dqu[CE][NMAX], z[CF][NMAX], sda = 0.f, dbk_acc[CE];
+#pragma unroll
+  for (int h = 0; h < CE; ++h) dbk_acc[h] = 0.f;
   int b = -1;
   // The bag's dq partial (partial g + b: unique per visited (block, bag)
   // pair, as both rise along the unit list); z and sda pass through S.k.
   auto flush = [&]() {
     __syncthreads();  // the last tile's dkv product is done with S.k
     float* zs = &S.k[0][0];  // [NMAX][F], then sda [NMAX]
-    if (tid < F)
-      for (int n = 0; n < N; ++n) zs[n * F + tid] = z[n];
+#pragma unroll
+    for (int h = 0; h < CF; ++h) {
+      const int col = tid + THREADS * h;
+      if (col < F)
+        for (int n = 0; n < N; ++n) zs[n * F + col] = z[h][n];
+    }
     if (tid < N) zs[NMAX * F + tid] = sda;
     __syncthreads();
-    if (tid < E) {
-      float v[NMAX];
 #pragma unroll
-      for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
-      for (int f = 0; f < F; ++f) {
-        const float w = wk[(size_t)f * E + tid];
+    for (int h = 0; h < CE; ++h) {
+      const int col = tid + THREADS * h;
+      if (col < E) {
+        float v[NMAX];
 #pragma unroll
-        for (int n = 0; n < NMAX; ++n)
-          if (n < N) v[n] = fmaf(zs[n * F + f], w, v[n]);
-      }
-      const float bkv = bk[tid];
-      float* dst = dq_part + ((size_t)blockIdx.x + b) * N * E;
+        for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
+        for (int f = 0; f < F; ++f) {
+          const float w = wk[(size_t)f * E + col];
 #pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        if (n < N) {
-          const float tq = S.tq[n][tid];
-          dst[n * E + tid] = scale * (v[n] + zs[NMAX * F + n] * bkv) + (1.f - tq * tq) * dqu[n];
+          for (int n = 0; n < NMAX; ++n)
+            if (n < N) v[n] = fmaf(zs[n * F + f], w, v[n]);
+        }
+        const float bkv = bk[col];
+        float* dst = dq_part + ((size_t)blockIdx.x + b) * N * E;
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          if (n < N) {
+            const float tq = S.tq[n][col];
+            dst[n * E + col] = scale * (v[n] + zs[NMAX * F + n] * bkv) + (1.f - tq * tq) * dqu[h][n];
+          }
         }
       }
     }
@@ -203,20 +287,58 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         S.stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
       }
 #pragma unroll
-      for (int n = 0; n < NMAX; ++n) dqu[n] = z[n] = 0.f;
+      for (int n = 0; n < NMAX; ++n) {
+#pragma unroll
+        for (int h = 0; h < CE; ++h) dqu[h][n] = 0.f;
+#pragma unroll
+        for (int h = 0; h < CF; ++h) z[h][n] = 0.f;
+      }
       sda = 0.f;
     }
     const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
-    const float* kv_next = nullptr;  // the next unit's kv tile, loaded during dkv
+    const float* kv_t = kv + ((size_t)b * M + m0) * F;  // WIDE: the tile's kv rows, read in place
+    const int rows = min(FK_BM, M - m0);
+    const float* kv_next = nullptr;  // narrow: the next unit's kv tile, loaded during dkv
     int m0_next = 0;
-    if (i + 1 < i1) {
+    if (!WIDE && i + 1 < i1) {
       const int un = list[i + 1];
       kv_next = kv + (size_t)(un / n_tiles) * M * F;
       m0_next = (un % n_tiles) * FK_BM;
     }
 
     // ---- k tile = kv wk + bk -> S.k ----
-    {
+    if constexpr (WIDE) {
+#pragma unroll 1
+      for (int ec = 0; ec < S_::NEC; ++ec) {
+        float c[2][NTE][4];
+        zero_c<NTE>(c[0]);
+        zero_c<NTE>(c[1]);
+#pragma unroll 1
+        for (int ch = 0; ch < NCF; ++ch, ++s) {
+          cp_async_wait<1>();
+          __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
+          issue_chunk(s + 2);
+          cp_async_commit();
+          const float* slot = S.ring[s % 3];
+          acc_product_rows<2, NTE, WC, S_::GK>(c, slot, S_::KVS, slot + FK_BM * S_::KVS, RS,
+                                               32 * wr, 8 * NTE * wc, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          const int col = ec * S_::EC + 8 * NTE * wc + 8 * j + 2 * t4;
+          const float b0 = bk[col], b1 = bk[col + 1];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            c[r][j][0] += b0; c[r][j][1] += b1;
+            c[r][j][2] += b0; c[r][j][3] += b1;
+          }
+        }
+        // S.k is free: the last unit's dkv product ended before this unit's
+        // first step barrier
+        store_c<NTE>(c[0], &S.k[0][ec * S_::EC], KS, 32 * wr, 8 * NTE * wc, lane);
+        store_c<NTE>(c[1], &S.k[0][ec * S_::EC], KS, 32 * wr + 16, 8 * NTE * wc, lane);
+      }
+    } else {
       float c[2][NTE][4];
       zero_c<NTE>(c[0]);
       zero_c<NTE>(c[1]);
@@ -227,7 +349,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
         issue_chunk(s + 2);
         cp_async_commit();
-        acc_product_rows<2, NTE, WC, S_::GK>(c, &S.kv[0][ch * WC], KVS, S.ring[s % 3], RS,
+        acc_product_rows<2, NTE, WC, S_::GK>(c, &S.kv[0][ch * WC], S_::KVS, S.ring[s % 3], RS,
                                              32 * wr, 8 * NTE * wc, lane);
       }
 #pragma unroll
@@ -245,7 +367,102 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     }
     __syncthreads();
     // ---- a = q.k * scale; tanh(k) over k; gate; dp = dO.kv (warp: 8 keys) ----
-    {
+    static_assert(FK_RPW == 8, "sum8: 8 keys a warp");
+    const int ri = warp * FK_RPW + sum8_index(lane);  // the key this lane's sums belong to
+    const bool writer = (lane & 3) == 0;
+    if constexpr (WIDE) {
+      // per E chunk of 256 columns, the chunks' sums added in registers
+      constexpr int EH = S_::EC, EPH = EH / 32;
+      float a_acc[NMAX], u_acc[NMAX];
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) a_acc[n] = u_acc[n] = 0.f;
+#pragma unroll 1
+      for (int h = 0; h < S_::NEC; ++h) {
+        float kr[FK_RPW][EPH];
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i)
+#pragma unroll
+          for (int j4 = 0; j4 < EPH / 4; ++j4) {
+            const float4 v = *reinterpret_cast<const float4*>(&S.k[warp * FK_RPW + i][h * EH + j4 * 128 + 4 * lane]);
+            kr[i][4 * j4] = v.x; kr[i][4 * j4 + 1] = v.y; kr[i][4 * j4 + 2] = v.z; kr[i][4 * j4 + 3] = v.w;
+          }
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          if (n >= N) break;
+          float qv[EPH], p[FK_RPW];
+#pragma unroll
+          for (int j = 0; j < EPH; ++j) qv[j] = S.q[n][h * EH + lane_col(j, lane)];
+#pragma unroll
+          for (int i = 0; i < FK_RPW; ++i) {
+            p[i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < EPH; ++j) p[i] = fmaf(kr[i][j], qv[j], p[i]);
+          }
+          a_acc[n] += sum8(p, lane);
+        }
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) {
+#pragma unroll
+          for (int j = 0; j < EPH; ++j) kr[i][j] = tanhf(kr[i][j]);
+#pragma unroll
+          for (int j4 = 0; j4 < EPH / 4; ++j4)
+            *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][h * EH + j4 * 128 + 4 * lane]) =
+                make_float4(kr[i][4 * j4], kr[i][4 * j4 + 1], kr[i][4 * j4 + 2], kr[i][4 * j4 + 3]);
+        }
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          if (n >= N) break;
+          float tv[EPH], p[FK_RPW];
+#pragma unroll
+          for (int j = 0; j < EPH; ++j) tv[j] = S.tq[n][h * EH + lane_col(j, lane)];
+#pragma unroll
+          for (int i = 0; i < FK_RPW; ++i) {
+            p[i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < EPH; ++j) p[i] = fmaf(kr[i][j], tv[j], p[i]);
+          }
+          u_acc[n] += sum8(p, lane);
+        }
+      }
+      if (writer) {
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          if (n >= N) break;
+          S.a_pd[n][ri] = a_acc[n] * scale;
+          S.g_da[n][ri] = (u_acc[n] + 1.f) * 0.5f;
+        }
+      }
+      // dp: the warp's 8 kv rows from L2, 128 columns at a time, for every query
+      float dpa[NMAX][FK_RPW];
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n)
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) dpa[n][i] = 0.f;
+#pragma unroll 1
+      for (int j4 = 0; j4 < FPT / 4; ++j4) {
+        float4 x[FK_RPW];
+#pragma unroll
+        for (int i = 0; i < FK_RPW; ++i) {
+          const int r = warp * FK_RPW + i;
+          x[i] = r < rows ? *reinterpret_cast<const float4*>(kv_t + (size_t)r * F + j4 * 128 + 4 * lane)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          if (n >= N) break;
+          const float4 d = *reinterpret_cast<const float4*>(&S.dout[n][j4 * 128 + 4 * lane]);
+#pragma unroll
+          for (int i = 0; i < FK_RPW; ++i)
+            dpa[n][i] = fmaf(x[i].x, d.x, fmaf(x[i].y, d.y, fmaf(x[i].z, d.z, fmaf(x[i].w, d.w, dpa[n][i]))));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n >= N) break;
+        const float dp = sum8(dpa[n], lane);
+        if (writer) S.dp_du[n][ri] = dp;
+      }
+    } else {
       float kr[FK_RPW][EPT];
 #pragma unroll
       for (int i = 0; i < FK_RPW; ++i)
@@ -254,9 +471,6 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
           const float4 v = *reinterpret_cast<const float4*>(&S.k[warp * FK_RPW + i][j4 * 128 + 4 * lane]);
           kr[i][4 * j4] = v.x; kr[i][4 * j4 + 1] = v.y; kr[i][4 * j4 + 2] = v.z; kr[i][4 * j4 + 3] = v.w;
         }
-      static_assert(FK_RPW == 8, "sum8: 8 keys a warp");
-      const int ri = warp * FK_RPW + sum8_index(lane);  // the key this lane's sums belong to
-      const bool writer = (lane & 3) == 0;
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
         if (n >= N) break;
@@ -344,20 +558,31 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     __syncthreads();
 
     // ---- column-owner sums over the tile's keys ----
-    if (tid < E) {
-      for (int r = 0; r < FK_BM; ++r) {
-        const float tkv = S.k[r][tid];
 #pragma unroll
-        for (int n = 0; n < NMAX; ++n)
-          if (n < N) dqu[n] = fmaf(S.dp_du[n][r], tkv, dqu[n]);
+    for (int h = 0; h < CE; ++h) {
+      const int col = tid + THREADS * h;
+      if (col < E) {
+        for (int r = 0; r < FK_BM; ++r) {
+          const float tkv = S.k[r][col];
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n)
+            if (n < N) dqu[h][n] = fmaf(S.dp_du[n][r], tkv, dqu[h][n]);
+        }
       }
     }
-    if (tid < F) {
-      for (int r = 0; r < FK_BM; ++r) {
-        const float x = S.kv[r][tid];
 #pragma unroll
-        for (int n = 0; n < NMAX; ++n)
-          if (n < N) z[n] = fmaf(S.g_da[n][r], x, z[n]);
+    for (int h = 0; h < CF; ++h) {
+      const int col = tid + THREADS * h;
+      if (col < F) {
+        // WIDE: the kv rows from L2 (rows past M do not exist; their da is 0)
+        for (int r = 0; r < (WIDE ? rows : FK_BM); ++r) {
+          float x;
+          if constexpr (WIDE) x = kv_t[(size_t)r * F + col];
+          else x = S.kv[r][col];
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n)
+            if (n < N) z[h][n] = fmaf(S.g_da[n][r], x, z[h][n]);
+        }
       }
     }
     if (tid < N)
@@ -403,8 +628,12 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       }
     }
     __syncthreads();
-    if (tid < E)
-      for (int r = 0; r < FK_BM; ++r) dbk_acc += S.k[r][tid];
+#pragma unroll
+    for (int h = 0; h < CE; ++h) {
+      const int col = tid + THREADS * h;
+      if (col < E)
+        for (int r = 0; r < FK_BM; ++r) dbk_acc[h] += S.k[r][col];
+    }
     for (int idx = tid; idx < FK_BM * E / 4; idx += THREADS) {  // dk -> scratch, for dwk_kernel
       const int r = idx / (E / 4), c4 = idx % (E / 4);
       if (m0 + r < M)
@@ -412,8 +641,10 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
             reinterpret_cast<const float4*>(&S.k[r][0])[c4];
     }
 
-    // ---- dkv = pd^T dO + dk wk^T ----
-    {
+    // ---- dkv = pd^T dO + dk wk^T (WIDE: in F halves) ----
+#pragma unroll 1
+    for (int fh = 0; fh < S_::NFH; ++fh) {
+      const int f0 = fh * S_::FH;  // the pass's first F column
       float d[2][NTF][4];
       zero_c<NTF>(d[0]);
       zero_c<NTF>(d[1]);
@@ -425,7 +656,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
           for (int h = 0; h < 2; ++h) pr[r][h] = S.a_pd[n][32 * wr + 16 * r + g4 + 8 * h];
 #pragma unroll
         for (int j = 0; j < NTF; ++j) {
-          const float2 dv = *reinterpret_cast<const float2*>(&S.dout[n][8 * NTF * wc + 8 * j + 2 * t4]);
+          const float2 dv = *reinterpret_cast<const float2*>(&S.dout[n][f0 + 8 * NTF * wc + 8 * j + 2 * t4]);
 #pragma unroll
           for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -436,13 +667,15 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         }
       }
 #pragma unroll 1
-      for (int ch = 0; ch < S_::NCE; ++ch, ++s) {
+      for (int ch = 0; ch < NCE; ++ch, ++s) {
         cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
         issue_chunk(s + 2);
-        if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
-          load_tile_async<S_::KV_ROWS, F, KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
-                                               m0_next + ch * S_::KV_ROWS, M);
+        if constexpr (!WIDE) {
+          if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
+            load_tile_async<S_::KV_ROWS, F, S_::KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
+                                                     m0_next + ch * S_::KV_ROWS, M);
+        }
         cp_async_commit();
         row_product_rows<2, NTF, WC, S_::GD>(d, &S.k[0][ch * WC], KS, S.ring[s % 3], CS, 32 * wr,
                                              8 * NTF * wc, 0, lane);
@@ -453,7 +686,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         for (int h = 0; h < 2; ++h) {
           const int key = m0 + 32 * wr + 16 * r + g4 + 8 * h;
           if (key >= M) continue;
-          float* dst = dkv + ((size_t)b * M + key) * F + 8 * NTF * wc + 2 * t4;
+          float* dst = dkv + ((size_t)b * M + key) * F + f0 + 8 * NTF * wc + 2 * t4;
 #pragma unroll
           for (int j = 0; j < NTF; ++j)
             *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(d[r][j][2 * h], d[r][j][2 * h + 1]);
@@ -462,7 +695,11 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   }
   cp_async_wait<0>();
   if (b >= 0) flush();
-  if (tid < E) dbk_part[(size_t)blockIdx.x * E + tid] = dbk_acc;
+#pragma unroll
+  for (int h = 0; h < CE; ++h) {
+    const int col = tid + THREADS * h;
+    if (col < E) dbk_part[(size_t)blockIdx.x * E + col] = dbk_acc[h];
+  }
 }
 
 // dwk partial of one block: rows f0 .. f0+127 and columns e0 .. e0+127 of
@@ -760,7 +997,7 @@ int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk
                float* dbk_part, int B, int N, int M, int blocks, int wsplits, float scale,
                cudaStream_t st) {
   static bool allowed_main[64] = {}, allowed_dwk[64] = {};
-  constexpr int smem = (int)sizeof(FkSmem<E, F>);
+  constexpr int smem = (int)sizeof(FkBwdSmem<E, F>);
   static_assert(smem <= 232448, "shared memory of one block");
   int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F>, smem, allowed_main);
   if (err) return err;
@@ -786,7 +1023,7 @@ extern "C" {
 // dwk [F, E], dbk [E]. Scratch: dk_scratch [B, M, E], flags [B * T] uint8,
 // list [B * T] and off [B + 1] int32 (T = ceil(M / 64) key tiles a bag),
 // dq_part [blocks + B, N, E], dbk_part [blocks, E], dwk_part [wsplits, F, E].
-// E, F in {128, 256}; N <= 8.
+// E, F in {128, 256}, or E = F = 512; N <= 8.
 int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, const float* bk,
                            const uint8_t* mask, const int* seed, const float* dout,
                            const float* l, const float* m, const float* di,
@@ -805,7 +1042,7 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
                              dssq, dsumw, dkv, dk_scratch, flags, list, off, dq_part,        \
                              dwk_part, dbk_part, B, N, M, blocks, wsplits, scale, st);
   MPO_BWD(256, 256) else MPO_BWD(128, 128) else MPO_BWD(256, 128) else MPO_BWD(128, 256)
-  else return (int)cudaErrorInvalidValue;
+  else MPO_BWD(512, 512) else return (int)cudaErrorInvalidValue;
 #undef MPO_BWD
   if (err) return err;
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;

@@ -12,7 +12,8 @@ kernels of the NaCAGaT and MCAT serving and training paths:
   eval: no dropout; E up to 512, NaCAGaT ``big``);
 * :func:`coattn_fwd_fused_k_train` — the same forward in its training form:
   attention dropout in-kernel, the ssq and sumw side outputs of the dropped
-  weights, l and m saved for the backward (E, F in ``TRAIN_DIMS``);
+  weights, l and m saved for the backward ((E, F) in ``FUSED_K_TRAIN_EF``:
+  NaCAGaT ``medium`` and ``big``);
 * :func:`coattn_bwd_fused_k` — the recompute backward of the fuse-K form:
   dq, dkv, dwk, dbk (``_coattn_fk_bwd``), with its partial-sum reduce;
 * :func:`coattn_stats` — the forward kernel's plain-K form, statistics only
@@ -61,7 +62,10 @@ NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
 STATS_MIN_KEYS_PER_WARP = 32
-TRAIN_DIMS = (128, 256)  # E and F the training kernels take
+VALUES_D = (128, 256)  # D the plain-K kernels with values take
+# (E, F) the fuse-K training forward and backward take: their template
+# instances (csrc/coattn.cu launch_fused_k, csrc/coattn_bwd.cu MPO_BWD)
+FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
 EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
 
 LAUNCH_COUNTS = {
@@ -212,10 +216,11 @@ def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, ds
 def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool) -> bool:
     """The shapes the fuse-K kernels take: 1..``MAX_QUERIES`` queries (one
     warp each), M >= 1 keys, and E in ``EVAL_E`` with F % 16 == 0, F <= 1024
-    (eval form) or E, F in ``TRAIN_DIMS`` (training form and backward). The
-    wrappers raise on a CUDA shape outside it; ``MultiheadAttention`` routes
-    such a shape off the lean-V branch (the JAX package's ``leank_eligible``)."""
-    dims = (e in TRAIN_DIMS and f in TRAIN_DIMS) if train else (
+    (eval form) or (E, F) in ``FUSED_K_TRAIN_EF`` (training form and
+    backward). The wrappers raise on a CUDA shape outside it;
+    ``MultiheadAttention`` routes such a shape off the lean-V branch (the JAX
+    package's ``leank_eligible``)."""
+    dims = (e, f) in FUSED_K_TRAIN_EF if train else (
         e in EVAL_E and f % 16 == 0 and f <= 1024)
     return 1 <= n <= MAX_QUERIES and m_len >= 1 and dims
 
@@ -231,10 +236,10 @@ def leank_train_form(dropout_rate: float, need_ssq: bool, *tensors: torch.Tensor
 def plain_k_supports(n: int, d: int, m_len: int, *, values: bool) -> bool:
     """The shapes the plain-K kernels take: 1..``MAX_QUERIES`` queries, M >= 1
     keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
-    ``values``, D in ``TRAIN_DIMS`` (the forward with values and its
+    ``values``, D in ``VALUES_D`` (the forward with values and its
     backward). Shapes outside it take ``attention_core`` in the dispatchers
     (the JAX package's ``kernel_eligible``)."""
-    dims = TRAIN_DIMS if values else (128, 256, 512)
+    dims = VALUES_D if values else (128, 256, 512)
     return 1 <= n <= MAX_QUERIES and m_len >= 1 and d in dims
 
 
@@ -312,7 +317,8 @@ def coattn_fwd_fused_k_train(
     """The training form of the fuse-K forward: shapes as
     :func:`coattn_fwd_fused_k`, plus ``seed`` (a [1] int32 tensor on the
     same device) and the attention-dropout ``rate`` -> (o [B, N, F], l, m,
-    ssq, sumw [B, N]). Kernel: E, F in {128, 256}, N <= 8, float32."""
+    ssq, sumw [B, N]). Kernel: (E, F) in ``FUSED_K_TRAIN_EF``, N <= 8,
+    float32."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
@@ -346,7 +352,8 @@ def coattn_bwd_fused_k(
     dkv [B, M, F], dwk [F, E], dbk [E]), given the cotangents dout [B, N, F],
     dssq, dsumw [B, N], the forward's l, m and
     di = rowsum(o * dout) + 2 dssq ssq + dsumw sumw [B, N] (the plain
-    version recomputes what it needs and takes no l, m, di)."""
+    version recomputes what it needs and takes no l, m, di). Kernel: (E, F)
+    in ``FUSED_K_TRAIN_EF``, N <= 8, float32."""
     if q.device.type == "cpu":
         return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
@@ -466,7 +473,7 @@ def coattn_weights(
 
 def _plain_kv_checks(q, k, v, key_mask):
     """Shapes, the mask pointer and the split count of the plain-K kernels
-    with values (D in ``TRAIN_DIMS``)."""
+    with values (D in ``VALUES_D``)."""
     b, n, d, m_len, splits = _plain_k_checks(q, k, values=True)
     kernels.require(v, "v", (b, m_len, d))
     return b, n, d, m_len, splits, kernels.mask_ptr(key_mask, b, m_len, q.device)

@@ -5,7 +5,9 @@ CPU) against ``jax.grad`` through the JAX package's
 mode (its custom VJP: the backward Pallas kernel), on the masks that the
 CUDA kernel's skipping of key tiles depends on: whole masked 64-key tiles in
 the middle of a bag, a bag with a single valid key, a bag without a valid
-key, and M not a multiple of the 64-key tile.
+key, and M not a multiple of the 64-key tile; at E = 128, F = 256 and, for
+the first two, at NaCAGaT big's E = F = 512 (the CUDA kernel's streamed-kv
+instance).
 
 It also pins to the reference the two properties the skipping relies on: in
 a bag with a valid key a masked key's dkv row is exactly 0, and the masked
@@ -33,7 +35,7 @@ from multimodal_path_omic_tpu_torch.ops import coattn as tcoattn  # noqa: E402
 
 KERNEL_ATOL = 2e-5
 GRAD_RTOL = 5e-5
-B, N, E, F = 2, 3, 128, 256
+B, N = 2, 3
 
 
 def _mask(m_len, case):
@@ -62,13 +64,13 @@ def _mask(m_len, case):
     return mask
 
 
-def _data(m_len, seed):
+def _data(e, f, m_len, seed):
     rng = np.random.default_rng(seed)
-    q = (0.7 * rng.normal(size=(B, N, E))).astype(np.float32)
-    kv = np.maximum(rng.normal(size=(B, m_len, F)), 0).astype(np.float32)
-    wk = (0.7 * rng.normal(size=(F, E)) / math.sqrt(F)).astype(np.float32)
-    bk = (0.1 * rng.normal(size=(E,))).astype(np.float32)
-    cot = (rng.normal(size=(B, N, F)).astype(np.float32),
+    q = (0.7 * rng.normal(size=(B, N, e))).astype(np.float32)
+    kv = np.maximum(rng.normal(size=(B, m_len, f)), 0).astype(np.float32)
+    wk = (0.7 * rng.normal(size=(f, e)) / math.sqrt(f)).astype(np.float32)
+    bk = (0.1 * rng.normal(size=(e,))).astype(np.float32)
+    cot = (rng.normal(size=(B, N, f)).astype(np.float32),
            rng.normal(size=(B, N)).astype(np.float32), rng.normal(size=(B, N)).astype(np.float32))
     return (q, kv, wk, bk), cot
 
@@ -111,20 +113,22 @@ def _close_rel(got, ref):
 
 
 @pytest.mark.parametrize(
-    "m_len,case",
+    "e,f,m_len,case",
     [
-        pytest.param(640, "holes", id="masked-tiles-mid-bag"),
-        pytest.param(500, "single-key", id="single-valid-key"),
+        pytest.param(128, 256, 640, "holes", id="masked-tiles-mid-bag"),
+        pytest.param(128, 256, 500, "single-key", id="single-valid-key"),
         # 300 keys: one JAX tile of 300 (no padding), so the bag without a
         # valid key is uniform over the same 300 keys on both sides
-        pytest.param(300, "no-valid-key", id="no-valid-key"),
-        pytest.param(1000, "ragged-m", id="m-not-tile-multiple"),
+        pytest.param(128, 256, 300, "no-valid-key", id="no-valid-key"),
+        pytest.param(128, 256, 1000, "ragged-m", id="m-not-tile-multiple"),
+        pytest.param(512, 512, 640, "holes", id="e512-masked-tiles-mid-bag"),
+        pytest.param(512, 512, 500, "single-key", id="e512-single-valid-key"),
     ],
 )
-def test_fused_k_backward_matches_pallas_on_skipping_masks(m_len, case):
+def test_fused_k_backward_matches_pallas_on_skipping_masks(e, f, m_len, case):
     """o, ssq, sumw and dq, dkv, dwk, dbk against the Pallas kernels; dkv
     exactly 0 at the masked keys of bags with a valid key, on both sides."""
-    ins, cot = _data(m_len, m_len + 7)
+    ins, cot = _data(e, f, m_len, m_len + 7)
     mask = _mask(m_len, case)
     outs_j, grads_j = _jax_grads(*ins, mask, cot)
     outs_t, grads_t = _port_grads(*ins, mask, cot)
@@ -144,12 +148,13 @@ def test_masked_kv_rows_do_not_reach_dq_dwk_dbk(m_len, case):
     dwk and dbk unchanged (bit for bit in the port, within float32 noise in
     the Pallas kernels), and the dkv of those rows 0: the property that lets
     the CUDA kernel skip a key tile with no valid key."""
-    (q, kv, wk, bk), cot = _data(m_len, m_len + 11)
+    f = 256
+    (q, kv, wk, bk), cot = _data(128, f, m_len, m_len + 11)
     mask = _mask(m_len, case)
     has = mask.any(-1)
     kv2 = kv.copy()
     rewrite = has[:, None] & ~mask
-    kv2[rewrite] = 3.0 + np.random.default_rng(5).normal(size=(int(rewrite.sum()), F))
+    kv2[rewrite] = 3.0 + np.random.default_rng(5).normal(size=(int(rewrite.sum()), f))
     grads = {}
     for name, kv_ in (("before", kv), ("after", kv2)):
         grads[name] = (_port_grads(q, kv_, wk, bk, mask, cot)[1],

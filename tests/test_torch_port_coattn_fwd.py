@@ -137,7 +137,7 @@ def test_fused_k_eval_forward_matches_pallas(e, f, m_len, case):
 
 
 @pytest.mark.parametrize("m_len,case", MASKS)
-@pytest.mark.parametrize("e", [128, 256])
+@pytest.mark.parametrize("e", [128, 256, 512])
 def test_fused_k_training_forward_matches_pallas(e, m_len, case):
     """The training form at dropout 0: o, l, m, ssq, sumw against the Pallas
     forward, and o, l, m, sumw equal to the eval form's."""

@@ -189,7 +189,9 @@ def _training_mask(dev, b, m_len, kind, seed):
      (3, 6, 256, 256, 4000, 0.25, "holes"), (2, 6, 128, 256, 1000, 0.0, "holes"),
      (3, 6, 256, 256, 1500, 0.25, "one"), (3, 6, 256, 128, 1, 0.25, "prefix"),
      (2, 8, 256, 256, 4001, 0.25, "prefix"), (4, 6, 256, 256, 8192, 0.25, "holes"),
-     (3, 6, 128, 128, 1500, 0.25, "one"), (2, 8, 256, 128, 3000, 0.0, "holes")],
+     (3, 6, 128, 128, 1500, 0.25, "one"), (2, 8, 256, 128, 3000, 0.0, "holes"),
+     (3, 6, 512, 512, 4000, 0.25, "holes"), (2, 6, 512, 512, 1500, 0.25, "one"),
+     (2, 8, 512, 512, 777, 0.0, "prefix")],
 )
 def test_training_kernels_match_plain_on_card(dev, b, n, e, f, m_len, rate, kind):
     """The training forward (dropout, ssq, sumw, l, m) and the backward
@@ -299,7 +301,7 @@ def test_fused_k_forward_runs_agree_bitwise(dev, e, f, kind):
     mask = _training_mask(dev, b, m_len, kind, 32)
     runs = [coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask) for _ in range(2)]
     assert all(torch.equal(x, y) for x, y in zip(*runs))
-    if e in coattn.TRAIN_DIMS and f in coattn.TRAIN_DIMS:
+    if (e, f) in coattn.FUSED_K_TRAIN_EF:
         seed = torch.tensor([9], dtype=torch.int32, device=dev)
         runs = [coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.25) for _ in range(2)]
         assert all(torch.equal(x, y) for x, y in zip(*runs))
@@ -317,7 +319,7 @@ def test_fused_k_one_valid_key_pools_its_row(dev, e, f, key):
     mask[0, key] = True
     mask[1, : m_len // 2] = True
     forms = [coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)]
-    if e in coattn.TRAIN_DIMS and f in coattn.TRAIN_DIMS:
+    if (e, f) in coattn.FUSED_K_TRAIN_EF:
         seed = torch.zeros((1,), dtype=torch.int32, device=dev)
         o, l, m, _, sumw = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.0)
         forms.append((o, l, m, sumw))
@@ -328,11 +330,20 @@ def test_fused_k_one_valid_key_pools_its_row(dev, e, f, key):
 
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """(E, F) = (256, 512) and (512, 256) have no instance and raise; E = F =
+    512 (NaCAGaT big) runs."""
     q, kv, wk, bk, _, mask = _inputs(dev, 2, 3, 256, 256, 256, 0)
     seed = torch.tensor([1], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="unsupported"):
         coattn.coattn_fwd_fused_k_train(q, torch.zeros(2, 256, 512, device=dev),
                                         torch.zeros(512, 256, device=dev), bk, mask, seed, 0.25)
+    q5 = torch.zeros(2, 3, 512, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        coattn.coattn_fwd_fused_k_train(q5, kv, torch.zeros(256, 512, device=dev),
+                                        torch.zeros(512, device=dev), mask, seed, 0.25)
+    kv5, wk5, b5 = (torch.zeros(s, device=dev) for s in ((2, 256, 512), (512, 512), (512,)))
+    o = coattn.coattn_fwd_fused_k_train(q5, kv5, wk5, b5, mask, seed, 0.25)[0]
+    assert o.shape == (2, 3, 512)
     with pytest.raises(TypeError):
         coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed.long(), 0.25)
     with pytest.raises(ValueError, match="rate"):
@@ -689,9 +700,10 @@ def test_nacagat_big_ces_predictor_on_card_matches_cpu(dev):
 
 
 def test_nacagat_big_cesar_train_step_on_card_matches_cpu(dev):
-    """One cesar SGD step of NaCAGaT big (E = 512: no co-attention kernel
-    instance; attention_core and its autograd) on the card and on the CPU
-    from the same weights: the same parameters, no co-attention launch."""
+    """One cesar SGD step of NaCAGaT big (E = F = 512: the fuse-K training
+    forward's and backward's 512 instances) on the card and on the CPU from
+    the same weights: the same parameters; on the card one launch of each
+    training kernel and no other co-attention launch."""
     from multimodal_path_omic_tpu_torch.models import build_model
     from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
     from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
@@ -717,7 +729,9 @@ def test_nacagat_big_cesar_train_step_on_card_matches_cpu(dev):
         coattn.reset_launch_counts()
         state, metrics = step(state, batch)
         assert np.isfinite(float(metrics.loss))
-        assert not any(coattn.LAUNCH_COUNTS.values())
+        train = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
+        assert coattn.LAUNCH_COUNTS == {
+            name: int(device.type == "cuda" and name in train) for name in coattn.LAUNCH_COUNTS}
         params[device.type] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     for k, v in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][k].numpy(), v.numpy(), atol=ATOL, rtol=0)

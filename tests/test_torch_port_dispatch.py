@@ -15,7 +15,11 @@ alike. These tests hold
 * the routes ``MultiheadAttention`` takes at shapes on both sides of the
   predicates, and the output at each refused shape against the JAX module
   (``use_pallas=True``) on the same weights, within 5e-5 (float32 on both
-  sides, other summation orders; the tolerance of the port's module tests).
+  sides, other summation orders; the tolerance of the port's module tests);
+* the lean-V branch's training form with a gradient to take (NaCAGaT
+  ``medium`` and ``big``): the fuse-K training forward and backward run, and
+  the output and gradients match ``jax.grad`` of the JAX module within 5e-5
+  of each one's largest magnitude.
 
 The same shapes run on the card in ``tests/test_torch_port_cuda.py``.
 """
@@ -25,12 +29,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from multimodal_path_omic_tpu.ops import attention as jattention  # noqa: E402
+from multimodal_path_omic_tpu.ops import coattn as jcoattn  # noqa: E402
 from multimodal_path_omic_tpu_torch.ops import attention as tattention  # noqa: E402
 from multimodal_path_omic_tpu_torch.ops import coattn, flash  # noqa: E402
-from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params  # noqa: E402
+from multimodal_path_omic_tpu_torch.utils.weights import (  # noqa: E402
+    jax_params_to_state_dict,
+    load_jax_params,
+)
 
 MODEL_ATOL = 5e-5
 
@@ -144,11 +153,11 @@ CASES = [
     ("f1-6q-width32", 256, 8, False, 6, 100, False, "attention_core", False),
     ("6q-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
     # F2: NaCAGaT with 12 signature groups; NaCAGaT big (E = F = 512): its
-    # eval form on the fuse-K kernel, its training form on attention_core
+    # eval and training forms on the fuse-K kernels
     ("f2-nacagat-12-groups", 256, 1, True, 12, 100, False, "attention_core", False),
     ("f2-nacagat-12-groups-ssq", 256, 1, True, 12, 100, "ssq", "attention_core", False),
     ("f2-nacagat-big", 512, 1, True, 6, 100, False, "fused_attention_leank", True),
-    ("f2-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "attention_core", False),
+    ("f2-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
     ("nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
     # F3: the map requested for 12 queries
     ("f3-weights-12q", 256, 1, True, 12, 100, True, "attention_with_weights", False),
@@ -202,3 +211,55 @@ def test_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=MODEL_ATOL, rtol=0)
     if need_weights:
         np.testing.assert_allclose(second.numpy(), np.asarray(jsecond), atol=MODEL_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("e", [256, 512], ids=["nacagat-medium-grad", "f2-nacagat-big-grad"])
+def test_training_form_with_a_gradient_runs_the_kernels_and_matches_jax(e, monkeypatch):
+    """A gradient to take through the lean-V branch (dropout 0, no ssq) asks
+    for the fuse-K training form, which the kernels take at NaCAGaT medium's
+    and big's E = F: one training forward and one backward, no other route;
+    the output and the gradients of the inputs and of every parameter
+    against jax.grad of the JAX module (its fuse-K Pallas kernels in
+    interpret mode)."""
+    monkeypatch.setenv("MPO_LEANK_MIN_M", "256")
+    n, m_len = 6, 256  # JAX's leank_eligible: M a multiple of 256
+    rng = np.random.default_rng(e + 3)
+    p = _params(e, rng)
+    kv = rng.normal(size=(2, m_len, e)).astype(np.float32)
+    query = rng.normal(size=(2, n, e)).astype(np.float32)
+    cot = rng.normal(size=(2, n, e)).astype(np.float32)
+    mask = np.arange(m_len)[None] < np.array([m_len - 7, 40])[:, None]
+    assert coattn.fused_k_supports(n, e, e, m_len, train=True)
+    module = load_jax_params(tattention.MultiheadAttention(e, 1, pre_gate=True), p).eval()
+    calls = _spy_all(monkeypatch)
+    ran = []
+    for name in ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k"):
+        monkeypatch.setattr(coattn, name, lambda *a, _fn=getattr(coattn, name), _name=name:
+                            ran.append(_name) or _fn(*a))
+    tq, tkv = (torch.from_numpy(x).requires_grad_(True) for x in (query, kv))
+    out, _ = module(tq, tkv, tkv, torch.from_numpy(mask), need_weights=False)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert calls["fused_attention_leank"] == 1 and sum(calls.values()) == 1, calls
+    assert ran == ["coattn_fwd_fused_k_train", "coattn_bwd_fused_k"]
+
+    jmodule = jattention.MultiheadAttention(embed_dim=e, num_heads=1, pre_gate=True,
+                                            use_pallas=True)
+
+    def jloss(params, q_, kv_):
+        o, _ = jmodule.apply({"params": params}, q_, kv_, kv_, jnp.asarray(mask),
+                             need_weights=False)
+        return jnp.sum(o * cot), o
+
+    before = jcoattn.DISPATCH_COUNTS["kernel"]
+    (_, jout), (gp, gq, gkv) = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        p, jnp.asarray(query), jnp.asarray(kv))
+    assert jcoattn.DISPATCH_COUNTS["kernel"] > before  # the Pallas kernels ran
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=MODEL_ATOL, rtol=0)
+    ref = {"query": gq, "kv": gkv, **jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, gp))}
+    got = {"query": tq.grad, "kv": tkv.grad,
+           **{k: t.grad for k, t in module.named_parameters()}}
+    assert set(got) == set(ref)
+    for name, g in got.items():
+        r = np.asarray(ref[name])
+        assert np.abs(g.numpy() - r).max() <= MODEL_ATOL * np.abs(r).max(), name

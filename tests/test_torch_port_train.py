@@ -255,18 +255,22 @@ def test_dropout_matches_jax_with_injected_mask(cls, monkeypatch):
 # ---------------------------------------------------------------- model
 
 
-@pytest.fixture(scope="module")
-def jparams():
-    """A JAX NaCAGaT small parameter tree, every leaf perturbed with noise
-    (zero biases and unit LayerNorm scales cannot hide a bridge fault)."""
+def _jax_params(model_size):
+    """A JAX NaCAGaT parameter tree, every leaf perturbed with noise (zero
+    biases and unit LayerNorm scales cannot hide a bridge fault)."""
     rng = np.random.default_rng(0)
-    model = JNaCAGaT(n_signatures=len(SIZES), model_size="small", dropout_rate=0.0)
+    model = JNaCAGaT(n_signatures=len(SIZES), model_size=model_size, dropout_rate=0.0)
     params = jax.jit(lambda key: model.init(
         key, jnp.zeros((1, 64, WSI)), [jnp.zeros((1, s)) for s in SIZES],
         jnp.ones((1, 64), bool), deterministic=True,
     ))(jax.random.key(0))["params"]
     return jax.tree_util.tree_map(
         lambda x: np.asarray(x) + 0.05 * rng.normal(size=x.shape).astype(np.float32), params)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return _jax_params("small")
 
 
 def _batch(b, m_len, lengths, seed):
@@ -282,8 +286,8 @@ def _batch(b, m_len, lengths, seed):
     }
 
 
-def _port_model(jparams):
-    return load_jax_params(NaCAGaT(SIZES, model_size="small", dropout_rate=0.0, wsi_dim=WSI),
+def _port_model(jparams, model_size="small"):
+    return load_jax_params(NaCAGaT(SIZES, model_size=model_size, dropout_rate=0.0, wsi_dim=WSI),
                            jparams)
 
 
@@ -304,8 +308,26 @@ def test_nacagat_training_forward_and_gradients_match_jax(jparams, monkeypatch):
     and backward): hazards, coattn_ssq, the cesar loss and every parameter's
     gradient against jax.value_and_grad of the same forward."""
     monkeypatch.setenv("MPO_LEANK_MIN_M", "512")
-    batch = _batch(2, 512, (500, 200), 1)
-    model_j = JNaCAGaT(n_signatures=len(SIZES), model_size="small", dropout_rate=0.0,
+    _check_training_forward_and_gradients(jparams, "small", _batch(2, 512, (500, 200), 1))
+
+
+def test_nacagat_big_training_forward_and_gradients_match_jax(monkeypatch):
+    """The same at NaCAGaT big (E = F = 512), the slice the fuse-K training
+    forward's and backward's E = F = 512 instances serve on the card: the
+    port's lean-V gate takes the training form at this width, as JAX's
+    leank_eligible does."""
+    monkeypatch.setenv("MPO_LEANK_MIN_M", "512")
+    calls = []
+    for name in ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k"):
+        monkeypatch.setattr(tcoattn, name, lambda *a, _fn=getattr(tcoattn, name), _name=name:
+                            calls.append(_name) or _fn(*a))
+    _check_training_forward_and_gradients(_jax_params("big"), "big",
+                                          _batch(2, 512, (500, 130), 4))
+    assert calls == ["coattn_fwd_fused_k_train", "coattn_bwd_fused_k"]
+
+
+def _check_training_forward_and_gradients(jparams, model_size, batch):
+    model_j = JNaCAGaT(n_signatures=len(SIZES), model_size=model_size, dropout_rate=0.0,
                        use_pallas=True)
 
     def jloss(params):
@@ -320,7 +342,7 @@ def test_nacagat_training_forward_and_gradients_match_jax(jparams, monkeypatch):
     before = jcoattn.DISPATCH_COUNTS["kernel"]
     (loss_j, out_j), grads_j = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
     assert jcoattn.DISPATCH_COUNTS["kernel"] > before  # the Pallas kernels ran
-    out, loss, grads = _port_forward_grads(_port_model(jparams), batch)
+    out, loss, grads = _port_forward_grads(_port_model(jparams, model_size), batch)
     _close(out.hazards, out_j.hazards, MODEL_ATOL)
     _close(out.attention["coattn_ssq"], out_j.attention["coattn_ssq"], MODEL_ATOL)
     assert out.attention["coattn"] is None
