@@ -93,13 +93,19 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``scaled_dot_product_attention`` call; the GE training step's ms and GE
     train bags/s.
 13. The plain-K co-attention kernels with values against their plain
-    versions at B=32, N=6, D=256, M in {8192, 5000 (not a multiple of any
-    tile)}, ragged masks with one fully-masked row, with and without the
-    pre-gate: the forward's eval form and training form (dropout 0.25, ssq,
-    sumw); the backward's dq, dk, dv under random cotangents of o, ssq and
-    sumw, two runs bitwise equal, exactly no dk through masked keys; the
-    drop share. The row gather against ``index_select``, bit for bit, for
-    float32, bfloat16 and int8 pools and repeated indices.
+    versions at B=32, N=6: D=256 with M in {8192, 5000 (not a multiple of
+    any tile)} on ragged masks with one fully-masked row, M=8192 with whole
+    masked 64-key tiles mid-bag (which the kernels skip), M=1500 with a bag
+    of a single valid key (o = that key's v row; its dq and dk held to the
+    noise of the terms that cancel); D=128 with masked tiles (M=4000) and a
+    single-key bag; with and without the pre-gate: the forward's eval form
+    and training form (dropout 0.25, ssq, sumw), two runs bitwise equal;
+    the backward's dq, dk, dv under random cotangents of o, ssq and sumw,
+    two runs bitwise equal, exactly no dk through masked keys and dv exactly
+    0 at the masked keys of bags with a valid key; the filler row uniform
+    over its M keys; the drop share. The row gather against
+    ``index_select``, bit for bit, for float32, bfloat16 and int8 pools and
+    repeated indices.
 14. MCAT at full width (``medium``, six signatures, seed-0 weights) on the
     40 bags of phase 2: (a) the lean ``Predictor`` (``ces``): no kernel
     launch, the GPU within 1e-4 of the CPU Predictor, and the [B, 6, M]
@@ -120,9 +126,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     seed: losses and final parameters bitwise equal.
 16. Timings: the three kernels beside their plain versions, bounds and
     library calls (``scaled_dot_product_attention`` and its backward for the
-    form without pre-gate and dropout, ``index_select`` for the gather); MCAT
-    ``predict_bags`` bags/s and train bags/s, lean and ``lean=False``; the
-    cached step against the host-fed step including the batch's staging.
+    form without pre-gate and dropout, ``index_select`` for the gather); the
+    plain-K kernels in every form (pre-gate on and off, dropout 0 and 0.25)
+    with three byte bounds, over the keys the function needs (the kernels
+    line's: the valid keys, and in the forward the v rows of a bag without
+    one), over the keys of the 64-key tiles they compute and over every
+    key, and the share of each reached; MCAT ``predict_bags``
+    bags/s and train bags/s, lean and ``lean=False``; the cached step
+    against the host-fed step including the batch's staging.
 
 17. GE-NaCAGaT ``small`` and ``big`` (heads of width 128 and 16, 512 and 64)
     at full width, random weights from seed 0: ``predict_bags`` on 6 bags of
@@ -168,7 +179,9 @@ matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
 matrix products, copies and other; and one GE training step of phase 11,
 split into flash forward, flash backward, matrix products, optimizer and
 other; and one cached MCAT training step (lean) over a 32-bag cohort of the
-8192 bucket.
+8192 bucket; and, last, each launch of the plain-K kernels at phase 16's
+inputs (the eval forward with and without the pre-gate and without a mask,
+the backward), device time a call over 5 calls.
 """
 
 from __future__ import annotations
@@ -177,6 +190,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1515,18 +1529,58 @@ def phase12_ge_train_timings(dev, errs, launches, trainer, batch) -> list:
     return rows
 
 
-def plain_k_inputs(m_len, seed, dev):
-    """q, k and the mask of :func:`make_inputs` (projected queries and keys),
-    ReLU-free projected values, a dropout seed and the backward's cotangents."""
+def plain_k_inputs(m_len, seed, dev, kind="prefix", d=E):
+    """q, k and the mask of :func:`make_inputs` (projected queries and keys
+    of width ``d``; ``kind``: its masks), ReLU-free projected values, a
+    dropout seed and the backward's cotangents."""
     import torch
 
-    q, _, _, _, k, mask = make_inputs(m_len, E, seed, dev)
+    q, _, _, _, k, mask = make_inputs(m_len, d, seed, dev, d, kind)
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    v = 0.7 * torch.randn(B, m_len, E, generator=g)
-    dout = torch.randn(B, N, E, generator=g)
+    v = 0.7 * torch.randn(B, m_len, d, generator=g)
+    dout = torch.randn(B, N, d, generator=g)
     dssq, dsumw = (torch.randn(B, N, generator=g) for _ in range(2))
     dseed = torch.tensor([seed], dtype=torch.int32)
     return (q, k, v.to(dev), mask, dseed.to(dev)), tuple(t.to(dev) for t in (dout, dssq, dsumw))
+
+
+def check_one_key_plain(got, ref, q, k, fwd, dout, dssq, dsumw, di) -> None:
+    """dq and dk of the plain-K backward in bags with a single valid key:
+    zero in exact arithmetic (ds = 0, as :func:`check_one_key_dq` states),
+    so both sides hold float32 noise alone, held to GRAD_RTOL of the terms
+    that cancel, c_n, times the largest factor ds meets on its way to dq
+    (scale |k|max + |a|max / 2) or, summed over the queries, to dk (scale
+    |q_n|max + |a|max / 2; |tanh| <= 1), with |a| <= scale |q_n|_1 |k|max."""
+    import torch
+
+    o, _, _, ssq, sumw = fwd
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kmax = k.abs().amax((1, 2))[:, None]  # [bags, 1]
+    c = (o * dout).sum(-1).abs() + di.abs() + 2 * (dssq * ssq).abs() + (dsumw * sumw).abs()
+    amax = scale * q.abs().sum(-1) * kmax / 2
+    limits = (GRAD_RTOL * c * (scale * kmax + amax))[..., None], (
+        GRAD_RTOL * c * (scale * q.abs().amax(-1) + amax)).sum(-1)[:, None, None]
+    def ratio(x, limit):  # a query whose one weight was dropped has c = 0 and ds = 0 exactly
+        x = x.abs().expand(torch.broadcast_shapes(x.shape, limit.shape))
+        limit = limit.expand_as(x)
+        r = torch.where(x == 0, torch.zeros_like(x), torch.full_like(x, math.inf))
+        return float(torch.where(limit > 0, x / limit.clamp_min(1e-30), r).max())
+
+    for name, a, r, limit in zip(("dq", "dk"), got, ref, limits):
+        worst = max(ratio(a, limit), ratio(r, limit))
+        log(f"  plain_bwd.{name}, {a.shape[0]} bag(s) with one valid key: max |{name}| "
+            f"{a.abs().max():.3e} (plain {r.abs().max():.3e}), at {worst:.3f} of the limit "
+            f"{GRAD_RTOL:g} x the terms that cancel {'ok' if worst <= 1.0 else 'FAIL'}")
+        if not (worst <= 1.0 and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{name} of a bag with one valid key is above its noise limit")
+
+
+# Phase 13's plain-K cases (M, mask kind, D): the serving and training
+# batch's M and a ragged one with prefix masks (a fully-masked filler row),
+# whole masked 64-key tiles mid-bag (which the kernels skip), a bag with a
+# single valid key, and D = 128.
+PHASE13_CASES = ((TRAIN_M, "prefix", E), (5000, "prefix", E), (TRAIN_M, "holes", E),
+                 (1500, "one", E), (4000, "holes", 128), (1500, "one", 128))
 
 
 def phase13_plain_kernels(dev) -> dict:
@@ -1535,12 +1589,16 @@ def phase13_plain_kernels(dev) -> dict:
     from multimodal_path_omic_tpu_torch.ops import coattn, gather
 
     errs = {"coattn_plain": 0.0, "coattn_plain_bwd": 0.0, "gather_rows": 0.0}
-    for m_len in (TRAIN_M, 5000):
-        ins, (dout, dssq, dsumw) = plain_k_inputs(m_len, 131 + m_len, dev)
+    for m_len, kind, d in PHASE13_CASES:
+        ins, (dout, dssq, dsumw) = plain_k_inputs(m_len, 131 + m_len, dev, kind, d)
         q, k, v, mask, dseed = ins
+        one = mask.sum(-1) == 1
+        has = mask.any(-1)
         for pre_gate in (True, False):
-            log(f"phase 13: plain-K kernels B={B} N={N} D={E} M={m_len} pre_gate={pre_gate}")
+            log(f"phase 13: plain-K kernels B={B} N={N} D={d} M={m_len} pre_gate={pre_gate}, "
+                f"{kind} masks")
             got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+            again = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
             ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate)
             if got[3] is not None or got[4] is not None:
                 raise AssertionError("the eval form returns no ssq / sumw")
@@ -1551,21 +1609,38 @@ def phase13_plain_kernels(dev) -> dict:
             # the fully-masked filler row: uniform over its M keys
             check_close("plain_fwd_eval.filler_row", got[0][-1],
                         v[-1].mean(dim=0).expand_as(got[0][-1]), KERNEL_ATOL)
+            if bool(one.any()):  # a bag with one valid key pools that key's v row
+                row = v[one][torch.arange(int(one.sum()), device=dev),
+                             mask[one].float().argmax(-1)]
+                check_close("plain_fwd_eval.o of the bag with one valid key, its v row",
+                            got[0][one], row[:, None, :].expand_as(got[0][one]), KERNEL_ATOL)
+            if not all(torch.equal(a, c) for a, c in zip(got[:3], again[:3])):
+                raise AssertionError("two plain-K eval forward runs differ")
             got = coattn.coattn_fwd_plain_k(*ins, TRAIN_RATE, pre_gate=pre_gate)
+            again = coattn.coattn_fwd_plain_k(*ins, TRAIN_RATE, pre_gate=pre_gate)
             ref = coattn.coattn_fwd_plain_k_plain(*ins, TRAIN_RATE, pre_gate=pre_gate)
             for name, a, r, rtol in zip(("o", "l", "m", "ssq", "sumw"), got, ref,
                                         (0.0, L_RTOL, 0.0, 0.0, 0.0)):
                 err = check_close(f"plain_fwd_train.{name}", a, r, KERNEL_ATOL, rtol)
                 e = max(e, 0.0 if name == "l" else err)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError("two plain-K training forward runs differ")
+            log("  plain_fwd: two runs bitwise equal, eval and training forms")
             errs["coattn_plain"] = max(errs["coattn_plain"], e)
-            o, l, m, ssq, sumw = ref
+            o, l, m, ssq, sumw = fwd = ref
             di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
             args = (*ins, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
             got = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
             again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
             ref = coattn.coattn_bwd_plain_k_plain(*ins, TRAIN_RATE, dout, dssq, dsumw,
                                                   pre_gate=pre_gate)
+            if bool(one.any()):  # dq, dk of a bag with one valid key: noise on both sides
+                check_one_key_plain([t[one] for t in got[:2]], [t[one] for t in ref[:2]], q[one],
+                                    k[one], [t[one] for t in fwd], dout[one], dssq[one],
+                                    dsumw[one], di[one])
             for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                if name != "dv":
+                    a, r = a[~one], r[~one]
                 errs["coattn_plain_bwd"] = max(errs["coattn_plain_bwd"],
                                                check_rel(f"plain_bwd.{name}", a, r, GRAD_RTOL))
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
@@ -1574,15 +1649,19 @@ def phase13_plain_kernels(dev) -> dict:
             pad = ~mask[:, :, None].expand_as(dk)
             if float(dk[pad].abs().max()) != 0.0 or float(dq[-1].abs().max()) != 0.0:
                 raise AssertionError("a masked key passed a gradient to q or k")
+            if float(dv[has][~mask[has]].abs().max()) != 0.0:
+                raise AssertionError("dv is not exactly 0 at a masked key of a bag with a valid key")
             if not float(dv[-1].abs().max()) > 0.0:
                 raise AssertionError("the fully-masked row must still feed dv")
-            log("  plain_bwd: two runs bitwise equal; no dk, dq through masked keys")
+            log("  plain_bwd: two runs bitwise equal; no dk, dq through masked keys; dv exactly "
+                "0 at the masked keys of bags with a valid key")
         keep = coattn.dropout_bits(dseed, (B, N, m_len), dev) >= coattn.dropout_threshold(
             TRAIN_RATE)
         drop = 1.0 - float(keep.double().mean().item())
         log(f"  drop share of the Philox bits over {keep.numel()} draws: {drop:.6f} "
             f"(tolerance {TRAIN_RATE} +- {DROP_TOL})")
-        if abs(drop - TRAIN_RATE) > DROP_TOL:
+        # held at M >= 5000 (>= 960,000 draws: DROP_TOL is >= 4.5 standard errors)
+        if m_len >= 5000 and abs(drop - TRAIN_RATE) > DROP_TOL:
             raise AssertionError("the dropout bits miss the rate")
         del ins, got, again, ref, dq, dk, dv, pad, keep
     g = torch.Generator(device="cpu").manual_seed(17)
@@ -1878,17 +1957,40 @@ def phase15_device_cache(dev) -> dict:
     return {"launches": counts, "ds": ds, "cache": cache}
 
 
-def plain_k_bound_ms(name, m_len) -> tuple:
+def computed_tile_keys(mask) -> int:
+    """(bag, key) pairs in the 64-key tiles the plain-K and fuse-K kernels
+    compute: with a valid key in the bag, the tiles that hold one; every tile
+    of a bag without one."""
+    import torch
+
+    b, m_len = mask.shape
+    t = -(-m_len // 64)
+    tiles = torch.zeros(b, t * 64, dtype=torch.bool, device=mask.device)
+    tiles[:, :m_len] = mask
+    tiles = tiles.view(b, t, 64).any(-1)
+    tiles[~mask.any(-1)] = True
+    keys = torch.full((t,), 64, dtype=torch.int64, device=mask.device)
+    keys[-1] = m_len - 64 * (t - 1)
+    return int((tiles.long() * keys).sum())
+
+
+def plain_k_bound_ms(name, m_len, keys=None, v_keys=None) -> tuple:
     """Bounds of the plain-K kernels at B=32, N=6, D=256 (pre-gated form: its
-    gate product is counted; float32 multiply-adds as 2 operations) and of
-    the gather at B=32 rows of [m_len, 1024] float32."""
+    gate product is counted; float32 multiply-adds as 2 operations), their k
+    rows read over ``keys`` (bag, key) pairs and their v rows over
+    ``v_keys`` (default ``keys``; both default to every key; the backward
+    writes dk and dv whole), and of the gather at B=32 rows of [m_len, 1024]
+    float32."""
     d = E
+    keys = B * m_len if keys is None else keys
+    v_keys = keys if v_keys is None else v_keys
     if name == "coattn_plain":  # in: q, k, v, mask; out: o, l, m, ssq, sumw
-        nbytes = 4 * (2 * B * N * d + 2 * B * m_len * d + 4 * B * N) + B * m_len
-        ops = 6 * B * N * m_len * d  # q.k, the gate, p.v
+        nbytes = 4 * (2 * B * N * d + (keys + v_keys) * d + 4 * B * N) + B * m_len
+        ops = 2 * N * (2 * keys + v_keys) * d  # q.k, the gate, p.v
     elif name == "coattn_plain_bwd":  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
-        nbytes = 4 * (3 * B * N * d + 4 * B * m_len * d + 5 * B * N) + B * m_len
-        ops = 16 * B * N * m_len * d  # q.k, gate, dO.v, dv, two terms each of dq and dk
+        nbytes = (4 * (3 * B * N * d + (keys + v_keys) * d + 2 * B * m_len * d + 5 * B * N)
+                  + B * m_len)
+        ops = 16 * N * keys * d  # q.k, gate, dO.v, dv, two terms each of dq and dk
     else:
         nbytes, ops = 2 * B * m_len * 1024 * 4 + 8 * B, 0
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1902,8 +2004,8 @@ def phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch) -> list:
 
     from multimodal_path_omic_tpu_torch.ops import coattn, gather
 
-    def row(name, ms, plain_ms, library_ms, m_len=TRAIN_M):
-        bound = plain_k_bound_ms(name, m_len)
+    def row(name, ms, plain_ms, library_ms, m_len=TRAIN_M, need=()):
+        bound = plain_k_bound_ms(name, m_len, *need)
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
@@ -1921,8 +2023,26 @@ def phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch) -> list:
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dout[:, None],
                                                   retain_graph=True))
     zeros = torch.zeros_like(dssq)
+    # byte bounds over the keys the function needs (the kernels line's): k
+    # rows of the valid keys; in the forward also the v rows of a bag without
+    # a valid key, whose o is their mean; then over the keys of the 64-key
+    # tiles the kernels compute, and over every key; dk and dv written whole
+    valid, filled, tiled = int(mask.sum()), valid_keys(mask), computed_tile_keys(mask)
+    log(f"phase 16: plain-K masks of {B * TRAIN_M} keys: {valid} valid ({valid / (B * TRAIN_M):.4f}),"
+        f" {filled} with every key of a bag without one ({filled / (B * TRAIN_M):.4f}), {tiled} "
+        f"in computed tiles ({tiled / (B * TRAIN_M):.4f})")
+    need = {"coattn_plain": (valid, filled), "coattn_plain_bwd": (valid, valid)}
+    bounds = {name: [plain_k_bound_ms(name, TRAIN_M, *x)[0] for x in (need[name], (tiled,), ())]
+              for name in need}
+
+    def shares(name, ms):
+        b_need, b_tile, b_every = bounds[name]
+        return (f"{ms:.4f} ms (bounds {b_need:.4f} keys needed, {b_tile:.4f} computed tiles, "
+                f"{b_every:.4f} every key; {b_need / ms:.3f} / {b_tile / ms:.3f} / "
+                f"{b_every / ms:.3f} reached)")
+
     rows = []
-    for pre_gate, rate in ((False, 0.0), (True, 0.0), (True, TRAIN_RATE)):
+    for pre_gate, rate in ((False, 0.0), (True, 0.0), (True, TRAIN_RATE), (False, TRAIN_RATE)):
         o, l, m, ssq, sumw = coattn.coattn_fwd_plain_k_plain(*ins, rate, pre_gate=pre_gate)
         cot = (dout, zeros, zeros) if not pre_gate else (dout, dssq, dsumw)
         di = (o * cot[0]).sum(-1) + 2.0 * cot[1] * ssq + cot[2] * sumw
@@ -1935,15 +2055,16 @@ def phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch) -> list:
         bp = cuda_ms(lambda: coattn.coattn_bwd_plain_k_plain(*ins, rate, *cot,
                                                              pre_gate=pre_gate))
         log(f"phase 16: plain-K B={B} N={N} M={TRAIN_M} D={E} pre_gate={pre_gate} dropout "
-            f"{rate}: forward eval form {'%.4f ms' % ev if ev is not None else 'n/a'}, "
-            f"training form {tr:.4f} ms, plain {fp:.4f} ms; backward {bw:.4f} ms, plain "
-            f"{bp:.4f} ms")
-        if not pre_gate:
-            rows.append(row("coattn_plain", ev, fp, lib_fwd))
-            rows.append(row("coattn_plain_bwd", bw, bp, lib_bwd))
+            f"{rate}: forward eval form {shares('coattn_plain', ev) if ev is not None else 'n/a'}, "
+            f"training form {shares('coattn_plain', tr)}, plain {fp:.4f} ms; backward "
+            f"{shares('coattn_plain_bwd', bw)}, plain {bp:.4f} ms")
+        if not pre_gate and rate == 0.0:
+            rows.append(row("coattn_plain", ev, fp, lib_fwd, need=need["coattn_plain"]))
+            rows.append(row("coattn_plain_bwd", bw, bp, lib_bwd, need=need["coattn_plain_bwd"]))
             log(f"  scaled_dot_product_attention on the same inputs: forward {lib_fwd:.4f} ms, "
-                f"backward {lib_bwd:.4f} ms; bounds {rows[-2]['bound_ms']:.4f} / "
-                f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+                f"backward {lib_bwd:.4f} ms; bounds over the keys needed "
+                f"{rows[-2]['bound_ms']:.4f} / {rows[-1]['bound_ms']:.4f} ms "
+                f"({rows[-1]['bound_by']})")
     del ins, q, k, v, q4, k4, v4, leaves, lib_out
     pool = p15["cache"].caches[TRAIN_M]["wsi"]
     idx = torch.randperm(pool.shape[0], device=dev)[:B]
@@ -2397,12 +2518,49 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
     }))
 
 
+def profile_plain_k(dev) -> None:
+    """Each launch of the plain-K kernels (tile flags, tile list, main pass,
+    merge or reduction) at phase 16's inputs: device ms a call over 5 calls."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    ins, (dout, _, _) = plain_k_inputs(TRAIN_M, 23, dev)
+    q, k, v, mask, _ = ins
+    zeros = torch.zeros(B, N, device=dev)
+    o, l, m, _, _ = coattn.coattn_fwd_plain_k_plain(*ins, 0.0, pre_gate=False)
+    di = (o * dout).sum(-1)
+    calls = {
+        "eval forward": lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=False,
+                                                         train=False),
+        "pre-gated eval forward": lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=True,
+                                                                   train=False),
+        "eval forward without a mask": lambda: coattn.coattn_fwd_plain_k(q, k, v, None,
+                                                                        pre_gate=False,
+                                                                        train=False),
+        "backward": lambda: coattn.coattn_bwd_plain_k(*ins, 0.0, dout, l, m, di, zeros, zeros,
+                                                      pre_gate=False),
+    }
+    for what, fn in calls.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(re.sub(r"\([^()]*\)$", "", name).replace("(anonymous namespace)::", ""), ms / 5)
+                for name, ms, _ in device_rows(prof)]
+        log(f"profile: plain-K {what} B={B} N={N} M={TRAIN_M} D={E}, device ms a call by "
+            f"launch: " + ", ".join(f"{name} {ms:.4f}" for name, ms in rows))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one predict_bags call per loss, one training step (medium "
-                         "and big), one GE predict_bags call, one GE training step and one "
-                         "cached MCAT training step instead of phases 1-20")
+                         "and big), one GE predict_bags call, one GE training step, one "
+                         "cached MCAT training step and the plain-K kernels' launches "
+                         "instead of phases 1-20")
     args = ap.parse_args()
     try:
         import torch
@@ -2462,6 +2620,7 @@ def main() -> int:
 
         profile_training(f"cached MCAT training step (lean), {B} bags of the {TRAIN_M} bucket",
                          "mcat_cached_training_step", make_cached, meta)
+        profile_plain_k(dev)
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)

@@ -67,23 +67,33 @@
 //     blocks per bag keep enough loads in flight; the stats partials of every
 //     warp are merged by the same combine kernel.
 //   * plain (plain-K with values): reads k and v [B, M, D] once each (537 MB at
-//     B=32, M=8192, D=256: 0.16 ms) for 2.4 GFLOP of products (0.04 ms): bound
-//     by bytes. One warp owns a contiguous run of keys: it loads a key's k and
-//     v rows with coalesced float4 loads (the next key's rows are requested
-//     before the current one is scored), scores it against all N queries
-//     (score_row), and keeps an online softmax and the N x D output sums in
-//     registers, rescaling them only when a row maximum moves (the branch is
-//     uniform over the warp). The dropout bits of the N queries are drawn by
-//     lanes 0..N-1 and shared by a ballot. A block merges its 8 warps in
-//     shared memory in warp order, writes one unnormalized partial per (bag,
-//     split), and combine_kernel merges the splits: a fixed order throughout,
-//     so two runs give the same bits.
+//     B=32, M=8192, D=256: 0.16 ms over every key) for 2.4 GFLOP of products
+//     (0.04 ms): bound by bytes, and only the key tiles that need it. Four
+//     launches, no atomics:
+//     - fk_tiles_kernel / fk_list_kernel flag and list the 64-key tiles, as
+//       for the fuse-K form (a tile without a valid key adds exactly 0).
+//     - plain_kernel over the blocks resident at once (two an SM), each an
+//       even share of the list across bags. A tile's k and v rows come in
+//       sub-steps of 16 keys through a cp.async ring (plain_k_common.cuh:
+//       three slots of 32 KB at D = 256, six of 16 KB at 128, issued ahead
+//       across tiles and bags). Per sub-step: warp w scores keys 2w, 2w + 1
+//       against every query on the CUDA cores (each lane its float4 columns;
+//       tanh(k) once per element; one transposing butterfly sums the warp's
+//       32 (query, key, product) values at once), then one warp a query
+//       runs the online softmax (the training form's Philox dropout, ssq
+//       and sumw; lanes 0..15 one key each), then thread tid adds p v into
+//       its o column tid % D of the queries tid / D + QG j, from the v rows
+//       in shared memory. The scores as 3xTF32 mma.sync (C[16 keys x 8
+//       queries], warp w over depth slice w, partials summed in warp order)
+//       measured slower on the H100 (PERF.md, section 6): the products are
+//       2% of the work.
+//     - combine_kernel merges the (block, bag) partials in block order.
 //
 // Interface: plain C, called through ctypes. Every function returns
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
 // everything runs on the caller's stream.
 
-#include "fused_k_common.cuh"
+#include "plain_k_common.cuh"
 
 namespace {
 
@@ -398,9 +408,9 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 // weight mass of the final row; no dropout in eval); with it (training form)
 //   ssq = sum_p ssq_p e^(2 (m_p - m)) / l^2,  sumw = sum_p sumw_p e^(m_p - m) / l.
 // Partials [*, N, F] (o) and [*, N, 2]: with off == NULL bag b's are
-// b * P .. b * P + P - 1; with off (the fuse-K forward's unit list over P
-// blocks, fused_k_common.cuh) those of the blocks g that held its units, at
-// g + b.
+// b * P .. b * P + P - 1; with off (the fuse-K and plain-K forwards' unit
+// list over P blocks, fused_k_common.cuh) those of the blocks g that held its
+// units, at g + b.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
@@ -482,8 +492,9 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
 }
 
 // ---------------------------------------------------------------------------
-// Per-key scores for the plain-K forms: one warp scores one key against all
-// N queries. Lane `lane` holds k[c*128 + 4*lane .. +3] for c < DV (D = 128*DV).
+// Per-key scores for the stats and weights kernels: one warp scores one key
+// against all N queries. Lane `lane` holds k[c*128 + 4*lane .. +3] for c < DV
+// (D = 128*DV).
 // ---------------------------------------------------------------------------
 template <int DV>
 __device__ __forceinline__ void load_row(const float* __restrict__ row, int lane,
@@ -631,158 +642,162 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// K2, plain-K form with values: one block = (bag b, split of the keys), one
-// warp = a contiguous run of keys. Writes one unnormalized partial per block:
-// o_part [B, P, N, D], ml_part [B, P, N, 2] (m, l); TRAIN adds sq_part
-// [B, P, N, 2] (ssq, sumw of the dropped weights), with the dropout rule of
-// fused_k_kernel (keep iff dropout_bits >= thresh; thresh 0: no dropout).
-template <int DV, bool TRAIN>
+// K2, plain-K form with values (design notes at the top). One block walks
+// an even share of the computed (bag, tile) units in list order, in
+// sub-steps of PK_KEYS keys whose k and v rows come through the cp.async
+// ring (plain_k_common.cuh). For each bag it visits it writes one
+// unnormalized partial at index block + bag: o_part [G + B, N, D], ml_part
+// [G + B, N, 2] (m, l); TRAIN adds sq_part [G + B, N, 2] (ssq, sumw of the
+// dropped weights), with fused_k_kernel's dropout rule (keep iff
+// dropout_bits >= thresh; thresh 0: no dropout). Thread tid owns o column
+// tid % D of the queries n = tid / D + QG j.
+template <int D>
+struct PkFwdSmem {
+  static constexpr int SLOT = 2 * PK_KEYS * D;          // k rows, then v rows
+  static constexpr int NSLOT = 98304 / (4 * SLOT);      // 3 at D = 256, 6 at 128
+  alignas(16) float ring[NSLOT][SLOT];
+  alignas(16) float q[NMAX][D];
+  alignas(16) float tq[NMAX][D];
+  alignas(16) float s[NMAX][PK_KEYS];  // scores, then the (dropped) weights
+  float alpha[NMAX];
+};
+
+template <int D, bool PG, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const uint8_t* __restrict__ mask,
+             const int* __restrict__ list, const int* __restrict__ off,
              float* __restrict__ o_part, float* __restrict__ ml_part,
              float* __restrict__ sq_part, const int* __restrict__ seed_ptr, uint32_t thresh,
-             float keep_scale, int N, int M, int pre_gate, float scale) {
-  constexpr int D = DV * 128;
-  __shared__ __align__(16) float q_s[NMAX][D];
-  __shared__ __align__(16) float tq_s[NMAX][D];
-  __shared__ __align__(16) float o_s[NMAX][D];
-  __shared__ float m_s[WARPS][NMAX];
-  __shared__ float st_s[3][NMAX];  // l, ssq, sumw of the block
-  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gw = split * WARPS + warp, W = P * WARPS;
-  load_queries<DV>(q, b, N, q_s, tq_s);
-
-  float mr[NMAX], lr[NMAX], sq[NMAX], sw[NMAX], s[NMAX];
-  float4 o[NMAX][DV];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    mr[n] = NEG;
-    lr[n] = sq[n] = sw[n] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DV; ++c) o[n][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+             float keep_scale, int B, int N, int M, float scale) {
+  using S_ = PkFwdSmem<D>;
+  constexpr int NSLOT = S_::NSLOT, QG = THREADS / D, NQ = NMAX / QG;
+  static_assert(QG >= 1 && THREADS % D == 0, "a thread owns whole o columns");
+  extern __shared__ float4 smem4[];
+  S_& S = *reinterpret_cast<S_*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col = tid % D, grp = tid / D;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
   const uint32_t seed = TRAIN ? (uint32_t)seed_ptr[0] : 0u;
-  const int chunk = (M + W - 1) / W;
-  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
-  const float* k_b = k + (size_t)b * M * D;
-  const float* v_b = v + (size_t)b * M * D;
-  float4 kx[DV], vx[DV], kn[DV], vn[DV], tk[DV];
-  if (k0 < k1) {
-    load_row<DV>(k_b + (size_t)k0 * D, lane, kn);
-    load_row<DV>(v_b + (size_t)k0 * D, lane, vn);
-  }
-  for (int key = k0; key < k1; ++key) {
+
+  PkCursor cur{i0, 0};
 #pragma unroll
-    for (int c = 0; c < DV; ++c) { kx[c] = kn[c]; vx[c] = vn[c]; }
-    if (key + 1 < k1) {  // the next key's rows land while this one is scored
-      load_row<DV>(k_b + (size_t)(key + 1) * D, lane, kn);
-      load_row<DV>(v_b + (size_t)(key + 1) * D, lane, vn);
-    }
-    score_row<DV>(kx, tk, q_s, tq_s, N, pre_gate != 0, scale, lane, s);
-    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
-    uint32_t keep = 0xffffffffu;
-    if constexpr (TRAIN) {
-      if (thresh != 0u)  // lane n draws query n's bits
-        keep = __ballot_sync(0xffffffffu, dropout_bits(seed, (uint32_t)b,
-                                                       (uint32_t)(lane < N ? lane : 0),
-                                                       (uint32_t)key) >= thresh);
-    }
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        const float sv = valid ? s[n] : NEG;
-        if (sv > mr[n]) {  // the same in every lane: warp_sum leaves all lanes equal
-          const float alpha = expf(mr[n] - sv);
-          mr[n] = sv;
-          lr[n] *= alpha;
-          if constexpr (TRAIN) {
-            sq[n] *= alpha * alpha;
-            sw[n] *= alpha;
-          }
-#pragma unroll
-          for (int c = 0; c < DV; ++c) {
-            o[n][c].x *= alpha; o[n][c].y *= alpha; o[n][c].z *= alpha; o[n][c].w *= alpha;
-          }
-        }
-        float p = expf(sv - mr[n]);
-        lr[n] += p;
-        if constexpr (TRAIN) {
-          p = (keep >> n) & 1u ? p * keep_scale : 0.f;
-          sq[n] = fmaf(p, p, sq[n]);
-          sw[n] += p;
-        }
-#pragma unroll
-        for (int c = 0; c < DV; ++c) {
-          o[n][c].x = fmaf(p, vx[c].x, o[n][c].x); o[n][c].y = fmaf(p, vx[c].y, o[n][c].y);
-          o[n][c].z = fmaf(p, vx[c].z, o[n][c].z); o[n][c].w = fmaf(p, vx[c].w, o[n][c].w);
-        }
-      }
-    }
+  for (int s = 0; s < NSLOT - 1; ++s) {
+    pk_issue<D>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
+    cp_async_commit();
   }
 
-  // ---- merge the block's warps in warp order (a fixed order) ----
-  if (lane == 0) {
+  float oacc[NQ];
+  float m_run = NEG, l_run = 0.f, ssq_run = 0.f, sumw_run = 0.f;  // query `warp`'s state
+  int b = -1;
+  auto flush = [&]() {  // the partial of bag b at index block + b
+    const size_t pb = (size_t)blockIdx.x + b;
 #pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) m_s[warp][n] = mr[n];
-  }
-  __syncthreads();
-  float fac[NMAX], mb[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    if (n < N) {
-      float mx = m_s[0][n];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, m_s[w][n]);
-      mb[n] = mx;
-      fac[n] = expf(mr[n] - mx);
+    for (int j = 0; j < NQ; ++j) {
+      const int n = grp + QG * j;
+      if (n < N) o_part[(pb * N + n) * D + col] = oacc[j];
     }
-  }
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        if (n < N) {
-#pragma unroll
-          for (int c = 0; c < DV; ++c) {
-            float4* dst = reinterpret_cast<float4*>(&o_s[n][c * 128 + 4 * lane]);
-            float4 acc = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
-            acc.x = fmaf(o[n][c].x, fac[n], acc.x); acc.y = fmaf(o[n][c].y, fac[n], acc.y);
-            acc.z = fmaf(o[n][c].z, fac[n], acc.z); acc.w = fmaf(o[n][c].w, fac[n], acc.w);
-            *dst = acc;
-          }
-          if (lane == 0) {
-            const float l0 = w == 0 ? 0.f : st_s[0][n];
-            st_s[0][n] = fmaf(lr[n], fac[n], l0);
-            if constexpr (TRAIN) {
-              const float q0 = w == 0 ? 0.f : st_s[1][n], w0 = w == 0 ? 0.f : st_s[2][n];
-              st_s[1][n] = fmaf(sq[n], fac[n] * fac[n], q0);
-              st_s[2][n] = fmaf(sw[n], fac[n], w0);
-            }
-          }
-        }
+    if (warp < N && lane == 0) {
+      ml_part[(pb * N + warp) * 2 + 0] = m_run;
+      ml_part[(pb * N + warp) * 2 + 1] = l_run;
+      if constexpr (TRAIN) {
+        sq_part[(pb * N + warp) * 2 + 0] = ssq_run;
+        sq_part[(pb * N + warp) * 2 + 1] = sumw_run;
       }
     }
-    __syncthreads();
-  }
-  const size_t pb = (size_t)b * P + split;
-  for (int i = threadIdx.x; i < N * D; i += THREADS)
-    o_part[pb * N * D + i] = o_s[i / D][i % D];
-  if (threadIdx.x == 0) {
+  };
+
+  int s = 0;  // the block's sub-step
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, t = u % n_tiles, subs = pk_subs(t, M);
+    for (int j = 0; j < subs; ++j, ++s) {
+      cp_async_wait<NSLOT - 2>();
+      __syncthreads();  // sub-step s landed; the slot of s - 1 is free
+      pk_issue<D>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
+      cp_async_commit();
+      if (ub != b) {  // a new bag: flush the last one's partial, load this one's queries
+        if (b >= 0) flush();
+        b = ub;
+        for (int x = tid; x < N * D; x += THREADS) {
+          const float val = q[(size_t)b * N * D + x];
+          S.q[x / D][x % D] = val;
+          if (PG) S.tq[x / D][x % D] = tanhf(val);
+        }
 #pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        ml_part[(pb * N + n) * 2 + 0] = mb[n];
-        ml_part[(pb * N + n) * 2 + 1] = st_s[0][n];
+        for (int j2 = 0; j2 < NQ; ++j2) oacc[j2] = 0.f;
+        m_run = NEG;
+        l_run = ssq_run = sumw_run = 0.f;
+        __syncthreads();
+      }
+      const float* slot = S.ring[s % NSLOT];
+      const int r0 = t * FK_BM + j * PK_KEYS;  // the sub-step's first key
+
+      // ---- scores of the warp's two keys against every query ----
+      {
+        float second, unused;
+        const float a = pk_key_sums<D, PG, false>(slot, S.q, S.tq, nullptr, nullptr, N, warp,
+                                                  lane, second, unused);
+        const int n = pk_query(lane), row = warp * PK_KPW + pk_key(lane), key = r0 + row;
+        if ((lane & 1) == 0 && n < N) {
+          float sv = a * scale;
+          if (PG) sv = sv * (second + 1.f) * 0.5f;
+          const bool exists = key < M;  // keys past M do not exist: weight exactly 0
+          const bool valid = exists && (mask == nullptr || mask[(size_t)b * M + key]);
+          S.s[n][row] = !exists ? -INFINITY : (valid ? sv : NEG);
+        }
+      }
+      __syncthreads();
+
+      // ---- online softmax, one warp a query (lanes 0..15 one key each) ----
+      if (warp < N) {
+        const float sv = lane < PK_KEYS ? S.s[warp][lane] : -INFINITY;
+        const float m_new = fmaxf(m_run, warp_max(sv));
+        const float alpha = expf(m_run - m_new);
+        float p = expf(sv - m_new);
+        l_run = l_run * alpha + warp_sum(p);
+        m_run = m_new;
         if constexpr (TRAIN) {
-          sq_part[(pb * N + n) * 2 + 0] = st_s[1][n];
-          sq_part[(pb * N + n) * 2 + 1] = st_s[2][n];
+          if (thresh != 0u && lane < PK_KEYS)
+            p = dropout_bits(seed, (uint32_t)b, (uint32_t)warp, (uint32_t)(r0 + lane)) >= thresh
+                    ? p * keep_scale : 0.f;
+          ssq_run = ssq_run * (alpha * alpha) + warp_sum(p * p);
+          sumw_run = sumw_run * alpha + warp_sum(p);
+        }
+        if (lane < PK_KEYS) S.s[warp][lane] = p;
+        if (lane == 0) S.alpha[warp] = alpha;
+      }
+      __syncthreads();
+
+      // ---- o[n, col] = alpha o + sum_r p[n, r] v[r, col] (rows past M are zeros) ----
+      const float* vs = slot + PK_KEYS * D;
+#pragma unroll
+      for (int j2 = 0; j2 < NQ; ++j2) {
+        const int n = grp + QG * j2;
+        if (n < N) oacc[j2] *= S.alpha[n];
+      }
+#pragma unroll
+      for (int r = 0; r < PK_KEYS; r += 4) {
+        const float x0 = vs[r * D + col], x1 = vs[(r + 1) * D + col];
+        const float x2 = vs[(r + 2) * D + col], x3 = vs[(r + 3) * D + col];
+#pragma unroll
+        for (int j2 = 0; j2 < NQ; ++j2) {
+          const int n = grp + QG * j2;
+          if (n < N) {
+            const float4 p = *reinterpret_cast<const float4*>(&S.s[n][r]);
+            oacc[j2] = fmaf(p.x, x0, oacc[j2]);
+            oacc[j2] = fmaf(p.y, x1, oacc[j2]);
+            oacc[j2] = fmaf(p.z, x2, oacc[j2]);
+            oacc[j2] = fmaf(p.w, x3, oacc[j2]);
+          }
         }
       }
+      // S.s, S.alpha and this slot are rewritten after the next sub-step's barrier
     }
   }
+  cp_async_wait<0>();
+  if (b >= 0) flush();
 }
 
 template <int DV>
@@ -833,7 +848,7 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
       blocks < 1 || blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  launch_tile_list(mask, nullptr, flags, list, off, B, M, 0, st);
+  launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // o columns a thread
@@ -855,6 +870,35 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
   if (err) return err;
   combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq, sumw,
                                                  N, F, blocks, off);
+  return (int)cudaGetLastError();
+}
+
+// The plain-K forward's launches: the tile flags and list, plain_kernel over
+// the blocks resident at once (at most max_blocks), combine_kernel.
+template <int D, bool PG, bool TRAIN>
+int launch_plain(const float* q, const float* k, const float* v, const uint8_t* mask,
+                 const int* seed, float* o, float* l, float* m, float* ssq, float* sumw,
+                 float* o_part, float* ml_part, float* sq_part, uint8_t* flags, int* list,
+                 int* off, int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
+                 float keep_scale, cudaStream_t st) {
+  static bool allowed[64] = {};
+  static int resident[64] = {};
+  constexpr int smem = (int)sizeof(PkFwdSmem<D>);
+  static_assert(smem <= 232448, "shared memory of one block");
+  int err = allow_dynamic_smem(plain_kernel<D, PG, TRAIN>, smem, allowed);
+  if (err) return err;
+  int blocks = 0;
+  err = resident_blocks(plain_kernel<D, PG, TRAIN>, smem, max_blocks, resident, &blocks);
+  if (err) return err;
+  launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st);
+  plain_kernel<D, PG, TRAIN><<<blocks, THREADS, smem, st>>>(
+      q, k, v, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N, M,
+      scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
+                                                 l, m, ssq, TRAIN ? sumw : nullptr, N, D,
+                                                 blocks, off);
   return (int)cudaGetLastError();
 }
 
@@ -929,34 +973,30 @@ int mpo_coattn_weights(const float* q, const float* k, const uint8_t* mask,
 // or NULL -> o [B, N, D], l, m [B, N]. train != 0: the training form, with
 // attention dropout (seed, thresh, keep_scale as mpo_coattn_fwd_fused_k_train)
 // and ssq, sumw [B, N] of the dropped weights; else seed, ssq, sumw and
-// sq_part may be NULL. Scratch: o_part [B, splits, N, D], ml_part and sq_part
-// [B, splits, N, 2]. D in {128, 256}; N <= 8.
+// sq_part may be NULL. max_blocks: the most main-pass blocks (it runs the
+// blocks resident at once, up to that). Scratch: o_part [max_blocks + B, N,
+// D], ml_part and sq_part [max_blocks + B, N, 2], flags [B * T] uint8, list
+// [B * T] and off [B + 1] int32 (T = ceil(M / 64) key tiles a bag). D in
+// {128, 256}; N <= 8.
 int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
                          const uint8_t* mask, const int* seed, float* o, float* l, float* m,
                          float* ssq, float* sumw, float* o_part, float* ml_part,
-                         float* sq_part, int B, int N, int M, int D, int pre_gate,
-                         int splits, int train, float scale, uint32_t thresh,
-                         float keep_scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || splits < 1 || splits > MAX_PARTS)
+                         float* sq_part, uint8_t* flags, int* list, int* off, int B, int N,
+                         int M, int D, int pre_gate, int max_blocks, int train, float scale,
+                         uint32_t thresh, float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, splits);
-#define MPO_PLAIN(DV_, TRAIN_)                                                      \
-  plain_kernel<DV_, TRAIN_><<<grid, THREADS, 0, st>>>(q, k, v, mask, o_part, ml_part, \
-                                                      sq_part, seed, thresh, keep_scale, \
-                                                      N, M, pre_gate, scale)
-  if (D == 128 && train) MPO_PLAIN(1, true);
-  else if (D == 128) MPO_PLAIN(1, false);
-  else if (D == 256 && train) MPO_PLAIN(2, true);
-  else if (D == 256) MPO_PLAIN(2, false);
-  else return (int)cudaErrorInvalidValue;
+#define MPO_PLAIN(D_, PG_, TRAIN_)                                                           \
+  if (D == D_ && (pre_gate != 0) == PG_ && (train != 0) == TRAIN_)                           \
+    return launch_plain<D_, PG_, TRAIN_>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,     \
+                                         ml_part, sq_part, flags, list, off, B, N, M,         \
+                                         max_blocks, scale, thresh, keep_scale, st);
+  MPO_PLAIN(256, false, false) MPO_PLAIN(256, true, false) MPO_PLAIN(256, false, true)
+  MPO_PLAIN(256, true, true) MPO_PLAIN(128, false, false) MPO_PLAIN(128, true, false)
+  MPO_PLAIN(128, false, true) MPO_PLAIN(128, true, true)
 #undef MPO_PLAIN
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, train ? sq_part : nullptr, o,
-                                                 l, m, ssq, train ? sumw : nullptr, N, D,
-                                                 splits, nullptr);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

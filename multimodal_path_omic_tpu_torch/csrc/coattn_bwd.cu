@@ -84,7 +84,7 @@
 
 #include <type_traits>
 
-#include "fused_k_common.cuh"
+#include "plain_k_common.cuh"
 
 namespace {
 
@@ -749,12 +749,12 @@ dwk_kernel(const float* __restrict__ kv, const float* __restrict__ dk,
   for (int i = 0; i < 4; ++i) store_c<4>(c[i], part, E, f0 + 64 * wr + 16 * i, e0 + 32 * wc, lane);
 }
 
-// The fuse-K form (off != NULL): dq [B, N, E] = sum of bag b's partials
-// g + b over the main pass's blocks g that held its units, in g order;
-// dwk [F, E] = sum of the W partials dwk_part; dbk [E] = sum of the P main
-// blocks' partials. The plain-K form (off == NULL, dwk == NULL): dq = sum
-// over the P splits of each bag. Each output element is summed by one
-// thread in a fixed order (no atomics: deterministic).
+// dq [B, N, E] = sum of bag b's partials g + b over the main pass's blocks g
+// that held its units (off: the tile list's bag offsets), in g order; with
+// dwk != NULL (the fuse-K form) also dwk [F, E] = sum of the W partials
+// dwk_part and dbk [E] = sum of the P main blocks' partials. Each output
+// element is summed by one thread in a fixed order (no atomics:
+// deterministic).
 __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dwk_part,
                   const float* __restrict__ dbk_part, const int* __restrict__ off,
@@ -768,13 +768,9 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
     float acc = 0.f;
     if (i < nq) {
       const size_t b = i / ne, j = i % ne;
-      if (off != nullptr) {
-        const int per = units_per_block(off, B, P);
-        for (int g = off[b] / per; g <= (off[b + 1] - 1) / per; ++g)
-          acc += dq_part[(g + b) * ne + j];
-      } else {
-        for (int p = 0; p < P; ++p) acc += dq_part[(b * P + p) * ne + j];
-      }
+      const int per = units_per_block(off, B, P);
+      for (int g = off[b] / per; g <= (off[b + 1] - 1) / per; ++g)
+        acc += dq_part[(g + b) * ne + j];
       dq[i] = acc;
     } else if (i < nq + nw) {
       const size_t j = i - nq;
@@ -799,193 +795,250 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
 //   dk_r  = sum_n da q_n / sqrt(D) + (1 - tanh(k_r)^2) (du tanh(q_n)),
 //   dv_r  = sum_n pd dO_n.
 // What bounds it on an H100: it reads k and v and writes dk and dv once each
-// (1.07 GB at B=32, M=8192, D=256: 0.32 ms at 3.35 TB/s) for 6 GFLOP of
-// products (0.09 ms): bound by bytes. Design: as the forward (csrc/coattn.cu
-// plain_kernel), one block = (bag, split of the keys) and one warp = a
-// contiguous run of keys, a key's rows in registers (4 columns per lane and
-// 128-column group). dk_r and dv_r belong to the key, so the warp that owns
-// it writes them once, coalesced. Only dq sums over keys: each lane carries
-// its columns of the N x D sums (two sets with the pre-gate), the block adds
-// its 8 warps in shared memory in warp order, writes one partial per
-// (bag, split), and bwd_reduce_kernel sums the splits in a fixed order: no
-// atomics, two runs give the same bits.
+// (1.07 GB at B=32, M=8192, D=256: 0.32 ms at 3.35 TB/s over every key) for
+// 6 GFLOP of products (0.09 ms): bound by bytes. Design, as the forward
+// (csrc/coattn.cu plain_kernel): the tile flags and list (fused_k_common.cuh;
+// the flag pass writes dk = dv = 0 on the skipped tiles, where ds and p are
+// exactly 0); the main pass over the blocks resident at once, each an even
+// share of the listed tiles, their k and v rows in sub-steps of 16 keys
+// through the cp.async ring (plain_k_common.cuh). Per sub-step: warp w sums
+// a, u (pre-gate) and dp of its two keys against every query in one
+// transposing butterfly and turns them into pd, da, du (the Philox bits
+// regenerated per element), tanh(k) stored once in shared memory; then
+// thread tid takes column tid % D of the keys r = tid / D + QG x: dk_r and
+// dv_r are written once, coalesced, and dq's two sums over keys are carried
+// in registers. A block writes bag b's dq partial at index block + b when it
+// leaves the bag, and bwd_reduce_kernel sums a bag's partials in block order:
+// no atomics, two runs give the same bits.
 // ---------------------------------------------------------------------------
-template <int DV>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, int lane,
-                                         float4 (&x)[DV]) {
-#pragma unroll
-  for (int c = 0; c < DV; ++c) x[c] = *reinterpret_cast<const float4*>(row + c * 128 + 4 * lane);
+template <int D>
+struct PkBwdSmem {
+  static constexpr int SLOT = 2 * PK_KEYS * D;      // k rows, then v rows
+  static constexpr int NSLOT = 65536 / (4 * SLOT);  // 2 at D = 256, 4 at 128
+  alignas(16) float ring[NSLOT][SLOT];
+  alignas(16) float q[NMAX][D];
+  alignas(16) float tq[NMAX][D];
+  alignas(16) float dout[NMAX][D];
+  alignas(16) float tk[PK_KEYS][D];  // tanh(k) of the sub-step; the flush's merge of groups
+  alignas(16) float da[PK_KEYS][NMAX];
+  alignas(16) float du[PK_KEYS][NMAX];
+  alignas(16) float pd[PK_KEYS][NMAX];
+  float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
+};
+
+// Eight per-query values of sub-step key r, from a [PK_KEYS][NMAX] row.
+__device__ __forceinline__ void load8(const float* __restrict__ row, float (&x)[NMAX]) {
+  const float4 lo = *reinterpret_cast<const float4*>(row);
+  const float4 hi = *reinterpret_cast<const float4*>(row + 4);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
-}
-
-__device__ __forceinline__ void axpy4(float a, const float4& x, float4& y) {
-  y.x = fmaf(a, x.x, y.x); y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z); y.w = fmaf(a, x.w, y.w);
-}
-
-template <int DV, bool PG>
-__global__ void __launch_bounds__(THREADS)
+template <int D, bool PG>
+__global__ void __launch_bounds__(THREADS, 2)
 plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 const int* __restrict__ list, const int* __restrict__ off,
                  const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
                  const float* __restrict__ dout, const float* __restrict__ l,
                  const float* __restrict__ m, const float* __restrict__ di,
                  const float* __restrict__ dssq, const float* __restrict__ dsumw,
                  float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part,
-                 int N, int M, float scale) {
-  constexpr int D = DV * 128;
-  __shared__ __align__(16) float q_s[NMAX][D];
-  __shared__ __align__(16) float tq_s[NMAX][D];
-  __shared__ __align__(16) float do_s[NMAX][D];
-  __shared__ __align__(16) float dq_s[NMAX][D];
-  __shared__ float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
-  const int b = blockIdx.x, split = blockIdx.y, P = gridDim.y;
+                 int B, int N, int M, float scale) {
+  using S_ = PkBwdSmem<D>;
+  constexpr int NSLOT = S_::NSLOT, QG = THREADS / D, RPT = PK_KEYS / QG;
+  static_assert(QG == 1 || QG == 2, "one or two column groups");
+  extern __shared__ float4 smem4[];
+  S_& S = *reinterpret_cast<S_*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gw = split * WARPS + warp, W = P * WARPS;
+  const int col = tid % D, grp = tid / D;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
   const uint32_t seed = (uint32_t)seed_ptr[0];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = tid; i < N * D; i += THREADS) {
-    const float x = q[(size_t)b * N * D + i];
-    q_s[i / D][i % D] = x;
-    tq_s[i / D][i % D] = PG ? tanhf(x) : 0.f;
-    do_s[i / D][i % D] = dout[(size_t)b * N * D + i];
+  PkCursor cur{i0, 0};
+#pragma unroll
+  for (int s = 0; s < NSLOT - 1; ++s) {
+    pk_issue<D>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
+    cp_async_commit();
   }
-  if (tid < N) {
-    const size_t bn = (size_t)b * N + tid;
-    const float lv = l[bn];
-    stat[0][tid] = m[bn];
-    stat[1][tid] = lv == 0.f ? 1.f : 1.f / lv;
-    stat[2][tid] = di[bn];
-    stat[3][tid] = dssq != nullptr ? dssq[bn] : 0.f;
-    stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
-  }
-  __syncthreads();
 
-  float4 qa[NMAX][DV];              // sum_r da k_r
-  float4 qu[PG ? NMAX : 1][DV];     // sum_r du tanh(k_r)
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n)
-#pragma unroll
-    for (int c = 0; c < DV; ++c) {
-      qa[n][c] = zero4;
-      if constexpr (PG) qu[n][c] = zero4;
-    }
-
-  const int chunk = (M + W - 1) / W;
-  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
-  const float* k_b = k + (size_t)b * M * D;
-  const float* v_b = v + (size_t)b * M * D;
-  float4 kx[DV], vx[DV], kn[DV], vn[DV], tk[DV];
-  if (k0 < k1) {
-    load_row<DV>(k_b + (size_t)k0 * D, lane, kn);
-    load_row<DV>(v_b + (size_t)k0 * D, lane, vn);
-  }
-  for (int key = k0; key < k1; ++key) {
-#pragma unroll
-    for (int c = 0; c < DV; ++c) { kx[c] = kn[c]; vx[c] = vn[c]; }
-    if (key + 1 < k1) {  // the next key's rows land while this one is worked on
-      load_row<DV>(k_b + (size_t)(key + 1) * D, lane, kn);
-      load_row<DV>(v_b + (size_t)(key + 1) * D, lane, vn);
-    }
-    if (PG) {
-#pragma unroll
-      for (int c = 0; c < DV; ++c)
-        tk[c] = make_float4(tanhf(kx[c].x), tanhf(kx[c].y), tanhf(kx[c].z), tanhf(kx[c].w));
-    }
-    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
-    uint32_t keep = 0xffffffffu;
-    if (thresh != 0u)  // lane n draws query n's bits
-      keep = __ballot_sync(0xffffffffu, dropout_bits(seed, (uint32_t)b,
-                                                     (uint32_t)(lane < N ? lane : 0),
-                                                     (uint32_t)key) >= thresh);
-    float4 ka[DV], ku[DV], va[DV];  // dk's two terms and dv of this key
-#pragma unroll
-    for (int c = 0; c < DV; ++c) ka[c] = ku[c] = va[c] = zero4;
+  float qa[NMAX];             // sum_r da k_r of column col, this thread's keys
+  float qu[PG ? NMAX : 1];    // sum_r du tanh(k_r)
+  int b = -1;
+  // bag b's dq partial at index block + b: the column groups added in order
+  // through S.tk (free between a sub-step's barrier and its score pass)
+  auto flush = [&]() {
+    const size_t pb = (size_t)blockIdx.x + b;
+    float r[NMAX];
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        float a = 0.f, u = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < DV; ++c) {
-          const int col = c * 128 + 4 * lane;
-          a = dot4(*reinterpret_cast<const float4*>(&q_s[n][col]), kx[c], a);
-          if (PG) u = dot4(*reinterpret_cast<const float4*>(&tq_s[n][col]), tk[c], u);
-          dp = dot4(*reinterpret_cast<const float4*>(&do_s[n][col]), vx[c], dp);
-        }
-        a = warp_sum(a) * scale;
-        const float g = PG ? (warp_sum(u) + 1.f) * 0.5f : 1.f;
-        dp = warp_sum(dp);
-        const float p = expf((valid ? a * g : NEG) - stat[0][n]) * stat[1][n];
-        float pd = p;
-        if (thresh != 0u) pd = (keep >> n) & 1u ? p * keep_scale : 0.f;
-        const float ds = valid
-            ? pd * dp - p * stat[2][n] + 2.f * stat[3][n] * pd * pd + stat[4][n] * pd : 0.f;
-        const float da = ds * g, du = ds * a * 0.5f;
-#pragma unroll
-        for (int c = 0; c < DV; ++c) {
-          const int col = c * 128 + 4 * lane;
-          axpy4(da, kx[c], qa[n][c]);
-          axpy4(da, *reinterpret_cast<const float4*>(&q_s[n][col]), ka[c]);
-          axpy4(pd, *reinterpret_cast<const float4*>(&do_s[n][col]), va[c]);
-          if constexpr (PG) {
-            axpy4(du, tk[c], qu[n][c]);
-            axpy4(du, *reinterpret_cast<const float4*>(&tq_s[n][col]), ku[c]);
-          }
-        }
+      r[n] = scale * qa[n];
+      if constexpr (PG) {
+        const float t = S.tq[n][col];
+        r[n] = fmaf(1.f - t * t, qu[n], r[n]);
       }
     }
-    float* dk_r = dk + ((size_t)b * M + key) * D;
-    float* dv_r = dv + ((size_t)b * M + key) * D;
+    if constexpr (QG == 1) {
 #pragma unroll
-    for (int c = 0; c < DV; ++c) {
-      float4 r = make_float4(scale * ka[c].x, scale * ka[c].y, scale * ka[c].z, scale * ka[c].w);
-      if (PG) {
-        r.x = fmaf(1.f - tk[c].x * tk[c].x, ku[c].x, r.x);
-        r.y = fmaf(1.f - tk[c].y * tk[c].y, ku[c].y, r.y);
-        r.z = fmaf(1.f - tk[c].z * tk[c].z, ku[c].z, r.z);
-        r.w = fmaf(1.f - tk[c].w * tk[c].w, ku[c].w, r.w);
+      for (int n = 0; n < NMAX; ++n)
+        if (n < N) dq_part[(pb * N + n) * D + col] = r[n];
+    } else {
+      float* merge = &S.tk[0][0];  // [NMAX][D]
+      if (grp == 0) {
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) merge[n * D + col] = r[n];
       }
-      *reinterpret_cast<float4*>(dk_r + c * 128 + 4 * lane) = r;
-      *reinterpret_cast<float4*>(dv_r + c * 128 + 4 * lane) = va[c];
+      __syncthreads();
+      if (grp == 1) {
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n)
+          if (n < N) dq_part[(pb * N + n) * D + col] = merge[n * D + col] + r[n];
+      }
     }
-  }
+  };
 
-  // ---- this block's dq partial: its warps added in warp order ----
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
+  int s = 0;  // the block's sub-step
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, t = u % n_tiles, subs = pk_subs(t, M);
+    for (int j = 0; j < subs; ++j, ++s) {
+      cp_async_wait<NSLOT - 2>();
+      __syncthreads();  // sub-step s landed; the slot of s - 1 is free
+      pk_issue<D>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
+      cp_async_commit();
+      if (ub != b) {  // a new bag: flush the last one's dq, load this one's rows
+        if (b >= 0) flush();
+        __syncthreads();  // the flush has read S.tq and S.tk
+        b = ub;
+        for (int x = tid; x < N * D; x += THREADS) {
+          const float val = q[(size_t)b * N * D + x];
+          S.q[x / D][x % D] = val;
+          S.tq[x / D][x % D] = PG ? tanhf(val) : 0.f;
+          S.dout[x / D][x % D] = dout[(size_t)b * N * D + x];
+        }
+        if (tid < N) {
+          const size_t bn = (size_t)b * N + tid;
+          const float lv = l[bn];
+          S.stat[0][tid] = m[bn];
+          S.stat[1][tid] = lv == 0.f ? 1.f : 1.f / lv;
+          S.stat[2][tid] = di[bn];
+          S.stat[3][tid] = dssq != nullptr ? dssq[bn] : 0.f;
+          S.stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
+        }
+#pragma unroll
+        for (int n = 0; n < NMAX; ++n) {
+          qa[n] = 0.f;
+          if constexpr (PG) qu[n] = 0.f;
+        }
+        __syncthreads();
+      }
+      const float* slot = S.ring[s % NSLOT];
+      const int r0 = t * FK_BM + j * PK_KEYS;  // the sub-step's first key
+
+      // ---- a, u, dp of the warp's two keys; pd, da, du per (key, query) ----
+      {
+        float second, dpv;
+        const float dot = pk_key_sums<D, PG, true>(slot, S.q, S.tq, S.dout,
+                                                   PG ? &S.tk[0][0] : nullptr, N, warp, lane,
+                                                   second, dpv);
+        const int n = pk_query(lane), row = warp * PK_KPW + pk_key(lane), key = r0 + row;
+        if ((lane & 1) == 0 && n < N) {
+          const float a = dot * scale;
+          const float g = PG ? (second + 1.f) * 0.5f : 1.f;
+          const float dp = PG ? dpv : second;
+          const bool exists = key < M;  // keys past M do not exist: no gradient
+          const bool valid = exists && (mask == nullptr || mask[(size_t)b * M + key]);
+          float pd = 0.f, da = 0.f, du = 0.f;
+          if (exists) {
+            const float p = expf((valid ? a * g : NEG) - S.stat[0][n]) * S.stat[1][n];
+            pd = p;
+            if (thresh != 0u)
+              pd = dropout_bits(seed, (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
+                       ? p * keep_scale : 0.f;
+            const float ds = valid ? pd * dp - p * S.stat[2][n] + 2.f * S.stat[3][n] * pd * pd +
+                                         S.stat[4][n] * pd
+                                   : 0.f;
+            da = ds * g;
+            du = ds * a * 0.5f;
+          }
+          S.da[row][n] = da;
+          S.du[row][n] = du;
+          S.pd[row][n] = pd;
+        }
+      }
+      __syncthreads();
+
+      // ---- dk, dv of the keys r = grp + QG x at column col; dq's sums ----
+      float qc[NMAX], tqc[NMAX], oc[NMAX];
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
-        if (n < N) {
+        qc[n] = S.q[n][col];
+        tqc[n] = PG ? S.tq[n][col] : 0.f;
+        oc[n] = S.dout[n][col];
+      }
+#pragma unroll 4
+      for (int x = 0; x < RPT; ++x) {
+        const int r = grp + QG * x, key = r0 + r;
+        if (key >= M) break;
+        float da[NMAX], du[NMAX], pd[NMAX];
+        load8(&S.da[r][0], da);
+        load8(&S.pd[r][0], pd);
+        if constexpr (PG) load8(&S.du[r][0], du);
+        const float kr = slot[r * D + col], tkr = PG ? S.tk[r][col] : 0.f;
+        float ka = 0.f, ku = 0.f, vv = 0.f;
 #pragma unroll
-          for (int c = 0; c < DV; ++c) {
-            const int col = c * 128 + 4 * lane;
-            float4 r = make_float4(scale * qa[n][c].x, scale * qa[n][c].y, scale * qa[n][c].z,
-                                   scale * qa[n][c].w);
+        for (int n = 0; n < NMAX; ++n) {
+          if (n < N) {
+            ka = fmaf(da[n], qc[n], ka);
+            vv = fmaf(pd[n], oc[n], vv);
+            qa[n] = fmaf(da[n], kr, qa[n]);
             if constexpr (PG) {
-              const float4 t = *reinterpret_cast<const float4*>(&tq_s[n][col]);
-              r.x = fmaf(1.f - t.x * t.x, qu[n][c].x, r.x);
-              r.y = fmaf(1.f - t.y * t.y, qu[n][c].y, r.y);
-              r.z = fmaf(1.f - t.z * t.z, qu[n][c].z, r.z);
-              r.w = fmaf(1.f - t.w * t.w, qu[n][c].w, r.w);
+              ku = fmaf(du[n], tqc[n], ku);
+              qu[n] = fmaf(du[n], tkr, qu[n]);
             }
-            float4* dst = reinterpret_cast<float4*>(&dq_s[n][col]);
-            if (w != 0) {
-              const float4 acc = *dst;
-              r.x += acc.x; r.y += acc.y; r.z += acc.z; r.w += acc.w;
-            }
-            *dst = r;
           }
         }
+        float dkr = scale * ka;
+        if constexpr (PG) dkr = fmaf(1.f - tkr * tkr, ku, dkr);
+        const size_t o = ((size_t)b * M + key) * D + col;
+        dk[o] = dkr;
+        dv[o] = vv;
       }
+      // S.tk, S.da, S.du, S.pd and this slot are rewritten after the next barrier
     }
-    __syncthreads();
   }
-  const size_t pb = (size_t)b * P + split;
-  for (int i = tid; i < N * D; i += THREADS) dq_part[pb * N * D + i] = dq_s[i / D][i % D];
+  cp_async_wait<0>();
+  __syncthreads();  // the last sub-step's dk loop has read S.tk before the flush merges there
+  if (b >= 0) flush();
+}
+
+template <int D, bool PG>
+int launch_plain_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
+                     const int* seed, const float* dout, const float* l, const float* m,
+                     const float* di, const float* dssq, const float* dsumw, float* dq,
+                     float* dk, float* dv, float* dq_part, uint8_t* flags, int* list, int* off,
+                     int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
+                     float keep_scale, cudaStream_t st) {
+  static bool allowed[64] = {};
+  static int resident[64] = {};
+  constexpr int smem = (int)sizeof(PkBwdSmem<D>);
+  static_assert(smem <= 232448, "shared memory of one block");
+  int err = allow_dynamic_smem(plain_bwd_kernel<D, PG>, smem, allowed);
+  if (err) return err;
+  int blocks = 0;
+  err = resident_blocks(plain_bwd_kernel<D, PG>, smem, max_blocks, resident, &blocks);
+  if (err) return err;
+  launch_tile_list(mask, dk, dv, flags, list, off, B, M, D, st);
+  plain_bwd_kernel<D, PG><<<blocks, THREADS, smem, st>>>(
+      q, k, v, mask, list, off, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dk, dv,
+      dq_part, B, N, M, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t total = (size_t)B * N * D;
+  bwd_reduce_kernel<<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, blocks, 0, N, D, 0);
+  return (int)cudaGetLastError();
 }
 
 template <int E, int F>
@@ -1003,7 +1056,7 @@ int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk
   if (err) return err;
   err = allow_dynamic_smem(dwk_kernel<E, F>, DW_SMEM, allowed_dwk);
   if (err) return err;
-  launch_tile_list(mask, dkv, flags, list, off, B, M, F, st);
+  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st);
   fused_k_bwd_kernel<E, F><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dkv,
       dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);
@@ -1055,32 +1108,27 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
 // The plain-K form: q [B, N, D], k, v [B, M, D], mask [B, M] bool or NULL,
 // seed / thresh / keep_scale as the forward, dout [B, N, D], l, m, di [B, N];
 // dssq, dsumw [B, N] or NULL (zero cotangents). Out: dq [B, N, D], dk, dv
-// [B, M, D]. Scratch: dq_part [B, splits, N, D]. D in {128, 256}; N <= 8.
+// [B, M, D]. max_blocks: the most main-pass blocks (it runs the blocks
+// resident at once, up to that). Scratch: dq_part [max_blocks + B, N, D],
+// flags [B * T] uint8, list [B * T] and off [B + 1] int32 (T = ceil(M / 64)
+// key tiles a bag). D in {128, 256}; N <= 8.
 int mpo_coattn_plain_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
                          const int* seed, const float* dout, const float* l, const float* m,
                          const float* di, const float* dssq, const float* dsumw, float* dq,
-                         float* dk, float* dv, float* dq_part, int B, int N, int M, int D,
-                         int pre_gate, int splits, float scale, uint32_t thresh,
-                         float keep_scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || B < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+                         float* dk, float* dv, float* dq_part, uint8_t* flags, int* list,
+                         int* off, int B, int N, int M, int D, int pre_gate, int max_blocks,
+                         float scale, uint32_t thresh, float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, splits);
-#define MPO_PLAIN_BWD(DV_, PG_)                                                          \
-  plain_bwd_kernel<DV_, PG_><<<grid, THREADS, 0, st>>>(q, k, v, mask, seed, thresh,        \
-                                                       keep_scale, dout, l, m, di, dssq,   \
-                                                       dsumw, dk, dv, dq_part, N, M, scale)
-  if (D == 128 && pre_gate) MPO_PLAIN_BWD(1, true);
-  else if (D == 128) MPO_PLAIN_BWD(1, false);
-  else if (D == 256 && pre_gate) MPO_PLAIN_BWD(2, true);
-  else if (D == 256) MPO_PLAIN_BWD(2, false);
-  else return (int)cudaErrorInvalidValue;
+#define MPO_PLAIN_BWD(D_, PG_)                                                                \
+  if (D == D_ && (pre_gate != 0) == PG_)                                                      \
+    return launch_plain_bwd<D_, PG_>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, \
+                                     dv, dq_part, flags, list, off, B, N, M, max_blocks, scale, \
+                                     thresh, keep_scale, st);
+  MPO_PLAIN_BWD(256, true) MPO_PLAIN_BWD(256, false) MPO_PLAIN_BWD(128, true)
+  MPO_PLAIN_BWD(128, false)
 #undef MPO_PLAIN_BWD
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const size_t total = (size_t)B * N * D;
-  bwd_reduce_kernel<<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      dq_part, nullptr, nullptr, nullptr, dq, nullptr, nullptr, B, splits, 0, N, D, 0);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

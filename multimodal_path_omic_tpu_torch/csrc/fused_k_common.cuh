@@ -1,7 +1,8 @@
-// Shared by csrc/coattn.cu (the fuse-K forward) and csrc/coattn_bwd.cu (the
-// fuse-K backward): the key-tile flag and list kernels that let both skip
-// the 64-key tiles without a valid key and share the rest evenly over one
-// block an SM, and the per-key dot products of a warp's 8 keys. The kernels
+// Shared by csrc/coattn.cu (the fuse-K and plain-K forwards) and
+// csrc/coattn_bwd.cu (their backwards): the key-tile flag and list kernels
+// that let them skip the 64-key tiles without a valid key and share the rest
+// evenly over the blocks of the main pass, and the per-key dot products of a
+// warp's 8 keys. The kernels
 // are static: each source builds its own library with its own copy.
 #pragma once
 
@@ -46,12 +47,13 @@ __device__ __forceinline__ int sum8_index(int lane) {
 // 0): its weights exp(NEG - m) underflow to exactly 0, so it adds nothing to
 // o, l, ssq or sumw, and its ds is 0 by the mask, so nothing to dq, dwk or
 // dbk; a bag without a valid key computes every tile. dkv != NULL (the
-// backward, rows of F floats): the skipped tiles' dkv rows are set to 0.
+// backwards, rows of F floats): the skipped tiles' dkv rows are set to 0, and
+// with dkv2 != NULL (the plain-K backward's dv beside its dk) those of dkv2.
 constexpr int FK_FLAG_TILES = 16;
 
 static __global__ void __launch_bounds__(THREADS)
 fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
-                uint8_t* __restrict__ flags, int M, int F) {
+                float* __restrict__ dkv2, uint8_t* __restrict__ flags, int M, int F) {
   const int b = blockIdx.x, n_tiles = (M + FK_BM - 1) / FK_BM;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
   const bool skip = mask_b != nullptr && bag_has_valid_key(mask_b, M);
@@ -61,9 +63,13 @@ fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
     if (threadIdx.x == 0) flags[(size_t)b * n_tiles + t] = computed;
     if (computed || dkv == nullptr) continue;
     const int r1 = min((t + 1) * FK_BM, M);
-    float4* dst = reinterpret_cast<float4*>(dkv + ((size_t)b * M + (size_t)t * FK_BM) * F);
-    for (int i = threadIdx.x; i < (r1 - t * FK_BM) * F / 4; i += blockDim.x)
+    const size_t row0 = ((size_t)b * M + (size_t)t * FK_BM) * F;
+    float4* dst = reinterpret_cast<float4*>(dkv + row0);
+    float4* dst2 = dkv2 == nullptr ? nullptr : reinterpret_cast<float4*>(dkv2 + row0);
+    for (int i = threadIdx.x; i < (r1 - t * FK_BM) * F / 4; i += blockDim.x) {
       dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (dst2 != nullptr) dst2[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 
@@ -107,12 +113,13 @@ __device__ __forceinline__ int units_per_block(const int* __restrict__ off, int 
 }
 
 // The flag and list passes on `st` (flags [B * n_tiles], list [B * n_tiles],
-// off [B + 1]; dkv as fk_tiles_kernel).
-static inline void launch_tile_list(const uint8_t* mask, float* dkv, uint8_t* flags,
-                                    int* list, int* off, int B, int M, int F, cudaStream_t st) {
+// off [B + 1]; dkv, dkv2 as fk_tiles_kernel).
+static inline void launch_tile_list(const uint8_t* mask, float* dkv, float* dkv2,
+                                    uint8_t* flags, int* list, int* off, int B, int M, int F,
+                                    cudaStream_t st) {
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   fk_tiles_kernel<<<dim3(B, (n_tiles + FK_FLAG_TILES - 1) / FK_FLAG_TILES), THREADS, 0, st>>>(
-      mask, dkv, flags, M, F);
+      mask, dkv, dkv2, flags, M, F);
   fk_list_kernel<<<1, THREADS, 0, st>>>(flags, list, off, B, n_tiles);
 }
 

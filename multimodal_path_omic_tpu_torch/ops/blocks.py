@@ -18,6 +18,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import (
     masked_softmax,
 )
 from multimodal_path_omic_tpu_torch.ops.milpool import fused_gated_mil_pool
+from multimodal_path_omic_tpu_torch.ops.milpool import supports as milpool_supports
 
 
 class AttentionNetGated(nn.Module):
@@ -46,10 +47,12 @@ class GatedMILPool(nn.Module):
     x: [B, L, D], mask: [B, L] or None -> (pooled [B, D], raw scores [B, 1, L]).
 
     In eval, a pool over more than 32 positions (GE pools the patch axis)
-    goes through :func:`fused_gated_mil_pool`: on a CUDA tensor the streaming
-    kernel, with no [B, L, D] branch activations in device memory; on a CPU
-    tensor its plain version. Few-token pools (the 6-token branches) and
-    training (two dropout sites, no backward kernel) take the eager branch.
+    at widths the kernel takes (``milpool.supports``) goes through
+    :func:`fused_gated_mil_pool`: on a CUDA tensor the streaming kernel, with
+    no [B, L, D] branch activations in device memory; on a CPU tensor its
+    plain version. Few-token pools (the 6-token branches), other widths (the
+    JAX module's XLA fallback) and training (two dropout sites, no backward
+    kernel) take the eager branch.
     """
 
     def __init__(self, dim: int, dropout_rate: float = 0.25):
@@ -62,8 +65,9 @@ class GatedMILPool(nn.Module):
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not self.training and x.shape[1] > 32:
-            head = self.attention_head
+        head = self.attention_head
+        if (not self.training and x.shape[1] > 32
+                and milpool_supports(x.shape[2], head.attention_a.weight.shape[0], x.shape[1])):
             pooled, s = fused_gated_mil_pool(
                 x, mask, head.attention_a.weight.t(), head.attention_a.bias,
                 head.attention_b.weight.t(), head.attention_b.bias,

@@ -67,6 +67,7 @@ VALUES_D = (128, 256)  # D the plain-K kernels with values take
 # instances (csrc/coattn.cu launch_fused_k, csrc/coattn_bwd.cu MPO_BWD)
 FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
 EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
+PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels with values: most main-pass blocks an SM
 
 LAUNCH_COUNTS = {
     "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
@@ -472,11 +473,14 @@ def coattn_weights(
 
 
 def _plain_kv_checks(q, k, v, key_mask):
-    """Shapes, the mask pointer and the split count of the plain-K kernels
-    with values (D in ``VALUES_D``)."""
-    b, n, d, m_len, splits = _plain_k_checks(q, k, values=True)
+    """Shapes, the mask pointer and the most main-pass blocks of the plain-K
+    kernels with values (D in ``VALUES_D``): they run over the 64-key tiles
+    that hold a valid key (every tile of a bag without one), shared evenly by
+    the blocks resident at once, at most ``PLAIN_BLOCKS_PER_SM`` an SM."""
+    b, n, d, m_len, _ = _plain_k_checks(q, k, values=True)
     kernels.require(v, "v", (b, m_len, d))
-    return b, n, d, m_len, splits, kernels.mask_ptr(key_mask, b, m_len, q.device)
+    blocks = PLAIN_BLOCKS_PER_SM * kernels.sm_count(q.device)
+    return b, n, d, m_len, blocks, kernels.mask_ptr(key_mask, b, m_len, q.device)
 
 
 def coattn_fwd_plain_k(
@@ -495,7 +499,7 @@ def coattn_fwd_plain_k(
     if q.device.type == "cpu":
         out = coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate, pre_gate=pre_gate)
         return out if train else (*out[:3], None, None)
-    b, n, d, m_len, splits, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
+    b, n, d, m_len, blocks, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
     dev = q.device
     thresh, keep_scale, seed_ptr = 0, 1.0, None
     ssq = sumw = sq_part = None
@@ -505,18 +509,19 @@ def coattn_fwd_plain_k(
         thresh, keep_scale = _dropout_args(seed, rate, dev)
         seed_ptr = seed.data_ptr()
         ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(2))
-        sq_part = torch.empty((b, splits, n, 2), device=dev)
+        sq_part = torch.empty((blocks + b, n, 2), device=dev)
     o = torch.empty((b, n, d), device=dev)
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
-    o_part = torch.empty((b, splits, n, d), device=dev)
-    ml_part = torch.empty((b, splits, n, 2), device=dev)
+    o_part = torch.empty((blocks + b, n, d), device=dev)
+    ml_part = torch.empty((blocks + b, n, 2), device=dev)
+    flags, units, offsets = _tile_list(b, m_len, dev)
     side_ptrs = [None if t is None else t.data_ptr() for t in (ssq, sumw, sq_part)]
     err = kernels.library("coattn").mpo_coattn_plain_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), side_ptrs[0], side_ptrs[1],
-        o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2],
-        b, n, m_len, d, int(pre_gate), splits, int(train), 1.0 / math.sqrt(d),
-        thresh, keep_scale, kernels.stream(dev),
+        o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2], flags.data_ptr(),
+        units.data_ptr(), offsets.data_ptr(), b, n, m_len, d, int(pre_gate), blocks,
+        int(train), 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_plain_k")
     LAUNCH_COUNTS["coattn_plain"] += 1
@@ -536,21 +541,23 @@ def coattn_bwd_plain_k(
     if q.device.type == "cpu":
         return coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw,
                                         pre_gate=pre_gate)
-    b, n, d, m_len, splits, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
+    b, n, d, m_len, blocks, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
     kernels.require(dout, "dout", (b, n, d))
     for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
         kernels.require(t, name, (b, n))
     dq = torch.empty((b, n, d), device=dev)
+    # the tile pass writes the skipped tiles' dk and dv rows, the main pass the rest
     dk, dv = (torch.empty((b, m_len, d), device=dev) for _ in range(2))
-    dq_part = torch.empty((b, splits, n, d), device=dev)
+    dq_part = torch.empty((blocks + b, n, d), device=dev)
+    flags, units, offsets = _tile_list(b, m_len, dev)
     err = kernels.library("coattn_bwd").mpo_coattn_plain_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
-        b, n, m_len, d, int(pre_gate), splits, 1.0 / math.sqrt(d), thresh, keep_scale,
-        kernels.stream(dev),
+        flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, d,
+        int(pre_gate), blocks, 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_plain_k")
     LAUNCH_COUNTS["coattn_plain_bwd"] += 1

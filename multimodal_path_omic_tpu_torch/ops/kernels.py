@@ -44,11 +44,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mpo_coattn_fwd_fused_k_train": [_P] * 17 + [_I] * 6 + [_F, _U, _F, _P],
         "mpo_coattn_stats": [_P] * 6 + [_I] * 6 + [_F, _P],
         "mpo_coattn_weights": [_P] * 6 + [_I] * 6 + [_F, _P],
-        "mpo_coattn_plain_fwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _P],
+        "mpo_coattn_plain_fwd": [_P] * 16 + [_I] * 7 + [_F, _U, _F, _P],
     },
     "coattn_bwd": {
         "mpo_coattn_bwd_fused_k": [_P] * 23 + [_I] * 7 + [_F, _U, _F, _P],
-        "mpo_coattn_plain_bwd": [_P] * 15 + [_I] * 6 + [_F, _U, _F, _P],
+        "mpo_coattn_plain_bwd": [_P] * 18 + [_I] * 6 + [_F, _U, _F, _P],
     },
     "milpool": {
         "mpo_milpool": [_P] * 10 + [_I] * 5 + [_P],

@@ -36,6 +36,14 @@ def reset_launch_counts() -> None:
         LAUNCH_COUNTS[name] = 0
 
 
+def supports(d: int, h: int, m_len: int) -> bool:
+    """The shapes the kernel takes: D % 16 == 0, D <= ``MAX_DIM``, H % 128
+    == 0 (whole weight packs), M >= 1. The wrapper raises on a CUDA shape
+    outside it; ``ops/blocks.py::GatedMILPool`` sends such a pool to its
+    eager branch (the JAX module's ``milpool_eligible`` / XLA fallback)."""
+    return d % 16 == 0 and 16 <= d <= MAX_DIM and h % PACK == 0 and h >= PACK and m_len >= 1
+
+
 def gated_mil_pool_plain(x, mask, wa, ba, wb, bb, wc, bc):
     """The math the kernel must match. x [B, M, D]; mask [B, M] bool or
     None; wa, wb [D, H]; ba, bb [H]; wc [H, 1]; bc [1] ->
@@ -64,8 +72,8 @@ def fused_gated_mil_pool(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, M, D]; mask [B, M] bool or None; wa, wb [D, H]; ba, bb [H];
     wc [H, 1]; bc [1] -> (pooled [B, D], raw scores [B, M], pad positions
-    included). Kernel: float32, D % 16 == 0, D <= 1024, H % 128 == 0, any
-    M >= 1; the weights may be strided views (they are repacked)."""
+    included). Kernel: float32, the shapes of :func:`supports`; the weights
+    may be strided views (they are repacked)."""
     if x.device.type == "cpu":
         return gated_mil_pool_plain(x, mask, wa, ba, wb, bb, wc, bc)
     kernels.refuse_grad("fused_gated_mil_pool", x, wa, ba, wb, bb, wc, bc)
@@ -73,7 +81,7 @@ def fused_gated_mil_pool(
         raise ValueError(f"x must be [B, M, D], got {tuple(x.shape)}")
     b, m_len, d = x.shape
     h = wa.shape[-1]
-    if d % 16 != 0 or d > MAX_DIM or h % PACK != 0 or m_len < 1 or b < 1:
+    if not supports(d, h, m_len) or b < 1:
         raise ValueError(f"MIL pool kernel: unsupported D={d}, H={h}, M={m_len}, B={b}")
     kernels.require(x, "x", (b, m_len, d))
     dev = x.device

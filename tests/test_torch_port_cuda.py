@@ -863,16 +863,54 @@ def test_ge_train_step_on_card_matches_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
+def _close_one_key_plain(grads, ref, q, k, mask, fwd, dout, dssq, dsumw, di):
+    """dq and dk of the plain-K backward in bags with one valid key: 0 in
+    exact arithmetic (ds = 0, as ``_close_fk_grads`` states), so both sides
+    hold float32 noise alone, held to GRAD_RTOL of the terms that cancel,
+    c_n, times the largest factor ds meets on its way to dq (scale |k|max +
+    |a|max / 2) or, summed over the queries, to dk (scale |q_n|max +
+    |a|max / 2; |tanh| <= 1), with |a| <= scale |q_n|_1 |k|max. A query
+    whose one weight was dropped has c_n = 0 and ds = 0 exactly."""
+    one = mask.sum(-1) == 1
+    if not bool(one.any()):
+        return
+    o, _, _, ssq, sumw = (t[one] for t in fwd)
+    q, k, dout, dssq, dsumw, di = (t[one] for t in (q, k, dout, dssq, dsumw, di))
+    scale = q.shape[-1] ** -0.5
+    kmax = k.abs().amax((1, 2))[:, None]  # [bags, 1]
+    c = (o * dout).sum(-1).abs() + di.abs() + 2 * (dssq * ssq).abs() + (dsumw * sumw).abs()
+    amax = scale * q.abs().sum(-1) * kmax / 2
+    limit_dq = (GRAD_RTOL * c * (scale * kmax + amax))[..., None]
+    limit_dk = (GRAD_RTOL * c * (scale * q.abs().amax(-1) + amax)).sum(-1)[:, None, None]
+    for i, limit in ((0, limit_dq), (1, limit_dk)):
+        for a in (grads[i][one], ref[i][one]):
+            assert torch.isfinite(a).all() and bool((a.abs() <= limit).all())
+
+
 @pytest.mark.parametrize(
-    "b,n,d,m_len,pre_gate,rate",
-    [(2, 3, 128, 1000, True, 0.25), (4, 6, 256, 4096, False, 0.0), (3, 8, 256, 333, True, 0.0),
-     (1, 1, 128, 70, False, 0.5), (5, 6, 256, 5000, True, 0.25)],
+    "b,n,d,m_len,pre_gate,rate,kind",
+    [(2, 3, 128, 1000, True, 0.25, "prefix"), (4, 6, 256, 4096, False, 0.0, "prefix"),
+     (3, 8, 256, 333, True, 0.0, "prefix"), (1, 1, 128, 70, False, 0.5, "prefix"),
+     (5, 6, 256, 5000, True, 0.25, "prefix"), (4, 6, 256, 4096, True, 0.25, "holes"),
+     (3, 6, 128, 1000, False, 0.0, "holes"), (3, 6, 256, 1500, True, 0.25, "single-key"),
+     (3, 6, 128, 700, False, 0.0, "single-key")],
 )
-def test_plain_k_kernels_match_plain_on_card(dev, b, n, d, m_len, pre_gate, rate):
+def test_plain_k_kernels_match_plain_on_card(dev, b, n, d, m_len, pre_gate, rate, kind):
     """The plain-K forward with values (eval form and training form: dropout,
-    ssq, sumw, l, m) and its backward against their plain versions; two
-    backward runs agree bitwise; no gradient reaches k through a masked key."""
+    ssq, sumw, l, m) and its backward against their plain versions, on
+    prefix masks with a fully-masked filler row, on whole masked 64-key
+    tiles mid-bag (``holes``, which the kernels skip) and with a bag of one
+    valid key (o is its v row; its dq and dk are float32 noise on both
+    sides, held to the terms that cancel by ``_close_one_key_plain``); two
+    runs of each agree bitwise; no gradient reaches k through a masked key,
+    and dv is exactly 0 at the masked keys of bags with a valid key."""
     q, _, _, _, k, mask = _inputs(dev, b, n, d, m_len, d, m_len)
+    if kind == "holes":
+        mask[:, 64:192] = False
+        mask[:, 256:320] = False
+    elif kind == "single-key":
+        mask[0] = False
+        mask[0, m_len // 3] = True
     g = torch.Generator().manual_seed(m_len + 1)
     v = torch.randn(b, m_len, d, generator=g).to(dev)
     dout = torch.randn(b, n, d, generator=g).to(dev)
@@ -880,14 +918,20 @@ def test_plain_k_kernels_match_plain_on_card(dev, b, n, d, m_len, pre_gate, rate
     seed = torch.tensor([m_len * 3 + 1], dtype=torch.int32, device=dev)
     before = dict(coattn.LAUNCH_COUNTS)
     got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
     ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate)
     assert got[3] is None and got[4] is None
     for a, r, rtol in zip(got[:3], ref, (0.0, L_RTOL, 0.0)):
         _close(a, r, rtol)
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], again[:3]))
+    if kind == "single-key":
+        _close(got[0][0], v[0, m_len // 3].expand_as(got[0][0]))
     got = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate, pre_gate=pre_gate)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate, pre_gate=pre_gate)
     ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, rate, pre_gate=pre_gate)
     for a, r, rtol in zip(got, ref, (0.0, L_RTOL, 0.0, 0.0, 0.0)):
         _close(a, r, rtol)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     o, l, m, ssq, sumw = got
     di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
     args = (q, k, v, mask, seed, rate, dout, l, m, di, dssq, dsumw)
@@ -895,13 +939,47 @@ def test_plain_k_kernels_match_plain_on_card(dev, b, n, d, m_len, pre_gate, rate
     again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
     ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, rate, dout, dssq, dsumw,
                                           pre_gate=pre_gate)
-    for a, r in zip(grads, ref):
-        _close_rel(a, r)
+    many = mask.sum(-1) != 1
+    for i, (a, r) in enumerate(zip(grads, ref)):
+        _close_rel(a[many] if i == 0 else a, r[many] if i == 0 else r)
+    _close_one_key_plain(grads, ref, q, k, mask, got, dout, dssq, dsumw, di)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     assert float(grads[1][~mask].abs().max()) == 0.0
+    has = mask.any(-1)
+    assert bool((grads[2][has][~mask[has]] == 0).all())
     torch.cuda.synchronize()
-    assert coattn.LAUNCH_COUNTS["coattn_plain"] == before["coattn_plain"] + 2
+    assert coattn.LAUNCH_COUNTS["coattn_plain"] == before["coattn_plain"] + 4
     assert coattn.LAUNCH_COUNTS["coattn_plain_bwd"] == before["coattn_plain_bwd"] + 2
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_plain_k_backward_repeats_bitwise_over_many_bags(dev, d):
+    """The pre-gated plain-K backward over 32 bags with masked tiles mid-bag,
+    so that most blocks end in a bag and flush its dq partial: eight runs
+    give the same bits, and match the plain version. At D = 128 two column
+    groups of a block merge their dq sums in shared memory."""
+    b, n, m_len = 32, 6, 2000
+    q, _, _, _, k, mask = _inputs(dev, b, n, d, m_len, d, m_len)
+    mask[:, 64:192] = False
+    g = torch.Generator().manual_seed(d)
+    v = torch.randn(b, m_len, d, generator=g).to(dev)
+    dout = torch.randn(b, n, d, generator=g).to(dev)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    seed = torch.tensor([d + 5], dtype=torch.int32, device=dev)
+    o, l, m, ssq, sumw = fwd = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, 0.25,
+                                                         pre_gate=True)
+    di = (o * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, k, v, mask, seed, 0.25, dout, l, m, di, dssq, dsumw)
+    first = coattn.coattn_bwd_plain_k(*args, pre_gate=True)
+    for _ in range(7):
+        again = coattn.coattn_bwd_plain_k(*args, pre_gate=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, 0.25, dout, dssq, dsumw,
+                                          pre_gate=True)
+    many = mask.sum(-1) != 1
+    for i, (a, r) in enumerate(zip(first, ref)):
+        _close_rel(a[many] if i == 0 else a, r[many] if i == 0 else r)
+    _close_one_key_plain(first, ref, q, k, mask, fwd, dout, dssq, dsumw, di)
 
 
 @pytest.mark.parametrize("pre_gate", [False, True])

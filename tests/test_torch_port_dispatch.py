@@ -2,12 +2,14 @@
 
 Each kernel wrapper states what its CUDA kernel takes in one predicate
 (``coattn.fused_k_supports``, ``coattn.plain_k_supports``, ``flash.supports``,
-the counterparts of the JAX package's ``leank_eligible``, ``kernel_eligible``
-and ``flash.supported``). The wrapper's raise on a CUDA shape and the
-module's gate both read it, so a shape the kernels refuse is routed to
+``milpool.supports``, the counterparts of the JAX package's
+``leank_eligible``, ``kernel_eligible``, ``flash.supported`` and
+``milpool_eligible``). The wrapper's raise on a CUDA shape and the module's
+gate both read it, so a shape the kernels refuse is routed to
 ``attention_core`` (the JAX dispatchers' ``_xla_fused`` / ``attention_core``
-fallback) by its shape alone, before any launch, on the CPU and on the card
-alike. These tests hold
+fallback), and a pool to ``GatedMILPool``'s eager branch (the JAX module's
+XLA branch), by its shape alone, before any launch, on the CPU and on the
+card alike. These tests hold
 
 * each predicate against the wrapper's own checks on a grid of shapes (the
   checks raise "unsupported" on a refused shape and, on an admitted one, go on
@@ -33,9 +35,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from multimodal_path_omic_tpu.ops import attention as jattention  # noqa: E402
+from multimodal_path_omic_tpu.ops import blocks as jblocks  # noqa: E402
 from multimodal_path_omic_tpu.ops import coattn as jcoattn  # noqa: E402
+from multimodal_path_omic_tpu.ops import milpool as jmilpool  # noqa: E402
 from multimodal_path_omic_tpu_torch.ops import attention as tattention  # noqa: E402
-from multimodal_path_omic_tpu_torch.ops import coattn, flash  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import blocks as tblocks  # noqa: E402
+from multimodal_path_omic_tpu_torch.ops import coattn, flash, milpool  # noqa: E402
 from multimodal_path_omic_tpu_torch.utils.weights import (  # noqa: E402
     jax_params_to_state_dict,
     load_jax_params,
@@ -263,3 +268,65 @@ def test_training_form_with_a_gradient_runs_the_kernels_and_matches_jax(e, monke
     for name, g in got.items():
         r = np.asarray(ref[name])
         assert np.abs(g.numpy() - r).max() <= MODEL_ATOL * np.abs(r).max(), name
+
+
+# ---------------------------------------------------------------------------
+# The MIL pool's gate
+# ---------------------------------------------------------------------------
+
+
+def test_milpool_supports_is_the_wrappers_check():
+    """The wrapper refuses exactly what ``milpool.supports`` refuses (meta
+    tensors: an admitted shape goes on to the CUDA check)."""
+    seen = set()
+    for d in (8, 24, 96, 128, 1024, 1040, 1152):
+        for h in (64, 96, 128, 256, 1152):
+            x = torch.empty(2, 40, d, device="meta")
+            w = [torch.empty(*s, device="meta") for s in ((d, h), (h,), (d, h), (h,), (h, 1), (1,))]
+            refused = _refusal(milpool.fused_gated_mil_pool, x, None, *w)
+            assert refused == (not milpool.supports(d, h, 40))
+            seen.add(refused)
+    assert seen == {True, False}
+
+
+# (id, width D = H of GatedMILPool(dim), whether the port's kernel takes it,
+#  whether the JAX module's takes it: milpool_eligible asks D % 128 == 0 and
+#  H % 128 == 0, and has no upper limit on D)
+POOL_CASES = [
+    ("milpool-h96-refused", 96, False, False),      # H % 128 != 0
+    ("milpool-d24-refused", 24, False, False),      # D % 16 != 0
+    ("milpool-d1152-refused", 1152, False, True),   # D > 1024 (H = 1152 is whole packs)
+    ("milpool-d128-kernel", 128, True, True),
+]
+
+
+@pytest.mark.parametrize("case", POOL_CASES, ids=[c[0] for c in POOL_CASES])
+def test_mil_pool_routes_follow_supports_and_match_jax(case, monkeypatch):
+    """An eval pool over 256 positions: at a width the kernel refuses, the
+    port takes the eager branch, as the JAX module takes XLA where its own
+    kernel refuses; at one it takes, ``fused_gated_mil_pool`` (its plain
+    version on the CPU). The JAX module runs its Pallas kernel (interpret
+    mode) wherever ``milpool_eligible`` admits the width. Pooled rows and raw
+    scores agree within 5e-5."""
+    _, dim, kernel, jax_kernel = case
+    assert milpool.supports(dim, dim, 256) == kernel
+    rng = np.random.default_rng(dim)
+    x = rng.normal(size=(2, 256, dim)).astype(np.float32)
+    mask = np.arange(256)[None] < np.array([256, 100])[:, None]
+    jmodule = jblocks.GatedMILPool(dim=dim, use_pallas=True)
+    params = jmodule.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(mask), True)["params"]
+    monkeypatch.setattr(jmilpool, "_FORCE_KERNEL", True)
+    before = dict(jmilpool.DISPATCH_COUNTS)
+    jpooled, ja = jmodule.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask), True)
+    assert jmilpool.DISPATCH_COUNTS["kernel"] - before["kernel"] == int(jax_kernel)
+    assert jmilpool.DISPATCH_COUNTS["xla"] - before["xla"] == int(not jax_kernel)
+    calls = []
+    inner = tblocks.fused_gated_mil_pool
+    monkeypatch.setattr(tblocks, "fused_gated_mil_pool",
+                        lambda *a, **kw: calls.append(1) or inner(*a, **kw))
+    module = load_jax_params(tblocks.GatedMILPool(dim), params).eval()
+    with torch.no_grad():
+        pooled, a = module(torch.from_numpy(x), torch.from_numpy(mask))
+    assert len(calls) == int(kernel)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(jpooled), atol=MODEL_ATOL, rtol=0)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), atol=MODEL_ATOL, rtol=0)
