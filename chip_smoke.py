@@ -15,6 +15,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    forward also at E = F = 512 (NaCAGaT big; M 8192 and 4000), E = 512 with
    F = 1024, E = 128, on masks with whole masked key tiles in mid-bag and with
    a bag of one valid key (o = that key's kv row), two runs bitwise equal.
+   The export passes (stats, weights, and ``coattention_weights`` on one tile
+   list) at D = 256, 128 and 512 with and without the pre-gate, on prefix
+   masks (M 8192, 4000, 1001), masked tiles mid-bag (M 8192, 4000) and a bag
+   of one valid key (M 1500): l, m and w against their plain versions, two
+   runs bitwise equal, w exactly 0 at the masked keys of bags with a valid
+   key, the filler bag at l = M, m = NEG, w = 1/M exactly; and the tile flag
+   and list passes on each of those masks equal to their torch reference, as
+   the fuse-K and plain-K kernels run them and with lone filler bags.
 2. The NaCAGaT ``Predictor`` at full width (``medium``, 1024-wide patch
    features, six signatures of 100..600 genes, buckets 4096/8192, batch 32,
    random weights from a seed) through ``predict_bags`` and ``predict_bag``,
@@ -25,7 +33,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    versions) on a few bags.
 3. Timings with CUDA events: each kernel, its plain version and its bound
    (the fuse-K forward: 3xTF32 over the valid keys, float32 FMA over the
-   valid keys and over every key, with the share of each reached); the E =
+   valid keys and over every key, with the share of each reached; the
+   export passes: bytes over the keys they need, the k rows of the valid
+   keys, over the 64-key tiles they read and over every key, pre-gated and
+   not, and both passes through ``coattention_weights``); the E =
    512 instance at B=32, M=8192 beside the route it replaces (k by
    torch.matmul, then ``attention_core``); ``predict_bags`` bags/s.
 4. The training kernels (fuse-K training forward with dropout 0.25, ssq and
@@ -151,7 +162,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     40 bags of phase 2 (buckets 4096/8192, batch 32): one launch of the
     fuse-K eval kernel's E = 512 instance a batch and no other kernel, the
     card within 1e-4 of the CPU Predictor on 8 bags (the longest among
-    them), ``predict_bags`` bags/s over three calls.
+    them), ``predict_bags`` bags/s over three calls; then with ``cesar``:
+    one launch of each export pass's D = 512 instance a batch and no other
+    kernel, within 1e-4 of the CPU Predictor on 3 bags.
 20. NaCAGaT ``big`` training (cesar, dropout 0.25, Adam lr 2e-4, weight decay
     1e-5) on phase 5's staged batch: 5 steps with exactly one launch of the
     fuse-K training forward's and backward's E = F = 512 instances a step
@@ -179,9 +192,11 @@ matrix-product, co-attention-kernel, optimizer and other kernels, and one GE
 matrix products, copies and other; and one GE training step of phase 11,
 split into flash forward, flash backward, matrix products, optimizer and
 other; and one cached MCAT training step (lean) over a 32-bag cohort of the
-8192 bucket; and, last, each launch of the plain-K kernels at phase 16's
-inputs (the eval forward with and without the pre-gate and without a mask,
-the backward), device time a call over 5 calls.
+8192 bucket; and, last, each launch of the export passes at phase 3's
+inputs (stats, weights, both on one tile list, stats without the pre-gate)
+and of the plain-K kernels at phase 16's inputs (the eval forward with and
+without the pre-gate and without a mask, the backward), device time a call
+over 5 calls.
 """
 
 from __future__ import annotations
@@ -398,6 +413,15 @@ def make_inputs(m_len, f_dim, seed, dev, e=E, kind="prefix", with_k=True):
     wk = 0.7 * torch.randn(f_dim, e, generator=g) / math.sqrt(f_dim)
     bk = 0.1 * torch.randn(e, generator=g)
     k = 0.7 * torch.randn(B, m_len, e, generator=g) if with_k else None
+    mask = make_mask(m_len, g, kind)
+    return [None if t is None else t.to(dev) for t in (q, kv, wk, bk, k, mask)]
+
+
+def make_mask(m_len, g, kind):
+    """[B, M] ragged key masks (lengths uniform in [M/5, M] from ``g``, bag 0
+    full, the last bag fully masked), with :func:`make_inputs`' ``kind``."""
+    import torch
+
     lengths = torch.randint(m_len // 5, m_len + 1, (B,), generator=g)
     lengths[0] = m_len
     lengths[-1] = 0
@@ -407,8 +431,19 @@ def make_inputs(m_len, f_dim, seed, dev, e=E, kind="prefix", with_k=True):
         mask[:, 3000:3200] = False
     elif kind == "one":
         mask[0] = False
-        mask[0, ONE_KEY] = True
-    return [None if t is None else t.to(dev) for t in (q, kv, wk, bk, k, mask)]
+        mask[0, ONE_KEY % m_len] = True
+    return mask
+
+
+def export_inputs(m_len, d, seed, dev, kind="prefix"):
+    """q [B, N, d], k [B, M, d] of :func:`make_inputs`' scale and its masks:
+    the export passes' inputs, without the fuse-K operands."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = 0.7 * torch.randn(B, N, d, generator=g)
+    k = 0.7 * torch.randn(B, m_len, d, generator=g)
+    return [t.to(dev) for t in (q, k, make_mask(m_len, g, kind))]
 
 
 def check_fk_forward(name, got, ref, again, kv, mask) -> float:
@@ -451,30 +486,94 @@ def phase1_kernels(dev) -> dict:
     errs = {}
     for m_len, f_dim, e_dim, kind in PHASE1_CASES:
         log(f"phase 1: B={B} N={N} E={e_dim} M={m_len} F={f_dim}, {kind} masks")
-        plain_k = f_dim == E and e_dim == E and kind == "prefix"  # the plain-K forms' shapes
-        q, kv, wk, bk, k, mask = make_inputs(m_len, f_dim, m_len + f_dim, dev, e_dim, kind,
-                                             with_k=plain_k)
+        q, kv, wk, bk, _, mask = make_inputs(m_len, f_dim, m_len + f_dim, dev, e_dim, kind,
+                                             with_k=False)
         got = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
         again = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
         ref = coattn.coattn_fwd_fused_k_plain(q, kv, wk, bk, mask)
         row = "coattn_fwd_fused_k_e512" if e_dim == 512 else "coattn_fwd_fused_k"
         errs[row] = max(errs.get(row, 0.0), check_fk_forward("fused_k", got, ref, again, kv, mask))
         del got, again, ref
-        if not plain_k:
-            continue
-        l, m = coattn.coattn_stats(q, k, mask, pre_gate=True)
-        l_ref, m_ref = coattn.coattn_stats_plain(q, k, mask, pre_gate=True)
-        check_close("stats.l", l, l_ref, KERNEL_ATOL, L_RTOL)
-        errs["coattn_stats"] = max(errs.get("coattn_stats", 0.0),
-                                   check_close("stats.m", m, m_ref, KERNEL_ATOL))
-        w = coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=True)
-        w_ref = coattn.coattn_weights_plain(q, k, mask, l_ref, m_ref, pre_gate=True)
-        errs["coattn_weights"] = max(errs.get("coattn_weights", 0.0),
-                                     check_close("weights.w", w, w_ref, W_ATOL, W_RTOL))
-        # the fully-masked filler row: uniform over its M keys, never NaN
-        check_close("weights.filler_row", w[-1], w_ref.new_full(w[-1].shape, 1.0 / w.shape[-1]),
-                    W_ATOL, W_RTOL)
+    errs["coattn_stats"] = errs["coattn_weights"] = 0.0
+    for m_len, kind, d in EXPORT_CASES:
+        q, k, mask = export_inputs(m_len, d, m_len + d, dev, kind)
+        check_tiles(mask, kind)
+        for pre_gate in (True, False):
+            log(f"phase 1: export passes B={B} N={N} D={d} M={m_len} pre_gate={pre_gate}, "
+                f"{kind} masks")
+            e_s, e_w = check_export(q, k, mask, pre_gate)
+            errs["coattn_stats"] = max(errs["coattn_stats"], e_s)
+            errs["coattn_weights"] = max(errs["coattn_weights"], e_w)
+        del q, k, mask
     return errs
+
+
+# Phase 1's export cases (M, mask kind, D), each with and without the
+# pre-gate: the serving batch's M with prefix masks and with whole masked
+# 64-key tiles mid-bag (which the kernels skip), a bag with a single valid
+# key, M = 4000 (no multiple of 64) and M = 1001 (no multiple of 4: w's rows
+# are not 16-byte aligned), at D = 256, 128 (MCAT and NaCAGaT small) and
+# 512 (NaCAGaT big). Every case keeps a fully-masked filler bag.
+EXPORT_CASES = ((8192, "prefix", 256), (8192, "holes", 256), (1500, "one", 256),
+                (4000, "prefix", 256), (1001, "prefix", 256), (4000, "holes", 128),
+                (1500, "one", 128), (8192, "holes", 512), (1500, "one", 512),
+                (4000, "prefix", 512))
+
+
+def check_tiles(mask, kind) -> None:
+    """The tile flag and list passes on the card against their torch
+    reference, bit for bit, as the fuse-K and plain-K kernels run them and
+    with lone filler bags (the export passes)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    for lone in (False, True):
+        got = coattn.coattn_tiles(mask, lone=lone)
+        ref = coattn.coattn_tiles_plain(mask, lone=lone)
+        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+            raise AssertionError(f"tile flags / list (lone={lone}, {kind} masks, M="
+                                 f"{mask.shape[1]}) differ from their reference")
+    log(f"  tile flags and list at M={mask.shape[1]} ({kind} masks, {int(ref[2][-1])} units with "
+        f"lone filler bags): equal to the reference, both modes")
+
+
+def check_export(q, k, mask, pre_gate) -> tuple:
+    """The export passes against their plain versions: l 1e-5 relative and
+    m 1e-4 absolute, w 1e-4 relative (1e-8 floor) from the plain l, m and,
+    through ``coattention_weights`` (one tile list for both passes), from
+    the kernel's own; two runs bitwise equal; w exactly 0 at the masked keys
+    of a bag with a valid key; a bag without one at m = NEG, l = M and
+    w = 1 / M exactly. Returns the largest errors of m and of w."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    m_len = mask.shape[1]
+    l, m = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    l2, m2 = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    l_ref, m_ref = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)
+    check_close("stats.l", l, l_ref, KERNEL_ATOL, L_RTOL)
+    e_s = check_close("stats.m", m, m_ref, KERNEL_ATOL)
+    w = coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=pre_gate)
+    w2 = coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=pre_gate)
+    w_ref = coattn.coattn_weights_plain(q, k, mask, l_ref, m_ref, pre_gate=pre_gate)
+    e_w = check_close("weights.w", w, w_ref, W_ATOL, W_RTOL)
+    both = coattn.coattention_weights(q, k, mask, pre_gate=pre_gate)
+    check_close("coattention_weights (both passes, one tile list)", both, w_ref, W_ATOL, W_RTOL)
+    if not (torch.equal(l, l2) and torch.equal(m, m2) and torch.equal(w, w2)):
+        raise AssertionError("two runs of the export passes differ")
+    has = mask.any(-1)
+    masked = (~mask & has[:, None])[:, None, :].expand_as(w)
+    if not (bool((w[masked] == 0).all()) and bool((both[masked] == 0).all())):
+        raise AssertionError("w is not exactly 0 at a masked key of a bag with a valid key")
+    empty = ~has
+    if not (bool((l[empty] == m_len).all()) and bool((m[empty] == m_ref[empty]).all())
+            and bool((w[empty] == 1.0 / m_len).all()) and bool((both[empty] == 1.0 / m_len).all())):
+        raise AssertionError("a bag without a valid key is not uniform over its M keys")
+    log(f"  export: two runs bitwise equal; w exactly 0 at the masked keys of bags with a valid "
+        f"key; {int(empty.sum())} bag(s) without one at l = M, m = NEG, w = 1/M exactly")
+    return e_s, e_w
 
 
 def make_bags(seed):
@@ -552,19 +651,13 @@ def fk_bytes_ops(name, m_len, f_dim, e=E) -> tuple:
         n_stats = 4 if name.startswith("coattn_fwd_fused_k_train") else 3
         nbytes = ins + 4 * (B * N * f_dim + n_stats * B * N)
         ops = 2 * B * m_len * f_dim * e + 4 * B * N * m_len * e + 2 * B * N * m_len * f_dim
-    elif name.startswith("coattn_bwd_fused_k"):
+    else:  # the fuse-K backward
         # in: + dout, l, m, di, dssq, dsumw; out: dq, dkv, dwk, dbk
         nbytes = ins + 4 * (B * N * f_dim + 5 * B * N) + 4 * (
             B * N * e + B * m_len * f_dim + f_dim * e + e)
         # k, dk wk^T, kv^T dk; scores + gate; dO.kv and pd^T dO; dq and dk terms
         ops = (6 * B * m_len * f_dim * e + 4 * B * N * m_len * e + 4 * B * N * m_len * f_dim
                + 8 * B * N * m_len * e)
-    else:
-        out = 2 * B * N if name == "coattn_stats" else B * N * m_len
-        nbytes = 4 * (B * N * E + B * m_len * E + out) + B * m_len
-        if name == "coattn_weights":
-            nbytes += 4 * 2 * B * N  # l, m in
-        ops = 4 * B * N * m_len * E
     return nbytes, ops
 
 
@@ -631,6 +724,40 @@ def fk_bound_line(ms, bounds) -> str:
             f"reached), over every key {f32_all:.4f} ms ({f32_all / ms:.3f} reached)")
 
 
+def export_bound_ms(name, mask, keys, d=E) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of an export pass at N=6, pre-gated,
+    its k rows read over ``keys`` (bag, key) pairs: q and the mask read
+    whole; stats writes l and m; weights reads them and writes w [B, N, M]
+    whole. Operations: q.k and the gate, float32 multiply-adds as 2."""
+    b, m_len = mask.shape
+    nbytes = 4 * (b * N * d + keys * d + 2 * b * N) + b * m_len
+    if name == "coattn_weights":
+        nbytes += 4 * b * N * m_len
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * N * keys * d / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def export_bounds(mask, d=E) -> dict:
+    """Each export pass's three bounds: over the keys it needs (the k rows
+    of the valid keys; a bag without one needs none), over the keys of the
+    64-key tiles the kernels read (lone filler bags read nothing) and over
+    every key."""
+    valid, tiled = int(mask.sum()), computed_tile_keys(mask, lone=True)
+    log(f"  export masks of {mask.numel()} keys: {valid} valid ({valid / mask.numel():.4f}), "
+        f"{tiled} in the tiles read ({tiled / mask.numel():.4f})")
+    return {name: [export_bound_ms(name, mask, keys, d) for keys in (valid, tiled, mask.numel())]
+            for name in ("coattn_stats", "coattn_weights")}
+
+
+def bounds_line(ms, bounds) -> str:
+    """Three byte bounds beside a time, with the share of each reached."""
+    (b_need, _), (b_tile, _), (b_every, _) = bounds
+    return (f"{ms:.4f} ms (bounds {b_need:.4f} keys needed, {b_tile:.4f} tiles read, "
+            f"{b_every:.4f} every key; {b_need / ms:.3f} / {b_tile / ms:.3f} / "
+            f"{b_every / ms:.3f} reached)")
+
+
 def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
     import torch
 
@@ -639,6 +766,7 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
     m_len = 8192
     q, kv, wk, bk, k, mask = make_inputs(m_len, E, 7, dev)
     l, m = coattn.coattn_stats_plain(q, k, mask)
+    ebounds = export_bounds(mask)
     calls = {
         "coattn_fwd_fused_k": (lambda: coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask),
                                lambda: coattn.coattn_fwd_fused_k_plain(q, kv, wk, bk, mask)),
@@ -656,8 +784,8 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
             bms, by, _, _ = bounds = fk_fwd_bound_ms(name, mask)
             log(line + fk_bound_line(ms, bounds))
         else:
-            bms, by = bound_ms(name, m_len, E)
-            log(line + f"bound {bms:.4f} ms ({by})")
+            bms, by = ebounds[name][0]
+            log(line + bounds_line(ms, ebounds[name]))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -665,6 +793,20 @@ def phase3_timings(dev, errs, launches, predictors, bags, omics) -> list:
             # no single PyTorch call computes a pre-gated (tanh-gated) attention
             "library_ms": None,
         })
+    for name in ("coattn_stats", "coattn_weights"):
+        log(f"phase 3: {name} device ms a call by launch (torch.profiler, 5 calls): "
+            + ", ".join(f"{n} {t:.4f}" for n, t in launch_ms(calls[name][0])))
+    both = cuda_ms(lambda: coattn.coattention_weights(q, k, mask, pre_gate=True))
+    both_plain = cuda_ms(lambda: coattn.coattn_weights_plain(
+        q, k, mask, *coattn.coattn_stats_plain(q, k, mask), pre_gate=True))
+    log(f"phase 3: coattention_weights (both export passes on one tile list) {both:.4f} ms, "
+        f"plain {both_plain:.4f} ms")
+    # MCAT's form (no pre-gate); the rows above are NaCAGaT's
+    l0, m0 = coattn.coattn_stats_plain(q, k, mask, pre_gate=False)
+    stats0 = cuda_ms(lambda: coattn.coattn_stats(q, k, mask, pre_gate=False))
+    weights0 = cuda_ms(lambda: coattn.coattn_weights(q, k, mask, l0, m0, pre_gate=False))
+    log(f"phase 3: pre_gate=False: coattn_stats {bounds_line(stats0, ebounds['coattn_stats'])}, "
+        f"coattn_weights {bounds_line(weights0, ebounds['coattn_weights'])}")
     rows.append(time_e512(dev, errs))
     for loss, pred in predictors.items():
         pred.predict_bags(bags, omics)  # warm
@@ -1957,10 +2099,10 @@ def phase15_device_cache(dev) -> dict:
     return {"launches": counts, "ds": ds, "cache": cache}
 
 
-def computed_tile_keys(mask) -> int:
+def computed_tile_keys(mask, lone=False) -> int:
     """(bag, key) pairs in the 64-key tiles the plain-K and fuse-K kernels
     compute: with a valid key in the bag, the tiles that hold one; every tile
-    of a bag without one."""
+    of a bag without one, or with ``lone`` (the export passes) none."""
     import torch
 
     b, m_len = mask.shape
@@ -1968,7 +2110,7 @@ def computed_tile_keys(mask) -> int:
     tiles = torch.zeros(b, t * 64, dtype=torch.bool, device=mask.device)
     tiles[:, :m_len] = mask
     tiles = tiles.view(b, t, 64).any(-1)
-    tiles[~mask.any(-1)] = True
+    tiles[~mask.any(-1)] = not lone
     keys = torch.full((t,), 64, dtype=torch.int64, device=mask.device)
     keys[-1] = m_len - 64 * (t - 1)
     return int((tiles.long() * keys).sum())
@@ -2244,10 +2386,10 @@ def phase18_refused_shapes(dev) -> None:
                             Predictor("NaCAGaT", device="cpu", **kw).predict_bags(bags, omics))
 
 
-def phase19_nacagat_big(dev, bags, omics) -> int:
-    """NaCAGaT big (E = F = 512) serving with ces at full width: the fuse-K
-    eval kernel's E = 512 instance through the lean-V gate. Returns its
-    launches."""
+def phase19_nacagat_big(dev, bags, omics) -> dict:
+    """NaCAGaT big (E = F = 512) serving at full width: with ces, the fuse-K
+    eval kernel's E = 512 instance through the lean-V gate; with cesar, the
+    export passes' D = 512 instances. Returns the launches of both runs."""
     import torch
 
     from multimodal_path_omic_tpu_torch.serve import Predictor
@@ -2277,7 +2419,22 @@ def phase19_nacagat_big(dev, bags, omics) -> int:
     log(f"phase 19: NaCAGaT big predict_bags loss=ces: {len(bags)} bags, 3 calls: "
         f"{', '.join(repr(r) for r in rates)} bags/s (host clock, batches of {B}, "
         f"buckets {BUCKETS})")
-    return counts["coattn_fwd_fused_k"]
+    del pred
+    log(f"phase 19: NaCAGaT big Predictor, loss=cesar, {len(bags)} bags")
+    kw["loss"] = "cesar"
+    pred = Predictor("NaCAGaT", batch_size=B, device=dev, **kw)
+    reset_counts()
+    out = pred.predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    cesar = read_counts()
+    expect_counts("NaCAGaT big, cesar", cesar, coattn_stats=n_batches(bags),
+                  coattn_weights=n_batches(bags))
+    idx = [0, 1, 2]  # the CPU forward at big width costs seconds a bag
+    log(f"  against the CPU Predictor on bags {idx} ({[len(bags[i]) for i in idx]} patches)")
+    ref = Predictor("NaCAGaT", batch_size=4, device="cpu", **kw).predict_bags(
+        [bags[i] for i in idx], [omics[i] for i in idx])
+    check_outputs_close("the CPU Predictor", out, ref, idx)
+    return {name: counts[name] + cesar[name] for name in counts}
 
 
 def phase20_nacagat_big_training(dev, batch) -> dict:
@@ -2518,19 +2675,43 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
     }))
 
 
+def launch_ms(fn, calls=5) -> list:
+    """(kernel name, device ms a call) of ``fn``'s launches over ``calls``
+    calls, after one warm call (torch.profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(re.sub(r"\([^()]*\)$", "", name).replace("(anonymous namespace)::", ""), ms / calls)
+            for name, ms, _ in device_rows(prof)]
+
+
 def profile_plain_k(dev) -> None:
     """Each launch of the plain-K kernels (tile flags, tile list, main pass,
-    merge or reduction) at phase 16's inputs: device ms a call over 5 calls."""
+    merge or reduction) at phase 16's inputs, and of the export passes at
+    phase 3's: device ms a call over 5 calls."""
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
+    eq, _, _, _, ek, emask = make_inputs(TRAIN_M, E, 7, dev)
+    el, em = coattn.coattn_stats_plain(eq, ek, emask)
     ins, (dout, _, _) = plain_k_inputs(TRAIN_M, 23, dev)
     q, k, v, mask, _ = ins
     zeros = torch.zeros(B, N, device=dev)
     o, l, m, _, _ = coattn.coattn_fwd_plain_k_plain(*ins, 0.0, pre_gate=False)
     di = (o * dout).sum(-1)
     calls = {
+        "pre-gated export pass 1 (stats)": lambda: coattn.coattn_stats(eq, ek, emask),
+        "pre-gated export pass 2 (weights)": lambda: coattn.coattn_weights(eq, ek, emask, el, em),
+        "pre-gated export, both passes on one tile list (coattention_weights)":
+            lambda: coattn.coattention_weights(eq, ek, emask, pre_gate=True),
+        "export pass 1 without the pre-gate": lambda: coattn.coattn_stats(eq, ek, emask,
+                                                                          pre_gate=False),
         "eval forward": lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=False,
                                                          train=False),
         "pre-gated eval forward": lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=True,
@@ -2542,16 +2723,9 @@ def profile_plain_k(dev) -> None:
                                                       pre_gate=False),
     }
     for what, fn in calls.items():
-        fn()  # warm
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(re.sub(r"\([^()]*\)$", "", name).replace("(anonymous namespace)::", ""), ms / 5)
-                for name, ms, _ in device_rows(prof)]
         log(f"profile: plain-K {what} B={B} N={N} M={TRAIN_M} D={E}, device ms a call by "
-            f"launch: " + ", ".join(f"{name} {ms:.4f}" for name, ms in rows))
+            f"launch: " + ", ".join(f"{name} {ms:.4f}" for name, ms in launch_ms(fn)))
+    del eq, ek, emask
 
 
 def main() -> int:
@@ -2653,10 +2827,12 @@ def main() -> int:
         if row["name"].startswith("flash_"):
             row["launches"] += wide[row["name"]]
     phase18_refused_shapes(dev)
-    e512 = phase19_nacagat_big(dev, bags, omics)
-    for row in rows:
+    big = phase19_nacagat_big(dev, bags, omics)
+    for row in rows:  # NaCAGaT big serving: the E = 512 and D = 512 instances
         if row["name"] == "coattn_fwd_fused_k_e512":
-            row["launches"] = e512
+            row["launches"] = big["coattn_fwd_fused_k"]
+        elif row["name"] in ("coattn_stats", "coattn_weights"):
+            row["launches"] += big[row["name"]]
     torch.cuda.empty_cache()
     rows += time_train_e512(dev, errs, phase20_nacagat_big_training(dev, batch))
     torch.cuda.empty_cache()

@@ -7,7 +7,8 @@
 //       emit_ssq=True, emit_sumw=True, l and m kept for the backward (lean-V
 //       training; the backward is csrc/coattn_bwd.cu)
 //   * mpo_coattn_stats        <- _coattn_fwd_impl with the plain K operand,
-//       used for the (l, m) statistics in coattention_weights (export pass 1)
+//       used for the (l, m) statistics in coattention_weights (export pass 1),
+//       with or without the pre-gate
 //   * mpo_coattn_weights      <- _make_weights_kernel / coattention_weights
 //       (export pass 2)
 //   * mpo_coattn_plain_fwd    <- _coattn_fwd_impl with the plain K operand and
@@ -60,12 +61,33 @@
 //     - combine_kernel merges a bag's partials (m, l, o and, in training,
 //       ssq, sumw: one per block that held the bag, written at block + bag)
 //       in block order: two runs give the same bits.
-//   * stats / weights: read k [B, M, D] once (268 MB at B=32, M=8192,
-//     D=256: 0.08 ms at 3.35 TB/s) and do under 2 GFLOP, so they are bound
-//     by bytes. One warp scores one key at a time with coalesced float4
-//     loads (the whole D row in one or two instructions per lane) and many
-//     blocks per bag keep enough loads in flight; the stats partials of every
-//     warp are merged by the same combine kernel.
+//   * stats / weights (the export passes): read k [B, M, D] once (268 MB at
+//     B=32, M=8192, D=256: 0.08 ms at 3.35 TB/s over every key) and do under
+//     2 GFLOP, so they are bound by bytes, and only the k rows of the key
+//     tiles that need them: a tile without a valid key in a bag with one
+//     adds exactly 0 to l and m and has weights exactly 0, and a bag without
+//     a valid key has m = NEG, l = M and weights 1 / M whatever k holds, so
+//     its k is not read at all (the tile list's lone unit). Launches, no
+//     atomics:
+//     - fk_tiles_kernel / fk_list_kernel (with lone filler bags), once for
+//       both passes where coattention_weights runs them together.
+//     - stats_kernel / weights_kernel over the blocks resident at once (two
+//       an SM: at most 128 registers, 84,480 bytes of shared memory at
+//       D = 256), each an even share of the list across bags. A tile's 64
+//       keys go 8 to a warp, two a step, scored as the forward with values
+//       scores them (pk_key_sums; tanh(k) once per element, only with the
+//       pre-gate). Each warp streams its own k rows through its own
+//       cp.async ring (8 KB), issued ahead across tiles and bags, and waits
+//       for them alone: the block meets at a barrier only where the bag
+//       changes (a block-wide ring of 16-key sub-steps, a barrier each,
+//       measured slower). Stats: each owner lane runs an
+//       online (m, l) over its key slot; a bag's lanes merge in lane, then
+//       warp order into one partial per (block, bag), and combine_kernel
+//       merges those in block order. Weights: a warp stages exp(s - m) / l
+//       of its 8 keys in shared memory and stores them as row pieces, a
+//       float4 a lane; the skipped tiles' keys and a lone bag's get
+//       exp(NEG - m) / l (0, and 1 / M) from the block holding the computed
+//       tile before them.
 //   * plain (plain-K with values): reads k and v [B, M, D] once each (537 MB at
 //     B=32, M=8192, D=256: 0.16 ms over every key) for 2.4 GFLOP of products
 //     (0.04 ms): bound by bytes, and only the key tiles that need it. Four
@@ -491,157 +513,6 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
   }
 }
 
-// ---------------------------------------------------------------------------
-// Per-key scores for the stats and weights kernels: one warp scores one key
-// against all N queries. Lane `lane` holds k[c*128 + 4*lane .. +3] for c < DV
-// (D = 128*DV).
-// ---------------------------------------------------------------------------
-template <int DV>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, int lane,
-                                         float4 (&x)[DV]) {
-#pragma unroll
-  for (int c = 0; c < DV; ++c) x[c] = *reinterpret_cast<const float4*>(row + c * 128 + 4 * lane);
-}
-
-// Scores of one key row held in registers (kx, load_row's layout) against all
-// N queries; tk receives tanh(kx) when pre_gate.
-template <int DV>
-__device__ __forceinline__ void score_row(const float4 (&kx)[DV], float4 (&tk)[DV],
-                                          const float (*q_s)[DV * 128],
-                                          const float (*tq_s)[DV * 128], int N,
-                                          bool pre_gate, float scale, int lane,
-                                          float (&s)[NMAX]) {
-  if (pre_gate) {
-#pragma unroll
-    for (int c = 0; c < DV; ++c)
-      tk[c] = make_float4(tanhf(kx[c].x), tanhf(kx[c].y), tanhf(kx[c].z), tanhf(kx[c].w));
-  }
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    if (n < N) {
-      float d = 0.f, g = 0.f;
-#pragma unroll
-      for (int c = 0; c < DV; ++c) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[n][c * 128 + 4 * lane]);
-        d = fmaf(qv.x, kx[c].x, fmaf(qv.y, kx[c].y, fmaf(qv.z, kx[c].z, fmaf(qv.w, kx[c].w, d))));
-        if (pre_gate) {
-          const float4 tv = *reinterpret_cast<const float4*>(&tq_s[n][c * 128 + 4 * lane]);
-          g = fmaf(tv.x, tk[c].x, fmaf(tv.y, tk[c].y, fmaf(tv.z, tk[c].z, fmaf(tv.w, tk[c].w, g))));
-        }
-      }
-      float v = warp_sum(d) * scale;
-      if (pre_gate) v = v * (warp_sum(g) + 1.f) * 0.5f;
-      s[n] = v;
-    }
-  }
-}
-
-template <int DV>
-__device__ __forceinline__ void score_key(const float* __restrict__ krow,
-                                          const float (*q_s)[DV * 128],
-                                          const float (*tq_s)[DV * 128], int N,
-                                          bool pre_gate, float scale, int lane,
-                                          float (&s)[NMAX]) {
-  float4 kx[DV], tk[DV];
-  load_row<DV>(krow, lane, kx);
-  score_row<DV>(kx, tk, q_s, tq_s, N, pre_gate, scale, lane, s);
-}
-
-template <int DV>
-__device__ __forceinline__ void load_queries(const float* __restrict__ q, int b, int N,
-                                             float (*q_s)[DV * 128],
-                                             float (*tq_s)[DV * 128]) {
-  constexpr int D = DV * 128;
-  for (int i = threadIdx.x; i < N * D; i += THREADS) {
-    const float v = q[(size_t)b * N * D + i];
-    q_s[i / D][i % D] = v;
-    tq_s[i / D][i % D] = tanhf(v);
-  }
-  __syncthreads();
-}
-
-// K2, plain-K stats form: every warp runs an online (m, l) over a contiguous
-// chunk of keys and writes one partial; combine_kernel merges them.
-template <int DV>
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const uint8_t* __restrict__ mask, float* __restrict__ ml_part, int N,
-             int M, int pre_gate, float scale) {
-  constexpr int D = DV * 128;
-  __shared__ __align__(16) float q_s[NMAX][D];
-  __shared__ __align__(16) float tq_s[NMAX][D];
-  const int b = blockIdx.x, lane = threadIdx.x & 31;
-  const int gw = blockIdx.y * WARPS + (threadIdx.x >> 5), W = gridDim.y * WARPS;
-  load_queries<DV>(q, b, N, q_s, tq_s);
-
-  float mr[NMAX], lr[NMAX], s[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) { mr[n] = NEG; lr[n] = 0.f; }
-  const int chunk = (M + W - 1) / W;
-  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
-  for (int key = k0; key < k1; ++key) {
-    score_key<DV>(k + ((size_t)b * M + key) * D, q_s, tq_s, N, pre_gate != 0, scale, lane, s);
-    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        const float v = valid ? s[n] : NEG;
-        const float m_new = fmaxf(mr[n], v);
-        lr[n] = lr[n] * expf(mr[n] - m_new) + expf(v - m_new);
-        mr[n] = m_new;
-      }
-    }
-  }
-  if (lane == 0) {
-    const size_t base = ((size_t)b * W + gw) * N;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N) {
-        ml_part[(base + n) * 2 + 0] = mr[n];
-        ml_part[(base + n) * 2 + 1] = lr[n];
-      }
-    }
-  }
-}
-
-// K4: w[b, n, key] = exp(s - m) / l from the final pass-1 statistics.
-template <int DV>
-__global__ void __launch_bounds__(THREADS)
-weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const uint8_t* __restrict__ mask, const float* __restrict__ l,
-               const float* __restrict__ m, float* __restrict__ w, int N, int M,
-               int pre_gate, float scale) {
-  constexpr int D = DV * 128;
-  __shared__ __align__(16) float q_s[NMAX][D];
-  __shared__ __align__(16) float tq_s[NMAX][D];
-  const int b = blockIdx.x, lane = threadIdx.x & 31;
-  const int gw = blockIdx.y * WARPS + (threadIdx.x >> 5), W = gridDim.y * WARPS;
-  load_queries<DV>(q, b, N, q_s, tq_s);
-
-  float mv[NMAX], linv[NMAX], s[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    if (n < N) {
-      const float lv = l[(size_t)b * N + n];
-      mv[n] = m[(size_t)b * N + n];
-      linv[n] = lv == 0.f ? 1.f : 1.f / lv;
-    }
-  }
-  const int chunk = (M + W - 1) / W;
-  const int k0 = gw * chunk, k1 = min(M, k0 + chunk);
-  for (int key = k0; key < k1; ++key) {
-    score_key<DV>(k + ((size_t)b * M + key) * D, q_s, tq_s, N, pre_gate != 0, scale, lane, s);
-    const bool valid = mask == nullptr || mask[(size_t)b * M + key];
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      if (n < N && lane == n) {
-        const float v = valid ? s[n] : NEG;
-        w[((size_t)b * N + n) * M + key] = expf(v - mv[n]) * linv[n];
-      }
-    }
-  }
-}
-
 // K2, plain-K form with values (design notes at the top). One block walks
 // an even share of the computed (bag, tile) units in list order, in
 // sub-steps of PK_KEYS keys whose k and v rows come through the cp.async
@@ -741,8 +612,7 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                                   lane, second, unused);
         const int n = pk_query(lane), row = warp * PK_KPW + pk_key(lane), key = r0 + row;
         if ((lane & 1) == 0 && n < N) {
-          float sv = a * scale;
-          if (PG) sv = sv * (second + 1.f) * 0.5f;
+          const float sv = pk_score<PG>(a, second, scale);
           const bool exists = key < M;  // keys past M do not exist: weight exactly 0
           const bool valid = exists && (mask == nullptr || mask[(size_t)b * M + key]);
           S.s[n][row] = !exists ? -INFINITY : (valid ? sv : NEG);
@@ -800,21 +670,320 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (b >= 0) flush();
 }
 
-template <int DV>
-int launch_stats(const float* q, const float* k, const uint8_t* mask, float* ml_part,
-                 int B, int N, int M, int pre_gate, float scale, int splits,
-                 cudaStream_t st) {
-  stats_kernel<DV><<<dim3(B, splits), THREADS, 0, st>>>(q, k, mask, ml_part, N, M,
-                                                          pre_gate, scale);
+// ---------------------------------------------------------------------------
+// K2 plain-K stats form and K4 weights: the export passes (design notes at
+// the top). Both walk the tile list built with lone filler bags
+// (fused_k_common.cuh), an even share of the units a block, and split each
+// 64-key tile over the 8 warps: warp w takes keys 8w .. 8w + 7 in four
+// steps of two keys, scored against every query by pk_key_sums (its warp
+// argument 0: the two rows of the warp's own slot). Each warp streams its
+// own k rows through its own cp.async ring (8 KB: eight slots at D = 128,
+// four at 256, two at 512), issued ahead across tiles and bags, so a warp
+// waits for its own copies alone (__syncwarp) and the block meets at a
+// barrier only where the bag changes. Lane 2r + 4n (r < 2, n < N) then holds
+// the score of query n against the step's key r: the stats pass runs an
+// online (m, l) in that lane, the weights pass stages that weight.
+// ---------------------------------------------------------------------------
+constexpr int EX_KPS = PK_KPW;               // keys a warp step (pk_key_sums' two)
+constexpr int EX_WKEYS = FK_BM / WARPS;      // keys of a tile a warp takes
+constexpr int EX_STEPS = EX_WKEYS / EX_KPS;  // warp steps a tile
+
+template <int D>
+struct PkExportSmem {
+  static constexpr int SLOT = EX_KPS * D;           // a warp step's k rows
+  static constexpr int NSLOT = 8192 / (4 * SLOT);   // 8 at D = 128, 4 at 256, 2 at 512
+  alignas(16) float ring[WARPS][NSLOT][SLOT];
+  alignas(16) float q[NMAX][D];
+  alignas(16) float tq[NMAX][D];
+  alignas(16) float w[WARPS][NMAX][EX_WKEYS];  // weights: a warp's keys of a tile
+  float red[WARPS][NMAX][2];                   // stats: each warp's (m, l) of a bag
+};
+
+// The next warp step of the block's share into the warp's `slot`,
+// asynchronously (zero rows past M): list position c.i, step c.j of its
+// tile; the lone units have none. Past the share (i >= i1) issues nothing.
+template <int D>
+__device__ __forceinline__ void ex_issue(float* __restrict__ slot, const float* __restrict__ k,
+                                         const uint8_t* __restrict__ flags,
+                                         const int* __restrict__ list, int n_tiles, int M,
+                                         int i1, int warp, int lane, PkCursor& c) {
+  while (c.i < i1 && flags[list[c.i]] == FK_LONE) ++c.i;  // c.j == 0 at a unit's start
+  if (c.i >= i1) return;
+  const int u = list[c.i], r0 = (u % n_tiles) * FK_BM + warp * EX_WKEYS + c.j * EX_KPS;
+  const float* src = k + (size_t)(u / n_tiles) * M * D;
+  constexpr int V4 = D / 4;
+#pragma unroll
+  for (int x = lane; x < EX_KPS * V4; x += 32) {
+    const int row = x / V4, col = 4 * (x % V4);
+    const bool ok = r0 + row < M;
+    cp_async16(slot + row * D + col, ok ? src + (size_t)(r0 + row) * D + col : src, ok);
+  }
+  if (++c.j == EX_STEPS) {
+    c.j = 0;
+    ++c.i;
+  }
+}
+
+// The bag's queries (and tanh of them, with the pre-gate) into shared memory.
+template <int D, bool PG>
+__device__ __forceinline__ void ex_load_queries(const float* __restrict__ q, int b, int N,
+                                                float (*q_s)[D], float (*tq_s)[D]) {
+  for (int x = threadIdx.x; x < N * D; x += THREADS) {
+    const float val = q[(size_t)b * N * D + x];
+    q_s[x / D][x % D] = val;
+    if (PG) tq_s[x / D][x % D] = tanhf(val);
+  }
+}
+
+__device__ __forceinline__ float inv_l(float l) { return l == 0.f ? 1.f : 1.f / l; }
+
+// w[b, n, key] = exp(NEG - m[b, n]) / l[b, n], the weight of a masked key
+// (exactly 0 in a bag with a valid key; 1 / M in a bag without one, whose
+// l = M, m = NEG), for n < N and the keys of tiles t0 .. t1 - 1; every
+// thread a share of each row, float4 stores where the rows are 16-byte
+// aligned.
+__device__ __forceinline__ void fill_masked(float* __restrict__ w, const float* __restrict__ l,
+                                            const float* __restrict__ m, int b, int N, int M,
+                                            int t0, int t1) {
+  const int k0 = t0 * FK_BM, len = min(t1 * FK_BM, M) - k0;
+  for (int n = 0; n < N && len > 0; ++n) {
+    const int i = b * N + n;
+    const float z = expf(NEG - m[i]) * inv_l(l[i]);
+    float* row = w + (size_t)i * M + k0;
+    if ((M & 3) == 0) {  // k0 % 64 == 0 and len % 4 == 0
+      for (int x = threadIdx.x; x < len / 4; x += THREADS)
+        reinterpret_cast<float4*>(row)[x] = make_float4(z, z, z, z);
+    } else {
+      for (int x = threadIdx.x; x < len; x += THREADS) row[x] = z;
+    }
+  }
+}
+
+// K2, plain-K stats form (export pass 1). For each bag it visits, a block
+// writes one partial (m, l) at index block + bag of ml_part [G + B, N, 2]:
+// the owner lanes' states merged in lane, then warp order; combine_kernel
+// merges a bag's partials in block order. A lone unit (a bag without a
+// valid key) writes m = NEG, l = M and reads no k.
+template <int D, bool PG>
+__global__ void __launch_bounds__(THREADS, 2)
+stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const uint8_t* __restrict__ mask, const uint8_t* __restrict__ flags,
+             const int* __restrict__ list, const int* __restrict__ off,
+             float* __restrict__ ml_part, int B, int N, int M, float scale) {
+  using S_ = PkExportSmem<D>;
+  constexpr int NSLOT = S_::NSLOT;
+  extern __shared__ float4 smem4[];
+  S_& S = *reinterpret_cast<S_*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
+  const int n = pk_query(lane), r = pk_key(lane);
+  const bool owner = (lane & 1) == 0 && n < N;  // holds query n's score of the step's key r
+  float(*ring)[S_::SLOT] = S.ring[warp];
+
+  PkCursor cur{i0, 0};
+#pragma unroll
+  for (int s = 0; s < NSLOT - 1; ++s) {
+    ex_issue<D>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
+    cp_async_commit();
+  }
+
+  float m_run = NEG, l_run = 0.f;  // the owner lane's online state
+  int b = -1;
+  auto flush = [&]() {  // the partial of bag b at index block + b (every thread calls it)
+    const float m2 = __shfl_xor_sync(0xffffffffu, m_run, 2);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l_run, 2);
+    if ((lane & 3) == 0 && n < N) {  // the step's two keys: lanes 4n and 4n + 2
+      const float mw = fmaxf(m_run, m2);
+      S.red[warp][n][0] = mw;
+      S.red[warp][n][1] = l_run * expf(m_run - mw) + l2 * expf(m2 - mw);
+    }
+    __syncthreads();  // also: no warp reads S.q of bag b any more
+    if (tid < N) {
+      float mx = NEG, lx = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, S.red[w][tid][0]);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) lx += S.red[w][tid][1] * expf(S.red[w][tid][0] - mx);
+      const size_t pb = (size_t)blockIdx.x + b;
+      ml_part[(pb * N + tid) * 2 + 0] = mx;
+      ml_part[(pb * N + tid) * 2 + 1] = lx;
+    }
+    // S.red is rewritten by the next flush, after the next bag's barrier
+  };
+
+  int s = 0;  // the warp's step
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, t = u % n_tiles;
+    if (flags[u] == FK_LONE) {
+      if (b >= 0) flush();
+      b = -1;
+      if (tid < N) {
+        const size_t pb = (size_t)blockIdx.x + ub;
+        ml_part[(pb * N + tid) * 2 + 0] = NEG;
+        ml_part[(pb * N + tid) * 2 + 1] = (float)M;
+      }
+      continue;
+    }
+    if (ub != b) {  // a new bag: flush the last one's partial, load this one's queries
+      if (b >= 0) flush();
+      b = ub;
+      ex_load_queries<D, PG>(q, b, N, S.q, S.tq);
+      m_run = NEG;
+      l_run = 0.f;
+      __syncthreads();
+    }
+    for (int j = 0; j < EX_STEPS; ++j, ++s) {
+      cp_async_wait<NSLOT - 2>();
+      __syncwarp();  // step s landed for the whole warp; the slot of s - 1 is free
+      ex_issue<D>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp, lane,
+                  cur);
+      cp_async_commit();
+      float g, unused;
+      const float a = pk_key_sums<D, PG, false>(ring[s % NSLOT], S.q, S.tq, nullptr, nullptr, N,
+                                                0, lane, g, unused);
+      const int key = t * FK_BM + warp * EX_WKEYS + j * EX_KPS + r;
+      if (owner && key < M) {  // keys past M do not exist
+        const float sv = mask == nullptr || mask[(size_t)b * M + key]
+                             ? pk_score<PG>(a, g, scale) : NEG;
+        const float m_new = fmaxf(m_run, sv);
+        l_run = l_run * expf(m_run - m_new) + expf(sv - m_new);
+        m_run = m_new;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (b >= 0) flush();
+}
+
+// K4: w [B, N, M] = exp(s - m) / l from pass 1's l, m (l == 0: 1 / l taken
+// as 1). A warp stages the weights of its 8 keys of a tile in shared memory
+// and then stores them as row pieces, lane 2n + h the keys 4h .. 4h + 3 of
+// query n (a float4 where the rows are 16-byte aligned). The keys of the
+// skipped tiles (and of a lone bag) get exp(NEG - m) / l from fill_masked,
+// written by the block that holds the computed tile before them (or the
+// bag's last computed tile, for those after it).
+template <int D, bool PG>
+__global__ void __launch_bounds__(THREADS, 2)
+weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const uint8_t* __restrict__ mask, const uint8_t* __restrict__ flags,
+               const int* __restrict__ list, const int* __restrict__ off,
+               const float* __restrict__ l, const float* __restrict__ m,
+               float* __restrict__ w, int B, int N, int M, float scale) {
+  using S_ = PkExportSmem<D>;
+  constexpr int NSLOT = S_::NSLOT;
+  extern __shared__ float4 smem4[];
+  S_& S = *reinterpret_cast<S_*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (M + FK_BM - 1) / FK_BM;
+  const int per = units_per_block(off, B, gridDim.x);
+  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
+  const int n = pk_query(lane), r = pk_key(lane);
+  const bool owner = (lane & 1) == 0 && n < N;
+  float(*ring)[S_::SLOT] = S.ring[warp];
+  float(*ws)[EX_WKEYS] = S.w[warp];
+
+  PkCursor cur{i0, 0};
+#pragma unroll
+  for (int s = 0; s < NSLOT - 1; ++s) {
+    ex_issue<D>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
+    cp_async_commit();
+  }
+
+  float mv = 0.f, linv = 1.f;  // the owner lane's query of bag b
+  int b = -1, s = 0;
+  for (int i = i0; i < i1; ++i) {
+    const int u = list[i], ub = u / n_tiles, t = u % n_tiles;
+    if (flags[u] == FK_LONE) {
+      fill_masked(w, l, m, ub, N, M, 0, n_tiles);
+      continue;
+    }
+    fill_masked(w, l, m, ub, N, M, i > off[ub] ? list[i - 1] % n_tiles + 1 : 0, t);
+    if (ub != b) {
+      __syncthreads();  // no warp reads S.q of the last bag any more
+      b = ub;
+      ex_load_queries<D, PG>(q, b, N, S.q, S.tq);
+      if (owner) {
+        mv = m[(size_t)b * N + n];
+        linv = inv_l(l[(size_t)b * N + n]);
+      }
+      __syncthreads();
+    }
+    const int k0 = t * FK_BM + warp * EX_WKEYS;  // the warp's first key of the tile
+    for (int j = 0; j < EX_STEPS; ++j, ++s) {
+      cp_async_wait<NSLOT - 2>();
+      __syncwarp();
+      ex_issue<D>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp, lane,
+                  cur);
+      cp_async_commit();
+      float g, unused;
+      const float a = pk_key_sums<D, PG, false>(ring[s % NSLOT], S.q, S.tq, nullptr, nullptr, N,
+                                                0, lane, g, unused);
+      const int key = k0 + j * EX_KPS + r;
+      if (owner) {  // a key past M gets a value that is never stored
+        const bool valid = key < M && (mask == nullptr || mask[(size_t)b * M + key]);
+        ws[n][j * EX_KPS + r] = expf((valid ? pk_score<PG>(a, g, scale) : NEG) - mv) * linv;
+      }
+    }
+    __syncwarp();  // the warp's 8 weights of each query staged
+    const int sn = lane >> 1, c = 4 * (lane & 1), key = k0 + c;
+    if (sn < N && key < M) {
+      float* dst = w + ((size_t)b * N + sn) * M + key;
+      if ((M & 3) == 0) {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&ws[sn][c]);
+      } else {
+        for (int x = 0; x < 4 && key + x < M; ++x) dst[x] = ws[sn][c + x];
+      }
+    }
+    // ws is rewritten after the next tile's first __syncwarp
+    if (i + 1 == off[ub + 1]) fill_masked(w, l, m, ub, N, M, t + 1, n_tiles);
+  }
+  cp_async_wait<0>();
+}
+
+// The export passes' main kernels over the blocks resident at once (at most
+// max_blocks), with their dynamic shared memory allowed once per device.
+template <typename Kernel>
+int export_grid(Kernel kernel, int smem, int max_blocks, bool (&allowed)[64],
+                int (&resident)[64], int* blocks) {
+  const int err = allow_dynamic_smem(kernel, smem, allowed);
+  return err ? err : resident_blocks(kernel, smem, max_blocks, resident, blocks);
+}
+
+template <int D, bool PG>
+int launch_stats(const float* q, const float* k, const uint8_t* mask, float* l, float* m,
+                 float* ml_part, uint8_t* flags, int* list, int* off, int B, int N, int M,
+                 int max_blocks, float scale, cudaStream_t st) {
+  static bool allowed[64] = {};
+  static int resident[64] = {};
+  constexpr int smem = (int)sizeof(PkExportSmem<D>);
+  int blocks = 0;
+  int err = export_grid(stats_kernel<D, PG>, smem, max_blocks, allowed, resident, &blocks);
+  if (err) return err;
+  launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st, true);
+  stats_kernel<D, PG><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, ml_part, B,
+                                                      N, M, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l, m,
+                                                 nullptr, nullptr, N, 0, blocks, off);
   return (int)cudaGetLastError();
 }
 
-template <int DV>
+template <int D, bool PG>
 int launch_weights(const float* q, const float* k, const uint8_t* mask, const float* l,
-                   const float* m, float* w, int B, int N, int M, int pre_gate,
-                   float scale, int splits, cudaStream_t st) {
-  weights_kernel<DV><<<dim3(B, splits), THREADS, 0, st>>>(q, k, mask, l, m, w, N, M,
-                                                            pre_gate, scale);
+                   const float* m, float* w, uint8_t* flags, int* list, int* off, int B, int N,
+                   int M, int max_blocks, bool list_ready, float scale, cudaStream_t st) {
+  static bool allowed[64] = {};
+  static int resident[64] = {};
+  constexpr int smem = (int)sizeof(PkExportSmem<D>);
+  int blocks = 0;
+  const int err = export_grid(weights_kernel<D, PG>, smem, max_blocks, allowed, resident, &blocks);
+  if (err) return err;
+  if (!list_ready) launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st, true);
+  weights_kernel<D, PG><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, l, m, w, B,
+                                                        N, M, scale);
   return (int)cudaGetLastError();
 }
 
@@ -938,35 +1107,60 @@ int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* w
                               blocks, scale, stream);
 }
 
-// q [B, N, D], k [B, M, D], mask [B, M] bool or NULL -> l, m [B, N].
-// Scratch ml_part [B, splits * 8, N, 2]. D in {128, 256, 512}; N <= 8.
-int mpo_coattn_stats(const float* q, const float* k, const uint8_t* mask, float* l,
-                     float* m, float* ml_part, int B, int N, int M, int D, int pre_gate,
-                     int splits, float scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || splits < 1 || splits * WARPS > MAX_PARTS)
+// The export passes take N <= 8 queries, D in {128, 256, 512}, with or
+// without the pre-gate.
+#define MPO_EXPORT(LAUNCH, ...)                                                        \
+  if (pre_gate) {                                                                      \
+    if (D == 128) return LAUNCH<128, true>(__VA_ARGS__);                               \
+    if (D == 256) return LAUNCH<256, true>(__VA_ARGS__);                               \
+    if (D == 512) return LAUNCH<512, true>(__VA_ARGS__);                               \
+  } else {                                                                             \
+    if (D == 128) return LAUNCH<128, false>(__VA_ARGS__);                              \
+    if (D == 256) return LAUNCH<256, false>(__VA_ARGS__);                              \
+    if (D == 512) return LAUNCH<512, false>(__VA_ARGS__);                              \
+  }                                                                                    \
+  return (int)cudaErrorInvalidValue;
+
+// Export pass 1: q [B, N, D], k [B, M, D], mask [B, M] bool or NULL -> l, m
+// [B, N]; also leaves the mask's tile list with lone filler bags in flags
+// [B * T] uint8, list [B * T] and off [B + 1] int32 (T = ceil(M / 64) key
+// tiles a bag), which pass 2 may take. max_blocks: the most main-pass
+// blocks (it runs the blocks resident at once, up to that). Scratch: ml_part
+// [max_blocks + B, N, 2].
+int mpo_coattn_stats(const float* q, const float* k, const uint8_t* mask, float* l, float* m,
+                     float* ml_part, uint8_t* flags, int* list, int* off, int B, int N, int M,
+                     int D, int pre_gate, int max_blocks, float scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (D == 128) err = launch_stats<1>(q, k, mask, ml_part, B, N, M, pre_gate, scale, splits, st);
-  else if (D == 256) err = launch_stats<2>(q, k, mask, ml_part, B, N, M, pre_gate, scale, splits, st);
-  else if (D == 512) err = launch_stats<4>(q, k, mask, ml_part, B, N, M, pre_gate, scale, splits, st);
-  else return (int)cudaErrorInvalidValue;
-  if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l, m,
-                                                 nullptr, nullptr, N, 0, splits * WARPS, nullptr);
-  return (int)cudaGetLastError();
+  MPO_EXPORT(launch_stats, q, k, mask, l, m, ml_part, flags, list, off, B, N, M, max_blocks,
+             scale, st)
 }
 
-// q [B, N, D], k [B, M, D], mask, l, m [B, N] -> w [B, N, M].
-int mpo_coattn_weights(const float* q, const float* k, const uint8_t* mask,
-                       const float* l, const float* m, float* w, int B, int N, int M,
-                       int D, int pre_gate, int splits, float scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+// Export pass 2: q, k, mask as pass 1, l, m [B, N] -> w [B, N, M]. list_ready
+// != 0: flags, list and off hold the tile list a pass-1 call left for this
+// mask; else this call builds it there.
+int mpo_coattn_weights(const float* q, const float* k, const uint8_t* mask, const float* l,
+                       const float* m, float* w, uint8_t* flags, int* list, int* off, int B,
+                       int N, int M, int D, int pre_gate, int max_blocks, int list_ready,
+                       float scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_weights<1>(q, k, mask, l, m, w, B, N, M, pre_gate, scale, splits, st);
-  if (D == 256) return launch_weights<2>(q, k, mask, l, m, w, B, N, M, pre_gate, scale, splits, st);
-  if (D == 512) return launch_weights<4>(q, k, mask, l, m, w, B, N, M, pre_gate, scale, splits, st);
-  return (int)cudaErrorInvalidValue;
+  MPO_EXPORT(launch_weights, q, k, mask, l, m, w, flags, list, off, B, N, M, max_blocks,
+             list_ready != 0, scale, st)
+}
+#undef MPO_EXPORT
+
+// The tile flag and list passes alone, as the kernels run them: mask [B, M]
+// bool or NULL -> flags [B * T] uint8, list [B * T] and off [B + 1] int32;
+// lone != 0: with lone filler bags (the export passes), else as the fuse-K
+// and plain-K kernels.
+int mpo_coattn_tiles(const uint8_t* mask, uint8_t* flags, int* list, int* off, int B, int M,
+                     int lone, void* stream) {
+  if (M < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0,
+                   static_cast<cudaStream_t>(stream), lone != 0);
+  return (int)cudaGetLastError();
 }
 
 // The plain-K form with values: q [B, N, D], k, v [B, M, D], mask [B, M] bool

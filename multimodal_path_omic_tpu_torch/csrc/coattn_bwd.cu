@@ -30,10 +30,10 @@
 //
 // Design: five launches, no atomics.
 //  * fk_tiles_kernel flags the 64-key tiles to compute: with a valid key in
-//    the bag, a tile without one is skipped (flash_common.cuh
-//    bag_has_valid_key / next_tile): p is exactly 0 there and ds is 0 by
-//    the mask, so it adds nothing to dq, dwk or dbk, and the pass writes its
-//    dkv = 0; a bag without a valid key computes every tile.
+//    the bag, a tile without one is skipped (fused_k_common.cuh): p is
+//    exactly 0 there and ds is 0 by the mask, so it adds nothing to dq, dwk
+//    or dbk, and the pass writes its dkv = 0; a bag without a valid key
+//    computes every tile.
 //    fk_list_kernel lists the computed (bag, tile) units in order. Both are
 //    in fused_k_common.cuh, shared with the forward (csrc/coattn.cu).
 //  * fused_k_bwd_kernel: one block an SM; block g takes an even share of

@@ -1,17 +1,17 @@
-// Shared by csrc/coattn.cu (the plain-K forward with values) and
-// csrc/coattn_bwd.cu (its backward): the key stream both walk and the
-// per-key dot products both start from.
+// Shared by csrc/coattn.cu (the plain-K forward with values and the export
+// passes) and csrc/coattn_bwd.cu (the backward): the key stream the kernels
+// with values walk and the per-key dot products all of them start from.
 //
-// Both kernels walk the computed 64-key tiles of fused_k_common.cuh's list
-// (a block an even share, across bags) in sub-steps of PK_KEYS keys. A
-// sub-step's k rows and v rows come through a ring of shared-memory slots by
-// cp.async, issued NSLOT - 1 sub-steps ahead in the block's own order (across
-// tile and bag boundaries), so the next tiles' rows land while this one is
-// worked on. Warp w scores keys 2w and 2w + 1 of a sub-step: each lane takes
-// the dot products of its columns (float4 groups c * 128 + 4 * lane) against
-// every query, and one transposing butterfly sums all of a warp's (query,
-// key) products at once (31 shuffles for 32 values, where 32 warp_sums take
-// 160).
+// The kernels with values walk the computed 64-key tiles of
+// fused_k_common.cuh's list (a block an even share, across bags) in
+// sub-steps of PK_KEYS keys. A sub-step's k rows and v rows come through a
+// ring of shared-memory slots by cp.async, issued NSLOT - 1 sub-steps ahead
+// in the block's own order (across tile and bag boundaries), so the next
+// tiles' rows land while this one is worked on. Warp w scores keys 2w and
+// 2w + 1 of a sub-step: each lane takes the dot products of its columns
+// (float4 groups c * 128 + 4 * lane) against every query, and one
+// transposing butterfly sums all of a warp's (query, key) products at once
+// (31 shuffles for 32 values, where 32 warp_sums take 160).
 #pragma once
 
 #include "fused_k_common.cuh"
@@ -165,6 +165,16 @@ __device__ __forceinline__ float pk_key_sums(const float* __restrict__ slot,
   dp = 0.f;
   if constexpr (PG && DP) dp = sum_transpose<16>(vd, lane);
   return tot;
+}
+
+// The score of a (query, key) pair from pk_key_sums' a = q.k and, with the
+// pre-gate, its second value g = tanh(q).tanh(k), as the forwards compute
+// it: one expression, so that the export's weights pass reproduces its stats
+// pass's scores bit for bit (the largest weight is exp(0) of pass 1's m).
+template <bool PG>
+__device__ __forceinline__ float pk_score(float a, float g, float scale) {
+  const float s = a * scale;
+  return PG ? s * (g + 1.f) * 0.5f : s;
 }
 
 // The main pass's grid: the blocks of `kernel` (THREADS threads, `smem`

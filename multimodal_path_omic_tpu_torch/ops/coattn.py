@@ -18,7 +18,9 @@ kernels of the NaCAGaT and MCAT serving and training paths:
   dq, dkv, dwk, dbk (``_coattn_fk_bwd``), with its partial-sum reduce;
 * :func:`coattn_stats` — the forward kernel's plain-K form, statistics only
   (pass 1 of the attention-map export, ``coattention_weights``);
-* :func:`coattn_weights` — the weights-emission kernel (export pass 2);
+* :func:`coattn_weights` — the weights-emission kernel (export pass 2); the
+  two passes skip the 64-key tiles without a valid key and read no k of a
+  bag without one, and ``coattention_weights`` builds their tile list once;
 * :func:`coattn_fwd_plain_k` — the forward kernel's plain-K form with values
   (``coattention``: attention over projected k and v, with or without the
   pre-gate; eval form, and training form with dropout, ssq and sumw), counted
@@ -61,18 +63,18 @@ from multimodal_path_omic_tpu_torch.ops import kernels
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
-STATS_MIN_KEYS_PER_WARP = 32
 VALUES_D = (128, 256)  # D the plain-K kernels with values take
 # (E, F) the fuse-K training forward and backward take: their template
 # instances (csrc/coattn.cu launch_fused_k, csrc/coattn_bwd.cu MPO_BWD)
 FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
 EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
-PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels with values: most main-pass blocks an SM
+PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels (and the export passes): most main-pass blocks an SM
+TILE_LONE = 2  # flag of a bag without a valid key in the export passes' tile list
 
 LAUNCH_COUNTS = {
     "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
     "coattn_fwd_fused_k_train": 0, "coattn_bwd_fused_k": 0,
-    "coattn_plain": 0, "coattn_plain_bwd": 0,
+    "coattn_plain": 0, "coattn_plain_bwd": 0, "coattn_tiles": 0,
 }
 
 
@@ -111,6 +113,29 @@ def coattn_stats_plain(q, k, key_mask=None, *, pre_gate=True):
 def coattn_weights_plain(q, k, key_mask, l, m, *, pre_gate=True):
     s = _scores(q, k, key_mask, pre_gate)
     return torch.exp(s - m[..., None]) * _inv(l)[..., None]
+
+
+def coattn_tiles_plain(key_mask, *, lone: bool):
+    """The kernels' key-tile list for a [B, M] bool mask: flags
+    [B, T] uint8 (T = ceil(M / 64)), 1 for a 64-key tile that is computed,
+    0 for one that is skipped (no valid key in a bag with one); a bag without
+    a valid key computes every tile or, ``lone`` (the export passes), is one
+    unit of flag ``TILE_LONE`` at tile 0. Then the computed units
+    u = bag * T + tile in order [count] int32 and each bag's first position
+    in them [B + 1] int32 (the last entry: the count)."""
+    b, m_len = key_mask.shape
+    t = -(-m_len // FK_TILE)
+    padded = torch.zeros((b, t * FK_TILE), dtype=torch.bool, device=key_mask.device)
+    padded[:, :m_len] = key_mask
+    flags = padded.view(b, t, FK_TILE).any(-1).to(torch.uint8)
+    empty = ~key_mask.any(-1)
+    flags[empty] = 0 if lone else 1
+    if lone:
+        flags[empty, 0] = TILE_LONE
+    units = torch.nonzero(flags.reshape(-1)).reshape(-1).to(torch.int32)
+    off = torch.zeros((b + 1,), dtype=torch.int32, device=key_mask.device)
+    off[1:] = torch.cumsum((flags != 0).sum(-1), 0)
+    return flags, units, off
 
 
 def coattn_fwd_fused_k_plain(q, kv, wk, bk, key_mask=None):
@@ -420,10 +445,72 @@ def _plain_k_checks(q, k, *, values: bool = False):
         _refuse(f"plain-K kernels{' with values' if values else ''}", n, f"D={d}, M={m_len}")
     kernels.require(q, "q", (b, n, d))
     kernels.require(k, "k", (b, m_len, d))
-    # enough warps per bag to keep loads in flight, >= 32 keys per warp
-    splits = max(1, min(-(-m_len // (8 * STATS_MIN_KEYS_PER_WARP)),
-                        -(-4 * kernels.sm_count(q.device) // b), 128))
-    return b, n, d, m_len, splits
+    return b, n, d, m_len
+
+
+def coattn_tiles(key_mask: torch.Tensor, *, lone: bool):
+    """The key-tile flag and list passes alone, as the kernels run them (the
+    card's yardstick is :func:`coattn_tiles_plain`): key_mask [B, M] bool ->
+    (flags [B, T] uint8, the computed units [count] int32, the bags' offsets
+    [B + 1] int32)."""
+    if key_mask.device.type == "cpu":
+        return coattn_tiles_plain(key_mask, lone=lone)
+    (b, m_len), dev = key_mask.shape, key_mask.device
+    flags, units, offsets = _tile_list(b, m_len, dev)
+    err = kernels.library("coattn").mpo_coattn_tiles(
+        kernels.mask_ptr(key_mask, b, m_len, dev), flags.data_ptr(), units.data_ptr(),
+        offsets.data_ptr(), b, m_len, int(lone), kernels.stream(dev),
+    )
+    kernels.check(err, "coattn_tiles")
+    LAUNCH_COUNTS["coattn_tiles"] += 1
+    return flags.view(b, -1), units[:int(offsets[-1])], offsets
+
+
+def _export_checks(q, k, key_mask):
+    """Shapes, the mask pointer and the most main-pass blocks of the export
+    passes: they run over the 64-key tiles that hold a valid key (a bag
+    without one is a lone unit that reads no k), shared evenly by the blocks
+    resident at once, at most ``PLAIN_BLOCKS_PER_SM`` an SM."""
+    b, n, d, m_len = _plain_k_checks(q, k)
+    blocks = PLAIN_BLOCKS_PER_SM * kernels.sm_count(q.device)
+    return b, n, d, m_len, blocks, kernels.mask_ptr(key_mask, b, m_len, q.device)
+
+
+def _stats_on_card(q, k, key_mask, pre_gate):
+    """Export pass 1 on the card -> (l, m, the tile list it built)."""
+    b, n, d, m_len, blocks, mask_ptr = _export_checks(q, k, key_mask)
+    dev = q.device
+    l, m = (torch.empty((b, n), device=dev) for _ in range(2))
+    ml_part = torch.empty((blocks + b, n, 2), device=dev)
+    tiles = _tile_list(b, m_len, dev)
+    err = kernels.library("coattn").mpo_coattn_stats(
+        q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), ml_part.data_ptr(),
+        *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks,
+        1.0 / math.sqrt(d), kernels.stream(dev),
+    )
+    kernels.check(err, "coattn_stats")
+    LAUNCH_COUNTS["coattn_stats"] += 1
+    return l, m, tiles
+
+
+def _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles=None):
+    """Export pass 2 on the card, on the tile list of a pass-1 call with the
+    same mask (``tiles``) or on its own."""
+    b, n, d, m_len, blocks, mask_ptr = _export_checks(q, k, key_mask)
+    kernels.require(l, "l", (b, n))
+    kernels.require(m, "m", (b, n))
+    dev = q.device
+    w = torch.empty((b, n, m_len), device=dev)
+    ready = tiles is not None
+    tiles = tiles if ready else _tile_list(b, m_len, dev)
+    err = kernels.library("coattn").mpo_coattn_weights(
+        q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), w.data_ptr(),
+        *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks, int(ready),
+        1.0 / math.sqrt(d), kernels.stream(dev),
+    )
+    kernels.check(err, "coattn_weights")
+    LAUNCH_COUNTS["coattn_weights"] += 1
+    return w
 
 
 def coattn_stats(
@@ -431,22 +518,11 @@ def coattn_stats(
     *, pre_gate: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Export pass 1: q [B, N, D], k [B, M, D] -> (l [B, N], m [B, N]), the
-    softmax normalizer and row max of the masked (pre-gated) scores."""
+    softmax normalizer and row max of the masked (pre-gated) scores. Kernel:
+    D in {128, 256, 512}, N <= 8, float32."""
     if q.device.type == "cpu":
         return coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
-    b, n, d, m_len, splits = _plain_k_checks(q, k)
-    dev = q.device
-    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, dev)
-    l, m = (torch.empty((b, n), device=dev) for _ in range(2))
-    ml_part = torch.empty((b, splits * 8, n, 2), device=dev)
-    err = kernels.library("coattn").mpo_coattn_stats(
-        q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(),
-        ml_part.data_ptr(), b, n, m_len, d, int(pre_gate), splits,
-        1.0 / math.sqrt(d), kernels.stream(dev),
-    )
-    kernels.check(err, "coattn_stats")
-    LAUNCH_COUNTS["coattn_stats"] += 1
-    return l, m
+    return _stats_on_card(q, k, key_mask, pre_gate)[:2]
 
 
 def coattn_weights(
@@ -456,20 +532,7 @@ def coattn_weights(
     """Export pass 2: normalized weights w [B, N, M] = exp(s - m) / l."""
     if q.device.type == "cpu":
         return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
-    b, n, d, m_len, splits = _plain_k_checks(q, k)
-    kernels.require(l, "l", (b, n))
-    kernels.require(m, "m", (b, n))
-    dev = q.device
-    mask_ptr = kernels.mask_ptr(key_mask, b, m_len, dev)
-    w = torch.empty((b, n, m_len), device=dev)
-    err = kernels.library("coattn").mpo_coattn_weights(
-        q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(),
-        w.data_ptr(), b, n, m_len, d, int(pre_gate), splits,
-        1.0 / math.sqrt(d), kernels.stream(dev),
-    )
-    kernels.check(err, "coattn_weights")
-    LAUNCH_COUNTS["coattn_weights"] += 1
-    return w
+    return _weights_on_card(q, k, key_mask, l, m, pre_gate)
 
 
 def _plain_kv_checks(q, k, v, key_mask):
@@ -477,7 +540,7 @@ def _plain_kv_checks(q, k, v, key_mask):
     kernels with values (D in ``VALUES_D``): they run over the 64-key tiles
     that hold a valid key (every tile of a bag without one), shared evenly by
     the blocks resident at once, at most ``PLAIN_BLOCKS_PER_SM`` an SM."""
-    b, n, d, m_len, _ = _plain_k_checks(q, k, values=True)
+    b, n, d, m_len = _plain_k_checks(q, k, values=True)
     kernels.require(v, "v", (b, m_len, d))
     blocks = PLAIN_BLOCKS_PER_SM * kernels.sm_count(q.device)
     return b, n, d, m_len, blocks, kernels.mask_ptr(key_mask, b, m_len, q.device)
@@ -693,9 +756,13 @@ def coattention_weights(
     pre_gate: bool = False,
 ) -> torch.Tensor:
     """Normalized weights [B, N, M] by the two passes: (l, m) statistics,
-    then the weight tiles recomputed from them."""
-    l, m = coattn_stats(q, k, key_mask, pre_gate=pre_gate)
-    return coattn_weights(q, k, key_mask, l, m, pre_gate=pre_gate)
+    then the weight tiles recomputed from them; on the card both passes run
+    on one tile list, built by the first."""
+    if q.device.type == "cpu":
+        l, m = coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
+        return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
+    l, m, tiles = _stats_on_card(q, k, key_mask, pre_gate)
+    return _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles)
 
 
 def attention_with_weights(

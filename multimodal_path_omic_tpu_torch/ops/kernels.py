@@ -42,8 +42,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "coattn": {
         "mpo_coattn_fwd_fused_k": [_P] * 14 + [_I] * 6 + [_F, _P],
         "mpo_coattn_fwd_fused_k_train": [_P] * 17 + [_I] * 6 + [_F, _U, _F, _P],
-        "mpo_coattn_stats": [_P] * 6 + [_I] * 6 + [_F, _P],
-        "mpo_coattn_weights": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "mpo_coattn_stats": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "mpo_coattn_weights": [_P] * 9 + [_I] * 7 + [_F, _P],
+        "mpo_coattn_tiles": [_P] * 4 + [_I] * 3 + [_P],
         "mpo_coattn_plain_fwd": [_P] * 16 + [_I] * 7 + [_F, _U, _F, _P],
     },
     "coattn_bwd": {
@@ -192,8 +193,19 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_SM_COUNTS: Dict[int, int] = {}
+
+
 def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The device's SM count, looked up once per device (every wrapper call
+    asks for it)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    count = _SM_COUNTS.get(index)
+    if count is None:
+        count = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return count
 
 
 def tile_splits(n_tiles: int, per_bag: int, cap: int = 1024) -> int:

@@ -23,6 +23,10 @@ each tensor's largest magnitude, and two runs must agree bitwise.
 The plain-K kernels with values are held like the fuse-K ones (1e-4 absolute
 forward, gradients 1e-4 of each tensor's largest magnitude, two backward runs
 bitwise equal); the row gather must equal ``index_select`` bit for bit.
+The export passes are held like the other kernels (l 1e-5 relative, m 1e-4,
+w as above), two runs bitwise equal, w exactly 0 at the masked keys of a bag
+with a valid key and 1/M in a bag without one; the key-tile passes bit for
+bit against their torch reference.
 """
 
 import math
@@ -89,6 +93,78 @@ def test_kernels_match_plain_on_card(dev, b, n, e, m_len, f):
     torch.cuda.synchronize()
     for k in ("coattn_fwd_fused_k", "coattn_stats", "coattn_weights"):
         assert coattn.LAUNCH_COUNTS[k] == before[k] + 1
+
+
+def _export_inputs(dev, n, d, kind, seed):
+    """Four bags: one full, one by ``kind`` (holes: keys 128..447 and 1024..1087
+    masked, six whole 64-key tiles mid-bag, M = 1500; single-key: key 900
+    alone, a late tile, M = 1500; ragged: 1000 of M = 1001 keys, no M a
+    multiple of 4), one with a single valid key in its first tile (key 5),
+    and a filler bag without a valid key."""
+    g = torch.Generator().manual_seed(seed)
+    m_len = 1001 if kind == "ragged" else 1500
+    q = 0.7 * torch.randn(4, n, d, generator=g)
+    k = 0.7 * torch.randn(4, m_len, d, generator=g)
+    mask = torch.zeros(4, m_len, dtype=torch.bool)
+    mask[0] = True
+    if kind == "holes":
+        mask[1] = True
+        mask[1, 128:448] = False
+        mask[1, 1024:1088] = False
+    elif kind == "single-key":
+        mask[1, 900] = True
+    else:
+        mask[1, :1000] = True
+    mask[2, 5] = True
+    return q.to(dev), k.to(dev), mask.to(dev)
+
+
+@pytest.mark.parametrize("pre_gate", [False, True])
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("kind", ["holes", "single-key", "ragged"])
+def test_export_kernels_match_plain_on_card(dev, kind, d, n, pre_gate):
+    """The export passes (stats, weights, and both on one tile list through
+    coattention_weights) against their plain versions: l 1e-5 relative, m
+    1e-4, w 1e-4 relative (1e-8 floor); two runs bitwise equal; w exactly 0
+    at the masked keys of a bag with a valid key, 1/M in the filler bag; one
+    launch each a call."""
+    q, k, mask = _export_inputs(dev, n, d, kind, d + n)
+    m_len = mask.shape[1]
+    before = dict(coattn.LAUNCH_COUNTS)
+    l, m = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    l_ref, m_ref = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)
+    w = coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=pre_gate)
+    torch.cuda.synchronize()
+    assert coattn.LAUNCH_COUNTS["coattn_stats"] == before["coattn_stats"] + 1
+    assert coattn.LAUNCH_COUNTS["coattn_weights"] == before["coattn_weights"] + 1
+    _close(l, l_ref, L_RTOL)
+    _close(m, m_ref)
+    w_ref = coattn.coattn_weights_plain(q, k, mask, l_ref, m_ref, pre_gate=pre_gate)
+    _close(w, w_ref, W_RTOL, W_ATOL)
+    both = coattn.coattention_weights(q, k, mask, pre_gate=pre_gate)
+    _close(both, w_ref, W_RTOL, W_ATOL)
+    l2, m2 = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    assert torch.equal(l, l2) and torch.equal(m, m2)
+    assert torch.equal(w, coattn.coattn_weights(q, k, mask, l_ref, m_ref, pre_gate=pre_gate))
+    masked = (~mask[:3])[:, None, :].expand(3, n, m_len)
+    assert float(w[:3][masked].abs().max()) == 0.0
+    assert float(both[:3][masked].abs().max()) == 0.0
+    assert bool((w[3] == 1.0 / m_len).all()) and bool((both[3] == 1.0 / m_len).all())
+    assert bool((l[3] == m_len).all())
+
+
+@pytest.mark.parametrize("kind", ["holes", "single-key", "ragged"])
+def test_tile_passes_match_reference_on_card(dev, kind):
+    """The key-tile flag and list passes, bit for bit against their torch
+    reference, as the fuse-K and plain-K kernels run them and with lone
+    filler bags (the export passes)."""
+    _, _, mask = _export_inputs(dev, 1, 128, kind, 0)
+    for lone in (False, True):
+        got = coattn.coattn_tiles(mask, lone=lone)
+        ref = coattn.coattn_tiles_plain(mask, lone=lone)
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r), lone
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
