@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
-serving and training paths and its device-cache training step on one GPU.
+serving and training paths, its device-cache training step and its training
+entry point (``Trainer.fit``) on one GPU.
 
-    python3 chip_smoke.py              # phases 1-20 below
+    python3 chip_smoke.py              # phases 1-21 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -174,6 +175,32 @@ Phases (any failure exits non-zero, and no result line is printed):
     M=8192 beside their plain versions, bounds and the route they replace
     (k by torch.matmul, then ``attention_core``; for the backward, with
     autograd's backward).
+21. The training entry point: ``train/trainer.py``'s ``Trainer`` on a
+    synthetic cohort written by the port's ``make_synthetic_cohort`` into a
+    temporary directory (48 patients, six signature groups of 100 genes,
+    bags of 1500..8000 patches, ~0.86 GB), ``examples/nacagat.yaml``
+    (NaCAGaT medium, cesar, Adam, dropout 0.25) with buckets 4096/8192,
+    batch 16, 2 epochs, every patient kept (38 training, 10 validation
+    bags). (a) ``fit`` host-fed: each epoch's launches held to the
+    batcher's plan (one fuse-K training forward and one backward a step,
+    one export stats and one weights pass a validation batch, nothing
+    else), a checkpoint saved after epoch 1; (b) the same ``fit`` from the
+    device cache (plus one row gather a step and a validation batch):
+    losses and validation risks bitwise equal to (a); (c) the checkpoint
+    restored into a fresh Trainer whose ``fit`` runs epoch 2, bitwise equal
+    to (a)'s; (d) one epoch on the card and on the CPU, dropout off (the
+    two generators draw different bits): losses within 1e-4 relative, the
+    validation risks within 1e-4 absolute, the c-index within one
+    comparable pair; (e) GE-NaCAGaT medium (``examples/ge_nacagat.yaml``,
+    10 patients, bags of 5000..14269 patches, buckets 8192/16384, batch 8)
+    for one epoch: three flash launches each way a step, one MIL-pool and
+    three flash forward launches a validation batch; then one GE epoch on
+    the card and on the CPU, dropout off, on 10 patients' bags of
+    600..2000 patches (buckets 1024/2048; the CPU takes 735 s for the
+    cohort above): every GE kernel launched on the card, losses within 1e-4
+    relative, the validation accuracy equal. Epoch seconds, train
+    and val bags/s, launches and peak memory beside the card's name and
+    power limit.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -196,7 +223,10 @@ other; and one cached MCAT training step (lean) over a 32-bag cohort of the
 inputs (stats, weights, both on one tile list, stats without the pre-gate)
 and of the plain-K kernels at phase 16's inputs (the eval forward with and
 without the pre-gate and without a mask, the backward), device time a call
-over 5 calls.
+over 5 calls; and phase 21's NaCAGaT Trainer, host-fed and cached: one
+traced ``train_epoch`` and one ``validate`` after a first epoch, split into
+copies, co-attention kernels, matrix products, optimizer, row gather and
+other.
 """
 
 from __future__ import annotations
@@ -2532,6 +2562,280 @@ def time_train_e512(dev, errs, launches) -> list:
     return rows
 
 
+# Phase 21: the training entry point (train/trainer.py) on the card. The
+# cohort is the port's make_synthetic_cohort (the only data this environment
+# has), written into a temporary directory: 48 patients, six signature groups
+# of 100 RNA-seq genes, bags of 1500..8000 1024-wide patches (~0.86 GB of
+# npy). examples/nacagat.yaml trains on it with these overrides; every
+# patient is kept (the example's tcga_only would keep the half the synthetic
+# cohort marks TCGA), so the 80/20 patient split leaves 38 training and 10
+# validation bags.
+TRAINER_COHORT = dict(n_patients=48, n_genes=600, n_signatures=6,
+                      bag_lengths=(1500, 3000, 5000, 8000), embedding_dim=1024,
+                      bag_format="npy", seed=0)
+TRAINER_SET = {"tpu.bag_buckets": [4096, 8192], "tpu.batch_size": 16,
+               "training.epochs": 2, "training.seed": 0, "dataset.tcga_only": False}
+# GE-NaCAGaT medium (examples/ge_nacagat.yaml) on its own cohort: 10 patients,
+# bags of 5000..14269 patches, every patient kept (the example's
+# decider_only would keep half) and no leave-one-out patient (the example's
+# is not in a synthetic cohort).
+GE_TRAINER_COHORT = dict(n_patients=10, bag_lengths=(5000, 7000, 10000, 14269),
+                         embedding_dim=1024, bag_format="npy", seed=1)
+GE_TRAINER_SET = {"tpu.bag_buckets": [8192, 16384], "tpu.batch_size": 8, "training.epochs": 1,
+                  "model.gene": "G000", "dataset.decider_only": False,
+                  "training.leave_one_out": None, "tpu.device_cache": "off"}
+# GE against the CPU: the same model and settings on a cohort of shorter bags
+# (600..2000 patches, buckets 1024/2048). The CPU's plain flash versions took
+# 735 s for one epoch of the cohort above (NVIDIA H100 80GB HBM3 machine's
+# host, 8 cores), beyond the smoke's time; the card's run of the full cohort
+# stays in (e).
+GE_CPU_COHORT = dict(n_patients=10, bag_lengths=(600, 1000, 1500, 2000), embedding_dim=1024,
+                     bag_format="npy", seed=2)
+GE_CPU_SET = {**GE_TRAINER_SET, "tpu.bag_buckets": [1024, 2048]}
+# The card against the CPU after one epoch: losses relative, validation
+# risks absolute (float32 on both sides through Adam steps, other summation
+# orders, the kernels against their plain versions). Dropout is off on both
+# sides for this comparison: the card's and the CPU's generators draw
+# different bits for the same seed.
+TRAINER_RTOL, TRAINER_ATOL = 1e-4, 1e-4
+
+
+def trainer_config(example, paths, out_dir, overrides):
+    """``examples/<example>`` pointed at a synthetic cohort, its checkpoints
+    and outputs under ``out_dir``, with ``overrides`` (dotted keys)."""
+    from multimodal_path_omic_tpu_torch.config import load_config
+
+    csv, sig, patches = paths
+    return load_config(os.path.join(HERE, "examples", example), {
+        "dataset.file": csv, "dataset.signatures": sig, "dataset.patches_dir": patches,
+        "model.checkpoint_dir": os.path.join(out_dir, "checkpoints"),
+        "training.test_output_dir": os.path.join(out_dir, "outputs"), **overrides})
+
+
+def instrument(trainer) -> list:
+    """Record every ``train_epoch`` / ``validate`` call of ``trainer`` (fit
+    drives both): the epoch, its metrics, its kernel launches (the counts
+    after the call less those before), its seconds (synchronized), the
+    validation risks. Returns the list the records go to."""
+    import torch
+
+    calls = []
+    for name in ("train_epoch", "validate"):
+        def wrapped(epoch, inner=getattr(trainer, name), name=name):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(epoch)
+            torch.cuda.synchronize()
+            after = read_counts()
+            calls.append({"call": name, "epoch": epoch, "out": out,
+                          "seconds": time.perf_counter() - t0,
+                          "launches": {k: v - before[k] for k, v in after.items() if v - before[k]},
+                          "risks": trainer.val_risks.copy() if name == "validate" else None})
+            return out
+        setattr(trainer, name, wrapped)
+    return calls
+
+
+def epoch_calls(calls, epoch) -> tuple:
+    """The (train_epoch, validate) records of 0-based ``epoch``."""
+    return tuple(next(c for c in calls if c["call"] == name and c["epoch"] == epoch)
+                 for name in ("train_epoch", "validate"))
+
+
+def report_trainer_run(what, trainer, calls, want_train, want_val, power) -> None:
+    """Each epoch's launches against the plan (``want_*``: kernel -> launches
+    per step or per validation batch), losses finite; the epoch's seconds,
+    train and val bags/s, beside the card's name and power limit."""
+    n_steps, n_val = len(trainer.train_batcher), len(trainer.val_batcher)
+    for c in calls:
+        if c["call"] == "train_epoch":
+            want = {k: v * n_steps for k, v in want_train.items()}
+            if not math.isfinite(c["out"]["train_loss"]):
+                raise AssertionError(f"{what}: train loss not finite")
+            log(f"  {what}, epoch {c['epoch'] + 1}: train_loss {c['out']['train_loss']:.6f}, "
+                f"{c['out']['epoch_seconds']:.3f} s, {len(trainer.train_ds) / c['seconds']:.1f} "
+                f"train bags/s over {n_steps} steps, launches {c['launches']} ({power})")
+        else:
+            want = {k: v * n_val for k, v in want_val.items()}
+            metric = "val_accuracy" if trainer.ge_mode else "val_c_index"
+            if not math.isfinite(c["out"]["val_loss"]):
+                raise AssertionError(f"{what}: val loss not finite")
+            log(f"  {what}, validate {c['epoch']}: val_loss {c['out']['val_loss']:.6f}, "
+                f"{metric} {c['out'].get(metric, float('nan')):.4f}, {c['seconds']:.3f} s, "
+                f"{len(trainer.val_ds) / c['seconds']:.1f} val bags/s over {n_val} batches, "
+                f"launches {c['launches']} ({power})")
+        if c["launches"] != want:
+            raise AssertionError(f"{what} {c['call']}({c['epoch']}): launches {c['launches']}, "
+                                 f"expected {want}")
+    log(f"  {what}: launches as planned; {n_steps} steps and {n_val} validation batches "
+        f"an epoch")
+
+
+def same_bits(what, got, ref) -> None:
+    """The per-epoch losses and validation risks of two runs, bit for bit."""
+    for key in ("train_loss", "val_loss"):
+        if got[key] != ref[key]:
+            raise AssertionError(f"{what}: {key} {got[key]!r} != {ref[key]!r}")
+    if not np.array_equal(got["risks"], ref["risks"]):
+        raise AssertionError(f"{what}: validation risks differ")
+
+
+def epoch_summary(calls, epoch) -> dict:
+    train, val = epoch_calls(calls, epoch)
+    return {**train["out"], **val["out"], "risks": val["risks"]}
+
+
+def phase21_trainer(dev) -> dict:
+    """The Trainer at full width: NaCAGaT medium (examples/nacagat.yaml)
+    host-fed and cached, a checkpoint restored, the card against the CPU;
+    GE-NaCAGaT medium (examples/ge_nacagat.yaml) for one epoch. Returns the
+    launches of the phase's runs on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.train.metrics import concordance_index_censored
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    total = {}
+    try:
+        t0 = time.perf_counter()
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        ge_paths = make_synthetic_cohort(os.path.join(root, "ge_cohort"), **GE_TRAINER_COHORT)
+        ge_cpu_paths = make_synthetic_cohort(os.path.join(root, "ge_cpu_cohort"), **GE_CPU_COHORT)
+        log(f"phase 21: synthetic cohorts written in {time.perf_counter() - t0:.1f} s")
+
+        def run(what, example, overrides, want_train, want_val, **fit_kw):
+            cfg = trainer_config(example, paths if example == "nacagat.yaml" else ge_paths,
+                                 os.path.join(root, what.split()[0]), overrides)
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(cfg, verbose=False)
+            calls = instrument(trainer)
+            before = read_counts()
+            hook = fit_kw.get("after_epoch")
+            if hook is not None:
+                inner = trainer.validated_epoch
+                trainer.validated_epoch = lambda e: hook(trainer, e, inner(e))
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            for k, v in read_counts().items():
+                total[k] = total.get(k, 0) + v - before[k]
+            log(f"phase 21 ({what}): fit in {time.perf_counter() - t0:.2f} s, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({power})")
+            report_trainer_run(what, trainer, calls, want_train, want_val, power)
+            return trainer, calls
+
+        train_k = {"coattn_fwd_fused_k_train": 1, "coattn_bwd_fused_k": 1}
+        val_k = {"coattn_stats": 1, "coattn_weights": 1}
+        ckpt = []
+
+        def save_after_first(trainer, epoch, res):
+            if epoch == 0:
+                ckpt.append(trainer.save(epoch, res[1]["val_loss"]))
+            return res
+
+        log(f"phase 21 (a): NaCAGaT medium, examples/nacagat.yaml + {TRAINER_SET}, "
+            "host-fed (tpu.device_cache=off), Trainer.fit on the card")
+        ta, calls_a = run("a host-fed", "nacagat.yaml", {**TRAINER_SET, "tpu.device_cache": "off"},
+                          train_k, val_k, after_epoch=save_after_first)
+        log(f"  split: {len(ta.train_ds)} training and {len(ta.val_ds)} validation bags; "
+            f"accumulation chunks a step: 1 ({ta.batch_size} x {max(ta.buckets)} <= 262144)")
+        del ta
+        log("phase 21 (b): the same run from the device cache (tpu.device_cache=on)")
+        tb, calls_b = run("b cached", "nacagat.yaml", {**TRAINER_SET, "tpu.device_cache": "on"},
+                          {**train_k, "gather_rows": 1}, {**val_k, "gather_rows": 1})
+        del tb
+        for e in range(2):
+            same_bits(f"cached vs host-fed, epoch {e + 1}", epoch_summary(calls_b, e),
+                      epoch_summary(calls_a, e))
+        log("  cached == host-fed, bit for bit: train loss, val loss and val risks of both "
+            "epochs")
+        log(f"phase 21 (c): restore {os.path.basename(ckpt[0])} (saved after epoch 1) into a "
+            "fresh Trainer, fit epoch 2")
+        tc, calls_c = run("c restored", "nacagat.yaml",
+                          {**TRAINER_SET, "tpu.device_cache": "off",
+                           "model.load_from_checkpoint": ckpt[0]}, train_k, val_k)
+        if tc.starting_epoch != 1:
+            raise AssertionError(f"restored Trainer starts at epoch {tc.starting_epoch}")
+        del tc
+        same_bits("restored vs uninterrupted, epoch 2", epoch_summary(calls_c, 1),
+                  epoch_summary(calls_a, 1))
+        log("  restored == uninterrupted, bit for bit: epoch 2's train loss, val loss and "
+            "val risks")
+
+        def card_vs_cpu(what, example, cohort, overrides, want):
+            """One epoch of ``example`` on the card and on the CPU, dropout 0 on
+            both; the card's train and val loss held to the CPU's, and the
+            card's epoch held to have launched each kernel of ``want``."""
+            ends = {}
+            for where in ("cuda", "cpu"):
+                cfg = trainer_config(example, cohort, os.path.join(root, f"{what}_{where}"),
+                                     {**overrides, "training.epochs": 1, "model.dropout": 0.0})
+                trainer = Trainer(cfg, verbose=False, device=where)
+                before = read_counts()
+                t0 = time.perf_counter()
+                train, val = trainer.validated_epoch(0)
+                launched = {k: v - before[k] for k, v in read_counts().items() if v - before[k]}
+                if where == "cuda" and not set(want) <= set(launched):
+                    raise AssertionError(f"{what}: the card's epoch launched {launched}, "
+                                         f"expected each of {sorted(want)}")
+                ends[where] = {**train, **val, "risks": trainer.val_risks,
+                               "table": trainer.val_ds.table}
+                metric = "val_accuracy" if trainer.ge_mode else "val_c_index"
+                log(f"  {what} {where}: epoch 1 in {time.perf_counter() - t0:.2f} s, train_loss "
+                    f"{train['train_loss']:.7f}, val_loss {val['val_loss']:.7f}, {metric} "
+                    f"{val[metric]:.4f}")
+                del trainer
+            for key in ("train_loss", "val_loss"):
+                rel = abs(ends["cuda"][key] - ends["cpu"][key]) / abs(ends["cpu"][key])
+                log(f"  {what} {key}: card vs CPU relative {rel:.3e} (tolerance {TRAINER_RTOL:g})")
+                if rel > TRAINER_RTOL:
+                    raise AssertionError(f"{what}: card {key} disagrees with the CPU")
+            return ends["cuda"], ends["cpu"]
+
+        log("phase 21 (d): NaCAGaT, one epoch on the card and on the CPU, dropout 0 on both")
+        gpu, cpu = card_vs_cpu("d", "nacagat.yaml", paths,
+                               {**TRAINER_SET, "tpu.device_cache": "off"}, {**train_k, **val_k})
+        err = float(np.abs(gpu["risks"] - cpu["risks"]).max())
+        gaps = np.diff(np.sort(cpu["risks"]))
+        t = cpu["table"]
+        _, con, dis, tied, _ = concordance_index_censored(
+            (1 - t.censorship).astype(bool), t.survival_months, cpu["risks"])
+        pairs = con + dis + tied
+        c_diff = abs(gpu["val_c_index"] - cpu["val_c_index"])
+        log(f"  val risks: card vs CPU max_abs_err {err:.3e} (tolerance {TRAINER_ATOL:g}); "
+            f"smallest gap between two val risks {gaps.min():.3e}; val c-index card "
+            f"{gpu['val_c_index']:.6f} vs CPU {cpu['val_c_index']:.6f} (tolerance 1/{pairs} "
+            "comparable pairs)")
+        if err > TRAINER_ATOL or c_diff > 1.0 / pairs:
+            raise AssertionError("card validation disagrees with the CPU")
+
+        log(f"phase 21 (e): GE-NaCAGaT medium, examples/ge_nacagat.yaml + {GE_TRAINER_SET}, "
+            "Trainer.fit on the card")
+        run("e GE", "ge_nacagat.yaml", GE_TRAINER_SET,
+            {"flash_fwd_d256": 1, "flash_fwd_d32": 2, "flash_bwd_d256": 1, "flash_bwd_d32": 2},
+            {"milpool": 1, "flash_fwd_d256": 1, "flash_fwd_d32": 2})
+        log(f"  GE, one epoch on the card and on the CPU, dropout 0 on both, on "
+            f"{GE_CPU_COHORT} + {GE_CPU_SET}")
+        gpu, cpu = card_vs_cpu("e", "ge_nacagat.yaml", ge_cpu_paths, GE_CPU_SET,
+                               {"flash_fwd_d256", "flash_fwd_d32", "flash_bwd_d256",
+                                "flash_bwd_d32", "milpool"})
+        log(f"  e val_accuracy: card {gpu['val_accuracy']:.6f} vs CPU {cpu['val_accuracy']:.6f}")
+        if gpu["val_accuracy"] != cpu["val_accuracy"]:
+            raise AssertionError("e: card val_accuracy disagrees with the CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s of wall time ({power})")
+    return total
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -2650,6 +2954,63 @@ def profile_training(title, tag, make, batch, top=20) -> None:
     }))
 
 
+# the parts of a Trainer epoch's device time beyond a training step's
+EPOCH_SPLIT = (("memcpy", "copies"), ("memset", "copies"), ("stats_kernel", "coattn kernels"),
+               ("weights_kernel", "coattn kernels"), ("tile", "coattn kernels")) + TRAIN_SPLIT
+
+
+def profile_trainer(dev, top=12) -> None:
+    """Phase 21's NaCAGaT configuration, host-fed and cached: after a first
+    epoch (the warm-up and, cached, the upload), one traced ``train_epoch``
+    and one traced ``validate``: wall time, device time by part
+    (EPOCH_SPLIT) and by kernel, and the device busy share."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        for feed in ("off", "on"):
+            cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, feed),
+                                 {**TRAINER_SET, "tpu.device_cache": feed})
+            trainer = Trainer(cfg, verbose=False)
+            trainer.validated_epoch(0)
+            for what, call in (("train_epoch", trainer.train_epoch),
+                               ("validate", trainer.validate)):
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    call(1)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                rows = device_rows(prof)
+                split = {}
+                for name, ms, _ in rows:
+                    part = next((part for frag, part in EPOCH_SPLIT if frag in name.lower()),
+                                "other")
+                    split[part] = split.get(part, 0.0) + ms
+                device_ms = sum(r[1] for r in rows)
+                title = f"Trainer {what}, device_cache={feed}"
+                log(f"profile: {title}; wall {wall_ms:.3f} ms; device {device_ms:.3f} ms; busy "
+                    f"share {device_ms / wall_ms:.4f}; split " + ", ".join(
+                        f"{k} {v:.3f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+                for name, ms, count in rows[:top]:
+                    log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
+                log(json.dumps({"trainer": what, "device_cache": feed, "wall_ms": wall_ms,
+                                "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+                                "split_ms": split}))
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_serving(dev, loss, bags, omics, top=15) -> None:
     import torch
 
@@ -2733,8 +3094,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one predict_bags call per loss, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
-                         "cached MCAT training step and the plain-K kernels' launches "
-                         "instead of phases 1-20")
+                         "cached MCAT training step, the plain-K kernels' launches and a "
+                         "Trainer epoch host-fed and cached instead of phases 1-21")
     args = ap.parse_args()
     try:
         import torch
@@ -2795,6 +3156,7 @@ def main() -> int:
         profile_training(f"cached MCAT training step (lean), {B} bags of the {TRAIN_M} bucket",
                          "mcat_cached_training_step", make_cached, meta)
         profile_plain_k(dev)
+        profile_trainer(dev)
         log(gpu_name_and_power())
         return 0
     errs = phase1_kernels(dev)
@@ -2842,6 +3204,11 @@ def main() -> int:
     p15 = phase15_device_cache(dev)
     launches = {**p14["launches"], "gather_rows": p15["launches"]["gather_rows"]}
     rows += phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch)
+    del p14, p15, bags, omics, batch
+    torch.cuda.empty_cache()
+    p21 = phase21_trainer(dev)
+    for row in rows:  # the Trainer's main path runs these kernels (no E = 512 instance)
+        row["launches"] += p21.get(row["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

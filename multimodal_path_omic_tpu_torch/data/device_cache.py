@@ -52,11 +52,11 @@ class DeviceBagCache:
             raise ValueError(
                 f"store_dtype must be float32, bfloat16 or int8, got {store_dtype!r}")
         if store_dtype != "float32":
-            raise NotImplementedError(
-                f"store_dtype {store_dtype!r} is not ported yet (ROADMAP queue 1, item 8)")
+            raise NotImplementedError(f"store_dtype {store_dtype!r} is not ported yet "
+                                      "(ROADMAP queue 1, reduced precision)")
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded device cache is not ported yet (ROADMAP queue 1, item 9)")
+                "a mesh-sharded device cache is not ported yet (ROADMAP queue 1, multi-GPU)")
         self.device = resolve_device(device)
         self.store_dtype = store_dtype
         self.ge_mode = ge_mode

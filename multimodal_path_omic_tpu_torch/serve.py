@@ -2,8 +2,8 @@
 ``Predictor`` that scores single bags or lists of bags in bucketed,
 fixed-shape batches.
 
-The eval step mirrors the JAX package's ``train/loop.py::make_eval_step``.
-Survival models (MCAT and NaCAGaT, ``ces`` and ``cesar`` losses): a
+The eval step is ``train/loop.py::make_eval_step``, the one validation runs.
+Survival models (MCAT and NaCAGaT, every survival loss of ``LOSSES``): a
 deterministic forward (the co-attention map is requested for ``cesar``,
 whose loss consumes it, or with ``need_attention=True``), then the loss,
 risk = -sum(survs), hazards, survs and y. GE-NaCAGaT (WSI
@@ -21,10 +21,10 @@ import torch
 from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for, pad_bag
 from multimodal_path_omic_tpu_torch.device import resolve_device
 from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
-from multimodal_path_omic_tpu_torch.ops.losses import cross_entropy_on_probs, survival_loss
+from multimodal_path_omic_tpu_torch.train.loop import make_eval_step
 from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params, seeded_init_
 
-LOSSES = ("ces", "cesar")
+LOSSES = ("ce", "ces", "sct", "cesar", "nll", "cox")
 
 
 class Predictor:
@@ -50,7 +50,7 @@ class Predictor:
                  device=None, lean: bool = True, need_attention: bool = False):
         self.ge_mode = is_ge_model(model_name)
         allowed = ("ce",) if self.ge_mode else LOSSES
-        loss = loss or allowed[0]
+        loss = loss or ("ce" if self.ge_mode else "ces")
         if loss not in allowed:
             raise NotImplementedError(
                 f"loss {loss!r} is not ported for {model_name} (takes {allowed})")
@@ -73,39 +73,17 @@ class Predictor:
         else:
             seeded_init_(model, seed)
         self.model = model.to(self.device).eval()
+        self._eval_step = make_eval_step(self.model, loss, alpha=alpha, ge_mode=self.ge_mode,
+                                         need_attention=self.need_attention,
+                                         omic_sizes=self.omic_sizes)
 
     # ------------------------------------------------------------------- step
-    @torch.inference_mode()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """One deterministic forward + loss on a batch of device tensors:
         wsi [B, M, D], mask [B, M], label [B], weight [B] (0 for filler
-        rows) and, for survival models, omics (list of [B, s_i]) and
-        censorship [B]."""
-        weight = batch["weight"]
-        if self.ge_mode:
-            # 'path' MIL scores are always produced; 'attn' (M x M) is None
-            y, attn = self.model(batch["wsi"], batch["mask"])
-            return {
-                "loss": cross_entropy_on_probs(y, batch["label"], sample_weight=weight),
-                "y": y,
-                "attention": attn,
-                "n_real": weight.sum(),
-            }
-        want_attn = self.need_attention or self.loss_name == "cesar"
-        out = self.model(batch["wsi"], batch["omics"], batch["mask"],
-                         need_attention=want_attn)
-        loss, attn_loss = survival_loss(self.loss_name, out, batch["label"],
-                                        batch["censorship"], self.alpha, weight)
-        return {
-            "loss": loss,
-            "attn_loss": attn_loss,
-            "risk": -out.survs.sum(dim=1),
-            "hazards": out.hazards,
-            "survs": out.survs,
-            "y": out.y,
-            "attention": out.attention if want_attn else None,
-            "n_real": weight.sum(),
-        }
+        rows) and, for survival models, omics (list of [B, s_i]),
+        censorship [B] and, for ``cox``, survival_months [B]."""
+        return self._eval_step(batch)
 
     def _batch(self, wsi, mask, omics_rows, n_real: int) -> Dict[str, Any]:
         """Device batch of ``len(wsi)`` rows; rows past ``n_real`` are
@@ -127,6 +105,7 @@ class Predictor:
             omics.append(torch.from_numpy(col).to(dev))
         batch["omics"] = omics
         batch["censorship"] = torch.zeros((n,), device=dev)
+        batch["survival_months"] = torch.zeros((n,), device=dev)
         return batch
 
     # ----------------------------------------------------------------- single

@@ -1,0 +1,59 @@
+"""Observability: a JSONL run log and step timing
+(``multimodal_path_omic_tpu/train/logging.py``).
+
+The reference logs per-epoch train/val loss + c-index to stdout and wandb
+(reference: mcat/main.py:85-87, 101-103, 153-155, 186-215) and prints a
+per-50-batch speed figure with a /32-vs-50 divisor bug (mcat/main.py:63-68;
+fixed here: the timer divides by the window's own length). A JSONL sink
+records the run. wandb is not ported: ``wandb.enabled`` is refused by
+``config.require_supported`` (ROADMAP.md queue 1, the Trainer's rest).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+
+class MetricLogger:
+    def __init__(self, *, jsonl_path: Optional[str] = None):
+        self._jsonl = None
+        if jsonl_path:
+            os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
+            self._jsonl = open(jsonl_path, "a")
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        # epochs run after finish() must not crash on a closed sink
+        if self._jsonl is not None and not self._jsonl.closed:
+            rec = dict(metrics)
+            if step is not None:
+                rec["step"] = step
+            rec["time"] = time.time()
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+
+    def finish(self):
+        if self._jsonl is not None:
+            self._jsonl.close()
+
+
+class StepTimer:
+    """Windowed steps/sec + bags/sec tracker (fixes mcat/main.py:67's divisor)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self._steps = 0
+        self._bags = 0
+
+    def tick(self, bags: int = 1):
+        self._steps += 1
+        self._bags += bags
+
+    def rates(self):
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        return self._steps / dt, self._bags / dt

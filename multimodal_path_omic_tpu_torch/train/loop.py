@@ -1,7 +1,8 @@
-"""Train steps (``multimodal_path_omic_tpu/train/loop.py``): one optimizer
-update per batched, bucketed step on a single device, host-fed
+"""Train and eval steps (``multimodal_path_omic_tpu/train/loop.py``): one
+optimizer update per batched, bucketed step on a single device, host-fed
 (:func:`make_train_step`) or assembled on the device from a resident bag
-cache (:func:`make_cached_train_step`).
+cache (:func:`make_cached_train_step`); the no-grad eval step of validation
+and serving (:func:`make_eval_step`), host-fed or cached.
 
 A full effective batch is processed in one step. When B * M exceeds
 ``patch_budget`` the step runs the batch in gradient-accumulation chunks
@@ -14,7 +15,9 @@ Unlike the JAX step, which is pure, this one updates the model's parameters
 and the optimizer state in place (``TrainState`` carries the objects and a
 step count). Dropout draws from the state's ``torch.Generator`` on the
 model's device, seeded once: every dropout mask of a step, and the
-co-attention kernel's int32 seed (one per chunk), come from it.
+co-attention kernel's int32 seed (one per chunk), come from it, as do the
+``patch_dropout`` draws. Those differ from the JAX step's draw for draw
+(another generator), as every dropout mask does.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ import torch
 from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.gather import take_rows
-from multimodal_path_omic_tpu_torch.ops.losses import cross_entropy_on_probs, survival_loss
+from multimodal_path_omic_tpu_torch.ops.losses import (
+    cross_entropy_on_probs,
+    l1_reg,
+    survival_loss,
+)
 from multimodal_path_omic_tpu_torch.train.optim import OptimizerSpec
 
 
@@ -75,6 +82,7 @@ def make_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
+    patch_dropout: float = 0.0,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, batch) -> (state, metrics)``. Batch fields (tensors on
     the model's device): wsi [B, M, D], mask [B, M] bool, omics (list of
@@ -90,7 +98,11 @@ def make_train_step(
     ``l1_lambda`` > 0 adds the L1 penalty as the JAX step does: its
     gradient scaled by the batch's weight mass (the reference backwards it
     once per sample), the reported loss plus lambda * reg once. The L1
-    gradient at a zero weight is +lambda, as JAX differentiates |w|."""
+    gradient at a zero weight is +lambda, as JAX differentiates |w|.
+
+    ``patch_dropout`` > 0 hides that share of each bag's real patches from
+    the chunk's forward (a fresh draw per chunk from the state's generator);
+    a bag whose real patches were all hidden keeps its full mask."""
     # cesar needs only the penalty, not the map: "ssq" keeps the model on the
     # fused kernels
     need_attention = "ssq" if loss_name == "cesar" else False
@@ -113,12 +125,15 @@ def make_train_step(
         for i in range(accum):
             sl = slice(i * chunk, (i + 1) * chunk)
             weight = batch["weight"][sl]
+            mask = batch["mask"][sl]
+            if patch_dropout:
+                mask = drop_patches(mask, patch_dropout, state.generator)
             if ge_mode:
-                y, _ = model(wsi[sl], batch["mask"][sl], generator=state.generator)
+                y, _ = model(wsi[sl], mask, generator=state.generator)
                 loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
                 attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
             else:
-                out = model(wsi[sl], [o[sl] for o in omics], batch["mask"][sl],
+                out = model(wsi[sl], [o[sl] for o in omics], mask,
                             need_attention=need_attention, generator=state.generator)
                 loss, attn_loss = survival_loss(
                     loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
@@ -151,6 +166,15 @@ def make_train_step(
     return step
 
 
+def drop_patches(mask: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """``mask`` [B, M] bool with a ``rate`` share of its True entries drawn
+    to False (uniform bits from ``generator``); a row left without a True
+    entry keeps its full mask (an all-masked bag would empty its softmax)."""
+    keep = torch.rand(mask.shape, generator=generator, device=mask.device) >= rate
+    dropped = mask & keep
+    return torch.where(dropped.any(dim=1, keepdim=True), dropped, mask)
+
+
 def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, Any],
                   ge_mode: bool) -> Dict[str, Any]:
     """Assemble a batch on the cache's device from gathers over its rows:
@@ -177,7 +201,7 @@ def make_cached_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
-    multi: bool = False, mesh=None, int8_matmul: bool = False,
+    patch_dropout: float = 0.0, multi: bool = False, mesh=None, int8_matmul: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Dict[str, Any]],
               Tuple[TrainState, StepMetrics]]:
     """Train step over a device-resident dataset cache
@@ -196,10 +220,69 @@ def make_cached_train_step(
     if not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
     inner = make_train_step(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
-                            patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes)
+                            patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
+                            patch_dropout=patch_dropout)
 
     def step(state: TrainState, cache: Dict[str, torch.Tensor],
              meta: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         return inner(state, _gather_batch(cache, meta, ge_mode))
+
+    return step
+
+
+def make_eval_step(
+    model: nn.Module, loss_name: str, *, alpha: float = 0.75, ge_mode: bool = False,
+    need_attention: bool = False, omic_sizes: Optional[Sequence[int]] = None,
+    l1_lambda: float = 0.0, cached: bool = False,
+) -> Callable[..., Dict[str, Any]]:
+    """The no-grad eval step of validation and serving: a deterministic
+    forward (the model in eval mode) and the loss, under
+    ``torch.inference_mode()`` (the MIL-pool kernel of GE's eval forward
+    refuses a call autograd would differentiate).
+
+    ``step(batch)`` takes a host-fed batch of device tensors (the fields of
+    :func:`make_train_step`); with ``cached=True``, ``step(cache, meta)``
+    assembles it on the device from a bucket of a ``DeviceBagCache``.
+    Survival models return loss, attn_loss, risk = -sum(survs), hazards,
+    survs, y, the attention dict (requested for ``cesar``, whose loss reads
+    the map, or with ``need_attention``; else None) and n_real; GE-NaCAGaT
+    (``ce`` only) returns loss, y, its attention dict (the raw MIL scores
+    under 'path') and n_real. ``l1_lambda`` > 0 adds lambda * sum |w| to the
+    loss, as the reference adds it to every validation sample's loss."""
+    want_attn = bool(need_attention) or loss_name == "cesar"
+    if ge_mode and loss_name != "ce":
+        raise NotImplementedError(f"GE-NaCAGaT evaluates with the ce loss, not {loss_name!r}")
+    if cached and not ge_mode and omic_sizes is None:
+        raise ValueError("the cached step of a survival model needs omic_sizes")
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, Any], meta: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        if cached:
+            batch = _gather_batch(batch, meta, ge_mode)
+        model.eval()
+        weight = batch["weight"]
+        reg = l1_lambda * l1_reg(model.parameters()) if l1_lambda > 0.0 else 0.0
+        if ge_mode:
+            y, attn = model(batch["wsi"], batch["mask"])
+            return {
+                "loss": cross_entropy_on_probs(y, batch["label"], sample_weight=weight) + reg,
+                "y": y,
+                "attention": attn,
+                "n_real": weight.sum(),
+            }
+        out = model(batch["wsi"], _unpack_omics(batch, omic_sizes), batch["mask"],
+                    need_attention=want_attn)
+        loss, attn_loss = survival_loss(loss_name, out, batch["label"], batch["censorship"],
+                                        alpha, weight, batch.get("survival_months"))
+        return {
+            "loss": loss + reg,
+            "attn_loss": attn_loss,
+            "risk": -out.survs.sum(dim=1),
+            "hazards": out.hazards,
+            "survs": out.survs,
+            "y": out.y,
+            "attention": out.attention if want_attn else None,
+            "n_real": weight.sum(),
+        }
 
     return step

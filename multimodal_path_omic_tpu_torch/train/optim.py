@@ -21,10 +21,15 @@ before the step, and so before the decay is added (optax's
 norm). Where torch and optax place an epsilon differently (Adamax adds it
 inside the running max, RMSprop outside the square root) the updates differ
 in the last digits; SGD and Adam match optax's.
+
+The learning rate lives in the optimizer's parameter groups: the epoch
+loop sets it (:func:`set_lr`, with :func:`schedule_lr`'s epoch-indexed
+value) or steps it (:func:`step_exponential`) without touching the state.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Iterable, NamedTuple
 
 import torch
@@ -77,3 +82,36 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer
     for group in optimizer.param_groups:
         group["lr"] = lr
     return optimizer
+
+
+def step_exponential(optimizer: torch.optim.Optimizer, gamma: float) -> torch.optim.Optimizer:
+    """Per-epoch ExponentialLR step: lr *= gamma (mcat/main.py:84)."""
+    return set_lr(optimizer, current_lr(optimizer) * gamma)
+
+
+def schedule_lr(name, base_lr: float, epoch: int, *, gamma: float = 1.0,
+                total_epochs: int = 0, warmup_epochs: int = 0, min_lr: float = 0.0,
+                step_size: int = 10) -> float:
+    """Absolute lr for 0-based ``epoch`` under the epoch-indexed schedules:
+
+    * ``cosine``: torch CosineAnnealingLR shape, a half cosine from base_lr
+      to ``min_lr`` over the run after warmup, clamped at min_lr after;
+    * ``step``: torch StepLR, lr = base * gamma^(epoch // step_size);
+    * ``exp``: base * gamma^epoch (the reference's ExponentialLR);
+    * linear warmup (``warmup_epochs``): epochs 0..W-1 ramp
+      (e+1)/W * base_lr, under any schedule (None included).
+
+    Epoch-indexed, so a resumed run lands on the lr a straight-through run
+    would use at that epoch."""
+    if warmup_epochs and epoch < warmup_epochs:
+        return base_lr * (epoch + 1) / warmup_epochs
+    e = epoch - warmup_epochs
+    if name == "cosine":
+        horizon = max(1, total_epochs - warmup_epochs - 1)
+        t = min(e, horizon)
+        return min_lr + 0.5 * (base_lr - min_lr) * (1.0 + math.cos(math.pi * t / horizon))
+    if name == "step":
+        return base_lr * gamma ** (e // max(1, step_size))
+    if name == "exp":
+        return base_lr * gamma**e
+    return base_lr

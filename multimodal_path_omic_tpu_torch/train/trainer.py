@@ -1,0 +1,553 @@
+"""Trainer: the training entry point for every model family
+(``multimodal_path_omic_tpu/train/trainer.py``).
+
+The reference duplicates its epoch / train / validate / test / checkpoint
+code across models/mcat/main.py, models/nacagat/main.py and
+models/ge_nacagat/main.py. One Trainer drives them all:
+
+* dataset build + seeded patient split (+ leave-one-out): mcat/main.py:239-252
+* model build with ``omic_sizes = dataset.signature_sizes``: mcat/main.py:254-259
+* loss / optimizer / scheduler: mcat/main.py:270-307
+* epoch loop: train -> validate -> optional leave-one-out test with periodic
+  attention export -> final validation: mcat/main.py:320-337
+* checkpoints with the full state (weights, optimizer, dropout generator,
+  epoch): mcat/main.py:88-100, 261-266, 309-312
+* the censored c-index over per-sample risks: mcat/main.py:76-81
+
+Batches are whole optimizer steps (bucketed, padded, masked). A host-fed
+epoch reads and pads its bags in a prefetch thread while the device works;
+with ``tpu.device_cache`` engaged the whole cohort is uploaded once and every
+batch is gathered on the device (``data/device_cache.py``).
+
+``Trainer(config, device=None)`` runs on the GPU; ``config.device == "cpu"``
+or ``device="cpu"`` selects the CPU (the kernels' plain versions). "tpu",
+"cuda" and "gpu" all mean the GPU, and without one the Trainer raises
+(``device.resolve_device``): it never drops to the CPU on its own.
+
+Settings the port cannot honour yet raise ``NotImplementedError``
+(``config.require_supported``; a reference ``.pt`` checkpoint in
+``Trainer.restore``). These settings only shape how the JAX package
+dispatches and leave the numbers as they are; they are read and have no
+effect here:
+``steps_per_dispatch``, ``use_native_pipeline``, ``prefetch`` (the host
+prefetch thread keeps a fixed two batches ahead), ``matmul_precision`` (the
+port computes in full float32, ``device.configure_precision``),
+``prng_impl``, ``compilation_cache_dir`` and ``use_pallas`` (the port's
+kernel routes are chosen by their shape predicates; on the CPU the plain
+versions run anyway).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import math
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multimodal_path_omic_tpu_torch.config import Config, load_config, require_supported
+from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for
+from multimodal_path_omic_tpu_torch.data.dataset import GeneExprDataset, MultimodalDataset
+from multimodal_path_omic_tpu_torch.data.device_cache import (
+    DeviceBagCache,
+    build_meta,
+    plan_cache_fit,
+)
+from multimodal_path_omic_tpu_torch.data.pipeline import (
+    BucketBatcher,
+    gene_expr_extras,
+    prefetch,
+    survival_extras,
+)
+from multimodal_path_omic_tpu_torch.device import resolve_device
+from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
+from multimodal_path_omic_tpu_torch.train import checkpoint as ckpt
+from multimodal_path_omic_tpu_torch.train.logging import MetricLogger, StepTimer
+from multimodal_path_omic_tpu_torch.train.loop import (
+    init_train_state,
+    make_cached_train_step,
+    make_eval_step,
+    make_train_step,
+)
+from multimodal_path_omic_tpu_torch.train.metrics import concordance_index_censored
+from multimodal_path_omic_tpu_torch.train.optim import (
+    current_lr,
+    make_optimizer,
+    schedule_lr,
+    set_lr,
+    step_exponential,
+)
+from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+
+# the host columns of a batch the epoch's metrics read
+_INFO_KEYS = ("n_real", "weight", "censorship", "survival_months", "label")
+
+
+def _c_index(censorship: np.ndarray, months: np.ndarray, risk: np.ndarray) -> float:
+    try:
+        return concordance_index_censored((1 - censorship).astype(bool), months, risk)[0]
+    except ValueError:  # fewer than two samples, or no comparable pair
+        return float("nan")
+
+
+class Trainer:
+    def __init__(self, config: Config, verbose: bool = True, device=None):
+        """``device``: None follows ``config.device`` (the GPU unless it is
+        "cpu")."""
+        require_supported(config)
+        c = self.config = config
+        self.verbose = verbose
+        self.device = resolve_device(
+            device if device is not None else ("cpu" if c.device == "cpu" else "cuda"))
+        self.ge_mode = is_ge_model(c.model.name)
+        if self.ge_mode and c.training.loss != "ce":
+            # the GE script's restriction (ge_nacagat/main.py:32-35)
+            raise RuntimeError(f'Loss "{c.training.loss}" not implemented')
+        self.leave_one_out = c.training.leave_one_out is not None
+
+        # ----- dataset + splits (mcat/main.py:239-252) ---------------------
+        if self.ge_mode:
+            self.dataset = GeneExprDataset(c.dataset.file, c, gene=c.model.gene, verbose=verbose)
+            self.extras_fn = gene_expr_extras
+            self.omic_sizes: List[int] = []
+        else:
+            self.dataset = MultimodalDataset(c.dataset.file, c, use_signatures=True,
+                                             verbose=verbose)
+            self.extras_fn = survival_extras
+            self.omic_sizes = list(self.dataset.signature_sizes)
+        if verbose:
+            ts = int(c.training.train_size * 100)
+            print(f"Using {ts}% train, {100 - ts}% validation")
+        self.train_ds, self.val_ds, self.test_ds = self.dataset.split(
+            c.training.train_size, test=self.leave_one_out,
+            patient=c.training.leave_one_out or "", seed=c.training.seed,
+            bug_compat=c.training.bug_compat)
+        if verbose:
+            print(f"Samples in train: {len(self.train_ds)}, "
+                  f"Samples in validation: {len(self.val_ds)}")
+            if self.test_ds is not None:
+                print(f"Testing patient {c.training.leave_one_out}")
+
+        self.buckets = tuple(c.tpu.bag_buckets) or DEFAULT_BUCKETS
+        self.batch_size = c.tpu.batch_size or c.training.grad_acc_step
+        self.train_batcher = BucketBatcher(self.train_ds, self.extras_fn, self.batch_size,
+                                           self.buckets, shuffle=True, seed=c.training.seed)
+        self.val_batcher = BucketBatcher(self.val_ds, self.extras_fn, self.batch_size,
+                                         self.buckets, shuffle=False)
+
+        # ----- model, optimizer, steps (mcat/main.py:254-307) --------------
+        self.wsi_dim = int(self.dataset.bag(0).shape[1]) if len(self.dataset) else 1024
+        model = build_model(
+            c.model.name, omic_sizes=self.omic_sizes, model_size=c.model.model_size,
+            fusion=c.model.fusion, n_classes=3 if self.ge_mode else c.model.n_classes,
+            dropout=c.model.dropout, wsi_dim=self.wsi_dim)
+        self.model = seeded_init_(model, c.training.seed).to(self.device)
+        self.n_params = sum(p.numel() for p in self.model.parameters())
+        self.optimizer = make_optimizer(c.training.optimizer, c.training.lr,
+                                        c.training.weight_decay, grad_clip=c.training.grad_clip)
+        if verbose:
+            print(f"Trainable parameters of {c.model.name}: {self.n_params}")
+            print(f"Using optimizer: {c.training.optimizer}")
+            print(f'Using loss "{c.training.loss}" during training')
+            print(f"Device: {self.device}"
+                  + (f" ({torch.cuda.get_device_name(self.device)})"
+                     if self.device.type == "cuda" else ""))
+        self.state = init_train_state(self.model, self.optimizer, c.training.seed)
+        self.starting_epoch = 0
+        if c.model.load_from_checkpoint:
+            self.restore(c.model.load_from_checkpoint)
+
+        self._step_kw = dict(alpha=c.training.alpha, l1_lambda=c.training.lambda_,
+                             ge_mode=self.ge_mode,
+                             omic_sizes=None if self.ge_mode else tuple(self.omic_sizes))
+        self.train_step = make_train_step(self.model, c.training.loss, self.optimizer,
+                                          patch_dropout=c.training.patch_dropout,
+                                          **self._step_kw)
+        self.eval_step = make_eval_step(self.model, c.training.loss, **self._step_kw)
+
+        # device-resident cohort: engaged on first use (_ensure_device_cache)
+        self.device_cache = None
+        self.device_cache_val = None
+        self._want_device_cache = c.tpu.device_cache in ("auto", "on")
+        self._device_cache_forced = c.tpu.device_cache == "on"
+
+        self.logger = MetricLogger(
+            jsonl_path=os.path.join(c.training.test_output_dir, "run_log.jsonl")
+            if c.training.test_output_dir else None)
+        self.timer = StepTimer()
+        self.val_risks = np.zeros(0)  # the last validation's risks, real rows in batch order
+
+    # ------------------------------------------------------------------ util
+    def _ensure_device_cache(self) -> bool:
+        """Upload the cohort (train and validation bags) once, if
+        ``tpu.device_cache`` asks for it and it fits
+        ``tpu.device_cache_budget_bytes`` whole ("on" ignores the budget).
+        A cohort that fits only in part is fed from the host: partial
+        caching is not ported (ROADMAP.md queue 1, the Trainer's rest).
+        Returns whether the cache is engaged."""
+        if not self._want_device_cache:
+            return False
+        if self.device_cache is not None:
+            return True
+        if len(self.train_ds) == 0:
+            self._want_device_cache = False
+            return False
+        c = self.config
+        lengths = self.train_batcher._bag_lengths()
+        val_lengths = self.val_batcher._bag_lengths() if len(self.val_ds) else np.zeros(0)
+        all_lengths = np.concatenate([lengths, val_lengths])
+        per_bucket = DeviceBagCache.bucket_bytes(all_lengths, self.buckets, self.wsi_dim)
+        counts: Dict[int, int] = {}
+        for m in all_lengths:
+            b = bucket_for(int(m), self.buckets)
+            counts[b] = counts.get(b, 0) + 1
+        budget = c.tpu.device_cache_budget_bytes
+        only_buckets, nbytes, engaged = plan_cache_fit(
+            per_bucket, counts, budget, forced=self._device_cache_forced)
+        if not engaged or only_buckets is not None:
+            if self.verbose:
+                print(f"Device dataset cache: cohort ({sum(per_bucket.values()) / (1 << 20):.0f}"
+                      f" MiB) exceeds the budget ({budget / (1 << 20):.0f} MiB); host feeding")
+            self._want_device_cache = False
+            return False
+        if self.verbose:
+            print(f"Device dataset cache: {nbytes / (1 << 20):.0f} MiB of padded bags "
+                  f"(float32) uploaded once ({len(self.train_ds)} train + "
+                  f"{len(self.val_ds)} val bags)")
+        kw = dict(device=self.device, ge_mode=self.ge_mode)
+        self.device_cache = DeviceBagCache(self.train_ds, self.extras_fn, self.buckets,
+                                           lengths=lengths, **kw)
+        self.device_cache_val = (
+            DeviceBagCache(self.val_ds, self.extras_fn, self.buckets, lengths=val_lengths, **kw)
+            if len(self.val_ds) else None)
+        self._cached_step = make_cached_train_step(
+            self.model, c.training.loss, self.optimizer,
+            patch_dropout=c.training.patch_dropout, **self._step_kw)
+        self._cached_eval = make_eval_step(self.model, c.training.loss, cached=True,
+                                           **self._step_kw)
+        return True
+
+    def _device_batch(self, batch) -> Dict[str, Any]:
+        """A host batch's tensors on the device; the omics groups travel as
+        one packed [B, sum(s_i)] tensor, as the device cache holds them."""
+        dev = self.device
+
+        def put(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+        out = {"wsi": put(batch["wsi"], np.float32), "mask": put(batch["mask"], bool),
+               "weight": put(batch["weight"], np.float32),
+               "label": put(batch["label"], np.int64)}
+        if not self.ge_mode:
+            out["omics_packed"] = put(np.concatenate(
+                [np.asarray(o, np.float32) for o in batch["omics"]], axis=-1), np.float32)
+            out["censorship"] = put(batch["censorship"], np.float32)
+            out["survival_months"] = put(batch["survival_months"], np.float32)
+        return out
+
+    def _batch_info(self, meta, real: int, table) -> Dict[str, Any]:
+        """The host columns the epoch's metrics read, for a cached batch."""
+        rows = meta["row"]
+        info = {"n_real": real, "weight": meta["weight"]}
+        if self.ge_mode:
+            info["label"] = table.gene_expr_class[rows]
+        else:
+            info["censorship"] = table.censorship[rows]
+            info["survival_months"] = table.survival_months[rows]
+        return info
+
+    def _feed(self, batcher, cache, step, cached_step):
+        """Yield ``(info, run)`` per batch of ``batcher``'s next epoch:
+        ``info`` holds the host columns the metrics read (n_real, weight,
+        censorship and months, or GE labels), ``run(*state)`` takes the
+        step. Gathered from ``cache`` when given, else host-fed through the
+        prefetch thread."""
+        if cache is not None:
+            table = batcher.dataset.table
+            for indices, bucket in batcher._epoch_plan():
+                meta, real = build_meta(indices, self.batch_size, cache)
+                yield (self._batch_info(meta, real, table),
+                       lambda *st, b=cache.caches[bucket], m=meta: cached_step(*st, b, m))
+            return
+        for batch in prefetch(batcher.batches()):
+            dev = self._device_batch(batch)
+            # the host columns only: the epoch keeps its infos, not its bags
+            info = {k: batch[k] for k in _INFO_KEYS if k in batch}
+            yield info, lambda *st, d=dev: step(*st, d)
+
+    # --------------------------------------------------------------- training
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        c = self.config
+        # epoch-indexed schedules set the lr at the epoch's start, so a
+        # resumed run lands on the lr of a straight-through run; the
+        # reference's exp scheduler steps at the epoch's end (below)
+        if c.training.scheduler in ("cosine", "step") or c.training.warmup_epochs:
+            set_lr(self.state.optimizer, schedule_lr(
+                c.training.scheduler, c.training.lr, epoch, gamma=c.training.gamma,
+                total_epochs=c.training.epochs, warmup_epochs=c.training.warmup_epochs,
+                min_lr=c.training.min_lr, step_size=c.training.step_size))
+        losses, attn_losses, risks, infos = [], [], [], []
+        self.timer.reset()
+        epoch_t0 = time.time()
+        cache = self.device_cache if self._ensure_device_cache() else None
+        cached_step = self._cached_step if cache is not None else None
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True) if c.training.debug_nans
+                   else contextlib.nullcontext())
+        with anomaly:
+            for info, run in self._feed(self.train_batcher, cache, self.train_step, cached_step):
+                self.state, m = run(self.state)
+                losses.append(m.loss)
+                attn_losses.append(m.attn_loss)
+                risks.append(m.risk)
+                infos.append(info)
+                self.timer.tick(int(info["n_real"]))
+                if self.verbose and len(infos) % 50 == 0:
+                    # the reference's per-50-batch print (mcat/main.py:63-68)
+                    print(f"\tstep: {len(infos)}, loss: {float(m.loss):.4f}, "
+                          f"bags/s: {self.timer.rates()[1]:.2f}")
+        # one device-to-host fetch for the epoch's metrics
+        loss_vals = (torch.stack(losses).double().cpu().numpy() if losses else np.zeros(1))
+        if not np.all(np.isfinite(loss_vals)):
+            bad = int(np.argmax(~np.isfinite(loss_vals)))
+            raise FloatingPointError(
+                f"non-finite loss {loss_vals[bad]} at epoch {epoch + 1} step {bad + 1}")
+        w = np.array([float(i["n_real"]) for i in infos]) if infos else np.ones(1)
+        self.last_epoch_steps = len(infos)
+        self.train_bags_per_s = self.timer.rates()[1]
+        out: Dict[str, float] = {
+            "train_loss": float((loss_vals * w).sum() / max(w.sum(), 1.0)),
+            "epoch_seconds": time.time() - epoch_t0,
+        }
+        if self.ge_mode:
+            out["train_mse"] = out["train_loss"]  # ge_nacagat/main.py:82
+            msg = f"Epoch: {epoch + 1}, train_loss: {out['train_loss']:.4f}"
+        else:
+            sel, cens, months = self._real_columns(infos)
+            risk_all = torch.cat(risks).cpu().numpy()[sel] if risks else np.zeros(0)
+            out["train_c_index"] = _c_index(cens, months, risk_all)
+            attn = torch.stack(attn_losses).double().cpu().numpy() if attn_losses else np.zeros(1)
+            out["train_attn_loss"] = float((attn * w).sum() / max(w.sum(), 1.0))
+            msg = (f"Epoch: {epoch + 1}, train_loss: {out['train_loss']:.4f}, "
+                   f"train_c_index: {out['train_c_index']:.4f}")
+        if c.training.scheduler == "exp" and not c.training.warmup_epochs:
+            msg = f"{msg}, lr: {current_lr(self.state.optimizer):.8f}"
+            step_exponential(self.state.optimizer, c.training.gamma)
+        elif c.training.scheduler in ("cosine", "step") or c.training.warmup_epochs:
+            msg = f"{msg}, lr: {current_lr(self.state.optimizer):.8f}"
+        if self.verbose:
+            print(msg)
+        # periodic checkpoint (mcat/main.py:88-100)
+        every = c.model.checkpoint_epoch
+        if every and every > 0 and (epoch + 1) % every == 0 and epoch != 0:
+            path = self.save(epoch, out["train_loss"])
+            if self.verbose:
+                print(f"Saving model into {path}")
+        self.logger.log({k: v for k, v in out.items() if not math.isnan(v)}, step=epoch)
+        return out
+
+    @staticmethod
+    def _real_columns(infos) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(real-row selector, censorship, months) over the epoch's batches."""
+        if not infos:
+            return np.zeros(0, bool), np.zeros(0), np.zeros(0)
+        sel = np.concatenate([np.asarray(i["weight"]) for i in infos]) > 0
+        cens = np.concatenate([np.asarray(i["censorship"]) for i in infos])[sel]
+        months = np.concatenate([np.asarray(i["survival_months"]) for i in infos])[sel]
+        return sel, cens, months
+
+    def validate(self, epoch) -> Dict[str, float]:
+        """Eval steps over the validation split; the per-sample mean loss and
+        the c-index (GE: the weighted top-1 accuracy)."""
+        cache = None
+        if self._ensure_device_cache():
+            cache = self.device_cache_val
+        losses, outs, infos = [], [], []
+        for info, run in self._feed(self.val_batcher, cache, self.eval_step,
+                                    self._cached_eval if cache is not None else None):
+            res = run()
+            losses.append(res["loss"])
+            outs.append(res["y"] if self.ge_mode else res["risk"])
+            infos.append(info)
+        lv = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(1)
+        wv = np.array([float(i["n_real"]) for i in infos]) if infos else np.ones(1)
+        out = {"val_loss": float((lv * wv).sum() / max(wv.sum(), 1.0))}
+        label = epoch if isinstance(epoch, str) else epoch + 1
+        if self.ge_mode:
+            out["val_mse"] = out["val_loss"]  # ge_nacagat/main.py:119
+            if outs:
+                y_all = torch.cat(outs).cpu().numpy()
+                l_all = np.concatenate([np.asarray(i["label"]) for i in infos])
+                w_all = np.concatenate([np.asarray(i["weight"]) for i in infos])
+                hit = (np.argmax(y_all, axis=1) == l_all).astype(float)
+                out["val_accuracy"] = float((hit * w_all).sum() / max(w_all.sum(), 1.0))
+            msg = f"Epoch: {label}, val_loss: {out['val_loss']:.4f}"
+        else:
+            sel, cens, months = self._real_columns(infos)
+            self.val_risks = torch.cat(outs).cpu().numpy()[sel] if outs else np.zeros(0)
+            out["val_c_index"] = _c_index(cens, months, self.val_risks)
+            msg = (f"Epoch: {label}, val_loss: {out['val_loss']:.4f}, "
+                   f"val_c_index: {out['val_c_index']:.4f}")
+        if self.verbose:
+            print(msg)
+        self.logger.log({k: v for k, v in out.items() if not math.isnan(v)},
+                        step=epoch if isinstance(epoch, int) else None)
+        return out
+
+    def validated_epoch(self, epoch: int) -> Tuple[Dict[str, float], Dict[str, float]]:
+        """One training epoch and its validation."""
+        return self.train_epoch(epoch), self.validate(epoch)
+
+    # -------------------------------------------------------------- test/export
+    def test(self, epoch: int, save: bool = False) -> None:
+        """Leave-one-out inference + attention-map export (reference:
+        mcat/main.py:158-183): survival models export the co-attention map
+        [N, M], GE the MIL scores [1, M], each cut to the bag's patches, as
+        ``ATTN_<model>_<patient>_<time>_E<epoch>_<batch>.npy`` (GE: without
+        the model) or ``.pt`` under ``training.attn_export_format``.
+        Rendering the maps as PNG is not ported (ROADMAP.md queue 1, HTTP
+        server and CLI)."""
+        if self.test_ds is None or len(self.test_ds) == 0:
+            return
+        c = self.config
+        now = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
+        out_dir = c.training.test_output_dir
+        os.makedirs(out_dir, exist_ok=True)
+        batcher = BucketBatcher(self.test_ds, self.extras_fn, 1, self.buckets, shuffle=False)
+        if not hasattr(self, "_test_eval_step"):
+            self._test_eval_step = make_eval_step(
+                self.model, c.training.loss, need_attention=not self.ge_mode, **self._step_kw)
+        for bi, batch in enumerate(batcher.batches()):
+            res = self._test_eval_step(self._device_batch(batch))
+            n_patches = int(batch["mask"][0].sum())
+            attn = res["attention"]["path" if self.ge_mode else "coattn"]
+            attn_map = attn.reshape(attn.shape[0], -1, attn.shape[-1])[0, :, :n_patches]
+            attn_map = attn_map.cpu().numpy()
+            if self.verbose:
+                if self.ge_mode:
+                    print(f"[{bi}] Gene Expression Class: {batch['label'][0]}")
+                    print(f"Prediction: {res['y'][0].cpu().numpy()}")
+                else:
+                    print(f"[{bi}] Survival months: {batch['survival_months'][0]}, "
+                          f"Survival class: {batch['label'][0]}, "
+                          f"Censorship: {batch['censorship'][0]}")
+                    print(f"Hazards: {res['hazards'][0].cpu().numpy()}, "
+                          f"Survs: {res['survs'][0].cpu().numpy()}, "
+                          f"Risk: {float(res['risk'][0]):.4f}")
+                print(f"Attn min: {attn_map.min():.6f}, Attn max: {attn_map.max():.6f}, "
+                      f"Attn mean: {attn_map.mean():.6f}")
+            if save:
+                patient = c.training.leave_one_out
+                ext = c.training.attn_export_format
+                model = "" if self.ge_mode else f"{c.model.name}_"  # ge_nacagat/main.py:140
+                path = os.path.join(out_dir, f"ATTN_{model}{patient}_{now}_E{epoch}_{bi}.{ext}")
+                if self.verbose:
+                    print(f"Saving attention in {path}")
+                if ext == "pt":  # the reference's torch.save export (mcat/main.py:180-183)
+                    torch.save(torch.from_numpy(np.ascontiguousarray(attn_map)), path)
+                else:
+                    np.save(path, attn_map)
+
+    # ------------------------------------------------------------- checkpoint
+    def save(self, epoch: int, loss: float, tag: Optional[str] = None) -> str:
+        """Checkpoint after 0-based ``epoch``: the model's and optimizer's
+        state dicts, the dropout generator's state, the step count, the
+        split seed and the epoch to resume at."""
+        c = self.config
+        payload = {
+            "epoch": epoch + 1,  # a resumed run starts at the next epoch
+            "model": self.model.state_dict(),
+            "optimizer": self.state.optimizer.state_dict(),
+            "generator": self.state.generator.get_state(),
+            "step": self.state.step,
+            "loss": float(loss),
+            "seed": c.training.seed,
+        }
+        return ckpt.save_checkpoint(c.model.checkpoint_dir, payload, model_name=c.model.name,
+                                    dataset_name=c.dataset.name, epoch=epoch, tag=tag)
+
+    def restore(self, path: str) -> None:
+        if self.verbose:
+            print(f"Loading model checkpoint from {path}")
+        payload = ckpt.restore_checkpoint(path)
+        if "model_state_dict" in payload:
+            raise NotImplementedError(
+                f"{path} is a reference PyTorch checkpoint: loading one is not ported "
+                "(load_torch_checkpoint, ROADMAP.md queue 1, the Trainer's rest)")
+        self.model.load_state_dict(payload["model"])
+        self.state.optimizer.load_state_dict(payload["optimizer"])
+        self.state.generator.set_state(payload["generator"])
+        self.state = self.state._replace(step=int(payload["step"]))
+        self.starting_epoch = int(payload["epoch"])
+        if self.config.training.bug_compat:
+            # the reference resumes at the epoch it saved (mcat/main.py:96,
+            # 309-312, 323), so it trains that epoch again
+            self.starting_epoch = max(0, self.starting_epoch - 1)
+        # the shuffle of an uninterrupted run at this epoch (seed + epoch)
+        self.train_batcher._epoch = self.starting_epoch
+
+    def _monitor_key(self) -> str:
+        """training.monitor; "auto" is val_c_index (survival) or val_accuracy (GE)."""
+        m = self.config.training.monitor
+        if m != "auto":
+            return m
+        return "val_accuracy" if self.ge_mode else "val_c_index"
+
+    # -------------------------------------------------------------------- fit
+    def fit(self) -> Dict[str, float]:
+        """Train from ``starting_epoch`` to ``training.epochs``, validating
+        every epoch; ``keep_best`` checkpoints each improvement of the
+        monitored metric (tag "best"), ``early_stopping`` stops after that
+        many validated epochs without one; then a final validation."""
+        c = self.config
+        if self.verbose:
+            print("Training started...")
+        last: Dict[str, float] = {}
+        monitor = self._monitor_key()
+        sign = -1.0 if monitor == "val_loss" else 1.0
+        best_score, best_epoch, stale = -math.inf, -1, 0
+        for epoch in range(self.starting_epoch, c.training.epochs):
+            if self.verbose:
+                print(f"Epoch: {epoch + 1}")
+            t0 = time.time()
+            train_out, val = self.validated_epoch(epoch)
+            last.update(train_out)
+            last.update(val)
+            # a missing or NaN monitored metric counts as no improvement
+            value = val.get(monitor, math.nan)
+            score = sign * value if math.isfinite(value) else -math.inf
+            if score > best_score:
+                best_score, best_epoch, stale = score, epoch, 0
+                if c.training.keep_best:
+                    path = self.save(epoch, val.get("val_loss", 0.0), tag="best")
+                    if self.verbose:
+                        print(f"New best {monitor}: {value:.4f} (epoch {epoch + 1}) -> {path}")
+            else:
+                stale += 1
+            if self.leave_one_out:
+                self.test(epoch + 1, save=(epoch + 1) % c.training.output_attn_epoch == 0)
+            if self.verbose:
+                print(f"Time elapsed for epoch {epoch + 1}: {time.time() - t0:.0f}s")
+            if c.training.early_stopping and stale >= c.training.early_stopping:
+                if self.verbose:
+                    print(f"Early stopping at epoch {epoch + 1}: no {monitor} improvement in "
+                          f"{stale} validated epochs (best {sign * best_score:.4f} at epoch "
+                          f"{best_epoch + 1})")
+                break
+        if best_epoch >= 0 and math.isfinite(best_score):
+            last[f"best_{monitor}"] = sign * best_score
+            last["best_epoch"] = float(best_epoch + 1)
+        last.update(self.validate("final validation"))
+        self.logger.finish()
+        return last
+
+
+def main(config_path: str, overrides: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+    """Train from a reference-schema YAML config (the reference's
+    main(config_path), mcat/main.py:218-340), for every model family;
+    ``overrides`` maps dotted keys to values (``{"training.lr": 1e-3}``)."""
+    return Trainer(load_config(config_path, overrides)).fit()

@@ -1241,3 +1241,47 @@ def test_mcat_cached_train_step_on_card(dev):
         params[cached] = {k: v.detach().clone() for k, v in model.state_dict().items()}
     for k, v in params[True].items():
         assert torch.equal(v, params[False][k]), k
+
+
+@pytest.mark.parametrize("model_name,loss", [("NaCAGaT", "cesar"), ("MCAT", "ces")])
+def test_trainer_fit_on_card_matches_cpu(dev, tmp_path, model_name, loss):
+    """Two epochs of ``Trainer.fit`` on the card and on the CPU (dropout 0:
+    the two devices' generators draw different bits), at the CPU tests'
+    size: per-epoch train and val loss within 1e-4 relative, the val risks
+    within 1e-4 absolute; NaCAGaT's steps launch the fuse-K training
+    kernels and its validation the export passes."""
+    from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.data.synthetic import (
+        make_synthetic_cohort,
+        synthetic_config_dict,
+    )
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    paths = make_synthetic_cohort(str(tmp_path / "cohort"), n_patients=24,
+                                  bag_lengths=(48, 80, 120), n_genes=36, n_signatures=4,
+                                  seed=0, signal_strength=2.0)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        raw = synthetic_config_dict(*paths)
+        raw["model"].update(name=model_name, model_size="small", dropout=0.0,
+                            checkpoint_dir=str(tmp_path / where / "ck"))
+        raw["training"].update(loss=loss, epochs=2, optimizer="sgd", lr=0.05,
+                               test_output_dir=str(tmp_path / where / "out"))
+        raw["tpu"] = {"bag_buckets": [128], "batch_size": 8, "device_cache": "off"}
+        trainer = Trainer(config_from_dict(raw), verbose=False, device=where)
+        coattn.reset_launch_counts()
+        epochs = []
+        for e in range(2):
+            train, val = trainer.validated_epoch(e)
+            epochs.append({**train, **val, "risks": trainer.val_risks})
+        runs[where] = epochs
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launched = {k for k, v in coattn.LAUNCH_COUNTS.items() if v}
+            assert launched == ({"coattn_fwd_fused_k_train", "coattn_bwd_fused_k",
+                                 "coattn_stats", "coattn_weights"}
+                                if model_name == "NaCAGaT" else set())
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4)
+        np.testing.assert_allclose(got["risks"], ref["risks"], atol=ATOL, rtol=0)

@@ -454,7 +454,7 @@ def test_predictor_modes_refuse_what_they_do_not_take(world):
     with pytest.raises(NotImplementedError, match="ce"):
         _ge_predictor(world, loss="ces")
     with pytest.raises(NotImplementedError):
-        Predictor("NaCAGaT", omic_sizes=(4, 5), model_size="small", loss="ce", device="cpu")
+        Predictor("NaCAGaT", omic_sizes=(4, 5), model_size="small", loss="mse", device="cpu")
     with pytest.raises(ValueError, match="omic_sizes"):
         Predictor("NaCAGaT", model_size="small", device="cpu")
     surv = Predictor("NaCAGaT", omic_sizes=(4, 5), model_size="small", wsi_dim=WSI,

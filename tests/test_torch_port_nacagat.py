@@ -42,6 +42,13 @@ MODEL_ATOL = 5e-5
 B, M, WSI, D = 2, 1024, 256, 128
 SIZES = (10, 20, 30)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every module of the port, the training entry point's included
+PORT_MODULES = [
+    "ops.milpool", "ops.flash", "ops.kernels", "models.ge_nacagat", "serve", "train.loop",
+    "train.optim", "ops.gather", "models.mcat", "data.device_cache", "data.pipeline",
+    "config", "data.bags", "data.tables", "data.dataset", "data.synthetic", "train.metrics",
+    "train.checkpoint", "train.logging", "train.trainer", "utils.hdf5",
+]
 
 
 def _t(x):
@@ -256,9 +263,7 @@ def test_port_imports_nothing_of_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "want = ['ops.milpool', 'ops.flash', 'ops.kernels', 'models.ge_nacagat', 'serve',\n"
-        "        'train.loop', 'train.optim', 'ops.gather', 'models.mcat',\n"
-        "        'data.device_cache', 'data.pipeline']\n"
+        f"want = {PORT_MODULES!r}\n"
         "missing = [w for w in want if pkg.__name__ + '.' + w not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -268,4 +273,23 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 10
+    assert int(res.stdout.strip().splitlines()[-1]) >= len(PORT_MODULES)
+
+
+def test_port_modules_leave_jax_unimported():
+    """A fresh interpreter that imports every port module, nothing blocked,
+    has neither jax nor the JAX package in ``sys.modules`` (an import
+    guarded by try/except would pass the blocked test above)."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module('multimodal_path_omic_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'multimodal_path_omic_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
