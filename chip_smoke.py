@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
-serving and training paths, its device-cache training step and its training
-entry point (``Trainer.fit``) on one GPU.
+serving and training paths, its device-cache training step, its training
+entry point (``Trainer.fit``) and its serving entry points (the CLI and the
+HTTP server) on one GPU.
 
-    python3 chip_smoke.py              # phases 1-21 below
+    python3 chip_smoke.py              # phases 1-22 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -201,6 +202,34 @@ Phases (any failure exits non-zero, and no result line is printed):
     relative, the validation accuracy equal. Epoch seconds, train
     and val bags/s, launches and peak memory beside the card's name and
     power limit.
+22. The serving entry points on phase 21's cohort and configuration
+    (``examples/nacagat.yaml``, NaCAGaT medium, cesar): (a) the CLI in this
+    process: ``train`` (one epoch, the best checkpoint by validation loss),
+    ``validate --checkpoint`` printing the Trainer's last validation loss and
+    c-index, ``predict`` on the card and with ``--set device=cpu`` (the same
+    slides, order and columns, within 1e-4), ``predict --mc 8`` (8 K2
+    training-form launches a batch), ``evaluate --json``, ``check-data``,
+    and ``convert-checkpoint`` of a reference-format ``.pt`` built from the
+    trained weights by the transplant rules run backwards, predicting bit
+    for bit as the checkpoint; (b) ``Predictor.from_config`` behind
+    ``make_server(port=0)``: 3 ``/predict_npz`` (one float16), 1 ``/predict``
+    (JSON), 1 ``/predict_batch_npz`` of 8 bags, each bit for bit equal to the
+    in-process call of its shape, a bag alone within 1e-5 relative of it in a
+    batch, ``/metrics`` counting every request; (c) 8 concurrent clients on
+    a ``--dynamic-batch 8`` server (fewer groups than bags, within 1e-5 of the
+    per-bag answers; a bad request among them 400, its co-riders 200); (d)
+    ``?mc=8&mc_seed=3`` twice bit for bit equal, ``mc_seed=4`` different, the
+    MC step 8 K2 training-form launches and nothing else, equal bit for bit
+    to 8 training-mode forwards replayed from the same generator; (e) a
+    checkpoint ensemble (epoch 1 and one more epoch): ``risk_ens_std``, the
+    mean survs within 1e-6 of the members'; (f) a GE-NaCAGaT medium server
+    (buckets 8192/16384, batch 8) on bags of 600..2000 patches, one K5 and
+    three K6 forward launches a batch, within 1e-4 of the CPU; (g)
+    ``python -m multimodal_path_omic_tpu_torch.cli serve --port 0 --warmup``
+    in a subprocess answering one request and exiting 0 on SIGTERM after
+    ``server stopped``. Request latency, batch, dynamic-batch and sequential
+    bags/s, warmup seconds and ``predict_dataset`` bags/s beside the card's
+    name and power limit.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -210,7 +239,11 @@ JAX; runs only where CUDA is available and the port package sits beside it.
 phase-2 Predictor for each loss on the same bags, and traces one
 ``predict_bags`` call with ``torch.profiler``: device time by kernel / copy
 name, wall time and the device busy share (summed device time over wall
-time), then one JSON line per loss with the same numbers. It then traces one
+time), then one JSON line per loss with the same numbers; then one
+``/predict_batch_npz`` request of 8 bags to a server over the ``cesar``
+Predictor: its wall time beside the body's ``np.load``, the inference under
+the server's lock and the device time split into host-to-device copies,
+other copies and kernels. It then traces one
 phase-5 training step the same way (``medium``, then ``big``: phase 20's
 trainer), after the host-clock median of 10 steps and their peak device
 memory, with its device time split into
@@ -2836,6 +2869,538 @@ def phase21_trainer(dev) -> dict:
     return total
 
 
+# Phase 22: the serving entry points (examples/nacagat.yaml on phase 21's
+# cohort; the CLI's training run is one epoch, keeping the best checkpoint by
+# validation loss, which the first validated epoch always is).
+SERVE_SET = ["--set", "training.keep_best=true", "--set", "training.monitor=val_loss"]
+# A server answer against an in-process call of the same batch shape: bit for
+# bit. A bag scored alone against the same bag in a batch of 16 rows: cuBLAS
+# may take other algorithms for other row counts (float32 on both sides),
+# which moves outputs by ~1e-7 relative; 1e-5 relative.
+SHAPE_RTOL = 1e-5
+# The dynamic batcher's answers against the per-bag answers: absolute, outputs
+# of magnitude <= ~4 (risk).
+DYN_ATOL = 1e-5
+# The ensemble's mean survs against the mean of its two members' survs: the
+# same float32 numbers averaged in another order.
+ENS_ATOL = 1e-6
+MC_SAMPLES = 8
+DYN_BATCH = 8
+# request bags: lengths of the NaCAGaT requests, the latency bag (8192 bucket)
+# and GE's bags (held to the CPU, as phase 21 (e) holds GE)
+SERVE_LENGTHS = (1500, 8000)
+LATENCY_PATCHES = 8000
+GE_SERVE_LENGTHS = (600, 2000)
+
+
+def cli_run(argv) -> str:
+    """``cli.main(argv)`` in this process with its standard output captured;
+    a non-zero exit raises."""
+    import contextlib
+    import io
+
+    from multimodal_path_omic_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}:\n{out[-2000:]}")
+    return out
+
+
+def last_line(out: str, start: str) -> str:
+    return [line for line in out.splitlines() if line.startswith(start)][-1]
+
+
+def printed_metrics(out: str) -> dict:
+    """The metrics dict the CLI's train and validate print last."""
+    return {k: float(v) for k, v in re.findall(r"'(\w+)': ([^,}]+)", last_line(out, "{"))}
+
+
+def http(url, data=None):
+    """(status, parsed body) of a GET (``data`` None) or a POST of ``data``
+    bytes; 4xx and 5xx answers are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/octet-stream"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            body = resp.read()
+            status = resp.status
+    except urllib.error.HTTPError as exc:
+        body, status = exc.read(), exc.code
+    text = body.decode()
+    return status, (json.loads(text) if text.startswith("{") else text)
+
+
+def npz_bytes(bag=None, omics=None, bags=None, omics_list=None) -> bytes:
+    """A ``/predict_npz`` body (``bag`` + ``omics``) or a
+    ``/predict_batch_npz`` body (``bags`` + ``omics_list``)."""
+    import io
+
+    arrays = {}
+    if bags is None:
+        arrays["wsi"] = bag
+        arrays.update({f"omic_{j}": o for j, o in enumerate(omics or [])})
+    else:
+        for i, b in enumerate(bags):
+            arrays[f"wsi_{i}"] = b
+            for j, o in enumerate((omics_list or [[]] * len(bags))[i]):
+                arrays[f"omic_{i}_{j}"] = o
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def answer_keys(ge: bool) -> tuple:
+    return ("y",) if ge else ("y", "risk", "hazards", "survs")
+
+
+def same_answer(what, body, direct, keys) -> None:
+    """A server's JSON answer (float32 values through JSON, which round-trips
+    them exactly) bit for bit against an in-process answer."""
+    for k in keys:
+        got = np.asarray(body[k], np.float32)
+        if got.shape != direct[k].shape or not np.array_equal(got, direct[k]):
+            raise AssertionError(f"{what}: {k} differs from the in-process call "
+                                 f"(max |diff| {np.abs(got - direct[k]).max():.3e})")
+
+
+def rel_err(got, ref) -> float:
+    return float((np.abs(got - ref) / np.abs(ref)).max())
+
+
+def reference_state_dict(state, model_name, omic_sizes, fusion):
+    """The reference's state dict of a port state dict: the transplant rules
+    (``utils/transplant.py``) run backwards."""
+    from multimodal_path_omic_tpu_torch.utils.transplant import transplant_rules
+
+    ref = {}
+    for ref_key, port_key, slot in transplant_rules(model_name, len(omic_sizes), fusion):
+        v = state[port_key]
+        if slot is not None:
+            v = v[slot]
+            if port_key == "G.fc1_kernel":
+                v = v[:omic_sizes[slot]].t()
+            elif port_key == "G.fc2_kernel":
+                v = v.t()
+        ref[ref_key] = v.clone().contiguous()
+    return ref
+
+
+def metric_value(text: str, prefix: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def serve_bags(rng, n, lengths, sizes):
+    bags = [rng.standard_normal((int(m), 1024), dtype=np.float32)
+            for m in rng.integers(lengths[0], lengths[1] + 1, size=n)]
+    omics = [[rng.standard_normal(s, dtype=np.float32) for s in sizes] for _ in bags]
+    return bags, omics
+
+
+def phase22_serving(dev) -> dict:
+    """The serving entry points on the card: the CLI (train, validate,
+    predict on the card and the CPU, predict --mc, evaluate, check-data,
+    convert-checkpoint), the HTTP server in-process (bitwise against
+    in-process calls), dynamic batching, MC dropout, a checkpoint ensemble,
+    GE-NaCAGaT serving, and ``cli serve`` in a subprocess stopped by
+    SIGTERM. Returns the phase's kernel launches."""
+    import concurrent.futures
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import pandas as pd
+    import torch
+    import yaml
+
+    from multimodal_path_omic_tpu_torch.config import config_to_dict, load_config
+    from multimodal_path_omic_tpu_torch.data.bags import bucket_for, pad_bag
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.server import make_server
+    from multimodal_path_omic_tpu_torch.train.loop import mc_generator
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    servers, procs = [], []
+
+    def counted(fn):
+        """(fn(), the kernel launches it made)."""
+        before = read_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = read_counts()
+        return out, {k: v - before[k] for k, v in after.items() if v - before[k]}
+
+    def serve(pred, **kw):
+        server = make_server(pred, port=0, **kw)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append(server)
+        return f"http://127.0.0.1:{server.server_address[1]}"
+
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, "run"),
+                             {**TRAINER_SET, "tpu.device_cache": "off"})
+        cfg_path = os.path.join(root, "nacagat.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(config_to_dict(cfg), f)
+        log(f"phase 22: cohort {TRAINER_COHORT} and {cfg_path} (examples/nacagat.yaml + "
+            f"{TRAINER_SET}) written in {time.perf_counter() - t0:.1f} s")
+
+        # ---- (a) the CLI on the card
+        log("phase 22 (a): cli train --set training.epochs=1 (keep_best by val_loss)")
+        (out, launched) = counted(lambda: cli_run(
+            ["train", "--config", cfg_path, "--set", "training.epochs=1", *SERVE_SET]))
+        final = printed_metrics(out)
+        ck1 = os.path.join(cfg.model.checkpoint_dir, f"{cfg.model.name}_{cfg.dataset.name}_best.pt")
+        log(f"  train: {final}; launches {launched}; checkpoint {os.path.basename(ck1)}")
+        for k in ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k", "coattn_stats",
+                  "coattn_weights"):
+            if not launched.get(k):
+                raise AssertionError(f"cli train launched no {k}")
+        val = printed_metrics(cli_run(["validate", "--config", cfg_path, "--checkpoint", ck1]))
+        log(f"  validate --checkpoint: {val}")
+        for k in ("val_loss", "val_c_index"):
+            if val[k] != final[k] and not (math.isnan(val[k]) and math.isnan(final[k])):
+                raise AssertionError(f"validate {k} {val[k]} != the Trainer's {final[k]}")
+        csv = {name: os.path.join(root, f"preds_{name}.csv") for name in
+               ("card", "cpu", "mc", "converted", "ensemble")}
+        t0 = time.perf_counter()
+        _, launched = counted(lambda: cli_run(
+            ["predict", "--config", cfg_path, "--checkpoint", ck1, "--out", csv["card"]]))
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_run(["predict", "--config", cfg_path, "--checkpoint", ck1, "--out", csv["cpu"],
+                 "--set", "device=cpu"])
+        t_cpu = time.perf_counter() - t0
+        card, cpu = pd.read_csv(csv["card"]), pd.read_csv(csv["cpu"])
+        if list(card.columns) != list(cpu.columns) or list(card.slide_id) != list(cpu.slide_id):
+            raise AssertionError("predict: the card's and the CPU's CSV differ in columns or order")
+        num = [c for c in card.columns if c != "slide_id"]
+        err = float(np.abs(card[num].to_numpy() - cpu[num].to_numpy()).max())
+        log(f"  predict on the card ({t_card:.1f} s, launches {launched}) and with --set "
+            f"device=cpu ({t_cpu:.1f} s): {len(card)} slides, columns {len(card.columns)}, "
+            f"same order; max_abs_err {err:.3e} over {num[:3]}... (tolerance {MODEL_ATOL:g})")
+        if err > MODEL_ATOL or not np.isfinite(card[num].to_numpy()).all():
+            raise AssertionError("predict: the card disagrees with the CPU")
+        n_batches_ds = launched.get("coattn_stats", 0)
+        _, launched = counted(lambda: cli_run(
+            ["predict", "--config", cfg_path, "--checkpoint", ck1, "--out", csv["mc"],
+             "--mc", MC_SAMPLES]))
+        mc = pd.read_csv(csv["mc"])
+        log(f"  predict --mc {MC_SAMPLES}: launches {launched}; risk_mc_std "
+            f"{mc.risk_mc_std.min():.3e}..{mc.risk_mc_std.max():.3e}")
+        if (launched.get("coattn_fwd_fused_k_train") != MC_SAMPLES * n_batches_ds
+                or not (mc.risk_mc_std > 0).all() or not np.array_equal(mc.risk, card.risk)):
+            raise AssertionError("predict --mc: launches, risk_mc_std or risk unexpected")
+        res = json.loads(last_line(cli_run(["evaluate", "--config", cfg_path, "--checkpoint",
+                                            ck1, "--json"]), "{"))
+        log(f"  evaluate --json: c_index {res['c_index']:.4f}, IBS "
+            f"{res['integrated_brier_score']:.4f}, mean AUC {res['mean_auc']:.4f} on "
+            f"{res['n']} validation slides")
+        cli_run(["check-data", "--config", cfg_path])
+        log("  check-data: exit 0")
+        pred = Predictor.from_config(load_config(cfg_path), checkpoint=ck1)
+        sizes = pred.omic_sizes
+        payload = torch.load(ck1, map_location="cpu", weights_only=True)
+        ref_pt = os.path.join(root, "reference.pt")
+        torch.save({"epoch": 0, "optimizer_state_dict": payload["optimizer"],
+                    "loss": torch.tensor(float(payload["loss"])),
+                    "model_state_dict": reference_state_dict(
+                        payload["model"], cfg.model.name, sizes, cfg.model.fusion)}, ref_pt)
+        out = cli_run(["convert-checkpoint", "--config", cfg_path, "--torch-checkpoint", ref_pt,
+                       "--set", f"model.checkpoint_dir={os.path.join(root, 'converted')}"])
+        ck_conv = last_line(out, "Converted checkpoint written to").rsplit(" ", 1)[-1]
+        cli_run(["predict", "--config", cfg_path, "--checkpoint", ck_conv, "--out",
+                 csv["converted"]])
+        with open(csv["converted"]) as a, open(csv["card"]) as b:
+            if a.read() != b.read():
+                raise AssertionError("the converted reference checkpoint predicts otherwise")
+        log("  convert-checkpoint of a reference-format .pt (the trained weights under the "
+            "reference's names, Adam state, a 0-d tensor loss): predictions bit for bit equal")
+
+        # ---- (b) the server in-process
+        cfg = load_config(cfg_path)
+        t0 = time.perf_counter()
+        warmed = pred.warmup()
+        warm_s = time.perf_counter() - t0
+        base = serve(pred)
+        status, health = http(base + "/healthz")
+        log(f"phase 22 (b): Predictor.from_config + make_server(port=0) at {base}; warmup "
+            f"{warmed} in {warm_s:.2f} s; /healthz {status} {health}")
+        if status != 200 or health["n_params"] != pred.n_params:
+            raise AssertionError("/healthz")
+        rng = np.random.default_rng(22)
+        singles, single_om = serve_bags(rng, 3, SERVE_LENGTHS, sizes)
+        batch_bags, batch_om = serve_bags(rng, 8, SERVE_LENGTHS, sizes)
+        kinds = {}
+        for i, (bag, om) in enumerate(zip(singles, single_om)):
+            wire = bag.astype(np.float16) if i == 2 else bag
+            (status, body), kinds["/predict_npz"] = counted(
+                lambda: http(base + "/predict_npz", npz_bytes(wire, om)))
+            direct = pred.predict_bag(wire.astype(np.float32), om)
+            if status != 200:
+                raise AssertionError(f"/predict_npz {status}: {body}")
+            same_answer(f"/predict_npz {i} ({wire.dtype}, {len(bag)} patches)", body, direct,
+                        answer_keys(False))
+        json_bag = rng.standard_normal((200, 1024), dtype=np.float32)
+        json_om = [rng.standard_normal(s, dtype=np.float32) for s in sizes]
+        status, body = http(base + "/predict", json.dumps(
+            {"wsi": json_bag.tolist(), "omics": [o.tolist() for o in json_om]}).encode())
+        if status != 200:
+            raise AssertionError(f"/predict {status}")
+        same_answer("/predict (JSON, 200 patches)", body, pred.predict_bag(json_bag, json_om),
+                    answer_keys(False))
+        batch_body = npz_bytes(bags=batch_bags, omics_list=batch_om)
+        (status, body), kinds["/predict_batch_npz"] = counted(
+            lambda: http(base + "/predict_batch_npz", batch_body))
+        if status != 200:
+            raise AssertionError(f"/predict_batch_npz {status}")
+        direct = pred.predict_bags(batch_bags, batch_om)
+        same_answer("/predict_batch_npz (8 bags)", body, direct, answer_keys(False))
+        worst = max(rel_err(np.asarray(body[k], np.float32)[i],
+                            pred.predict_bag(batch_bags[i], batch_om[i])[k][0])
+                    for i in range(len(batch_bags)) for k in answer_keys(False))
+        log(f"  3 x /predict_npz (one float16), 1 x /predict (JSON), 1 x /predict_batch_npz of "
+            f"8 bags: each bit for bit equal to the in-process call of its shape; a bag alone "
+            f"vs in the batch: {worst:.3e} relative (tolerance {SHAPE_RTOL:g})")
+        if worst > SHAPE_RTOL:
+            raise AssertionError("a bag scored alone disagrees with it scored in a batch")
+        status, text = http(base + "/metrics")
+        want = {'/predict_npz",status="2xx"': 3, '/predict",status="2xx"': 1,
+                '/predict_batch_npz",status="2xx"': 1}
+        for key, n in want.items():
+            got = metric_value(text, f'mpot_requests_total{{endpoint="{key}}}')
+            if got != n:
+                raise AssertionError(f"/metrics counts {got} requests of {key}, expected {n}")
+        log(f"  /metrics counts every request: {want}")
+        lat_bag = rng.standard_normal((LATENCY_PATCHES, 1024), dtype=np.float32)
+        lat_body = npz_bytes(lat_bag, json_om)
+        infer_key = 'mpot_inference_seconds_total{endpoint="/predict_npz"}'
+        infer0 = metric_value(http(base + "/metrics")[1], infer_key)
+        lat, inproc = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            if http(base + "/predict_npz", lat_body)[0] != 200:
+                raise AssertionError("/predict_npz latency request failed")
+            lat.append(time.perf_counter() - t0)
+        infer_ms = 1e3 * (metric_value(http(base + "/metrics")[1], infer_key) - infer0) / 10
+        for _ in range(10):  # the same call in this process: padding, copies, kernels, fetch
+            t0 = time.perf_counter()
+            pred.predict_bag(lat_bag, json_om)
+            inproc.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        http(base + "/predict_batch_npz", batch_body)
+        batch_s = time.perf_counter() - t0
+
+        # ---- (c) dynamic batching
+        dyn = serve(pred, dynamic_batch=DYN_BATCH, batch_wait_ms=50.0)
+        dyn_bags, dyn_om = serve_bags(rng, DYN_BATCH, SERVE_LENGTHS, sizes)
+        bodies = [npz_bytes(b, o) for b, o in zip(dyn_bags, dyn_om)]
+        with concurrent.futures.ThreadPoolExecutor(max_workers=DYN_BATCH) as ex:
+            t0 = time.perf_counter()
+            answers = list(ex.map(lambda p: http(dyn + "/predict_npz", p), bodies))
+            conc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for p in bodies:
+            http(base + "/predict_npz", p)
+        seq_s = time.perf_counter() - t0
+        err = 0.0
+        for (status, body), b, o in zip(answers, dyn_bags, dyn_om):
+            if status != 200:
+                raise AssertionError(f"dynamic batch: {status} {body}")
+            ref = pred.predict_bag(b, o)
+            err = max(err, max(float(np.abs(np.asarray(body[k], np.float32) - ref[k]).max())
+                               for k in answer_keys(False)))
+        text = http(dyn + "/metrics")[1]
+        groups = metric_value(text, "mpot_dynamic_batch_groups_total")
+        n_bags = metric_value(text, "mpot_dynamic_batch_bags_total")
+        log(f"phase 22 (c): {DYN_BATCH} concurrent clients, --dynamic-batch {DYN_BATCH}: "
+            f"{n_bags:.0f} bags in {groups:.0f} groups; answers vs per-bag max_abs_err "
+            f"{err:.3e} (tolerance {DYN_ATOL:g})")
+        if err > DYN_ATOL or not groups < n_bags:
+            raise AssertionError("dynamic batching disagrees or did not engage")
+        mixed = bodies[:DYN_BATCH - 1] + [npz_bytes(dyn_bags[-1])]  # no omics: a client error
+        with concurrent.futures.ThreadPoolExecutor(max_workers=DYN_BATCH) as ex:
+            statuses = [s for s, _ in ex.map(lambda p: http(dyn + "/predict_npz", p), mixed)]
+        log(f"  one bad request among {DYN_BATCH}: statuses {statuses}")
+        if statuses != [200] * (DYN_BATCH - 1) + [400]:
+            raise AssertionError("the bad request was not isolated")
+
+        # ---- (d) MC dropout
+        mc_bag, mc_om = singles[0], single_om[0]
+        mc_body = npz_bytes(mc_bag, mc_om)
+        (status, mc1), kinds["/predict_npz?mc=8"] = counted(
+            lambda: http(base + f"/predict_npz?mc={MC_SAMPLES}&mc_seed=3", mc_body))
+        status2, mc2 = http(base + f"/predict_npz?mc={MC_SAMPLES}&mc_seed=3", mc_body)
+        status3, mc3 = http(base + f"/predict_npz?mc={MC_SAMPLES}&mc_seed=4", mc_body)
+        if (status, status2, status3) != (200, 200, 200):
+            raise AssertionError(f"MC requests {status}, {status2}, {status3}")
+        mc_keys = ("risk_mean", "risk_std", "survs_mean", "survs_std", "hazards_mean",
+                   "y_mean", "y_std")
+        same_answer("?mc=8&mc_seed=3 twice", mc2, {k: np.asarray(mc1[k], np.float32)
+                                                   for k in mc_keys}, mc_keys)
+        if mc3["risk_mean"] == mc1["risk_mean"] or not mc1["risk_std"][0] > 0:
+            raise AssertionError("MC: mc_seed=4 repeats mc_seed=3, or risk_std is 0")
+        bucket = bucket_for(len(mc_bag), pred.buckets)
+        padded, m = pad_bag(mc_bag, bucket)
+        staged = pred._batch(torch.from_numpy(padded[None]).to(dev),
+                             torch.from_numpy(m[None]).to(dev), [mc_om], 1)
+        _, mc_only = counted(lambda: pred._mc_step(MC_SAMPLES)(staged, mc_generator(dev, 3)))
+        gen = mc_generator(dev, 3)
+        samples = []
+        pred.model.train()
+        with torch.inference_mode():
+            for _ in range(MC_SAMPLES):
+                out = pred.model(staged["wsi"], staged["omics"], staged["mask"],
+                                 need_attention=False, generator=gen)
+                samples.append(-out.survs.sum(dim=1))
+        pred.model.eval()
+        risks = torch.stack(samples)
+        replay = {"risk_mean": risks.mean(dim=0).cpu().numpy(),
+                  "risk_std": risks.std(dim=0, correction=0).cpu().numpy()}
+        same_answer("MC answer vs 8 training-mode forwards of a generator in the same state",
+                    mc1, replay, ("risk_mean", "risk_std"))
+        log(f"phase 22 (d): ?mc={MC_SAMPLES}&mc_seed=3 twice bit for bit equal, mc_seed=4 "
+            f"differs; risk {mc1['risk'][0]:.6f}, risk_mean {mc1['risk_mean'][0]:.6f}, risk_std "
+            f"{mc1['risk_std'][0]:.3e}; equal bit for bit to {MC_SAMPLES} training-mode forwards "
+            f"replayed; the request's launches {kinds['/predict_npz?mc=8']} (the deterministic "
+            f"columns' export passes and the MC forwards), the MC step alone {mc_only}")
+        if mc_only != {"coattn_fwd_fused_k_train": MC_SAMPLES}:
+            raise AssertionError(f"the MC step launched {mc_only}")
+        if kinds["/predict_npz?mc=8"].get("coattn_fwd_fused_k_train") != MC_SAMPLES:
+            raise AssertionError("an MC request did not launch the training form 8 times")
+
+        # ---- (e) a checkpoint ensemble
+        dir2 = os.path.join(root, "run2")
+        cli_run(["train", "--config", cfg_path, "--set", "training.epochs=2", *SERVE_SET,
+                 "--set", f"model.load_from_checkpoint={ck1}",
+                 "--set", f"model.checkpoint_dir={dir2}"])
+        ck2 = os.path.join(dir2, os.path.basename(ck1))
+        ens = Predictor.from_config(cfg, checkpoint=[ck1, ck2])
+        second = Predictor.from_config(cfg, checkpoint=ck2)
+        got = ens.predict_bags(batch_bags, batch_om)
+        members = [p.predict_bags(batch_bags, batch_om) for p in (pred, second)]
+        err = float(np.abs(got["survs"] - (members[0]["survs"] + members[1]["survs"]) / 2).max())
+        log(f"phase 22 (e): ensemble of {os.path.basename(ck1)} (epoch 1) and the checkpoint "
+            f"after one more epoch: risk_ens_std {got['risk_ens_std'].min():.3e}.."
+            f"{got['risk_ens_std'].max():.3e}; mean survs vs the members' mean max_abs_err "
+            f"{err:.3e} (tolerance {ENS_ATOL:g})")
+        if err > ENS_ATOL or not (got["risk_ens_std"] > 0).all():
+            raise AssertionError("ensemble")
+        cli_run(["predict", "--config", cfg_path, "--checkpoint", ck1, "--checkpoint", ck2,
+                 "--out", csv["ensemble"]])
+        if "risk_ens_std" not in pd.read_csv(csv["ensemble"]).columns:
+            raise AssertionError("predict with two checkpoints wrote no risk_ens_std")
+        del ens, second
+
+        # ---- (f) GE-NaCAGaT medium
+        ge = make_ge_predictor(dev)
+        ge_base = serve(ge)
+        ge_bags, _ = serve_bags(rng, 4, GE_SERVE_LENGTHS, ())
+        (status, ge_one), kinds["GE /predict_npz"] = counted(
+            lambda: http(ge_base + "/predict_npz", npz_bytes(ge_bags[0])))
+        (status2, ge_all), kinds["GE /predict_batch_npz"] = counted(
+            lambda: http(ge_base + "/predict_batch_npz", npz_bytes(bags=ge_bags)))
+        per_batch = {"milpool": 1, "flash_fwd_d256": 1, "flash_fwd_d32": 2}
+        n_ge = len({bucket_for(len(b), GE_BUCKETS) for b in ge_bags})  # batches (<= GE_B bags)
+        if (status, status2) != (200, 200) or kinds["GE /predict_npz"] != per_batch or \
+                kinds["GE /predict_batch_npz"] != {k: n_ge * v for k, v in per_batch.items()}:
+            raise AssertionError(f"GE requests: {status}, {status2}, launches {kinds}")
+        cpu_ge = make_ge_predictor("cpu", 4, buckets=(1024, 2048))
+        ref = cpu_ge.predict_bags(ge_bags)["y"]
+        err = max(float(np.abs(np.asarray(ge_one["y"], np.float32)[0] - ref[0]).max()),
+                  float(np.abs(np.asarray(ge_all["y"], np.float32) - ref).max()))
+        log(f"phase 22 (f): GE-NaCAGaT medium (buckets {GE_BUCKETS}, batch {GE_B}), bags of "
+            f"{[len(b) for b in ge_bags]} patches: /predict_npz and /predict_batch_npz "
+            f"({n_ge} batch(es)), launches a batch {per_batch}; y vs the CPU max_abs_err {err:.3e} (tolerance "
+            f"{MODEL_ATOL:g})")
+        if err > MODEL_ATOL:
+            raise AssertionError("GE serving disagrees with the CPU")
+        del ge, cpu_ge
+
+        # ---- (g) the real entry point, in a subprocess
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_path_omic_tpu_torch.cli", "serve", "--config",
+             cfg_path, "--checkpoint", ck1, "--port", "0", "--warmup"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append(proc)
+        lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                         daemon=True).start()
+        seen, url = [], None
+        while url is None:
+            line = lines.get(timeout=300)
+            if line is None:
+                raise AssertionError(f"cli serve exited before serving: {''.join(seen)[-2000:]}")
+            seen.append(line)
+            if line.startswith("serving on "):
+                url = line.split()[-1]
+        start_s = time.perf_counter() - t0
+        status, body = http(url + "/predict_npz", npz_bytes(mc_bag, mc_om))
+        if status != 200:
+            raise AssertionError(f"cli serve: /predict_npz {status}")
+        err = max(rel_err(np.asarray(body[k], np.float32), pred.predict_bag(mc_bag, mc_om)[k])
+                  for k in answer_keys(False))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        while (line := lines.get(timeout=60)) is not None:
+            seen.append(line)
+        log(f"phase 22 (g): python -m multimodal_path_omic_tpu_torch.cli serve --port 0 "
+            f"--warmup: serving after {start_s:.1f} s ({[s.strip() for s in seen if 'warm' in s]}); "
+            f"/predict_npz vs the in-process Predictor {err:.3e} relative; SIGTERM -> exit {rc}, "
+            f"last line {seen[-1].strip()!r}")
+        if rc != 0 or seen[-1].strip() != "server stopped" or err > SHAPE_RTOL:
+            raise AssertionError("cli serve did not answer or stop cleanly")
+
+        # ---- launches and times
+        t0 = time.perf_counter()
+        cols = pred.predict_dataset()
+        ds_s = time.perf_counter() - t0
+        for what, k in kinds.items():
+            log(f"  launches of one {what}: {k}")
+        log(f"phase 22 timings ({power}): /predict_npz of one {LATENCY_PATCHES}-patch bag, 10 "
+            f"requests: median {1e3 * float(np.median(lat)):.1f} ms, max {1e3 * max(lat):.1f} ms "
+            f"(the server's inference under its lock {infer_ms:.1f} ms a request; the same "
+            f"predict_bag in this process: median {1e3 * float(np.median(inproc)):.1f} ms; the "
+            "rest is the body's transfer, np.load and JSON); "
+            f"/predict_batch_npz of 8 bags: {8 / batch_s:.2f} bags/s; {DYN_BATCH} concurrent "
+            f"clients with --dynamic-batch {DYN_BATCH}: {DYN_BATCH / conc_s:.2f} bags/s against "
+            f"{DYN_BATCH / seq_s:.2f} bags/s one after another; warmup {warm_s:.2f} s; "
+            f"predict_dataset {len(cols['risk']) / ds_s:.2f} bags/s over {len(cols['risk'])} "
+            "bags")
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    total = read_counts()
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in total.items() if v} } ({power})")
+    return total
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -3036,6 +3601,65 @@ def profile_serving(dev, loss, bags, omics, top=15) -> None:
     }))
 
 
+def profile_http(dev, top=12) -> None:
+    """Where one ``/predict_batch_npz`` request of 8 bags goes: the client's
+    wall time, the body's ``np.load`` (the handler's parse, repeated in this
+    process), the server's inference under its lock (``/metrics``), and the
+    trace's device time split into host-to-device copies, other copies and
+    kernels. Phase 2's NaCAGaT ``cesar`` Predictor (batch 16) behind
+    ``make_server``."""
+    import io
+    import threading
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.server import make_server
+
+    pred = make_predictor(dev, "cesar", batch_size=16)
+    bags, omics = serve_bags(np.random.default_rng(22), 8, SERVE_LENGTHS, SIZES)
+    body = npz_bytes(bags=bags, omics_list=omics)
+    server = make_server(pred, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    key = 'mpot_inference_seconds_total{endpoint="/predict_batch_npz"}'
+    try:
+        http(base + "/predict_batch_npz", body)  # warm
+        t0 = time.perf_counter()
+        with np.load(io.BytesIO(body)) as z:
+            _ = [np.asarray(z[k], np.float32) for k in z.files]
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        infer0 = metric_value(http(base + "/metrics")[1], key)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if http(base + "/predict_batch_npz", body)[0] != 200:
+                raise AssertionError("profiled /predict_batch_npz failed")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        infer_ms = (metric_value(http(base + "/metrics")[1], key) - infer0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+    rows = device_rows(prof)
+    split = {"host-to-device copies": 0.0, "other copies": 0.0, "kernels": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        part = ("host-to-device copies" if "htod" in low else
+                "other copies" if "memcpy" in low or "memset" in low else "kernels")
+        split[part] += ms
+    device_ms = sum(split.values())
+    log(f"profile: /predict_batch_npz of 8 bags ({len(body) / 2**20:.1f} MiB body): wall "
+        f"{wall_ms:.3f} ms; np.load of the body {parse_ms:.3f} ms; inference under the lock "
+        f"{infer_ms:.3f} ms; device {device_ms:.3f} ms "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in split.items())}); busy share "
+        f"{device_ms / wall_ms:.4f} ({gpu_name_and_power()})")
+    for name, ms, count in rows[:top]:
+        log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
+    log(json.dumps({"request": "/predict_batch_npz", "bags": 8, "wall_ms": wall_ms,
+                    "parse_ms": parse_ms, "inference_ms": infer_ms, "device_ms": device_ms,
+                    "split": split, "busy_share": device_ms / wall_ms}))
+
+
 def launch_ms(fn, calls=5) -> list:
     """(kernel name, device ms a call) of ``fn``'s launches over ``calls``
     calls, after one warm call (torch.profiler)."""
@@ -3092,10 +3716,11 @@ def profile_plain_k(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one predict_bags call per loss, one training step (medium "
+                    help="trace one predict_bags call per loss, one /predict_batch_npz "
+                         "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-21")
+                         "Trainer epoch host-fed and cached instead of phases 1-22")
     args = ap.parse_args()
     try:
         import torch
@@ -3128,6 +3753,7 @@ def main() -> int:
     if args.profile:
         for loss in WANT:
             profile_serving(dev, loss, bags, omics)
+        profile_http(dev)
         batch = stage_train_batch(dev, bags, omics)
         profile_training(f"training step, {B} bags of the {TRAIN_M} bucket", "training_step",
                          lambda: make_trainer(dev), batch)
@@ -3209,6 +3835,10 @@ def main() -> int:
     p21 = phase21_trainer(dev)
     for row in rows:  # the Trainer's main path runs these kernels (no E = 512 instance)
         row["launches"] += p21.get(row["name"], 0)
+    torch.cuda.empty_cache()
+    p22 = phase22_serving(dev)
+    for row in rows:  # the serving entry points run these kernels (no E = 512 instance)
+        row["launches"] += p22.get(row["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,304 @@
+"""Command-line interface of the port (``multimodal_path_omic_tpu/cli.py``,
+the same commands and flags). Every command runs on the GPU unless the
+config says ``device: cpu`` (``--set device=cpu``):
+
+    python -m multimodal_path_omic_tpu_torch.cli train --config cfg.yaml
+    python -m multimodal_path_omic_tpu_torch.cli train --config cfg.yaml \\
+        --set training.lr=1e-4 --set model.fusion=bilinear
+    python -m multimodal_path_omic_tpu_torch.cli validate --config cfg.yaml \\
+        --checkpoint checkpoints/NaCAGaT_...pt
+    python -m multimodal_path_omic_tpu_torch.cli export-attn --config cfg.yaml \\
+        --checkpoint ... --patient P013 --png
+    python -m multimodal_path_omic_tpu_torch.cli predict --config cfg.yaml \\
+        --checkpoint ... --out preds.csv [--mc 8]
+    python -m multimodal_path_omic_tpu_torch.cli evaluate --config cfg.yaml \\
+        --checkpoint ... --split val --json
+    python -m multimodal_path_omic_tpu_torch.cli stratify --config cfg.yaml \\
+        --checkpoint ... --png km.png
+    python -m multimodal_path_omic_tpu_torch.cli convert-checkpoint --config cfg.yaml \\
+        --torch-checkpoint ref.pt
+    python -m multimodal_path_omic_tpu_torch.cli check-data --config cfg.yaml
+    python -m multimodal_path_omic_tpu_torch.cli convert-bags --src bags/ --dst bags_npy/
+    python -m multimodal_path_omic_tpu_torch.cli serve --config cfg.yaml \\
+        --checkpoint ... --port 8008 --dynamic-batch 8
+
+``bench``, ``cv``, ``sweep``, ``plan``, ``profile`` and ``export-model`` take
+the JAX package's flags and exit non-zero: their modules are not ported yet
+(ROADMAP.md queue 1, tooling).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+# unported commands -> the ROADMAP.md item that ports them
+UNPORTED = {
+    "bench": "train/benchmark.py",
+    "cv": "train/cv.py",
+    "sweep": "train/sweep.py",
+    "plan": "train/plan.py",
+    "profile": "train/profiling.py",
+    "export-model": "deploy.py",
+}
+
+
+def _parse_overrides(pairs: List[str], args=None) -> Dict[str, Any]:
+    from multimodal_path_omic_tpu_torch.config import parse_cli_scalar
+
+    overrides: Dict[str, Any] = {}
+    for pair in pairs or []:
+        if "=" not in pair:
+            raise SystemExit(f"--set expects key=value, got {pair!r}")
+        key, value = pair.split("=", 1)
+        overrides[key] = parse_cli_scalar(value)
+    if args is not None and getattr(args, "bug_compat", False):
+        overrides["training.bug_compat"] = True
+    return overrides
+
+
+def _config(args):
+    from multimodal_path_omic_tpu_torch.config import load_config
+
+    return load_config(args.config, _parse_overrides(args.set, args))
+
+
+def _trainer(args):
+    """A Trainer from the config, with ``--checkpoint`` restored or else
+    ``--torch-checkpoint`` loaded."""
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_config(args))
+    checkpoint = getattr(args, "checkpoint", None)
+    if checkpoint:
+        trainer.restore(checkpoint)
+    elif args.torch_checkpoint:
+        trainer.load_torch_checkpoint(args.torch_checkpoint)
+    return trainer
+
+
+def _print_metrics(result: Dict[str, float]) -> None:
+    print({k: round(float(v), 6) for k, v in result.items()})
+
+
+def cmd_train(args) -> int:
+    if args.profile_dir:
+        print("train --profile-dir: the port has no trace capture yet (profile_trace, "
+              "ROADMAP.md queue 1, tooling: train/profiling.py)", file=sys.stderr)
+        return 2
+    _print_metrics(_trainer(args).fit())
+    return 0
+
+
+def cmd_validate(args) -> int:
+    _print_metrics(_trainer(args).validate("final validation"))
+    return 0
+
+
+def cmd_export_attn(args) -> int:
+    args.set = list(args.set or []) + [f"training.leave_one_out={args.patient}"]
+    _trainer(args).test(epoch=args.epoch, save=True, png=args.png)
+    return 0
+
+
+def cmd_predict(args) -> int:
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+
+    predictor = Predictor.from_config(_config(args), checkpoint=args.checkpoint,
+                                      torch_checkpoint=args.torch_checkpoint)
+    path = predictor.predict_to_csv(args.out, mc_samples=args.mc, mc_seed=args.mc_seed)
+    print(f"Predictions written to {path}")
+    return 0
+
+
+def cmd_stratify(args) -> int:
+    """Risk stratification (train/analysis.py): KM groups + log-rank test."""
+    from multimodal_path_omic_tpu_torch.train.analysis import stratify
+
+    result = stratify(_config(args), checkpoint=args.checkpoint,
+                      torch_checkpoint=args.torch_checkpoint, quantile=args.quantile,
+                      split=args.split, out_csv=args.out, png=args.png, mc_samples=args.mc)
+    if args.json:
+        print(json.dumps({k: v for k, v in result.items() if k != "km"}))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """The metric panel (train/analysis.py): c-index + IPCW Brier / IBS +
+    AUC(t) (survival), or per-class precision / recall / F1 (GE)."""
+    from multimodal_path_omic_tpu_torch.train.analysis import evaluate
+
+    times = [float(x) for x in args.times.split(",")] if args.times else None
+    result = evaluate(_config(args), checkpoint=args.checkpoint,
+                      torch_checkpoint=args.torch_checkpoint, split=args.split,
+                      eval_times=times)
+    if args.json:
+        print(json.dumps(result))
+    return 0
+
+
+def cmd_convert_checkpoint(args) -> int:
+    """A reference .pt checkpoint saved as the port's checkpoint (under the
+    config's model.checkpoint_dir)."""
+    trainer = _trainer(args)
+    # save() stores epoch + 1: starting_epoch - 1 round-trips, and a payload
+    # without 'epoch' (starting_epoch 0) stores 0
+    path = trainer.save(trainer.starting_epoch - 1, 0.0)
+    print(f"Converted checkpoint written to {path}")
+    return 0
+
+
+def cmd_check_data(args) -> int:
+    """Cohort preflight (data/check.py); exit 1 on a fatal issue."""
+    from multimodal_path_omic_tpu_torch.data.check import check_data
+
+    return 1 if check_data(_config(args))["fatal"] else 0
+
+
+def cmd_convert_bags(args) -> int:
+    """A reference bag store (.pt dir / .h5 file) as a per-slide .npy store."""
+    from multimodal_path_omic_tpu_torch.data.bags import convert_bags
+
+    convert_bags(args.src, args.dst, dtype=args.dtype)  # raises on 0 bags
+    return 0
+
+
+def cmd_unported(args) -> int:
+    print(f"{args.command}: not ported yet; it needs {UNPORTED[args.command]} "
+          "(ROADMAP.md queue 1, tooling)", file=sys.stderr)
+    return 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="multimodal_path_omic_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def common(p, config_required: bool = True):
+        p.add_argument("--config", required=config_required,
+                       help="YAML config (reference schema)")
+        p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                       help="dotted config override, e.g. training.lr=1e-4")
+        p.add_argument("--torch-checkpoint", help="reference .pt checkpoint to load")
+        p.add_argument(
+            "--bug-compat", action="store_true",
+            help="replicate the reference's bugs exactly (unseeded split, "
+            "misaligned signature subsets, frozen fusion gates) for A/B studies",
+        )
+
+    def command(name, fn, help_text, **kw):
+        p = sub.add_parser(name, help=help_text)
+        common(p, **kw)
+        p.set_defaults(fn=fn)
+        return p
+
+    p = command("train", cmd_train, "train a model (mcat/nacagat/ge_nacagat)")
+    p.add_argument("--profile-dir", help="capture a trace here (not ported)")
+
+    p = command("validate", cmd_validate, "run validation only")
+    p.add_argument("--checkpoint", help="checkpoint to restore")
+
+    p = command("export-attn", cmd_export_attn, "leave-one-out attention export")
+    p.add_argument("--checkpoint")
+    p.add_argument("--patient", required=True)
+    p.add_argument("--epoch", type=int, default=0)
+    p.add_argument("--png", action="store_true",
+                   help="also render each exported map as a heatmap/profile PNG")
+
+    p = command("predict", cmd_predict, "batch inference -> CSV")
+    p.add_argument("--checkpoint", action="append",
+                   help="checkpoint; repeat to average a checkpoint ENSEMBLE")
+    p.add_argument("--out", required=True, help="output CSV path")
+    p.add_argument("--mc", type=int, default=0,
+                   help="MC-dropout samples: add risk_mc_std / y_*_mc_std columns from N "
+                   "stochastic forwards (0 = off)")
+    p.add_argument("--mc-seed", type=int, default=0)
+
+    p = command("convert-checkpoint", cmd_convert_checkpoint,
+                "reference .pt -> the port's checkpoint")
+    p.add_argument("--out", help="(unused; checkpoint_dir from config)")
+
+    command("check-data", cmd_check_data,
+            "cohort preflight: CSV schema, labels, signature coverage, bag store "
+            "consistency (exit 1 on fatal issues)")
+
+    p = command("stratify", cmd_stratify, "KM risk groups + log-rank test from a trained model")
+    p.add_argument("--checkpoint", action="append", help="checkpoint; repeatable (ensemble)")
+    p.add_argument("--quantile", type=float, default=0.5,
+                   help="risk cut point (0.5 = median split)")
+    p.add_argument("--split", default="val", choices=("val", "train", "all"))
+    p.add_argument("--out", help="per-slide CSV (slide_id, risk, group, ...)")
+    p.add_argument("--png", help="render the KM figure here")
+    p.add_argument("--mc", type=int, default=0,
+                   help="MC-dropout samples for risk_mc_std CSV column")
+    p.add_argument("--json", action="store_true",
+                   help="also print the result summary as one JSON line")
+
+    p = command("evaluate", cmd_evaluate,
+                "metric panel: c-index + IPCW Brier/IBS + AUC(t) (survival) or per-class "
+                "P/R/F1 + confusion (GE)")
+    p.add_argument("--checkpoint", action="append", help="checkpoint; repeatable (ensemble)")
+    p.add_argument("--split", default="val", choices=("val", "train", "all"))
+    p.add_argument("--times", help="comma-separated eval months (default: the cohort's qcut "
+                   "bin edges)")
+    p.add_argument("--json", action="store_true", help="also print the result as one JSON line")
+
+    p = sub.add_parser("convert-bags",
+                       help="reference .pt dir / .h5 file -> per-slide .npy store")
+    p.add_argument("--src", required=True, help=".pt directory or .h5 file")
+    p.add_argument("--dst", required=True, help="output .npy directory")
+    p.add_argument("--dtype", default="float32", choices=("float32", "float16"))
+    p.set_defaults(fn=cmd_convert_bags)
+
+    # the JAX package's commands whose modules are not ported: their flags,
+    # and an exit naming what is missing
+    p = command("sweep", cmd_unported, "grid sweep (not ported)")
+    p.add_argument("--grid", action="append", metavar="KEY=V1,V2,...")
+    p.add_argument("--metric")
+    p.add_argument("--out")
+    p = command("cv", cmd_unported, "patient-level k-fold cross-validation (not ported)")
+    p.add_argument("--folds", type=int, default=5)
+    p.add_argument("--out")
+    p.add_argument("--save-folds", action="store_true")
+    p.add_argument("--fold-indices")
+    p = command("export-model", cmd_unported, "deployment bundle (not ported)")
+    p.add_argument("--checkpoint")
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch-sizes", default="1")
+    p.add_argument("--platforms", default="cpu,tpu")
+    p.add_argument("--max-bag", type=int, default=None)
+    p.add_argument("--allow-untrained", action="store_true")
+    p.add_argument("--weights-dtype", default="float32", choices=("float32", "bfloat16"))
+    p = command("bench", cmd_unported, "training-throughput benchmark (not ported)")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--validate", action="store_true")
+    command("plan", cmd_unported, "memory-fit report (not ported)")
+    p = command("profile", cmd_unported, "trace and rank device ops (not ported)",
+                config_required=False)
+    p.add_argument("--trace-dir")
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--top", type=int, default=25)
+
+    # listed for --help; main() hands `serve` to the server before argparse
+    sub.add_parser("serve", add_help=False,
+                   help="HTTP scoring server (flags: --config --checkpoint --port --warmup "
+                   "--dynamic-batch ...; see `serve --help`)")
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["serve"]:
+        # `cli serve ...` is `python -m multimodal_path_omic_tpu_torch.server ...`
+        from multimodal_path_omic_tpu_torch import server
+
+        return server.main(argv[1:])
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -189,6 +189,26 @@ def gene_expr_extras(dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
     return {"label": dataset.table.gene_expr_class[indices]}
 
 
+def to_device(batch: Batch, device, ge_mode: bool) -> Dict[str, Any]:
+    """A host batch's tensors on ``device``, as the steps read them: wsi,
+    mask, weight, label and, for survival models, the omics groups as one
+    packed [B, sum(s_i)] tensor (the device cache's layout), censorship and
+    survival_months."""
+    import torch
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    out = {"wsi": put(batch["wsi"], np.float32), "mask": put(batch["mask"], bool),
+           "weight": put(batch["weight"], np.float32), "label": put(batch["label"], np.int64)}
+    if not ge_mode:
+        out["omics_packed"] = put(np.concatenate(
+            [np.asarray(o, np.float32) for o in batch["omics"]], axis=-1), np.float32)
+        out["censorship"] = put(batch["censorship"], np.float32)
+        out["survival_months"] = put(batch["survival_months"], np.float32)
+    return out
+
+
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     """Background-thread prefetch of host batches: bag reads and padding
     overlap the device's work (the reference leans on DataLoader workers,

@@ -16,19 +16,22 @@ def is_ge_model(name: str) -> bool:
 
 def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
                 fusion: str = "concat", n_classes=None, dropout: float = 0.25,
-                wsi_dim: int = 1024, lean: bool = True):
+                wsi_dim: int = 1024, lean: bool = True, bug_compat: bool = False):
     """Model factory keyed by the config's ``model.name`` values: MCAT and
     NaCAGaT (survival, 4 classes) and GE-NaCAGaT (WSI-only, 3 classes; takes
     no ``omic_sizes``). ``lean=False`` switches the survival models'
     co-attention off its lean routes (``ops/attention.py``); GE-NaCAGaT has
-    no such route."""
+    no such route. ``bug_compat`` freezes the ``gated_concat`` fusion's gates
+    at their init (the reference's unregistered gates)."""
     key = _key(name)
     if key in ("mcat", "multimodalcoattentiontransformer"):
         return MCAT(omic_sizes, model_size=model_size, n_classes=n_classes or 4,
-                    dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean)
+                    dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean,
+                    bug_compat=bug_compat)
     if key in ("nacagat", "narrowcontextualattentiongatetransformer"):
         return NaCAGaT(omic_sizes, model_size=model_size, n_classes=n_classes or 4,
-                       dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean)
+                       dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean,
+                    bug_compat=bug_compat)
     if key in GE_NAMES:
         return GENaCAGaT(model_size=model_size, n_classes=n_classes or 3,
                          dropout_rate=dropout, wsi_dim=wsi_dim)

@@ -53,14 +53,16 @@ class CoAttentionSurvivalModel(nn.Module):
     The JAX models run their two branch modules (slot 0 = path, slot 1 =
     omic) as one vmapped module over stacked parameters; here they are two
     modules in a ModuleList, and the weight bridge (``utils/weights.py``)
-    splits the stacked axis. ``co_attention`` is any module called as
+    splits the stacked axis. ``fusion`` is "concat", "gated_concat" or
+    "bilinear" (``ops/fusion.py``); ``bug_compat`` freezes the gated-concat
+    gates at their init, as the reference leaves them. ``co_attention`` is any module called as
     ``(query, key, value, key_mask, need_weights=, generator=)`` that returns
     ``(out [B, N, d2], weights | ssq | None)``."""
 
     def __init__(self, co_attention: nn.Module, omic_sizes: Sequence[int],
                  model_size: str = "medium", n_classes: int = 4,
                  dropout_rate: float = 0.25, fusion: str = "concat",
-                 wsi_dim: int = 1024):
+                 wsi_dim: int = 1024, bug_compat: bool = False):
         super().__init__()
         d1, d2 = MODEL_SIZES[model_size]
         self.H = WSIEncoder(wsi_dim, d1, dropout_rate)
@@ -73,7 +75,7 @@ class CoAttentionSurvivalModel(nn.Module):
         self.branch_pool = nn.ModuleList(
             GatedMILPool(d2, dropout_rate) for _ in range(2)
         )
-        self.fusion_layer = make_fusion(fusion, 2 * d2, d2, d2)
+        self.fusion_layer = make_fusion(fusion, (d2, d2), d2, d2, bug_compat=bug_compat)
         self.classifier = TorchLinear(d2, n_classes)
 
     def forward(self, wsi: torch.Tensor, omics: Sequence[torch.Tensor],
@@ -99,7 +101,7 @@ class CoAttentionSurvivalModel(nn.Module):
                 self.branch_transformer[slot](tokens, None, generator), None, generator)
             pooled.append(p)
             scores.append(s)
-        h = self.fusion_layer(pooled[0], pooled[1])
+        h = self.fusion_layer(pooled[0], pooled[1], generator=generator)
         hazards, survs, y = survival_head(self.classifier(h))
         attention = {"path": scores[0], "omic": scores[1]}
         if want_ssq:

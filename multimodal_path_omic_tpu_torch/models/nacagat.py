@@ -24,7 +24,9 @@ from multimodal_path_omic_tpu_torch.ops.attention import PreGatingContextualAtte
 class NaCAGaT(CoAttentionSurvivalModel):
     def __init__(self, omic_sizes: Sequence[int], model_size: str = "medium",
                  n_classes: int = 4, dropout_rate: float = 0.25,
-                 fusion: str = "concat", wsi_dim: int = 1024, lean: bool = True):
+                 fusion: str = "concat", wsi_dim: int = 1024, lean: bool = True,
+                 bug_compat: bool = False):
         d2 = MODEL_SIZES[model_size][1]
         super().__init__(PreGatingContextualAttention(d2, 1, dropout_rate, lean=lean),
-                         omic_sizes, model_size, n_classes, dropout_rate, fusion, wsi_dim)
+                         omic_sizes, model_size, n_classes, dropout_rate, fusion, wsi_dim,
+                         bug_compat)

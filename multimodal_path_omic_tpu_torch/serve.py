@@ -1,6 +1,8 @@
-"""Batch inference API (``multimodal_path_omic_tpu/serve.py``): a
-``Predictor`` that scores single bags or lists of bags in bucketed,
-fixed-shape batches.
+"""Batch inference / serving API (``multimodal_path_omic_tpu/serve.py``): a
+``Predictor`` that scores single bags, lists of bags in bucketed,
+fixed-shape batches, or whole datasets (to a CSV), from a checkpoint, a
+checkpoint ensemble or a reference ``.pt`` checkpoint, with optional
+MC-dropout uncertainty.
 
 The eval step is ``train/loop.py::make_eval_step``, the one validation runs.
 Survival models (MCAT and NaCAGaT, every survival loss of ``LOSSES``): a
@@ -9,36 +11,63 @@ whose loss consumes it, or with ``need_attention=True``), then the loss,
 risk = -sum(survs), hazards, survs and y. GE-NaCAGaT (WSI
 only, loss ``ce``): the class probabilities y and the raw MIL scores; bags
 come without omics.
+
+CLI: ``python -m multimodal_path_omic_tpu_torch.cli predict --config cfg.yaml
+--checkpoint ck --out predictions.csv`` writes one row per slide.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for, pad_bag
+from multimodal_path_omic_tpu_torch.data.pipeline import (
+    BucketBatcher,
+    gene_expr_extras,
+    prefetch,
+    survival_extras,
+    to_device,
+)
 from multimodal_path_omic_tpu_torch.device import resolve_device
 from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
-from multimodal_path_omic_tpu_torch.train.loop import make_eval_step
+from multimodal_path_omic_tpu_torch.train.loop import (
+    make_eval_step,
+    make_mc_eval_step,
+    mc_generator,
+)
 from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params, seeded_init_
 
 LOSSES = ("ce", "ces", "sct", "cesar", "nll", "cox")
+# the columns an MC-dropout call adds, by model family
+MC_KEYS = {True: ("y_mean", "y_std"),
+           False: ("risk_mean", "risk_std", "survs_mean", "survs_std", "hazards_mean",
+                   "y_mean", "y_std")}
+
+
+def _paths(arg) -> List[str]:
+    return [arg] if isinstance(arg, str) else list(arg or [])
 
 
 class Predictor:
     """Inference-only wrapper around a model.
 
-    ``params``: a JAX-package parameter tree (nested dicts of numpy arrays)
-    to load; None draws random weights from ``seed``. ``device`` defaults to
-    the GPU (see ``device.resolve_device``). A GE model name (``GE-NaCAGaT``,
+    The keyword constructor builds its own model: ``params``, a JAX-package
+    parameter tree (nested dicts of numpy arrays) to load; None draws random
+    weights from ``seed``. ``device`` defaults to the GPU (see
+    ``device.resolve_device``). A GE model name (``GE-NaCAGaT``,
     ``GeneExpr-NaCAGaT``) selects GE mode: no ``omic_sizes``, 3 classes and
     the ``ce`` loss by default. ``need_attention=True`` makes ``eval_step``
     return the survival models' co-attention map [B, N, M] under
     ``attention['coattn']`` for every loss. ``lean=False`` switches the
     co-attention off its lean routes (``ops/attention.py``): k and v are
     projected over the patch axis and the plain-K kernels run.
+
+    :meth:`from_trainer` shares a ``Trainer``'s model and eval step;
+    :meth:`from_config` builds that Trainer from a config and loads
+    checkpoints into it (two or more make an ensemble).
     """
 
     def __init__(self, model_name: str = "NaCAGaT", *, omic_sizes: Sequence[int] = (),
@@ -48,23 +77,17 @@ class Predictor:
                  loss: Optional[str] = None, alpha: float = 0.75,
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
                  device=None, lean: bool = True, need_attention: bool = False):
-        self.ge_mode = is_ge_model(model_name)
-        allowed = ("ce",) if self.ge_mode else LOSSES
-        loss = loss or ("ce" if self.ge_mode else "ces")
+        ge_mode = is_ge_model(model_name)
+        allowed = ("ce",) if ge_mode else LOSSES
+        loss = loss or ("ce" if ge_mode else "ces")
         if loss not in allowed:
             raise NotImplementedError(
                 f"loss {loss!r} is not ported for {model_name} (takes {allowed})")
-        self.device = resolve_device(device)
-        self.omic_sizes = tuple(int(s) for s in omic_sizes)
-        if not self.ge_mode and not self.omic_sizes:
+        device = resolve_device(device)
+        omic_sizes = tuple(int(s) for s in omic_sizes)
+        if not ge_mode and not omic_sizes:
             raise ValueError("survival models need omic_sizes (one width per signature)")
-        self.buckets = tuple(sorted(buckets))
-        self.batch_size = int(batch_size)
-        self.loss_name = loss
-        self.alpha = alpha
-        self.need_attention = bool(need_attention)
-        self.min_rows = 1  # smallest servable batch (no data-parallel mesh)
-        model = build_model(model_name, omic_sizes=self.omic_sizes,
+        model = build_model(model_name, omic_sizes=omic_sizes,
                             model_size=model_size, fusion=fusion,
                             n_classes=n_classes, wsi_dim=wsi_dim,  # None: the model's own
                             lean=lean)
@@ -72,18 +95,135 @@ class Predictor:
             load_jax_params(model, params)
         else:
             seeded_init_(model, seed)
-        self.model = model.to(self.device).eval()
-        self._eval_step = make_eval_step(self.model, loss, alpha=alpha, ge_mode=self.ge_mode,
-                                         need_attention=self.need_attention,
-                                         omic_sizes=self.omic_sizes)
+        model = model.to(device).eval()
+        eval_step = make_eval_step(model, loss, alpha=alpha, ge_mode=ge_mode,
+                                   need_attention=need_attention, omic_sizes=omic_sizes)
+        self._attach(model, eval_step, model_name=model_name, ge_mode=ge_mode, device=device,
+                     omic_sizes=omic_sizes, buckets=buckets, batch_size=batch_size)
+        self.loss_name, self.alpha, self.need_attention = loss, alpha, bool(need_attention)
+
+    def _attach(self, model, eval_step, *, model_name, ge_mode, device, omic_sizes, buckets,
+                batch_size, trainer=None, param_sets=None) -> None:
+        self.model_name = model_name
+        self.ge_mode = ge_mode
+        self.device = device
+        self.omic_sizes = tuple(int(s) for s in omic_sizes)
+        self.buckets = tuple(sorted(buckets))
+        self.batch_size = int(batch_size)
+        self.min_rows = 1  # smallest servable batch (no data-parallel mesh)
+        self.model = model
+        self._eval_step = eval_step
+        self._t = trainer
+        self.n_params = sum(p.numel() for p in model.parameters())
+        self.wsi_dim = int(model.H.fc.in_features)
+        self._mc_steps: Dict[int, Any] = {}  # n_samples -> MC step
+        # checkpoint ensemble: >= 2 state dicts on the device, loaded into
+        # the one model in turn (members share the model and its eval step)
+        self._param_sets = list(param_sets) if param_sets else None
+
+    @classmethod
+    def from_trainer(cls, trainer, param_sets=None) -> "Predictor":
+        """A Predictor over ``trainer``'s model and eval step (its loss and
+        ``l1_lambda`` included), buckets and batch size. ``param_sets``: two
+        or more model state dicts make an ensemble."""
+        self = cls.__new__(cls)
+        c = trainer.config
+        self._attach(trainer.model, trainer.eval_step, model_name=c.model.name,
+                     ge_mode=trainer.ge_mode, device=trainer.device,
+                     omic_sizes=trainer.omic_sizes, buckets=trainer.buckets,
+                     batch_size=trainer.batch_size, trainer=trainer, param_sets=param_sets)
+        self.loss_name, self.alpha, self.need_attention = c.training.loss, c.training.alpha, False
+        return self
+
+    @classmethod
+    def from_config(cls, config, checkpoint=None, torch_checkpoint=None,
+                    verbose: bool = False) -> "Predictor":
+        """Build a ``Trainer`` from ``config`` (on the device it names: the
+        GPU unless ``device: cpu``) and load ``checkpoint`` (the port's) and
+        ``torch_checkpoint`` (the reference's ``.pt``) into it; each is a
+        path or a list of paths, and two or more in all build a checkpoint
+        ensemble (one model, outputs averaged over the members)."""
+        from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+        trainer = Trainer(config, verbose=verbose)
+        param_sets = []
+
+        def snapshot():
+            return {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+        for path in _paths(checkpoint):
+            trainer.restore(path)
+            param_sets.append(snapshot())
+        for path in _paths(torch_checkpoint):
+            trainer.load_torch_checkpoint(path)
+            param_sets.append(snapshot())
+        return cls.from_trainer(trainer, param_sets if len(param_sets) >= 2 else None)
+
+    @property
+    def n_members(self) -> int:
+        return len(self._param_sets) if self._param_sets else 1
 
     # ------------------------------------------------------------------- step
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """One deterministic forward + loss on a batch of device tensors:
         wsi [B, M, D], mask [B, M], label [B], weight [B] (0 for filler
-        rows) and, for survival models, omics (list of [B, s_i]),
-        censorship [B] and, for ``cox``, survival_months [B]."""
+        rows) and, for survival models, omics (list of [B, s_i]) or
+        omics_packed, censorship [B] and, for ``cox``, survival_months [B]."""
         return self._eval_step(batch)
+
+    def _eval(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """One eval step, or one per ensemble member, merged: the mean of
+        the members' hazards, survs and y (GE: y, the class probabilities),
+        risk re-derived from the mean curve (risk = -sum survs), and the
+        members' spread as ``risk_ens_std`` / ``y_ens_std`` (population
+        standard deviation)."""
+        if not self._param_sets:
+            return self.eval_step(batch)
+        outs = []
+        for state in self._param_sets:
+            self.model.load_state_dict(state)
+            outs.append(self.eval_step(batch))
+
+        def stack(key):
+            return torch.stack([o[key] for o in outs])
+
+        merged: Dict[str, Any] = {
+            "loss": stack("loss").mean(), "n_real": outs[0]["n_real"], "attention": None,
+            "y": stack("y").mean(dim=0),
+        }
+        if self.ge_mode:
+            merged["y_ens_std"] = stack("y").std(dim=0, correction=0)
+            return merged
+        merged["survs"] = stack("survs").mean(dim=0)
+        merged["hazards"] = stack("hazards").mean(dim=0)
+        merged["risk"] = -merged["survs"].sum(dim=1)
+        merged["risk_ens_std"] = stack("risk").std(dim=0, correction=0)
+        if "attn_loss" in outs[0]:
+            merged["attn_loss"] = stack("attn_loss").mean()
+        return merged
+
+    def _mc_step(self, n_samples: int):
+        """The MC-dropout step of ``n_samples`` (``make_mc_eval_step``),
+        built once per sample count."""
+        if n_samples not in self._mc_steps:
+            self._mc_steps[n_samples] = make_mc_eval_step(
+                self.model, n_samples, ge_mode=self.ge_mode, omic_sizes=self.omic_sizes)
+        return self._mc_steps[n_samples]
+
+    def _mc_augment(self, out, batch, real: int, mc_samples: int, mc_seed: int,
+                    fold: int = 0) -> Dict[str, np.ndarray]:
+        """Add the MC-dropout columns of a staged batch to ``out``; ``fold``
+        (a batch's index in a dataset scan) gives each batch its own
+        generator, so batches draw independent masks."""
+        if self._param_sets:
+            raise ValueError(
+                "mc_samples with a checkpoint ensemble is not supported — "
+                "the ensemble spread (risk_ens_std / y_ens_std) is already "
+                "the uncertainty estimate")
+        res = self._mc_step(mc_samples)(batch, mc_generator(self.device, mc_seed, fold))
+        for k in MC_KEYS[self.ge_mode]:
+            out[k] = res[k][:real].cpu().numpy()
+        return out
 
     def _batch(self, wsi, mask, omics_rows, n_real: int) -> Dict[str, Any]:
         """Device batch of ``len(wsi)`` rows; rows past ``n_real`` are
@@ -108,10 +248,37 @@ class Predictor:
         batch["survival_months"] = torch.zeros((n,), device=dev)
         return batch
 
+    # ----------------------------------------------------------------- warmup
+    def warmup(self, buckets=None, verbose: bool = False) -> list:
+        """Build the kernels (on the GPU) and run each bucket once at each
+        batch size a request takes (``min_rows`` for ``predict_bag``,
+        ``batch_size`` for ``predict_bags``) on zero batches, so the first
+        request pays neither. Returns the warmed (bucket, rows) pairs."""
+        if self.device.type == "cuda":
+            from multimodal_path_omic_tpu_torch.ops import kernels
+
+            kernels.build_all()
+        warmed = []
+        for bucket in sorted(set(buckets or self.buckets)):
+            for n in sorted({self.min_rows, self.batch_size}):
+                wsi = torch.zeros((n, bucket, self.wsi_dim), device=self.device)
+                mask = torch.zeros((n, bucket), dtype=torch.bool, device=self.device)
+                rows = [] if self.ge_mode else [
+                    [np.zeros(s, np.float32) for s in self.omic_sizes]] * n
+                self.eval_step(self._batch(wsi, mask, rows, 0))["y"].cpu()
+                warmed.append((bucket, n))
+            if verbose:
+                print(f"warmed bucket {bucket}")
+        return warmed
+
     # ----------------------------------------------------------------- single
-    def predict_bag(self, bag: np.ndarray, omics=None) -> Dict[str, np.ndarray]:
+    def predict_bag(self, bag: np.ndarray, omics=None, mc_samples: int = 0,
+                    mc_seed: int = 0) -> Dict[str, np.ndarray]:
         """Score one bag [M, D] (with its omics signature list for survival
-        models); the bag is padded to its bucket and the outputs de-batched."""
+        models); the bag is padded to its bucket and the outputs de-batched
+        (leading dimension 1). ``mc_samples`` > 0 adds the MC-dropout columns
+        (``risk_mean`` / ``risk_std`` / ..., see ``make_mc_eval_step``) of
+        that many stochastic forwards, seeded by ``mc_seed``."""
         if not self.ge_mode and omics is None:
             raise ValueError("survival models need the omics signature list")
         n = self.min_rows
@@ -123,7 +290,10 @@ class Predictor:
         mask[0] = m
         batch = self._batch(torch.from_numpy(wsi).to(self.device),
                             torch.from_numpy(mask).to(self.device), [omics], 1)
-        return self._debatch(self.eval_step(batch), 1)
+        out = self._debatch(self._eval(batch), 1)
+        if mc_samples > 0:
+            out = self._mc_augment(out, batch, 1, mc_samples, mc_seed)
+        return out
 
     # ------------------------------------------------------------------ multi
     def predict_bags(self, bags: Sequence[np.ndarray], omics=None) -> Dict[str, np.ndarray]:
@@ -154,14 +324,80 @@ class Predictor:
                     mask[row, :len(bag)] = True
                 rows = [] if self.ge_mode else [omics[i] for i in chunk]
                 batch = self._batch(wsi, mask, rows, len(chunk))
-                out = self._debatch(self.eval_step(batch), len(chunk))
+                out = self._debatch(self._eval(batch), len(chunk))
                 for k, v in out.items():
                     slots.setdefault(k, [None] * n)
                     for row, i in enumerate(chunk):
                         slots[k][i] = v[row]
         return {k: np.stack(v) for k, v in slots.items()}
 
+    # ---------------------------------------------------------------- dataset
+    def predict_dataset(self, dataset=None, mc_samples: int = 0,
+                        mc_seed: int = 0) -> Dict[str, np.ndarray]:
+        """Score every sample of ``dataset`` (default: the Trainer's whole
+        dataset) in the batcher's bucketed batches (no shuffle); returns
+        column arrays aligned with ``slide_id``. Each batch is read, padded
+        and copied to the device in the prefetch thread while the device
+        scores the one before. ``mc_samples`` > 0 adds the MC-dropout
+        columns, batch ``i`` drawing from the generator of
+        ``(mc_seed, i)``."""
+        if dataset is None:
+            if self._t is None:
+                raise ValueError("predict_dataset needs a dataset (or a Predictor "
+                                 "built from a Trainer)")
+            dataset = self._t.dataset
+        extras = gene_expr_extras if self.ge_mode else survival_extras
+        batcher = BucketBatcher(dataset, extras, self.batch_size, self.buckets, shuffle=False)
+
+        def staged(batches):
+            for b in batches:
+                yield b, to_device(b, self.device, self.ge_mode)
+
+        rows: Dict[str, list] = {}
+        for bi, (batch, dev) in enumerate(prefetch(staged(batcher.batches()))):
+            real = int(batch["weight"].sum())
+            out = self._debatch(self._eval(dev), real)
+            if mc_samples > 0:
+                out = self._mc_augment(out, dev, real, mc_samples, mc_seed, fold=bi)
+            out["slide_id"] = np.array(
+                [dataset.slide_id(int(i)) for i in batch["index"][:real]])
+            for k, v in out.items():
+                rows.setdefault(k, []).append(v)
+        return {k: np.concatenate(v) for k, v in rows.items()}
+
+    def predict_to_csv(self, path: str, dataset=None, mc_samples: int = 0,
+                       mc_seed: int = 0) -> str:
+        """:meth:`predict_dataset` as a CSV, one row a slide: slide_id, risk,
+        hazard_j / surv_j, y_j, then the MC columns (risk_mc_mean,
+        risk_mc_std, y_j_mc_std) and the ensemble's (risk_ens_std,
+        y_j_ens_std), the JAX package's columns in its order."""
+        import pandas as pd
+
+        cols = self.predict_dataset(dataset, mc_samples=mc_samples, mc_seed=mc_seed)
+        flat: Dict[str, Any] = {"slide_id": cols["slide_id"]}
+        if "risk" in cols:
+            flat["risk"] = cols["risk"]
+            for j in range(cols["hazards"].shape[1]):
+                flat[f"hazard_{j}"] = cols["hazards"][:, j]
+                flat[f"surv_{j}"] = cols["survs"][:, j]
+        for j in range(cols["y"].shape[1]):
+            flat[f"y_{j}"] = cols["y"][:, j]
+        if mc_samples > 0:
+            if "risk_std" in cols:
+                flat["risk_mc_mean"] = cols["risk_mean"]
+                flat["risk_mc_std"] = cols["risk_std"]
+            for j in range(cols["y_std"].shape[1]):
+                flat[f"y_{j}_mc_std"] = cols["y_std"][:, j]
+        if "risk_ens_std" in cols:
+            flat["risk_ens_std"] = cols["risk_ens_std"]
+        if "y_ens_std" in cols:
+            for j in range(cols["y_ens_std"].shape[1]):
+                flat[f"y_{j}_ens_std"] = cols["y_ens_std"][:, j]
+        pd.DataFrame(flat).to_csv(path, index=False)
+        return path
+
     # ------------------------------------------------------------------- util
     def _debatch(self, res: Dict[str, Any], real: int) -> Dict[str, np.ndarray]:
         keys = ("y",) if self.ge_mode else ("y", "risk", "hazards", "survs")
+        keys += tuple(k for k in ("risk_ens_std", "y_ens_std") if k in res)
         return {k: res[k][:real].cpu().numpy() for k in keys}

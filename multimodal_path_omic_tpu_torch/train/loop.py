@@ -2,7 +2,8 @@
 optimizer update per batched, bucketed step on a single device, host-fed
 (:func:`make_train_step`) or assembled on the device from a resident bag
 cache (:func:`make_cached_train_step`); the no-grad eval step of validation
-and serving (:func:`make_eval_step`), host-fed or cached.
+and serving (:func:`make_eval_step`), host-fed or cached; the MC-dropout
+step of serving (:func:`make_mc_eval_step`).
 
 A full effective batch is processed in one step. When B * M exceeds
 ``patch_budget`` the step runs the batch in gradient-accumulation chunks
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -286,3 +288,65 @@ def make_eval_step(
         }
 
     return step
+
+
+def mc_generator(device, mc_seed: int, fold: int = 0) -> torch.Generator:
+    """The dropout generator of one MC-dropout call: on ``device``, seeded
+    from ``(mc_seed, fold)`` through numpy's ``SeedSequence`` (``fold`` is a
+    batch's index within a dataset scan, so batches draw independent masks;
+    both must be >= 0)."""
+    seed = np.random.SeedSequence([int(mc_seed), int(fold)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_mc_eval_step(
+    model: nn.Module, n_samples: int, *, ge_mode: bool = False,
+    omic_sizes: Optional[Sequence[int]] = None,
+) -> Callable[[Dict[str, Any], torch.Generator], Dict[str, torch.Tensor]]:
+    """Monte-Carlo-dropout predictive uncertainty (Gal & Ghahramani 2016):
+    ``mc_step(batch, generator)`` runs ``n_samples`` training-mode forwards
+    (every dropout site live, ``need_attention=False``) under
+    ``torch.inference_mode()``, each drawing its dropout from ``generator``
+    (see :func:`mc_generator`), one after another, so memory stays at one
+    batch's forward. Returns the predictive mean and population standard
+    deviation (``jnp.std``'s): ``y_mean`` / ``y_std`` and, for survival
+    models, ``risk_mean`` / ``risk_std`` (risk = -sum(survs)),
+    ``hazards_mean``, ``survs_mean`` / ``survs_std``. The batch is that of
+    :func:`make_eval_step`. On the GPU a survival forward runs the fuse-K
+    training form (its dropout seed drawn from ``generator``); GE's forwards
+    take the MIL pool's eager branch (the pool kernel is eval-only) and the
+    flash forward. The model is left in eval mode."""
+    if n_samples < 1:
+        raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+
+    @torch.inference_mode()
+    def mc_step(batch: Dict[str, Any], generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        cols = {"y": [], "hazards": [], "survs": [], "risk": []}
+        model.train()
+        try:
+            for _ in range(n_samples):
+                if ge_mode:
+                    y, _ = model(batch["wsi"], batch["mask"], generator=generator)
+                    cols["y"].append(y)
+                    continue
+                out = model(batch["wsi"], _unpack_omics(batch, omic_sizes), batch["mask"],
+                            need_attention=False, generator=generator)
+                cols["y"].append(out.y)
+                cols["hazards"].append(out.hazards)
+                cols["survs"].append(out.survs)
+                cols["risk"].append(-out.survs.sum(dim=1))
+        finally:
+            model.eval()
+        stacked = {k: torch.stack(v) for k, v in cols.items() if v}
+        res = {"y_mean": stacked["y"].mean(dim=0), "y_std": stacked["y"].std(dim=0, correction=0)}
+        if not ge_mode:
+            res.update(
+                risk_mean=stacked["risk"].mean(dim=0),
+                risk_std=stacked["risk"].std(dim=0, correction=0),
+                hazards_mean=stacked["hazards"].mean(dim=0),
+                survs_mean=stacked["survs"].mean(dim=0),
+                survs_std=stacked["survs"].std(dim=0, correction=0),
+            )
+        return res
+
+    return mc_step

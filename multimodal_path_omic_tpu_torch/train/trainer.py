@@ -25,10 +25,11 @@ or ``device="cpu"`` selects the CPU (the kernels' plain versions). "tpu",
 (``device.resolve_device``): it never drops to the CPU on its own.
 
 Settings the port cannot honour yet raise ``NotImplementedError``
-(``config.require_supported``; a reference ``.pt`` checkpoint in
-``Trainer.restore``). These settings only shape how the JAX package
-dispatches and leave the numbers as they are; they are read and have no
-effect here:
+(``config.require_supported``). A reference ``.pt`` checkpoint loads
+through ``Trainer.load_torch_checkpoint`` (``utils/transplant.py``);
+``Trainer.restore`` reads the port's own checkpoints only. These settings
+only shape how the JAX package dispatches and leave the numbers as they
+are; they are read and have no effect here:
 ``steps_per_dispatch``, ``use_native_pipeline``, ``prefetch`` (the host
 prefetch thread keeps a fixed two batches ahead), ``matmul_precision`` (the
 port computes in full float32, ``device.configure_precision``),
@@ -44,6 +45,7 @@ import datetime
 import math
 import os
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,6 +64,7 @@ from multimodal_path_omic_tpu_torch.data.pipeline import (
     gene_expr_extras,
     prefetch,
     survival_extras,
+    to_device,
 )
 from multimodal_path_omic_tpu_torch.device import resolve_device
 from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
@@ -145,7 +148,7 @@ class Trainer:
         model = build_model(
             c.model.name, omic_sizes=self.omic_sizes, model_size=c.model.model_size,
             fusion=c.model.fusion, n_classes=3 if self.ge_mode else c.model.n_classes,
-            dropout=c.model.dropout, wsi_dim=self.wsi_dim)
+            dropout=c.model.dropout, wsi_dim=self.wsi_dim, bug_compat=c.training.bug_compat)
         self.model = seeded_init_(model, c.training.seed).to(self.device)
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = make_optimizer(c.training.optimizer, c.training.lr,
@@ -233,22 +236,8 @@ class Trainer:
         return True
 
     def _device_batch(self, batch) -> Dict[str, Any]:
-        """A host batch's tensors on the device; the omics groups travel as
-        one packed [B, sum(s_i)] tensor, as the device cache holds them."""
-        dev = self.device
-
-        def put(x, dtype):
-            return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
-
-        out = {"wsi": put(batch["wsi"], np.float32), "mask": put(batch["mask"], bool),
-               "weight": put(batch["weight"], np.float32),
-               "label": put(batch["label"], np.int64)}
-        if not self.ge_mode:
-            out["omics_packed"] = put(np.concatenate(
-                [np.asarray(o, np.float32) for o in batch["omics"]], axis=-1), np.float32)
-            out["censorship"] = put(batch["censorship"], np.float32)
-            out["survival_months"] = put(batch["survival_months"], np.float32)
-        return out
+        """A host batch's tensors on the device (``pipeline.to_device``)."""
+        return to_device(batch, self.device, self.ge_mode)
 
     def _batch_info(self, meta, real: int, table) -> Dict[str, Any]:
         """The host columns the epoch's metrics read, for a cached batch."""
@@ -403,14 +392,14 @@ class Trainer:
         return self.train_epoch(epoch), self.validate(epoch)
 
     # -------------------------------------------------------------- test/export
-    def test(self, epoch: int, save: bool = False) -> None:
+    def test(self, epoch: int, save: bool = False, png: bool = False) -> None:
         """Leave-one-out inference + attention-map export (reference:
         mcat/main.py:158-183): survival models export the co-attention map
         [N, M], GE the MIL scores [1, M], each cut to the bag's patches, as
         ``ATTN_<model>_<patient>_<time>_E<epoch>_<batch>.npy`` (GE: without
-        the model) or ``.pt`` under ``training.attn_export_format``.
-        Rendering the maps as PNG is not ported (ROADMAP.md queue 1, HTTP
-        server and CLI)."""
+        the model) or ``.pt`` under ``training.attn_export_format``; with
+        ``png`` each saved map is also rendered beside it
+        (``utils/visualize.py``, rows labelled by signature)."""
         if self.test_ds is None or len(self.test_ds) == 0:
             return
         c = self.config
@@ -451,6 +440,16 @@ class Trainer:
                     torch.save(torch.from_numpy(np.ascontiguousarray(attn_map)), path)
                 else:
                     np.save(path, attn_map)
+                if png:
+                    from multimodal_path_omic_tpu_torch.utils.visualize import save_attention_png
+
+                    png_path = save_attention_png(
+                        attn_map, path,
+                        row_labels=None if self.ge_mode else list(
+                            self.dataset.table.signature_names),
+                        title=f"{c.model.name} · patient {patient} · epoch {epoch}")
+                    if self.verbose:
+                        print(f"Rendered attention heatmap {png_path}")
 
     # ------------------------------------------------------------- checkpoint
     def save(self, epoch: int, loss: float, tag: Optional[str] = None) -> str:
@@ -475,12 +474,16 @@ class Trainer:
             print(f"Loading model checkpoint from {path}")
         payload = ckpt.restore_checkpoint(path)
         if "model_state_dict" in payload:
-            raise NotImplementedError(
-                f"{path} is a reference PyTorch checkpoint: loading one is not ported "
-                "(load_torch_checkpoint, ROADMAP.md queue 1, the Trainer's rest)")
+            raise ValueError(f"{path} is a reference PyTorch checkpoint: load it with "
+                             "Trainer.load_torch_checkpoint (--torch-checkpoint)")
         self.model.load_state_dict(payload["model"])
         self.state.optimizer.load_state_dict(payload["optimizer"])
-        self.state.generator.set_state(payload["generator"])
+        state = payload["generator"]
+        if state.numel() == self.state.generator.get_state().numel():
+            self.state.generator.set_state(state)
+        else:  # written on the other device type: CPU and CUDA generator states differ in kind
+            warnings.warn(f"{path}: the dropout generator's state is another device type's; "
+                          f"the run keeps its generator seeded from training.seed")
         self.state = self.state._replace(step=int(payload["step"]))
         self.starting_epoch = int(payload["epoch"])
         if self.config.training.bug_compat:
@@ -488,6 +491,25 @@ class Trainer:
             # 309-312, 323), so it trains that epoch again
             self.starting_epoch = max(0, self.starting_epoch - 1)
         # the shuffle of an uninterrupted run at this epoch (seed + epoch)
+        self.train_batcher._epoch = self.starting_epoch
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Load a reference ``.pt`` checkpoint's model weights
+        (``utils/transplant.py``). A reference checkpoint's 'epoch' is the
+        0-based epoch it finished (mcat/main.py:96): training resumes at the
+        next one, or under ``bug_compat`` at that one again, as the reference
+        does (main.py:309-312, 323); a payload without 'epoch' starts at 0."""
+        from multimodal_path_omic_tpu_torch.utils import transplant
+
+        if self.verbose:
+            print(f"Loading reference checkpoint from {path}")
+        payload = transplant.load_torch_checkpoint(path)
+        state = transplant.from_torch_state_dict(
+            self.config.model.name, payload["model_state_dict"], self.model.state_dict(),
+            n_signatures=len(self.omic_sizes), fusion=self.config.model.fusion)
+        self.model.load_state_dict(state)
+        saved = int(payload.get("epoch", -1))
+        self.starting_epoch = max(0, saved + (0 if self.config.training.bug_compat else 1))
         self.train_batcher._epoch = self.starting_epoch
 
     def _monitor_key(self) -> str:

@@ -21,8 +21,12 @@ MCAT's tree has NaCAGaT's names with a plain ``co_attention``
 pre-gated one (``co_attention.mha`` / ``co_attention.cag``); the same rules
 carry it. GE-NaCAGaT's tree (``H``, ``self_attention``, ``path_transformer``,
 ``path_pool``, ``classifier``) has no stacked axis and needs only the first
-two rules and ``layer_<j>``. Loading is strict: a tree of another model
-(unknown or missing names) raises.
+two rules and ``layer_<j>``. The fusions carry by the same rules:
+``gated_concat``'s ``gate_<i>`` Linears (``gate_<i>_kernel`` / ``_bias``
+leaves under ``bug_compat``, kept in the JAX layout on both sides) and
+``bilinear``'s Linears and ``nn.Bilinear`` weights (``linear_z<i>.weight``
+[out, in1, in2], the torch layout on both sides). Loading is strict: a tree
+of another model (unknown or missing names) raises.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
 from multimodal_path_omic_tpu_torch.ops.blocks import OmicEncoderStack
+from multimodal_path_omic_tpu_torch.ops.fusion import Bilinear, BilinearFusion, GatedConcatFusion
 
 STACKED = ("branch_transformer", "branch_pool")
 
@@ -90,8 +95,11 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the JAX package's init distributions: torch-Linear U(+-1/sqrt(fan_in)),
     xavier over the packed in-projection with zero in/out biases, LayerNorm
-    ones/zeros, per-signature blocks (padded rows zero) in the omic stack.
-    Drawn on the CPU, so a seed gives the same weights on every device."""
+    ones/zeros, per-signature blocks (padded rows zero) in the omic stack;
+    the bilinear fusion's Linears N(0, 1/sqrt(fan_in)) with zero biases and
+    its ``nn.Bilinear`` weights U(+-1/sqrt(in1)); the frozen gated-concat
+    gates U(+-1/sqrt(fan_in)). Drawn on the CPU, so a seed gives the same
+    weights on every device."""
     gen = torch.Generator().manual_seed(int(seed))
 
     def uniform(t: torch.Tensor, bound: float) -> None:
@@ -116,7 +124,20 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
             dim1 = mod.fc2_kernel.shape[1]
             uniform(mod.fc2_kernel, 1.0 / math.sqrt(dim1))
             uniform(mod.fc2_bias, 1.0 / math.sqrt(dim1))
+        elif isinstance(mod, GatedConcatFusion) and mod.bug_compat:
+            for i, d in enumerate(mod.in_dims):
+                uniform(getattr(mod, f"gate_{i}_kernel"), 1.0 / math.sqrt(d))
+                uniform(getattr(mod, f"gate_{i}_bias"), 1.0 / math.sqrt(d))
+        elif isinstance(mod, Bilinear):
+            uniform(mod.weight, 1.0 / math.sqrt(mod.weight.shape[1]))
+            uniform(mod.bias, 1.0 / math.sqrt(mod.weight.shape[1]))
     for mod in model.modules():  # torch MHA zero-inits the out-projection bias
         if isinstance(mod, MultiheadAttention):
             mod.out_proj.bias.zero_()
+        elif isinstance(mod, BilinearFusion):  # init_max_weights over its Linears
+            for lin in mod.modules():
+                if isinstance(lin, nn.Linear):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen)
+                                     / math.sqrt(lin.in_features))
+                    lin.bias.zero_()
     return model

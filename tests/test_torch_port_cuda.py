@@ -1285,3 +1285,132 @@ def test_trainer_fit_on_card_matches_cpu(dev, tmp_path, model_name, loss):
         for key in ("train_loss", "val_loss"):
             np.testing.assert_allclose(got[key], ref[key], rtol=1e-4)
         np.testing.assert_allclose(got["risks"], ref["risks"], atol=ATOL, rtol=0)
+
+
+def _serving_world(tmp_path, loss="cesar"):
+    """A small synthetic cohort, a checkpoint of seeded weights (written by a
+    CPU Trainer), and the config that reads both, for the card or the CPU."""
+    from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.data.synthetic import (
+        make_synthetic_cohort,
+        synthetic_config_dict,
+    )
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    paths = make_synthetic_cohort(str(tmp_path / "cohort"), n_patients=12,
+                                  bag_lengths=(48, 80, 120), n_genes=24, n_signatures=3, seed=4)
+
+    def cfg(where):
+        raw = synthetic_config_dict(*paths)
+        raw["device"] = where
+        raw["model"].update(name="NaCAGaT", model_size="small",
+                            checkpoint_dir=str(tmp_path / "ck"))
+        raw["training"].update(loss=loss, test_output_dir=str(tmp_path / "out"))
+        raw["tpu"] = {"bag_buckets": [64, 128], "batch_size": 4}
+        return config_from_dict(raw)
+
+    ckpt = Trainer(cfg("cpu"), verbose=False).save(0, 0.0, tag="served")
+    return cfg, ckpt
+
+
+def _post(url, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _npz(**arrays):
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def test_server_and_csv_on_card_match_cpu(dev, tmp_path):
+    """The server's answers (/predict_npz, /predict_batch_npz) and the CSV
+    rows of ``predict_to_csv`` on the card against the CPU within 1e-4: the
+    same checkpoint through ``Predictor.from_config`` on each device."""
+    import threading
+
+    import pandas as pd
+
+    from multimodal_path_omic_tpu_torch.server import make_server
+
+    cfg, ckpt = _serving_world(tmp_path)
+    preds = {w: Predictor.from_config(cfg(w), checkpoint=ckpt) for w in ("cuda", "cpu")}
+    servers = {w: make_server(p, port=0) for w, p in preds.items()}
+    for s in servers.values():
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    try:
+        rng = np.random.default_rng(3)
+        sizes = preds["cpu"].omic_sizes
+        bags = [rng.normal(size=(m, 1024)).astype(np.float32) for m in (40, 100, 70, 128, 90)]
+        omics = [[rng.normal(size=(s,)).astype(np.float32) for s in sizes] for _ in bags]
+        single = _npz(wsi=bags[1], **{f"omic_{j}": o for j, o in enumerate(omics[1])})
+        batch = _npz(**{f"wsi_{i}": b for i, b in enumerate(bags)},
+                     **{f"omic_{i}_{j}": o for i, os_ in enumerate(omics)
+                        for j, o in enumerate(os_)})
+        coattn.reset_launch_counts()
+        for path, body in (("/predict_npz", single), ("/predict_batch_npz", batch)):
+            got, ref = (_post(f"http://127.0.0.1:{servers[w].server_address[1]}{path}", body)
+                        for w in ("cuda", "cpu"))
+            for k in ("risk", "hazards", "survs", "y"):
+                np.testing.assert_allclose(got[k], ref[k], atol=ATOL, rtol=0)
+        torch.cuda.synchronize()
+        assert coattn.LAUNCH_COUNTS["coattn_stats"] == 1 + 2  # one batch a bucket
+        assert coattn.LAUNCH_COUNTS["coattn_weights"] == 1 + 2
+    finally:
+        for s in servers.values():
+            s.shutdown()
+    csv = {w: pd.read_csv(p.predict_to_csv(str(tmp_path / f"{w}.csv"))) for w, p in preds.items()}
+    assert list(csv["cuda"].columns) == list(csv["cpu"].columns)
+    assert list(csv["cuda"].slide_id) == list(csv["cpu"].slide_id)
+    num = [c for c in csv["cpu"].columns if c != "slide_id"]
+    np.testing.assert_allclose(csv["cuda"][num].to_numpy(), csv["cpu"][num].to_numpy(),
+                               atol=ATOL, rtol=0)
+
+
+def test_mc_request_launches_the_training_form_n_samples_times(dev, tmp_path):
+    """An MC request (``?mc=6``) on the card: the MC forwards launch the fuse-K
+    training form 6 times and no export pass (the deterministic columns add
+    one stats and one weights pass); the same seed answers bit for bit."""
+    import threading
+
+    from multimodal_path_omic_tpu_torch.data.bags import bucket_for, pad_bag
+    from multimodal_path_omic_tpu_torch.server import make_server
+    from multimodal_path_omic_tpu_torch.train.loop import mc_generator
+
+    cfg, ckpt = _serving_world(tmp_path)
+    pred = Predictor.from_config(cfg("cuda"), checkpoint=ckpt)
+    server = make_server(pred, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        rng = np.random.default_rng(5)
+        bag = rng.normal(size=(100, 1024)).astype(np.float32)
+        omics = [rng.normal(size=(s,)).astype(np.float32) for s in pred.omic_sizes]
+        body = _npz(wsi=bag, **{f"omic_{j}": o for j, o in enumerate(omics)})
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict_npz?mc=6&mc_seed=2"
+        coattn.reset_launch_counts()
+        first = _post(url, body)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in coattn.LAUNCH_COUNTS.items() if v}
+        assert counts == {"coattn_fwd_fused_k_train": 6, "coattn_stats": 1,
+                          "coattn_weights": 1}
+        assert first == _post(url, body) and first["risk_std"][0] > 0
+    finally:
+        server.shutdown()
+    padded, m = pad_bag(bag, bucket_for(len(bag), pred.buckets))
+    staged = pred._batch(torch.from_numpy(padded[None]).to(dev),
+                         torch.from_numpy(m[None]).to(dev), [omics], 1)
+    coattn.reset_launch_counts()
+    res = pred._mc_step(6)(staged, mc_generator(dev, 2))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in coattn.LAUNCH_COUNTS.items() if v} == {
+        "coattn_fwd_fused_k_train": 6}
+    assert np.array_equal(res["risk_mean"].cpu().numpy(), np.asarray(first["risk_mean"],
+                                                                        np.float32))

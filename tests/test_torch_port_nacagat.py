@@ -42,12 +42,14 @@ MODEL_ATOL = 5e-5
 B, M, WSI, D = 2, 1024, 256, 128
 SIZES = (10, 20, 30)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# every module of the port, the training entry point's included
+# every module of the port, the training and serving entry points' included
 PORT_MODULES = [
     "ops.milpool", "ops.flash", "ops.kernels", "models.ge_nacagat", "serve", "train.loop",
     "train.optim", "ops.gather", "models.mcat", "data.device_cache", "data.pipeline",
     "config", "data.bags", "data.tables", "data.dataset", "data.synthetic", "train.metrics",
     "train.checkpoint", "train.logging", "train.trainer", "utils.hdf5",
+    "ops.fusion", "utils.transplant", "utils.visualize", "train.analysis", "data.check",
+    "server", "cli",
 ]
 
 

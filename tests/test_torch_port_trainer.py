@@ -256,7 +256,7 @@ def test_reference_checkpoint_is_refused(cohort, tmp_path):
     path = str(tmp_path / "reference.pt")
     torch.save({"epoch": 3, "model_state_dict": {}, "optimizer_state_dict": {}, "loss": 0.5},
                path)
-    with pytest.raises(NotImplementedError, match="reference PyTorch checkpoint"):
+    with pytest.raises(ValueError, match="reference PyTorch checkpoint.*load_torch_checkpoint"):
         _port(cohort, _raw(cohort), "ref").restore(path)
 
 
