@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its NaCAGaT, GE-NaCAGaT and MCAT
 serving and training paths, its device-cache training step, its training
-entry point (``Trainer.fit``) and its serving entry points (the CLI and the
-HTTP server) on one GPU.
+entry point (``Trainer.fit``), its serving entry points (the CLI and the
+HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-22 below
+    python3 chip_smoke.py              # phases 1-23 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -230,6 +230,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``server stopped``. Request latency, batch, dynamic-batch and sequential
     bags/s, warmup seconds and ``predict_dataset`` bags/s beside the card's
     name and power limit.
+23. This slice: the steps as CUDA graphs (``train/graphs.py``), multi-step
+    dispatch, partial caching, pinned staging and the bench. (a) Phase 21's
+    Trainer (examples/nacagat.yaml, its cohort and settings) host-fed and
+    cached, each with ``steps_per_dispatch`` auto and 1 graphed and auto
+    eager: epoch 1 through ``validated_epoch`` (the graphs' warm-up and
+    capture), epoch 2 as ``train_epoch`` and ``validate``; both epochs'
+    losses and validation risks bit for bit equal across the six runs, the
+    launches of epoch 2 equal (replays count theirs), epoch seconds, train
+    and val bags/s, peak device memory and, from a traced third epoch, the
+    device busy share; (b) a budget that fits the 4096 bucket and not the
+    8192 one: the partially cached run bit for bit equal to host-fed; (c)
+    ``train/benchmark.py::headline`` (bench.py's NaCAGaT, GE and MCAT rows,
+    MCAT last), graphed against eager bags/s; (d) GE-NaCAGaT small: three
+    training steps and two eval steps graphed against eager (the flash
+    forward and backward, and the MIL pool, inside graphs), bit for bit; (e)
+    MCAT ``lean=False``: three steps graphed against eager (the plain-K pair),
+    bit for bit; (f) NaCAGaT ``ces`` ``predict_bags`` on phase 2's 40 bags,
+    pinned staging overlapped with the graphed eval against pageable copies:
+    bags/s and the answers bit for bit, and the graphed fuse-K eval step
+    against the eager one. Every kernel of the kernels line but the E = 512
+    instances runs inside a graph here and is held against its eager run.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -3401,6 +3422,349 @@ def phase22_serving(dev) -> dict:
     return total
 
 
+# Phase 23: this slice on the card. The Trainer runs of (a) and (b) are phase
+# 21's configuration (examples/nacagat.yaml on TRAINER_COHORT with
+# TRAINER_SET); (d) and (e) step phase 17's and phase 14's models on small
+# batches of their buckets; (f) scores phase 2's 40 bags.
+GRAPH_RUNS = (("off", 0, True), ("off", 1, True), ("off", 0, False),
+              ("on", 0, True), ("on", 1, True), ("on", 0, False))
+GRAPH_STEPS = 3
+PARTIAL_BUCKET = 4096  # (b): the bucket the budget fits
+HEADLINE_K, HEADLINE_CALLS, HEADLINE_WINDOWS = 16, 4, 3
+PINNED_CALLS = 3
+
+
+def _busy_share(fn) -> tuple:
+    """(wall ms, device ms, busy share) of ``fn()`` traced by torch.profiler;
+    the device numbers None where the trace holds no device time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        device_ms = sum(r[1] for r in device_rows(prof))
+    except AssertionError:
+        return wall_ms, None, None
+    return wall_ms, device_ms, device_ms / wall_ms
+
+
+def _counts_delta(before, after) -> dict:
+    return {k: v - before[k] for k, v in after.items() if v - before[k]}
+
+
+def _trainer_run(tag, what, cfg, graphs, power, profile=False, budget_of=None) -> dict:
+    """Epoch 1 through ``validated_epoch`` (the warm-up: graphs captured,
+    the cache uploaded), epoch 2 as ``train_epoch`` then ``validate``, each
+    timed to a device sync; with ``profile`` a third training epoch traced
+    for the busy share."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg, verbose=False, graphs=graphs)
+    if budget_of is not None:  # (b): a budget that fits that bucket only
+        lengths = np.concatenate([trainer.train_batcher._bag_lengths(),
+                                  trainer.val_batcher._bag_lengths()])
+        per = DeviceBagCache.bucket_bytes(lengths, trainer.buckets, trainer.wsi_dim)
+        trainer.config.tpu.device_cache_budget_bytes = per[budget_of] + 1
+    t0 = time.perf_counter()
+    tr0, va0 = trainer.validated_epoch(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    risks0 = trainer.val_risks.copy()
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    tr1 = trainer.train_epoch(1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c1 = read_counts()
+    t0 = time.perf_counter()
+    va1 = trainer.validate(1)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    c2 = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cache = trainer.device_cache
+    run = {"what": what, "steps": trainer.last_epoch_steps, "val_batches": len(trainer.val_batcher),
+           "partial": trainer._cache_partial, "cached": cache and cache.cached_buckets,
+           "epochs": [
+        (tr0["train_loss"], tr0["train_attn_loss"], va0["val_loss"], risks0),
+        (tr1["train_loss"], tr1["train_attn_loss"], va1["val_loss"], trainer.val_risks.copy())],
+        "train_launches": _counts_delta(c0, c1), "val_launches": _counts_delta(c1, c2),
+        "graphs": 0 if trainer.graphs is None else len(trainer.graphs), "peak_gib": peak,
+        "first_s": first_s, "train_s": train_s, "val_s": val_s}
+    busy = ""
+    if profile:
+        wall, dev_ms, share = _busy_share(lambda: trainer.train_epoch(2))
+        run["busy"] = (wall, dev_ms, share)
+        busy = (f", a traced training epoch {wall:.1f} ms wall, "
+                + (f"{dev_ms:.1f} ms device, busy share {share:.3f}" if share is not None
+                   else "device time not measured (the trace holds none)"))
+    n_train, n_val = len(trainer.train_ds), len(trainer.val_ds)
+    del trainer, cache  # the next run starts from what this one held
+    log(f"  ({tag}) {what}: epoch 1 (validated_epoch, with the warm-up) {first_s:.2f} s; epoch 2 "
+        f"train {train_s:.3f} s = {n_train / train_s:.1f} train bags/s over "
+        f"{run['steps']} steps, validate {val_s:.3f} s = "
+        f"{n_val / val_s:.1f} val bags/s; {run['graphs']} CUDA graphs; peak device memory "
+        f"{peak:.2f} GiB above the run's start{busy}; epoch 2 launches train "
+        f"{run['train_launches']}, "
+        f"val {run['val_launches']} ({power})")
+    return run
+
+
+def _same_epochs(what, got, ref) -> None:
+    for e, (g, r) in enumerate(zip(got["epochs"], ref["epochs"])):
+        for name, a, b in zip(("train_loss", "train_attn_loss", "val_loss"), g[:3], r[:3]):
+            if a != b:
+                raise AssertionError(f"{what} epoch {e + 1}: {name} {a!r} != {b!r}")
+        if not np.array_equal(g[3], r[3]):
+            raise AssertionError(f"{what} epoch {e + 1}: validation risks differ")
+
+
+def _step_pair(what, make, batch, steps, evaluate=None) -> dict:
+    """``steps`` training steps (and, with ``evaluate``, two eval steps)
+    eager and graphed from the same weights and seed: parameters, metrics,
+    eval results and the generator's state bit for bit, the launches equal.
+    Returns the graphed run's launches."""
+    import torch
+
+    from torch.utils import _pytree as pytree
+
+    runs = {}
+    for graphs in (False, True):
+        model, state, step, ev = make(graphs)
+        before = read_counts()
+        out = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            out.append(m)
+        if ev is not None:
+            out += [ev(batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        runs[graphs] = (model, state, out, _counts_delta(before, read_counts()))
+    (m0, s0, o0, c0), (m1, s1, o1, c1) = runs[False], runs[True]
+    for (name, p), q in zip(m0.named_parameters(), m1.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"{what}: graphed and eager parameter {name} differ")
+    for a, b in zip(pytree.tree_leaves(o0), pytree.tree_leaves(o1)):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{what}: graphed and eager metrics or eval results differ")
+    if not torch.equal(s0.generator.get_state(), s1.generator.get_state()):
+        raise AssertionError(f"{what}: the generators' states differ")
+    if c0 != c1:
+        raise AssertionError(f"{what}: launches eager {c0}, graphed {c1}")
+    log(f"  {what}: {steps} training steps" + (" and 2 eval steps" if ev is not None else "")
+        + f" graphed == eager, bit for bit (parameters, metrics, generator); launches {c1}")
+    return c1
+
+
+def _pageable_predict_bags(pred, bags, omics) -> dict:
+    """``predict_bags`` as it copied before pinned staging: each bag copied
+    from pageable memory into its row of a zeroed device batch, one batch
+    at a time, with the same eval step."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.bags import bucket_for
+
+    by_bucket = {}
+    for i, bag in enumerate(bags):
+        by_bucket.setdefault(bucket_for(len(bag), pred.buckets), []).append(i)
+    slots, dim = {}, bags[0].shape[1]
+    for bucket, idxs in sorted(by_bucket.items()):
+        for c0 in range(0, len(idxs), pred.batch_size):
+            chunk = idxs[c0:c0 + pred.batch_size]
+            wsi = torch.zeros((pred.batch_size, bucket, dim), device=pred.device)
+            mask = torch.zeros((pred.batch_size, bucket), dtype=torch.bool, device=pred.device)
+            for row, i in enumerate(chunk):
+                wsi[row, :len(bags[i])] = torch.from_numpy(bags[i]).to(pred.device)
+                mask[row, :len(bags[i])] = True
+            out = pred._debatch(pred._eval(pred._batch(wsi, mask, [omics[i] for i in chunk],
+                                                       len(chunk))), len(chunk))
+            for k, v in out.items():
+                slots.setdefault(k, [None] * len(bags))
+                for row, i in enumerate(chunk):
+                    slots[k][i] = v[row]
+    return {k: np.stack(v) for k, v in slots.items()}
+
+
+def phase23_graphs(dev, bags, omics) -> dict:
+    """Multi-step training on CUDA graphs, partial caching, pinned staging
+    and the headline bench on the card. Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.train.benchmark import headline
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    reset_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        log(f"phase 23 (a): examples/nacagat.yaml + {TRAINER_SET}, host-fed and cached, "
+            "steps_per_dispatch auto and 1, CUDA graphs and eager")
+        runs = {}
+        for feed, spd, graphs in GRAPH_RUNS:
+            what = (f"{'cached' if feed == 'on' else 'host-fed'}, steps_per_dispatch "
+                    f"{spd or 'auto'}, {'graphed' if graphs else 'eager'}")
+            cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, f"{feed}{spd}{graphs}"),
+                                 {**TRAINER_SET, "tpu.device_cache": feed,
+                                  "tpu.steps_per_dispatch": spd})
+            runs[(feed, spd, graphs)] = _trainer_run("a", what, cfg, graphs, power,
+                                                     profile=spd == 0)
+        ref = runs[GRAPH_RUNS[0]]
+        for key, run in runs.items():
+            _same_epochs(f"{run['what']} vs {ref['what']}", run, ref)
+            want = ref["train_launches"], ref["val_launches"]
+            if key[0] == "on":  # one row gather more a step and a validation batch
+                want = tuple({**w, "gather_rows": n} for w, n in zip(
+                    want, (run["steps"], run["val_batches"])))
+            if (run["train_launches"], run["val_launches"]) != want:
+                raise AssertionError(f"{run['what']}: epoch 2 launches differ from {want}")
+        for feed in sorted({key[0] for key in runs}):
+            g, e = runs[(feed, 0, True)], runs[(feed, 0, False)]
+            log(f"  {'cached' if feed == 'on' else 'host-fed'}: graphed vs eager train "
+                f"{e['train_s'] / g['train_s']:.2f}x, validate {e['val_s'] / g['val_s']:.2f}x; "
+                f"peak device memory graphed {g['peak_gib']:.2f} GiB vs eager "
+                f"{e['peak_gib']:.2f} GiB ({power})")
+        log("  all six runs: both epochs' train loss, attention loss, val loss and val risks "
+            "bit for bit equal; launches as the eager host-fed run's (plus one row gather a "
+            "cached step and validation batch)")
+
+        log(f"phase 23 (b): partial caching, a budget that fits the {PARTIAL_BUCKET} bucket "
+            "only")
+        cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, "partial"),
+                             {**TRAINER_SET, "tpu.device_cache": "auto"})
+        part = _trainer_run("b", "partially cached, steps_per_dispatch auto, graphed", cfg,
+                            True, power, budget_of=PARTIAL_BUCKET)
+        if not part["partial"] or part["cached"] != [PARTIAL_BUCKET]:
+            raise AssertionError(f"partial cache: buckets {part['cached']}")
+        _same_epochs("partially cached vs host-fed", part, ref)
+        log(f"  the {PARTIAL_BUCKET} bucket gathered on the card, the other host-fed: both "
+            "epochs bit for bit equal to the host-fed run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    log(f"phase 23 (c): the headline bench (bench.py's workload), K = {HEADLINE_K} steps a "
+        f"call, {HEADLINE_CALLS} calls a window, best of {HEADLINE_WINDOWS} windows")
+    for row in headline(dev, k=HEADLINE_K, n_calls=HEADLINE_CALLS, n_windows=HEADLINE_WINDOWS,
+                        verbose=False):
+        log(f"  {row['metric']}: graphed {row['value']} bags/s, eager "
+            f"{row['eager_bags_per_sec']} bags/s ({row['value'] / row['eager_bags_per_sec']:.2f}x)"
+            f"; {json.dumps(row)} ({power})")
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(23)
+
+    def ge_make(graphs):
+        model = seeded_init_(build_model("GE-NaCAGaT", model_size="small", dropout=TRAIN_RATE,
+                                         n_classes=3), 0).to(dev)
+        opt = make_optimizer("adam", 2e-4, 1e-5)
+        return (model, loop.init_train_state(model, opt, seed=0),
+                loop.make_train_step(model, "ce", opt, ge_mode=True, graphs=graphs),
+                loop.make_eval_step(model, "ce", ge_mode=True, graphs=graphs))
+
+    lengths = (4096, 2500, 1000)
+    wsi = torch.zeros((GE_WIDE_B, GE_WIDE_M, 1024), device=dev)
+    mask = torch.zeros((GE_WIDE_B, GE_WIDE_M), dtype=torch.bool, device=dev)
+    for row, n in enumerate(lengths):
+        wsi[row, :n] = torch.from_numpy(rng.standard_normal((n, 1024), dtype=np.float32)).to(dev)
+        mask[row, :n] = True
+    ge_batch = {"wsi": wsi, "mask": mask,
+                "label": torch.tensor([0, 2, 1, 0], device=dev),
+                "weight": torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)}
+    log(f"phase 23 (d): GE-NaCAGaT small (ce, dropout {TRAIN_RATE}, Adam) on "
+        f"[{GE_WIDE_B}, {GE_WIDE_M}, 1024] (bags of {lengths} patches and a filler row)")
+    ge = _step_pair("GE small", ge_make, ge_batch, GRAPH_STEPS, evaluate=True)
+    for name in ("flash_fwd_d128", "flash_fwd_d16", "flash_bwd_d128", "flash_bwd_d16",
+                 "milpool"):
+        if not ge.get(name):
+            raise AssertionError(f"GE small: {name} did not launch in the graphed run")
+
+    def mcat_make(graphs):
+        model = seeded_init_(build_model("MCAT", omic_sizes=SIZES, model_size="medium",
+                                         dropout=TRAIN_RATE, lean=False), 0).to(dev)
+        opt = make_optimizer("adam", 2e-4, 1e-5)
+        return (model, loop.init_train_state(model, opt, seed=0),
+                loop.make_train_step(model, "ces", opt, omic_sizes=SIZES, graphs=graphs), None)
+
+    n_rows = 8
+    wsi = torch.zeros((n_rows, TRAIN_M, 1024), device=dev)
+    mask = torch.zeros((n_rows, TRAIN_M), dtype=torch.bool, device=dev)
+    for row in range(n_rows):
+        wsi[row, :len(bags[row])] = torch.from_numpy(bags[row]).to(dev)
+        mask[row, :len(bags[row])] = True
+    mcat_batch = {"wsi": wsi, "mask": mask,
+                  "omics": [torch.from_numpy(np.stack([omics[r][j] for r in range(n_rows)]))
+                            .to(dev) for j in range(len(SIZES))],
+                  "label": torch.from_numpy(rng.integers(0, 4, n_rows)).to(dev),
+                  "censorship": torch.from_numpy(rng.integers(0, 2, n_rows)
+                                                 .astype(np.float32)).to(dev),
+                  "weight": torch.ones(n_rows, device=dev)}
+    log(f"phase 23 (e): MCAT medium lean=False (ces, dropout {TRAIN_RATE}, Adam) on "
+        f"[{n_rows}, {TRAIN_M}, 1024] (phase 2's first bags)")
+    mc = _step_pair("MCAT lean=False", mcat_make, mcat_batch, GRAPH_STEPS)
+    if mc != {"coattn_plain": GRAPH_STEPS, "coattn_plain_bwd": GRAPH_STEPS}:
+        raise AssertionError(f"MCAT lean=False: launches {mc}")
+    del mcat_batch, ge_batch, wsi, mask
+    torch.cuda.empty_cache()
+
+    log(f"phase 23 (f): NaCAGaT ces predict_bags on phase 2's {len(bags)} bags, pinned "
+        "staging overlapped with the graphed eval against pageable copies")
+    pred = make_predictor(dev, "ces")
+    eager_eval = loop.make_eval_step(pred.model, "ces", omic_sizes=SIZES, graphs=False)
+    pred.predict_bags(bags, omics)  # the warm-up: a graph captured at each batch shape
+    times = {"pinned": [], "pageable": []}
+    answers = {}
+    for _ in range(PINNED_CALLS):
+        for way, fn in (("pinned", pred.predict_bags),
+                        ("pageable", lambda b, o: _pageable_predict_bags(pred, b, o))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers[way] = fn(bags, omics)
+            times[way].append(time.perf_counter() - t0)
+    for key in ("risk", "hazards", "survs", "y"):
+        if not np.array_equal(answers["pinned"][key], answers["pageable"][key]):
+            raise AssertionError(f"pinned vs pageable predict_bags: {key} differs")
+    staged = pred._staged_batch(pred._stage(
+        [bag[:3000] for bag in bags[:B] if len(bag) >= 3000][:B], BUCKETS[0], B,
+        omics[:B]), B)
+    graphed, eager = pred.eval_step(staged), eager_eval(staged)
+    for key in ("loss", "risk", "hazards", "survs", "y"):
+        if not torch.equal(graphed[key], eager[key]):
+            raise AssertionError(f"ces eval step: graphed and eager {key} differ")
+    rate = {w: len(bags) / float(np.median(t)) for w, t in times.items()}
+    log(f"  pinned {rate['pinned']:.2f} bags/s vs pageable {rate['pageable']:.2f} bags/s "
+        f"({rate['pinned'] / rate['pageable']:.2f}x; median of {PINNED_CALLS} calls each, "
+        f"{[round(t, 4) for t in times['pinned']]} s vs "
+        f"{[round(t, 4) for t in times['pageable']]} s); answers bit for bit equal; the "
+        f"graphed ces eval step == the eager one on a staged batch ({power})")
+    del pred
+    torch.cuda.synchronize()
+    total = read_counts()
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in total.items() if v} } ({power})")
+    return total
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -3720,7 +4084,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-22")
+                         "Trainer epoch host-fed and cached instead of phases 1-23")
     args = ap.parse_args()
     try:
         import torch
@@ -3830,7 +4194,7 @@ def main() -> int:
     p15 = phase15_device_cache(dev)
     launches = {**p14["launches"], "gather_rows": p15["launches"]["gather_rows"]}
     rows += phase16_timings(dev, errs, launches, p14, p15, bags, omics, batch)
-    del p14, p15, bags, omics, batch
+    del p14, p15, batch  # phase 23 scores the bags again
     torch.cuda.empty_cache()
     p21 = phase21_trainer(dev)
     for row in rows:  # the Trainer's main path runs these kernels (no E = 512 instance)
@@ -3839,6 +4203,11 @@ def main() -> int:
     p22 = phase22_serving(dev)
     for row in rows:  # the serving entry points run these kernels (no E = 512 instance)
         row["launches"] += p22.get(row["name"], 0)
+    torch.cuda.empty_cache()
+    p23 = phase23_graphs(dev, bags, omics)
+    del bags, omics
+    for row in rows:  # this slice's runs: every kernel but the E = 512 instances
+        row["launches"] += p23.get(row["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

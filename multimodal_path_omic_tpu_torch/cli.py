@@ -21,9 +21,10 @@ config says ``device: cpu`` (``--set device=cpu``):
     python -m multimodal_path_omic_tpu_torch.cli convert-bags --src bags/ --dst bags_npy/
     python -m multimodal_path_omic_tpu_torch.cli serve --config cfg.yaml \\
         --checkpoint ... --port 8008 --dynamic-batch 8
+    python -m multimodal_path_omic_tpu_torch.cli bench --config cfg.yaml --epochs 5
 
-``bench``, ``cv``, ``sweep``, ``plan``, ``profile`` and ``export-model`` take
-the JAX package's flags and exit non-zero: their modules are not ported yet
+``cv``, ``sweep``, ``plan``, ``profile`` and ``export-model`` take the JAX
+package's flags and exit non-zero: their modules are not ported yet
 (ROADMAP.md queue 1, tooling).
 """
 
@@ -36,7 +37,6 @@ from typing import Any, Dict, List, Optional
 
 # unported commands -> the ROADMAP.md item that ports them
 UNPORTED = {
-    "bench": "train/benchmark.py",
     "cv": "train/cv.py",
     "sweep": "train/sweep.py",
     "plan": "train/plan.py",
@@ -165,6 +165,17 @@ def cmd_convert_bags(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Training throughput on the config's own cohort (``train/benchmark.py``):
+    warm-up epochs, then timed ones; prints one JSON line."""
+    from multimodal_path_omic_tpu_torch.config import load_config
+    from multimodal_path_omic_tpu_torch.train.benchmark import benchmark_training
+
+    cfg = load_config(args.config, _parse_overrides(args.set, args))
+    benchmark_training(cfg, epochs=args.epochs, warmup=args.warmup, validate=args.validate)
+    return 0
+
+
 def cmd_unported(args) -> int:
     print(f"{args.command}: not ported yet; it needs {UNPORTED[args.command]} "
           "(ROADMAP.md queue 1, tooling)", file=sys.stderr)
@@ -270,10 +281,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bag", type=int, default=None)
     p.add_argument("--allow-untrained", action="store_true")
     p.add_argument("--weights-dtype", default="float32", choices=("float32", "bfloat16"))
-    p = command("bench", cmd_unported, "training-throughput benchmark (not ported)")
-    p.add_argument("--epochs", type=int, default=5)
-    p.add_argument("--warmup", type=int, default=1)
-    p.add_argument("--validate", action="store_true")
+    p = command("bench", cmd_bench, "steady-state training throughput on your config/data")
+    p.add_argument("--epochs", type=int, default=5, help="timed epochs")
+    p.add_argument("--warmup", type=int, default=1,
+                   help="untimed epochs (kernel build, graph capture, cache upload)")
+    p.add_argument("--validate", action="store_true",
+                   help="time validated epochs (training + validation)")
     command("plan", cmd_unported, "memory-fit report (not ported)")
     p = command("profile", cmd_unported, "trace and rank device ops (not ported)",
                 config_required=False)

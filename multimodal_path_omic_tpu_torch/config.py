@@ -264,20 +264,18 @@ class TpuConfig:
     # shipping batch shapes the step is not memory-bound and remat only adds
     # FLOPs; turn on for huge-bag / huge-batch configs that OOM or spill.
     remat: bool = False
-    # Host pipeline prefetch depth.
+    # Host pipeline prefetch depth: dispatch groups read, padded and staged
+    # on the card ahead of the steps (data/pipeline.py::prefetch).
     prefetch: int = 2
     # C++ pipelined epoch executor (native slot ring). The Trainer closes the
     # slot-aliasing hazard in _device_batch (copy on CPU / transfer-completion
     # on accelerators), so it is safe to auto-engage.
     use_native_pipeline: bool = True
-    # Optimizer steps executed per device dispatch (lax.scan over stacked
-    # same-bucket batches; EXACT single-step semantics). >1 amortizes
-    # per-call host/dispatch latency — decisive on remote/tunneled backends
-    # where dispatch RTT exceeds device compute. Composes with meshes and
-    # multi-host (cached-feed metas are globally replicated; host-fed stacks
-    # assemble from per-process [K, local_B] slices).
-    # 0 (default) = auto: 32, with leftovers grouped down a (K, 8, 1)
-    # ladder and host-fed groups byte-capped per bucket.
+    # Optimizer steps per dispatch group: K consecutive same-bucket batches
+    # staged together and run as one multi-step (train/loop.py::
+    # multi_step_of; each step a CUDA graph replay on the card), EXACTLY K
+    # single steps. 0 (default) = auto: 64, with leftovers grouped down a
+    # (K, 8, 1) ladder and host-fed groups capped at 1 GiB of stacked bags.
     steps_per_dispatch: int = 0
     # Device-resident dataset cache (data/device_cache.py): upload every bag
     # once, gather training batches on device — steady-state epochs transfer

@@ -161,6 +161,19 @@ class BucketBatcher:
         for indices, bucket in self._epoch_plan():
             yield self._make_batch(indices, bucket)
 
+    def _make_rows(self, indices: List[int], bucket: int) -> Batch:
+        """:meth:`_make_batch` without the padding: each row's bag as it is
+        ('rows', a list of [M_i, D] float32 arrays, filler rows included) and
+        its patches' positions in the batch flattened to [B * bucket]
+        ('pos'); the other fields as there. :class:`Stager` carries only
+        these patches, and :meth:`Staged.take` pads on the device."""
+        full, weight = pad_plan_indices(indices, self.batch_size)
+        batch = bag_rows([self.dataset.bag(i) for i in full], bucket, len(full))
+        batch.update(weight=weight, index=np.array(full, np.int32), bucket=bucket,
+                     n_real=len(indices))
+        batch.update(self.extras_fn(self.dataset, np.array(full)))
+        return batch
+
     def _make_batch(self, indices: List[int], bucket: int) -> Batch:
         full, weight = pad_plan_indices(indices, self.batch_size)
         masks = np.zeros((len(full), bucket), dtype=bool)
@@ -172,6 +185,23 @@ class BucketBatcher:
                      index=np.array(full, np.int32), bucket=bucket, n_real=len(indices))
         batch.update(self.extras_fn(self.dataset, np.array(full)))
         return batch
+
+
+def bag_rows(bags: Sequence[np.ndarray], bucket: int, n: int) -> Dict[str, Any]:
+    """An ``n``-row batch of ``bags`` (one a row, each at most ``bucket``
+    patches) without its padding: 'rows', the bags as float32 arrays;
+    'pos', a list of each bag's positions in the batch flattened to
+    [n * bucket]; 'mask' [n, bucket]."""
+    mask = np.zeros((n, bucket), dtype=bool)
+    rows, pos = [], []
+    for row, bag in enumerate(bags):
+        bag = np.asarray(bag, np.float32)
+        if len(bag) > bucket:
+            raise ValueError(f"bag of {len(bag)} patches exceeds bucket {bucket}")
+        rows.append(bag)
+        mask[row, :len(bag)] = True
+        pos.append(row * bucket + np.arange(len(bag), dtype=np.int64))
+    return {"rows": rows, "pos": pos, "mask": mask}
 
 
 def survival_extras(dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
@@ -189,30 +219,207 @@ def gene_expr_extras(dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
     return {"label": dataset.table.gene_expr_class[indices]}
 
 
-def to_device(batch: Batch, device, ge_mode: bool) -> Dict[str, Any]:
-    """A host batch's tensors on ``device``, as the steps read them: wsi,
-    mask, weight, label and, for survival models, the omics groups as one
-    packed [B, sum(s_i)] tensor (the device cache's layout), censorship and
-    survival_months."""
-    import torch
-
-    def put(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
-
-    out = {"wsi": put(batch["wsi"], np.float32), "mask": put(batch["mask"], bool),
-           "weight": put(batch["weight"], np.float32), "label": put(batch["label"], np.int64)}
+def device_arrays(batch: Batch, ge_mode: bool) -> Dict[str, Any]:
+    """A host batch's arrays as the steps read them: wsi float32 (or a
+    :meth:`BucketBatcher._make_rows` batch's rows and pos), mask bool,
+    weight float32, label int64 and, for survival models, the omics groups
+    as one packed [..., sum(s_i)] float32 array (the device cache's layout),
+    censorship and survival_months float32."""
+    if "rows" in batch:  # lists: staged into pinned buffers of a few sizes
+        out = {"rows": list(batch["rows"]), "pos": list(batch["pos"])}
+    else:
+        out = {"wsi": np.ascontiguousarray(batch["wsi"], np.float32)}
+    out.update({"mask": np.ascontiguousarray(batch["mask"], bool),
+                "weight": np.ascontiguousarray(batch["weight"], np.float32),
+                "label": np.ascontiguousarray(batch["label"], np.int64)})
     if not ge_mode:
-        out["omics_packed"] = put(np.concatenate(
-            [np.asarray(o, np.float32) for o in batch["omics"]], axis=-1), np.float32)
-        out["censorship"] = put(batch["censorship"], np.float32)
-        out["survival_months"] = put(batch["survival_months"], np.float32)
+        out["omics_packed"] = np.ascontiguousarray(np.concatenate(
+            [np.asarray(o, np.float32) for o in batch["omics"]], axis=-1))
+        out["censorship"] = np.ascontiguousarray(batch["censorship"], np.float32)
+        out["survival_months"] = np.ascontiguousarray(batch["survival_months"], np.float32)
     return out
 
 
+def to_device(batch: Batch, device, ge_mode: bool) -> Dict[str, Any]:
+    """A padded host batch's tensors on ``device`` (:func:`device_arrays`'
+    fields), copied from pageable memory."""
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in device_arrays(batch, ge_mode).items()}
+
+
+def _merged(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """K row batches (:func:`device_arrays` of ``_make_rows`` batches) as
+    one: their rows in order, positions shifted into the [K, B, bucket]
+    batch, every other field stacked."""
+    per = batches[0]["mask"].size
+    out = {"rows": [r for b in batches for r in b["rows"]],
+           "pos": [p + k * per for k, b in enumerate(batches) for p in b["pos"]]}
+    for key in batches[0]:
+        if key not in out:
+            out[key] = np.stack([b[key] for b in batches])
+    return out
+
+
+def unpad(tensors: Dict[str, Any]) -> Dict[str, Any]:
+    """Staged row tensors (rows [P, D], pos [P], mask [..., bucket]) as the
+    padded batch: wsi [..., bucket, D], zero but at ``pos``, where the rows
+    go in order. Other tensors pass through."""
+    import torch
+
+    if "rows" not in tensors:
+        return tensors
+    out = dict(tensors)
+    rows, pos, mask = out.pop("rows"), out.pop("pos"), out["mask"]
+    wsi = torch.zeros(tuple(mask.shape) + (rows.shape[-1],), dtype=rows.dtype,
+                      device=rows.device)
+    wsi.view(-1, rows.shape[-1]).index_copy_(0, pos, rows)
+    out["wsi"] = wsi
+    return out
+
+
+class Staged:
+    """Device tensors a :class:`Stager` is filling: :meth:`take` them on the
+    stream that reads them."""
+
+    def __init__(self, tensors: Dict[str, Any], event=None):
+        self.tensors = tensors
+        self.event = event  # recorded on the copy stream after the copies
+
+    def take(self) -> Dict[str, Any]:
+        """The tensors, once the current stream has been made to wait for
+        their copies (and the allocator told that this stream reads them);
+        staged rows come padded (:func:`unpad`)."""
+        if self.event is not None:
+            import torch
+
+            stream = torch.cuda.current_stream(next(iter(self.tensors.values())).device)
+            stream.wait_event(self.event)
+            for t in self.tensors.values():
+                t.record_stream(stream)
+            self.event = None
+        self.tensors = unpad(self.tensors)
+        return self.tensors
+
+
+class Stager:
+    """``to_device`` through pinned host buffers: each array is copied into
+    a pinned buffer reused across calls (two per array name, shape and
+    type; a list of parts per power-of-two count of rows) and from there to the device by a ``non_blocking`` copy on the
+    stager's own copy stream, so the copies overlap the compute stream's
+    work. A buffer is refilled only after its last copy has finished (its
+    event has passed); the consumer's stream waits on the staged batch's
+    event (:meth:`Staged.take`). Meant to run in :func:`prefetch`'s thread;
+    calls from several threads take turns (a lock).
+
+    On the CPU it makes the same tensors as :func:`to_device`, with no copy
+    stream and no pinned memory."""
+
+    SLOTS = 2  # pinned buffers a ring: one filling while the other's copy runs
+
+    def __init__(self, device):
+        import torch
+
+        self.device = torch.device(device)
+        self._lock = threading.Lock()
+        self._stream = None
+        self._rings: Dict[tuple, list] = {}  # (name, shape, dtype) -> [turn, [(pinned, event)]]
+
+    def stage_batch(self, batch: Batch, ge_mode: bool) -> Staged:
+        """One host batch (:func:`device_arrays`' fields)."""
+        return self.stage([device_arrays(batch, ge_mode)])
+
+    def stage_group(self, batches: Sequence[Batch], ge_mode: bool) -> Staged:
+        """K same-shaped host batches as one batch of [K, ...] tensors (the
+        device-side counterpart of ``stack_batches`` + ``to_device``)."""
+        arrays = [device_arrays(b, ge_mode) for b in batches]
+        if "rows" in arrays[0]:
+            return self.stage([_merged(arrays)])
+        return self.stage(arrays, stacked=True)
+
+    def stage(self, rows: Sequence[Dict[str, Any]], stacked: bool = False) -> Staged:
+        """``rows``: one dict of host arrays, or with ``stacked`` K dicts of
+        same-shaped arrays, which land as [K, ...] tensors. Without
+        ``stacked`` a value may also be a list of arrays, which land
+        concatenated along their first axis (the parts are copied into the
+        pinned buffer one by one: no host-side concatenation)."""
+        import torch
+
+        if not stacked and len(rows) != 1:
+            raise ValueError("stage takes one dict of arrays unless stacked=True")
+        if self.device.type != "cuda":
+            return Staged({k: torch.from_numpy(np.stack([r[k] for r in rows]) if stacked
+                                               else _joined(rows[0][k]))
+                           .to(self.device) for k in rows[0]})
+        with self._lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                out = {k: torch.empty(((len(rows),) if stacked else ()) + _shape(a),
+                                      dtype=_dtype(a), device=self.device)
+                       for k, a in rows[0].items()}
+                for i, row in enumerate(rows):
+                    for k, a in row.items():
+                        host, done = self._next_buffer(k, a)
+                        if isinstance(a, list):
+                            off = 0
+                            for part in a:
+                                host[off:off + len(part)].copy_(
+                                    torch.from_numpy(np.ascontiguousarray(part)))
+                                off += len(part)
+                            src = host[:off]
+                        else:
+                            host.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                            src = host
+                        (out[k][i] if stacked else out[k]).copy_(src, non_blocking=True)
+                        done.record(self._stream)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        return Staged(out, ready)
+
+    def _next_buffer(self, name: str, a):
+        """The ring's next (pinned buffer, event) for ``a``, once the
+        buffer's last copy to the device has finished. A list of parts gets
+        a buffer of the next power of two of its rows, so a few buffers
+        serve every length."""
+        import torch
+
+        shape = _shape(a)
+        if isinstance(a, list):
+            shape = (1 << max(shape[0] - 1, 0).bit_length(),) + shape[1:]
+        ring = self._rings.setdefault((name, shape, _dtype(a)), [-1, []])
+        ring[0] = turn = (ring[0] + 1) % self.SLOTS
+        if turn == len(ring[1]):
+            ring[1].append((torch.empty(shape, dtype=_dtype(a), pin_memory=True),
+                            torch.cuda.Event()))
+        host, done = ring[1][turn]
+        done.synchronize()
+        return host, done
+
+
+def _joined(a) -> np.ndarray:
+    return np.concatenate(a) if isinstance(a, list) else np.ascontiguousarray(a)
+
+
+def _shape(a) -> tuple:
+    """An array's shape; a list of parts: their rows summed."""
+    if isinstance(a, list):
+        return (sum(len(p) for p in a),) + tuple(a[0].shape[1:])
+    return tuple(a.shape)
+
+
+def _dtype(a):
+    import torch
+
+    first = a[0] if isinstance(a, list) else a
+    return torch.from_numpy(np.asarray(first).reshape(-1)[:0]).dtype
+
+
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
-    """Background-thread prefetch of host batches: bag reads and padding
-    overlap the device's work (the reference leans on DataLoader workers,
-    mcat/main.py:250-252), at most ``depth`` batches ahead. An exception in
+    """Background-thread prefetch of host batches: bag reads, padding and
+    (through a :class:`Stager`) the copies to the device overlap the
+    device's work (the reference leans on DataLoader workers,
+    mcat/main.py:250-252), at most ``depth`` items ahead (``tpu.prefetch``). An exception in
     the source is raised in the consumer; a consumer that stops early
     releases the thread."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)

@@ -31,14 +31,39 @@ class SurvivalOutput(NamedTuple):
     attention: Dict[str, Optional[torch.Tensor]]
 
 
+class CumProd(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis, with a backward that reads
+    nothing on the host: torch's own asks the host whether the input holds a
+    zero, which stops a CUDA graph's capture. d out_j / d x_i is the product
+    of x_k over k <= j, k != i (for j >= i): the cumprod of x with x_i set
+    to 1, one row per i ([..., n, n] for the n survival bins), exact with
+    zeros in x too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.cumprod(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        n = x.shape[-1]
+        eye = torch.eye(n, dtype=torch.bool, device=x.device)
+        parts = torch.cumprod(torch.where(eye, torch.ones((), dtype=x.dtype, device=x.device),
+                                          x.unsqueeze(-2)), dim=-1)
+        upper = torch.ones((n, n), dtype=torch.bool, device=x.device).triu()
+        return (parts * upper * grad.unsqueeze(-2)).sum(dim=-1)
+
+
 def survival_head(
     logits: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits -> (hazards, survs, Y), always in float32:
-    hazards = sigmoid(logits); survs = cumprod(1 - hazards); Y = softmax(logits)."""
+    hazards = sigmoid(logits); survs = cumprod(1 - hazards) (:class:`CumProd`);
+    Y = softmax(logits)."""
     logits = logits.float()
     hazards = torch.sigmoid(logits)
-    survs = torch.cumprod(1.0 - hazards, dim=-1)
+    survs = CumProd.apply(1.0 - hazards)
     y = torch.softmax(logits, dim=-1)
     return hazards, survs, y
 

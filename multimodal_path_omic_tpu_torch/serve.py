@@ -12,6 +12,12 @@ risk = -sum(survs), hazards, survs and y. GE-NaCAGaT (WSI
 only, loss ``ce``): the class probabilities y and the raw MIL scores; bags
 come without omics.
 
+Bags reach the device through pinned host buffers and a copy stream
+(``pipeline.Stager``); ``predict_bags`` and ``predict_dataset`` pad and copy
+the next batch in a prefetch thread while the device scores the current one.
+On the card the eval step is a CUDA graph replay (``train/graphs.py``), one
+graph per batch shape.
+
 CLI: ``python -m multimodal_path_omic_tpu_torch.cli predict --config cfg.yaml
 --checkpoint ck --out predictions.csv`` writes one row per slide.
 """
@@ -23,13 +29,14 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for, pad_bag
+from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for
 from multimodal_path_omic_tpu_torch.data.pipeline import (
     BucketBatcher,
+    Stager,
+    bag_rows,
     gene_expr_extras,
     prefetch,
     survival_extras,
-    to_device,
 )
 from multimodal_path_omic_tpu_torch.device import resolve_device
 from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
@@ -117,6 +124,7 @@ class Predictor:
         self.n_params = sum(p.numel() for p in model.parameters())
         self.wsi_dim = int(model.H.fc.in_features)
         self._mc_steps: Dict[int, Any] = {}  # n_samples -> MC step
+        self.stager = Stager(device)
         # checkpoint ensemble: >= 2 state dicts on the device, loaded into
         # the one model in turn (members share the model and its eval step)
         self._param_sets = list(param_sets) if param_sets else None
@@ -228,6 +236,23 @@ class Predictor:
     def _batch(self, wsi, mask, omics_rows, n_real: int) -> Dict[str, Any]:
         """Device batch of ``len(wsi)`` rows; rows past ``n_real`` are
         zero-weight filler (with zero omics for survival models)."""
+        omics = None if self.ge_mode else [
+            torch.from_numpy(col).to(self.device)
+            for col in self._omic_columns(omics_rows, wsi.shape[0])]
+        return self._assemble(wsi, mask, omics, n_real)
+
+    def _omic_columns(self, omics_rows, n: int) -> List[np.ndarray]:
+        """One [n, s_j] float32 column per signature; rows past the given
+        ones are zero."""
+        cols = []
+        for j, s in enumerate(self.omic_sizes):
+            col = np.zeros((n, s), np.float32)
+            for row, sig in enumerate(omics_rows):
+                col[row] = np.asarray(sig[j], np.float32)
+            cols.append(col)
+        return cols
+
+    def _assemble(self, wsi, mask, omics, n_real: int) -> Dict[str, Any]:
         dev, n = self.device, wsi.shape[0]
         batch = {
             "wsi": wsi,
@@ -237,16 +262,35 @@ class Predictor:
         }
         if self.ge_mode:
             return batch
-        omics = []
-        for j, s in enumerate(self.omic_sizes):
-            col = np.zeros((n, s), np.float32)
-            for row, sig in enumerate(omics_rows):
-                col[row] = np.asarray(sig[j], np.float32)
-            omics.append(torch.from_numpy(col).to(dev))
         batch["omics"] = omics
         batch["censorship"] = torch.zeros((n,), device=dev)
         batch["survival_months"] = torch.zeros((n,), device=dev)
         return batch
+
+    def _stage(self, bags: Sequence[np.ndarray], bucket: int, n: int, omics_rows):
+        """Copy ``bags`` (one a row, each at most ``bucket`` patches) toward
+        an ``n``-row batch through the stager (pinned buffers, the copy
+        stream): only the bags' own patches cross, with their positions in
+        the padded batch, its mask and the omics columns."""
+        for bag in bags:
+            if np.ndim(bag) != 2 or np.shape(bag)[1] != self.wsi_dim:
+                raise ValueError(f"a bag must be [patches, {self.wsi_dim}], got {np.shape(bag)}")
+        arrays = bag_rows(bags, bucket, n)
+        if not bags:  # a batch of filler rows only
+            arrays.update(rows=[np.zeros((0, self.wsi_dim), np.float32)],
+                          pos=[np.zeros(0, np.int64)])
+        if not self.ge_mode:
+            for j, col in enumerate(self._omic_columns(omics_rows, n)):
+                arrays[f"omic_{j}"] = col
+        return self.stager.stage([arrays])
+
+    def _staged_batch(self, staged, n_real: int) -> Dict[str, Any]:
+        """The batch of :meth:`_batch` from :meth:`_stage`'s tensors, on the
+        current stream (padded on the device: the same tensors, bit for
+        bit)."""
+        t = staged.take()
+        omics = None if self.ge_mode else [t[f"omic_{j}"] for j in range(len(self.omic_sizes))]
+        return self._assemble(t["wsi"], t["mask"], omics, n_real)
 
     # ----------------------------------------------------------------- warmup
     def warmup(self, buckets=None, verbose: bool = False) -> list:
@@ -281,15 +325,8 @@ class Predictor:
         that many stochastic forwards, seeded by ``mc_seed``."""
         if not self.ge_mode and omics is None:
             raise ValueError("survival models need the omics signature list")
-        n = self.min_rows
         bucket = bucket_for(bag.shape[0], self.buckets)
-        padded, m = pad_bag(np.asarray(bag, np.float32), bucket)
-        wsi = np.zeros((n,) + padded.shape, np.float32)
-        wsi[0] = padded
-        mask = np.zeros((n,) + m.shape, bool)
-        mask[0] = m
-        batch = self._batch(torch.from_numpy(wsi).to(self.device),
-                            torch.from_numpy(mask).to(self.device), [omics], 1)
+        batch = self._staged_batch(self._stage([bag], bucket, self.min_rows, [omics]), 1)
         out = self._debatch(self._eval(batch), 1)
         if mc_samples > 0:
             out = self._mc_augment(out, batch, 1, mc_samples, mc_seed)
@@ -300,8 +337,9 @@ class Predictor:
         """Score a list of bags in bucketed, FIXED-SHAPE batches of
         ``(batch_size, bucket, D)``; ``omics``: one signature list per bag
         (survival models) or None (GE). Outputs are row-aligned with the
-        input order and filler rows are dropped. Each bag is copied straight
-        into its row of a zeroed device batch (no padded host copy)."""
+        input order and filler rows are dropped. Each batch's patches are
+        copied to the device through the stager in a prefetch thread, while
+        the device scores the batch before it, and padded there."""
         n = len(bags)
         if n == 0:
             return {}
@@ -310,25 +348,22 @@ class Predictor:
         by_bucket: Dict[int, list] = {}
         for i, bag in enumerate(bags):
             by_bucket.setdefault(bucket_for(len(bag), self.buckets), []).append(i)
+        bsz = self.batch_size
+
+        def staged():
+            for bucket, idxs in sorted(by_bucket.items()):
+                for c0 in range(0, len(idxs), bsz):
+                    chunk = idxs[c0:c0 + bsz]
+                    rows = [] if self.ge_mode else [omics[i] for i in chunk]
+                    yield chunk, self._stage([bags[i] for i in chunk], bucket, bsz, rows)
+
         slots: Dict[str, list] = {}
-        bsz, dev = self.batch_size, self.device
-        dim = int(np.asarray(bags[0]).shape[1])
-        for bucket, idxs in sorted(by_bucket.items()):
-            for c0 in range(0, len(idxs), bsz):
-                chunk = idxs[c0:c0 + bsz]
-                wsi = torch.zeros((bsz, bucket, dim), device=dev)
-                mask = torch.zeros((bsz, bucket), dtype=torch.bool, device=dev)
+        for chunk, stage in prefetch(staged()):
+            out = self._debatch(self._eval(self._staged_batch(stage, len(chunk))), len(chunk))
+            for k, v in out.items():
+                slots.setdefault(k, [None] * n)
                 for row, i in enumerate(chunk):
-                    bag = torch.from_numpy(np.ascontiguousarray(bags[i], np.float32))
-                    wsi[row, :len(bag)] = bag.to(dev)
-                    mask[row, :len(bag)] = True
-                rows = [] if self.ge_mode else [omics[i] for i in chunk]
-                batch = self._batch(wsi, mask, rows, len(chunk))
-                out = self._debatch(self._eval(batch), len(chunk))
-                for k, v in out.items():
-                    slots.setdefault(k, [None] * n)
-                    for row, i in enumerate(chunk):
-                        slots[k][i] = v[row]
+                    slots[k][i] = v[row]
         return {k: np.stack(v) for k, v in slots.items()}
 
     # ---------------------------------------------------------------- dataset
@@ -337,8 +372,8 @@ class Predictor:
         """Score every sample of ``dataset`` (default: the Trainer's whole
         dataset) in the batcher's bucketed batches (no shuffle); returns
         column arrays aligned with ``slide_id``. Each batch is read, padded
-        and copied to the device in the prefetch thread while the device
-        scores the one before. ``mc_samples`` > 0 adds the MC-dropout
+        and copied to the device (through the stager) in the prefetch thread
+        while the device scores the one before. ``mc_samples`` > 0 adds the MC-dropout
         columns, batch ``i`` drawing from the generator of
         ``(mc_seed, i)``."""
         if dataset is None:
@@ -349,12 +384,14 @@ class Predictor:
         extras = gene_expr_extras if self.ge_mode else survival_extras
         batcher = BucketBatcher(dataset, extras, self.batch_size, self.buckets, shuffle=False)
 
-        def staged(batches):
-            for b in batches:
-                yield b, to_device(b, self.device, self.ge_mode)
+        def staged():
+            for indices, bucket in batcher._epoch_plan():
+                b = batcher._make_rows(indices, bucket)
+                yield b, self.stager.stage_batch(b, self.ge_mode)
 
         rows: Dict[str, list] = {}
-        for bi, (batch, dev) in enumerate(prefetch(staged(batcher.batches()))):
+        for bi, (batch, stage) in enumerate(prefetch(staged())):
+            dev = stage.take()
             real = int(batch["weight"].sum())
             out = self._debatch(self._eval(dev), real)
             if mc_samples > 0:

@@ -3,7 +3,18 @@ optimizer update per batched, bucketed step on a single device, host-fed
 (:func:`make_train_step`) or assembled on the device from a resident bag
 cache (:func:`make_cached_train_step`); the no-grad eval step of validation
 and serving (:func:`make_eval_step`), host-fed or cached; the MC-dropout
-step of serving (:func:`make_mc_eval_step`).
+step of serving (:func:`make_mc_eval_step`); the multi-step forms of the
+JAX package (:func:`make_multi_train_step`, ``make_cached_train_step(
+multi=True)``, :func:`make_multi_eval_step`, :func:`stack_batches`): K steps
+over inputs with a leading [K, ...] axis, exactly K single steps.
+
+On the card every step runs through ``train/graphs.py``: the first call at a
+batch shape runs eagerly and captures a CUDA graph, later calls replay it
+(``graphs=True``, the default: the step's own :class:`StepGraphs`; a
+:class:`StepGraphs` to share one pool between steps; ``graphs=False``: the
+eager step). A multi-step replays the single step's graph K times, each
+replay fed by a device-to-device copy from the stacked inputs. On the CPU
+every step is eager and a multi-step loops over the eager step.
 
 A full effective batch is processed in one step. When B * M exceeds
 ``patch_budget`` the step runs the batch in gradient-accumulation chunks
@@ -23,11 +34,12 @@ co-attention kernel's int32 seed (one per chunk), come from it, as do the
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from multimodal_path_omic_tpu_torch.ops.gather import take_rows
 from multimodal_path_omic_tpu_torch.ops.losses import (
@@ -35,6 +47,8 @@ from multimodal_path_omic_tpu_torch.ops.losses import (
     l1_reg,
     survival_loss,
 )
+from multimodal_path_omic_tpu_torch.train.graphs import StepGraphs
+from multimodal_path_omic_tpu_torch.train.graphs import resolve as resolve_graphs
 from multimodal_path_omic_tpu_torch.train.optim import OptimizerSpec
 
 
@@ -80,13 +94,27 @@ def _unpack_omics(batch: Dict[str, Any], omic_sizes: Optional[Sequence[int]]):
     return list(torch.split(batch["omics_packed"], [int(s) for s in omic_sizes], dim=1))
 
 
+def _graphs_for(graphs: Union[bool, StepGraphs]) -> Callable[[torch.device], Any]:
+    """The step's :class:`StepGraphs` on a device (None: eager), resolved
+    once per device on first use."""
+    by_device: Dict[torch.device, Any] = {}
+
+    def get(device: torch.device):
+        if device not in by_device:
+            by_device[device] = resolve_graphs(graphs, device)
+        return by_device[device]
+
+    return get
+
+
 def make_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
-    patch_dropout: float = 0.0,
+    patch_dropout: float = 0.0, graphs: Union[bool, StepGraphs] = True,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
-    """``step(state, batch) -> (state, metrics)``. Batch fields (tensors on
+    """``step(state, batch) -> (state, metrics)``, graphed on the card
+    (``graphs``, see the module doc). Batch fields (tensors on
     the model's device): wsi [B, M, D], mask [B, M] bool, omics (list of
     [B, s_i]; or omics_packed [B, sum(s_i)], split by ``omic_sizes``), label
     [B], censorship [B], weight [B] (0 for filler rows), survival_months [B]
@@ -105,6 +133,26 @@ def make_train_step(
     ``patch_dropout`` > 0 hides that share of each bag's real patches from
     the chunk's forward (a fresh draw per chunk from the state's generator);
     a bag whose real patches were all hidden keeps its full mask."""
+    eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
+                      patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
+                      patch_dropout=patch_dropout)
+    get_graphs = _graphs_for(graphs)
+
+    def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
+        g = get_graphs(batch["wsi"].device)
+        if g is None:
+            return eager(state, batch)
+        metrics = g.run("train", lambda b: eager(state, b)[1], batch,
+                        generators=(state.generator,), keep=(eager, state.optimizer))
+        return state._replace(step=state.step + 1), metrics
+
+    return step
+
+
+def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alpha: float,
+              l1_lambda: float, patch_budget: Optional[int], ge_mode: bool,
+              omic_sizes: Optional[Sequence[int]], patch_dropout: float):
+    """The eager train step of :func:`make_train_step`."""
     # cesar needs only the penalty, not the map: "ssq" keeps the model on the
     # fused kernels
     need_attention = "ssq" if loss_name == "cesar" else False
@@ -118,8 +166,11 @@ def make_train_step(
         accum = accumulation_chunks(b, m_len, patch_budget, loss_name)
         chunk = b // accum
         params = list(model.parameters())
-        for p in params:
-            p.grad = None
+        # zeroed in place, not dropped: a graph's gradients then stay in the
+        # tensors the first (eager) step made, outside the graphs' pool
+        grads = [p.grad for p in params if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
         months = batch.get("survival_months")
         omics = None if ge_mode else _unpack_omics(batch, omic_sizes)
         zero = torch.zeros((), device=wsi.device)
@@ -177,20 +228,19 @@ def drop_patches(mask: torch.Tensor, rate: float, generator: torch.Generator) ->
     return torch.where(dropped.any(dim=1, keepdim=True), dropped, mask)
 
 
-def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, Any],
+def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor],
                   ge_mode: bool) -> Dict[str, Any]:
     """Assemble a batch on the cache's device from gathers over its rows:
     wsi by the row-gather kernel (``ops/gather.py``) at ``meta['pos']``
     (bucket-local), the mask at the same positions and the label / omics
-    columns at ``meta['row']`` (dataset rows) by ``index_select``. Only the
-    meta arrays (numpy or tensors) cross from the host."""
-    dev = cache["wsi"].device
-    pos, row = (torch.as_tensor(meta[k]).to(device=dev, dtype=torch.int64)
-                for k in ("pos", "row"))
+    columns at ``meta['row']`` (dataset rows) by ``index_select``. ``meta``
+    holds device tensors (:func:`meta_on`): nothing crosses from the host
+    inside the step."""
+    pos, row = meta["pos"], meta["row"]
     batch = {
         "wsi": take_rows(cache["wsi"], pos),
         "mask": cache["mask"].index_select(0, pos),
-        "weight": torch.as_tensor(meta["weight"], dtype=torch.float32).to(dev),
+        "weight": meta["weight"],
         "label": cache["label"].index_select(0, row),
     }
     if not ge_mode:
@@ -199,52 +249,157 @@ def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, Any],
     return batch
 
 
+_META_TYPES = {"pos": torch.int64, "row": torch.int64, "weight": torch.float32}
+
+
+def meta_on(meta: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """``build_meta``'s index arrays (numpy or tensors, [B] or stacked
+    [K, B]) as device tensors: pos and row int64, weight float32. Host
+    arrays cross through pinned memory, without blocking the host."""
+    device = torch.device(device)
+    out = {}
+    for key, dtype in _META_TYPES.items():
+        v = meta[key]
+        if isinstance(v, torch.Tensor):
+            out[key] = v.to(device=device, dtype=dtype)
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+        out[key] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+                    else t.to(device))
+    return out
+
+
 def make_cached_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, multi: bool = False, mesh=None, int8_matmul: bool = False,
+    graphs: Union[bool, StepGraphs] = True,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Dict[str, Any]],
               Tuple[TrainState, StepMetrics]]:
     """Train step over a device-resident dataset cache
     (``data/device_cache.py``): ``step(state, cache, meta)`` with ``cache``
     one bucket's tensors (``DeviceBagCache.caches[bucket]``) and ``meta``
-    the index arrays of ``build_meta``. The batch is assembled on the device
-    (:func:`_gather_batch`); the step itself is :func:`make_train_step`'s,
-    so a cached and a host-fed step on the same rows are the same
-    computation. Survival models need ``omic_sizes`` (the packed table's
-    column widths). ``multi``, ``mesh`` and ``int8_matmul`` are not ported."""
-    for name, on in (("multi", multi), ("mesh", mesh is not None),
-                     ("int8_matmul", int8_matmul)):
+    the index arrays of ``build_meta`` (host or device, :func:`meta_on`).
+    The batch is assembled on the device (:func:`_gather_batch`); the step
+    itself is :func:`make_train_step`'s, so a cached and a host-fed step on
+    the same rows are the same computation. With ``multi`` the meta arrays
+    carry a leading [K, ...] axis and one call runs K steps over the one
+    cache, returning metrics with a leading K axis. Graphed on the card as
+    :func:`make_train_step` (one graph per bucket's cache). Survival models
+    need ``omic_sizes`` (the packed table's column widths). ``mesh`` and
+    ``int8_matmul`` are not ported."""
+    for name, on in (("mesh", mesh is not None), ("int8_matmul", int8_matmul)):
         if on:
             raise NotImplementedError(
                 f"make_cached_train_step({name}=...) is not ported yet (ROADMAP queue 1)")
     if not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
-    inner = make_train_step(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
-                            patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                            patch_dropout=patch_dropout)
+    eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
+                      patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
+                      patch_dropout=patch_dropout)
+    get_graphs = _graphs_for(graphs)
 
     def step(state: TrainState, cache: Dict[str, torch.Tensor],
              meta: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
-        return inner(state, _gather_batch(cache, meta, ge_mode))
+        meta = meta_on(meta, cache["wsi"].device)
+        g = get_graphs(cache["wsi"].device)
+        if g is None:
+            return eager(state, _gather_batch(cache, meta, ge_mode))
+        metrics = g.run("cached_train",
+                        lambda m: eager(state, _gather_batch(cache, m, ge_mode))[1], meta,
+                        generators=(state.generator,), keep=(eager, state.optimizer, cache))
+        return state._replace(step=state.step + 1), metrics
 
-    return step
+    if not multi:
+        return step
+    repeated = multi_step_of(step)
+    return lambda state, cache, stacked: repeated(state, cache,
+                                                  meta_on(stacked, cache["wsi"].device))
+
+
+def make_multi_train_step(
+    model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
+    alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
+    ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
+    patch_dropout: float = 0.0, graphs: Union[bool, StepGraphs] = True,
+) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
+    """``step(state, stacked) -> (state, metrics)``: K optimizer steps over
+    a batch whose tensors (on the model's device) carry a leading [K, ...]
+    axis (:func:`stack_batches`, then ``pipeline.to_device``); exactly K
+    calls of :func:`make_train_step`'s step, the same generator chain.
+    Metrics carry a leading K axis."""
+    return multi_step_of(make_train_step(
+        model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
+        patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
+        patch_dropout=patch_dropout, graphs=graphs))
+
+
+def multi_step_of(step: Callable) -> Callable:
+    """K calls of ``step`` over the leading axis of its last argument:
+    ``multi(*args)`` where ``args[-1]`` is a tree of [K, ...] tensors; a
+    train step (first argument a :class:`TrainState`) threads the state and
+    returns ``(state, stacked metrics)``, an eval step returns its stacked
+    results. Every other argument passes through unchanged."""
+
+    def multi(*args):
+        *head, stacked = args
+        k = int(pytree.tree_leaves(stacked)[0].shape[0])
+        outs: List[Any] = []
+        for i in range(k):
+            one = pytree.tree_map(lambda t: t[i], stacked)
+            if head and isinstance(head[0], TrainState):
+                state, metrics = step(*head, one)
+                head[0] = state
+                outs.append(metrics)
+            else:
+                outs.append(step(*head, one))
+        stacked_out = stack_results(outs)
+        return (head[0], stacked_out) if head and isinstance(head[0], TrainState) else stacked_out
+
+    return multi
+
+
+def stack_results(outs: Sequence[Any]) -> Any:
+    """Stack same-structured result trees (metrics, eval dicts; None leaves
+    stay None) along a new leading axis."""
+    flat = [pytree.tree_flatten(o) for o in outs]
+    spec = flat[0][1]
+    return pytree.tree_unflatten([None if col[0] is None else torch.stack(col)
+                                  for col in zip(*(f[0] for f in flat))], spec)
+
+
+def stack_batches(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack same-shaped host batches into one [K, ...] batch dict (numpy):
+    the fields of one batch with a leading K axis (omics element-wise),
+    without 'bucket', 'n_real' and 'aliased'."""
+    out: Dict[str, Any] = {}
+    for k in batches[0]:
+        if k in ("bucket", "n_real", "aliased"):
+            continue
+        if k == "omics":
+            out[k] = [np.stack([np.asarray(b[k][i]) for b in batches])
+                      for i in range(len(batches[0][k]))]
+        else:
+            out[k] = np.stack([np.asarray(b[k]) for b in batches])
+    return out
 
 
 def make_eval_step(
     model: nn.Module, loss_name: str, *, alpha: float = 0.75, ge_mode: bool = False,
     need_attention: bool = False, omic_sizes: Optional[Sequence[int]] = None,
-    l1_lambda: float = 0.0, cached: bool = False,
+    l1_lambda: float = 0.0, cached: bool = False, graphs: Union[bool, StepGraphs] = True,
 ) -> Callable[..., Dict[str, Any]]:
     """The no-grad eval step of validation and serving: a deterministic
     forward (the model in eval mode) and the loss, under
     ``torch.inference_mode()`` (the MIL-pool kernel of GE's eval forward
-    refuses a call autograd would differentiate).
+    refuses a call autograd would differentiate). Graphed on the card as
+    :func:`make_train_step` (one graph per batch shape, and per cache).
 
     ``step(batch)`` takes a host-fed batch of device tensors (the fields of
     :func:`make_train_step`); with ``cached=True``, ``step(cache, meta)``
-    assembles it on the device from a bucket of a ``DeviceBagCache``.
+    assembles it on the device from a bucket of a ``DeviceBagCache``
+    (``meta`` host or device arrays, :func:`meta_on`).
     Survival models return loss, attn_loss, risk = -sum(survs), hazards,
     survs, y, the attention dict (requested for ``cesar``, whose loss reads
     the map, or with ``need_attention``; else None) and n_real; GE-NaCAGaT
@@ -257,10 +412,23 @@ def make_eval_step(
     if cached and not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
 
-    @torch.inference_mode()
+    get_graphs = _graphs_for(graphs)
+
     def step(batch: Dict[str, Any], meta: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        dev = batch["wsi"].device
+        g = get_graphs(dev)
         if cached:
-            batch = _gather_batch(batch, meta, ge_mode)
+            meta = meta_on(meta, dev)
+            if g is None:
+                return eager(_gather_batch(batch, meta, ge_mode))
+            return g.run("cached_eval", lambda m: eager(_gather_batch(batch, m, ge_mode)), meta,
+                         keep=(eager, batch))
+        if g is None:
+            return eager(batch)
+        return g.run("eval", eager, batch, keep=(eager,))
+
+    @torch.inference_mode()
+    def eager(batch: Dict[str, Any]) -> Dict[str, Any]:
         model.eval()
         weight = batch["weight"]
         reg = l1_lambda * l1_reg(model.parameters()) if l1_lambda > 0.0 else 0.0
@@ -288,6 +456,24 @@ def make_eval_step(
         }
 
     return step
+
+
+def make_multi_eval_step(
+    model: nn.Module, loss_name: str, *, alpha: float = 0.75, ge_mode: bool = False,
+    need_attention: bool = False, omic_sizes: Optional[Sequence[int]] = None,
+    l1_lambda: float = 0.0, cached: bool = False, graphs: Union[bool, StepGraphs] = True,
+) -> Callable[..., Dict[str, Any]]:
+    """K eval batches in one call: ``multi(stacked)`` over a batch whose
+    tensors carry a leading [K, ...] axis, or with ``cached=True``
+    ``multi(cache, stacked_meta)``; exactly K calls of
+    :func:`make_eval_step`'s step (eval carries no state). Result leaves
+    carry the leading K axis."""
+    repeated = multi_step_of(make_eval_step(
+        model, loss_name, alpha=alpha, ge_mode=ge_mode, need_attention=need_attention,
+        omic_sizes=omic_sizes, l1_lambda=l1_lambda, cached=cached, graphs=graphs))
+    if not cached:
+        return repeated
+    return lambda cache, stacked: repeated(cache, meta_on(stacked, cache["wsi"].device))
 
 
 def mc_generator(device, mc_seed: int, fold: int = 0) -> torch.Generator:

@@ -25,6 +25,16 @@ in the last digits; SGD and Adam match optax's.
 The learning rate lives in the optimizer's parameter groups: the epoch
 loop sets it (:func:`set_lr`, with :func:`schedule_lr`'s epoch-indexed
 value) or steps it (:func:`step_exponential`) without touching the state.
+
+On a CUDA device the optimizer is built so that a CUDA graph can capture its
+step (``train/graphs.py``) and the eager step runs the same arithmetic:
+every group's lr is a 0-dim float32 tensor on the device, which
+:func:`set_lr` writes in place, so a graph's next replay reads the new value
+(a Python float would be frozen into the graph); Adam, Adamax, RMSprop and
+Adadelta take ``capturable=True`` (their step counts on the device); SGD,
+whose torch step reads a tensor lr on the host, updates ``p -= lr * g`` with
+device-side products (:meth:`OptimizerSpec.update`). On the CPU the lr is a
+Python float and nothing of this applies.
 """
 
 from __future__ import annotations
@@ -42,18 +52,24 @@ class OptimizerSpec(NamedTuple):
     grad_clip: float = 0.0
 
     def init(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        """The torch optimizer (and its state) over ``params``."""
-        params, lr, wd = list(params), self.lr, self.weight_decay
+        """The torch optimizer (and its state) over ``params``; on a CUDA
+        device in its capturable form (see the module doc)."""
+        params, wd = list(params), self.weight_decay
+        cuda = bool(params) and params[0].device.type == "cuda"
+        lr = torch.tensor(self.lr, device=params[0].device) if cuda else self.lr
+        kw = {"capturable": True} if cuda else {}
         if self.name == "sgd":
             return torch.optim.SGD(params, lr=lr)
         if self.name == "adadelta":
-            return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6, weight_decay=wd)
+            return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6, weight_decay=wd, **kw)
         if self.name == "adamax":
             return torch.optim.Adamax(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=wd)
+                                      weight_decay=wd, **kw)
         if self.name == "rms":
-            return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8, weight_decay=wd)
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+            return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8, weight_decay=wd,
+                                       **kw)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+                                **kw)
 
     def update(self, optimizer: torch.optim.Optimizer) -> None:
         """One step from the parameters' ``.grad``, clipped first."""
@@ -62,6 +78,13 @@ class OptimizerSpec(NamedTuple):
                      if p.grad is not None]
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             torch._foreach_mul_(grads, self.grad_clip / torch.clamp(norm, min=self.grad_clip))
+        if self.name == "sgd" and isinstance(optimizer.param_groups[0]["lr"], torch.Tensor):
+            with torch.no_grad():
+                for group in optimizer.param_groups:
+                    params = [p for p in group["params"] if p.grad is not None]
+                    torch._foreach_add_(params, torch._foreach_mul(
+                        [p.grad for p in params], -group["lr"]))
+            return
         optimizer.step()
 
 
@@ -78,9 +101,33 @@ def current_lr(optimizer: torch.optim.Optimizer) -> float:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
-    """Set the learning rate of every parameter group, keeping the state."""
+    """Set the learning rate of every parameter group, keeping the state; a
+    tensor lr (the capturable form) is written in place."""
     for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = lr
+    return optimizer
+
+
+def load_state(optimizer: torch.optim.Optimizer, state: dict) -> torch.optim.Optimizer:
+    """``optimizer.load_state_dict(state)`` keeping the optimizer's own
+    device form: a state saved on the card (tensor lr, ``capturable``) loads
+    into a CPU optimizer and one saved on the CPU into a card optimizer; the
+    lr's value is the saved one."""
+    own = [(g["lr"], g.get("capturable")) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (lr, capturable) in zip(optimizer.param_groups, own):
+        value = float(group["lr"])
         group["lr"] = lr
+        if capturable is not None:
+            group["capturable"] = capturable
+        for p in group["params"]:
+            step = optimizer.state.get(p, {}).get("step")
+            if isinstance(step, torch.Tensor):  # capturable: on the device; else on the host
+                optimizer.state[p]["step"] = step.to("cpu" if not capturable else p.device)
+    set_lr(optimizer, value)
     return optimizer
 
 

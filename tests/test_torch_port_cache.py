@@ -187,8 +187,7 @@ def test_cache_defaults_to_cuda(world):
         tcache.DeviceBagCache(world.ds, tpipeline.survival_extras, BUCKETS)
 
 
-@pytest.mark.parametrize("name,value", [("multi", True), ("mesh", object()),
-                                        ("int8_matmul", True)])
+@pytest.mark.parametrize("name,value", [("mesh", object()), ("int8_matmul", True)])
 def test_cached_step_refuses_what_is_not_ported(name, value):
     model = MCAT(SIZES, model_size="small", wsi_dim=WSI)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

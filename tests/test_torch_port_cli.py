@@ -381,7 +381,6 @@ def test_stratify_uses_passed_trainer(config_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["bench", "--epochs", "2", "--validate"], "train/benchmark.py"),
     (["cv", "--folds", "3"], "train/cv.py"),
     (["sweep", "--grid", "training.lr=1e-4,2e-4"], "train/sweep.py"),
     (["plan"], "train/plan.py"),

@@ -1414,3 +1414,205 @@ def test_mc_request_launches_the_training_form_n_samples_times(dev, tmp_path):
         "coattn_fwd_fused_k_train": 6}
     assert np.array_equal(res["risk_mean"].cpu().numpy(), np.asarray(first["risk_mean"],
                                                                         np.float32))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs over the steps (train/graphs.py): graphed equals eager bit for bit
+# ---------------------------------------------------------------------------
+
+GRAPH_SIZES = (100, 200, 300, 400, 500, 600)  # the shipped signature groups
+GRAPH_M = 4096
+
+
+def _graph_world(dev, graphs, seed=0):
+    """NaCAGaT medium (dropout 0.25 at every site, cesar, Adam lr 2e-4 with
+    weight decay 1e-5), random weights from seed 0, generator seeded 0:
+    its train step and cached train step, eager or graphed."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    model = seeded_init_(build_model("NaCAGaT", omic_sizes=GRAPH_SIZES, model_size="medium",
+                                     dropout=0.25), seed).to(dev)
+    opt = make_optimizer("adam", 2e-4, 1e-5)
+    kw = dict(omic_sizes=GRAPH_SIZES, graphs=graphs)
+    return (model, loop.init_train_state(model, opt, seed=0),
+            loop.make_train_step(model, "cesar", opt, **kw),
+            loop.make_cached_train_step(model, "cesar", opt, multi=True, **kw),
+            loop.make_eval_step(model, "cesar", **kw))
+
+
+def _graph_cache(dev, n=12, seed=3):
+    """A one-bucket device cache of ``n`` bags of 1000..4096 patches."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1000, GRAPH_M + 1, n)
+    wsi = torch.from_numpy(rng.standard_normal((n, GRAPH_M, 1024), dtype=np.float32))
+    mask = torch.arange(GRAPH_M)[None] < torch.from_numpy(lengths)[:, None]
+    cache = {"wsi": wsi * mask[..., None], "mask": mask,
+             "label": torch.from_numpy(rng.integers(0, 4, n)),
+             "omics_packed": torch.from_numpy(
+                 rng.standard_normal((n, sum(GRAPH_SIZES)), dtype=np.float32)),
+             "censorship": torch.from_numpy(rng.integers(0, 2, n).astype(np.float32)),
+             "survival_months": torch.from_numpy(rng.uniform(1, 100, n).astype(np.float32))}
+    return {k: v.to(dev) for k, v in cache.items()}
+
+
+def _graph_metas(k, b=4, n=12, seed=4):
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.choice(n, b, replace=False) for _ in range(k)])
+    weight = np.ones((k, b), np.float32)
+    weight[-1, -1] = 0.0  # one filler row
+    return {"pos": rows, "row": rows, "weight": weight}
+
+
+def _batch_of(cache, meta):
+    rows = torch.as_tensor(meta["row"], device=cache["wsi"].device)
+    return {"wsi": cache["wsi"][rows], "mask": cache["mask"][rows],
+            "omics_packed": cache["omics_packed"][rows], "label": cache["label"][rows],
+            "censorship": cache["censorship"][rows],
+            "weight": torch.as_tensor(meta["weight"], device=cache["wsi"].device)}
+
+
+def _same_bits(a, b, what):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), what
+
+
+def test_graphed_train_steps_equal_eager_on_card(dev):
+    """Five NaCAGaT medium steps (cesar, dropout 0.25) on two alternating
+    batches, graphed (the first call eager, then replays) and eager, with the
+    lr changed between steps 3 and 4: the parameters, the gradients, every
+    metric and the dropout generator's state bit for bit; then one eval
+    step each."""
+    from multimodal_path_omic_tpu_torch.train.optim import set_lr
+
+    cache = _graph_cache(dev)
+    metas = _graph_metas(2)
+    batches = [_batch_of(cache, {k: v[i] for k, v in metas.items()}) for i in range(2)]
+    runs = {}
+    for graphs in (False, True):
+        model, state, step, _, evaluate = _graph_world(dev, graphs)
+        metrics = []
+        for i in range(5):
+            if i == 3:
+                set_lr(state.optimizer, 1e-4)
+            state, m = step(state, batches[i % 2])
+            metrics.append(m)
+        res = evaluate(batches[0])
+        torch.cuda.synchronize()
+        runs[graphs] = (model, state, metrics, res)
+    (m0, s0, e0, r0), (m1, s1, e1, r1) = runs[False], runs[True]
+    _same_bits(m0.parameters(), m1.parameters(), "parameters")
+    _same_bits((p.grad for p in m0.parameters()), (p.grad for p in m1.parameters()), "grads")
+    for a, b in zip(e0, e1):
+        _same_bits(a, b, "metrics")
+    assert torch.equal(s0.generator.get_state(), s1.generator.get_state())
+    assert s0.step == s1.step == 5
+    for k in ("loss", "risk", "hazards", "survs", "y"):
+        assert torch.equal(r0[k], r1[k]), k
+
+
+def test_graphed_cached_multi_step_equals_eager_on_card(dev):
+    """``make_cached_train_step(multi=True)`` over two groups of K = 3 metas
+    (one filler row), graphed and eager, lr changed between the groups:
+    the parameters, the [K]-stacked metrics and the generator bit for bit."""
+    from multimodal_path_omic_tpu_torch.train.optim import set_lr
+
+    cache = _graph_cache(dev)
+    groups = [_graph_metas(3, seed=4), _graph_metas(3, seed=5)]
+    runs = {}
+    for graphs in (False, True):
+        model, state, _, multi, _ = _graph_world(dev, graphs)
+        out = []
+        for i, meta in enumerate(groups):
+            if i == 1:
+                set_lr(state.optimizer, 1e-4)
+            state, m = multi(state, cache, meta)
+            assert m.loss.shape == (3,) and m.risk.shape == (3, 4)
+            out.append(m)
+        torch.cuda.synchronize()
+        runs[graphs] = (model, state, out)
+    (m0, s0, o0), (m1, s1, o1) = runs[False], runs[True]
+    _same_bits(m0.parameters(), m1.parameters(), "parameters")
+    for a, b in zip(o0, o1):
+        _same_bits(a, b, "metrics")
+    assert torch.equal(s0.generator.get_state(), s1.generator.get_state())
+
+
+def test_graph_replays_count_their_launches_on_card(dev):
+    """Three graphed steps (a warm-up, a capture, two replays) add the same
+    launches to the wrappers' counts as three eager steps; the capture
+    itself adds none."""
+    from multimodal_path_omic_tpu_torch.ops import gather as tgather
+    from multimodal_path_omic_tpu_torch.train.graphs import launch_counts
+
+    cache = _graph_cache(dev)
+    meta = _graph_metas(3)
+    counts = {}
+    for graphs in (False, True):
+        _, state, _, multi, _ = _graph_world(dev, graphs)
+        coattn.reset_launch_counts()
+        tgather.reset_launch_counts()
+        multi(state, cache, meta)
+        torch.cuda.synchronize()
+        counts[graphs] = [dict(t) for t in launch_counts()]
+    assert counts[True] == counts[False]
+    assert coattn.LAUNCH_COUNTS["coattn_fwd_fused_k_train"] == 3
+    assert coattn.LAUNCH_COUNTS["coattn_bwd_fused_k"] == 3
+    assert tgather.LAUNCH_COUNTS["gather_rows"] == 3
+
+
+def test_failed_capture_raises_on_card(dev):
+    """A step that reads a value on the host cannot be captured: the first
+    call's eager warm-up runs, its capture raises; nothing falls back."""
+    from multimodal_path_omic_tpu_torch.train.graphs import StepGraphs
+
+    graphs = StepGraphs(dev)
+    x = torch.ones(4, device=dev)
+
+    def host_read(t):
+        return t * float(t.sum())
+
+    with pytest.raises(RuntimeError, match="capture"):
+        graphs.run("host_read", host_read, x)
+    assert len(graphs) == 0
+
+
+def test_stager_on_card_equals_to_device(dev):
+    """Pinned staging on the card (copy stream, events, pinned rings reused
+    across calls, a row batch padded on the device, a stacked group) gives
+    the tensors ``to_device`` gives from the padded host batches, bit for
+    bit, across more calls than the ring has slots."""
+    from multimodal_path_omic_tpu_torch.data import pipeline
+    from multimodal_path_omic_tpu_torch.train.loop import stack_batches
+
+    rng = np.random.default_rng(6)
+
+    class Bags:
+        bags = [rng.normal(size=(m, 64)).astype(np.float32) for m in (5, 200, 77, 1, 256, 90)]
+        table = type("T", (), dict(
+            survival_months=rng.uniform(1, 9, 6).astype(np.float32),
+            survival_class=rng.integers(0, 4, 6), censorship=np.ones(6, np.float32),
+            signature_names=["a", "b"],
+            signature_data={"a": rng.normal(size=(6, 5)), "b": rng.normal(size=(6, 7))}))
+
+        def __len__(self):
+            return len(self.bags)
+
+        def bag(self, i):
+            return self.bags[i]
+
+    batcher = pipeline.BucketBatcher(Bags(), pipeline.survival_extras, 4, (256,))
+    stager = pipeline.Stager(dev)
+    for rows in ([0, 1, 2], [3, 4, 5, 0], [5, 1], [2, 3, 4]):
+        got = stager.stage_batch(batcher._make_rows(rows, 256), False).take()
+        ref = pipeline.to_device(batcher._make_batch(rows, 256), dev, False)
+        for key, value in ref.items():
+            assert torch.equal(got[key], value), key
+    groups = ([0, 1, 2], [3, 4, 5, 0])
+    got = stager.stage_group([batcher._make_rows(g, 256) for g in groups], False).take()
+    ref = pipeline.to_device(stack_batches([batcher._make_batch(g, 256) for g in groups]),
+                             dev, False)
+    for key, value in ref.items():
+        assert torch.equal(got[key], value), key

@@ -49,7 +49,7 @@ PORT_MODULES = [
     "config", "data.bags", "data.tables", "data.dataset", "data.synthetic", "train.metrics",
     "train.checkpoint", "train.logging", "train.trainer", "utils.hdf5",
     "ops.fusion", "utils.transplant", "utils.visualize", "train.analysis", "data.check",
-    "server", "cli",
+    "server", "cli", "train.graphs", "train.benchmark",
 ]
 
 
