@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-23 below
+    python3 chip_smoke.py              # phases 1-24 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -251,6 +251,32 @@ Phases (any failure exits non-zero, and no result line is printed):
     bags/s and the answers bit for bit, and the graphed fuse-K eval step
     against the eager one. Every kernel of the kernels line but the E = 512
     instances runs inside a graph here and is held against its eager run.
+24. Reduced precision. (a) The bfloat16 instances (the fuse-K forward in
+    both forms, its backward, the export passes' stats and weights, with
+    and without the pre-gate) against their plain versions at B=32, N=6,
+    E=F=D=256 on phase 1's and 4's masks (M=8192 ragged with a filler bag,
+    M=8192 with masked tiles mid-bag, M=1500 with a one-key bag that pools
+    exactly its kv row): two runs bitwise equal, dkv and w exactly 0 at the
+    masked keys of bags with a valid key; each timed beside its float32
+    row, its plain version and its bound. (b) Phase 21's Trainer
+    (examples/nacagat.yaml, its cohort and settings), two epochs graphed and
+    eager (bit for bit equal) in each of: bf16 compute from an int8 store;
+    the same host-fed through int8 transfers (bit for bit the cached run);
+    the same cached with ``ces`` (its validation on the eval form);
+    with int8_matmul (within 0.05 of the dequant run); a bf16 store and,
+    host-fed, bf16 transfers with float32 compute (bit for bit equal);
+    epoch 2's launches held to the plan (the bf16 instances once a step
+    and a validation batch under bf16 compute), train and val bags/s, the
+    cache's bytes against float32's, peak memory; then ``cli train`` with
+    ``--set tpu.compute_dtype=bfloat16 --set tpu.cache_dtype=int8`` for one
+    epoch, its loss the first run's epoch 1. (c) One epoch of bf16
+    compute from the int8 store on the card and on the CPU, dropout 0, four
+    training seeds: losses within 6e-5 and 1.2e-3 relative, risks within
+    6e-3 (about twice the largest reading), and each seed's run not equal
+    to its float32-compute control on the card. (d) GE-NaCAGaT and NaCAGaT
+    ``big`` under bf16 compute refused on the card (NotImplementedError,
+    queue 2 item 5: no bf16 instance of the flash kernels, nor of the
+    co-attention kernels at E = 512).
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -308,6 +334,10 @@ PEAK_F32_FLOP_PER_S = 67e12
 # their bound is 3 x operations over this rate; the float32-FMA bound is
 # logged beside it.
 PEAK_TF32_FLOP_PER_S = 495e12
+# bfloat16 on the tensor cores, dense: a product whose operands are both
+# bfloat16 (the bfloat16 instances' k = kv wk projection) is bounded at this
+# rate, whichever MMA the kernel runs it on.
+PEAK_BF16_FLOP_PER_S = 989e12
 
 B, N, E = 32, 6, 256
 ONE_KEY = 1337  # the valid key of the single-key masks
@@ -330,6 +360,12 @@ SOURCES = {
     "coattn_plain": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_plain_bwd": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "gather_rows": "multimodal_path_omic_tpu_torch/csrc/gather.cu",
+    # the bfloat16 instances (phase 24)
+    "coattn_fwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_fwd_fused_k_train_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "coattn_stats_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_weights_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -348,6 +384,11 @@ REPLACES = {
     "coattn_plain": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_plain_bwd": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "gather_rows": "multimodal_path_omic_tpu/ops/gather.py:63",
+    "coattn_fwd_fused_k_bf16": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_fwd_fused_k_train_bf16": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu/ops/coattn.py:508",
+    "coattn_stats_bf16": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_weights_bf16": "multimodal_path_omic_tpu/ops/coattn.py:908",
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -3495,6 +3536,8 @@ def _trainer_run(tag, what, cfg, graphs, power, profile=False, budget_of=None) -
     c2 = read_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     cache = trainer.device_cache
+    stores = [bucket for c in (cache, trainer.device_cache_val) if c is not None
+              for bucket in c.caches.values()]
     run = {"what": what, "steps": trainer.last_epoch_steps, "val_batches": len(trainer.val_batcher),
            "partial": trainer._cache_partial, "cached": cache and cache.cached_buckets,
            "epochs": [
@@ -3502,6 +3545,10 @@ def _trainer_run(tag, what, cfg, graphs, power, profile=False, budget_of=None) -
         (tr1["train_loss"], tr1["train_attn_loss"], va1["val_loss"], trainer.val_risks.copy())],
         "train_launches": _counts_delta(c0, c1), "val_launches": _counts_delta(c1, c2),
         "graphs": 0 if trainer.graphs is None else len(trainer.graphs), "peak_gib": peak,
+        # the cache's bag bytes (wsi and its int8 row scales), and as float32
+        "cache_bytes": (sum(t.numel() * t.element_size() for bucket in stores
+                            for key, t in bucket.items() if key in ("wsi", "wsi_scale")),
+                        sum(bucket["wsi"].numel() * 4 for bucket in stores)),
         "first_s": first_s, "train_s": train_s, "val_s": val_s}
     busy = ""
     if profile:
@@ -3511,7 +3558,7 @@ def _trainer_run(tag, what, cfg, graphs, power, profile=False, budget_of=None) -
                 + (f"{dev_ms:.1f} ms device, busy share {share:.3f}" if share is not None
                    else "device time not measured (the trace holds none)"))
     n_train, n_val = len(trainer.train_ds), len(trainer.val_ds)
-    del trainer, cache  # the next run starts from what this one held
+    del trainer, cache, stores  # the next run starts from what this one held
     log(f"  ({tag}) {what}: epoch 1 (validated_epoch, with the warm-up) {first_s:.2f} s; epoch 2 "
         f"train {train_s:.3f} s = {n_train / train_s:.1f} train bags/s over "
         f"{run['steps']} steps, validate {val_s:.3f} s = "
@@ -3761,6 +3808,376 @@ def phase23_graphs(dev, bags, omics) -> dict:
     torch.cuda.synchronize()
     total = read_counts()
     log(f"phase 23: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in total.items() if v} } ({power})")
+    return total
+
+
+# Phase 24: reduced precision. The bfloat16 instances against their plain
+# versions on the card: bfloat16 outputs (o, dq, dkv; dwk and dbk cast to
+# bfloat16) to one unit in the last place (2^-7 relative: both versions round
+# the same float32 value, summed in another order); the float32 statistics
+# and weights to 1e-2 (l relative, m, ssq, sumw absolute, w relative with
+# W_ATOL's floor): where one element of k (the kernel's projection against
+# cuBLAS's, ~1e-7 relative apart) or of tanh rounds to the other bfloat16
+# neighbour in the two versions, that key's score moves by up to ~5e-3;
+# gradients to 2e-2 of each tensor's largest magnitude (those roundings, and
+# the kernel's 1 - tanh^2 of the rounded tanh where autograd takes it of the
+# unrounded one). An indexing or masking fault moves any of them by O(1).
+BF16_O_RTOL, BF16_STAT_TOL, BF16_GRAD_RTOL = 2.0 ** -7, 1e-2, 2e-2
+BF16_CASES = ((TRAIN_M, "prefix"), (TRAIN_M, "holes"), (1500, "one"))
+BF16_KERNELS = ("coattn_fwd_fused_k_bf16", "coattn_fwd_fused_k_train_bf16",
+                "coattn_bwd_fused_k_bf16", "coattn_stats_bf16", "coattn_weights_bf16")
+# The card's bfloat16 Trainer against the port on the CPU, one epoch at
+# dropout 0 from the int8 store, for each of BF16_CPU_SEEDS: the train and
+# validation losses relative, the validation risks absolute, each limit about
+# twice the largest of four seeds' readings (NVIDIA H100 80GB HBM3, 700.00
+# W: 2.551e-5, 5.359e-4, 2.915e-3). cuBLAS and the CPU round each bfloat16
+# product at other places (a bias added before or after the rounding) and
+# sum in other orders, and three Adam steps carry those differences on. A
+# float32-compute control on the card lands as close to the CPU's bfloat16
+# run (6.4e-6..1.5e-4, 2.5e-4..6.3e-4, 1.5e-3..2.7e-3 on the same seeds):
+# no limit on this comparison tells the two apart, so each seed's bfloat16
+# run is also held to differ from its float32 control on the card, which a
+# run that silently computed in float32 would equal bit for bit.
+BF16_CPU_TRAIN_RTOL, BF16_CPU_VAL_RTOL, BF16_CPU_ATOL = 6e-5, 1.2e-3, 6e-3
+BF16_CPU_SEEDS = (0, 1, 2, 3)
+# (b)'s runs: (tag, the settings over TRAINER_SET, the kernels a training
+# step and a validation batch launch)
+BF16_TRAIN_K = {"coattn_fwd_fused_k_train_bf16": 1, "coattn_bwd_fused_k_bf16": 1}
+BF16_VAL_K = {"coattn_stats_bf16": 1, "coattn_weights_bf16": 1}
+F32_TRAIN_K = {"coattn_fwd_fused_k_train": 1, "coattn_bwd_fused_k": 1}
+F32_VAL_K = {"coattn_stats": 1, "coattn_weights": 1}
+BF16_RUNS = (
+    ("int8 store, bf16 compute", {"tpu.device_cache": "on", "tpu.cache_dtype": "int8",
+                                  "tpu.compute_dtype": "bfloat16"}, BF16_TRAIN_K, BF16_VAL_K),
+    ("int8 transfer, bf16 compute", {"tpu.device_cache": "off", "tpu.transfer_dtype": "int8",
+                                     "tpu.compute_dtype": "bfloat16"}, BF16_TRAIN_K, BF16_VAL_K),
+    # ces: its validation runs the eval form
+    ("int8 store, bf16 compute, ces", {"tpu.device_cache": "on", "tpu.cache_dtype": "int8",
+                                       "tpu.compute_dtype": "bfloat16", "training.loss": "ces"},
+     BF16_TRAIN_K, {"coattn_fwd_fused_k_bf16": 1}),
+    ("int8 store, bf16 compute, int8_matmul",
+     {"tpu.device_cache": "on", "tpu.cache_dtype": "int8", "tpu.compute_dtype": "bfloat16",
+      "tpu.int8_matmul": True}, BF16_TRAIN_K, BF16_VAL_K),
+    ("bf16 store, f32 compute", {"tpu.device_cache": "on", "tpu.cache_dtype": "bfloat16"},
+     F32_TRAIN_K, F32_VAL_K),
+    ("bf16 transfer, f32 compute", {"tpu.device_cache": "off",
+                                    "tpu.transfer_dtype": "bfloat16"}, F32_TRAIN_K, F32_VAL_K),
+)
+
+
+def bf16_bound_ms(name, mask, e=E) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of a bfloat16 instance at B=32,
+    N=6, E=F=D=``e``: bytes with bfloat16 inputs and outputs where the
+    instance reads and writes bfloat16 (each input read once, each output
+    written once; the export passes read only the k rows of the keys they
+    need); operations of the products the instance runs over the keys it
+    needs (a tile without a valid key is skipped): the projection k = kv wk
+    (and the backward's recompute of it) has bfloat16 operands, so it is
+    bounded at the bfloat16 tensor-core rate; the backward's dk wk^T and
+    kv^T dk at three TF32 products each (3xTF32: dk is float32) over the
+    TF32 rate; the export passes' float32 FMAs on the CUDA cores."""
+    b, m_len = mask.shape
+    keys = valid_keys(mask)
+    f = e
+    if name.startswith("coattn_fwd_fused_k"):
+        n_stats = 4 if "train" in name else 3
+        nbytes = 2 * (b * N * e + b * m_len * f + f * e + e) + b * m_len \
+            + 2 * b * N * f + 4 * n_stats * b * N
+        t_ops = 2 * keys * f * e / PEAK_BF16_FLOP_PER_S * 1e3
+    elif name == "coattn_bwd_fused_k_bf16":
+        nbytes = 2 * (b * N * e + b * m_len * f + f * e + e + b * N * f) + 4 * 5 * b * N \
+            + b * m_len + 2 * (b * N * e + b * m_len * f) + 4 * (f * e + e)
+        proj = 2 * keys * f * e  # one product's operations
+        t_ops = (proj / PEAK_BF16_FLOP_PER_S + 6 * proj / PEAK_TF32_FLOP_PER_S) * 1e3
+    else:  # the export passes: the k rows of the valid keys
+        need = int(mask.sum())
+        nbytes = 2 * (b * N * e + need * e) + 4 * 2 * b * N + b * m_len
+        if name == "coattn_weights_bf16":
+            nbytes += 4 * b * N * m_len
+        t_ops = 4 * N * need * e / PEAK_F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_bf16(name, got, ref, kind) -> float:
+    """A bfloat16 instance's output against its plain version's: kind "o"
+    (bfloat16, one unit), "l" (relative), "abs" (absolute), "w" (relative,
+    floor W_ATOL), "grad" (of the largest magnitude). Returns the error."""
+    got, ref = got.float(), ref.float()
+    if kind == "grad":
+        return check_rel(name, got, ref, BF16_GRAD_RTOL)
+    atol, rtol = {"o": (KERNEL_ATOL, BF16_O_RTOL), "l": (0.0, BF16_STAT_TOL),
+                  "abs": (BF16_STAT_TOL, 0.0), "w": (W_ATOL, BF16_STAT_TOL)}[kind]
+    return check_close(name, got, ref, atol, rtol)
+
+
+def phase24_bf16_kernels(dev) -> tuple:
+    """(a): the bfloat16 instances against their plain versions at the main
+    shapes (B=32, N=6, E=F=D=256) on phase 1's and 4's masks, two runs
+    bitwise equal, exactly 0 through masked keys; then each timed beside its
+    float32 row, its plain version and its bound. Returns (errors, rows
+    without their launches)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    bf = torch.bfloat16
+    errs = {name: 0.0 for name in BF16_KERNELS}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    timing = None
+    for m_len, kind in BF16_CASES:
+        log(f"phase 24 (a): bfloat16 instances B={B} N={N} E=F=D={E} M={m_len}, {kind} masks")
+        q, kv, wk, bk, k, mask = make_inputs(m_len, E, 2400 + m_len, dev, E, kind)
+        q16, kv16, wk16, bk16, k16 = (t.to(bf) for t in (q, kv, wk, bk, k))
+        fk = (q16, kv16, wk16, bk16, mask)
+        got = coattn.coattn_fwd_fused_k(*fk)
+        ref = coattn.coattn_fwd_fused_k_plain(*fk)
+        for what, a, r, kd in zip(("o", "l", "m", "sumw"), got, ref, ("o", "l", "abs", "abs")):
+            note("coattn_fwd_fused_k_bf16", check_bf16(f"fused_k_bf16.{what}", a, r, kd))
+        if not all(torch.equal(a, b) for a, b in zip(got, coattn.coattn_fwd_fused_k(*fk))):
+            raise AssertionError("fused_k_bf16: two runs differ")
+        one = mask.sum(-1) == 1
+        if bool(one.any()):  # the pooled row is that key's kv row, rounded once: itself
+            row = kv16[one][torch.arange(int(one.sum()), device=dev), mask[one].float().argmax(-1)]
+            if not torch.equal(got[0][one], row[:, None, :].expand_as(got[0][one])):
+                raise AssertionError("fused_k_bf16: a one-key bag does not pool its kv row")
+            log("  fused_k_bf16: the bag with one valid key pools exactly its kv row")
+        seed = torch.tensor([m_len + 24], dtype=torch.int32, device=dev)
+        fwd = coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE)
+        ref = coattn.coattn_fwd_fused_k_train_plain(*fk, seed, TRAIN_RATE)
+        for what, a, r, kd in zip(("o", "l", "m", "ssq", "sumw"), fwd, ref,
+                                  ("o", "l", "abs", "abs", "abs")):
+            note("coattn_fwd_fused_k_train_bf16",
+                 check_bf16(f"fused_k_train_bf16.{what}", a, r, kd))
+        if not all(torch.equal(a, b) for a, b in
+                   zip(fwd, coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE))):
+            raise AssertionError("fused_k_train_bf16: two runs differ")
+        g = torch.Generator(device="cpu").manual_seed(m_len)
+        dout = torch.randn(B, N, E, generator=g).to(dev).to(bf)
+        dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
+        o, l, m, ssq, sumw = fwd
+        di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+        bwd_args = (*fk, seed, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+        grads = coattn.coattn_bwd_fused_k(*bwd_args)
+        ref = coattn.coattn_bwd_fused_k_plain(*fk, seed, TRAIN_RATE, dout, dssq, dsumw)
+        for what, a, r in zip(("dq", "dkv", "dwk", "dbk"), grads, ref):
+            if what == "dq":  # a one-key bag's dq: noise on both sides (its terms cancel)
+                a, r = a[~one], r[~one]
+            note("coattn_bwd_fused_k_bf16", check_bf16(f"bwd_bf16.{what}", a, r, "grad"))
+        if not all(torch.equal(a, b) for a, b in zip(grads, coattn.coattn_bwd_fused_k(*bwd_args))):
+            raise AssertionError("bwd_bf16: two runs differ")
+        has = mask.any(-1)
+        if not bool((grads[1][has][~mask[has]] == 0).all()):
+            raise AssertionError("bwd_bf16: dkv is not exactly 0 at a masked key")
+        log("  fused_k_bf16, fused_k_train_bf16, bwd_bf16: two runs bitwise equal; dkv exactly "
+            "0 at the masked keys of bags with a valid key")
+        for pre_gate in (True, False):
+            lk, mk = coattn.coattn_stats(q16, k16, mask, pre_gate=pre_gate)
+            lp, mp = coattn.coattn_stats_plain(q16, k16, mask, pre_gate=pre_gate)
+            note("coattn_stats_bf16", check_bf16(f"stats_bf16 pg={pre_gate}.l", lk, lp, "l"))
+            note("coattn_stats_bf16", check_bf16(f"stats_bf16 pg={pre_gate}.m", mk, mp, "abs"))
+            w = coattn.coattention_weights(q16, k16, mask, pre_gate=pre_gate)
+            wp = coattn.coattn_weights_plain(q16, k16, mask, lp, mp, pre_gate=pre_gate)
+            note("coattn_weights_bf16", check_bf16(f"weights_bf16 pg={pre_gate}.w", w, wp, "w"))
+            if not torch.equal(w, coattn.coattention_weights(q16, k16, mask, pre_gate=pre_gate)):
+                raise AssertionError("weights_bf16: two runs differ")
+            masked = (~mask & has[:, None])[:, None, :].expand_as(w)
+            if not (bool((w[masked] == 0).all()) and bool((w[~has] == 1.0 / m_len).all())):
+                raise AssertionError("weights_bf16: masked keys not exactly 0 (or 1/M)")
+        log("  stats_bf16, weights_bf16: two runs bitwise equal; w exactly 0 at the masked keys "
+            "of bags with a valid key, 1/M in a bag without one")
+        if kind == "prefix":
+            timing = (q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq,
+                      dsumw, fwd, di)
+        del got, fwd, grads, ref
+    power = gpu_name_and_power()
+    (q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq, dsumw, fwd,
+     di) = timing
+    o, l, m, ssq, sumw = fwd
+    fk16, fk32 = (q16, kv16, wk16, bk16, mask), (q, kv, wk, bk, mask)
+    f32 = coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE)
+    di32 = (f32[0] * dout.float()).sum(-1) + 2.0 * dssq * f32[3] + dsumw * f32[4]
+    l32, m32 = coattn.coattn_stats_plain(q, k, mask)
+    l16, m16 = coattn.coattn_stats_plain(q16, k16, mask)
+    calls = {  # (bf16 kernel, its float32 row, its plain version)
+        "coattn_fwd_fused_k_bf16": (
+            lambda: coattn.coattn_fwd_fused_k(*fk16), lambda: coattn.coattn_fwd_fused_k(*fk32),
+            lambda: coattn.coattn_fwd_fused_k_plain(*fk16)),
+        "coattn_fwd_fused_k_train_bf16": (
+            lambda: coattn.coattn_fwd_fused_k_train(*fk16, seed, TRAIN_RATE),
+            lambda: coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE),
+            lambda: coattn.coattn_fwd_fused_k_train_plain(*fk16, seed, TRAIN_RATE)),
+        "coattn_bwd_fused_k_bf16": (
+            lambda: coattn.coattn_bwd_fused_k(*fk16, seed, TRAIN_RATE, dout, l, m, di, dssq,
+                                              dsumw),
+            lambda: coattn.coattn_bwd_fused_k(*fk32, seed, TRAIN_RATE, dout.float(), f32[1],
+                                              f32[2], di32, dssq, dsumw),
+            lambda: coattn.coattn_bwd_fused_k_plain(*fk16, seed, TRAIN_RATE, dout, dssq, dsumw)),
+        "coattn_stats_bf16": (
+            lambda: coattn.coattn_stats(q16, k16, mask), lambda: coattn.coattn_stats(q, k, mask),
+            lambda: coattn.coattn_stats_plain(q16, k16, mask)),
+        "coattn_weights_bf16": (
+            lambda: coattn.coattn_weights(q16, k16, mask, l16, m16),
+            lambda: coattn.coattn_weights(q, k, mask, l32, m32),
+            lambda: coattn.coattn_weights_plain(q16, k16, mask, l16, m16)),
+    }
+    rows = []
+    for name, (kern, row32, plain) in calls.items():
+        ms, ms32, plain_ms = cuda_ms(kern), cuda_ms(row32), cuda_ms(plain)
+        bms, by = bf16_bound_ms(name, mask)
+        log(f"phase 24 (a): {name} B={B} N={N} M={TRAIN_M} E=F=D={E}: kernel {ms:.4f} ms, its "
+            f"float32 row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; {bms / ms:.3f} of it reached) ({power})")
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": 0, "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+    return errs, rows
+
+
+def phase24_precision(dev) -> dict:
+    """(b)-(d): the Trainer in bfloat16 from an int8 store and the other
+    reduced-precision settings on phase 21's cohort and configuration, each
+    graphed and eager; the card against the CPU; GE under bfloat16 refused.
+    Returns the launches of (b)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+
+    from multimodal_path_omic_tpu_torch.config import config_to_dict
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    total = {}
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        runs = {}
+        for what, settings, want_train, want_val in BF16_RUNS:
+            log(f"phase 24 (b): {what}: examples/nacagat.yaml + {TRAINER_SET} + {settings}")
+            for graphs in (True, False):
+                cfg = trainer_config("nacagat.yaml", paths,
+                                     os.path.join(root, f"{len(runs)}"), {**TRAINER_SET,
+                                                                         **settings})
+                before = read_counts()
+                run = _trainer_run("b", f"{what}, {'graphed' if graphs else 'eager'}", cfg,
+                                   graphs, power)
+                for k, v in _counts_delta(before, read_counts()).items():
+                    total[k] = total.get(k, 0) + v
+                cached = settings["tpu.device_cache"] == "on"
+                want = tuple({**{k: v * n for k, v in w.items()},
+                              **({"gather_rows": n} if cached else {})}
+                             for w, n in ((want_train, run["steps"]),
+                                          (want_val, run["val_batches"])))
+                if (run["train_launches"], run["val_launches"]) != want:
+                    raise AssertionError(f"{what}: epoch 2 launches {run['train_launches']}, "
+                                         f"{run['val_launches']}, expected {want}")
+                runs[(what, graphs)] = run
+            _same_epochs(f"{what}: eager vs graphed", runs[(what, False)], runs[(what, True)])
+            g, e = runs[(what, True)], runs[(what, False)]
+            log(f"  {what}: graphed == eager, bit for bit (both epochs' losses and risks); "
+                f"epoch 2's {g['steps']} steps graphed {g['train_s']:.3f} s vs eager "
+                f"{e['train_s']:.3f} s ({e['train_s'] / g['train_s']:.2f}x)")
+        for a, b in (("int8 transfer, bf16 compute", "int8 store, bf16 compute"),
+                     ("bf16 transfer, f32 compute", "bf16 store, f32 compute")):
+            _same_epochs(f"{a} vs {b}", runs[(a, True)], runs[(b, True)])
+            log(f"  {a} == {b}, bit for bit: host-fed and cached, both epochs")
+        mm, deq = runs[("int8 store, bf16 compute, int8_matmul", True)], \
+            runs[("int8 store, bf16 compute", True)]
+        gaps = [abs(x[0] - y[0]) for x, y in zip(mm["epochs"], deq["epochs"])]
+        if not all(math.isfinite(x[0]) for x in mm["epochs"]) or max(gaps) > 0.05:
+            raise AssertionError(f"int8_matmul: train losses {gaps} from the dequant run")
+        log(f"  int8_matmul: train losses {[x[0] for x in mm['epochs']]} against the dequant "
+            f"run's {[x[0] for x in deq['epochs']]} (within 0.05, the JAX package's bar)")
+        for what in ("int8 store, bf16 compute", "bf16 store, f32 compute"):
+            run = runs[(what, True)]
+            got, f32_bytes = run["cache_bytes"]
+            log(f"  {what}: the cache holds {got / 2**20:.1f} MiB of bags (int8: with their row "
+                f"scales) against float32's {f32_bytes / 2**20:.1f} MiB ({got / f32_bytes:.3f}); peak "
+                f"device memory {run['peak_gib']:.2f} GiB graphed ({power})")
+
+        log("phase 24 (b): `cli train` (the entry point a user runs) with --set "
+            "tpu.compute_dtype=bfloat16, tpu.cache_dtype=int8, tpu.device_cache=on, one epoch")
+        cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, "cli"),
+                             {**TRAINER_SET, "training.epochs": 1})
+        cfg_path = os.path.join(root, "nacagat_cli.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(config_to_dict(cfg), f)
+        before = read_counts()
+        out = cli_run(["train", "--config", cfg_path, "--set", "tpu.compute_dtype=bfloat16",
+                       "--set", "tpu.cache_dtype=int8", "--set", "tpu.device_cache=on"])
+        launched = _counts_delta(before, read_counts())
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        got = printed_metrics(out)["train_loss"]
+        ref = runs[("int8 store, bf16 compute", True)]["epochs"][0][0]
+        log(f"  cli train: train_loss {got} (printed), the Trainer run's epoch 1 {ref!r}; "
+            f"launches {launched}")
+        if abs(got - ref) > 5e-7 or not set(BF16_TRAIN_K) | set(BF16_VAL_K) <= set(launched):
+            raise AssertionError("cli train in bf16 from the int8 store: not the Trainer's run")
+
+        log("phase 24 (c): bf16 compute from the int8 store, one epoch on the card and on the "
+            f"CPU, dropout 0 on both, training seeds {BF16_CPU_SEEDS}; a float32-compute control "
+            "on the card")
+        for seed in BF16_CPU_SEEDS:
+            ends = {}
+            for tag, where, extra in (("bf16 card", "cuda", {}), ("bf16 CPU", "cpu", {}),
+                                      ("f32 card", "cuda", {"tpu.compute_dtype": "float32"})):
+                cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, f"c{seed}{tag[:4]}{where}"),
+                                     {**TRAINER_SET, **BF16_RUNS[0][1], "training.epochs": 1,
+                                      "model.dropout": 0.0, "training.seed": seed, **extra})
+                trainer = Trainer(cfg, verbose=False, device=where)
+                t0 = time.perf_counter()
+                train, val = trainer.validated_epoch(0)
+                ends[tag] = (train["train_loss"], val["val_loss"], trainer.val_risks.copy())
+                log(f"  seed {seed}, {tag}: epoch 1 in {time.perf_counter() - t0:.2f} s, "
+                    f"train_loss {train['train_loss']!r}, val_loss {val['val_loss']!r}, "
+                    f"val_c_index {val['val_c_index']:.4f}")
+                del trainer
+            ref = ends["bf16 CPU"]
+            for tag in ("bf16 card", "f32 card"):
+                got = ends[tag]
+                read = (abs(got[0] - ref[0]) / abs(ref[0]), abs(got[1] - ref[1]) / abs(ref[1]),
+                        float(np.abs(got[2] - ref[2]).max()))
+                log(f"  seed {seed}, {tag} vs bf16 CPU: train_loss relative {read[0]:.3e}, "
+                    f"val_loss relative {read[1]:.3e}, val risks max_abs_err {read[2]:.3e}"
+                    + (f" (limits {BF16_CPU_TRAIN_RTOL:g}, {BF16_CPU_VAL_RTOL:g}, "
+                       f"{BF16_CPU_ATOL:g})" if tag == "bf16 card" else " (the control)"))
+                if tag == "bf16 card" and not (read[0] <= BF16_CPU_TRAIN_RTOL
+                                               and read[1] <= BF16_CPU_VAL_RTOL
+                                               and read[2] <= BF16_CPU_ATOL):
+                    raise AssertionError(f"seed {seed}: the bf16 card run disagrees with the CPU")
+            gap = float(np.abs(ends["bf16 card"][2] - ends["f32 card"][2]).max())
+            log(f"  seed {seed}: bf16 card vs its float32 control: val risks max_abs_err {gap:.3e}")
+            if ends["bf16 card"][:2] == ends["f32 card"][:2] or gap == 0.0:
+                raise AssertionError(f"seed {seed}: the bf16 card run equals float32 compute")
+
+        for example, extra in (("ge_nacagat.yaml", GE_TRAINER_SET),
+                               ("nacagat.yaml", {**TRAINER_SET, "model.model_size": "big"})):
+            log(f"phase 24 (d): examples/{example} + {extra} with tpu.compute_dtype bfloat16 on "
+                "the card")
+            cfg = trainer_config(example, paths, os.path.join(root, "d"),
+                                 {**extra, "tpu.compute_dtype": "bfloat16"})
+            try:
+                Trainer(cfg, verbose=False)
+            except NotImplementedError as exc:
+                if "queue 2 item 5" not in str(exc):
+                    raise AssertionError(f"{example} bf16: refused without naming its item: {exc}")
+                log(f"  refused: NotImplementedError: {exc}")
+            else:
+                raise AssertionError(f"{example} under bfloat16 on the card was not refused")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
         f"{ {k: v for k, v in total.items() if v} } ({power})")
     return total
 
@@ -4084,7 +4501,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-23")
+                         "Trainer epoch host-fed and cached instead of phases 1-24")
     args = ap.parse_args()
     try:
         import torch
@@ -4206,8 +4623,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     p23 = phase23_graphs(dev, bags, omics)
     del bags, omics
-    for row in rows:  # this slice's runs: every kernel but the E = 512 instances
+    for row in rows:  # phase 23's runs: every kernel but the E = 512 instances
         row["launches"] += p23.get(row["name"], 0)
+    torch.cuda.empty_cache()
+    errs24, rows24 = phase24_bf16_kernels(dev)
+    errs.update(errs24)
+    torch.cuda.empty_cache()
+    reset_counts()  # phase 24 (b), the reduced-precision Trainer, is the bf16 rows' main path
+    p24 = phase24_precision(dev)
+    for row in rows24:
+        row["launches"] = p24.get(row["name"], 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on phase 24's Trainer runs")
+    for row in rows:  # the float32 kernels of the bfloat16-store runs
+        row["launches"] += p24.get(row["name"], 0)
+    rows += rows24
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

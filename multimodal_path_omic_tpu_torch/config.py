@@ -449,20 +449,23 @@ def config_to_dict(cfg: Config) -> Dict[str, Any]:
 
 
 
+def resolve_dtype(value: str) -> str:
+    """A ``tpu.compute_dtype`` / ``transfer_dtype`` / ``cache_dtype`` value
+    as the port runs it: "auto" is "float32", as the JAX package resolves it
+    off a TPU (``resolve_compute_dtype``, ``_feed_dtype``: bfloat16 only on a
+    TPU); "float32", "bfloat16" and "int8" stand."""
+    return "float32" if value == "auto" else value
+
+
 def require_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a setting the port cannot honour
-    yet, naming the ROADMAP.md queue 1 item that ports it: a compute,
-    transfer or cache dtype other than float32 ("auto" is float32 off a
-    TPU), a data or sequence mesh axis above 1, ``remat``, ``int8_matmul``
-    and ``wandb.enabled``. A reference ``.pt`` checkpoint under
-    ``model.load_from_checkpoint`` is refused where it is read
-    (``Trainer.restore``)."""
+    yet, naming the ROADMAP.md queue 1 item that ports it: a data or
+    sequence mesh axis above 1 and ``remat``. A reference ``.pt``
+    checkpoint under ``model.load_from_checkpoint`` is refused where it is
+    read (``Trainer.restore``); a bfloat16 compute dtype on the card for a
+    model whose kernels have no bfloat16 instance yet (GE-NaCAGaT, NaCAGaT
+    ``big``) where the Trainer is built (``models.require_compute_dtype``)."""
     t = cfg.tpu
-    for key in ("compute_dtype", "transfer_dtype", "cache_dtype"):
-        if getattr(t, key) not in ("auto", "float32"):
-            raise NotImplementedError(
-                f"tpu.{key}={getattr(t, key)!r}: the port computes in float32 only "
-                "(ROADMAP.md queue 1, reduced precision)")
     for key in ("data_axis", "seq_axis"):
         if getattr(t, key) > 1:
             raise NotImplementedError(
@@ -470,10 +473,3 @@ def require_supported(cfg: Config) -> None:
                 "(ROADMAP.md queue 1, multi-GPU)")
     if t.remat:
         raise NotImplementedError("tpu.remat is not ported (ROADMAP.md queue 1, tooling)")
-    if t.int8_matmul:
-        raise NotImplementedError(
-            "tpu.int8_matmul is not ported (ROADMAP.md queue 1, reduced precision)")
-    if cfg.wandb.enabled:
-        raise NotImplementedError(
-            "wandb.enabled: wandb logging is not ported; the run log goes to "
-            "run_log.jsonl (ROADMAP.md queue 1, the Trainer's rest)")

@@ -1,4 +1,6 @@
-// Pre-gated few-query co-attention kernels for Hopper (sm_90a), float32.
+// Pre-gated few-query co-attention kernels for Hopper (sm_90a), float32,
+// with bfloat16 instances of the fuse-K forward (both forms) and the export
+// passes (the _bf16 entry points; see "bfloat16 instances" below).
 //
 // Replaces the Pallas TPU kernels of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_fwd_fused_k  <- _coattn_fwd_impl with _make_fwd_kernel(
@@ -111,6 +113,25 @@
 //       2% of the work.
 //     - combine_kernel merges the (block, bag) partials in block order.
 //
+// bfloat16 instances (tpu.compute_dtype bfloat16; the JAX kernels take
+// bfloat16 tiles, multimodal_path_omic_tpu/ops/coattn.py:138-150, 186, 210):
+// fused_k_kernel, stats_kernel and weights_kernel with T = __nv_bfloat16
+// read bfloat16 q, kv, wk, bk (k) and compute what the JAX kernel computes
+// from them: float32 sums; k = kv wk + bk rounded to bfloat16 after the
+// projection; tanh(q) and tanh(k) rounded to bfloat16; p kv in float32 (p
+// float32, kv exact); o written in bfloat16 by combine_kernel<bf16>; l, m,
+// ssq, sumw and the weights float32. They are these kernels with their input
+// type a template parameter, not a new design: the tile list, the Philox
+// dropout, the fixed-order merges and the skipped tiles are the float32
+// instances'. Values are converted to float32 on their way into the same
+// float32 tiles (flash_common.cuh: a synchronous converting load where the
+// float32 instance has cp.async), so the bytes read from device memory
+// halve and the shared memory does not; the projection k = kv wk, whose two
+// operands are exact in TF32, runs as one TF32 mma.sync a step where the
+// float32 instance runs three (the EXACT products; bfloat16 mma.sync
+// m16n8k16 would be an equal choice, and this keeps one product code).
+// Instances: (E, F) in {128, 256}^2 (both forms), D in {128, 256} (export).
+//
 // Interface: plain C, called through ctypes. Every function returns
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
 // everything runs on the caller's stream.
@@ -156,10 +177,10 @@ struct FkFwdSmem {
 // undropped p; o, ssq and sumw take the dropped pd = keep * p / (1 - rate)),
 // bits from dropout_bits(seed, b, n, key) with keep iff bits >= thresh
 // (thresh 0: no dropout). Thread tid owns the o columns tid + 256 c, c < FC.
-template <int E, int FC, bool TRAIN>
+template <int E, int FC, bool TRAIN, typename T>
 __global__ void __launch_bounds__(THREADS)
-fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
-               const float* __restrict__ wk, const float* __restrict__ bk,
+fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+               const T* __restrict__ wk, const T* __restrict__ bk,
                const uint8_t* __restrict__ mask, const int* __restrict__ list,
                const int* __restrict__ off, float* __restrict__ o_part,
                float* __restrict__ ml_part, float* __restrict__ sq_part,
@@ -189,7 +210,7 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     if (i >= i1) return;
     const int u = list[i], c = s % NC, ec = c / NCF, f0 = (c % NCF) * WC;
     const int r0 = (u % n_tiles) * FK_BM;
-    const float* src = kv + (size_t)(u / n_tiles) * M * F;
+    const T* src = kv + (size_t)(u / n_tiles) * M * F;
     float* slot = S.ring[s % 3];
     for (int idx = tid; idx < FK_BM * WC / 4; idx += THREADS) {
       const int row = idx / (WC / 4), col = 4 * (idx % (WC / 4));
@@ -202,6 +223,55 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   cp_async_commit();
   issue_chunk(1);
   cp_async_commit();
+  // bfloat16: in the loop, chunk step s + 2 travels through registers,
+  // fetched before step s's product and stored into its slot (free since
+  // step s's barrier) after it, so its loads overlap the product: the
+  // converting copy's counterpart of the cp.async ring.
+  constexpr int KV_IT = FK_BM * WC / 4 / THREADS, W_IT = WC * EC / 4 / THREADS;
+  static_assert(KV_IT * THREADS * 4 == FK_BM * WC && W_IT * THREADS * 4 == WC * EC,
+                "whole prefetch iterations");
+  uint2 pre[KV_IT + W_IT];
+  int pre_s = -1;  // the chunk step `pre` holds (-1: none)
+  auto fetch_chunk = [&](int s) {
+    if constexpr (IS_BF16<T>) {
+      pre_s = -1;
+      const int i = i0 + s / NC;
+      if (i >= i1) return;
+      const int u = list[i], c = s % NC, ec = c / NCF, f0 = (c % NCF) * WC;
+      const int r0 = (u % n_tiles) * FK_BM;
+      const T* src = kv + (size_t)(u / n_tiles) * M * F;
+#pragma unroll
+      for (int x = 0; x < KV_IT; ++x) {
+        const int idx = tid + x * THREADS, row = idx / (WC / 4), col = 4 * (idx % (WC / 4));
+        pre[x] = fetch_bf16x4(src + (size_t)(r0 + row) * F + f0 + col,
+                              r0 + row < M && f0 + col < F);
+      }
+#pragma unroll
+      for (int x = 0; x < W_IT; ++x) {
+        const int idx = tid + x * THREADS, row = idx / (EC / 4), c4 = idx % (EC / 4);
+        pre[KV_IT + x] = fetch_bf16x4(wk + (size_t)(f0 + row) * E + ec * EC + 4 * c4,
+                                      f0 + row < F);
+      }
+      pre_s = s;
+    }
+  };
+  auto store_chunk = [&]() {
+    if constexpr (IS_BF16<T>) {
+      if (pre_s < 0) return;
+      float* slot = S.ring[pre_s % 3];
+#pragma unroll
+      for (int x = 0; x < KV_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        store_bf16x4(slot + (idx / (WC / 4)) * KVS + 4 * (idx % (WC / 4)), pre[x]);
+      }
+#pragma unroll
+      for (int x = 0; x < W_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        store_bf16x4(slot + FK_BM * KVS + (idx / (EC / 4)) * RS + 4 * (idx % (EC / 4)),
+                     pre[KV_IT + x]);
+      }
+    }
+  };
 
   float oacc[NMAX][FC];  // set when the first bag begins
   float m_run = NEG, l_run = 0.f;       // the softmax state of query `warp`
@@ -239,9 +309,9 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       b = ub;
       // the last unit's score pass is done with S.q (two barriers since)
       for (int j = tid; j < N * E; j += THREADS) {
-        const float v = q[(size_t)b * N * E + j];
+        const float v = to_f32(q[(size_t)b * N * E + j]);
         S.q[j / E][j % E] = v;
-        S.tq[j / E][j % E] = tanhf(v);
+        S.tq[j / E][j % E] = round_to<T>(tanhf(v));
       }
 #pragma unroll
       for (int n = 0; n < NMAX; ++n)
@@ -265,20 +335,22 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         for (int ch = 0; ch < NCF; ++ch, ++s) {
           cp_async_wait<1>();
           __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-          issue_chunk(s + 2);
+          if constexpr (IS_BF16<T>) fetch_chunk(s + 2);
+          else issue_chunk(s + 2);
           cp_async_commit();
           const float* slot = S.ring[s % 3];
-          acc_product_rows<2, NT, WC, S_::G>(c, slot, KVS, slot + FK_BM * KVS, RS, 32 * wr,
-                                             8 * NT * wc, lane);
+          acc_product_rows<2, NT, WC, S_::G, false, IS_BF16<T>>(c, slot, KVS, slot + FK_BM * KVS,
+                                                               RS, 32 * wr, 8 * NT * wc, lane);
+          store_chunk();  // bfloat16: step s + 2 into its slot
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int col = ec * EC + 8 * NT * wc + 8 * j + 2 * t4;
-          const float b0 = bk[col], b1 = bk[col + 1];
+          const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            c[r][j][0] += b0; c[r][j][1] += b1;
-            c[r][j][2] += b0; c[r][j][3] += b1;
+          for (int r = 0; r < 2; ++r) {  // k in T's precision (bfloat16: rounded once)
+            c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
+            c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
           }
         }
         // S.k is free: the last chunk's score pass ended before this chunk's
@@ -315,7 +387,7 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
       for (int r = 0; r < FK_RPW; ++r)
 #pragma unroll
-        for (int j = 0; j < EPT; ++j) kr[r][j] = tanhf(kr[r][j]);
+        for (int j = 0; j < EPT; ++j) kr[r][j] = round_to<T>(tanhf(kr[r][j]));
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
         if (n >= N) break;
@@ -353,7 +425,7 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
     // which the score pass is done with, during the softmax
     const bool kv_in_smem = F <= EC;
     if (kv_in_smem) {
-      const float* src = kv + ((size_t)b * M + m0) * F;
+      const T* src = kv + ((size_t)b * M + m0) * F;
       for (int idx = tid; idx < FK_BM * F / 4; idx += THREADS) {
         const int row = idx / (F / 4), c4 = idx % (F / 4);
         const bool ok = m0 + row < M;
@@ -395,7 +467,7 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       }
     }
     const int rows = min(FK_BM, M - m0);
-    const float* kv_t = kv + ((size_t)b * M + m0) * F;
+    const T* kv_t = kv + ((size_t)b * M + m0) * F;
     if (kv_in_smem) {
       cp_async_wait<0>();
       __syncthreads();
@@ -406,7 +478,7 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
       for (int c = 0; c < FC; ++c) {
         const int f = tid + THREADS * c;
-        x[c] = f < F ? (kv_in_smem ? S.k[r][f] : kv_t[(size_t)r * F + f]) : 0.f;
+        x[c] = f < F ? (kv_in_smem ? S.k[r][f] : to_f32(kv_t[(size_t)r * F + f])) : 0.f;
       }
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
@@ -426,7 +498,8 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 // ---------------------------------------------------------------------------
 // Merge a bag's partial (m, l[, o]) states per (bag, query), in order:
 //   m = max_p m_p;  l = sum_p l_p e^(m_p - m);  o = sum_p o_p e^(m_p - m) / l
-// with the l == 0 guard of the TPU kernel. Without sq_part, sumw = l / l (the
+// with the l == 0 guard of the TPU kernel; o written in TO (bfloat16: the
+// float32 o rounded once). Without sq_part, sumw = l / l (the
 // weight mass of the final row; no dropout in eval); with it (training form)
 //   ssq = sum_p ssq_p e^(2 (m_p - m)) / l^2,  sumw = sum_p sumw_p e^(m_p - m) / l.
 // Partials [*, N, F] (o) and [*, N, 2]: with off == NULL bag b's are
@@ -434,9 +507,10 @@ fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 // list over P blocks, fused_k_common.cuh) those of the blocks g that held its
 // units, at g + b.
 // ---------------------------------------------------------------------------
+template <typename TO = float>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
-               const float* __restrict__ sq_part, float* __restrict__ o,
+               const float* __restrict__ sq_part, TO* __restrict__ o,
                float* __restrict__ l_out, float* __restrict__ m_out,
                float* __restrict__ ssq, float* __restrict__ sumw, int N, int F, int P,
                const int* __restrict__ off) {
@@ -498,7 +572,7 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
       float acc = 0.f;
       for (int p = 0; p < P; ++p)
         acc = fmaf(o_part[((base + p) * N + n) * F + f], fac[p], acc);
-      o[((size_t)b * N + n) * F + f] = acc * l_inv;
+      store1(o + ((size_t)b * N + n) * F + f, acc * l_inv);
     }
   }
   if (tid == 0) {
@@ -702,15 +776,15 @@ struct PkExportSmem {
 // The next warp step of the block's share into the warp's `slot`,
 // asynchronously (zero rows past M): list position c.i, step c.j of its
 // tile; the lone units have none. Past the share (i >= i1) issues nothing.
-template <int D>
-__device__ __forceinline__ void ex_issue(float* __restrict__ slot, const float* __restrict__ k,
+template <int D, typename T>
+__device__ __forceinline__ void ex_issue(float* __restrict__ slot, const T* __restrict__ k,
                                          const uint8_t* __restrict__ flags,
                                          const int* __restrict__ list, int n_tiles, int M,
                                          int i1, int warp, int lane, PkCursor& c) {
   while (c.i < i1 && flags[list[c.i]] == FK_LONE) ++c.i;  // c.j == 0 at a unit's start
   if (c.i >= i1) return;
   const int u = list[c.i], r0 = (u % n_tiles) * FK_BM + warp * EX_WKEYS + c.j * EX_KPS;
-  const float* src = k + (size_t)(u / n_tiles) * M * D;
+  const T* src = k + (size_t)(u / n_tiles) * M * D;
   constexpr int V4 = D / 4;
 #pragma unroll
   for (int x = lane; x < EX_KPS * V4; x += 32) {
@@ -724,14 +798,53 @@ __device__ __forceinline__ void ex_issue(float* __restrict__ slot, const float* 
   }
 }
 
-// The bag's queries (and tanh of them, with the pre-gate) into shared memory.
-template <int D, bool PG>
-__device__ __forceinline__ void ex_load_queries(const float* __restrict__ q, int b, int N,
+// The bfloat16 instances' counterpart of ex_issue: the warp step's k rows
+// fetched into registers (pre: lane's D / 64 groups of four values), stored
+// into the warp's slot by ex_store after the step they overlap. Returns
+// whether a step was fetched.
+template <int D>
+__device__ __forceinline__ bool ex_fetch(uint2 (&pre)[D / 64], const __nv_bfloat16* __restrict__ k,
+                                         const uint8_t* __restrict__ flags,
+                                         const int* __restrict__ list, int n_tiles, int M, int i1,
+                                         int warp, int lane, PkCursor& c) {
+  static_assert(EX_KPS * D / 4 == 32 * (D / 64), "whole groups a lane");
+  while (c.i < i1 && flags[list[c.i]] == FK_LONE) ++c.i;
+  if (c.i >= i1) return false;
+  const int u = list[c.i], r0 = (u % n_tiles) * FK_BM + warp * EX_WKEYS + c.j * EX_KPS;
+  const __nv_bfloat16* src = k + (size_t)(u / n_tiles) * M * D;
+  constexpr int V4 = D / 4;
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x) {
+    const int e = lane + 32 * x, row = e / V4;
+    pre[x] = fetch_bf16x4(src + (size_t)(r0 + row) * D + 4 * (e % V4), r0 + row < M);
+  }
+  if (++c.j == EX_STEPS) {
+    c.j = 0;
+    ++c.i;
+  }
+  return true;
+}
+
+template <int D>
+__device__ __forceinline__ void ex_store(float* __restrict__ slot, const uint2 (&pre)[D / 64],
+                                         int lane) {
+  constexpr int V4 = D / 4;
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x) {
+    const int e = lane + 32 * x;
+    store_bf16x4(slot + (e / V4) * D + 4 * (e % V4), pre[x]);
+  }
+}
+
+// The bag's queries (and tanh of them, with the pre-gate, in T's precision)
+// into shared memory.
+template <int D, bool PG, typename T>
+__device__ __forceinline__ void ex_load_queries(const T* __restrict__ q, int b, int N,
                                                 float (*q_s)[D], float (*tq_s)[D]) {
   for (int x = threadIdx.x; x < N * D; x += THREADS) {
-    const float val = q[(size_t)b * N * D + x];
+    const float val = to_f32(q[(size_t)b * N * D + x]);
     q_s[x / D][x % D] = val;
-    if (PG) tq_s[x / D][x % D] = tanhf(val);
+    if (PG) tq_s[x / D][x % D] = round_to<T>(tanhf(val));
   }
 }
 
@@ -764,9 +877,9 @@ __device__ __forceinline__ void fill_masked(float* __restrict__ w, const float* 
 // the owner lanes' states merged in lane, then warp order; combine_kernel
 // merges a bag's partials in block order. A lone unit (a bag without a
 // valid key) writes m = NEG, l = M and reads no k.
-template <int D, bool PG>
+template <int D, bool PG, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const uint8_t* __restrict__ mask, const uint8_t* __restrict__ flags,
              const int* __restrict__ list, const int* __restrict__ off,
              float* __restrict__ ml_part, int B, int N, int M, float scale) {
@@ -785,9 +898,10 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
   PkCursor cur{i0, 0};
 #pragma unroll
   for (int s = 0; s < NSLOT - 1; ++s) {
-    ex_issue<D>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
+    ex_issue<D, T>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
     cp_async_commit();
   }
+  uint2 pre[D / 64];  // bfloat16: the step in flight through registers (ex_fetch)
 
   float m_run = NEG, l_run = 0.f;  // the owner lane's online state
   int b = -1;
@@ -829,7 +943,7 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (ub != b) {  // a new bag: flush the last one's partial, load this one's queries
       if (b >= 0) flush();
       b = ub;
-      ex_load_queries<D, PG>(q, b, N, S.q, S.tq);
+      ex_load_queries<D, PG, T>(q, b, N, S.q, S.tq);
       m_run = NEG;
       l_run = 0.f;
       __syncthreads();
@@ -837,12 +951,17 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < EX_STEPS; ++j, ++s) {
       cp_async_wait<NSLOT - 2>();
       __syncwarp();  // step s landed for the whole warp; the slot of s - 1 is free
-      ex_issue<D>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp, lane,
-                  cur);
+      bool fetched = false;
+      if constexpr (IS_BF16<T>)  // registers now, the slot after this step's sums
+        fetched = ex_fetch<D>(pre, k, flags, list, n_tiles, M, i1, warp, lane, cur);
+      else
+        ex_issue<D, T>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp,
+                       lane, cur);
       cp_async_commit();
       float g, unused;
-      const float a = pk_key_sums<D, PG, false>(ring[s % NSLOT], S.q, S.tq, nullptr, nullptr, N,
-                                                0, lane, g, unused);
+      const float a = pk_key_sums<D, PG, false, IS_BF16<T>>(ring[s % NSLOT], S.q, S.tq, nullptr,
+                                                            nullptr, N, 0, lane, g, unused);
+      if (fetched) ex_store<D>(ring[(s + NSLOT - 1) % NSLOT], pre, lane);
       const int key = t * FK_BM + warp * EX_WKEYS + j * EX_KPS + r;
       if (owner && key < M) {  // keys past M do not exist
         const float sv = mask == nullptr || mask[(size_t)b * M + key]
@@ -864,9 +983,9 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // skipped tiles (and of a lone bag) get exp(NEG - m) / l from fill_masked,
 // written by the block that holds the computed tile before them (or the
 // bag's last computed tile, for those after it).
-template <int D, bool PG>
+template <int D, bool PG, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
+weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const uint8_t* __restrict__ mask, const uint8_t* __restrict__ flags,
                const int* __restrict__ list, const int* __restrict__ off,
                const float* __restrict__ l, const float* __restrict__ m,
@@ -887,9 +1006,10 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
   PkCursor cur{i0, 0};
 #pragma unroll
   for (int s = 0; s < NSLOT - 1; ++s) {
-    ex_issue<D>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
+    ex_issue<D, T>(ring[s], k, flags, list, n_tiles, M, i1, warp, lane, cur);
     cp_async_commit();
   }
+  uint2 pre[D / 64];  // bfloat16: the step in flight through registers (ex_fetch)
 
   float mv = 0.f, linv = 1.f;  // the owner lane's query of bag b
   int b = -1, s = 0;
@@ -903,7 +1023,7 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (ub != b) {
       __syncthreads();  // no warp reads S.q of the last bag any more
       b = ub;
-      ex_load_queries<D, PG>(q, b, N, S.q, S.tq);
+      ex_load_queries<D, PG, T>(q, b, N, S.q, S.tq);
       if (owner) {
         mv = m[(size_t)b * N + n];
         linv = inv_l(l[(size_t)b * N + n]);
@@ -914,12 +1034,17 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < EX_STEPS; ++j, ++s) {
       cp_async_wait<NSLOT - 2>();
       __syncwarp();
-      ex_issue<D>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp, lane,
-                  cur);
+      bool fetched = false;
+      if constexpr (IS_BF16<T>)
+        fetched = ex_fetch<D>(pre, k, flags, list, n_tiles, M, i1, warp, lane, cur);
+      else
+        ex_issue<D, T>(ring[(s + NSLOT - 1) % NSLOT], k, flags, list, n_tiles, M, i1, warp,
+                       lane, cur);
       cp_async_commit();
       float g, unused;
-      const float a = pk_key_sums<D, PG, false>(ring[s % NSLOT], S.q, S.tq, nullptr, nullptr, N,
-                                                0, lane, g, unused);
+      const float a = pk_key_sums<D, PG, false, IS_BF16<T>>(ring[s % NSLOT], S.q, S.tq, nullptr,
+                                                            nullptr, N, 0, lane, g, unused);
+      if (fetched) ex_store<D>(ring[(s + NSLOT - 1) % NSLOT], pre, lane);
       const int key = k0 + j * EX_KPS + r;
       if (owner) {  // a key past M gets a value that is never stored
         const bool valid = key < M && (mask == nullptr || mask[(size_t)b * M + key]);
@@ -951,47 +1076,48 @@ int export_grid(Kernel kernel, int smem, int max_blocks, bool (&allowed)[64],
   return err ? err : resident_blocks(kernel, smem, max_blocks, resident, blocks);
 }
 
-template <int D, bool PG>
-int launch_stats(const float* q, const float* k, const uint8_t* mask, float* l, float* m,
+template <int D, bool PG, typename T>
+int launch_stats(const T* q, const T* k, const uint8_t* mask, float* l, float* m,
                  float* ml_part, uint8_t* flags, int* list, int* off, int B, int N, int M,
                  int max_blocks, float scale, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
   constexpr int smem = (int)sizeof(PkExportSmem<D>);
   int blocks = 0;
-  int err = export_grid(stats_kernel<D, PG>, smem, max_blocks, allowed, resident, &blocks);
+  int err = export_grid(stats_kernel<D, PG, T>, smem, max_blocks, allowed, resident, &blocks);
   if (err) return err;
   launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st, true);
-  stats_kernel<D, PG><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, ml_part, B,
-                                                      N, M, scale);
+  stats_kernel<D, PG, T><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, ml_part,
+                                                         B, N, M, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l, m,
-                                                 nullptr, nullptr, N, 0, blocks, off);
+  combine_kernel<float><<<dim3(B, N), THREADS, 0, st>>>(nullptr, ml_part, nullptr, nullptr, l,
+                                                        m, nullptr, nullptr, N, 0, blocks, off);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool PG>
-int launch_weights(const float* q, const float* k, const uint8_t* mask, const float* l,
+template <int D, bool PG, typename T>
+int launch_weights(const T* q, const T* k, const uint8_t* mask, const float* l,
                    const float* m, float* w, uint8_t* flags, int* list, int* off, int B, int N,
                    int M, int max_blocks, bool list_ready, float scale, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
   constexpr int smem = (int)sizeof(PkExportSmem<D>);
   int blocks = 0;
-  const int err = export_grid(weights_kernel<D, PG>, smem, max_blocks, allowed, resident, &blocks);
+  const int err = export_grid(weights_kernel<D, PG, T>, smem, max_blocks, allowed, resident,
+                              &blocks);
   if (err) return err;
   if (!list_ready) launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st, true);
-  weights_kernel<D, PG><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, l, m, w, B,
-                                                        N, M, scale);
+  weights_kernel<D, PG, T><<<blocks, THREADS, smem, st>>>(q, k, mask, flags, list, off, l, m, w,
+                                                           B, N, M, scale);
   return (int)cudaGetLastError();
 }
 
 // The fuse-K forward's launches: the tile flags and list, fused_k_kernel
 // over `blocks` blocks, combine_kernel. sq_part and ssq are used by the
 // TRAIN form only.
-template <int E, int FC, bool TRAIN>
-int launch_fk_instance(const float* q, const float* kv, const float* wk, const float* bk,
+template <int E, int FC, bool TRAIN, typename T>
+int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
                        const uint8_t* mask, const int* list, const int* off, float* o_part,
                        float* ml_part, float* sq_part, const int* seed, uint32_t thresh,
                        float keep_scale, int B, int N, int M, int F, int blocks, float scale,
@@ -999,18 +1125,18 @@ int launch_fk_instance(const float* q, const float* kv, const float* wk, const f
   static bool allowed[64] = {};
   constexpr int smem = (int)sizeof(FkFwdSmem<E>);
   static_assert(smem <= 232448, "shared memory of one block");
-  const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN>, smem, allowed);
+  const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN, T>, smem, allowed);
   if (err) return err;
-  fused_k_kernel<E, FC, TRAIN><<<blocks, THREADS, smem, st>>>(
+  fused_k_kernel<E, FC, TRAIN, T><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N,
       M, F, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool TRAIN>
-int launch_fused_k(const float* q, const float* kv, const float* wk, const float* bk,
+template <bool TRAIN, typename T>
+int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
                    const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
-                   float* o, float* l, float* m, float* ssq, float* sumw, float* o_part,
+                   T* o, float* l, float* m, float* ssq, float* sumw, float* o_part,
                    float* ml_part, float* sq_part, uint8_t* flags, int* list, int* off, int B,
                    int N, int M, int F, int E, int blocks, float scale, void* stream) {
   if (N < 1 || N > NMAX || M < 1 || B < 1 || F < 16 || F % 16 != 0 || F > FK_FMAX ||
@@ -1023,10 +1149,14 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
   const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // o columns a thread
 #define MPO_FK(E_, FC_)                                                                    \
   if (E == E_ && fc == FC_)                                                                \
-    err = launch_fk_instance<E_, FC_, TRAIN>(q, kv, wk, bk, mask, list, off, o_part, ml_part, \
-                                             sq_part, seed, thresh, keep_scale, B, N, M, F,  \
-                                             blocks, scale, st);
-  if constexpr (TRAIN) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py FUSED_K_TRAIN_EF)
+    err = launch_fk_instance<E_, FC_, TRAIN, T>(q, kv, wk, bk, mask, list, off, o_part,      \
+                                                ml_part, sq_part, seed, thresh, keep_scale, B, \
+                                                N, M, F, blocks, scale, st);
+  if constexpr (IS_BF16<T>) {  // E, F in {128, 256} (ops/coattn.py BF16_EF), both forms
+    if (F > 256) return (int)cudaErrorInvalidValue;
+    MPO_FK(256, 1) else MPO_FK(128, 1)
+    else return (int)cudaErrorInvalidValue;
+  } else if constexpr (TRAIN) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py FUSED_K_TRAIN_EF)
     MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
     else return (int)cudaErrorInvalidValue;
   } else {
@@ -1037,7 +1167,7 @@ int launch_fused_k(const float* q, const float* kv, const float* wk, const float
   }
 #undef MPO_FK
   if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq, sumw,
+  combine_kernel<T><<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, sq_part, o, l, m, ssq, sumw,
                                                  N, F, blocks, off);
   return (int)cudaGetLastError();
 }
@@ -1065,7 +1195,7 @@ int launch_plain(const float* q, const float* k, const float* v, const uint8_t* 
       scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  combine_kernel<<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
+  combine_kernel<float><<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
                                                  l, m, ssq, TRAIN ? sumw : nullptr, N, D,
                                                  blocks, off);
   return (int)cudaGetLastError();
@@ -1107,17 +1237,53 @@ int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* w
                               blocks, scale, stream);
 }
 
+// The bfloat16 instances of both forms: q, kv, wk, bk and o bfloat16,
+// everything else as above; E, F in {128, 256}.
+int mpo_coattn_fwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
+                                const __nv_bfloat16* wk, const __nv_bfloat16* bk,
+                                const uint8_t* mask, __nv_bfloat16* o, float* l, float* m,
+                                float* sumw, float* o_part, float* ml_part, uint8_t* flags,
+                                int* list, int* off, int B, int N, int M, int F, int E,
+                                int blocks, float scale, void* stream) {
+  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, o, l, m, nullptr,
+                               sumw, o_part, ml_part, nullptr, flags, list, off, B, N, M, F,
+                               E, blocks, scale, stream);
+}
+
+int mpo_coattn_fwd_fused_k_train_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
+                                      const __nv_bfloat16* wk, const __nv_bfloat16* bk,
+                                      const uint8_t* mask, const int* seed, __nv_bfloat16* o,
+                                      float* l, float* m, float* ssq, float* sumw,
+                                      float* o_part, float* ml_part, float* sq_part,
+                                      uint8_t* flags, int* list, int* off, int B, int N, int M,
+                                      int F, int E, int blocks, float scale, uint32_t thresh,
+                                      float keep_scale, void* stream) {
+  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, o, l, m, ssq,
+                              sumw, o_part, ml_part, sq_part, flags, list, off, B, N, M, F, E,
+                              blocks, scale, stream);
+}
+
 // The export passes take N <= 8 queries, D in {128, 256, 512}, with or
 // without the pre-gate.
 #define MPO_EXPORT(LAUNCH, ...)                                                        \
   if (pre_gate) {                                                                      \
-    if (D == 128) return LAUNCH<128, true>(__VA_ARGS__);                               \
-    if (D == 256) return LAUNCH<256, true>(__VA_ARGS__);                               \
-    if (D == 512) return LAUNCH<512, true>(__VA_ARGS__);                               \
+    if (D == 128) return LAUNCH<128, true, float>(__VA_ARGS__);                        \
+    if (D == 256) return LAUNCH<256, true, float>(__VA_ARGS__);                        \
+    if (D == 512) return LAUNCH<512, true, float>(__VA_ARGS__);                        \
   } else {                                                                             \
-    if (D == 128) return LAUNCH<128, false>(__VA_ARGS__);                              \
-    if (D == 256) return LAUNCH<256, false>(__VA_ARGS__);                              \
-    if (D == 512) return LAUNCH<512, false>(__VA_ARGS__);                              \
+    if (D == 128) return LAUNCH<128, false, float>(__VA_ARGS__);                       \
+    if (D == 256) return LAUNCH<256, false, float>(__VA_ARGS__);                       \
+    if (D == 512) return LAUNCH<512, false, float>(__VA_ARGS__);                       \
+  }                                                                                    \
+  return (int)cudaErrorInvalidValue;
+// The bfloat16 instances: D in {128, 256} (ops/coattn.py BF16_EXPORT_D).
+#define MPO_EXPORT_BF16(LAUNCH, ...)                                                   \
+  if (pre_gate) {                                                                      \
+    if (D == 128) return LAUNCH<128, true, __nv_bfloat16>(__VA_ARGS__);                \
+    if (D == 256) return LAUNCH<256, true, __nv_bfloat16>(__VA_ARGS__);                \
+  } else {                                                                             \
+    if (D == 128) return LAUNCH<128, false, __nv_bfloat16>(__VA_ARGS__);               \
+    if (D == 256) return LAUNCH<256, false, __nv_bfloat16>(__VA_ARGS__);               \
   }                                                                                    \
   return (int)cudaErrorInvalidValue;
 
@@ -1149,7 +1315,32 @@ int mpo_coattn_weights(const float* q, const float* k, const uint8_t* mask, cons
   MPO_EXPORT(launch_weights, q, k, mask, l, m, w, flags, list, off, B, N, M, max_blocks,
              list_ready != 0, scale, st)
 }
+
+// The bfloat16 instances of both passes: q, k bfloat16, everything else as
+// mpo_coattn_stats / mpo_coattn_weights (l, m, w float32).
+int mpo_coattn_stats_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const uint8_t* mask,
+                          float* l, float* m, float* ml_part, uint8_t* flags, int* list,
+                          int* off, int B, int N, int M, int D, int pre_gate, int max_blocks,
+                          float scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MPO_EXPORT_BF16(launch_stats, q, k, mask, l, m, ml_part, flags, list, off, B, N, M,
+                  max_blocks, scale, st)
+}
+
+int mpo_coattn_weights_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                            const uint8_t* mask, const float* l, const float* m, float* w,
+                            uint8_t* flags, int* list, int* off, int B, int N, int M, int D,
+                            int pre_gate, int max_blocks, int list_ready, float scale,
+                            void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MPO_EXPORT_BF16(launch_weights, q, k, mask, l, m, w, flags, list, off, B, N, M, max_blocks,
+                  list_ready != 0, scale, st)
+}
 #undef MPO_EXPORT
+#undef MPO_EXPORT_BF16
 
 // The tile flag and list passes alone, as the kernels run them: mask [B, M]
 // bool or NULL -> flags [B * T] uint8, list [B * T] and off [B + 1] int32;

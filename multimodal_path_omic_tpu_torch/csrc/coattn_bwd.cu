@@ -1,5 +1,6 @@
 // Backward of the few-query co-attention for Hopper (sm_90a), float32: the
-// pre-gated fuse-K form and the plain-K form.
+// pre-gated fuse-K form and the plain-K form; and a bfloat16 instance of the
+// fuse-K form (mpo_coattn_bwd_fused_k_bf16, below the design notes).
 //
 // Replaces the Pallas TPU kernel of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_bwd_fused_k <- _coattn_bwd_impl with _make_bwd_kernel(
@@ -79,6 +80,17 @@
 //    blocks that held the bag, dbk over blocks, dwk over shares): two runs
 //    give identical gradients.
 
+// The bfloat16 instance (fused_k_bwd_kernel and dwk_kernel with T =
+// __nv_bfloat16; E, F in {128, 256}): q, kv, wk, bk and dO are read as
+// bfloat16 (the JAX kernel's bfloat16 tiles, ops/coattn.py:490-503) and
+// converted into the same float32 tiles (flash_common.cuh); k is recomputed
+// as the forward's bfloat16 instance computes it (one TF32 MMA a step,
+// rounded to bfloat16), tanh(q) and tanh(k) rounded to bfloat16; every sum
+// is float32. dq and dkv are written in bfloat16; dk (the scratch), dwk and
+// dbk stay float32 (the wrapper casts dwk and dbk to wk's type, as
+// _coattn_fk_bwd does). The dkv and dwk products keep the 3xTF32 split (one
+// operand, dk, is float32). Everything else is the float32 instance's.
+//
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
 
@@ -133,6 +145,7 @@ struct FkWideSmem {
   static constexpr int NK = NEC * NCF;              // chunk steps of the k product
   static constexpr int NTE = EC / 32, NTF = FH / 32;
   static constexpr int GK = 4, GD = 4;
+  static constexpr int KV_ROWS = 0;  // kv is not resident
   alignas(16) float ring[3][SLOT];
   alignas(16) float k[FK_BM][KS];  // k, then tanh(k), then dk
   alignas(16) float q[NMAX][E];
@@ -147,20 +160,21 @@ struct FkWideSmem {
 template <int E, int F>
 using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F>, FkSmem<E, F>>;
 
-template <int E, int F>
+template <int E, int F, typename T>
 __global__ void __launch_bounds__(THREADS)
-fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
-                   const float* __restrict__ wk, const float* __restrict__ bk,
+fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                   const T* __restrict__ wk, const T* __restrict__ bk,
                    const uint8_t* __restrict__ mask, const int* __restrict__ seed_ptr,
-                   uint32_t thresh, float keep_scale, const float* __restrict__ dout,
+                   uint32_t thresh, float keep_scale, const T* __restrict__ dout,
                    const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ di, const float* __restrict__ dssq,
-                   const float* __restrict__ dsumw, float* __restrict__ dkv,
+                   const float* __restrict__ dsumw, T* __restrict__ dkv,
                    float* __restrict__ dk_out, const int* __restrict__ list,
                    const int* __restrict__ off, float* __restrict__ dq_part,
                    float* __restrict__ dbk_part, int B, int N, int M, float scale) {
   using S_ = FkBwdSmem<E, F>;
   constexpr bool WIDE = S_::WIDE;
+  static_assert(!(WIDE && IS_BF16<T>), "no bfloat16 instance at E = F = 512");
   constexpr int EPT = E / 32;  // E columns per lane
   constexpr int FPT = F / 32;  // F columns per lane
   constexpr int CE = (E + THREADS - 1) / THREADS;  // E columns a column owner holds
@@ -216,6 +230,79 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
   cp_async_commit();
   issue_chunk(1);
   cp_async_commit();
+  // bfloat16 (narrow): in the loops, chunk step s + 2, and in the dkv loop
+  // the next unit's kv slice, travel through registers, fetched before a
+  // step's product and stored into their places after it, so the loads
+  // overlap the product (the converting copy's counterpart of cp.async).
+  constexpr int WK_GROUPS = (WC * E > F * WC ? WC * E : F * WC) / 4;
+  constexpr int WK_IT = (WK_GROUPS + THREADS - 1) / THREADS;
+  constexpr int KVN_GROUPS = S_::KV_ROWS * F / 4;
+  constexpr int KVN_IT = (KVN_GROUPS + THREADS - 1) / THREADS;
+  uint2 pre_w[WK_IT], pre_kv[KVN_IT > 0 ? KVN_IT : 1];
+  int pre_s = -1, pre_ch = -1;  // the chunk step / kv slice held (-1: none)
+  auto fetch_chunk = [&](int s) {
+    if constexpr (IS_BF16<T> && !WIDE) {
+      pre_s = -1;
+      if (i0 + s / NC >= i1) return;
+      const int c = s % NC;
+#pragma unroll
+      for (int x = 0; x < WK_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        if (c < NCF) {  // wk rows c WC .. [WC][E]
+          pre_w[x] = fetch_bf16x4(wk + (size_t)(c * WC + idx / (E / 4)) * E + 4 * (idx % (E / 4)),
+                                  idx < WC * E / 4);
+        } else {  // wk columns (c - NCF) WC .. [F][WC]
+          pre_w[x] = fetch_bf16x4(wk + (size_t)(idx / (WC / 4)) * E + (c - NCF) * WC +
+                                      4 * (idx % (WC / 4)), idx < F * WC / 4);
+        }
+      }
+      pre_s = s;
+    }
+  };
+  auto store_chunk = [&]() {
+    if constexpr (IS_BF16<T> && !WIDE) {
+      if (pre_s < 0) return;
+      const int c = pre_s % NC;
+      float* slot = S.ring[pre_s % 3];
+#pragma unroll
+      for (int x = 0; x < WK_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        if (c < NCF) {
+          if (idx < WC * E / 4) store_bf16x4(slot + (idx / (E / 4)) * RS + 4 * (idx % (E / 4)),
+                                             pre_w[x]);
+        } else if (idx < F * WC / 4) {
+          store_bf16x4(slot + (idx / (WC / 4)) * CS + 4 * (idx % (WC / 4)), pre_w[x]);
+        }
+      }
+    }
+  };
+  // kv slice ch of the unit at rows m0n .. of bag tile kvn (zero rows past M)
+  auto fetch_kv = [&](const T* kvn, int m0n, int ch) {
+    if constexpr (IS_BF16<T> && !WIDE) {
+      pre_ch = -1;
+      if (kvn == nullptr) return;
+#pragma unroll
+      for (int x = 0; x < KVN_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        const int row = m0n + ch * S_::KV_ROWS + idx / (F / 4);
+        pre_kv[x] = fetch_bf16x4(kvn + (size_t)row * F + 4 * (idx % (F / 4)),
+                                 idx < KVN_GROUPS && row < M);
+      }
+      pre_ch = ch;
+    }
+  };
+  auto store_kv = [&]() {
+    if constexpr (IS_BF16<T> && !WIDE) {
+      if (pre_ch < 0) return;
+#pragma unroll
+      for (int x = 0; x < KVN_IT; ++x) {
+        const int idx = tid + x * THREADS;
+        if (idx < KVN_GROUPS)
+          store_bf16x4(&S.kv[pre_ch * S_::KV_ROWS + idx / (F / 4)][4 * (idx % (F / 4))],
+                       pre_kv[x]);
+      }
+    }
+  };
 
   // column-owner accumulators of the current bag: thread tid owns E columns
   // tid + 256 h, h < CE (dq's tanh term) and F columns tid + 256 h, h < CF
@@ -246,12 +333,12 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
         for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
         for (int f = 0; f < F; ++f) {
-          const float w = wk[(size_t)f * E + col];
+          const float w = to_f32(wk[(size_t)f * E + col]);
 #pragma unroll
           for (int n = 0; n < NMAX; ++n)
             if (n < N) v[n] = fmaf(zs[n * F + f], w, v[n]);
         }
-        const float bkv = bk[col];
+        const float bkv = to_f32(bk[col]);
         float* dst = dq_part + ((size_t)blockIdx.x + b) * N * E;
 #pragma unroll
         for (int n = 0; n < NMAX; ++n) {
@@ -272,11 +359,12 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       if (b >= 0) flush();
       b = ub;
       for (int j = tid; j < N * E; j += THREADS) {
-        const float v = q[(size_t)b * N * E + j];
+        const float v = to_f32(q[(size_t)b * N * E + j]);
         S.q[j / E][j % E] = v;
-        S.tq[j / E][j % E] = tanhf(v);
+        S.tq[j / E][j % E] = round_to<T>(tanhf(v));
       }
-      for (int j = tid; j < N * F; j += THREADS) S.dout[j / F][j % F] = dout[(size_t)b * N * F + j];
+      for (int j = tid; j < N * F; j += THREADS)
+        S.dout[j / F][j % F] = to_f32(dout[(size_t)b * N * F + j]);
       if (tid < N) {
         const size_t bn = (size_t)b * N + tid;
         const float lv = l[bn];
@@ -296,9 +384,9 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       sda = 0.f;
     }
     const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
-    const float* kv_t = kv + ((size_t)b * M + m0) * F;  // WIDE: the tile's kv rows, read in place
+    const T* kv_t = kv + ((size_t)b * M + m0) * F;  // WIDE: the tile's kv rows, read in place
     const int rows = min(FK_BM, M - m0);
-    const float* kv_next = nullptr;  // narrow: the next unit's kv tile, loaded during dkv
+    const T* kv_next = nullptr;  // narrow: the next unit's kv tile, loaded during dkv
     int m0_next = 0;
     if (!WIDE && i + 1 < i1) {
       const int un = list[i + 1];
@@ -326,7 +414,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
         for (int j = 0; j < NTE; ++j) {
           const int col = ec * S_::EC + 8 * NTE * wc + 8 * j + 2 * t4;
-          const float b0 = bk[col], b1 = bk[col + 1];
+          const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             c[r][j][0] += b0; c[r][j][1] += b1;
@@ -347,19 +435,21 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         if (ch == 0) cp_async_wait<0>();  // this tile's kv too
         else cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-        issue_chunk(s + 2);
+        if constexpr (IS_BF16<T>) fetch_chunk(s + 2);
+        else issue_chunk(s + 2);
         cp_async_commit();
-        acc_product_rows<2, NTE, WC, S_::GK>(c, &S.kv[0][ch * WC], S_::KVS, S.ring[s % 3], RS,
-                                             32 * wr, 8 * NTE * wc, lane);
+        acc_product_rows<2, NTE, WC, S_::GK, false, IS_BF16<T>>(
+            c, &S.kv[0][ch * WC], S_::KVS, S.ring[s % 3], RS, 32 * wr, 8 * NTE * wc, lane);
+        store_chunk();  // bfloat16: step s + 2 into its slot
       }
 #pragma unroll
       for (int j = 0; j < NTE; ++j) {
         const int col = 8 * NTE * wc + 8 * j + 2 * t4;
-        const float b0 = bk[col], b1 = bk[col + 1];
+        const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          c[r][j][0] += b0; c[r][j][1] += b1;
-          c[r][j][2] += b0; c[r][j][3] += b1;
+        for (int r = 0; r < 2; ++r) {  // k as the forward computes it (bfloat16: rounded)
+          c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
+          c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
         }
       }
       store_c<NTE>(c[0], &S.k[0][0], KS, 32 * wr, 8 * NTE * wc, lane);
@@ -444,7 +534,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
         for (int i = 0; i < FK_RPW; ++i) {
           const int r = warp * FK_RPW + i;
-          x[i] = r < rows ? *reinterpret_cast<const float4*>(kv_t + (size_t)r * F + j4 * 128 + 4 * lane)
+          x[i] = r < rows ? load4(kv_t + (size_t)r * F + j4 * 128 + 4 * lane)
                           : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
@@ -489,7 +579,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
 #pragma unroll
       for (int i = 0; i < FK_RPW; ++i) {
 #pragma unroll
-        for (int j = 0; j < EPT; ++j) kr[i][j] = tanhf(kr[i][j]);
+        for (int j = 0; j < EPT; ++j) kr[i][j] = round_to<T>(tanhf(kr[i][j]));
 #pragma unroll
         for (int j4 = 0; j4 < EPT / 4; ++j4)
           *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][j4 * 128 + 4 * lane]) =
@@ -577,7 +667,7 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         // WIDE: the kv rows from L2 (rows past M do not exist; their da is 0)
         for (int r = 0; r < (WIDE ? rows : FK_BM); ++r) {
           float x;
-          if constexpr (WIDE) x = kv_t[(size_t)r * F + col];
+          if constexpr (WIDE) x = to_f32(kv_t[(size_t)r * F + col]);
           else x = S.kv[r][col];
 #pragma unroll
           for (int n = 0; n < NMAX; ++n)
@@ -670,15 +760,22 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
       for (int ch = 0; ch < NCE; ++ch, ++s) {
         cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-        issue_chunk(s + 2);
-        if constexpr (!WIDE) {
-          if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
-            load_tile_async<S_::KV_ROWS, F, S_::KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
-                                                     m0_next + ch * S_::KV_ROWS, M);
+        if constexpr (IS_BF16<T>) {  // registers now, their places after the product
+          fetch_chunk(s + 2);
+          fetch_kv(kv_next, m0_next, ch);
+        } else {
+          issue_chunk(s + 2);
+          if constexpr (!WIDE) {
+            if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
+              load_tile_async<S_::KV_ROWS, F, S_::KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
+                                                       m0_next + ch * S_::KV_ROWS, M);
+          }
         }
         cp_async_commit();
         row_product_rows<2, NTF, WC, S_::GD>(d, &S.k[0][ch * WC], KS, S.ring[s % 3], CS, 32 * wr,
                                              8 * NTF * wc, 0, lane);
+        store_chunk();
+        store_kv();
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -686,10 +783,9 @@ fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
         for (int h = 0; h < 2; ++h) {
           const int key = m0 + 32 * wr + 16 * r + g4 + 8 * h;
           if (key >= M) continue;
-          float* dst = dkv + ((size_t)b * M + key) * F + f0 + 8 * NTF * wc + 2 * t4;
+          T* dst = dkv + ((size_t)b * M + key) * F + f0 + 8 * NTF * wc + 2 * t4;
 #pragma unroll
-          for (int j = 0; j < NTF; ++j)
-            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(d[r][j][2 * h], d[r][j][2 * h + 1]);
+          for (int j = 0; j < NTF; ++j) store2(dst + 8 * j, d[r][j][2 * h], d[r][j][2 * h + 1]);
         }
     }
   }
@@ -711,9 +807,9 @@ constexpr int DW_S = DW_T + 4;                // staged slice stride: 4 mod 32
 constexpr int DW_STAGE = 2 * FK_BM * DW_S;    // kv slice + dk slice (floats)
 constexpr int DW_SMEM = 2 * DW_STAGE * 4;     // two stages, bytes
 
-template <int E, int F>
+template <int E, int F, typename T>
 __global__ void __launch_bounds__(THREADS)
-dwk_kernel(const float* __restrict__ kv, const float* __restrict__ dk,
+dwk_kernel(const T* __restrict__ kv, const float* __restrict__ dk,
            const int* __restrict__ list, const int* __restrict__ off,
            float* __restrict__ dwk_part, int B, int M) {
   extern __shared__ __align__(16) float dw_smem[];
@@ -755,10 +851,11 @@ dwk_kernel(const float* __restrict__ kv, const float* __restrict__ dk,
 // dwk_part and dbk [E] = sum of the P main blocks' partials. Each output
 // element is summed by one thread in a fixed order (no atomics:
 // deterministic).
+template <typename TQ = float>
 __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dwk_part,
                   const float* __restrict__ dbk_part, const int* __restrict__ off,
-                  float* __restrict__ dq, float* __restrict__ dwk, float* __restrict__ dbk,
+                  TQ* __restrict__ dq, float* __restrict__ dwk, float* __restrict__ dbk,
                   int B, int P, int W, int N, int E, int F) {
   const size_t nq = (size_t)B * N * E, nw = (size_t)F * E;
   const size_t total = dwk != nullptr ? nq + nw + E : nq;
@@ -771,7 +868,7 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
       const int per = units_per_block(off, B, P);
       for (int g = off[b] / per; g <= (off[b + 1] - 1) / per; ++g)
         acc += dq_part[(g + b) * ne + j];
-      dq[i] = acc;
+      store1(dq + i, acc);
     } else if (i < nq + nw) {
       const size_t j = i - nq;
       for (int k = 0; k < W; ++k) acc += dwk_part[(size_t)k * nw + j];
@@ -1036,31 +1133,31 @@ int launch_plain_bwd(const float* q, const float* k, const float* v, const uint8
   err = (int)cudaGetLastError();
   if (err) return err;
   const size_t total = (size_t)B * N * D;
-  bwd_reduce_kernel<<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+  bwd_reduce_kernel<float><<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
       dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, blocks, 0, N, D, 0);
   return (int)cudaGetLastError();
 }
 
-template <int E, int F>
-int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk,
+template <int E, int F, typename T>
+int launch_bwd(const T* q, const T* kv, const T* wk, const T* bk,
                const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
-               const float* dout, const float* l, const float* m, const float* di,
-               const float* dssq, const float* dsumw, float* dkv, float* dk_scratch,
+               const T* dout, const float* l, const float* m, const float* di,
+               const float* dssq, const float* dsumw, T* dkv, float* dk_scratch,
                uint8_t* flags, int* list, int* off, float* dq_part, float* dwk_part,
                float* dbk_part, int B, int N, int M, int blocks, int wsplits, float scale,
                cudaStream_t st) {
   static bool allowed_main[64] = {}, allowed_dwk[64] = {};
   constexpr int smem = (int)sizeof(FkBwdSmem<E, F>);
   static_assert(smem <= 232448, "shared memory of one block");
-  int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F>, smem, allowed_main);
+  int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F, T>, smem, allowed_main);
   if (err) return err;
-  err = allow_dynamic_smem(dwk_kernel<E, F>, DW_SMEM, allowed_dwk);
+  err = allow_dynamic_smem(dwk_kernel<E, F, T>, DW_SMEM, allowed_dwk);
   if (err) return err;
-  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st);
-  fused_k_bwd_kernel<E, F><<<blocks, THREADS, smem, st>>>(
+  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st, false, (int)sizeof(T));
+  fused_k_bwd_kernel<E, F, T><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dkv,
       dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);
-  dwk_kernel<E, F><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
+  dwk_kernel<E, F, T><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
       kv, dk_scratch, list, off, dwk_part, B, M);
   return (int)cudaGetLastError();
 }
@@ -1091,17 +1188,51 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
   int err;
 #define MPO_BWD(E_, F_)                                                                    \
   if (E == E_ && F == F_)                                                                  \
-    err = launch_bwd<E_, F_>(q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di,   \
-                             dssq, dsumw, dkv, dk_scratch, flags, list, off, dq_part,        \
-                             dwk_part, dbk_part, B, N, M, blocks, wsplits, scale, st);
+    err = launch_bwd<E_, F_, float>(q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, \
+                                    m, di, dssq, dsumw, dkv, dk_scratch, flags, list, off,  \
+                                    dq_part, dwk_part, dbk_part, B, N, M, blocks, wsplits,  \
+                                    scale, st);
   MPO_BWD(256, 256) else MPO_BWD(128, 128) else MPO_BWD(256, 128) else MPO_BWD(128, 256)
   else MPO_BWD(512, 512) else return (int)cudaErrorInvalidValue;
 #undef MPO_BWD
   if (err) return err;
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;
   const int grid = (int)((total + THREADS - 1) / THREADS);
-  bwd_reduce_kernel<<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, off, dq, dwk, dbk, B,
-                                              blocks, wsplits, N, E, F);
+  bwd_reduce_kernel<float><<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, off, dq, dwk,
+                                                     dbk, B, blocks, wsplits, N, E, F);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 instance: q, kv, wk, bk, dout, dq and dkv bfloat16,
+// everything else (dwk and dbk included) as above; E, F in {128, 256}.
+int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
+                                const __nv_bfloat16* wk, const __nv_bfloat16* bk,
+                                const uint8_t* mask, const int* seed,
+                                const __nv_bfloat16* dout, const float* l, const float* m,
+                                const float* di, const float* dssq, const float* dsumw,
+                                __nv_bfloat16* dq, __nv_bfloat16* dkv, float* dwk, float* dbk,
+                                float* dq_part, float* dwk_part, float* dbk_part,
+                                float* dk_scratch, uint8_t* flags, int* list, int* off, int B,
+                                int N, int M, int F, int E, int blocks, int wsplits, float scale,
+                                uint32_t thresh, float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || blocks < 1 || wsplits < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+#define MPO_BWD16(E_, F_)                                                                  \
+  if (E == E_ && F == F_)                                                                  \
+    err = launch_bwd<E_, F_, __nv_bfloat16>(q, kv, wk, bk, mask, seed, thresh, keep_scale,  \
+                                            dout, l, m, di, dssq, dsumw, dkv, dk_scratch,   \
+                                            flags, list, off, dq_part, dwk_part, dbk_part, \
+                                            B, N, M, blocks, wsplits, scale, st);
+  MPO_BWD16(256, 256) else MPO_BWD16(128, 128) else MPO_BWD16(256, 128)
+  else MPO_BWD16(128, 256) else return (int)cudaErrorInvalidValue;
+#undef MPO_BWD16
+  if (err) return err;
+  const size_t total = (size_t)B * N * E + (size_t)F * E + E;
+  const int grid = (int)((total + THREADS - 1) / THREADS);
+  bwd_reduce_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+      dq_part, dwk_part, dbk_part, off, dq, dwk, dbk, B, blocks, wsplits, N, E, F);
   return (int)cudaGetLastError();
 }
 

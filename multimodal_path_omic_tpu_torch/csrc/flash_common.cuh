@@ -33,11 +33,75 @@
 //   A a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B b0 (k=t, n=g)  b1 (k=t+4, n=g)
 //   C c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+//
+// Inputs in bfloat16 (the co-attention kernels' bfloat16 instances): the
+// copies below take a `const __nv_bfloat16*` source as well, converting each
+// value to float32 on its way into the same float32 tiles (a synchronous
+// 8-byte load a thread and a 16-byte shared store; cp.async copies bytes and
+// cannot convert). A bfloat16 value is exact in TF32, so a product of two
+// bfloat16 operands needs one TF32 MMA, not three (the EXACT products).
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "coattn_common.cuh"
 
 namespace mpo {
+
+// ---------------------------------------------------------------------------
+// Element types: float32, or bfloat16 through the intrinsics only
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+constexpr bool IS_BF16 = std::is_same<T, __nv_bfloat16>::value;
+
+// x rounded to T's precision (round to nearest even), kept in float32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (IS_BF16<T>) return __bfloat162float(__float2bfloat16(x));
+  else return x;
+}
+
+// Two consecutive outputs (dst 4- / 8-byte aligned) in T.
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store1(float* dst, float a) { *dst = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float a) { *dst = __float2bfloat16(a); }
+
+// Four consecutive values (16-byte aligned floats, 8-byte aligned bfloat16s)
+// as float4.
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 u) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  return bf16x4_to_float4(*reinterpret_cast<const uint2*>(src));
+}
+
+// Register prefetch of bfloat16 values (the kernels' bfloat16 instances):
+// four values fetched as raw bits (zeros without pred, reading nothing),
+// then, once the product they overlap is done, stored as float32 into a
+// shared tile.
+__device__ __forceinline__ uint2 fetch_bf16x4(const __nv_bfloat16* src, bool pred) {
+  return pred ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+}
+__device__ __forceinline__ void store_bf16x4(float* dst, uint2 u) {
+  *reinterpret_cast<float4*>(dst) = bf16x4_to_float4(u);
+}
 
 constexpr float MASK_NEG = -1e9f;  // ops/layers.py NEG_INF
 
@@ -53,6 +117,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pr
                "r"(pred ? 16 : 0));
 }
 
+// Four bfloat16 values into four shared floats, synchronously (zeros
+// without pred); the float32 overload is cp_async16.
+__device__ __forceinline__ void cp_async16(float* dst, const __nv_bfloat16* src, bool pred) {
+  *reinterpret_cast<float4*>(dst) = pred ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Wait until at most N of this thread's committed groups are in flight (the
@@ -65,9 +135,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // Rows r0 .. r0+ROWS-1 of an operand [L][DH] (row stride sl floats, unit
 // stride inside a row) into dst [ROWS][STRIDE], asynchronously; zero rows
 // past L.
-template <int ROWS, int DH, int STRIDE>
+template <int ROWS, int DH, int STRIDE, typename T>
 __device__ __forceinline__ void load_tile_async(float* __restrict__ dst,
-                                                const float* __restrict__ src, long long sl,
+                                                const T* __restrict__ src, long long sl,
                                                 int r0, int L) {
   constexpr int V4 = DH / 4;
   for (int idx = threadIdx.x; idx < ROWS * V4; idx += blockDim.x) {
@@ -161,7 +231,9 @@ __device__ __forceinline__ void load_a(uint32_t (&big)[4], uint32_t (&small)[4],
 // limit at width 256), where the fresh sums keep it to one 8-deep step and
 // the adds into c round to nearest. Independent MMAs in flight between
 // dependent ones keep the tensor cores fed.
-template <int NT, int G>
+// EXACT: both operands hold values exact in TF32 (bfloat16 inputs), whose
+// small parts are 0: the big x big MMA alone gives the same sums.
+template <int NT, int G, bool EXACT = false>
 __device__ __forceinline__ void mma_group(float (&c)[NT][4], int j0, const uint32_t (&a_big)[4],
                                           const uint32_t (&a_small)[4],
                                           const uint32_t (&b_big)[G][2],
@@ -169,10 +241,12 @@ __device__ __forceinline__ void mma_group(float (&c)[NT][4], int j0, const uint3
   float t[G][4];
 #pragma unroll
   for (int u = 0; u < G; ++u) t[u][0] = t[u][1] = t[u][2] = t[u][3] = 0.f;
+  if constexpr (!EXACT) {
 #pragma unroll
-  for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_small[u]);
+    for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_small[u]);
 #pragma unroll
-  for (int u = 0; u < G; ++u) mma_tf32(t[u], a_small, b_big[u]);
+    for (int u = 0; u < G; ++u) mma_tf32(t[u], a_small, b_big[u]);
+  }
 #pragma unroll
   for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_big[u]);
 #pragma unroll
@@ -229,7 +303,7 @@ __device__ __forceinline__ void row_product(float (&c)[NT][4], const float* __re
 // step has a bank conflict. TA: P lies transposed, element (row, k) at
 // p[k * ps + row] (an A fragment read column-major: kvT dk, whose kv tile
 // lies [keys][features]); conflict free with ps = 4 mod 32.
-template <int MR, int NT, int KC, int G, bool TA = false>
+template <int MR, int NT, int KC, int G, bool TA = false, bool EXACT = false>
 __device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
                                                  const float* __restrict__ p, int ps,
                                                  const float* __restrict__ y, int ys, int r0,
@@ -266,7 +340,7 @@ __device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
         split_tf32(yk[8 * (j0 + u) + ys], bb[u][1], bs[u][1]);
       }
 #pragma unroll
-      for (int i = 0; i < MR; ++i) mma_group<NT, G>(c[i], j0, ab[i], as[i], bb, bs);
+      for (int i = 0; i < MR; ++i) mma_group<NT, G, EXACT>(c[i], j0, ab[i], as[i], bb, bs);
     }
   }
 }

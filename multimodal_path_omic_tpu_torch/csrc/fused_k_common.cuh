@@ -74,9 +74,9 @@ __device__ __forceinline__ bool fk_bag_has_valid_key(const uint8_t* __restrict__
 // dbk; a bag without a valid key computes every tile, or with `lone` (the
 // export passes, whose l = M, m = NEG and weights exp(NEG - m) / l there do
 // not depend on k) is one unit of flag FK_LONE (tile 0) that reads no k.
-// dkv != NULL (the backwards, rows of F floats): the skipped tiles' dkv rows
-// are set to 0, and with dkv2 != NULL (the plain-K backward's dv beside its
-// dk) those of dkv2.
+// dkv != NULL (the backwards, rows of F values of esize bytes: 4, or 2 for
+// the bfloat16 instance's dkv): the skipped tiles' dkv rows are set to 0, and
+// with dkv2 != NULL (the plain-K backward's dv beside its dk) those of dkv2.
 // A block's FK_FLAG_TILES tiles are read in one round trip, four keys a
 // thread: warp w's lanes 0..15 hold tile 2w, lanes 16..31 tile 2w + 1, and
 // one ballot flags both (no barrier a tile).
@@ -84,8 +84,8 @@ constexpr int FK_FLAG_TILES = 16;
 constexpr uint8_t FK_LONE = 2;
 
 static __global__ void __launch_bounds__(THREADS)
-fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
-                float* __restrict__ dkv2, uint8_t* __restrict__ flags, int M, int F,
+fk_tiles_kernel(const uint8_t* __restrict__ mask, void* __restrict__ dkv,
+                void* __restrict__ dkv2, uint8_t* __restrict__ flags, int M, int F, int esize,
                 bool lone) {
   static_assert(FK_FLAG_TILES * FK_BM == 4 * THREADS && FK_BM == 64, "4 keys a thread");
   __shared__ uint8_t computed_s[FK_FLAG_TILES];
@@ -113,12 +113,14 @@ fk_tiles_kernel(const uint8_t* __restrict__ mask, float* __restrict__ dkv,
   for (int t = t0; t < t1; ++t) {
     if (computed_s[t - t0]) continue;
     const int r1 = min((t + 1) * FK_BM, M);
-    const size_t row0 = ((size_t)b * M + (size_t)t * FK_BM) * F;
-    float4* dst = reinterpret_cast<float4*>(dkv + row0);
-    float4* dst2 = dkv2 == nullptr ? nullptr : reinterpret_cast<float4*>(dkv2 + row0);
-    for (int i = tid; i < (r1 - t * FK_BM) * F / 4; i += blockDim.x) {
-      dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (dst2 != nullptr) dst2[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const size_t byte0 = ((size_t)b * M + (size_t)t * FK_BM) * F * esize;  // 16-byte aligned
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<char*>(dkv) + byte0);
+    uint4* dst2 = dkv2 == nullptr ? nullptr
+                                  : reinterpret_cast<uint4*>(static_cast<char*>(dkv2) + byte0);
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < (r1 - t * FK_BM) * F * esize / 16; i += blockDim.x) {
+      dst[i] = zero;
+      if (dst2 != nullptr) dst2[i] = zero;
     }
   }
 }
@@ -170,13 +172,13 @@ __device__ __forceinline__ int units_per_block(const int* __restrict__ off, int 
 }
 
 // The flag and list passes on `st` (flags [B * n_tiles], list [B * n_tiles],
-// off [B + 1]; dkv, dkv2 and lone as fk_tiles_kernel).
-static inline void launch_tile_list(const uint8_t* mask, float* dkv, float* dkv2,
+// off [B + 1]; dkv, dkv2, esize and lone as fk_tiles_kernel).
+static inline void launch_tile_list(const uint8_t* mask, void* dkv, void* dkv2,
                                     uint8_t* flags, int* list, int* off, int B, int M, int F,
-                                    cudaStream_t st, bool lone = false) {
+                                    cudaStream_t st, bool lone = false, int esize = 4) {
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   fk_tiles_kernel<<<dim3(B, (n_tiles + FK_FLAG_TILES - 1) / FK_FLAG_TILES), THREADS, 0, st>>>(
-      mask, dkv, dkv2, flags, M, F, lone);
+      mask, dkv, dkv2, flags, M, F, esize, lone);
   fk_list_kernel<<<1, THREADS, 0, st>>>(flags, list, off, B, n_tiles);
 }
 

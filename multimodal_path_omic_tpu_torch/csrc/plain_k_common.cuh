@@ -94,8 +94,9 @@ __device__ __forceinline__ int pk_key(int lane) { return (lane >> 1) & 1; }
 // tanh(k) with PG, else dp = dO.v with DP (else none: 16 values). With PG and
 // DP, dp comes back in `dp` (16 values). tk_s != NULL: the keys' tanh(k)
 // rows are stored there ([PK_KEYS][D]). Returns, in the even lanes, a, and
-// sets `second` to the pair's second value (every lane calls it).
-template <int D, bool PG, bool DP>
+// sets `second` to the pair's second value (every lane calls it). RT: tanh(k)
+// rounded to bfloat16 (the export passes' bfloat16 instances).
+template <int D, bool PG, bool DP, bool RT = false>
 __device__ __forceinline__ float pk_key_sums(const float* __restrict__ slot,
                                              const float (*__restrict__ q)[D],
                                              const float (*__restrict__ tq)[D],
@@ -117,6 +118,11 @@ __device__ __forceinline__ float pk_key_sums(const float* __restrict__ slot,
       if constexpr (PG) {
         tk[r][c] = make_float4(tanhf(kx[r][c].x), tanhf(kx[r][c].y), tanhf(kx[r][c].z),
                                tanhf(kx[r][c].w));
+        if constexpr (RT)
+          tk[r][c] = make_float4(round_to<__nv_bfloat16>(tk[r][c].x),
+                                 round_to<__nv_bfloat16>(tk[r][c].y),
+                                 round_to<__nv_bfloat16>(tk[r][c].z),
+                                 round_to<__nv_bfloat16>(tk[r][c].w));
         if (tk_s != nullptr) *reinterpret_cast<float4*>(tk_s + row * D + col) = tk[r][c];
       }
     }

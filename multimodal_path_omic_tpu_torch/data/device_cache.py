@@ -8,10 +8,15 @@ training batch is then assembled on the device from cached rows
 index arrays of :func:`build_meta`.
 
 The upload goes bucket by bucket in chunks of ``upload_chunk`` bags: each
-chunk is padded into a pinned host buffer (when the cache lives on a CUDA
-device) and copied straight into its rows of the preallocated bucket tensor,
-so host staging stays at one chunk and no device-side concatenation doubles
-the bucket's memory.
+chunk is padded into a pinned host buffer in the store's type (when the cache
+lives on a CUDA device) and copied straight into its rows of the
+preallocated bucket tensor, so host staging stays at one chunk and no
+device-side concatenation doubles the bucket's memory.
+
+``store_dtype`` "bfloat16" halves the bytes of a bag, "int8" quarters them:
+each patch row quantized on the host (``data/quant.py``), its float32 scale
+in ``wsi_scale`` [n_b, bucket] beside the int8 ``wsi``; padding rows are
+q = 0 with scale 1, so their dequantization is exact.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import numpy as np
 import torch
 
 from multimodal_path_omic_tpu_torch.data.bags import bucket_for
+from multimodal_path_omic_tpu_torch.data.quant import quantize_bag_int8
 from multimodal_path_omic_tpu_torch.device import resolve_device
 
 _PER_ELEMENT = {"int8": 1, "bfloat16": 2}
+_STORE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def _per_patch_bytes(dim: int, store_dtype: str) -> int:
@@ -38,10 +45,11 @@ class DeviceBagCache:
     ``caches[bucket]`` is a dict of device tensors consumed by the cached
     train step: wsi [n_b, bucket, D], mask [n_b, bucket] bool, label [n]
     int64, and (survival mode) omics_packed [n, S], censorship [n],
-    survival_months [n]. ``position(rows)`` maps dataset rows to their
+    survival_months [n]; with ``store_dtype="int8"`` also wsi_scale
+    [n_b, bucket] float32. ``position(rows)`` maps dataset rows to their
     bucket-local wsi index. ``device`` defaults to the GPU
-    (``device.resolve_device``). Only ``store_dtype="float32"`` is ported;
-    a mesh-sharded cache is not (ROADMAP queue 1).
+    (``device.resolve_device``). A mesh-sharded cache is not ported
+    (ROADMAP queue 1, multi-GPU).
     """
 
     def __init__(self, dataset, extras_fn, buckets: Sequence[int], *, device=None,
@@ -51,9 +59,6 @@ class DeviceBagCache:
         if store_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"store_dtype must be float32, bfloat16 or int8, got {store_dtype!r}")
-        if store_dtype != "float32":
-            raise NotImplementedError(f"store_dtype {store_dtype!r} is not ported yet "
-                                      "(ROADMAP queue 1, reduced precision)")
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh-sharded device cache is not ported yet (ROADMAP queue 1, multi-GPU)")
@@ -86,17 +91,25 @@ class DeviceBagCache:
             if only_buckets is not None else all_buckets
         )
         pin = dev.type == "cuda"
+        store, int8 = _STORE[store_dtype], store_dtype == "int8"
         for bucket in self.cached_buckets:
             rows = np.flatnonzero(self.bucket_of == bucket)
             self._position[rows] = np.arange(len(rows), dtype=np.int32)
-            wsi = torch.empty((len(rows), bucket, dim), device=dev)
+            wsi = torch.empty((len(rows), bucket, dim), dtype=store, device=dev)
             mask = torch.empty((len(rows), bucket), dtype=torch.bool, device=dev)
-            stage_w = torch.empty((min(upload_chunk, len(rows)), bucket, dim), pin_memory=pin)
+            stage_w = torch.empty((min(upload_chunk, len(rows)), bucket, dim), dtype=store,
+                                  pin_memory=pin)
             stage_m = torch.empty(stage_w.shape[:2], dtype=torch.bool, pin_memory=pin)
+            scale = stage_s = None
+            if int8:
+                scale = torch.empty((len(rows), bucket), device=dev)
+                stage_s = torch.empty(stage_w.shape[:2], pin_memory=pin)
             for s in range(0, len(rows), upload_chunk):
                 chunk_rows = rows[s:s + upload_chunk]
                 stage_w.zero_()
                 stage_m.zero_()
+                if int8:
+                    stage_s.fill_(1.0)
                 for j, r in enumerate(chunk_rows):
                     bag = np.asarray(dataset.bag(int(r)), np.float32)
                     m = bag.shape[0]
@@ -106,13 +119,22 @@ class DeviceBagCache:
                         raise ValueError(
                             f"bag {int(r)} has {m} patches but was assigned bucket "
                             f"{bucket}: a stale bag-length probe?")
-                    stage_w[j, :m] = torch.from_numpy(bag)
+                    if int8:  # per row, so the padding rows stay q = 0, scale 1
+                        q, sc = quantize_bag_int8(bag)
+                        stage_w[j, :m] = torch.from_numpy(q)
+                        stage_s[j, :m] = torch.from_numpy(sc)
+                    else:  # bfloat16: torch's round to nearest even
+                        stage_w[j, :m] = torch.from_numpy(bag)
                     stage_m[j, :m] = True
                 k = len(chunk_rows)
                 # the staging buffers are reused: each copy ends before the next fill
                 wsi[s:s + k].copy_(stage_w[:k])
                 mask[s:s + k].copy_(stage_m[:k])
+                if int8:
+                    scale[s:s + k].copy_(stage_s[:k])
             self.caches[bucket] = dict(wsi=wsi, mask=mask, **table)
+            if int8:
+                self.caches[bucket]["wsi_scale"] = scale
 
     @staticmethod
     def nbytes(lengths: np.ndarray, buckets: Sequence[int], dim: int,

@@ -28,6 +28,7 @@ from typing import Any, Dict, Iterator, List, Sequence
 import numpy as np
 
 from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for, pad_bag
+from multimodal_path_omic_tpu_torch.data.quant import quantize_bag_int8
 
 
 # A batch is a plain dict: wsi [B, Mb, D], mask [B, Mb], omics list of
@@ -219,16 +220,42 @@ def gene_expr_extras(dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
     return {"label": dataset.table.gene_expr_class[indices]}
 
 
-def device_arrays(batch: Batch, ge_mode: bool) -> Dict[str, Any]:
-    """A host batch's arrays as the steps read them: wsi float32 (or a
-    :meth:`BucketBatcher._make_rows` batch's rows and pos), mask bool,
-    weight float32, label int64 and, for survival models, the omics groups
-    as one packed [..., sum(s_i)] float32 array (the device cache's layout),
-    censorship and survival_months float32."""
+def _transfer_rows(rows: Sequence[np.ndarray], transfer_dtype: str):
+    """A batch's bags in the transfer type: (the rows, their int8 row scales
+    or None). bfloat16: torch tensors (numpy has no bfloat16), rounded to
+    nearest even; int8: each row quantized (``data/quant.py``)."""
+    if transfer_dtype == "bfloat16":
+        import torch
+
+        return [torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(torch.bfloat16)
+                for r in rows], None
+    if transfer_dtype == "int8":
+        pairs = [quantize_bag_int8(r) for r in rows]
+        return [q for q, _ in pairs], [sc for _, sc in pairs]
+    return [np.ascontiguousarray(r, np.float32) for r in rows], None
+
+
+def device_arrays(batch: Batch, ge_mode: bool, transfer_dtype: str = "float32"
+                  ) -> Dict[str, Any]:
+    """A host batch's arrays as the steps read them: wsi (or a
+    :meth:`BucketBatcher._make_rows` batch's rows and pos) in
+    ``transfer_dtype`` (float32; bfloat16, a torch tensor; int8 with its
+    float32 row scales, ``wsi_scale`` or ``rows_scale``: the JAX Trainer's
+    ``_device_batch`` quantizes the padded batch, this the real rows, which
+    is the same per-row quantization, padding rows being q = 0, scale 1), mask
+    bool, weight float32, label int64 and, for survival models, the omics
+    groups as one packed [..., sum(s_i)] float32 array (the device cache's
+    layout), censorship and survival_months float32."""
     if "rows" in batch:  # lists: staged into pinned buffers of a few sizes
-        out = {"rows": list(batch["rows"]), "pos": list(batch["pos"])}
+        rows, scales = _transfer_rows(batch["rows"], transfer_dtype)
+        out = {"rows": rows, "pos": list(batch["pos"])}
+        if scales is not None:
+            out["rows_scale"] = scales
     else:
-        out = {"wsi": np.ascontiguousarray(batch["wsi"], np.float32)}
+        wsi, scales = _transfer_rows([batch["wsi"]], transfer_dtype)
+        out = {"wsi": wsi[0]}
+        if scales is not None:
+            out["wsi_scale"] = scales[0]
     out.update({"mask": np.ascontiguousarray(batch["mask"], bool),
                 "weight": np.ascontiguousarray(batch["weight"], np.float32),
                 "label": np.ascontiguousarray(batch["label"], np.int64)})
@@ -240,12 +267,12 @@ def device_arrays(batch: Batch, ge_mode: bool) -> Dict[str, Any]:
     return out
 
 
-def to_device(batch: Batch, device, ge_mode: bool) -> Dict[str, Any]:
+def to_device(batch: Batch, device, ge_mode: bool, transfer_dtype: str = "float32"
+              ) -> Dict[str, Any]:
     """A padded host batch's tensors on ``device`` (:func:`device_arrays`'
     fields), copied from pageable memory."""
-    import torch
-
-    return {k: torch.from_numpy(v).to(device) for k, v in device_arrays(batch, ge_mode).items()}
+    return {k: _as_tensor(v).to(device)
+            for k, v in device_arrays(batch, ge_mode, transfer_dtype).items()}
 
 
 def _merged(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
@@ -255,6 +282,8 @@ def _merged(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     per = batches[0]["mask"].size
     out = {"rows": [r for b in batches for r in b["rows"]],
            "pos": [p + k * per for k, b in enumerate(batches) for p in b["pos"]]}
+    if "rows_scale" in batches[0]:
+        out["rows_scale"] = [sc for b in batches for sc in b["rows_scale"]]
     for key in batches[0]:
         if key not in out:
             out[key] = np.stack([b[key] for b in batches])
@@ -264,7 +293,8 @@ def _merged(batches: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 def unpad(tensors: Dict[str, Any]) -> Dict[str, Any]:
     """Staged row tensors (rows [P, D], pos [P], mask [..., bucket]) as the
     padded batch: wsi [..., bucket, D], zero but at ``pos``, where the rows
-    go in order. Other tensors pass through."""
+    go in order; int8 rows' scales (rows_scale [P]) as wsi_scale
+    [..., bucket], 1 but at ``pos``. Other tensors pass through."""
     import torch
 
     if "rows" not in tensors:
@@ -275,6 +305,10 @@ def unpad(tensors: Dict[str, Any]) -> Dict[str, Any]:
                       device=rows.device)
     wsi.view(-1, rows.shape[-1]).index_copy_(0, pos, rows)
     out["wsi"] = wsi
+    if "rows_scale" in out:
+        scale = torch.ones(tuple(mask.shape), device=rows.device)
+        scale.view(-1).index_copy_(0, pos, out.pop("rows_scale"))
+        out["wsi_scale"] = scale
     return out
 
 
@@ -325,32 +359,35 @@ class Stager:
         self._stream = None
         self._rings: Dict[tuple, list] = {}  # (name, shape, dtype) -> [turn, [(pinned, event)]]
 
-    def stage_batch(self, batch: Batch, ge_mode: bool) -> Staged:
-        """One host batch (:func:`device_arrays`' fields)."""
-        return self.stage([device_arrays(batch, ge_mode)])
+    def stage_batch(self, batch: Batch, ge_mode: bool, transfer_dtype: str = "float32"
+                    ) -> Staged:
+        """One host batch (:func:`device_arrays`' fields, the wsi in
+        ``transfer_dtype``)."""
+        return self.stage([device_arrays(batch, ge_mode, transfer_dtype)])
 
-    def stage_group(self, batches: Sequence[Batch], ge_mode: bool) -> Staged:
+    def stage_group(self, batches: Sequence[Batch], ge_mode: bool,
+                    transfer_dtype: str = "float32") -> Staged:
         """K same-shaped host batches as one batch of [K, ...] tensors (the
         device-side counterpart of ``stack_batches`` + ``to_device``)."""
-        arrays = [device_arrays(b, ge_mode) for b in batches]
+        arrays = [device_arrays(b, ge_mode, transfer_dtype) for b in batches]
         if "rows" in arrays[0]:
             return self.stage([_merged(arrays)])
         return self.stage(arrays, stacked=True)
 
     def stage(self, rows: Sequence[Dict[str, Any]], stacked: bool = False) -> Staged:
-        """``rows``: one dict of host arrays, or with ``stacked`` K dicts of
-        same-shaped arrays, which land as [K, ...] tensors. Without
-        ``stacked`` a value may also be a list of arrays, which land
-        concatenated along their first axis (the parts are copied into the
-        pinned buffer one by one: no host-side concatenation)."""
+        """``rows``: one dict of host arrays (numpy, or torch tensors on the
+        CPU), or with ``stacked`` K dicts of same-shaped arrays, which land as
+        [K, ...] tensors. Without ``stacked`` a value may also be a list of
+        arrays, which land concatenated along their first axis (the parts
+        are copied into the pinned buffer one by one: no host-side
+        concatenation)."""
         import torch
 
         if not stacked and len(rows) != 1:
             raise ValueError("stage takes one dict of arrays unless stacked=True")
         if self.device.type != "cuda":
-            return Staged({k: torch.from_numpy(np.stack([r[k] for r in rows]) if stacked
-                                               else _joined(rows[0][k]))
-                           .to(self.device) for k in rows[0]})
+            return Staged({k: (torch.stack([_as_tensor(r[k]) for r in rows]) if stacked
+                               else _joined(rows[0][k])).to(self.device) for k in rows[0]})
         with self._lock:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
@@ -364,12 +401,11 @@ class Stager:
                         if isinstance(a, list):
                             off = 0
                             for part in a:
-                                host[off:off + len(part)].copy_(
-                                    torch.from_numpy(np.ascontiguousarray(part)))
+                                host[off:off + len(part)].copy_(_as_tensor(part))
                                 off += len(part)
                             src = host[:off]
                         else:
-                            host.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                            host.copy_(_as_tensor(a))
                             src = host
                         (out[k][i] if stacked else out[k]).copy_(src, non_blocking=True)
                         done.record(self._stream)
@@ -397,8 +433,18 @@ class Stager:
         return host, done
 
 
-def _joined(a) -> np.ndarray:
-    return np.concatenate(a) if isinstance(a, list) else np.ascontiguousarray(a)
+def _as_tensor(a):
+    """A host array as a CPU tensor (a tensor as it is; numpy without a copy)."""
+    import torch
+
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _joined(a):
+    """A value as one CPU tensor: a list of parts concatenated."""
+    import torch
+
+    return torch.cat([_as_tensor(p) for p in a]) if isinstance(a, list) else _as_tensor(a)
 
 
 def _shape(a) -> tuple:
@@ -412,6 +458,8 @@ def _dtype(a):
     import torch
 
     first = a[0] if isinstance(a, list) else a
+    if isinstance(first, torch.Tensor):
+        return first.dtype
     return torch.from_numpy(np.asarray(first).reshape(-1)[:0]).dtype
 
 

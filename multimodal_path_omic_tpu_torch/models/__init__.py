@@ -1,9 +1,15 @@
+import torch
+
+from multimodal_path_omic_tpu_torch.models.common import MODEL_SIZES
 from multimodal_path_omic_tpu_torch.models.ge_nacagat import GENaCAGaT
+from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
 from multimodal_path_omic_tpu_torch.models.mcat import MCAT
 from multimodal_path_omic_tpu_torch.models.nacagat import NaCAGaT
+from multimodal_path_omic_tpu_torch.ops.coattn import fused_k_supports, plain_k_supports
 
 # the config's ``model.name`` values of the WSI-only model, normalized
 GE_NAMES = ("ge_nacagat", "genacagat", "geneexpr_nacagat", "geneexprnacagat")
+NACAGAT_NAMES = ("nacagat", "narrowcontextualattentiongatetransformer")
 
 
 def _key(name: str) -> str:
@@ -14,21 +20,58 @@ def is_ge_model(name: str) -> bool:
     return _key(name) in GE_NAMES
 
 
+def require_compute_dtype(name: str, dtype, device, model_size: str = "medium") -> None:
+    """Refuse a bfloat16 compute dtype on the card for a model whose
+    attention kernels have no bfloat16 instance at its width yet (ROADMAP.md
+    queue 2 item 5): GE-NaCAGaT (its flash self-attention kernels; the M x M
+    ``attention_core`` at M = 16384 is no route) and NaCAGaT where the
+    fuse-K kernels or the export passes lack the instance (``big``: E = D =
+    512). MCAT's lean branch runs no kernel. On the CPU each runs the plain
+    versions. (A module off the lean routes, ``lean=False``, raises where it
+    reaches a kernel without a bfloat16 instance: ``ops/kernels.py::takes``.)"""
+    if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
+        return
+    if is_ge_model(name):
+        raise NotImplementedError(
+            "GE-NaCAGaT with tpu.compute_dtype bfloat16 on the card: the flash "
+            "self-attention kernels have no bfloat16 instance yet and the M x M "
+            "attention_core is no route at its bag lengths (ROADMAP.md queue 2 item 5)")
+    e = MODEL_SIZES[model_size][1]
+    bf16 = torch.bfloat16
+    if _key(name) in NACAGAT_NAMES and not (
+            all(fused_k_supports(1, e, e, 64, train=t, dtype=bf16) for t in (False, True))
+            and plain_k_supports(1, e, 64, values=False, dtype=bf16)):
+        raise NotImplementedError(
+            f"{name} {model_size!r} with tpu.compute_dtype bfloat16 on the card: its "
+            f"co-attention kernels have no bfloat16 instance at E = {e} yet "
+            "(ROADMAP.md queue 2 item 5)")
+
+
 def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
                 fusion: str = "concat", n_classes=None, dropout: float = 0.25,
-                wsi_dim: int = 1024, lean: bool = True, bug_compat: bool = False):
+                wsi_dim: int = 1024, lean: bool = True, bug_compat: bool = False,
+                dtype=None):
     """Model factory keyed by the config's ``model.name`` values: MCAT and
     NaCAGaT (survival, 4 classes) and GE-NaCAGaT (WSI-only, 3 classes; takes
     no ``omic_sizes``). ``lean=False`` switches the survival models'
     co-attention off its lean routes (``ops/attention.py``); GE-NaCAGaT has
     no such route. ``bug_compat`` freezes the ``gated_concat`` fusion's gates
-    at their init (the reference's unregistered gates)."""
+    at their init (the reference's unregistered gates). ``dtype`` (None or
+    ``torch.float32``: float32; ``torch.bfloat16``) is the compute dtype of
+    every module (``ops/layers.py::set_compute_dtype``); the parameters stay
+    float32 and the survival and class heads compute in float32."""
+    return set_compute_dtype(_build(name, omic_sizes, model_size, fusion, n_classes,
+                                    dropout, wsi_dim, lean, bug_compat), dtype)
+
+
+def _build(name, omic_sizes, model_size, fusion, n_classes, dropout, wsi_dim, lean,
+           bug_compat):
     key = _key(name)
     if key in ("mcat", "multimodalcoattentiontransformer"):
         return MCAT(omic_sizes, model_size=model_size, n_classes=n_classes or 4,
                     dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean,
                     bug_compat=bug_compat)
-    if key in ("nacagat", "narrowcontextualattentiongatetransformer"):
+    if key in NACAGAT_NAMES:
         return NaCAGaT(omic_sizes, model_size=model_size, n_classes=n_classes or 4,
                        dropout_rate=dropout, fusion=fusion, wsi_dim=wsi_dim, lean=lean,
                     bug_compat=bug_compat)
@@ -38,4 +81,5 @@ def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
     raise ValueError(f"Unknown model name: {name}")
 
 
-__all__ = ["GENaCAGaT", "MCAT", "NaCAGaT", "build_model", "is_ge_model"]
+__all__ = ["GENaCAGaT", "MCAT", "NaCAGaT", "build_model", "is_ge_model",
+           "require_compute_dtype"]

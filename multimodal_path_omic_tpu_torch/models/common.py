@@ -106,15 +106,17 @@ class CoAttentionSurvivalModel(nn.Module):
     def forward(self, wsi: torch.Tensor, omics: Sequence[torch.Tensor],
                 mask: Optional[torch.Tensor] = None, *,
                 need_attention=True,
-                generator: Optional[torch.Generator] = None) -> SurvivalOutput:
+                generator: Optional[torch.Generator] = None,
+                wsi_scale: Optional[torch.Tensor] = None) -> SurvivalOutput:
         """wsi [B, M, wsi_dim], omics: list of [B, s_i], mask [B, M] bool.
         ``need_attention``: True returns the co-attention map [B, N, M] under
         ``attention['coattn']``; False skips it; "ssq" returns the per-query
         sum of squares of the final co-attention weights [B, N] under
         ``attention['coattn_ssq']`` (all the cesar loss needs). ``generator``
-        feeds every dropout site in training mode."""
+        feeds every dropout site in training mode. ``wsi_scale`` [B, M] with
+        an int8 ``wsi``: the WSI FC's int8 route (``tpu.int8_matmul``)."""
         want_ssq = need_attention == "ssq"
-        h_bag = self.H(wsi, generator)
+        h_bag = self.H(wsi, generator, wsi_scale)
         g_bag = self.G(omics, generator)
         h_coattn, a_coattn = self.co_attention(
             g_bag, h_bag, h_bag, mask, need_weights="ssq" if want_ssq else bool(need_attention),

@@ -47,12 +47,13 @@ class GENaCAGaT(nn.Module):
     def forward(self, wsi: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                 need_attention: bool = False,
                 generator: Optional[torch.Generator] = None,
+                wsi_scale: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
         """wsi [B, M, wsi_dim], mask [B, M] bool -> (y [B, n_classes],
         {"attn": the [B, M, M] self-attention map or None, "path": the raw
         MIL scores [B, 1, M]}). ``generator`` feeds every dropout site in
-        training mode."""
-        h_bag = self.H(wsi, generator)
+        training mode; ``wsi_scale`` as in the survival models."""
+        h_bag = self.H(wsi, generator, wsi_scale)
         h_attn, a_attn = self.self_attention(h_bag, h_bag, h_bag, mask,
                                              need_weights=bool(need_attention),
                                              generator=generator)

@@ -6,7 +6,10 @@ co-attention.
 Inputs are batched ``[B, seq, dim]`` with an optional boolean key-validity
 mask ``[B, M]`` (True = valid). Attention dropout (torch semantics: weights
 normalized, then dropped and rescaled) is active in training mode and draws
-from the ``generator`` the caller passes.
+from the ``generator`` the caller passes. Each module computes in its
+``compute_dtype`` (``ops/layers.py``): inputs and parameters are cast where
+they are used, as the JAX module casts them (``attention.py:267, 334-338,
+393-425``), and the kernels' predicates are asked about that type.
 """
 
 from __future__ import annotations
@@ -28,8 +31,12 @@ from multimodal_path_omic_tpu_torch.ops.coattn import (
 )
 from multimodal_path_omic_tpu_torch.ops.flash import flash_attention
 from multimodal_path_omic_tpu_torch.ops.flash import supports as flash_supports
+from multimodal_path_omic_tpu_torch.ops.kernels import takes
 from multimodal_path_omic_tpu_torch.ops.layers import (
+    LayerNorm,
     TorchLinear,
+    cast,
+    compute_dtype_of,
     dropout,
     fast_keep_mask,
     masked_softmax,
@@ -156,7 +163,9 @@ class MultiheadAttention(nn.Module):
     * otherwise :func:`attention_core`, also for every shape a kernel's
       predicate refuses (the JAX dispatchers' ``_xla_fused`` /
       ``attention_core`` fallback): the route is decided by shape alone, on
-      the CPU and on the card alike.
+      the CPU and on the card alike, except that a bfloat16 shape whose
+      float32 form a kernel takes raises on the card (``kernels.takes``:
+      that kernel has no bfloat16 instance yet).
 
     ``need_weights``: True returns the [B, N, M] weights, False None, and
     "ssq" the per-query sum of squares of the final weights [B, N] (the
@@ -183,8 +192,8 @@ class MultiheadAttention(nn.Module):
 
     def _proj(self, x, lo: int, hi: int):
         e = self.embed_dim
-        return F.linear(x, self.in_proj_weight[lo * e:hi * e],
-                        self.in_proj_bias[lo * e:hi * e])
+        return F.linear(cast(x, self), cast(self.in_proj_weight[lo * e:hi * e], self),
+                        cast(self.in_proj_bias[lo * e:hi * e], self))
 
     def forward(self, query, key, value, key_mask=None, *, need_weights=True,
                 average_attn_weights: bool = True, return_projected_q: bool = False,
@@ -193,6 +202,7 @@ class MultiheadAttention(nn.Module):
             raise ValueError(f"need_weights must be True, False or 'ssq', got {need_weights!r}")
         want_ssq = need_weights == "ssq"
         e, heads = self.embed_dim, self.num_heads
+        dt = compute_dtype_of(self)
         rate = self.dropout_rate if self.training else 0.0
         self_attn = query is key
         n, m_len = query.shape[1], key.shape[1]
@@ -204,14 +214,17 @@ class MultiheadAttention(nn.Module):
         train_form = leank_train_form(rate, want_ssq, query, key, self.in_proj_weight,
                                       self.in_proj_bias)
         lean_v = (lean_shape and self.pre_gate and need_weights is not True
-                  and fused_k_supports(n, e, key.shape[-1], m_len, train=train_form))
+                  and takes("fuse-K", fused_k_supports, query.device, n, e, key.shape[-1],
+                            m_len, train=train_form, dtype=dt))
         out_h = weights = ssq = None
         if lean:
             q = self._proj(query, 0, 1)
             w = self.in_proj_weight
+            b = self.in_proj_bias
             out_flat, w_lean = lean_single_head_cross_attention(
-                q, key, w[e:2 * e].t(), self.in_proj_bias[e:2 * e], w[2 * e:].t(),
-                self.in_proj_bias[2 * e:], key_mask, dropout_rate=rate, generator=generator,
+                q, cast(key, self), cast(w[e:2 * e].t(), self), cast(b[e:2 * e], self),
+                cast(w[2 * e:].t(), self), cast(b[2 * e:], self), key_mask,
+                dropout_rate=rate, generator=generator,
             )
             if need_weights is True:
                 weights = w_lean[:, None]
@@ -219,13 +232,14 @@ class MultiheadAttention(nn.Module):
                 ssq = (w_lean * w_lean).sum(dim=-1)
         elif lean_v:
             q = self._proj(query, 0, 1)
-            wk = self.in_proj_weight[e:2 * e].t().contiguous()  # [F, E]
+            wk = cast(self.in_proj_weight[e:2 * e].t(), self).contiguous()  # [F, E]
             seed = None
             if rate > 0.0:  # the kernel's dropout seed, drawn per call
                 seed = torch.randint(0, 2**31 - 1, (1,), generator=require_generator(generator),
                                      device=query.device, dtype=torch.int32)
             res = fused_attention_leank(
-                q, key.contiguous(), wk, self.in_proj_bias[e:2 * e], key_mask,
+                q, cast(key, self).contiguous(), wk, cast(self.in_proj_bias[e:2 * e], self),
+                key_mask,
                 dropout_rate=rate, dropout_seed=seed, need_ssq=want_ssq, need_sumw=True,
             )
             out_raw, sumw = res[0], res[-1]
@@ -233,8 +247,8 @@ class MultiheadAttention(nn.Module):
                 ssq = res[1]
             # V projection after the patch-axis contraction, bias weighted by
             # the row's weight mass
-            out_flat = (F.linear(out_raw, self.in_proj_weight[2 * e:])
-                        + self.in_proj_bias[2 * e:] * sumw[:, :, None])
+            out_flat = (F.linear(cast(out_raw, self), cast(self.in_proj_weight[2 * e:], self))
+                        + cast(self.in_proj_bias[2 * e:], self) * sumw[:, :, None].to(dt))
         else:
             if self_attn and key is value:
                 q, k, v = self._proj(query, 0, 3).chunk(3, dim=-1)
@@ -249,15 +263,16 @@ class MultiheadAttention(nn.Module):
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
                 if (not self_attn and m_len > 32
-                        and plain_k_supports(n, e // heads, m_len, values=True)
-                        and (need_weights is False or (want_ssq and heads == 1))):
+                        and (need_weights is False or (want_ssq and heads == 1))
+                        and takes("plain-K", plain_k_supports, q.device, n, e // heads, m_len,
+                                  values=True, dtype=dt)):
                     res = fused_attention(qh, kh, vh, key_mask, pre_gate=self.pre_gate,
                                           dropout_rate=rate, generator=generator,
                                           need_ssq=want_ssq)
                     out_h, ssq = (res[0], res[1][:, 0]) if want_ssq else (res, None)
                 elif (need_weights is False and not self.pre_gate and self_attn
                         and key is value and n > 32 and (rate == 0.0 or n >= 4096)):
-                    if flash_supports(*qh.shape):
+                    if takes("flash", flash_supports, qh.device, *qh.shape, dtype=dt):
                         out_h = flash_attention(qh, kh, vh, key_mask)
                     else:  # no kernel instance (JAX: _xla_fused); the site dropped alike
                         out_h, _ = attention_core(qh, kh, vh, key_mask, pre_gate=False,
@@ -295,8 +310,8 @@ class ContextualAttentionGate(nn.Module):
         self.fc2 = TorchLinear(dim, hidden_dim)
         self.fc3 = TorchLinear(dim, hidden_dim)
         self.fc_c = TorchLinear(hidden_dim, hidden_dim)
-        self.ln_g = nn.LayerNorm(hidden_dim, eps=1e-5)
-        self.ln_e = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.ln_g = LayerNorm(hidden_dim, eps=1e-5)
+        self.ln_e = LayerNorm(hidden_dim, eps=1e-5)
 
     def forward(self, q: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:
         fc1 = F.elu(self.fc1(q))

@@ -1,7 +1,8 @@
 """Model blocks (``multimodal_path_omic_tpu/ops/blocks.py``): the MIL
 scoring head, the masked MIL pooling, the fused SNN omic encoders and the
 WSI patch encoder. Dropout sites are active in training mode and draw from
-the ``generator`` passed to ``forward``."""
+the ``generator`` passed to ``forward``. Each block computes in its
+``compute_dtype`` (``ops/layers.py``)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import (
     AlphaDropout,
     FastDropout,
     TorchLinear,
+    cast,
     masked_softmax,
 )
 from multimodal_path_omic_tpu_torch.ops.milpool import fused_gated_mil_pool
@@ -51,8 +53,10 @@ class GatedMILPool(nn.Module):
     :func:`fused_gated_mil_pool`: on a CUDA tensor the streaming kernel, with
     no [B, L, D] branch activations in device memory; on a CPU tensor its
     plain version. Few-token pools (the 6-token branches), other widths (the
-    JAX module's XLA fallback) and training (two dropout sites, no backward
-    kernel) take the eager branch.
+    JAX module's XLA fallback), training (two dropout sites, no backward
+    kernel) and bfloat16 activations (a bfloat16 compute dtype; the kernel
+    is float32-only, on the TPU too: one checkpoint scores alike in every
+    bucket) take the eager branch.
     """
 
     def __init__(self, dim: int, dropout_rate: float = 0.25):
@@ -66,7 +70,7 @@ class GatedMILPool(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         head = self.attention_head
-        if (not self.training and x.shape[1] > 32
+        if (not self.training and x.shape[1] > 32 and x.dtype == torch.float32
                 and milpool_supports(x.shape[2], head.attention_a.weight.shape[0], x.shape[1])):
             pooled, s = fused_gated_mil_pool(
                 x, mask, head.attention_a.weight.t(), head.attention_a.bias,
@@ -84,16 +88,18 @@ class GatedMILPool(nn.Module):
 
 
 class WSIEncoder(nn.Module):
-    """Patch-embedding FC: Linear(F -> d) + ReLU + Dropout."""
+    """Patch-embedding FC: Linear(F -> d) + ReLU + Dropout. With
+    ``wsi_scale`` and an int8 ``wsi`` (``tpu.int8_matmul``) the projection
+    takes the int8 route (``layers.w8a8_linear``)."""
 
     def __init__(self, in_dim: int, dim: int, dropout_rate: float = 0.25):
         super().__init__()
         self.fc = TorchLinear(in_dim, dim)
         self.drop = FastDropout(dropout_rate)
 
-    def forward(self, wsi: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.drop(F.relu(self.fc(wsi)), generator)
+    def forward(self, wsi: torch.Tensor, generator: Optional[torch.Generator] = None,
+                wsi_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.drop(F.relu(self.fc(wsi, wsi_scale)), generator)
 
 
 class OmicEncoderStack(nn.Module):
@@ -125,7 +131,9 @@ class OmicEncoderStack(nn.Module):
         x = torch.stack(
             [F.pad(o.float(), (0, max_s - o.shape[-1])) for o in omics], dim=1
         )  # [B, N, max_s]
-        h = torch.einsum("bns,nsd->bnd", x, self.fc1_kernel) + self.fc1_bias
+        h = torch.einsum("bns,nsd->bnd", cast(x, self), cast(self.fc1_kernel, self)) \
+            + cast(self.fc1_bias, self)
         h = self.drop1(F.elu(h), generator)
-        h = torch.einsum("bnd,nde->bne", h, self.fc2_kernel) + self.fc2_bias
+        h = torch.einsum("bnd,nde->bne", h, cast(self.fc2_kernel, self)) \
+            + cast(self.fc2_bias, self)
         return self.drop2(F.elu(h), generator)

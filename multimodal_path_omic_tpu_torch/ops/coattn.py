@@ -42,6 +42,21 @@ never NaN. (The TPU kernel pads M to its tile and spreads such a row over
 the padded length; the port, like the JAX package's plain attention_core,
 spreads it over exactly M.)
 
+bfloat16 (the compute dtype ``bfloat16``, ``ops/layers.py``): the fuse-K
+forward (both forms), the fuse-K backward and the export passes have
+bfloat16 instances (``_bf16`` entry points and launch counts; E = F and D in
+{128, 256}, ``BF16_EF`` / ``BF16_EXPORT_D``) that read bfloat16 q, kv, wk,
+bk (k for the export passes) and compute what the JAX kernels compute from
+bfloat16 tiles (``coattn.py:138-150, 186``): float32 sums, k rounded to
+bfloat16 after its projection, tanh(q) and tanh(k) rounded to bfloat16,
+pd . kv in float32, o (and dq, dkv) written in bfloat16, l, m, ssq, sumw,
+the weights, dwk and dbk in float32 (dwk and dbk then cast to wk's type, as
+``_coattn_fk_bwd`` does). The plain versions take bfloat16 inputs with the
+same roundings (:func:`_round_bf16`). No other kernel has a bfloat16
+instance: the predicates refuse bfloat16 there, and the dispatchers take
+``attention_core`` on the CPU and raise on the card (``kernels.takes``;
+ROADMAP queue 2 item 5).
+
 Attention dropout (training form) follows torch: weights are normalized
 first, then dropped and rescaled by ``1 / (1 - rate)``. The TPU kernel draws
 its bits from the TPU's own generator per (seed, tile); the port uses a
@@ -68,6 +83,10 @@ VALUES_D = (128, 256)  # D the plain-K kernels with values take
 # instances (csrc/coattn.cu launch_fused_k, csrc/coattn_bwd.cu MPO_BWD)
 FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
 EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
+# the bfloat16 instances: (E, F) of the fuse-K forward (both forms) and
+# backward, D of the export passes (csrc/coattn.cu, csrc/coattn_bwd.cu)
+BF16_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)})
+BF16_EXPORT_D = (128, 256)
 PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels (and the export passes): most main-pass blocks an SM
 TILE_LONE = 2  # flag of a bag without a valid key in the export passes' tile list
 
@@ -75,7 +94,14 @@ LAUNCH_COUNTS = {
     "coattn_fwd_fused_k": 0, "coattn_stats": 0, "coattn_weights": 0,
     "coattn_fwd_fused_k_train": 0, "coattn_bwd_fused_k": 0,
     "coattn_plain": 0, "coattn_plain_bwd": 0, "coattn_tiles": 0,
+    "coattn_fwd_fused_k_bf16": 0, "coattn_fwd_fused_k_train_bf16": 0,
+    "coattn_bwd_fused_k_bf16": 0, "coattn_stats_bf16": 0, "coattn_weights_bf16": 0,
 }
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    """The entry point and launch count suffix of a kernel instance's type."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def reset_launch_counts() -> None:
@@ -88,11 +114,28 @@ def reset_launch_counts() -> None:
 # =============================================================================
 
 
-def _scores(q, k, key_mask, pre_gate):
-    """[B, N, M] masked (pre-gated) scores, as the TPU kernel computes them."""
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values rounded to bfloat16 and kept in float32, the gradient
+    passed straight through: the bfloat16 kernels' roundings of k and of
+    tanh(q), tanh(k), whose backward uses the rounded values and no rounding
+    of the cotangent."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()
+
+
+def _rounding(dtype: torch.dtype):
+    """The rounding of an instance's type (None: float32, none)."""
+    return _round_bf16 if dtype == torch.bfloat16 else None
+
+
+def _scores(q, k, key_mask, pre_gate, rt=None):
+    """[B, N, M] masked (pre-gated) scores, as the TPU kernel computes them;
+    ``rt`` rounds tanh(q) and tanh(k) (the bfloat16 instances)."""
     s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if pre_gate:
-        gate = torch.matmul(torch.tanh(q), torch.tanh(k).transpose(-1, -2))
+        tq, tk = torch.tanh(q), torch.tanh(k)
+        if rt is not None:
+            tq, tk = rt(tq), rt(tk)
+        gate = torch.matmul(tq, tk.transpose(-1, -2))
         s = s * (gate + 1.0) * 0.5
     if key_mask is not None:
         s = torch.where(key_mask[:, None, :], s, torch.full_like(s, NEG))
@@ -104,14 +147,16 @@ def _inv(l):
 
 
 def coattn_stats_plain(q, k, key_mask=None, *, pre_gate=True):
-    s = _scores(q, k, key_mask, pre_gate)
+    """(l, m) float32; bfloat16 q, k with the bfloat16 instance's roundings."""
+    s = _scores(q.float(), k.float(), key_mask, pre_gate, _rounding(q.dtype))
     m = s.amax(dim=-1)
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     return l, m
 
 
 def coattn_weights_plain(q, k, key_mask, l, m, *, pre_gate=True):
-    s = _scores(q, k, key_mask, pre_gate)
+    """Weights float32, as :func:`coattn_stats_plain` takes q and k."""
+    s = _scores(q.float(), k.float(), key_mask, pre_gate, _rounding(q.dtype))
     return torch.exp(s - m[..., None]) * _inv(l)[..., None]
 
 
@@ -191,12 +236,14 @@ def dropout_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: bool):
+def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: bool,
+                             rt=None):
     """The plain-K form with values, training form: (o, l, m, ssq, sumw) with
     attention dropout at ``rate`` from :func:`dropout_bits` (``seed`` is read
     only when rate > 0); l sums the undropped weights, o, ssq and sumw use
-    the dropped ones. Differentiable (m is a constant shift)."""
-    s = _scores(q, k, key_mask, pre_gate)
+    the dropped ones. Differentiable (m is a constant shift). ``rt``: as in
+    :func:`_scores`."""
+    s = _scores(q, k, key_mask, pre_gate, rt)
     m = s.amax(dim=-1).detach()
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
@@ -220,14 +267,22 @@ def coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw, *
 
 def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
     """The fuse-K training form: the pre-gated plain-K form on
-    k = kv wk + bk with the raw kv as values."""
-    return coattn_fwd_plain_k_plain(q, torch.matmul(kv, wk) + bk, kv, key_mask, seed, rate,
-                                    pre_gate=True)
+    k = kv wk + bk with the raw kv as values. bfloat16 inputs: float32 math,
+    k and the tanh rounded to bfloat16, o returned in bfloat16."""
+    dt, rt = q.dtype, _rounding(q.dtype)
+    q, kv, wk, bk = (t.float() for t in (q, kv, wk, bk))
+    k = torch.matmul(kv, wk) + bk
+    if rt is not None:
+        k = rt(k)
+    o, l, m, ssq, sumw = coattn_fwd_plain_k_plain(q, k, kv, key_mask, seed, rate,
+                                                  pre_gate=True, rt=rt)
+    return o.to(dt), l, m, ssq, sumw
 
 
 def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw):
     """(dq, dkv, dwk, dbk): autograd through the plain training form, with
-    the cotangents of o, ssq and sumw."""
+    the cotangents of o, ssq and sumw; each in its input's type (bfloat16:
+    the float32 gradients rounded once)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, kv, wk, bk)]
         o, _, _, ssq, sumw = coattn_fwd_fused_k_train_plain(*ins, key_mask, seed, rate)
@@ -239,15 +294,22 @@ def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, ds
 # =============================================================================
 
 
-def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool) -> bool:
+def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool,
+                     dtype: torch.dtype = torch.float32) -> bool:
     """The shapes the fuse-K kernels take: 1..``MAX_QUERIES`` queries (one
-    warp each), M >= 1 keys, and E in ``EVAL_E`` with F % 16 == 0, F <= 1024
-    (eval form) or (E, F) in ``FUSED_K_TRAIN_EF`` (training form and
-    backward). The wrappers raise on a CUDA shape outside it;
-    ``MultiheadAttention`` routes such a shape off the lean-V branch (the JAX
-    package's ``leank_eligible``)."""
-    dims = (e, f) in FUSED_K_TRAIN_EF if train else (
-        e in EVAL_E and f % 16 == 0 and f <= 1024)
+    warp each), M >= 1 keys, and in float32 E in ``EVAL_E`` with F % 16 ==
+    0, F <= 1024 (eval form) or (E, F) in ``FUSED_K_TRAIN_EF`` (training
+    form and backward); in bfloat16 (E, F) in ``BF16_EF`` (every form). The
+    wrappers raise on a CUDA shape outside it; ``MultiheadAttention`` routes
+    such a shape off the lean-V branch (the JAX package's
+    ``leank_eligible``)."""
+    if dtype == torch.bfloat16:
+        dims = (e, f) in BF16_EF
+    elif dtype == torch.float32:
+        dims = (e, f) in FUSED_K_TRAIN_EF if train else (
+            e in EVAL_E and f % 16 == 0 and f <= 1024)
+    else:
+        dims = False
     return 1 <= n <= MAX_QUERIES and m_len >= 1 and dims
 
 
@@ -259,13 +321,21 @@ def leank_train_form(dropout_rate: float, need_ssq: bool, *tensors: torch.Tensor
         torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
 
-def plain_k_supports(n: int, d: int, m_len: int, *, values: bool) -> bool:
+def plain_k_supports(n: int, d: int, m_len: int, *, values: bool,
+                     dtype: torch.dtype = torch.float32) -> bool:
     """The shapes the plain-K kernels take: 1..``MAX_QUERIES`` queries, M >= 1
     keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
     ``values``, D in ``VALUES_D`` (the forward with values and its
-    backward). Shapes outside it take ``attention_core`` in the dispatchers
-    (the JAX package's ``kernel_eligible``)."""
-    dims = VALUES_D if values else (128, 256, 512)
+    backward), float32; in bfloat16 the export passes at D in
+    ``BF16_EXPORT_D`` and no forward with values. Shapes outside it take
+    ``attention_core`` in the dispatchers (the JAX package's
+    ``kernel_eligible``)."""
+    if dtype == torch.bfloat16:
+        dims = () if values else BF16_EXPORT_D
+    elif dtype == torch.float32:
+        dims = VALUES_D if values else (128, 256, 512)
+    else:
+        dims = ()
     return 1 <= n <= MAX_QUERIES and m_len >= 1 and d in dims
 
 
@@ -274,16 +344,25 @@ def _refuse(what: str, n: int, d: str) -> None:
                      f"1..{MAX_QUERIES}; {d})")
 
 
+def _require_type(q: torch.Tensor) -> None:
+    """The co-attention kernels have float32 and bfloat16 instances only."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+
+
 def _fused_k_checks(q, kv, wk, bk, key_mask, *, train: bool):
-    """Shapes and the mask pointer of the fuse-K kernels."""
+    """Shapes, types (q's, float32 or bfloat16, for all four) and the mask
+    pointer of the fuse-K kernels."""
     b, n, e = q.shape
     m_len, f = kv.shape[1], kv.shape[2]
-    if not fused_k_supports(n, e, f, m_len, train=train):
-        _refuse(f"fuse-K kernel{' (training)' if train else ''}", n, f"E={e}, F={f}, M={m_len}")
-    kernels.require(q, "q", (b, n, e))
-    kernels.require(kv, "kv", (b, m_len, f))
-    kernels.require(wk, "wk", (f, e))
-    kernels.require(bk, "bk", (e,))
+    _require_type(q)
+    if not fused_k_supports(n, e, f, m_len, train=train, dtype=q.dtype):
+        _refuse(f"fuse-K kernel{' (training)' if train else ''}", n,
+                f"E={e}, F={f}, M={m_len}, {q.dtype}")
+    kernels.require(q, "q", (b, n, e), q.dtype)
+    kernels.require(kv, "kv", (b, m_len, f), q.dtype)
+    kernels.require(wk, "wk", (f, e), q.dtype)
+    kernels.require(bk, "bk", (e,), q.dtype)
     return b, n, e, m_len, f, kernels.mask_ptr(key_mask, b, m_len, q.device)
 
 
@@ -301,8 +380,9 @@ def coattn_fwd_fused_k(
     key_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """q [B, N, E], kv [B, M, F], wk [F, E], bk [E], key_mask [B, M] bool ->
-    (o [B, N, F], l [B, N], m [B, N], sumw [B, N]). Kernel: E in
-    {128, 256, 512}, F % 16 == 0 and F <= 1024, N <= 8, float32."""
+    (o [B, N, F] in q's type, l [B, N], m [B, N], sumw [B, N]). Kernel: E
+    in {128, 256, 512}, F % 16 == 0 and F <= 1024, N <= 8, float32; or
+    bfloat16 at (E, F) in ``BF16_EF``."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_plain(q, kv, wk, bk, key_mask)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=False)
@@ -310,19 +390,20 @@ def coattn_fwd_fused_k(
     # one block an SM over the 64-key tiles that hold a valid key (or every
     # tile of a bag without one), each writing a partial per bag it visits
     blocks = kernels.sm_count(dev)
-    o = torch.empty((b, n, f), device=dev)
+    o = torch.empty((b, n, f), device=dev, dtype=q.dtype)
     l, m, sumw = (torch.empty((b, n), device=dev) for _ in range(3))
     o_part = torch.empty((blocks + b, n, f), device=dev)
     ml_part = torch.empty((blocks + b, n, 2), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    err = kernels.library("coattn").mpo_coattn_fwd_fused_k(
+    sfx = _suffix(q.dtype)
+    err = getattr(kernels.library("coattn"), "mpo_coattn_fwd_fused_k" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), sumw.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(), flags.data_ptr(), units.data_ptr(),
         offsets.data_ptr(), b, n, m_len, f, e, blocks, 1.0 / math.sqrt(e), kernels.stream(dev),
     )
-    kernels.check(err, "coattn_fwd_fused_k")
-    LAUNCH_COUNTS["coattn_fwd_fused_k"] += 1
+    kernels.check(err, "coattn_fwd_fused_k" + sfx)
+    LAUNCH_COUNTS["coattn_fwd_fused_k" + sfx] += 1
     return o, l, m, sumw
 
 
@@ -344,27 +425,28 @@ def coattn_fwd_fused_k_train(
     :func:`coattn_fwd_fused_k`, plus ``seed`` (a [1] int32 tensor on the
     same device) and the attention-dropout ``rate`` -> (o [B, N, F], l, m,
     ssq, sumw [B, N]). Kernel: (E, F) in ``FUSED_K_TRAIN_EF``, N <= 8,
-    float32."""
+    float32; or bfloat16 at (E, F) in ``BF16_EF`` (o in bfloat16)."""
     if q.device.type == "cpu":
         return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
     blocks = kernels.sm_count(dev)  # the eval form's grid
-    o = torch.empty((b, n, f), device=dev)
+    o = torch.empty((b, n, f), device=dev, dtype=q.dtype)
     l, m, ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(4))
     o_part = torch.empty((blocks + b, n, f), device=dev)
     ml_part, sq_part = (torch.empty((blocks + b, n, 2), device=dev) for _ in range(2))
     flags, units, offsets = _tile_list(b, m_len, dev)
-    err = kernels.library("coattn").mpo_coattn_fwd_fused_k_train(
+    sfx = _suffix(q.dtype)
+    err = getattr(kernels.library("coattn"), "mpo_coattn_fwd_fused_k_train" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(), flags.data_ptr(),
         units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e, blocks, 1.0 / math.sqrt(e),
         thresh, keep_scale, kernels.stream(dev),
     )
-    kernels.check(err, "coattn_fwd_fused_k_train")
-    LAUNCH_COUNTS["coattn_fwd_fused_k_train"] += 1
+    kernels.check(err, "coattn_fwd_fused_k_train" + sfx)
+    LAUNCH_COUNTS["coattn_fwd_fused_k_train" + sfx] += 1
     return o, l, m, ssq, sumw
 
 
@@ -379,13 +461,15 @@ def coattn_bwd_fused_k(
     dssq, dsumw [B, N], the forward's l, m and
     di = rowsum(o * dout) + 2 dssq ssq + dsumw sumw [B, N] (the plain
     version recomputes what it needs and takes no l, m, di). Kernel: (E, F)
-    in ``FUSED_K_TRAIN_EF``, N <= 8, float32."""
+    in ``FUSED_K_TRAIN_EF``, N <= 8, float32; or bfloat16 at (E, F) in
+    ``BF16_EF`` (dout, dq, dkv in bfloat16; dwk, dbk summed in float32 and
+    cast to wk's type, as ``_coattn_fk_bwd`` casts them)."""
     if q.device.type == "cpu":
         return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
-    kernels.require(dout, "dout", (b, n, f))
+    kernels.require(dout, "dout", (b, n, f), q.dtype)
     for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
         kernels.require(t, name, (b, n))
     # One block an SM shares out the 64-key tiles that hold a valid key (or
@@ -394,8 +478,8 @@ def coattn_bwd_fused_k(
     # tiles), each writing one partial.
     sms = kernels.sm_count(dev)
     wsplits = max(1, sms // ((f // 128) * (e // 128)))
-    dq = torch.empty((b, n, e), device=dev)
-    dkv = torch.empty((b, m_len, f), device=dev)
+    dq = torch.empty((b, n, e), device=dev, dtype=q.dtype)
+    dkv = torch.empty((b, m_len, f), device=dev, dtype=q.dtype)
     dwk = torch.empty((f, e), device=dev)
     dbk = torch.empty((e,), device=dev)
     dq_part = torch.empty((sms + b, n, e), device=dev)
@@ -403,7 +487,8 @@ def coattn_bwd_fused_k(
     dbk_part = torch.empty((sms, e), device=dev)
     dk_scratch = torch.empty((b, m_len, e), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    err = kernels.library("coattn_bwd").mpo_coattn_bwd_fused_k(
+    sfx = _suffix(q.dtype)
+    err = getattr(kernels.library("coattn_bwd"), "mpo_coattn_bwd_fused_k" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
@@ -411,9 +496,9 @@ def coattn_bwd_fused_k(
         flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e,
         sms, wsplits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
     )
-    kernels.check(err, "coattn_bwd_fused_k")
-    LAUNCH_COUNTS["coattn_bwd_fused_k"] += 1
-    return dq, dkv, dwk, dbk
+    kernels.check(err, "coattn_bwd_fused_k" + sfx)
+    LAUNCH_COUNTS["coattn_bwd_fused_k" + sfx] += 1
+    return dq, dkv, dwk.to(wk.dtype), dbk.to(bk.dtype)
 
 
 class FusedKTrain(torch.autograd.Function):
@@ -432,7 +517,7 @@ class FusedKTrain(torch.autograd.Function):
     def backward(ctx, dout, dssq, dsumw):
         q, kv, wk, bk, key_mask, seed, o, l, m, ssq, sumw = ctx.saved_tensors
         dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
-        di = (o * dout).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
+        di = (o.float() * dout.float()).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
         grads = coattn_bwd_fused_k(q, kv, wk, bk, key_mask, seed, ctx.rate, dout, l, m,
                                    di, dssq, dsumw)
         return (*grads, None, None, None)
@@ -441,10 +526,12 @@ class FusedKTrain(torch.autograd.Function):
 def _plain_k_checks(q, k, *, values: bool = False):
     b, n, d = q.shape
     m_len = k.shape[1]
-    if not plain_k_supports(n, d, m_len, values=values):
-        _refuse(f"plain-K kernels{' with values' if values else ''}", n, f"D={d}, M={m_len}")
-    kernels.require(q, "q", (b, n, d))
-    kernels.require(k, "k", (b, m_len, d))
+    _require_type(q)
+    if not plain_k_supports(n, d, m_len, values=values, dtype=q.dtype):
+        _refuse(f"plain-K kernels{' with values' if values else ''}", n,
+                f"D={d}, M={m_len}, {q.dtype}")
+    kernels.require(q, "q", (b, n, d), q.dtype)
+    kernels.require(k, "k", (b, m_len, d), q.dtype)
     return b, n, d, m_len
 
 
@@ -483,13 +570,14 @@ def _stats_on_card(q, k, key_mask, pre_gate):
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
     ml_part = torch.empty((blocks + b, n, 2), device=dev)
     tiles = _tile_list(b, m_len, dev)
-    err = kernels.library("coattn").mpo_coattn_stats(
+    sfx = _suffix(q.dtype)
+    err = getattr(kernels.library("coattn"), "mpo_coattn_stats" + sfx)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), ml_part.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks,
         1.0 / math.sqrt(d), kernels.stream(dev),
     )
-    kernels.check(err, "coattn_stats")
-    LAUNCH_COUNTS["coattn_stats"] += 1
+    kernels.check(err, "coattn_stats" + sfx)
+    LAUNCH_COUNTS["coattn_stats" + sfx] += 1
     return l, m, tiles
 
 
@@ -503,13 +591,14 @@ def _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles=None):
     w = torch.empty((b, n, m_len), device=dev)
     ready = tiles is not None
     tiles = tiles if ready else _tile_list(b, m_len, dev)
-    err = kernels.library("coattn").mpo_coattn_weights(
+    sfx = _suffix(q.dtype)
+    err = getattr(kernels.library("coattn"), "mpo_coattn_weights" + sfx)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), w.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks, int(ready),
         1.0 / math.sqrt(d), kernels.stream(dev),
     )
-    kernels.check(err, "coattn_weights")
-    LAUNCH_COUNTS["coattn_weights"] += 1
+    kernels.check(err, "coattn_weights" + sfx)
+    LAUNCH_COUNTS["coattn_weights" + sfx] += 1
     return w
 
 
@@ -518,8 +607,9 @@ def coattn_stats(
     *, pre_gate: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Export pass 1: q [B, N, D], k [B, M, D] -> (l [B, N], m [B, N]), the
-    softmax normalizer and row max of the masked (pre-gated) scores. Kernel:
-    D in {128, 256, 512}, N <= 8, float32."""
+    softmax normalizer and row max of the masked (pre-gated) scores, float32.
+    Kernel: D in {128, 256, 512}, N <= 8, float32; or bfloat16 q, k at D in
+    ``BF16_EXPORT_D``."""
     if q.device.type == "cpu":
         return coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
     return _stats_on_card(q, k, key_mask, pre_gate)[:2]
@@ -529,7 +619,8 @@ def coattn_weights(
     q: torch.Tensor, k: torch.Tensor, key_mask: Optional[torch.Tensor],
     l: torch.Tensor, m: torch.Tensor, *, pre_gate: bool = True,
 ) -> torch.Tensor:
-    """Export pass 2: normalized weights w [B, N, M] = exp(s - m) / l."""
+    """Export pass 2: normalized weights w [B, N, M] = exp(s - m) / l,
+    float32 (q, k as :func:`coattn_stats` takes them)."""
     if q.device.type == "cpu":
         return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
     return _weights_on_card(q, k, key_mask, l, m, pre_gate)
@@ -772,10 +863,12 @@ def attention_with_weights(
     """(out [B, H, N, D], weights [B, H, N, M]) for need_weights=True:
     weights from the two-pass emission, out as one matmul over them (out and
     weights exactly consistent); ``attention_core`` on a shape the kernels do
-    not take (:func:`plain_k_supports`)."""
+    not take (:func:`plain_k_supports`; ``kernels.takes`` raises on the card
+    for a bfloat16 shape that only the float32 kernels take)."""
     b, h, n, d = q.shape
     m_len = k.shape[2]
-    if not plain_k_supports(n, d, m_len, values=False):  # JAX: not kernel_eligible
+    if not kernels.takes("export", plain_k_supports, q.device, n, d, m_len, values=False,
+                         dtype=q.dtype):  # JAX: not kernel_eligible
         from multimodal_path_omic_tpu_torch.ops.attention import attention_core
 
         return attention_core(q, k, v, key_mask, pre_gate=pre_gate, need_weights=True)
@@ -785,4 +878,6 @@ def attention_with_weights(
     if key_mask is not None and h > 1:
         mf = key_mask.repeat_interleave(h, dim=0)
     w = coattention_weights(qf, kf, mf, pre_gate=pre_gate).reshape(b, h, n, m_len)
-    return torch.matmul(w, v), w
+    # float32 weights against v in float32, out in q's type (JAX: the einsum
+    # promotes, then astype(q.dtype))
+    return torch.matmul(w, v.float()).to(q.dtype), w

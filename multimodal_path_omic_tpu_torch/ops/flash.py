@@ -129,13 +129,14 @@ def flash_attention_bwd_plain(q, k, v, key_mask, out, m, l, dout,
 # ---------------------------------------------------------------------------
 
 
-def supports(b: int, h: int, l: int, d: int) -> bool:
+def supports(b: int, h: int, l: int, d: int, *, dtype: torch.dtype = torch.float32) -> bool:
     """The shapes the kernels take, [B, H, L, D] for q, k and v alike: a head
-    width with an instance, L >= 1, B * H <= 65535 (the grid's y). The
-    modules take :func:`flash_attention` only where this holds and
-    ``attention_core`` elsewhere, as the JAX dispatcher takes ``_xla_fused``
-    where ``flash.supported`` says no."""
-    return d in HEAD_DIMS and l >= 1 and 1 <= b * h <= 65535
+    width with an instance, L >= 1, B * H <= 65535 (the grid's y), float32
+    (no bfloat16 instance yet: ROADMAP queue 2 item 5). The modules take
+    :func:`flash_attention` only where this holds and ``attention_core``
+    elsewhere, as the JAX dispatcher takes ``_xla_fused`` where
+    ``flash.supported`` says no."""
+    return dtype == torch.float32 and d in HEAD_DIMS and l >= 1 and 1 <= b * h <= 65535
 
 
 def _check_qkv(q, k, v, key_mask):

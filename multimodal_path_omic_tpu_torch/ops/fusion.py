@@ -1,7 +1,7 @@
 """Late-fusion heads (``multimodal_path_omic_tpu/ops/fusion.py``); inputs
 are batched ``[B, dim_i]`` vectors. Every head takes ``generator=`` (the
 dropout bits of :class:`BilinearFusion` in training mode; the others have no
-dropout site)."""
+dropout site). Each head computes in its ``compute_dtype`` (``ops/layers.py``)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_path_omic_tpu_torch.ops.layers import FastDropout, TorchLinear
+from multimodal_path_omic_tpu_torch.ops.layers import FastDropout, TorchLinear, cast
 
 
 class ConcatFusion(nn.Module):
@@ -76,7 +76,7 @@ class GatedConcatFusion(nn.Module):
             if self.bug_compat:
                 kernel = _ZeroGrad.apply(getattr(self, f"gate_{i}_kernel"))
                 bias = _ZeroGrad.apply(getattr(self, f"gate_{i}_bias"))
-                g = torch.sigmoid(item @ kernel + bias)
+                g = torch.sigmoid(cast(item, self) @ cast(kernel, self) + cast(bias, self))
             else:
                 g = torch.sigmoid(getattr(self, f"gate_{i}")(item))
             gated.append(item * g)
@@ -95,7 +95,8 @@ class Bilinear(nn.Module):
         self.bias = nn.Parameter(torch.empty(features).uniform_(-k, k))
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("...i,kij,...j->...k", x1, self.weight, x2) + self.bias
+        return torch.einsum("...i,kij,...j->...k", cast(x1, self), cast(self.weight, self),
+                            cast(x2, self)) + cast(self.bias, self)
 
 
 def _normal_linear(in_size: int, out_size: int) -> TorchLinear:

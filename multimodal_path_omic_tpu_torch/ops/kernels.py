@@ -51,6 +51,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "mpo_coattn_bwd_fused_k": [_P] * 23 + [_I] * 7 + [_F, _U, _F, _P],
         "mpo_coattn_plain_bwd": [_P] * 18 + [_I] * 6 + [_F, _U, _F, _P],
     },
+}
+# the bfloat16 instances: the same arguments as their float32 entry points
+for _lib, _names in (("coattn", ("mpo_coattn_fwd_fused_k", "mpo_coattn_fwd_fused_k_train",
+                                 "mpo_coattn_stats", "mpo_coattn_weights")),
+                     ("coattn_bwd", ("mpo_coattn_bwd_fused_k",))):
+    for _name in _names:
+        SIGNATURES[_lib][_name + "_bf16"] = SIGNATURES[_lib][_name]
+SIGNATURES.update({
     "milpool": {
         "mpo_milpool": [_P] * 10 + [_I] * 5 + [_P],
     },
@@ -63,7 +71,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "gather": {
         "mpo_gather_rows": [_P] * 3 + [_L] * 2 + [_I, _P],
     },
-}
+})
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -177,6 +185,22 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32, *,
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16 != 0:
         raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+
+
+def takes(what: str, supports, device, *shape, dtype: torch.dtype, **kw) -> bool:
+    """Whether the kernel ``what`` takes ``shape`` in ``dtype``, by its
+    predicate ``supports``. A bfloat16 shape that the kernel takes in float32
+    but no bfloat16 instance takes raises on the card, so that no plain
+    version stands in for the kernel there (ROADMAP.md queue 2 item 5); on
+    the CPU such a shape takes the plain route, as the predicate says."""
+    if supports(*shape, dtype=dtype, **kw):
+        return True
+    if (dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and supports(*shape, **kw)):
+        raise NotImplementedError(
+            f"{what} kernel at shape {shape} {kw or ''}: no bfloat16 instance yet, and the "
+            "card runs no plain version in its place (ROADMAP.md queue 2 item 5)")
+    return False
 
 
 def mask_ptr(key_mask: Optional[torch.Tensor], b: int, m_len: int, device) -> Optional[int]:

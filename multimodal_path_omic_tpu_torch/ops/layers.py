@@ -3,13 +3,22 @@
 
 Dropout draws its bits from a ``torch.Generator`` the caller passes in (the
 trainer owns one); the bits cannot match JAX's generator, only the keep rule
-and the formulas do."""
+and the formulas do.
+
+Compute dtype: every module of the port reads its ``compute_dtype``
+attribute (None: float32, the default), set on a whole model by
+:func:`set_compute_dtype` (``models.build_model(..., dtype=)``), as the JAX
+modules carry ``dtype``. Parameters stay float32; each is cast to the
+compute dtype where it is used (:func:`cast`), so its gradient comes back in
+float32.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # Large-negative (finite) masking constant, as in the JAX package: -inf would
@@ -17,14 +26,124 @@ from torch import nn
 NEG_INF = -1e9
 
 
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Set ``compute_dtype`` on ``module`` and every submodule (None or
+    float32: float32; bfloat16). Returns ``module``."""
+    dtype = None if dtype in (None, torch.float32) else dtype
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    for m in module.modules():
+        m.compute_dtype = dtype
+    return module
+
+
+def compute_dtype_of(module: nn.Module) -> torch.dtype:
+    """A module's compute dtype (float32 unless set)."""
+    return getattr(module, "compute_dtype", None) or torch.float32
+
+
+def cast(x: Optional[torch.Tensor], module: nn.Module) -> Optional[torch.Tensor]:
+    """``x`` in ``module``'s compute dtype (the JAX modules'
+    ``x.astype(self.dtype)``; a no-op when it already is)."""
+    return None if x is None else x.to(compute_dtype_of(module))
+
+
+def quantize_cols_int8(w: torch.Tensor):
+    """Symmetric per-column int8 quantization of an [F, E] kernel: one scale
+    per output feature (the contraction axis F is reduced, so the scales
+    factor out of the product exactly). -> (q int8 [F, E], scale float32 [E])."""
+    amax = w.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).float()
+    q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int_mm_supports(rows: int, f: int, e: int) -> bool:
+    """The shapes ``torch._int_mm`` takes on the card: more than 16 rows,
+    and the inner (F) and outer (E) widths multiples of 8."""
+    return rows > 16 and f > 0 and f % 8 == 0 and e % 8 == 0
+
+
+class W8A8Linear(torch.autograd.Function):
+    """First-layer Linear on int8 activations (JAX ``w8a8_linear``).
+
+    ``q`` [..., F] int8 per-row-quantized activations with ``row_scale``
+    [...] (the device cache's format, ``data/quant.py``), ``weight`` [E, F]
+    (torch layout) and ``bias`` [E] float. The forward quantizes the kernel
+    per column and runs ``s8 x s8 -> s32`` (``torch._int_mm``), dequantizing
+    after the product: y = (q @ qk) * (row_scale x col_scale) + bias, in
+    ``dtype``. A plain product, as the JAX package computes it outside
+    Pallas (``lax.dot_general``). On the card a shape ``_int_mm`` refuses
+    (:func:`int_mm_supports`) raises; it is never quietly dequantized.
+
+    Backward: the input is data, so it gets no gradient; dW =
+    dequant(q)^T dy and db = sum(dy), straight through the kernel's own
+    quantization (as if the float kernel had been used)."""
+
+    @staticmethod
+    def forward(ctx, q, row_scale, weight, bias, dtype):
+        f, e = q.shape[-1], weight.shape[0]
+        q2 = q.reshape(-1, f)
+        if q.device.type == "cuda" and not int_mm_supports(q2.shape[0], f, e):
+            raise ValueError(f"w8a8_linear: torch._int_mm takes more than 16 rows and F, E "
+                             f"multiples of 8; got {q2.shape[0]} rows, F={f}, E={e}")
+        qk, col_scale = quantize_cols_int8(weight.float().t())
+        # mat2 column-major (the weight's own [E, F] rows), as cuBLASLt's
+        # int8 products take it
+        acc = torch._int_mm(q2.contiguous(), qk.t().contiguous().t())
+        y = acc.float() * (row_scale.reshape(-1, 1).float() * col_scale)
+        y = y.to(dtype) + bias.to(dtype)
+        ctx.save_for_backward(q, row_scale)
+        ctx.dtype = dtype
+        return y.reshape(*q.shape[:-1], e)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, row_scale = ctx.saved_tensors
+        x2 = (q.to(ctx.dtype) * row_scale[..., None].to(ctx.dtype)).reshape(-1, q.shape[-1])
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dw = torch.matmul(dy2.t().float(), x2.float())  # [E, F], float32 accumulation
+        db = dy2.float().sum(dim=0)
+        return None, None, dw, db, None
+
+
+def w8a8_linear(q: torch.Tensor, row_scale: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:class:`W8A8Linear` (``dtype`` None: float32)."""
+    return W8A8Linear.apply(q, row_scale, weight, bias, dtype or torch.float32)
+
+
 class TorchLinear(nn.Linear):
-    """``nn.Linear`` with torch's default init.
+    """``nn.Linear`` with torch's default init, computing in the module's
+    ``compute_dtype`` (input, weight and bias cast where used).
 
     The weight keeps torch's ``[out, in]`` layout; the JAX package's flax
     kernels are ``[in, out]``, so the weight bridge (``utils/weights.py``)
-    transposes them. The int8 ``row_scale`` route of the JAX layer belongs
-    to a later slice.
+    transposes them. ``row_scale`` with an int8 ``x``: the int8 route
+    (:func:`w8a8_linear`), the [..., F] float activation never formed.
     """
+
+    def forward(self, x: torch.Tensor, row_scale: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        dt = compute_dtype_of(self)
+        if row_scale is not None and x.dtype == torch.int8:
+            bias = self.bias if self.bias is not None else torch.zeros(
+                self.out_features, device=x.device)
+            return w8a8_linear(x, row_scale, self.weight, bias, dt)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in float32 and returning the module's
+    compute dtype (flax's ``LayerNorm(dtype=)``: statistics in float32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype_of(self)
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(dt)
 
 
 def fast_keep_mask(generator: torch.Generator, rate: float, shape, device):

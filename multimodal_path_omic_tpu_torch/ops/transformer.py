@@ -3,7 +3,8 @@
 1e-5, ReLU feed-forward, dropout on the attention weights, the attention
 output, inside the feed-forward and on its output (training mode, drawn from
 the ``generator`` passed to ``forward``). Input [B, L, D] with an optional
-mask [B, L]."""
+mask [B, L]. LayerNorm computes its statistics in float32 under a
+bfloat16 compute dtype (``ops/layers.py::LayerNorm``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
-from multimodal_path_omic_tpu_torch.ops.layers import FastDropout, TorchLinear
+from multimodal_path_omic_tpu_torch.ops.layers import FastDropout, LayerNorm, TorchLinear
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -22,10 +23,10 @@ class TransformerEncoderLayer(nn.Module):
                  dropout_rate: float = 0.25):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead, dropout_rate=dropout_rate)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = TorchLinear(d_model, dim_feedforward)
         self.linear2 = TorchLinear(dim_feedforward, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.drop_attn = FastDropout(dropout_rate)
         self.drop_ff = FastDropout(dropout_rate)
         self.drop_out = FastDropout(dropout_rate)

@@ -15,8 +15,9 @@ bags of 500 1024-wide patches padded to the 512 bucket, six omic groups of
 weights from seed 0. Each call is one multi-step of K steps over a
 [K, 32, ...] batch (``make_multi_train_step``; one batch repeated, as in
 ``bench.py``), timed graphed and eager; the best of several windows. One JSON line per model, MCAT last
-(``mcat_train_bags_per_sec``). The port trains in float32 (``bench.py``
-feeds the TPU bf16 patches).
+(``mcat_train_bags_per_sec``). The patches are fed in bfloat16, as
+``bench.py`` feeds them (``bench.py:73-80``); the models compute in float32
+(their first layer casts the patches).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def benchmark_training(config, epochs: int = 5, warmup: int = 1, validate: bool 
         "warmup_epochs": warmup,
         "timed_epochs": epochs,
         "device_cache": bool(cache_engaged),
-        "cache_dtype": "float32" if cache_engaged else None,
+        "cache_dtype": trainer.cache_dtype if cache_engaged else None,
         "cache_upload_s": round(upload_s, 3),
         "steps_per_dispatch": trainer.steps_per_dispatch,
         "batch_size": trainer.batch_size,
@@ -120,17 +121,21 @@ def headline_batch(device, ge_mode: bool, k: int) -> Dict[str, Any]:
             [rng.normal(size=(BATCH, s)).astype(np.float32) for s in OMIC_SIZES], axis=1)
         batch["censorship"] = rng.integers(0, 2, BATCH).astype(np.float32)
         batch["survival_months"] = rng.uniform(1, 100, BATCH).astype(np.float32)
-    return {key: torch.from_numpy(v).to(device).expand((k,) + v.shape)
-            for key, v in batch.items()}
+    out = {key: torch.from_numpy(v).to(device) for key, v in batch.items()}
+    out["wsi"] = out["wsi"].to(torch.bfloat16)  # bench.py's bfloat16 feed
+    return {key: t.expand((k,) + t.shape) for key, t in out.items()}
 
 
 def _bags_per_sec(step, state, stacked, k: int, n_calls: int, n_windows: int,
                   device) -> float:
     for _ in range(2):  # warm-up: the kernels' build, the graph's capture
         state, metrics = step(state, stacked)
-        # one batch over and over (as bench.py trains) overfits: its loss
-        # falls toward 0 and can leave the float range after some hundred
-        # steps, so only the warm-up's losses are held finite
+        # one batch over and over (as bench.py trains) overfits: censored
+        # rows are driven toward S_y = 1, where the censored term
+        # (1 - c) * log(1 - S_y) of cross_entropy_survival is 0 * (-inf) =
+        # NaN once S_y rounds to 1.0 in float32. The port keeps that term as
+        # the JAX package and the reference have it, on purpose (parity), so
+        # only the warm-up's losses are held finite
         if not bool(torch.isfinite(metrics.loss).all()):
             raise FloatingPointError("a headline training loss is not finite")
     best = 0.0

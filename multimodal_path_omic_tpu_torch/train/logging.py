@@ -1,12 +1,13 @@
-"""Observability: a JSONL run log and step timing
-(``multimodal_path_omic_tpu/train/logging.py``).
+"""Observability: stdout metrics, optional wandb, a JSONL run log and step
+timing (``multimodal_path_omic_tpu/train/logging.py``).
 
 The reference logs per-epoch train/val loss + c-index to stdout and wandb
 (reference: mcat/main.py:85-87, 101-103, 153-155, 186-215) and prints a
 per-50-batch speed figure with a /32-vs-50 divisor bug (mcat/main.py:63-68;
 fixed here: the timer divides by the window's own length). A JSONL sink
-records the run. wandb is not ported: ``wandb.enabled`` is refused by
-``config.require_supported`` (ROADMAP.md queue 1, the Trainer's rest).
+records the run. With ``wandb_enabled`` the metrics also go to a wandb run:
+``wandb`` is imported only then, and its absence raises ``ImportError``
+(no run is silently dropped).
 """
 
 from __future__ import annotations
@@ -18,14 +19,30 @@ from typing import Any, Dict, Optional
 
 
 class MetricLogger:
-    def __init__(self, *, jsonl_path: Optional[str] = None):
+    def __init__(self, *, wandb_enabled: bool = False, wandb_project: str = "",
+                 wandb_config: Optional[Dict[str, Any]] = None,
+                 jsonl_path: Optional[str] = None):
         self._jsonl = None
         if jsonl_path:
             os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
             self._jsonl = open(jsonl_path, "a")
+        self._wandb = None
+        if wandb_enabled:
+            try:
+                import wandb
+            except ImportError as exc:
+                raise ImportError("wandb.enabled is set but the wandb package is not "
+                                  "installed: install it or set wandb.enabled: false") from exc
+            os.environ.setdefault("WANDB__SERVICE_WAIT", "300")
+            wandb.init(project=wandb_project, settings=wandb.Settings(init_timeout=300),
+                       config=wandb_config or {})
+            self._wandb = wandb
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
-        # epochs run after finish() must not crash on a closed sink
+        # epochs run after finish() must not crash on a finished run or a
+        # closed sink
+        if self._wandb is not None and getattr(self._wandb, "run", None) is not None:
+            self._wandb.log(metrics, step=step)
         if self._jsonl is not None and not self._jsonl.closed:
             rec = dict(metrics)
             if step is not None:
@@ -35,6 +52,8 @@ class MetricLogger:
             self._jsonl.flush()
 
     def finish(self):
+        if self._wandb is not None:
+            self._wandb.finish()
         if self._jsonl is not None:
             self._jsonl.close()
 

@@ -30,6 +30,13 @@ model's device, seeded once: every dropout mask of a step, and the
 co-attention kernel's int32 seed (one per chunk), come from it, as do the
 ``patch_dropout`` draws. Those differ from the JAX step's draw for draw
 (another generator), as every dropout mask does.
+
+Reduced precision: a batch whose wsi is int8 carries its row scales
+(``wsi_scale``, ``data/quant.py``) and is dequantized inside the step,
+straight to the model's compute dtype (:func:`dequant_wsi`); with
+``int8_matmul`` a training step keeps the int8 wsi into the WSI encoder's
+first layer (``ops/layers.py::w8a8_linear``). Eval always dequantizes. A
+bfloat16 wsi goes to the model as it is (its first layer casts it).
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from multimodal_path_omic_tpu_torch.data.quant import dequantize
 from multimodal_path_omic_tpu_torch.ops.gather import take_rows
+from multimodal_path_omic_tpu_torch.ops.layers import compute_dtype_of
 from multimodal_path_omic_tpu_torch.ops.losses import (
     cross_entropy_on_probs,
     l1_reg,
@@ -94,6 +103,19 @@ def _unpack_omics(batch: Dict[str, Any], omic_sizes: Optional[Sequence[int]]):
     return list(torch.split(batch["omics_packed"], [int(s) for s in omic_sizes], dim=1))
 
 
+def dequant_wsi(batch: Dict[str, Any], dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, Any]:
+    """The batch with an int8 wsi dequantized by its ``wsi_scale``, straight
+    to ``dtype`` (the model's compute dtype: q in [-127, 127] is exact in
+    bfloat16, and the product rounds once), ``wsi_scale`` dropped; a float
+    batch as it is (JAX ``_dequant_wsi``)."""
+    if "wsi_scale" not in batch:
+        return batch
+    batch = dict(batch)
+    batch["wsi"] = dequantize(batch["wsi"], batch.pop("wsi_scale"), dtype)
+    return batch
+
+
 def _graphs_for(graphs: Union[bool, StepGraphs]) -> Callable[[torch.device], Any]:
     """The step's :class:`StepGraphs` on a device (None: eager), resolved
     once per device on first use."""
@@ -111,7 +133,8 @@ def make_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
-    patch_dropout: float = 0.0, graphs: Union[bool, StepGraphs] = True,
+    patch_dropout: float = 0.0, int8_matmul: bool = False,
+    graphs: Union[bool, StepGraphs] = True,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, batch) -> (state, metrics)``, graphed on the card
     (``graphs``, see the module doc). Batch fields (tensors on
@@ -132,10 +155,14 @@ def make_train_step(
 
     ``patch_dropout`` > 0 hides that share of each bag's real patches from
     the chunk's forward (a fresh draw per chunk from the state's generator);
-    a bag whose real patches were all hidden keeps its full mask."""
+    a bag whose real patches were all hidden keeps its full mask.
+
+    An int8 wsi with its ``wsi_scale`` [B, M] is dequantized in the step
+    (:func:`dequant_wsi`); ``int8_matmul`` keeps it int8 into the first
+    layer instead (``tpu.int8_matmul``)."""
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul)
     get_graphs = _graphs_for(graphs)
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
@@ -151,7 +178,8 @@ def make_train_step(
 
 def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alpha: float,
               l1_lambda: float, patch_budget: Optional[int], ge_mode: bool,
-              omic_sizes: Optional[Sequence[int]], patch_dropout: float):
+              omic_sizes: Optional[Sequence[int]], patch_dropout: float,
+              int8_matmul: bool = False):
     """The eager train step of :func:`make_train_step`."""
     # cesar needs only the penalty, not the map: "ssq" keeps the model on the
     # fused kernels
@@ -161,7 +189,9 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         model.train()
-        wsi = batch["wsi"]
+        if not int8_matmul:
+            batch = dequant_wsi(batch, compute_dtype_of(model))
+        wsi, wsi_scale = batch["wsi"], batch.get("wsi_scale")
         b, m_len = wsi.shape[0], wsi.shape[1]
         accum = accumulation_chunks(b, m_len, patch_budget, loss_name)
         chunk = b // accum
@@ -181,13 +211,15 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
             mask = batch["mask"][sl]
             if patch_dropout:
                 mask = drop_patches(mask, patch_dropout, state.generator)
+            scale = None if wsi_scale is None else wsi_scale[sl]
             if ge_mode:
-                y, _ = model(wsi[sl], mask, generator=state.generator)
+                y, _ = model(wsi[sl], mask, generator=state.generator, wsi_scale=scale)
                 loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
                 attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
             else:
                 out = model(wsi[sl], [o[sl] for o in omics], mask,
-                            need_attention=need_attention, generator=state.generator)
+                            need_attention=need_attention, generator=state.generator,
+                            wsi_scale=scale)
                 loss, attn_loss = survival_loss(
                     loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
                     None if months is None else months[sl],
@@ -235,7 +267,8 @@ def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor],
     (bucket-local), the mask at the same positions and the label / omics
     columns at ``meta['row']`` (dataset rows) by ``index_select``. ``meta``
     holds device tensors (:func:`meta_on`): nothing crosses from the host
-    inside the step."""
+    inside the step. An int8 cache's ``wsi_scale`` rows come along at
+    ``pos``."""
     pos, row = meta["pos"], meta["row"]
     batch = {
         "wsi": take_rows(cache["wsi"], pos),
@@ -243,6 +276,8 @@ def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor],
         "weight": meta["weight"],
         "label": cache["label"].index_select(0, row),
     }
+    if "wsi_scale" in cache:
+        batch["wsi_scale"] = cache["wsi_scale"].index_select(0, pos)
     if not ge_mode:
         for key in ("omics_packed", "censorship", "survival_months"):
             batch[key] = cache[key].index_select(0, row)
@@ -286,18 +321,18 @@ def make_cached_train_step(
     the same rows are the same computation. With ``multi`` the meta arrays
     carry a leading [K, ...] axis and one call runs K steps over the one
     cache, returning metrics with a leading K axis. Graphed on the card as
-    :func:`make_train_step` (one graph per bucket's cache). Survival models
-    need ``omic_sizes`` (the packed table's column widths). ``mesh`` and
-    ``int8_matmul`` are not ported."""
-    for name, on in (("mesh", mesh is not None), ("int8_matmul", int8_matmul)):
-        if on:
-            raise NotImplementedError(
-                f"make_cached_train_step({name}=...) is not ported yet (ROADMAP queue 1)")
+    :func:`make_train_step` (one graph per bucket's cache), the dequant of
+    an int8 cache inside it (or, with ``int8_matmul``, the int8 first
+    layer). Survival models need ``omic_sizes`` (the packed table's column
+    widths). ``mesh`` is not ported (ROADMAP queue 1, multi-GPU)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_cached_train_step(mesh=...) is not ported yet (ROADMAP queue 1, multi-GPU)")
     if not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul)
     get_graphs = _graphs_for(graphs)
 
     def step(state: TrainState, cache: Dict[str, torch.Tensor],
@@ -322,7 +357,8 @@ def make_multi_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
-    patch_dropout: float = 0.0, graphs: Union[bool, StepGraphs] = True,
+    patch_dropout: float = 0.0, int8_matmul: bool = False,
+    graphs: Union[bool, StepGraphs] = True,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, stacked) -> (state, metrics)``: K optimizer steps over
     a batch whose tensors (on the model's device) carry a leading [K, ...]
@@ -332,7 +368,7 @@ def make_multi_train_step(
     return multi_step_of(make_train_step(
         model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
         patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-        patch_dropout=patch_dropout, graphs=graphs))
+        patch_dropout=patch_dropout, int8_matmul=int8_matmul, graphs=graphs))
 
 
 def multi_step_of(step: Callable) -> Callable:
@@ -430,6 +466,7 @@ def make_eval_step(
     @torch.inference_mode()
     def eager(batch: Dict[str, Any]) -> Dict[str, Any]:
         model.eval()
+        batch = dequant_wsi(batch, compute_dtype_of(model))
         weight = batch["weight"]
         reg = l1_lambda * l1_reg(model.parameters()) if l1_lambda > 0.0 else 0.0
         if ge_mode:

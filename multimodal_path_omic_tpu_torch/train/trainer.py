@@ -39,13 +39,26 @@ without one the Trainer raises (``device.resolve_device``): it never drops
 to the CPU on its own. ``graphs=False`` runs the eager steps on the card;
 so does ``training.debug_nans`` (anomaly mode cannot be captured), saying so.
 
+Reduced precision, as the JAX Trainer wires it: ``tpu.compute_dtype``
+bfloat16 builds the model with that compute dtype (parameters and the
+survival head stay float32; "auto" is float32 off a TPU,
+``config.resolve_dtype``); ``tpu.transfer_dtype`` bfloat16 or int8 stages
+the host-fed bags in that type (int8 with float32 row scales,
+``pipeline.device_arrays``), ``tpu.cache_dtype`` stores the device cache in
+it (and its budget fit counts that type's bytes), and the steps dequantize on
+the device, or with ``tpu.int8_matmul`` keep an int8 batch int8 into the
+first layer of a training step. Under bfloat16 the card refuses a model
+whose kernels have no bfloat16 instance at its width yet: GE-NaCAGaT and
+NaCAGaT ``big`` (``models.require_compute_dtype``). ``wandb.enabled`` logs each
+epoch's metrics to wandb as well (``train/logging.py``).
+
 Settings the port cannot honour yet raise ``NotImplementedError``
 (``config.require_supported``). A reference ``.pt`` checkpoint loads
 through ``Trainer.load_torch_checkpoint`` (``utils/transplant.py``);
 ``Trainer.restore`` reads the port's own checkpoints only. These settings
 only shape how the JAX package compiles and leave the numbers as they
 are; they are read and have no effect here: ``use_native_pipeline``,
-``matmul_precision`` (the port computes in full float32,
+``matmul_precision`` (the port's float32 products are full float32,
 ``device.configure_precision``), ``prng_impl``, ``compilation_cache_dir``
 and ``use_pallas`` (the port's kernel routes are chosen by their shape
 predicates; on the CPU the plain versions run anyway).
@@ -64,7 +77,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multimodal_path_omic_tpu_torch.config import Config, load_config, require_supported
+from multimodal_path_omic_tpu_torch.config import (
+    Config,
+    load_config,
+    require_supported,
+    resolve_dtype,
+)
 from multimodal_path_omic_tpu_torch.data.bags import DEFAULT_BUCKETS, bucket_for
 from multimodal_path_omic_tpu_torch.data.dataset import GeneExprDataset, MultimodalDataset
 from multimodal_path_omic_tpu_torch.data.device_cache import (
@@ -81,7 +99,11 @@ from multimodal_path_omic_tpu_torch.data.pipeline import (
     to_device,
 )
 from multimodal_path_omic_tpu_torch.device import resolve_device
-from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
+from multimodal_path_omic_tpu_torch.models import (
+    build_model,
+    is_ge_model,
+    require_compute_dtype,
+)
 from multimodal_path_omic_tpu_torch.train import checkpoint as ckpt
 from multimodal_path_omic_tpu_torch.train.graphs import StepGraphs
 from multimodal_path_omic_tpu_torch.train.logging import MetricLogger, StepTimer
@@ -189,6 +211,11 @@ class Trainer:
             else:
                 self.graphs = StepGraphs(self.device)
         self.ge_mode = is_ge_model(c.model.name)
+        self.compute_dtype = resolve_dtype(c.tpu.compute_dtype)
+        self.transfer_dtype = resolve_dtype(c.tpu.transfer_dtype)
+        self.cache_dtype = resolve_dtype(c.tpu.cache_dtype)
+        dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+        require_compute_dtype(c.model.name, dtype, self.device, c.model.model_size)
         if self.ge_mode and c.training.loss != "ce":
             # the GE script's restriction (ge_nacagat/main.py:32-35)
             raise RuntimeError(f'Loss "{c.training.loss}" not implemented')
@@ -229,7 +256,8 @@ class Trainer:
         model = build_model(
             c.model.name, omic_sizes=self.omic_sizes, model_size=c.model.model_size,
             fusion=c.model.fusion, n_classes=3 if self.ge_mode else c.model.n_classes,
-            dropout=c.model.dropout, wsi_dim=self.wsi_dim, bug_compat=c.training.bug_compat)
+            dropout=c.model.dropout, wsi_dim=self.wsi_dim, bug_compat=c.training.bug_compat,
+            dtype=dtype)
         self.model = seeded_init_(model, c.training.seed).to(self.device)
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = make_optimizer(c.training.optimizer, c.training.lr,
@@ -255,7 +283,7 @@ class Trainer:
                              graphs=self.graphs if self.graphs is not None else False)
         self.train_step = make_train_step(self.model, c.training.loss, self.optimizer,
                                           patch_dropout=c.training.patch_dropout,
-                                          **self._step_kw)
+                                          int8_matmul=c.tpu.int8_matmul, **self._step_kw)
         self.eval_step = make_eval_step(self.model, c.training.loss, **self._step_kw)
         # a dispatch group: its steps one by one, each a replay of its bucket's graph
         self.multi_step = multi_step_of(self.train_step)
@@ -271,12 +299,42 @@ class Trainer:
         self._device_cache_forced = c.tpu.device_cache == "on"
 
         self.logger = MetricLogger(
+            wandb_enabled=c.wandb.enabled, wandb_project=c.wandb.project,
+            wandb_config=self._wandb_config(),
             jsonl_path=os.path.join(c.training.test_output_dir, "run_log.jsonl")
             if c.training.test_output_dir else None)
         self.timer = StepTimer()
         self.val_risks = np.zeros(0)  # the last validation's risks, real rows in batch order
 
     # ------------------------------------------------------------------ util
+    def _wandb_config(self) -> Dict[str, Any]:
+        """The run's flattened hyperparameters for ``wandb.init`` (the JAX
+        Trainer's, after the reference's wandb_init, mcat/main.py:186-215)."""
+        c = self.config
+        return {
+            "model": c.model.name,
+            "dataset": c.dataset.name,
+            "normalization": c.dataset.normalize,
+            "standardization": c.dataset.standardize,
+            "decider_only": c.dataset.decider_only,
+            "tcga_only": c.dataset.tcga_only,
+            "diagnostic_only": c.dataset.diagnostic_only,
+            "optimizer": c.training.optimizer,
+            "learning_rate": c.training.lr,
+            "weight_decay": c.training.weight_decay,
+            "gradient_acceleration_step": c.training.grad_acc_step,
+            "epochs": c.training.epochs,
+            "architecture": c.model.name,
+            "fusion": c.model.fusion,
+            "loss": c.training.loss,
+            "scheduler": c.training.scheduler,
+            "alpha": c.training.alpha,
+            "lambda": c.training.lambda_,
+            "gamma": c.training.gamma,
+            "model_size": c.model.model_size,
+            "leave_one_out": c.training.leave_one_out,
+        }
+
     def _ensure_device_cache(self) -> bool:
         """Upload the cohort (train and validation bags) once, if
         ``tpu.device_cache`` asks for it: the whole cohort if it fits
@@ -294,7 +352,8 @@ class Trainer:
         lengths = self.train_batcher._bag_lengths()
         val_lengths = self.val_batcher._bag_lengths() if len(self.val_ds) else np.zeros(0)
         all_lengths = np.concatenate([lengths, val_lengths])
-        per_bucket = DeviceBagCache.bucket_bytes(all_lengths, self.buckets, self.wsi_dim)
+        per_bucket = DeviceBagCache.bucket_bytes(all_lengths, self.buckets, self.wsi_dim,
+                                                 store_dtype=self.cache_dtype)
         counts: Dict[int, int] = {}
         for m in all_lengths:
             b = bucket_for(int(m), self.buckets)
@@ -315,8 +374,9 @@ class Trainer:
                      if self._cache_partial
                      else f"{len(self.train_ds)} train + {len(self.val_ds)} val bags")
             print(f"Device dataset cache: {nbytes / (1 << 20):.0f} MiB of padded bags "
-                  f"(float32) uploaded once ({scope})")
-        kw = dict(device=self.device, ge_mode=self.ge_mode, only_buckets=only_buckets)
+                  f"({self.cache_dtype}) uploaded once ({scope})")
+        kw = dict(device=self.device, ge_mode=self.ge_mode, only_buckets=only_buckets,
+                  store_dtype=self.cache_dtype)
         self.device_cache = DeviceBagCache(self.train_ds, self.extras_fn, self.buckets,
                                            lengths=lengths, **kw)
         self.device_cache_val = (
@@ -324,7 +384,8 @@ class Trainer:
             if len(self.val_ds) else None)
         self._cached_step = make_cached_train_step(
             self.model, c.training.loss, self.optimizer,
-            patch_dropout=c.training.patch_dropout, **self._step_kw)
+            patch_dropout=c.training.patch_dropout, int8_matmul=c.tpu.int8_matmul,
+            **self._step_kw)
         self._cached_eval = make_eval_step(self.model, c.training.loss, cached=True,
                                            **self._step_kw)
         self._cached_multi = multi_step_of(self._cached_step)
@@ -332,8 +393,9 @@ class Trainer:
         return True
 
     def _device_batch(self, batch) -> Dict[str, Any]:
-        """A host batch's tensors on the device (``pipeline.to_device``)."""
-        return to_device(batch, self.device, self.ge_mode)
+        """A host batch's tensors on the device (``pipeline.to_device``), the
+        wsi in ``tpu.transfer_dtype``."""
+        return to_device(batch, self.device, self.ge_mode, self.transfer_dtype)
 
     def _batch_info(self, meta, real: int, table) -> Dict[str, Any]:
         """The host columns the epoch's metrics read, for a cached batch."""
@@ -374,9 +436,11 @@ class Trainer:
 
     def _host_call(self, batches, single, multi):
         if len(batches) == 1:
-            staged, fn = self.stager.stage_batch(batches[0], self.ge_mode), single
+            staged = self.stager.stage_batch(batches[0], self.ge_mode, self.transfer_dtype)
+            fn = single
         else:
-            staged, fn = self.stager.stage_group(batches, self.ge_mode), multi
+            staged = self.stager.stage_group(batches, self.ge_mode, self.transfer_dtype)
+            fn = multi
         return lambda *st: fn(*st, staged.take())
 
     def _items(self, batcher, cache, ds):

@@ -81,6 +81,10 @@ def test_unknown_keys_warn_and_defaults_match(capsys):
     assert tconfig.config_to_dict(tconfig.Config()) == jconfig.config_to_dict(jconfig.Config())
 
 
+# queue 1 items whose settings the port honours now
+PORTED_ITEMS = ("reduced precision", "the Trainer's rest")
+
+
 @pytest.mark.parametrize("key,value,item", [
     ("tpu.compute_dtype", "bfloat16", "reduced precision"),
     ("tpu.transfer_dtype", "int8", "reduced precision"),
@@ -93,9 +97,16 @@ def test_unknown_keys_warn_and_defaults_match(capsys):
     ("wandb.enabled", True, "the Trainer's rest"),
 ])
 def test_settings_the_port_cannot_honour_raise(key, value, item):
+    """The settings of a queue 1 item not yet ported raise, naming it, in
+    ``require_supported`` and before the Trainer reads any data; those of
+    the items ported since (reduced precision, the Trainer's rest: the
+    dtypes, int8_matmul, wandb.enabled) pass ``require_supported``."""
     cfg = tconfig.config_from_dict({"device": "cpu"})
     tconfig.require_supported(cfg)
     tconfig._apply_override(cfg, key, value)
+    if item in PORTED_ITEMS:
+        tconfig.require_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         tconfig.require_supported(cfg)
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer

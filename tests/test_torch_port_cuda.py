@@ -1616,3 +1616,230 @@ def test_stager_on_card_equals_to_device(dev):
                              dev, False)
     for key, value in ref.items():
         assert torch.equal(got[key], value), key
+
+
+# ---------------------------------------------------------------- bfloat16 instances
+# The bfloat16 instances against their plain versions (which the CPU tests
+# hold to the Pallas kernels at bfloat16, test_torch_port_bf16.py): the
+# bfloat16 outputs (o, dq, dkv; dwk and dbk cast to bfloat16) to one unit in
+# the last place, 2^-7 relative (both round the same float32 value, summed in
+# another order); the float32 statistics and weights to 1e-2 (relative; m
+# absolute): where one element of k (the kernel's projection and cuBLAS's sum
+# in other orders) or of tanh rounds to the other bfloat16 neighbour in the
+# two versions, that key's score moves by up to ~5e-3; gradients to 2e-2 of
+# each tensor's largest magnitude (the outputs' own rounding, and the
+# kernel's 1 - tanh^2 of the rounded tanh where autograd takes it of the
+# unrounded one). An indexing or masking fault moves any of them by O(1).
+BF16 = torch.bfloat16
+BF16_RTOL, BF16_STAT_TOL, BF16_GRAD_RTOL = 2.0 ** -7, 1e-2, 2e-2
+
+
+def _bf16_inputs(dev, b, n, e, m_len, kind, seed):
+    q, kv, wk, bk, k, _ = _inputs(dev, b, n, e, m_len, e, seed)
+    mask = _training_mask(dev, b, m_len, kind, seed + 1)
+    return [t.to(BF16) for t in (q, kv, wk, bk, k)] + [mask]
+
+
+def _close_bf16_fwd(got, ref):
+    """(o, l, m[, ssq], sumw) of a bfloat16 fuse-K forward."""
+    assert got[0].dtype == BF16 and all(t.dtype == torch.float32 for t in got[1:])
+    _close(got[0].float(), ref[0].float(), rtol=BF16_RTOL)
+    _close(got[1], ref[1], rtol=BF16_STAT_TOL)
+    for a, r in zip(got[2:], ref[2:]):
+        _close(a, r, atol=BF16_STAT_TOL)
+
+
+@pytest.mark.parametrize("e", [128, 256])
+@pytest.mark.parametrize("m_len,kind", [(4096, "prefix"), (4000, "holes"), (1500, "one")])
+def test_bf16_fused_k_instances_match_plain_on_card(dev, e, m_len, kind):
+    """The bfloat16 fuse-K eval and training forms (dropout 0.25) and the
+    backward against their plain versions; two runs bitwise equal; dkv
+    exactly 0 at the masked keys of bags with a valid key; each launch
+    counted under its _bf16 name."""
+    b, n = 3, 6
+    q, kv, wk, bk, _, mask = _bf16_inputs(dev, b, n, e, m_len, kind, m_len + e)
+    seed = torch.tensor([e + m_len], dtype=torch.int32, device=dev)
+    before = dict(coattn.LAUNCH_COUNTS)
+    got = coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
+    _close_bf16_fwd(got, coattn.coattn_fwd_fused_k_plain(q, kv, wk, bk, mask))
+    assert all(torch.equal(x, y) for x, y in zip(got, coattn.coattn_fwd_fused_k(q, kv, wk, bk,
+                                                                                mask)))
+    fwd = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, seed, 0.25)
+    _close_bf16_fwd(fwd, coattn.coattn_fwd_fused_k_train_plain(q, kv, wk, bk, mask, seed, 0.25))
+    o, l, m, ssq, sumw = fwd
+    g = torch.Generator().manual_seed(m_len)
+    dout = torch.randn(b, n, e, generator=g).to(dev).to(BF16)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, kv, wk, bk, mask, seed, 0.25, dout, l, m, di, dssq, dsumw)
+    grads = coattn.coattn_bwd_fused_k(*args)
+    again = coattn.coattn_bwd_fused_k(*args)
+    ref = coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mask, seed, 0.25, dout, dssq, dsumw)
+    one = mask.sum(-1) == 1  # dq of a one-key bag: noise on both sides (its terms cancel)
+    for name, a, r in zip(("dq", "dkv", "dwk", "dbk"), grads, ref):
+        assert a.dtype == BF16, name
+        if name == "dq":
+            a, r = a[~one], r[~one]
+        _close_rel(a.float(), r.float(), BF16_GRAD_RTOL)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    has = mask.any(-1)
+    assert bool((grads[1][has][~mask[has]] == 0).all())
+    torch.cuda.synchronize()
+    for name, calls in (("coattn_fwd_fused_k_bf16", 2), ("coattn_fwd_fused_k_train_bf16", 1),
+                        ("coattn_bwd_fused_k_bf16", 2), ("coattn_fwd_fused_k", 0),
+                        ("coattn_bwd_fused_k", 0)):
+        assert coattn.LAUNCH_COUNTS[name] == before[name] + calls, name
+
+
+@pytest.mark.parametrize("pre_gate", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("kind", ["holes", "one", "prefix"])
+def test_bf16_export_instances_match_plain_on_card(dev, kind, d, pre_gate):
+    """The bfloat16 export passes (stats, weights, both on one tile list)
+    against their plain versions; two runs bitwise equal; w exactly 0 at
+    the masked keys of a bag with a valid key, 1/M in a bag without one."""
+    b, n, m_len = 3, 6, 1500
+    q, _, _, _, k, mask = _bf16_inputs(dev, b, n, d, m_len, kind, d + 7)
+    before = dict(coattn.LAUNCH_COUNTS)
+    l, m = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    lp, mp = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)
+    _close(l, lp, rtol=BF16_STAT_TOL)
+    _close(m, mp, atol=BF16_STAT_TOL)
+    w = coattn.coattention_weights(q, k, mask, pre_gate=pre_gate)
+    wp = coattn.coattn_weights_plain(q, k, mask, lp, mp, pre_gate=pre_gate)
+    assert w.dtype == torch.float32
+    _close(w, wp, rtol=BF16_STAT_TOL, atol=W_ATOL)
+    assert torch.equal(w, coattn.coattention_weights(q, k, mask, pre_gate=pre_gate))
+    assert torch.equal(coattn.coattn_weights(q, k, mask, l, m, pre_gate=pre_gate),
+                       coattn.coattn_weights(q, k, mask, l, m, pre_gate=pre_gate))
+    has = mask.any(-1)
+    masked = (~mask & has[:, None])[:, None, :].expand_as(w)
+    assert bool((w[masked] == 0).all())
+    assert bool((w[~has] == 1.0 / m_len).all())
+    torch.cuda.synchronize()
+    assert coattn.LAUNCH_COUNTS["coattn_stats_bf16"] == before["coattn_stats_bf16"] + 3
+    assert coattn.LAUNCH_COUNTS["coattn_weights_bf16"] == before["coattn_weights_bf16"] + 4
+    assert coattn.LAUNCH_COUNTS["coattn_stats"] == before["coattn_stats"]
+
+
+def test_bf16_wrappers_refuse_what_the_instances_do_not_take(dev):
+    """E = F = 512 and the plain-K form with values have no bfloat16
+    instance (the wrappers refuse such a shape; the dispatchers raise before
+    a wrapper is reached: the next test); mixed types raise."""
+    q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 512, 300, "prefix", 5)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
+    q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 256, 300, "prefix", 6)
+    with pytest.raises(TypeError, match="bfloat16"):
+        coattn.coattn_fwd_fused_k(q, kv.float(), wk, bk, mask)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        coattn.coattn_fwd_plain_k(q, k, k, mask, pre_gate=False, train=False)
+    assert not coattn.fused_k_supports(3, 512, 512, 300, train=True, dtype=BF16)
+    assert not coattn.plain_k_supports(3, 256, 300, values=True, dtype=BF16)
+
+
+def test_bf16_shapes_without_an_instance_raise_on_card(dev):
+    """On the card a bfloat16 module at a shape that a float32 kernel takes
+    and no bfloat16 instance does raises before any launch (kernels.takes),
+    where the CPU takes attention_core: NaCAGaT ``big``'s pre-gated
+    co-attention (fuse-K at E = 512) and its export map (D = 512), the
+    plain-K form with values (D = 256); the Trainer refuses NaCAGaT ``big``
+    under bfloat16 before it reads any data."""
+    from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
+    from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    g = torch.Generator().manual_seed(0)
+    mask = torch.ones(2, 100, dtype=torch.bool, device=dev)
+    for e, pre_gate, lean, need in ((512, True, True, False), (512, True, True, True),
+                                    (256, False, False, False)):
+        module = set_compute_dtype(MultiheadAttention(e, 1, pre_gate=pre_gate, lean=lean),
+                                   BF16).to(dev).eval()
+        q = torch.randn(2, 6, e, generator=g).to(dev)
+        kv = torch.randn(2, 100, e, generator=g).to(dev)
+        before = dict(coattn.LAUNCH_COUNTS)
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="queue 2 item 5"):
+            module(q, kv, kv, mask, need_weights=need)
+        assert dict(coattn.LAUNCH_COUNTS) == before
+    cfg = config_from_dict({"model": {"name": "NaCAGaT", "model_size": "big"},
+                            "tpu": {"compute_dtype": "bfloat16"}})
+    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+        Trainer(cfg, verbose=False)
+
+
+def test_bf16_nacagat_train_step_on_card_matches_cpu(dev, monkeypatch):
+    """NaCAGaT small under bfloat16 compute, one cesar SGD step at dropout 0.
+    The card's step (the bfloat16 fuse-K instances, forward and backward)
+    against the same step on the card with the plain versions in their
+    place, everything else alike: each parameter's update, leaf by leaf,
+    within 2e-2 of that leaf's largest update or within twice the distance
+    bfloat16 moves the leaf (the card's float32 step on the same weights
+    against the plain bfloat16 one). The loss within 1e-2 relative of the
+    CPU's bfloat16 step (the plain versions there, and cuBLAS against the
+    CPU's products elsewhere: those round at other places, and a ReLU gate
+    whose pre-activation lies within bfloat16's resolution of 0 can fall on
+    the other side, so the CPU's updates are no per-leaf yardstick). A leaf
+    whose gradient sums terms that cancel (H.fc.weight: 4096 patch rows)
+    moves by a good share of itself under bfloat16; a leaf the kernels got
+    wrong or left at 0 moves by its whole size."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    sizes = (10, 20, 30)
+    g = torch.Generator().manual_seed(0)
+    batch = {"wsi": torch.randn(4, 1024, 64, generator=g),
+             "mask": torch.arange(1024)[None] < torch.tensor([[1024], [700], [300], [90]]),
+             "omics": [torch.randn(4, s, generator=g) for s in sizes],
+             "label": torch.tensor([0, 1, 2, 3]), "censorship": torch.tensor([0.0, 1, 0, 1]),
+             "weight": torch.ones(4)}
+
+    def run(where, dtype):
+        model = seeded_init_(build_model("NaCAGaT", omic_sizes=sizes, model_size="small",
+                                         dropout=0.0, wsi_dim=64, dtype=dtype), 0).to(where)
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        spec = make_optimizer("sgd", 0.05)
+        step = loop.make_train_step(model, "cesar", spec, omic_sizes=sizes, graphs=False)
+        b = {k: ([t.to(where) for t in v] if k == "omics" else v.to(where))
+             for k, v in batch.items()}
+        before = dict(coattn.LAUNCH_COUNTS)
+        _, metrics = step(loop.init_train_state(model, spec, 0), b)
+        launched = {k: v - before[k] for k, v in coattn.LAUNCH_COUNTS.items() if v != before[k]}
+        return float(metrics.loss), {k: (v.detach().cpu() - start[k].cpu())
+                                     for k, v in model.state_dict().items()}, launched
+
+    loss_k, upd_k, launched = run(dev, BF16)
+    assert launched == {"coattn_fwd_fused_k_train_bf16": 1, "coattn_bwd_fused_k_bf16": 1}
+    _, upd_f, _ = run(dev, None)
+    loss_c = run("cpu", BF16)[0]
+    monkeypatch.setattr(coattn, "coattn_fwd_fused_k_train", coattn.coattn_fwd_fused_k_train_plain)
+    monkeypatch.setattr(coattn, "coattn_bwd_fused_k", lambda *a: coattn.coattn_bwd_fused_k_plain(
+        *a[:8], *a[11:]))  # the plain version takes no l, m, di
+    _, upd_p, launched = run(dev, BF16)
+    assert launched == {}
+    assert abs(loss_k - loss_c) <= 1e-2 * abs(loss_c)
+    shares = {}
+    for name, u in upd_p.items():
+        err = float((upd_k[name] - u).abs().max())
+        moved = float((upd_f[name] - u).abs().max())
+        assert err <= max(2e-2 * float(u.abs().max()), 2.0 * moved), (name, err, moved)
+        shares[name] = (err / moved if moved else 0.0, err, moved, float(u.abs().max()))
+    worst = max(shares, key=lambda k: shares[k][0])
+    print(f"largest share of the bfloat16 distance: {shares[worst][0]:.3f} ({worst}); "
+          "H.fc.weight: error {1:.3e}, distance {2:.3e}, largest update {3:.3e}".format(
+              *shares["H.fc.weight"]))
+
+
+def test_ge_bf16_trainer_is_refused_on_card(dev):
+    """GE-NaCAGaT with tpu.compute_dtype bfloat16 on the card: the Trainer
+    raises before it reads any data, naming ROADMAP queue 2 item 5 (the
+    flash kernels have no bfloat16 instance)."""
+    from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    cfg = config_from_dict({"model": {"name": "GE-NaCAGaT"}, "training": {"loss": "ce"},
+                            "tpu": {"compute_dtype": "bfloat16"}})
+    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+        Trainer(cfg, verbose=False)

@@ -330,3 +330,156 @@ def test_mil_pool_routes_follow_supports_and_match_jax(case, monkeypatch):
     assert len(calls) == int(kernel)
     np.testing.assert_allclose(pooled.numpy(), np.asarray(jpooled), atol=MODEL_ATOL, rtol=0)
     np.testing.assert_allclose(a.numpy(), np.asarray(ja), atol=MODEL_ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 compute: the shapes no bfloat16 instance takes
+# ---------------------------------------------------------------------------
+
+# (id, embed width, heads, pre-gate, queries (None: self-attention), keys,
+#  need_weights, the route the port takes, whether a bfloat16 instance takes it)
+BF16_ROUTE_RTOL = 5e-2
+BF16_CASES = [
+    ("bf16-nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
+    ("bf16-nacagat-small-ssq", 128, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
+    # queue 2 item 5: no E = 512 fuse-K instance, no plain-K instance with values
+    ("bf16-nacagat-big", 512, 1, True, 6, 100, False, "attention_core", False),
+    ("bf16-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "attention_core", False),
+    ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "attention_core", False),
+    ("bf16-weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
+    ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", False),
+    # no flash instance takes bfloat16: GE's self-attentions
+    ("bf16-ge-width256", 256, 1, False, None, 64, False, "attention_core", False),
+    ("bf16-ge-width32", 256, 8, False, None, 64, False, "attention_core", False),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
+    """Under a bfloat16 compute dtype the predicates, asked about bfloat16,
+    send every shape without a bfloat16 instance to ``attention_core`` on
+    the CPU (on the card such a shape raises before any launch where a
+    float32 kernel takes it: the next test), and the output (and the map, or
+    ssq) matches the JAX module in float32 on the same weights and the same
+    bfloat16 inputs within 5e-2 of its largest magnitude (measured up to
+    3.4e-2: the q and k projections rounded to bfloat16, 2^-8 relative, move
+    scores of magnitude up to ~10 by ~0.04, which exp turns into ~4% of a
+    weight; the JAX module's own bfloat16 path rounds the scores too, so it
+    is no closer)."""
+    from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
+
+    _, e, heads, pre_gate, n, m_len, need_weights, route, kernel = case
+    rng = np.random.default_rng(e + heads + m_len)
+    p = _params(e, rng)
+    kv = rng.normal(size=(2, m_len, e)).astype(np.float32)
+    query = kv if n is None else rng.normal(size=(2, n, e)).astype(np.float32)
+    mask = np.arange(m_len)[None] < np.array([m_len - 7, 0])[:, None]
+    module = set_compute_dtype(load_jax_params(
+        tattention.MultiheadAttention(e, heads, pre_gate=pre_gate), p), torch.bfloat16).eval()
+    calls = _spy_all(monkeypatch)
+    tkv = torch.from_numpy(kv).to(torch.bfloat16)
+    tq = tkv if n is None else torch.from_numpy(query).to(torch.bfloat16)
+    with torch.no_grad():
+        out, second = module(tq, tkv, tkv, torch.from_numpy(mask), need_weights=need_weights)
+    assert out.dtype == torch.bfloat16
+    assert calls[route] >= 1, calls
+    if route == "attention_with_weights":
+        assert calls["attention_core"] == int(not kernel), calls
+    else:
+        assert sum(calls.values()) == 1, calls
+    d, bf16 = e // heads, torch.bfloat16
+    if pre_gate and heads == 1 and need_weights is not True:
+        assert coattn.fused_k_supports(n, e, e, m_len, train=need_weights == "ssq",
+                                       dtype=bf16) == kernel
+        assert coattn.fused_k_supports(n, e, e, m_len, train=need_weights == "ssq")  # float32
+    if route == "attention_with_weights":
+        assert coattn.plain_k_supports(n, d, m_len, values=False, dtype=bf16) == kernel
+    if n is None:
+        assert not flash.supports(2, heads, m_len, d, dtype=bf16) and flash.supports(
+            2, heads, m_len, d)
+    if heads > 1 and n is not None:
+        assert not coattn.plain_k_supports(n, d, m_len, values=True, dtype=bf16)
+
+    # the JAX module in float32 on the same (bfloat16) inputs
+    jmodule = jattention.MultiheadAttention(embed_dim=e, num_heads=heads, pre_gate=pre_gate,
+                                            use_pallas=True)
+    jkv = jnp.asarray(tkv.float().numpy())
+    jq = jkv if n is None else jnp.asarray(tq.float().numpy())
+    jout, jsecond = jmodule.apply({"params": p}, jq, jkv, jkv, jnp.asarray(mask),
+                                  need_weights=need_weights)
+    pairs = [(out, jout)] + ([(second, jsecond)] if need_weights else [])
+    for got, ref in pairs:
+        got, ref = got.float().numpy(), np.asarray(ref)
+        assert np.abs(got - ref).max() <= BF16_ROUTE_RTOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
+@pytest.mark.parametrize("name", ["GE-NaCAGaT", "NaCAGaT"])
+def test_ge_bf16_is_refused_on_the_card(name, device, refused):
+    """GE-NaCAGaT under bfloat16 compute is refused for a CUDA device (its
+    flash kernels have no bfloat16 instance: ROADMAP queue 2 item 5) and
+    runs on the CPU's plain versions; float32 and the survival models at
+    ``medium`` pass. (The Trainer on the card: ``test_torch_port_cuda.py``.)"""
+    from multimodal_path_omic_tpu_torch.models import require_compute_dtype
+
+    if refused and name.startswith("GE"):
+        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+            require_compute_dtype(name, torch.bfloat16, device)
+    else:
+        require_compute_dtype(name, torch.bfloat16, device)
+    require_compute_dtype(name, None, device)
+
+
+# (id, the kernel's predicate, its shape arguments, keywords): the shapes of
+# BF16_CASES that a float32 kernel takes and no bfloat16 instance does
+BF16_NO_INSTANCE = [
+    ("bf16-nacagat-big", coattn.fused_k_supports, (6, 512, 512, 100), {"train": False}),
+    ("bf16-nacagat-big-ssq", coattn.fused_k_supports, (6, 512, 512, 100), {"train": True}),
+    ("bf16-lean-false-width256-8heads", coattn.plain_k_supports, (6, 256, 100),
+     {"values": True}),
+    ("bf16-weights-d512", coattn.plain_k_supports, (6, 512, 100), {"values": False}),
+    ("bf16-ge-width256", flash.supports, (2, 1, 64, 256), {}),
+    ("bf16-ge-width32", flash.supports, (2, 8, 64, 32), {}),
+]
+
+
+@pytest.mark.parametrize("case", BF16_NO_INSTANCE, ids=[c[0] for c in BF16_NO_INSTANCE])
+def test_bf16_shapes_without_an_instance_raise_on_the_card(case):
+    """``kernels.takes``, which the dispatchers ask: a bfloat16 shape that a
+    float32 kernel takes but no bfloat16 instance does takes the plain route
+    on the CPU and raises ``NotImplementedError`` (queue 2 item 5) on the
+    card, where no plain version stands in for a kernel; a shape with a
+    bfloat16 instance, and a float32 shape, take the kernel on both."""
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
+
+    _, supports, shape, kw = case
+    assert supports(*shape, **kw) and not supports(*shape, dtype=torch.bfloat16, **kw)
+    assert takes("k", supports, "cpu", *shape, dtype=torch.bfloat16, **kw) is False
+    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+        takes("k", supports, "cuda", *shape, dtype=torch.bfloat16, **kw)
+    assert takes("k", supports, "cuda", *shape, dtype=torch.float32, **kw)
+    assert takes("k", coattn.fused_k_supports, "cuda", 6, 256, 256, 100, train=True,
+                 dtype=torch.bfloat16)
+    # more queries than any kernel takes: the plain route in both types, no refusal
+    assert not takes("k", coattn.fused_k_supports, "cuda", 9, 256, 256, 100, train=True,
+                     dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,size,refused", [
+    ("NaCAGaT", "small", False), ("NaCAGaT", "medium", False), ("NaCAGaT", "big", True),
+    ("MCAT", "big", False),
+])
+def test_bf16_models_without_instances_are_refused_on_the_card(name, size, refused):
+    """Under bfloat16 compute the card refuses NaCAGaT where its co-attention
+    kernels have no bfloat16 instance at its width (``big``: E = D = 512),
+    naming queue 2 item 5; MCAT's lean branch runs no kernel. The CPU runs
+    each on the plain versions, and float32 passes everywhere."""
+    from multimodal_path_omic_tpu_torch.models import require_compute_dtype
+
+    if refused:
+        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+            require_compute_dtype(name, torch.bfloat16, "cuda", size)
+    else:
+        require_compute_dtype(name, torch.bfloat16, "cuda", size)
+    require_compute_dtype(name, torch.bfloat16, "cpu", size)
+    require_compute_dtype(name, torch.float32, "cuda", size)
