@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-24 below
+    python3 chip_smoke.py              # phases 1-25 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -273,10 +273,32 @@ Phases (any failure exits non-zero, and no result line is printed):
     compute from the int8 store on the card and on the CPU, dropout 0, four
     training seeds: losses within 6e-5 and 1.2e-3 relative, risks within
     6e-3 (about twice the largest reading), and each seed's run not equal
-    to its float32-compute control on the card. (d) GE-NaCAGaT and NaCAGaT
-    ``big`` under bf16 compute refused on the card (NotImplementedError,
-    queue 2 item 5: no bf16 instance of the flash kernels, nor of the
-    co-attention kernels at E = 512).
+    to its float32-compute control on the card. (d) NaCAGaT ``big`` under
+    bf16 compute refused on the card (NotImplementedError, queue 2 item 5:
+    no bf16 instance of the co-attention kernels at E = 512).
+25. GE-NaCAGaT under bfloat16: the flash kernels' bfloat16 instances. (a)
+    Every instance (forward and backward at widths 16..512) against its
+    bfloat16 plain version: GE medium's at B=8, M=16384 with phase 9's
+    ragged masks, small's and big's at phase 17's B=4, M=4096, and every
+    width on four bags of 1500 keys (a ragged prefix, masked key tiles
+    mid-bag, one valid key, none valid): o to one bfloat16 unit of its
+    terms' magnitude, m and l to 1e-4 relative, dq, dk, dv to 2e-2 of each
+    one's largest magnitude, two runs bitwise equal, dq and dk exactly 0
+    through masked keys, the bag
+    without a valid key at m = -1e9, l = M; each timed at B=8, M=16384
+    beside its float32 row, its plain version, its bound (bfloat16 products)
+    and the bfloat16 ``scaled_dot_product_attention`` (backward). (b)
+    examples/ge_nacagat.yaml (GE medium) on phase 21's GE cohort, two
+    epochs graphed and eager (bit for bit equal) in bf16 from an int8
+    store, host-fed through int8 transfers (bit for bit the cached run) and
+    in float32: epoch 2's launches held to the plan, train and val bags/s
+    and peak memory against float32. (c) One epoch in bf16 on the card and
+    on the CPU on phase 21's shorter-bag GE cohort, dropout 0, three
+    training seeds: losses within 4e-4 / 2e-3 relative (about twice the
+    largest reading), each run unequal to its float32-compute control on
+    the card. (d) GE small and big in bf16: a Trainer epoch (every step and
+    validation batch on their widths' instances) and a
+    ``Predictor.from_trainer`` call each.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -366,6 +388,10 @@ SOURCES = {
     "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "coattn_stats_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    # the flash kernels' bfloat16 instances (phase 25)
+    **{f"flash_{way}_d{w}_bf16": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
+       for way, src in (("fwd", "flash"), ("bwd", "flash_bwd"))
+       for w in (16, 32, 64, 128, 256, 512)},
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -389,6 +415,8 @@ REPLACES = {
     "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "coattn_stats_bf16": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_weights_bf16": "multimodal_path_omic_tpu/ops/coattn.py:908",
+    **{f"flash_{way}_d{w}_bf16": "multimodal_path_omic_tpu/ops/flash.py:44"
+       for way in ("fwd", "bwd") for w in (16, 32, 64, 128, 256, 512)},
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -1265,17 +1293,18 @@ def ge_pool_inputs(m_len, seed, dev, masked=True):
     return [x.to(dev), mask] + [t.to(dev) for t in (wa, ba, wb, bb, wc, bc)]
 
 
-def ge_flash_inputs(b, heads, m_len, seed, dev, e=GE_D):
+def ge_flash_inputs(b, heads, m_len, seed, dev, e=GE_D, dtype=None):
     """q, k, v as MultiheadAttention hands them over: the head views of one
-    packed [B, M, 3E] projection (strided, read in place), q and k of std
-    ~1.5 and 1 (scores of std ~1.5: a peaked softmax); ragged masks, the
-    last bag fully masked when there is more than one."""
+    packed [B, M, 3E] projection (strided, read in place; float32, or
+    ``dtype``), q and k of std ~1.5 and 1 (scores of std ~1.5: a peaked
+    softmax); ragged masks, the last bag fully masked when there is more
+    than one."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     qkv = torch.randn(b, m_len, 3 * e, generator=g)
     qkv[..., :e] *= 1.5
-    qkv = qkv.to(dev)
+    qkv = qkv.to(dev).to(dtype or torch.float32)
     lengths = torch.randint(m_len // 5, m_len + 1, (b,), generator=g)
     if b > 1:
         lengths[-1] = 0
@@ -3541,15 +3570,17 @@ def _trainer_run(tag, what, cfg, graphs, power, profile=False, budget_of=None) -
     run = {"what": what, "steps": trainer.last_epoch_steps, "val_batches": len(trainer.val_batcher),
            "partial": trainer._cache_partial, "cached": cache and cache.cached_buckets,
            "epochs": [
-        (tr0["train_loss"], tr0["train_attn_loss"], va0["val_loss"], risks0),
-        (tr1["train_loss"], tr1["train_attn_loss"], va1["val_loss"], trainer.val_risks.copy())],
+        (tr0["train_loss"], tr0.get("train_attn_loss"), va0["val_loss"], risks0),
+        (tr1["train_loss"], tr1.get("train_attn_loss"), va1["val_loss"],
+         trainer.val_risks.copy())],
         "train_launches": _counts_delta(c0, c1), "val_launches": _counts_delta(c1, c2),
         "graphs": 0 if trainer.graphs is None else len(trainer.graphs), "peak_gib": peak,
         # the cache's bag bytes (wsi and its int8 row scales), and as float32
         "cache_bytes": (sum(t.numel() * t.element_size() for bucket in stores
                             for key, t in bucket.items() if key in ("wsi", "wsi_scale")),
                         sum(bucket["wsi"].numel() * 4 for bucket in stores)),
-        "first_s": first_s, "train_s": train_s, "val_s": val_s}
+        "first_s": first_s, "train_s": train_s, "val_s": val_s,
+        "n_train": len(trainer.train_ds), "n_val": len(trainer.val_ds)}
     busy = ""
     if profile:
         wall, dev_ms, share = _busy_share(lambda: trainer.train_epoch(2))
@@ -4043,8 +4074,8 @@ def phase24_bf16_kernels(dev) -> tuple:
 def phase24_precision(dev) -> dict:
     """(b)-(d): the Trainer in bfloat16 from an int8 store and the other
     reduced-precision settings on phase 21's cohort and configuration, each
-    graphed and eager; the card against the CPU; GE under bfloat16 refused.
-    Returns the launches of (b)."""
+    graphed and eager; the card against the CPU; NaCAGaT big under bfloat16
+    refused (GE runs: phase 25). Returns the launches of (b)."""
     import shutil
     import tempfile
 
@@ -4161,8 +4192,7 @@ def phase24_precision(dev) -> dict:
             if ends["bf16 card"][:2] == ends["f32 card"][:2] or gap == 0.0:
                 raise AssertionError(f"seed {seed}: the bf16 card run equals float32 compute")
 
-        for example, extra in (("ge_nacagat.yaml", GE_TRAINER_SET),
-                               ("nacagat.yaml", {**TRAINER_SET, "model.model_size": "big"})):
+        for example, extra in (("nacagat.yaml", {**TRAINER_SET, "model.model_size": "big"}),):
             log(f"phase 24 (d): examples/{example} + {extra} with tpu.compute_dtype bfloat16 on "
                 "the card")
             cfg = trainer_config(example, paths, os.path.join(root, "d"),
@@ -4178,6 +4208,385 @@ def phase24_precision(dev) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 24: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in total.items() if v} } ({power})")
+    return total
+
+
+# Phase 25: GE-NaCAGaT under bfloat16, on the flash kernels' bfloat16
+# instances. Each instance against its plain version on the card, both
+# computing in float32 from the bfloat16 values with the TPU kernel's
+# roundings (p rounded against the running maximum of the same key tiles,
+# ds * scale rounded). The scores' float32 sums take other orders in the two
+# versions, so now and then a p lies on the other side of a bfloat16
+# rounding in one of them, which moves an output by 2^-8 of that key's term
+# w_j |v_j|: where the terms of o = sum_j w_j v_j cancel, that is many units
+# of o's own last place. So o (bfloat16) is held within one unit
+# (BF16_O_RTOL) of the magnitude of its terms, sum_j w_j |v_j| (the same
+# attention over |v|); where nothing cancels that is one unit of o. The log
+# also counts the elements outside the co-attention instances' per-element
+# form (KERNEL_ATOL + BF16_O_RTOL |o|). m and l (float32) within 1e-4
+# relative (the products of bfloat16 operands are exact in float32; what
+# differs is the sums' order; m also 1e-5 absolute, for a one-key row whose
+# m sits near 0), dq, dk, dv within
+# BF16_GRAD_RTOL of each one's largest magnitude. An indexing, masking or
+# fragment-layout fault moves any of them by O(1).
+FLASH_BF16_STAT_RTOL, FLASH_BF16_M_ATOL = 1e-4, 1e-5
+BF16_FLASH = tuple(f"flash_{way}_d{w}_bf16" for way in ("fwd", "bwd")
+                   for _, w, _ in FLASH_INSTANCES)
+# (b): GE medium (examples/ge_nacagat.yaml on phase 21's GE cohort, two
+# epochs) in bfloat16 from an int8 store, host-fed through int8 transfers,
+# and the float32 run beside them; a training step's and a validation
+# batch's launches under each
+GE_BF16_RUNS = (
+    ("int8 store, bf16 compute", {"tpu.device_cache": "on", "tpu.cache_dtype": "int8",
+                                  "tpu.compute_dtype": "bfloat16"}),
+    ("int8 transfer, bf16 compute", {"tpu.device_cache": "off", "tpu.transfer_dtype": "int8",
+                                     "tpu.compute_dtype": "bfloat16"}),
+    ("float32", {"tpu.device_cache": "on"}),
+)
+# (c): the card's bfloat16 GE against the CPU's, one epoch on phase 21's
+# shorter-bag GE cohort at dropout 0, for each of GE_BF16_SEEDS, with a
+# float32-compute control on the card. Limits: about twice the largest of
+# the three seeds' readings (NVIDIA H100 80GB HBM3, 700.00 W: train loss
+# 1.779e-4, val loss 8.949e-4 relative). cuBLAS and the CPU round each
+# bfloat16 product at other places and two Adam steps carry that on; as in
+# phase 24 (c) the float32 control lands as close (3.5e-5..8.0e-5,
+# 3.4e-6..1.5e-3), so each seed's bfloat16 run is also held to differ from
+# its control.
+GE_BF16_SEEDS = (0, 1, 2)
+GE_BF16_CPU_TRAIN_RTOL, GE_BF16_CPU_VAL_RTOL = 4e-4, 2e-3
+
+
+def ge_widths(size) -> tuple:
+    return tuple(w for _, w in GE_SIZE_HEADS[size])
+
+
+def ge_bf16_launches(size, cached, float32=False) -> tuple:
+    """(a training step's, a validation batch's) launches of GE ``size``:
+    the first width once and the second in each of two layers; under
+    bfloat16 the pool takes its eager branch (no kernel), in float32 its
+    kernel in validation; one row gather each from the cache."""
+    sfx = "" if float32 else "_bf16"
+    w1, w2 = ge_widths(size)
+    fwd = {f"flash_fwd_d{w1}{sfx}": 1, f"flash_fwd_d{w2}{sfx}": 2}
+    train = {**fwd, f"flash_bwd_d{w1}{sfx}": 1, f"flash_bwd_d{w2}{sfx}": 2}
+    val = {**fwd, **({"milpool": 1} if float32 else {})}
+    gather = {"gather_rows": 1} if cached else {}
+    return {**train, **gather}, {**val, **gather}
+
+
+def flash_bf16_masks(m_len, dev):
+    """Four bags of m_len keys: a ragged prefix, whole masked key tiles
+    mid-bag, one valid key in a late tile, none valid."""
+    import torch
+
+    mask = torch.zeros(4, m_len, dtype=torch.bool)
+    mask[0, :m_len * 2 // 3] = True
+    mask[1, 5:60] = True
+    mask[1, 700:790] = True
+    mask[2, ONE_KEY] = True
+    return mask.to(dev)
+
+
+def bf16_flash_bound_ms(way, heads, mask, e) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of a bfloat16 flash instance at
+    B=8, M=16384, heads * width = e: the products over the valid keys (a bag
+    without one needs them all) at the bfloat16 tensor-core rate, two in the
+    forward, five in the backward (s, dp, dv, dq, dk); bytes with q, k, v,
+    out (and dout, dq, dk, dv) in bfloat16, m and l float32 and the mask
+    read once."""
+    import torch
+
+    b, m = mask.shape
+    n_valid = mask.sum(dim=1)
+    keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
+    if way == "fwd":
+        nbytes, ops = 2 * 4 * b * m * e + b * m, 4 * m * keys * e
+    else:
+        nbytes, ops = 2 * 8 * b * m * e + 4 * 2 * b * heads * m + b * m, 10 * m * keys * e
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash_o(name, got, ref, terms) -> float:
+    """A bfloat16 flash instance's o against its plain version's: within
+    one bfloat16 unit of ``terms`` (the plain attention over |v|). Logs the
+    elements outside the per-element form. Returns the largest absolute
+    error."""
+    import torch
+
+    got, ref, terms = got.float(), ref.float(), terms.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    diff = (got - ref).abs()
+    excess = float((diff / (BF16_O_RTOL * terms).clamp_min(1e-30)).max())
+    outside = diff > KERNEL_ATOL + BF16_O_RTOL * ref.abs()
+    log(f"  {name}: max_abs_err={float(diff.max()):.3e}, worst element at {excess:.3f} of one "
+        f"bfloat16 unit of its terms' magnitude; outside the per-element form "
+        f"({KERNEL_ATOL:g} + {BF16_O_RTOL:g} |o|): {int(outside.sum())} of {diff.numel()} "
+        f"{'ok' if excess <= 1.0 else 'FAIL'}")
+    if excess > 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return float(diff.max())
+
+
+def check_flash_bf16(tag, q, k, v, mask, errs, width) -> None:
+    """One bfloat16 flash case: the forward (with m, l) and the backward
+    under a random bfloat16 cotangent against their plain versions, each
+    twice bitwise equal, dq and dk exactly 0 through masked keys, a bag
+    without a valid key at m = -1e9 and l = M exactly."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+    from multimodal_path_omic_tpu_torch.ops.layers import NEG_INF
+
+    b, heads, m_len, _ = q.shape
+    chunk = plain_chunk(b, heads, m_len)
+    fwd, bwd = f"flash_fwd_d{width}_bf16", f"flash_bwd_d{width}_bf16"
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    again = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    if not all(torch.equal(x, y) for x, y in zip((out, m, l), again)):
+        raise AssertionError(f"{tag}: two forward runs differ")
+    ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, chunk=chunk,
+                                                       return_stats=True)
+    terms = flash.flash_attention_plain(q, k, v.abs(), mask, chunk=chunk)
+    errs[fwd] = max(errs[fwd],
+                    check_flash_o(f"{fwd}.o", out, ref_out, terms),
+                    check_close(f"{fwd}.m", m, ref_m, FLASH_BF16_M_ATOL, FLASH_BF16_STAT_RTOL),
+                    check_close(f"{fwd}.l", l, ref_l, 0.0, FLASH_BF16_STAT_RTOL))
+    none = ~mask.any(dim=1)
+    if not (bool((m[none] == NEG_INF).all()) and bool((l[none] == m_len).all())):
+        raise AssertionError(f"{tag}: a bag without a valid key must have m = -1e9, l = M")
+    del ref_out, ref_m, ref_l, again, terms
+    g = torch.Generator(device="cpu").manual_seed(m_len + width)
+    dout = torch.randn(b, m_len, heads * width, generator=g).to(q.device).to(q.dtype)
+    dout = dout.reshape(b, m_len, heads, width).transpose(1, 2)
+    got = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    if not all(torch.equal(x, y) for x, y in zip(got, flash.flash_bwd(q, k, v, mask, out, m, l,
+                                                                        dout))):
+        raise AssertionError(f"{tag}: two backward runs differ")
+    ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout, chunk=chunk)
+    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+        errs[bwd] = max(errs[bwd], check_rel(f"{bwd}.{gname}", a.float(), r.float(),
+                                             BF16_GRAD_RTOL))
+    dq, dk, _ = got
+    pad = ~mask[:, None, :, None].expand_as(dk)
+    if float(dk[pad].float().abs().max()) != 0.0 or float(dq[none].float().abs().max()) != 0.0:
+        raise AssertionError(f"{tag}: a masked key passed a gradient to q or k")
+    log(f"  {tag}: two runs bitwise equal; dq, dk exactly 0 through masked keys; the bag "
+        "without a valid key at m = -1e9, l = M")
+
+
+def phase25_bf16_flash_kernels(dev, f32_rows) -> tuple:
+    """(a): every bfloat16 flash instance against its plain version on the
+    card (GE medium at the main path's B=8, M=16384 with phase 9's ragged
+    masks; small and big at phase 17's B=4, M=4096; every width on four bags
+    of 1500 keys: a ragged prefix, masked tiles mid-bag, one valid key,
+    none), then each timed at B=8, M=16384 beside its float32 row (phases 9
+    and 12, the same inputs in bfloat16), its plain version, its bound and the
+    bfloat16 ``scaled_dot_product_attention`` call (forward; backward).
+    Returns (errors, rows without their launches)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    bf = torch.bfloat16
+    errs = {name: 0.0 for name in BF16_FLASH}
+    for heads, width, e in FLASH_INSTANCES:
+        shape = (GE_B, GE_M) if e == GE_D else (GE_WIDE_B, GE_WIDE_M)
+        log(f"phase 25 (a): flash bf16 H={heads} dh={width}: B={shape[0]} M={shape[1]}, ragged "
+            "masks, the last bag without a valid key; q/k/v read in place")
+        q, k, v, mask = ge_flash_inputs(*shape[:1], heads, shape[1], shape[1] + heads, dev, e, bf)
+        check_flash_bf16(f"flash bf16 d{width} M={shape[1]}", q, k, v, mask, errs, width)
+        log(f"phase 25 (a): flash bf16 H={heads} dh={width}: B=4 M=1500, a ragged bag, masked "
+            f"tiles mid-bag, one valid key ({ONE_KEY}), none valid")
+        q, k, v, _ = ge_flash_inputs(4, heads, 1500, width + 25, dev, e, bf)
+        check_flash_bf16(f"flash bf16 d{width} M=1500", q, k, v, flash_bf16_masks(1500, dev),
+                         errs, width)
+        del q, k, v, mask
+    torch.cuda.synchronize()
+    power = gpu_name_and_power()
+    rows = []
+    for heads, width, e in FLASH_INSTANCES:  # at the medium path's B and M
+        chunk = plain_chunk(GE_B, heads, GE_M)
+        for way, seed in (("fwd", 13), ("bwd", 17)):  # phases 9's and 12's inputs, in bf16
+            q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, seed + heads, dev, e, bf)
+            if way == "fwd":
+                kern = lambda: flash.flash_fwd(q, k, v, mask)  # noqa: E731
+                plain = lambda: flash.flash_attention_plain(  # noqa: E731
+                    q, k, v, mask, chunk=chunk)
+                lib = lambda: sdpa_ms(q, k, v, mask)[0]  # noqa: E731
+            else:
+                out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+                g = torch.Generator(device="cpu").manual_seed(seed + heads + 1)
+                dout = torch.randn(GE_B, GE_M, e, generator=g).to(dev).to(bf)
+                dout = dout.reshape(GE_B, GE_M, heads, width).transpose(1, 2)
+                kern = lambda: flash.flash_bwd(q, k, v, mask, out, m, l, dout)  # noqa: E731
+                plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
+                    q, k, v, mask, out, m, l, dout, chunk=chunk)
+                lib = lambda: sdpa_bwd_ms(q, k, v, mask, dout)[0]  # noqa: E731
+            name = f"flash_{way}_d{width}_bf16"
+            ms = cuda_ms(kern, iters=3, warmup=1)
+            plain_ms = cuda_ms(plain, iters=1, warmup=1)
+            lib_ms = lib()
+            bms, by = bf16_flash_bound_ms(way, heads, mask, e)
+            ms32 = f32_rows.get(f"flash_{way}_d{width}")
+            log(f"phase 25 (a): {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel "
+                f"{ms:.4f} ms, its float32 row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain "
+                f"{plain_ms:.4f} ms (chunks of {chunk} rows), bf16 scaled_dot_product_attention"
+                f"{' backward' if way == 'bwd' else ''} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+                f"bf16 products over the valid keys; {bms / ms:.3f} of it reached) ({power})")
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": 0, "max_abs_err": errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            })
+            del q, k, v, mask, kern, plain, lib
+            torch.cuda.empty_cache()
+    return errs, rows
+
+
+def phase25_ge_bf16(dev) -> dict:
+    """(b)-(d): GE-NaCAGaT under bfloat16 through the Trainer (medium from an
+    int8 store, cached and host-fed, graphed and eager, beside float32), the
+    card against the CPU, and GE small and big (a Trainer epoch and a
+    Predictor call each). Returns the launches of (b) and (d)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ge_bf16_")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "ge"), **GE_TRAINER_COHORT)
+        short = make_synthetic_cohort(os.path.join(root, "ge_short"), **GE_CPU_COHORT)
+        runs = {}
+        for what, settings in GE_BF16_RUNS:
+            log(f"phase 25 (b): GE medium, {what}: examples/ge_nacagat.yaml + {GE_TRAINER_SET} "
+                f"+ {settings}, two epochs")
+            for graphs in (True, False):
+                cfg = trainer_config("ge_nacagat.yaml", paths, os.path.join(root, f"b{len(runs)}"),
+                                     {**GE_TRAINER_SET, "training.epochs": 2, **settings})
+                before = read_counts()
+                run = _trainer_run("b", f"GE {what}, {'graphed' if graphs else 'eager'}", cfg,
+                                   graphs, power)
+                add(_counts_delta(before, read_counts()))
+                per_step, per_val = ge_bf16_launches("medium", settings["tpu.device_cache"] == "on",
+                                                     float32=what == "float32")
+                want = ({k: v * run["steps"] for k, v in per_step.items()},
+                        {k: v * run["val_batches"] for k, v in per_val.items()})
+                if (run["train_launches"], run["val_launches"]) != want:
+                    raise AssertionError(f"GE {what}: epoch 2 launches {run['train_launches']}, "
+                                         f"{run['val_launches']}, expected {want}")
+                runs[(what, graphs)] = run
+            _same_epochs(f"GE {what}: eager vs graphed", runs[(what, False)], runs[(what, True)])
+            log(f"  GE {what}: graphed == eager, bit for bit (both epochs' losses)")
+        _same_epochs("GE int8 transfer vs int8 store", runs[("int8 transfer, bf16 compute", True)],
+                     runs[("int8 store, bf16 compute", True)])
+        log("  GE int8 transfer, bf16 compute == int8 store, bf16 compute, bit for bit")
+        f32 = runs[("float32", True)]
+        for what in ("int8 store, bf16 compute", "int8 transfer, bf16 compute"):
+            run = runs[(what, True)]
+            log(f"  GE {what}, graphed, epoch 2: {run['n_train'] / run['train_s']:.2f} train "
+                f"bags/s, {run['n_val'] / run['val_s']:.2f} val bags/s; float32 cached graphed "
+                f"{f32['n_train'] / f32['train_s']:.2f} and {f32['n_val'] / f32['val_s']:.2f} "
+                f"({f32['train_s'] / run['train_s']:.2f}x, {f32['val_s'] / run['val_s']:.2f}x); "
+                f"peak device memory {run['peak_gib']:.2f} GiB against {f32['peak_gib']:.2f} GiB "
+                f"({power})")
+        if runs[("int8 store, bf16 compute", True)]["epochs"][0][0] == f32["epochs"][0][0]:
+            raise AssertionError("GE: the bf16 run's train loss equals float32's")
+
+        log("phase 25 (c): GE medium in bf16 from the int8 store, one epoch on the card and on "
+            f"the CPU, dropout 0 on both, on {GE_CPU_COHORT} + {GE_CPU_SET}, training seeds "
+            f"{GE_BF16_SEEDS}; a float32-compute control on the card")
+        for seed in GE_BF16_SEEDS:
+            ends = {}
+            for tag, where, extra in (("bf16 card", "cuda", {}), ("bf16 CPU", "cpu", {}),
+                                      ("f32 card", "cuda", {"tpu.compute_dtype": "float32"})):
+                cfg = trainer_config("ge_nacagat.yaml", short,
+                                     os.path.join(root, f"c{seed}{tag[:4]}{where}"),
+                                     {**GE_CPU_SET, **GE_BF16_RUNS[0][1], "training.epochs": 1,
+                                      "model.dropout": 0.0, "training.seed": seed, **extra})
+                trainer = Trainer(cfg, verbose=False, device=where)
+                before = read_counts()
+                t0 = time.perf_counter()
+                train, val = trainer.validated_epoch(0)
+                if where == "cuda":
+                    add(_counts_delta(before, read_counts()))
+                ends[tag] = (train["train_loss"], val["val_loss"], val["val_accuracy"])
+                log(f"  seed {seed}, {tag}: epoch 1 in {time.perf_counter() - t0:.2f} s, "
+                    f"train_loss {train['train_loss']!r}, val_loss {val['val_loss']!r}, "
+                    f"val_accuracy {val['val_accuracy']:.4f}")
+                del trainer
+            ref = ends["bf16 CPU"]
+            for tag in ("bf16 card", "f32 card"):
+                got = ends[tag]
+                read = (abs(got[0] - ref[0]) / abs(ref[0]), abs(got[1] - ref[1]) / abs(ref[1]))
+                log(f"  seed {seed}, {tag} vs bf16 CPU: train_loss relative {read[0]:.3e}, "
+                    f"val_loss relative {read[1]:.3e}, val_accuracy {got[2]:.4f} vs {ref[2]:.4f}"
+                    + (f" (limits {GE_BF16_CPU_TRAIN_RTOL:g}, {GE_BF16_CPU_VAL_RTOL:g})"
+                       if tag == "bf16 card" else " (the control)"))
+                if tag == "bf16 card" and not (read[0] <= GE_BF16_CPU_TRAIN_RTOL
+                                               and read[1] <= GE_BF16_CPU_VAL_RTOL):
+                    raise AssertionError(f"seed {seed}: the GE bf16 card run disagrees with "
+                                         "the CPU")
+            if ends["bf16 card"][:2] == ends["f32 card"][:2]:
+                raise AssertionError(f"seed {seed}: the GE bf16 card run equals float32 compute")
+
+        for size in ("small", "big"):
+            log(f"phase 25 (d): GE {size} in bf16 from the int8 store on {GE_CPU_COHORT}: one "
+                "Trainer epoch, then Predictor.from_trainer().predict_bags on 6 bags")
+            # dropout 0: below 4096 positions live attention dropout keeps
+            # attention_core in training (ops/attention.py)
+            cfg = trainer_config("ge_nacagat.yaml", short, os.path.join(root, f"d{size}"),
+                                 {**GE_CPU_SET, **GE_BF16_RUNS[0][1], "model.model_size": size,
+                                  "model.dropout": 0.0})
+            trainer = Trainer(cfg, verbose=False)
+            before = read_counts()
+            train, val = trainer.validated_epoch(0)
+            torch.cuda.synchronize()
+            got = _counts_delta(before, read_counts())
+            per_step, per_val = ge_bf16_launches(size, True)
+            want = {k: per_step.get(k, 0) * trainer.last_epoch_steps
+                    + per_val.get(k, 0) * len(trainer.val_batcher)
+                    for k in set(per_step) | set(per_val)}
+            add(got)
+            if got != want or not (math.isfinite(train["train_loss"])
+                                   and math.isfinite(val["val_loss"])):
+                raise AssertionError(f"GE {size} bf16 epoch: launches {got}, expected {want}")
+            pred = Predictor.from_trainer(trainer)
+            rng = np.random.default_rng(25)
+            bags = [rng.standard_normal((int(n), 1024), dtype=np.float32)
+                    for n in rng.integers(600, 2049, size=6)]
+            before = read_counts()
+            y = pred.predict_bags(bags)["y"]
+            torch.cuda.synchronize()
+            got = _counts_delta(before, read_counts())
+            add(got)
+            w1, w2 = ge_widths(size)
+            if not (set(got) == {f"flash_fwd_d{w1}_bf16", f"flash_fwd_d{w2}_bf16"}
+                    and np.isfinite(y).all() and np.allclose(y.sum(-1), 1.0, atol=1e-5)):
+                raise AssertionError(f"GE {size} bf16 Predictor: launches {got}, y {y}")
+            log(f"  GE {size}: epoch train_loss {train['train_loss']:.6f}, val_loss "
+                f"{val['val_loss']:.6f}, launches as planned; predict_bags launches {got}, y "
+                "finite, rows summing to 1")
+            del trainer, pred
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
         f"{ {k: v for k, v in total.items() if v} } ({power})")
     return total
 
@@ -4501,7 +4910,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-24")
+                         "Trainer epoch host-fed and cached instead of phases 1-25")
     args = ap.parse_args()
     try:
         import torch
@@ -4638,6 +5047,20 @@ def main() -> int:
     for row in rows:  # the float32 kernels of the bfloat16-store runs
         row["launches"] += p24.get(row["name"], 0)
     rows += rows24
+    torch.cuda.empty_cache()
+    errs25, rows25 = phase25_bf16_flash_kernels(
+        dev, {row["name"]: row["ms"] for row in rows if row["name"].startswith("flash_")})
+    errs.update(errs25)
+    torch.cuda.empty_cache()
+    reset_counts()  # phase 25 (b)-(d), GE through the Trainer in bf16: the rows' main path
+    p25 = phase25_ge_bf16(dev)
+    for row in rows25:
+        row["launches"] = p25.get(row["name"], 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on phase 25's Trainer runs")
+    for row in rows:  # the float32 GE kernels of (b)'s float32 run and (c)'s control
+        row["launches"] += p25.get(row["name"], 0)
+    rows += rows25
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

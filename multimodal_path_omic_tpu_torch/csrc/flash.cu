@@ -1,4 +1,5 @@
-// Masked flash self-attention forward for Hopper (sm_90a), float32.
+// Masked flash self-attention forward for Hopper (sm_90a), float32 and
+// bfloat16 instances.
 //
 // Replaces multimodal_path_omic_tpu/ops/flash.py::flash_attention (the JAX
 // package hands GE-NaCAGaT's M x M self-attention to JAX's library Pallas TPU
@@ -34,6 +35,16 @@
 // dh 16, 32, 64 (128 queries x 64 keys), 128, 256 (64 x 64) and 512 (32 x 32,
 // scores split over two depth halves).
 //
+// The bfloat16 instances (GE under a bfloat16 compute dtype; the JAX package
+// hands the library kernel bfloat16 q, k, v) keep the same tiles and
+// phases. q, k, v stay bfloat16 in shared memory (cp.async copies their
+// bytes), both products are bfloat16 mma.sync.m16n8k16 with float32 sums
+// (a product of two bfloat16 values is exact in float32), and the kernel
+// rounds where the TPU kernel does: the scale multiplies the float32 sum
+// q k^T, p is rounded to bfloat16 before P V (m and l come from the
+// unrounded p and stay float32), and out is written in bfloat16. Bound by
+// operations at the bfloat16 rate (989 TFLOP/s), 6x the 3xTF32 form's.
+//
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launch (0 = success); allocates nothing, runs on the caller's stream.
 
@@ -43,46 +54,59 @@ namespace {
 
 using namespace mpo;
 
-template <int DH, int BR, int BC, int WK, int NW>
+template <typename T, int DH, int BR, int BC, int WK, int NW>
 struct FwdCfg {
-  using T = Tiles<DH, BR, BC, WK, NW>;
-  // q, K, V tiles; WK partial score tiles (slice 0 then holds P); m, l, alpha
-  static constexpr int SMEM_BYTES =
-      4 * (BR * T::XS + 2 * BC * T::XS + WK * BR * T::SS + 3 * BR);
+  using Tl = Tiles<DH, BR, BC, WK, NW>;
+  static constexpr bool BF = IS_BF16<T>;
+  static constexpr int XS = BF ? DH + 8 : Tl::XS;  // row stride of an operand tile (values)
+  static constexpr int PS = BF ? BC + 8 : Tl::SS;  // row stride of the p tile
+  // q, K, V tiles (T); WK partial score tiles (float32; in float32 slice 0
+  // then holds p); the bfloat16 p tile; m, l, alpha
+  static constexpr int SMEM_BYTES = (int)sizeof(T) * (BR + 2 * BC) * XS +
+                                    4 * (WK * BR * Tl::SS + 3 * BR) + (BF ? 2 * BR * PS : 0);
   static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+  static_assert(!BF || (Tl::KD % 16 == 0 && BC % 16 == 0), "bfloat16 MMA depth 16");
 };
 
 // q, k, v: element (b, h, i, d) at base + b*sb + h*sh + i*sl + d (strides in
-// floats, multiples of 4; bases 16-byte aligned). mask [B, L] bool or NULL.
-// out [B, L, H, DH] contiguous. m_out, l_out [B, H, L] (each row's running
-// maximum and the sum of exp(s - m) over its keys, what the backward
-// recomputes p from) or both NULL.
-template <int DH, int BR, int BC, int WK, int NW, int MINB>
+// values, multiples of 16 bytes; bases 16-byte aligned). mask [B, L] bool or
+// NULL. out [B, L, H, DH] contiguous. m_out, l_out [B, H, L] float32 (each
+// row's running maximum and the sum of exp(s - m) over its keys, what the
+// backward recomputes p from) or both NULL.
+// T = float: the scores are (q * scale) k^T, q scaled as it lands in shared
+// memory; p stays float32. T = __nv_bfloat16 (the TPU kernel's roundings,
+// jax/experimental/pallas/ops/tpu/flash_attention.py): s = (q k^T) * scale,
+// the scale applied to the float32 sum; m and l from the unrounded p; p
+// rounded to bfloat16 for P V; out = o / l written in bfloat16.
+template <typename T, int DH, int BR, int BC, int WK, int NW, int MINB>
 __global__ void __launch_bounds__(32 * NW, MINB)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                 int H, int L, long long q_sb, long long q_sh, long long q_sl, long long k_sb,
-                 long long k_sh, long long k_sl, long long v_sb, long long v_sh, long long v_sl,
-                 float scale) {
-  using T = Tiles<DH, BR, BC, WK, NW>;
-  constexpr int XS = T::XS, SS = T::SS, NT = T::NT, NA = T::NA;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                // [BR][XS]: q * scale
-  float* k_s = q_s + BR * XS;       // [BC][XS]: the key tile
-  float* v_s = k_s + BC * XS;       // [BC][XS]: the value tile
-  float* s_s = v_s + BC * XS;       // [WK][BR][SS]: partial scores; slice 0 then p
-  float* m_s = s_s + WK * BR * SS;  // [BR]: running maximum
-  float* l_s = m_s + BR;            // [BR]: running sum
-  float* a_s = l_s + BR;            // [BR]: this tile's rescale factor
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const uint8_t* __restrict__ mask, T* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int H, int L,
+                 long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
+                 long long k_sl, long long v_sb, long long v_sh, long long v_sl, float scale) {
+  using Tl = Tiles<DH, BR, BC, WK, NW>;
+  using Cfg = FwdCfg<T, DH, BR, BC, WK, NW>;
+  constexpr bool BF = Cfg::BF;
+  constexpr int XS = Cfg::XS, PS = Cfg::PS, SS = Tl::SS, NT = Tl::NT, NA = Tl::NA;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);  // [BR][XS]: q (float32: q * scale)
+  T* k_s = q_s + BR * XS;               // [BC][XS]: the key tile
+  T* v_s = k_s + BC * XS;               // [BC][XS]: the value tile
+  float* s_s = reinterpret_cast<float*>(v_s + BC * XS);  // [WK][BR][SS]: partial scores
+  // [BR][PS]: p (float32: over slice 0 of the scores)
+  T* p_s = BF ? reinterpret_cast<T*>(s_s + WK * BR * SS) : reinterpret_cast<T*>(s_s);
+  float* m_s = BF ? reinterpret_cast<float*>(p_s + BR * PS) : s_s + WK * BR * SS;  // [BR]
+  float* l_s = m_s + BR;  // [BR]: running sum
+  float* a_s = l_s + BR;  // [BR]: this tile's rescale factor
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T tl(warp);
+  const Tl tl(warp);
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * BR;
-  const float* q_b = q + (long long)b * q_sb + (long long)h * q_sh;
-  const float* k_b = k + (long long)b * k_sb + (long long)h * k_sh;
-  const float* v_b = v + (long long)b * v_sb + (long long)h * v_sh;
+  const T* q_b = q + (long long)b * q_sb + (long long)h * q_sh;
+  const T* k_b = k + (long long)b * k_sb + (long long)h * k_sh;
+  const T* v_b = v + (long long)b * v_sb + (long long)h * v_sh;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
 
   const int n_tiles = (L + BC - 1) / BC;
@@ -90,14 +114,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int t = next_tile<BC>(mask_b, 0, n_tiles, L, skip);  // < n_tiles: L >= 1
   load_tile_async<BC, DH, XS>(k_s, k_b, k_sl, t * BC, L);
   cp_async_commit();
-  load_tile<BR, DH, XS>(q_s, q_b, q_sl, q0, L, scale);
+  if constexpr (BF) {  // waited for with the first key tile
+    load_tile_async<BR, DH, XS>(q_s, q_b, q_sl, q0, L);
+    cp_async_commit();
+  } else {
+    load_tile<BR, DH, XS>(q_s, q_b, q_sl, q0, L, scale);
+  }
   for (int i = tid; i < BR; i += 32 * NW) {
     m_s[i] = -3.0e38f;
     l_s[i] = 0.f;
   }
 
   const int r0 = 16 * tl.wr;                  // the warp's rows
-  const int n0s = 8 * NT * tl.wn, k0s = T::KD * tl.wk;  // its scores' columns, depths
+  const int n0s = 8 * NT * tl.wn, k0s = Tl::KD * tl.wk;  // its scores' columns, depths
   const int n0a = 8 * NA * tl.wc;             // its output columns
   float o[NA][4];
   zero_c<NA>(o);
@@ -109,11 +138,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();
     __syncthreads();  // the key tile (and q_s, m_s, l_s the first time) ready
 
-    // ---- S = (q * scale) K^T ----
+    // ---- S = (q * scale) K^T (bfloat16: q K^T) ----
     {
       float s[NT][4];
       zero_c<NT>(s);
-      row_product<NT, T::KD, T::GR>(s, q_s, XS, k_s, XS, r0, n0s, k0s, lane);
+      row_product<NT, Tl::KD, Tl::GR>(s, q_s, XS, k_s, XS, r0, n0s, k0s, lane);
       store_c<NT>(s, s_s + tl.wk * BR * SS, SS, r0, n0s, lane);
     }
     __syncthreads();  // scores complete, k_s free
@@ -121,7 +150,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tn < n_tiles) load_tile_async<BC, DH, XS>(k_s, k_b, k_sl, tn * BC, L);
     cp_async_commit();
 
-    // ---- key mask, online softmax (one warp a row), P over the scores ----
+    // ---- key mask, online softmax (one warp a row), P ----
     constexpr int CPL = (BC + 31) / 32;
     for (int i = warp; i < BR; i += NW) {
       float x[CPL];
@@ -134,6 +163,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float sum = s_s[i * SS + c];
 #pragma unroll
           for (int w = 1; w < WK; ++w) sum += s_s[(w * BR + i) * SS + c];
+          if constexpr (BF) sum *= scale;
           x[u] = (mask_b == nullptr || mask_b[key] != 0) ? sum : MASK_NEG;
         }
         mx = fmaxf(mx, x[u]);
@@ -146,7 +176,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int c = lane + 32 * u;
         const float p = expf(x[u] - m_new);
         ps += p;
-        if (c < BC) s_s[i * SS + c] = p;
+        if (c < BC) store1(p_s + i * PS + c, p);  // bfloat16: rounded
       }
       ps = warp_sum(ps);
       if (lane == 0) {
@@ -171,8 +201,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         o[j][3] *= a1;
       }
     }
-    acc_product<NA, BC, T::GA>(o, s_s, SS, v_s, XS, r0, n0a, lane);
-    __syncthreads();  // v_s and s_s are rewritten by the next tile
+    acc_product<NA, BC, Tl::GA>(o, p_s, PS, v_s, XS, r0, n0a, lane);
+    __syncthreads();  // v_s and the p / score tiles are rewritten by the next tile
     t = tn;
   }
   cp_async_wait<0>();
@@ -184,11 +214,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int i = r0 + g + 8 * half, row = q0 + i;
     if (row < L) {
       const float l = l_s[i], inv = l == 0.f ? 1.f : 1.f / l;
-      float* orow = out + (((size_t)b * L + row) * H + h) * DH + n0a + 2 * tq;
+      T* orow = out + (((size_t)b * L + row) * H + h) * DH + n0a + 2 * tq;
 #pragma unroll
       for (int j = 0; j < NA; ++j)
-        *reinterpret_cast<float2*>(orow + 8 * j) =
-            make_float2(o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
+        store2(orow + 8 * j, o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
     }
   }
   if (m_out != nullptr)  // the backward's softmax statistics
@@ -198,45 +227,36 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int DH, int BR, int BC, int WK, int NW, int MINB>
-int launch_flash(const float* q, const float* k, const float* v, const uint8_t* mask,
-                 float* out, float* m_out, float* l_out, int B, int H, int L,
-                 const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem = FwdCfg<DH, BR, BC, WK, NW>::SMEM_BYTES;
+template <typename T, int DH, int BR, int BC, int WK, int NW, int MINB>
+int launch_flash(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, float* m_out,
+                 float* l_out, int B, int H, int L, const long long* st, float scale,
+                 cudaStream_t stream) {
+  constexpr int smem = FwdCfg<T, DH, BR, BC, WK, NW>::SMEM_BYTES;
   static bool smem_allowed[64] = {};
-  const int err = allow_dynamic_smem(flash_fwd_kernel<DH, BR, BC, WK, NW, MINB>, smem, smem_allowed);
+  const int err = allow_dynamic_smem(flash_fwd_kernel<T, DH, BR, BC, WK, NW, MINB>, smem,
+                                     smem_allowed);
   if (err) return err;
   const dim3 grid((L + BR - 1) / BR, B * H);
-  flash_fwd_kernel<DH, BR, BC, WK, NW, MINB><<<grid, 32 * NW, smem, stream>>>(
+  flash_fwd_kernel<T, DH, BR, BC, WK, NW, MINB><<<grid, 32 * NW, smem, stream>>>(
       q, k, v, mask, out, m_out, l_out, H, L, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// q, k, v: [B, H, L, DH] views with unit stride on DH; strides (batch, head,
-// position) in floats, each a multiple of 4, bases 16-byte aligned. mask
-// [B, L] bool or NULL. Out: [B, L, H, DH] contiguous; m_out and l_out [B, H, L]
-// contiguous, or both NULL. DH in {16, 32, 64, 128, 256, 512}; B * H <= 65535.
-int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* mask,
-                  float* out, float* m_out, float* l_out, int B, int H, int L, int DH,
-                  long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
-                  long long k_sl, long long v_sb, long long v_sh, long long v_sl, float scale,
-                  void* stream) {
+template <typename T>
+int flash_fwd(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, float* m_out,
+              float* l_out, int B, int H, int L, int DH, const long long* st, float scale,
+              void* stream) {
   if (B < 1 || H < 1 || L < 1 || (long long)B * H > 65535) return (int)cudaErrorInvalidValue;
   if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
-  const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
   for (int i = 0; i < 9; ++i)
-    if (st[i] % 4 != 0) return (int)cudaErrorInvalidValue;
+    if (st[i] % (16 / (int)sizeof(T)) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // (width, queries a block, keys a tile, depth slices of the scores, warps
   // a block, blocks an SM: two where the shared memory allows, which caps
   // registers at 128)
 #define MPO_FWD(D, BR, BC, WK, NW, MINB) \
-  launch_flash<D, BR, BC, WK, NW, MINB>(q, k, v, mask, out, m_out, l_out, B, H, L, st, scale, s)
+  launch_flash<T, D, BR, BC, WK, NW, MINB>(q, k, v, mask, out, m_out, l_out, B, H, L, st, scale, s)
   switch (DH) {
     case 16: return MPO_FWD(16, 128, 64, 1, 8, 2);
     case 32: return MPO_FWD(32, 128, 64, 1, 8, 2);
@@ -247,6 +267,35 @@ int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t*
     default: return (int)cudaErrorInvalidValue;
   }
 #undef MPO_FWD
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v: [B, H, L, DH] views with unit stride on DH; strides (batch, head,
+// position) in values, each a multiple of 16 bytes, bases 16-byte aligned.
+// mask [B, L] bool or NULL. Out: [B, L, H, DH] contiguous; m_out and l_out
+// [B, H, L] float32 contiguous, or both NULL. DH in {16, 32, 64, 128, 256,
+// 512}; B * H <= 65535.
+int mpo_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* mask,
+                  float* out, float* m_out, float* l_out, int B, int H, int L, int DH,
+                  long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
+                  long long k_sl, long long v_sb, long long v_sh, long long v_sl, float scale,
+                  void* stream) {
+  const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
+  return flash_fwd<float>(q, k, v, mask, out, m_out, l_out, B, H, L, DH, st, scale, stream);
+}
+
+// The same in bfloat16: q, k, v and out bfloat16, m_out and l_out float32.
+int mpo_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                       const uint8_t* mask, __nv_bfloat16* out, float* m_out, float* l_out, int B,
+                       int H, int L, int DH, long long q_sb, long long q_sh, long long q_sl,
+                       long long k_sb, long long k_sh, long long k_sl, long long v_sb,
+                       long long v_sh, long long v_sl, float scale, void* stream) {
+  const long long st[9] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl};
+  return flash_fwd<__nv_bfloat16>(q, k, v, mask, out, m_out, l_out, B, H, L, DH, st, scale,
+                                  stream);
 }
 
 }  // extern "C"

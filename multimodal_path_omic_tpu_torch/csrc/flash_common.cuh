@@ -374,6 +374,125 @@ __device__ __forceinline__ void zero_c(float (&c)[NT][4]) {
   for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 tiles and products (the flash kernels' bfloat16 instances)
+//
+// Operands stay bfloat16 in shared memory: cp.async copies their bytes as
+// they are (8 values a 16-byte copy), rows padded by 8 values so that a
+// warp's 4-byte fragment loads and ldmatrix's 16-byte rows hit distinct
+// banks. Products are mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: each
+// product of two bfloat16 values is exact in float32, the sum float32.
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), g = lane / 4, t = lane % 4,
+// two values a register, the lower column (or k) in the low half:
+//   A a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B b0 (k = 2t..2t+1, n = g)  b1 (k = 2t+8.., n = g)
+//   C as the TF32 form's
+// The A operand and the B operand of a "row" product (Y indexed (n, k)) are
+// pairs of neighbours in a row: one 4-byte load each. The B operand of an
+// "acc" product (Y indexed (k, n), row-major) pairs two rows: ldmatrix
+// .trans reads 8 x 8 blocks and hands each lane its transposed pair.
+// ---------------------------------------------------------------------------
+
+// 16 bytes device -> shared, the bytes as they are (zeros without pred).
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+// Rows r0 .. r0+ROWS-1 of a bfloat16 operand [L][DH] (row stride sl values,
+// a multiple of 8) into a bfloat16 tile [ROWS][STRIDE], asynchronously;
+// zero rows past L.
+template <int ROWS, int DH, int STRIDE>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* __restrict__ dst,
+                                                const __nv_bfloat16* __restrict__ src,
+                                                long long sl, int r0, int L) {
+  constexpr int V8 = DH / 8;
+  for (int idx = threadIdx.x; idx < ROWS * V8; idx += blockDim.x) {
+    const int row = idx / V8, c = idx % V8;
+    const bool ok = r0 + row < L;
+    cp_async16(dst + row * STRIDE + 8 * c, ok ? src + (long long)(r0 + row) * sl + 8 * c : src,
+               ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t lds_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows r0.. (16) and columns k0.. (16) of a row-major tile.
+__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[4], const __nv_bfloat16* __restrict__ x,
+                                            int xs, int r0, int k0, int lane) {
+  const __nv_bfloat16* p = x + (r0 + (lane >> 2)) * xs + k0 + 2 * (lane & 3);
+  a[0] = lds_pair(p);
+  a[1] = lds_pair(p + 8 * xs);
+  a[2] = lds_pair(p + 8);
+  a[3] = lds_pair(p + 8 * xs + 8);
+}
+
+// The B fragment of k rows k0 .. k0+15 and columns n0 .. n0+7 of a row-major
+// tile Y[k][n] (rows 16-byte aligned): lanes 0-15 name the 16 rows.
+__device__ __forceinline__ void load_b_trans_bf16(uint32_t (&b)[2],
+                                                  const __nv_bfloat16* __restrict__ y, int ys,
+                                                  int k0, int n0, int lane) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(y + (k0 + (lane & 15)) * ys + n0);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(s));
+}
+
+// "row" product, bfloat16 operands: c[j] += X[r0.. +16][k] Y[n0 + 8j .. +8][k]^T
+// over depths k0 .. k0+KD-1 (the float32 form's arguments; G unused).
+template <int NT, int KD, int G>
+__device__ __forceinline__ void row_product(float (&c)[NT][4],
+                                            const __nv_bfloat16* __restrict__ x, int xs,
+                                            const __nv_bfloat16* __restrict__ y, int ys, int r0,
+                                            int n0, int k0, int lane) {
+  static_assert(KD % 16 == 0, "bfloat16 MMA depth");
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int kk = k0; kk < k0 + KD; kk += 16) {
+    uint32_t a[4];
+    load_a_bf16(a, x, xs, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* p = y + (n0 + 8 * j + g) * ys + kk + 2 * t;
+      const uint32_t b[2] = {lds_pair(p), lds_pair(p + 8)};
+      mma_bf16(c[j], a, b);
+    }
+  }
+}
+
+// "acc" product, bfloat16 operands: c[j] += P[r0.. +16][k] Y[k][n0 + 8j .. +8]
+// over k in 0 .. KC-1 (the float32 form's arguments; G unused).
+template <int NT, int KC, int G>
+__device__ __forceinline__ void acc_product(float (&c)[NT][4],
+                                            const __nv_bfloat16* __restrict__ p, int ps,
+                                            const __nv_bfloat16* __restrict__ y, int ys, int r0,
+                                            int n0, int lane) {
+  static_assert(KC % 16 == 0, "bfloat16 MMA depth");
+#pragma unroll 1
+  for (int kk = 0; kk < KC; kk += 16) {
+    uint32_t a[4];
+    load_a_bf16(a, p, ps, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t b[2];
+      load_b_trans_bf16(b, y, ys, kk, n0 + 8 * j, lane);
+      mma_bf16(c[j], a, b);
+    }
+  }
+}
+
 // The tile shape both kernels share. A block of NW warps owns BR rows (held in
 // shared memory for its life) and walks the other side in tiles of BC rows.
 //   * row products (BR x BC scores): warp w takes rows 16 (w % WR) and, of the

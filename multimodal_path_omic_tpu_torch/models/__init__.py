@@ -23,19 +23,14 @@ def is_ge_model(name: str) -> bool:
 def require_compute_dtype(name: str, dtype, device, model_size: str = "medium") -> None:
     """Refuse a bfloat16 compute dtype on the card for a model whose
     attention kernels have no bfloat16 instance at its width yet (ROADMAP.md
-    queue 2 item 5): GE-NaCAGaT (its flash self-attention kernels; the M x M
-    ``attention_core`` at M = 16384 is no route) and NaCAGaT where the
-    fuse-K kernels or the export passes lack the instance (``big``: E = D =
-    512). MCAT's lean branch runs no kernel. On the CPU each runs the plain
-    versions. (A module off the lean routes, ``lean=False``, raises where it
-    reaches a kernel without a bfloat16 instance: ``ops/kernels.py::takes``.)"""
+    queue 2 item 5): NaCAGaT where the fuse-K kernels or the export passes
+    lack the instance (``big``: E = D = 512). GE-NaCAGaT's flash kernels
+    have bfloat16 instances at every width; MCAT's lean branch runs no
+    kernel. On the CPU each runs the plain versions. (A module off the lean
+    routes, ``lean=False``, raises where it reaches a kernel without a
+    bfloat16 instance: ``ops/kernels.py::takes``.)"""
     if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
         return
-    if is_ge_model(name):
-        raise NotImplementedError(
-            "GE-NaCAGaT with tpu.compute_dtype bfloat16 on the card: the flash "
-            "self-attention kernels have no bfloat16 instance yet and the M x M "
-            "attention_core is no route at its bag lengths (ROADMAP.md queue 2 item 5)")
     e = MODEL_SIZES[model_size][1]
     bf16 = torch.bfloat16
     if _key(name) in NACAGAT_NAMES and not (

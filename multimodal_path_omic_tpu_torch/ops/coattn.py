@@ -52,10 +52,10 @@ bfloat16 after its projection, tanh(q) and tanh(k) rounded to bfloat16,
 pd . kv in float32, o (and dq, dkv) written in bfloat16, l, m, ssq, sumw,
 the weights, dwk and dbk in float32 (dwk and dbk then cast to wk's type, as
 ``_coattn_fk_bwd`` does). The plain versions take bfloat16 inputs with the
-same roundings (:func:`_round_bf16`). No other kernel has a bfloat16
-instance: the predicates refuse bfloat16 there, and the dispatchers take
-``attention_core`` on the CPU and raise on the card (``kernels.takes``;
-ROADMAP queue 2 item 5).
+same roundings (``layers.round_bf16``). The flash kernels have bfloat16
+instances too (``ops/flash.py``); no other kernel has one: the predicates
+refuse bfloat16 there, and the dispatchers take ``attention_core`` on the
+CPU and raise on the card (``kernels.takes``; ROADMAP queue 2 item 5).
 
 Attention dropout (training form) follows torch: weights are normalized
 first, then dropped and rescaled by ``1 / (1 - rate)``. The TPU kernel draws
@@ -74,6 +74,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_path_omic_tpu_torch.ops import kernels
+from multimodal_path_omic_tpu_torch.ops.layers import round_bf16
 
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
@@ -99,11 +100,6 @@ LAUNCH_COUNTS = {
 }
 
 
-def _suffix(dtype: torch.dtype) -> str:
-    """The entry point and launch count suffix of a kernel instance's type."""
-    return "_bf16" if dtype == torch.bfloat16 else ""
-
-
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
@@ -114,17 +110,9 @@ def reset_launch_counts() -> None:
 # =============================================================================
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """``x``'s values rounded to bfloat16 and kept in float32, the gradient
-    passed straight through: the bfloat16 kernels' roundings of k and of
-    tanh(q), tanh(k), whose backward uses the rounded values and no rounding
-    of the cotangent."""
-    return x + (x.to(torch.bfloat16).float() - x).detach()
-
-
 def _rounding(dtype: torch.dtype):
     """The rounding of an instance's type (None: float32, none)."""
-    return _round_bf16 if dtype == torch.bfloat16 else None
+    return round_bf16 if dtype == torch.bfloat16 else None
 
 
 def _scores(q, k, key_mask, pre_gate, rt=None):
@@ -395,7 +383,7 @@ def coattn_fwd_fused_k(
     o_part = torch.empty((blocks + b, n, f), device=dev)
     ml_part = torch.empty((blocks + b, n, 2), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    sfx = _suffix(q.dtype)
+    sfx = kernels.suffix(q.dtype)
     err = getattr(kernels.library("coattn"), "mpo_coattn_fwd_fused_k" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), sumw.data_ptr(),
@@ -437,7 +425,7 @@ def coattn_fwd_fused_k_train(
     o_part = torch.empty((blocks + b, n, f), device=dev)
     ml_part, sq_part = (torch.empty((blocks + b, n, 2), device=dev) for _ in range(2))
     flags, units, offsets = _tile_list(b, m_len, dev)
-    sfx = _suffix(q.dtype)
+    sfx = kernels.suffix(q.dtype)
     err = getattr(kernels.library("coattn"), "mpo_coattn_fwd_fused_k_train" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
@@ -487,7 +475,7 @@ def coattn_bwd_fused_k(
     dbk_part = torch.empty((sms, e), device=dev)
     dk_scratch = torch.empty((b, m_len, e), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    sfx = _suffix(q.dtype)
+    sfx = kernels.suffix(q.dtype)
     err = getattr(kernels.library("coattn_bwd"), "mpo_coattn_bwd_fused_k" + sfx)(
         q.data_ptr(), kv.data_ptr(), wk.data_ptr(), bk.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
@@ -570,7 +558,7 @@ def _stats_on_card(q, k, key_mask, pre_gate):
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
     ml_part = torch.empty((blocks + b, n, 2), device=dev)
     tiles = _tile_list(b, m_len, dev)
-    sfx = _suffix(q.dtype)
+    sfx = kernels.suffix(q.dtype)
     err = getattr(kernels.library("coattn"), "mpo_coattn_stats" + sfx)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), ml_part.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks,
@@ -591,7 +579,7 @@ def _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles=None):
     w = torch.empty((b, n, m_len), device=dev)
     ready = tiles is not None
     tiles = tiles if ready else _tile_list(b, m_len, dev)
-    sfx = _suffix(q.dtype)
+    sfx = kernels.suffix(q.dtype)
     err = getattr(kernels.library("coattn"), "mpo_coattn_weights" + sfx)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), w.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks, int(ready),

@@ -64,9 +64,11 @@ SIGNATURES.update({
     },
     "flash": {
         "mpo_flash_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_F, _P],
+        "mpo_flash_fwd_bf16": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_F, _P],
     },
     "flash_bwd": {
         "mpo_flash_bwd": [_P] * 12 + [_I] * 4 + [_P, _F, _P],
+        "mpo_flash_bwd_bf16": [_P] * 12 + [_I] * 4 + [_P, _F, _P],
     },
     "gather": {
         "mpo_gather_rows": [_P] * 3 + [_L] * 2 + [_I, _P],
@@ -170,7 +172,7 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32, *,
     """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of the
     given shape and type (what every kernel's float4 loads assume). With
     ``strided`` a view the kernel reads in place also passes: unit stride on
-    the last axis and every other stride a multiple of 4 elements."""
+    the last axis and every other stride a multiple of 16 bytes."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -178,13 +180,19 @@ def require(t: torch.Tensor, name: str, shape, dtype=torch.float32, *,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if strided:
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]):
+        step = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % step for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs unit stride on its last axis and every other "
-                             f"stride a multiple of 4, got strides {t.stride()}")
+                             f"stride a multiple of {step}, got strides {t.stride()}")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16 != 0:
         raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+
+
+def suffix(dtype: torch.dtype) -> str:
+    """The entry point and launch count suffix of a kernel instance's type."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def takes(what: str, supports, device, *shape, dtype: torch.dtype, **kw) -> bool:

@@ -26,6 +26,15 @@ from torch import nn
 NEG_INF = -1e9
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values rounded to bfloat16 and kept in float32, the gradient
+    passed straight through: the bfloat16 kernels' roundings (k, tanh(q),
+    tanh(k) in the co-attention kernels; p and ds in the flash kernels),
+    whose backward uses the rounded values and no rounding of the
+    cotangent."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()
+
+
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
     """Set ``compute_dtype`` on ``module`` and every submodule (None or
     float32: float32; bfloat16). Returns ``module``."""

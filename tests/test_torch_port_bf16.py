@@ -408,11 +408,11 @@ def test_survival_models_bf16_match_jax(name, loss_name, monkeypatch):
 
 
 def test_ge_nacagat_bf16_matches_jax():
-    """GE-NaCAGaT at bfloat16 on the CPU (the plain versions: no flash or
-    MIL-pool kernel takes bfloat16, so the self-attentions take
-    attention_core and the pool its eager branch) against the JAX model
-    with dtype=bfloat16: the class probabilities, float32, and a training
-    forward's gradients."""
+    """GE-NaCAGaT at bfloat16 on the CPU (the plain versions: the
+    self-attentions take the flash kernels' bfloat16 plain versions; no
+    MIL-pool kernel takes bfloat16, so the pool takes its eager branch)
+    against the JAX model with dtype=bfloat16: the class probabilities,
+    float32, and a training forward's gradients."""
     params = _jax_params(JGE)
     batch = _batch(96, (90, 40), 2, classes=3)
     model_j = JGE(model_size="small", dropout_rate=0.0, dtype=jnp.bfloat16)

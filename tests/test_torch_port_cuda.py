@@ -510,12 +510,12 @@ def test_mil_pool_kernel_matches_plain_on_card(dev, b, m_len, d, h, masked):
     assert milpool.LAUNCH_COUNTS["milpool"] == before + 2
 
 
-def _flash_inputs(dev, b, heads, width, m_len, seed, packed):
+def _flash_inputs(dev, b, heads, width, m_len, seed, packed, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
     e = heads * width
     qkv = torch.randn(b, m_len, 3 * e, generator=g)
     qkv[..., :e] *= 1.5
-    qkv = qkv.to(dev)
+    qkv = qkv.to(dev).to(dtype)
     q, k, v = (t.reshape(b, m_len, heads, width).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     if not packed:
         q, k, v = (t.contiguous() for t in (q, k, v))
@@ -1833,13 +1833,85 @@ def test_bf16_nacagat_train_step_on_card_matches_cpu(dev, monkeypatch):
 
 
 def test_ge_bf16_trainer_is_refused_on_card(dev):
-    """GE-NaCAGaT with tpu.compute_dtype bfloat16 on the card: the Trainer
-    raises before it reads any data, naming ROADMAP queue 2 item 5 (the
-    flash kernels have no bfloat16 instance)."""
-    from multimodal_path_omic_tpu_torch.config import config_from_dict
-    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+    """GE-NaCAGaT with tpu.compute_dtype bfloat16 on the card, once refused
+    (the flash kernels had no bfloat16 instance): the Trainer's gate now
+    passes at every size, and the model at each size takes a training
+    forward and backward on the card through its two widths' bfloat16
+    instances (1 + 2 forward and 1 + 2 backward launches) with the class
+    probabilities within 5e-2 of the CPU's bfloat16 plain versions on the
+    same weights (cuBLAS and the CPU round the other matmuls at other
+    places) and float32 parameter gradients."""
+    from multimodal_path_omic_tpu_torch.models import build_model, require_compute_dtype
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
-    cfg = config_from_dict({"model": {"name": "GE-NaCAGaT"}, "training": {"loss": "ce"},
-                            "tpu": {"compute_dtype": "bfloat16"}})
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        Trainer(cfg, verbose=False)
+    g = torch.Generator().manual_seed(5)
+    wsi = torch.randn(2, 300, 64, generator=g)
+    mask = torch.arange(300)[None] < torch.tensor([[300], [170]])
+    for size, widths in (("small", (128, 16)), ("medium", (256, 32)), ("big", (512, 64))):
+        require_compute_dtype("GE-NaCAGaT", BF16, dev, size)
+        ys = []
+        for where in (dev, "cpu"):
+            model = seeded_init_(build_model("GE-NaCAGaT", model_size=size, dropout=0.0,
+                                             wsi_dim=64, dtype=BF16), 0).to(where).train()
+            before = dict(flash.LAUNCH_COUNTS)
+            y, _ = model(wsi.to(where), mask.to(where),
+                         generator=torch.Generator(device=where).manual_seed(0))
+            y[:, 0].sum().backward()
+            assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+            ys.append(y.detach().cpu())
+            if where == dev:
+                torch.cuda.synchronize()
+                launched = {k_: v_ - before[k_] for k_, v_ in flash.LAUNCH_COUNTS.items()
+                            if v_ != before[k_]}
+                assert launched == {f"flash_fwd_d{widths[0]}_bf16": 1,
+                                    f"flash_fwd_d{widths[1]}_bf16": 2,
+                                    f"flash_bwd_d{widths[0]}_bf16": 1,
+                                    f"flash_bwd_d{widths[1]}_bf16": 2}, launched
+        assert torch.isfinite(ys[0]).all()
+        torch.testing.assert_close(ys[0], ys[1], atol=5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("heads,width", [(1, 256), (8, 32), (1, 128), (8, 16), (1, 512), (8, 64)])
+def test_bf16_flash_instances_match_plain_on_card(dev, heads, width):
+    """The flash kernels' bfloat16 instances against their bfloat16 plain
+    versions (which test_torch_port_flash_bf16.py holds to JAX's library TPU
+    kernel), q, k, v read in place from a packed bfloat16 projection: a
+    ragged bag, a bag with whole masked key tiles, a bag of one valid key and
+    one without a valid key. o within one bfloat16 unit (2^-7) of the
+    magnitude of its terms, sum_j w_j |v_j| (a p on the other side of a
+    rounding in the two versions moves o by 2^-8 of its term; where the
+    terms cancel that is many units of o itself), m and l within 1e-4
+    relative (m also 1e-5 absolute: a one-key
+    row's m may sit near 0), dq, dk, dv within 2e-2 of each one's largest
+    magnitude; two runs bitwise equal; dq and dk exactly 0 through masked
+    keys; one ``_bf16`` launch each way a call, no float32 launch."""
+    b, m_len = 4, 1500
+    q, k, v, _ = _flash_inputs(dev, b, heads, width, m_len, width + 2, True, BF16)
+    mask = torch.zeros(b, m_len, dtype=torch.bool)
+    mask[0, :1000] = True
+    mask[1, 5:60] = True
+    mask[1, 700:790] = True
+    mask[2, 1337] = True
+    mask = mask.to(dev)
+    before = dict(flash.LAUNCH_COUNTS)
+    out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+    ref_out, ref_m, ref_l = flash.flash_attention_plain(q, k, v, mask, return_stats=True)
+    assert out.dtype == BF16 and m.dtype == l.dtype == torch.float32
+    terms = flash.flash_attention_plain(q, k, v.abs(), mask).float()
+    assert torch.isfinite(out).all()
+    assert bool(((out.float() - ref_out.float()).abs() <= 2.0 ** -7 * terms).all())
+    _close(m, ref_m, 1e-4, atol=1e-5)
+    _close(l, ref_l, 1e-4, atol=0.0)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev).to(BF16)
+    grads = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    again = flash.flash_bwd(q, k, v, mask, out, m, l, dout)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    for a, r in zip(grads, flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout)):
+        assert a.dtype == BF16
+        assert float((a.float() - r.float()).abs().max()) <= 2e-2 * float(r.float().abs().max())
+    dq, dk, _ = grads
+    assert float(dk[~mask[:, None, :, None].expand_as(dk)].float().abs().max()) == 0.0
+    assert float(dq[-1].float().abs().max()) == 0.0
+    torch.cuda.synchronize()
+    launched = {k_: v_ - before[k_] for k_, v_ in flash.LAUNCH_COUNTS.items() if v_ != before[k_]}
+    assert launched == {f"flash_fwd_d{width}_bf16": 1, f"flash_bwd_d{width}_bf16": 2}

@@ -348,9 +348,13 @@ BF16_CASES = [
     ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "attention_core", False),
     ("bf16-weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
     ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", False),
-    # no flash instance takes bfloat16: GE's self-attentions
-    ("bf16-ge-width256", 256, 1, False, None, 64, False, "attention_core", False),
-    ("bf16-ge-width32", 256, 8, False, None, 64, False, "attention_core", False),
+    # GE's self-attentions: the flash kernels' bfloat16 instances, every size
+    ("bf16-ge-width256", 256, 1, False, None, 64, False, "flash_attention", True),
+    ("bf16-ge-width32", 256, 8, False, None, 64, False, "flash_attention", True),
+    ("bf16-ge-small-width128", 128, 1, False, None, 64, False, "flash_attention", True),
+    ("bf16-ge-small-width16", 128, 8, False, None, 64, False, "flash_attention", True),
+    ("bf16-ge-big-width512", 512, 1, False, None, 64, False, "flash_attention", True),
+    ("bf16-ge-big-width64", 512, 8, False, None, 64, False, "flash_attention", True),
 ]
 
 
@@ -359,7 +363,9 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
     """Under a bfloat16 compute dtype the predicates, asked about bfloat16,
     send every shape without a bfloat16 instance to ``attention_core`` on
     the CPU (on the card such a shape raises before any launch where a
-    float32 kernel takes it: the next test), and the output (and the map, or
+    float32 kernel takes it: the next test) and every shape with one to its
+    kernel's route (GE's self-attentions at every size: the flash kernels'
+    bfloat16 plain versions on the CPU), and the output (and the map, or
     ssq) matches the JAX module in float32 on the same weights and the same
     bfloat16 inputs within 5e-2 of its largest magnitude (measured up to
     3.4e-2: the q and k projections rounded to bfloat16, 2^-8 relative, move
@@ -395,7 +401,7 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
     if route == "attention_with_weights":
         assert coattn.plain_k_supports(n, d, m_len, values=False, dtype=bf16) == kernel
     if n is None:
-        assert not flash.supports(2, heads, m_len, d, dtype=bf16) and flash.supports(
+        assert flash.supports(2, heads, m_len, d, dtype=bf16) == kernel and flash.supports(
             2, heads, m_len, d)
     if heads > 1 and n is not None:
         assert not coattn.plain_k_supports(n, d, m_len, values=True, dtype=bf16)
@@ -416,18 +422,19 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
 @pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
 @pytest.mark.parametrize("name", ["GE-NaCAGaT", "NaCAGaT"])
 def test_ge_bf16_is_refused_on_the_card(name, device, refused):
-    """GE-NaCAGaT under bfloat16 compute is refused for a CUDA device (its
-    flash kernels have no bfloat16 instance: ROADMAP queue 2 item 5) and
-    runs on the CPU's plain versions; float32 and the survival models at
-    ``medium`` pass. (The Trainer on the card: ``test_torch_port_cuda.py``.)"""
+    """GE-NaCAGaT under bfloat16 compute is no longer refused on a CUDA device
+    (its flash kernels have bfloat16 instances at every width) and runs on
+    the CPU's plain versions; float32 and the survival models at ``medium``
+    pass; on the card NaCAGaT ``big`` is still refused. (The Trainer on the
+    card: ``test_torch_port_cuda.py``.)"""
     from multimodal_path_omic_tpu_torch.models import require_compute_dtype
 
-    if refused and name.startswith("GE"):
-        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            require_compute_dtype(name, torch.bfloat16, device)
-    else:
-        require_compute_dtype(name, torch.bfloat16, device)
+    for size in ("small", "medium", "big") if name.startswith("GE") else ("medium",):
+        require_compute_dtype(name, torch.bfloat16, device, size)
     require_compute_dtype(name, None, device)
+    if refused:  # on the card NaCAGaT big alone is still refused
+        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+            require_compute_dtype("NaCAGaT", torch.bfloat16, device, "big")
 
 
 # (id, the kernel's predicate, its shape arguments, keywords): the shapes of
@@ -438,8 +445,8 @@ BF16_NO_INSTANCE = [
     ("bf16-lean-false-width256-8heads", coattn.plain_k_supports, (6, 256, 100),
      {"values": True}),
     ("bf16-weights-d512", coattn.plain_k_supports, (6, 512, 100), {"values": False}),
-    ("bf16-ge-width256", flash.supports, (2, 1, 64, 256), {}),
-    ("bf16-ge-width32", flash.supports, (2, 8, 64, 32), {}),
+    ("bf16-eval-e512-f1024", coattn.fused_k_supports, (6, 512, 1024, 100), {"train": False}),
+    ("bf16-lean-false-width128", coattn.plain_k_supports, (6, 128, 100), {"values": True}),
 ]
 
 

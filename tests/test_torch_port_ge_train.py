@@ -198,8 +198,8 @@ def test_flash_function_gradcheck_in_float64():
 def test_flash_counts_no_launch_on_cpu():
     q, k, v, mask, dout = (_t(x) for x in _attn_data(1, 64, "ragged"))
     before = dict(tflash.LAUNCH_COUNTS)
-    assert set(before) == {f"flash_{way}_d{w}" for way in ("fwd", "bwd")
-                           for w in (16, 32, 64, 128, 256, 512)}
+    assert set(before) == {f"flash_{way}_d{w}{sfx}" for way in ("fwd", "bwd")
+                           for w in (16, 32, 64, 128, 256, 512) for sfx in ("", "_bf16")}
     tflash.flash_attention(q.requires_grad_(True), k, v, mask).backward(dout)
     assert tflash.LAUNCH_COUNTS == before  # launches are counted on CUDA only
 
