@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-25 below
+    python3 chip_smoke.py              # phases 1-26 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -77,9 +77,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    seed) through ``predict_bags`` (12 bags of 5000..16384 patches, no omics)
    and ``predict_bag``. Launch counts are reset just before and read just
    after: three flash launches and one pool launch per batch, no
-   co-attention kernel. ``y`` must be finite, sum to 1 per row and match the
-   same Predictor on the CPU on two bags of the 8192 bucket, as must the raw
-   MIL scores of an eval step.
+   co-attention kernel. ``y`` must be finite, sum to 1 per row and match
+   one eval step of the same Predictor on the CPU on the two bags of the
+   8192 bucket, as must the raw MIL scores of an eval step on the card.
 9. Timings: the pool and every flash forward instance (at B=8, M=16384)
    beside their plain versions, their bounds (the flash kernels: 3xTF32 and
    float32 FMA, valid keys) and, for the flash forward, one
@@ -273,9 +273,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     compute from the int8 store on the card and on the CPU, dropout 0, four
     training seeds: losses within 6e-5 and 1.2e-3 relative, risks within
     6e-3 (about twice the largest reading), and each seed's run not equal
-    to its float32-compute control on the card. (d) NaCAGaT ``big`` under
-    bf16 compute refused on the card (NotImplementedError, queue 2 item 5:
-    no bf16 instance of the co-attention kernels at E = 512).
+    to its float32-compute control on the card. (d) A shape still refused
+    under bf16 compute on the card: NaCAGaT medium with ``lean=False`` (the
+    plain-K kernels with values at D = 256 have no bf16 instance) raises
+    NotImplementedError (queue 2 item 5) before any kernel launch.
 25. GE-NaCAGaT under bfloat16: the flash kernels' bfloat16 instances. (a)
     Every instance (forward and backward at widths 16..512) against its
     bfloat16 plain version: GE medium's at B=8, M=16384 with phase 9's
@@ -299,6 +300,26 @@ Phases (any failure exits non-zero, and no result line is printed):
     the card. (d) GE small and big in bf16: a Trainer epoch (every step and
     validation batch on their widths' instances) and a
     ``Predictor.from_trainer`` call each.
+26. NaCAGaT ``big`` (E = F = D = 512) under bfloat16. (a) The E = F = 512
+    bf16 instances of the fuse-K forward (both forms) and backward and the
+    D = 512 instances of the export passes (with and without the
+    pre-gate) against their bf16 plain versions at B=32, N=6 on phase 24's
+    masks (M=8192 ragged with a filler bag, M=8192 with masked tiles
+    mid-bag, M=1500 with a one-key bag and a bag without a valid key), at
+    phase 24's bars: two runs bitwise equal, dkv and w exactly 0 at the
+    masked keys of bags with a valid key, the filler bag at l = M, m = NEG,
+    w = 1/M; each timed beside its float32 row, its plain version and its
+    bound. (b) examples/nacagat.yaml at ``model_size: big`` on phase 21's
+    cohort and settings, two epochs: bf16 compute from an int8 store cached,
+    graphed and eager (bit for bit equal), host-fed through int8 transfers
+    (bit for bit the cached run), with ``ces`` validation (the eval form),
+    and float32 beside them; epoch 2's launches held to the plan (each bf16
+    instance once a step or a validation batch), train and val bags/s and
+    peak memory against float32. (c) One epoch of bf16 from the int8 store
+    on the card and on the CPU, dropout 0, two training seeds, on a cohort
+    of shorter bags (48 patients, 600..2000 patches): losses and validation
+    risks within the limits of ``BIG_BF16_CPU_*`` (about twice the largest
+    reading), and each run unequal to its float32-compute control.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -388,6 +409,12 @@ SOURCES = {
     "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "coattn_stats_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    # NaCAGaT big's bfloat16 instances, E = F = D = 512 (phase 26)
+    "coattn_fwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_fwd_fused_k_train_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_bwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "coattn_stats_bf16_d512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
+    "coattn_weights_bf16_d512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     # the flash kernels' bfloat16 instances (phase 25)
     **{f"flash_{way}_d{w}_bf16": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
        for way, src in (("fwd", "flash"), ("bwd", "flash_bwd"))
@@ -415,6 +442,11 @@ REPLACES = {
     "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu/ops/coattn.py:508",
     "coattn_stats_bf16": "multimodal_path_omic_tpu/ops/coattn.py:221",
     "coattn_weights_bf16": "multimodal_path_omic_tpu/ops/coattn.py:908",
+    "coattn_fwd_fused_k_bf16_e512": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_fwd_fused_k_train_bf16_e512": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_bwd_fused_k_bf16_e512": "multimodal_path_omic_tpu/ops/coattn.py:508",
+    "coattn_stats_bf16_d512": "multimodal_path_omic_tpu/ops/coattn.py:221",
+    "coattn_weights_bf16_d512": "multimodal_path_omic_tpu/ops/coattn.py:908",
     **{f"flash_{way}_d{w}_bf16": "multimodal_path_omic_tpu/ops/flash.py:44"
        for way in ("fwd", "bwd") for w in (16, 32, 64, 128, 256, 512)},
 }
@@ -1398,7 +1430,7 @@ def read_counts() -> dict:
 
 def ge_eval_scores(pred, bags, bucket=GE_BUCKETS[0]):
     """The raw MIL scores [len(bags), bucket] of one eval step on ``bags``
-    padded into ``bucket``."""
+    padded into ``bucket``, the mask, and the step's class probabilities y."""
     import torch
 
     wsi = torch.zeros((len(bags), bucket, 1024))
@@ -1412,7 +1444,7 @@ def ge_eval_scores(pred, bags, bucket=GE_BUCKETS[0]):
         "label": torch.zeros(len(bags), dtype=torch.long, device=dev),
         "weight": torch.ones(len(bags), device=dev),
     })
-    return out["attention"]["path"][:, 0].cpu(), mask
+    return out["attention"]["path"][:, 0].cpu(), mask, out["y"].cpu()
 
 
 def phase8_ge_predictor(dev, bags) -> dict:
@@ -1450,20 +1482,20 @@ def phase8_ge_predictor(dev, bags) -> dict:
     log(f"  predict_bag vs predict_bags row 1: |y diff| = {d:.3e}")
     if d > MODEL_ATOL:
         raise AssertionError("GE predict_bag and predict_bags disagree")
-    # against the plain path: the same Predictor (same seed) on the CPU, on the
-    # two bags of the 8192 bucket (the CPU's chunked M x M attention is slow)
+    # against the plain path: the same Predictor (same seed) on the CPU, one
+    # eval step on the two bags of the 8192 bucket, the batch predict_bags
+    # scores them in (the CPU's chunked M x M attention is slow)
     cpu = make_ge_predictor("cpu", batch_size=2)
     t0 = time.perf_counter()
-    ref = cpu.predict_bags(bags[:2])
-    err = float(np.abs(y[:2] - ref["y"]).max())
+    ref_s, _, ref_y = ge_eval_scores(cpu, bags[:2])
+    err = float(np.abs(y[:2] - ref_y.numpy()).max())
     log(f"  y vs CPU plain path: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g}; CPU "
         f"{time.perf_counter() - t0:.1f} s)")
     if err > MODEL_ATOL:
         raise AssertionError("GE y disagrees with the CPU plain path")
     # y is a softmax over 3 classes and hides much; the raw MIL scores of the
     # valid patches carry every layer's output
-    got_s, mask = ge_eval_scores(pred, bags[:2])
-    ref_s, _ = ge_eval_scores(cpu, bags[:2])
+    got_s, mask, _ = ge_eval_scores(pred, bags[:2])
     err = float((got_s - ref_s)[mask].abs().max())
     log(f"  raw MIL scores of the valid patches vs CPU plain path: max_abs_err={err:.3e} "
         f"(tolerance {MODEL_ATOL:g}; max |score| {float(ref_s[mask].abs().max()):.3e})")
@@ -2456,14 +2488,14 @@ def phase17_ge_sizes(dev) -> dict:
         y = out["y"]
         if y.shape != (len(bags), 3) or not np.isfinite(y).all():
             raise AssertionError(f"GE {size}: y {y.shape}")
-        got_s, mask = ge_eval_scores(pred, bags[:2], GE_WIDE_M)
+        got_s, mask, _ = ge_eval_scores(pred, bags[:2], GE_WIDE_M)
         # the same Predictor with the flash kernels' plain versions, on the card
         saved = flash.flash_fwd, flash.flash_bwd
         flash.flash_fwd, flash.flash_bwd = plain_flash()
         try:
             plain_pred = make_ge_predictor(dev, GE_WIDE_B, size, (GE_WIDE_M,))
             ref = plain_pred.predict_bags(bags)
-            ref_s, _ = ge_eval_scores(plain_pred, bags[:2], GE_WIDE_M)
+            ref_s, _, _ = ge_eval_scores(plain_pred, bags[:2], GE_WIDE_M)
         finally:
             flash.flash_fwd, flash.flash_bwd = saved
         err = float(np.abs(y - ref["y"]).max())
@@ -3906,8 +3938,9 @@ def bf16_bound_ms(name, mask, e=E) -> tuple:
     needs (a tile without a valid key is skipped): the projection k = kv wk
     (and the backward's recompute of it) has bfloat16 operands, so it is
     bounded at the bfloat16 tensor-core rate; the backward's dk wk^T and
-    kv^T dk at three TF32 products each (3xTF32: dk is float32) over the
-    TF32 rate; the export passes' float32 FMAs on the CUDA cores."""
+    kv^T dk at two TF32 products each over the TF32 rate (dk is float32 and
+    needs its big and small parts; wk and kv are bfloat16, exact in TF32);
+    the export passes' float32 FMAs on the CUDA cores."""
     b, m_len = mask.shape
     keys = valid_keys(mask)
     f = e
@@ -3920,7 +3953,7 @@ def bf16_bound_ms(name, mask, e=E) -> tuple:
         nbytes = 2 * (b * N * e + b * m_len * f + f * e + e + b * N * f) + 4 * 5 * b * N \
             + b * m_len + 2 * (b * N * e + b * m_len * f) + 4 * (f * e + e)
         proj = 2 * keys * f * e  # one product's operations
-        t_ops = (proj / PEAK_BF16_FLOP_PER_S + 6 * proj / PEAK_TF32_FLOP_PER_S) * 1e3
+        t_ops = (proj / PEAK_BF16_FLOP_PER_S + 4 * proj / PEAK_TF32_FLOP_PER_S) * 1e3
     else:  # the export passes: the k rows of the valid keys
         need = int(mask.sum())
         nbytes = 2 * (b * N * e + need * e) + 4 * 2 * b * N + b * m_len
@@ -3943,26 +3976,43 @@ def check_bf16(name, got, ref, kind) -> float:
     return check_close(name, got, ref, atol, rtol)
 
 
-def phase24_bf16_kernels(dev) -> tuple:
-    """(a): the bfloat16 instances against their plain versions at the main
-    shapes (B=32, N=6, E=F=D=256) on phase 1's and 4's masks, two runs
+def bf16_row(name, e) -> str:
+    """A bfloat16 instance's row in the kernels line: its count's name, with
+    ``_e512`` (the fuse-K instances) or ``_d512`` (the export passes) at
+    NaCAGaT big's width."""
+    if e == E:
+        return name
+    return name + ("_d" if name.startswith(("coattn_stats", "coattn_weights")) else "_e") + str(e)
+
+
+def count_of(row_name) -> str:
+    """The launch count a row of the kernels line reads: its name without the
+    ``_e512`` / ``_d512`` of :func:`bf16_row` (and of the float32 rows at
+    E = 512), which the counts do not carry."""
+    base, _, width = row_name.rpartition("_")
+    return base if width in ("e512", "d512") else row_name
+
+
+def bf16_kernel_checks(dev, e, tag) -> tuple:
+    """The bfloat16 instances at E = F = D = ``e`` against their plain
+    versions at B=32, N=6 on phase 1's and 4's masks (BF16_CASES), two runs
     bitwise equal, exactly 0 through masked keys; then each timed beside its
     float32 row, its plain version and its bound. Returns (errors, rows
-    without their launches)."""
+    without their launches), keyed and named by :func:`bf16_row`."""
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     bf = torch.bfloat16
-    errs = {name: 0.0 for name in BF16_KERNELS}
+    errs = {bf16_row(name, e): 0.0 for name in BF16_KERNELS}
 
     def note(name, err):
-        errs[name] = max(errs[name], err)
+        errs[bf16_row(name, e)] = max(errs[bf16_row(name, e)], err)
 
     timing = None
     for m_len, kind in BF16_CASES:
-        log(f"phase 24 (a): bfloat16 instances B={B} N={N} E=F=D={E} M={m_len}, {kind} masks")
-        q, kv, wk, bk, k, mask = make_inputs(m_len, E, 2400 + m_len, dev, E, kind)
+        log(f"{tag}: bfloat16 instances B={B} N={N} E=F=D={e} M={m_len}, {kind} masks")
+        q, kv, wk, bk, k, mask = make_inputs(m_len, e, 2400 + m_len, dev, e, kind)
         q16, kv16, wk16, bk16, k16 = (t.to(bf) for t in (q, kv, wk, bk, k))
         fk = (q16, kv16, wk16, bk16, mask)
         got = coattn.coattn_fwd_fused_k(*fk)
@@ -3988,7 +4038,7 @@ def phase24_bf16_kernels(dev) -> tuple:
                    zip(fwd, coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE))):
             raise AssertionError("fused_k_train_bf16: two runs differ")
         g = torch.Generator(device="cpu").manual_seed(m_len)
-        dout = torch.randn(B, N, E, generator=g).to(dev).to(bf)
+        dout = torch.randn(B, N, e, generator=g).to(dev).to(bf)
         dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
         o, l, m, ssq, sumw = fwd
         di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
@@ -4019,8 +4069,10 @@ def phase24_bf16_kernels(dev) -> tuple:
             masked = (~mask & has[:, None])[:, None, :].expand_as(w)
             if not (bool((w[masked] == 0).all()) and bool((w[~has] == 1.0 / m_len).all())):
                 raise AssertionError("weights_bf16: masked keys not exactly 0 (or 1/M)")
+            if not (bool((mk[~has] == mp[~has]).all()) and bool((lk[~has] == m_len).all())):
+                raise AssertionError("stats_bf16: the filler bag is not at l = M, m = NEG")
         log("  stats_bf16, weights_bf16: two runs bitwise equal; w exactly 0 at the masked keys "
-            "of bags with a valid key, 1/M in a bag without one")
+            "of bags with a valid key; the bag without one at l = M, m = NEG, w = 1/M")
         if kind == "prefix":
             timing = (q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq,
                       dsumw, fwd, di)
@@ -4059,13 +4111,14 @@ def phase24_bf16_kernels(dev) -> tuple:
     rows = []
     for name, (kern, row32, plain) in calls.items():
         ms, ms32, plain_ms = cuda_ms(kern), cuda_ms(row32), cuda_ms(plain)
-        bms, by = bf16_bound_ms(name, mask)
-        log(f"phase 24 (a): {name} B={B} N={N} M={TRAIN_M} E=F=D={E}: kernel {ms:.4f} ms, its "
-            f"float32 row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain {plain_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}; {bms / ms:.3f} of it reached) ({power})")
+        bms, by = bf16_bound_ms(name, mask, e)
+        row = bf16_row(name, e)
+        log(f"{tag}: {row} B={B} N={N} M={TRAIN_M} E=F=D={e}: kernel {ms:.4f} ms, its float32 "
+            f"row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {bms / ms:.3f} of it reached) ({power})")
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": 0, "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "name": row, "route": "cuda", "source": SOURCES[row], "replaces": REPLACES[row],
+            "launches": 0, "max_abs_err": errs[row], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
     return errs, rows
@@ -4074,8 +4127,9 @@ def phase24_bf16_kernels(dev) -> tuple:
 def phase24_precision(dev) -> dict:
     """(b)-(d): the Trainer in bfloat16 from an int8 store and the other
     reduced-precision settings on phase 21's cohort and configuration, each
-    graphed and eager; the card against the CPU; NaCAGaT big under bfloat16
-    refused (GE runs: phase 25). Returns the launches of (b)."""
+    graphed and eager; the card against the CPU; ``lean=False`` under
+    bfloat16 refused (GE runs: phase 25; NaCAGaT big: phase 26). Returns the
+    launches of (b)."""
     import shutil
     import tempfile
 
@@ -4084,7 +4138,9 @@ def phase24_precision(dev) -> dict:
 
     from multimodal_path_omic_tpu_torch.config import config_to_dict
     from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.models import build_model
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
     t_phase = time.perf_counter()
     power = gpu_name_and_power()
@@ -4192,19 +4248,27 @@ def phase24_precision(dev) -> dict:
             if ends["bf16 card"][:2] == ends["f32 card"][:2] or gap == 0.0:
                 raise AssertionError(f"seed {seed}: the bf16 card run equals float32 compute")
 
-        for example, extra in (("nacagat.yaml", {**TRAINER_SET, "model.model_size": "big"}),):
-            log(f"phase 24 (d): examples/{example} + {extra} with tpu.compute_dtype bfloat16 on "
-                "the card")
-            cfg = trainer_config(example, paths, os.path.join(root, "d"),
-                                 {**extra, "tpu.compute_dtype": "bfloat16"})
-            try:
-                Trainer(cfg, verbose=False)
-            except NotImplementedError as exc:
-                if "queue 2 item 5" not in str(exc):
-                    raise AssertionError(f"{example} bf16: refused without naming its item: {exc}")
-                log(f"  refused: NotImplementedError: {exc}")
-            else:
-                raise AssertionError(f"{example} under bfloat16 on the card was not refused")
+        log("phase 24 (d): NaCAGaT medium with lean=False (the plain-K kernels with values, D = "
+            "256: no bfloat16 instance) under bfloat16 compute on the card")
+        model = seeded_init_(build_model("NaCAGaT", omic_sizes=SIZES, model_size="medium",
+                                         lean=False, dtype=torch.bfloat16), 0).to(dev).eval()
+        g = torch.Generator().manual_seed(24)
+        wsi = torch.randn(2, 1500, 1024, generator=g).to(dev)
+        omics = [torch.randn(2, size, generator=g).to(dev) for size in SIZES]
+        before = read_counts()
+        try:
+            with torch.no_grad():  # no map: the co-attention with values (the export has one)
+                model(wsi, omics, torch.ones(2, 1500, dtype=torch.bool, device=dev),
+                      need_attention=False)
+        except NotImplementedError as exc:
+            if "queue 2 item 5" not in str(exc):
+                raise AssertionError(f"lean=False bf16: refused without naming its item: {exc}")
+            if _counts_delta(before, read_counts()):
+                raise AssertionError("lean=False bf16: a kernel launched before the refusal")
+            log(f"  refused before any launch: NotImplementedError: {exc}")
+        else:
+            raise AssertionError("lean=False under bfloat16 on the card was not refused")
+        del model
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 24: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
@@ -4591,6 +4655,148 @@ def phase25_ge_bf16(dev) -> dict:
     return total
 
 
+# Phase 26: NaCAGaT big (E = F = D = 512) under bfloat16 compute, on the
+# E = F = 512 bfloat16 instances of the fuse-K forward (both forms) and
+# backward and the D = 512 instances of the export passes, held at phase
+# 24's bars. (b): examples/nacagat.yaml at model_size big on phase 21's
+# cohort and settings, two epochs: bf16 compute from an int8 store cached
+# (graphed and eager), host-fed through int8 transfers, with ces validation
+# (the eval form), and float32 cached beside them; (tag, settings over
+# BIG_SET, a training step's and a validation batch's kernels, graphed and
+# eager or graphed only).
+BIG_SET = {**TRAINER_SET, "model.model_size": "big"}
+BIG_BF16_RUNS = (
+    ("int8 store, bf16 compute", BF16_RUNS[0][1], BF16_TRAIN_K, BF16_VAL_K, (True, False)),
+    ("int8 transfer, bf16 compute", BF16_RUNS[1][1], BF16_TRAIN_K, BF16_VAL_K, (True,)),
+    ("int8 store, bf16 compute, ces", BF16_RUNS[2][1], BF16_TRAIN_K,
+     {"coattn_fwd_fused_k_bf16": 1}, (True,)),
+    ("float32", {"tpu.device_cache": "on"}, F32_TRAIN_K, F32_VAL_K, (True,)),
+)
+# (c): the card's bfloat16 big Trainer against the port on the CPU, one epoch
+# at dropout 0 from the int8 store, for each of BIG_BF16_SEEDS, on a cohort
+# of shorter bags (BIG_CPU_COHORT: phase 21's 48 patients, 600..2000 patches,
+# buckets 1024/2048) so that the CPU's epoch of the big model fits the
+# smoke's time (6-8 s there); a float32-compute control on the card beside
+# each. Limits as phase 24 (c)'s, about twice the largest reading of the two
+# seeds (NVIDIA H100 80GB HBM3, 700.00 W: train loss 3.160e-4 and val loss
+# 8.369e-4 relative, risks 6.506e-3), for the reasons given there; the
+# float32 control lands as close (2.9e-4, 8.2e-4, 4.0e-3), so each seed's
+# bfloat16 run is also held to differ from it.
+BIG_CPU_COHORT = {**TRAINER_COHORT, "bag_lengths": (600, 1000, 1500, 2000), "seed": 3}
+BIG_CPU_SET = {**BIG_SET, "tpu.bag_buckets": [1024, 2048]}
+BIG_BF16_SEEDS = (0, 1)
+BIG_BF16_CPU_TRAIN_RTOL, BIG_BF16_CPU_VAL_RTOL, BIG_BF16_CPU_ATOL = 7e-4, 1.7e-3, 1.3e-2
+
+
+def phase26_big_bf16(dev) -> dict:
+    """(b)-(c): NaCAGaT big under bfloat16 through the Trainer (from an int8
+    store cached, graphed and eager; host-fed through int8 transfers; ces;
+    beside float32), then the card against the CPU. Returns every launch of
+    (b) and of (c)'s card runs."""
+    import shutil
+    import tempfile
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    root = tempfile.mkdtemp(prefix="chip_smoke_big_bf16_")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        runs = {}
+        for what, settings, want_train, want_val, modes in BIG_BF16_RUNS:
+            log(f"phase 26 (b): NaCAGaT big, {what}: examples/nacagat.yaml + {BIG_SET} + "
+                f"{settings}, two epochs")
+            for graphs in modes:
+                cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, f"b{len(runs)}"),
+                                     {**BIG_SET, **settings})
+                before = read_counts()
+                run = _trainer_run("b", f"big, {what}, {'graphed' if graphs else 'eager'}", cfg,
+                                   graphs, power)
+                add(_counts_delta(before, read_counts()))
+                cached = settings["tpu.device_cache"] == "on"
+                want = tuple({**{k: v * n for k, v in w.items()},
+                              **({"gather_rows": n} if cached else {})}
+                             for w, n in ((want_train, run["steps"]),
+                                          (want_val, run["val_batches"])))
+                if (run["train_launches"], run["val_launches"]) != want:
+                    raise AssertionError(f"big {what}: epoch 2 launches {run['train_launches']}, "
+                                         f"{run['val_launches']}, expected {want}")
+                runs[(what, graphs)] = run
+        _same_epochs("big bf16: eager vs graphed", runs[(BIG_BF16_RUNS[0][0], False)],
+                     runs[(BIG_BF16_RUNS[0][0], True)])
+        log("  big, int8 store, bf16 compute: graphed == eager, bit for bit (both epochs' "
+            "losses and risks)")
+        _same_epochs("big int8 transfer vs int8 store", runs[("int8 transfer, bf16 compute", True)],
+                     runs[("int8 store, bf16 compute", True)])
+        log("  big, int8 transfer == int8 store (bf16 compute), bit for bit: host-fed and cached")
+        f32 = runs[("float32", True)]
+        for what, _, _, _, _ in BIG_BF16_RUNS[:3]:
+            run = runs[(what, True)]
+            log(f"  big, {what}, graphed, epoch 2: {run['n_train'] / run['train_s']:.2f} train "
+                f"bags/s, {run['n_val'] / run['val_s']:.2f} val bags/s; float32 cached graphed "
+                f"{f32['n_train'] / f32['train_s']:.2f} and {f32['n_val'] / f32['val_s']:.2f} "
+                f"({f32['train_s'] / run['train_s']:.2f}x, {f32['val_s'] / run['val_s']:.2f}x); "
+                f"peak device memory {run['peak_gib']:.2f} GiB against {f32['peak_gib']:.2f} GiB "
+                f"({power})")
+        if runs[("int8 store, bf16 compute", True)]["epochs"][0][0] == f32["epochs"][0][0]:
+            raise AssertionError("big: the bf16 run's train loss equals float32's")
+
+        short = make_synthetic_cohort(os.path.join(root, "short"), **BIG_CPU_COHORT)
+        log("phase 26 (c): NaCAGaT big in bf16 from the int8 store, one epoch on the card and "
+            f"on the CPU, dropout 0 on both, on {BIG_CPU_COHORT} + {BIG_CPU_SET}, training "
+            f"seeds {BIG_BF16_SEEDS}; a float32-compute control on the card")
+        for seed in BIG_BF16_SEEDS:
+            ends = {}
+            for tag, where, extra in (("bf16 card", "cuda", {}), ("bf16 CPU", "cpu", {}),
+                                      ("f32 card", "cuda", {"tpu.compute_dtype": "float32"})):
+                cfg = trainer_config("nacagat.yaml", short,
+                                     os.path.join(root, f"c{seed}{tag[:4]}{where}"),
+                                     {**BIG_CPU_SET, **BF16_RUNS[0][1], "training.epochs": 1,
+                                      "model.dropout": 0.0, "training.seed": seed, **extra})
+                trainer = Trainer(cfg, verbose=False, device=where)
+                before = read_counts()
+                t0 = time.perf_counter()
+                train, val = trainer.validated_epoch(0)
+                if where == "cuda":
+                    add(_counts_delta(before, read_counts()))
+                ends[tag] = (train["train_loss"], val["val_loss"], trainer.val_risks.copy())
+                log(f"  seed {seed}, {tag}: epoch 1 in {time.perf_counter() - t0:.2f} s, "
+                    f"train_loss {train['train_loss']!r}, val_loss {val['val_loss']!r}, "
+                    f"val_c_index {val['val_c_index']:.4f}")
+                del trainer
+            ref = ends["bf16 CPU"]
+            for tag in ("bf16 card", "f32 card"):
+                got = ends[tag]
+                read = (abs(got[0] - ref[0]) / abs(ref[0]), abs(got[1] - ref[1]) / abs(ref[1]),
+                        float(np.abs(got[2] - ref[2]).max()))
+                log(f"  seed {seed}, {tag} vs bf16 CPU: train_loss relative {read[0]:.3e}, "
+                    f"val_loss relative {read[1]:.3e}, val risks max_abs_err {read[2]:.3e}"
+                    + (f" (limits {BIG_BF16_CPU_TRAIN_RTOL:g}, {BIG_BF16_CPU_VAL_RTOL:g}, "
+                       f"{BIG_BF16_CPU_ATOL:g})" if tag == "bf16 card" else " (the control)"))
+                if tag == "bf16 card" and not (read[0] <= BIG_BF16_CPU_TRAIN_RTOL
+                                               and read[1] <= BIG_BF16_CPU_VAL_RTOL
+                                               and read[2] <= BIG_BF16_CPU_ATOL):
+                    raise AssertionError(f"seed {seed}: the big bf16 card run disagrees with "
+                                         "the CPU")
+            gap = float(np.abs(ends["bf16 card"][2] - ends["f32 card"][2]).max())
+            log(f"  seed {seed}: bf16 card vs its float32 control: val risks max_abs_err {gap:.3e}")
+            if ends["bf16 card"][:2] == ends["f32 card"][:2] or gap == 0.0:
+                raise AssertionError(f"seed {seed}: the big bf16 card run equals float32 compute")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in total.items() if v} } ({power})")
+    return total
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -4910,7 +5116,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-25")
+                         "Trainer epoch host-fed and cached instead of phases 1-26")
     args = ap.parse_args()
     try:
         import torch
@@ -5035,7 +5241,7 @@ def main() -> int:
     for row in rows:  # phase 23's runs: every kernel but the E = 512 instances
         row["launches"] += p23.get(row["name"], 0)
     torch.cuda.empty_cache()
-    errs24, rows24 = phase24_bf16_kernels(dev)
+    errs24, rows24 = bf16_kernel_checks(dev, E, "phase 24 (a)")
     errs.update(errs24)
     torch.cuda.empty_cache()
     reset_counts()  # phase 24 (b), the reduced-precision Trainer, is the bf16 rows' main path
@@ -5061,6 +5267,21 @@ def main() -> int:
     for row in rows:  # the float32 GE kernels of (b)'s float32 run and (c)'s control
         row["launches"] += p25.get(row["name"], 0)
     rows += rows25
+    torch.cuda.empty_cache()
+    errs26, rows26 = bf16_kernel_checks(dev, 512, "phase 26 (a)")
+    errs.update(errs26)
+    torch.cuda.empty_cache()
+    reset_counts()  # phase 26 (b)-(c), NaCAGaT big through the Trainer in bf16: the rows' main path
+    p26 = phase26_big_bf16(dev)
+    for row in rows26:
+        row["launches"] = p26.get(count_of(row["name"]), 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on phase 26's Trainer runs")
+    for row in rows:  # the float32 big run and controls: the E = 512 rows, the export passes
+        if row["name"].endswith("_e512") or row["name"] in (
+                "coattn_stats", "coattn_weights", "gather_rows"):
+            row["launches"] += p26.get(count_of(row["name"]), 0)
+    rows += rows26
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

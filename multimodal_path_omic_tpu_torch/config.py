@@ -463,8 +463,10 @@ def require_supported(cfg: Config) -> None:
     sequence mesh axis above 1 and ``remat``. A reference ``.pt``
     checkpoint under ``model.load_from_checkpoint`` is refused where it is
     read (``Trainer.restore``); a bfloat16 compute dtype on the card for a
-    model whose kernels have no bfloat16 instance yet (NaCAGaT ``big``)
-    where the Trainer is built (``models.require_compute_dtype``)."""
+    model whose kernels have no bfloat16 instance at its width where the
+    Trainer is built (``models.require_compute_dtype``; every model size has
+    them now), and a module off the lean routes (``lean=False``) under
+    bfloat16 where it reaches a kernel without one (``kernels.takes``)."""
     t = cfg.tpu
     for key in ("data_axis", "seq_axis"):
         if getattr(t, key) > 1:

@@ -130,7 +130,10 @@
 // operands are exact in TF32, runs as one TF32 mma.sync a step where the
 // float32 instance runs three (the EXACT products; bfloat16 mma.sync
 // m16n8k16 would be an equal choice, and this keeps one product code).
-// Instances: (E, F) in {128, 256}^2 (both forms), D in {128, 256} (export).
+// Instances: (E, F) in {128, 256}^2 and (512, 512) (both forms), D in {128,
+// 256, 512} (export). At E = 512 the k tile is two E chunks of 256 through
+// the same FkFwdSmem<512> (231,968 bytes) and the register prefetch carries
+// the 256-column chunk it carries at E = 256.
 //
 // Interface: plain C, called through ctypes. Every function returns
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
@@ -1152,9 +1155,9 @@ int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
     err = launch_fk_instance<E_, FC_, TRAIN, T>(q, kv, wk, bk, mask, list, off, o_part,      \
                                                 ml_part, sq_part, seed, thresh, keep_scale, B, \
                                                 N, M, F, blocks, scale, st);
-  if constexpr (IS_BF16<T>) {  // E, F in {128, 256} (ops/coattn.py BF16_EF), both forms
-    if (F > 256) return (int)cudaErrorInvalidValue;
-    MPO_FK(256, 1) else MPO_FK(128, 1)
+  if constexpr (IS_BF16<T>) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py BF16_EF), both forms
+    if (E == 512 ? F != 512 : F > 256) return (int)cudaErrorInvalidValue;
+    MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
     else return (int)cudaErrorInvalidValue;
   } else if constexpr (TRAIN) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py FUSED_K_TRAIN_EF)
     MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
@@ -1238,7 +1241,7 @@ int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* w
 }
 
 // The bfloat16 instances of both forms: q, kv, wk, bk and o bfloat16,
-// everything else as above; E, F in {128, 256}.
+// everything else as above; E, F in {128, 256}, or E = F = 512.
 int mpo_coattn_fwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                 const __nv_bfloat16* wk, const __nv_bfloat16* bk,
                                 const uint8_t* mask, __nv_bfloat16* o, float* l, float* m,
@@ -1276,14 +1279,16 @@ int mpo_coattn_fwd_fused_k_train_bf16(const __nv_bfloat16* q, const __nv_bfloat1
     if (D == 512) return LAUNCH<512, false, float>(__VA_ARGS__);                       \
   }                                                                                    \
   return (int)cudaErrorInvalidValue;
-// The bfloat16 instances: D in {128, 256} (ops/coattn.py BF16_EXPORT_D).
+// The bfloat16 instances: D in {128, 256, 512} (ops/coattn.py BF16_EXPORT_D).
 #define MPO_EXPORT_BF16(LAUNCH, ...)                                                   \
   if (pre_gate) {                                                                      \
     if (D == 128) return LAUNCH<128, true, __nv_bfloat16>(__VA_ARGS__);                \
     if (D == 256) return LAUNCH<256, true, __nv_bfloat16>(__VA_ARGS__);                \
+    if (D == 512) return LAUNCH<512, true, __nv_bfloat16>(__VA_ARGS__);                \
   } else {                                                                             \
     if (D == 128) return LAUNCH<128, false, __nv_bfloat16>(__VA_ARGS__);               \
     if (D == 256) return LAUNCH<256, false, __nv_bfloat16>(__VA_ARGS__);               \
+    if (D == 512) return LAUNCH<512, false, __nv_bfloat16>(__VA_ARGS__);               \
   }                                                                                    \
   return (int)cudaErrorInvalidValue;
 

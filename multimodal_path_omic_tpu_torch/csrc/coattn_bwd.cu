@@ -1,5 +1,5 @@
 // Backward of the few-query co-attention for Hopper (sm_90a), float32: the
-// pre-gated fuse-K form and the plain-K form; and a bfloat16 instance of the
+// pre-gated fuse-K form and the plain-K form; and bfloat16 instances of the
 // fuse-K form (mpo_coattn_bwd_fused_k_bf16, below the design notes).
 //
 // Replaces the Pallas TPU kernel of multimodal_path_omic_tpu/ops/coattn.py:
@@ -80,16 +80,28 @@
 //    blocks that held the bag, dbk over blocks, dwk over shares): two runs
 //    give identical gradients.
 
-// The bfloat16 instance (fused_k_bwd_kernel and dwk_kernel with T =
-// __nv_bfloat16; E, F in {128, 256}): q, kv, wk, bk and dO are read as
-// bfloat16 (the JAX kernel's bfloat16 tiles, ops/coattn.py:490-503) and
-// converted into the same float32 tiles (flash_common.cuh); k is recomputed
-// as the forward's bfloat16 instance computes it (one TF32 MMA a step,
-// rounded to bfloat16), tanh(q) and tanh(k) rounded to bfloat16; every sum
-// is float32. dq and dkv are written in bfloat16; dk (the scratch), dwk and
-// dbk stay float32 (the wrapper casts dwk and dbk to wk's type, as
-// _coattn_fk_bwd does). The dkv and dwk products keep the 3xTF32 split (one
-// operand, dk, is float32). Everything else is the float32 instance's.
+// The bfloat16 instances (fused_k_bwd_kernel and dwk_kernel with T =
+// __nv_bfloat16; (E, F) in {128, 256}^2 and (512, 512)): q, kv, wk, bk and
+// dO are read as bfloat16 (the JAX kernel's bfloat16 tiles,
+// ops/coattn.py:490-503); k is recomputed as the forward's bfloat16
+// instance computes it (one TF32 MMA an 8-deep step on values exact in
+// TF32, in the forward's order, rounded to bfloat16), tanh(q) and tanh(k) rounded to
+// bfloat16; every sum is float32. dq and dkv are written in bfloat16; dk
+// (the scratch), dwk and dbk stay float32 (the wrapper casts dwk and dbk to
+// wk's type, as _coattn_fk_bwd does). The dkv and dwk products keep the
+// 3xTF32 split of dk (float32); wk's and kv's small parts are 0.
+//  * Narrow (E, F <= 256): the values are converted into the same float32
+//    tiles (flash_common.cuh): the next chunk step (and, in the dkv loop,
+//    the next unit's kv slice) is fetched into registers before a step's
+//    product and stored after it, the converting copy's counterpart of
+//    cp.async.
+//  * E = F = 512: the float32 instance sits at 255 registers, so no
+//    register prefetch; the ring's slots hold bfloat16 instead, copied raw
+//    by cp.async as the float32 slices are (FkWideSmem: 16 deep a step, the
+//    same 36,864 bytes for twice the depth, half the steps and barriers),
+//    and the fragments widen each value on its way to the MMA
+//    (flash_common.cuh): the k product one TF32 MMA an 8-deep step, the dkv
+//    product two (dk's big and small parts against wk).
 //
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
@@ -129,24 +141,29 @@ struct FkSmem {
   float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
 };
 
-// E = F = 512: kv streams through the ring (see the design notes).
-template <int E, int F>
+// E = F = 512: kv streams through the ring (see the design notes). The
+// ring holds T: float32 slices 8 deep, or (the bfloat16 instance) bfloat16
+// slices 16 deep, copied raw by cp.async (rows padded to 16 bytes).
+template <int E, int F, typename T>
 struct FkWideSmem {
   static constexpr bool WIDE = true;
-  static constexpr int WC = 8;                  // depth of a chunk step, both products
+  static constexpr bool BF = IS_BF16<T>;
+  static constexpr int WC = BF ? 16 : 8;        // depth of a chunk step, both products
+  static constexpr int PAD = BF ? 8 : 4;        // row padding of the ring's slices
   static constexpr int EC = 256, NEC = E / EC;  // k product: E columns a chunk
   static constexpr int FH = 256, NFH = F / FH;  // dkv product: F columns a pass
-  static constexpr int KVS = WC;                // kv slice [64][8]: acc-product A, 8 mod 32
-  static constexpr int RS = EC + 4;             // wk row slice [WC][EC]: acc-product B, 4 mod 32
+  // kv slice [64][WC]: acc-product A (float32 8 words a row, 8 mod 32; bfloat16 12)
+  static constexpr int KVS = BF ? WC + PAD : WC;
+  static constexpr int RS = EC + PAD;           // wk row slice [WC][EC]: acc-product B
   static constexpr int KS = E + 4;              // k / tanh(k) / dk: row-product A, 4 mod 32
-  static constexpr int CS = WC + 4;             // wk column chunk [FH][WC]: row-product B (12: no conflict)
+  static constexpr int CS = WC + PAD;           // wk column chunk [FH][WC]: row-product B (12 or 24: no conflict)
   static constexpr int SLOT = FK_BM * KVS + WC * RS > FH * CS ? FK_BM * KVS + WC * RS : FH * CS;
   static constexpr int NCF = F / WC, NCE = E / WC;  // chunk steps an E chunk, an F half
   static constexpr int NK = NEC * NCF;              // chunk steps of the k product
   static constexpr int NTE = EC / 32, NTF = FH / 32;
   static constexpr int GK = 4, GD = 4;
   static constexpr int KV_ROWS = 0;  // kv is not resident
-  alignas(16) float ring[3][SLOT];
+  alignas(16) T ring[3][SLOT];
   alignas(16) float k[FK_BM][KS];  // k, then tanh(k), then dk
   alignas(16) float q[NMAX][E];
   alignas(16) float tq[NMAX][E];
@@ -157,8 +174,8 @@ struct FkWideSmem {
   float stat[5][NMAX];
 };
 
-template <int E, int F>
-using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F>, FkSmem<E, F>>;
+template <int E, int F, typename T>
+using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F, T>, FkSmem<E, F>>;
 
 template <int E, int F, typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -172,9 +189,10 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                    float* __restrict__ dk_out, const int* __restrict__ list,
                    const int* __restrict__ off, float* __restrict__ dq_part,
                    float* __restrict__ dbk_part, int B, int N, int M, float scale) {
-  using S_ = FkBwdSmem<E, F>;
+  using S_ = FkBwdSmem<E, F, T>;
   constexpr bool WIDE = S_::WIDE;
-  static_assert(!(WIDE && IS_BF16<T>), "no bfloat16 instance at E = F = 512");
+  // bfloat16, narrow: the ring's float32 tiles filled through registers
+  constexpr bool REG_FETCH = IS_BF16<T> && !WIDE;
   constexpr int EPT = E / 32;  // E columns per lane
   constexpr int FPT = F / 32;  // F columns per lane
   constexpr int CE = (E + THREADS - 1) / THREADS;  // E columns a column owner holds
@@ -203,7 +221,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     if (i >= i1) return;
     const int c = s % NC;
     if constexpr (WIDE) {
-      float* slot = S.ring[s % 3];
+      auto* slot = S.ring[s % 3];
       if (c < S_::NK) {
         const int u = list[i], f0 = (c % NCF) * WC;
         load_tile_async<FK_BM, WC, S_::KVS>(slot, kv + (size_t)(u / n_tiles) * M * F + f0, F,
@@ -241,7 +259,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   uint2 pre_w[WK_IT], pre_kv[KVN_IT > 0 ? KVN_IT : 1];
   int pre_s = -1, pre_ch = -1;  // the chunk step / kv slice held (-1: none)
   auto fetch_chunk = [&](int s) {
-    if constexpr (IS_BF16<T> && !WIDE) {
+    if constexpr (REG_FETCH) {
       pre_s = -1;
       if (i0 + s / NC >= i1) return;
       const int c = s % NC;
@@ -260,7 +278,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
   };
   auto store_chunk = [&]() {
-    if constexpr (IS_BF16<T> && !WIDE) {
+    if constexpr (REG_FETCH) {
       if (pre_s < 0) return;
       const int c = pre_s % NC;
       float* slot = S.ring[pre_s % 3];
@@ -278,7 +296,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   };
   // kv slice ch of the unit at rows m0n .. of bag tile kvn (zero rows past M)
   auto fetch_kv = [&](const T* kvn, int m0n, int ch) {
-    if constexpr (IS_BF16<T> && !WIDE) {
+    if constexpr (REG_FETCH) {
       pre_ch = -1;
       if (kvn == nullptr) return;
 #pragma unroll
@@ -292,7 +310,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
   };
   auto store_kv = [&]() {
-    if constexpr (IS_BF16<T> && !WIDE) {
+    if constexpr (REG_FETCH) {
       if (pre_ch < 0) return;
 #pragma unroll
       for (int x = 0; x < KVN_IT; ++x) {
@@ -407,7 +425,8 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
           __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
           issue_chunk(s + 2);
           cp_async_commit();
-          const float* slot = S.ring[s % 3];
+          // bfloat16: the forward's k product (csrc/coattn.cu), step for step
+          const auto* slot = S.ring[s % 3];
           acc_product_rows<2, NTE, WC, S_::GK>(c, slot, S_::KVS, slot + FK_BM * S_::KVS, RS,
                                                32 * wr, 8 * NTE * wc, lane);
         }
@@ -416,9 +435,9 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
           const int col = ec * S_::EC + 8 * NTE * wc + 8 * j + 2 * t4;
           const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            c[r][j][0] += b0; c[r][j][1] += b1;
-            c[r][j][2] += b0; c[r][j][3] += b1;
+          for (int r = 0; r < 2; ++r) {  // k as the forward computes it (bfloat16: rounded)
+            c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
+            c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
           }
         }
         // S.k is free: the last unit's dkv product ended before this unit's
@@ -493,7 +512,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
         for (int i = 0; i < FK_RPW; ++i) {
 #pragma unroll
-          for (int j = 0; j < EPH; ++j) kr[i][j] = tanhf(kr[i][j]);
+          for (int j = 0; j < EPH; ++j) kr[i][j] = round_to<T>(tanhf(kr[i][j]));
 #pragma unroll
           for (int j4 = 0; j4 < EPH / 4; ++j4)
             *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][h * EH + j4 * 128 + 4 * lane]) =
@@ -760,7 +779,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       for (int ch = 0; ch < NCE; ++ch, ++s) {
         cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-        if constexpr (IS_BF16<T>) {  // registers now, their places after the product
+        if constexpr (REG_FETCH) {  // registers now, their places after the product
           fetch_chunk(s + 2);
           fetch_kv(kv_next, m0_next, ch);
         } else {
@@ -1147,7 +1166,7 @@ int launch_bwd(const T* q, const T* kv, const T* wk, const T* bk,
                float* dbk_part, int B, int N, int M, int blocks, int wsplits, float scale,
                cudaStream_t st) {
   static bool allowed_main[64] = {}, allowed_dwk[64] = {};
-  constexpr int smem = (int)sizeof(FkBwdSmem<E, F>);
+  constexpr int smem = (int)sizeof(FkBwdSmem<E, F, T>);
   static_assert(smem <= 232448, "shared memory of one block");
   int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F, T>, smem, allowed_main);
   if (err) return err;
@@ -1203,8 +1222,9 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
   return (int)cudaGetLastError();
 }
 
-// The bfloat16 instance: q, kv, wk, bk, dout, dq and dkv bfloat16,
-// everything else (dwk and dbk included) as above; E, F in {128, 256}.
+// The bfloat16 instances: q, kv, wk, bk, dout, dq and dkv bfloat16,
+// everything else (dwk and dbk included) as above; E, F in {128, 256}, or
+// E = F = 512.
 int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                 const __nv_bfloat16* wk, const __nv_bfloat16* bk,
                                 const uint8_t* mask, const int* seed,
@@ -1226,7 +1246,7 @@ int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                             flags, list, off, dq_part, dwk_part, dbk_part, \
                                             B, N, M, blocks, wsplits, scale, st);
   MPO_BWD16(256, 256) else MPO_BWD16(128, 128) else MPO_BWD16(256, 128)
-  else MPO_BWD16(128, 256) else return (int)cudaErrorInvalidValue;
+  else MPO_BWD16(128, 256) else MPO_BWD16(512, 512) else return (int)cudaErrorInvalidValue;
 #undef MPO_BWD16
   if (err) return err;
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;

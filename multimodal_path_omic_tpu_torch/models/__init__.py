@@ -22,13 +22,14 @@ def is_ge_model(name: str) -> bool:
 
 def require_compute_dtype(name: str, dtype, device, model_size: str = "medium") -> None:
     """Refuse a bfloat16 compute dtype on the card for a model whose
-    attention kernels have no bfloat16 instance at its width yet (ROADMAP.md
-    queue 2 item 5): NaCAGaT where the fuse-K kernels or the export passes
-    lack the instance (``big``: E = D = 512). GE-NaCAGaT's flash kernels
-    have bfloat16 instances at every width; MCAT's lean branch runs no
-    kernel. On the CPU each runs the plain versions. (A module off the lean
-    routes, ``lean=False``, raises where it reaches a kernel without a
-    bfloat16 instance: ``ops/kernels.py::takes``.)"""
+    attention kernels have no bfloat16 instance at its width (ROADMAP.md
+    queue 2 item 5): NaCAGaT where the fuse-K kernels (both forms) or the
+    export passes lack the instance at E = F = D (every size has them:
+    ``coattn.BF16_EF``, ``BF16_EXPORT_D``). GE-NaCAGaT's flash kernels have
+    bfloat16 instances at every width; MCAT's lean branch runs no kernel.
+    On the CPU each runs the plain versions. (A module off the lean routes,
+    ``lean=False``, raises where it reaches a kernel without a bfloat16
+    instance: ``ops/kernels.py::takes``.)"""
     if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
         return
     e = MODEL_SIZES[model_size][1]

@@ -44,8 +44,9 @@ spreads it over exactly M.)
 
 bfloat16 (the compute dtype ``bfloat16``, ``ops/layers.py``): the fuse-K
 forward (both forms), the fuse-K backward and the export passes have
-bfloat16 instances (``_bf16`` entry points and launch counts; E = F and D in
-{128, 256}, ``BF16_EF`` / ``BF16_EXPORT_D``) that read bfloat16 q, kv, wk,
+bfloat16 instances (``_bf16`` entry points and launch counts; (E, F) in
+{128, 256}^2 and (512, 512), ``BF16_EF``; D in {128, 256, 512},
+``BF16_EXPORT_D``: every NaCAGaT size) that read bfloat16 q, kv, wk,
 bk (k for the export passes) and compute what the JAX kernels compute from
 bfloat16 tiles (``coattn.py:138-150, 186``): float32 sums, k rounded to
 bfloat16 after its projection, tanh(q) and tanh(k) rounded to bfloat16,
@@ -53,7 +54,9 @@ pd . kv in float32, o (and dq, dkv) written in bfloat16, l, m, ssq, sumw,
 the weights, dwk and dbk in float32 (dwk and dbk then cast to wk's type, as
 ``_coattn_fk_bwd`` does). The plain versions take bfloat16 inputs with the
 same roundings (``layers.round_bf16``). The flash kernels have bfloat16
-instances too (``ops/flash.py``); no other kernel has one: the predicates
+instances too (``ops/flash.py``); no other kernel has one (the plain-K
+forward with values and its backward, ``lean=False``; the eval form's
+float32-only shapes, E = 512 with F != 512 among them): the predicates
 refuse bfloat16 there, and the dispatchers take ``attention_core`` on the
 CPU and raise on the card (``kernels.takes``; ROADMAP queue 2 item 5).
 
@@ -85,9 +88,10 @@ VALUES_D = (128, 256)  # D the plain-K kernels with values take
 FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
 EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 1024)
 # the bfloat16 instances: (E, F) of the fuse-K forward (both forms) and
-# backward, D of the export passes (csrc/coattn.cu, csrc/coattn_bwd.cu)
-BF16_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)})
-BF16_EXPORT_D = (128, 256)
+# backward, D of the export passes (csrc/coattn.cu, csrc/coattn_bwd.cu);
+# (512, 512) and 512 are NaCAGaT big's
+BF16_EF = FUSED_K_TRAIN_EF
+BF16_EXPORT_D = (128, 256, 512)
 PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels (and the export passes): most main-pass blocks an SM
 TILE_LONE = 2  # flag of a bag without a valid key in the export passes' tile list
 
@@ -287,7 +291,9 @@ def fused_k_supports(n: int, e: int, f: int, m_len: int, *, train: bool,
     """The shapes the fuse-K kernels take: 1..``MAX_QUERIES`` queries (one
     warp each), M >= 1 keys, and in float32 E in ``EVAL_E`` with F % 16 ==
     0, F <= 1024 (eval form) or (E, F) in ``FUSED_K_TRAIN_EF`` (training
-    form and backward); in bfloat16 (E, F) in ``BF16_EF`` (every form). The
+    form and backward); in bfloat16 (E, F) in ``BF16_EF`` (every form: the
+    training form's pairs, so the eval form's other float32 shapes, E = 512
+    with F = 256 or 1024 among them, have no bfloat16 instance). The
     wrappers raise on a CUDA shape outside it; ``MultiheadAttention`` routes
     such a shape off the lean-V branch (the JAX package's
     ``leank_eligible``)."""
@@ -315,7 +321,8 @@ def plain_k_supports(n: int, d: int, m_len: int, *, values: bool,
     keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
     ``values``, D in ``VALUES_D`` (the forward with values and its
     backward), float32; in bfloat16 the export passes at D in
-    ``BF16_EXPORT_D`` and no forward with values. Shapes outside it take
+    ``BF16_EXPORT_D`` (every D of the float32 form) and no forward with
+    values. Shapes outside it take
     ``attention_core`` in the dispatchers (the JAX package's
     ``kernel_eligible``)."""
     if dtype == torch.bfloat16:

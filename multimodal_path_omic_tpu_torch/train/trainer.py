@@ -47,10 +47,11 @@ the host-fed bags in that type (int8 with float32 row scales,
 ``pipeline.device_arrays``), ``tpu.cache_dtype`` stores the device cache in
 it (and its budget fit counts that type's bytes), and the steps dequantize on
 the device, or with ``tpu.int8_matmul`` keep an int8 batch int8 into the
-first layer of a training step. Under bfloat16 GE-NaCAGaT runs the flash
-kernels' bfloat16 instances at every size; the card refuses a model whose
-kernels have no bfloat16 instance at its width yet: NaCAGaT ``big``
-(``models.require_compute_dtype``). ``wandb.enabled`` logs each
+first layer of a training step. Under bfloat16 NaCAGaT runs the
+co-attention kernels' bfloat16 instances and GE-NaCAGaT the flash kernels'
+at every size; the card refuses a model whose kernels have no bfloat16
+instance at its width (``models.require_compute_dtype``) and ``lean=False``
+at the first kernel without one (``kernels.takes``). ``wandb.enabled`` logs each
 epoch's metrics to wandb as well (``train/logging.py``).
 
 Settings the port cannot honour yet raise ``NotImplementedError``

@@ -1649,7 +1649,7 @@ def _close_bf16_fwd(got, ref):
         _close(a, r, atol=BF16_STAT_TOL)
 
 
-@pytest.mark.parametrize("e", [128, 256])
+@pytest.mark.parametrize("e", [128, 256, 512])
 @pytest.mark.parametrize("m_len,kind", [(4096, "prefix"), (4000, "holes"), (1500, "one")])
 def test_bf16_fused_k_instances_match_plain_on_card(dev, e, m_len, kind):
     """The bfloat16 fuse-K eval and training forms (dropout 0.25) and the
@@ -1692,7 +1692,7 @@ def test_bf16_fused_k_instances_match_plain_on_card(dev, e, m_len, kind):
 
 
 @pytest.mark.parametrize("pre_gate", [False, True])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 512])
 @pytest.mark.parametrize("kind", ["holes", "one", "prefix"])
 def test_bf16_export_instances_match_plain_on_card(dev, kind, d, pre_gate):
     """The bfloat16 export passes (stats, weights, both on one tile list)
@@ -1723,10 +1723,12 @@ def test_bf16_export_instances_match_plain_on_card(dev, kind, d, pre_gate):
 
 
 def test_bf16_wrappers_refuse_what_the_instances_do_not_take(dev):
-    """E = F = 512 and the plain-K form with values have no bfloat16
+    """The eval form at E = 512 with F = 256 (float32 takes it; the bfloat16
+    instances take E = F) and the plain-K form with values have no bfloat16
     instance (the wrappers refuse such a shape; the dispatchers raise before
     a wrapper is reached: the next test); mixed types raise."""
     q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 512, 300, "prefix", 5)
+    kv, wk = kv[..., :256].contiguous(), wk[:256].contiguous()
     with pytest.raises(ValueError, match="unsupported shape"):
         coattn.coattn_fwd_fused_k(q, kv, wk, bk, mask)
     q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 256, 300, "prefix", 6)
@@ -1734,38 +1736,76 @@ def test_bf16_wrappers_refuse_what_the_instances_do_not_take(dev):
         coattn.coattn_fwd_fused_k(q, kv.float(), wk, bk, mask)
     with pytest.raises(ValueError, match="unsupported shape"):
         coattn.coattn_fwd_plain_k(q, k, k, mask, pre_gate=False, train=False)
-    assert not coattn.fused_k_supports(3, 512, 512, 300, train=True, dtype=BF16)
+    assert not coattn.fused_k_supports(3, 512, 256, 300, train=False, dtype=BF16)
+    assert coattn.fused_k_supports(3, 512, 256, 300, train=False)
+    assert coattn.fused_k_supports(3, 512, 512, 300, train=True, dtype=BF16)
     assert not coattn.plain_k_supports(3, 256, 300, values=True, dtype=BF16)
 
 
-def test_bf16_shapes_without_an_instance_raise_on_card(dev):
+def test_bf16_shapes_without_an_instance_raise_on_card(dev, tmp_path):
     """On the card a bfloat16 module at a shape that a float32 kernel takes
     and no bfloat16 instance does raises before any launch (kernels.takes),
-    where the CPU takes attention_core: NaCAGaT ``big``'s pre-gated
-    co-attention (fuse-K at E = 512) and its export map (D = 512), the
-    plain-K form with values (D = 256); the Trainer refuses NaCAGaT ``big``
-    under bfloat16 before it reads any data."""
+    where the CPU takes attention_core: the plain-K form with values (D =
+    256, ``lean=False``). NaCAGaT ``big``'s pre-gated co-attention (fuse-K
+    at E = F = 512) and its export map (D = 512), once refused, now run on
+    their bfloat16 instances, within 5e-2 of their largest magnitude of the
+    CPU's plain versions on the same weights (the bar the dispatch tests
+    hold the CPU's bfloat16 routes to JAX's float32 with: cuBLAS and the CPU
+    round the projections at other places); and the Trainer builds NaCAGaT
+    ``big`` under bfloat16 and trains and validates an epoch on them."""
+    import copy
+
     from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.data.synthetic import (
+        make_synthetic_cohort,
+        synthetic_config_dict,
+    )
     from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
     from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer
 
     g = torch.Generator().manual_seed(0)
-    mask = torch.ones(2, 100, dtype=torch.bool, device=dev)
+    mask = torch.ones(2, 100, dtype=torch.bool)
     for e, pre_gate, lean, need in ((512, True, True, False), (512, True, True, True),
                                     (256, False, False, False)):
         module = set_compute_dtype(MultiheadAttention(e, 1, pre_gate=pre_gate, lean=lean),
-                                   BF16).to(dev).eval()
-        q = torch.randn(2, 6, e, generator=g).to(dev)
-        kv = torch.randn(2, 100, e, generator=g).to(dev)
+                                   BF16).eval()
+        q = torch.randn(2, 6, e, generator=g)
+        kv = torch.randn(2, 100, e, generator=g)
+        card = copy.deepcopy(module).to(dev)
+        qd, kvd, maskd = q.to(dev), kv.to(dev), mask.to(dev)  # key is value: the lean routes
         before = dict(coattn.LAUNCH_COUNTS)
-        with torch.no_grad(), pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            module(q, kv, kv, mask, need_weights=need)
-        assert dict(coattn.LAUNCH_COUNTS) == before
-    cfg = config_from_dict({"model": {"name": "NaCAGaT", "model_size": "big"},
-                            "tpu": {"compute_dtype": "bfloat16"}})
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        Trainer(cfg, verbose=False)
+        if not lean:
+            with torch.no_grad(), pytest.raises(NotImplementedError, match="queue 2 item 5"):
+                card(qd, kvd, kvd, maskd, need_weights=need)
+            assert dict(coattn.LAUNCH_COUNTS) == before
+            continue
+        with torch.no_grad():
+            got = card(qd, kvd, kvd, maskd, need_weights=need)
+            ref = module(q, kv, kv, mask, need_weights=need)
+        torch.cuda.synchronize()
+        launched = {k_: v_ - before[k_] for k_, v_ in coattn.LAUNCH_COUNTS.items()
+                    if v_ != before[k_]}
+        assert launched and all(k_.endswith("_bf16") for k_ in launched), launched
+        for a, r in zip(got, ref):
+            if r is not None:
+                a, r = a.float().cpu(), r.float()
+                assert float((a - r).abs().max()) <= 5e-2 * float(r.abs().max())
+    paths = make_synthetic_cohort(str(tmp_path / "cohort"), n_patients=12,
+                                  bag_lengths=(48, 80, 120), n_genes=36, n_signatures=4, seed=0)
+    raw = synthetic_config_dict(*paths)
+    raw["model"].update(name="NaCAGaT", model_size="big", dropout=0.0,
+                        checkpoint_dir=str(tmp_path / "ck"))
+    raw["training"].update(loss="cesar", epochs=1, test_output_dir=str(tmp_path / "out"))
+    raw["tpu"] = {"bag_buckets": [128], "batch_size": 4, "compute_dtype": "bfloat16"}
+    trainer = Trainer(config_from_dict(raw), verbose=False, device="cuda")
+    coattn.reset_launch_counts()
+    train, val = trainer.validated_epoch(0)
+    torch.cuda.synchronize()
+    assert math.isfinite(train["train_loss"]) and math.isfinite(val["val_loss"])
+    assert {k_ for k_, v_ in coattn.LAUNCH_COUNTS.items() if v_} == {
+        "coattn_fwd_fused_k_train_bf16", "coattn_bwd_fused_k_bf16", "coattn_stats_bf16",
+        "coattn_weights_bf16"}
 
 
 def test_bf16_nacagat_train_step_on_card_matches_cpu(dev, monkeypatch):

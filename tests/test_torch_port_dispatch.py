@@ -342,12 +342,13 @@ BF16_ROUTE_RTOL = 5e-2
 BF16_CASES = [
     ("bf16-nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
     ("bf16-nacagat-small-ssq", 128, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
-    # queue 2 item 5: no E = 512 fuse-K instance, no plain-K instance with values
-    ("bf16-nacagat-big", 512, 1, True, 6, 100, False, "attention_core", False),
-    ("bf16-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "attention_core", False),
+    # NaCAGaT big: the E = F = 512 fuse-K and D = 512 export instances
+    ("bf16-nacagat-big", 512, 1, True, 6, 100, False, "fused_attention_leank", True),
+    ("bf16-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
+    # queue 2 item 5: no plain-K instance with values
     ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "attention_core", False),
     ("bf16-weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
-    ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", False),
+    ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", True),
     # GE's self-attentions: the flash kernels' bfloat16 instances, every size
     ("bf16-ge-width256", 256, 1, False, None, 64, False, "flash_attention", True),
     ("bf16-ge-width32", 256, 8, False, None, 64, False, "flash_attention", True),
@@ -422,29 +423,37 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
 @pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
 @pytest.mark.parametrize("name", ["GE-NaCAGaT", "NaCAGaT"])
 def test_ge_bf16_is_refused_on_the_card(name, device, refused):
-    """GE-NaCAGaT under bfloat16 compute is no longer refused on a CUDA device
-    (its flash kernels have bfloat16 instances at every width) and runs on
-    the CPU's plain versions; float32 and the survival models at ``medium``
-    pass; on the card NaCAGaT ``big`` is still refused. (The Trainer on the
-    card: ``test_torch_port_cuda.py``.)"""
+    """GE-NaCAGaT and NaCAGaT under bfloat16 compute are no longer refused on
+    a CUDA device at any size (the flash kernels and, since NaCAGaT ``big``'s
+    E = F = D = 512 instances, the co-attention kernels have bfloat16
+    instances at every width) and run on the CPU's plain versions; float32
+    passes. What the card still refuses under bfloat16 is a module off the
+    lean routes (``lean=False``: the plain-K form with values), at the
+    kernel, before any launch. (The Trainer on the card:
+    ``test_torch_port_cuda.py``.)"""
     from multimodal_path_omic_tpu_torch.models import require_compute_dtype
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
 
-    for size in ("small", "medium", "big") if name.startswith("GE") else ("medium",):
+    for size in ("small", "medium", "big"):
         require_compute_dtype(name, torch.bfloat16, device, size)
     require_compute_dtype(name, None, device)
-    if refused:  # on the card NaCAGaT big alone is still refused
+    values = dict(values=True, dtype=torch.bfloat16)
+    if refused:
         with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            require_compute_dtype("NaCAGaT", torch.bfloat16, device, "big")
+            takes("coattn_plain", coattn.plain_k_supports, device, 6, 256, 100, **values)
+    else:
+        assert not takes("coattn_plain", coattn.plain_k_supports, device, 6, 256, 100, **values)
 
 
-# (id, the kernel's predicate, its shape arguments, keywords): the shapes of
-# BF16_CASES that a float32 kernel takes and no bfloat16 instance does
+# (id, the kernel's predicate, its shape arguments, keywords): shapes that a
+# float32 kernel takes and no bfloat16 instance does: BF16_CASES' plain-K
+# form with values, and the fuse-K eval form's float32-only (E, F) pairs
 BF16_NO_INSTANCE = [
-    ("bf16-nacagat-big", coattn.fused_k_supports, (6, 512, 512, 100), {"train": False}),
-    ("bf16-nacagat-big-ssq", coattn.fused_k_supports, (6, 512, 512, 100), {"train": True}),
+    ("bf16-eval-e512-f256", coattn.fused_k_supports, (6, 512, 256, 100), {"train": False}),
+    ("bf16-eval-e128-f512", coattn.fused_k_supports, (6, 128, 512, 100), {"train": False}),
     ("bf16-lean-false-width256-8heads", coattn.plain_k_supports, (6, 256, 100),
      {"values": True}),
-    ("bf16-weights-d512", coattn.plain_k_supports, (6, 512, 100), {"values": False}),
+    ("bf16-eval-e256-f1024", coattn.fused_k_supports, (6, 256, 1024, 100), {"train": False}),
     ("bf16-eval-e512-f1024", coattn.fused_k_supports, (6, 512, 1024, 100), {"train": False}),
     ("bf16-lean-false-width128", coattn.plain_k_supports, (6, 128, 100), {"values": True}),
 ]
@@ -472,21 +481,17 @@ def test_bf16_shapes_without_an_instance_raise_on_the_card(case):
                      dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("name,size,refused", [
-    ("NaCAGaT", "small", False), ("NaCAGaT", "medium", False), ("NaCAGaT", "big", True),
-    ("MCAT", "big", False),
+@pytest.mark.parametrize("name,size", [
+    ("NaCAGaT", "small"), ("NaCAGaT", "medium"), ("NaCAGaT", "big"), ("MCAT", "big"),
 ])
-def test_bf16_models_without_instances_are_refused_on_the_card(name, size, refused):
-    """Under bfloat16 compute the card refuses NaCAGaT where its co-attention
-    kernels have no bfloat16 instance at its width (``big``: E = D = 512),
-    naming queue 2 item 5; MCAT's lean branch runs no kernel. The CPU runs
-    each on the plain versions, and float32 passes everywhere."""
+def test_bf16_models_without_instances_are_refused_on_the_card(name, size):
+    """Under bfloat16 compute the card would refuse NaCAGaT where its
+    co-attention kernels had no bfloat16 instance at its width (queue 2 item
+    5); every size has them now (``big``: E = F = D = 512), so each passes,
+    as MCAT (whose lean branch runs no kernel) does. The CPU runs each on
+    the plain versions, and float32 passes everywhere."""
     from multimodal_path_omic_tpu_torch.models import require_compute_dtype
 
-    if refused:
-        with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            require_compute_dtype(name, torch.bfloat16, "cuda", size)
-    else:
-        require_compute_dtype(name, torch.bfloat16, "cuda", size)
-    require_compute_dtype(name, torch.bfloat16, "cpu", size)
-    require_compute_dtype(name, torch.float32, "cuda", size)
+    for dtype, device in ((torch.bfloat16, "cuda"), (torch.bfloat16, "cpu"),
+                          (torch.float32, "cuda")):
+        require_compute_dtype(name, dtype, device, size)
