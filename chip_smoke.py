@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-26 below
+    python3 chip_smoke.py              # phases 1-27 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -273,10 +273,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     compute from the int8 store on the card and on the CPU, dropout 0, four
     training seeds: losses within 6e-5 and 1.2e-3 relative, risks within
     6e-3 (about twice the largest reading), and each seed's run not equal
-    to its float32-compute control on the card. (d) A shape still refused
-    under bf16 compute on the card: NaCAGaT medium with ``lean=False`` (the
-    plain-K kernels with values at D = 256 have no bf16 instance) raises
-    NotImplementedError (queue 2 item 5) before any kernel launch.
+    to its float32-compute control on the card. (d) The one shape still
+    without a bf16 instance, the eval fuse-K form at E = 512 with F = 256
+    (no shipped configuration reaches it): ``kernels.takes`` raises
+    NotImplementedError (queue 2 item 5) on the card and the wrapper
+    refuses it, before any kernel launch.
 25. GE-NaCAGaT under bfloat16: the flash kernels' bfloat16 instances. (a)
     Every instance (forward and backward at widths 16..512) against its
     bfloat16 plain version: GE medium's at B=8, M=16384 with phase 9's
@@ -320,6 +321,29 @@ Phases (any failure exits non-zero, and no result line is printed):
     of shorter bags (48 patients, 600..2000 patches): losses and validation
     risks within the limits of ``BIG_BF16_CPU_*`` (about twice the largest
     reading), and each run unequal to its float32-compute control.
+27. The plain-K pair with values at every shipped width in both types
+    (MCAT and NaCAGaT ``lean=False`` at every size). (a) The bf16 instances
+    at D = 128, 256, 512 and the float32 one at D = 512 against their plain
+    versions at B=32, N=6 on M=8192 ragged masks with a filler bag (phase
+    16's), masked tiles mid-bag, a one-key bag (M=1500) and M=5000 (not a
+    multiple of 64), with and without the pre-gate: the eval form, the
+    training form at dropout 0 and 0.25, the backward; float32 at phase
+    13's bars (l 1e-4 relative at D = 512), bf16 o within one bf16 unit of
+    its terms' magnitude, l, m, ssq, sumw 1e-4 relative, dq, dk, dv 2e-2 of
+    each one's largest magnitude; two runs bitwise equal; dk and dv exactly
+    0 at masked keys; each timed (MCAT's form; the pre-gated one logged)
+    beside its float32 row, its plain version, ``scaled_dot_product_attention``
+    and, at D = 512, the ``attention_core`` route it replaces. (b) MCAT and
+    NaCAGaT ``big`` through ``Predictor(..., lean=False)`` in float32 and
+    bf16 and NaCAGaT ``medium`` in bf16 on phase 2's 40 bags: one plain-K
+    forward of the instance a batch and no other kernel, no
+    ``attention_core`` call, hazards against the CPU Predictor on 3 bags,
+    bags/s. (c) NaCAGaT ``cesar`` at ``medium``
+    bf16 and ``big`` in both types, and MCAT ``ces`` at ``big`` bf16,
+    ``lean=False``, dropout 0.25: three steps graphed and eager bit for bit,
+    one forward and one backward launch a step, no ``attention_core`` call;
+    then dropout 0, one step's loss on the card against the CPU (shorter
+    bags). ~50 s.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -355,6 +379,7 @@ other.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -419,6 +444,10 @@ SOURCES = {
     **{f"flash_{way}_d{w}_bf16": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
        for way, src in (("fwd", "flash"), ("bwd", "flash_bwd"))
        for w in (16, 32, 64, 128, 256, 512)},
+    # the plain-K pair with values at every width in both types (phase 27)
+    **{f"coattn_plain{way}{sfx}": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
+       for way, src in (("", "coattn"), ("_bwd", "coattn_bwd"))
+       for sfx in ("_bf16", "_d512", "_bf16_d512")},
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -449,6 +478,8 @@ REPLACES = {
     "coattn_weights_bf16_d512": "multimodal_path_omic_tpu/ops/coattn.py:908",
     **{f"flash_{way}_d{w}_bf16": "multimodal_path_omic_tpu/ops/flash.py:44"
        for way in ("fwd", "bwd") for w in (16, 32, 64, 128, 256, 512)},
+    **{f"coattn_plain{way}{sfx}": f"multimodal_path_omic_tpu/ops/coattn.py:{line}"
+       for way, line in (("", 221), ("_bwd", 508)) for sfx in ("_bf16", "_d512", "_bf16_d512")},
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -2302,27 +2333,29 @@ def computed_tile_keys(mask, lone=False) -> int:
     return int((tiles.long() * keys).sum())
 
 
-def plain_k_bound_ms(name, m_len, keys=None, v_keys=None) -> tuple:
-    """Bounds of the plain-K kernels at B=32, N=6, D=256 (pre-gated form: its
-    gate product is counted; float32 multiply-adds as 2 operations), their k
-    rows read over ``keys`` (bag, key) pairs and their v rows over
+def plain_k_bound_ms(name, m_len, keys=None, v_keys=None, d=E, esize=4) -> tuple:
+    """Bounds of the plain-K kernels at B=32, N=6, width ``d`` (pre-gated
+    form: its gate product is counted; multiply-adds as 2 operations), their
+    k rows read over ``keys`` (bag, key) pairs and their v rows over
     ``v_keys`` (default ``keys``; both default to every key; the backward
-    writes dk and dv whole), and of the gather at B=32 rows of [m_len, 1024]
+    writes dk and dv whole), q, k, v, o, dout, dq, dk, dv of ``esize`` bytes
+    (2: the bfloat16 instances, whose products of bfloat16 operands are
+    bounded at the bfloat16 tensor-core rate; 4: float32 FMAs), the
+    statistics float32; and of the gather at B=32 rows of [m_len, 1024]
     float32."""
-    d = E
     keys = B * m_len if keys is None else keys
     v_keys = keys if v_keys is None else v_keys
-    if name == "coattn_plain":  # in: q, k, v, mask; out: o, l, m, ssq, sumw
-        nbytes = 4 * (2 * B * N * d + (keys + v_keys) * d + 4 * B * N) + B * m_len
-        ops = 2 * N * (2 * keys + v_keys) * d  # q.k, the gate, p.v
-    elif name == "coattn_plain_bwd":  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
-        nbytes = (4 * (3 * B * N * d + (keys + v_keys) * d + 2 * B * m_len * d + 5 * B * N)
-                  + B * m_len)
+    if name.startswith("coattn_plain_bwd"):  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
+        nbytes = (esize * (3 * B * N * d + (keys + v_keys) * d + 2 * B * m_len * d)
+                  + 4 * 5 * B * N + B * m_len)
         ops = 16 * N * keys * d  # q.k, gate, dO.v, dv, two terms each of dq and dk
+    elif name.startswith("coattn_plain"):  # in: q, k, v, mask; out: o, l, m, ssq, sumw
+        nbytes = esize * (2 * B * N * d + (keys + v_keys) * d) + 4 * 4 * B * N + B * m_len
+        ops = 2 * N * (2 * keys + v_keys) * d  # q.k, the gate, p.v
     else:
         nbytes, ops = 2 * B * m_len * 1024 * 4 + 8 * B, 0
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = ops / (PEAK_BF16_FLOP_PER_S if esize == 2 else PEAK_F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -4127,9 +4160,9 @@ def bf16_kernel_checks(dev, e, tag) -> tuple:
 def phase24_precision(dev) -> dict:
     """(b)-(d): the Trainer in bfloat16 from an int8 store and the other
     reduced-precision settings on phase 21's cohort and configuration, each
-    graphed and eager; the card against the CPU; ``lean=False`` under
-    bfloat16 refused (GE runs: phase 25; NaCAGaT big: phase 26). Returns the
-    launches of (b)."""
+    graphed and eager; the card against the CPU; the one bfloat16 shape
+    without an instance refused (GE runs: phase 25; NaCAGaT big: phase 26;
+    ``lean=False``: phase 27). Returns the launches of (b)."""
     import shutil
     import tempfile
 
@@ -4138,9 +4171,8 @@ def phase24_precision(dev) -> dict:
 
     from multimodal_path_omic_tpu_torch.config import config_to_dict
     from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
-    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.ops import coattn, kernels
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer
-    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
     t_phase = time.perf_counter()
     power = gpu_name_and_power()
@@ -4248,27 +4280,35 @@ def phase24_precision(dev) -> dict:
             if ends["bf16 card"][:2] == ends["f32 card"][:2] or gap == 0.0:
                 raise AssertionError(f"seed {seed}: the bf16 card run equals float32 compute")
 
-        log("phase 24 (d): NaCAGaT medium with lean=False (the plain-K kernels with values, D = "
-            "256: no bfloat16 instance) under bfloat16 compute on the card")
-        model = seeded_init_(build_model("NaCAGaT", omic_sizes=SIZES, model_size="medium",
-                                         lean=False, dtype=torch.bfloat16), 0).to(dev).eval()
+        log("phase 24 (d): the one bfloat16 shape still without an instance, the eval fuse-K "
+            "form at E = 512, F = 256 (no shipped configuration reaches it), on the card")
         g = torch.Generator().manual_seed(24)
-        wsi = torch.randn(2, 1500, 1024, generator=g).to(dev)
-        omics = [torch.randn(2, size, generator=g).to(dev) for size in SIZES]
+        bf = torch.bfloat16
+        q = torch.randn(2, N, 512, generator=g).to(dev).to(bf)
+        kv = torch.randn(2, 1500, 256, generator=g).to(dev).to(bf)
+        wk = (torch.randn(256, 512, generator=g) / 16).to(dev).to(bf)
+        bk = torch.zeros(512, device=dev, dtype=bf)
         before = read_counts()
         try:
-            with torch.no_grad():  # no map: the co-attention with values (the export has one)
-                model(wsi, omics, torch.ones(2, 1500, dtype=torch.bool, device=dev),
-                      need_attention=False)
+            kernels.takes("fuse-K", coattn.fused_k_supports, dev, N, 512, 256, 1500,
+                          train=False, dtype=bf)
         except NotImplementedError as exc:
             if "queue 2 item 5" not in str(exc):
-                raise AssertionError(f"lean=False bf16: refused without naming its item: {exc}")
-            if _counts_delta(before, read_counts()):
-                raise AssertionError("lean=False bf16: a kernel launched before the refusal")
-            log(f"  refused before any launch: NotImplementedError: {exc}")
+                raise AssertionError(f"bf16 E=512 F=256: refused without naming its item: {exc}")
+            log(f"  kernels.takes refuses it: NotImplementedError: {exc}")
         else:
-            raise AssertionError("lean=False under bfloat16 on the card was not refused")
-        del model
+            raise AssertionError("bf16 eval fuse-K at E=512, F=256 was not refused on the card")
+        try:
+            coattn.coattn_fwd_fused_k(q, kv, wk, bk, torch.ones(2, 1500, dtype=torch.bool,
+                                                                 device=dev))
+        except ValueError as exc:
+            log(f"  the wrapper refuses it: ValueError: {exc}")
+        else:
+            raise AssertionError("the bf16 fuse-K wrapper took E=512, F=256")
+        if _counts_delta(before, read_counts()):
+            raise AssertionError("bf16 E=512 F=256: a kernel launched before the refusal")
+        log("  refused before any launch")
+        del q, kv, wk, bk
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 24: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
@@ -4797,6 +4837,427 @@ def phase26_big_bf16(dev) -> dict:
     return total
 
 
+# Phase 27: the plain-K pair with values at every shipped width in both types
+# (MCAT and NaCAGaT lean=False at every size): the bfloat16 instances at D =
+# 128, 256 and 512 and the float32 instance at D = 512. (a) Each instance
+# against its plain version on the card. Float32 at phase 13's bars
+# (KERNEL_ATOL, gradients GRAD_RTOL of each one's largest magnitude, a
+# one-key bag's dq and dk held to the noise of the terms that cancel) but l,
+# within PLAIN27_F32_L_RTOL relative: at D = 512 the pre-gated scores reach
+# ~20 (the gate sums 512 products of tanh), and float32 sums of 512 terms in
+# other orders move a score, and so l, by ~2e-5 relative (measured 1.9e-5;
+# 1e-5 holds at D = 256). bfloat16: o within one bfloat16 unit (BF16_O_RTOL) of its terms'
+# magnitude, sum_j w_j |v_j| (the attention over |v|, as phase 25 holds the
+# flash instances' o: a tanh on the other side of a bfloat16 rounding in the
+# two versions moves a key's weight, and o by that share of its term); l, m,
+# ssq and sumw within PLAIN27_STAT_RTOL relative plus PLAIN27_STAT_ATOL
+# (float32 sums of products of bfloat16 values in other orders); dq, dk, dv
+# within BF16_GRAD_RTOL of each one's largest magnitude, a one-key bag's dq
+# and dk (noise on both sides) left out. Both types: two runs bitwise equal,
+# dk exactly 0 at every masked key and dv at the masked keys of bags with a
+# valid key. (b) Serving: MCAT and NaCAGaT big through Predictor(...,
+# lean=False) in float32 and bfloat16 and NaCAGaT medium in bfloat16 on phase
+# 2's bags: one plain-K forward of the instance a batch and no other kernel
+# (and no attention_core call, in (c) too);
+# hazards, survs and risk against the CPU Predictor on the same weights
+# (float32 within MODEL_ATOL; bfloat16 within PLAIN27_SERVE_ATOL: cuBLAS and
+# the CPU round the bfloat16 projections at other places). (c) Training:
+# NaCAGaT cesar (and MCAT ces at big in bfloat16), lean=False, dropout 0.25,
+# Adam: GRAPH_STEPS steps graphed and eager, bit for bit, one forward and one
+# backward launch a step; then, dropout 0, one step's loss and training
+# hazards on the card against the CPU on shorter bags (float32 within
+# PLAIN27_F32_CPU_RTOL relative and MODEL_ATOL; bfloat16 within
+# PLAIN27_BF16_CPU_RTOL and PLAIN27_SERVE_ATOL).
+PLAIN27_INSTANCES = ((256, "bf16"), (128, "bf16"), (512, "bf16"), (512, "f32"))
+PLAIN27_CASES = ((TRAIN_M, "prefix"), (TRAIN_M, "holes"), (1500, "one"), (5000, "prefix"))
+PLAIN27_STAT_RTOL, PLAIN27_STAT_ATOL = 1e-4, 1e-5
+PLAIN27_F32_L_RTOL = 1e-4
+PLAIN27_SERVE_ATOL = 2e-2
+PLAIN27_F32_CPU_RTOL, PLAIN27_BF16_CPU_RTOL = 1e-4, 5e-3
+PLAIN27_SERVE = (("MCAT", "big", "f32"), ("NaCAGaT", "big", "f32"), ("MCAT", "big", "bf16"),
+                 ("NaCAGaT", "big", "bf16"), ("NaCAGaT", "medium", "bf16"))
+PLAIN27_TRAIN = (("NaCAGaT", "cesar", "medium", "bf16"), ("NaCAGaT", "cesar", "big", "f32"),
+                 ("NaCAGaT", "cesar", "big", "bf16"), ("MCAT", "ces", "big", "bf16"))
+PLAIN27_CPU_M, PLAIN27_CPU_ROWS = 2048, 4
+
+
+def plain27_rows(d, kind) -> tuple:
+    """The kernels line's (forward, backward) rows of an instance: the
+    bfloat16 one at D 128 and 256 shares ``coattn_plain_bf16``'s; ``_d512``
+    at D = 512 (the launch counts do not carry the width: ``count_of``)."""
+    sfx = ("_bf16" if kind == "bf16" else "") + ("_d512" if d == 512 else "")
+    return "coattn_plain" + sfx, "coattn_plain_bwd" + sfx
+
+
+def plain27_inputs(dev, m_len, d, kind, seed) -> tuple:
+    """q, k, v, dout of phase 13's scale drawn on the card (float32, and the
+    instance's type), make_mask's masks, a dropout seed and the side
+    outputs' cotangents."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mask = make_mask(m_len, g, kind).to(dev)
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    q = 0.7 * torch.randn(B, N, d, generator=gd, device=dev)
+    k = 0.7 * torch.randn(B, m_len, d, generator=gd, device=dev)
+    v = 0.7 * torch.randn(B, m_len, d, generator=gd, device=dev)
+    dout = torch.randn(B, N, d, generator=gd, device=dev)
+    dssq, dsumw = (torch.randn(B, N, generator=gd, device=dev) for _ in range(2))
+    dseed = torch.tensor([seed], dtype=torch.int32, device=dev)
+    return q, k, v, dout, mask, dseed, dssq, dsumw
+
+
+def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
+    """One instance on one mask, one pre-gate setting: the eval form, the
+    training form at dropout 0 and TRAIN_RATE, the backward at TRAIN_RATE."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    bf = kind == "bf16"
+    dt = torch.bfloat16 if bf else torch.float32
+    q, k, v, dout, mask, seed, dssq, dsumw = plain27_inputs(dev, m_len, d, mask_kind,
+                                                            27 * d + m_len + pre_gate)
+    q, k, v, dout = (t.to(dt) for t in (q, k, v, dout))
+    one, has = mask.sum(-1) == 1, mask.any(-1)
+    fwd_row, bwd_row = plain27_rows(d, kind)
+    tag = f"{kind} D={d} M={m_len} {mask_kind} pre_gate={pre_gate}"
+    worst = {}
+
+    def hold(what, ratio):
+        worst[what] = max(worst.get(what, 0.0), ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"phase 27 (a) {tag}: {what} at {ratio:.3f} of its tolerance")
+
+    def fwd_close(form, got, ref, rate):
+        if got[0].dtype != dt or any(t is not None and t.dtype != torch.float32
+                                     for t in got[1:]):
+            raise AssertionError(f"phase 27 (a) {tag}: {form} output types")
+        diff = (got[0].float() - ref[0].float()).abs()
+        if bf:
+            terms = coattn.coattn_fwd_plain_k_plain(q, k, v.abs(), mask, seed, rate,
+                                                    pre_gate=pre_gate)[0].float()
+            limit = BF16_O_RTOL * terms
+            hold("o", float(torch.where(diff == 0, torch.zeros_like(diff),
+                                        diff / limit.clamp_min(1e-30)).max()))
+        else:
+            hold("o", float(diff.max()) / KERNEL_ATOL)
+        errs[fwd_row] = max(errs[fwd_row], float(diff.max()))
+        for name, a, r in zip(("l", "m", "ssq", "sumw"), got[1:], ref[1:]):
+            if a is None:
+                continue
+            atol, rtol = ((PLAIN27_STAT_ATOL, PLAIN27_STAT_RTOL) if bf else
+                          (0.0, PLAIN27_F32_L_RTOL) if name == "l" else (KERNEL_ATOL, 0.0))
+            e = (a - r).abs()
+            hold(name, float((e / (atol + rtol * r.abs())).max()))
+            if not (bf or name == "l"):
+                errs[fwd_row] = max(errs[fwd_row], float(e.max()))
+
+    got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    if got[3] is not None or not all(torch.equal(a, c) for a, c in zip(got[:3], again[:3])):
+        raise AssertionError(f"phase 27 (a) {tag}: the eval form's two runs differ")
+    fwd_close("eval", got, coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0,
+                                                           pre_gate=pre_gate), 0.0)
+    for rate in (0.0, TRAIN_RATE):
+        got = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate, pre_gate=pre_gate)
+        fwd_close(f"training {rate}", got, coattn.coattn_fwd_plain_k_plain(
+            q, k, v, mask, seed, rate, pre_gate=pre_gate), rate)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, TRAIN_RATE, pre_gate=pre_gate)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"phase 27 (a) {tag}: the training form's two runs differ")
+    o, l, m, ssq, sumw = fwd = got
+    di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, k, v, mask, seed, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+    grads = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        raise AssertionError(f"phase 27 (a) {tag}: the backward's two runs differ")
+    ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, TRAIN_RATE, dout, dssq, dsumw,
+                                          pre_gate=pre_gate)
+    if not bf and bool(one.any()):
+        check_one_key_plain([t[one] for t in grads[:2]], [t[one] for t in ref[:2]], q[one],
+                            k[one], [t[one] for t in fwd], dout[one], dssq[one], dsumw[one],
+                            di[one])
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        if a.dtype != dt:
+            raise AssertionError(f"phase 27 (a) {tag}: {name} is {a.dtype}")
+        a, r = a.float(), r.float()
+        if name != "dv":
+            a, r = a[~one], r[~one]
+        err = float((a - r).abs().max())
+        hold(name, err / ((BF16_GRAD_RTOL if bf else GRAD_RTOL) * float(r.abs().max())))
+        errs[bwd_row] = max(errs[bwd_row], err)
+    if float(grads[1][~mask].float().abs().max()) != 0.0:
+        raise AssertionError(f"phase 27 (a) {tag}: a masked key passed a gradient to k")
+    if float(grads[2][has][~mask[has]].float().abs().max()) != 0.0:
+        raise AssertionError(f"phase 27 (a) {tag}: dv is not 0 at a masked key")
+    log(f"phase 27 (a): {tag}: each output at its worst " + ", ".join(
+        f"{k_} {v_:.3f}" for k_, v_ in worst.items()) + " of its tolerance; two runs bitwise "
+        "equal; dk, dv exactly 0 at the masked keys")
+
+
+def plain27_timings(dev, errs, power) -> list:
+    """Each instance at B=32, N=6, M=8192 (phase 16's masks), MCAT's form
+    (no pre-gate, no dropout) for the kernels line, beside its float32 row,
+    its plain version, scaled_dot_product_attention in its type and, at D =
+    512, the attention_core route it replaces (with autograd's backward);
+    the pre-gated form logged. Returns the rows without their launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+    from multimodal_path_omic_tpu_torch.ops.attention import attention_core
+
+    rows = []
+    for d, kind in PLAIN27_INSTANCES:
+        bf = kind == "bf16"
+        dt = torch.bfloat16 if bf else torch.float32
+        q32, k32, v32, dout32, mask, seed, dssq, dsumw = plain27_inputs(dev, TRAIN_M, d,
+                                                                        "prefix", 23)
+        q, k, v, dout = (t.to(dt) for t in (q32, k32, v32, dout32))
+        zeros = torch.zeros_like(dssq)
+        valid, filled = int(mask.sum()), valid_keys(mask)
+        need = {"fwd": (valid, filled), "bwd": (valid, valid)}
+        fwd_row, bwd_row = plain27_rows(d, kind)
+        times = {}
+        for pre_gate in (False, True):
+            o, l, m, ssq, sumw = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, 0.0,
+                                                                 pre_gate=pre_gate)
+            di = (o.float() * dout.float()).sum(-1)
+            o32, l32, m32, _, _ = coattn.coattn_fwd_plain_k_plain(q32, k32, v32, mask, seed,
+                                                                  0.0, pre_gate=pre_gate)
+            di32 = (o32 * dout32).sum(-1)
+            t = {
+                "fwd": cuda_ms(lambda: coattn.coattn_fwd_plain_k(q, k, v, mask,
+                                                                 pre_gate=pre_gate,
+                                                                 train=False)),
+                "fwd32": cuda_ms(lambda: coattn.coattn_fwd_plain_k(q32, k32, v32, mask,
+                                                                   pre_gate=pre_gate,
+                                                                   train=False)),
+                "fwd_plain": cuda_ms(lambda: coattn.coattn_fwd_plain_k_plain(
+                    q, k, v, mask, None, 0.0, pre_gate=pre_gate)),
+                "bwd": cuda_ms(lambda: coattn.coattn_bwd_plain_k(
+                    q, k, v, mask, seed, 0.0, dout, l, m, di, zeros, zeros,
+                    pre_gate=pre_gate)),
+                "bwd32": cuda_ms(lambda: coattn.coattn_bwd_plain_k(
+                    q32, k32, v32, mask, seed, 0.0, dout32, l32, m32, di32, zeros, zeros,
+                    pre_gate=pre_gate)),
+                "bwd_plain": cuda_ms(lambda: coattn.coattn_bwd_plain_k_plain(
+                    q, k, v, mask, seed, 0.0, dout, zeros, zeros, pre_gate=pre_gate)),
+            }
+            if d == 512:  # the route it replaces: attention_core, and autograd's backward
+                q4, k4, v4 = (x[:, None] for x in (q, k, v))
+                t["route_fwd"] = cuda_ms(lambda: attention_core(
+                    q4, k4, v4, mask, pre_gate=pre_gate, need_weights=False))
+                leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+                out = attention_core(*leaves, mask, pre_gate=pre_gate, need_weights=False)[0]
+                t["route_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                    out, leaves, dout[:, None], retain_graph=True))
+                del leaves, out
+            times[pre_gate] = t
+            log(f"phase 27: {kind} D={d} B={B} N={N} M={TRAIN_M} pre_gate={pre_gate}: "
+                + ", ".join(f"{k_} {v_:.4f} ms" for k_, v_ in t.items()) + f" ({power})")
+        q4, k4, v4 = (x[:, None] for x in (q, k, v))
+        amask = mask[:, None, None, :]
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask))
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dout[:, None],
+                                                      retain_graph=True))
+        del leaves, lib_out
+        t = times[False]
+        for way, row, lib in (("fwd", fwd_row, lib_fwd), ("bwd", bwd_row, lib_bwd)):
+            bms, by = plain_k_bound_ms(row, TRAIN_M, *need[way], d=d, esize=2 if bf else 4)
+            every = plain_k_bound_ms(row, TRAIN_M, d=d, esize=2 if bf else 4)[0]
+            log(f"phase 27: {row} (D={d}{' in the row of D 128, 256' if bf and d < 512 else ''}): "
+                f"kernel {t[way]:.4f} ms, float32 row {t[way + '32']:.4f} ms "
+                f"({t[way + '32'] / t[way]:.2f}x), plain {t[way + '_plain']:.4f} ms, "
+                f"scaled_dot_product_attention {lib:.4f} ms"
+                + (f", the replaced attention_core route {t['route_' + way]:.4f} ms "
+                   f"({t['route_' + way] / t[way]:.2f}x)" if d == 512 else "")
+                + f"; bound {bms:.4f} ms ({by}, keys needed; {bms / t[way]:.3f} reached), "
+                f"{every:.4f} every key ({power})")
+            if d != 128:
+                rows.append({
+                    "name": row, "route": "cuda", "source": SOURCES[row],
+                    "replaces": REPLACES[row], "launches": 0, "max_abs_err": errs[row],
+                    "ms": t[way], "plain_ms": t[way + "_plain"], "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                })
+        del q, k, v, q32, k32, v32, dout, dout32, q4, k4, v4
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def no_attention_core(what):
+    """Fail where the block calls ``ops/attention.py::attention_core`` (the
+    route the plain-K kernels replace, which launches no kernel of its own,
+    so the launch counts cannot show it)."""
+    from multimodal_path_omic_tpu_torch.ops import attention
+
+    core, calls = attention.attention_core, []
+    attention.attention_core = lambda *a, **k: calls.append(1) or core(*a, **k)
+    try:
+        yield
+    finally:
+        attention.attention_core = core
+    if calls:
+        raise AssertionError(f"phase 27 {what}: {len(calls)} attention_core call(s)")
+
+
+def plain27_batch(dev, bags, omics, rows, m_len):
+    """``rows`` of phase 2's bags, cut to ``m_len`` patches, with labels from
+    a numpy seed, on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(27)
+    wsi = torch.zeros((rows, m_len, bags[0].shape[1]))
+    mask = torch.zeros((rows, m_len), dtype=torch.bool)
+    for row in range(rows):
+        n = min(len(bags[row]), m_len)
+        wsi[row, :n] = torch.from_numpy(bags[row][:n])
+        mask[row, :n] = True
+    batch = {"wsi": wsi, "mask": mask,
+             "omics": [torch.from_numpy(np.stack([omics[r][j] for r in range(rows)]))
+                       for j in range(len(SIZES))],
+             "label": torch.from_numpy(rng.integers(0, 4, rows)),
+             "censorship": torch.from_numpy(rng.integers(0, 2, rows).astype(np.float32)),
+             "weight": torch.ones(rows)}
+    return {k_: ([t.to(dev) for t in v_] if k_ == "omics" else v_.to(dev))
+            for k_, v_ in batch.items()}
+
+
+def phase27_plain_k(dev) -> list:
+    """(a)-(c) of the phase 27 notes above. Returns the six rows of the
+    kernels line, their launches those of (b) and (c)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    errs = {name: 0.0 for d, kind in PLAIN27_INSTANCES for name in plain27_rows(d, kind)}
+    for d, kind in PLAIN27_INSTANCES:
+        for m_len, mask_kind in PLAIN27_CASES:
+            for pre_gate in (False, True):
+                plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs)
+        torch.cuda.empty_cache()
+    rows = plain27_timings(dev, errs, power)
+    launches = {row["name"]: 0 for row in rows}
+
+    def credit(counts, d, kind, what):
+        fwd_row, bwd_row = plain27_rows(d, kind)
+        sfx = "_bf16" if kind == "bf16" else ""
+        want_bwd = counts.get("coattn_plain_bwd" + sfx, 0)
+        if set(counts) - {"coattn_plain" + sfx, "coattn_plain_bwd" + sfx}:
+            raise AssertionError(f"phase 27 {what}: launches {counts}")
+        launches[fwd_row] += counts.get("coattn_plain" + sfx, 0)
+        if want_bwd:
+            launches[bwd_row] += want_bwd
+
+    bags, omics = make_bags(0)
+    for model_name, size, kind in PLAIN27_SERVE:
+        dt = torch.bfloat16 if kind == "bf16" else None
+        d = {"medium": 256, "big": 512}[size]
+        what = f"(b): {model_name} {size} {kind}, lean=False, ces"
+        kw = dict(omic_sizes=SIZES, model_size=size, buckets=BUCKETS, loss="ces", seed=0,
+                  lean=False, dtype=dt)
+        pred = Predictor(model_name, batch_size=B, device=dev, **kw)
+        reset_counts()
+        with no_attention_core(what):
+            out = pred.predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        counts = {k_: v_ for k_, v_ in read_counts().items() if v_}
+        sfx = "_bf16" if kind == "bf16" else ""
+        if counts != {"coattn_plain" + sfx: n_batches(bags)}:
+            raise AssertionError(f"phase 27 {what}: launches {counts}")
+        credit(counts, d, kind, what)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        rate = len(bags) / (time.perf_counter() - t0)
+        idx = [0, 1, 2]  # the CPU forward at big width costs seconds a bag
+        ref = Predictor(model_name, batch_size=4, device="cpu", **kw).predict_bags(
+            [bags[i] for i in idx], [omics[i] for i in idx])
+        tol = MODEL_ATOL if dt is None else PLAIN27_SERVE_ATOL
+        reads = {}
+        for key in ("hazards", "survs", "risk"):
+            a = out[key][idx]
+            if not np.isfinite(out[key]).all():
+                raise AssertionError(f"phase 27 {what}: non-finite {key}")
+            reads[key] = float(np.abs(a - ref[key]).max())
+            if reads[key] > tol:
+                raise AssertionError(f"phase 27 {what}: {key} {reads[key]:.3e} from the CPU")
+        log(f"phase 27 {what}: {len(bags)} bags, one {'coattn_plain' + sfx} launch a batch "
+            f"({counts}), nothing else, no attention_core call; against the CPU Predictor "
+            f"on bags {idx}: "
+            + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in reads.items()) + f" (tolerance {tol:g}); "
+            f"{rate:.2f} bags/s (host clock, second call) ({power})")
+        del pred
+        torch.cuda.empty_cache()
+
+    batch = plain27_batch(dev, bags, omics, 8, TRAIN_M)
+    short = plain27_batch("cpu", bags, omics, PLAIN27_CPU_ROWS, PLAIN27_CPU_M)
+    for model_name, loss, size, kind in PLAIN27_TRAIN:
+        dt = torch.bfloat16 if kind == "bf16" else None
+        d = {"medium": 256, "big": 512}[size]
+        what = f"(c): {model_name} {size} {kind} {loss}, lean=False"
+
+        def make(graphs, rate=TRAIN_RATE, where=dev):
+            model = seeded_init_(build_model(model_name, omic_sizes=SIZES, model_size=size,
+                                             dropout=rate, lean=False, dtype=dt), 0).to(where)
+            opt = make_optimizer("adam", 2e-4, 1e-5)
+            return (model, loop.init_train_state(model, opt, seed=0),
+                    loop.make_train_step(model, loss, opt, omic_sizes=SIZES,
+                                         graphs=graphs and where != "cpu"), None)
+
+        log(f"phase 27 {what}: dropout {TRAIN_RATE}, Adam, [8, {TRAIN_M}, 1024] (phase 2's "
+            f"first bags)")
+        with no_attention_core(what):
+            counts = _step_pair(f"{model_name} {size} {kind}", make, batch, GRAPH_STEPS)
+        sfx = "_bf16" if kind == "bf16" else ""
+        if counts != {"coattn_plain" + sfx: GRAPH_STEPS, "coattn_plain_bwd" + sfx: GRAPH_STEPS}:
+            raise AssertionError(f"phase 27 {what}: launches {counts}")
+        credit({k_: 2 * v_ for k_, v_ in counts.items()}, d, kind, what)  # eager and graphed
+        ends = {}
+        for where in (dev, "cpu"):
+            model, state, step, _ = make(False, 0.0, where)
+            b = short if where == "cpu" else {
+                k_: ([t.to(dev) for t in v_] if k_ == "omics" else v_.to(dev))
+                for k_, v_ in short.items()}
+            before = read_counts()
+            with no_attention_core(what):
+                state, metrics = step(state, b)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                credit(_counts_delta(before, read_counts()), d, kind, what)
+            ends[where] = float(metrics.loss)
+            del model, state, step
+        rel = abs(ends[dev] - ends["cpu"]) / abs(ends["cpu"])
+        tol = PLAIN27_F32_CPU_RTOL if dt is None else PLAIN27_BF16_CPU_RTOL
+        log(f"phase 27 {what}: dropout 0, one step on [{PLAIN27_CPU_ROWS}, {PLAIN27_CPU_M}, "
+            f"1024]: loss card {ends[dev]!r}, CPU {ends['cpu']!r}, relative {rel:.3e} "
+            f"(tolerance {tol:g})")
+        if not (math.isfinite(ends[dev]) and rel <= tol):
+            raise AssertionError(f"phase 27 {what}: the card's loss disagrees with the CPU's")
+        torch.cuda.empty_cache()
+    del bags, omics, batch, short
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on phase 27's main-path runs")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{launches} ({power})")
+    return rows
+
+
 def profile_ge_serving(dev, bags, top=15) -> None:
     import torch
 
@@ -5116,7 +5577,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-26")
+                         "Trainer epoch host-fed and cached instead of phases 1-27")
     args = ap.parse_args()
     try:
         import torch
@@ -5282,6 +5743,8 @@ def main() -> int:
                 "coattn_stats", "coattn_weights", "gather_rows"):
             row["launches"] += p26.get(count_of(row["name"]), 0)
     rows += rows26
+    torch.cuda.empty_cache()
+    rows += phase27_plain_k(dev)  # its rows' launches: its own serving and training runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

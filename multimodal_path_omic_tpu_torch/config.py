@@ -462,11 +462,11 @@ def require_supported(cfg: Config) -> None:
     yet, naming the ROADMAP.md queue 1 item that ports it: a data or
     sequence mesh axis above 1 and ``remat``. A reference ``.pt``
     checkpoint under ``model.load_from_checkpoint`` is refused where it is
-    read (``Trainer.restore``); a bfloat16 compute dtype on the card for a
-    model whose kernels have no bfloat16 instance at its width where the
-    Trainer is built (``models.require_compute_dtype``; every model size has
-    them now), and a module off the lean routes (``lean=False``) under
-    bfloat16 where it reaches a kernel without one (``kernels.takes``)."""
+    read (``Trainer.restore``); and a bfloat16 shape whose float32 kernel
+    has no bfloat16 instance on the card, where the module reaches it
+    (``kernels.takes``: only the eval fuse-K form at E != F, which no
+    shipped configuration reaches; every model size and ``lean=False`` have
+    their instances)."""
     t = cfg.tpu
     for key in ("data_axis", "seq_axis"):
         if getattr(t, key) > 1:

@@ -1,6 +1,7 @@
 // Pre-gated few-query co-attention kernels for Hopper (sm_90a), float32,
-// with bfloat16 instances of the fuse-K forward (both forms) and the export
-// passes (the _bf16 entry points; see "bfloat16 instances" below).
+// with bfloat16 instances of the fuse-K forward (both forms), the export
+// passes and the plain-K forward with values (the _bf16 entry points; see
+// "bfloat16 instances" below).
 //
 // Replaces the Pallas TPU kernels of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_fwd_fused_k  <- _coattn_fwd_impl with _make_fwd_kernel(
@@ -91,30 +92,50 @@
 //       exp(NEG - m) / l (0, and 1 / M) from the block holding the computed
 //       tile before them.
 //   * plain (plain-K with values): reads k and v [B, M, D] once each (537 MB at
-//     B=32, M=8192, D=256: 0.16 ms over every key) for 2.4 GFLOP of products
-//     (0.04 ms): bound by bytes, and only the key tiles that need it. Four
+//     B=32, M=8192, D=256: 0.16 ms over every key; twice that at D = 512,
+//     half of it in bfloat16) for 2.4 GFLOP of products (0.04 ms): bound by
+//     bytes, and only the key tiles that need it. Four
 //     launches, no atomics:
 //     - fk_tiles_kernel / fk_list_kernel flag and list the 64-key tiles, as
 //       for the fuse-K form (a tile without a valid key adds exactly 0).
-//     - plain_kernel over the blocks resident at once (two an SM), each an
-//       even share of the list across bags. A tile's k and v rows come in
-//       sub-steps of 16 keys through a cp.async ring (plain_k_common.cuh:
-//       three slots of 32 KB at D = 256, six of 16 KB at 128, issued ahead
-//       across tiles and bags). Per sub-step: warp w scores keys 2w, 2w + 1
-//       against every query on the CUDA cores (each lane its float4 columns;
-//       tanh(k) once per element; one transposing butterfly sums the warp's
-//       32 (query, key, product) values at once), then one warp a query
-//       runs the online softmax (the training form's Philox dropout, ssq
-//       and sumw; lanes 0..15 one key each), then thread tid adds p v into
-//       its o column tid % D of the queries tid / D + QG j, from the v rows
-//       in shared memory. The scores as 3xTF32 mma.sync (C[16 keys x 8
-//       queries], warp w over depth slice w, partials summed in warp order)
-//       measured slower on the H100 (PERF.md, section 6): the products are
-//       2% of the work.
+//     - plain_kernel over the blocks resident at once (at most two an SM),
+//       each an even share of the list across bags. A tile's k and v rows
+//       come in sub-steps of 16 keys through a cp.async ring
+//       (plain_k_common.cuh: 96 KB at D <= 256, three slots of 32 KB at D =
+//       256, six of 16 KB at 128, issued ahead across tiles and bags). Per
+//       sub-step: warp w scores keys 2w, 2w + 1 against every query on the
+//       CUDA cores (each lane its groups of four columns; tanh(k) once per
+//       element; one transposing butterfly sums the warp's 32 (query, key,
+//       product) values at once), then one warp a query runs the online
+//       softmax (the training form's Philox dropout, ssq and sumw; lanes
+//       0..15 one key each), then each thread adds p v into its o columns
+//       from the v rows in shared memory: at D <= 256 column tid % D of the
+//       queries tid / D + QG j, at D = 512 (MCAT and NaCAGaT big) columns tid
+//       and tid + 256 of every query. The scores as 3xTF32 mma.sync (C[16
+//       keys x 8 queries], warp w over depth slice w, partials summed in
+//       warp order) measured slower on the H100 (PERF.md, section 6): the
+//       products are 2% of the work.
+//       D = 512: a 16-key sub-step of k and v is 64 KB in float32, so the
+//       96 KB ring of D <= 256 would hold one slot and overlap nothing. The
+//       ring keeps 16-key sub-steps (the score layout is unchanged) in two
+//       slots, one issued ahead: float32 164,384 bytes of shared memory
+//       (one block an SM), bfloat16 98,848 (two an SM where the registers
+//       allow). ptxas: 174 / 122 registers (pre-gate on / off), no spill, in
+//       float32; 168-172 / 121-122 in bfloat16.
 //     - combine_kernel merges the (block, bag) partials in block order.
 //
 // bfloat16 instances (tpu.compute_dtype bfloat16; the JAX kernels take
 // bfloat16 tiles, multimodal_path_omic_tpu/ops/coattn.py:138-150, 186, 210):
+// plain_kernel with T = __nv_bfloat16 (D 128, 256, 512: lean=False at every
+// size) keeps its ring in bfloat16: the k and v rows are copied raw by
+// cp.async, 16 bytes at a time, as the flash instances' tiles are, and
+// widened to float32 where pk_key_sums and the p v loop read them. That
+// halves the bytes read and the ring's shared memory (the D = 512 slots
+// take what the float32 D = 256 ones take), needs no register prefetch
+// (none is free at D = 512: 168-172 registers with the pre-gate) and leaves
+// the arithmetic the float32 instance's: q.k and tanh(q).tanh(k) summed in
+// float32, tanh(q) and tanh(k) rounded to bfloat16, p v in float32, o
+// written in bfloat16 by combine_kernel<bf16>; l, m, ssq, sumw float32.
 // fused_k_kernel, stats_kernel and weights_kernel with T = __nv_bfloat16
 // read bfloat16 q, kv, wk, bk (k) and compute what the JAX kernel computes
 // from them: float32 sums; k = kv wk + bk rounded to bfloat16 after the
@@ -131,7 +152,8 @@
 // float32 instance runs three (the EXACT products; bfloat16 mma.sync
 // m16n8k16 would be an equal choice, and this keeps one product code).
 // Instances: (E, F) in {128, 256}^2 and (512, 512) (both forms), D in {128,
-// 256, 512} (export). At E = 512 the k tile is two E chunks of 256 through
+// 256, 512} (export, and the plain-K forward with values). At E = 512 the k
+// tile is two E chunks of 256 through
 // the same FkFwdSmem<512> (231,968 bytes) and the register prefetch carries
 // the 256-column chunk it carries at E = 256.
 //
@@ -593,38 +615,47 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
 // K2, plain-K form with values (design notes at the top). One block walks
 // an even share of the computed (bag, tile) units in list order, in
 // sub-steps of PK_KEYS keys whose k and v rows come through the cp.async
-// ring (plain_k_common.cuh). For each bag it visits it writes one
+// ring (plain_k_common.cuh) in T. For each bag it visits it writes one
 // unnormalized partial at index block + bag: o_part [G + B, N, D], ml_part
 // [G + B, N, 2] (m, l); TRAIN adds sq_part [G + B, N, 2] (ssq, sumw of the
 // dropped weights), with fused_k_kernel's dropout rule (keep iff
-// dropout_bits >= thresh; thresh 0: no dropout). Thread tid owns o column
-// tid % D of the queries n = tid / D + QG j.
-template <int D>
+// dropout_bits >= thresh; thresh 0: no dropout). Thread tid owns o columns
+// col + DC c (c < CPT) of the queries n = grp + QG j: at D <= 256 one column
+// (col = tid % D) of queries tid / D + QG j, at D = 512 two columns (tid,
+// tid + 256) of every query.
+template <int D, typename T>
 struct PkFwdSmem {
-  static constexpr int SLOT = 2 * PK_KEYS * D;          // k rows, then v rows
-  static constexpr int NSLOT = 98304 / (4 * SLOT);      // 3 at D = 256, 6 at 128
-  alignas(16) float ring[NSLOT][SLOT];
+  static constexpr int SLOT = 2 * PK_KEYS * D;  // k rows, then v rows (values of T)
+  static constexpr int SLOT_BYTES = SLOT * (int)sizeof(T);
+  // a 96 KB ring at D <= 256 (two blocks an SM): six, three slots (float32,
+  // D = 128, 256), twelve, six (bfloat16); two at D = 512 (float32: 64 KB
+  // slots, one block an SM; bfloat16: 32 KB slots, two blocks an SM)
+  static constexpr int NSLOT = D < 512 ? 98304 / SLOT_BYTES : 2;
+  alignas(16) T ring[NSLOT][SLOT];
   alignas(16) float q[NMAX][D];
   alignas(16) float tq[NMAX][D];
   alignas(16) float s[NMAX][PK_KEYS];  // scores, then the (dropped) weights
   float alpha[NMAX];
 };
 
-template <int D, bool PG, bool TRAIN>
+template <int D, bool PG, bool TRAIN, typename T>
 __global__ void __launch_bounds__(THREADS)
-plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const uint8_t* __restrict__ mask,
+plain_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const uint8_t* __restrict__ mask,
              const int* __restrict__ list, const int* __restrict__ off,
              float* __restrict__ o_part, float* __restrict__ ml_part,
              float* __restrict__ sq_part, const int* __restrict__ seed_ptr, uint32_t thresh,
              float keep_scale, int B, int N, int M, float scale) {
-  using S_ = PkFwdSmem<D>;
-  constexpr int NSLOT = S_::NSLOT, QG = THREADS / D, NQ = NMAX / QG;
-  static_assert(QG >= 1 && THREADS % D == 0, "a thread owns whole o columns");
+  using S_ = PkFwdSmem<D, T>;
+  constexpr int NSLOT = S_::NSLOT;
+  constexpr int CPT = D > THREADS ? D / THREADS : 1;  // o columns a thread
+  constexpr int DC = D / CPT;                         // threads a query row
+  constexpr int QG = THREADS / DC, NQ = NMAX / QG;
+  static_assert(THREADS % DC == 0 && D % DC == 0, "a thread owns whole o columns");
   extern __shared__ float4 smem4[];
   S_& S = *reinterpret_cast<S_*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col = tid % D, grp = tid / D;
+  const int col = tid % DC, grp = tid / DC;
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   const int per = units_per_block(off, B, gridDim.x);
   const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
@@ -633,11 +664,11 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
   PkCursor cur{i0, 0};
 #pragma unroll
   for (int s = 0; s < NSLOT - 1; ++s) {
-    pk_issue<D>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
+    pk_issue<D, T>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
     cp_async_commit();
   }
 
-  float oacc[NQ];
+  float oacc[NQ][CPT];
   float m_run = NEG, l_run = 0.f, ssq_run = 0.f, sumw_run = 0.f;  // query `warp`'s state
   int b = -1;
   auto flush = [&]() {  // the partial of bag b at index block + b
@@ -645,7 +676,10 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const int n = grp + QG * j;
-      if (n < N) o_part[(pb * N + n) * D + col] = oacc[j];
+      if (n < N) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) o_part[(pb * N + n) * D + col + DC * c] = oacc[j][c];
+      }
     }
     if (warp < N && lane == 0) {
       ml_part[(pb * N + warp) * 2 + 0] = m_run;
@@ -663,30 +697,34 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < subs; ++j, ++s) {
       cp_async_wait<NSLOT - 2>();
       __syncthreads();  // sub-step s landed; the slot of s - 1 is free
-      pk_issue<D>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
+      pk_issue<D, T>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
       cp_async_commit();
       if (ub != b) {  // a new bag: flush the last one's partial, load this one's queries
         if (b >= 0) flush();
         b = ub;
         for (int x = tid; x < N * D; x += THREADS) {
-          const float val = q[(size_t)b * N * D + x];
+          const float val = to_f32(q[(size_t)b * N * D + x]);
           S.q[x / D][x % D] = val;
-          if (PG) S.tq[x / D][x % D] = tanhf(val);
+          if (PG) S.tq[x / D][x % D] = round_to<T>(tanhf(val));
         }
 #pragma unroll
-        for (int j2 = 0; j2 < NQ; ++j2) oacc[j2] = 0.f;
+        for (int j2 = 0; j2 < NQ; ++j2) {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) oacc[j2][c] = 0.f;
+        }
         m_run = NEG;
         l_run = ssq_run = sumw_run = 0.f;
         __syncthreads();
       }
-      const float* slot = S.ring[s % NSLOT];
+      const T* slot = S.ring[s % NSLOT];
       const int r0 = t * FK_BM + j * PK_KEYS;  // the sub-step's first key
 
       // ---- scores of the warp's two keys against every query ----
       {
         float second, unused;
-        const float a = pk_key_sums<D, PG, false>(slot, S.q, S.tq, nullptr, nullptr, N, warp,
-                                                  lane, second, unused);
+        const float a = pk_key_sums<D, PG, false, IS_BF16<T>>(slot, S.q, S.tq, nullptr,
+                                                              nullptr, N, warp, lane, second,
+                                                              unused);
         const int n = pk_query(lane), row = warp * PK_KPW + pk_key(lane), key = r0 + row;
         if ((lane & 1) == 0 && n < N) {
           const float sv = pk_score<PG>(a, second, scale);
@@ -718,25 +756,35 @@ plain_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // ---- o[n, col] = alpha o + sum_r p[n, r] v[r, col] (rows past M are zeros) ----
-      const float* vs = slot + PK_KEYS * D;
+      const T* vs = slot + PK_KEYS * D;
 #pragma unroll
       for (int j2 = 0; j2 < NQ; ++j2) {
         const int n = grp + QG * j2;
-        if (n < N) oacc[j2] *= S.alpha[n];
+        if (n < N) {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) oacc[j2][c] *= S.alpha[n];
+        }
       }
 #pragma unroll
       for (int r = 0; r < PK_KEYS; r += 4) {
-        const float x0 = vs[r * D + col], x1 = vs[(r + 1) * D + col];
-        const float x2 = vs[(r + 2) * D + col], x3 = vs[(r + 3) * D + col];
+        float x[CPT][4];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+          for (int y = 0; y < 4; ++y) x[c][y] = to_f32(vs[(r + y) * D + col + DC * c]);
+        }
 #pragma unroll
         for (int j2 = 0; j2 < NQ; ++j2) {
           const int n = grp + QG * j2;
           if (n < N) {
             const float4 p = *reinterpret_cast<const float4*>(&S.s[n][r]);
-            oacc[j2] = fmaf(p.x, x0, oacc[j2]);
-            oacc[j2] = fmaf(p.y, x1, oacc[j2]);
-            oacc[j2] = fmaf(p.z, x2, oacc[j2]);
-            oacc[j2] = fmaf(p.w, x3, oacc[j2]);
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              oacc[j2][c] = fmaf(p.x, x[c][0], oacc[j2][c]);
+              oacc[j2][c] = fmaf(p.y, x[c][1], oacc[j2][c]);
+              oacc[j2][c] = fmaf(p.z, x[c][2], oacc[j2][c]);
+              oacc[j2][c] = fmaf(p.w, x[c][3], oacc[j2][c]);
+            }
           }
         }
       }
@@ -1176,32 +1224,57 @@ int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
 }
 
 // The plain-K forward's launches: the tile flags and list, plain_kernel over
-// the blocks resident at once (at most max_blocks), combine_kernel.
-template <int D, bool PG, bool TRAIN>
-int launch_plain(const float* q, const float* k, const float* v, const uint8_t* mask,
-                 const int* seed, float* o, float* l, float* m, float* ssq, float* sumw,
+// the blocks resident at once (at most max_blocks), combine_kernel (o in T).
+template <int D, bool PG, bool TRAIN, typename T>
+int launch_plain(const T* q, const T* k, const T* v, const uint8_t* mask,
+                 const int* seed, T* o, float* l, float* m, float* ssq, float* sumw,
                  float* o_part, float* ml_part, float* sq_part, uint8_t* flags, int* list,
                  int* off, int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
                  float keep_scale, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
-  constexpr int smem = (int)sizeof(PkFwdSmem<D>);
+  constexpr int smem = (int)sizeof(PkFwdSmem<D, T>);
   static_assert(smem <= 232448, "shared memory of one block");
-  int err = allow_dynamic_smem(plain_kernel<D, PG, TRAIN>, smem, allowed);
+  int err = allow_dynamic_smem(plain_kernel<D, PG, TRAIN, T>, smem, allowed);
   if (err) return err;
   int blocks = 0;
-  err = resident_blocks(plain_kernel<D, PG, TRAIN>, smem, max_blocks, resident, &blocks);
+  err = resident_blocks(plain_kernel<D, PG, TRAIN, T>, smem, max_blocks, resident, &blocks);
   if (err) return err;
   launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st);
-  plain_kernel<D, PG, TRAIN><<<blocks, THREADS, smem, st>>>(
+  plain_kernel<D, PG, TRAIN, T><<<blocks, THREADS, smem, st>>>(
       q, k, v, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N, M,
       scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  combine_kernel<float><<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
+  combine_kernel<T><<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
                                                  l, m, ssq, TRAIN ? sumw : nullptr, N, D,
                                                  blocks, off);
   return (int)cudaGetLastError();
+}
+
+// Both entry points of the plain-K forward: D in {128, 256, 512}, with or
+// without the pre-gate, eval or training form.
+template <typename T>
+int plain_fwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int* seed, T* o,
+              float* l, float* m, float* ssq, float* sumw, float* o_part, float* ml_part,
+              float* sq_part, uint8_t* flags, int* list, int* off, int B, int N, int M, int D,
+              int pre_gate, int max_blocks, int train, float scale, uint32_t thresh,
+              float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MPO_PLAIN(D_, PG_, TRAIN_)                                                           \
+  if (D == D_ && (pre_gate != 0) == PG_ && (train != 0) == TRAIN_)                           \
+    return launch_plain<D_, PG_, TRAIN_, T>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,  \
+                                            ml_part, sq_part, flags, list, off, B, N, M,      \
+                                            max_blocks, scale, thresh, keep_scale, st);
+#define MPO_PLAIN_D(D_)                                                                      \
+  MPO_PLAIN(D_, false, false) MPO_PLAIN(D_, true, false) MPO_PLAIN(D_, false, true)          \
+  MPO_PLAIN(D_, true, true)
+  MPO_PLAIN_D(256) MPO_PLAIN_D(128) MPO_PLAIN_D(512)
+#undef MPO_PLAIN_D
+#undef MPO_PLAIN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1367,26 +1440,29 @@ int mpo_coattn_tiles(const uint8_t* mask, uint8_t* flags, int* list, int* off, i
 // blocks resident at once, up to that). Scratch: o_part [max_blocks + B, N,
 // D], ml_part and sq_part [max_blocks + B, N, 2], flags [B * T] uint8, list
 // [B * T] and off [B + 1] int32 (T = ceil(M / 64) key tiles a bag). D in
-// {128, 256}; N <= 8.
+// {128, 256, 512}; N <= 8.
 int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
                          const uint8_t* mask, const int* seed, float* o, float* l, float* m,
                          float* ssq, float* sumw, float* o_part, float* ml_part,
                          float* sq_part, uint8_t* flags, int* list, int* off, int B, int N,
                          int M, int D, int pre_gate, int max_blocks, int train, float scale,
                          uint32_t thresh, float keep_scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MPO_PLAIN(D_, PG_, TRAIN_)                                                           \
-  if (D == D_ && (pre_gate != 0) == PG_ && (train != 0) == TRAIN_)                           \
-    return launch_plain<D_, PG_, TRAIN_>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,     \
-                                         ml_part, sq_part, flags, list, off, B, N, M,         \
-                                         max_blocks, scale, thresh, keep_scale, st);
-  MPO_PLAIN(256, false, false) MPO_PLAIN(256, true, false) MPO_PLAIN(256, false, true)
-  MPO_PLAIN(256, true, true) MPO_PLAIN(128, false, false) MPO_PLAIN(128, true, false)
-  MPO_PLAIN(128, false, true) MPO_PLAIN(128, true, true)
-#undef MPO_PLAIN
-  return (int)cudaErrorInvalidValue;
+  return plain_fwd<float>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part, sq_part,
+                          flags, list, off, B, N, M, D, pre_gate, max_blocks, train, scale,
+                          thresh, keep_scale, stream);
+}
+
+// The bfloat16 instances: q, k, v and o bfloat16, everything else as above.
+int mpo_coattn_plain_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, const uint8_t* mask, const int* seed,
+                              __nv_bfloat16* o, float* l, float* m, float* ssq, float* sumw,
+                              float* o_part, float* ml_part, float* sq_part, uint8_t* flags,
+                              int* list, int* off, int B, int N, int M, int D, int pre_gate,
+                              int max_blocks, int train, float scale, uint32_t thresh,
+                              float keep_scale, void* stream) {
+  return plain_fwd<__nv_bfloat16>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part,
+                                  sq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
+                                  train, scale, thresh, keep_scale, stream);
 }
 
 }  // extern "C"

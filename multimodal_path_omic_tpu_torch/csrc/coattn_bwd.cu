@@ -1,6 +1,7 @@
 // Backward of the few-query co-attention for Hopper (sm_90a), float32: the
-// pre-gated fuse-K form and the plain-K form; and bfloat16 instances of the
-// fuse-K form (mpo_coattn_bwd_fused_k_bf16, below the design notes).
+// pre-gated fuse-K form and the plain-K form; and bfloat16 instances of both
+// (mpo_coattn_bwd_fused_k_bf16 below the design notes, and
+// mpo_coattn_plain_bwd_bf16, described above plain_bwd_kernel).
 //
 // Replaces the Pallas TPU kernel of multimodal_path_omic_tpu/ops/coattn.py:
 //   * mpo_coattn_bwd_fused_k <- _coattn_bwd_impl with _make_bwd_kernel(
@@ -921,17 +922,35 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
 // a, u (pre-gate) and dp of its two keys against every query in one
 // transposing butterfly and turns them into pd, da, du (the Philox bits
 // regenerated per element), tanh(k) stored once in shared memory; then
-// thread tid takes column tid % D of the keys r = tid / D + QG x: dk_r and
-// dv_r are written once, coalesced, and dq's two sums over keys are carried
-// in registers. A block writes bag b's dq partial at index block + b when it
-// leaves the bag, and bwd_reduce_kernel sums a bag's partials in block order:
-// no atomics, two runs give the same bits.
+// thread tid takes column tid % D of the keys r = tid / D + QG x (D = 512:
+// columns tid and tid + 256 of every key): dk_r and dv_r are written once,
+// coalesced, and dq's two sums over keys are carried in registers. A block
+// writes bag b's dq partial at index block + b when it leaves the bag, and
+// bwd_reduce_kernel sums a bag's partials in block order: no atomics, two
+// runs give the same bits.
+// D = 512 (MCAT and NaCAGaT big): 16-key sub-steps in two ring slots (one
+// issued ahead) beside q, tanh(q), dout and the sub-step's tanh(k): float32
+// 214,688 bytes of shared memory, bfloat16 149,152, one block an SM
+// (__launch_bounds__(THREADS, 1): ptxas 231 / 165 registers with the
+// pre-gate on / off in float32, 234 / 167 in bfloat16, no spill).
+// The bfloat16 instances (T = __nv_bfloat16, D 128, 256, 512): q, k, v and
+// dout are read as bfloat16 and dq, dk, dv written in bfloat16 (the JAX
+// kernel's dv_tile / dk_tile / dq_scr astype, ops/coattn.py:430, 499, 503);
+// the ring holds the raw bfloat16 k and v rows (cp.async, widened where
+// read), tanh(q) and tanh(k) are rounded to bfloat16, every sum is float32.
+// The one rounding kept in float32: 1 - tanh^2, which the JAX kernel forms
+// from the bfloat16 tanh in bfloat16 arithmetic, is taken in float32 from
+// the rounded tanh. The pre-gated D = 256 instance sits at the 128-register
+// cap of two blocks an SM and spills 124 bytes (its float32 sibling 76).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, typename T>
 struct PkBwdSmem {
-  static constexpr int SLOT = 2 * PK_KEYS * D;      // k rows, then v rows
-  static constexpr int NSLOT = 65536 / (4 * SLOT);  // 2 at D = 256, 4 at 128
-  alignas(16) float ring[NSLOT][SLOT];
+  static constexpr int SLOT = 2 * PK_KEYS * D;  // k rows, then v rows (values of T)
+  static constexpr int SLOT_BYTES = SLOT * (int)sizeof(T);
+  // a 64 KB ring at D <= 256 (two blocks an SM): four, two slots (float32,
+  // D = 128, 256), eight, four (bfloat16); two at D = 512 (one block an SM)
+  static constexpr int NSLOT = D < 512 ? 65536 / SLOT_BYTES : 2;
+  alignas(16) T ring[NSLOT][SLOT];
   alignas(16) float q[NMAX][D];
   alignas(16) float tq[NMAX][D];
   alignas(16) float dout[NMAX][D];
@@ -950,24 +969,30 @@ __device__ __forceinline__ void load8(const float* __restrict__ row, float (&x)[
   x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
 
-template <int D, bool PG>
-__global__ void __launch_bounds__(THREADS, 2)
-plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+// Thread tid owns columns col + DC c (c < CPT) of the keys grp + QG x: at
+// D = 128 one column of every other key (two column groups), at D = 256 one
+// column of every key, at D = 512 two (tid, tid + 256).
+template <int D, bool PG, typename T>
+__global__ void __launch_bounds__(THREADS, D < 512 ? 2 : 1)
+plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  const int* __restrict__ list, const int* __restrict__ off,
                  const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
-                 const float* __restrict__ dout, const float* __restrict__ l,
+                 const T* __restrict__ dout, const float* __restrict__ l,
                  const float* __restrict__ m, const float* __restrict__ di,
                  const float* __restrict__ dssq, const float* __restrict__ dsumw,
-                 float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq_part,
+                 T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_part,
                  int B, int N, int M, float scale) {
-  using S_ = PkBwdSmem<D>;
-  constexpr int NSLOT = S_::NSLOT, QG = THREADS / D, RPT = PK_KEYS / QG;
+  using S_ = PkBwdSmem<D, T>;
+  constexpr int NSLOT = S_::NSLOT;
+  constexpr int CPT = D > THREADS ? D / THREADS : 1;  // columns a thread
+  constexpr int DC = D / CPT;                         // threads a key row
+  constexpr int QG = THREADS / DC, RPT = PK_KEYS / QG;
   static_assert(QG == 1 || QG == 2, "one or two column groups");
   extern __shared__ float4 smem4[];
   S_& S = *reinterpret_cast<S_*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col = tid % D, grp = tid / D;
+  const int col = tid % DC, grp = tid / DC;
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   const int per = units_per_block(off, B, gridDim.x);
   const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
@@ -976,41 +1001,45 @@ plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   PkCursor cur{i0, 0};
 #pragma unroll
   for (int s = 0; s < NSLOT - 1; ++s) {
-    pk_issue<D>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
+    pk_issue<D, T>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
     cp_async_commit();
   }
 
-  float qa[NMAX];             // sum_r da k_r of column col, this thread's keys
-  float qu[PG ? NMAX : 1];    // sum_r du tanh(k_r)
+  float qa[CPT][NMAX];           // sum_r da k_r of each column, this thread's keys
+  float qu[CPT][PG ? NMAX : 1];  // sum_r du tanh(k_r)
   int b = -1;
   // bag b's dq partial at index block + b: the column groups added in order
   // through S.tk (free between a sub-step's barrier and its score pass)
   auto flush = [&]() {
     const size_t pb = (size_t)blockIdx.x + b;
-    float r[NMAX];
 #pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      r[n] = scale * qa[n];
-      if constexpr (PG) {
-        const float t = S.tq[n][col];
-        r[n] = fmaf(1.f - t * t, qu[n], r[n]);
+    for (int c = 0; c < CPT; ++c) {
+      const int cc = col + DC * c;
+      float r[NMAX];
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        r[n] = scale * qa[c][n];
+        if constexpr (PG) {
+          const float t = S.tq[n][cc];
+          r[n] = fmaf(1.f - t * t, qu[c][n], r[n]);
+        }
       }
-    }
-    if constexpr (QG == 1) {
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n)
-        if (n < N) dq_part[(pb * N + n) * D + col] = r[n];
-    } else {
-      float* merge = &S.tk[0][0];  // [NMAX][D]
-      if (grp == 0) {
-#pragma unroll
-        for (int n = 0; n < NMAX; ++n) merge[n * D + col] = r[n];
-      }
-      __syncthreads();
-      if (grp == 1) {
+      if constexpr (QG == 1) {
 #pragma unroll
         for (int n = 0; n < NMAX; ++n)
-          if (n < N) dq_part[(pb * N + n) * D + col] = merge[n * D + col] + r[n];
+          if (n < N) dq_part[(pb * N + n) * D + cc] = r[n];
+      } else {
+        float* merge = &S.tk[0][0];  // [NMAX][D]
+        if (grp == 0) {
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n) merge[n * D + cc] = r[n];
+        }
+        __syncthreads();
+        if (grp == 1) {
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n)
+            if (n < N) dq_part[(pb * N + n) * D + cc] = merge[n * D + cc] + r[n];
+        }
       }
     }
   };
@@ -1021,17 +1050,17 @@ plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < subs; ++j, ++s) {
       cp_async_wait<NSLOT - 2>();
       __syncthreads();  // sub-step s landed; the slot of s - 1 is free
-      pk_issue<D>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
+      pk_issue<D, T>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
       cp_async_commit();
       if (ub != b) {  // a new bag: flush the last one's dq, load this one's rows
         if (b >= 0) flush();
         __syncthreads();  // the flush has read S.tq and S.tk
         b = ub;
         for (int x = tid; x < N * D; x += THREADS) {
-          const float val = q[(size_t)b * N * D + x];
+          const float val = to_f32(q[(size_t)b * N * D + x]);
           S.q[x / D][x % D] = val;
-          S.tq[x / D][x % D] = PG ? tanhf(val) : 0.f;
-          S.dout[x / D][x % D] = dout[(size_t)b * N * D + x];
+          S.tq[x / D][x % D] = PG ? round_to<T>(tanhf(val)) : 0.f;
+          S.dout[x / D][x % D] = to_f32(dout[(size_t)b * N * D + x]);
         }
         if (tid < N) {
           const size_t bn = (size_t)b * N + tid;
@@ -1043,21 +1072,23 @@ plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           S.stat[4][tid] = dsumw != nullptr ? dsumw[bn] : 0.f;
         }
 #pragma unroll
-        for (int n = 0; n < NMAX; ++n) {
-          qa[n] = 0.f;
-          if constexpr (PG) qu[n] = 0.f;
+        for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n) {
+            qa[c][n] = 0.f;
+            if constexpr (PG) qu[c][n] = 0.f;
+          }
         }
         __syncthreads();
       }
-      const float* slot = S.ring[s % NSLOT];
+      const T* slot = S.ring[s % NSLOT];
       const int r0 = t * FK_BM + j * PK_KEYS;  // the sub-step's first key
 
       // ---- a, u, dp of the warp's two keys; pd, da, du per (key, query) ----
       {
         float second, dpv;
-        const float dot = pk_key_sums<D, PG, true>(slot, S.q, S.tq, S.dout,
-                                                   PG ? &S.tk[0][0] : nullptr, N, warp, lane,
-                                                   second, dpv);
+        const float dot = pk_key_sums<D, PG, true, IS_BF16<T>>(
+            slot, S.q, S.tq, S.dout, PG ? &S.tk[0][0] : nullptr, N, warp, lane, second, dpv);
         const int n = pk_query(lane), row = warp * PK_KPW + pk_key(lane), key = r0 + row;
         if ((lane & 1) == 0 && n < N) {
           const float a = dot * scale;
@@ -1085,41 +1116,45 @@ plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
-      // ---- dk, dv of the keys r = grp + QG x at column col; dq's sums ----
-      float qc[NMAX], tqc[NMAX], oc[NMAX];
+      // ---- dk, dv of the keys r = grp + QG x at this thread's columns; dq's sums ----
 #pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        qc[n] = S.q[n][col];
-        tqc[n] = PG ? S.tq[n][col] : 0.f;
-        oc[n] = S.dout[n][col];
-      }
-#pragma unroll 4
-      for (int x = 0; x < RPT; ++x) {
-        const int r = grp + QG * x, key = r0 + r;
-        if (key >= M) break;
-        float da[NMAX], du[NMAX], pd[NMAX];
-        load8(&S.da[r][0], da);
-        load8(&S.pd[r][0], pd);
-        if constexpr (PG) load8(&S.du[r][0], du);
-        const float kr = slot[r * D + col], tkr = PG ? S.tk[r][col] : 0.f;
-        float ka = 0.f, ku = 0.f, vv = 0.f;
+      for (int c = 0; c < CPT; ++c) {
+        const int cc = col + DC * c;
+        float qc[NMAX], tqc[NMAX], oc[NMAX];
 #pragma unroll
         for (int n = 0; n < NMAX; ++n) {
-          if (n < N) {
-            ka = fmaf(da[n], qc[n], ka);
-            vv = fmaf(pd[n], oc[n], vv);
-            qa[n] = fmaf(da[n], kr, qa[n]);
-            if constexpr (PG) {
-              ku = fmaf(du[n], tqc[n], ku);
-              qu[n] = fmaf(du[n], tkr, qu[n]);
+          qc[n] = S.q[n][cc];
+          tqc[n] = PG ? S.tq[n][cc] : 0.f;
+          oc[n] = S.dout[n][cc];
+        }
+#pragma unroll 4
+        for (int x = 0; x < RPT; ++x) {
+          const int r = grp + QG * x, key = r0 + r;
+          if (key >= M) break;
+          float da[NMAX], du[NMAX], pd[NMAX];
+          load8(&S.da[r][0], da);
+          load8(&S.pd[r][0], pd);
+          if constexpr (PG) load8(&S.du[r][0], du);
+          const float kr = to_f32(slot[r * D + cc]), tkr = PG ? S.tk[r][cc] : 0.f;
+          float ka = 0.f, ku = 0.f, vv = 0.f;
+#pragma unroll
+          for (int n = 0; n < NMAX; ++n) {
+            if (n < N) {
+              ka = fmaf(da[n], qc[n], ka);
+              vv = fmaf(pd[n], oc[n], vv);
+              qa[c][n] = fmaf(da[n], kr, qa[c][n]);
+              if constexpr (PG) {
+                ku = fmaf(du[n], tqc[n], ku);
+                qu[c][n] = fmaf(du[n], tkr, qu[c][n]);
+              }
             }
           }
+          float dkr = scale * ka;
+          if constexpr (PG) dkr = fmaf(1.f - tkr * tkr, ku, dkr);
+          const size_t o = ((size_t)b * M + key) * D + cc;
+          store1(dk + o, dkr);
+          store1(dv + o, vv);
         }
-        float dkr = scale * ka;
-        if constexpr (PG) dkr = fmaf(1.f - tkr * tkr, ku, dkr);
-        const size_t o = ((size_t)b * M + key) * D + col;
-        dk[o] = dkr;
-        dv[o] = vv;
       }
       // S.tk, S.da, S.du, S.pd and this slot are rewritten after the next barrier
     }
@@ -1129,32 +1164,53 @@ plain_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (b >= 0) flush();
 }
 
-template <int D, bool PG>
-int launch_plain_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
-                     const int* seed, const float* dout, const float* l, const float* m,
-                     const float* di, const float* dssq, const float* dsumw, float* dq,
-                     float* dk, float* dv, float* dq_part, uint8_t* flags, int* list, int* off,
+template <int D, bool PG, typename T>
+int launch_plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask,
+                     const int* seed, const T* dout, const float* l, const float* m,
+                     const float* di, const float* dssq, const float* dsumw, T* dq,
+                     T* dk, T* dv, float* dq_part, uint8_t* flags, int* list, int* off,
                      int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
                      float keep_scale, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
-  constexpr int smem = (int)sizeof(PkBwdSmem<D>);
+  constexpr int smem = (int)sizeof(PkBwdSmem<D, T>);
   static_assert(smem <= 232448, "shared memory of one block");
-  int err = allow_dynamic_smem(plain_bwd_kernel<D, PG>, smem, allowed);
+  int err = allow_dynamic_smem(plain_bwd_kernel<D, PG, T>, smem, allowed);
   if (err) return err;
   int blocks = 0;
-  err = resident_blocks(plain_bwd_kernel<D, PG>, smem, max_blocks, resident, &blocks);
+  err = resident_blocks(plain_bwd_kernel<D, PG, T>, smem, max_blocks, resident, &blocks);
   if (err) return err;
-  launch_tile_list(mask, dk, dv, flags, list, off, B, M, D, st);
-  plain_bwd_kernel<D, PG><<<blocks, THREADS, smem, st>>>(
+  launch_tile_list(mask, dk, dv, flags, list, off, B, M, D, st, false, (int)sizeof(T));
+  plain_bwd_kernel<D, PG, T><<<blocks, THREADS, smem, st>>>(
       q, k, v, mask, list, off, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dk, dv,
       dq_part, B, N, M, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
   const size_t total = (size_t)B * N * D;
-  bwd_reduce_kernel<float><<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+  bwd_reduce_kernel<T><<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
       dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, blocks, 0, N, D, 0);
   return (int)cudaGetLastError();
+}
+
+// Both entry points of the plain-K backward: D in {128, 256, 512}, with or
+// without the pre-gate.
+template <typename T>
+int plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int* seed,
+              const T* dout, const float* l, const float* m, const float* di,
+              const float* dssq, const float* dsumw, T* dq, T* dk, T* dv, float* dq_part,
+              uint8_t* flags, int* list, int* off, int B, int N, int M, int D, int pre_gate,
+              int max_blocks, float scale, uint32_t thresh, float keep_scale, void* stream) {
+  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MPO_PLAIN_BWD(D_, PG_)                                                                \
+  if (D == D_ && (pre_gate != 0) == PG_)                                                      \
+    return launch_plain_bwd<D_, PG_, T>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq,  \
+                                        dk, dv, dq_part, flags, list, off, B, N, M,           \
+                                        max_blocks, scale, thresh, keep_scale, st);
+  MPO_PLAIN_BWD(256, true) MPO_PLAIN_BWD(256, false) MPO_PLAIN_BWD(128, true)
+  MPO_PLAIN_BWD(128, false) MPO_PLAIN_BWD(512, true) MPO_PLAIN_BWD(512, false)
+#undef MPO_PLAIN_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int E, int F, typename T>
@@ -1262,24 +1318,31 @@ int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
 // [B, M, D]. max_blocks: the most main-pass blocks (it runs the blocks
 // resident at once, up to that). Scratch: dq_part [max_blocks + B, N, D],
 // flags [B * T] uint8, list [B * T] and off [B + 1] int32 (T = ceil(M / 64)
-// key tiles a bag). D in {128, 256}; N <= 8.
+// key tiles a bag). D in {128, 256, 512}; N <= 8.
 int mpo_coattn_plain_bwd(const float* q, const float* k, const float* v, const uint8_t* mask,
                          const int* seed, const float* dout, const float* l, const float* m,
                          const float* di, const float* dssq, const float* dsumw, float* dq,
                          float* dk, float* dv, float* dq_part, uint8_t* flags, int* list,
                          int* off, int B, int N, int M, int D, int pre_gate, int max_blocks,
                          float scale, uint32_t thresh, float keep_scale, void* stream) {
-  if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MPO_PLAIN_BWD(D_, PG_)                                                                \
-  if (D == D_ && (pre_gate != 0) == PG_)                                                      \
-    return launch_plain_bwd<D_, PG_>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, \
-                                     dv, dq_part, flags, list, off, B, N, M, max_blocks, scale, \
-                                     thresh, keep_scale, st);
-  MPO_PLAIN_BWD(256, true) MPO_PLAIN_BWD(256, false) MPO_PLAIN_BWD(128, true)
-  MPO_PLAIN_BWD(128, false)
-#undef MPO_PLAIN_BWD
-  return (int)cudaErrorInvalidValue;
+  return plain_bwd<float>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, dv, dq_part,
+                          flags, list, off, B, N, M, D, pre_gate, max_blocks, scale, thresh,
+                          keep_scale, stream);
+}
+
+// The bfloat16 instances: q, k, v, dout, dq, dk and dv bfloat16, everything
+// else as above.
+int mpo_coattn_plain_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, const uint8_t* mask, const int* seed,
+                              const __nv_bfloat16* dout, const float* l, const float* m,
+                              const float* di, const float* dssq, const float* dsumw,
+                              __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                              float* dq_part, uint8_t* flags, int* list, int* off, int B, int N,
+                              int M, int D, int pre_gate, int max_blocks, float scale,
+                              uint32_t thresh, float keep_scale, void* stream) {
+  return plain_bwd<__nv_bfloat16>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, dv,
+                                  dq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
+                                  scale, thresh, keep_scale, stream);
 }
 
 }  // extern "C"

@@ -7,11 +7,14 @@
 // sub-steps of PK_KEYS keys. A sub-step's k rows and v rows come through a
 // ring of shared-memory slots by cp.async, issued NSLOT - 1 sub-steps ahead
 // in the block's own order (across tile and bag boundaries), so the next
-// tiles' rows land while this one is worked on. Warp w scores keys 2w and
-// 2w + 1 of a sub-step: each lane takes the dot products of its columns
-// (float4 groups c * 128 + 4 * lane) against every query, and one
-// transposing butterfly sums all of a warp's (query, key) products at once
-// (31 shuffles for 32 values, where 32 warp_sums take 160).
+// tiles' rows land while this one is worked on. The slots hold the input's
+// own type: float32, or the bfloat16 instances' raw bfloat16 rows (16 bytes
+// a cp.async, as the flash kernels' tiles), widened where they are read.
+// Warp w scores keys 2w and 2w + 1 of a sub-step: each lane takes the dot
+// products of its columns (groups of four, c * 128 + 4 * lane) against
+// every query, and one transposing butterfly sums all of a warp's (query,
+// key) products at once (31 shuffles for 32 values, where 32 warp_sums take
+// 160).
 #pragma once
 
 #include "fused_k_common.cuh"
@@ -33,11 +36,11 @@ struct PkCursor {
 };
 
 // Sub-step c of the block's sequence into `slot` ([PK_KEYS][D] k rows, then
-// [PK_KEYS][D] v rows), asynchronously; zero rows past M. Advances c; past
-// the block's share (i >= i1) issues nothing.
-template <int D>
-__device__ __forceinline__ void pk_issue(float* __restrict__ slot, const float* __restrict__ k,
-                                         const float* __restrict__ v,
+// [PK_KEYS][D] v rows, in T), asynchronously; zero rows past M. Advances c;
+// past the block's share (i >= i1) issues nothing.
+template <int D, typename T>
+__device__ __forceinline__ void pk_issue(T* __restrict__ slot, const T* __restrict__ k,
+                                         const T* __restrict__ v,
                                          const int* __restrict__ list, int n_tiles, int M,
                                          int i1, PkCursor& c) {
   if (c.i >= i1) return;
@@ -95,9 +98,10 @@ __device__ __forceinline__ int pk_key(int lane) { return (lane >> 1) & 1; }
 // DP, dp comes back in `dp` (16 values). tk_s != NULL: the keys' tanh(k)
 // rows are stored there ([PK_KEYS][D]). Returns, in the even lanes, a, and
 // sets `second` to the pair's second value (every lane calls it). RT: tanh(k)
-// rounded to bfloat16 (the export passes' bfloat16 instances).
-template <int D, bool PG, bool DP, bool RT = false>
-__device__ __forceinline__ float pk_key_sums(const float* __restrict__ slot,
+// rounded to bfloat16 (the bfloat16 instances). The slot holds float32 or
+// bfloat16 values (TS), widened to float32 as they are read.
+template <int D, bool PG, bool DP, bool RT = false, typename TS = float>
+__device__ __forceinline__ float pk_key_sums(const TS* __restrict__ slot,
                                              const float (*__restrict__ q)[D],
                                              const float (*__restrict__ tq)[D],
                                              const float (*__restrict__ dout)[D],
@@ -113,8 +117,8 @@ __device__ __forceinline__ float pk_key_sums(const float* __restrict__ slot,
 #pragma unroll
     for (int c = 0; c < DV; ++c) {
       const int col = c * 128 + 4 * lane;
-      kx[r][c] = *reinterpret_cast<const float4*>(slot + row * D + col);
-      if constexpr (DP) vx[r][c] = *reinterpret_cast<const float4*>(slot + (PK_KEYS + row) * D + col);
+      kx[r][c] = load4(slot + row * D + col);
+      if constexpr (DP) vx[r][c] = load4(slot + (PK_KEYS + row) * D + col);
       if constexpr (PG) {
         tk[r][c] = make_float4(tanhf(kx[r][c].x), tanhf(kx[r][c].y), tanhf(kx[r][c].z),
                                tanhf(kx[r][c].w));

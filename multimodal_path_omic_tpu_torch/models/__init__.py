@@ -1,11 +1,7 @@
-import torch
-
-from multimodal_path_omic_tpu_torch.models.common import MODEL_SIZES
 from multimodal_path_omic_tpu_torch.models.ge_nacagat import GENaCAGaT
 from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
 from multimodal_path_omic_tpu_torch.models.mcat import MCAT
 from multimodal_path_omic_tpu_torch.models.nacagat import NaCAGaT
-from multimodal_path_omic_tpu_torch.ops.coattn import fused_k_supports, plain_k_supports
 
 # the config's ``model.name`` values of the WSI-only model, normalized
 GE_NAMES = ("ge_nacagat", "genacagat", "geneexpr_nacagat", "geneexprnacagat")
@@ -18,29 +14,6 @@ def _key(name: str) -> str:
 
 def is_ge_model(name: str) -> bool:
     return _key(name) in GE_NAMES
-
-
-def require_compute_dtype(name: str, dtype, device, model_size: str = "medium") -> None:
-    """Refuse a bfloat16 compute dtype on the card for a model whose
-    attention kernels have no bfloat16 instance at its width (ROADMAP.md
-    queue 2 item 5): NaCAGaT where the fuse-K kernels (both forms) or the
-    export passes lack the instance at E = F = D (every size has them:
-    ``coattn.BF16_EF``, ``BF16_EXPORT_D``). GE-NaCAGaT's flash kernels have
-    bfloat16 instances at every width; MCAT's lean branch runs no kernel.
-    On the CPU each runs the plain versions. (A module off the lean routes,
-    ``lean=False``, raises where it reaches a kernel without a bfloat16
-    instance: ``ops/kernels.py::takes``.)"""
-    if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
-        return
-    e = MODEL_SIZES[model_size][1]
-    bf16 = torch.bfloat16
-    if _key(name) in NACAGAT_NAMES and not (
-            all(fused_k_supports(1, e, e, 64, train=t, dtype=bf16) for t in (False, True))
-            and plain_k_supports(1, e, 64, values=False, dtype=bf16)):
-        raise NotImplementedError(
-            f"{name} {model_size!r} with tpu.compute_dtype bfloat16 on the card: its "
-            f"co-attention kernels have no bfloat16 instance at E = {e} yet "
-            "(ROADMAP.md queue 2 item 5)")
 
 
 def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
@@ -77,5 +50,4 @@ def _build(name, omic_sizes, model_size, fusion, n_classes, dropout, wsi_dim, le
     raise ValueError(f"Unknown model name: {name}")
 
 
-__all__ = ["GENaCAGaT", "MCAT", "NaCAGaT", "build_model", "is_ge_model",
-           "require_compute_dtype"]
+__all__ = ["GENaCAGaT", "MCAT", "NaCAGaT", "build_model", "is_ge_model"]

@@ -23,8 +23,9 @@ kernels of the NaCAGaT and MCAT serving and training paths:
   bag without one, and ``coattention_weights`` builds their tile list once;
 * :func:`coattn_fwd_plain_k` — the forward kernel's plain-K form with values
   (``coattention``: attention over projected k and v, with or without the
-  pre-gate; eval form, and training form with dropout, ssq and sumw), counted
-  as ``coattn_plain``;
+  pre-gate; eval form, and training form with dropout, ssq and sumw; D up
+  to 512, MCAT and NaCAGaT ``big`` off the lean routes), counted as
+  ``coattn_plain``;
 * :func:`coattn_bwd_plain_k` — its recompute backward: dq, dk, dv
   (``_coattn_bwd``), counted as ``coattn_plain_bwd``.
 
@@ -42,23 +43,31 @@ never NaN. (The TPU kernel pads M to its tile and spreads such a row over
 the padded length; the port, like the JAX package's plain attention_core,
 spreads it over exactly M.)
 
-bfloat16 (the compute dtype ``bfloat16``, ``ops/layers.py``): the fuse-K
-forward (both forms), the fuse-K backward and the export passes have
-bfloat16 instances (``_bf16`` entry points and launch counts; (E, F) in
-{128, 256}^2 and (512, 512), ``BF16_EF``; D in {128, 256, 512},
-``BF16_EXPORT_D``: every NaCAGaT size) that read bfloat16 q, kv, wk,
-bk (k for the export passes) and compute what the JAX kernels compute from
-bfloat16 tiles (``coattn.py:138-150, 186``): float32 sums, k rounded to
+bfloat16 (the compute dtype ``bfloat16``, ``ops/layers.py``): every kernel
+here has bfloat16 instances (``_bf16`` entry points and launch counts): the
+fuse-K forward (both forms) and backward at (E, F) in {128, 256}^2 and
+(512, 512) (``BF16_EF``), the export passes at D in {128, 256, 512}
+(``BF16_EXPORT_D``) and the plain-K forward with values and its backward
+at D in {128, 256, 512} (``BF16_VALUES_D``: MCAT and NaCAGaT ``lean=False``
+at every size). They read bfloat16 q, kv, wk, bk (k, and v, for the plain-K
+forms) and compute what the JAX kernels compute from bfloat16 tiles
+(``coattn.py:138-150, 186, 210``, ``:398-503``): float32 sums, k rounded to
 bfloat16 after its projection, tanh(q) and tanh(k) rounded to bfloat16,
-pd . kv in float32, o (and dq, dkv) written in bfloat16, l, m, ssq, sumw,
-the weights, dwk and dbk in float32 (dwk and dbk then cast to wk's type, as
-``_coattn_fk_bwd`` does). The plain versions take bfloat16 inputs with the
-same roundings (``layers.round_bf16``). The flash kernels have bfloat16
-instances too (``ops/flash.py``); no other kernel has one (the plain-K
-forward with values and its backward, ``lean=False``; the eval form's
-float32-only shapes, E = 512 with F != 512 among them): the predicates
-refuse bfloat16 there, and the dispatchers take ``attention_core`` on the
-CPU and raise on the card (``kernels.takes``; ROADMAP queue 2 item 5).
+pd . kv (pd . v) in float32, o (and dq, dkv; dq, dk, dv) written in
+bfloat16, l, m, ssq, sumw, the weights, dwk and dbk in float32 (dwk and dbk
+then cast to wk's type, as ``_coattn_fk_bwd`` does). One rounding stays in
+float32: the tanh derivative 1 - tanh^2, which the JAX kernel forms from
+the bfloat16 tanh in bfloat16 arithmetic, is taken in float32 from the
+rounded tanh (the kernels) or from the unrounded one (the plain versions'
+autograd); the plain versions' dq and dk stay within 1.2e-2 of each one's
+largest magnitude of the JAX kernel's
+(``tests/test_torch_port_plain_values_bf16.py``). The plain versions take bfloat16 inputs with the same roundings
+(``layers.round_bf16``). The flash kernels have bfloat16 instances too
+(``ops/flash.py``). The only float32 shapes without a bfloat16 instance are
+the eval fuse-K form's at E != F (E = 512 with F = 256, for one), which no
+shipped configuration reaches: the predicate refuses bfloat16 there, and
+the dispatchers take ``attention_core`` on the CPU and raise on the card
+(``kernels.takes``; ROADMAP queue 2 item 5).
 
 Attention dropout (training form) follows torch: weights are normalized
 first, then dropped and rescaled by ``1 / (1 - rate)``. The TPU kernel draws
@@ -82,7 +91,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import round_bf16
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
-VALUES_D = (128, 256)  # D the plain-K kernels with values take
+VALUES_D = (128, 256, 512)  # D the plain-K kernels with values take (every shipped width)
 # (E, F) the fuse-K training forward and backward take: their template
 # instances (csrc/coattn.cu launch_fused_k, csrc/coattn_bwd.cu MPO_BWD)
 FUSED_K_TRAIN_EF = frozenset({(e, f) for e in (128, 256) for f in (128, 256)} | {(512, 512)})
@@ -92,6 +101,7 @@ EVAL_E = (128, 256, 512)  # E the eval fuse-K kernel takes (F % 16 == 0, F <= 10
 # (512, 512) and 512 are NaCAGaT big's
 BF16_EF = FUSED_K_TRAIN_EF
 BF16_EXPORT_D = (128, 256, 512)
+BF16_VALUES_D = (128, 256, 512)  # the plain-K forward with values and its backward
 PLAIN_BLOCKS_PER_SM = 2  # the plain-K kernels (and the export passes): most main-pass blocks an SM
 TILE_LONE = 2  # flag of a bag without a valid key in the export passes' tile list
 
@@ -101,6 +111,7 @@ LAUNCH_COUNTS = {
     "coattn_plain": 0, "coattn_plain_bwd": 0, "coattn_tiles": 0,
     "coattn_fwd_fused_k_bf16": 0, "coattn_fwd_fused_k_train_bf16": 0,
     "coattn_bwd_fused_k_bf16": 0, "coattn_stats_bf16": 0, "coattn_weights_bf16": 0,
+    "coattn_plain_bf16": 0, "coattn_plain_bwd_bf16": 0,
 }
 
 
@@ -233,8 +244,14 @@ def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: 
     """The plain-K form with values, training form: (o, l, m, ssq, sumw) with
     attention dropout at ``rate`` from :func:`dropout_bits` (``seed`` is read
     only when rate > 0); l sums the undropped weights, o, ssq and sumw use
-    the dropped ones. Differentiable (m is a constant shift). ``rt``: as in
-    :func:`_scores`."""
+    the dropped ones. Differentiable (m is a constant shift). bfloat16 q, k,
+    v: the bfloat16 instances' roundings (float32 math, tanh(q) and tanh(k)
+    rounded to bfloat16, w . v in float32), o returned in bfloat16; ``rt``
+    (float32 inputs): as in :func:`_scores`."""
+    dt = q.dtype
+    if dt == torch.bfloat16:
+        rt = round_bf16
+        q, k, v = (t.float() for t in (q, k, v))
     s = _scores(q, k, key_mask, pre_gate, rt)
     m = s.amax(dim=-1).detach()
     p = torch.exp(s - m[..., None])
@@ -243,13 +260,14 @@ def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: 
     if rate > 0.0:
         keep = dropout_bits(seed, w.shape, w.device) >= dropout_threshold(rate)
         w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
-    return torch.matmul(w, v), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
+    return torch.matmul(w, v).to(dt), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
 
 
 def coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw, *,
                              pre_gate: bool):
     """(dq, dk, dv): autograd through the plain training form, with the
-    cotangents of o, ssq and sumw."""
+    cotangents of o, ssq and sumw; each in its input's type (bfloat16: the
+    float32 gradients rounded once)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o, _, _, ssq, sumw = coattn_fwd_plain_k_plain(*ins, key_mask, seed, rate,
@@ -321,12 +339,12 @@ def plain_k_supports(n: int, d: int, m_len: int, *, values: bool,
     keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
     ``values``, D in ``VALUES_D`` (the forward with values and its
     backward), float32; in bfloat16 the export passes at D in
-    ``BF16_EXPORT_D`` (every D of the float32 form) and no forward with
-    values. Shapes outside it take
+    ``BF16_EXPORT_D`` and the forms with values at D in ``BF16_VALUES_D``
+    (every D of the float32 forms). Shapes outside it take
     ``attention_core`` in the dispatchers (the JAX package's
     ``kernel_eligible``)."""
     if dtype == torch.bfloat16:
-        dims = () if values else BF16_EXPORT_D
+        dims = BF16_VALUES_D if values else BF16_EXPORT_D
     elif dtype == torch.float32:
         dims = VALUES_D if values else (128, 256, 512)
     else:
@@ -623,11 +641,13 @@ def coattn_weights(
 
 def _plain_kv_checks(q, k, v, key_mask):
     """Shapes, the mask pointer and the most main-pass blocks of the plain-K
-    kernels with values (D in ``VALUES_D``): they run over the 64-key tiles
-    that hold a valid key (every tile of a bag without one), shared evenly by
-    the blocks resident at once, at most ``PLAIN_BLOCKS_PER_SM`` an SM."""
+    kernels with values (D in ``VALUES_D``; in bfloat16 ``BF16_VALUES_D``; q,
+    k and v of one type): they run over the 64-key tiles that hold a valid
+    key (every tile of a bag without one), shared evenly by the blocks
+    resident at once, at most ``PLAIN_BLOCKS_PER_SM`` an SM (one at D = 512
+    in float32, whose ring does not leave room for two)."""
     b, n, d, m_len = _plain_k_checks(q, k, values=True)
-    kernels.require(v, "v", (b, m_len, d))
+    kernels.require(v, "v", (b, m_len, d), q.dtype)
     blocks = PLAIN_BLOCKS_PER_SM * kernels.sm_count(q.device)
     return b, n, d, m_len, blocks, kernels.mask_ptr(key_mask, b, m_len, q.device)
 
@@ -642,7 +662,8 @@ def coattn_fwd_plain_k(
     the kernel's training form (dropout at ``rate`` keyed by ``seed``, a [1]
     int32 tensor on the same device; ssq and sumw of the dropped weights);
     the eval form takes no dropout and returns None for ssq and sumw.
-    Kernel: D in {128, 256}, N <= 8, float32."""
+    Kernel: D in {128, 256, 512}, N <= 8, float32 or bfloat16 (q, k, v and o
+    in bfloat16; l, m, ssq, sumw float32)."""
     if not train and rate > 0.0:
         raise ValueError("the eval form takes no dropout")
     if q.device.type == "cpu":
@@ -659,21 +680,22 @@ def coattn_fwd_plain_k(
         seed_ptr = seed.data_ptr()
         ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(2))
         sq_part = torch.empty((blocks + b, n, 2), device=dev)
-    o = torch.empty((b, n, d), device=dev)
+    o = torch.empty((b, n, d), device=dev, dtype=q.dtype)
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
     o_part = torch.empty((blocks + b, n, d), device=dev)
     ml_part = torch.empty((blocks + b, n, 2), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
     side_ptrs = [None if t is None else t.data_ptr() for t in (ssq, sumw, sq_part)]
-    err = kernels.library("coattn").mpo_coattn_plain_fwd(
+    sfx = kernels.suffix(q.dtype)
+    err = getattr(kernels.library("coattn"), "mpo_coattn_plain_fwd" + sfx)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), side_ptrs[0], side_ptrs[1],
         o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2], flags.data_ptr(),
         units.data_ptr(), offsets.data_ptr(), b, n, m_len, d, int(pre_gate), blocks,
         int(train), 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
     )
-    kernels.check(err, "coattn_fwd_plain_k")
-    LAUNCH_COUNTS["coattn_plain"] += 1
+    kernels.check(err, "coattn_fwd_plain_k" + sfx)
+    LAUNCH_COUNTS["coattn_plain" + sfx] += 1
     return o, l, m, ssq, sumw
 
 
@@ -686,30 +708,32 @@ def coattn_bwd_plain_k(
     [B, M, D]), given the cotangents dout [B, N, D], dssq, dsumw [B, N], the
     forward's l, m and di = rowsum(o * dout) + 2 dssq ssq + dsumw sumw
     [B, N] (the plain version recomputes what it needs and takes no l, m,
-    di)."""
+    di). Kernel: as :func:`coattn_fwd_plain_k`; bfloat16: dout, dq, dk, dv in
+    bfloat16."""
     if q.device.type == "cpu":
         return coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw,
                                         pre_gate=pre_gate)
     b, n, d, m_len, blocks, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
-    kernels.require(dout, "dout", (b, n, d))
+    kernels.require(dout, "dout", (b, n, d), q.dtype)
     for t, name in ((l, "l"), (m, "m"), (di, "di"), (dssq, "dssq"), (dsumw, "dsumw")):
         kernels.require(t, name, (b, n))
-    dq = torch.empty((b, n, d), device=dev)
+    dq = torch.empty((b, n, d), device=dev, dtype=q.dtype)
     # the tile pass writes the skipped tiles' dk and dv rows, the main pass the rest
-    dk, dv = (torch.empty((b, m_len, d), device=dev) for _ in range(2))
+    dk, dv = (torch.empty((b, m_len, d), device=dev, dtype=q.dtype) for _ in range(2))
     dq_part = torch.empty((blocks + b, n, d), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    err = kernels.library("coattn_bwd").mpo_coattn_plain_bwd(
+    sfx = kernels.suffix(q.dtype)
+    err = getattr(kernels.library("coattn_bwd"), "mpo_coattn_plain_bwd" + sfx)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
         flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, d,
         int(pre_gate), blocks, 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
     )
-    kernels.check(err, "coattn_bwd_plain_k")
-    LAUNCH_COUNTS["coattn_plain_bwd"] += 1
+    kernels.check(err, "coattn_bwd_plain_k" + sfx)
+    LAUNCH_COUNTS["coattn_plain_bwd" + sfx] += 1
     return dq, dk, dv
 
 
@@ -730,7 +754,7 @@ class PlainKAttention(torch.autograd.Function):
     def backward(ctx, dout, dssq, dsumw):
         q, k, v, key_mask, seed, o, l, m, ssq, sumw = ctx.saved_tensors
         dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
-        di = (o * dout).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
+        di = (o.float() * dout.float()).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
         grads = coattn_bwd_plain_k(q, k, v, key_mask, seed, ctx.rate, dout, l, m, di,
                                    dssq, dsumw, pre_gate=ctx.pre_gate)
         return (*grads, None, None, None, None)

@@ -54,8 +54,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 # the bfloat16 instances: the same arguments as their float32 entry points
 for _lib, _names in (("coattn", ("mpo_coattn_fwd_fused_k", "mpo_coattn_fwd_fused_k_train",
-                                 "mpo_coattn_stats", "mpo_coattn_weights")),
-                     ("coattn_bwd", ("mpo_coattn_bwd_fused_k",))):
+                                 "mpo_coattn_stats", "mpo_coattn_weights",
+                                 "mpo_coattn_plain_fwd")),
+                     ("coattn_bwd", ("mpo_coattn_bwd_fused_k", "mpo_coattn_plain_bwd"))):
     for _name in _names:
         SIGNATURES[_lib][_name + "_bf16"] = SIGNATURES[_lib][_name]
 SIGNATURES.update({
@@ -199,15 +200,18 @@ def takes(what: str, supports, device, *shape, dtype: torch.dtype, **kw) -> bool
     """Whether the kernel ``what`` takes ``shape`` in ``dtype``, by its
     predicate ``supports``. A bfloat16 shape that the kernel takes in float32
     but no bfloat16 instance takes raises on the card, so that no plain
-    version stands in for the kernel there (ROADMAP.md queue 2 item 5); on
-    the CPU such a shape takes the plain route, as the predicate says."""
+    version stands in for the kernel there; on the CPU such a shape takes the
+    plain route, as the predicate says. The one such kernel left is the
+    fuse-K eval form at E != F (E = 512 with F = 256, for one), which no
+    shipped configuration reaches (ROADMAP.md queue 2 item 5)."""
     if supports(*shape, dtype=dtype, **kw):
         return True
     if (dtype == torch.bfloat16 and torch.device(device).type == "cuda"
             and supports(*shape, **kw)):
         raise NotImplementedError(
-            f"{what} kernel at shape {shape} {kw or ''}: no bfloat16 instance yet, and the "
-            "card runs no plain version in its place (ROADMAP.md queue 2 item 5)")
+            f"{what} kernel at shape {shape} {kw or ''}: its float32 kernel takes it and no "
+            "bfloat16 instance does, and the card runs no plain version in its place "
+            "(ROADMAP.md queue 2 item 5)")
     return False
 
 

@@ -70,7 +70,10 @@ class Predictor:
     return the survival models' co-attention map [B, N, M] under
     ``attention['coattn']`` for every loss. ``lean=False`` switches the
     co-attention off its lean routes (``ops/attention.py``): k and v are
-    projected over the patch axis and the plain-K kernels run.
+    projected over the patch axis and the plain-K kernels run. ``dtype``
+    (None: float32; ``torch.bfloat16``) is the model's compute dtype
+    (``models.build_model``), as ``tpu.compute_dtype`` sets it for a
+    Trainer.
 
     :meth:`from_trainer` shares a ``Trainer``'s model and eval step;
     :meth:`from_config` builds that Trainer from a config and loads
@@ -83,7 +86,8 @@ class Predictor:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, batch_size: int = 32,
                  loss: Optional[str] = None, alpha: float = 0.75,
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
-                 device=None, lean: bool = True, need_attention: bool = False):
+                 device=None, lean: bool = True, need_attention: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         ge_mode = is_ge_model(model_name)
         allowed = ("ce",) if ge_mode else LOSSES
         loss = loss or ("ce" if ge_mode else "ces")
@@ -97,7 +101,7 @@ class Predictor:
         model = build_model(model_name, omic_sizes=omic_sizes,
                             model_size=model_size, fusion=fusion,
                             n_classes=n_classes, wsi_dim=wsi_dim,  # None: the model's own
-                            lean=lean)
+                            lean=lean, dtype=dtype)
         if params is not None:
             load_jax_params(model, params)
         else:

@@ -47,11 +47,12 @@ the host-fed bags in that type (int8 with float32 row scales,
 ``pipeline.device_arrays``), ``tpu.cache_dtype`` stores the device cache in
 it (and its budget fit counts that type's bytes), and the steps dequantize on
 the device, or with ``tpu.int8_matmul`` keep an int8 batch int8 into the
-first layer of a training step. Under bfloat16 NaCAGaT runs the
-co-attention kernels' bfloat16 instances and GE-NaCAGaT the flash kernels'
-at every size; the card refuses a model whose kernels have no bfloat16
-instance at its width (``models.require_compute_dtype``) and ``lean=False``
-at the first kernel without one (``kernels.takes``). ``wandb.enabled`` logs each
+first layer of a training step. Under bfloat16 NaCAGaT and MCAT run the
+co-attention kernels' bfloat16 instances (``lean=False`` too: the plain-K
+pair with values) and GE-NaCAGaT the flash kernels' at every size; a shape
+whose float32 kernel has no bfloat16 instance (the eval fuse-K form at
+E != F, which no shipped configuration reaches) raises on the card before
+any launch (``kernels.takes``). ``wandb.enabled`` logs each
 epoch's metrics to wandb as well (``train/logging.py``).
 
 Settings the port cannot honour yet raise ``NotImplementedError``
@@ -101,11 +102,7 @@ from multimodal_path_omic_tpu_torch.data.pipeline import (
     to_device,
 )
 from multimodal_path_omic_tpu_torch.device import resolve_device
-from multimodal_path_omic_tpu_torch.models import (
-    build_model,
-    is_ge_model,
-    require_compute_dtype,
-)
+from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
 from multimodal_path_omic_tpu_torch.train import checkpoint as ckpt
 from multimodal_path_omic_tpu_torch.train.graphs import StepGraphs
 from multimodal_path_omic_tpu_torch.train.logging import MetricLogger, StepTimer
@@ -217,7 +214,6 @@ class Trainer:
         self.transfer_dtype = resolve_dtype(c.tpu.transfer_dtype)
         self.cache_dtype = resolve_dtype(c.tpu.cache_dtype)
         dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else None
-        require_compute_dtype(c.model.name, dtype, self.device, c.model.model_size)
         if self.ge_mode and c.training.loss != "ce":
             # the GE script's restriction (ge_nacagat/main.py:32-35)
             raise RuntimeError(f'Loss "{c.training.loss}" not implemented')

@@ -1093,10 +1093,10 @@ def test_plain_k_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q, _, _, _, k, mask = _inputs(dev, 2, 3, 256, 256, 256, 0)
     v = torch.zeros_like(k)
     seed = torch.tensor([1], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="unsupported"):
-        coattn.coattn_fwd_plain_k(torch.zeros(2, 3, 512, device=dev),
-                                  torch.zeros(2, 256, 512, device=dev),
-                                  torch.zeros(2, 256, 512, device=dev), mask, pre_gate=False)
+    with pytest.raises(ValueError, match="unsupported"):  # a width without an instance
+        coattn.coattn_fwd_plain_k(torch.zeros(2, 3, 384, device=dev),
+                                  torch.zeros(2, 256, 384, device=dev),
+                                  torch.zeros(2, 256, 384, device=dev), mask, pre_gate=False)
     with pytest.raises(ValueError, match="queries"):
         coattn.coattn_fwd_plain_k(torch.zeros(2, 9, 256, device=dev), k, v, mask, pre_gate=False)
     with pytest.raises(ValueError, match="shape"):
@@ -1724,9 +1724,10 @@ def test_bf16_export_instances_match_plain_on_card(dev, kind, d, pre_gate):
 
 def test_bf16_wrappers_refuse_what_the_instances_do_not_take(dev):
     """The eval form at E = 512 with F = 256 (float32 takes it; the bfloat16
-    instances take E = F) and the plain-K form with values have no bfloat16
-    instance (the wrappers refuse such a shape; the dispatchers raise before
-    a wrapper is reached: the next test); mixed types raise."""
+    instances take E = F) has no bfloat16 instance (the wrapper refuses such
+    a shape; the dispatchers raise before a wrapper is reached: the next
+    test); the plain-K form with values has one at every shipped width and
+    refuses only a width without an instance; mixed types raise."""
     q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 512, 300, "prefix", 5)
     kv, wk = kv[..., :256].contiguous(), wk[:256].contiguous()
     with pytest.raises(ValueError, match="unsupported shape"):
@@ -1734,25 +1735,30 @@ def test_bf16_wrappers_refuse_what_the_instances_do_not_take(dev):
     q, kv, wk, bk, k, mask = _bf16_inputs(dev, 2, 3, 256, 300, "prefix", 6)
     with pytest.raises(TypeError, match="bfloat16"):
         coattn.coattn_fwd_fused_k(q, kv.float(), wk, bk, mask)
+    with pytest.raises(TypeError, match="bfloat16"):
+        coattn.coattn_fwd_plain_k(q, k, k.float(), mask, pre_gate=False, train=False)
     with pytest.raises(ValueError, match="unsupported shape"):
-        coattn.coattn_fwd_plain_k(q, k, k, mask, pre_gate=False, train=False)
+        coattn.coattn_fwd_plain_k(q[..., :192].contiguous(), k[..., :192].contiguous(),
+                                  k[..., :192].contiguous(), mask, pre_gate=False, train=False)
     assert not coattn.fused_k_supports(3, 512, 256, 300, train=False, dtype=BF16)
     assert coattn.fused_k_supports(3, 512, 256, 300, train=False)
     assert coattn.fused_k_supports(3, 512, 512, 300, train=True, dtype=BF16)
-    assert not coattn.plain_k_supports(3, 256, 300, values=True, dtype=BF16)
+    assert all(coattn.plain_k_supports(3, d, 300, values=True, dtype=BF16)
+               for d in (128, 256, 512))
 
 
 def test_bf16_shapes_without_an_instance_raise_on_card(dev, tmp_path):
     """On the card a bfloat16 module at a shape that a float32 kernel takes
     and no bfloat16 instance does raises before any launch (kernels.takes),
-    where the CPU takes attention_core: the plain-K form with values (D =
-    256, ``lean=False``). NaCAGaT ``big``'s pre-gated co-attention (fuse-K
-    at E = F = 512) and its export map (D = 512), once refused, now run on
-    their bfloat16 instances, within 5e-2 of their largest magnitude of the
-    CPU's plain versions on the same weights (the bar the dispatch tests
-    hold the CPU's bfloat16 routes to JAX's float32 with: cuBLAS and the CPU
-    round the projections at other places); and the Trainer builds NaCAGaT
-    ``big`` under bfloat16 and trains and validates an epoch on them."""
+    where the CPU takes attention_core: the eval fuse-K form at E = 512 with
+    F = 256. NaCAGaT ``big``'s pre-gated co-attention (fuse-K at E = F =
+    512), its export map (D = 512) and the plain-K form with values (D =
+    256, ``lean=False``), once refused, now run on their bfloat16
+    instances, within 5e-2 of their largest magnitude of the CPU's plain
+    versions on the same weights (the bar the dispatch tests hold the CPU's
+    bfloat16 routes to JAX's float32 with: cuBLAS and the CPU round the
+    projections at other places); and the Trainer builds NaCAGaT ``big``
+    under bfloat16 and trains and validates an epoch on them."""
     import copy
 
     from multimodal_path_omic_tpu_torch.config import config_from_dict
@@ -1764,6 +1770,14 @@ def test_bf16_shapes_without_an_instance_raise_on_card(dev, tmp_path):
     from multimodal_path_omic_tpu_torch.ops.layers import set_compute_dtype
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer
 
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
+
+    before = dict(coattn.LAUNCH_COUNTS)
+    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+        takes("fuse-K", coattn.fused_k_supports, dev, 6, 512, 256, 100, train=False, dtype=BF16)
+    assert not takes("fuse-K", coattn.fused_k_supports, "cpu", 6, 512, 256, 100, train=False,
+                     dtype=BF16)
+    assert dict(coattn.LAUNCH_COUNTS) == before
     g = torch.Generator().manual_seed(0)
     mask = torch.ones(2, 100, dtype=torch.bool)
     for e, pre_gate, lean, need in ((512, True, True, False), (512, True, True, True),
@@ -1775,11 +1789,6 @@ def test_bf16_shapes_without_an_instance_raise_on_card(dev, tmp_path):
         card = copy.deepcopy(module).to(dev)
         qd, kvd, maskd = q.to(dev), kv.to(dev), mask.to(dev)  # key is value: the lean routes
         before = dict(coattn.LAUNCH_COUNTS)
-        if not lean:
-            with torch.no_grad(), pytest.raises(NotImplementedError, match="queue 2 item 5"):
-                card(qd, kvd, kvd, maskd, need_weights=need)
-            assert dict(coattn.LAUNCH_COUNTS) == before
-            continue
         with torch.no_grad():
             got = card(qd, kvd, kvd, maskd, need_weights=need)
             ref = module(q, kv, kv, mask, need_weights=need)
@@ -1881,14 +1890,16 @@ def test_ge_bf16_trainer_is_refused_on_card(dev):
     probabilities within 5e-2 of the CPU's bfloat16 plain versions on the
     same weights (cuBLAS and the CPU round the other matmuls at other
     places) and float32 parameter gradients."""
-    from multimodal_path_omic_tpu_torch.models import build_model, require_compute_dtype
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
     from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
     g = torch.Generator().manual_seed(5)
     wsi = torch.randn(2, 300, 64, generator=g)
     mask = torch.arange(300)[None] < torch.tensor([[300], [170]])
     for size, widths in (("small", (128, 16)), ("medium", (256, 32)), ("big", (512, 64))):
-        require_compute_dtype("GE-NaCAGaT", BF16, dev, size)
+        assert all(takes("flash", flash.supports, dev, 2, widths[0] // w, 300, w, dtype=BF16)
+                   for w in widths)
         ys = []
         for where in (dev, "cpu"):
             model = seeded_init_(build_model("GE-NaCAGaT", model_size=size, dropout=0.0,
@@ -1955,3 +1966,134 @@ def test_bf16_flash_instances_match_plain_on_card(dev, heads, width):
     torch.cuda.synchronize()
     launched = {k_: v_ - before[k_] for k_, v_ in flash.LAUNCH_COUNTS.items() if v_ != before[k_]}
     assert launched == {f"flash_fwd_d{width}_bf16": 1, f"flash_bwd_d{width}_bf16": 2}
+
+
+# ---------------------------------------------------------------- the plain-K pair, every width
+# The plain-K forward with values and its backward at every shipped width in
+# both types: the bfloat16 instances at D 128, 256 and 512 and the float32
+# one at D = 512 (``lean=False`` at every size). bfloat16 o within one
+# bfloat16 unit of its terms' magnitude, sum_j w_j |v_j| (the attention over
+# |v|: a tanh that rounds to the other bfloat16 neighbour in the two
+# versions moves a key's weight, and o by that share of its term, which is
+# many units of o itself where the terms cancel); l 1e-4 relative, m, ssq
+# and sumw 1e-4 absolute (float32 sums of bfloat16 products); dq, dk, dv
+# within 2e-2 of each one's largest magnitude (as the fuse-K bfloat16
+# instances'); the float32 instance at the float32 bars. Two runs bitwise
+# equal; dk and dv exactly 0 at masked keys (dk at every masked key, dv in
+# bags with a valid key); each launch counted under its instance's name.
+PLAIN_INSTANCES = [(128, BF16), (256, BF16), (512, BF16), (512, torch.float32)]
+
+
+@pytest.mark.parametrize("pre_gate", [False, True])
+@pytest.mark.parametrize("kind", ["holes", "one", "prefix"])
+@pytest.mark.parametrize("d,dtype", PLAIN_INSTANCES,
+                         ids=["bf16-d128", "bf16-d256", "bf16-d512", "f32-d512"])
+def test_plain_k_instances_match_plain_on_card(dev, d, dtype, kind, pre_gate):
+    b, n = 3, 6
+    m_len = {"holes": 4000, "one": 1500, "prefix": 4096}[kind]
+    q, _, _, _, k, _ = _inputs(dev, b, n, d, m_len, d, m_len + d)
+    mask = _training_mask(dev, b, m_len, kind, m_len + d + 1)
+    g = torch.Generator().manual_seed(d + m_len)
+    v = torch.randn(b, m_len, d, generator=g).to(dev)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    dout = torch.randn(b, n, d, generator=g).to(dev).to(dtype)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    seed = torch.tensor([d + m_len], dtype=torch.int32, device=dev)
+    bf = dtype == BF16
+    before = dict(coattn.LAUNCH_COUNTS)
+
+    def check_fwd(got, ref, rate):
+        assert got[0].dtype == dtype
+        assert all(t.dtype == torch.float32 for t in got[1:] if t is not None)
+        if bf:
+            terms = coattn.coattn_fwd_plain_k_plain(q, k, v.abs(), mask, seed, rate,
+                                                    pre_gate=pre_gate)[0].float()
+            assert bool(((got[0].float() - ref[0].float()).abs() <= BF16_RTOL * terms).all())
+        else:
+            _close(got[0], ref[0])
+        _close(got[1], ref[1], rtol=1e-4 if bf else L_RTOL)
+        for a, r in zip(got[2:], ref[2:]):
+            if a is not None:
+                _close(a, r)
+
+    ev = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    check_fwd(ev, coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate),
+              0.0)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+    assert all(torch.equal(x, y) for x, y in zip(ev[:3], again[:3]))
+    fwd = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, 0.25, pre_gate=pre_gate)
+    check_fwd(fwd, coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, 0.25, pre_gate=pre_gate),
+              0.25)
+    again = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, 0.25, pre_gate=pre_gate)
+    assert all(torch.equal(x, y) for x, y in zip(fwd, again))
+    o, l, m, ssq, sumw = fwd
+    di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    args = (q, k, v, mask, seed, 0.25, dout, l, m, di, dssq, dsumw)
+    grads = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, 0.25, dout, dssq, dsumw,
+                                          pre_gate=pre_gate)
+    many = mask.sum(-1) != 1  # a one-key bag's dq and dk: noise on both sides
+    for i, (a, r) in enumerate(zip(grads, ref)):
+        assert a.dtype == dtype
+        a, r = a.float(), r.float()
+        if i < 2:
+            a, r = a[many], r[many]
+        _close_rel(a, r, BF16_GRAD_RTOL if bf else GRAD_RTOL)
+    if not bf:
+        _close_one_key_plain(grads, ref, q, k, mask, fwd, dout, dssq, dsumw, di)
+    assert float(grads[1][~mask].float().abs().max()) == 0.0
+    has = mask.any(-1)
+    assert bool((grads[2][has][~mask[has]] == 0).all())
+    torch.cuda.synchronize()
+    sfx, other = ("_bf16", "") if bf else ("", "_bf16")
+    for name, calls in (("coattn_plain" + sfx, 4), ("coattn_plain_bwd" + sfx, 2),
+                        ("coattn_plain" + other, 0), ("coattn_plain_bwd" + other, 0)):
+        assert coattn.LAUNCH_COUNTS[name] == before[name] + calls, name
+
+
+@pytest.mark.parametrize("size,dtype", [("big", torch.float32), ("big", BF16), ("medium", BF16)],
+                         ids=["big-f32", "big-bf16", "medium-bf16"])
+@pytest.mark.parametrize("model_name", ["MCAT", "NaCAGaT"])
+def test_lean_false_every_size_on_card(dev, model_name, size, dtype):
+    """``lean=False`` at ``big`` (D = 512) in both types and at ``medium``
+    under bfloat16, once ``attention_core`` or a refusal: the Predictor
+    launches one plain-K forward of the instance a batch and no other
+    kernel, within 1e-4 (float32) or 5e-2 of the largest hazard (bfloat16:
+    cuBLAS and the CPU round the projections at other places) of the CPU's;
+    a training step launches one forward and one backward."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    rng = np.random.default_rng(1)
+    sizes = (10, 20, 30)
+    bags = [rng.standard_normal((n, 64), dtype=np.float32) for n in (300, 900, 450)]
+    omics = [[rng.standard_normal(s, dtype=np.float32) for s in sizes] for _ in bags]
+    kw = dict(omic_sizes=sizes, model_size=size, wsi_dim=64, buckets=(512, 1024),
+              batch_size=2, loss="ces", seed=3, lean=False,
+              dtype=None if dtype == torch.float32 else dtype)
+    ref = Predictor(model_name, device="cpu", **kw).predict_bags(bags, omics)
+    coattn.reset_launch_counts()
+    got = Predictor(model_name, device=dev, **kw).predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    sfx = "_bf16" if dtype == BF16 else ""
+    assert {k_: v_ for k_, v_ in coattn.LAUNCH_COUNTS.items() if v_} == {"coattn_plain" + sfx: 2}
+    if dtype == BF16:
+        top = float(np.abs(ref["hazards"]).max())
+        assert float(np.abs(got["hazards"] - ref["hazards"]).max()) <= 5e-2 * top
+    else:
+        np.testing.assert_allclose(got["hazards"], ref["hazards"], atol=ATOL, rtol=0)
+    model = seeded_init_(build_model(model_name, omic_sizes=sizes, model_size=size, wsi_dim=64,
+                                     lean=False, dropout=0.25, dtype=dtype), 0).to(dev).train()
+    wsi = torch.from_numpy(rng.standard_normal((2, 512, 64), dtype=np.float32)).to(dev)
+    mask = (torch.arange(512)[None] < torch.tensor([[512], [200]])).to(dev)
+    om = [torch.from_numpy(rng.standard_normal((2, s), dtype=np.float32)).to(dev) for s in sizes]
+    coattn.reset_launch_counts()
+    out = model(wsi, om, mask, need_attention=False,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    out.hazards.sum().backward()
+    torch.cuda.synchronize()
+    assert {k_: v_ for k_, v_ in coattn.LAUNCH_COUNTS.items() if v_} == {
+        "coattn_plain" + sfx: 1, "coattn_plain_bwd" + sfx: 1}
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)

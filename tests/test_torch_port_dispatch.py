@@ -345,8 +345,8 @@ BF16_CASES = [
     # NaCAGaT big: the E = F = 512 fuse-K and D = 512 export instances
     ("bf16-nacagat-big", 512, 1, True, 6, 100, False, "fused_attention_leank", True),
     ("bf16-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
-    # queue 2 item 5: no plain-K instance with values
-    ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "attention_core", False),
+    # off the lean routes: the plain-K pair with values, its bfloat16 instance
+    ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
     ("bf16-weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
     ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", True),
     # GE's self-attentions: the flash kernels' bfloat16 instances, every size
@@ -405,7 +405,7 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
         assert flash.supports(2, heads, m_len, d, dtype=bf16) == kernel and flash.supports(
             2, heads, m_len, d)
     if heads > 1 and n is not None:
-        assert not coattn.plain_k_supports(n, d, m_len, values=True, dtype=bf16)
+        assert coattn.plain_k_supports(n, d, m_len, values=True, dtype=bf16) == kernel
 
     # the JAX module in float32 on the same (bfloat16) inputs
     jmodule = jattention.MultiheadAttention(embed_dim=e, num_heads=heads, pre_gate=pre_gate,
@@ -420,42 +420,65 @@ def test_bf16_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
         assert np.abs(got - ref).max() <= BF16_ROUTE_RTOL * np.abs(ref).max()
 
 
+def _model_kernels_take(name, e, device, dtype):
+    """Whether every attention kernel the model ``name`` reaches at width
+    ``e`` takes its shapes in ``dtype`` on ``device`` (``kernels.takes``,
+    which raises on the card for a bfloat16 shape without an instance):
+    GE-NaCAGaT's flash kernels at its two head widths; NaCAGaT's fuse-K
+    forms, export passes and (``lean=False``) plain-K pair; MCAT's export
+    passes and plain-K pair (its lean branch runs no kernel)."""
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
+
+    if name == "GE-NaCAGaT":
+        return all(takes("flash", flash.supports, device, 2, h, 64, e // h, dtype=dtype)
+                   for h in (1, 8))
+    took = [takes("export", coattn.plain_k_supports, device, 6, e, 100, values=False,
+                  dtype=dtype),
+            takes("plain-K", coattn.plain_k_supports, device, 6, e, 100, values=True,
+                  dtype=dtype)]
+    if name == "NaCAGaT":
+        took += [takes("fuse-K", coattn.fused_k_supports, device, 6, e, e, 100, train=t,
+                       dtype=dtype) for t in (False, True)]
+    return all(took)
+
+
 @pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
 @pytest.mark.parametrize("name", ["GE-NaCAGaT", "NaCAGaT"])
 def test_ge_bf16_is_refused_on_the_card(name, device, refused):
     """GE-NaCAGaT and NaCAGaT under bfloat16 compute are no longer refused on
-    a CUDA device at any size (the flash kernels and, since NaCAGaT ``big``'s
-    E = F = D = 512 instances, the co-attention kernels have bfloat16
-    instances at every width) and run on the CPU's plain versions; float32
-    passes. What the card still refuses under bfloat16 is a module off the
-    lean routes (``lean=False``: the plain-K form with values), at the
-    kernel, before any launch. (The Trainer on the card:
-    ``test_torch_port_cuda.py``.)"""
-    from multimodal_path_omic_tpu_torch.models import require_compute_dtype
+    a CUDA device at any size: every kernel they reach takes its shapes in
+    bfloat16 (the flash kernels at every head width, the co-attention
+    kernels at E = F = D 128, 256 and 512, ``lean=False``'s plain-K pair
+    among them), on the card and on the CPU (the plain versions), and so in
+    float32. What the card still refuses under bfloat16 is a float32 shape
+    without an instance, at the kernel, before any launch: the eval fuse-K
+    form at E = 512, F = 256, which takes ``attention_core`` on the CPU.
+    (The Trainer on the card: ``test_torch_port_cuda.py``.)"""
     from multimodal_path_omic_tpu_torch.ops.kernels import takes
 
-    for size in ("small", "medium", "big"):
-        require_compute_dtype(name, torch.bfloat16, device, size)
-    require_compute_dtype(name, None, device)
-    values = dict(values=True, dtype=torch.bfloat16)
+    for e in (128, 256, 512):
+        assert _model_kernels_take(name, e, device, torch.bfloat16)
+    assert _model_kernels_take(name, 256, device, torch.float32)
+    eval_e512_f256 = (6, 512, 256, 100)
     if refused:
         with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-            takes("coattn_plain", coattn.plain_k_supports, device, 6, 256, 100, **values)
+            takes("fuse-K", coattn.fused_k_supports, device, *eval_e512_f256, train=False,
+                  dtype=torch.bfloat16)
     else:
-        assert not takes("coattn_plain", coattn.plain_k_supports, device, 6, 256, 100, **values)
+        assert not takes("fuse-K", coattn.fused_k_supports, device, *eval_e512_f256,
+                         train=False, dtype=torch.bfloat16)
 
 
 # (id, the kernel's predicate, its shape arguments, keywords): shapes that a
-# float32 kernel takes and no bfloat16 instance does: BF16_CASES' plain-K
-# form with values, and the fuse-K eval form's float32-only (E, F) pairs
+# float32 kernel takes and no bfloat16 instance does: the fuse-K eval form's
+# float32-only (E, F) pairs
 BF16_NO_INSTANCE = [
     ("bf16-eval-e512-f256", coattn.fused_k_supports, (6, 512, 256, 100), {"train": False}),
     ("bf16-eval-e128-f512", coattn.fused_k_supports, (6, 128, 512, 100), {"train": False}),
-    ("bf16-lean-false-width256-8heads", coattn.plain_k_supports, (6, 256, 100),
-     {"values": True}),
+    ("bf16-eval-e256-f512", coattn.fused_k_supports, (6, 256, 512, 100), {"train": False}),
     ("bf16-eval-e256-f1024", coattn.fused_k_supports, (6, 256, 1024, 100), {"train": False}),
     ("bf16-eval-e512-f1024", coattn.fused_k_supports, (6, 512, 1024, 100), {"train": False}),
-    ("bf16-lean-false-width128", coattn.plain_k_supports, (6, 128, 100), {"values": True}),
+    ("bf16-eval-e128-f1024", coattn.fused_k_supports, (6, 128, 1024, 100), {"train": False}),
 ]
 
 
@@ -481,17 +504,39 @@ def test_bf16_shapes_without_an_instance_raise_on_the_card(case):
                      dtype=torch.bfloat16)
 
 
+# the plain-K pair with values off the lean routes (``lean=False``), once
+# without a bfloat16 instance: (id, head width)
+BF16_LEAN_FALSE = [("bf16-lean-false-width256-8heads", 256), ("bf16-lean-false-width128", 128),
+                   ("bf16-lean-false-width512", 512)]
+
+
+@pytest.mark.parametrize("case", BF16_LEAN_FALSE, ids=[c[0] for c in BF16_LEAN_FALSE])
+def test_bf16_lean_false_shapes_take_their_instances(case):
+    """``kernels.takes`` on the plain-K forms with values in bfloat16: every
+    shipped head width (D 128, 256, 512) has its bfloat16 instance, so the
+    card takes the kernel and the CPU its plain version, as in float32."""
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
+
+    _, d = case
+    for dtype in (torch.bfloat16, torch.float32):
+        assert coattn.plain_k_supports(6, d, 100, values=True, dtype=dtype)
+        for device in ("cuda", "cpu"):
+            assert takes("plain-K", coattn.plain_k_supports, device, 6, d, 100, values=True,
+                         dtype=dtype)
+
+
 @pytest.mark.parametrize("name,size", [
     ("NaCAGaT", "small"), ("NaCAGaT", "medium"), ("NaCAGaT", "big"), ("MCAT", "big"),
 ])
 def test_bf16_models_without_instances_are_refused_on_the_card(name, size):
-    """Under bfloat16 compute the card would refuse NaCAGaT where its
-    co-attention kernels had no bfloat16 instance at its width (queue 2 item
-    5); every size has them now (``big``: E = F = D = 512), so each passes,
-    as MCAT (whose lean branch runs no kernel) does. The CPU runs each on
-    the plain versions, and float32 passes everywhere."""
-    from multimodal_path_omic_tpu_torch.models import require_compute_dtype
+    """Under bfloat16 compute the card would refuse a model whose kernels had
+    no bfloat16 instance at its width (``kernels.takes``, before any launch);
+    every size has them now (``big``: E = F = D = 512, ``lean=False``'s
+    plain-K pair included), so each model's kernels take their shapes, on
+    the card and on the CPU (the plain versions), in float32 as well."""
+    from multimodal_path_omic_tpu_torch.models.common import MODEL_SIZES
 
+    e = MODEL_SIZES[size][1]
     for dtype, device in ((torch.bfloat16, "cuda"), (torch.bfloat16, "cpu"),
                           (torch.float32, "cuda")):
-        require_compute_dtype(name, dtype, device, size)
+        assert _model_kernels_take(name, e, device, dtype)
