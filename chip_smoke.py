@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-27 below
+    python3 chip_smoke.py              # phases 1-28 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -344,6 +344,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     one forward and one backward launch a step, no ``attention_core`` call;
     then dropout 0, one step's loss on the card against the CPU (shorter
     bags). ~50 s.
+28. Multi-GPU through the mesh layer (``parallel/``) on the one card. First
+    the training forms at a bag offset (bag0 = 5, the global index of a
+    data-parallel rank's first bag, a kernel argument): the fuse-K training
+    forward and backward and the plain-K pair against their plain versions,
+    and unequal to bag0 = 0. (a) One rank on NCCL (a world of one, joined in this
+    process): NaCAGaT ``medium`` host-fed and cached, three graphed steps
+    each (dropout 0.25, SGD) with the gradient all-reduce captured in the
+    step's CUDA graph, bit for bit the same steps without a group; K1, K2
+    and K3 launch (counted into the kernels line). (b) Two ranks spawned on
+    the card over gloo (NCCL refuses two ranks on one device): NaCAGaT
+    ``medium`` data 2, three steps cached (the sharded cache, its gather and
+    all-to-all) and host-fed, dropout 0.25: parameters bitwise equal across
+    ranks, losses and parameters within 1e-5 of one rank's on the same card;
+    each rank logs its launches of K1, K2 and K3, which must not be 0
+    (counted into the kernels line). (c) GE ``medium`` and MCAT ``medium``
+    at seq 2 (the ring, the merged MIL pool, the stat merge): one training
+    step and one ``predict_bags`` each against one rank. (d) NaCAGaT
+    ``medium`` 2x2 on four ranks: one cached step against one rank. A rank
+    that dies or a world past 300 s fails the phase. The wall times are
+    several ranks sharing one card over host-staged gloo, not a multi-GPU
+    speed.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -1232,8 +1253,9 @@ def train_step_grads(dev, batch, plain: bool, size="medium") -> dict:
     if plain:
         coattn.coattn_fwd_fused_k_train = coattn.coattn_fwd_fused_k_train_plain
         coattn.coattn_bwd_fused_k = (
-            lambda q, kv, wk, bk, mk, seed, rate, dout, l, m, di, dssq, dsumw:
-            coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mk, seed, rate, dout, dssq, dsumw))
+            lambda q, kv, wk, bk, mk, seed, rate, dout, l, m, di, dssq, dsumw, bag0=0:
+            coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mk, seed, rate, dout, dssq, dsumw,
+                                            bag0))
     try:
         step(state, batch)
     finally:
@@ -2083,12 +2105,13 @@ def mcat_train_step_grads(dev, batch, plain: bool) -> dict:
     saved = coattn.coattn_fwd_plain_k, coattn.coattn_bwd_plain_k
     if plain:
         coattn.coattn_fwd_plain_k = (
-            lambda q, k, v, mk, seed=None, rate=0.0, *, pre_gate, train=True:
-            coattn.coattn_fwd_plain_k_plain(q, k, v, mk, seed, rate, pre_gate=pre_gate))
+            lambda q, k, v, mk, seed=None, rate=0.0, *, pre_gate, train=True, bag0=0:
+            coattn.coattn_fwd_plain_k_plain(q, k, v, mk, seed, rate, pre_gate=pre_gate,
+                                            bag0=bag0))
         coattn.coattn_bwd_plain_k = (
-            lambda q, k, v, mk, seed, rate, dout, l, m, di, dssq, dsumw, *, pre_gate:
+            lambda q, k, v, mk, seed, rate, dout, l, m, di, dssq, dsumw, *, pre_gate, bag0=0:
             coattn.coattn_bwd_plain_k_plain(q, k, v, mk, seed, rate, dout, dssq, dsumw,
-                                            pre_gate=pre_gate))
+                                            pre_gate=pre_gate, bag0=bag0))
     try:
         step(state, batch)
     finally:
@@ -5570,6 +5593,408 @@ def profile_plain_k(dev) -> None:
     del eq, ek, emask
 
 
+# Multi-GPU (phase 28): the mesh layer (parallel/) on the one card. (a) one
+# rank on NCCL in this process; (b)-(d) several ranks spawned on the card
+# over gloo (NCCL refuses two ranks on one device), each on cuda:0. Batches:
+# MESH_B bags of the MESH_M bucket from a seeded cohort (CacheCohort),
+# NaCAGaT and MCAT medium, dropout 0.25 at every site; GE medium on
+# MESH_GE_B rows of the MESH_GE_M bucket. SGD (lr MESH_LR): a parameter's
+# difference from one rank then stays the size of its gradient's rounding
+# (Adam's first steps are sign steps, which make a zero gradient's noise a
+# full step).
+MESH_B, MESH_M, MESH_STEPS, MESH_LR = 8, 4096, 3, 1e-2
+MESH_COHORT = {MESH_M: 16}
+MESH_ROWS = ((0, 8), (8, 16), (4, 12))  # the rows of the cohort each step takes
+MESH_GE_B, MESH_GE_M = 2, 8192
+MESH_TIMEOUT_S = 300
+# Against one rank on the same card: the sharded step runs the same kernels
+# on half the rows (other split merges inside them) and sums gradients over
+# the ranks in another order; seq meshes run the ring and the stat merge in
+# plain float32 where one rank runs the kernels. Losses and outputs move by
+# ~1e-6 relative, a parameter after SGD steps by far less than 1e-5 of its
+# tensor's largest magnitude; a fault (a wrong slice, a missing all-reduce,
+# a mask drawn for other rows) moves them by O(1e-2) or more.
+MESH_RTOL = 1e-5
+MESH_OUT_ATOL = 1e-4  # predict_bags outputs (hazards, survs, y: magnitude <= 1)
+
+
+def mesh_cohort():
+    return CacheCohort(MESH_COHORT, seed=11)
+
+
+def mesh_host_batch(ds, rows, dev) -> dict:
+    """The global host-fed batch of cohort rows ``rows`` (phase 15's
+    stage_host_batch), survival months included."""
+    import torch
+
+    meta = {"row": np.asarray(rows), "weight": np.ones(len(rows), np.float32)}
+    batch = stage_host_batch(ds, MESH_M, meta, dev)
+    batch["survival_months"] = torch.from_numpy(ds.survival_months[rows]).to(dev)
+    return batch
+
+
+def mesh_model(dev, name, mesh, size="medium"):
+    """(model, state, optimizer) of phase 28: random weights from seed 0,
+    dropout 0.25, SGD, dropout generator seeded with 0; the mesh (or None)
+    on the model's patch-axis modules."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    ge = name.startswith("GE")
+    net = build_model(name, omic_sizes=None if ge else SIZES, model_size=size,
+                      dropout=TRAIN_RATE, mesh=mesh)
+    net = seeded_init_(net, 0).to(dev)
+    opt = make_optimizer("sgd", MESH_LR)
+    return net, init_train_state(net, opt, seed=0), opt
+
+
+def mesh_steps(dev, mesh, cached: bool, graphs=False, steps=MESH_STEPS, model="NaCAGaT"):
+    """``steps`` NaCAGaT (cesar) or MCAT (ces) steps on MESH_ROWS, host-fed
+    (each rank's slice of the global batch) or from a DeviceBagCache (this
+    rank's chunk of every bag, with mesh), from the same start; returns the
+    losses, each step's wall seconds (synchronized; the first captures or
+    warms up) and the final parameters (on the host)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache, build_meta
+    from multimodal_path_omic_tpu_torch.data.pipeline import survival_extras
+    from multimodal_path_omic_tpu_torch.parallel.mesh import shard_batch
+    from multimodal_path_omic_tpu_torch.train import loop
+
+    ds = mesh_cohort()
+    net, state, opt = mesh_model(dev, model, mesh)
+    loss = "cesar" if model == "NaCAGaT" else "ces"
+    kw = dict(omic_sizes=SIZES, mesh=mesh, graphs=graphs, patch_budget=None)
+    losses, secs = [], []
+    if cached:
+        cache = DeviceBagCache(ds, survival_extras, (MESH_M,), device=dev, lengths=ds.lengths,
+                               mesh=mesh, upload_chunk=8)
+        step = loop.make_cached_train_step(net, loss, opt, **kw)
+        inputs = [(cache.caches[MESH_M], build_meta(list(range(lo, hi)), MESH_B, cache)[0])
+                  for lo, hi in MESH_ROWS[:steps]]
+    else:
+        step = loop.make_train_step(net, loss, opt, **kw)
+        inputs = []
+        for lo, hi in MESH_ROWS[:steps]:
+            batch = mesh_host_batch(ds, list(range(lo, hi)), dev)
+            inputs.append((batch if mesh is None else shard_batch(batch, mesh,
+                                                                  process_local=False),))
+    for args in inputs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        losses.append(m.loss)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"losses": [float(x) for x in losses], "step_s": secs,
+            "params": {k: p.detach().cpu() for k, p in net.named_parameters()}}
+
+
+def mesh_ge_batch(dev, seed=21) -> dict:
+    """MESH_GE_B rows of the MESH_GE_M bucket, ragged, from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lengths = (MESH_GE_M, MESH_GE_M // 2 + MESH_GE_M // 10)
+    wsi = torch.zeros((MESH_GE_B, MESH_GE_M, 1024))
+    mask = torch.zeros((MESH_GE_B, MESH_GE_M), dtype=torch.bool)
+    for row, n in enumerate(lengths):
+        wsi[row, :n] = torch.from_numpy(rng.standard_normal((n, 1024), dtype=np.float32))
+        mask[row, :n] = True
+    return {"wsi": wsi.to(dev), "mask": mask.to(dev), "weight": torch.ones(MESH_GE_B, device=dev),
+            "label": torch.from_numpy(rng.integers(0, 3, MESH_GE_B)).to(dev)}
+
+
+def mesh_seq_runs(dev, mesh) -> dict:
+    """(c): GE medium (ce) and MCAT medium (ces): one training step and one
+    predict_bags each, on ``mesh`` (seq 2) or one rank (None)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.parallel.mesh import shard_batch
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.train import loop
+
+    out = {}
+    net, state, opt = mesh_model(dev, "GE-NaCAGaT", mesh)
+    step = loop.make_train_step(net, "ce", opt, ge_mode=True, mesh=mesh, graphs=False,
+                                patch_budget=None)
+    batch = mesh_ge_batch(dev)
+    state, m = step(state, batch if mesh is None else shard_batch(batch, mesh,
+                                                                  process_local=False))
+    out["ge_loss"] = float(m.loss)
+    out["ge_params"] = {k: p.detach().cpu() for k, p in net.named_parameters()}
+    del net, state, batch
+    ge_bags = make_ge_bags(5)[:3]
+    pred = Predictor("GE-NaCAGaT", model_size="medium", buckets=(MESH_GE_M, 16384),
+                     batch_size=2, seed=0, device=dev, mesh=mesh)
+    out["ge_y"] = pred.predict_bags(ge_bags)["y"]
+    del pred
+    out.update({f"mcat_{k}": v for k, v in
+                mesh_steps(dev, mesh, cached=False, steps=1, model="MCAT").items()})
+    bags, omics = make_bags(9)
+    bags, omics = bags[:6], omics[:6]
+    pred = Predictor("MCAT", omic_sizes=SIZES, model_size="medium", buckets=BUCKETS,
+                     batch_size=4, loss="ces", seed=0, device=dev, mesh=mesh)
+    out["mcat_pred"] = pred.predict_bags(bags, omics)
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_rank(rank, world, port, data, seq, job, out_dir):
+    """One spawned rank of phases 28 (b)-(d): a gloo process group on the
+    card, the mesh, the job; its results (and its kernel launches) to
+    ``out_dir``."""
+    import datetime
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_path_omic_tpu_torch.device import resolve_device
+    from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh
+
+    dev = resolve_device("cuda:0")
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    mesh = make_mesh(data, seq, device=dev, backend="gloo")
+    reset_counts()
+    if job == "data":
+        res = {"cached": mesh_steps(dev, mesh, cached=True),
+               "host": mesh_steps(dev, mesh, cached=False)}
+    elif job == "seq":
+        res = mesh_seq_runs(dev, mesh)
+    else:
+        res = mesh_steps(dev, mesh, cached=True, steps=1)
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in read_counts().items() if v}
+    log(f"  rank {rank} of {world} ({mesh.d}, {mesh.s}): kernel launches {res['launches']}")
+    dist.barrier()
+    torch.save(res, os.path.join(out_dir, f"{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_world(data, seq, job) -> list:
+    """Spawn data x seq ranks on the card for ``job``; their results in rank
+    order. A rank that dies, or a world past MESH_TIMEOUT_S, raises."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    world = data * seq
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(world, port, data, seq, job, out_dir),
+                                 nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise TimeoutError(f"phase 28 {data}x{seq} {job}: ranks still running "
+                                       f"after {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        log(f"  {data}x{seq} {job}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+        return [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def mesh_close(what, got, ref, rtol=MESH_RTOL) -> float:
+    """|got - ref| <= rtol of ref's largest magnitude (tensors, arrays or
+    floats); returns the error."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    err = float(np.abs(got - ref).max())
+    if not err <= rtol * scale:
+        raise AssertionError(f"phase 28 {what}: {err} > {rtol} x {scale}")
+    return err
+
+
+def mesh_params_close(what, got, ref) -> float:
+    worst = 0.0
+    for name, p in ref.items():
+        worst = max(worst, mesh_close(f"{what} {name}", got[name], p) / max(
+            float(p.abs().max()), 1e-30))
+    return worst
+
+
+def mesh_same_across_ranks(what, results, key) -> None:
+    import torch
+
+    for r, res in enumerate(results[1:], 1):
+        for name, p in res[key].items():
+            if not torch.equal(p, results[0][key][name]):
+                raise AssertionError(f"phase 28 {what}: {name} differs between rank 0 and "
+                                     f"rank {r}")
+
+
+def mesh_bag0_checks(dev) -> dict:
+    """The training forms at a bag offset (the ``bag0`` a data-parallel rank
+    passes): the fuse-K training forward and backward and the plain-K pair
+    at bag0 = 5 against their plain versions at the same offset, and
+    against the kernel at bag0 = 0 on the same inputs (the bits must
+    move). Returns the largest error a kernel."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    errs = {}
+    ins, (dout, _, _, _, dssq, dsumw), _ = train_kernel_inputs(4096, dev, 311, "prefix")
+    q, kv, wk, bk, mask, dseed = ins
+    bag0 = 5
+    got = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, dseed, TRAIN_RATE, bag0)
+    ref = coattn.coattn_fwd_fused_k_train_plain(q, kv, wk, bk, mask, dseed, TRAIN_RATE, bag0)
+    errs["coattn_fwd_fused_k_train"] = max(
+        check_close("phase 28 bag0 fwd_train.o", got[0], ref[0], KERNEL_ATOL),
+        check_close("phase 28 bag0 fwd_train.ssq", got[3], ref[3], KERNEL_ATOL))
+    zero = coattn.coattn_fwd_fused_k_train(q, kv, wk, bk, mask, dseed, TRAIN_RATE)
+    if max_err(zero[0], got[0]) < 1e-3:
+        raise AssertionError("phase 28: bag0 = 5 drew the bits of bag0 = 0")
+    _, l, m, ssq, sumw = got
+    di = (got[0] * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    bwd = coattn.coattn_bwd_fused_k(q, kv, wk, bk, mask, dseed, TRAIN_RATE, dout, l, m, di,
+                                    dssq, dsumw, bag0)
+    bref = coattn.coattn_bwd_fused_k_plain(q, kv, wk, bk, mask, dseed, TRAIN_RATE, dout, dssq,
+                                           dsumw, bag0)
+    errs["coattn_bwd_fused_k"] = max(check_rel(f"phase 28 bag0 bwd.{n}", a, r, GRAD_RTOL)
+                                     for n, a, r in zip(("dq", "dkv", "dwk", "dbk"), bwd, bref))
+    k = torch.matmul(kv, wk) + bk
+    got = coattn.coattn_fwd_plain_k(q, k, kv, mask, dseed, TRAIN_RATE, pre_gate=True, bag0=bag0)
+    ref = coattn.coattn_fwd_plain_k_plain(q, k, kv, mask, dseed, TRAIN_RATE, pre_gate=True,
+                                          bag0=bag0)
+    errs["coattn_plain"] = check_close("phase 28 bag0 plain_fwd.o", got[0], ref[0], KERNEL_ATOL)
+    _, l, m, ssq, sumw = got
+    di = (got[0] * dout).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    bwd = coattn.coattn_bwd_plain_k(q, k, kv, mask, dseed, TRAIN_RATE, dout, l, m, di, dssq,
+                                    dsumw, pre_gate=True, bag0=bag0)
+    bref = coattn.coattn_bwd_plain_k_plain(q, k, kv, mask, dseed, TRAIN_RATE, dout, dssq, dsumw,
+                                           pre_gate=True, bag0=bag0)
+    errs["coattn_plain_bwd"] = max(check_rel(f"phase 28 bag0 plain_bwd.{n}", a, r, GRAD_RTOL)
+                                   for n, a, r in zip(("dq", "dk", "dv"), bwd, bref))
+    return errs
+
+
+def phase28_mesh(dev) -> dict:
+    """Multi-GPU through the mesh layer on the one card; returns (a)'s
+    kernel launches and (b)'s, summed over its ranks."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    log("phase 28: the training forms at a bag offset (bag0 = 5) against their plain versions")
+    mesh_bag0_checks(dev)
+    log("phase 28 (a): one rank on NCCL, the gradient all-reduce captured in the step's "
+        "CUDA graph, against the step without a group")
+    ref = {"host": mesh_steps(dev, None, cached=False, graphs=True),
+           "cached": mesh_steps(dev, None, cached=True, graphs=True)}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=dev if dev.index is not None
+                            else torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        if mesh.backend != "nccl" or mesh.world.local:
+            raise AssertionError(f"phase 28 (a): the world is not an NCCL group: {mesh}")
+        reset_counts()
+        one = {"host": mesh_steps(dev, mesh, cached=False, graphs=True),
+               "cached": mesh_steps(dev, mesh, cached=True, graphs=True)}
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    for way in ("host", "cached"):
+        if one[way]["losses"] != ref[way]["losses"]:
+            raise AssertionError(f"phase 28 (a) {way}: losses {one[way]['losses']} != "
+                                 f"{ref[way]['losses']} without a group")
+        for name, p in ref[way]["params"].items():
+            if not torch.equal(one[way]["params"][name], p):
+                raise AssertionError(f"phase 28 (a) {way}: {name} differs from the step "
+                                     "without a group")
+    for name in ("gather_rows", "coattn_fwd_fused_k_train", "coattn_bwd_fused_k"):
+        if not launches.get(name):
+            raise AssertionError(f"phase 28 (a): {name} did not launch")
+    log(f"  host-fed and cached, {MESH_STEPS} steps each, graphed: losses "
+        f"{one['host']['losses']} / {one['cached']['losses']}, bit for bit the steps without "
+        f"a group; launches {({k: v for k, v in launches.items() if v})}")
+    for way in ("host", "cached"):
+        log(f"  {way} step s (the first captures): with the NCCL group "
+            f"{[round(x, 5) for x in one[way]['step_s']]}, without "
+            f"{[round(x, 5) for x in ref[way]['step_s']]}")
+
+    log(f"phase 28 (b): NaCAGaT medium data 2, two ranks on the card over gloo, "
+        f"{MESH_STEPS} steps cached and host-fed, dropout {TRAIN_RATE}")
+    res = mesh_world(2, 1, "data")
+    for way in ("host", "cached"):
+        mesh_same_across_ranks(f"(b) {way}", [r[way] for r in res], "params")
+        for r in res:
+            mesh_close(f"(b) {way} losses", r[way]["losses"], ref[way]["losses"])
+        worst = mesh_params_close(f"(b) {way}", res[0][way]["params"], ref[way]["params"])
+        log(f"  {way}: losses {res[0][way]['losses']} (one rank {ref[way]['losses']}); "
+            f"parameters bitwise equal across ranks, within {worst:.2e} of each tensor's "
+            f"largest magnitude of one rank's; step s on rank 0 (eager, gloo) "
+            f"{[round(x, 4) for x in res[0][way]['step_s']]}, one rank graphed "
+            f"{[round(x, 5) for x in ref[way]['step_s']]}")
+    b_launches = {}
+    for r, rr in enumerate(res):
+        for name in ("gather_rows", "coattn_fwd_fused_k_train", "coattn_bwd_fused_k"):
+            if not rr["launches"].get(name):
+                raise AssertionError(f"phase 28 (b): {name} did not launch on rank {r}")
+        for name, v in rr["launches"].items():
+            b_launches[name] = b_launches.get(name, 0) + v
+    del ref
+
+    log("phase 28 (c): GE medium and MCAT medium at seq 2 (the ring, the merged MIL pool, "
+        "the stat merge): a training step and predict_bags each, against one rank")
+    seq_ref = mesh_seq_runs(dev, None)
+    torch.cuda.empty_cache()
+    res = mesh_world(1, 2, "seq")
+    mesh_same_across_ranks("(c) GE", res, "ge_params")
+    mesh_same_across_ranks("(c) MCAT", res, "mcat_params")
+    for r in res:
+        mesh_close("(c) GE loss", r["ge_loss"], seq_ref["ge_loss"])
+        mesh_close("(c) MCAT loss", r["mcat_losses"], seq_ref["mcat_losses"])
+        check_close("phase 28 (c) GE y", torch.from_numpy(r["ge_y"]),
+                    torch.from_numpy(seq_ref["ge_y"]), MESH_OUT_ATOL)
+        for col, v in seq_ref["mcat_pred"].items():
+            check_close(f"phase 28 (c) MCAT {col}", torch.from_numpy(r["mcat_pred"][col]),
+                        torch.from_numpy(v), MESH_OUT_ATOL)
+    worst = max(mesh_params_close("(c) GE", res[0]["ge_params"], seq_ref["ge_params"]),
+                mesh_params_close("(c) MCAT", res[0]["mcat_params"], seq_ref["mcat_params"]))
+    log(f"  GE loss {res[0]['ge_loss']} (one rank {seq_ref['ge_loss']}), MCAT loss "
+        f"{res[0]['mcat_losses']} (one rank {seq_ref['mcat_losses']}); parameters within "
+        f"{worst:.2e}; predict_bags within {MESH_OUT_ATOL}")
+    del seq_ref
+
+    log("phase 28 (d): NaCAGaT medium 2x2 on four ranks, one cached step against one rank")
+    one_step = mesh_steps(dev, None, cached=True, steps=1)
+    res = mesh_world(2, 2, "2x2")
+    mesh_same_across_ranks("(d)", res, "params")
+    for r in res:
+        mesh_close("(d) loss", r["losses"], one_step["losses"])
+    worst = mesh_params_close("(d)", res[0]["params"], one_step["params"])
+    log(f"  loss {res[0]['losses']} (one rank {one_step['losses']}); parameters bitwise equal "
+        f"across ranks, within {worst:.2e} of one rank's")
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s ({gpu_name_and_power()}; several "
+        "ranks share one card over host-staged gloo: not a multi-GPU speed)")
+    return {"a": launches, "b": b_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5577,7 +6002,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-27")
+                         "Trainer epoch host-fed and cached instead of phases 1-28")
     args = ap.parse_args()
     try:
         import torch
@@ -5745,6 +6170,10 @@ def main() -> int:
     rows += rows26
     torch.cuda.empty_cache()
     rows += phase27_plain_k(dev)  # its rows' launches: its own serving and training runs
+    torch.cuda.empty_cache()
+    p28 = phase28_mesh(dev)
+    for row in rows:  # (a) in this process and (b)'s ranks: the gather, the fuse-K pair
+        row["launches"] += p28["a"].get(row["name"], 0) + p28["b"].get(row["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,15 @@ config says ``device: cpu`` (``--set device=cpu``):
         --checkpoint ... --port 8008 --dynamic-batch 8
     python -m multimodal_path_omic_tpu_torch.cli bench --config cfg.yaml --epochs 5
 
+On a mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) ``train``, ``validate``,
+``predict``, ``evaluate`` and ``stratify`` run under torchrun, one rank a
+GPU, and only rank 0 prints and writes files:
+
+    torchrun --nproc-per-node 2 -m multimodal_path_omic_tpu_torch.cli train \
+        --config cfg.yaml --set tpu.data_axis=2
+
+``serve`` on a mesh raises (ROADMAP.md queue 1, multi-GPU follow-ups).
+
 ``cv``, ``sweep``, ``plan``, ``profile`` and ``export-model`` take the JAX
 package's flags and exit non-zero: their modules are not ported yet
 (ROADMAP.md queue 1, tooling).
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Any, Dict, List, Optional
 
@@ -117,9 +127,11 @@ def cmd_stratify(args) -> int:
     """Risk stratification (train/analysis.py): KM groups + log-rank test."""
     from multimodal_path_omic_tpu_torch.train.analysis import stratify
 
+    lead = _rank() == 0  # only rank 0 writes files
     result = stratify(_config(args), checkpoint=args.checkpoint,
                       torch_checkpoint=args.torch_checkpoint, quantile=args.quantile,
-                      split=args.split, out_csv=args.out, png=args.png, mc_samples=args.mc)
+                      split=args.split, out_csv=args.out if lead else None,
+                      png=args.png if lead else None, mc_samples=args.mc)
     if args.json:
         print(json.dumps({k: v for k, v in result.items() if k != "km"}))
     return 0
@@ -302,8 +314,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _rank() -> int:
+    """This process's rank under torchrun (0 otherwise)."""
+    return int(os.environ.get("RANK", "0"))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if _rank() != 0:  # under torchrun only rank 0 prints
+        sys.stdout = open(os.devnull, "w")
     if argv[:1] == ["serve"]:
         # `cli serve ...` is `python -m multimodal_path_omic_tpu_torch.server ...`
         from multimodal_path_omic_tpu_torch import server

@@ -457,21 +457,30 @@ def resolve_dtype(value: str) -> str:
     return "float32" if value == "auto" else value
 
 
-def require_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a setting the port cannot honour
-    yet, naming the ROADMAP.md queue 1 item that ports it: a data or
-    sequence mesh axis above 1 and ``remat``. A reference ``.pt``
-    checkpoint under ``model.load_from_checkpoint`` is refused where it is
-    read (``Trainer.restore``); and a bfloat16 shape whose float32 kernel
-    has no bfloat16 instance on the card, where the module reaches it
+def require_supported(cfg: Config, world: Optional[int] = None) -> None:
+    """Raise for a setting the port cannot honour. ``remat`` raises
+    ``NotImplementedError``, naming the ROADMAP.md queue 1 item that ports
+    it. A mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) needs exactly that
+    many ranks, one a device (torchrun's world, ``world``; by default the
+    process group's or torchrun's ``WORLD_SIZE``): another world size raises
+    ``ValueError`` naming it, as the JAX ``make_mesh`` refuses a mesh that
+    needs more devices than exist. A reference ``.pt`` checkpoint under
+    ``model.load_from_checkpoint`` is refused where it is read
+    (``Trainer.restore``); and a bfloat16 shape whose float32 kernel has no
+    bfloat16 instance on the card, where the module reaches it
     (``kernels.takes``: only the eval fuse-K form at E != F, which no
-    shipped configuration reaches; every model size and ``lean=False`` have
-    their instances)."""
+    shipped configuration reaches)."""
     t = cfg.tpu
-    for key in ("data_axis", "seq_axis"):
-        if getattr(t, key) > 1:
-            raise NotImplementedError(
-                f"tpu.{key}={getattr(t, key)}: the port runs on one device "
-                "(ROADMAP.md queue 1, multi-GPU)")
+    n = t.data_axis * t.seq_axis
+    if n > 1:
+        if world is None:
+            from multimodal_path_omic_tpu_torch.parallel.comm import world_size
+
+            world = world_size()
+        if n != world:
+            raise ValueError(
+                f"tpu.data_axis={t.data_axis} x tpu.seq_axis={t.seq_axis} needs {n} ranks, one a "
+                f"device, but the world size is {world}: launch {n} ranks with torchrun "
+                f"(--nproc-per-node {n})")
     if t.remat:
         raise NotImplementedError("tpu.remat is not ported (ROADMAP.md queue 1, tooling)")

@@ -209,7 +209,8 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                const uint8_t* __restrict__ mask, const int* __restrict__ list,
                const int* __restrict__ off, float* __restrict__ o_part,
                float* __restrict__ ml_part, float* __restrict__ sq_part,
-               const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale, int B,
+               const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
+               uint32_t bag0, int B,
                int N, int M, int F, float scale) {
   using S_ = FkFwdSmem<E>;
   constexpr int EC = S_::EC, NEC = S_::NEC, WC = S_::WC, KVS = S_::KVS, RS = S_::RS;
@@ -470,8 +471,8 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       if constexpr (TRAIN) {
         if (thresh != 0u) {
           const uint32_t key = (uint32_t)(m0 + lane);
-          p0 = dropout_bits(seed, b, warp, key) >= thresh ? p0 * keep_scale : 0.f;
-          p1 = dropout_bits(seed, b, warp, key + 32u) >= thresh ? p1 * keep_scale : 0.f;
+          p0 = dropout_bits(seed, bag0 + b, warp, key) >= thresh ? p0 * keep_scale : 0.f;
+          p1 = dropout_bits(seed, bag0 + b, warp, key + 32u) >= thresh ? p1 * keep_scale : 0.f;
         }
         ssq_run = ssq_run * (alpha * alpha) + warp_sum(p0 * p0 + p1 * p1);
         sumw_run = sumw_run * alpha + warp_sum(p0 + p1);
@@ -645,7 +646,7 @@ plain_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const int* __restrict__ list, const int* __restrict__ off,
              float* __restrict__ o_part, float* __restrict__ ml_part,
              float* __restrict__ sq_part, const int* __restrict__ seed_ptr, uint32_t thresh,
-             float keep_scale, int B, int N, int M, float scale) {
+             float keep_scale, uint32_t bag0, int B, int N, int M, float scale) {
   using S_ = PkFwdSmem<D, T>;
   constexpr int NSLOT = S_::NSLOT;
   constexpr int CPT = D > THREADS ? D / THREADS : 1;  // o columns a thread
@@ -745,8 +746,8 @@ plain_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m_run = m_new;
         if constexpr (TRAIN) {
           if (thresh != 0u && lane < PK_KEYS)
-            p = dropout_bits(seed, (uint32_t)b, (uint32_t)warp, (uint32_t)(r0 + lane)) >= thresh
-                    ? p * keep_scale : 0.f;
+            p = dropout_bits(seed, bag0 + (uint32_t)b, (uint32_t)warp,
+                             (uint32_t)(r0 + lane)) >= thresh ? p * keep_scale : 0.f;
           ssq_run = ssq_run * (alpha * alpha) + warp_sum(p * p);
           sumw_run = sumw_run * alpha + warp_sum(p);
         }
@@ -1171,7 +1172,8 @@ template <int E, int FC, bool TRAIN, typename T>
 int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
                        const uint8_t* mask, const int* list, const int* off, float* o_part,
                        float* ml_part, float* sq_part, const int* seed, uint32_t thresh,
-                       float keep_scale, int B, int N, int M, int F, int blocks, float scale,
+                       float keep_scale, uint32_t bag0, int B, int N, int M, int F, int blocks,
+                       float scale,
                        cudaStream_t st) {
   static bool allowed[64] = {};
   constexpr int smem = (int)sizeof(FkFwdSmem<E>);
@@ -1179,7 +1181,8 @@ int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
   const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN, T>, smem, allowed);
   if (err) return err;
   fused_k_kernel<E, FC, TRAIN, T><<<blocks, THREADS, smem, st>>>(
-      q, kv, wk, bk, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N,
+      q, kv, wk, bk, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, bag0,
+      B, N,
       M, F, scale);
   return (int)cudaGetLastError();
 }
@@ -1187,6 +1190,7 @@ int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
 template <bool TRAIN, typename T>
 int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
                    const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
+                   uint32_t bag0,
                    T* o, float* l, float* m, float* ssq, float* sumw, float* o_part,
                    float* ml_part, float* sq_part, uint8_t* flags, int* list, int* off, int B,
                    int N, int M, int F, int E, int blocks, float scale, void* stream) {
@@ -1201,7 +1205,8 @@ int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
 #define MPO_FK(E_, FC_)                                                                    \
   if (E == E_ && fc == FC_)                                                                \
     err = launch_fk_instance<E_, FC_, TRAIN, T>(q, kv, wk, bk, mask, list, off, o_part,      \
-                                                ml_part, sq_part, seed, thresh, keep_scale, B, \
+                                                ml_part, sq_part, seed, thresh, keep_scale, \
+                                                bag0, B, \
                                                 N, M, F, blocks, scale, st);
   if constexpr (IS_BF16<T>) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py BF16_EF), both forms
     if (E == 512 ? F != 512 : F > 256) return (int)cudaErrorInvalidValue;
@@ -1230,7 +1235,7 @@ int launch_plain(const T* q, const T* k, const T* v, const uint8_t* mask,
                  const int* seed, T* o, float* l, float* m, float* ssq, float* sumw,
                  float* o_part, float* ml_part, float* sq_part, uint8_t* flags, int* list,
                  int* off, int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
-                 float keep_scale, cudaStream_t st) {
+                 float keep_scale, uint32_t bag0, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
   constexpr int smem = (int)sizeof(PkFwdSmem<D, T>);
@@ -1242,7 +1247,7 @@ int launch_plain(const T* q, const T* k, const T* v, const uint8_t* mask,
   if (err) return err;
   launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st);
   plain_kernel<D, PG, TRAIN, T><<<blocks, THREADS, smem, st>>>(
-      q, k, v, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, B, N, M,
+      q, k, v, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, bag0, B, N, M,
       scale);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -1259,7 +1264,7 @@ int plain_fwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int
               float* l, float* m, float* ssq, float* sumw, float* o_part, float* ml_part,
               float* sq_part, uint8_t* flags, int* list, int* off, int B, int N, int M, int D,
               int pre_gate, int max_blocks, int train, float scale, uint32_t thresh,
-              float keep_scale, void* stream) {
+              float keep_scale, uint32_t bag0, void* stream) {
   if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1267,7 +1272,7 @@ int plain_fwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int
   if (D == D_ && (pre_gate != 0) == PG_ && (train != 0) == TRAIN_)                           \
     return launch_plain<D_, PG_, TRAIN_, T>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,  \
                                             ml_part, sq_part, flags, list, off, B, N, M,      \
-                                            max_blocks, scale, thresh, keep_scale, st);
+                                            max_blocks, scale, thresh, keep_scale, bag0, st);
 #define MPO_PLAIN_D(D_)                                                                      \
   MPO_PLAIN(D_, false, false) MPO_PLAIN(D_, true, false) MPO_PLAIN(D_, false, true)          \
   MPO_PLAIN(D_, true, true)
@@ -1291,13 +1296,15 @@ int mpo_coattn_fwd_fused_k(const float* q, const float* kv, const float* wk,
                            float* m, float* sumw, float* o_part, float* ml_part,
                            uint8_t* flags, int* list, int* off, int B, int N, int M, int F,
                            int E, int blocks, float scale, void* stream) {
-  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, o, l, m, nullptr,
+  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, 0u, o, l, m, nullptr,
                                sumw, o_part, ml_part, nullptr, flags, list, off, B, N, M, F,
                                E, blocks, scale, stream);
 }
 
 // The training form: as above plus attention dropout (seed: one int32 on the
-// device; keep iff dropout_bits >= thresh, kept weights times keep_scale;
+// device; bag0: the global index of bag 0, added to every bag's index in the
+// dropout counter, so that a data-parallel rank draws the one-device run's
+// bits; keep iff dropout_bits >= thresh, kept weights times keep_scale;
 // thresh 0 = no dropout) and the ssq side output. Out: o [B, N, F], l, m
 // (saved for the backward), ssq, sumw [B, N]. Extra scratch: sq_part
 // [blocks + B, N, 2]. E, F in {128, 256}, or E = F = 512.
@@ -1307,8 +1314,9 @@ int mpo_coattn_fwd_fused_k_train(const float* q, const float* kv, const float* w
                                  float* o_part, float* ml_part, float* sq_part, uint8_t* flags,
                                  int* list, int* off, int B, int N, int M, int F, int E,
                                  int blocks, float scale, uint32_t thresh, float keep_scale,
+                                 uint32_t bag0,
                                  void* stream) {
-  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, o, l, m, ssq,
+  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, o, l, m, ssq,
                               sumw, o_part, ml_part, sq_part, flags, list, off, B, N, M, F, E,
                               blocks, scale, stream);
 }
@@ -1321,7 +1329,7 @@ int mpo_coattn_fwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                 float* sumw, float* o_part, float* ml_part, uint8_t* flags,
                                 int* list, int* off, int B, int N, int M, int F, int E,
                                 int blocks, float scale, void* stream) {
-  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, o, l, m, nullptr,
+  return launch_fused_k<false>(q, kv, wk, bk, mask, nullptr, 0u, 1.f, 0u, o, l, m, nullptr,
                                sumw, o_part, ml_part, nullptr, flags, list, off, B, N, M, F,
                                E, blocks, scale, stream);
 }
@@ -1333,8 +1341,8 @@ int mpo_coattn_fwd_fused_k_train_bf16(const __nv_bfloat16* q, const __nv_bfloat1
                                       float* o_part, float* ml_part, float* sq_part,
                                       uint8_t* flags, int* list, int* off, int B, int N, int M,
                                       int F, int E, int blocks, float scale, uint32_t thresh,
-                                      float keep_scale, void* stream) {
-  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, o, l, m, ssq,
+                                      float keep_scale, uint32_t bag0, void* stream) {
+  return launch_fused_k<true>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, o, l, m, ssq,
                               sumw, o_part, ml_part, sq_part, flags, list, off, B, N, M, F, E,
                               blocks, scale, stream);
 }
@@ -1434,7 +1442,7 @@ int mpo_coattn_tiles(const uint8_t* mask, uint8_t* flags, int* list, int* off, i
 
 // The plain-K form with values: q [B, N, D], k, v [B, M, D], mask [B, M] bool
 // or NULL -> o [B, N, D], l, m [B, N]. train != 0: the training form, with
-// attention dropout (seed, thresh, keep_scale as mpo_coattn_fwd_fused_k_train)
+// attention dropout (seed, thresh, keep_scale, bag0 as mpo_coattn_fwd_fused_k_train)
 // and ssq, sumw [B, N] of the dropped weights; else seed, ssq, sumw and
 // sq_part may be NULL. max_blocks: the most main-pass blocks (it runs the
 // blocks resident at once, up to that). Scratch: o_part [max_blocks + B, N,
@@ -1446,10 +1454,10 @@ int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
                          float* ssq, float* sumw, float* o_part, float* ml_part,
                          float* sq_part, uint8_t* flags, int* list, int* off, int B, int N,
                          int M, int D, int pre_gate, int max_blocks, int train, float scale,
-                         uint32_t thresh, float keep_scale, void* stream) {
+                         uint32_t thresh, float keep_scale, uint32_t bag0, void* stream) {
   return plain_fwd<float>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part, sq_part,
                           flags, list, off, B, N, M, D, pre_gate, max_blocks, train, scale,
-                          thresh, keep_scale, stream);
+                          thresh, keep_scale, bag0, stream);
 }
 
 // The bfloat16 instances: q, k, v and o bfloat16, everything else as above.
@@ -1459,10 +1467,10 @@ int mpo_coattn_plain_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               float* o_part, float* ml_part, float* sq_part, uint8_t* flags,
                               int* list, int* off, int B, int N, int M, int D, int pre_gate,
                               int max_blocks, int train, float scale, uint32_t thresh,
-                              float keep_scale, void* stream) {
+                              float keep_scale, uint32_t bag0, void* stream) {
   return plain_fwd<__nv_bfloat16>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part,
                                   sq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
-                                  train, scale, thresh, keep_scale, stream);
+                                  train, scale, thresh, keep_scale, bag0, stream);
 }
 
 }  // extern "C"

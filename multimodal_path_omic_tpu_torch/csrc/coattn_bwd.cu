@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(THREADS)
 fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                    const T* __restrict__ wk, const T* __restrict__ bk,
                    const uint8_t* __restrict__ mask, const int* __restrict__ seed_ptr,
-                   uint32_t thresh, float keep_scale, const T* __restrict__ dout,
+                   uint32_t thresh, float keep_scale, uint32_t bag0, const T* __restrict__ dout,
                    const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ di, const float* __restrict__ dssq,
                    const float* __restrict__ dsumw, T* __restrict__ dkv,
@@ -652,7 +652,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         const float p = expf(s - S.stat[0][n]) * S.stat[1][n];
         pd = p;
         if (thresh != 0u)
-          pd = dropout_bits(seed, (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
+          pd = dropout_bits(seed, bag0 + (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
               ? p * keep_scale : 0.f;
         if (valid) {
           const float ds = pd * S.dp_du[n][r] - p * S.stat[2][n]
@@ -977,7 +977,7 @@ __global__ void __launch_bounds__(THREADS, D < 512 ? 2 : 1)
 plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  const int* __restrict__ list, const int* __restrict__ off,
-                 const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
+                 const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale, uint32_t bag0,
                  const T* __restrict__ dout, const float* __restrict__ l,
                  const float* __restrict__ m, const float* __restrict__ di,
                  const float* __restrict__ dssq, const float* __restrict__ dsumw,
@@ -1101,7 +1101,7 @@ plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float p = expf((valid ? a * g : NEG) - S.stat[0][n]) * S.stat[1][n];
             pd = p;
             if (thresh != 0u)
-              pd = dropout_bits(seed, (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
+              pd = dropout_bits(seed, bag0 + (uint32_t)b, (uint32_t)n, (uint32_t)key) >= thresh
                        ? p * keep_scale : 0.f;
             const float ds = valid ? pd * dp - p * S.stat[2][n] + 2.f * S.stat[3][n] * pd * pd +
                                          S.stat[4][n] * pd
@@ -1170,7 +1170,7 @@ int launch_plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask,
                      const float* di, const float* dssq, const float* dsumw, T* dq,
                      T* dk, T* dv, float* dq_part, uint8_t* flags, int* list, int* off,
                      int B, int N, int M, int max_blocks, float scale, uint32_t thresh,
-                     float keep_scale, cudaStream_t st) {
+                     float keep_scale, uint32_t bag0, cudaStream_t st) {
   static bool allowed[64] = {};
   static int resident[64] = {};
   constexpr int smem = (int)sizeof(PkBwdSmem<D, T>);
@@ -1182,7 +1182,7 @@ int launch_plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask,
   if (err) return err;
   launch_tile_list(mask, dk, dv, flags, list, off, B, M, D, st, false, (int)sizeof(T));
   plain_bwd_kernel<D, PG, T><<<blocks, THREADS, smem, st>>>(
-      q, k, v, mask, list, off, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dk, dv,
+      q, k, v, mask, list, off, seed, thresh, keep_scale, bag0, dout, l, m, di, dssq, dsumw, dk, dv,
       dq_part, B, N, M, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -1199,14 +1199,15 @@ int plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int
               const T* dout, const float* l, const float* m, const float* di,
               const float* dssq, const float* dsumw, T* dq, T* dk, T* dv, float* dq_part,
               uint8_t* flags, int* list, int* off, int B, int N, int M, int D, int pre_gate,
-              int max_blocks, float scale, uint32_t thresh, float keep_scale, void* stream) {
+              int max_blocks, float scale, uint32_t thresh, float keep_scale, uint32_t bag0,
+              void* stream) {
   if (N < 1 || N > NMAX || M < 1 || B < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MPO_PLAIN_BWD(D_, PG_)                                                                \
   if (D == D_ && (pre_gate != 0) == PG_)                                                      \
     return launch_plain_bwd<D_, PG_, T>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq,  \
                                         dk, dv, dq_part, flags, list, off, B, N, M,           \
-                                        max_blocks, scale, thresh, keep_scale, st);
+                                        max_blocks, scale, thresh, keep_scale, bag0, st);
   MPO_PLAIN_BWD(256, true) MPO_PLAIN_BWD(256, false) MPO_PLAIN_BWD(128, true)
   MPO_PLAIN_BWD(128, false) MPO_PLAIN_BWD(512, true) MPO_PLAIN_BWD(512, false)
 #undef MPO_PLAIN_BWD
@@ -1216,6 +1217,7 @@ int plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int
 template <int E, int F, typename T>
 int launch_bwd(const T* q, const T* kv, const T* wk, const T* bk,
                const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
+               uint32_t bag0,
                const T* dout, const float* l, const float* m, const float* di,
                const float* dssq, const float* dsumw, T* dkv, float* dk_scratch,
                uint8_t* flags, int* list, int* off, float* dq_part, float* dwk_part,
@@ -1230,7 +1232,7 @@ int launch_bwd(const T* q, const T* kv, const T* wk, const T* bk,
   if (err) return err;
   launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st, false, (int)sizeof(T));
   fused_k_bwd_kernel<E, F, T><<<blocks, THREADS, smem, st>>>(
-      q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, m, di, dssq, dsumw, dkv,
+      q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, l, m, di, dssq, dsumw, dkv,
       dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);
   dwk_kernel<E, F, T><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
       kv, dk_scratch, list, off, dwk_part, B, M);
@@ -1243,7 +1245,7 @@ extern "C" {
 
 // Inputs as the training forward (q [B, N, E], kv [B, M, F], wk [F, E],
 // bk [E], mask [B, M] bool or NULL, seed: one int32 on the device, thresh /
-// keep_scale as there) plus dout [B, N, F] and l, m, di [B, N]; dssq, dsumw
+// keep_scale / bag0 as there) plus dout [B, N, F] and l, m, di [B, N]; dssq, dsumw
 // [B, N] or NULL (zero cotangents). Out: dq [B, N, E], dkv [B, M, F],
 // dwk [F, E], dbk [E]. Scratch: dk_scratch [B, M, E], flags [B * T] uint8,
 // list [B * T] and off [B + 1] int32 (T = ceil(M / 64) key tiles a bag),
@@ -1256,14 +1258,15 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
                            float* dwk, float* dbk, float* dq_part, float* dwk_part,
                            float* dbk_part, float* dk_scratch, uint8_t* flags, int* list,
                            int* off, int B, int N, int M, int F, int E, int blocks, int wsplits,
-                           float scale, uint32_t thresh, float keep_scale, void* stream) {
+                           float scale, uint32_t thresh, float keep_scale, uint32_t bag0,
+                           void* stream) {
   if (N < 1 || N > NMAX || M < 1 || B < 1 || blocks < 1 || wsplits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
 #define MPO_BWD(E_, F_)                                                                    \
   if (E == E_ && F == F_)                                                                  \
-    err = launch_bwd<E_, F_, float>(q, kv, wk, bk, mask, seed, thresh, keep_scale, dout, l, \
+    err = launch_bwd<E_, F_, float>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, l, \
                                     m, di, dssq, dsumw, dkv, dk_scratch, flags, list, off,  \
                                     dq_part, dwk_part, dbk_part, B, N, M, blocks, wsplits,  \
                                     scale, st);
@@ -1290,14 +1293,14 @@ int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                 float* dq_part, float* dwk_part, float* dbk_part,
                                 float* dk_scratch, uint8_t* flags, int* list, int* off, int B,
                                 int N, int M, int F, int E, int blocks, int wsplits, float scale,
-                                uint32_t thresh, float keep_scale, void* stream) {
+                                uint32_t thresh, float keep_scale, uint32_t bag0, void* stream) {
   if (N < 1 || N > NMAX || M < 1 || B < 1 || blocks < 1 || wsplits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
 #define MPO_BWD16(E_, F_)                                                                  \
   if (E == E_ && F == F_)                                                                  \
-    err = launch_bwd<E_, F_, __nv_bfloat16>(q, kv, wk, bk, mask, seed, thresh, keep_scale,  \
+    err = launch_bwd<E_, F_, __nv_bfloat16>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0,  \
                                             dout, l, m, di, dssq, dsumw, dkv, dk_scratch,   \
                                             flags, list, off, dq_part, dwk_part, dbk_part, \
                                             B, N, M, blocks, wsplits, scale, st);
@@ -1324,10 +1327,11 @@ int mpo_coattn_plain_bwd(const float* q, const float* k, const float* v, const u
                          const float* di, const float* dssq, const float* dsumw, float* dq,
                          float* dk, float* dv, float* dq_part, uint8_t* flags, int* list,
                          int* off, int B, int N, int M, int D, int pre_gate, int max_blocks,
-                         float scale, uint32_t thresh, float keep_scale, void* stream) {
+                         float scale, uint32_t thresh, float keep_scale, uint32_t bag0,
+                         void* stream) {
   return plain_bwd<float>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, dv, dq_part,
                           flags, list, off, B, N, M, D, pre_gate, max_blocks, scale, thresh,
-                          keep_scale, stream);
+                          keep_scale, bag0, stream);
 }
 
 // The bfloat16 instances: q, k, v, dout, dq, dk and dv bfloat16, everything
@@ -1339,10 +1343,10 @@ int mpo_coattn_plain_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
                               float* dq_part, uint8_t* flags, int* list, int* off, int B, int N,
                               int M, int D, int pre_gate, int max_blocks, float scale,
-                              uint32_t thresh, float keep_scale, void* stream) {
+                              uint32_t thresh, float keep_scale, uint32_t bag0, void* stream) {
   return plain_bwd<__nv_bfloat16>(q, k, v, mask, seed, dout, l, m, di, dssq, dsumw, dq, dk, dv,
                                   dq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
-                                  scale, thresh, keep_scale, stream);
+                                  scale, thresh, keep_scale, bag0, stream);
 }
 
 }  // extern "C"

@@ -29,7 +29,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Attention-dropout bits of element (bag b, query n, key index `key`):
+// Attention-dropout bits of element (bag b, query n, key index `key`; b and
+// key are global indices: a mesh rank offsets its local ones):
 // word 0 of Philox4x32-10 (Salmon et al., SC'11) at counter (key, n, b, 0)
 // under key (seed, 0). Counter-based, so the bits depend only on the element,
 // not on the tile or split that computes it: the backward regenerates the

@@ -48,8 +48,15 @@ class DeviceBagCache:
     survival_months [n]; with ``store_dtype="int8"`` also wsi_scale
     [n_b, bucket] float32. ``position(rows)`` maps dataset rows to their
     bucket-local wsi index. ``device`` defaults to the GPU
-    (``device.resolve_device``). A mesh-sharded cache is not ported
-    (ROADMAP queue 1, multi-GPU).
+    (``device.resolve_device``).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the cache of one rank of a mesh
+    (JAX ``cache_spec``): wsi, mask and wsi_scale hold this rank's patch
+    chunk of every bag, [n_b, bucket / mesh size, ...] (chunk r on rank r,
+    the int8 scale rows beside their patches), on the mesh's device; the
+    label and omics tables whole. Every bucket must split over the mesh.
+    The cached steps gather the global batch from it and move each rank's
+    rows and patches to it in one all-to-all (``train/loop.py``).
     """
 
     def __init__(self, dataset, extras_fn, buckets: Sequence[int], *, device=None,
@@ -60,8 +67,12 @@ class DeviceBagCache:
             raise ValueError(
                 f"store_dtype must be float32, bfloat16 or int8, got {store_dtype!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded device cache is not ported yet (ROADMAP queue 1, multi-GPU)")
+            from multimodal_path_omic_tpu_torch.parallel.mesh import Mesh, cache_patches
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.store_dtype = store_dtype
         self.ge_mode = ge_mode
@@ -95,14 +106,16 @@ class DeviceBagCache:
         for bucket in self.cached_buckets:
             rows = np.flatnonzero(self.bucket_of == bucket)
             self._position[rows] = np.arange(len(rows), dtype=np.int32)
-            wsi = torch.empty((len(rows), bucket, dim), dtype=store, device=dev)
-            mask = torch.empty((len(rows), bucket), dtype=torch.bool, device=dev)
+            cs = cache_patches(bucket, mesh) if mesh is not None else slice(0, bucket)
+            width = cs.stop - cs.start
+            wsi = torch.empty((len(rows), width, dim), dtype=store, device=dev)
+            mask = torch.empty((len(rows), width), dtype=torch.bool, device=dev)
             stage_w = torch.empty((min(upload_chunk, len(rows)), bucket, dim), dtype=store,
                                   pin_memory=pin)
             stage_m = torch.empty(stage_w.shape[:2], dtype=torch.bool, pin_memory=pin)
             scale = stage_s = None
             if int8:
-                scale = torch.empty((len(rows), bucket), device=dev)
+                scale = torch.empty((len(rows), width), device=dev)
                 stage_s = torch.empty(stage_w.shape[:2], pin_memory=pin)
             for s in range(0, len(rows), upload_chunk):
                 chunk_rows = rows[s:s + upload_chunk]
@@ -128,10 +141,10 @@ class DeviceBagCache:
                     stage_m[j, :m] = True
                 k = len(chunk_rows)
                 # the staging buffers are reused: each copy ends before the next fill
-                wsi[s:s + k].copy_(stage_w[:k])
-                mask[s:s + k].copy_(stage_m[:k])
+                wsi[s:s + k].copy_(stage_w[:k, cs])
+                mask[s:s + k].copy_(stage_m[:k, cs])
                 if int8:
-                    scale[s:s + k].copy_(stage_s[:k])
+                    scale[s:s + k].copy_(stage_s[:k, cs])
             self.caches[bucket] = dict(wsi=wsi, mask=mask, **table)
             if int8:
                 self.caches[bucket]["wsi_scale"] = scale

@@ -11,10 +11,11 @@ reference accumulates.
 Partial batches are padded with repeated samples carrying ``weight 0`` so
 shapes stay fixed; losses use the weights (ops/losses.py ``sample_weight``)
 and metrics drop them. For one seed and epoch the batches, and their order,
-are the JAX package's. The JAX package's C++ loader and multi-host slicing
-are not ported (ROADMAP.md queue 1, tooling and multi-GPU): bags load
-through the dataset's store, and :func:`prefetch` overlaps that with the
-device in a thread.
+are the JAX package's. On a mesh each rank reads only its slice of every
+global batch (:attr:`BucketBatcher.host_slice`). The JAX package's C++
+loader is not ported (ROADMAP.md queue 1, tooling): bags load through the
+dataset's store, and :func:`prefetch` overlaps that with the device in a
+thread.
 """
 
 from __future__ import annotations
@@ -55,11 +56,18 @@ class BucketBatcher:
     (:func:`survival_extras`, :func:`gene_expr_extras`). Epoch ``e`` of a
     shuffled batcher permutes the rows with ``default_rng(seed + e)``; the
     epoch counter advances on every plan (``_epoch`` is set on resume).
+
+    ``host_slice`` (a ``parallel.mesh.Mesh``, or None; JAX ``host_slice``,
+    ``pipeline.py:61-76``): every rank computes the same seed-deterministic
+    plan and reads only its slice of each batch: the rows of its data
+    position and, of each of their bags, the patches of its seq position
+    (a bag padded to its bucket, the bucket split over the seq axis). Ranks
+    that share a data position read the same rows.
     """
 
     def __init__(self, dataset, extras_fn, batch_size: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, host_slice=None):
         self.dataset = dataset
         self.extras_fn = extras_fn
         self.batch_size = batch_size
@@ -68,6 +76,7 @@ class BucketBatcher:
         self.seed = seed
         self._epoch = 0
         self._lengths = None  # bag lengths, probed once
+        self.host_slice = host_slice
 
     def _bag_lengths(self) -> np.ndarray:
         if self._lengths is None:
@@ -162,28 +171,57 @@ class BucketBatcher:
         for indices, bucket in self._epoch_plan():
             yield self._make_batch(indices, bucket)
 
+    @property
+    def host_slice(self):
+        return self._host_slice
+
+    @host_slice.setter
+    def host_slice(self, mesh):
+        # checked on every assignment (the Trainer sets it after
+        # construction): an indivisible batch would drop rows
+        if mesh is not None and self.batch_size % mesh.data != 0:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by the data axis "
+                             f"{mesh.data}")
+        self._host_slice = mesh
+
+    def _local(self, full: List[int], weight: np.ndarray, bucket: int):
+        """(this rank's rows of ``full``, their weights, the patch window of
+        a bag padded to ``bucket``, its width)."""
+        mesh = self.host_slice
+        if mesh is None:
+            return full, weight, slice(0, bucket), bucket
+        rows = mesh.rows(len(full))
+        window = mesh.patches(bucket)
+        return full[rows], weight[rows], window, window.stop - window.start
+
     def _make_rows(self, indices: List[int], bucket: int) -> Batch:
         """:meth:`_make_batch` without the padding: each row's bag as it is
         ('rows', a list of [M_i, D] float32 arrays, filler rows included) and
         its patches' positions in the batch flattened to [B * bucket]
         ('pos'); the other fields as there. :class:`Stager` carries only
-        these patches, and :meth:`Staged.take` pads on the device."""
+        these patches, and :meth:`Staged.take` pads on the device. Under
+        ``host_slice``: this rank's rows, each bag cut to its patch window
+        (bucket: the window's width)."""
         full, weight = pad_plan_indices(indices, self.batch_size)
-        batch = bag_rows([self.dataset.bag(i) for i in full], bucket, len(full))
+        full, weight, window, width = self._local(full, weight, bucket)
+        bags = [np.asarray(self.dataset.bag(i))[window] for i in full]
+        batch = bag_rows(bags, width, len(full))
         batch.update(weight=weight, index=np.array(full, np.int32), bucket=bucket,
-                     n_real=len(indices))
+                     n_real=int(weight.sum()))
         batch.update(self.extras_fn(self.dataset, np.array(full)))
         return batch
 
     def _make_batch(self, indices: List[int], bucket: int) -> Batch:
         full, weight = pad_plan_indices(indices, self.batch_size)
-        masks = np.zeros((len(full), bucket), dtype=bool)
+        full, weight, window, width = self._local(full, weight, bucket)
+        masks = np.zeros((len(full), width), dtype=bool)
         bags = []
         for row, i in enumerate(full):
-            padded, masks[row] = pad_bag(np.asarray(self.dataset.bag(i), np.float32), bucket)
-            bags.append(padded)
+            padded, m = pad_bag(np.asarray(self.dataset.bag(i), np.float32), bucket)
+            bags.append(padded[window])
+            masks[row] = m[window]
         batch = dict(wsi=np.stack(bags), mask=masks, weight=weight,
-                     index=np.array(full, np.int32), bucket=bucket, n_real=len(indices))
+                     index=np.array(full, np.int32), bucket=bucket, n_real=int(weight.sum()))
         batch.update(self.extras_fn(self.dataset, np.array(full)))
         return batch
 

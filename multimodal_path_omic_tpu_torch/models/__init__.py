@@ -19,7 +19,7 @@ def is_ge_model(name: str) -> bool:
 def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
                 fusion: str = "concat", n_classes=None, dropout: float = 0.25,
                 wsi_dim: int = 1024, lean: bool = True, bug_compat: bool = False,
-                dtype=None):
+                dtype=None, mesh=None):
     """Model factory keyed by the config's ``model.name`` values: MCAT and
     NaCAGaT (survival, 4 classes) and GE-NaCAGaT (WSI-only, 3 classes; takes
     no ``omic_sizes``). ``lean=False`` switches the survival models'
@@ -28,9 +28,14 @@ def build_model(name: str, *, omic_sizes=None, model_size: str = "medium",
     at their init (the reference's unregistered gates). ``dtype`` (None or
     ``torch.float32``: float32; ``torch.bfloat16``) is the compute dtype of
     every module (``ops/layers.py::set_compute_dtype``); the parameters stay
-    float32 and the survival and class heads compute in float32."""
-    return set_compute_dtype(_build(name, omic_sizes, model_size, fusion, n_classes,
-                                    dropout, wsi_dim, lean, bug_compat), dtype)
+    float32 and the survival and class heads compute in float32. ``mesh``
+    (a ``parallel.mesh.Mesh``; JAX ``ring_mesh``) reaches the modules that
+    run over the patch axis (``carry_mesh`` of each model)."""
+    model = set_compute_dtype(_build(name, omic_sizes, model_size, fusion, n_classes,
+                                     dropout, wsi_dim, lean, bug_compat), dtype)
+    if mesh is not None:
+        model.carry_mesh(mesh)
+    return model
 
 
 def _build(name, omic_sizes, model_size, fusion, n_classes, dropout, wsi_dim, lean,

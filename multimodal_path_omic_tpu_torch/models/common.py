@@ -15,7 +15,7 @@ from multimodal_path_omic_tpu_torch.ops.blocks import (
     WSIEncoder,
 )
 from multimodal_path_omic_tpu_torch.ops.fusion import make_fusion
-from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear
+from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear, set_mesh
 from multimodal_path_omic_tpu_torch.ops.transformer import TransformerEncoder
 
 MODEL_SIZES = {"small": (128, 128), "medium": (256, 256), "big": (512, 512)}
@@ -102,6 +102,13 @@ class CoAttentionSurvivalModel(nn.Module):
         )
         self.fusion_layer = make_fusion(fusion, (d2, d2), d2, d2, bug_compat=bug_compat)
         self.classifier = TorchLinear(d2, n_classes)
+
+    def carry_mesh(self, mesh) -> None:
+        """The mesh reaches the WSI encoder and the co-attention: the modules
+        over the patch axis (JAX ``mcat.py:99``, ``nacagat.py:94``); the
+        branch transformers and pools run over the N co-attended tokens."""
+        set_mesh(self.H, mesh)
+        set_mesh(self.co_attention, mesh)
 
     def forward(self, wsi: torch.Tensor, omics: Sequence[torch.Tensor],
                 mask: Optional[torch.Tensor] = None, *,

@@ -29,7 +29,7 @@ from torch import nn
 from multimodal_path_omic_tpu_torch.models.common import MODEL_SIZES
 from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
 from multimodal_path_omic_tpu_torch.ops.blocks import GatedMILPool, WSIEncoder
-from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear
+from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear, set_mesh
 from multimodal_path_omic_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -43,6 +43,14 @@ class GENaCAGaT(nn.Module):
         self.path_transformer = TransformerEncoder(d2, num_layers=2, dropout_rate=dropout_rate)
         self.path_pool = GatedMILPool(d2, dropout_rate)
         self.classifier = TorchLinear(d2, n_classes)
+
+    def carry_mesh(self, mesh) -> None:
+        """Every module runs over the patch axis here: the WSI encoder, the
+        self-attention, the path transformer and the pool (JAX
+        ``ge_nacagat.py:40-88``); on a seq mesh the attentions take the ring
+        and the pool merges its softmax over the seq group."""
+        for module in (self.H, self.self_attention, self.path_transformer, self.path_pool):
+            set_mesh(module, mesh)
 
     def forward(self, wsi: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                 need_attention: bool = False,

@@ -14,6 +14,7 @@ they are used, as the JAX module casts them (``attention.py:267, 334-338,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -25,9 +26,12 @@ from multimodal_path_omic_tpu_torch.ops.coattn import (
     attention_with_weights,
     fused_attention,
     fused_attention_leank,
+    fused_attention_leank_sharded,
+    fused_attention_sharded,
     fused_k_supports,
     leank_train_form,
     plain_k_supports,
+    sharded_eligible,
 )
 from multimodal_path_omic_tpu_torch.ops.flash import flash_attention
 from multimodal_path_omic_tpu_torch.ops.flash import supports as flash_supports
@@ -41,6 +45,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import (
     fast_keep_mask,
     masked_softmax,
     require_generator,
+    seq_sharded,
 )
 
 
@@ -174,7 +179,17 @@ class MultiheadAttention(nn.Module):
     ``lean=False`` switches the lean and lean-V routes off (the JAX
     package's ``MPO_NO_LEAN_ATTENTION=1``; here a constructor argument, no
     environment variable): the same numbers through the fused branch.
+
+    ``mesh`` (``layers.set_mesh``; JAX ``ring_mesh``): on a data-parallel
+    mesh the kernel routes run on this rank's rows through the per-rank
+    wrappers (``coattn.fused_attention_sharded``,
+    ``fused_attention_leank_sharded``: the global row index in the dropout
+    counter) and the export passes are off (attention maps are exported at
+    mesh size 1). On a seq mesh the patch axis is split: the lean routes
+    are off and :meth:`_seq_forward` takes the call.
     """
+
+    mesh = None  # this rank's parallel.mesh.Mesh, where the module runs over the patch axis
 
     def __init__(self, embed_dim: int, num_heads: int, pre_gate: bool = False,
                  dropout_rate: float = 0.0, lean: bool = True):
@@ -189,6 +204,66 @@ class MultiheadAttention(nn.Module):
         self.out_proj = TorchLinear(embed_dim, embed_dim)
         bound = math.sqrt(6.0 / (4 * embed_dim))  # xavier over the packed matrix
         nn.init.uniform_(self.in_proj_weight, -bound, bound)
+
+    def _seq_forward(self, query, key, value, key_mask, need_weights, rate, generator,
+                     n: int, m_len: int, philox: bool):
+        """The routes of a seq mesh (JAX ``attention.py:428-470``), the patch
+        axis split over the seq group; ``n``, ``m_len``: the global lengths.
+        Self-attention without the pre-gate takes the ring
+        (``parallel/ring.py``; at 4096 positions and up with dropout active
+        its attention-probability dropout site is dropped, as on the flash
+        route), or with dropout active below that the keys gathered from the
+        seq group and the one-device route's masks (the ``attention_core``
+        layout, or the ``tiny`` one at 32 positions and below), each rank
+        keeping its query rows; cross-attention over at most 256 queries
+        merges its softmax statistics (``philox``: the one-device route is a
+        kernel's, so its dropout counter is drawn). Returns (out_h
+        [B, H, N, D], the ssq [B, N] or None, the projected queries)."""
+        from multimodal_path_omic_tpu_torch.parallel import comm
+        from multimodal_path_omic_tpu_torch.parallel.ring import (
+            ring_self_attention,
+            sequence_parallel_cross_attention,
+        )
+
+        mesh, heads = self.mesh, self.num_heads
+        want_ssq = need_weights == "ssq"
+        if need_weights is True:
+            raise NotImplementedError("attention maps are exported at mesh size 1, not over a "
+                                      "seq mesh axis")
+        if query is key and key is value:
+            q, k, v = self._proj(query, 0, 3).chunk(3, dim=-1)
+        else:
+            q = self._proj(query, 0, 1)
+            k = self._proj(key, 1, 2)
+            v = self._proj(value, 2, 3)
+        qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+        if query is key and not self.pre_gate and not want_ssq:
+            if rate == 0.0 or n >= 4096:
+                return ring_self_attention(qh, kh, vh, key_mask, mesh), None, q
+            group = mesh.seq_group
+            kg, vg = comm.gather_over(kh, group, 2), comm.gather_over(vh, group, 2)
+            mask = None if key_mask is None else comm.all_gather(key_mask, group, 1)
+            scores = torch.matmul(qh / math.sqrt(qh.shape[-1]), kg.transpose(-1, -2))
+            w = masked_softmax(scores, None if mask is None else mask[:, None, None, :])
+            b, _, nl, mg = w.shape
+            if n <= 32 and m_len <= 32:  # tiny_attention's [B, N, M, H] layout
+                keep, kp = fast_keep_mask(generator, rate, (b, nl, mg, heads), w.device, seq_dim=1)
+                keep = keep.permute(0, 3, 1, 2)
+            else:
+                keep, kp = fast_keep_mask(generator, rate, w.shape, w.device, seq_dim=2)
+            w = torch.where(keep, w / kp, torch.zeros_like(w))
+            return torch.matmul(w, vg), None, q
+        if query is not key and query.shape[1] <= 256 and (not want_ssq or heads == 1):
+            res = sequence_parallel_cross_attention(
+                qh, kh, vh, key_mask, mesh, pre_gate=self.pre_gate, dropout_rate=rate,
+                generator=generator, philox=philox, need_ssq=want_ssq)
+            if want_ssq:
+                return res[0].to(q.dtype), res[1][:, 0], q
+            return res.to(q.dtype), None, q
+        raise NotImplementedError(
+            f"no seq-mesh route for this attention (self={query is key}, pre_gate="
+            f"{self.pre_gate}, queries {query.shape[1]}, heads {heads}, need_weights="
+            f"{need_weights!r})")
 
     def _proj(self, x, lo: int, hi: int):
         e = self.embed_dim
@@ -205,7 +280,13 @@ class MultiheadAttention(nn.Module):
         dt = compute_dtype_of(self)
         rate = self.dropout_rate if self.training else 0.0
         self_attn = query is key
-        n, m_len = query.shape[1], key.shape[1]
+        mesh = self.mesh
+        on_seq = seq_sharded(self)
+        # a seq mesh splits the patch axis: routes are chosen by the global
+        # lengths, as the one-device call chooses them
+        n, m_len = query.shape[1], key.shape[1] * (mesh.seq if on_seq else 1)
+        if on_seq and self_attn:
+            n = m_len
         lean_shape = (self.lean and heads == 1 and not self_attn and key is value
                       and n <= 32 and m_len > 32)
         lean = lean_shape and not self.pre_gate
@@ -216,6 +297,18 @@ class MultiheadAttention(nn.Module):
         lean_v = (lean_shape and self.pre_gate and need_weights is not True
                   and takes("fuse-K", fused_k_supports, query.device, n, e, key.shape[-1],
                             m_len, train=train_form, dtype=dt))
+        fused = (not self_attn and m_len > 32
+                 and (need_weights is False or (want_ssq and heads == 1))
+                 and takes("plain-K", plain_k_supports, query.device, n, e // heads, m_len,
+                           values=True, dtype=dt))
+        if on_seq:
+            out_h, ssq, q = self._seq_forward(query, key, value, key_mask, need_weights, rate,
+                                              generator, n, m_len,
+                                              philox=(lean_v or fused) and not lean)
+            out = self.out_proj(_merge_heads(out_h))
+            second = ssq if want_ssq else None
+            return (out, second, q) if return_projected_q else (out, second)
+        data_sharded = sharded_eligible(mesh, query.shape[0])
         out_h = weights = ssq = None
         if lean:
             q = self._proj(query, 0, 1)
@@ -237,7 +330,10 @@ class MultiheadAttention(nn.Module):
             if rate > 0.0:  # the kernel's dropout seed, drawn per call
                 seed = torch.randint(0, 2**31 - 1, (1,), generator=require_generator(generator),
                                      device=query.device, dtype=torch.int32)
-            res = fused_attention_leank(
+            leank = fused_attention_leank
+            if data_sharded:  # this rank's rows: the global row index in the dropout counter
+                leank = functools.partial(fused_attention_leank_sharded, mesh=mesh)
+            res = leank(
                 q, cast(key, self).contiguous(), wk, cast(self.in_proj_bias[e:2 * e], self),
                 key_mask,
                 dropout_rate=rate, dropout_seed=seed, need_ssq=want_ssq, need_sumw=True,
@@ -262,13 +358,12 @@ class MultiheadAttention(nn.Module):
                                           generator=generator)
             else:
                 qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-                if (not self_attn and m_len > 32
-                        and (need_weights is False or (want_ssq and heads == 1))
-                        and takes("plain-K", plain_k_supports, q.device, n, e // heads, m_len,
-                                  values=True, dtype=dt)):
-                    res = fused_attention(qh, kh, vh, key_mask, pre_gate=self.pre_gate,
-                                          dropout_rate=rate, generator=generator,
-                                          need_ssq=want_ssq)
+                if fused:
+                    attend = fused_attention
+                    if data_sharded:
+                        attend = functools.partial(fused_attention_sharded, mesh=mesh)
+                    res = attend(qh, kh, vh, key_mask, pre_gate=self.pre_gate,
+                                 dropout_rate=rate, generator=generator, need_ssq=want_ssq)
                     out_h, ssq = (res[0], res[1][:, 0]) if want_ssq else (res, None)
                 elif (need_weights is False and not self.pre_gate and self_attn
                         and key is value and n > 32 and (rate == 0.0 or n >= 4096)):
@@ -277,7 +372,8 @@ class MultiheadAttention(nn.Module):
                     else:  # no kernel instance (JAX: _xla_fused); the site dropped alike
                         out_h, _ = attention_core(qh, kh, vh, key_mask, pre_gate=False,
                                                   need_weights=False)
-                elif need_weights is True and not self_attn and rate == 0.0:
+                elif need_weights is True and not self_attn and rate == 0.0 and mesh is None:
+                    # the export passes run at mesh size 1, as in JAX
                     out_h, weights = attention_with_weights(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate
                     )

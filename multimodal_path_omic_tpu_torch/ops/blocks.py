@@ -13,11 +13,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_path_omic_tpu_torch.ops.layers import (
+    NEG_INF,
     AlphaDropout,
     FastDropout,
     TorchLinear,
     cast,
     masked_softmax,
+    seq_sharded,
 )
 from multimodal_path_omic_tpu_torch.ops.milpool import fused_gated_mil_pool
 from multimodal_path_omic_tpu_torch.ops.milpool import supports as milpool_supports
@@ -57,20 +59,31 @@ class GatedMILPool(nn.Module):
     kernel) and bfloat16 activations (a bfloat16 compute dtype; the kernel
     is float32-only, on the TPU too: one checkpoint scores alike in every
     bucket) take the eager branch.
+
+    On a mesh (``layers.set_mesh``) the kernel is off, as in JAX
+    (``blocks.py:99``). On a seq mesh the patch axis is split: the masked
+    softmax over it merges across the seq group (in JAX GSPMD does it): the
+    local maximum, its maximum over the group, then the sums of exp and of
+    the weighted rows over the group; the raw scores stay local.
     """
+
+    mesh = None  # this rank's parallel.mesh.Mesh, where the pool runs over the patch axis
 
     def __init__(self, dim: int, dropout_rate: float = 0.25):
         super().__init__()
         self.attention_head = AttentionNetGated(dim, dim, 1, dropout_rate)
         self.rho = TorchLinear(dim, dim)
-        self.drop = FastDropout(dropout_rate)
+        self.drop = FastDropout(dropout_rate, over_patches=False)  # on the pooled [B, D]
 
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         head = self.attention_head
-        if (not self.training and x.shape[1] > 32 and x.dtype == torch.float32
+        if seq_sharded(self):
+            pooled, a = self._seq_pool(x, mask, generator)
+        elif (self.mesh is None and not self.training and x.shape[1] > 32
+                and x.dtype == torch.float32
                 and milpool_supports(x.shape[2], head.attention_a.weight.shape[0], x.shape[1])):
             pooled, s = fused_gated_mil_pool(
                 x, mask, head.attention_a.weight.t(), head.attention_a.bias,
@@ -85,6 +98,19 @@ class GatedMILPool(nn.Module):
             pooled = torch.matmul(weights, h)[:, 0, :]  # [B, D]
         pooled = self.drop(F.relu(self.rho(pooled)), generator)
         return pooled, a
+
+    def _seq_pool(self, x, mask, generator):
+        from multimodal_path_omic_tpu_torch.parallel import comm
+
+        group = self.mesh.seq_group
+        scores, h = self.attention_head(x, generator)
+        a = scores.transpose(-1, -2)  # [B, 1, Ml]
+        am = a if mask is None else torch.where(mask[:, None, :], a, torch.full_like(a, NEG_INF))
+        m = comm.max_over(am.amax(dim=-1, keepdim=True), group)
+        e = torch.exp(am - m)
+        l_sum = comm.sum_over(e.sum(dim=-1, keepdim=True), group)
+        pooled = comm.sum_over(torch.matmul(e, h), group) / l_sum
+        return pooled[:, 0, :], a
 
 
 class WSIEncoder(nn.Module):

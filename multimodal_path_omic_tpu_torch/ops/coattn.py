@@ -86,7 +86,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_path_omic_tpu_torch.ops import kernels
-from multimodal_path_omic_tpu_torch.ops.layers import round_bf16
+from multimodal_path_omic_tpu_torch.ops.layers import require_generator, round_bf16
 
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # one warp per query in the kernels
@@ -221,16 +221,21 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def dropout_bits(seed: torch.Tensor, shape, device) -> torch.Tensor:
+def dropout_bits(seed: torch.Tensor, shape, device, bag0: int = 0, key0: int = 0
+                 ) -> torch.Tensor:
     """[B, N, M] int64 attention-dropout bits of element (b, n, key): word 0
-    of Philox4x32-10 at counter (key, n, b, 0) under key (seed, 0), as
-    ``dropout_bits`` in csrc/coattn_common.cuh computes it. ``seed``: one
-    int32 (a [1] tensor)."""
+    of Philox4x32-10 at counter (key0 + key, n, bag0 + b, 0) under key
+    (seed, 0), as ``dropout_bits`` in csrc/coattn_common.cuh computes it.
+    ``seed``: one int32 (a [1] tensor). ``bag0`` and ``key0``: the global
+    indices of the call's bag 0 and key 0 (a rank of a data-parallel mesh
+    passes its first row's, of a sequence-parallel one its first patch's:
+    ``parallel/ring.py``), so that every rank draws the one-device bits."""
     b, n, m = shape
     ar = [torch.arange(x, device=device, dtype=torch.int64) for x in (b, n, m)]
     k0 = seed.to(device=device, dtype=torch.int64).reshape(()) & _U32
     return philox4x32_10(
-        (ar[2][None, None, :], ar[1][None, :, None], ar[0][:, None, None], 0), (k0, 0)
+        ((ar[2] + key0)[None, None, :], ar[1][None, :, None], (ar[0] + bag0)[:, None, None], 0),
+        (k0, 0)
     )[0]
 
 
@@ -240,7 +245,7 @@ def dropout_threshold(rate: float) -> int:
 
 
 def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: bool,
-                             rt=None):
+                             rt=None, bag0: int = 0):
     """The plain-K form with values, training form: (o, l, m, ssq, sumw) with
     attention dropout at ``rate`` from :func:`dropout_bits` (``seed`` is read
     only when rate > 0); l sums the undropped weights, o, ssq and sumw use
@@ -258,24 +263,25 @@ def coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate: float, *, pre_gate: 
     l = p.sum(dim=-1)
     w = p * _inv(l)[..., None]
     if rate > 0.0:
-        keep = dropout_bits(seed, w.shape, w.device) >= dropout_threshold(rate)
+        keep = dropout_bits(seed, w.shape, w.device, bag0) >= dropout_threshold(rate)
         w = torch.where(keep, w * (1.0 / (1.0 - rate)), torch.zeros_like(w))
     return torch.matmul(w, v).to(dt), l, m, (w * w).sum(dim=-1), w.sum(dim=-1)
 
 
 def coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw, *,
-                             pre_gate: bool):
+                             pre_gate: bool, bag0: int = 0):
     """(dq, dk, dv): autograd through the plain training form, with the
     cotangents of o, ssq and sumw; each in its input's type (bfloat16: the
     float32 gradients rounded once)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o, _, _, ssq, sumw = coattn_fwd_plain_k_plain(*ins, key_mask, seed, rate,
-                                                      pre_gate=pre_gate)
+                                                      pre_gate=pre_gate, bag0=bag0)
         return torch.autograd.grad((o, ssq, sumw), ins, (dout, dssq, dsumw))
 
 
-def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
+def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float,
+                                   bag0: int = 0):
     """The fuse-K training form: the pre-gated plain-K form on
     k = kv wk + bk with the raw kv as values. bfloat16 inputs: float32 math,
     k and the tanh rounded to bfloat16, o returned in bfloat16."""
@@ -285,17 +291,18 @@ def coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate: float):
     if rt is not None:
         k = rt(k)
     o, l, m, ssq, sumw = coattn_fwd_plain_k_plain(q, k, kv, key_mask, seed, rate,
-                                                  pre_gate=True, rt=rt)
+                                                  pre_gate=True, rt=rt, bag0=bag0)
     return o.to(dt), l, m, ssq, sumw
 
 
-def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw):
+def coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw,
+                             bag0: int = 0):
     """(dq, dkv, dwk, dbk): autograd through the plain training form, with
     the cotangents of o, ssq and sumw; each in its input's type (bfloat16:
     the float32 gradients rounded once)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, kv, wk, bk)]
-        o, _, _, ssq, sumw = coattn_fwd_fused_k_train_plain(*ins, key_mask, seed, rate)
+        o, _, _, ssq, sumw = coattn_fwd_fused_k_train_plain(*ins, key_mask, seed, rate, bag0)
         return torch.autograd.grad((o, ssq, sumw), ins, (dout, dssq, dsumw))
 
 
@@ -432,15 +439,17 @@ def _dropout_args(seed, rate, device):
 
 def coattn_fwd_fused_k_train(
     q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
-    key_mask: Optional[torch.Tensor], seed: torch.Tensor, rate: float,
+    key_mask: Optional[torch.Tensor], seed: torch.Tensor, rate: float, bag0: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """The training form of the fuse-K forward: shapes as
     :func:`coattn_fwd_fused_k`, plus ``seed`` (a [1] int32 tensor on the
-    same device) and the attention-dropout ``rate`` -> (o [B, N, F], l, m,
-    ssq, sumw [B, N]). Kernel: (E, F) in ``FUSED_K_TRAIN_EF``, N <= 8,
-    float32; or bfloat16 at (E, F) in ``BF16_EF`` (o in bfloat16)."""
+    same device), the attention-dropout ``rate`` and ``bag0``, the global
+    index of bag 0 in the dropout counter (:func:`dropout_bits`) -> (o
+    [B, N, F], l, m, ssq, sumw [B, N]). Kernel: (E, F) in
+    ``FUSED_K_TRAIN_EF``, N <= 8, float32; or bfloat16 at (E, F) in
+    ``BF16_EF`` (o in bfloat16)."""
     if q.device.type == "cpu":
-        return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate)
+        return coattn_fwd_fused_k_train_plain(q, kv, wk, bk, key_mask, seed, rate, bag0)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
@@ -456,7 +465,7 @@ def coattn_fwd_fused_k_train(
         o.data_ptr(), l.data_ptr(), m.data_ptr(), ssq.data_ptr(), sumw.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(), sq_part.data_ptr(), flags.data_ptr(),
         units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e, blocks, 1.0 / math.sqrt(e),
-        thresh, keep_scale, kernels.stream(dev),
+        thresh, keep_scale, bag0, kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_fused_k_train" + sfx)
     LAUNCH_COUNTS["coattn_fwd_fused_k_train" + sfx] += 1
@@ -467,7 +476,7 @@ def coattn_bwd_fused_k(
     q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
     key_mask: Optional[torch.Tensor], seed: torch.Tensor, rate: float,
     dout: torch.Tensor, l: torch.Tensor, m: torch.Tensor, di: torch.Tensor,
-    dssq: torch.Tensor, dsumw: torch.Tensor,
+    dssq: torch.Tensor, dsumw: torch.Tensor, bag0: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Backward of :func:`coattn_fwd_fused_k_train` -> (dq [B, N, E],
     dkv [B, M, F], dwk [F, E], dbk [E]), given the cotangents dout [B, N, F],
@@ -478,7 +487,8 @@ def coattn_bwd_fused_k(
     ``BF16_EF`` (dout, dq, dkv in bfloat16; dwk, dbk summed in float32 and
     cast to wk's type, as ``_coattn_fk_bwd`` casts them)."""
     if q.device.type == "cpu":
-        return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw)
+        return coattn_bwd_fused_k_plain(q, kv, wk, bk, key_mask, seed, rate, dout, dssq, dsumw,
+                                        bag0)
     b, n, e, m_len, f, mask_ptr = _fused_k_checks(q, kv, wk, bk, key_mask, train=True)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
@@ -507,7 +517,7 @@ def coattn_bwd_fused_k(
         dsumw.data_ptr(), dq.data_ptr(), dkv.data_ptr(), dwk.data_ptr(), dbk.data_ptr(),
         dq_part.data_ptr(), dwk_part.data_ptr(), dbk_part.data_ptr(), dk_scratch.data_ptr(),
         flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, f, e,
-        sms, wsplits, 1.0 / math.sqrt(e), thresh, keep_scale, kernels.stream(dev),
+        sms, wsplits, 1.0 / math.sqrt(e), thresh, keep_scale, bag0, kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_fused_k" + sfx)
     LAUNCH_COUNTS["coattn_bwd_fused_k" + sfx] += 1
@@ -520,10 +530,10 @@ class FusedKTrain(torch.autograd.Function):
     di is computed here in plain torch, as ``_coattn_fk_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, kv, wk, bk, key_mask, seed, rate):
-        o, l, m, ssq, sumw = coattn_fwd_fused_k_train(q, kv, wk, bk, key_mask, seed, rate)
+    def forward(ctx, q, kv, wk, bk, key_mask, seed, rate, bag0):
+        o, l, m, ssq, sumw = coattn_fwd_fused_k_train(q, kv, wk, bk, key_mask, seed, rate, bag0)
         ctx.save_for_backward(q, kv, wk, bk, key_mask, seed, o, l, m, ssq, sumw)
-        ctx.rate = rate
+        ctx.rate, ctx.bag0 = rate, bag0
         return o, ssq, sumw
 
     @staticmethod
@@ -532,8 +542,8 @@ class FusedKTrain(torch.autograd.Function):
         dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
         di = (o.float() * dout.float()).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
         grads = coattn_bwd_fused_k(q, kv, wk, bk, key_mask, seed, ctx.rate, dout, l, m,
-                                   di, dssq, dsumw)
-        return (*grads, None, None, None)
+                                   di, dssq, dsumw, ctx.bag0)
+        return (*grads, None, None, None, None)
 
 
 def _plain_k_checks(q, k, *, values: bool = False):
@@ -655,19 +665,21 @@ def _plain_kv_checks(q, k, v, key_mask):
 def coattn_fwd_plain_k(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
     seed: Optional[torch.Tensor] = None, rate: float = 0.0, *, pre_gate: bool,
-    train: bool = True,
+    train: bool = True, bag0: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """The plain-K forward with values: q [B, N, D], k, v [B, M, D], key_mask
     [B, M] bool -> (o [B, N, D], l, m, ssq, sumw [B, N]). ``train`` selects
     the kernel's training form (dropout at ``rate`` keyed by ``seed``, a [1]
-    int32 tensor on the same device; ssq and sumw of the dropped weights);
+    int32 tensor on the same device, ``bag0`` the global index of bag 0;
+    ssq and sumw of the dropped weights);
     the eval form takes no dropout and returns None for ssq and sumw.
     Kernel: D in {128, 256, 512}, N <= 8, float32 or bfloat16 (q, k, v and o
     in bfloat16; l, m, ssq, sumw float32)."""
     if not train and rate > 0.0:
         raise ValueError("the eval form takes no dropout")
     if q.device.type == "cpu":
-        out = coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate, pre_gate=pre_gate)
+        out = coattn_fwd_plain_k_plain(q, k, v, key_mask, seed, rate, pre_gate=pre_gate,
+                                       bag0=bag0)
         return out if train else (*out[:3], None, None)
     b, n, d, m_len, blocks, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
     dev = q.device
@@ -692,7 +704,7 @@ def coattn_fwd_plain_k(
         o.data_ptr(), l.data_ptr(), m.data_ptr(), side_ptrs[0], side_ptrs[1],
         o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2], flags.data_ptr(),
         units.data_ptr(), offsets.data_ptr(), b, n, m_len, d, int(pre_gate), blocks,
-        int(train), 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
+        int(train), 1.0 / math.sqrt(d), thresh, keep_scale, bag0, kernels.stream(dev),
     )
     kernels.check(err, "coattn_fwd_plain_k" + sfx)
     LAUNCH_COUNTS["coattn_plain" + sfx] += 1
@@ -703,6 +715,7 @@ def coattn_bwd_plain_k(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
     seed: torch.Tensor, rate: float, dout: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
     di: torch.Tensor, dssq: torch.Tensor, dsumw: torch.Tensor, *, pre_gate: bool,
+    bag0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`coattn_fwd_plain_k` -> (dq [B, N, D], dk, dv
     [B, M, D]), given the cotangents dout [B, N, D], dssq, dsumw [B, N], the
@@ -712,7 +725,7 @@ def coattn_bwd_plain_k(
     bfloat16."""
     if q.device.type == "cpu":
         return coattn_bwd_plain_k_plain(q, k, v, key_mask, seed, rate, dout, dssq, dsumw,
-                                        pre_gate=pre_gate)
+                                        pre_gate=pre_gate, bag0=bag0)
     b, n, d, m_len, blocks, mask_ptr = _plain_kv_checks(q, k, v, key_mask)
     dev = q.device
     thresh, keep_scale = _dropout_args(seed, rate, dev)
@@ -730,7 +743,8 @@ def coattn_bwd_plain_k(
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
         flags.data_ptr(), units.data_ptr(), offsets.data_ptr(), b, n, m_len, d,
-        int(pre_gate), blocks, 1.0 / math.sqrt(d), thresh, keep_scale, kernels.stream(dev),
+        int(pre_gate), blocks, 1.0 / math.sqrt(d), thresh, keep_scale, bag0,
+        kernels.stream(dev),
     )
     kernels.check(err, "coattn_bwd_plain_k" + sfx)
     LAUNCH_COUNTS["coattn_plain_bwd" + sfx] += 1
@@ -743,11 +757,11 @@ class PlainKAttention(torch.autograd.Function):
     computed here in plain torch, as ``_coattn_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed, rate, pre_gate):
+    def forward(ctx, q, k, v, key_mask, seed, rate, pre_gate, bag0):
         o, l, m, ssq, sumw = coattn_fwd_plain_k(q, k, v, key_mask, seed, rate,
-                                                pre_gate=pre_gate)
+                                                pre_gate=pre_gate, bag0=bag0)
         ctx.save_for_backward(q, k, v, key_mask, seed, o, l, m, ssq, sumw)
-        ctx.rate, ctx.pre_gate = rate, pre_gate
+        ctx.rate, ctx.pre_gate, ctx.bag0 = rate, pre_gate, bag0
         return o, ssq, sumw
 
     @staticmethod
@@ -756,8 +770,8 @@ class PlainKAttention(torch.autograd.Function):
         dout, dssq, dsumw = (t.contiguous() for t in (dout, dssq, dsumw))
         di = (o.float() * dout.float()).sum(dim=-1) + 2.0 * dssq * ssq + dsumw * sumw
         grads = coattn_bwd_plain_k(q, k, v, key_mask, seed, ctx.rate, dout, l, m, di,
-                                   dssq, dsumw, pre_gate=ctx.pre_gate)
-        return (*grads, None, None, None, None)
+                                   dssq, dsumw, pre_gate=ctx.pre_gate, bag0=ctx.bag0)
+        return (*grads, None, None, None, None, None)
 
 
 # =============================================================================
@@ -769,7 +783,7 @@ def fused_attention_leank(
     q: torch.Tensor, kv: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None, *,
     dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
-    need_ssq: bool = False, need_sumw: bool = False,
+    need_ssq: bool = False, need_sumw: bool = False, bag0: int = 0,
 ):
     """Pre-gated attention from the raw key-side input, K projected
     in-kernel and the raw ``kv`` as values (the caller applies the V
@@ -778,7 +792,8 @@ def fused_attention_leank(
     q [B, N, E], kv [B, M, F], wk [F, E], bk [E] -> o [B, N, F], extended to
     a tuple by ``need_ssq`` (ssq [B, N]) then ``need_sumw`` (sumw [B, N]).
     ``dropout_rate`` > 0 drops attention weights with bits keyed by
-    ``dropout_seed`` (a [1] int32 tensor on q's device). With dropout, ssq,
+    ``dropout_seed`` (a [1] int32 tensor on q's device), bag ``b`` drawing
+    the bits of bag ``bag0 + b`` (:func:`dropout_bits`). With dropout, ssq,
     or a gradient to take, the training form runs (:class:`FusedKTrain`:
     training forward + backward kernels); otherwise the eval kernel. On
     CUDA the kernels run at every shape they support (the TPU-tuned M
@@ -790,7 +805,7 @@ def fused_attention_leank(
                 raise ValueError("dropout_rate > 0 requires a dropout_seed")
             dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         o, ssq, sumw = FusedKTrain.apply(q, kv, wk, bk, key_mask, dropout_seed,
-                                         float(dropout_rate))
+                                         float(dropout_rate), int(bag0))
     else:
         o, _, _, sumw = coattn_fwd_fused_k(q, kv, wk, bk, key_mask)
         ssq = None
@@ -802,15 +817,16 @@ def coattention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None, *, pre_gate: bool = False,
     dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
-    need_ssq: bool = False, need_sumw: bool = False,
+    need_ssq: bool = False, need_sumw: bool = False, bag0: int = 0,
 ):
     """Few-query attention over projected keys and values: q [B, N, D], k, v
     [B, M, D], key_mask [B, M] bool -> o [B, N, D], extended to a tuple by
     ``need_ssq`` (ssq [B, N], the per-row sum of squares of the final
     weights) then ``need_sumw`` (sumw [B, N], their per-row sum).
     ``dropout_rate`` > 0 drops attention weights with bits keyed by
-    ``dropout_seed`` (a [1] int32 tensor on q's device). With dropout, a side
-    output, or a gradient to take, the training form runs
+    ``dropout_seed`` (a [1] int32 tensor on q's device), bag ``b`` drawing
+    the bits of bag ``bag0 + b``. With dropout, a side output, or a gradient
+    to take, the training form runs
     (:class:`PlainKAttention`: forward + backward kernels); otherwise the
     eval form."""
     wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
@@ -820,7 +836,7 @@ def coattention(
                 raise ValueError("dropout_rate > 0 requires a dropout_seed")
             dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         o, ssq, sumw = PlainKAttention.apply(q, k, v, key_mask, dropout_seed,
-                                             float(dropout_rate), bool(pre_gate))
+                                             float(dropout_rate), bool(pre_gate), int(bag0))
     else:
         o = coattn_fwd_plain_k(q, k, v, key_mask, pre_gate=pre_gate, train=False)[0]
         ssq = sumw = None
@@ -832,15 +848,17 @@ def fused_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None, *, pre_gate: bool = False,
     dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
-    need_ssq: bool = False, need_sumw: bool = False,
+    need_ssq: bool = False, need_sumw: bool = False, bag0: int = 0,
 ):
     """Masked (pre-gated) few-query attention on projected heads without the
     scores in device memory: q [B, H, N, D], k, v [B, H, M, D], key_mask
     [B, M] -> [B, H, N, D], extended to a tuple by ``need_ssq`` then
     ``need_sumw`` ([B, H, N] each). Heads fold into the batch, the mask is
     repeated per head, and the kernel's dropout seed is drawn per call from
-    ``generator``. On CUDA the kernel runs at every shape it supports (the
-    TPU-tuned M cut-overs are not carried over)."""
+    ``generator``; ``bag0``: the global index of row 0 (a data-parallel
+    rank's first row, :func:`fused_attention_sharded`). On CUDA the kernel
+    runs at every shape it supports (the TPU-tuned M cut-overs are not
+    carried over)."""
     b, h, n, d = q.shape
     m_len = k.shape[2]
     qf, kf, vf = (t.reshape(b * h, t.shape[2], d).contiguous() for t in (q, k, v))
@@ -852,10 +870,11 @@ def fused_attention(
         if generator is None:
             raise ValueError("attention dropout draws its seed from an explicit "
                              "torch.Generator: pass generator=")
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=q.device,
-                             dtype=torch.int32)
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=require_generator(generator),
+                             device=q.device, dtype=torch.int32)
     out = coattention(qf, kf, vf, mf, pre_gate=pre_gate, dropout_rate=dropout_rate,
-                      dropout_seed=seed, need_ssq=need_ssq, need_sumw=need_sumw)
+                      dropout_seed=seed, need_ssq=need_ssq, need_sumw=need_sumw,
+                      bag0=bag0 * h)
     if need_ssq or need_sumw:
         return tuple([out[0].reshape(b, h, n, d)] + [e.reshape(b, h, n) for e in out[1:]])
     return out.reshape(b, h, n, d)
@@ -900,3 +919,45 @@ def attention_with_weights(
     # float32 weights against v in float32, out in q's type (JAX: the einsum
     # promotes, then astype(q.dtype))
     return torch.matmul(w, v.float()).to(q.dtype), w
+
+
+# =============================================================================
+# Data-parallel meshes: per-rank local calls (JAX: the shard_map compositions)
+# =============================================================================
+
+
+def sharded_eligible(mesh, batch: int) -> bool:
+    """Whether a call of ``batch`` local rows on ``mesh`` takes the per-rank
+    wrappers below: a data-parallel mesh (data axis > 1, seq axis 1; a
+    sharded patch axis goes through ``parallel/ring.py`` instead) and at
+    least one row. (JAX ``sharded_eligible`` asks for the global batch to
+    split over the data axis; here each rank holds its split already.)"""
+    return mesh is not None and mesh.data > 1 and mesh.seq == 1 and batch >= 1
+
+
+def fused_attention_sharded(q, k, v, key_mask=None, *, mesh, pre_gate: bool = False,
+                            dropout_rate: float = 0.0,
+                            generator: Optional[torch.Generator] = None,
+                            need_ssq: bool = False, need_sumw: bool = False):
+    """:func:`fused_attention` on this rank's rows of a data-parallel mesh:
+    attention is batch-independent, so every rank runs the same kernels on
+    its local [B/data, ...] shard with no collective. The dropout counter
+    takes the global row index (``bag0`` = d * B/data), so every rank draws
+    the bits the one-device call draws for its rows (JAX folds the data
+    index into its key instead, ``coattn.py:1168-1169``, and draws other
+    masks)."""
+    return fused_attention(q, k, v, key_mask, pre_gate=pre_gate, dropout_rate=dropout_rate,
+                           generator=generator, need_ssq=need_ssq, need_sumw=need_sumw,
+                           bag0=mesh.d * q.shape[0])
+
+
+def fused_attention_leank_sharded(q, kv, wk, bk, key_mask=None, *, mesh,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: Optional[torch.Tensor] = None,
+                                  need_ssq: bool = False, need_sumw: bool = False):
+    """:func:`fused_attention_leank` on this rank's rows of a data-parallel
+    mesh (the projection weights replicated), with the global row index in
+    the dropout counter, as :func:`fused_attention_sharded`."""
+    return fused_attention_leank(q, kv, wk, bk, key_mask, dropout_rate=dropout_rate,
+                                 dropout_seed=dropout_seed, need_ssq=need_ssq,
+                                 need_sumw=need_sumw, bag0=mesh.d * q.shape[0])

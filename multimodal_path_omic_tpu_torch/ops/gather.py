@@ -67,3 +67,24 @@ def gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 take_rows = gather_rows  # the JAX package's name for the cached step's gather
+
+
+def sharded_supported(pool: torch.Tensor, idx: torch.Tensor, mesh) -> bool:
+    """Whether the kernel takes the gather of a mesh rank's cache slice
+    (``data/device_cache.py``: [N, bucket / mesh size, D], the patch axis
+    split over every rank): rows of a multiple of 16 bytes, 1 to
+    ``MAX_ROWS`` indices."""
+    if pool.dim() != 3 or idx.dim() != 1:
+        return False
+    row_bytes = pool.shape[1] * pool.shape[2] * pool.element_size()
+    return (pool.dtype in POOL_DTYPES and row_bytes % 16 == 0 and pool.shape[0] >= 1
+            and 1 <= idx.shape[0] <= MAX_ROWS)
+
+
+def take_rows_sharded(pool: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """``pool[idx]`` over this rank's patch slice of every bag (JAX
+    ``take_rows_sharded``): the same kernel on the local [N, bucket / mesh
+    size, D] pool with the whole batch's indices, no collective; the
+    batch's rows and patches then move to their ranks in one all-to-all
+    (``parallel/mesh.py::reshard_cache_rows``)."""
+    return gather_rows(pool, idx)

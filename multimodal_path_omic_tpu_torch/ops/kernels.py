@@ -41,15 +41,15 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "coattn": {
         "mpo_coattn_fwd_fused_k": [_P] * 14 + [_I] * 6 + [_F, _P],
-        "mpo_coattn_fwd_fused_k_train": [_P] * 17 + [_I] * 6 + [_F, _U, _F, _P],
+        "mpo_coattn_fwd_fused_k_train": [_P] * 17 + [_I] * 6 + [_F, _U, _F, _U, _P],
         "mpo_coattn_stats": [_P] * 9 + [_I] * 6 + [_F, _P],
         "mpo_coattn_weights": [_P] * 9 + [_I] * 7 + [_F, _P],
         "mpo_coattn_tiles": [_P] * 4 + [_I] * 3 + [_P],
-        "mpo_coattn_plain_fwd": [_P] * 16 + [_I] * 7 + [_F, _U, _F, _P],
+        "mpo_coattn_plain_fwd": [_P] * 16 + [_I] * 7 + [_F, _U, _F, _U, _P],
     },
     "coattn_bwd": {
-        "mpo_coattn_bwd_fused_k": [_P] * 23 + [_I] * 7 + [_F, _U, _F, _P],
-        "mpo_coattn_plain_bwd": [_P] * 18 + [_I] * 6 + [_F, _U, _F, _P],
+        "mpo_coattn_bwd_fused_k": [_P] * 23 + [_I] * 7 + [_F, _U, _F, _U, _P],
+        "mpo_coattn_plain_bwd": [_P] * 18 + [_I] * 6 + [_F, _U, _F, _U, _P],
     },
 }
 # the bfloat16 instances: the same arguments as their float32 entry points

@@ -155,51 +155,121 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(dt)
 
 
-def fast_keep_mask(generator: torch.Generator, rate: float, shape, device):
+class ShardedDraws:
+    """The dropout generator of one rank of a mesh (``parallel/mesh.py``):
+    every draw is made at the global batch's shape and this rank's slice is
+    kept, rows by its data position and, where the site names its patch
+    axis (``seq_dim``), patches by its seq position. Every rank then draws
+    the masks a one-device step draws for the same rows and patches, and
+    the generators of all ranks stay in step (JAX gets this from GSPMD:
+    a partitioned draw is the global draw's slice). ``generator``: the
+    wrapped ``torch.Generator``; ``mesh``: the rank's mesh."""
+
+    def __init__(self, generator: torch.Generator, mesh):
+        self.generator = generator
+        self.mesh = mesh
+
+    def draw(self, fn, shape, seq_dim: Optional[int] = None) -> torch.Tensor:
+        """``fn(global_shape, generator)``'s slice for this rank."""
+        m = self.mesh
+        shape = list(shape)
+        glob = list(shape)
+        glob[0] *= m.data
+        if seq_dim is not None:
+            glob[seq_dim] *= m.seq
+        out = fn(tuple(glob), self.generator)
+        out = out.narrow(0, m.d * shape[0], shape[0])
+        if seq_dim is not None:
+            out = out.narrow(seq_dim, m.s * shape[seq_dim], shape[seq_dim])
+        return out
+
+
+def draw(generator, fn, shape, seq_dim: Optional[int] = None) -> torch.Tensor:
+    """``fn(shape, torch_generator)``; for :class:`ShardedDraws`, the slice
+    of the global draw (``seq_dim``: the patch axis, split over a seq axis)."""
+    if isinstance(generator, ShardedDraws):
+        return generator.draw(fn, shape, seq_dim)
+    return fn(tuple(shape), require_generator(generator))
+
+
+def fast_keep_mask(generator: torch.Generator, rate: float, shape, device,
+                   seq_dim: Optional[int] = None):
     """Dropout keep mask by a uint16 threshold: (keep [bool], keep_prob).
 
     keep iff a 16-bit draw is >= thresh = round(rate * 65536), so
     keep_prob = 1 - thresh / 65536 exactly (the rate itself for multiples of
     1/65536, 0.25 included). A rate that rounds to 1 drops everything and
     returns keep_prob 1.0, so that 1 / keep_prob stays finite. Draws come
-    from ``generator`` (on ``device``'s type), never from a global RNG.
+    from ``generator`` (on ``device``'s type), never from a global RNG; a
+    :class:`ShardedDraws` draws the global mask and keeps this rank's slice
+    (``seq_dim``: the axis that holds the sharded patches, if any).
     """
     thresh = int(round(float(rate) * 65536.0))
     if thresh >= 65536:
         return torch.zeros(shape, dtype=torch.bool, device=device), 1.0
-    bits = torch.randint(0, 65536, tuple(shape), generator=require_generator(generator),
-                         device=device, dtype=torch.int32)
+    bits = draw(generator, lambda s, g: torch.randint(0, 65536, s, generator=g, device=device,
+                                                      dtype=torch.int32), shape, seq_dim)
     return bits >= thresh, 1.0 - thresh / 65536.0
 
 
 def require_generator(generator: Optional[torch.Generator]) -> torch.Generator:
-    """The generator a dropout draw uses; None raises (no global RNG)."""
+    """The ``torch.Generator`` a dropout draw uses (a :class:`ShardedDraws`'
+    own); None raises (no global RNG)."""
     if generator is None:
         raise ValueError("training-mode dropout draws from an explicit torch.Generator: "
                          "pass generator=")
+    if isinstance(generator, ShardedDraws):
+        return generator.generator
     return generator
 
 
+def set_mesh(module: nn.Module, mesh) -> nn.Module:
+    """Set ``mesh`` on ``module`` and every submodule: the modules that run
+    over the patch axis carry the mesh, as the JAX modules carry
+    ``ring_mesh`` (their routes and their dropout sites' patch axis read
+    it). Returns ``module``."""
+    for m in module.modules():
+        m.mesh = mesh
+    return module
+
+
+def seq_sharded(module: nn.Module) -> bool:
+    """Whether ``module`` runs over a patch axis split over a seq mesh axis."""
+    mesh = getattr(module, "mesh", None)
+    return mesh is not None and mesh.seq > 1
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], seq_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout with the uint16-threshold keep mask:
     ``where(keep, x / keep_prob, 0)``; the identity at rate 0."""
     if rate == 0.0:
         return x
-    keep, keep_prob = fast_keep_mask(generator, rate, x.shape, x.device)
+    kw = {} if seq_dim is None else {"seq_dim": seq_dim}
+    keep, keep_prob = fast_keep_mask(generator, rate, x.shape, x.device, **kw)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class FastDropout(nn.Module):
-    """:func:`dropout` in training mode, the identity in eval mode."""
+    """:func:`dropout` in training mode, the identity in eval mode. On a
+    module tree whose patch axis is split over a seq mesh axis
+    (:func:`set_mesh`), the mask is the global one's slice along dim 1 too,
+    unless ``over_patches`` is False (a site after the patch axis is pooled
+    away)."""
 
-    def __init__(self, rate: float):
+    mesh = None
+
+    def __init__(self, rate: float, over_patches: bool = True):
         super().__init__()
         self.rate = float(rate)
+        self.over_patches = over_patches
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(x, self.rate, generator) if self.training else x
+        if not self.training:
+            return x
+        return dropout(x, self.rate, generator,
+                       1 if self.over_patches and seq_sharded(self) else None)
 
 
 class AlphaDropout(FastDropout):

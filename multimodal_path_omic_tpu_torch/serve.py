@@ -18,6 +18,13 @@ the next batch in a prefetch thread while the device scores the current one.
 On the card the eval step is a CUDA graph replay (``train/graphs.py``), one
 graph per batch shape.
 
+On a mesh (``Predictor(..., mesh=)``, or a Trainer's) every rank calls with
+the same bags, stages only its slice of each batch (its rows, of each bag
+its patches) and gets the global batch's outputs (the mesh eval step
+all-gathers them), so every call returns the one-device result on every
+rank. A batch has at least ``data_axis`` rows (``min_rows``): a single bag
+is padded with zero-weight rows (JAX ``serve.py:51-55``).
+
 CLI: ``python -m multimodal_path_omic_tpu_torch.cli predict --config cfg.yaml
 --checkpoint ck --out predictions.csv`` writes one row per slide.
 """
@@ -87,41 +94,46 @@ class Predictor:
                  loss: Optional[str] = None, alpha: float = 0.75,
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
                  device=None, lean: bool = True, need_attention: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh=None):
         ge_mode = is_ge_model(model_name)
         allowed = ("ce",) if ge_mode else LOSSES
         loss = loss or ("ce" if ge_mode else "ces")
         if loss not in allowed:
             raise NotImplementedError(
                 f"loss {loss!r} is not ported for {model_name} (takes {allowed})")
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
         omic_sizes = tuple(int(s) for s in omic_sizes)
         if not ge_mode and not omic_sizes:
             raise ValueError("survival models need omic_sizes (one width per signature)")
         model = build_model(model_name, omic_sizes=omic_sizes,
                             model_size=model_size, fusion=fusion,
                             n_classes=n_classes, wsi_dim=wsi_dim,  # None: the model's own
-                            lean=lean, dtype=dtype)
+                            lean=lean, dtype=dtype, mesh=mesh)
         if params is not None:
             load_jax_params(model, params)
         else:
             seeded_init_(model, seed)
         model = model.to(device).eval()
         eval_step = make_eval_step(model, loss, alpha=alpha, ge_mode=ge_mode,
-                                   need_attention=need_attention, omic_sizes=omic_sizes)
+                                   need_attention=need_attention, omic_sizes=omic_sizes,
+                                   mesh=mesh)
         self._attach(model, eval_step, model_name=model_name, ge_mode=ge_mode, device=device,
-                     omic_sizes=omic_sizes, buckets=buckets, batch_size=batch_size)
+                     omic_sizes=omic_sizes, buckets=buckets, batch_size=batch_size, mesh=mesh)
         self.loss_name, self.alpha, self.need_attention = loss, alpha, bool(need_attention)
 
     def _attach(self, model, eval_step, *, model_name, ge_mode, device, omic_sizes, buckets,
-                batch_size, trainer=None, param_sets=None) -> None:
+                batch_size, trainer=None, param_sets=None, mesh=None) -> None:
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} does not split over the data axis "
+                             f"{mesh.data}")
+        self.mesh = mesh
         self.model_name = model_name
         self.ge_mode = ge_mode
         self.device = device
         self.omic_sizes = tuple(int(s) for s in omic_sizes)
         self.buckets = tuple(sorted(buckets))
         self.batch_size = int(batch_size)
-        self.min_rows = 1  # smallest servable batch (no data-parallel mesh)
+        self.min_rows = 1 if mesh is None else mesh.data  # smallest servable batch
         self.model = model
         self._eval_step = eval_step
         self._t = trainer
@@ -143,7 +155,8 @@ class Predictor:
         self._attach(trainer.model, trainer.eval_step, model_name=c.model.name,
                      ge_mode=trainer.ge_mode, device=trainer.device,
                      omic_sizes=trainer.omic_sizes, buckets=trainer.buckets,
-                     batch_size=trainer.batch_size, trainer=trainer, param_sets=param_sets)
+                     batch_size=trainer.batch_size, trainer=trainer, param_sets=param_sets,
+                     mesh=trainer.mesh)
         self.loss_name, self.alpha, self.need_attention = c.training.loss, c.training.alpha, False
         return self
 
@@ -219,7 +232,8 @@ class Predictor:
         built once per sample count."""
         if n_samples not in self._mc_steps:
             self._mc_steps[n_samples] = make_mc_eval_step(
-                self.model, n_samples, ge_mode=self.ge_mode, omic_sizes=self.omic_sizes)
+                self.model, n_samples, ge_mode=self.ge_mode, omic_sizes=self.omic_sizes,
+                mesh=self.mesh)
         return self._mc_steps[n_samples]
 
     def _mc_augment(self, out, batch, real: int, mc_samples: int, mc_seed: int,
@@ -257,12 +271,15 @@ class Predictor:
         return cols
 
     def _assemble(self, wsi, mask, omics, n_real: int) -> Dict[str, Any]:
+        """A device batch of ``wsi``'s rows (on a mesh, this rank's rows of the
+        global batch, which has ``n_real`` real rows)."""
         dev, n = self.device, wsi.shape[0]
+        row0 = 0 if self.mesh is None else self.mesh.d * n
         batch = {
             "wsi": wsi,
             "mask": mask,
             "label": torch.zeros((n,), dtype=torch.long, device=dev),
-            "weight": (torch.arange(n, device=dev) < n_real).float(),
+            "weight": (torch.arange(row0, row0 + n, device=dev) < n_real).float(),
         }
         if self.ge_mode:
             return batch
@@ -279,6 +296,11 @@ class Predictor:
         for bag in bags:
             if np.ndim(bag) != 2 or np.shape(bag)[1] != self.wsi_dim:
                 raise ValueError(f"a bag must be [patches, {self.wsi_dim}], got {np.shape(bag)}")
+        if self.mesh is not None:  # this rank's rows, of each bag its patches
+            rows, window = self.mesh.rows(n), self.mesh.patches(bucket)
+            bags = [np.asarray(b)[window] for b in bags[rows]]
+            omics_rows = omics_rows[rows]
+            n, bucket = n // self.mesh.data, window.stop - window.start
         arrays = bag_rows(bags, bucket, n)
         if not bags:  # a batch of filler rows only
             arrays.update(rows=[np.zeros((0, self.wsi_dim), np.float32)],
@@ -307,10 +329,12 @@ class Predictor:
 
             kernels.build_all()
         warmed = []
+        data, seq = (1, 1) if self.mesh is None else (self.mesh.data, self.mesh.seq)
         for bucket in sorted(set(buckets or self.buckets)):
             for n in sorted({self.min_rows, self.batch_size}):
-                wsi = torch.zeros((n, bucket, self.wsi_dim), device=self.device)
-                mask = torch.zeros((n, bucket), dtype=torch.bool, device=self.device)
+                # this rank's slice of the batch
+                wsi = torch.zeros((n // data, bucket // seq, self.wsi_dim), device=self.device)
+                mask = torch.zeros(wsi.shape[:2], dtype=torch.bool, device=self.device)
                 rows = [] if self.ge_mode else [
                     [np.zeros(s, np.float32) for s in self.omic_sizes]] * n
                 self.eval_step(self._batch(wsi, mask, rows, 0))["y"].cpu()
@@ -386,22 +410,22 @@ class Predictor:
                                  "built from a Trainer)")
             dataset = self._t.dataset
         extras = gene_expr_extras if self.ge_mode else survival_extras
-        batcher = BucketBatcher(dataset, extras, self.batch_size, self.buckets, shuffle=False)
+        batcher = BucketBatcher(dataset, extras, self.batch_size, self.buckets, shuffle=False,
+                                host_slice=self.mesh)
 
         def staged():
             for indices, bucket in batcher._epoch_plan():
                 b = batcher._make_rows(indices, bucket)
-                yield b, self.stager.stage_batch(b, self.ge_mode)
+                yield indices, self.stager.stage_batch(b, self.ge_mode)
 
         rows: Dict[str, list] = {}
-        for bi, (batch, stage) in enumerate(prefetch(staged())):
+        for bi, (indices, stage) in enumerate(prefetch(staged())):
             dev = stage.take()
-            real = int(batch["weight"].sum())
+            real = len(indices)  # the plan's real rows lead the global batch
             out = self._debatch(self._eval(dev), real)
             if mc_samples > 0:
                 out = self._mc_augment(out, dev, real, mc_samples, mc_seed, fold=bi)
-            out["slide_id"] = np.array(
-                [dataset.slide_id(int(i)) for i in batch["index"][:real]])
+            out["slide_id"] = np.array([dataset.slide_id(int(i)) for i in indices])
             for k, v in out.items():
                 rows.setdefault(k, []).append(v)
         return {k: np.concatenate(v) for k, v in rows.items()}
@@ -415,6 +439,8 @@ class Predictor:
         import pandas as pd
 
         cols = self.predict_dataset(dataset, mc_samples=mc_samples, mc_seed=mc_seed)
+        if self.mesh is not None and self.mesh.rank != 0:  # rank 0 writes the file
+            return path
         flat: Dict[str, Any] = {"slide_id": cols["slide_id"]}
         if "risk" in cols:
             flat["risk"] = cols["risk"]

@@ -484,8 +484,13 @@ def main(argv: Optional[list] = None) -> int:
     from multimodal_path_omic_tpu_torch.config import load_config
     from multimodal_path_omic_tpu_torch.serve import Predictor
 
+    config = load_config(args.config)
+    if config.tpu.data_axis * config.tpu.seq_axis > 1:
+        raise NotImplementedError(
+            "serving on a mesh: an HTTP front over several ranks is not ported (ROADMAP.md "
+            "queue 1, multi-GPU follow-ups: a multi-process serve); serve at mesh size 1")
     predictor = Predictor.from_config(
-        load_config(args.config),
+        config,
         checkpoint=args.checkpoint,
         torch_checkpoint=args.torch_checkpoint,
     )

@@ -49,8 +49,8 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from multimodal_path_omic_tpu_torch.data.quant import dequantize
-from multimodal_path_omic_tpu_torch.ops.gather import take_rows
-from multimodal_path_omic_tpu_torch.ops.layers import compute_dtype_of
+from multimodal_path_omic_tpu_torch.ops.gather import take_rows, take_rows_sharded
+from multimodal_path_omic_tpu_torch.ops.layers import ShardedDraws, compute_dtype_of, draw
 from multimodal_path_omic_tpu_torch.ops.losses import (
     cross_entropy_on_probs,
     l1_reg,
@@ -116,10 +116,14 @@ def dequant_wsi(batch: Dict[str, Any], dtype: Optional[torch.dtype] = None
     return batch
 
 
-def _graphs_for(graphs: Union[bool, StepGraphs]) -> Callable[[torch.device], Any]:
+def _graphs_for(graphs: Union[bool, StepGraphs], mesh=None) -> Callable[[torch.device], Any]:
     """The step's :class:`StepGraphs` on a device (None: eager), resolved
-    once per device on first use."""
+    once per device on first use. A mesh over gloo runs eagerly (a gloo
+    collective cannot be captured; the Trainer says so once); under NCCL the
+    step's collectives are captured with it."""
     by_device: Dict[torch.device, Any] = {}
+    if mesh is not None and mesh.backend == "gloo":
+        graphs = False
 
     def get(device: torch.device):
         if device not in by_device:
@@ -129,12 +133,41 @@ def _graphs_for(graphs: Union[bool, StepGraphs]) -> Callable[[torch.device], Any
     return get
 
 
+def _check_mesh(mesh, loss_name: str) -> None:
+    """Refuse what a mesh cannot run: cox's risk sets span the global
+    batch (not ported to a data mesh)."""
+    if mesh is None:
+        return
+    from multimodal_path_omic_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if loss_name == "cox" and mesh.data > 1:
+        raise NotImplementedError(
+            "the cox loss on a data-parallel mesh (its risk sets span the global batch) is "
+            "not ported (ROADMAP.md queue 1, multi-GPU follow-ups)")
+
+
+def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A per-row output of this rank's rows as the global batch's (the data
+    group's rows in order; identical on every rank)."""
+    from multimodal_path_omic_tpu_torch.parallel import comm
+
+    return x if mesh is None else comm.all_gather(x.contiguous(), mesh.data_group, 0)
+
+
+def _summed(x: torch.Tensor, mesh) -> torch.Tensor:
+    from multimodal_path_omic_tpu_torch.parallel import comm
+
+    return x if mesh is None else comm.all_reduce(x, mesh.data_group)
+
+
 def make_train_step(
     model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *,
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, int8_matmul: bool = False,
-    graphs: Union[bool, StepGraphs] = True,
+    graphs: Union[bool, StepGraphs] = True, mesh=None,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, batch) -> (state, metrics)``, graphed on the card
     (``graphs``, see the module doc). Batch fields (tensors on
@@ -159,11 +192,18 @@ def make_train_step(
 
     An int8 wsi with its ``wsi_scale`` [B, M] is dequantized in the step
     (:func:`dequant_wsi`); ``int8_matmul`` keeps it int8 into the first
-    layer instead (``tpu.int8_matmul``)."""
+    layer instead (``tpu.int8_matmul``).
+
+    ``mesh`` (``parallel/mesh.py``): the batch holds this rank's rows and
+    patches, and the step gives every rank the one-device step's
+    per-parameter gradients (:func:`_train_fn`: the gradient rule); its
+    metrics are the global batch's (risk all-gathered over the data
+    group)."""
+    _check_mesh(mesh, loss_name)
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout, int8_matmul=int8_matmul)
-    get_graphs = _graphs_for(graphs)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh)
+    get_graphs = _graphs_for(graphs, mesh)
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         g = get_graphs(batch["wsi"].device)
@@ -179,8 +219,24 @@ def make_train_step(
 def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alpha: float,
               l1_lambda: float, patch_budget: Optional[int], ge_mode: bool,
               omic_sizes: Optional[Sequence[int]], patch_dropout: float,
-              int8_matmul: bool = False):
-    """The eager train step of :func:`make_train_step`."""
+              int8_matmul: bool = False, mesh=None):
+    """The eager train step of :func:`make_train_step`.
+
+    On a mesh the gradient rule is the JAX step's. Every dropout draw is
+    the global batch's, sliced (``layers.ShardedDraws``), and the kernels'
+    dropout counters take global bag and key indices, so a rank drops what
+    the one-device step drops for its rows (where that step runs its batch
+    in one chunk). Each chunk back-propagates its weighted loss over the
+    seq axis' size: every seq rank holds the same loss after the merges,
+    and a merge's backward sums its incoming gradients over the seq group
+    (``parallel/comm.py``), so the parameters before a merge (the WSI
+    encoder, the k / v projections) get partial gradients and those after
+    it replicated shares. The gradients then sum over the whole world (one
+    all-reduce of one flat buffer; captured in the step's graph under
+    NCCL) and divide by the global weight mass, the data group's sum; the
+    L1 term is added once, after the sum; clipping and decay act on the
+    synchronized gradient (the optimizer)."""
+    seq = mesh.seq if mesh is not None else 1
     # cesar needs only the penalty, not the map: "ssq" keeps the model on the
     # fused kernels
     need_attention = "ssq" if loss_name == "cesar" else False
@@ -189,6 +245,7 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         model.train()
+        gen = state.generator if mesh is None else ShardedDraws(state.generator, mesh)
         if not int8_matmul:
             batch = dequant_wsi(batch, compute_dtype_of(model))
         wsi, wsi_scale = batch["wsi"], batch.get("wsi_scale")
@@ -210,15 +267,15 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
             weight = batch["weight"][sl]
             mask = batch["mask"][sl]
             if patch_dropout:
-                mask = drop_patches(mask, patch_dropout, state.generator)
+                mask = drop_patches(mask, patch_dropout, gen, mesh)
             scale = None if wsi_scale is None else wsi_scale[sl]
             if ge_mode:
-                y, _ = model(wsi[sl], mask, generator=state.generator, wsi_scale=scale)
+                y, _ = model(wsi[sl], mask, generator=gen, wsi_scale=scale)
                 loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
                 attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
             else:
                 out = model(wsi[sl], [o[sl] for o in omics], mask,
-                            need_attention=need_attention, generator=state.generator,
+                            need_attention=need_attention, generator=gen,
                             wsi_scale=scale)
                 loss, attn_loss = survival_loss(
                     loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
@@ -226,17 +283,21 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
                 )
                 risk = -out.survs.detach().sum(dim=1)
             w_i = weight.sum()
-            (loss * w_i).backward()  # scaled by the chunk's weight mass
+            (loss * w_i / seq).backward()  # scaled by the chunk's weight mass
             loss_sum = loss_sum + (loss * w_i).detach()
             attn_sum = attn_sum + (attn_loss * w_i).detach()
             w_sum = w_sum + w_i
             risks.append(risk)
-        w_sum = torch.clamp(w_sum, min=1.0)
-        loss, attn_loss = loss_sum / w_sum, attn_sum / w_sum
         with torch.no_grad():
             for p in params:
                 if p.grad is None:  # unused by this batch: a zero gradient, as in JAX
                     p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                _sync_grads(params, mesh)
+                loss_sum, attn_sum, w_sum = _summed(torch.stack([loss_sum, attn_sum, w_sum]),
+                                                    mesh).unbind(0)
+            w_sum = torch.clamp(w_sum, min=1.0)
+            loss, attn_loss = loss_sum / w_sum, attn_sum / w_sum
             torch._foreach_div_([p.grad for p in params], w_sum)
             if l1_lambda > 0.0:
                 reg = sum(p.abs().sum() for p in params)
@@ -244,31 +305,65 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
                     p.grad.add_(torch.where(p >= 0, 1.0, -1.0) * (l1_lambda * w_sum))
                 loss = loss + l1_lambda * reg
         optimizer.update(state.optimizer)
-        metrics = StepMetrics(loss=loss, attn_loss=attn_loss, risk=torch.cat(risks),
-                              n_real=batch["weight"].sum())
+        metrics = StepMetrics(loss=loss, attn_loss=attn_loss,
+                              risk=_gathered(torch.cat(risks), mesh),
+                              n_real=_summed(batch["weight"].sum(), mesh))
         return TrainState(state.optimizer, state.generator, state.step + 1), metrics
 
     return step
 
 
-def drop_patches(mask: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def drop_patches(mask: torch.Tensor, rate: float, generator: torch.Generator,
+                 mesh=None) -> torch.Tensor:
     """``mask`` [B, M] bool with a ``rate`` share of its True entries drawn
     to False (uniform bits from ``generator``); a row left without a True
-    entry keeps its full mask (an all-masked bag would empty its softmax)."""
-    keep = torch.rand(mask.shape, generator=generator, device=mask.device) >= rate
+    entry keeps its full mask (an all-masked bag would empty its softmax).
+    On a mesh (``generator`` a ``layers.ShardedDraws``) the draw is the
+    global batch's, sliced, and "a row left without a True entry" asks the
+    whole row, over the seq group."""
+    on_seq = mesh is not None and mesh.seq > 1
+    keep = draw(generator, lambda s, g: torch.rand(s, generator=g, device=mask.device),
+                mask.shape, 1 if on_seq else None) >= rate
     dropped = mask & keep
-    return torch.where(dropped.any(dim=1, keepdim=True), dropped, mask)
+    left = dropped.any(dim=1, keepdim=True)
+    if on_seq:
+        from multimodal_path_omic_tpu_torch.parallel import comm
+
+        left = comm.all_reduce(left.to(torch.int32), mesh.seq_group, "max") > 0
+    return torch.where(left, dropped, mask)
+
+
+def _sync_grads(params: Sequence[torch.Tensor], mesh) -> None:
+    """Sum every parameter's gradient over the world: one all-reduce of one
+    flat buffer, copied back in place."""
+    from multimodal_path_omic_tpu_torch.parallel import comm
+
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    comm.all_reduce_(flat, mesh.world)
+    torch._foreach_copy_(grads, [part.view_as(g) for part, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor],
-                  ge_mode: bool) -> Dict[str, Any]:
+                  ge_mode: bool, mesh=None) -> Dict[str, Any]:
     """Assemble a batch on the cache's device from gathers over its rows:
     wsi by the row-gather kernel (``ops/gather.py``) at ``meta['pos']``
     (bucket-local), the mask at the same positions and the label / omics
     columns at ``meta['row']`` (dataset rows) by ``index_select``. ``meta``
     holds device tensors (:func:`meta_on`): nothing crosses from the host
     inside the step. An int8 cache's ``wsi_scale`` rows come along at
-    ``pos``."""
+    ``pos``.
+
+    On a mesh the cache holds this rank's patch chunk of every bag
+    (``parallel/mesh.py::cache_patches``) and ``meta`` the global batch's
+    indices: the gather kernel runs on the local chunk for the whole batch
+    (``gather.take_rows_sharded``), then one all-to-all per field moves
+    each rank's rows and patches to it (``mesh.reshard_cache_rows``; JAX:
+    the sharding constraint of ``loop.py:229-280``); the per-sample
+    columns are this rank's rows."""
+    if mesh is not None and mesh.size > 1:
+        return _gather_sharded(cache, meta, ge_mode, mesh)
     pos, row = meta["pos"], meta["row"]
     batch = {
         "wsi": take_rows(cache["wsi"], pos),
@@ -278,6 +373,26 @@ def _gather_batch(cache: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor],
     }
     if "wsi_scale" in cache:
         batch["wsi_scale"] = cache["wsi_scale"].index_select(0, pos)
+    if not ge_mode:
+        for key in ("omics_packed", "censorship", "survival_months"):
+            batch[key] = cache[key].index_select(0, row)
+    return batch
+
+
+def _gather_sharded(cache, meta, ge_mode: bool, mesh) -> Dict[str, Any]:
+    from multimodal_path_omic_tpu_torch.parallel.mesh import reshard_cache_rows
+
+    pos = meta["pos"]
+    rows = mesh.rows(pos.shape[0])
+    row = meta["row"][rows]
+    batch = {
+        "wsi": reshard_cache_rows(take_rows_sharded(cache["wsi"], pos, mesh), mesh),
+        "mask": reshard_cache_rows(cache["mask"].index_select(0, pos), mesh),
+        "weight": meta["weight"][rows],
+        "label": cache["label"].index_select(0, row),
+    }
+    if "wsi_scale" in cache:
+        batch["wsi_scale"] = reshard_cache_rows(cache["wsi_scale"].index_select(0, pos), mesh)
     if not ge_mode:
         for key in ("omics_packed", "censorship", "survival_months"):
             batch[key] = cache[key].index_select(0, row)
@@ -324,25 +439,26 @@ def make_cached_train_step(
     :func:`make_train_step` (one graph per bucket's cache), the dequant of
     an int8 cache inside it (or, with ``int8_matmul``, the int8 first
     layer). Survival models need ``omic_sizes`` (the packed table's column
-    widths). ``mesh`` is not ported (ROADMAP queue 1, multi-GPU)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_cached_train_step(mesh=...) is not ported yet (ROADMAP queue 1, multi-GPU)")
+    widths). ``mesh``: the cache is this rank's slice of a sharded
+    ``DeviceBagCache`` and ``meta`` the global batch's
+    (:func:`_gather_batch`); the step is :func:`make_train_step`'s on a
+    mesh."""
+    _check_mesh(mesh, loss_name)
     if not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout, int8_matmul=int8_matmul)
-    get_graphs = _graphs_for(graphs)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh)
+    get_graphs = _graphs_for(graphs, mesh)
 
     def step(state: TrainState, cache: Dict[str, torch.Tensor],
              meta: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
         meta = meta_on(meta, cache["wsi"].device)
         g = get_graphs(cache["wsi"].device)
         if g is None:
-            return eager(state, _gather_batch(cache, meta, ge_mode))
+            return eager(state, _gather_batch(cache, meta, ge_mode, mesh))
         metrics = g.run("cached_train",
-                        lambda m: eager(state, _gather_batch(cache, m, ge_mode))[1], meta,
+                        lambda m: eager(state, _gather_batch(cache, m, ge_mode, mesh))[1], meta,
                         generators=(state.generator,), keep=(eager, state.optimizer, cache))
         return state._replace(step=state.step + 1), metrics
 
@@ -358,17 +474,17 @@ def make_multi_train_step(
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, int8_matmul: bool = False,
-    graphs: Union[bool, StepGraphs] = True,
+    graphs: Union[bool, StepGraphs] = True, mesh=None,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, stacked) -> (state, metrics)``: K optimizer steps over
     a batch whose tensors (on the model's device) carry a leading [K, ...]
     axis (:func:`stack_batches`, then ``pipeline.to_device``); exactly K
     calls of :func:`make_train_step`'s step, the same generator chain.
-    Metrics carry a leading K axis."""
+    Metrics carry a leading K axis. ``mesh``: as :func:`make_train_step`."""
     return multi_step_of(make_train_step(
         model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
         patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-        patch_dropout=patch_dropout, int8_matmul=int8_matmul, graphs=graphs))
+        patch_dropout=patch_dropout, int8_matmul=int8_matmul, graphs=graphs, mesh=mesh))
 
 
 def multi_step_of(step: Callable) -> Callable:
@@ -425,6 +541,7 @@ def make_eval_step(
     model: nn.Module, loss_name: str, *, alpha: float = 0.75, ge_mode: bool = False,
     need_attention: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     l1_lambda: float = 0.0, cached: bool = False, graphs: Union[bool, StepGraphs] = True,
+    mesh=None,
 ) -> Callable[..., Dict[str, Any]]:
     """The no-grad eval step of validation and serving: a deterministic
     forward (the model in eval mode) and the loss, under
@@ -441,14 +558,24 @@ def make_eval_step(
     the map, or with ``need_attention``; else None) and n_real; GE-NaCAGaT
     (``ce`` only) returns loss, y, its attention dict (the raw MIL scores
     under 'path') and n_real. ``l1_lambda`` > 0 adds lambda * sum |w| to the
-    loss, as the reference adds it to every validation sample's loss."""
+    loss, as the reference adds it to every validation sample's loss.
+
+    ``mesh``: the batch (or the cache and its global meta) is this rank's,
+    as in the train steps; the results are the global batch's on every
+    rank: the loss over the data group's weight mass, per-row outputs
+    all-gathered in row order, and no attention (maps are exported at mesh
+    size 1: ``need_attention`` raises; ``cesar`` reads the merged ssq)."""
+    _check_mesh(mesh, loss_name)
+    if mesh is not None and need_attention:
+        raise NotImplementedError("attention maps are exported at mesh size 1")
     want_attn = bool(need_attention) or loss_name == "cesar"
+    model_attn = "ssq" if mesh is not None and want_attn else want_attn
     if ge_mode and loss_name != "ce":
         raise NotImplementedError(f"GE-NaCAGaT evaluates with the ce loss, not {loss_name!r}")
     if cached and not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
 
-    get_graphs = _graphs_for(graphs)
+    get_graphs = _graphs_for(graphs, mesh)
 
     def step(batch: Dict[str, Any], meta: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         dev = batch["wsi"].device
@@ -456,8 +583,9 @@ def make_eval_step(
         if cached:
             meta = meta_on(meta, dev)
             if g is None:
-                return eager(_gather_batch(batch, meta, ge_mode))
-            return g.run("cached_eval", lambda m: eager(_gather_batch(batch, m, ge_mode)), meta,
+                return eager(_gather_batch(batch, meta, ge_mode, mesh))
+            return g.run("cached_eval", lambda m: eager(_gather_batch(batch, m, ge_mode, mesh)),
+                         meta,
                          keep=(eager, batch))
         if g is None:
             return eager(batch)
@@ -471,34 +599,45 @@ def make_eval_step(
         reg = l1_lambda * l1_reg(model.parameters()) if l1_lambda > 0.0 else 0.0
         if ge_mode:
             y, attn = model(batch["wsi"], batch["mask"])
-            return {
-                "loss": cross_entropy_on_probs(y, batch["label"], sample_weight=weight) + reg,
-                "y": y,
-                "attention": attn,
-                "n_real": weight.sum(),
-            }
+            loss = cross_entropy_on_probs(y, batch["label"], sample_weight=weight)
+            if mesh is not None:
+                (loss,), y, attn = _global_means([loss], weight, mesh), _gathered(y, mesh), None
+            return {"loss": loss + reg, "y": y, "attention": attn,
+                    "n_real": _summed(weight.sum(), mesh)}
         out = model(batch["wsi"], _unpack_omics(batch, omic_sizes), batch["mask"],
-                    need_attention=want_attn)
+                    need_attention=model_attn)
         loss, attn_loss = survival_loss(loss_name, out, batch["label"], batch["censorship"],
                                         alpha, weight, batch.get("survival_months"))
+        if mesh is not None:
+            loss, attn_loss = _global_means([loss, attn_loss], weight, mesh)
         return {
             "loss": loss + reg,
             "attn_loss": attn_loss,
-            "risk": -out.survs.sum(dim=1),
-            "hazards": out.hazards,
-            "survs": out.survs,
-            "y": out.y,
-            "attention": out.attention if want_attn else None,
-            "n_real": weight.sum(),
+            "risk": _gathered(-out.survs.sum(dim=1), mesh),
+            "hazards": _gathered(out.hazards, mesh),
+            "survs": _gathered(out.survs, mesh),
+            "y": _gathered(out.y, mesh),
+            "attention": out.attention if want_attn and mesh is None else None,
+            "n_real": _summed(weight.sum(), mesh),
         }
 
     return step
+
+
+def _global_means(means: Sequence[torch.Tensor], weight: torch.Tensor, mesh) -> List[torch.Tensor]:
+    """Weighted means over this rank's rows (``losses._wmean``: the weighted
+    sum over max(mass, 1)) as the global batch's: the sums and the masses
+    summed over the data group."""
+    w = weight.sum()
+    tot = _summed(torch.stack([m * w for m in means] + [w]), mesh)
+    return list((tot[:-1] / torch.clamp(tot[-1], min=1.0)).unbind(0))
 
 
 def make_multi_eval_step(
     model: nn.Module, loss_name: str, *, alpha: float = 0.75, ge_mode: bool = False,
     need_attention: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     l1_lambda: float = 0.0, cached: bool = False, graphs: Union[bool, StepGraphs] = True,
+    mesh=None,
 ) -> Callable[..., Dict[str, Any]]:
     """K eval batches in one call: ``multi(stacked)`` over a batch whose
     tensors carry a leading [K, ...] axis, or with ``cached=True``
@@ -507,7 +646,7 @@ def make_multi_eval_step(
     carry the leading K axis."""
     repeated = multi_step_of(make_eval_step(
         model, loss_name, alpha=alpha, ge_mode=ge_mode, need_attention=need_attention,
-        omic_sizes=omic_sizes, l1_lambda=l1_lambda, cached=cached, graphs=graphs))
+        omic_sizes=omic_sizes, l1_lambda=l1_lambda, cached=cached, graphs=graphs, mesh=mesh))
     if not cached:
         return repeated
     return lambda cache, stacked: repeated(cache, meta_on(stacked, cache["wsi"].device))
@@ -524,7 +663,7 @@ def mc_generator(device, mc_seed: int, fold: int = 0) -> torch.Generator:
 
 def make_mc_eval_step(
     model: nn.Module, n_samples: int, *, ge_mode: bool = False,
-    omic_sizes: Optional[Sequence[int]] = None,
+    omic_sizes: Optional[Sequence[int]] = None, mesh=None,
 ) -> Callable[[Dict[str, Any], torch.Generator], Dict[str, torch.Tensor]]:
     """Monte-Carlo-dropout predictive uncertainty (Gal & Ghahramani 2016):
     ``mc_step(batch, generator)`` runs ``n_samples`` training-mode forwards
@@ -538,13 +677,18 @@ def make_mc_eval_step(
     :func:`make_eval_step`. On the GPU a survival forward runs the fuse-K
     training form (its dropout seed drawn from ``generator``); GE's forwards
     take the MIL pool's eager branch (the pool kernel is eval-only) and the
-    flash forward. The model is left in eval mode."""
+    flash forward. The model is left in eval mode. On a ``mesh`` the
+    batch is this rank's, the draws the global batch's sliced
+    (``layers.ShardedDraws``) and the results the global batch's
+    (all-gathered over the data group)."""
     if n_samples < 1:
         raise ValueError(f"n_samples must be >= 1, got {n_samples}")
 
     @torch.inference_mode()
     def mc_step(batch: Dict[str, Any], generator: torch.Generator) -> Dict[str, torch.Tensor]:
         cols = {"y": [], "hazards": [], "survs": [], "risk": []}
+        if mesh is not None:
+            generator = ShardedDraws(generator, mesh)
         model.train()
         try:
             for _ in range(n_samples):
@@ -560,7 +704,7 @@ def make_mc_eval_step(
                 cols["risk"].append(-out.survs.sum(dim=1))
         finally:
             model.eval()
-        stacked = {k: torch.stack(v) for k, v in cols.items() if v}
+        stacked = {k: torch.stack([_gathered(t, mesh) for t in v]) for k, v in cols.items() if v}
         res = {"y_mean": stacked["y"].mean(dim=0), "y_std": stacked["y"].std(dim=0, correction=0)}
         if not ge_mode:
             res.update(

@@ -55,6 +55,20 @@ E != F, which no shipped configuration reaches) raises on the card before
 any launch (``kernels.takes``). ``wandb.enabled`` logs each
 epoch's metrics to wandb as well (``train/logging.py``).
 
+Multi-GPU, the JAX Trainer's mesh (``trainer.py:284-382``): with
+``tpu.data_axis`` x ``tpu.seq_axis`` > 1 every rank (one process a GPU,
+launched by torchrun; the world size must equal the mesh's) builds its
+place in the mesh (``parallel/mesh.py``), the model with the mesh on its
+patch-axis modules, the parameters broadcast from rank 0 and checked equal,
+batchers that read only its slice of every batch (``host_slice``), the
+sharded device cache (its budget per device) and the mesh steps, whose
+metrics are the global batch's: the epoch's numbers are the same on every
+rank. Rank 0 alone prints, logs and writes checkpoints; every rank restores
+them. A mesh over gloo (CPU ranks, or several ranks on one card) runs the
+steps eagerly, saying so once. Several ranks without a mesh, a batch that
+does not split over the data axis, and the leave-one-out export (maps are
+exported at mesh size 1) raise.
+
 Settings the port cannot honour yet raise ``NotImplementedError``
 (``config.require_supported``). A reference ``.pt`` checkpoint loads
 through ``Trainer.load_torch_checkpoint`` (``utils/transplant.py``);
@@ -96,6 +110,7 @@ from multimodal_path_omic_tpu_torch.data.device_cache import (
 from multimodal_path_omic_tpu_torch.data.pipeline import (
     BucketBatcher,
     Stager,
+    pad_plan_indices,
     gene_expr_extras,
     prefetch,
     survival_extras,
@@ -103,6 +118,8 @@ from multimodal_path_omic_tpu_torch.data.pipeline import (
 )
 from multimodal_path_omic_tpu_torch.device import resolve_device
 from multimodal_path_omic_tpu_torch.models import build_model, is_ge_model
+from multimodal_path_omic_tpu_torch.parallel import comm
+from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh, replicate
 from multimodal_path_omic_tpu_torch.train import checkpoint as ckpt
 from multimodal_path_omic_tpu_torch.train.graphs import StepGraphs
 from multimodal_path_omic_tpu_torch.train.logging import MetricLogger, StepTimer
@@ -125,8 +142,6 @@ from multimodal_path_omic_tpu_torch.train.optim import (
 from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
 
 
-# the host columns of a batch the epoch's metrics read
-_INFO_KEYS = ("n_real", "weight", "censorship", "survival_months", "label")
 # auto steps_per_dispatch (the JAX Trainer's), and the cap on a host-fed
 # group's stacked bags
 _SPD_AUTO = 64
@@ -191,21 +206,33 @@ def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 
 
 class Trainer:
+    mesh = None  # this rank's parallel.mesh.Mesh when tpu.data_axis x tpu.seq_axis > 1
+
     def __init__(self, config: Config, verbose: bool = True, device=None, graphs: bool = True):
         """``device``: None follows ``config.device`` (the GPU unless it is
         "cpu"). ``graphs``: on the GPU, run the steps as CUDA graphs
         (``train/graphs.py``); False runs them eagerly."""
         require_supported(config)
         c = self.config = config
-        self.verbose = verbose
         self.device = resolve_device(
             device if device is not None else ("cpu" if c.device == "cpu" else "cuda"))
+        self.batch_size = c.tpu.batch_size or c.training.grad_acc_step
+        self.mesh = self._make_mesh(verbose)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        # rank 0 alone prints, logs and writes
+        self.verbose = verbose and (self.mesh is None or self.mesh.rank == 0)
+        verbose = self.verbose
         # CUDA graphs over every step, in one pool; anomaly mode (debug_nans)
-        # cannot be captured, so it takes the eager steps, openly
+        # and gloo collectives cannot be captured, so they take the eager
+        # steps, openly
         self.graphs: Optional[StepGraphs] = None
         if self.device.type == "cuda" and graphs:
             if c.training.debug_nans:
                 warnings.warn("training.debug_nans: anomaly mode cannot be captured in a CUDA "
+                              "graph; the steps run eagerly")
+            elif self.mesh is not None and self.mesh.backend == "gloo":
+                warnings.warn("a mesh over gloo: its collectives cannot be captured in a CUDA "
                               "graph; the steps run eagerly")
             else:
                 self.graphs = StepGraphs(self.device)
@@ -243,11 +270,11 @@ class Trainer:
                 print(f"Testing patient {c.training.leave_one_out}")
 
         self.buckets = tuple(c.tpu.bag_buckets) or DEFAULT_BUCKETS
-        self.batch_size = c.tpu.batch_size or c.training.grad_acc_step
         self.train_batcher = BucketBatcher(self.train_ds, self.extras_fn, self.batch_size,
-                                           self.buckets, shuffle=True, seed=c.training.seed)
+                                           self.buckets, shuffle=True, seed=c.training.seed,
+                                           host_slice=self.mesh)
         self.val_batcher = BucketBatcher(self.val_ds, self.extras_fn, self.batch_size,
-                                         self.buckets, shuffle=False)
+                                         self.buckets, shuffle=False, host_slice=self.mesh)
 
         # ----- model, optimizer, steps (mcat/main.py:254-307) --------------
         self.wsi_dim = int(self.dataset.bag(0).shape[1]) if len(self.dataset) else 1024
@@ -255,8 +282,10 @@ class Trainer:
             c.model.name, omic_sizes=self.omic_sizes, model_size=c.model.model_size,
             fusion=c.model.fusion, n_classes=3 if self.ge_mode else c.model.n_classes,
             dropout=c.model.dropout, wsi_dim=self.wsi_dim, bug_compat=c.training.bug_compat,
-            dtype=dtype)
+            dtype=dtype, mesh=self.mesh)
         self.model = seeded_init_(model, c.training.seed).to(self.device)
+        if self.mesh is not None:  # every rank starts from rank 0's parameters
+            replicate(list(self.model.parameters()) + list(self.model.buffers()), self.mesh)
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = make_optimizer(c.training.optimizer, c.training.lr,
                                         c.training.weight_decay, grad_clip=c.training.grad_clip)
@@ -278,7 +307,8 @@ class Trainer:
         self._step_kw = dict(alpha=c.training.alpha, l1_lambda=c.training.lambda_,
                              ge_mode=self.ge_mode,
                              omic_sizes=None if self.ge_mode else tuple(self.omic_sizes),
-                             graphs=self.graphs if self.graphs is not None else False)
+                             graphs=self.graphs if self.graphs is not None else False,
+                             mesh=self.mesh)
         self.train_step = make_train_step(self.model, c.training.loss, self.optimizer,
                                           patch_dropout=c.training.patch_dropout,
                                           int8_matmul=c.tpu.int8_matmul, **self._step_kw)
@@ -296,15 +326,45 @@ class Trainer:
         self._want_device_cache = c.tpu.device_cache in ("auto", "on")
         self._device_cache_forced = c.tpu.device_cache == "on"
 
+        writer = self.mesh is None or self.mesh.rank == 0
         self.logger = MetricLogger(
-            wandb_enabled=c.wandb.enabled, wandb_project=c.wandb.project,
+            wandb_enabled=c.wandb.enabled and writer, wandb_project=c.wandb.project,
             wandb_config=self._wandb_config(),
             jsonl_path=os.path.join(c.training.test_output_dir, "run_log.jsonl")
-            if c.training.test_output_dir else None)
+            if c.training.test_output_dir and writer else None)
         self.timer = StepTimer()
         self.val_risks = np.zeros(0)  # the last validation's risks, real rows in batch order
 
     # ------------------------------------------------------------------ util
+    def _make_mesh(self, verbose: bool):
+        """This rank's mesh (``parallel/mesh.py``) when ``tpu.data_axis`` x
+        ``tpu.seq_axis`` > 1, joining torchrun's process group; the JAX
+        Trainer's refusals at its places: a batch that does not split over
+        the data axis, several ranks without a mesh (each would train a
+        replica of its own, never synchronized)."""
+        c = self.config
+        data, seq = c.tpu.data_axis, c.tpu.seq_axis
+        if data * seq == 1:
+            world = comm.world_size()
+            if world > 1:
+                raise ValueError(
+                    f"{world} ranks but tpu.data_axis={data} x tpu.seq_axis={seq} defines no "
+                    f"mesh: set the axes to span every rank (e.g. data_axis={world}) so that "
+                    "the gradients synchronize")
+            return None
+        mesh = make_mesh(data, seq, device=self.device)
+        if self.batch_size % data != 0:
+            # batch rows split over the data axis (parallel/mesh.py::batch_spec)
+            raise ValueError(
+                f"tpu.batch_size={self.batch_size} must be divisible by tpu.data_axis={data} "
+                "(batch rows shard over the data axis)")
+        if c.training.leave_one_out is not None:
+            raise NotImplementedError("training.leave_one_out exports attention maps, which "
+                                      "are exported at mesh size 1")
+        if verbose and mesh.rank == 0:
+            print(f"Mesh: data={data} x seq={seq} over {mesh.size} ranks ({mesh.backend})")
+        return mesh
+
     def _wandb_config(self) -> Dict[str, Any]:
         """The run's flattened hyperparameters for ``wandb.init`` (the JAX
         Trainer's, after the reference's wandb_init, mcat/main.py:186-215)."""
@@ -356,7 +416,8 @@ class Trainer:
         for m in all_lengths:
             b = bucket_for(int(m), self.buckets)
             counts[b] = counts.get(b, 0) + 1
-        budget = c.tpu.device_cache_budget_bytes
+        # on a mesh the budget is each device's: the cache splits over every rank
+        budget = c.tpu.device_cache_budget_bytes * (1 if self.mesh is None else self.mesh.size)
         only_buckets, nbytes, engaged = plan_cache_fit(
             per_bucket, counts, budget, forced=self._device_cache_forced)
         if not engaged:
@@ -374,7 +435,7 @@ class Trainer:
             print(f"Device dataset cache: {nbytes / (1 << 20):.0f} MiB of padded bags "
                   f"({self.cache_dtype}) uploaded once ({scope})")
         kw = dict(device=self.device, ge_mode=self.ge_mode, only_buckets=only_buckets,
-                  store_dtype=self.cache_dtype)
+                  store_dtype=self.cache_dtype, mesh=self.mesh)
         self.device_cache = DeviceBagCache(self.train_ds, self.extras_fn, self.buckets,
                                            lengths=lengths, **kw)
         self.device_cache_val = (
@@ -406,10 +467,13 @@ class Trainer:
             info["survival_months"] = table.survival_months[rows]
         return info
 
-    @staticmethod
-    def _host_info(batch) -> Dict[str, Any]:
-        """The host columns the metrics read, for a host batch (not its bags)."""
-        return {k: batch[k] for k in _INFO_KEYS if k in batch}
+    def _plan_info(self, indices, table) -> Dict[str, Any]:
+        """:meth:`_batch_info` of a host-fed batch of the plan: the global
+        batch's columns (a mesh rank reads only its slice of the bags, and
+        the steps return the global batch's metrics)."""
+        full, weight = pad_plan_indices(indices, self.batch_size)
+        return self._batch_info({"row": np.asarray(full), "weight": weight}, len(indices),
+                                table)
 
     def _host_k_cap(self, K):
         """``k_fn`` for :func:`_grouped` over host-fed items of a bucket:
@@ -420,7 +484,8 @@ class Trainer:
         def k_cap(bucket: int) -> int:
             if not self._spd_auto:
                 return K
-            per = self.batch_size * int(bucket) * self.wsi_dim * 4
+            data, seq = (1, 1) if self.mesh is None else (self.mesh.data, self.mesh.seq)
+            per = (self.batch_size // data) * (int(bucket) // seq) * self.wsi_dim * 4
             return max(1, min(K, _SPD_STACK_BYTES // max(per, 1)))
 
         return k_cap
@@ -472,7 +537,7 @@ class Trainer:
                                                      steps[2], steps[3])
             else:  # only the bags' own patches cross; the card pads them
                 batches = [batcher._make_rows(g[1], bucket) for g in group]
-                yield ([self._host_info(b) for b in batches],
+                yield ([self._plan_info(g[1], ds.table) for g in group],
                        self._host_call(batches, steps[0], steps[1]))
 
     # --------------------------------------------------------------- training
@@ -728,6 +793,9 @@ class Trainer:
         state dicts, the dropout generator's state, the step count, the
         split seed and the epoch to resume at."""
         c = self.config
+        if self.mesh is not None and self.mesh.rank != 0:  # rank 0 writes, the others wait
+            comm.barrier(self.mesh.world)
+            return comm.broadcast_object(None, self.mesh.world)
         payload = {
             "epoch": epoch + 1,  # a resumed run starts at the next epoch
             "model": self.model.state_dict(),
@@ -737,8 +805,12 @@ class Trainer:
             "loss": float(loss),
             "seed": c.training.seed,
         }
-        return ckpt.save_checkpoint(c.model.checkpoint_dir, payload, model_name=c.model.name,
+        path = ckpt.save_checkpoint(c.model.checkpoint_dir, payload, model_name=c.model.name,
                                     dataset_name=c.dataset.name, epoch=epoch, tag=tag)
+        if self.mesh is not None:
+            comm.barrier(self.mesh.world)
+            comm.broadcast_object(path, self.mesh.world)
+        return path
 
     def restore(self, path: str) -> None:
         if self.verbose:

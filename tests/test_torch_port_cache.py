@@ -166,13 +166,14 @@ def test_partial_cache_and_ge_mode(world):
     [(dict(store_dtype="bfloat16"), None, torch.bfloat16),
      (dict(store_dtype="int8"), None, torch.int8),
      (dict(store_dtype="float16"), ValueError, "store_dtype"),
-     (dict(mesh=object()), NotImplementedError, "mesh")],
+     (dict(mesh=object()), TypeError, "parallel.mesh.Mesh")],
     ids=["bf16-store", "int8-store", "unknown-store", "mesh"],
 )
 def test_cache_refuses_what_is_not_ported(world, kwargs, exc, match):
-    """An unknown store type and a mesh raise; the bfloat16 and int8 stores
-    are ported (their contents against JAX's: test_torch_port_quant.py) and
-    store in their type."""
+    """An unknown store type and a mesh that is not a ``parallel.mesh.Mesh``
+    raise; the bfloat16 and int8 stores are ported (their contents against
+    JAX's: test_torch_port_quant.py) and store in their type (the sharded
+    cache of a real mesh: test_torch_port_mesh_trainer.py)."""
     if exc is None:
         cache = tcache.DeviceBagCache(world.ds, tpipeline.survival_extras, BUCKETS,
                                       device="cpu", **kwargs)
@@ -197,15 +198,16 @@ def test_cache_defaults_to_cuda(world):
 
 @pytest.mark.parametrize("name,value", [("mesh", object()), ("int8_matmul", True)])
 def test_cached_step_refuses_what_is_not_ported(name, value):
-    """A mesh raises, naming its queue 1 item; int8_matmul is ported (its
-    training: test_torch_port_quant.py) and builds the step; a survival
+    """A mesh that is not a ``parallel.mesh.Mesh`` raises (the cached step
+    on a real mesh: test_torch_port_mesh_trainer.py); int8_matmul is ported
+    (its training: test_torch_port_quant.py) and builds the step; a survival
     step without omic_sizes raises."""
     model = MCAT(SIZES, model_size="small", wsi_dim=WSI)
     if name == "int8_matmul":
         assert callable(make_cached_train_step(model, "ces", make_optimizer("sgd", 0.1),
                                                omic_sizes=SIZES, int8_matmul=value))
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             make_cached_train_step(model, "ces", make_optimizer("sgd", 0.1), omic_sizes=SIZES,
                                    **{name: value})
     with pytest.raises(ValueError, match="omic_sizes"):

@@ -100,12 +100,22 @@ def test_settings_the_port_cannot_honour_raise(key, value, item):
     """The settings of a queue 1 item not yet ported raise, naming it, in
     ``require_supported`` and before the Trainer reads any data; those of
     the items ported since (reduced precision, the Trainer's rest: the
-    dtypes, int8_matmul, wandb.enabled) pass ``require_supported``."""
+    dtypes, int8_matmul, wandb.enabled) pass ``require_supported``. The mesh
+    axes are ported (multi-GPU): an axis above 1 in a world of one rank
+    raises ``ValueError`` naming the world size, before any data is read."""
     cfg = tconfig.config_from_dict({"device": "cpu"})
     tconfig.require_supported(cfg)
     tconfig._apply_override(cfg, key, value)
     if item in PORTED_ITEMS:
         tconfig.require_supported(cfg)
+        return
+    if item == "multi-GPU":  # ported: a mesh the world does not span
+        with pytest.raises(ValueError, match="world size is 1"):
+            tconfig.require_supported(cfg)
+        from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+        with pytest.raises(ValueError, match="world size is 1"):
+            Trainer(cfg, device="cpu")  # refused before any data is read
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         tconfig.require_supported(cfg)
