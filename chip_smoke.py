@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-28 below
+    python3 chip_smoke.py              # phases 1-29 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -365,6 +365,28 @@ Phases (any failure exits non-zero, and no result line is printed):
     that dies or a world past 300 s fails the phase. The wall times are
     several ranks sharing one card over host-staged gloo, not a multi-GPU
     speed.
+29. The tooling, through the package and the CLI, on phase 21's cohort.
+    (a) The host-fed graphed Trainer with ``tpu.use_native_pipeline`` off
+    and on: the reader each reports, three epochs' losses and the
+    parameters bit for bit; each reader's steady epoch (wall, bags/s) and a
+    traced epoch's device time; the bag read split (cold after
+    ``posix_fadvise(DONTNEED)`` of the cohort's own files, the page cache,
+    memcpy), saying whether the eviction took effect. (b) ``cli profile``,
+    and ``train --profile-dir`` then ``profile --trace-dir``: both reports
+    have a device track naming the port's kernels, the first's among the
+    second's. (c) ``cli plan`` for NaCAGaT ``medium`` and ``big`` and GE
+    ``medium`` (exit 0: fits); each plan's step peaks against a graphed
+    epoch's ``max_memory_allocated``. (d) ``cli cv`` (k = 2) and ``cli
+    sweep`` (two points), one epoch each, finite. (e) Bundles of NaCAGaT
+    ``ces`` and ``cesar``, MCAT ``lean=False`` and GE ``medium`` (random
+    weights from seed 0, bucket 8192, batch 8; ``ces`` traced on the CPU
+    and moved): loaded on the card, within 1e-5 of the card's Predictor on
+    12 bags, each one's custom ops' kernels launched (counts from 0 before
+    its calls); the bfloat16-weight bundle under 0.65 of float32's bytes;
+    ``make_bundle_server``'s ``/predict_batch_npz`` within 1e-5 of the
+    Predictor. (f) ``tpu.remat`` on and off for NaCAGaT ``medium`` and
+    ``big`` and GE ``medium``: three graphed steps, dropout 0.25, the
+    parameters, loss and generator bit for bit; peak memory and step ms.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -5322,42 +5344,18 @@ def profile_ge_serving(dev, bags, top=15) -> None:
 
 
 def device_rows(prof) -> list:
-    """(name, device ms, count) of the device-side events of a trace, largest
-    first: the host-side aten ops also carry their kernels' device time and
-    would count it twice."""
-    import torch
+    """(name, device ms, count) of a trace's device-side events, largest
+    first (the package's parser, ``train/profiling.py::device_rows``)."""
+    from multimodal_path_omic_tpu_torch.train.profiling import device_rows as rows_of
 
-    rows = []
-    for ev in prof.key_averages():
-        # user annotations (e.g. "Optimizer.step#Adam.step") span kernels
-        # already counted on the device timeline
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3, ev.count))
-    if not rows:
-        raise AssertionError("the profiler recorded no device time")
-    return sorted(rows, key=lambda r: -r[1])
-
-
-# device-kernel name fragments -> the part of a training step they belong to
-TRAIN_SPLIT = (("fused_k", "coattn kernels"), ("fk_", "coattn kernels"),
-               ("combine_kernel", "coattn kernels"),
-               ("bwd_reduce_kernel", "coattn kernels"), ("flash_fwd_kernel", "flash forward"),
-               ("flash_bwd", "flash backward"), ("gemm", "matmul"), ("xmma", "matmul"),
-               ("cutlass", "matmul"), ("adam", "optimizer"), ("multi_tensor", "optimizer"),
-               ("gather_rows", "row gather"), ("plain_kernel", "coattn kernels"),
-               ("plain_bwd_kernel", "coattn kernels"), ("dwk_kernel", "coattn kernels"))
+    return rows_of(prof)
 
 
 def profile_training(title, tag, make, batch, top=20) -> None:
     """After two warm-up steps of the trainer ``make()`` returns, the
     host-clock median of 10 steps and their peak device memory, then one
-    traced step: device time by part (TRAIN_SPLIT) and by kernel."""
+    traced step: device time by category (``train/profiling.py``) and by
+    kernel."""
     import torch
 
     model, state, step = make()
@@ -5380,11 +5378,10 @@ def profile_training(title, tag, make, batch, top=20) -> None:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    from multimodal_path_omic_tpu_torch.train.profiling import split_ms
+
     rows = device_rows(prof)
-    split = {}
-    for name, ms, _ in rows:
-        part = next((part for frag, part in TRAIN_SPLIT if frag in name.lower()), "other")
-        split[part] = split.get(part, 0.0) + ms
+    split = split_ms(rows)  # the package's categories (train/profiling.py)
     device_ms = sum(r[1] for r in rows)
     log(f"profile: {title}; wall {wall_ms:.3f} ms; device {device_ms:.3f} ms; busy share "
         f"{device_ms / wall_ms:.4f}; split "
@@ -5399,22 +5396,19 @@ def profile_training(title, tag, make, batch, top=20) -> None:
     }))
 
 
-# the parts of a Trainer epoch's device time beyond a training step's
-EPOCH_SPLIT = (("memcpy", "copies"), ("memset", "copies"), ("stats_kernel", "coattn kernels"),
-               ("weights_kernel", "coattn kernels"), ("tile", "coattn kernels")) + TRAIN_SPLIT
-
-
 def profile_trainer(dev, top=12) -> None:
     """Phase 21's NaCAGaT configuration, host-fed and cached: after a first
     epoch (the warm-up and, cached, the upload), one traced ``train_epoch``
-    and one traced ``validate``: wall time, device time by part
-    (EPOCH_SPLIT) and by kernel, and the device busy share."""
+    and one traced ``validate`` through the package's tracer
+    (``train/profiling.py::trace_call``): wall time, device time by category
+    and by kernel, and the device busy share."""
     import shutil
     import tempfile
 
     import torch
 
     from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.train.profiling import trace_call
     from multimodal_path_omic_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="chip_smoke_profile_")
@@ -5427,29 +5421,17 @@ def profile_trainer(dev, top=12) -> None:
             trainer.validated_epoch(0)
             for what, call in (("train_epoch", trainer.train_epoch),
                                ("validate", trainer.validate)):
-                torch.cuda.synchronize()
-                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                with torch.profiler.profile(activities=acts) as prof:
-                    t0 = time.perf_counter()
-                    call(1)
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                rows = device_rows(prof)
-                split = {}
-                for name, ms, _ in rows:
-                    part = next((part for frag, part in EPOCH_SPLIT if frag in name.lower()),
-                                "other")
-                    split[part] = split.get(part, 0.0) + ms
-                device_ms = sum(r[1] for r in rows)
-                title = f"Trainer {what}, device_cache={feed}"
-                log(f"profile: {title}; wall {wall_ms:.3f} ms; device {device_ms:.3f} ms; busy "
-                    f"share {device_ms / wall_ms:.4f}; split " + ", ".join(
-                        f"{k} {v:.3f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
-                for name, ms, count in rows[:top]:
+                tr = trace_call(call, 1)
+                title = f"Trainer {what}, device_cache={feed}, {trainer.bag_reader} reader"
+                log(f"profile: {title}; wall {tr['wall_ms']:.3f} ms; device "
+                    f"{tr['device_ms']:.3f} ms; busy share {tr['busy_share']:.4f}; split "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in tr["split_ms"].items()))
+                for name, ms, count in tr["rows"][:top]:
                     log(f"  {ms:10.4f} ms  x{count:<5d} {name[:100]}")
-                log(json.dumps({"trainer": what, "device_cache": feed, "wall_ms": wall_ms,
-                                "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-                                "split_ms": split}))
+                log(json.dumps({"trainer": what, "device_cache": feed,
+                                "reader": trainer.bag_reader, "wall_ms": tr["wall_ms"],
+                                "device_ms": tr["device_ms"], "busy_share": tr["busy_share"],
+                                "split_ms": tr["split_ms"]}))
             del trainer
             torch.cuda.empty_cache()
     finally:
@@ -5995,6 +5977,443 @@ def phase28_mesh(dev) -> dict:
     return {"a": launches, "b": b_launches}
 
 
+# Phase 29: the tooling on the card, through the package and the CLI: the
+# native bag reader, profile, plan, cv and sweep, deployment bundles, remat.
+# Its cohort is phase 21's (48 patients, bags of 1500..8000 1024-wide
+# patches, examples/nacagat.yaml with TRAINER_SET), host-fed.
+TOOL_SET = {**TRAINER_SET, "tpu.device_cache": "off"}
+BUNDLE_BUCKET, BUNDLE_B = 8192, 8  # one program a bundle: its bags fill two batches
+REMAT_STEPS = 3
+
+
+def tool_yaml(root, name, example, paths, overrides) -> str:
+    """``trainer_config``'s config written as a YAML file (the CLI's input)."""
+    import yaml
+
+    from multimodal_path_omic_tpu_torch.config import config_to_dict
+
+    path = os.path.join(root, f"{name}.yaml")
+    cfg = trainer_config(example, paths, os.path.join(root, name), overrides)
+    with open(path, "w") as f:
+        yaml.safe_dump(config_to_dict(cfg), f)
+    return path
+
+
+def cli_out(argv) -> str:
+    """``cli.main(argv)`` in this process; its standard output (rc 0 or raise)."""
+    import contextlib
+    import io
+
+    from multimodal_path_omic_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv[:1])} exited {rc}:\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def p29_native(dev, root, paths, power, add) -> dict:
+    """(a) The host-fed, graphed Trainer with the native reader off and on:
+    losses and parameters bit for bit; each reader's steady epoch (wall,
+    device time from a traced epoch, bags/s); the bag read split."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.native import NativeBagStore
+    from multimodal_path_omic_tpu_torch.train.profiling import trace_call
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    for on in (False, True):
+        cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, f"native_{on}"),
+                             {**TOOL_SET, "tpu.use_native_pipeline": on})
+        trainer = Trainer(cfg, verbose=False)
+        if trainer.bag_reader != ("native" if on else "python"):
+            raise AssertionError(f"use_native_pipeline={on}: reader {trainer.bag_reader} "
+                                 f"({trainer.train_batcher.reader_note})")
+        before = read_counts()
+        losses = [trainer.train_epoch(0)["train_loss"]]  # graph capture, pinned buffers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_epoch(1)["train_loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tr = trace_call(trainer.train_epoch, 2)
+        losses.append(tr["out"]["train_loss"])
+        add(read_counts(), before)
+        runs[on] = dict(losses=losses, wall=wall, peak=peak, device_ms=tr["device_ms"],
+                        traced_wall_ms=tr["wall_ms"], n=len(trainer.train_ds),
+                        params=[p.detach().clone() for p in trainer.model.parameters()])
+        log(f"phase 29 (a): {trainer.bag_reader} reader: epoch 2 {wall * 1e3:.1f} ms wall, "
+            f"{runs[on]['n'] / wall:.1f} train bags/s; traced epoch 3: device "
+            f"{tr['device_ms']:.1f} ms of {tr['wall_ms']:.1f} ms wall (busy share "
+            f"{tr['busy_share']:.3f}), copies {tr['split_ms'].get('copies', 0.0):.1f} ms; "
+            f"losses {losses}; peak {peak / 2**30:.2f} GiB ({power})")
+        del trainer
+        torch.cuda.empty_cache()
+    if runs[True]["losses"] != runs[False]["losses"] or not all(
+            torch.equal(a, b) for a, b in zip(runs[True]["params"], runs[False]["params"])):
+        raise AssertionError(f"native reader: losses {runs[True]['losses']} against "
+                             f"{runs[False]['losses']}, or parameters differ")
+    log("  native == Python reader, bit for bit: three epochs' losses and the parameters")
+    # the bag read split over the cohort's own files: cold (evicted with
+    # posix_fadvise after an fsync), from the page cache, and a memcpy of the
+    # same bytes between two arrays in memory
+    patches = paths[2]
+    names = sorted(f[:-4] for f in os.listdir(patches) if f.endswith(".npy"))
+    files = [os.path.join(patches, n + ".npy") for n in names]
+    store = NativeBagStore(patches)
+    nbytes = sum(store.length(n) * store.dim(n) * 4 for n in names)
+    for f in files:
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    def read_all():  # one bag at a time, each array dropped before the next
+        t0 = time.perf_counter()
+        for n in names:
+            store.get(n)
+        return time.perf_counter() - t0
+
+    cold = read_all()
+    warm = read_all()
+    src = store.get(names[-1])
+    dst = np.empty_like(src)
+    np.copyto(dst, src)  # touch the destination pages first
+    t0 = time.perf_counter()
+    for n in names:  # the same bytes, bag by bag, memory to memory
+        rows = store.length(n)
+        np.copyto(dst[:rows], src[:rows]) if rows <= len(src) else np.copyto(
+            np.empty((rows, src.shape[1]), np.float32), 0.0)
+    copy = time.perf_counter() - t0
+    gb = nbytes / 1e9
+    split = {"bytes": nbytes, "cold_s": cold, "page_cache_s": warm, "memcpy_s": copy,
+             "cold_gbps": gb / cold, "page_cache_gbps": gb / warm, "memcpy_gbps": gb / copy,
+             "eviction_took_effect": cold > 1.5 * warm}
+    log(f"phase 29 (a): bag reads, {len(names)} bags, {gb:.3f} GB: cold {cold * 1e3:.1f} ms "
+        f"({split['cold_gbps']:.2f} GB/s), page cache {warm * 1e3:.1f} ms "
+        f"({split['page_cache_gbps']:.2f} GB/s), memcpy {copy * 1e3:.1f} ms "
+        f"({split['memcpy_gbps']:.2f} GB/s); eviction by posix_fadvise "
+        f"{'took effect' if split['eviction_took_effect'] else 'did not take effect'}; "
+        "reads one bag at a time into a fresh array")
+    log(json.dumps({"phase29_native": {str(k): {kk: vv for kk, vv in v.items() if kk != "params"}
+                                       for k, v in runs.items()}, "read_split": split}))
+    return runs
+
+
+def p29_profile(dev, root, paths, power, add) -> None:
+    """(b) ``cli profile`` and ``train --profile-dir`` then ``profile
+    --trace-dir``: both reports name the port's kernels, and agree: every
+    kernel of the training epochs is in the fit's report."""
+    from multimodal_path_omic_tpu_torch.train.profiling import CATEGORIES, parse_trace
+
+    port_cats = {part for frag, part in CATEGORIES if "kernel" in part or "flash" in part}
+    cfg = tool_yaml(root, "profile", "nacagat.yaml", paths, {**TOOL_SET, "training.epochs": 1})
+    before = read_counts()
+    d1, d2 = os.path.join(root, "trace_profile"), os.path.join(root, "trace_train")
+    t0 = time.perf_counter()
+    rep1 = cli_out(["profile", "--config", cfg, "--trace-dir", d1, "--epochs", "1", "--top", "12"])
+    t1 = time.perf_counter()
+    cli_out(["train", "--config", cfg, "--profile-dir", d2])
+    rep2 = cli_out(["profile", "--trace-dir", d2, "--top", "12"])
+    add(read_counts(), before)
+    kernels = []
+    for d in (d1, d2):
+        s = parse_trace(d)
+        if s["fallback_track"]:
+            raise AssertionError(f"{d}: the trace has no device track")
+        kernels.append({r["name"] for r in s["ops"] if r["category"] in port_cats})
+    # cli profile traces training epochs; train --profile-dir the whole fit,
+    # whose validation adds the export passes
+    if not kernels[0] or not kernels[0] <= kernels[1]:
+        raise AssertionError(f"profile reports: port kernels {sorted(kernels[0])} not among "
+                             f"{sorted(kernels[1])}")
+    for line in rep1.splitlines()[:6]:
+        log(f"  cli profile: {line}")
+    log(f"phase 29 (b): cli profile {t1 - t0:.1f} s, train --profile-dir + profile --trace-dir "
+        f"{time.perf_counter() - t1:.1f} s; both name the port's kernels "
+        f"{sorted(k[:40] for k in kernels[0])} ({power})")
+    log(f"  profile --trace-dir: {rep2.splitlines()[2] if len(rep2.splitlines()) > 2 else rep2}")
+
+
+def p29_plan(dev, root, paths, power, add, medium_peak) -> None:
+    """(c) ``cli plan`` for NaCAGaT medium and big and GE medium (exit 0:
+    fits); each plan's worst step peak against a real epoch's
+    ``max_memory_allocated`` (medium: (a)'s)."""
+    import re
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    ge_set = {**GE_TRAINER_SET, "tpu.bag_buckets": list(BUCKETS), "tpu.device_cache": "off"}
+    cases = (("NaCAGaT medium", "nacagat.yaml", TOOL_SET),
+             ("NaCAGaT big", "nacagat.yaml", {**TOOL_SET, "model.model_size": "big"}),
+             ("GE medium", "ge_nacagat.yaml", ge_set))
+    for what, example, overrides in cases:
+        cfg = tool_yaml(root, "plan_" + what.replace(" ", "_"), example, paths,
+                        {**overrides, "training.epochs": 1})
+        before = read_counts()
+        t0 = time.perf_counter()
+        report = cli_out(["plan", "--config", cfg])
+        plan_s = time.perf_counter() - t0
+        peaks = [float(m.replace(",", "")) * 2**20
+                 for m in re.findall(r"peak ([\d,\.]+) MiB", report)]
+        if not peaks:
+            raise AssertionError(f"plan {what}: no step peak in\n{report}")
+        real = medium_peak
+        if real is None:
+            from multimodal_path_omic_tpu_torch.config import load_config
+
+            trainer = Trainer(load_config(cfg), verbose=False)
+            trainer.train_epoch(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_epoch(1)
+            torch.cuda.synchronize()
+            real = torch.cuda.max_memory_allocated()
+            del trainer
+            torch.cuda.empty_cache()
+        add(read_counts(), before)
+        medium_peak = None
+        log(f"phase 29 (c): plan {what} in {plan_s:.1f} s: step peaks "
+            f"{[round(p / 2**30, 3) for p in peaks]} GiB (eager, one step), a graphed epoch's "
+            f"peak {real / 2**30:.3f} GiB (ratio {max(peaks) / real:.3f}); "
+            f"{report.splitlines()[-1]} ({power})")
+
+
+def p29_cv_sweep(dev, root, paths, power, add) -> None:
+    """(d) ``cv`` (k = 2) and ``sweep`` (two points), one epoch each."""
+    cfg = tool_yaml(root, "cv", "nacagat.yaml", paths, {**TOOL_SET, "training.epochs": 1})
+    before = read_counts()
+    t0 = time.perf_counter()
+    cv_out = os.path.join(root, "cv.json")
+    cli_out(["cv", "--config", cfg, "--folds", "2", "--out", cv_out])
+    t1 = time.perf_counter()
+    sw_out = os.path.join(root, "sweep.json")
+    cli_out(["sweep", "--config", cfg, "--grid", "training.lr=0.0001,0.0002", "--out", sw_out])
+    add(read_counts(), before)
+    cv, sw = json.load(open(cv_out)), json.load(open(sw_out))
+    if len(cv["folds"]) != 2 or len(sw["rows"]) != 2 or not all(
+            math.isfinite(r["val_loss"]) for r in cv["folds"] + sw["rows"]):
+        raise AssertionError(f"cv {cv} / sweep {sw}: not two finite runs each")
+    log(f"phase 29 (d): cv k=2 in {t1 - t0:.1f} s ({cv['metric']} {cv['mean']:.4f} ± "
+        f"{cv['std']:.4f}), sweep of 2 points in {time.perf_counter() - t1:.1f} s (best "
+        f"{sw['best']['point']}) ({power})")
+
+
+def p29_bundles(dev, root, power, add) -> None:
+    """(e) Bundles of NaCAGaT ces and cesar, MCAT lean=False and GE (medium,
+    random weights from seed 0): each exported, loaded on the card and held
+    against the card's Predictor within 1e-5 at the same batch size, its
+    custom ops' kernels launched (counts from 0 before the bundle's calls);
+    NaCAGaT ces exported on the CPU and moved; the bfloat16-weight bundle's
+    bytes; ``server --bundle``'s HTTP answers against the Predictor."""
+    import threading
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.deploy import ExportedModel, export_model
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.server import make_bundle_server
+
+    rng = np.random.default_rng(29)
+    bags, omics = serve_bags(rng, 12, (1500, BUNDLE_BUCKET), SIZES)
+    kw = dict(omic_sizes=SIZES, model_size="medium", buckets=(BUNDLE_BUCKET,),
+              batch_size=BUNDLE_B, seed=0)
+    cases = (("NaCAGaT ces", dict(model_name="NaCAGaT", loss="ces"), WANT["ces"]),
+             ("NaCAGaT cesar", dict(model_name="NaCAGaT", loss="cesar"), WANT["cesar"]),
+             ("MCAT lean=False", dict(model_name="MCAT", loss="ces", lean=False),
+              ("coattn_plain",)),
+             ("GE medium", dict(model_name="GE-NaCAGaT"), ("milpool", "flash_fwd")))
+    dirs = {}
+    for what, args, want in cases:
+        ge = args["model_name"].startswith("GE")
+        ckw = {k: v for k, v in kw.items() if not (ge and k == "omic_sizes")}
+        pred = Predictor(**args, **ckw, device=dev)
+        out_dir = os.path.join(root, "bundle_" + what.split()[0] + "_" + what.split()[1])
+        t0 = time.perf_counter()
+        if what == "NaCAGaT ces":  # traced on the CPU, moved to the card on load
+            export_model(Predictor(**args, **ckw, device="cpu"), out_dir, buckets=(BUNDLE_BUCKET,),
+                         batch_sizes=(BUNDLE_B,), platforms=("cuda",))
+        else:
+            export_model(pred, out_dir, buckets=(BUNDLE_BUCKET,), batch_sizes=(BUNDLE_B,),
+                         platforms=("cuda",))
+        export_s = time.perf_counter() - t0
+        dirs[what] = out_dir
+        bundle = ExportedModel(out_dir, device=dev)
+        bundle.warmup()
+        ref = pred.predict_bags(bags, None if ge else omics)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = bundle.predict_bags(bags, None if ge else omics)
+        counts = {k: v for k, v in read_counts().items() if v}
+        add(counts, {})
+        missing = [w for w in want if not any(k.startswith(w) for k in counts)]
+        if missing:
+            raise AssertionError(f"bundle {what}: no launch of {missing} ({counts})")
+        err = max(float(np.abs(got[k] - ref[k]).max()) for k in got)
+        if not err <= 1e-5 or not all(np.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"bundle {what}: {err:.3e} from the card's Predictor")
+        man = bundle.manifest
+        log(f"phase 29 (e): bundle {what}: exported on {man['exported_on']} in {export_s:.1f} s, "
+            f"{os.path.getsize(os.path.join(out_dir, man['artifacts'][f'{BUNDLE_BUCKET}:{BUNDLE_B}'])) / 2**20:.1f}"
+            f" MiB; on the card {err:.2e} from the Predictor over {len(bags)} bags; launches "
+            f"{counts} ({power})")
+        del pred, bundle
+        torch.cuda.empty_cache()
+    # the bfloat16-weight bundle of NaCAGaT ces
+    pred = Predictor(model_name="NaCAGaT", loss="ces", **kw, device=dev)
+    b16 = os.path.join(root, "bundle_bf16")
+    export_model(pred, b16, buckets=(BUNDLE_BUCKET,), batch_sizes=(BUNDLE_B,),
+                 platforms=("cuda",), weights_dtype="bfloat16")
+    name = f"b{BUNDLE_BUCKET}_n{BUNDLE_B}.pt2"
+    s32 = os.path.getsize(os.path.join(dirs["NaCAGaT ces"], name))
+    s16 = os.path.getsize(os.path.join(b16, name))
+    got16 = ExportedModel(b16, device=dev).predict_bags(bags, omics)
+    ref = pred.predict_bags(bags, omics)
+    d16 = float(np.abs(got16["risk"] - ref["risk"]).max())
+    if not s16 < 0.65 * s32:
+        raise AssertionError(f"bf16 bundle {s16} bytes against {s32}")
+    log(f"phase 29 (e): bfloat16-weight bundle {s16 / 2**20:.1f} MiB against {s32 / 2**20:.1f} "
+        f"MiB (float32); risk within {d16:.3e} of the float32 Predictor")
+    # server --bundle over HTTP
+    server = make_bundle_server(dirs["NaCAGaT ces"], port=0, device=dev)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        before = read_counts()
+        status, body = http(base + "/predict_batch_npz", npz_bytes(bags=bags, omics_list=omics))
+        add(read_counts(), before)
+    finally:
+        server.shutdown()
+        server.server_close()
+    if status != 200:
+        raise AssertionError(f"server --bundle: {status} {body}")
+    err = float(np.abs(np.asarray(body["risk"]) - ref["risk"]).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"server --bundle: risk {err:.3e} from the Predictor")
+    log(f"phase 29 (e): server --bundle /predict_batch_npz of {len(bags)} bags: risk within "
+        f"{err:.2e} of the card's Predictor")
+
+
+def p29_remat(dev, power, add) -> None:
+    """(f) NaCAGaT medium and big and GE medium: three graphed training steps
+    with remat on and off, dropout 0.25: parameters bit for bit; each one's
+    peak memory and step ms (steps 2-3, CUDA events)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train.loop import init_train_state, make_train_step
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    rng = np.random.default_rng(30)
+    bags, omics = serve_bags(rng, 16, (1500, TRAIN_M), SIZES)
+    nb = {"wsi": torch.zeros((16, TRAIN_M, 1024), device=dev),
+          "mask": torch.zeros((16, TRAIN_M), dtype=torch.bool, device=dev)}
+    for r, b in enumerate(bags):
+        nb["wsi"][r, :len(b)] = torch.from_numpy(b).to(dev)
+        nb["mask"][r, :len(b)] = True
+    nb.update(omics=[torch.from_numpy(np.stack([o[j] for o in omics])).to(dev)
+                     for j in range(len(SIZES))],
+              label=torch.from_numpy(rng.integers(0, 4, 16)).to(dev),
+              censorship=torch.from_numpy(rng.integers(0, 2, 16).astype(np.float32)).to(dev),
+              survival_months=torch.from_numpy(rng.uniform(1, 100, 16).astype(np.float32)).to(dev),
+              weight=torch.ones(16, device=dev))
+    ge_batch = stage_ge_train_batch(dev, [b[:7000] for b in bags[:GE_B]], m_len=TRAIN_M)
+    for what, name, size, loss, batch in (("NaCAGaT medium", "NaCAGaT", "medium", "cesar", nb),
+                                           ("NaCAGaT big", "NaCAGaT", "big", "cesar", nb),
+                                           ("GE medium", "GE-NaCAGaT", "medium", "ce", ge_batch)):
+        res = {}
+        for on in (False, True):
+            ge = name.startswith("GE")
+            model = seeded_init_(build_model(name, omic_sizes=() if ge else SIZES,
+                                             model_size=size, dropout=TRAIN_RATE), 0).to(dev)
+            opt = make_optimizer("adam", 2e-4, 1e-5)
+            state = init_train_state(model, opt, seed=0)
+            step = make_train_step(model, loss, opt, ge_mode=ge,
+                                   omic_sizes=None if ge else SIZES, remat=on)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = read_counts()
+            state, _ = step(state, batch)  # warm-up and capture
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REMAT_STEPS - 1):
+                state, m = step(state, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            add(read_counts(), before)
+            res[on] = dict(ms=start.elapsed_time(stop) / (REMAT_STEPS - 1),
+                           peak=torch.cuda.max_memory_allocated(), loss=float(m.loss),
+                           params=[p.detach().clone() for p in model.parameters()],
+                           gen=state.generator.get_state())
+            del model, state, step
+        if res[True]["loss"] != res[False]["loss"] or not all(
+                torch.equal(a, b) for a, b in zip(res[True]["params"], res[False]["params"])) \
+                or not torch.equal(res[True]["gen"], res[False]["gen"]):
+            raise AssertionError(f"remat {what}: not bit for bit the step without it")
+        log(f"phase 29 (f): remat {what}, {REMAT_STEPS} graphed steps, dropout {TRAIN_RATE}: "
+            f"parameters and generator bit for bit; peak {res[False]['peak'] / 2**30:.3f} -> "
+            f"{res[True]['peak'] / 2**30:.3f} GiB, step {res[False]['ms']:.2f} -> "
+            f"{res[True]['ms']:.2f} ms ({power})")
+        log(json.dumps({"phase29_remat": what, **{f"{k}_{on}": v for on in (False, True)
+                                                  for k, v in res[on].items()
+                                                  if k in ("ms", "peak", "loss")}}))
+        del res
+        torch.cuda.empty_cache()
+
+
+def phase29_tooling(dev, parts: str = "abcdef") -> dict:
+    """The tooling on the card (see the module doc); ``parts``: which of
+    (a)-(f) to run. Returns the launches of the phase's runs on the card."""
+    import shutil
+    import tempfile
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    total = {}
+
+    def add(after, before):
+        for k, v in after.items():
+            if v - before.get(k, 0):
+                total[k] = total.get(k, 0) + v - before.get(k, 0)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        t0 = time.perf_counter()
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **TRAINER_COHORT)
+        log(f"phase 29: cohort written in {time.perf_counter() - t0:.1f} s")
+        steps, native = [], {}
+        for part, run in (("a", lambda: p29_native(dev, root, paths, power, add)),
+                          ("b", lambda: p29_profile(dev, root, paths, power, add)),
+                          ("c", lambda: p29_plan(dev, root, paths, power, add,
+                                                 native.get(False, {}).get("peak"))),
+                          ("d", lambda: p29_cv_sweep(dev, root, paths, power, add)),
+                          ("e", lambda: p29_bundles(dev, root, power, add)),
+                          ("f", lambda: p29_remat(dev, power, add))):
+            if part not in parts:
+                continue
+            t0 = time.perf_counter()
+            out = run()
+            if part == "a":
+                native = out
+            steps.append(f"({part}) {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 29: {time.perf_counter() - t_phase:.1f} s ({', '.join(steps)}; {power})")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6002,7 +6421,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-28")
+                         "Trainer epoch host-fed and cached instead of phases 1-29")
     args = ap.parse_args()
     try:
         import torch
@@ -6174,6 +6593,10 @@ def main() -> int:
     p28 = phase28_mesh(dev)
     for row in rows:  # (a) in this process and (b)'s ranks: the gather, the fuse-K pair
         row["launches"] += p28["a"].get(row["name"], 0) + p28["b"].get(row["name"], 0)
+    torch.cuda.empty_cache()
+    p29 = phase29_tooling(dev)
+    for row in rows:  # the tooling's runs: the Trainer, the bundles' custom ops, remat steps
+        row["launches"] += p29.get(count_of(row["name"]), 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

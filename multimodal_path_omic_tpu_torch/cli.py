@@ -22,6 +22,17 @@ config says ``device: cpu`` (``--set device=cpu``):
     python -m multimodal_path_omic_tpu_torch.cli serve --config cfg.yaml \\
         --checkpoint ... --port 8008 --dynamic-batch 8
     python -m multimodal_path_omic_tpu_torch.cli bench --config cfg.yaml --epochs 5
+    python -m multimodal_path_omic_tpu_torch.cli train --config cfg.yaml --profile-dir trace/
+    python -m multimodal_path_omic_tpu_torch.cli profile --config cfg.yaml --top 20
+    python -m multimodal_path_omic_tpu_torch.cli profile --trace-dir trace/
+    python -m multimodal_path_omic_tpu_torch.cli plan --config cfg.yaml
+    python -m multimodal_path_omic_tpu_torch.cli cv --config cfg.yaml --folds 5 \
+        --out cv.json [--save-folds]
+    python -m multimodal_path_omic_tpu_torch.cli sweep --config cfg.yaml \
+        --grid training.lr=1e-4,2e-4 --grid model.fusion=concat,bilinear --out sweep.json
+    python -m multimodal_path_omic_tpu_torch.cli export-model --config cfg.yaml \
+        --checkpoint ... --out bundle/ --batch-sizes 1,8
+    python -m multimodal_path_omic_tpu_torch.cli serve --bundle bundle/ --port 8008
 
 On a mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) ``train``, ``validate``,
 ``predict``, ``evaluate`` and ``stratify`` run under torchrun, one rank a
@@ -31,10 +42,6 @@ GPU, and only rank 0 prints and writes files:
         --config cfg.yaml --set tpu.data_axis=2
 
 ``serve`` on a mesh raises (ROADMAP.md queue 1, multi-GPU follow-ups).
-
-``cv``, ``sweep``, ``plan``, ``profile`` and ``export-model`` take the JAX
-package's flags and exit non-zero: their modules are not ported yet
-(ROADMAP.md queue 1, tooling).
 """
 
 from __future__ import annotations
@@ -44,16 +51,6 @@ import json
 import os
 import sys
 from typing import Any, Dict, List, Optional
-
-# unported commands -> the ROADMAP.md item that ports them
-UNPORTED = {
-    "cv": "train/cv.py",
-    "sweep": "train/sweep.py",
-    "plan": "train/plan.py",
-    "profile": "train/profiling.py",
-    "export-model": "deploy.py",
-}
-
 
 def _parse_overrides(pairs: List[str], args=None) -> Dict[str, Any]:
     from multimodal_path_omic_tpu_torch.config import parse_cli_scalar
@@ -94,11 +91,16 @@ def _print_metrics(result: Dict[str, float]) -> None:
 
 
 def cmd_train(args) -> int:
-    if args.profile_dir:
-        print("train --profile-dir: the port has no trace capture yet (profile_trace, "
-              "ROADMAP.md queue 1, tooling: train/profiling.py)", file=sys.stderr)
-        return 2
-    _print_metrics(_trainer(args).fit())
+    trainer = _trainer(args)
+    if args.profile_dir:  # a torch.profiler trace of the whole run (train/logging.py)
+        from multimodal_path_omic_tpu_torch.train.logging import profile_trace
+
+        with profile_trace(args.profile_dir):
+            result = trainer.fit()
+        print(f"trace written under {args.profile_dir}")
+    else:
+        result = trainer.fit()
+    _print_metrics(result)
     return 0
 
 
@@ -188,10 +190,83 @@ def cmd_bench(args) -> int:
     return 0
 
 
-def cmd_unported(args) -> int:
-    print(f"{args.command}: not ported yet; it needs {UNPORTED[args.command]} "
-          "(ROADMAP.md queue 1, tooling)", file=sys.stderr)
-    return 2
+def cmd_cv(args) -> int:
+    """Patient-level k-fold cross-validation (train/cv.py)."""
+    from multimodal_path_omic_tpu_torch.train.cv import cross_validate, save_results
+
+    folds = [int(x) for x in args.fold_indices.split(",")] if args.fold_indices else None
+    result = cross_validate(_config(args), k=args.folds, fold_indices=folds,
+                            save_folds=args.save_folds)
+    save_results(result, args.out)
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    """Grid sweep (train/sweep.py): the cartesian product of the --grid
+    axes, each a full training run, ranked best first."""
+    from multimodal_path_omic_tpu_torch.train.sweep import run_sweep
+
+    result = run_sweep(args.config, args.grid or [],
+                       base_overrides=_parse_overrides(args.set, args), metric=args.metric)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+def cmd_plan(args) -> int:
+    """Memory-fit report (train/plan.py); exit 1 when it does not fit."""
+    from multimodal_path_omic_tpu_torch.train.plan import format_plan, memory_plan
+
+    plan = memory_plan(_config(args))
+    print(format_plan(plan))
+    return 0 if plan["fits"] else 1
+
+
+def cmd_profile(args) -> int:
+    """Trace a short training run and print the ranked device-op report
+    (train/profiling.py); ``--trace-dir`` alone reads an existing capture
+    (``train --profile-dir``'s)."""
+    from multimodal_path_omic_tpu_torch.train.profiling import (
+        format_report,
+        parse_trace,
+        profile_training,
+    )
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    if args.config is None:
+        if not args.trace_dir:
+            print("profile: need --config (capture + analyze) or --trace-dir")
+            return 1
+        print(format_report(parse_trace(args.trace_dir, steps=args.steps or None),
+                            top=args.top))
+        return 0
+    cfg = _config(args)
+    trace_dir = args.trace_dir or os.path.join(cfg.training.checkpoint_dir or ".",
+                                               "profile_trace")
+    profile_training(Trainer(cfg), trace_dir, epochs=args.epochs, top=args.top)
+    print(f"trace kept at {trace_dir}")
+    return 0
+
+
+def cmd_export_model(args) -> int:
+    """Export the trained model as a deployment bundle (deploy.py)."""
+    from multimodal_path_omic_tpu_torch.deploy import export_model
+
+    if not (args.checkpoint or args.torch_checkpoint or args.allow_untrained):
+        # unlike validate / predict, this mints a deployment artifact: a
+        # bundle of random weights looks valid and serves garbage
+        raise SystemExit("export-model without --checkpoint/--torch-checkpoint would bundle "
+                         "RANDOM weights; pass --allow-untrained if that is really what you "
+                         "want")
+    manifest = export_model(
+        _trainer(args), args.out,
+        batch_sizes=tuple(int(x) for x in args.batch_sizes.split(",")),
+        platforms=tuple(args.platforms.split(",")) if args.platforms else None,
+        max_bag=args.max_bag, weights_dtype=args.weights_dtype)
+    print(f"Exported {len(manifest['artifacts'])} programs ({manifest['model']}, buckets "
+          f"{manifest['buckets']}, batch sizes {manifest['batch_sizes']}) to {args.out}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -217,7 +292,7 @@ def build_parser() -> argparse.ArgumentParser:
         return p
 
     p = command("train", cmd_train, "train a model (mcat/nacagat/ge_nacagat)")
-    p.add_argument("--profile-dir", help="capture a trace here (not ported)")
+    p.add_argument("--profile-dir", help="capture a torch.profiler trace of the run here")
 
     p = command("validate", cmd_validate, "run validation only")
     p.add_argument("--checkpoint", help="checkpoint to restore")
@@ -274,43 +349,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32", choices=("float32", "float16"))
     p.set_defaults(fn=cmd_convert_bags)
 
-    # the JAX package's commands whose modules are not ported: their flags,
-    # and an exit naming what is missing
-    p = command("sweep", cmd_unported, "grid sweep (not ported)")
-    p.add_argument("--grid", action="append", metavar="KEY=V1,V2,...")
-    p.add_argument("--metric")
-    p.add_argument("--out")
-    p = command("cv", cmd_unported, "patient-level k-fold cross-validation (not ported)")
+    p = command("sweep", cmd_sweep, "grid sweep: train the cartesian product of --grid "
+                "axes, rank by the quality metric")
+    p.add_argument("--grid", action="append", metavar="KEY=V1,V2,...",
+                   help="dotted config key and its comma-separated values; repeat per axis")
+    p.add_argument("--metric", help="rank key (default: val_c_index / val_accuracy)")
+    p.add_argument("--out", help="write ranked results JSON")
+    p = command("cv", cmd_cv, "patient-level k-fold cross-validation (mean ± std metric)")
     p.add_argument("--folds", type=int, default=5)
-    p.add_argument("--out")
-    p.add_argument("--save-folds", action="store_true")
-    p.add_argument("--fold-indices")
-    p = command("export-model", cmd_unported, "deployment bundle (not ported)")
+    p.add_argument("--out", help="write per-fold + aggregate results JSON")
+    p.add_argument("--save-folds", action="store_true",
+                   help="save each fold's model under <checkpoint_dir>/fold<i>/ (an "
+                   "ensemble for predict / serve)")
+    p.add_argument("--fold-indices", help="comma-separated folds to run (default: all)")
+    p = command("export-model", cmd_export_model,
+                "deployment bundle: one torch.export program per (bucket, batch size)")
     p.add_argument("--checkpoint")
-    p.add_argument("--out", required=True)
-    p.add_argument("--batch-sizes", default="1")
-    p.add_argument("--platforms", default="cpu,tpu")
-    p.add_argument("--max-bag", type=int, default=None)
-    p.add_argument("--allow-untrained", action="store_true")
-    p.add_argument("--weights-dtype", default="float32", choices=("float32", "bfloat16"))
+    p.add_argument("--out", required=True, help="bundle directory")
+    p.add_argument("--batch-sizes", default="1", help="comma-separated batch sizes")
+    p.add_argument("--platforms", default=None,
+                   help="devices to check the bundle on after export (cpu,cuda; default "
+                   "the config's device)")
+    p.add_argument("--max-bag", type=int, default=None,
+                   help="largest bag to serve: export the rounded-up buckets beyond the "
+                   "config's")
+    p.add_argument("--allow-untrained", action="store_true",
+                   help="export without a checkpoint (random weights)")
+    p.add_argument("--weights-dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="bfloat16: the parameters stored in bfloat16, computed in float32")
     p = command("bench", cmd_bench, "steady-state training throughput on your config/data")
     p.add_argument("--epochs", type=int, default=5, help="timed epochs")
     p.add_argument("--warmup", type=int, default=1,
                    help="untimed epochs (kernel build, graph capture, cache upload)")
     p.add_argument("--validate", action="store_true",
                    help="time validated epochs (training + validation)")
-    command("plan", cmd_unported, "memory-fit report (not ported)")
-    p = command("profile", cmd_unported, "trace and rank device ops (not ported)",
+    command("plan", cmd_plan, "memory-fit report: will this config fit the device?")
+    p = command("profile", cmd_profile,
+                "trace a short training run and print a ranked device-op report",
                 config_required=False)
-    p.add_argument("--trace-dir")
-    p.add_argument("--epochs", type=int, default=1)
-    p.add_argument("--steps", type=int, default=0)
-    p.add_argument("--top", type=int, default=25)
+    p.add_argument("--trace-dir", help="where to write the capture; alone (no --config): "
+                   "read an existing capture")
+    p.add_argument("--epochs", type=int, default=1,
+                   help="traced epochs after the untraced warm-up epoch")
+    p.add_argument("--steps", type=int, default=0,
+                   help="with --trace-dir alone: per-step normalizer")
+    p.add_argument("--top", type=int, default=25, help="ranked rows to print")
 
     # listed for --help; main() hands `serve` to the server before argparse
     sub.add_parser("serve", add_help=False,
-                   help="HTTP scoring server (flags: --config --checkpoint --port --warmup "
-                   "--dynamic-batch ...; see `serve --help`)")
+                   help="HTTP scoring server (flags: --config --checkpoint | --bundle, --port "
+                   "--warmup --dynamic-batch ...; see `serve --help`)")
     return parser
 
 

@@ -255,14 +255,11 @@ class TpuConfig:
     seq_axis: int = 1
     # Use Pallas fused kernels where available.
     use_pallas: bool = True
-    # Rematerialize the [B, M, d] patch-axis intermediates in the backward
-    # pass (jax.checkpoint with a save_anything_except_these_names policy
-    # over the 'remat_big' tensors tagged in ops/blocks.py + ops/attention.py:
-    # WSI-encoder activations and attention q/k/v projections). Trades one
-    # extra MXU pass for not round-tripping the model's largest residuals
-    # through HBM — lets bigger B*M fit patch_budget. Off by default: at the
-    # shipping batch shapes the step is not memory-bound and remat only adds
-    # FLOPs; turn on for huge-bag / huge-batch configs that OOM or spill.
+    # Recompute the [B, M, d] patch-axis intermediates in the backward pass
+    # instead of saving them (ops/remat.py: the WSI-encoder activations and
+    # the attention q/k/v projections, the tensors JAX tags 'remat_big').
+    # Trades one extra pass of those matmuls for the model's largest
+    # residuals; the gradients are the same bit for bit.
     remat: bool = False
     # Host pipeline prefetch depth: dispatch groups read, padded and staged
     # on the card ahead of the steps (data/pipeline.py::prefetch).
@@ -458,9 +455,7 @@ def resolve_dtype(value: str) -> str:
 
 
 def require_supported(cfg: Config, world: Optional[int] = None) -> None:
-    """Raise for a setting the port cannot honour. ``remat`` raises
-    ``NotImplementedError``, naming the ROADMAP.md queue 1 item that ports
-    it. A mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) needs exactly that
+    """Raise for a setting the port cannot honour. A mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) needs exactly that
     many ranks, one a device (torchrun's world, ``world``; by default the
     process group's or torchrun's ``WORLD_SIZE``): another world size raises
     ``ValueError`` naming it, as the JAX ``make_mesh`` refuses a mesh that
@@ -482,5 +477,3 @@ def require_supported(cfg: Config, world: Optional[int] = None) -> None:
                 f"tpu.data_axis={t.data_axis} x tpu.seq_axis={t.seq_axis} needs {n} ranks, one a "
                 f"device, but the world size is {world}: launch {n} ranks with torchrun "
                 f"(--nproc-per-node {n})")
-    if t.remat:
-        raise NotImplementedError("tpu.remat is not ported (ROADMAP.md queue 1, tooling)")

@@ -12,10 +12,13 @@ Partial batches are padded with repeated samples carrying ``weight 0`` so
 shapes stay fixed; losses use the weights (ops/losses.py ``sample_weight``)
 and metrics drop them. For one seed and epoch the batches, and their order,
 are the JAX package's. On a mesh each rank reads only its slice of every
-global batch (:attr:`BucketBatcher.host_slice`). The JAX package's C++
-loader is not ported (ROADMAP.md queue 1, tooling): bags load through the
+global batch (:attr:`BucketBatcher.host_slice`). Bags load through the
 dataset's store, and :func:`prefetch` overlaps that with the device in a
-thread.
+thread; with ``use_native_pipeline`` (the Trainer sets it from
+``tpu.use_native_pipeline``) a directory of ``.npy`` bags is read by the C++
+loader instead (``data/native.py``): :meth:`BucketBatcher.native_pipeline`
+fills pinned slots with each batch's own rows, which the :class:`Stager`
+copies to the device as they are.
 """
 
 from __future__ import annotations
@@ -65,6 +68,12 @@ class BucketBatcher:
     that share a data position read the same rows.
     """
 
+    # The C++ reader (data/native.py), where the Trainer asks for it: its
+    # pipeline's slots are recycled only after their copies to the device
+    # (the Trainer's native feed), so the aliasing hazard of JAX
+    # ``pipeline.py:230-240`` cannot reach a consumer.
+    use_native_pipeline: bool = False
+
     def __init__(self, dataset, extras_fn, batch_size: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, shuffle: bool = True,
                  seed: int = 0, host_slice=None):
@@ -76,10 +85,56 @@ class BucketBatcher:
         self.seed = seed
         self._epoch = 0
         self._lengths = None  # bag lengths, probed once
+        self._native = None  # the NativeBagStore; False once the Python reader is chosen
+        self.reader_note = ""  # why the Python reader reads, where the native one was asked for
+        self._slots = None  # the native pipeline's slot ring, kept across epochs
         self.host_slice = host_slice
+
+    def native_store(self):
+        """The C++ store (``data/native.py::shared_store``) where
+        ``use_native_pipeline`` is set and the dataset's store is a directory
+        of ``.npy`` bags, else None (then :attr:`reader_note` says why). A
+        loader that does not build raises; the Python reader then does not
+        stand in for it."""
+        if not self.use_native_pipeline or self._native is False:
+            return None
+        if self._native is None:
+            from multimodal_path_omic_tpu_torch.data.bags import NpyBagStore
+
+            store = getattr(self.dataset, "store", None)
+            if not isinstance(store, NpyBagStore) or not hasattr(self.dataset, "slide_id"):
+                self._native = False
+                self.reader_note = f"the bag store is {type(store).__name__}, not .npy"
+                return None
+            from multimodal_path_omic_tpu_torch.data.native import shared_store
+
+            self._native = shared_store(store.patches_dir)
+            self._lengths = None  # probed again, from the headers
+        return self._native
+
+    @property
+    def reader(self) -> str:
+        """"native" or "python": which reader loads this batcher's bags."""
+        if len(self.dataset):
+            self._bag_lengths()  # a header the loader cannot parse drops it
+        return "native" if self.native_store() is not None else "python"
 
     def _bag_lengths(self) -> np.ndarray:
         if self._lengths is None:
+            native = self.native_store()
+            if native is not None:
+                lengths = np.array([native.length(self.dataset.slide_id(i))
+                                    for i in range(len(self.dataset))], dtype=np.int64)
+                if (lengths < 0).any():
+                    # a bag the C++ header parser refuses (another dtype, 1-D,
+                    # Fortran order) but np.load reads: the Python reader takes
+                    # the whole cohort (JAX pipeline.py:104-113)
+                    self._native = False
+                    self.reader_note = ("a .npy header the native loader cannot parse: "
+                                        + self.dataset.slide_id(int(np.argmax(lengths < 0))))
+                else:
+                    self._lengths = lengths
+                    return lengths
             self._lengths = self._lengths_with_sidecar()
         return self._lengths
 
@@ -194,6 +249,47 @@ class BucketBatcher:
         window = mesh.patches(bucket)
         return full[rows], weight[rows], window, window.stop - window.start
 
+    def _row_tasks(self, indices: List[int], bucket: int):
+        """The rows of ``_make_rows(indices, bucket)`` as the native pipeline
+        reads them: (full, weight, width, [(slide_id, first row, rows)] a
+        row, in order)."""
+        full, weight = pad_plan_indices(indices, self.batch_size)
+        full, weight, window, width = self._local(full, weight, bucket)
+        lengths = self._bag_lengths()
+        tasks = []
+        for i in full:
+            n = int(lengths[i])
+            if n > bucket:
+                raise ValueError(f"bag of {n} patches exceeds bucket {bucket}")
+            rows = max(0, min(n, window.stop) - window.start)
+            tasks.append((self.dataset.slide_id(i), window.start, rows))
+        return full, weight, width, tasks
+
+    def native_pipeline(self, plan, pinned: bool = False):
+        """A ``data/native.py::NativePipeline`` over ``plan``'s batches, each
+        ``(indices, bucket)`` as :meth:`_epoch_plan` gives them."""
+        from multimodal_path_omic_tpu_torch.data.native import NativePipeline
+
+        store = self.native_store()
+        dim = store.dim(self.dataset.slide_id(0))
+        # one slot ring for the batcher's epochs, reused once the last
+        # epoch's copies are done (its consumer waited on each of them)
+        pipe = NativePipeline(store, [self._row_tasks(idx, b)[3] for idx, b in plan], dim,
+                              pinned=pinned, slots=self._slots)
+        self._slots = pipe.slots
+        return pipe
+
+    def native_rows(self, indices: List[int], bucket: int, rows) -> Batch:
+        """:meth:`_make_rows`' batch with the bags' rows, packed, as one
+        part: ``rows`` [P, D], the native pipeline's slot view."""
+        full, weight, width, tasks = self._row_tasks(indices, bucket)
+        batch = rows_layout([t[2] for t in tasks], width, len(full))
+        batch["rows"] = [rows]
+        batch.update(weight=weight, index=np.array(full, np.int32), bucket=bucket,
+                     n_real=int(weight.sum()))
+        batch.update(self.extras_fn(self.dataset, np.array(full)))
+        return batch
+
     def _make_rows(self, indices: List[int], bucket: int) -> Batch:
         """:meth:`_make_batch` without the padding: each row's bag as it is
         ('rows', a list of [M_i, D] float32 arrays, filler rows included) and
@@ -231,16 +327,22 @@ def bag_rows(bags: Sequence[np.ndarray], bucket: int, n: int) -> Dict[str, Any]:
     patches) without its padding: 'rows', the bags as float32 arrays;
     'pos', a list of each bag's positions in the batch flattened to
     [n * bucket]; 'mask' [n, bucket]."""
+    rows = [np.asarray(bag, np.float32) for bag in bags]
+    out = rows_layout([len(r) for r in rows], bucket, n)
+    out["rows"] = rows
+    return out
+
+
+def rows_layout(lengths: Sequence[int], bucket: int, n: int) -> Dict[str, Any]:
+    """'pos' and 'mask' of :func:`bag_rows` for bags of ``lengths``."""
     mask = np.zeros((n, bucket), dtype=bool)
-    rows, pos = [], []
-    for row, bag in enumerate(bags):
-        bag = np.asarray(bag, np.float32)
-        if len(bag) > bucket:
-            raise ValueError(f"bag of {len(bag)} patches exceeds bucket {bucket}")
-        rows.append(bag)
-        mask[row, :len(bag)] = True
-        pos.append(row * bucket + np.arange(len(bag), dtype=np.int64))
-    return {"rows": rows, "pos": pos, "mask": mask}
+    pos = []
+    for row, m in enumerate(lengths):
+        if m > bucket:
+            raise ValueError(f"bag of {m} patches exceeds bucket {bucket}")
+        mask[row, :m] = True
+        pos.append(row * bucket + np.arange(m, dtype=np.int64))
+    return {"pos": pos, "mask": mask}
 
 
 def survival_extras(dataset, indices: np.ndarray) -> Dict[str, np.ndarray]:
@@ -262,15 +364,17 @@ def _transfer_rows(rows: Sequence[np.ndarray], transfer_dtype: str):
     """A batch's bags in the transfer type: (the rows, their int8 row scales
     or None). bfloat16: torch tensors (numpy has no bfloat16), rounded to
     nearest even; int8: each row quantized (``data/quant.py``)."""
-    if transfer_dtype == "bfloat16":
-        import torch
+    import torch
 
-        return [torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(torch.bfloat16)
+    if transfer_dtype == "bfloat16":
+        return [_as_tensor(np.ascontiguousarray(r, np.float32)).to(torch.bfloat16)
                 for r in rows], None
     if transfer_dtype == "int8":
-        pairs = [quantize_bag_int8(r) for r in rows]
+        pairs = [quantize_bag_int8(np.asarray(r)) for r in rows]
         return [q for q, _ in pairs], [sc for _, sc in pairs]
-    return [np.ascontiguousarray(r, np.float32) for r in rows], None
+    # float32 rows pass as they are: a native slot stays a pinned tensor
+    return [r if isinstance(r, torch.Tensor) and r.dtype == torch.float32
+            else np.ascontiguousarray(r, np.float32) for r in rows], None
 
 
 def device_arrays(batch: Batch, ge_mode: bool, transfer_dtype: str = "float32"
@@ -381,7 +485,9 @@ class Stager:
     stager's own copy stream, so the copies overlap the compute stream's
     work. A buffer is refilled only after its last copy has finished (its
     event has passed); the consumer's stream waits on the staged batch's
-    event (:meth:`Staged.take`). Meant to run in :func:`prefetch`'s thread;
+    event (:meth:`Staged.take`). An array that is pinned already (a native
+    pipeline's slot) is copied to the device as it is; its owner reuses it
+    after the staged batch's event. Meant to run in :func:`prefetch`'s thread;
     calls from several threads take turns (a lock).
 
     On the CPU it makes the same tensors as :func:`to_device`, with no copy
@@ -435,6 +541,13 @@ class Stager:
                        for k, a in rows[0].items()}
                 for i, row in enumerate(rows):
                     for k, a in row.items():
+                        dst = out[k][i] if stacked else out[k]
+                        if _pinned(a):  # pinned already (a native slot): copied as it is
+                            off = 0
+                            for part in (a if isinstance(a, list) else [a]):
+                                dst[off:off + len(part)].copy_(part, non_blocking=True)
+                                off += len(part)
+                            continue
                         host, done = self._next_buffer(k, a)
                         if isinstance(a, list):
                             off = 0
@@ -445,7 +558,7 @@ class Stager:
                         else:
                             host.copy_(_as_tensor(a))
                             src = host
-                        (out[k][i] if stacked else out[k]).copy_(src, non_blocking=True)
+                        dst.copy_(src, non_blocking=True)
                         done.record(self._stream)
                 ready = torch.cuda.Event()
                 ready.record(self._stream)
@@ -476,6 +589,14 @@ def _as_tensor(a):
     import torch
 
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _pinned(a) -> bool:
+    """Whether ``a`` (or every part of a list) is a pinned CPU tensor."""
+    import torch
+
+    parts = a if isinstance(a, list) else [a]
+    return bool(parts) and all(isinstance(p, torch.Tensor) and p.is_pinned() for p in parts)
 
 
 def _joined(a):

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_path_omic_tpu_torch.ops import remat
 from multimodal_path_omic_tpu_torch.ops.coattn import (
     attention_with_weights,
     fused_attention,
@@ -266,9 +267,12 @@ class MultiheadAttention(nn.Module):
             f"{need_weights!r})")
 
     def _proj(self, x, lo: int, hi: int):
+        """The q / k / v projections (rows ``lo`` to ``hi`` of the packed
+        weight), tagged for ``tpu.remat`` (JAX ``attention.py:251-268``)."""
         e = self.embed_dim
-        return F.linear(cast(x, self), cast(self.in_proj_weight[lo * e:hi * e], self),
-                        cast(self.in_proj_bias[lo * e:hi * e], self))
+        out = F.linear(cast(x, self), cast(self.in_proj_weight[lo * e:hi * e], self),
+                       cast(self.in_proj_bias[lo * e:hi * e], self))
+        return remat.tag(out, self._proj, x, lo, hi)
 
     def forward(self, query, key, value, key_mask=None, *, need_weights=True,
                 average_attn_weights: bool = True, return_projected_q: bool = False,
@@ -440,3 +444,49 @@ class PreGatingContextualAttention(nn.Module):
             generator=generator,
         )
         return attn_out + self.cag(query, q_proj), weights
+
+
+class PreGatedAttention(nn.Module):
+    """Standalone pre-gated cross-attention (JAX ``attention.py:651-675``;
+    reference: blocks.py:209-229), not used by any model. Faithful quirks:
+    ``scores = QK^T / scale`` with ``scale = 1/sqrt(dk)``, i.e. the scores
+    are multiplied by sqrt(dk) (blocks.py:213, 225), and the pre-gate P is
+    computed but not applied (blocks.py:224-225), so it is left out.
+
+    x1 [..., M, x1_dim] (keys and values), x2 [..., N, x2_dim] (queries),
+    key_mask [..., M] -> (q [..., N, dk], q_hat [..., N, dk], weights
+    [..., N, M])."""
+
+    def __init__(self, x1_dim: int, x2_dim: int, dk: int = 256):
+        super().__init__()
+        self.dk = dk
+        self.fc_q = TorchLinear(x2_dim, dk)
+        self.fc_k = TorchLinear(x1_dim, dk)
+        self.fc_v = TorchLinear(x1_dim, dk)
+
+    def forward(self, x1, x2, key_mask=None):
+        q = self.fc_q(cast(x2, self))
+        k = self.fc_k(cast(x1, self))
+        v = self.fc_v(cast(x1, self))
+        scores = torch.matmul(q, k.transpose(-1, -2)) * math.sqrt(self.dk)
+        weights = masked_softmax(scores, None if key_mask is None else key_mask[..., None, :])
+        return q, torch.matmul(weights, v), weights
+
+
+class PreGatingContextualAttentionGate(nn.Module):
+    """The PCAG composite (JAX ``attention.py:678-698``; reference:
+    blocks.py:256-285): PreGatedAttention, then the CAG, then final_fc(Q).
+    The reference returns ``(relu(final_fc(Q)), attention weights)`` with the
+    ``Q + C`` residual commented out (blocks.py:284-285), reproduced as it
+    is: the CAG's output is computed and unused. Not used by any model."""
+
+    def __init__(self, x1_dim: int, x2_dim: int, dk: int = 256, output_dim: int = 128):
+        super().__init__()
+        self.pg_coattn = PreGatedAttention(x1_dim, x2_dim, dk)
+        self.cag = ContextualAttentionGate(dk, output_dim)
+        self.final_fc = TorchLinear(dk, output_dim)
+
+    def forward(self, x1, x2, key_mask=None):
+        q, q_hat, weights = self.pg_coattn(x1, x2, key_mask)
+        self.cag(q, q_hat)  # computed and discarded, as in the reference
+        return F.relu(self.final_fc(q)), weights

@@ -21,8 +21,15 @@ from multimodal_path_omic_tpu_torch.ops.layers import (
     masked_softmax,
     seq_sharded,
 )
-from multimodal_path_omic_tpu_torch.ops.milpool import fused_gated_mil_pool
+from multimodal_path_omic_tpu_torch.ops import remat
+from multimodal_path_omic_tpu_torch.ops import milpool as _milpool  # noqa: F401 (registers the op)
 from multimodal_path_omic_tpu_torch.ops.milpool import supports as milpool_supports
+
+
+def fused_gated_mil_pool(x, mask, wa, ba, wb, bb, wc, bc):
+    """``milpool.fused_gated_mil_pool`` through its custom op
+    ``mpo_torch::milpool`` (``deploy.py`` exports it as one node)."""
+    return torch.ops.mpo_torch.milpool(x, mask, wa, ba, wb, bb, wc, bc)
 
 
 class AttentionNetGated(nn.Module):
@@ -116,7 +123,11 @@ class GatedMILPool(nn.Module):
 class WSIEncoder(nn.Module):
     """Patch-embedding FC: Linear(F -> d) + ReLU + Dropout. With
     ``wsi_scale`` and an int8 ``wsi`` (``tpu.int8_matmul``) the projection
-    takes the int8 route (``layers.w8a8_linear``)."""
+    takes the int8 route (``layers.w8a8_linear``). Under ``tpu.remat``
+    (``ops/remat.py``) neither the fc output nor the post-dropout h is kept
+    (JAX tags both, ``blocks.py:184-190``): the ReLU keeps the sign of its
+    input (one byte an element), and the backward recomputes h from ``wsi``
+    and the forward's keep mask, in place."""
 
     def __init__(self, in_dim: int, dim: int, dropout_rate: float = 0.25):
         super().__init__()
@@ -125,7 +136,19 @@ class WSIEncoder(nn.Module):
 
     def forward(self, wsi: torch.Tensor, generator: Optional[torch.Generator] = None,
                 wsi_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.drop(F.relu(self.fc(wsi, wsi_scale)), generator)
+        if not remat.active():
+            return self.drop(F.relu(self.fc(wsi, wsi_scale)), generator)
+        r = remat.ReluSavingSign.apply(self.fc(wsi, wsi_scale))  # saves fc > 0, not fc
+        drawn = self.drop.keep_mask(r, generator)
+
+        def recompute(wsi_, scale_):  # in place: one [B, M, d] tensor at a time
+            h = self.fc(wsi_, scale_).relu_()
+            if drawn is None:
+                return h
+            keep, keep_prob = drawn
+            return h.div_(keep_prob).masked_fill_(~keep, 0.0)  # FastDropout.apply's values
+
+        return remat.tag(self.drop.apply(r, drawn), recompute, wsi, wsi_scale)
 
 
 class OmicEncoderStack(nn.Module):

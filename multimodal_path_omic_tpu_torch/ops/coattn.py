@@ -806,8 +806,8 @@ def fused_attention_leank(
             dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         o, ssq, sumw = FusedKTrain.apply(q, kv, wk, bk, key_mask, dropout_seed,
                                          float(dropout_rate), int(bag0))
-    else:
-        o, _, _, sumw = coattn_fwd_fused_k(q, kv, wk, bk, key_mask)
+    else:  # the eval form, through its custom op (deploy.py exports it)
+        o, sumw = torch.ops.mpo_torch.coattn_fused_k(q, kv, wk, bk, key_mask)
         ssq = None
     extras = ([ssq] if need_ssq else []) + ([sumw] if need_sumw else [])
     return tuple([o] + extras) if extras else o
@@ -837,8 +837,8 @@ def coattention(
             dropout_seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         o, ssq, sumw = PlainKAttention.apply(q, k, v, key_mask, dropout_seed,
                                              float(dropout_rate), bool(pre_gate), int(bag0))
-    else:
-        o = coattn_fwd_plain_k(q, k, v, key_mask, pre_gate=pre_gate, train=False)[0]
+    else:  # the eval form, through its custom op
+        o = torch.ops.mpo_torch.coattn_plain_k(q, k, v, key_mask, bool(pre_gate))
         ssq = sumw = None
     extras = ([ssq] if need_ssq else []) + ([sumw] if need_sumw else [])
     return tuple([o] + extras) if extras else o
@@ -886,12 +886,9 @@ def coattention_weights(
 ) -> torch.Tensor:
     """Normalized weights [B, N, M] by the two passes: (l, m) statistics,
     then the weight tiles recomputed from them; on the card both passes run
-    on one tile list, built by the first."""
-    if q.device.type == "cpu":
-        l, m = coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
-        return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
-    l, m, tiles = _stats_on_card(q, k, key_mask, pre_gate)
-    return _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles)
+    on one tile list, built by the first (the custom op
+    ``mpo_torch::coattention_weights``)."""
+    return torch.ops.mpo_torch.coattention_weights(q, k, key_mask, bool(pre_gate))
 
 
 def attention_with_weights(
@@ -961,3 +958,51 @@ def fused_attention_leank_sharded(q, kv, wk, bk, key_mask=None, *, mesh,
     return fused_attention_leank(q, kv, wk, bk, key_mask, dropout_rate=dropout_rate,
                                  dropout_seed=dropout_seed, need_ssq=need_ssq,
                                  need_sumw=need_sumw, bag0=mesh.d * q.shape[0])
+
+
+# =============================================================================
+# The eval forms as custom ops (mpo_torch::), so that torch.export traces
+# each as one node (deploy.py). An op's implementation is the wrapper above:
+# on a CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
+# version; the fake implementation gives the output shapes. The dispatchers
+# call the eval forms through the ops, so a bundle and the Predictor take
+# the same routes.
+# =============================================================================
+
+
+def register_op(name: str, schema: str, impl, fake):
+    """Register ``mpo_torch::<name>`` with ``impl`` on the CPU and CUDA."""
+    op = torch.library.custom_op(f"mpo_torch::{name}", impl, mutates_args=(),
+                                 device_types=("cpu", "cuda"), schema=schema)
+    op.register_fake(fake)
+    return op
+
+
+def _fused_k_eval(q, kv, wk, bk, key_mask):
+    o, _, _, sumw = coattn_fwd_fused_k(q, kv, wk, bk, key_mask)
+    return o, sumw
+
+
+def _plain_k_eval(q, k, v, key_mask, pre_gate):
+    return coattn_fwd_plain_k(q, k, v, key_mask, pre_gate=pre_gate, train=False)[0]
+
+
+def _coattention_weights(q, k, key_mask, pre_gate):
+    if q.device.type == "cpu":
+        l, m = coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
+        return coattn_weights_plain(q, k, key_mask, l, m, pre_gate=pre_gate)
+    l, m, tiles = _stats_on_card(q, k, key_mask, pre_gate)
+    return _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles)
+
+
+register_op("coattn_fused_k", "(Tensor q, Tensor kv, Tensor wk, Tensor bk, Tensor? key_mask) "
+          "-> (Tensor, Tensor)", lambda *a: _fused_k_eval(*a),
+          lambda q, kv, wk, bk, key_mask: (q.new_empty(q.shape[:2] + kv.shape[2:]),
+                                           q.new_empty(q.shape[:2], dtype=torch.float32)))
+register_op("coattn_plain_k", "(Tensor q, Tensor k, Tensor v, Tensor? key_mask, bool pre_gate) "
+          "-> Tensor", lambda *a: _plain_k_eval(*a),
+          lambda q, k, v, key_mask, pre_gate: q.new_empty(q.shape))
+register_op("coattention_weights", "(Tensor q, Tensor k, Tensor? key_mask, bool pre_gate) "
+          "-> Tensor", lambda *a: _coattention_weights(*a),
+          lambda q, k, key_mask, pre_gate: q.new_empty(q.shape[:2] + k.shape[1:2],
+                                                        dtype=torch.float32))

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_path_omic_tpu_torch.ops import kernels
+from multimodal_path_omic_tpu_torch.ops.coattn import register_op
 from multimodal_path_omic_tpu_torch.ops.layers import NEG_INF, round_bf16
 
 # The kernels' instances: GE small (one head of 128, eight of 16), medium
@@ -324,6 +325,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     limits of :func:`flash_fwd` apply."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, key_mask, sm_scale)
+    # the forward through its custom op (deploy.py exports it as one node);
+    # the op returns the [B, L, H, D] buffer
+    return torch.ops.mpo_torch.flash_fwd(q, k, v, key_mask, sm_scale).permute(0, 2, 1, 3)
+
+
+def _flash_fwd_op(q, k, v, key_mask, sm_scale):
+    """The forward as the [B, L, H, D] buffer: the kernel on CUDA, the plain
+    version on the CPU."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_mask, sm_scale)
-    return flash_fwd(q, k, v, key_mask, sm_scale)[0]
+        return flash_attention_plain(q, k, v, key_mask, sm_scale).permute(0, 2, 1, 3).contiguous()
+    return flash_fwd(q, k, v, key_mask, sm_scale)[0].permute(0, 2, 1, 3)
+
+
+register_op("flash_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? key_mask, float? sm_scale) "
+            "-> Tensor", lambda *a: _flash_fwd_op(*a),
+            lambda q, k, v, key_mask, sm_scale: q.new_empty(
+                (q.shape[0], q.shape[2], q.shape[1], q.shape[3])))
+

@@ -271,6 +271,23 @@ class FastDropout(nn.Module):
         return dropout(x, self.rate, generator,
                        1 if self.over_patches and seq_sharded(self) else None)
 
+    def keep_mask(self, x: torch.Tensor, generator: Optional[torch.Generator]):
+        """The (keep, keep_prob) that :meth:`forward` draws for ``x``, or
+        None where it is the identity (eval mode, rate 0); :meth:`apply`
+        then gives its output (``ops/remat.py`` reuses the draw)."""
+        if not self.training or self.rate == 0.0:
+            return None
+        kw = {"seq_dim": 1} if self.over_patches and seq_sharded(self) else {}
+        return fast_keep_mask(generator, self.rate, x.shape, x.device, **kw)
+
+    @staticmethod
+    def apply(x: torch.Tensor, drawn) -> torch.Tensor:
+        """:func:`dropout` of ``x`` with the :meth:`keep_mask` draw ``drawn``."""
+        if drawn is None:
+            return x
+        keep, keep_prob = drawn
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
 
 class AlphaDropout(FastDropout):
     """SELU-preserving alpha dropout with torch's formula: dropped units take

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_path_omic_tpu_torch.ops import kernels
+from multimodal_path_omic_tpu_torch.ops.coattn import register_op
 from multimodal_path_omic_tpu_torch.ops.layers import masked_softmax
 
 TILE = 64  # patches per tile (csrc/coattn_common.cuh FK_BM)
@@ -107,3 +108,14 @@ def fused_gated_mil_pool(
     kernels.check(err, "fused_gated_mil_pool")
     LAUNCH_COUNTS["milpool"] += 1
     return pooled, scores
+
+
+# The kernel as the custom op mpo_torch::milpool (deploy.py exports it as
+# one node): the wrapper above (the kernel on CUDA, the plain version on the
+# CPU); GatedMILPool's eval branch calls it.
+register_op("milpool", "(Tensor x, Tensor? mask, Tensor wa, Tensor ba, Tensor wb, Tensor bb, "
+            "Tensor wc, Tensor bc) -> (Tensor, Tensor)",
+            lambda *a: fused_gated_mil_pool(*a),
+            lambda x, mask, wa, ba, wb, bb, wc, bc: (x.new_empty((x.shape[0], x.shape[2])),
+                                                     x.new_empty(x.shape[:2])))
+

@@ -10,6 +10,11 @@ fixed-shape batches on the GPU, or the CPU when the config says
 
     python -m multimodal_path_omic_tpu_torch.server --config cfg.yaml \
         --checkpoint <ckpt> --port 8008
+    python -m multimodal_path_omic_tpu_torch.server --bundle <dir> --port 8008
+
+``--bundle`` serves a deployment bundle (``deploy.py``, ``cli
+export-model``) behind the same endpoints, without a config, a checkpoint
+or the model's code (``make_bundle_server``).
 
 Endpoints:
 
@@ -428,6 +433,12 @@ def make_server(
     the handler's infer_lock. ``dynamic_batch`` > 1 co-batches concurrent
     single-bag requests into one device dispatch (DynamicBatcher), waiting at
     most ``batch_wait_ms`` for co-riders."""
+    info = {"model": predictor.model_name, "n_params": predictor.n_params,
+            "omic_sizes": list(predictor.omic_sizes)}
+    return _bind_server(predictor, info, port, host, dynamic_batch, batch_wait_ms)
+
+
+def _bind_server(predictor, info, port, host, dynamic_batch, batch_wait_ms):
     lock = threading.Lock()
     metrics = ServerMetrics()
     batcher = (
@@ -436,8 +447,6 @@ def make_server(
         if dynamic_batch and dynamic_batch > 1
         else None
     )
-    info = {"model": predictor.model_name, "n_params": predictor.n_params,
-            "omic_sizes": list(predictor.omic_sizes)}
     handler = type(
         "BoundPredictHandler",
         (PredictHandler,),
@@ -445,6 +454,39 @@ def make_server(
          "batcher": batcher, "info": info},
     )
     return _PredictServer((host, port), handler)
+
+
+class _BundlePredictor:
+    """``deploy.ExportedModel`` behind the handler's Predictor contract
+    (``predict_bag`` keeps a leading batch-1 axis, as ``serve.Predictor``)."""
+
+    def __init__(self, exported):
+        self._m = exported
+
+    def predict_bag(self, bag, omics=None):
+        out = self._m.predict_bag(bag, omics)
+        return {k: np.asarray(v)[None] for k, v in out.items()}
+
+    def predict_bags(self, bags, omics=None):
+        return self._m.predict_bags(bags, omics)
+
+
+def make_bundle_server(bundle_dir: str, port: int = 0, host: str = "127.0.0.1",
+                       dynamic_batch: int = 0, batch_wait_ms: float = 5.0,
+                       device=None) -> ThreadingHTTPServer:
+    """Serve a deployment bundle (``deploy.export_model``) with
+    :func:`make_server`'s endpoints and wire contract (dynamic batching
+    included), without a config, a checkpoint or the model's code; on
+    ``device`` (None: the GPU)."""
+    from multimodal_path_omic_tpu_torch.deploy import load_exported
+
+    exported = load_exported(bundle_dir, device=device)
+    man = exported.manifest
+    info = {"model": man["model"], "n_params": man.get("n_params"),
+            "omic_sizes": list(man["omic_sizes"]), "bundle": bundle_dir,
+            "buckets": list(man["buckets"]), "batch_sizes": list(man["batch_sizes"])}
+    return _bind_server(_BundlePredictor(exported), info, port, host, dynamic_batch,
+                        batch_wait_ms)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -456,7 +498,9 @@ def main(argv: Optional[list] = None) -> int:
                     help="the port's checkpoint; repeat to serve a "
                     "checkpoint ENSEMBLE (member-averaged outputs)")
     ap.add_argument("--torch-checkpoint", help="reference .pt checkpoint to load")
-    ap.add_argument("--bundle", help="deployment bundle directory (not ported)")
+    ap.add_argument("--bundle", help="deployment bundle directory (cli export-model); serves "
+                    "without a config, a checkpoint or the model's code")
+    ap.add_argument("--device", help="with --bundle: where it runs (default the GPU; cpu)")
     ap.add_argument("--port", type=int, default=8008)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument(
@@ -474,34 +518,42 @@ def main(argv: Optional[list] = None) -> int:
         help="max time a lone request waits for co-riders (--dynamic-batch)",
     )
     args = ap.parse_args(argv)
+    if bool(args.bundle) == bool(args.config):
+        ap.error("exactly one of --config or --bundle is required")
+    if args.bundle and (args.checkpoint or args.torch_checkpoint):
+        # serving the bundle's weights while the operator believes the
+        # checkpoint loaded would be a wrong-model deployment
+        ap.error("--bundle carries its own weights; drop --checkpoint/--torch-checkpoint "
+                 "(or serve via --config)")
+    t0 = time.perf_counter()
     if args.bundle:
-        raise NotImplementedError(
-            "--bundle: deployment bundles need deploy.py, which is not ported "
-            "(ROADMAP.md queue 1, tooling); serve with --config")
-    if not args.config:
-        ap.error("--config is required")
+        server = make_bundle_server(args.bundle, port=args.port, host=args.host,
+                                    dynamic_batch=args.dynamic_batch,
+                                    batch_wait_ms=args.batch_wait_ms, device=args.device)
+        if args.warmup:
+            server.RequestHandlerClass.predictor._m.warmup(verbose=True)
+            print(f"warmup: {time.perf_counter() - t0:.2f} s", flush=True)
+    else:
+        from multimodal_path_omic_tpu_torch.config import load_config
+        from multimodal_path_omic_tpu_torch.serve import Predictor
 
-    from multimodal_path_omic_tpu_torch.config import load_config
-    from multimodal_path_omic_tpu_torch.serve import Predictor
-
-    config = load_config(args.config)
-    if config.tpu.data_axis * config.tpu.seq_axis > 1:
-        raise NotImplementedError(
-            "serving on a mesh: an HTTP front over several ranks is not ported (ROADMAP.md "
-            "queue 1, multi-GPU follow-ups: a multi-process serve); serve at mesh size 1")
-    predictor = Predictor.from_config(
-        config,
-        checkpoint=args.checkpoint,
-        torch_checkpoint=args.torch_checkpoint,
-    )
-    if args.warmup:
-        t0 = time.perf_counter()
-        predictor.warmup(verbose=True)
-        print(f"warmup: {time.perf_counter() - t0:.2f} s", flush=True)
-    server = make_server(
-        predictor, port=args.port, host=args.host,
-        dynamic_batch=args.dynamic_batch, batch_wait_ms=args.batch_wait_ms,
-    )
+        config = load_config(args.config)
+        if config.tpu.data_axis * config.tpu.seq_axis > 1:
+            raise NotImplementedError(
+                "serving on a mesh: an HTTP front over several ranks is not ported (ROADMAP.md "
+                "queue 1, multi-GPU follow-ups: a multi-process serve); serve at mesh size 1")
+        predictor = Predictor.from_config(
+            config,
+            checkpoint=args.checkpoint,
+            torch_checkpoint=args.torch_checkpoint,
+        )
+        if args.warmup:
+            predictor.warmup(verbose=True)
+            print(f"warmup: {time.perf_counter() - t0:.2f} s", flush=True)
+        server = make_server(
+            predictor, port=args.port, host=args.host,
+            dynamic_batch=args.dynamic_batch, batch_wait_ms=args.batch_wait_ms,
+        )
     print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
     # graceful shutdown: SIGTERM (the normal orchestrator stop signal) drains
     # the accept loop instead of killing mid-response. shutdown() must run on

@@ -76,3 +76,29 @@ class StepTimer:
     def rates(self):
         dt = max(time.perf_counter() - self._t0, 1e-9)
         return self._steps / dt, self._bags / dt
+
+
+def profile_trace(log_dir: str):
+    """Context manager capturing a ``torch.profiler`` trace (CPU activity,
+    and CUDA where a GPU is present) of its body, written on exit to
+    ``<log_dir>/trace_<time>.json`` (Chrome trace format, the file
+    ``train/profiling.py::parse_trace`` reads; JAX ``logging.py:92``)."""
+    import contextlib
+    import datetime
+
+    import torch
+
+    @contextlib.contextmanager
+    def _ctx():
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S_%f")
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stamp}.json"))
+
+    return _ctx()

@@ -51,6 +51,7 @@ from torch.utils import _pytree as pytree
 from multimodal_path_omic_tpu_torch.data.quant import dequantize
 from multimodal_path_omic_tpu_torch.ops.gather import take_rows, take_rows_sharded
 from multimodal_path_omic_tpu_torch.ops.layers import ShardedDraws, compute_dtype_of, draw
+from multimodal_path_omic_tpu_torch.ops.remat import scope as remat_scope
 from multimodal_path_omic_tpu_torch.ops.losses import (
     cross_entropy_on_probs,
     l1_reg,
@@ -167,7 +168,7 @@ def make_train_step(
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, int8_matmul: bool = False,
-    graphs: Union[bool, StepGraphs] = True, mesh=None,
+    graphs: Union[bool, StepGraphs] = True, mesh=None, remat: bool = False,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, batch) -> (state, metrics)``, graphed on the card
     (``graphs``, see the module doc). Batch fields (tensors on
@@ -194,6 +195,11 @@ def make_train_step(
     (:func:`dequant_wsi`); ``int8_matmul`` keeps it int8 into the first
     layer instead (``tpu.int8_matmul``).
 
+    ``remat`` (``tpu.remat``): the backward recomputes the tagged patch-axis
+    activations instead of keeping them (``ops/remat.py``); the gradients
+    and the generator's state are those of the step without it, bit for
+    bit.
+
     ``mesh`` (``parallel/mesh.py``): the batch holds this rank's rows and
     patches, and the step gives every rank the one-device step's
     per-parameter gradients (:func:`_train_fn`: the gradient rule); its
@@ -202,7 +208,8 @@ def make_train_step(
     _check_mesh(mesh, loss_name)
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh,
+                      remat=remat)
     get_graphs = _graphs_for(graphs, mesh)
 
     def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, StepMetrics]:
@@ -219,7 +226,7 @@ def make_train_step(
 def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alpha: float,
               l1_lambda: float, patch_budget: Optional[int], ge_mode: bool,
               omic_sizes: Optional[Sequence[int]], patch_dropout: float,
-              int8_matmul: bool = False, mesh=None):
+              int8_matmul: bool = False, mesh=None, remat: bool = False):
     """The eager train step of :func:`make_train_step`.
 
     On a mesh the gradient rule is the JAX step's. Every dropout draw is
@@ -269,19 +276,20 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
             if patch_dropout:
                 mask = drop_patches(mask, patch_dropout, gen, mesh)
             scale = None if wsi_scale is None else wsi_scale[sl]
-            if ge_mode:
-                y, _ = model(wsi[sl], mask, generator=gen, wsi_scale=scale)
-                loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
-                attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
-            else:
-                out = model(wsi[sl], [o[sl] for o in omics], mask,
-                            need_attention=need_attention, generator=gen,
-                            wsi_scale=scale)
-                loss, attn_loss = survival_loss(
-                    loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha, weight,
-                    None if months is None else months[sl],
-                )
-                risk = -out.survs.detach().sum(dim=1)
+            with remat_scope(remat):  # the tagged activations: recomputed, not saved
+                if ge_mode:
+                    y, _ = model(wsi[sl], mask, generator=gen, wsi_scale=scale)
+                    loss = cross_entropy_on_probs(y, batch["label"][sl], sample_weight=weight)
+                    attn_loss, risk = zero, torch.zeros(chunk, device=wsi.device)
+                else:
+                    out = model(wsi[sl], [o[sl] for o in omics], mask,
+                                need_attention=need_attention, generator=gen,
+                                wsi_scale=scale)
+                    loss, attn_loss = survival_loss(
+                        loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha,
+                        weight, None if months is None else months[sl],
+                    )
+                    risk = -out.survs.detach().sum(dim=1)
             w_i = weight.sum()
             (loss * w_i / seq).backward()  # scaled by the chunk's weight mass
             loss_sum = loss_sum + (loss * w_i).detach()
@@ -424,7 +432,7 @@ def make_cached_train_step(
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, multi: bool = False, mesh=None, int8_matmul: bool = False,
-    graphs: Union[bool, StepGraphs] = True,
+    graphs: Union[bool, StepGraphs] = True, remat: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], Dict[str, Any]],
               Tuple[TrainState, StepMetrics]]:
     """Train step over a device-resident dataset cache
@@ -448,7 +456,8 @@ def make_cached_train_step(
         raise ValueError("the cached step of a survival model needs omic_sizes")
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh)
+                      patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh,
+                      remat=remat)
     get_graphs = _graphs_for(graphs, mesh)
 
     def step(state: TrainState, cache: Dict[str, torch.Tensor],
@@ -474,7 +483,7 @@ def make_multi_train_step(
     alpha: float = 0.75, l1_lambda: float = 0.0, patch_budget: Optional[int] = 262_144,
     ge_mode: bool = False, omic_sizes: Optional[Sequence[int]] = None,
     patch_dropout: float = 0.0, int8_matmul: bool = False,
-    graphs: Union[bool, StepGraphs] = True, mesh=None,
+    graphs: Union[bool, StepGraphs] = True, mesh=None, remat: bool = False,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, StepMetrics]]:
     """``step(state, stacked) -> (state, metrics)``: K optimizer steps over
     a batch whose tensors (on the model's device) carry a leading [K, ...]
@@ -484,7 +493,8 @@ def make_multi_train_step(
     return multi_step_of(make_train_step(
         model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
         patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
-        patch_dropout=patch_dropout, int8_matmul=int8_matmul, graphs=graphs, mesh=mesh))
+        patch_dropout=patch_dropout, int8_matmul=int8_matmul, graphs=graphs, mesh=mesh,
+        remat=remat))
 
 
 def multi_step_of(step: Callable) -> Callable:

@@ -72,10 +72,20 @@ exported at mesh size 1) raise.
 Settings the port cannot honour yet raise ``NotImplementedError``
 (``config.require_supported``). A reference ``.pt`` checkpoint loads
 through ``Trainer.load_torch_checkpoint`` (``utils/transplant.py``);
-``Trainer.restore`` reads the port's own checkpoints only. These settings
+``Trainer.restore`` reads the port's own checkpoints only.
+``tpu.use_native_pipeline`` reads a directory of ``.npy`` bags with the C++
+loader (``data/native.py``) on a host with at least 2 CPUs, as the JAX
+Trainer engages it: its pipeline fills pinned slots with each host-fed
+batch's rows, the stager copies a slot to the device as it is, and the slot
+returns to the ring once that copy has finished; the numbers are the Python
+reader's, bit for bit. ``Trainer.bag_reader`` ("native" or "python") says
+which reader runs, and the verbose log says why the Python one does (the
+setting off, a store that is not ``.npy``, fewer than 2 CPUs, a header the
+loader cannot parse); a loader that does not build raises. ``tpu.remat``
+recomputes the large patch-axis activations in the backward instead of
+saving them (``ops/remat.py``). These settings
 only shape how the JAX package compiles and leave the numbers as they
-are; they are read and have no effect here: ``use_native_pipeline``,
-``matmul_precision`` (the port's float32 products are full float32,
+are; they are read and have no effect here: ``matmul_precision`` (the port's float32 products are full float32,
 ``device.configure_precision``), ``prng_impl``, ``compilation_cache_dir``
 and ``use_pallas`` (the port's kernel routes are chosen by their shape
 predicates; on the CPU the plain versions run anyway).
@@ -208,10 +218,14 @@ def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 class Trainer:
     mesh = None  # this rank's parallel.mesh.Mesh when tpu.data_axis x tpu.seq_axis > 1
 
-    def __init__(self, config: Config, verbose: bool = True, device=None, graphs: bool = True):
+    def __init__(self, config: Config, verbose: bool = True, device=None, graphs: bool = True,
+                 split_rows=None):
         """``device``: None follows ``config.device`` (the GPU unless it is
         "cpu"). ``graphs``: on the GPU, run the steps as CUDA graphs
-        (``train/graphs.py``); False runs them eagerly."""
+        (``train/graphs.py``); False runs them eagerly. ``split_rows``: a
+        (train rows, validation rows) pair of row-index arrays in place of
+        the config's seeded split (the folds of ``train/cv.py``); not with
+        ``training.leave_one_out``, which defines its own split."""
         require_supported(config)
         c = self.config = config
         self.device = resolve_device(
@@ -256,13 +270,29 @@ class Trainer:
                                              verbose=verbose)
             self.extras_fn = survival_extras
             self.omic_sizes = list(self.dataset.signature_sizes)
-        if verbose:
-            ts = int(c.training.train_size * 100)
-            print(f"Using {ts}% train, {100 - ts}% validation")
-        self.train_ds, self.val_ds, self.test_ds = self.dataset.split(
-            c.training.train_size, test=self.leave_one_out,
-            patient=c.training.leave_one_out or "", seed=c.training.seed,
-            bug_compat=c.training.bug_compat)
+        if split_rows is not None:
+            if self.leave_one_out:
+                raise ValueError("split_rows and training.leave_one_out are mutually exclusive: "
+                                 "leave-one-out defines its own split")
+            tr_rows, va_rows = (np.asarray(r) for r in split_rows)
+            # --bug-compat reaches the subsets as it reaches table.split
+            subset_kw = {("misalign_labels" if self.ge_mode else "misalign_signatures"):
+                         c.training.bug_compat}
+            table = self.dataset.table
+            self.train_ds = self.dataset._with_table(table.subset(tr_rows, **subset_kw))
+            self.val_ds = self.dataset._with_table(table.subset(va_rows, **subset_kw))
+            self.test_ds = None
+            if verbose:
+                print(f"Using caller-provided split: {len(tr_rows)} train rows, "
+                      f"{len(va_rows)} validation rows")
+        else:
+            if verbose:
+                ts = int(c.training.train_size * 100)
+                print(f"Using {ts}% train, {100 - ts}% validation")
+            self.train_ds, self.val_ds, self.test_ds = self.dataset.split(
+                c.training.train_size, test=self.leave_one_out,
+                patient=c.training.leave_one_out or "", seed=c.training.seed,
+                bug_compat=c.training.bug_compat)
         if verbose:
             print(f"Samples in train: {len(self.train_ds)}, "
                   f"Samples in validation: {len(self.val_ds)}")
@@ -275,6 +305,19 @@ class Trainer:
                                            host_slice=self.mesh)
         self.val_batcher = BucketBatcher(self.val_ds, self.extras_fn, self.batch_size,
                                          self.buckets, shuffle=False, host_slice=self.mesh)
+        # the C++ bag reader (data/native.py) where the JAX Trainer engages its
+        # pipeline (trainer.py:275-282): the setting, and at least 2 CPUs for
+        # the workers to overlap the consumer
+        native = bool(c.tpu.use_native_pipeline) and (os.cpu_count() or 1) >= 2
+        self.train_batcher.use_native_pipeline = native
+        self.val_batcher.use_native_pipeline = native
+        self.bag_reader = self.train_batcher.reader if len(self.train_ds) else "python"
+        if verbose:
+            why = ("" if self.bag_reader == "native" else
+                   " (tpu.use_native_pipeline is off)" if not c.tpu.use_native_pipeline else
+                   " (fewer than 2 CPUs)" if not native else
+                   f" ({self.train_batcher.reader_note})")
+            print(f"Bag reader: {self.bag_reader}{why}")
 
         # ----- model, optimizer, steps (mcat/main.py:254-307) --------------
         self.wsi_dim = int(self.dataset.bag(0).shape[1]) if len(self.dataset) else 1024
@@ -311,7 +354,8 @@ class Trainer:
                              mesh=self.mesh)
         self.train_step = make_train_step(self.model, c.training.loss, self.optimizer,
                                           patch_dropout=c.training.patch_dropout,
-                                          int8_matmul=c.tpu.int8_matmul, **self._step_kw)
+                                          int8_matmul=c.tpu.int8_matmul, remat=c.tpu.remat,
+                                          **self._step_kw)
         self.eval_step = make_eval_step(self.model, c.training.loss, **self._step_kw)
         # a dispatch group: its steps one by one, each a replay of its bucket's graph
         self.multi_step = multi_step_of(self.train_step)
@@ -444,7 +488,7 @@ class Trainer:
         self._cached_step = make_cached_train_step(
             self.model, c.training.loss, self.optimizer,
             patch_dropout=c.training.patch_dropout, int8_matmul=c.tpu.int8_matmul,
-            **self._step_kw)
+            remat=c.tpu.remat, **self._step_kw)
         self._cached_eval = make_eval_step(self.model, c.training.loss, cached=True,
                                            **self._step_kw)
         self._cached_multi = multi_step_of(self._cached_step)
@@ -506,13 +550,13 @@ class Trainer:
             fn = multi
         return lambda *st: fn(*st, staged.take())
 
-    def _items(self, batcher, cache, ds):
-        """(key, payload, bucket) per batch of the batcher's next epoch: key
-        (cached, bucket); a cached batch's payload is (meta, info), a host
-        batch's its indices."""
+    def _items(self, plan, cache, ds):
+        """(key, payload, bucket) per batch of ``plan`` (an epoch's
+        (indices, bucket) list): key (cached, bucket); a cached batch's
+        payload is (meta, info), a host batch's its indices."""
         cached = set(cache.caches) if cache is not None else set()
         table = ds.table
-        for indices, bucket in batcher._epoch_plan():
+        for indices, bucket in plan:
             if bucket in cached:
                 meta, real = build_meta(indices, self.batch_size, cache)
                 yield (True, bucket), (meta, self._batch_info(meta, real, table)), bucket
@@ -527,18 +571,39 @@ class Trainer:
         of them without a cache) are host-fed: their bags read, and only
         their own patches copied through the stager (padded on the card)."""
         host_k = self._host_k_cap(K)
-        items = self._items(batcher, cache, ds)
-        for group in _grouped(items, key_fn=lambda x: x[0], K=K,
-                              k_fn=lambda x: K if x[0][0] else host_k(x[2])):
-            is_cached, bucket = group[0][0]
-            if is_cached:
-                metas, infos = zip(*(g[1] for g in group))
-                yield list(infos), self._cached_call(cache.caches[bucket], list(metas),
-                                                     steps[2], steps[3])
-            else:  # only the bags' own patches cross; the card pads them
-                batches = [batcher._make_rows(g[1], bucket) for g in group]
-                yield ([self._plan_info(g[1], ds.table) for g in group],
-                       self._host_call(batches, steps[0], steps[1]))
+        plan = batcher._epoch_plan()
+        pipe = None
+        if batcher.native_store() is not None:
+            cached = set(cache.caches) if cache is not None else set()
+            host_plan = [p for p in plan if p[1] not in cached]
+            if host_plan:
+                pipe = batcher.native_pipeline(host_plan, pinned=self.device.type == "cuda")
+        # the native reader feeds one batch a call (a group is its steps one
+        # by one, so the numbers are the same), each from its pinned slot
+        k_host = (lambda b: 1) if pipe is not None else host_k
+        try:
+            for group in _grouped(self._items(plan, cache, ds), key_fn=lambda x: x[0], K=K,
+                                  k_fn=lambda x: K if x[0][0] else k_host(x[2])):
+                is_cached, bucket = group[0][0]
+                if is_cached:
+                    metas, infos = zip(*(g[1] for g in group))
+                    yield list(infos), self._cached_call(cache.caches[bucket], list(metas),
+                                                         steps[2], steps[3])
+                elif pipe is not None:
+                    indices = group[0][1]
+                    b, rows = pipe.next()
+                    staged = self.stager.stage_batch(batcher.native_rows(indices, bucket, rows),
+                                                     self.ge_mode, self.transfer_dtype)
+                    pipe.release(b, staged.event)  # the slot returns once its copy is done
+                    yield ([self._plan_info(indices, ds.table)],
+                           lambda *st, staged=staged: steps[0](*st, staged.take()))
+                else:  # only the bags' own patches cross; the card pads them
+                    batches = [batcher._make_rows(g[1], bucket) for g in group]
+                    yield ([self._plan_info(g[1], ds.table) for g in group],
+                           self._host_call(batches, steps[0], steps[1]))
+        finally:
+            if pipe is not None:
+                pipe.close()
 
     # --------------------------------------------------------------- training
     def train_epoch(self, epoch: int) -> Dict[str, float]:

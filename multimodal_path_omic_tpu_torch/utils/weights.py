@@ -25,8 +25,12 @@ two rules and ``layer_<j>``. The fusions carry by the same rules:
 ``gated_concat``'s ``gate_<i>`` Linears (``gate_<i>_kernel`` / ``_bias``
 leaves under ``bug_compat``, kept in the JAX layout on both sides) and
 ``bilinear``'s Linears and ``nn.Bilinear`` weights (``linear_z<i>.weight``
-[out, in1, in2], the torch layout on both sides). Loading is strict: a tree
-of another model (unknown or missing names) raises.
+[out, in1, in2], the torch layout on both sides). The standalone blocks of
+``ops/attention.py`` carry by the first rule: ``PreGatedAttention``'s
+``fc_q`` / ``fc_k`` / ``fc_v``, and ``PreGatingContextualAttentionGate``'s
+``pg_coattn``, ``cag`` (LayerNorm ``scale`` -> ``weight``) and ``final_fc``.
+Loading is strict: a tree of another model (unknown or missing names)
+raises.
 """
 
 from __future__ import annotations
@@ -84,7 +88,8 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Load a JAX parameter tree into ``model`` (strict: every port
+    """Load a JAX parameter tree (a model's, or a standalone block's) into
+    ``model`` (strict: every port
     parameter is covered and every JAX leaf lands somewhere)."""
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return model

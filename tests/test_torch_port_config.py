@@ -82,7 +82,7 @@ def test_unknown_keys_warn_and_defaults_match(capsys):
 
 
 # queue 1 items whose settings the port honours now
-PORTED_ITEMS = ("reduced precision", "the Trainer's rest")
+PORTED_ITEMS = ("reduced precision", "the Trainer's rest", "tooling")
 
 
 @pytest.mark.parametrize("key,value,item", [
@@ -99,8 +99,9 @@ PORTED_ITEMS = ("reduced precision", "the Trainer's rest")
 def test_settings_the_port_cannot_honour_raise(key, value, item):
     """The settings of a queue 1 item not yet ported raise, naming it, in
     ``require_supported`` and before the Trainer reads any data; those of
-    the items ported since (reduced precision, the Trainer's rest: the
-    dtypes, int8_matmul, wandb.enabled) pass ``require_supported``. The mesh
+    the items ported since (reduced precision, the Trainer's rest, tooling:
+    the dtypes, int8_matmul, wandb.enabled, remat) pass
+    ``require_supported``. The mesh
     axes are ported (multi-GPU): an axis above 1 in a world of one rank
     raises ``ValueError`` naming the world size, before any data is read."""
     cfg = tconfig.config_from_dict({"device": "cpu"})

@@ -812,8 +812,34 @@ def test_server_main_serves_and_stops_on_sigterm(served, tmp_path):
             proc.wait()
 
 
-def test_server_main_refuses_bundles():
+def test_server_main_refuses_bundles(served, tmp_path):
+    """(Its name kept from when ``--bundle`` was refused.) ``server.main
+    --bundle`` serves a deployment bundle (``deploy.export_model``) on the
+    CPU: its ``/predict_npz`` answer equals the in-process Predictor's within
+    1e-6, and ``--bundle`` with a checkpoint is a usage error."""
     from multimodal_path_omic_tpu_torch import server
+    from multimodal_path_omic_tpu_torch.deploy import export_model
 
-    with pytest.raises(NotImplementedError, match="queue 1, tooling"):
-        server.main(["--bundle", "bundle/"])
+    _, trainer = served
+    bundle = str(tmp_path / "bundle")
+    export_model(trainer, bundle, batch_sizes=(1,), platforms=("cpu",))
+    with pytest.raises(SystemExit):
+        server.main(["--bundle", bundle, "--checkpoint", "ck.pt"])
+    srv = server.make_bundle_server(bundle, port=0, device="cpu")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health["bundle"] == bundle and health["n_params"] == trainer.n_params
+        rng = np.random.default_rng(16)
+        wsi = rng.normal(size=(40, 1024)).astype(np.float32)
+        omics = [rng.normal(size=(s,)).astype(np.float32) for s in trainer.omic_sizes]
+        status, body = _post(base + "/predict_npz", _npz_payload(wsi, omics),
+                             "application/octet-stream")
+        assert status == 200
+        np.testing.assert_allclose(np.asarray(body["risk"]),
+                                   Predictor(trainer).predict_bag(wsi, omics)["risk"], atol=1e-6)
+    finally:
+        srv.shutdown()
+        srv.server_close()
