@@ -4,7 +4,7 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-29 below
+    python3 chip_smoke.py              # phases 1-30 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
 
@@ -387,6 +387,24 @@ Phases (any failure exits non-zero, and no result line is printed):
     Predictor. (f) ``tpu.remat`` on and off for NaCAGaT ``medium`` and
     ``big`` and GE ``medium``: three graphed steps, dropout 0.25, the
     parameters, loss and generator bit for bit; peak memory and step ms.
+
+30. The mesh settings the port first refused, on the one card with two gloo
+    ranks sharing it (phase 28's cohort and NaCAGaT ``medium``): (a) the
+    cox loss at data 2 (its risk sets over the global batch): three SGD
+    steps host-fed and from the sharded device cache, then the eval step,
+    against one rank (losses and eval loss 1e-5, risks 1e-4, parameters
+    bitwise equal across ranks and within 1e-5 of one rank's), the
+    gather, fuse-K training forward and backward and fuse-K eval kernels
+    launched on each rank; (b) the eval step's co-attention map at seq 2
+    with ``need_attention``: the export passes (``coattn_stats``,
+    ``coattn_weights``) launched on each rank on merged statistics, the map
+    against the one-rank kernel map (1e-4 relative), on a batch whose bag 0
+    has its valid patches in rank 0's half only (0 on rank 1's keys) and
+    bag 1 none (exactly 1/M over the global M); (c) ``server.main`` over
+    two ranks at data 2 (rank 0 answers HTTP, rank 1 follows): single bags,
+    a batch, ``?mc=4`` and two malformed bodies (400) against a one-rank
+    Predictor's server (1e-4), the request latency, and SIGTERM to both
+    ranks, each exiting 0.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -5632,12 +5650,15 @@ def mesh_model(dev, name, mesh, size="medium"):
     return net, init_train_state(net, opt, seed=0), opt
 
 
-def mesh_steps(dev, mesh, cached: bool, graphs=False, steps=MESH_STEPS, model="NaCAGaT"):
+def mesh_steps(dev, mesh, cached: bool, graphs=False, steps=MESH_STEPS, model="NaCAGaT",
+               loss=None):
     """``steps`` NaCAGaT (cesar) or MCAT (ces) steps on MESH_ROWS, host-fed
     (each rank's slice of the global batch) or from a DeviceBagCache (this
     rank's chunk of every bag, with mesh), from the same start; returns the
     losses, each step's wall seconds (synchronized; the first captures or
-    warms up) and the final parameters (on the host)."""
+    warms up) and the final parameters (on the host). ``loss`` names
+    another loss (phase 30: cox); then the eval step's loss and risks on
+    the first batch follow the steps (``eval_loss``, ``eval_risk``)."""
     import torch
 
     from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache, build_meta
@@ -5647,7 +5668,8 @@ def mesh_steps(dev, mesh, cached: bool, graphs=False, steps=MESH_STEPS, model="N
 
     ds = mesh_cohort()
     net, state, opt = mesh_model(dev, model, mesh)
-    loss = "cesar" if model == "NaCAGaT" else "ces"
+    with_eval = loss is not None
+    loss = loss or ("cesar" if model == "NaCAGaT" else "ces")
     kw = dict(omic_sizes=SIZES, mesh=mesh, graphs=graphs, patch_budget=None)
     losses, secs = [], []
     if cached:
@@ -5670,8 +5692,13 @@ def mesh_steps(dev, mesh, cached: bool, graphs=False, steps=MESH_STEPS, model="N
         losses.append(m.loss)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    return {"losses": [float(x) for x in losses], "step_s": secs,
-            "params": {k: p.detach().cpu() for k, p in net.named_parameters()}}
+    out = {"losses": [float(x) for x in losses], "step_s": secs,
+           "params": {k: p.detach().cpu() for k, p in net.named_parameters()}}
+    if with_eval:
+        kw.pop("patch_budget")
+        res = loop.make_eval_step(net, loss, cached=cached, **kw)(*inputs[0])
+        out["eval_loss"], out["eval_risk"] = float(res["loss"]), res["risk"].cpu()
+    return out
 
 
 def mesh_ge_batch(dev, seed=21) -> dict:
@@ -6414,6 +6441,305 @@ def phase29_tooling(dev, parts: str = "abcdef") -> dict:
     return total
 
 
+# Phase 30: the mesh settings the port first refused, on the one card with gloo
+# ranks sharing it (NCCL refuses two ranks on one device), phase 28's
+# cohort and model (NaCAGaT medium, random weights from seed 0). (a) cox at
+# data 2: MESH_STEPS SGD steps host-fed and cached, then the eval step,
+# against one rank; (b) the attention-map export at seq 2: the eval step's
+# co-attention map with need_attention, the export passes per rank on
+# merged statistics, against the one-rank kernel map, on a batch whose bag
+# 0 has its valid patches in seq rank 0's half only and bag 1 none; (c)
+# ``server.main`` over two ranks at data 2 (rank 0 answers HTTP, rank 1
+# follows), its answers against a one-rank Predictor in this process, then
+# SIGTERM to both.
+P30_SERVE_COHORT = dict(n_patients=8, n_genes=600, n_signatures=6, bag_lengths=(1500, 4000),
+                        embedding_dim=1024, bag_format="npy", seed=3)
+P30_SERVE_SET = {"tpu.bag_buckets": [4096], "tpu.batch_size": 4, "training.seed": 0,
+                 "dataset.tcga_only": False, "training.loss": "ces"}
+P30_LATENCY_CALLS = 5
+P30_BAD = ("malformed", "wrong width")  # (c)'s requests answered 400; every other one 200
+P30_MAP_RTOL, P30_MAP_ATOL = 1e-4, 1e-7  # the export passes' w against their plain version
+
+
+def p30_export_batch(dev):
+    """Phase 28's first host batch with bag 0's valid patches in seq rank
+    0's half only and bag 1 without a valid patch."""
+    batch = mesh_host_batch(mesh_cohort(), list(range(*MESH_ROWS[0])), dev)
+    mask = batch["mask"].clone()
+    mask[0, MESH_M // 2 - 100:] = False
+    mask[1] = False
+    batch["mask"] = mask
+    return batch
+
+
+def p30_export(dev, mesh):
+    """(b): the eval step's co-attention map (``need_attention``, loss ces),
+    on the CPU host; the kernel launches of that call."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.parallel.mesh import shard_batch
+    from multimodal_path_omic_tpu_torch.train import loop
+
+    net, _, _ = mesh_model(dev, "NaCAGaT", mesh)
+    batch = p30_export_batch(dev)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh, process_local=False)
+    step = loop.make_eval_step(net, "ces", need_attention=True, omic_sizes=SIZES, mesh=mesh,
+                               graphs=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = step(batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    return {"map": res["attention"]["coattn"].cpu(), "risk": res["risk"].cpu(),
+            "launches": launches}
+
+
+def _p30_rank(rank, world, port, job, arg, out_dir):
+    """One spawned rank of phase 30: a gloo process group on the card, then
+    (a) and (b) (``job`` "steps") or ``server.main`` (``job`` "serve",
+    ``arg`` its argv); the results and kernel launches to ``out_dir``."""
+    import datetime
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_path_omic_tpu_torch.device import resolve_device
+    from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh
+
+    dev = resolve_device("cuda:0")
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    res = {}
+    if job == "steps":
+        mesh = make_mesh(2, 1, device=dev, backend="gloo")
+        reset_counts()
+        res["host"] = mesh_steps(dev, mesh, cached=False, loss="cox")
+        res["cached"] = mesh_steps(dev, mesh, cached=True, loss="cox")
+        torch.cuda.synchronize()
+        res["cox_launches"] = {k: v for k, v in read_counts().items() if v}
+        res["export"] = p30_export(dev, make_mesh(1, 2, device=dev, backend="gloo"))
+    else:
+        from multimodal_path_omic_tpu_torch import server
+
+        reset_counts()
+        res["rc"] = server.main(arg)
+        torch.cuda.synchronize()
+        res["launches"] = {k: v for k, v in read_counts().items() if v}
+    dist.barrier()
+    torch.save(res, os.path.join(out_dir, f"{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def p30_world(job, arg=None, client=None) -> list:
+    """Spawn two ranks on the card for ``job``; ``client(processes)`` runs
+    in this process meanwhile (the HTTP client of (c)). Their results in
+    rank order; a rank that dies, exits non-zero or outlives MESH_TIMEOUT_S
+    raises."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_p30_rank, args=(2, port, job, arg, out_dir), nprocs=2,
+                                 join=False, start_method="spawn")
+        try:
+            if client is not None:
+                client(ctx.processes)
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise TimeoutError(f"phase 30 {job}: ranks still running after "
+                                       f"{MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        codes = [p.exitcode for p in ctx.processes]
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 30 {job}: rank exit codes {codes}")
+        log(f"  {job}: 2 ranks in {time.perf_counter() - t0:.1f} s, exit codes {codes}")
+        return [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+
+def p30_requests(rng, sizes):
+    """(name, path, body) of (c)'s requests: single bags, a batch, MC
+    dropout, two malformed bodies (named in ``P30_BAD``), the health line;
+    ``sizes``: the model's signature widths."""
+    bags = [rng.standard_normal((int(n), 1024), dtype=np.float32) for n in (1800, 3900, 2500)]
+    omics = [[rng.standard_normal(s, dtype=np.float32) for s in sizes] for _ in bags]
+    reqs = [("healthz", "/healthz", None)]
+    reqs += [(f"predict_npz {i}", "/predict_npz", npz_bytes(bags[i % 2], omics[i % 2]))
+             for i in range(P30_LATENCY_CALLS)]
+    reqs += [("predict_batch_npz", "/predict_batch_npz", npz_bytes(bags=bags,
+                                                                  omics_list=omics)),
+             ("mc", "/predict_npz?mc=4&mc_seed=7", npz_bytes(bags[2], omics[2])),
+             ("malformed", "/predict_npz", b"not an npz"),
+             ("wrong width", "/predict_npz", npz_bytes(bags[0][:, :1000], omics[0])),
+             ("after", "/predict_npz", npz_bytes(bags[0], omics[0]))]
+    return reqs
+
+
+def p30_serve(dev, root) -> dict:
+    """(c): two ranks run ``server.main`` at data 2 over gloo; this process
+    sends the requests, holds each answer to a one-rank Predictor's on the
+    same config (a single bag padded to two rows, as on the mesh: the MC
+    draws are the padded batch's), then SIGTERMs both ranks."""
+    import signal
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.config import load_config
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.server import make_server
+
+    paths = make_synthetic_cohort(os.path.join(root, "p30_cohort"), **P30_SERVE_COHORT)
+    cfg = tool_yaml(root, "p30", "nacagat.yaml", paths, P30_SERVE_SET)
+    mesh_cfg = tool_yaml(root, "p30_mesh", "nacagat.yaml", paths,
+                         {**P30_SERVE_SET, "tpu.data_axis": 2})
+    http_port = free_port()
+    argv = ["--config", mesh_cfg, "--port", str(http_port)]
+    pred = Predictor.from_config(load_config(cfg))
+    pred.min_rows = 2
+    reqs = p30_requests(np.random.default_rng(30), pred.omic_sizes)
+    answers, latency = {}, []
+
+    def client(processes):
+        url = f"http://127.0.0.1:{http_port}"
+        t0 = time.perf_counter()
+        while True:
+            try:
+                http(url + "/healthz")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise
+                time.sleep(0.2)
+        log(f"  rank 0 serving after {time.perf_counter() - t0:.1f} s")
+        try:
+            for name, path, body in reqs:
+                t1 = time.perf_counter()
+                answers[name] = http(url + path, body)
+                if name.startswith("predict_npz"):
+                    latency.append(time.perf_counter() - t1)
+        finally:
+            for p in processes:  # as torchrun signals every rank
+                os.kill(p.pid, signal.SIGTERM)
+
+    ranks = p30_world("serve", argv, client)
+    if [r["rc"] for r in ranks] != [0, 0]:
+        raise AssertionError(f"phase 30 (c): server.main returned {[r['rc'] for r in ranks]}")
+    for r, rr in enumerate(ranks):
+        if not rr["launches"].get("coattn_fwd_fused_k"):
+            raise AssertionError(f"phase 30 (c): coattn_fwd_fused_k did not launch on rank {r}")
+        log(f"  rank {r} launches {rr['launches']}")
+    srv = make_server(pred, port=0)
+    import threading
+
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        ref = {name: http(f"http://127.0.0.1:{srv.server_address[1]}{path}", body)
+               for name, path, body in reqs}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    for name, (code, body) in answers.items():
+        ref_code, ref_body = ref[name]
+        want = 400 if name in P30_BAD else 200
+        if not code == ref_code == want:
+            raise AssertionError(f"phase 30 (c) {name}: status {code}, one rank {ref_code}, "
+                                 f"want {want}: {str(body)[:300]}")
+        if code != 200 or name == "healthz":
+            continue
+        for key, want in ref_body.items():
+            check_close(f"phase 30 (c) {name} {key}", torch.tensor(body[key]),
+                        torch.tensor(want), MESH_OUT_ATOL)
+    log(f"  answers equal one rank's within {MESH_OUT_ATOL}; /predict_npz latency (client "
+        f"clock, 2 ranks over gloo on one card) {[round(x * 1e3, 1) for x in latency]} ms; "
+        f"both ranks exited 0 after SIGTERM")
+    return {k: ranks[0]["launches"].get(k, 0) + ranks[1]["launches"].get(k, 0)
+            for k in set(ranks[0]["launches"]) | set(ranks[1]["launches"])}
+
+
+def free_port() -> int:
+    """A free localhost port (released before use)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase30_mesh_settings(dev) -> dict:
+    """(a)-(c); returns the kernel launches of every rank's main-path runs,
+    summed."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    log("phase 30 (a): NaCAGaT medium, the cox loss at data 2 (risk sets over the global "
+        f"batch), {MESH_STEPS} SGD steps host-fed and cached and the eval step, two ranks on "
+        "the card over gloo, against one rank; (b) the co-attention map at seq 2")
+    ref = {"host": mesh_steps(dev, None, cached=False, loss="cox"),
+           "cached": mesh_steps(dev, None, cached=True, loss="cox")}
+    ref_map = p30_export(dev, None)
+    res = p30_world("steps")
+    total = {}
+    for r, rr in enumerate(res):
+        for name in ("gather_rows", "coattn_fwd_fused_k_train", "coattn_bwd_fused_k",
+                     "coattn_fwd_fused_k"):
+            if not rr["cox_launches"].get(name):
+                raise AssertionError(f"phase 30 (a): {name} did not launch on rank {r}")
+        for name in ("coattn_stats", "coattn_weights"):
+            if not rr["export"]["launches"].get(name):
+                raise AssertionError(f"phase 30 (b): {name} did not launch on rank {r}")
+        for part in (rr["cox_launches"], rr["export"]["launches"]):
+            for name, v in part.items():
+                total[name] = total.get(name, 0) + v
+        log(f"  rank {r}: cox launches {rr['cox_launches']}; export launches "
+            f"{rr['export']['launches']}")
+    for way in ("host", "cached"):
+        mesh_same_across_ranks(f"30 (a) {way}", [r[way] for r in res], "params")
+        for r in res:
+            mesh_close(f"30 (a) {way} losses", r[way]["losses"], ref[way]["losses"])
+            mesh_close(f"30 (a) {way} eval loss", r[way]["eval_loss"], ref[way]["eval_loss"])
+            check_close(f"phase 30 (a) {way} eval risk", r[way]["eval_risk"],
+                        ref[way]["eval_risk"], MESH_OUT_ATOL)
+        worst = mesh_params_close(f"30 (a) {way}", res[0][way]["params"], ref[way]["params"])
+        log(f"  cox {way}: losses {res[0][way]['losses']} (one rank {ref[way]['losses']}), eval "
+            f"loss {res[0][way]['eval_loss']} ({ref[way]['eval_loss']}); parameters bitwise "
+            f"equal across ranks, within {worst:.2e} of one rank's; step s on rank 0 (eager, "
+            f"gloo) {[round(x, 4) for x in res[0][way]['step_s']]}")
+    for r, rr in enumerate(res):
+        got = rr["export"]["map"]
+        check_close(f"phase 30 (b) rank {r} map", got, ref_map["map"], P30_MAP_ATOL,
+                    P30_MAP_RTOL)
+        if float(got[0, :, MESH_M // 2:].abs().max()) != 0.0:
+            raise AssertionError("phase 30 (b): bag 0 has weight on rank 1's masked keys")
+        if not torch.equal(got[1], torch.full_like(got[1], 1.0 / MESH_M)):
+            raise AssertionError("phase 30 (b): the bag without a valid key is not uniform "
+                                 "over the global M")
+    log(f"  map [{', '.join(map(str, res[0]['export']['map'].shape))}] equal on both ranks' "
+        "checks; bag 1 exactly 1/M")
+    del ref, ref_map, res
+    torch.cuda.empty_cache()
+    log("phase 30 (c): server.main over two ranks at data 2 (rank 0 answers HTTP, rank 1 "
+        "follows), against a one-rank Predictor, then SIGTERM")
+    with tempfile.TemporaryDirectory() as root:
+        for name, v in p30_serve(dev, root).items():
+            total[name] = total.get(name, 0) + v
+    log(f"phase 30: {time.perf_counter() - t_phase:.1f} s ({gpu_name_and_power()}; two ranks "
+        "share one card over host-staged gloo: not a multi-GPU speed)")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6421,7 +6747,7 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-29")
+                         "Trainer epoch host-fed and cached instead of phases 1-30")
     args = ap.parse_args()
     try:
         import torch
@@ -6597,6 +6923,11 @@ def main() -> int:
     p29 = phase29_tooling(dev)
     for row in rows:  # the tooling's runs: the Trainer, the bundles' custom ops, remat steps
         row["launches"] += p29.get(count_of(row["name"]), 0)
+    torch.cuda.empty_cache()
+    p30 = phase30_mesh_settings(dev)
+    for row in rows:  # every rank's cox steps, seq-2 export and mesh server (medium only)
+        row["launches"] += p30.get(row["name"], 0)
+    log(f"chip_smoke: phases 1-30 in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

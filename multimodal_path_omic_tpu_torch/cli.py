@@ -35,13 +35,17 @@ config says ``device: cpu`` (``--set device=cpu``):
     python -m multimodal_path_omic_tpu_torch.cli serve --bundle bundle/ --port 8008
 
 On a mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1) ``train``, ``validate``,
-``predict``, ``evaluate`` and ``stratify`` run under torchrun, one rank a
-GPU, and only rank 0 prints and writes files:
+``predict``, ``evaluate``, ``stratify``, ``export-attn`` and ``serve`` run
+under torchrun, one rank a GPU, and only rank 0 prints and writes files
+(``serve``: rank 0 answers HTTP and hands each request to the other ranks,
+``server.py``). ``export-attn`` runs on a seq axis (the export passes per
+rank on merged statistics) and raises on a data axis > 1, as the JAX
+package does (a batch of one bag does not split over it):
 
-    torchrun --nproc-per-node 2 -m multimodal_path_omic_tpu_torch.cli train \
+    torchrun --nproc-per-node 2 -m multimodal_path_omic_tpu_torch.cli train \\
         --config cfg.yaml --set tpu.data_axis=2
-
-``serve`` on a mesh raises (ROADMAP.md queue 1, multi-GPU follow-ups).
+    torchrun --nproc-per-node 2 -m multimodal_path_omic_tpu_torch.cli serve \\
+        --config mesh.yaml --checkpoint ... --port 8008   # mesh.yaml: tpu.data_axis: 2
 """
 
 from __future__ import annotations

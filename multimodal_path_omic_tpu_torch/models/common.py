@@ -121,7 +121,10 @@ class CoAttentionSurvivalModel(nn.Module):
         sum of squares of the final co-attention weights [B, N] under
         ``attention['coattn_ssq']`` (all the cesar loss needs). ``generator``
         feeds every dropout site in training mode. ``wsi_scale`` [B, M] with
-        an int8 ``wsi``: the WSI FC's int8 route (``tpu.int8_matmul``)."""
+        an int8 ``wsi``: the WSI FC's int8 route (``tpu.int8_matmul``). On a
+        seq mesh (this rank's patches given) the map is the whole bag's
+        [B, N, M]: the co-attention's export passes run on each rank's keys
+        with merged statistics and its columns are all-gathered."""
         want_ssq = need_attention == "ssq"
         h_bag = self.H(wsi, generator, wsi_scale)
         g_bag = self.G(omics, generator)

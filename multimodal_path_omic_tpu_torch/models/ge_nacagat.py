@@ -29,7 +29,7 @@ from torch import nn
 from multimodal_path_omic_tpu_torch.models.common import MODEL_SIZES
 from multimodal_path_omic_tpu_torch.ops.attention import MultiheadAttention
 from multimodal_path_omic_tpu_torch.ops.blocks import GatedMILPool, WSIEncoder
-from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear, set_mesh
+from multimodal_path_omic_tpu_torch.ops.layers import TorchLinear, seq_sharded, set_mesh
 from multimodal_path_omic_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -60,13 +60,22 @@ class GENaCAGaT(nn.Module):
         """wsi [B, M, wsi_dim], mask [B, M] bool -> (y [B, n_classes],
         {"attn": the [B, M, M] self-attention map or None, "path": the raw
         MIL scores [B, 1, M]}). ``generator`` feeds every dropout site in
-        training mode; ``wsi_scale`` as in the survival models."""
+        training mode; ``wsi_scale`` as in the survival models. On a seq
+        mesh (this rank's patches given) the maps are the whole bag's in
+        eval: the pool's scores and the self-attention's rows all-gathered
+        over the seq group."""
         h_bag = self.H(wsi, generator, wsi_scale)
         h_attn, a_attn = self.self_attention(h_bag, h_bag, h_bag, mask,
                                              need_weights=bool(need_attention),
                                              generator=generator)
         path_trans = self.path_transformer(h_attn, mask, generator)
         h_path, a_path = self.path_pool(path_trans, mask, generator)
+        if seq_sharded(self.path_pool) and not self.training:
+            # the whole bag's scores (JAX's attention['path'] over the sharded
+            # bag): every seq rank's patches, gathered in order
+            from multimodal_path_omic_tpu_torch.parallel import comm
+
+            a_path = comm.all_gather(a_path, self.path_pool.mesh.seq_group, 2)
         # the class probabilities, in float32 whatever the compute type
         y = torch.softmax(self.classifier(h_path).float(), dim=-1)
         return y, {"attn": a_attn, "path": a_path}

@@ -185,9 +185,11 @@ class MultiheadAttention(nn.Module):
     mesh the kernel routes run on this rank's rows through the per-rank
     wrappers (``coattn.fused_attention_sharded``,
     ``fused_attention_leank_sharded``: the global row index in the dropout
-    counter) and the export passes are off (attention maps are exported at
-    mesh size 1). On a seq mesh the patch axis is split: the lean routes
-    are off and :meth:`_seq_forward` takes the call.
+    counter), and so does the export (maps are row-local; JAX turns its
+    export passes off at mesh size > 1, ``attention.py:518-520``, for
+    ``attention_core``'s same map). On a seq mesh the patch axis is split:
+    the lean routes are off and :meth:`_seq_forward` takes the call (a map
+    through the export kernels per rank on merged statistics).
     """
 
     mesh = None  # this rank's parallel.mesh.Mesh, where the module runs over the patch axis
@@ -218,19 +220,27 @@ class MultiheadAttention(nn.Module):
         layout, or the ``tiny`` one at 32 positions and below), each rank
         keeping its query rows; cross-attention over at most 256 queries
         merges its softmax statistics (``philox``: the one-device route is a
-        kernel's, so its dropout counter is drawn). Returns (out_h
-        [B, H, N, D], the ssq [B, N] or None, the projected queries)."""
+        kernel's, so its dropout counter is drawn).
+
+        Maps (``need_weights`` True, JAX: ``attention_core`` over the
+        sharded inputs, ``attention.py:518-531``): cross-attention without
+        dropout takes the export route, the export kernels per rank on
+        merged statistics (``ring.sequence_parallel_export``; their plain
+        versions on the CPU); with dropout the stat merge returns its
+        dropped weights; self-attention gathers the keys and returns its
+        query rows' weights, the rows all-gathered. Returns (out_h
+        [B, H, N, D], the ssq [B, N], the weights [B, H, N, M] or None, the
+        projected queries)."""
         from multimodal_path_omic_tpu_torch.parallel import comm
         from multimodal_path_omic_tpu_torch.parallel.ring import (
             ring_self_attention,
             sequence_parallel_cross_attention,
+            sequence_parallel_export,
         )
 
         mesh, heads = self.mesh, self.num_heads
         want_ssq = need_weights == "ssq"
-        if need_weights is True:
-            raise NotImplementedError("attention maps are exported at mesh size 1, not over a "
-                                      "seq mesh axis")
+        want_map = need_weights is True
         if query is key and key is value:
             q, k, v = self._proj(query, 0, 3).chunk(3, dim=-1)
         else:
@@ -239,7 +249,7 @@ class MultiheadAttention(nn.Module):
             v = self._proj(value, 2, 3)
         qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
         if query is key and not self.pre_gate and not want_ssq:
-            if rate == 0.0 or n >= 4096:
+            if (rate == 0.0 or n >= 4096) and not want_map:
                 return ring_self_attention(qh, kh, vh, key_mask, mesh), None, q
             group = mesh.seq_group
             kg, vg = comm.gather_over(kh, group, 2), comm.gather_over(vh, group, 2)
@@ -247,19 +257,27 @@ class MultiheadAttention(nn.Module):
             scores = torch.matmul(qh / math.sqrt(qh.shape[-1]), kg.transpose(-1, -2))
             w = masked_softmax(scores, None if mask is None else mask[:, None, None, :])
             b, _, nl, mg = w.shape
-            if n <= 32 and m_len <= 32:  # tiny_attention's [B, N, M, H] layout
-                keep, kp = fast_keep_mask(generator, rate, (b, nl, mg, heads), w.device, seq_dim=1)
-                keep = keep.permute(0, 3, 1, 2)
-            else:
-                keep, kp = fast_keep_mask(generator, rate, w.shape, w.device, seq_dim=2)
-            w = torch.where(keep, w / kp, torch.zeros_like(w))
-            return torch.matmul(w, vg), None, q
+            if rate > 0.0:
+                if n <= 32 and m_len <= 32:  # tiny_attention's [B, N, M, H] layout
+                    keep, kp = fast_keep_mask(generator, rate, (b, nl, mg, heads), w.device,
+                                              seq_dim=1)
+                    keep = keep.permute(0, 3, 1, 2)
+                else:
+                    keep, kp = fast_keep_mask(generator, rate, w.shape, w.device, seq_dim=2)
+                w = torch.where(keep, w / kp, torch.zeros_like(w))
+            return torch.matmul(w, vg), comm.all_gather(w, group, 2) if want_map else None, q
+        if query is not key and want_map and rate == 0.0:
+            out_h, w = sequence_parallel_export(qh, kh, vh, key_mask, mesh,
+                                                pre_gate=self.pre_gate)
+            return out_h, w, q
         if query is not key and query.shape[1] <= 256 and (not want_ssq or heads == 1):
             res = sequence_parallel_cross_attention(
                 qh, kh, vh, key_mask, mesh, pre_gate=self.pre_gate, dropout_rate=rate,
-                generator=generator, philox=philox, need_ssq=want_ssq)
+                generator=generator, philox=philox, need_ssq=want_ssq, need_weights=want_map)
             if want_ssq:
                 return res[0].to(q.dtype), res[1][:, 0], q
+            if want_map:
+                return res[0].to(q.dtype), res[1], q
             return res.to(q.dtype), None, q
         raise NotImplementedError(
             f"no seq-mesh route for this attention (self={query is key}, pre_gate="
@@ -306,11 +324,12 @@ class MultiheadAttention(nn.Module):
                  and takes("plain-K", plain_k_supports, query.device, n, e // heads, m_len,
                            values=True, dtype=dt))
         if on_seq:
-            out_h, ssq, q = self._seq_forward(query, key, value, key_mask, need_weights, rate,
-                                              generator, n, m_len,
-                                              philox=(lean_v or fused) and not lean)
+            out_h, second, q = self._seq_forward(query, key, value, key_mask, need_weights,
+                                                 rate, generator, n, m_len,
+                                                 philox=(lean_v or fused) and not lean)
             out = self.out_proj(_merge_heads(out_h))
-            second = ssq if want_ssq else None
+            if need_weights is True and average_attn_weights:
+                second = second.mean(dim=1)  # [B, N, M]
             return (out, second, q) if return_projected_q else (out, second)
         data_sharded = sharded_eligible(mesh, query.shape[0])
         out_h = weights = ssq = None
@@ -376,8 +395,9 @@ class MultiheadAttention(nn.Module):
                     else:  # no kernel instance (JAX: _xla_fused); the site dropped alike
                         out_h, _ = attention_core(qh, kh, vh, key_mask, pre_gate=False,
                                                   need_weights=False)
-                elif need_weights is True and not self_attn and rate == 0.0 and mesh is None:
-                    # the export passes run at mesh size 1, as in JAX
+                elif (need_weights is True and not self_attn and rate == 0.0
+                        and (mesh is None or data_sharded)):
+                    # the export passes; on a data-parallel mesh on this rank's rows
                     out_h, weights = attention_with_weights(
                         qh, kh, vh, key_mask, pre_gate=self.pre_gate
                     )

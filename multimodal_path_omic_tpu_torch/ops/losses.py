@@ -69,16 +69,33 @@ def negative_log_likelihood_survival(hazards, survs, y, c, alpha: float = 0.15,
 
 
 def cox_survival(hazards, survs, c,
-                 sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 sample_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Cox partial likelihood over the batch. hazards (theta), survs, c [B];
     risk sets R[i, j] = S[j] >= S[i]. Weight-0 rows are kept out of every
-    risk set, and an empty risk set is clamped (no log 0)."""
+    risk set, and an empty risk set is clamped (no log 0).
+
+    ``group`` (a ``parallel.comm.Group``: a mesh's data group) holds the
+    batch's rows split over its ranks, this rank's slice given. The risk
+    sets span the global batch: theta, S and the weights are all-gathered in
+    row order (theta through ``comm.gather_over``, whose backward sums the
+    ranks' incoming gradients), and the result is the weighted mean over
+    this rank's rows, each against its global risk set. The weighted sums
+    of the ranks' results are the one-device loss's, and so are their
+    gradients: every rank back-propagates its own rows' terms once."""
     theta = hazards.reshape(-1)
     s = survs.reshape(-1)
-    r_mat = (s[None, :] >= s[:, None]).to(theta.dtype)
-    if sample_weight is not None:
-        r_mat = r_mat * sample_weight.to(theta.dtype)[None, :]
-    risk_sum = torch.clamp((torch.exp(theta)[None, :] * r_mat).sum(dim=1), min=1e-30)
+    theta_all, s_all, w_all = theta, s, sample_weight
+    if group is not None and not group.local:
+        from multimodal_path_omic_tpu_torch.parallel import comm
+
+        theta_all = comm.gather_over(theta, group)
+        s_all = comm.all_gather(s, group)
+        if sample_weight is not None:
+            w_all = comm.all_gather(sample_weight.reshape(-1), group)
+    r_mat = (s_all[None, :] >= s[:, None]).to(theta.dtype)
+    if w_all is not None:
+        r_mat = r_mat * w_all.to(theta.dtype)[None, :]
+    risk_sum = torch.clamp((torch.exp(theta_all)[None, :] * r_mat).sum(dim=1), min=1e-30)
     per = (theta - torch.log(risk_sum)) * (1.0 - c.to(theta.dtype))
     return -_wmean(per, sample_weight)
 
@@ -125,14 +142,16 @@ def l1_reg(params: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def survival_loss(loss_name: str, out, label, censorship, alpha: float,
-                  weight: torch.Tensor, months: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  weight: torch.Tensor, months: Optional[torch.Tensor] = None,
+                  group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, attn_loss) as the JAX train and eval steps compute them.
     ``cesar`` adds 0.01 x the weighted mean over samples of each sample's L2
     norm of its co-attention map: from ``attention['coattn_ssq']`` (the
     per-query sums of squares) when the model returned it, else from the
     map ``attention['coattn']``. ``cox`` takes its risk sets from ``months``
-    with theta = risk = -sum(survs)."""
+    with theta = risk = -sum(survs), over the global batch of ``group`` (a
+    mesh's data group; :func:`cox_survival`). Every other loss is a mean
+    over rows and reads no ``group``."""
     attn_loss = torch.zeros((), dtype=out.hazards.dtype, device=out.hazards.device)
     if loss_name == "ce":
         return cross_entropy_on_probs(out.y, label, sample_weight=weight), attn_loss
@@ -159,5 +178,6 @@ def survival_loss(loss_name: str, out, label, censorship, alpha: float,
         if months is None:
             raise ValueError("the cox loss needs the survival months")
         risk = -out.survs.sum(dim=1)
-        return cox_survival(risk, months, censorship, sample_weight=weight), attn_loss
+        return cox_survival(risk, months, censorship, sample_weight=weight,
+                            group=group), attn_loss
     raise RuntimeError(f'Loss "{loss_name}" not implemented')

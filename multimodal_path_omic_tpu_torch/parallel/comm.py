@@ -7,7 +7,9 @@ one process per GPU (``torchrun --nproc-per-node N -m
 multimodal_path_omic_tpu_torch.cli train ...``), so the collectives that
 GSPMD would insert are written out: the gradient all-reduce of a training
 step, the softmax-statistic merges of a patch axis split over ranks, the
-all-to-all of the sharded device cache, the ring of ``parallel/ring.py``.
+all-to-all of the sharded device cache, the ring of ``parallel/ring.py``,
+the all-gather of the cox loss's risk sets, and the requests a mesh server's
+rank 0 hands to the other ranks (:func:`broadcast_request`).
 
 * :func:`init_from_env` joins the process group torchrun describes
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); the backend
@@ -248,6 +250,37 @@ def broadcast_object(obj, group: Group, src_index: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, group.ranks[src_index], group=group.pg)
     return box[0]
+
+
+def broadcast_request(header, arrays, group: Group, src_index: int = 0):
+    """A request from the group's rank ``src_index`` to every rank: a small
+    picklable ``header`` by :func:`broadcast_object` (with the arrays'
+    shapes), then the float32 ``arrays`` (numpy) as one flat buffer by
+    :func:`broadcast_` (on the CPU under gloo, on this rank's card under
+    NCCL). The other ranks pass anything for ``header`` and ``arrays``.
+    Returns ``(header, arrays)`` on every rank, the arrays as float32 numpy
+    arrays."""
+    import numpy as np
+
+    if group.local:
+        return header, [np.asarray(a, np.float32) for a in arrays]
+    src = group.index == src_index
+    if src:
+        arrays = [np.ascontiguousarray(a, np.float32) for a in arrays]
+    header, shapes = broadcast_object(
+        (header, [a.shape for a in arrays]) if src else None, group, src_index)
+    sizes = [int(np.prod(s)) for s in shapes]
+    device = "cpu" if group.backend == "gloo" else torch.device("cuda",
+                                                                torch.cuda.current_device())
+    if src:
+        flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])
+                                if arrays else np.zeros(0, np.float32)).to(device)
+    else:
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    if flat.numel():
+        broadcast_(flat, group, src_index)
+    parts = np.split(flat.cpu().numpy(), np.cumsum(sizes)[:-1]) if sizes else []
+    return header, [p.reshape(s) for p, s in zip(parts, shapes)]
 
 
 # ---------------------------------------------------------------- autograd

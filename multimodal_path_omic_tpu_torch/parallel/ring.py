@@ -16,10 +16,20 @@ patches.
   queries replicated; the statistics merge by one max and the sums of l, o
   (and ssq) over the seq group (JAX ``:196-217``). Attention dropout is drawn
   shard-locally at the global key and bag indices, so the split call drops
-  the weights the one-device route drops.
+  the weights the one-device route drops. With ``need_weights`` it also
+  returns the map, each rank's columns all-gathered along the key axis.
+* :func:`sequence_parallel_export`: the attention-map export over a split
+  M, on the export kernels: each rank runs export pass 1
+  (``coattn.coattn_stats``) on its keys, the statistics merge over the seq
+  group (m the maximum, l the sum of l_r exp(m_r - m)), and export pass 2
+  (``coattn.coattn_weights``) writes the rank's columns of the map from the
+  merged (l, m); a shape the kernels refuse takes the same merge over
+  plain scores. The JAX package runs ``attention_core`` over the sharded
+  inputs here (``attention.py:518-531``): the same map.
 
-Both run plain tensor operations, as the JAX package runs XLA here; the
-flash kernel inside each ring step is later work (ROADMAP.md).
+The ring and the stat merge run plain tensor operations, as the JAX package
+runs XLA there; the flash kernel inside each ring step is later work
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,7 +38,14 @@ import math
 
 import torch
 
-from multimodal_path_omic_tpu_torch.ops.coattn import dropout_bits, dropout_threshold
+from multimodal_path_omic_tpu_torch.ops import kernels
+from multimodal_path_omic_tpu_torch.ops.coattn import (
+    coattn_stats,
+    coattn_weights,
+    dropout_bits,
+    dropout_threshold,
+    plain_k_supports,
+)
 from multimodal_path_omic_tpu_torch.ops.layers import NEG_INF, fast_keep_mask, require_generator
 from multimodal_path_omic_tpu_torch.parallel import comm
 
@@ -127,12 +144,15 @@ def ring_self_attention(q, k, v, key_mask, mesh, q_chunk: int = 512) -> torch.Te
 
 def sequence_parallel_cross_attention(q, k, v, key_mask, mesh, *, pre_gate: bool = False,
                                       dropout_rate: float = 0.0, generator=None,
-                                      philox: bool = True, need_ssq: bool = False):
+                                      philox: bool = True, need_ssq: bool = False,
+                                      need_weights: bool = False):
     """Exact masked cross-attention with K / V split over ``mesh``'s seq
     group and the (few) queries replicated: q [B, H, N, D]; k, v
     [B, H, Ml, D]; key_mask [B, Ml] bool or None. Returns out [B, H, N, D]
     (the same on every seq rank), and with ``need_ssq`` (out, ssq [B, H, N],
-    the per-query sum of squares of the final weights).
+    the per-query sum of squares of the final weights), or with
+    ``need_weights`` (out, the final weights [B, H, N, M] over the global
+    keys, every rank's columns all-gathered).
 
     ``pre_gate``: the NaCAGaT pre-gate, shard-local. ``dropout_rate`` > 0
     drops the normalized weights as torch does (l sums the undropped ones),
@@ -173,7 +193,46 @@ def sequence_parallel_cross_attention(q, k, v, key_mask, mesh, *, pre_gate: bool
     l_glob = comm.sum_over(l_local, group)
     o_glob = comm.sum_over(torch.matmul(p_used, v), group)
     out = o_glob / l_glob
+    if need_weights:
+        return out, comm.gather_over(p_used / l_glob, group, 3)
     if not need_ssq:
         return out
     ssq = comm.sum_over((p_used * p_used).sum(dim=-1, keepdim=True), group) / (l_glob * l_glob)
     return out, ssq[..., 0]
+
+
+def sequence_parallel_export(q, k, v, key_mask, mesh, *, pre_gate: bool = False):
+    """The attention-map export (``coattn.attention_with_weights``) with K /
+    V split over ``mesh``'s seq group and the queries replicated: q
+    [B, H, N, D]; k, v [B, H, Ml, D]; key_mask [B, Ml] bool or None.
+    Returns (out [B, H, N, D] in q's type, weights [B, H, N, M] float32
+    over the global keys), the same on every seq rank.
+
+    Where the export kernels take the shape (``coattn.plain_k_supports`` on
+    the local keys) each rank runs export pass 1 on its keys, giving
+    (l_r, m_r) a query; a rank whose keys of a bag are all masked is the
+    kernels' lone unit (m_r = ``coattn.NEG``, l_r = Ml), which drops out of
+    the merge m = max_r m_r, l = sum_r l_r exp(m_r - m) unless no rank has
+    a valid key, where it leaves l = M and the row uniform over the global
+    M. Export pass 2 then writes the rank's columns, exp(s - m) / l; out is
+    the sum over the group of each rank's columns times its v. Elsewhere the
+    same merge runs over the scores of ``attention_core``'s form."""
+    b, h, n, d = q.shape
+    ml = k.shape[2]
+    group = mesh.seq_group
+    if kernels.takes("export", plain_k_supports, q.device, n, d, ml, values=False,
+                     dtype=q.dtype):
+        qf = q.reshape(b * h, n, d).contiguous()
+        kf = k.reshape(b * h, ml, d).contiguous()
+        mf = None if key_mask is None else key_mask.contiguous()  # a rank's patch slice
+        if mf is not None and h > 1:
+            mf = mf.repeat_interleave(h, dim=0)
+        l_r, m_r = coattn_stats(qf, kf, mf, pre_gate=pre_gate)
+        m = comm.max_over(m_r, group)
+        l = comm.all_reduce(l_r * torch.exp(m_r - m), group)
+        w = coattn_weights(qf, kf, mf, l, m, pre_gate=pre_gate).reshape(b, h, n, ml)
+        out = comm.all_reduce(torch.matmul(w, v.float()), group)
+        return out.to(q.dtype), comm.all_gather(w, group, 3)
+    out, w = sequence_parallel_cross_attention(q, k, v, key_mask, mesh, pre_gate=pre_gate,
+                                               need_weights=True)
+    return out.to(q.dtype), w

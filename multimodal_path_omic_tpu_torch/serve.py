@@ -22,8 +22,12 @@ On a mesh (``Predictor(..., mesh=)``, or a Trainer's) every rank calls with
 the same bags, stages only its slice of each batch (its rows, of each bag
 its patches) and gets the global batch's outputs (the mesh eval step
 all-gathers them), so every call returns the one-device result on every
-rank. A batch has at least ``data_axis`` rows (``min_rows``): a single bag
-is padded with zero-weight rows (JAX ``serve.py:51-55``).
+rank, under every loss (``cox``'s risk sets span the global batch) and with
+``need_attention`` (the maps of the global batch; on a seq axis the
+export passes run per rank on merged statistics). A batch has at least
+``data_axis`` rows (``min_rows``): a single bag is padded with zero-weight
+rows (JAX ``serve.py:51-55``). ``server.py`` serves a mesh over HTTP: rank
+0 answers and hands each request to the other ranks.
 
 CLI: ``python -m multimodal_path_omic_tpu_torch.cli predict --config cfg.yaml
 --checkpoint ck --out predictions.csv`` writes one row per slide.

@@ -50,6 +50,27 @@ kernels and runs every bucket before the first request. Under concurrent single-
 ``predict_bags`` dispatch (DynamicBatcher) so the device scores a batch per
 round-trip instead of a bag — the server-side counterpart of the client-side
 ``/predict_batch_npz`` endpoint.
+
+On a mesh (``tpu.data_axis`` x ``tpu.seq_axis`` > 1, under torchrun: one
+process a GPU) every rank builds ``Predictor.from_config`` on the mesh and
+the server is the counterpart of the JAX package's one controller over
+every device. Rank 0 binds the HTTP server, answers ``/healthz`` and
+``/metrics`` alone and keeps the inference lock and the dynamic batcher;
+its predictor is a :class:`MeshFront`, which checks each request's arrays
+before anything crosses to the other ranks (a malformed body is a 400 with
+no collective entered), then broadcasts an op header and the arrays
+(``parallel/comm.py::broadcast_request``) and makes the same
+``predict_bag`` / ``predict_bags`` call as every other rank, each on its
+rows and patches. The other ranks run :func:`follow`: they wait for the
+next op, run it and wait again, until rank 0 broadcasts a stop. On SIGTERM
+(torchrun signals every rank) rank 0 drains the HTTP loop and broadcasts
+the stop; the others ignore the signal until the stop arrives, and every
+rank exits 0:
+
+    torchrun --nproc-per-node 2 -m multimodal_path_omic_tpu_torch.cli serve \\
+        --config mesh.yaml --checkpoint <ckpt> --port 8008   # tpu.data_axis: 2
+
+``--bundle`` serves on one device, as the JAX bundle does.
 """
 
 from __future__ import annotations
@@ -489,6 +510,116 @@ def make_bundle_server(bundle_dir: str, port: int = 0, host: str = "127.0.0.1",
                         batch_wait_ms)
 
 
+_STOP = "stop"
+
+
+def _check_request(predictor, bags, omics) -> None:
+    """Raise ``ValueError`` for a request ``predictor`` cannot score: a bag
+    that is not [patches, wsi_dim], a survival model's bag without omics, or
+    omics that do not match the signature widths. A mesh server checks this
+    on rank 0 before any rank enters a collective."""
+    for i, bag in enumerate(bags):
+        if np.ndim(bag) != 2 or np.shape(bag)[1] != predictor.wsi_dim:
+            raise ValueError(f"bag {i} must be [patches, {predictor.wsi_dim}], got "
+                             f"{np.shape(bag)}")
+    if predictor.ge_mode:
+        return
+    if omics is None or len(omics) != len(bags) or any(o is None for o in omics):
+        raise ValueError("survival models need one omics signature list per bag")
+    sizes = tuple(predictor.omic_sizes)
+    for i, sig in enumerate(omics):
+        got = tuple(int(np.size(v)) for v in sig)
+        if got != sizes:
+            raise ValueError(f"bag {i}: omics widths {got} != the model's {sizes}")
+
+
+def _run(predictor, header, arrays):
+    """One broadcast op on ``predictor``: the same call on every rank."""
+    n, n_sig = header["n_bags"], header["n_sig"]
+    bags = arrays[:n]
+    sig = arrays[n:]
+    omics = None if n_sig == 0 else [sig[i * n_sig:(i + 1) * n_sig] for i in range(n)]
+    if header["op"] == "bag":
+        return predictor.predict_bag(bags[0], None if omics is None else omics[0],
+                                     mc_samples=header["mc"], mc_seed=header["mc_seed"])
+    return predictor.predict_bags(bags, omics)
+
+
+class MeshFront:
+    """Rank 0's predictor on a mesh: checks a request, hands it to every
+    rank (an op header and the arrays, ``comm.broadcast_request``), then
+    makes its own call, as :func:`follow` makes it on the other ranks.
+    Everything else (``model_name``, ``n_params``, ``omic_sizes``, ...) is
+    the wrapped :class:`~multimodal_path_omic_tpu_torch.serve.Predictor`'s.
+    Calls are serialized by the server's inference lock, so one op is in
+    flight at a time."""
+
+    def __init__(self, predictor):
+        self._p = predictor
+        self._group = predictor.mesh.world
+        self.stopped = False
+
+    def __getattr__(self, name):
+        return getattr(self._p, name)
+
+    def _op(self, op, bags, omics, mc=0, mc_seed=0):
+        from multimodal_path_omic_tpu_torch.parallel import comm
+
+        if self.stopped:
+            raise RuntimeError("the mesh server has stopped")
+        bags = [np.asarray(b, np.float32) for b in bags]
+        omics = None if self._p.ge_mode else omics
+        _check_request(self._p, bags, omics)
+        sig = [] if omics is None else [np.asarray(v, np.float32).reshape(-1)
+                                        for o in omics for v in o]
+        header = {"op": op, "n_bags": len(bags), "n_sig": 0 if omics is None else len(omics[0]),
+                  "mc": int(mc), "mc_seed": int(mc_seed)}
+        header, arrays = comm.broadcast_request(header, bags + sig, self._group)
+        return _run(self._p, header, arrays)
+
+    def predict_bag(self, bag, omics=None, mc_samples: int = 0, mc_seed: int = 0):
+        return self._op("bag", [bag], None if omics is None else [omics], mc_samples, mc_seed)
+
+    def predict_bags(self, bags, omics=None):
+        if not len(bags):
+            return {}
+        return self._op("bags", bags, omics)
+
+    def stop(self) -> None:
+        """Send every other rank out of :func:`follow` (once)."""
+        from multimodal_path_omic_tpu_torch.parallel import comm
+
+        if not self.stopped:
+            self.stopped = True
+            comm.broadcast_request({"op": _STOP}, [], self._group)
+
+
+def follow(predictor) -> int:
+    """A mesh rank other than 0: run each op rank 0 broadcasts on
+    ``predictor`` until the stop. SIGTERM and SIGINT are ignored meanwhile
+    (torchrun signals every rank; rank 0 drains and sends the stop). A
+    failed op is rank 0's to answer; this rank waits for the next. Returns
+    0."""
+    import signal
+
+    from multimodal_path_omic_tpu_torch.parallel import comm
+
+    group = predictor.mesh.world
+    saved = {sig: signal.signal(sig, signal.SIG_IGN) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        while True:
+            header, arrays = comm.broadcast_request(None, [], group)
+            if header["op"] == _STOP:
+                return 0
+            try:
+                _run(predictor, header, arrays)
+            except Exception:  # the same failure answers the client on rank 0
+                pass
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+
+
 def main(argv: Optional[list] = None) -> int:
     import argparse
 
@@ -526,6 +657,7 @@ def main(argv: Optional[list] = None) -> int:
         ap.error("--bundle carries its own weights; drop --checkpoint/--torch-checkpoint "
                  "(or serve via --config)")
     t0 = time.perf_counter()
+    front = None
     if args.bundle:
         server = make_bundle_server(args.bundle, port=args.port, host=args.host,
                                     dynamic_batch=args.dynamic_batch,
@@ -537,19 +669,21 @@ def main(argv: Optional[list] = None) -> int:
         from multimodal_path_omic_tpu_torch.config import load_config
         from multimodal_path_omic_tpu_torch.serve import Predictor
 
-        config = load_config(args.config)
-        if config.tpu.data_axis * config.tpu.seq_axis > 1:
-            raise NotImplementedError(
-                "serving on a mesh: an HTTP front over several ranks is not ported (ROADMAP.md "
-                "queue 1, multi-GPU follow-ups: a multi-process serve); serve at mesh size 1")
         predictor = Predictor.from_config(
-            config,
+            load_config(args.config),
             checkpoint=args.checkpoint,
             torch_checkpoint=args.torch_checkpoint,
         )
-        if args.warmup:
-            predictor.warmup(verbose=True)
-            print(f"warmup: {time.perf_counter() - t0:.2f} s", flush=True)
+        mesh = predictor.mesh
+        lead = mesh is None or mesh.rank == 0
+        if args.warmup:  # every rank: the warm-up's steps are collective on a mesh
+            predictor.warmup(verbose=lead)
+            if lead:
+                print(f"warmup: {time.perf_counter() - t0:.2f} s", flush=True)
+        if not lead:
+            return follow(predictor)
+        if mesh is not None:
+            front = predictor = MeshFront(predictor)
         server = make_server(
             predictor, port=args.port, host=args.host,
             dynamic_batch=args.dynamic_batch, batch_wait_ms=args.batch_wait_ms,
@@ -575,6 +709,9 @@ def main(argv: Optional[list] = None) -> int:
         # server_close() joins them (block_on_close) and closes the socket —
         # without it, "graceful" still reset mid-response clients.
         server.server_close()
+        if front is not None:  # after the op in flight, send the other ranks out
+            with server.RequestHandlerClass.infer_lock:
+                front.stop()
     print("server stopped", flush=True)
     return 0
 

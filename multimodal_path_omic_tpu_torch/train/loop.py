@@ -21,7 +21,9 @@ A full effective batch is processed in one step. When B * M exceeds
 (the largest divisor of B whose chunk fits), each chunk's loss scaled by its
 weight mass, and divides the summed gradients by the batch's total weight
 mass before the one optimizer update: the same gradient as the one-chunk
-step. ``cox`` always takes the whole batch (its risk sets span it).
+step. ``cox`` always takes the whole batch (its risk sets span it; on a
+mesh the global batch: each rank's risks, months and weights all-gathered
+over the data group inside the loss, ``ops/losses.py::cox_survival``).
 
 Unlike the JAX step, which is pure, this one updates the model's parameters
 and the optimizer state in place (``TrainState`` carries the objects and a
@@ -134,19 +136,20 @@ def _graphs_for(graphs: Union[bool, StepGraphs], mesh=None) -> Callable[[torch.d
     return get
 
 
-def _check_mesh(mesh, loss_name: str) -> None:
-    """Refuse what a mesh cannot run: cox's risk sets span the global
-    batch (not ported to a data mesh)."""
+def _check_mesh(mesh) -> None:
+    """``mesh`` is None or a ``parallel.mesh.Mesh``."""
     if mesh is None:
         return
     from multimodal_path_omic_tpu_torch.parallel.mesh import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
-    if loss_name == "cox" and mesh.data > 1:
-        raise NotImplementedError(
-            "the cox loss on a data-parallel mesh (its risk sets span the global batch) is "
-            "not ported (ROADMAP.md queue 1, multi-GPU follow-ups)")
+
+
+def _rows_group(mesh):
+    """The group the batch rows split over (the cox loss's risk sets span
+    it): the mesh's data group, or None."""
+    return None if mesh is None else mesh.data_group
 
 
 def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -204,8 +207,11 @@ def make_train_step(
     patches, and the step gives every rank the one-device step's
     per-parameter gradients (:func:`_train_fn`: the gradient rule); its
     metrics are the global batch's (risk all-gathered over the data
-    group)."""
-    _check_mesh(mesh, loss_name)
+    group). ``cox`` builds each row's risk set over the global batch
+    (``losses.cox_survival`` with the data group): each rank
+    back-propagates its own rows' terms, so the gradient sum over the world
+    counts every term once."""
+    _check_mesh(mesh)
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
                       patch_budget=patch_budget, ge_mode=ge_mode, omic_sizes=omic_sizes,
                       patch_dropout=patch_dropout, int8_matmul=int8_matmul, mesh=mesh,
@@ -287,7 +293,7 @@ def _train_fn(model: nn.Module, loss_name: str, optimizer: OptimizerSpec, *, alp
                                 wsi_scale=scale)
                     loss, attn_loss = survival_loss(
                         loss_name, out, batch["label"][sl], batch["censorship"][sl], alpha,
-                        weight, None if months is None else months[sl],
+                        weight, None if months is None else months[sl], _rows_group(mesh),
                     )
                     risk = -out.survs.detach().sum(dim=1)
             w_i = weight.sum()
@@ -451,7 +457,7 @@ def make_cached_train_step(
     ``DeviceBagCache`` and ``meta`` the global batch's
     (:func:`_gather_batch`); the step is :func:`make_train_step`'s on a
     mesh."""
-    _check_mesh(mesh, loss_name)
+    _check_mesh(mesh)
     if not ge_mode and omic_sizes is None:
         raise ValueError("the cached step of a survival model needs omic_sizes")
     eager = _train_fn(model, loss_name, optimizer, alpha=alpha, l1_lambda=l1_lambda,
@@ -572,14 +578,21 @@ def make_eval_step(
 
     ``mesh``: the batch (or the cache and its global meta) is this rank's,
     as in the train steps; the results are the global batch's on every
-    rank: the loss over the data group's weight mass, per-row outputs
-    all-gathered in row order, and no attention (maps are exported at mesh
-    size 1: ``need_attention`` raises; ``cesar`` reads the merged ssq)."""
-    _check_mesh(mesh, loss_name)
-    if mesh is not None and need_attention:
-        raise NotImplementedError("attention maps are exported at mesh size 1")
+    rank: the loss over the data group's weight mass (``cox``: each row
+    against its risk set in the global batch), per-row outputs all-gathered
+    in row order. Attention, where the one-device step returns it (GE
+    always, its raw MIL scores; the survival models with ``need_attention``):
+    the maps of the global batch, their rows all-gathered over the data
+    group and, on a seq axis, their patch columns over the seq group inside
+    the model (the co-attention's export passes run per rank on merged
+    statistics, ``parallel/ring.py::sequence_parallel_export``; GE gathers
+    its pool's scores); ``cesar`` without ``need_attention`` reads the
+    merged ssq, and its attention is None."""
+    _check_mesh(mesh)
     want_attn = bool(need_attention) or loss_name == "cesar"
-    model_attn = "ssq" if mesh is not None and want_attn else want_attn
+    model_attn = ("ssq" if mesh is not None and want_attn and not need_attention
+                  else want_attn)
+    attn_out = need_attention if mesh is not None else want_attn
     if ge_mode and loss_name != "ce":
         raise NotImplementedError(f"GE-NaCAGaT evaluates with the ce loss, not {loss_name!r}")
     if cached and not ge_mode and omic_sizes is None:
@@ -611,13 +624,15 @@ def make_eval_step(
             y, attn = model(batch["wsi"], batch["mask"])
             loss = cross_entropy_on_probs(y, batch["label"], sample_weight=weight)
             if mesh is not None:
-                (loss,), y, attn = _global_means([loss], weight, mesh), _gathered(y, mesh), None
+                (loss,), y = _global_means([loss], weight, mesh), _gathered(y, mesh)
+                attn = _gathered_maps(attn, mesh)
             return {"loss": loss + reg, "y": y, "attention": attn,
                     "n_real": _summed(weight.sum(), mesh)}
         out = model(batch["wsi"], _unpack_omics(batch, omic_sizes), batch["mask"],
                     need_attention=model_attn)
         loss, attn_loss = survival_loss(loss_name, out, batch["label"], batch["censorship"],
-                                        alpha, weight, batch.get("survival_months"))
+                                        alpha, weight, batch.get("survival_months"),
+                                        _rows_group(mesh))
         if mesh is not None:
             loss, attn_loss = _global_means([loss, attn_loss], weight, mesh)
         return {
@@ -627,11 +642,19 @@ def make_eval_step(
             "hazards": _gathered(out.hazards, mesh),
             "survs": _gathered(out.survs, mesh),
             "y": _gathered(out.y, mesh),
-            "attention": out.attention if want_attn and mesh is None else None,
+            "attention": _gathered_maps(out.attention, mesh) if attn_out else None,
             "n_real": _summed(weight.sum(), mesh),
         }
 
     return step
+
+
+def _gathered_maps(attention: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """An attention dict with every map's rows all-gathered over the data
+    group (None entries kept)."""
+    if mesh is None:
+        return attention
+    return {k: None if v is None else _gathered(v, mesh) for k, v in attention.items()}
 
 
 def _global_means(means: Sequence[torch.Tensor], weight: torch.Tensor, mesh) -> List[torch.Tensor]:

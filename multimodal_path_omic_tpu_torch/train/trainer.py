@@ -65,9 +65,13 @@ sharded device cache (its budget per device) and the mesh steps, whose
 metrics are the global batch's: the epoch's numbers are the same on every
 rank. Rank 0 alone prints, logs and writes checkpoints; every rank restores
 them. A mesh over gloo (CPU ranks, or several ranks on one card) runs the
-steps eagerly, saying so once. Several ranks without a mesh, a batch that
-does not split over the data axis, and the leave-one-out export (maps are
-exported at mesh size 1) raise.
+steps eagerly, saying so once. Every loss runs on a mesh (``cox`` with its
+risk sets over the global batch). The leave-one-out export
+(``training.leave_one_out``, :meth:`Trainer.test`) runs on a seq axis, the
+export passes per rank on merged statistics, and raises on a data axis > 1
+where the JAX Trainer raises: its batch of one bag does not split over the
+data axis. Several ranks without a mesh and a batch that does not split
+over the data axis raise as well.
 
 Settings the port cannot honour yet raise ``NotImplementedError``
 (``config.require_supported``). A reference ``.pt`` checkpoint loads
@@ -402,9 +406,6 @@ class Trainer:
             raise ValueError(
                 f"tpu.batch_size={self.batch_size} must be divisible by tpu.data_axis={data} "
                 "(batch rows shard over the data axis)")
-        if c.training.leave_one_out is not None:
-            raise NotImplementedError("training.leave_one_out exports attention maps, which "
-                                      "are exported at mesh size 1")
         if verbose and mesh.rank == 0:
             print(f"Mesh: data={data} x seq={seq} over {mesh.size} ranks ({mesh.backend})")
         return mesh
@@ -800,20 +801,41 @@ class Trainer:
         ``ATTN_<model>_<patient>_<time>_E<epoch>_<batch>.npy`` (GE: without
         the model) or ``.pt`` under ``training.attn_export_format``; with
         ``png`` each saved map is also rendered beside it
-        (``utils/visualize.py``, rows labelled by signature)."""
+        (``utils/visualize.py``, rows labelled by signature).
+
+        On a seq mesh every rank reads its patches of each bag and runs the
+        export step (the co-attention's export passes per rank on merged
+        statistics, GE's scores gathered), and rank 0 alone prints and
+        writes the files. A data axis > 1 raises ``ValueError``, as the JAX
+        Trainer does (``shard_batch`` cannot split a batch of one bag over
+        it)."""
         if self.test_ds is None or len(self.test_ds) == 0:
             return
         c = self.config
+        mesh = self.mesh
+        if mesh is not None and mesh.data > 1:
+            # JAX: shard_batch's device_put of the one-bag batch over the data axis
+            raise ValueError(
+                f"the leave-one-out export feeds batches of 1 bag, which do not split over "
+                f"tpu.data_axis={mesh.data} (batch rows shard over the data axis)")
         now = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
+        if mesh is not None:  # one time stamp in every rank's names
+            now = comm.broadcast_object(now, mesh.world)
         out_dir = c.training.test_output_dir
-        os.makedirs(out_dir, exist_ok=True)
-        batcher = BucketBatcher(self.test_ds, self.extras_fn, 1, self.buckets, shuffle=False)
+        writer = mesh is None or mesh.rank == 0
+        if writer:
+            os.makedirs(out_dir, exist_ok=True)
+        batcher = BucketBatcher(self.test_ds, self.extras_fn, 1, self.buckets, shuffle=False,
+                                host_slice=mesh)
         if not hasattr(self, "_test_eval_step"):
             self._test_eval_step = make_eval_step(
                 self.model, c.training.loss, need_attention=not self.ge_mode, **self._step_kw)
         for bi, batch in enumerate(batcher.batches()):
             res = self._test_eval_step(self._device_batch(batch))
             n_patches = int(batch["mask"][0].sum())
+            if mesh is not None:  # the bag's patches over every seq rank
+                n_patches = int(comm.all_reduce(torch.tensor(n_patches, device=self.device),
+                                                mesh.seq_group))
             attn = res["attention"]["path" if self.ge_mode else "coattn"]
             attn_map = attn.reshape(attn.shape[0], -1, attn.shape[-1])[0, :, :n_patches]
             attn_map = attn_map.cpu().numpy()
@@ -830,7 +852,7 @@ class Trainer:
                           f"Risk: {float(res['risk'][0]):.4f}")
                 print(f"Attn min: {attn_map.min():.6f}, Attn max: {attn_map.max():.6f}, "
                       f"Attn mean: {attn_map.mean():.6f}")
-            if save:
+            if save and writer:
                 patient = c.training.leave_one_out
                 ext = c.training.attn_export_format
                 model = "" if self.ge_mode else f"{c.model.name}_"  # ge_nacagat/main.py:140

@@ -75,6 +75,17 @@ SIZES = (10, 20, 30)
 WSI = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _bf(x):
     """float32 values exactly representable in bfloat16 (both sides then
     start from the same inputs)."""

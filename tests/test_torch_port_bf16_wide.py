@@ -57,6 +57,17 @@ WIDE = 512
 WIDE_STAT_RTOL = 2.5e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.mark.parametrize("m_len,case", MASKS)
 @pytest.mark.parametrize("form", ["eval", "train"])
 def test_bf16_fused_k_forward_e512_matches_pallas(form, m_len, case):

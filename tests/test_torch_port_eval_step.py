@@ -45,6 +45,17 @@ SURVIVAL_LOSSES = ("ce", "ces", "sct", "cesar", "nll", "cox")
 L1 = 3e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 

@@ -15,12 +15,30 @@ process. The optimizer is SGD: Adam's first steps are the gradient's sign,
 which turns the rounding noise of a gradient that is zero (a softmax bias)
 into a full step, where SGD keeps it at the noise's size.
 
+The settings the mesh first refused run in the same two spawns: the cox
+loss at data 2 and 2x2 (three SGD steps host-fed and from the sharded
+device cache, then the eval step, on batches whose months tie and
+interleave across the data ranks with a zero-weight row on rank 1), the
+attention maps of the eval step at seq 2 (NaCAGaT's and MCAT's co-attention
+maps through the export passes on merged statistics, GE's MIL scores) and at
+data 2, on a batch with a bag whose valid patches all lie in seq rank 0's
+half and a bag without one, and ``Trainer.test`` (the leave-one-out export)
+at seq 2 against the JAX Trainer on its seq-2 CPU mesh, and at data 2 and
+2x2, where both raise.
+
 Tolerances: epoch numbers, outputs and parameters 1e-5 of each quantity's
 largest magnitude against one rank (other summation orders across ranks;
 a gradient below 1e-2 of the model's largest is held to 1e-7 of that: it is
 a cancellation, whose rounding follows its terms, as a softmax scoring
 head's does); parameters bitwise equal across ranks; against JAX's
-gradients on the same mesh 5e-5 absolute.
+gradients, losses and maps on the same mesh (cox: the JAX step's loss on
+the global batch) 5e-5 absolute (maps: weights at most 1; GE's raw scores
+5e-5 of their largest magnitude). The cox
+gradients are held to 1e-4 of the model's largest gradient: they are
+~1e-3 of the per-row terms they sum (the partial likelihood is invariant
+to a shift of every risk), so their rounding is the terms'; the one-rank
+port's own distance from JAX is 7e-5 of it on this batch, two ranks' from
+one rank 4.4e-5.
 """
 
 import numpy as np
@@ -31,6 +49,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from multimodal_path_omic_tpu.config import config_from_dict as jconfig_from_dict  # noqa: E402
 from multimodal_path_omic_tpu.models import build_model as jbuild_model  # noqa: E402
 from multimodal_path_omic_tpu.parallel import mesh as jmesh  # noqa: E402
 from multimodal_path_omic_tpu.train import loop as jloop  # noqa: E402
@@ -78,6 +97,29 @@ GRADS = {  # key: (world, model, loss, mesh axes)
     "nacagat-2x2": (4, "NaCAGaT", "ces", (2, 2)),
 }
 GRAD_B, GRAD_M, WSI = 4, 128, 64
+COX = {  # key: (world, mesh axes, cached)
+    "cox-data2-host": (2, (2, 1), False), "cox-data2-cached": (2, (2, 1), True),
+    "cox-2x2-host": (4, (2, 2), False), "cox-2x2-cached": (4, (2, 2), True),
+}
+EXPORTS = {  # key: (model, mesh axes); all on two ranks
+    "export-seq2-NaCAGaT": ("NaCAGaT", (1, 2)), "export-seq2-MCAT": ("MCAT", (1, 2)),
+    "export-seq2-GE": ("GE-NaCAGaT", (1, 2)), "export-data2-NaCAGaT": ("NaCAGaT", (2, 1)),
+}
+LOO = {  # key: (world, model, mesh axes); the JAX Trainer runs at seq 2, raises on data 2
+    "loo-seq2-NaCAGaT": (2, "NaCAGaT", (1, 2)), "loo-seq2-GE": (2, "GE-NaCAGaT", (1, 2)),
+    "loo-data2": (2, "NaCAGaT", (2, 1)), "loo-2x2": (4, "NaCAGaT", (2, 2)),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs (the one-rank references; the
+    spawned ranks take one each): the suite's six workers on eight cores,
+    each with a thread a core, oversubscribe them."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 def _sets(key, cohort, tag):
@@ -125,8 +167,36 @@ def params():
     return {name: _jax_params(name) for name in ("NaCAGaT", "MCAT", "GE-NaCAGaT")}
 
 
+def _jax_trainer(root, name, data, seq):
+    raw = jobs.loo_config(root, name, data, seq)
+    raw["training"]["test_output_dir"] = f"{root}/jax-loo-{name}-{data}x{seq}"
+    from multimodal_path_omic_tpu.train.trainer import Trainer as JTrainer
+
+    return JTrainer(jconfig_from_dict(raw), verbose=False)
+
+
 @pytest.fixture(scope="module")
-def worlds(cohort, params):
+def loo_jax(cohort):
+    """Per LOO case: the JAX Trainer's parameters and what its ``test(1,
+    save=True)`` wrote (the map) or raised, on its mesh of the same shape."""
+    import glob
+
+    out = {}
+    for key, (_, name, (data, seq)) in LOO.items():
+        t = _jax_trainer(cohort[0], name, data, seq)
+        res = {"params": jax.tree_util.tree_map(np.asarray, t.state.params)}
+        try:
+            t.test(1, save=True)
+            (path,) = glob.glob(f"{t.config.training.test_output_dir}/ATTN_*.npy")
+            res["map"], res["name"] = np.load(path), path.rsplit("/", 1)[1]
+        except ValueError as exc:
+            res["raised"] = str(exc)
+        out[key] = res
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(cohort, params, loo_jax):
     """Per world size, every rank's results of every case, spawned once."""
     out = {}
     for world in (2, 4):
@@ -139,9 +209,17 @@ def worlds(cohort, params):
             if w == world:
                 specs.append((key, "steps", (name, data, seq, 1, 0.0, 0, GRAD_B, GRAD_M, loss,
                                              0.0, "small", WSI, params[name])))
+        for key, (w, (data, seq), cached) in COX.items():
+            if w == world:
+                specs.append((key, "cox", ("NaCAGaT", data, seq, cached, params["NaCAGaT"])))
+        for key, (w, name, (data, seq)) in LOO.items():
+            if w == world:
+                specs.append((key, "loo", (name, data, seq, loo_jax[key]["params"])))
         if world == 2:
             for key, (sets, _) in REFUSALS.items():
                 specs.append((key, "raises", ("NaCAGaT", sets, False)))
+            for key, (name, (data, seq)) in EXPORTS.items():
+                specs.append((key, "export", (name, data, seq, params[name])))
         out[world] = run_world("trainer_world", world, cohort[0], specs)
     return out
 
@@ -340,3 +418,146 @@ def test_mesh_gradients_match_one_rank_and_jax(worlds, params, key):
             _near(r["grads"][pname], g, pname, floor)
             np.testing.assert_allclose(r["grads"][pname].numpy(), jg[pname], atol=JAX_ATOL,
                                        rtol=0, err_msg=pname)
+
+
+# ------------------------------------------------------------ cox on a mesh
+
+
+@pytest.fixture(scope="module")
+def jax_cox(params):
+    """Loss and gradient of the cox loss on the first cox batch by the JAX
+    step's loss on the global batch (what its mesh step computes: under
+    GSPMD the risk sets span the global batch)."""
+    model = jbuild_model("NaCAGaT", omic_sizes=jobs.SIZES, model_size="small", dropout=0.0)
+    batch = jobs.cox_batch(jobs.TinyCohort(), jobs.COX_ROWS[0])
+    batch["omics"] = np.split(batch.pop("omics_packed"), np.cumsum(jobs.SIZES)[:-1], axis=1)
+
+    def jloss(p, b):
+        out = model.apply({"params": p}, b["wsi"], b["omics"], b["mask"], deterministic=True,
+                          need_attention=False)
+        return jloop._survival_loss("cox", out, b["label"], b["censorship"],
+                                    b["survival_months"], 0.75, b["weight"])[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(jloss))(params["NaCAGaT"], batch)
+    return float(loss), jax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, grads))
+
+
+@pytest.fixture(scope="module")
+def cox_one_rank(params):
+    return {cached: jobs.cox_steps("NaCAGaT", 1, 1, cached, params["NaCAGaT"])
+            for cached in (False, True)}
+
+
+@pytest.mark.parametrize("key", list(COX))
+def test_cox_on_a_data_axis(worlds, jax_cox, cox_one_rank, key):
+    """The cox loss with its risk sets over the global batch: each step's
+    loss, the synchronized gradients after step 1, the parameters after
+    three SGD steps and the eval step's loss and risks against one rank
+    (host-fed and cached alike) and step 1's loss and gradients against
+    the JAX step's on the global batch; the parameters bitwise equal
+    across ranks. The batches' months tie and interleave across the data
+    ranks, and rank 1 holds a zero-weight row."""
+    world, _, cached = COX[key]
+    res = [r[key] for r in worlds[world]]
+    ref = cox_one_rank[cached]
+    # the gradients are ~1e-3 of the per-row terms they sum (the partial
+    # likelihood is invariant to a shift of every risk): their rounding is
+    # the terms', 1e-4 of the model's largest gradient (one rank's own
+    # distance from JAX on this batch: 7e-5 of it)
+    floor = 10.0 * max(float(g.abs().max()) for g in ref["grads"].values())
+    jl, jg = jax_cox
+    for r in res:
+        _near(r["loss"], ref["loss"], "losses")
+        assert abs(r["loss"][0] - jl) <= JAX_ATOL
+        _near(r["eval_loss"], ref["eval_loss"], "eval loss")
+        _near(r["eval_risk"], ref["eval_risk"], "eval risk")
+        for pname, g in ref["grads"].items():
+            assert torch.equal(r["grads"][pname], res[0]["grads"][pname]), pname
+            _near(r["grads"][pname], g, pname, floor)
+            np.testing.assert_allclose(r["grads"][pname].numpy(), jg[pname], atol=JAX_ATOL,
+                                       rtol=0, err_msg=pname)
+        for pname, p in ref["params"].items():
+            assert torch.equal(r["params"][pname], res[0]["params"][pname]), pname
+            _near(r["params"][pname], p, pname)
+
+
+# ------------------------------------------------------------ maps on a mesh
+
+
+def _jax_maps(name, data, seq, params):
+    """JAX's eval-mode maps of the export batch on its mesh of the same
+    shape: the co-attention map (``need_attention=True``), GE's 'path'."""
+    mesh = jmesh.make_mesh(data=data, seq=seq)
+    model = jbuild_model(name, omic_sizes=jobs.SIZES, model_size="small", dropout=0.0,
+                         ring_mesh=mesh)
+    batch = jobs.export_batch(4, 128, 0, 2)
+    if name.lower().startswith("ge"):
+        sharded = jmesh.shard_batch({k: batch[k] for k in ("wsi", "mask")}, mesh)
+        _, attn = jax.jit(lambda p, b: model.apply({"params": p}, b["wsi"], b["mask"],
+                                                   deterministic=True))(params, sharded)
+        return np.asarray(attn["path"])
+    omics = np.split(batch["omics_packed"], np.cumsum(jobs.SIZES)[:-1], axis=1)
+    sharded = jmesh.shard_batch({"wsi": batch["wsi"], "mask": batch["mask"],
+                                 "omics": omics}, mesh)
+    out = jax.jit(lambda p, b: model.apply({"params": p}, b["wsi"], b["omics"], b["mask"],
+                                           deterministic=True, need_attention=True))(
+        params, sharded)
+    return np.asarray(out.attention["coattn"])
+
+
+@pytest.mark.parametrize("key", list(EXPORTS))
+def test_attention_maps_on_a_mesh(worlds, params, key):
+    """The eval step's maps with ``need_attention`` on a mesh, the global
+    batch's on every rank: at seq 2 the co-attention's export passes per
+    rank on merged statistics (NaCAGaT pre-gated, MCAT without the
+    pre-gate) and GE's MIL scores gathered over the seq group; at data 2
+    the export passes on each rank's rows. Against one rank and JAX's mesh
+    of the same shape; bag 0's valid patches all lie in seq rank 0's half
+    (rank 1 holds none of them: its statistics drop out of the merge) and
+    bag 1 has none (its row uniform over the global M)."""
+    name, (data, seq) = EXPORTS[key]
+    res = [r[key] for r in worlds[2]]
+    ref = jobs.export_maps(name, 1, 1, params[name])
+    jmap = _jax_maps(name, data, seq, params[name])
+    ge = name.lower().startswith("ge")
+    for r in res:
+        assert r["map"].shape == ref["map"].shape == jmap.shape
+        _near(r["map"], ref["map"], "map")
+        _near(r["y"], ref["y"], "y")
+        if ge:  # raw scores: 5e-5 of the largest
+            err = float(np.abs(r["map"].numpy() - jmap).max())
+            assert err <= JAX_ATOL * float(np.abs(jmap).max()), err
+        else:
+            np.testing.assert_allclose(r["map"].numpy(), jmap, atol=JAX_ATOL, rtol=0)
+            m_len = r["map"].shape[-1]
+            np.testing.assert_allclose(r["map"][1].numpy(), 1.0 / m_len, rtol=1e-6)
+            assert float(r["map"][0, :, m_len // 2:].abs().max()) == 0.0
+
+
+# ------------------------------------------------------- Trainer.test on a mesh
+
+
+@pytest.mark.parametrize("key", list(LOO))
+def test_leave_one_out_on_a_mesh(worlds, loo_jax, key):
+    """``Trainer.test`` (``training.leave_one_out``, ``cli export-attn``):
+    at seq 2, where the JAX Trainer exports, rank 0 writes the map the JAX
+    Trainer writes on its seq-2 mesh (and no other rank writes); at data 2
+    and 2x2 the port raises the ValueError the JAX Trainer raises (a batch
+    of one bag does not split over the data axis)."""
+    world, name, _ = LOO[key]
+    res = [r[key] for r in worlds[world]]
+    ref = loo_jax[key]
+    if "raised" in ref:
+        assert "divisible by 2" in ref["raised"]
+        for r in res:
+            assert r["raised"].startswith("ValueError: the leave-one-out export feeds batches "
+                                          "of 1 bag, which do not split over "
+                                          "tpu.data_axis=2"), r
+        return
+    assert "map" not in res[1]
+    assert len(res[0]["names"]) == 1 and res[0]["names"] == res[1]["names"]
+    got = res[0]["names"][0]
+    assert got.startswith("ATTN_" + ("" if name.startswith("GE") else f"{name}_") + "P003_")
+    assert got.endswith("_E1_0.npy") and ref["name"].endswith("_E1_0.npy")
+    assert res[0]["map"].shape == ref["map"].shape
+    np.testing.assert_allclose(res[0]["map"], ref["map"], atol=JAX_ATOL, rtol=0)

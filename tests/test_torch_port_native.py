@@ -33,6 +33,17 @@ from multimodal_path_omic_tpu_torch.data.synthetic import (  # noqa: E402
 from multimodal_path_omic_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def cohort(tmp_path_factory):
     out = tmp_path_factory.mktemp("native_cohort")

@@ -66,6 +66,17 @@ MASK_CASES = [pytest.param(*p.values[:2], id=p.id) for p in MASKS]
 MODEL_M = 4096
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _data(d, m_len, seed):
     rng = np.random.default_rng(seed)
     q = bf16._bf(0.7 * rng.normal(size=(B, N, d)))

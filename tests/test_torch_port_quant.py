@@ -47,6 +47,17 @@ BUCKETS = (64, 128, 256)
 WSI = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _bags(seed=0):
     rng = np.random.default_rng(seed)
     return [(rng.normal(size=(m, WSI)) * rng.uniform(0.1, 5.0, (m, 1))).astype(np.float32)

@@ -43,6 +43,17 @@ SELF_ATOL = 1e-6
 LR = 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def cohort(tmp_path_factory):
     root = tmp_path_factory.mktemp("trainer")

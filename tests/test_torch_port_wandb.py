@@ -37,6 +37,17 @@ from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params  # noqa
 LOSS_RTOL = 5e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two torch threads while this file runs: the suite's six workers on
+    eight cores, each with a thread a core, oversubscribe them (the host-fed
+    Trainers here then run several times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _stub(monkeypatch):
     """A stub ``wandb`` module in sys.modules; returns its call record."""
     calls = {"init": [], "log": [], "finish": 0}

@@ -335,21 +335,303 @@ def parallel_cases(seed: int):
     return out
 
 
+# ------------------------------------------------------------ cox on a mesh
+
+# months of the cox cohort's rows: ties and interleavings across the data
+# ranks of every batch below (rank 0 holds a global batch's first rows)
+COX_MONTHS = (40.0, 10.0, 25.0, 60.0, 40.0, 25.0, 5.0, 33.0, 60.0, 12.0, 25.0, 10.0)
+COX_CENSOR = (0, 1, 0, 0, 1, 0, 0, 1, 0, 0, 1, 0)
+# each step's cohort rows: 7 real rows of an 8-row batch, the zero-weight
+# filler (build_meta: a repeat of the last row) last, on data rank 1
+COX_ROWS = ((0, 1, 2, 3, 4, 5, 6), (7, 8, 9, 10, 11, 0, 1), (3, 2, 5, 4, 6, 9, 8))
+COX_B, COX_M = 8, 64
+
+
+class TinyCohort:
+    """A survival cohort in host memory for the cached step: ``bag(i)``
+    [M_i, 64] and the ``table`` columns ``survival_extras`` reads, from a
+    numpy seed; the months and censorship of :data:`COX_MONTHS`."""
+
+    def __init__(self, seed: int = 5, wsi_dim: int = 64):
+        rng = np.random.default_rng(seed)
+        n = len(COX_MONTHS)
+        self.lengths = rng.integers(COX_M // 3, COX_M + 1, n)
+        self.bags = [rng_array(seed + 1 + i, (int(m), wsi_dim)) for i, m in
+                     enumerate(self.lengths)]
+        self.table = self
+        self.survival_months = np.asarray(COX_MONTHS, np.float32)
+        self.censorship = np.asarray(COX_CENSOR, np.float32)
+        self.survival_class = rng.integers(0, 4, n)
+        self.signature_names = [f"sig{j}" for j in range(len(SIZES))]
+        self.signature_data = {name: rng_array(seed + 50 + j, (n, size))
+                               for j, (name, size) in enumerate(zip(self.signature_names,
+                                                                    SIZES))}
+
+    def __len__(self):
+        return len(self.bags)
+
+    def bag(self, i):
+        return self.bags[i]
+
+
+def cox_batch(ds: TinyCohort, rows):
+    """The host-fed global batch of ``rows`` (padded to COX_B with
+    zero-weight repeats of the last row, as ``build_meta`` pads), numpy."""
+    full = list(rows) + [rows[-1]] * (COX_B - len(rows))
+    wsi = np.zeros((COX_B, COX_M, ds.bags[0].shape[1]), np.float32)
+    mask = np.zeros((COX_B, COX_M), bool)
+    for i, r in enumerate(full):
+        wsi[i, :ds.lengths[r]] = ds.bags[r]
+        mask[i, :ds.lengths[r]] = True
+    t = ds.table
+    return {"wsi": wsi, "mask": mask,
+            "omics_packed": np.concatenate([t.signature_data[n][full]
+                                            for n in t.signature_names], axis=1),
+            "label": t.survival_class[full].astype(np.int64),
+            "censorship": t.censorship[full], "survival_months": t.survival_months[full],
+            "weight": (np.arange(COX_B) < len(rows)).astype(np.float32)}
+
+
+def cox_steps(name: str, data: int, seq: int, cached: bool, params):
+    """Three SGD steps of the cox loss on COX_ROWS (host-fed: this rank's
+    slices of :func:`cox_batch`; cached: a sharded DeviceBagCache of the
+    same cohort) from the JAX parameter tree ``params``, then the eval step
+    on the first batch; dropout 0. Returns the losses, the gradients after
+    step 1, the final parameters and the eval step's loss and risk."""
+    from multimodal_path_omic_tpu_torch.data.device_cache import DeviceBagCache, build_meta
+    from multimodal_path_omic_tpu_torch.data.pipeline import survival_extras
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_path_omic_tpu_torch.train.loop import (
+        init_train_state,
+        make_cached_train_step,
+        make_eval_step,
+        make_train_step,
+    )
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params
+
+    mesh = make_mesh(data, seq, device="cpu") if data * seq > 1 else None
+    ds = TinyCohort()
+    model = build_model(name, omic_sizes=SIZES, model_size="small", dropout=0.0, wsi_dim=64,
+                        mesh=mesh)
+    load_jax_params(model, params)
+    opt = make_optimizer("sgd", 0.05)
+    state = init_train_state(model, opt, 0)
+    kw = dict(omic_sizes=SIZES, patch_budget=None, mesh=mesh)
+    if cached:
+        cache = DeviceBagCache(ds, survival_extras, (COX_M,), device="cpu",
+                               lengths=ds.lengths, mesh=mesh)
+        step = make_cached_train_step(model, "cox", opt, **kw)
+        inputs = [(cache.caches[COX_M], build_meta(list(rows), COX_B, cache)[0])
+                  for rows in COX_ROWS]
+    else:
+        step = make_train_step(model, "cox", opt, **kw)
+        inputs = []
+        for rows in COX_ROWS:
+            batch = cox_batch(ds, rows)
+            inputs.append((local_batch(batch, mesh) if mesh is not None else {
+                k: torch.from_numpy(v) for k, v in batch.items()},))
+    out = {"loss": []}
+    for i, args in enumerate(inputs):
+        state, met = step(state, *args)
+        out["loss"].append(float(met.loss))
+        if i == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    out["params"] = {k: p.detach().clone() for k, p in model.named_parameters()}
+    ev = make_eval_step(model, "cox", cached=cached, **{k: v for k, v in kw.items()
+                                                         if k != "patch_budget"})
+    res = ev(*inputs[0])
+    out["eval_loss"], out["eval_risk"] = float(res["loss"]), res["risk"].clone()
+    return out
+
+
+# ------------------------------------------------- attention maps on a mesh
+
+
+def export_batch(b: int, m: int, seed: int, seq: int):
+    """A survival batch whose bag 0 has every valid patch in seq rank 0's
+    part and bag 1 no valid patch."""
+    batch = survival_batch(b, m, 64, seed, n_real=b)
+    batch["mask"][0, :] = False
+    batch["mask"][0, :m // seq - 3] = True
+    batch["mask"][1, :] = False
+    return batch
+
+
+def export_maps(name: str, data: int, seq: int, params, b: int = 4, m: int = 128):
+    """The eval step's attention maps with ``need_attention`` (GE: its
+    'path' scores) on :func:`export_batch`, this rank's slice of it."""
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_path_omic_tpu_torch.train.loop import make_eval_step
+    from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params
+
+    mesh = make_mesh(data, seq, device="cpu") if data * seq > 1 else None
+    ge = name.lower().startswith("ge")
+    model = build_model(name, omic_sizes=SIZES, model_size="small", dropout=0.0, wsi_dim=64,
+                        mesh=mesh)
+    load_jax_params(model, params)
+    batch = export_batch(b, m, 0, 2)
+    if ge:
+        batch = {k: batch[k] for k in ("wsi", "mask", "label", "weight")}
+        batch["label"] = batch["label"] % 3
+    dev = local_batch(batch, mesh) if mesh is not None else {
+        k: torch.from_numpy(v) for k, v in batch.items()}
+    step = make_eval_step(model, "ce" if ge else "ces", ge_mode=ge, need_attention=not ge,
+                          omic_sizes=SIZES, mesh=mesh)
+    res = step(dev)
+    attn = res["attention"]
+    return {"map": attn["path" if ge else "coattn"].clone(), "y": res["y"].clone()}
+
+
+def leave_one_out(root: str, name: str, data: int, seq: int, params):
+    """``Trainer.test(1, save=True)`` of ``name`` on the 1024-wide cohort
+    under ``root`` with ``params`` (a JAX parameter tree) loaded; returns
+    the map rank 0 wrote (None on the other ranks) and the names written,
+    or the exception raised, as text."""
+    import glob
+    import os
+
+    import torch.distributed as dist
+
+    from multimodal_path_omic_tpu_torch.config import config_from_dict
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+    from multimodal_path_omic_tpu_torch.utils.weights import load_jax_params
+
+    out_dir = os.path.join(root, f"loo-{name}-{data}x{seq}")
+    raw = loo_config(root, name, data, seq)
+    raw["training"]["test_output_dir"] = out_dir
+    t = Trainer(config_from_dict(raw), verbose=False, device="cpu")
+    load_jax_params(t.model, params)
+    try:
+        t.test(1, save=True)
+    except ValueError as exc:
+        return {"raised": f"{type(exc).__name__}: {exc}"}
+    dist.barrier()  # rank 0 has written
+    names = sorted(os.path.basename(f) for f in glob.glob(os.path.join(out_dir, "ATTN_*")))
+    res = {"names": names}
+    if dist.get_rank() == 0 and names:
+        res["map"] = np.load(os.path.join(out_dir, names[0]))
+    return res
+
+
+def loo_config(root: str, name: str, data: int = 1, seq: int = 1):
+    """The leave-one-out config dict of the 1024-wide cohort under ``root``
+    (the JAX Trainer builds 1024-wide models), for the port and for JAX."""
+    import os
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import (
+        make_synthetic_cohort,
+        synthetic_config_dict,
+    )
+
+    cohort = os.path.join(root, "loo_cohort")
+    paths = (os.path.join(cohort, "cohort.csv"), os.path.join(cohort, "signatures.csv"),
+             os.path.join(cohort, "patches"))
+    if not os.path.exists(paths[0]):
+        paths = make_synthetic_cohort(cohort, n_patients=12, bag_lengths=(40, 90, 120),
+                                      n_genes=24, n_signatures=4, embedding_dim=1024, seed=0)
+    raw = synthetic_config_dict(*paths)
+    ge = name.lower().startswith("ge")
+    raw["device"] = "cpu"
+    raw["model"].update(name=name, model_size="small", dropout=0.0,
+                        checkpoint_dir=os.path.join(root, f"ck-loo-{name}-{data}x{seq}"))
+    if ge:
+        raw["model"]["gene"] = "G000"
+    raw["training"].update(loss="ce" if ge else "cesar", epochs=1, optimizer="sgd", lr=0.05,
+                           leave_one_out="P003", output_attn_epoch=1)
+    raw["tpu"] = {"bag_buckets": [64, 128], "batch_size": 2, "data_axis": data,
+                  "seq_axis": seq}
+    return raw
+
+
 def trainer_world(root: str, specs):
     """Every (key, kind, args) of ``specs`` on this rank, in order: "fit"
     (:func:`trainer_fit`), "raises" (the exception a Trainer raises, as
-    text), "steps" (:func:`train_steps`)."""
+    text), "steps" (:func:`train_steps`), "cox" (:func:`cox_steps`),
+    "export" (:func:`export_maps`), "loo" (:func:`leave_one_out`)."""
+    jobs = {"fit": lambda *a: trainer_fit(root, *a), "steps": train_steps, "cox": cox_steps,
+            "export": export_maps, "loo": lambda *a: leave_one_out(root, *a)}
     out = {}
     for key, kind, args in specs:
-        if kind == "fit":
-            out[key] = trainer_fit(root, *args)
-        elif kind == "steps":
-            out[key] = train_steps(*args)
-        else:
-            try:
-                trainer_fit(root, *args)
-                out[key] = None
-            except (ValueError, NotImplementedError) as exc:
-                out[key] = f"{type(exc).__name__}: {exc}"
+        if kind in jobs:
+            out[key] = jobs[kind](*args)
+            continue
+        try:
+            trainer_fit(root, *args)
+            out[key] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[key] = f"{type(exc).__name__}: {exc}"
     return out
 
+
+
+# ------------------------------------------------------- serving on a mesh
+
+
+def http(url: str, body: bytes = None):
+    """(status, parsed JSON or text) of a GET (``body`` None) or POST."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            code, text = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        code, text = exc.code, exc.read().decode()
+    try:
+        return code, json.loads(text)
+    except ValueError:
+        return code, text
+
+
+def wait_for(port: int, deadline_s: float = 120.0) -> None:
+    """Block until ``port`` on localhost accepts a connection."""
+    import socket
+    import time
+
+    t0 = time.time()
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            if time.time() - t0 > deadline_s:
+                raise
+            time.sleep(0.1)
+
+
+def mesh_server(config_path: str, port: int, requests):
+    """``server.main`` on every rank of the world (the config's mesh); rank
+    0 also runs a client thread that sends ``requests``
+    ((path, body or None) pairs) once the port accepts, then SIGTERM to
+    every rank. Returns the exit code of ``main`` and, on rank 0, the
+    answers in order."""
+    import os
+    import signal
+    import threading
+
+    import torch.distributed as dist
+
+    from multimodal_path_omic_tpu_torch import server
+
+    pids = [None] * dist.get_world_size()
+    dist.all_gather_object(pids, os.getpid())
+    answers = []
+
+    def client():
+        try:
+            wait_for(port)
+            answers.extend(http(f"http://127.0.0.1:{port}{path}", body)
+                           for path, body in requests)
+        finally:
+            for pid in pids:  # as torchrun signals every rank
+                os.kill(pid, signal.SIGTERM)
+
+    if dist.get_rank() == 0:
+        threading.Thread(target=client, daemon=True).start()
+    rc = server.main(["--config", config_path, "--port", str(port)])
+    return {"rc": rc, "answers": answers}
