@@ -4,9 +4,13 @@ serving and training paths, its device-cache training step, its training
 entry point (``Trainer.fit``), its serving entry points (the CLI and the
 HTTP server) and its CUDA-graphed, multi-step training on one GPU.
 
-    python3 chip_smoke.py              # phases 1-30 below
+    python3 chip_smoke.py              # phases 1-31 below
     python3 chip_smoke.py --profile    # where one predict_bags call's and one
                                        # training step's time goes
+    python3 chip_smoke.py --step-time  # a training step and a validation batch
+                                       # at 50 signature groups (copy the
+                                       # script beside another commit's
+                                       # package to time that commit)
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -157,9 +161,13 @@ Phases (any failure exits non-zero, and no result line is printed):
     launch counts of their flash instances exact.
 18. Shapes the co-attention kernels do not take, routed to
     ``attention_core`` by the kernels' predicates: cross-attention of 6
-    queries over 100 keys in 8 heads of width 32 and NaCAGaT with 12
-    signature groups (``ces``; ``cesar``, whose map has 12 queries): the card
-    within 1e-4 of the CPU, no co-attention launch.
+    queries over 100 keys in 8 heads of width 32, and of 257 pre-gated
+    queries (one past the JAX kernels' 256; with and without the map): the
+    card within 1e-4 of the CPU, no co-attention launch. NaCAGaT with 12
+    signature groups, refused until the slab instances (phase 31), now
+    takes them (``ces``: one ``coattn_plain_slabs`` a batch; ``cesar``, whose
+    map has 12 queries: one ``coattn_stats_slabs`` and one
+    ``coattn_weights_slabs``): the card within 1e-4 of the CPU.
 19. NaCAGaT ``big`` (E = F = 512) serving with ``ces`` at full width on the
     40 bags of phase 2 (buckets 4096/8192, batch 32): one launch of the
     fuse-K eval kernel's E = 512 instance a batch and no other kernel, the
@@ -405,6 +413,26 @@ Phases (any failure exits non-zero, and no result line is printed):
     a batch, ``?mc=4`` and two malformed bodies (400) against a one-rank
     Predictor's server (1e-4), the request latency, and SIGTERM to both
     ranks, each exiting 0.
+31. The plain-K kernels past eight queries, up to the JAX kernels' 256
+    signature groups (the slab instances; a Hallmark-sized signature file
+    has 50 groups): (a) the forward with values (eval and training forms),
+    its backward and the two export passes against their plain versions at
+    4 bags of N in {9, 50, 256} queries, D in {128, 256, 512}, both types,
+    with and without the pre-gate, on masks with masked tiles mid-bag, a
+    one-key bag and a bag without a valid key (phase 27's and phase 1's
+    bars; float32 l within 5e-5 relative, its distance from a float64 l held
+    to the plain version's), two runs bitwise equal, exactly 0 through
+    masked keys, the drop share; (b) at B=32, M=8192, N in {50, 256}, D in
+    {256, 512} (bfloat16 at N=50, D=256) the same checks on the timed
+    inputs, then CUDA-event times beside the plain versions, the
+    ``attention_core`` route each replaces and ``scaled_dot_product_attention``,
+    with the byte and float32-FMA bounds; (c) ``Trainer.fit`` on a 50-group
+    cohort (NaCAGaT cesar and MCAT ces host-fed and cached, bit for bit;
+    NaCAGaT in bfloat16), launches held to the plan with no ``attention_core`` call
+    on a co-attention site, one epoch card against CPU, ``Predictor.
+    from_config(...).predict_bags`` and ``cli export-attn`` against the CPU;
+    (d) (run in phase 30's spawn) the seq-2 export at 50 queries on two
+    gloo ranks against the one-rank kernel map.
 
 Output: phase lines, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -509,6 +537,11 @@ SOURCES = {
     **{f"coattn_plain{way}{sfx}": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
        for way, src in (("", "coattn"), ("_bwd", "coattn_bwd"))
        for sfx in ("_bf16", "_d512", "_bf16_d512")},
+    # the plain-K kernels past eight queries, in both types (phase 31)
+    **{f"coattn_{name}_slabs{sfx}": f"multimodal_path_omic_tpu_torch/csrc/{src}.cu"
+       for name, src in (("plain", "coattn_many"), ("plain_bwd", "coattn_bwd_many"),
+                         ("stats", "coattn_many"), ("weights", "coattn_many"))
+       for sfx in ("", "_bf16")},
 }
 # kernel name -> the TPU kernel's function reaching pallas_call
 REPLACES = {
@@ -541,6 +574,9 @@ REPLACES = {
        for way in ("fwd", "bwd") for w in (16, 32, 64, 128, 256, 512)},
     **{f"coattn_plain{way}{sfx}": f"multimodal_path_omic_tpu/ops/coattn.py:{line}"
        for way, line in (("", 221), ("_bwd", 508)) for sfx in ("_bf16", "_d512", "_bf16_d512")},
+    **{f"coattn_{name}_slabs{sfx}": f"multimodal_path_omic_tpu/ops/coattn.py:{line}"
+       for name, line in (("plain", 221), ("plain_bwd", 508), ("stats", 221), ("weights", 908))
+       for sfx in ("", "_bf16")},
 }
 TRAIN_KERNELS = ("coattn_fwd_fused_k_train", "coattn_bwd_fused_k")
 # the kernels each serving loss must launch (and no other)
@@ -694,12 +730,12 @@ def make_inputs(m_len, f_dim, seed, dev, e=E, kind="prefix", with_k=True):
     return [None if t is None else t.to(dev) for t in (q, kv, wk, bk, k, mask)]
 
 
-def make_mask(m_len, g, kind):
-    """[B, M] ragged key masks (lengths uniform in [M/5, M] from ``g``, bag 0
+def make_mask(m_len, g, kind, b=B):
+    """[b, M] ragged key masks (lengths uniform in [M/5, M] from ``g``, bag 0
     full, the last bag fully masked), with :func:`make_inputs`' ``kind``."""
     import torch
 
-    lengths = torch.randint(m_len // 5, m_len + 1, (B,), generator=g)
+    lengths = torch.randint(m_len // 5, m_len + 1, (b,), generator=g)
     lengths[0] = m_len
     lengths[-1] = 0
     mask = torch.arange(m_len)[None, :] < lengths[:, None]
@@ -2621,49 +2657,55 @@ def phase17_ge_sizes(dev) -> dict:
 def phase18_refused_shapes(dev) -> None:
     """Shapes the co-attention kernels do not take, routed to attention_core
     by the kernels' predicates: on the card against the CPU, with no
-    co-attention launch."""
+    co-attention launch (8 heads of width 32; 257 queries, one past the JAX
+    kernels' range); and NaCAGaT at 12 signature groups, which the kernels
+    refused up to eight queries and the slab instances now take (phase 31):
+    the card against the CPU, one slab launch a batch."""
     import torch
 
-    from multimodal_path_omic_tpu_torch.ops import attention, coattn
+    from multimodal_path_omic_tpu_torch.ops import attention
     from multimodal_path_omic_tpu_torch.serve import Predictor
 
     rng = np.random.default_rng(7)
     torch.manual_seed(0)
-    mha = attention.MultiheadAttention(256, 8).eval()
-    q = torch.from_numpy(rng.standard_normal((2, 6, 256), dtype=np.float32))
     kv = torch.from_numpy(rng.standard_normal((2, 100, 256), dtype=np.float32))
     mask = torch.arange(100)[None] < torch.tensor([[93], [0]])
-    log("phase 18: cross-attention of 6 queries over 100 keys in 8 heads of width 32")
-    outs = {}
-    for device in (dev, torch.device("cpu")):
-        reset_counts()
-        with torch.no_grad():
-            outs[device.type] = mha.to(device)(q.to(device), kv.to(device), kv.to(device),
-                                               mask.to(device), need_weights=False)[0].cpu()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            expect_counts("6 queries, width 32", read_counts())
-    err = float((outs["cuda"] - outs["cpu"]).abs().max())
-    log(f"  card vs CPU: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g})")
-    if err > MODEL_ATOL:
-        raise AssertionError("6 queries at width 32: the card disagrees with the CPU")
+    for what, heads, pre_gate, n, need_weights in (
+            ("6 queries over 100 keys in 8 heads of width 32", 8, False, 6, False),
+            ("257 queries, pre-gated, one head of width 256", 1, True, 257, False),
+            ("257 queries, pre-gated, the map", 1, True, 257, True)):
+        log(f"phase 18: cross-attention of {what}")
+        mha = attention.MultiheadAttention(256, heads, pre_gate=pre_gate).eval()
+        q = torch.from_numpy(rng.standard_normal((2, n, 256), dtype=np.float32))
+        outs = {}
+        for device in (dev, torch.device("cpu")):
+            reset_counts()
+            with torch.no_grad():
+                out, w = mha.to(device)(q.to(device), kv.to(device), kv.to(device),
+                                        mask.to(device), need_weights=need_weights)
+            outs[device.type] = [out.cpu()] + ([w.cpu()] if need_weights else [])
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                expect_counts(what, read_counts())
+        err = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+        log(f"  card vs CPU: max_abs_err={err:.3e} (tolerance {MODEL_ATOL:g})")
+        if err > MODEL_ATOL:
+            raise AssertionError(f"{what}: the card disagrees with the CPU")
     bags = [rng.standard_normal((n, 1024), dtype=np.float32) for n in (300, 900, 640)]
     sizes12 = tuple(range(20, 260, 20))
-    for what, sizes, model_size, loss in (
-            ("NaCAGaT medium, 12 signature groups, ces", sizes12, "medium", "ces"),
-            ("NaCAGaT medium, 12 signature groups, cesar (the map of 12 queries)", sizes12,
-             "medium", "cesar")):
+    for what, loss, want in (
+            ("NaCAGaT medium, 12 signature groups, ces", "ces", {"coattn_plain_slabs": 1}),
+            ("NaCAGaT medium, 12 signature groups, cesar (the map of 12 queries)", "cesar",
+             {"coattn_stats_slabs": 1, "coattn_weights_slabs": 1})):
         log(f"phase 18: {what}: {len(bags)} bags, bucket 1024")
-        omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
-        kw = dict(omic_sizes=sizes, model_size=model_size, buckets=(1024,), batch_size=4,
+        omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes12] for _ in bags]
+        kw = dict(omic_sizes=sizes12, model_size="medium", buckets=(1024,), batch_size=4,
                   loss=loss, seed=0)
         reset_counts()
         got = Predictor("NaCAGaT", device=dev, **kw).predict_bags(bags, omics)
         torch.cuda.synchronize()
-        counts = read_counts()
-        log(f"  launches: { {k: v for k, v in counts.items() if v} }")
-        if any(counts[k] for k in coattn.LAUNCH_COUNTS):
-            raise AssertionError(f"{what}: a co-attention kernel launched on a refused shape")
+        expect_counts(what, {k: v for k, v in read_counts().items() if not k.startswith("flash")},
+                      **want)
         check_outputs_close("the CPU", got,
                             Predictor("NaCAGaT", device="cpu", **kw).predict_bags(bags, omics))
 
@@ -4952,50 +4994,57 @@ def plain27_rows(d, kind) -> tuple:
     return "coattn_plain" + sfx, "coattn_plain_bwd" + sfx
 
 
-def plain27_inputs(dev, m_len, d, kind, seed) -> tuple:
+def plain27_inputs(dev, m_len, d, kind, seed, b=B, n=N) -> tuple:
     """q, k, v, dout of phase 13's scale drawn on the card (float32, and the
     instance's type), make_mask's masks, a dropout seed and the side
-    outputs' cotangents."""
+    outputs' cotangents; ``b`` bags of ``n`` queries."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    mask = make_mask(m_len, g, kind).to(dev)
+    mask = make_mask(m_len, g, kind, b).to(dev)
     gd = torch.Generator(device=dev).manual_seed(seed)
-    q = 0.7 * torch.randn(B, N, d, generator=gd, device=dev)
-    k = 0.7 * torch.randn(B, m_len, d, generator=gd, device=dev)
-    v = 0.7 * torch.randn(B, m_len, d, generator=gd, device=dev)
-    dout = torch.randn(B, N, d, generator=gd, device=dev)
-    dssq, dsumw = (torch.randn(B, N, generator=gd, device=dev) for _ in range(2))
+    q = 0.7 * torch.randn(b, n, d, generator=gd, device=dev)
+    k = 0.7 * torch.randn(b, m_len, d, generator=gd, device=dev)
+    v = 0.7 * torch.randn(b, m_len, d, generator=gd, device=dev)
+    dout = torch.randn(b, n, d, generator=gd, device=dev)
+    dssq, dsumw = (torch.randn(b, n, generator=gd, device=dev) for _ in range(2))
     dseed = torch.tensor([seed], dtype=torch.int32, device=dev)
     return q, k, v, dout, mask, dseed, dssq, dsumw
 
 
-def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
+def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs, n=N, b=B, rows=None,
+                  phase="27 (a)", l_rtol=PLAIN27_F32_L_RTOL, inputs=None) -> tuple:
     """One instance on one mask, one pre-gate setting: the eval form, the
-    training form at dropout 0 and TRAIN_RATE, the backward at TRAIN_RATE."""
+    training form at dropout 0 and TRAIN_RATE, the backward at TRAIN_RATE;
+    ``b`` bags of ``n`` queries, the errors noted in ``errs`` under ``rows``
+    (forward, backward; default :func:`plain27_rows`); float32 l within
+    ``l_rtol`` relative; ``inputs``: :func:`plain27_inputs`' tuple to use
+    instead of drawing it. Returns (q, k, mask, seed) in the instance's type
+    and the eval form's l, the kernel's and the plain version's, for phase
+    31's export and l checks."""
     import torch
 
     from multimodal_path_omic_tpu_torch.ops import coattn
 
     bf = kind == "bf16"
     dt = torch.bfloat16 if bf else torch.float32
-    q, k, v, dout, mask, seed, dssq, dsumw = plain27_inputs(dev, m_len, d, mask_kind,
-                                                            27 * d + m_len + pre_gate)
+    q, k, v, dout, mask, seed, dssq, dsumw = inputs or plain27_inputs(
+        dev, m_len, d, mask_kind, 27 * d + m_len + pre_gate + 1000 * (n - N), b, n)
     q, k, v, dout = (t.to(dt) for t in (q, k, v, dout))
     one, has = mask.sum(-1) == 1, mask.any(-1)
-    fwd_row, bwd_row = plain27_rows(d, kind)
-    tag = f"{kind} D={d} M={m_len} {mask_kind} pre_gate={pre_gate}"
+    fwd_row, bwd_row = rows or plain27_rows(d, kind)
+    tag = f"{kind} N={n} D={d} M={m_len} {mask_kind} pre_gate={pre_gate}"
     worst = {}
 
     def hold(what, ratio):
         worst[what] = max(worst.get(what, 0.0), ratio)
         if not ratio <= 1.0:
-            raise AssertionError(f"phase 27 (a) {tag}: {what} at {ratio:.3f} of its tolerance")
+            raise AssertionError(f"phase {phase} {tag}: {what} at {ratio:.3f} of its tolerance")
 
     def fwd_close(form, got, ref, rate):
         if got[0].dtype != dt or any(t is not None and t.dtype != torch.float32
                                      for t in got[1:]):
-            raise AssertionError(f"phase 27 (a) {tag}: {form} output types")
+            raise AssertionError(f"phase {phase} {tag}: {form} output types")
         diff = (got[0].float() - ref[0].float()).abs()
         if bf:
             terms = coattn.coattn_fwd_plain_k_plain(q, k, v.abs(), mask, seed, rate,
@@ -5010,7 +5059,7 @@ def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
             if a is None:
                 continue
             atol, rtol = ((PLAIN27_STAT_ATOL, PLAIN27_STAT_RTOL) if bf else
-                          (0.0, PLAIN27_F32_L_RTOL) if name == "l" else (KERNEL_ATOL, 0.0))
+                          (0.0, l_rtol) if name == "l" else (KERNEL_ATOL, 0.0))
             e = (a - r).abs()
             hold(name, float((e / (atol + rtol * r.abs())).max()))
             if not (bf or name == "l"):
@@ -5019,23 +5068,24 @@ def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
     got = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
     again = coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
     if got[3] is not None or not all(torch.equal(a, c) for a, c in zip(got[:3], again[:3])):
-        raise AssertionError(f"phase 27 (a) {tag}: the eval form's two runs differ")
-    fwd_close("eval", got, coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0,
-                                                           pre_gate=pre_gate), 0.0)
+        raise AssertionError(f"phase {phase} {tag}: the eval form's two runs differ")
+    ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, None, 0.0, pre_gate=pre_gate)
+    fwd_close("eval", got, ref, 0.0)
+    eval_l = got[1], ref[1]
     for rate in (0.0, TRAIN_RATE):
         got = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate, pre_gate=pre_gate)
         fwd_close(f"training {rate}", got, coattn.coattn_fwd_plain_k_plain(
             q, k, v, mask, seed, rate, pre_gate=pre_gate), rate)
     again = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, TRAIN_RATE, pre_gate=pre_gate)
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
-        raise AssertionError(f"phase 27 (a) {tag}: the training form's two runs differ")
+        raise AssertionError(f"phase {phase} {tag}: the training form's two runs differ")
     o, l, m, ssq, sumw = fwd = got
     di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
     args = (q, k, v, mask, seed, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
     grads = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
     again = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
     if not all(torch.equal(a, c) for a, c in zip(grads, again)):
-        raise AssertionError(f"phase 27 (a) {tag}: the backward's two runs differ")
+        raise AssertionError(f"phase {phase} {tag}: the backward's two runs differ")
     ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, TRAIN_RATE, dout, dssq, dsumw,
                                           pre_gate=pre_gate)
     if not bf and bool(one.any()):
@@ -5044,7 +5094,7 @@ def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
                             di[one])
     for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
         if a.dtype != dt:
-            raise AssertionError(f"phase 27 (a) {tag}: {name} is {a.dtype}")
+            raise AssertionError(f"phase {phase} {tag}: {name} is {a.dtype}")
         a, r = a.float(), r.float()
         if name != "dv":
             a, r = a[~one], r[~one]
@@ -5052,12 +5102,13 @@ def plain27_check(dev, d, kind, m_len, mask_kind, pre_gate, errs) -> None:
         hold(name, err / ((BF16_GRAD_RTOL if bf else GRAD_RTOL) * float(r.abs().max())))
         errs[bwd_row] = max(errs[bwd_row], err)
     if float(grads[1][~mask].float().abs().max()) != 0.0:
-        raise AssertionError(f"phase 27 (a) {tag}: a masked key passed a gradient to k")
+        raise AssertionError(f"phase {phase} {tag}: a masked key passed a gradient to k")
     if float(grads[2][has][~mask[has]].float().abs().max()) != 0.0:
-        raise AssertionError(f"phase 27 (a) {tag}: dv is not 0 at a masked key")
-    log(f"phase 27 (a): {tag}: each output at its worst " + ", ".join(
+        raise AssertionError(f"phase {phase} {tag}: dv is not 0 at a masked key")
+    log(f"phase {phase}: {tag}: each output at its worst " + ", ".join(
         f"{k_} {v_:.3f}" for k_, v_ in worst.items()) + " of its tolerance; two runs bitwise "
         "equal; dk, dv exactly 0 at the masked keys")
+    return q, k, mask, seed, eval_l
 
 
 def plain27_timings(dev, errs, power) -> list:
@@ -6495,6 +6546,35 @@ def p30_export(dev, mesh):
             "launches": launches}
 
 
+def p31_export(dev, mesh):
+    """Phase 31 (d): :func:`p30_export` at P31_GROUPS signature groups (a
+    NaCAGaT medium of P31_SIZES, phase 30's export batch with omics of those
+    widths from a numpy seed): the map and the launches of that call."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.parallel.mesh import shard_batch
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    net = seeded_init_(build_model("NaCAGaT", omic_sizes=P31_SIZES, model_size="medium",
+                                   dropout=TRAIN_RATE, mesh=mesh), 0).to(dev)
+    batch = p30_export_batch(dev)
+    rng = np.random.default_rng(31)
+    batch["omics"] = [torch.from_numpy(rng.standard_normal((MESH_B, s), dtype=np.float32)).to(dev)
+                      for s in P31_SIZES]
+    if mesh is not None:
+        batch = shard_batch(batch, mesh, process_local=False)
+    step = loop.make_eval_step(net, "ces", need_attention=True, omic_sizes=P31_SIZES, mesh=mesh,
+                               graphs=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = step(batch)
+    torch.cuda.synchronize()
+    return {"map": res["attention"]["coattn"].cpu(),
+            "launches": {k: v for k, v in read_counts().items() if v}}
+
+
 def _p30_rank(rank, world, port, job, arg, out_dir):
     """One spawned rank of phase 30: a gloo process group on the card, then
     (a) and (b) (``job`` "steps") or ``server.main`` (``job`` "serve",
@@ -6521,6 +6601,7 @@ def _p30_rank(rank, world, port, job, arg, out_dir):
         torch.cuda.synchronize()
         res["cox_launches"] = {k: v for k, v in read_counts().items() if v}
         res["export"] = p30_export(dev, make_mesh(1, 2, device=dev, backend="gloo"))
+        res["export50"] = p31_export(dev, make_mesh(1, 2, device=dev, backend="gloo"))
     else:
         from multimodal_path_omic_tpu_torch import server
 
@@ -6690,6 +6771,7 @@ def phase30_mesh_settings(dev) -> dict:
     ref = {"host": mesh_steps(dev, None, cached=False, loss="cox"),
            "cached": mesh_steps(dev, None, cached=True, loss="cox")}
     ref_map = p30_export(dev, None)
+    ref_map50 = p31_export(dev, None)
     res = p30_world("steps")
     total = {}
     for r, rr in enumerate(res):
@@ -6728,7 +6810,20 @@ def phase30_mesh_settings(dev) -> dict:
                                  "over the global M")
     log(f"  map [{', '.join(map(str, res[0]['export']['map'].shape))}] equal on both ranks' "
         "checks; bag 1 exactly 1/M")
-    del ref, ref_map, res
+    for r, rr in enumerate(res):  # phase 31 (d): the same at P31_GROUPS queries
+        got, launched = rr["export50"]["map"], rr["export50"]["launches"]
+        check_close(f"phase 31 (d) rank {r} map of {P31_GROUPS} queries", got,
+                    ref_map50["map"], P30_MAP_ATOL, P30_MAP_RTOL)
+        if not (launched.get("coattn_stats_slabs") and launched.get("coattn_weights_slabs")):
+            raise AssertionError(f"phase 31 (d): rank {r} launched {launched}")
+        if float(got[0, :, MESH_M // 2:].abs().max()) != 0.0 or not torch.equal(
+                got[1], torch.full_like(got[1], 1.0 / MESH_M)):
+            raise AssertionError("phase 31 (d): bag 0 off rank 0's keys or bag 1 not 1/M")
+        for name, v in launched.items():
+            total[name] = total.get(name, 0) + v
+        log(f"  phase 31 (d) rank {r}: the seq-2 map [{', '.join(map(str, got.shape))}] at "
+            f"{P31_GROUPS} queries against the one-rank kernel map; launches {launched}")
+    del ref, ref_map, ref_map50, res
     torch.cuda.empty_cache()
     log("phase 30 (c): server.main over two ranks at data 2 (rank 0 answers HTTP, rank 1 "
         "follows), against a one-rank Predictor, then SIGTERM")
@@ -6740,6 +6835,622 @@ def phase30_mesh_settings(dev) -> dict:
     return total
 
 
+# Phase 31: the plain-K kernels past eight queries, the JAX kernels' range of
+# signature groups (the slab instances: csrc/coattn.cu "Past eight queries",
+# csrc/coattn_bwd_many.cu; a Hallmark-sized signature file has 50 groups).
+# (a) The forward with values (eval and training forms), its backward and
+# the two export passes against their plain versions at P31_B bags of N in
+# P31_NS queries, D in P31_DS, in both types, with and without the pre-gate,
+# on P31_CASES' masks (masked 64-key tiles mid-bag; a bag with one valid
+# key; each batch's last bag without a valid key): the forward and backward
+# at phase 27's bars (plain27_check), the export passes at phase 1's (m
+# KERNEL_ATOL; w W_RTOL relative above W_ATOL; bfloat16 check_bf16's), float32
+# l within P31_F32_L_RTOL relative, with a float64 witness (p31_l_witness:
+# the kernels' l no farther from the float64 l than P31_WITNESS times the
+# plain version's, and a TF32 control past the bar), two runs bitwise equal,
+# exactly 0 through masked keys, a bag without a valid key at l = M, m =
+# NEG, w = 1/M; the drop share of the Philox bits where a batch holds >=
+# 800,000 draws. (b) At B = 32, M = 8192 (phase 16's ragged prefix masks), N
+# in P31_TIME_NS, D in P31_TIME_DS, float32, and bfloat16 at N = 50, D =
+# 256: the four kernels held to their plain versions on the inputs they are
+# timed on, as in (a); then CUDA-event times of each kernel, its plain
+# version, the attention_core route it replaces (the map for the export
+# passes; autograd's backward for the backward) and, without the pre-gate,
+# scaled_dot_product_attention; the byte bound and the float32-FMA bound of
+# each. (c) The entry points at full width (medium) on
+# a P31_GROUPS-group synthetic cohort: Trainer.fit of NaCAGaT cesar and
+# MCAT ces host-fed and cached (graphed, bit for bit) and NaCAGaT cesar in
+# bfloat16 cached, each epoch's co-attention launches held to the
+# plan (one slab kernel a step and a validation batch, no other co-attention
+# kernel), the eval transformers on flash_fwd_d32 at L = 50, no
+# attention_core call on a co-attention site; one epoch on the card and on
+# the CPU (dropout 0, P31_CPU_COHORT's shorter bags) within phase 21's
+# gates; Predictor.from_config(...).predict_bags (cesar) against the CPU
+# Predictor within MODEL_ATOL; cli export-attn on the card against --set
+# device=cpu's map within W_RTOL. (d), in phase 30's two-rank spawn: the
+# seq-2 export at P31_GROUPS queries against the one-rank kernel map.
+P31_NS, P31_DS, P31_B = (9, 50, 256), (128, 256, 512), 4
+P31_CASES = ((4000, "holes"), (1500, "one"))
+P31_TIME_NS, P31_TIME_DS = (50, 256), (256, 512)
+P31_GROUPS = 50
+P31_SIZES = tuple(24 + 4 * (j % 8) for j in range(P31_GROUPS))  # (d)'s signature groups
+P31_KERNELS = ("coattn_plain_slabs", "coattn_plain_bwd_slabs", "coattn_stats_slabs",
+               "coattn_weights_slabs")
+P31_COHORT = dict(n_patients=24, n_genes=600, n_signatures=P31_GROUPS,
+                  bag_lengths=(1500, 3000, 5000, 8000), embedding_dim=1024, bag_format="npy",
+                  seed=6)
+P31_SET = {"tpu.bag_buckets": [4096, 8192], "tpu.batch_size": 16, "training.epochs": 1,
+           "training.seed": 0, "dataset.tcga_only": False}
+P31_CPU_COHORT = {**P31_COHORT, "n_patients": 16, "bag_lengths": (600, 1000, 1500, 2000),
+                  "seed": 7}
+P31_CPU_SET = {**P31_SET, "tpu.bag_buckets": [1024, 2048], "tpu.device_cache": "off"}
+P31_ITERS = 5  # CUDA-event iterations a time in (b): N = 256 calls take milliseconds
+# float32 l of the slab instances within P31_F32_L_RTOL relative of the plain
+# version, and no farther from the float64 l than P31_WITNESS times the plain
+# version's distance (p31_l_witness). The bar is about twice the largest
+# reading of sound runs (H100: 2.1e-5 in (a), 2.7e-5 in (b), where the plain
+# version sits 2.2e-5 / 2.5e-5 from the float64 l and the kernels 2.8e-6 /
+# 8.8e-6), far under the TF32 control's 5.7e-3 / 6.6e-3.
+P31_F32_L_RTOL, P31_WITNESS = 5e-5, 2.0
+
+
+def p31_rows(kind) -> tuple:
+    """The kernels line's rows (and count names) of the slab instances."""
+    return tuple(name + ("_bf16" if kind == "bf16" else "") for name in P31_KERNELS)
+
+
+def p31_export_check(q, k, mask, pre_gate, d, bf, errs, rows, tag) -> tuple:
+    """The export passes past eight queries against their plain versions
+    (check_export's bars, float32 l within P31_F32_L_RTOL; bfloat16:
+    check_bf16's). Returns stats' l, the kernel's and the plain version's."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    m_len, has = mask.shape[1], mask.any(-1)
+    l, m = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+    lp, mp = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)
+    w = coattn.coattn_weights(q, k, mask, lp, mp, pre_gate=pre_gate)
+    wp = coattn.coattn_weights_plain(q, k, mask, lp, mp, pre_gate=pre_gate)
+    both = coattn.coattention_weights(q, k, mask, pre_gate=pre_gate)
+    if bf:
+        check_bf16(f"{tag} stats.l", l, lp, "l")
+        e_m = check_bf16(f"{tag} stats.m", m, mp, "abs")
+        e_w = max(check_bf16(f"{tag} weights.w", w, wp, "w"),
+                  check_bf16(f"{tag} coattention_weights", both, wp, "w"))
+    else:
+        check_close(f"{tag} stats.l", l, lp, 0.0, P31_F32_L_RTOL)
+        e_m = check_close(f"{tag} stats.m", m, mp, KERNEL_ATOL)
+        e_w = max(check_close(f"{tag} weights.w", w, wp, W_ATOL, W_RTOL),
+                  check_close(f"{tag} coattention_weights", both, wp, W_ATOL, W_RTOL))
+    errs[rows[2]] = max(errs[rows[2]], e_m)
+    errs[rows[3]] = max(errs[rows[3]], e_w)
+    again = (*coattn.coattn_stats(q, k, mask, pre_gate=pre_gate),
+             coattn.coattn_weights(q, k, mask, lp, mp, pre_gate=pre_gate),
+             coattn.coattention_weights(q, k, mask, pre_gate=pre_gate))
+    if not all(torch.equal(a, b) for a, b in zip((l, m, w, both), again)):
+        raise AssertionError(f"phase 31 {tag}: two runs of the export passes differ")
+    masked = (~mask & has[:, None])[:, None, :].expand_as(w)
+    if not (bool((w[masked] == 0).all()) and bool((both[masked] == 0).all())):
+        raise AssertionError(f"phase 31 {tag}: w is not 0 at a masked key")
+    empty = ~has
+    if not (bool((l[empty] == m_len).all()) and bool((m[empty] == mp[empty]).all())
+            and bool((w[empty] == 1.0 / m_len).all())
+            and bool((both[empty] == 1.0 / m_len).all())):
+        raise AssertionError(f"phase 31 {tag}: a bag without a valid key is not uniform")
+    return l, lp
+
+
+def p31_l_witness(readings, tag, kernel_ls, plain_l, q, k, mask, pre_gate) -> None:
+    """Float32 l against float64's: the largest relative distance from the
+    float64 plain version's l of the kernels' l (the forward's and export
+    pass 1's), of the float32 plain version's, and of a TF32 control (the
+    plain version with its products on TF32 tensor cores, as a kernel that
+    rounded its operands to 10 mantissa bits would compute); and the
+    kernels' and the control's distance from the float32 plain version,
+    the quantity P31_F32_L_RTOL bounds. Largest of each kept in
+    ``readings``."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    def rel(a, r):
+        return float(((a.double() - r.double()).abs() / r.double().abs()).max())
+
+    l64 = coattn.coattn_fwd_plain_k_plain(q.double(), k.double(), k[..., :1].double(), mask,
+                                          None, 0.0, pre_gate=pre_gate)[1]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = {"kernel_f64": max(rel(x, l64) for x in kernel_ls), "plain_f64": rel(plain_l, l64),
+           "control_f64": rel(ctl, l64), "kernel_plain": max(rel(x, plain_l) for x in kernel_ls),
+           "control_plain": rel(ctl, plain_l)}
+    for key, val in got.items():
+        readings[key] = max(readings.get(key, 0.0), val)
+    log(f"  {tag} float32 l, relative: from float64 kernels {got['kernel_f64']:.2e}, plain "
+        f"{got['plain_f64']:.2e}, TF32 control {got['control_f64']:.2e}; from the plain "
+        f"version kernels {got['kernel_plain']:.2e}, control {got['control_plain']:.2e} "
+        f"(bar {P31_F32_L_RTOL:g})")
+
+
+def p31_hold_witness(readings, what) -> None:
+    """The float64 witness over a part's float32 cases: the kernels no
+    farther from float64's l than P31_WITNESS times the plain version's
+    largest distance, and the TF32 control past P31_F32_L_RTOL (the bar
+    tells such a kernel from a sound one)."""
+    log(f"phase 31 {what}: float32 l, largest relative distances: from float64 kernels "
+        f"{readings['kernel_f64']:.3e}, plain version {readings['plain_f64']:.3e}, TF32 "
+        f"control {readings['control_f64']:.3e}; from the plain version kernels "
+        f"{readings['kernel_plain']:.3e} (bar {P31_F32_L_RTOL:g}), control "
+        f"{readings['control_plain']:.3e}")
+    if not readings["kernel_f64"] <= P31_WITNESS * readings["plain_f64"]:
+        raise AssertionError(f"phase 31 {what}: the kernels' l sits farther from float64 than "
+                             f"{P31_WITNESS}x the plain version's")
+    if not readings["control_plain"] > P31_F32_L_RTOL:
+        raise AssertionError(f"phase 31 {what}: the TF32 control passes the l bar")
+
+
+def p31_kernel_checks(dev, errs) -> None:
+    """(a)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    readings = {}
+    for kind in ("f32", "bf16"):
+        rows = p31_rows(kind)
+        for n in P31_NS:
+            for d in P31_DS:
+                for m_len, mask_kind in P31_CASES:
+                    for pre_gate in (False, True):
+                        tag = f"(a) {kind} N={n} D={d} M={m_len} {mask_kind} pre_gate={pre_gate}"
+                        q, k, mask, seed, (lk, lp) = plain27_check(
+                            dev, d, kind, m_len, mask_kind, pre_gate, errs, n=n, b=P31_B,
+                            rows=rows[:2], phase="31 (a)", l_rtol=P31_F32_L_RTOL)
+                        ls, _ = p31_export_check(q, k, mask, pre_gate, d, kind == "bf16", errs,
+                                                 rows, tag)
+                        if kind == "f32":
+                            p31_l_witness(readings, tag, (lk, ls), lp, q, k, mask, pre_gate)
+                        if kind == "f32" and d == 128 and pre_gate and n * P31_B * m_len >= 8e5:
+                            keep = coattn.dropout_bits(seed, (P31_B, n, m_len), dev) >= \
+                                coattn.dropout_threshold(TRAIN_RATE)
+                            drop = 1.0 - float(keep.double().mean())
+                            log(f"  drop share of the Philox bits over {keep.numel()} draws "
+                                f"(N={n}): {drop:.6f} (tolerance {TRAIN_RATE} +- {DROP_TOL})")
+                            if abs(drop - TRAIN_RATE) > DROP_TOL:
+                                raise AssertionError("phase 31 (a): the dropout bits miss the rate")
+                torch.cuda.empty_cache()
+    p31_hold_witness(readings, "(a)")
+
+
+def p31_bounds(name, mask, n, d, pre_gate, esize=4) -> tuple:
+    """((bytes ms, operations ms), the larger's name) of a slab kernel at
+    this run's inputs: each input read once and each output written once,
+    the k rows over the keys needed (the valid keys; the forms with values
+    every key of a bag without one, the export passes none) and v alike; the
+    products over the same keys, a multiply-add as 2 operations: q.k, the
+    gate with the pre-gate, p.v (forward); q.k, the gate, dO.v, dv and two
+    terms each of dq and dk with the pre-gate, one each without (backward);
+    q.k and the gate (export passes). Operations at the float32 FMA rate, or
+    in bfloat16 at the bfloat16 tensor-core rate (the rows' convention)."""
+    b, m_len = mask.shape
+    valid, filled = int(mask.sum()), valid_keys(mask)
+    per = 2 if pre_gate else 1
+    if name.startswith("coattn_plain_bwd"):  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
+        nbytes = esize * (3 * b * n * d + 2 * valid * d + 2 * b * m_len * d) + 4 * 5 * b * n \
+            + b * m_len
+        ops = 2 * n * valid * d * (8 if pre_gate else 5)
+    elif name.startswith("coattn_plain"):  # in: q, k, v, mask; out: o, l, m
+        nbytes = esize * (2 * b * n * d + (valid + filled) * d) + 4 * 2 * b * n + b * m_len
+        ops = 2 * n * d * (per * valid + filled)
+    else:  # export: q, k (valid keys), mask; l, m out (stats) or in, and w out (weights)
+        nbytes = esize * (b * n * d + valid * d) + 4 * 2 * b * n + b * m_len
+        if name.startswith("coattn_weights"):
+            nbytes += 4 * b * n * m_len
+        ops = 2 * per * n * valid * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / (PEAK_BF16_FLOP_PER_S if esize == 2 else PEAK_F32_FLOP_PER_S) * 1e3
+    return (t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def p31_timings(dev, errs, power) -> list:
+    """(b): at each timed shape and pre-gate setting, the four kernels first
+    held to their plain versions on the inputs they are timed on (as in
+    (a), with the float64 witness), then timed. Returns the kernels line's
+    rows (N = 50, D = 256: the forward and backward without the pre-gate,
+    MCAT's form; the export passes pre-gated, NaCAGaT cesar's), their
+    launches still 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+    from multimodal_path_omic_tpu_torch.ops.attention import attention_core
+
+    def ms(fn):
+        return cuda_ms(fn, iters=P31_ITERS, warmup=1)
+
+    rows, readings = [], {}
+    shapes = [(n, d, "f32") for n in P31_TIME_NS for d in P31_TIME_DS] + [(50, 256, "bf16")]
+    for n, d, kind in shapes:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        inputs = plain27_inputs(dev, TRAIN_M, d, "prefix", 31, b=B, n=n)
+        q, k, v, dout, mask, seed, dssq, dsumw = inputs = tuple(
+            t.to(dt) if i < 4 else t for i, t in enumerate(inputs))
+        zeros = torch.zeros_like(dssq)
+        names = p31_rows(kind)
+        t_all = {}
+        for pre_gate in (False, True):
+            tag = f"(b) {kind} N={n} D={d} M={TRAIN_M} prefix pre_gate={pre_gate}"
+            *_, (lk, lp) = plain27_check(dev, d, kind, TRAIN_M, "prefix", pre_gate, errs, n=n,
+                                         b=B, rows=names[:2], phase="31 (b)",
+                                         l_rtol=P31_F32_L_RTOL, inputs=inputs)
+            ls, _ = p31_export_check(q, k, mask, pre_gate, d, kind == "bf16", errs, names, tag)
+            if kind == "f32":
+                p31_l_witness(readings, tag, (lk, ls), lp, q, k, mask, pre_gate)
+            del lk, lp, ls
+            torch.cuda.empty_cache()
+            o, l, m, _, _ = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, 0.0,
+                                                            pre_gate=pre_gate)
+            di = (o.float() * dout.float()).sum(-1)
+            q4, k4, v4 = (x[:, None] for x in (q, k, v))
+            t = {
+                names[0]: ms(lambda: coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate,
+                                                                 train=False)),
+                names[1]: ms(lambda: coattn.coattn_bwd_plain_k(
+                    q, k, v, mask, seed, 0.0, dout, l, m, di, zeros, zeros, pre_gate=pre_gate)),
+                names[2]: ms(lambda: coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)),
+                names[3]: ms(lambda: coattn.coattn_weights(q, k, mask, l, m, pre_gate=pre_gate)),
+                "plain " + names[0]: ms(lambda: coattn.coattn_fwd_plain_k_plain(
+                    q, k, v, mask, None, 0.0, pre_gate=pre_gate)),
+                "plain " + names[1]: ms(lambda: coattn.coattn_bwd_plain_k_plain(
+                    q, k, v, mask, seed, 0.0, dout, zeros, zeros, pre_gate=pre_gate)),
+                "plain " + names[2]: ms(lambda: coattn.coattn_stats_plain(q, k, mask,
+                                                                         pre_gate=pre_gate)),
+                "plain " + names[3]: ms(lambda: coattn.coattn_weights_plain(
+                    q, k, mask, l, m, pre_gate=pre_gate)),
+                "route " + names[0]: ms(lambda: attention_core(q4, k4, v4, mask,
+                                                               pre_gate=pre_gate,
+                                                               need_weights=False)),
+                "route " + names[2]: ms(lambda: attention_core(q4, k4, v4, mask,
+                                                               pre_gate=pre_gate,
+                                                               need_weights=True)),
+            }
+            leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+            out = attention_core(*leaves, mask, pre_gate=pre_gate, need_weights=False)[0]
+            t["route " + names[1]] = ms(lambda: torch.autograd.grad(out, leaves, dout[:, None],
+                                                                    retain_graph=True))
+            del leaves, out
+            if not pre_gate:
+                amask = mask[:, None, None, :]
+                t["sdpa " + names[0]] = ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=amask))
+                leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+                lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+                t["sdpa " + names[1]] = ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, dout[:, None], retain_graph=True))
+                del leaves, lib_out
+            del q4, k4, v4
+            for name in names:
+                (tb, to), by = p31_bounds(name, mask, n, d, pre_gate, 2 if kind == "bf16" else 4)
+                log(f"phase 31 (b): {name} {kind} B={B} N={n} M={TRAIN_M} D={d} "
+                    f"pre_gate={pre_gate}: kernel {t[name]:.4f} ms, plain "
+                    f"{t['plain ' + name]:.4f} ms, the attention_core route "
+                    + (f"{t['route ' + name]:.4f} ms ({t['route ' + name] / t[name]:.2f}x)"
+                       if 'route ' + name in t else "(the map's, above)")
+                    + (f", scaled_dot_product_attention {t['sdpa ' + name]:.4f} ms"
+                       if "sdpa " + name in t else "")
+                    + f"; bounds {tb:.4f} ms bytes, {to:.4f} ms float32 FMA"
+                    f"{' (bf16 rate)' if kind == 'bf16' else ''}: {by}, "
+                    f"{max(tb, to) / t[name]:.3f} reached ({power})")
+            t_all[pre_gate] = t
+        if n == 50 and d == 256:
+            for i, name in enumerate(names):
+                pre_gate = i >= 2  # the export rows: NaCAGaT cesar's pre-gated passes
+                t = t_all[pre_gate]
+                (tb, to), by = p31_bounds(name, mask, n, d, pre_gate, 2 if kind == "bf16" else 4)
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": 0, "max_abs_err": errs[name],
+                    "ms": t[name], "plain_ms": t["plain " + name], "bound_ms": max(tb, to),
+                    "bound_by": by, "library_ms": t.get("sdpa " + name),
+                })
+        del q, k, v, dout, mask, inputs
+        torch.cuda.empty_cache()
+    p31_hold_witness(readings, "(b)")
+    return rows
+
+
+@contextlib.contextmanager
+def no_coattention_core(what):
+    """Fail where a co-attention site (queries and keys of other lengths)
+    calls ``ops/attention.py::attention_core``; the transformers'
+    self-attention (with dropout: attention_core, as in JAX) may."""
+    from multimodal_path_omic_tpu_torch.ops import attention
+
+    core, calls = attention.attention_core, []
+
+    def spy(q, k, *a, **kw):
+        if q.shape[-2] != k.shape[-2]:
+            calls.append(tuple(q.shape))
+        return core(q, k, *a, **kw)
+
+    attention.attention_core = spy
+    try:
+        yield
+    finally:
+        attention.attention_core = core
+    if calls:
+        raise AssertionError(f"phase 31 {what}: attention_core on a co-attention site {calls}")
+
+
+def p31_fit(what, cfg, want_train, want_val, power):
+    """``Trainer.fit`` of ``cfg`` on the card: each epoch's co-attention and
+    gather launches held to the plan (a kernel -> launches a step or a
+    validation batch), the validation's flash_fwd_d32 launches (the
+    transformers at L = P31_GROUPS), no attention_core on a co-attention
+    site. Returns (per-epoch summaries, the launches of the run)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, verbose=False)
+    calls = instrument(trainer)
+    before = read_counts()
+    t0 = time.perf_counter()
+    with no_coattention_core(what):
+        trainer.fit()
+    torch.cuda.synchronize()
+    launched = _counts_delta(before, read_counts())
+    n_steps, n_val = len(trainer.train_batcher), len(trainer.val_batcher)
+    for c in calls:
+        per = n_steps if c["call"] == "train_epoch" else n_val
+        want = {k_: v_ * per for k_, v_ in (want_train if c["call"] == "train_epoch"
+                                            else want_val).items()}
+        got = {k_: v_ for k_, v_ in c["launches"].items()
+               if k_.startswith("coattn_") or k_ == "gather_rows"}
+        if got != want:
+            raise AssertionError(f"phase 31 {what} {c['call']}: co-attention launches {got}, "
+                                 f"expected {want}")
+        loss = c["out"]["train_loss" if c["call"] == "train_epoch" else "val_loss"]
+        if not math.isfinite(loss):
+            raise AssertionError(f"phase 31 {what}: {c['call']} loss not finite")
+    val = [c for c in calls if c["call"] == "validate"]
+    if not all(any(k_.startswith("flash_fwd_d32") for k_ in c["launches"]) for c in val):
+        raise AssertionError(f"phase 31 {what}: the eval transformers at L = {P31_GROUPS} "
+                             "did not run flash_fwd_d32")
+    log(f"phase 31 (c) {what}: fit in {time.perf_counter() - t0:.2f} s, {n_steps} steps and "
+        f"{n_val} validation batches an epoch, launches {launched} as planned, no "
+        f"attention_core on a co-attention site; "
+        + ", ".join(f"{c['call']}({c['epoch']}) {c['seconds']:.3f} s" for c in calls)
+        + f" ({power})")
+    return [epoch_summary(calls, e) for e in range(cfg.training.epochs)], launched
+
+
+def p31_entry_points(dev, power) -> dict:
+    """(c). Returns the launches of its runs on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+
+    from multimodal_path_omic_tpu_torch.config import config_to_dict, load_config
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_p31_")
+    total = {}
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+
+    try:
+        t0 = time.perf_counter()
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **P31_COHORT)
+        cpu_paths = make_synthetic_cohort(os.path.join(root, "cpu_cohort"), **P31_CPU_COHORT)
+        log(f"phase 31 (c): {P31_GROUPS}-group cohorts written in {time.perf_counter() - t0:.1f} s")
+        train_k = {"coattn_plain_slabs": 1, "coattn_plain_bwd_slabs": 1}
+        val_k = {"coattn_stats_slabs": 1, "coattn_weights_slabs": 1}
+        gather = {"gather_rows": 1}
+        runs = (
+            ("NaCAGaT cesar host-fed", "nacagat.yaml", {"tpu.device_cache": "off"}, train_k, val_k),
+            ("NaCAGaT cesar cached", "nacagat.yaml", {"tpu.device_cache": "on"},
+             {**train_k, **gather}, {**val_k, **gather}),
+            ("MCAT ces host-fed", "mcat.yaml", {"tpu.device_cache": "off"}, train_k,
+             {"coattn_plain_slabs": 1}),
+            ("MCAT ces cached", "mcat.yaml", {"tpu.device_cache": "on"}, {**train_k, **gather},
+             {"coattn_plain_slabs": 1, **gather}),
+            ("NaCAGaT cesar bfloat16 cached", "nacagat.yaml",
+             {"tpu.device_cache": "on", "tpu.compute_dtype": "bfloat16"},
+             {**{k_ + "_bf16": v_ for k_, v_ in train_k.items()}, **gather},
+             {**{k_ + "_bf16": v_ for k_, v_ in val_k.items()}, **gather}),
+        )
+        ends = {}
+        for what, example, over, want_train, want_val in runs:
+            cfg = trainer_config(example, paths, os.path.join(root, what.replace(" ", "_")),
+                                 {**P31_SET, **over})
+            ends[what], launched = p31_fit(what, cfg, want_train, want_val, power)
+            add(launched)
+            torch.cuda.empty_cache()
+        for model in ("NaCAGaT cesar", "MCAT ces"):
+            same_bits(f"phase 31 (c) {model} cached vs host-fed", ends[model + " cached"][0],
+                      ends[model + " host-fed"][0])
+        log("  NaCAGaT cesar and MCAT ces cached == host-fed, bit for bit (losses, validation "
+            "risks)")
+
+        log("phase 31 (c): NaCAGaT cesar, one epoch on the card and on the CPU, dropout 0, "
+            f"{P31_CPU_COHORT['n_patients']} patients of {P31_CPU_COHORT['bag_lengths']} patches")
+        res = {}
+        for where in ("cuda", "cpu"):
+            cfg = trainer_config("nacagat.yaml", cpu_paths, os.path.join(root, "cpu_" + where),
+                                 {**P31_CPU_SET, "model.dropout": 0.0})
+            trainer = Trainer(cfg, verbose=False, device=where)
+            before = read_counts()
+            with no_coattention_core("(c) card vs CPU"):
+                train, val = trainer.validated_epoch(0)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                add(_counts_delta(before, read_counts()))
+            res[where] = {**train, **val, "risks": trainer.val_risks}
+            del trainer
+        for key in ("train_loss", "val_loss"):
+            rel = abs(res["cuda"][key] - res["cpu"][key]) / abs(res["cpu"][key])
+            log(f"  {key}: card {res['cuda'][key]!r}, CPU {res['cpu'][key]!r}, relative "
+                f"{rel:.3e} (tolerance {TRAINER_RTOL:g})")
+            if not rel <= TRAINER_RTOL:
+                raise AssertionError(f"phase 31 (c): the card's {key} disagrees with the CPU")
+        err = float(np.abs(res["cuda"]["risks"] - res["cpu"]["risks"]).max())
+        log(f"  val risks: card vs CPU max_abs_err {err:.3e} (tolerance {TRAINER_ATOL:g})")
+        if not err <= TRAINER_ATOL:
+            raise AssertionError("phase 31 (c): the card's validation risks disagree")
+
+        cfg = trainer_config("nacagat.yaml", paths, os.path.join(root, "serve"),
+                             {**P31_SET, "tpu.device_cache": "off"})
+        cfg_path = os.path.join(root, "nacagat50.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(config_to_dict(cfg), f)
+        pred = Predictor.from_config(load_config(cfg_path))
+        rng = np.random.default_rng(31)
+        sizes = pred.omic_sizes
+        bags = [rng.standard_normal((n_, 1024), dtype=np.float32) for n_ in (1500, 8000, 3000, 5000)]
+        omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
+        reset_before = read_counts()
+        with no_coattention_core("(c) predict_bags"):
+            got = pred.predict_bags(bags, omics)
+        torch.cuda.synchronize()
+        counts = _counts_delta(reset_before, read_counts())
+        add(counts)
+        co = {k_: v_ for k_, v_ in counts.items() if k_.startswith("coattn_")}
+        if set(co) != {"coattn_stats_slabs", "coattn_weights_slabs"}:
+            raise AssertionError(f"phase 31 (c) predict_bags: co-attention launches {co}")
+        ref = Predictor.from_config(load_config(cfg_path, {"device": "cpu"})).predict_bags(
+            bags, omics)
+        log(f"phase 31 (c): Predictor.from_config({os.path.basename(cfg_path)}).predict_bags, "
+            f"{len(bags)} bags of {P31_GROUPS} signature groups: launches {counts}")
+        check_outputs_close("the CPU Predictor", got, ref)
+
+        maps = {}
+        for where in ("cuda", "cpu"):
+            out_dir = os.path.join(root, "attn_" + where)
+            before = read_counts()
+            with no_coattention_core("(c) export-attn"):
+                cli_run(["export-attn", "--config", cfg_path, "--patient", "P000", "--epoch", "0",
+                         "--set", f"training.test_output_dir={out_dir}", "--set",
+                         f"device={where}"])
+            if where == "cuda":
+                torch.cuda.synchronize()
+                counts = _counts_delta(before, read_counts())
+                add(counts)
+                if not (counts.get("coattn_stats_slabs") and counts.get("coattn_weights_slabs")):
+                    raise AssertionError(f"phase 31 (c) export-attn: launches {counts}")
+            files = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+            maps[where] = np.load(os.path.join(out_dir, files[0]))
+        a, r = maps["cuda"], maps["cpu"]
+        if a.shape != r.shape or a.shape[0] != P31_GROUPS or not np.isfinite(a).all():
+            raise AssertionError(f"phase 31 (c) export-attn: map {a.shape} against {r.shape}")
+        excess = float((np.abs(a - r) / (W_ATOL + W_RTOL * np.abs(r))).max())
+        log(f"phase 31 (c): cli export-attn --patient P000: map {list(a.shape)} on the card, "
+            f"rows summing to {a.sum(-1).min():.6f}..{a.sum(-1).max():.6f}; against --set "
+            f"device=cpu at {excess:.3f} of W_RTOL {W_RTOL:g} (floor {W_ATOL:g})")
+        if not excess <= 1.0:
+            raise AssertionError("phase 31 (c) export-attn: the card's map disagrees with the CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def phase31_many_queries(dev, p30_export50) -> list:
+    """(a)-(c) of the phase 31 notes above, and (d)'s check on phase 30's
+    ranks' maps (``p30_export50``). Returns the eight rows of the kernels
+    line, their launches (c)'s and (d)'s."""
+    import torch
+
+    t_phase = time.perf_counter()
+    power = gpu_name_and_power()
+    errs = {name: 0.0 for kind in ("f32", "bf16") for name in p31_rows(kind)}
+    p31_kernel_checks(dev, errs)
+    log(f"phase 31 (a): {time.perf_counter() - t_phase:.1f} s")
+    rows = p31_timings(dev, errs, power)
+    torch.cuda.empty_cache()
+    launches = p31_entry_points(dev, power)
+    for name, v in p30_export50.items():
+        launches[name] = launches.get(name, 0) + v
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on phase 31's main-path runs")
+    log(f"phase 31: {time.perf_counter() - t_phase:.1f} s of wall time, launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({power})")
+    return rows
+
+
+# --step-time: a training step and a validation batch of NaCAGaT cesar and
+# MCAT ces at P31_GROUPS signature groups (medium, P31_SIZES), STEP_TIME_B
+# bags of the TRAIN_M bucket (phase 31 (c)'s Trainer batch), graphed as the
+# Trainer runs them, CUDA-event means over STEP_TIME_ITERS calls after the
+# warm-up and capture. Copied beside another commit's package, the script
+# times that commit's route (before the slab instances: attention_core) on
+# the same card, so two commits compare within one call.
+STEP_TIME_B, STEP_TIME_ITERS = 16, 20
+
+
+def step_time(dev) -> None:
+    import torch
+
+    from multimodal_path_omic_tpu_torch.models import build_model
+    from multimodal_path_omic_tpu_torch.train import loop
+    from multimodal_path_omic_tpu_torch.train.optim import make_optimizer
+    from multimodal_path_omic_tpu_torch.utils.weights import seeded_init_
+
+    power = gpu_name_and_power()
+    g = torch.Generator(device=dev).manual_seed(31)
+    lengths = torch.randint(TRAIN_M // 5, TRAIN_M + 1, (STEP_TIME_B,), generator=g, device=dev)
+    lengths[0] = TRAIN_M
+    batch = {
+        "wsi": torch.randn(STEP_TIME_B, TRAIN_M, 1024, generator=g, device=dev),
+        "mask": torch.arange(TRAIN_M, device=dev)[None, :] < lengths[:, None],
+        "omics": [torch.randn(STEP_TIME_B, s_, generator=g, device=dev) for s_ in P31_SIZES],
+        "label": torch.randint(0, 4, (STEP_TIME_B,), generator=g, device=dev),
+        "censorship": torch.randint(0, 2, (STEP_TIME_B,), generator=g, device=dev).float(),
+        "weight": torch.ones(STEP_TIME_B, device=dev),
+    }
+    for model, loss in (("NaCAGaT", "cesar"), ("MCAT", "ces")):
+        net = seeded_init_(build_model(model, omic_sizes=P31_SIZES, model_size="medium",
+                                       dropout=TRAIN_RATE), 0).to(dev)
+        opt = make_optimizer("adam", 2e-4, 1e-5)
+        state = loop.init_train_state(net, opt, seed=0)
+        train = loop.make_train_step(net, loss, opt, omic_sizes=P31_SIZES)
+        evaluate = loop.make_eval_step(net, loss, need_attention=loss == "cesar",
+                                       omic_sizes=P31_SIZES)
+        box = [state]
+
+        def train_call():
+            box[0], _ = train(box[0], batch)
+
+        out = {}
+        for what, call in (("training step", train_call),
+                           ("validation batch", lambda: evaluate(batch))):
+            for _ in range(3):  # eager warm-up, capture, a replay
+                call()
+            torch.cuda.synchronize()
+            reset_counts()
+            call()
+            torch.cuda.synchronize()
+            launches = {k_: v_ for k_, v_ in read_counts().items() if v_}
+            out[what] = (cuda_ms(call, iters=STEP_TIME_ITERS, warmup=1), launches)
+        log(f"step-time: {model} {loss} medium, {P31_GROUPS} signature groups, "
+            f"{STEP_TIME_B} bags of the {TRAIN_M} bucket, graphed: " + "; ".join(
+                f"{what} {ms_:.4f} ms (mean of {STEP_TIME_ITERS}, CUDA events), launches {la}"
+                for what, (ms_, la) in out.items()) + f" ({power})")
+        del net, state, train, evaluate, box
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6747,7 +7458,10 @@ def main() -> int:
                          "request, one training step (medium "
                          "and big), one GE predict_bags call, one GE training step, one "
                          "cached MCAT training step, the plain-K kernels' launches and a "
-                         "Trainer epoch host-fed and cached instead of phases 1-30")
+                         "Trainer epoch host-fed and cached instead of phases 1-31")
+    ap.add_argument("--step-time", action="store_true",
+                    help="time a graphed training step and validation batch of NaCAGaT cesar "
+                         "and MCAT ces at 50 signature groups instead of phases 1-31")
     args = ap.parse_args()
     try:
         import torch
@@ -6776,6 +7490,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  nvcc[{name}]: {line.strip()}")
 
+    if args.step_time:
+        step_time(dev)
+        return 0
     bags, omics = make_bags(0)
     if args.profile:
         for loss in WANT:
@@ -6927,7 +7644,9 @@ def main() -> int:
     p30 = phase30_mesh_settings(dev)
     for row in rows:  # every rank's cox steps, seq-2 export and mesh server (medium only)
         row["launches"] += p30.get(row["name"], 0)
-    log(f"chip_smoke: phases 1-30 in {time.perf_counter() - T_START:.1f} s")
+    torch.cuda.empty_cache()
+    rows += phase31_many_queries(dev, p30)  # its rows' launches: (c)'s runs and (d)'s ranks
+    log(f"chip_smoke: phases 1-31 in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -152,7 +152,9 @@ class MultiheadAttention(nn.Module):
       over the patch axis and :func:`fused_attention` runs the plain-K
       kernels with values, forward and backward, in eval and in training
       (dropout in-kernel). Reached when the lean routes do not apply
-      (several heads, key is not value) or are switched off;
+      (several heads, key is not value, more than 32 queries, or pre-gated
+      past the fuse-K kernels' 8: NaCAGaT at 9..256 signature groups) or
+      are switched off;
     * flash (self-attention over more than 32 positions, no pre-gate, weights
       not requested: GE's bag self-attention and path transformer), in eval
       and in training: :func:`flash_attention`, forward and backward, the

@@ -29,6 +29,15 @@ kernels of the NaCAGaT and MCAT serving and training paths:
 * :func:`coattn_bwd_plain_k` — its recompute backward: dq, dk, dv
   (``_coattn_bwd``), counted as ``coattn_plain_bwd``.
 
+The fuse-K kernels take up to ``MAX_QUERIES`` = 8 queries; the plain-K
+kernels (the forward with values, its backward, the export passes) take the
+JAX kernels' full range, up to ``MAX_PLAIN_QUERIES`` = 256 (signature groups:
+a Hallmark-sized signature file has 50), past eight in slabs of eight
+queries a block (csrc/coattn_many.cu, csrc/coattn_bwd_many.cu; the design in
+csrc/coattn.cu's "Past eight queries"), counted apart as ``coattn_plain_slabs``,
+``coattn_plain_bwd_slabs``, ``coattn_stats_slabs`` and
+``coattn_weights_slabs`` (``_bf16`` in bfloat16).
+
 Each wrapper launches its kernel for a CUDA tensor (or raises on what the
 kernel does not take) and uses the plain version only for a CPU tensor. What
 the kernels take is stated once, in :func:`fused_k_supports` and
@@ -89,7 +98,8 @@ from multimodal_path_omic_tpu_torch.ops import kernels
 from multimodal_path_omic_tpu_torch.ops.layers import require_generator, round_bf16
 
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
-MAX_QUERIES = 8  # one warp per query in the kernels
+MAX_QUERIES = 8  # the fuse-K kernels: one warp per query
+MAX_PLAIN_QUERIES = 256  # the plain-K kernels: slabs of 8 queries past 8 (csrc NQ_MAX)
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
 VALUES_D = (128, 256, 512)  # D the plain-K kernels with values take (every shipped width)
 # (E, F) the fuse-K training forward and backward take: their template
@@ -112,6 +122,8 @@ LAUNCH_COUNTS = {
     "coattn_fwd_fused_k_bf16": 0, "coattn_fwd_fused_k_train_bf16": 0,
     "coattn_bwd_fused_k_bf16": 0, "coattn_stats_bf16": 0, "coattn_weights_bf16": 0,
     "coattn_plain_bf16": 0, "coattn_plain_bwd_bf16": 0,
+    **{f"coattn_{k}_slabs{sfx}": 0 for k in ("plain", "plain_bwd", "stats", "weights")
+       for sfx in ("", "_bf16")},
 }
 
 
@@ -342,7 +354,9 @@ def leank_train_form(dropout_rate: float, need_ssq: bool, *tensors: torch.Tensor
 
 def plain_k_supports(n: int, d: int, m_len: int, *, values: bool,
                      dtype: torch.dtype = torch.float32) -> bool:
-    """The shapes the plain-K kernels take: 1..``MAX_QUERIES`` queries, M >= 1
+    """The shapes the plain-K kernels take: 1..``MAX_PLAIN_QUERIES`` queries
+    (the JAX package's ``kernel_eligible`` range; past ``MAX_QUERIES`` the
+    slab instances), M >= 1
     keys, D in {128, 256, 512} (statistics and weights, the export passes) or,
     ``values``, D in ``VALUES_D`` (the forward with values and its
     backward), float32; in bfloat16 the export passes at D in
@@ -356,12 +370,39 @@ def plain_k_supports(n: int, d: int, m_len: int, *, values: bool,
         dims = VALUES_D if values else (128, 256, 512)
     else:
         dims = ()
-    return 1 <= n <= MAX_QUERIES and m_len >= 1 and d in dims
+    return 1 <= n <= MAX_PLAIN_QUERIES and m_len >= 1 and d in dims
 
 
-def _refuse(what: str, n: int, d: str) -> None:
+def _refuse(what: str, n: int, d: str, most: int = MAX_QUERIES) -> None:
     raise ValueError(f"{what}: unsupported shape ({n} queries, the kernels take "
-                     f"1..{MAX_QUERIES}; {d})")
+                     f"1..{most}; {d})")
+
+
+def _slabs(n: int) -> int:
+    """The query slabs of the plain-K kernels: one (the kernel at up to 8
+    queries) or ceil(n / 8)."""
+    return -(-n // MAX_QUERIES)
+
+
+def _slab_parts(blocks: int, n: int) -> int:
+    """Blocks a slab of the plain-K main passes, at most (the kernels run
+    max(1, resident // slabs) of the resident blocks, resident <= blocks):
+    the partial buffers hold this many plus B."""
+    return max(1, blocks // _slabs(n))
+
+
+def _count(name: str, n: int, dtype: torch.dtype) -> None:
+    """One launch of the plain-K kernel ``name``: its slab instance past
+    ``MAX_QUERIES`` queries."""
+    LAUNCH_COUNTS[name + ("_slabs" if n > MAX_QUERIES else "") + kernels.suffix(dtype)] += 1
+
+
+def _entry(library: str, name: str, n: int, dtype: torch.dtype):
+    """The C entry point ``name`` of a plain-K kernel in ``dtype``'s instance:
+    ``library``'s up to ``MAX_QUERIES`` queries, else the slab instances'
+    (``<library>_many``, the same entry points)."""
+    many = "_many" if n > MAX_QUERIES else ""
+    return getattr(kernels.library(library + many), name + kernels.suffix(dtype))
 
 
 def _require_type(q: torch.Tensor) -> None:
@@ -552,7 +593,7 @@ def _plain_k_checks(q, k, *, values: bool = False):
     _require_type(q)
     if not plain_k_supports(n, d, m_len, values=values, dtype=q.dtype):
         _refuse(f"plain-K kernels{' with values' if values else ''}", n,
-                f"D={d}, M={m_len}, {q.dtype}")
+                f"D={d}, M={m_len}, {q.dtype}", MAX_PLAIN_QUERIES)
     kernels.require(q, "q", (b, n, d), q.dtype)
     kernels.require(k, "k", (b, m_len, d), q.dtype)
     return b, n, d, m_len
@@ -591,16 +632,15 @@ def _stats_on_card(q, k, key_mask, pre_gate):
     b, n, d, m_len, blocks, mask_ptr = _export_checks(q, k, key_mask)
     dev = q.device
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
-    ml_part = torch.empty((blocks + b, n, 2), device=dev)
+    ml_part = torch.empty((_slab_parts(blocks, n) + b, n, 2), device=dev)
     tiles = _tile_list(b, m_len, dev)
-    sfx = kernels.suffix(q.dtype)
-    err = getattr(kernels.library("coattn"), "mpo_coattn_stats" + sfx)(
+    err = _entry("coattn", "mpo_coattn_stats", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), ml_part.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks,
         1.0 / math.sqrt(d), kernels.stream(dev),
     )
-    kernels.check(err, "coattn_stats" + sfx)
-    LAUNCH_COUNTS["coattn_stats" + sfx] += 1
+    kernels.check(err, "coattn_stats" + kernels.suffix(q.dtype))
+    _count("coattn_stats", n, q.dtype)
     return l, m, tiles
 
 
@@ -614,14 +654,13 @@ def _weights_on_card(q, k, key_mask, l, m, pre_gate, tiles=None):
     w = torch.empty((b, n, m_len), device=dev)
     ready = tiles is not None
     tiles = tiles if ready else _tile_list(b, m_len, dev)
-    sfx = kernels.suffix(q.dtype)
-    err = getattr(kernels.library("coattn"), "mpo_coattn_weights" + sfx)(
+    err = _entry("coattn", "mpo_coattn_weights", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), w.data_ptr(),
         *(t.data_ptr() for t in tiles), b, n, m_len, d, int(pre_gate), blocks, int(ready),
         1.0 / math.sqrt(d), kernels.stream(dev),
     )
-    kernels.check(err, "coattn_weights" + sfx)
-    LAUNCH_COUNTS["coattn_weights" + sfx] += 1
+    kernels.check(err, "coattn_weights" + kernels.suffix(q.dtype))
+    _count("coattn_weights", n, q.dtype)
     return w
 
 
@@ -631,7 +670,7 @@ def coattn_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Export pass 1: q [B, N, D], k [B, M, D] -> (l [B, N], m [B, N]), the
     softmax normalizer and row max of the masked (pre-gated) scores, float32.
-    Kernel: D in {128, 256, 512}, N <= 8, float32; or bfloat16 q, k at D in
+    Kernel: D in {128, 256, 512}, N <= 256, float32; or bfloat16 q, k at D in
     ``BF16_EXPORT_D``."""
     if q.device.type == "cpu":
         return coattn_stats_plain(q, k, key_mask, pre_gate=pre_gate)
@@ -673,8 +712,8 @@ def coattn_fwd_plain_k(
     int32 tensor on the same device, ``bag0`` the global index of bag 0;
     ssq and sumw of the dropped weights);
     the eval form takes no dropout and returns None for ssq and sumw.
-    Kernel: D in {128, 256, 512}, N <= 8, float32 or bfloat16 (q, k, v and o
-    in bfloat16; l, m, ssq, sumw float32)."""
+    Kernel: D in {128, 256, 512}, N <= 256, float32 or bfloat16 (q, k, v and
+    o in bfloat16; l, m, ssq, sumw float32)."""
     if not train and rate > 0.0:
         raise ValueError("the eval form takes no dropout")
     if q.device.type == "cpu":
@@ -685,29 +724,29 @@ def coattn_fwd_plain_k(
     dev = q.device
     thresh, keep_scale, seed_ptr = 0, 1.0, None
     ssq = sumw = sq_part = None
+    parts = _slab_parts(blocks, n) + b
     if train:
         if seed is None:
             seed = torch.zeros((1,), dtype=torch.int32, device=dev)
         thresh, keep_scale = _dropout_args(seed, rate, dev)
         seed_ptr = seed.data_ptr()
         ssq, sumw = (torch.empty((b, n), device=dev) for _ in range(2))
-        sq_part = torch.empty((blocks + b, n, 2), device=dev)
+        sq_part = torch.empty((parts, n, 2), device=dev)
     o = torch.empty((b, n, d), device=dev, dtype=q.dtype)
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
-    o_part = torch.empty((blocks + b, n, d), device=dev)
-    ml_part = torch.empty((blocks + b, n, 2), device=dev)
+    o_part = torch.empty((parts, n, d), device=dev)
+    ml_part = torch.empty((parts, n, 2), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
     side_ptrs = [None if t is None else t.data_ptr() for t in (ssq, sumw, sq_part)]
-    sfx = kernels.suffix(q.dtype)
-    err = getattr(kernels.library("coattn"), "mpo_coattn_plain_fwd" + sfx)(
+    err = _entry("coattn", "mpo_coattn_plain_fwd", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed_ptr,
         o.data_ptr(), l.data_ptr(), m.data_ptr(), side_ptrs[0], side_ptrs[1],
         o_part.data_ptr(), ml_part.data_ptr(), side_ptrs[2], flags.data_ptr(),
         units.data_ptr(), offsets.data_ptr(), b, n, m_len, d, int(pre_gate), blocks,
         int(train), 1.0 / math.sqrt(d), thresh, keep_scale, bag0, kernels.stream(dev),
     )
-    kernels.check(err, "coattn_fwd_plain_k" + sfx)
-    LAUNCH_COUNTS["coattn_plain" + sfx] += 1
+    kernels.check(err, "coattn_fwd_plain_k" + kernels.suffix(q.dtype))
+    _count("coattn_plain", n, q.dtype)
     return o, l, m, ssq, sumw
 
 
@@ -735,10 +774,9 @@ def coattn_bwd_plain_k(
     dq = torch.empty((b, n, d), device=dev, dtype=q.dtype)
     # the tile pass writes the skipped tiles' dk and dv rows, the main pass the rest
     dk, dv = (torch.empty((b, m_len, d), device=dev, dtype=q.dtype) for _ in range(2))
-    dq_part = torch.empty((blocks + b, n, d), device=dev)
+    dq_part = torch.empty((_slab_parts(blocks, n) + b, n, d), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
-    sfx = kernels.suffix(q.dtype)
-    err = getattr(kernels.library("coattn_bwd"), "mpo_coattn_plain_bwd" + sfx)(
+    err = _entry("coattn_bwd", "mpo_coattn_plain_bwd", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed.data_ptr(),
         dout.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), dssq.data_ptr(),
         dsumw.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
@@ -746,8 +784,8 @@ def coattn_bwd_plain_k(
         int(pre_gate), blocks, 1.0 / math.sqrt(d), thresh, keep_scale, bag0,
         kernels.stream(dev),
     )
-    kernels.check(err, "coattn_bwd_plain_k" + sfx)
-    LAUNCH_COUNTS["coattn_plain_bwd" + sfx] += 1
+    kernels.check(err, "coattn_bwd_plain_k" + kernels.suffix(q.dtype))
+    _count("coattn_plain_bwd", n, q.dtype)
     return dq, dk, dv
 
 

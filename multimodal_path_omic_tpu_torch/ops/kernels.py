@@ -59,6 +59,12 @@ for _lib, _names in (("coattn", ("mpo_coattn_fwd_fused_k", "mpo_coattn_fwd_fused
                      ("coattn_bwd", ("mpo_coattn_bwd_fused_k", "mpo_coattn_plain_bwd"))):
     for _name in _names:
         SIGNATURES[_lib][_name + "_bf16"] = SIGNATURES[_lib][_name]
+# the plain-K kernels past eight queries: their counterparts' entry points
+for _lib, _names in (("coattn", ("mpo_coattn_plain_fwd", "mpo_coattn_stats",
+                                 "mpo_coattn_weights")),
+                     ("coattn_bwd", ("mpo_coattn_plain_bwd",))):
+    SIGNATURES[_lib + "_many"] = {n + sfx: SIGNATURES[_lib][n + sfx]
+                                  for n in _names for sfx in ("", "_bf16")}
 SIGNATURES.update({
     "milpool": {
         "mpo_milpool": [_P] * 10 + [_I] * 5 + [_P],

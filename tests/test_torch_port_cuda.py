@@ -722,34 +722,48 @@ def test_flash_kernels_one_valid_key_on_card(dev, heads, width):
 def test_refused_coattention_shapes_on_card_match_cpu(dev):
     """Shapes the co-attention kernels do not take go to attention_core by
     the kernels' predicates, never to a raise: cross-attention of 6 queries
-    over 100 keys in 8 heads of width 32; NaCAGaT with 12 signature groups
-    (ces: lean-V refused; cesar: the map of 12 queries). The card within 1e-4
-    of the CPU, no co-attention launch."""
+    over 100 keys in 8 heads of width 32; 257 pre-gated queries (one past the
+    JAX kernels' range), with and without the map. The card within 1e-4 of
+    the CPU, no co-attention launch."""
     rng = np.random.default_rng(3)
     torch.manual_seed(0)
     from multimodal_path_omic_tpu_torch.ops import attention
 
-    mha = attention.MultiheadAttention(256, 8).eval()
-    q = torch.from_numpy(rng.standard_normal((2, 6, 256), dtype=np.float32))
     kv = torch.from_numpy(rng.standard_normal((2, 100, 256), dtype=np.float32))
     mask = torch.arange(100)[None] < torch.tensor([[93], [0]])
-    outs = []
-    for device in (dev, torch.device("cpu")):
-        coattn.reset_launch_counts()
-        with torch.no_grad():
-            outs.append(mha.to(device)(q.to(device), kv.to(device), kv.to(device),
-                                       mask.to(device), need_weights=False)[0].cpu())
-        assert not any(coattn.LAUNCH_COUNTS.values())
-    _close(outs[0], outs[1])
+    for heads, pre_gate, n, need_weights in ((8, False, 6, False), (1, True, 257, False),
+                                             (1, True, 257, True)):
+        mha = attention.MultiheadAttention(256, heads, pre_gate=pre_gate).eval()
+        q = torch.from_numpy(rng.standard_normal((2, n, 256), dtype=np.float32))
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            coattn.reset_launch_counts()
+            with torch.no_grad():
+                out, w = mha.to(device)(q.to(device), kv.to(device), kv.to(device),
+                                        mask.to(device), need_weights=need_weights)
+            outs.append([out.cpu()] + ([w.cpu()] if need_weights else []))
+            assert not any(coattn.LAUNCH_COUNTS.values())
+        for a, r in zip(*outs):
+            _close(a, r)
+
+
+def test_twelve_groups_take_the_slab_instances_on_card(dev):
+    """NaCAGaT with 12 signature groups, which the kernels refused up to
+    eight queries: ces serves through the plain-K forward's slab instance,
+    cesar through the export passes' (one launch a batch each), the card
+    within 1e-4 of the CPU."""
+    rng = np.random.default_rng(3)
     bags = [rng.standard_normal((n, 256), dtype=np.float32) for n in (300, 700, 90)]
-    for sizes, model_size, loss in (((12,) * 12, "small", "ces"), ((12,) * 12, "small", "cesar")):
+    sizes = (12,) * 12
+    for loss, want in (("ces", {"coattn_plain_slabs": 2}),
+                       ("cesar", {"coattn_stats_slabs": 2, "coattn_weights_slabs": 2})):
         omics = [[rng.standard_normal(s_, dtype=np.float32) for s_ in sizes] for _ in bags]
-        kw = dict(omic_sizes=sizes, model_size=model_size, wsi_dim=256, buckets=(1024,),
+        kw = dict(omic_sizes=sizes, model_size="small", wsi_dim=256, buckets=(1024,),
                   batch_size=2, loss=loss, seed=1)
         coattn.reset_launch_counts()
         got = Predictor(device=dev, **kw).predict_bags(bags, omics)
         torch.cuda.synchronize()
-        assert not any(coattn.LAUNCH_COUNTS.values())
+        assert {k: v for k, v in coattn.LAUNCH_COUNTS.items() if v} == want
         ref = Predictor(device="cpu", **kw).predict_bags(bags, omics)
         for key in ("hazards", "survs", "y", "risk"):
             np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0)
@@ -2097,3 +2111,98 @@ def test_lean_false_every_size_on_card(dev, model_name, size, dtype):
     assert {k_: v_ for k_, v_ in coattn.LAUNCH_COUNTS.items() if v_} == {
         "coattn_plain" + sfx: 1, "coattn_plain_bwd" + sfx: 1}
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+# float32 l of the slab instances: within SLAB_L_RTOL relative of the plain
+# version, which itself sits up to 2.5e-5 from the float64 l (chip_smoke.py
+# phase 31's readings: the kernels 8.8e-6 from it; a TF32 control 5.7e-3);
+# and within L_RTOL of the float64 l (_l_witness)
+SLAB_L_RTOL = 5e-5
+
+
+def _l_witness(kernel_ls, q, k, mask, pre_gate):
+    """The kernels' float32 l (the forward's, export pass 1's) within L_RTOL
+    relative of the float64 plain version's."""
+    l64 = coattn.coattn_fwd_plain_k_plain(q.double(), k.double(), k[..., :1].double(), mask,
+                                          None, 0.0, pre_gate=pre_gate)[1]
+    for lk in kernel_ls:
+        torch.testing.assert_close(lk.double(), l64, rtol=L_RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("n", [9, 50, 256])
+def test_slab_instances_match_plain_on_card(dev, n, d, dtype):
+    """The plain-K kernels past eight queries (query slabs of eight) against
+    their plain versions, with and without the pre-gate, on masks with whole
+    masked tiles mid-bag and a bag without a valid key: the forward with
+    values (eval form, training form at dropout 0.25), its backward, export
+    passes 1 and 2; two runs bitwise equal, dk, dv and w exactly 0 at the
+    masked keys of bags with a valid key; one launch of each slab instance a
+    call (export pass 1 three: its own call and two coattention_weights).
+    Float32 l within SLAB_L_RTOL relative of the plain version and within
+    L_RTOL of the float64 l (:func:`_l_witness`)."""
+    b, m_len = 3, 2000
+    q, _, _, _, k, _ = _inputs(dev, b, n, d, m_len, d, 31 * n + d)
+    mask = _training_mask(dev, b, m_len, "holes", n + d)
+    g = torch.Generator().manual_seed(n + d)
+    v = torch.randn(b, m_len, d, generator=g).to(dev)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    dout = torch.randn(b, n, d, generator=g).to(dev).to(dtype)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    seed = torch.tensor([n + d], dtype=torch.int32, device=dev)
+    bf = dtype == BF16
+    has = mask.any(-1)
+    for pre_gate in (False, True):
+        before = dict(coattn.LAUNCH_COUNTS)
+        for rate in (0.0, 0.25):
+            got = (coattn.coattn_fwd_plain_k(q, k, v, mask, pre_gate=pre_gate, train=False)
+                   if rate == 0.0 else coattn.coattn_fwd_plain_k(q, k, v, mask, seed, rate,
+                                                                 pre_gate=pre_gate))
+            ref = coattn.coattn_fwd_plain_k_plain(q, k, v, mask, seed, rate, pre_gate=pre_gate)
+            if bf:
+                terms = coattn.coattn_fwd_plain_k_plain(q, k, v.abs(), mask, seed, rate,
+                                                        pre_gate=pre_gate)[0].float()
+                assert bool(((got[0].float() - ref[0].float()).abs() <= BF16_RTOL * terms).all())
+            else:
+                _close(got[0], ref[0])
+            _close(got[1], ref[1], rtol=SLAB_L_RTOL, atol=0.0)
+            if rate == 0.0:
+                eval_l = got[1]
+            for a, r in zip(got[2:], ref[2:]):
+                if a is not None:
+                    _close(a, r, atol=1e-2 if bf else ATOL)
+        fwd = coattn.coattn_fwd_plain_k(q, k, v, mask, seed, 0.25, pre_gate=pre_gate)
+        assert all(torch.equal(x, y) for x, y in zip(fwd, coattn.coattn_fwd_plain_k(
+            q, k, v, mask, seed, 0.25, pre_gate=pre_gate)))
+        o, l, m, ssq, sumw = fwd
+        di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+        args = (q, k, v, mask, seed, 0.25, dout, l, m, di, dssq, dsumw)
+        grads = coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)
+        assert all(torch.equal(x, y) for x, y in zip(
+            grads, coattn.coattn_bwd_plain_k(*args, pre_gate=pre_gate)))
+        ref = coattn.coattn_bwd_plain_k_plain(q, k, v, mask, seed, 0.25, dout, dssq, dsumw,
+                                              pre_gate=pre_gate)
+        for a, r in zip(grads, ref):
+            assert a.dtype == dtype
+            _close_rel(a.float(), r.float(), BF16_GRAD_RTOL if bf else GRAD_RTOL)
+        assert float(grads[1][~mask].float().abs().max()) == 0.0
+        assert bool((grads[2][has][~mask[has]] == 0).all())
+        lk, mk = coattn.coattn_stats(q, k, mask, pre_gate=pre_gate)
+        lp, mp = coattn.coattn_stats_plain(q, k, mask, pre_gate=pre_gate)
+        _close(lk, lp, rtol=BF16_STAT_TOL if bf else SLAB_L_RTOL, atol=0.0)
+        if not bf:
+            _l_witness((eval_l, lk), q, k, mask, pre_gate)
+        _close(mk, mp, atol=BF16_STAT_TOL if bf else ATOL)
+        w = coattn.coattention_weights(q, k, mask, pre_gate=pre_gate)
+        wp = coattn.coattn_weights_plain(q, k, mask, lp, mp, pre_gate=pre_gate)
+        _close(w, wp, rtol=BF16_STAT_TOL if bf else W_RTOL, atol=W_ATOL)
+        assert torch.equal(w, coattn.coattention_weights(q, k, mask, pre_gate=pre_gate))
+        masked = (~mask & has[:, None])[:, None, :].expand_as(w)
+        assert bool((w[masked] == 0).all()) and bool((w[~has] == 1.0 / m_len).all())
+        torch.cuda.synchronize()
+        sfx = "_bf16" if bf else ""
+        for name, calls in (("coattn_plain_slabs", 4), ("coattn_plain_bwd_slabs", 2),
+                            ("coattn_stats_slabs", 3), ("coattn_weights_slabs", 2),
+                            ("coattn_plain", 0), ("coattn_stats", 0)):
+            assert coattn.LAUNCH_COUNTS[name + sfx] == before[name + sfx] + calls, name

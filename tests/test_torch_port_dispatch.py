@@ -76,7 +76,7 @@ def test_fused_k_supports_is_the_wrappers_check(train):
 @pytest.mark.parametrize("values", [False, True])
 def test_plain_k_supports_is_the_wrappers_check(values):
     seen = set()
-    for n in (1, 6, 8, 9, 12, 32):
+    for n in (1, 6, 8, 9, 12, 32, 256, 257):
         for d in (16, 32, 64, 128, 256, 512):
             q, k = torch.zeros(2, n, d), torch.zeros(2, 40, d)
             refused = _refusal(coattn._plain_k_checks, q, k, values=values)
@@ -157,16 +157,24 @@ CASES = [
     # F1: cross-attention of 6 queries over 100 keys in 8 heads of width 32
     ("f1-6q-width32", 256, 8, False, 6, 100, False, "attention_core", False),
     ("6q-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
-    # F2: NaCAGaT with 12 signature groups; NaCAGaT big (E = F = 512): its
-    # eval and training forms on the fuse-K kernels
-    ("f2-nacagat-12-groups", 256, 1, True, 12, 100, False, "attention_core", False),
-    ("f2-nacagat-12-groups-ssq", 256, 1, True, 12, 100, "ssq", "attention_core", False),
+    # F2: NaCAGaT with 12 signature groups (past the fuse-K kernels' 8: the
+    # plain-K kernels' slab instances); NaCAGaT big (E = F = 512): its eval
+    # and training forms on the fuse-K kernels
+    ("f2-nacagat-12-groups", 256, 1, True, 12, 100, False, "fused_attention", True),
+    ("f2-nacagat-12-groups-ssq", 256, 1, True, 12, 100, "ssq", "fused_attention", True),
     ("f2-nacagat-big", 512, 1, True, 6, 100, False, "fused_attention_leank", True),
     ("f2-nacagat-big-ssq", 512, 1, True, 6, 100, "ssq", "fused_attention_leank", True),
     ("nacagat-medium", 256, 1, True, 6, 100, False, "fused_attention_leank", True),
-    # F3: the map requested for 12 queries
-    ("f3-weights-12q", 256, 1, True, 12, 100, True, "attention_with_weights", False),
+    # F3: the map requested for 12 queries (the export passes' slab instances)
+    ("f3-weights-12q", 256, 1, True, 12, 100, True, "attention_with_weights", True),
     ("weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
+    # the JAX kernels' range of signature groups, 1..256, and one past it
+    ("nacagat-33-groups", 256, 1, True, 33, 100, False, "fused_attention", True),
+    ("mcat-256-groups", 256, 1, False, 256, 100, False, "fused_attention", True),
+    ("nacagat-256-groups-ssq", 256, 1, True, 256, 100, "ssq", "fused_attention", True),
+    ("weights-256q", 256, 1, True, 256, 100, True, "attention_with_weights", True),
+    ("mcat-257-groups", 256, 1, False, 257, 100, False, "attention_core", False),
+    ("weights-257q", 256, 1, True, 257, 100, True, "attention_with_weights", False),
     # F4: self-attention at head widths with and without a flash instance
     ("f4-width8", 16, 2, False, None, 64, False, "attention_core", False),
     ("f4-width2", 16, 8, False, None, 64, False, "attention_core", False),
@@ -198,7 +206,7 @@ def test_routes_follow_the_predicates_and_match_jax(case, monkeypatch):
     # the predicate that decided
     d = e // heads
     if route in ("fused_attention", "attention_with_weights") or (
-            route == "attention_core" and n is not None and heads > 1):
+            route == "attention_core" and n is not None and (heads > 1 or n > 256)):
         assert coattn.plain_k_supports(n, d, m_len, values=route != "attention_with_weights") \
             == kernel
     if n is None:
@@ -348,6 +356,9 @@ BF16_CASES = [
     # off the lean routes: the plain-K pair with values, its bfloat16 instance
     ("bf16-lean-false-width256-8heads", 2048, 8, False, 6, 100, False, "fused_attention", True),
     ("bf16-weights-6q", 256, 1, True, 6, 100, True, "attention_with_weights", True),
+    # 50 signature groups (a Hallmark-sized signature file): the slab instances
+    ("bf16-mcat-50-groups", 256, 1, False, 50, 100, False, "fused_attention", True),
+    ("bf16-weights-50q", 256, 1, True, 50, 100, True, "attention_with_weights", True),
     ("bf16-weights-d512", 512, 1, True, 6, 100, True, "attention_with_weights", True),
     # GE's self-attentions: the flash kernels' bfloat16 instances, every size
     ("bf16-ge-width256", 256, 1, False, None, 64, False, "flash_attention", True),
@@ -502,6 +513,23 @@ def test_bf16_shapes_without_an_instance_raise_on_the_card(case):
     # more queries than any kernel takes: the plain route in both types, no refusal
     assert not takes("k", coattn.fused_k_supports, "cuda", 9, 256, 256, 100, train=True,
                      dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [9, 12, 33, 50, 256, 257])
+def test_bf16_query_counts_never_raise_on_the_card(n):
+    """``kernels.takes`` never raises for a bfloat16 query count that the
+    float32 plain-K kernels take: the bfloat16 slab instances cover the same
+    1..256, at every width, with values and for the export passes; 257 takes
+    the plain route in both types, on the card and on the CPU."""
+    from multimodal_path_omic_tpu_torch.ops.kernels import takes
+
+    for d in (128, 256, 512):
+        for values in (True, False):
+            for device in ("cuda", "cpu"):
+                took = takes("plain-K", coattn.plain_k_supports, device, n, d, 100,
+                             values=values, dtype=torch.bfloat16)
+                assert took == (n <= coattn.MAX_PLAIN_QUERIES)
+                assert took == coattn.plain_k_supports(n, d, 100, values=values)
 
 
 # the plain-K pair with values off the lean routes (``lean=False``), once
