@@ -6836,8 +6836,8 @@ def phase30_mesh_settings(dev) -> dict:
 
 
 # Phase 31: the plain-K kernels past eight queries, the JAX kernels' range of
-# signature groups (the slab instances: csrc/coattn.cu "Past eight queries",
-# csrc/coattn_bwd_many.cu; a Hallmark-sized signature file has 50 groups).
+# signature groups (the slab instances: csrc/coattn_many.cu, csrc/coattn_bwd_many.cu;
+# a Hallmark-sized signature file has 50 groups).
 # (a) The forward with values (eval and training forms), its backward and
 # the two export passes against their plain versions at P31_B bags of N in
 # P31_NS queries, D in P31_DS, in both types, with and without the pre-gate,
@@ -6856,8 +6856,10 @@ def phase30_mesh_settings(dev) -> dict:
 # timed on, as in (a); then CUDA-event times of each kernel, its plain
 # version, the attention_core route it replaces (the map for the export
 # passes; autograd's backward for the backward) and, without the pre-gate,
-# scaled_dot_product_attention; the byte bound and the float32-FMA bound of
-# each. (c) The entry points at full width (medium) on
+# scaled_dot_product_attention; the byte bound, the operations bound (the
+# forward with values and its backward on the tensor cores: 3xTF32, in
+# bfloat16 bf16 and 2xTF32 products; the export passes float32 FMA) and the
+# float32-FMA bound of each. (c) The entry points at full width (medium) on
 # a P31_GROUPS-group synthetic cohort: Trainer.fit of NaCAGaT cesar and
 # MCAT ces host-fed and cached (graphed, bit for bit) and NaCAGaT cesar in
 # bfloat16 cached, each epoch's co-attention launches held to the
@@ -7027,33 +7029,46 @@ def p31_kernel_checks(dev, errs) -> None:
 
 
 def p31_bounds(name, mask, n, d, pre_gate, esize=4) -> tuple:
-    """((bytes ms, operations ms), the larger's name) of a slab kernel at
-    this run's inputs: each input read once and each output written once,
-    the k rows over the keys needed (the valid keys; the forms with values
-    every key of a bag without one, the export passes none) and v alike; the
-    products over the same keys, a multiply-add as 2 operations: q.k, the
-    gate with the pre-gate, p.v (forward); q.k, the gate, dO.v, dv and two
-    terms each of dq and dk with the pre-gate, one each without (backward);
-    q.k and the gate (export passes). Operations at the float32 FMA rate, or
-    in bfloat16 at the bfloat16 tensor-core rate (the rows' convention)."""
+    """((bytes ms, operations ms, float32-FMA ms), the larger of the first
+    two's name) of a slab kernel at this run's inputs: each input read once
+    and each output written once, the k rows over the keys needed (the valid
+    keys; the forms with values every key of a bag without one, the export
+    passes none) and v alike; the products over the same keys, a
+    multiply-add as 2 operations: q.k, the gate with the pre-gate, p.v
+    (forward); q.k, the gate, dO.v, dv and two terms each of dq and dk with
+    the pre-gate, one each without (backward); q.k and the gate (export
+    passes). The operations bound of the forward with values and its
+    backward (on the tensor cores): float32 3xTF32, three TF32 products
+    each at 495 TFLOP/s; bfloat16 the products of two bfloat16 operands
+    (q.k, the gate, dO.v) at 989 TFLOP/s and those of a float32 operand
+    (p.v; dv, dq, dk) as the two TF32 products that keep it at float32
+    accuracy. The export passes' (CUDA cores): float32 FMA at 67 TFLOP/s,
+    in bfloat16 every product at the bfloat16 rate. The float32-FMA time
+    of every product rides beside."""
     b, m_len = mask.shape
     valid, filled = int(mask.sum()), valid_keys(mask)
     per = 2 if pre_gate else 1
     if name.startswith("coattn_plain_bwd"):  # + dout, l, m, di, dssq, dsumw; out: dq, dk, dv
         nbytes = esize * (3 * b * n * d + 2 * valid * d + 2 * b * m_len * d) + 4 * 5 * b * n \
             + b * m_len
-        ops = 2 * n * valid * d * (8 if pre_gate else 5)
+        scores, values = 2 * n * valid * d * (per + 1), 2 * n * valid * d * (2 * per + 1)
     elif name.startswith("coattn_plain"):  # in: q, k, v, mask; out: o, l, m
         nbytes = esize * (2 * b * n * d + (valid + filled) * d) + 4 * 2 * b * n + b * m_len
-        ops = 2 * n * d * (per * valid + filled)
+        scores, values = 2 * n * d * per * valid, 2 * n * d * filled
     else:  # export: q, k (valid keys), mask; l, m out (stats) or in, and w out (weights)
         nbytes = esize * (b * n * d + valid * d) + 4 * 2 * b * n + b * m_len
         if name.startswith("coattn_weights"):
             nbytes += 4 * b * n * m_len
-        ops = 2 * per * n * valid * d
+        scores, values = 2 * per * n * valid * d, 0
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / (PEAK_BF16_FLOP_PER_S if esize == 2 else PEAK_F32_FLOP_PER_S) * 1e3
-    return (t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_fma = (scores + values) / PEAK_F32_FLOP_PER_S * 1e3
+    if not name.startswith("coattn_plain"):
+        t_ops = ((scores / PEAK_BF16_FLOP_PER_S * 1e3) if esize == 2 else t_fma)
+    elif esize == 2:
+        t_ops = (scores / PEAK_BF16_FLOP_PER_S + 2 * values / PEAK_TF32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = 3 * (scores + values) / PEAK_TF32_FLOP_PER_S * 1e3
+    return (t_bytes, t_ops, t_fma), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def p31_timings(dev, errs, power) -> list:
@@ -7134,23 +7149,28 @@ def p31_timings(dev, errs, power) -> list:
                 del leaves, lib_out
             del q4, k4, v4
             for name in names:
-                (tb, to), by = p31_bounds(name, mask, n, d, pre_gate, 2 if kind == "bf16" else 4)
+                (tb, to, tf), by = p31_bounds(name, mask, n, d, pre_gate,
+                                              2 if kind == "bf16" else 4)
+                tc = name.startswith("coattn_plain")  # the tensor-core pair
+                rate = (("3xTF32" if kind == "f32" else "bf16 and 2xTF32") if tc else
+                        ("bf16 rate" if kind == "bf16" else "float32 FMA"))
                 log(f"phase 31 (b): {name} {kind} B={B} N={n} M={TRAIN_M} D={d} "
                     f"pre_gate={pre_gate}: kernel {t[name]:.4f} ms, plain "
                     f"{t['plain ' + name]:.4f} ms, the attention_core route "
                     + (f"{t['route ' + name]:.4f} ms ({t['route ' + name] / t[name]:.2f}x)"
                        if 'route ' + name in t else "(the map's, above)")
-                    + (f", scaled_dot_product_attention {t['sdpa ' + name]:.4f} ms"
-                       if "sdpa " + name in t else "")
-                    + f"; bounds {tb:.4f} ms bytes, {to:.4f} ms float32 FMA"
-                    f"{' (bf16 rate)' if kind == 'bf16' else ''}: {by}, "
-                    f"{max(tb, to) / t[name]:.3f} reached ({power})")
+                    + (f", scaled_dot_product_attention {t['sdpa ' + name]:.4f} ms "
+                       f"({t['sdpa ' + name] / t[name]:.2f}x)" if "sdpa " + name in t else "")
+                    + f"; bounds {tb:.4f} ms bytes, {to:.4f} ms {rate}"
+                    + (f", {tf:.4f} ms float32 FMA" if tc else "")
+                    + f": {by}, {max(tb, to) / t[name]:.3f} reached ({power})")
             t_all[pre_gate] = t
         if n == 50 and d == 256:
             for i, name in enumerate(names):
                 pre_gate = i >= 2  # the export rows: NaCAGaT cesar's pre-gated passes
                 t = t_all[pre_gate]
-                (tb, to), by = p31_bounds(name, mask, n, d, pre_gate, 2 if kind == "bf16" else 4)
+                (tb, to, _), by = p31_bounds(name, mask, n, d, pre_gate,
+                                             2 if kind == "bf16" else 4)
                 rows.append({
                     "name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": 0, "max_abs_err": errs[name],

@@ -752,9 +752,9 @@ int mpo_coattn_plain_fwd(const float* q, const float* k, const float* v,
                          float* sq_part, uint8_t* flags, int* list, int* off, int B, int N,
                          int M, int D, int pre_gate, int max_blocks, int train, float scale,
                          uint32_t thresh, float keep_scale, uint32_t bag0, void* stream) {
-  return plain_fwd<float, false>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part,
-                                 sq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
-                                 train, scale, thresh, keep_scale, bag0, stream);
+  return plain_fwd<float>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part, sq_part,
+                          flags, list, off, B, N, M, D, pre_gate, max_blocks, train, scale,
+                          thresh, keep_scale, bag0, stream);
 }
 
 // The bfloat16 instances: q, k, v and o bfloat16, everything else as above.
@@ -765,10 +765,9 @@ int mpo_coattn_plain_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               int* list, int* off, int B, int N, int M, int D, int pre_gate,
                               int max_blocks, int train, float scale, uint32_t thresh,
                               float keep_scale, uint32_t bag0, void* stream) {
-  return plain_fwd<__nv_bfloat16, false>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,
-                                         ml_part, sq_part, flags, list, off, B, N, M, D,
-                                         pre_gate, max_blocks, train, scale, thresh,
-                                         keep_scale, bag0, stream);
+  return plain_fwd<__nv_bfloat16>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part, ml_part,
+                                  sq_part, flags, list, off, B, N, M, D, pre_gate, max_blocks,
+                                  train, scale, thresh, keep_scale, bag0, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,7 @@ namespace mpo {
 
 constexpr float NEG = -0.7f * 3.4e38f;  // finite mask value (coattn.py NEG)
 constexpr int NMAX = 8;                  // queries a pass holds, one warp each (a slab)
-constexpr int NQ_MAX = 256;              // queries the plain-K kernels take, in slabs of NMAX
+constexpr int NQ_MAX = 256;              // queries the plain-K kernels take (plain_k_tiles.cuh)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int FK_BM = 64;                // keys per fuse-K tile

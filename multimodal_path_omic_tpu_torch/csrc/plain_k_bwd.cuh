@@ -1,8 +1,9 @@
 // Shared by csrc/coattn_bwd.cu (the plain-K backward at up to eight queries,
-// and the fuse-K backward's reduce) and csrc/coattn_bwd_many.cu (the plain-K
-// backward past eight queries): the fixed-order partial reduce and the
-// plain-K backward's main kernel. The kernels are templates: each source
-// builds its own library with its own instances.
+// and the fuse-K backward's reduce) and csrc/coattn_bwd_many.cu (the reduce
+// of plain_k_tiles.cuh's backward past eight queries): the fixed-order
+// partial reduce and the plain-K backward's main kernel at up to eight
+// queries. The kernels are templates: each source builds its own library
+// with its own instances.
 #pragma once
 
 #include "plain_k_common.cuh"
@@ -186,13 +187,9 @@ __device__ __forceinline__ void pk_bwd_scores(PkBwdSmem<D, T>& S, const T* __res
 
 // Thread tid owns columns col + DC c (c < CPT) of the keys grp + QG x: at
 // D = 128 one column of every other key (two column groups), at D = 256 one
-// column of every key, at D = 512 two (tid, tid + 256).
-// KV: up to NMAX queries, one slab (gridDim.y 1): dk and dv written, and
-// dq's partials. !KV: the dq pass past NMAX queries (csrc/coattn_bwd_many.cu):
-// block (g, y) takes query slab y (queries 8y .. 8y + 7) over block g's share
-// of the tiles, writes that slab's dq partials at index g + b and nothing of
-// dk or dv (plain_bwd_kv_kernel's), over gridDim.x blocks a slab.
-template <int D, bool PG, typename T, bool KV = true>
+// column of every key, at D = 512 two (tid, tid + 256). Up to NMAX
+// queries: dk and dv written, and dq's partials.
+template <int D, bool PG, typename T>
 __global__ void __launch_bounds__(THREADS, D < 512 ? 2 : 1)
 plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -213,8 +210,7 @@ plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   S_& S = *reinterpret_cast<S_*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int col = tid % DC, grp = tid / DC;
-  // the query slab (!KV: blockIdx.y's eight queries; KV: every query, N <= NMAX)
-  const int n0 = KV ? 0 : (int)blockIdx.y * NMAX, NS = KV ? N : min(NMAX, N - n0);
+  const int n0 = 0, NS = N;  // every query, N <= NMAX
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   const int per = units_per_block(off, B, gridDim.x);
   const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
@@ -306,7 +302,7 @@ plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int n = 0; n < NMAX; ++n) {
           qc[n] = S.q[n][cc];
           tqc[n] = PG ? S.tq[n][cc] : 0.f;
-          oc[n] = KV ? S.dout[n][cc] : 0.f;
+          oc[n] = S.dout[n][cc];
         }
 #pragma unroll 4
         for (int x = 0; x < RPT; ++x) {
@@ -314,31 +310,27 @@ plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (key >= M) break;
           float da[NMAX], du[NMAX], pd[NMAX];
           load8(&S.da[r][0], da);
-          if constexpr (KV) load8(&S.pd[r][0], pd);
+          load8(&S.pd[r][0], pd);
           if constexpr (PG) load8(&S.du[r][0], du);
           const float kr = to_f32(slot[r * D + cc]), tkr = PG ? S.tk[r][cc] : 0.f;
           float ka = 0.f, ku = 0.f, vv = 0.f;
 #pragma unroll
           for (int n = 0; n < NMAX; ++n) {
             if (n < NS) {
-              if constexpr (KV) {
-                ka = fmaf(da[n], qc[n], ka);
-                vv = fmaf(pd[n], oc[n], vv);
-              }
+              ka = fmaf(da[n], qc[n], ka);
+              vv = fmaf(pd[n], oc[n], vv);
               qa[c][n] = fmaf(da[n], kr, qa[c][n]);
               if constexpr (PG) {
-                if constexpr (KV) ku = fmaf(du[n], tqc[n], ku);
+                ku = fmaf(du[n], tqc[n], ku);
                 qu[c][n] = fmaf(du[n], tkr, qu[c][n]);
               }
             }
           }
-          if constexpr (KV) {
-            float dkr = scale * ka;
-            if constexpr (PG) dkr = fmaf(1.f - tkr * tkr, ku, dkr);
-            const size_t o = ((size_t)b * M + key) * D + cc;
-            store1(dk + o, dkr);
-            store1(dv + o, vv);
-          }
+          float dkr = scale * ka;
+          if constexpr (PG) dkr = fmaf(1.f - tkr * tkr, ku, dkr);
+          const size_t o = ((size_t)b * M + key) * D + cc;
+          store1(dk + o, dkr);
+          store1(dv + o, vv);
         }
       }
       // S.tk, S.da, S.du, S.pd and this slot are rewritten after the next barrier
@@ -347,123 +339,6 @@ plain_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
   __syncthreads();  // the last sub-step's dk loop has read S.tk before the flush merges there
   if (b >= 0) flush();
-}
-
-// The dk, dv pass past NMAX queries (csrc/coattn_bwd_many.cu), key-tile
-// major: the blocks resident at once, each an even share of the listed
-// tiles in sub-steps of 16 keys through the ring, as plain_bwd_kernel. Per
-// sub-step the queries go in slabs of NMAX: a slab's q, tanh(q), dout and
-// statistics into shared memory (from L2: a bag's rows serve all of its
-// tiles), its scores against the sub-step's keys (pk_bwd_scores; tanh(k)
-// stored at the first slab), then its dk and dv terms added in registers,
-// thread tid the columns col + DC c of the keys grp + QG x as above; dk and
-// dv are written once, after the last slab. Slabs in order, sums in fixed
-// order, no atomics.
-template <int D, bool PG, typename T>
-__global__ void __launch_bounds__(THREADS, D < 512 ? 2 : 1)
-plain_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                    const int* __restrict__ list, const int* __restrict__ off,
-                    const int* __restrict__ seed_ptr, uint32_t thresh, float keep_scale,
-                    uint32_t bag0, const T* __restrict__ dout, const float* __restrict__ l,
-                    const float* __restrict__ m, const float* __restrict__ di,
-                    const float* __restrict__ dssq, const float* __restrict__ dsumw,
-                    T* __restrict__ dk, T* __restrict__ dv, int B, int N, int M, float scale) {
-  using S_ = PkBwdSmem<D, T>;
-  constexpr int NSLOT = S_::NSLOT;
-  constexpr int CPT = D > THREADS ? D / THREADS : 1;
-  constexpr int DC = D / CPT;
-  constexpr int QG = THREADS / DC, RPT = PK_KEYS / QG;
-  extern __shared__ float4 smem4[];
-  S_& S = *reinterpret_cast<S_*>(smem4);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col = tid % DC, grp = tid / DC;
-  const int n_tiles = (M + FK_BM - 1) / FK_BM;
-  const int per = units_per_block(off, B, gridDim.x);
-  const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
-  const uint32_t seed = (uint32_t)seed_ptr[0];
-
-  PkCursor cur{i0, 0};
-#pragma unroll
-  for (int s = 0; s < NSLOT - 1; ++s) {
-    pk_issue<D, T>(S.ring[s], k, v, list, n_tiles, M, i1, cur);
-    cp_async_commit();
-  }
-
-  int s = 0;  // the block's sub-step
-  for (int i = i0; i < i1; ++i) {
-    const int u = list[i], b = u / n_tiles, t = u % n_tiles, subs = pk_subs(t, M);
-    for (int j = 0; j < subs; ++j, ++s) {
-      cp_async_wait<NSLOT - 2>();
-      __syncthreads();  // sub-step s landed; the slot of s - 1 and the slab rows are free
-      pk_issue<D, T>(S.ring[(s + NSLOT - 1) % NSLOT], k, v, list, n_tiles, M, i1, cur);
-      cp_async_commit();
-      const T* slot = S.ring[s % NSLOT];
-      const int r0 = t * FK_BM + j * PK_KEYS;  // the sub-step's first key
-      float gk[RPT][CPT], gv[RPT][CPT];        // dk, dv of this thread's keys and columns
-#pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) gk[x][c] = gv[x][c] = 0.f;
-      }
-      for (int n0 = 0; n0 < N; n0 += NMAX) {
-        const int ns = min(NMAX, N - n0);
-        if (n0 > 0) __syncthreads();  // the last slab's terms have read its rows
-        pk_bwd_load_slab<D, PG, T>(S, q, dout, l, m, di, dssq, dsumw, b, N, n0, ns);
-        __syncthreads();
-        pk_bwd_scores<D, PG, T>(S, slot, PG && n0 == 0 ? &S.tk[0][0] : nullptr, mask, b, M, r0,
-                                n0, ns, seed, thresh, keep_scale, bag0, scale, warp, lane);
-        __syncthreads();
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int cc = col + DC * c;
-          float qc[NMAX], tqc[NMAX], oc[NMAX];
-#pragma unroll
-          for (int n = 0; n < NMAX; ++n) {
-            qc[n] = S.q[n][cc];
-            tqc[n] = PG ? S.tq[n][cc] : 0.f;
-            oc[n] = S.dout[n][cc];
-          }
-#pragma unroll
-          for (int x = 0; x < RPT; ++x) {
-            const int r = grp + QG * x;
-            float da[NMAX], du[NMAX], pd[NMAX];
-            load8(&S.da[r][0], da);
-            load8(&S.pd[r][0], pd);
-            if constexpr (PG) load8(&S.du[r][0], du);
-            const float tkr = PG ? S.tk[r][cc] : 0.f;
-            float ka = 0.f, ku = 0.f, vv = 0.f;
-#pragma unroll
-            for (int n = 0; n < NMAX; ++n) {
-              if (n < ns) {
-                ka = fmaf(da[n], qc[n], ka);
-                vv = fmaf(pd[n], oc[n], vv);
-                if constexpr (PG) ku = fmaf(du[n], tqc[n], ku);
-              }
-            }
-            float g = scale * ka;
-            if constexpr (PG) g = fmaf(1.f - tkr * tkr, ku, g);
-            gk[x][c] += g;
-            gv[x][c] += vv;
-          }
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int key = r0 + grp + QG * x;
-        if (key < M) {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            const size_t o = ((size_t)b * M + key) * D + col + DC * c;
-            store1(dk + o, gk[x][c]);
-            store1(dv + o, gv[x][c]);
-          }
-        }
-      }
-      // the slot, S.tk and the slab rows are rewritten after the next sub-step's barrier
-    }
-  }
-  cp_async_wait<0>();
 }
 
 }  // namespace mpo

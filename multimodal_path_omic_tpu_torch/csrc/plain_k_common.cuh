@@ -187,11 +187,12 @@ __device__ __forceinline__ float pk_score(float a, float g, float scale) {
   return PG ? s * (g + 1.f) * 0.5f : s;
 }
 
-// The main pass's grid: the blocks of `kernel` (THREADS threads, `smem`
+// The main pass's grid: the blocks of `kernel` (`threads` threads, `smem`
 // bytes of dynamic shared memory) resident at once on this device, at most
 // max_blocks; found once per (instance, device).
 template <typename Kernel>
-int resident_blocks(Kernel kernel, int smem, int max_blocks, int (&cache)[64], int* blocks) {
+int resident_blocks(Kernel kernel, int smem, int max_blocks, int (&cache)[64], int* blocks,
+                    int threads = THREADS) {
   int device = 0;
   int err = (int)cudaGetDevice(&device);
   if (err) return err;
@@ -200,7 +201,7 @@ int resident_blocks(Kernel kernel, int smem, int max_blocks, int (&cache)[64], i
     int sms = 0, per_sm = 0;
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err) return err;
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err) return err;
     n = sms * (per_sm > 0 ? per_sm : 1);
     if (device < 64) cache[device] = n;

@@ -1,6 +1,7 @@
 // Shared by csrc/coattn.cu (the instances at up to eight queries, and the
-// fuse-K forward's merge) and csrc/coattn_many.cu (the instances past eight
-// queries, SLABS): the plain-K forward with values, the export passes,
+// fuse-K forward's merge) and csrc/coattn_many.cu (the export passes past
+// eight queries, SLABS, and the merge of plain_k_tiles.cuh's forward): the
+// plain-K forward with values at up to eight queries, the export passes,
 // their launches and the fixed-order merge of partials. The design notes
 // are csrc/coattn.cu's. The kernels are templates: each source builds its
 // own library with its own instances.
@@ -118,10 +119,8 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_pa
 // dropout_bits >= thresh; thresh 0: no dropout). Thread tid owns o columns
 // col + DC c (c < CPT) of the queries n = grp + QG j: at D <= 256 one column
 // (col = tid % D) of queries tid / D + QG j, at D = 512 two columns (tid,
-// tid + 256) of every query. SLABS (the instances past NMAX queries,
-// csrc/coattn_many.cu): block (g, y) takes query slab y (queries 8y .. 8y +
-// 7) over block g's share, gridDim.x blocks a slab (csrc/coattn.cu's design
-// notes: "Past eight queries").
+// tid + 256) of every query. Past NMAX queries the forward with values is
+// plain_k_tiles.cuh's tile_fwd_kernel.
 template <int D, typename T>
 struct PkFwdSmem {
   static constexpr int SLOT = 2 * PK_KEYS * D;  // k rows, then v rows (values of T)
@@ -137,7 +136,7 @@ struct PkFwdSmem {
   float alpha[NMAX];
 };
 
-template <int D, bool PG, bool TRAIN, typename T, bool SLABS>
+template <int D, bool PG, bool TRAIN, typename T>
 __global__ void __launch_bounds__(THREADS)
 plain_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -155,8 +154,7 @@ plain_kernel(const T* __restrict__ q, const T* __restrict__ k,
   S_& S = *reinterpret_cast<S_*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int col = tid % DC, grp = tid / DC;
-  // the query slab (SLABS: blockIdx.y's eight queries; else every query, N <= NMAX)
-  const int n0 = SLABS ? (int)blockIdx.y * NMAX : 0, NS = SLABS ? min(NMAX, N - n0) : N;
+  const int n0 = 0, NS = N;  // every query, N <= NMAX
   const int n_tiles = (M + FK_BM - 1) / FK_BM;
   const int per = units_per_block(off, B, gridDim.x);
   const int i0 = min(off[B], (int)blockIdx.x * per), i1 = min(off[B], i0 + per);
@@ -676,7 +674,7 @@ int launch_weights(const T* q, const T* k, const uint8_t* mask, const float* l,
 
 // The plain-K forward's launches: the tile flags and list, plain_kernel over
 // the blocks resident at once (at most max_blocks), combine_kernel (o in T).
-template <int D, bool PG, bool TRAIN, typename T, bool SLABS>
+template <int D, bool PG, bool TRAIN, typename T>
 int launch_plain(const T* q, const T* k, const T* v, const uint8_t* mask,
                  const int* seed, T* o, float* l, float* m, float* ssq, float* sumw,
                  float* o_part, float* ml_part, float* sq_part, uint8_t* flags, int* list,
@@ -686,42 +684,40 @@ int launch_plain(const T* q, const T* k, const T* v, const uint8_t* mask,
   static int resident[64] = {};
   constexpr int smem = (int)sizeof(PkFwdSmem<D, T>);
   static_assert(smem <= 232448, "shared memory of one block");
-  int err = allow_dynamic_smem(plain_kernel<D, PG, TRAIN, T, SLABS>, smem, allowed);
+  int err = allow_dynamic_smem(plain_kernel<D, PG, TRAIN, T>, smem, allowed);
   if (err) return err;
   int blocks = 0;
-  err = resident_blocks(plain_kernel<D, PG, TRAIN, T, SLABS>, smem, max_blocks, resident, &blocks);
+  err = resident_blocks(plain_kernel<D, PG, TRAIN, T>, smem, max_blocks, resident, &blocks);
   if (err) return err;
   launch_tile_list(mask, nullptr, nullptr, flags, list, off, B, M, 0, st);
-  const int slabs = SLABS ? (N + NMAX - 1) / NMAX : 1, per_slab = max(1, blocks / slabs);
-  plain_kernel<D, PG, TRAIN, T, SLABS><<<dim3(per_slab, slabs), THREADS, smem, st>>>(
+  plain_kernel<D, PG, TRAIN, T><<<blocks, THREADS, smem, st>>>(
       q, k, v, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, bag0, B, N, M,
       scale);
   err = (int)cudaGetLastError();
   if (err) return err;
   combine_kernel<T><<<dim3(B, N), THREADS, 0, st>>>(o_part, ml_part, TRAIN ? sq_part : nullptr, o,
-                                                 l, m, ssq, TRAIN ? sumw : nullptr, N, D,
-                                                 per_slab, off);
+                                                 l, m, ssq, TRAIN ? sumw : nullptr, N, D, blocks,
+                                                 off);
   return (int)cudaGetLastError();
 }
 
-// The entry points of the plain-K forward: D in {128, 256, 512}, with or
-// without the pre-gate, eval or training form; SLABS: 9 <= N <= NQ_MAX
-// queries (csrc/coattn_many.cu), else N <= NMAX (csrc/coattn.cu).
-template <typename T, bool SLABS>
+// The entry points of the plain-K forward at N <= NMAX queries
+// (csrc/coattn.cu): D in {128, 256, 512}, with or without the pre-gate, eval
+// or training form.
+template <typename T>
 int plain_fwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int* seed, T* o,
               float* l, float* m, float* ssq, float* sumw, float* o_part, float* ml_part,
               float* sq_part, uint8_t* flags, int* list, int* off, int B, int N, int M, int D,
               int pre_gate, int max_blocks, int train, float scale, uint32_t thresh,
               float keep_scale, uint32_t bag0, void* stream) {
-  if (!queries_taken<SLABS>(N) || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
+  if (!queries_taken<false>(N) || M < 1 || B < 1 || max_blocks < 1 || max_blocks > MAX_PARTS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MPO_PLAIN(D_, PG_, TRAIN_)                                                           \
   if (D == D_ && (pre_gate != 0) == PG_ && (train != 0) == TRAIN_)                           \
-    return launch_plain<D_, PG_, TRAIN_, T, SLABS>(q, k, v, mask, seed, o, l, m, ssq, sumw,   \
-                                                   o_part, ml_part, sq_part, flags, list, off, \
-                                                   B, N, M, max_blocks, scale, thresh,        \
-                                                   keep_scale, bag0, st);
+    return launch_plain<D_, PG_, TRAIN_, T>(q, k, v, mask, seed, o, l, m, ssq, sumw, o_part,   \
+                                            ml_part, sq_part, flags, list, off, B, N, M,       \
+                                            max_blocks, scale, thresh, keep_scale, bag0, st);
 #define MPO_PLAIN_D(D_)                                                                      \
   MPO_PLAIN(D_, false, false) MPO_PLAIN(D_, true, false) MPO_PLAIN(D_, false, true)          \
   MPO_PLAIN(D_, true, true)

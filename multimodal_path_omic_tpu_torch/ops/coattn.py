@@ -32,11 +32,13 @@ kernels of the NaCAGaT and MCAT serving and training paths:
 The fuse-K kernels take up to ``MAX_QUERIES`` = 8 queries; the plain-K
 kernels (the forward with values, its backward, the export passes) take the
 JAX kernels' full range, up to ``MAX_PLAIN_QUERIES`` = 256 (signature groups:
-a Hallmark-sized signature file has 50), past eight in slabs of eight
-queries a block (csrc/coattn_many.cu, csrc/coattn_bwd_many.cu; the design in
-csrc/coattn.cu's "Past eight queries"), counted apart as ``coattn_plain_slabs``,
-``coattn_plain_bwd_slabs``, ``coattn_stats_slabs`` and
-``coattn_weights_slabs`` (``_bf16`` in bfloat16).
+a Hallmark-sized signature file has 50). Past eight queries the forward with
+values and its backward run in query tiles of 16..64 queries a block with
+every product on the tensor cores (csrc/plain_k_tiles.cuh; the design in
+csrc/coattn_many.cu and csrc/coattn_bwd_many.cu), the export passes in slabs
+of eight queries a block (csrc/coattn.cu's "Past eight queries"); all four
+count apart as ``coattn_plain_slabs``, ``coattn_plain_bwd_slabs``,
+``coattn_stats_slabs`` and ``coattn_weights_slabs`` (``_bf16`` in bfloat16).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises on what the
 kernel does not take) and uses the plain version only for a CPU tensor. What
@@ -99,7 +101,7 @@ from multimodal_path_omic_tpu_torch.ops.layers import require_generator, round_b
 
 NEG = -0.7 * 3.4e38  # finite mask value of the TPU kernel
 MAX_QUERIES = 8  # the fuse-K kernels: one warp per query
-MAX_PLAIN_QUERIES = 256  # the plain-K kernels: slabs of 8 queries past 8 (csrc NQ_MAX)
+MAX_PLAIN_QUERIES = 256  # the plain-K kernels: query tiles or slabs past 8 (csrc NQ_MAX)
 FK_TILE = 64  # keys per fuse-K tile (csrc/coattn_common.cuh FK_BM)
 VALUES_D = (128, 256, 512)  # D the plain-K kernels with values take (every shipped width)
 # (E, F) the fuse-K training forward and backward take: their template
@@ -379,16 +381,45 @@ def _refuse(what: str, n: int, d: str, most: int = MAX_QUERIES) -> None:
 
 
 def _slabs(n: int) -> int:
-    """The query slabs of the plain-K kernels: one (the kernel at up to 8
+    """The query slabs of the export passes: one (the kernels at up to 8
     queries) or ceil(n / 8)."""
     return -(-n // MAX_QUERIES)
 
 
-def _slab_parts(blocks: int, n: int) -> int:
-    """Blocks a slab of the plain-K main passes, at most (the kernels run
-    max(1, resident // slabs) of the resident blocks, resident <= blocks):
-    the partial buffers hold this many plus B."""
-    return max(1, blocks // _slabs(n))
+# Queries a block of the forward with values and of its backward's dq pass
+# past eight queries, by (D, bfloat16): csrc/plain_k_tiles.cuh's QUERY_TILE
+# rows (what the forward's shared memory and the dq pass's registers hold).
+QUERY_TILE = {(128, False): 64, (256, False): 64, (512, False): 32,
+              (128, True): 64, (256, True): 64, (512, True): 32}
+
+
+def _query_tiles(n: int, d: int, dtype: torch.dtype) -> int:
+    """The query tiles of the forward with values and of its backward's dq
+    pass: one (the kernels at up to 8 queries) or ceil(n / QT)."""
+    if n <= MAX_QUERIES:
+        return 1
+    return -(-n // QUERY_TILE[(d, dtype == torch.bfloat16)])
+
+
+def _dq_scratch(blocks: int, b: int, n: int, d: int, m_len: int, dtype: torch.dtype,
+                pre_gate: bool) -> int:
+    """Floats of the plain-K backward's dq scratch: the dq partials
+    [_slab_parts + B, N, D]; past eight queries then the dk / dv pass's da
+    (and, with the pre-gate, du) for the dq pass, [B, M, S QT] each
+    (csrc/plain_k_tiles.cuh launch_tile_bwd)."""
+    tiles = _query_tiles(n, d, dtype)
+    floats = (_slab_parts(blocks, tiles) + b) * n * d
+    if n > MAX_QUERIES:
+        tile = QUERY_TILE[(d, dtype == torch.bfloat16)]
+        floats += (2 if pre_gate else 1) * b * m_len * tiles * tile
+    return floats
+
+
+def _slab_parts(blocks: int, tiles: int) -> int:
+    """Blocks a query tile (or slab) of the plain-K main passes, at most (the
+    kernels run max(1, resident // tiles) of the resident blocks, resident <=
+    blocks): the partial buffers hold this many plus B."""
+    return max(1, blocks // tiles)
 
 
 def _count(name: str, n: int, dtype: torch.dtype) -> None:
@@ -632,7 +663,7 @@ def _stats_on_card(q, k, key_mask, pre_gate):
     b, n, d, m_len, blocks, mask_ptr = _export_checks(q, k, key_mask)
     dev = q.device
     l, m = (torch.empty((b, n), device=dev) for _ in range(2))
-    ml_part = torch.empty((_slab_parts(blocks, n) + b, n, 2), device=dev)
+    ml_part = torch.empty((_slab_parts(blocks, _slabs(n)) + b, n, 2), device=dev)
     tiles = _tile_list(b, m_len, dev)
     err = _entry("coattn", "mpo_coattn_stats", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), mask_ptr, l.data_ptr(), m.data_ptr(), ml_part.data_ptr(),
@@ -724,7 +755,7 @@ def coattn_fwd_plain_k(
     dev = q.device
     thresh, keep_scale, seed_ptr = 0, 1.0, None
     ssq = sumw = sq_part = None
-    parts = _slab_parts(blocks, n) + b
+    parts = _slab_parts(blocks, _query_tiles(n, d, q.dtype)) + b
     if train:
         if seed is None:
             seed = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -774,7 +805,7 @@ def coattn_bwd_plain_k(
     dq = torch.empty((b, n, d), device=dev, dtype=q.dtype)
     # the tile pass writes the skipped tiles' dk and dv rows, the main pass the rest
     dk, dv = (torch.empty((b, m_len, d), device=dev, dtype=q.dtype) for _ in range(2))
-    dq_part = torch.empty((_slab_parts(blocks, n) + b, n, d), device=dev)
+    dq_part = torch.empty((_dq_scratch(blocks, b, n, d, m_len, q.dtype, pre_gate),), device=dev)
     flags, units, offsets = _tile_list(b, m_len, dev)
     err = _entry("coattn_bwd", "mpo_coattn_plain_bwd", n, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, seed.data_ptr(),

@@ -1,11 +1,15 @@
 """The plain-K co-attention past eight queries against the JAX package on the
 CPU. The JAX kernels take up to 256 queries (``kernel_eligible``: a grid
 step keeps the whole query block); the port's CUDA kernels take the same
-range, past eight in slabs of eight queries a block. On the CPU the wrappers
-run the plain versions, which the card's slab instances are held to in
+range, past eight the forward with values and its backward in query tiles
+of 16..64 queries a block, the export passes in slabs of eight. On the CPU
+the wrappers run the plain versions, which the card's slab instances are held to in
 ``chip_smoke.py`` phase 31; these tests hold those plain versions to the
 Pallas kernels in interpret mode at N in {9, 40} signature groups (B = 2,
-D = 128, M <= 1024, the masks of ``test_torch_port_coattn_plain.py``):
+D = 128, M <= 1024, the masks of ``test_torch_port_coattn_plain.py``), and
+the forward and the VJP at the edges of the card's query tiles (16, 32 and
+64 queries a block: N = 15..17, 31..33, 63..65) over a short M = 77 that no
+key sub-step (8, 16, 32) divides:
 
 * ``_coattn_fwd_impl`` with values (o, l, m, ssq, sumw), with and without the
   pre-gate;
@@ -30,6 +34,9 @@ gradients 3e-2); the models 5e-5 absolute (``test_torch_port_mcat.py``).
 The pre-gate alternates with the mask in the VJP and weights cases, so each
 N meets both forms.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -67,6 +74,16 @@ MASK_CASES = [pytest.param(*p.values[:2], id=p.id) for p in MASKS]
 # (N, M, mask, pre-gate): every mask at both N, the gate alternating
 TURNING = [pytest.param(n, *p.values[:2], (i + j) % 2 == 1, id=f"n{n}-{p.id}")
            for j, n in enumerate(N_VALUES) for i, p in enumerate(MASKS)]
+# the query tiles' edges (csrc/plain_k_tiles.cuh FWD_QT, DQ_QT), M = 77: the
+# masks cycle (keys 64..76 of bag 0 masked; bag 1 without a valid key; every
+# key valid), the pre-gate alternates
+EDGE_M = 77
+EDGES = [pytest.param(n, EDGE_M, ("holes", "no-valid-key", "ragged-m")[i % 3], i % 2 == 1,
+                      id=f"edge-n{n}-m{EDGE_M}")
+         for i, n in enumerate((15, 16, 17, 31, 32, 33, 63, 64, 65))]
+FORWARD_CASES = [pytest.param(n, *p.values[:2], pg, id=f"{n}-{p.id}-{gid}")
+                 for n in N_VALUES for p in MASKS
+                 for pg, gid in ((False, "plain"), (True, "pre-gate"))] + EDGES
 GROUPS = tuple(4 + j % 5 for j in range(40))  # 40 signature groups
 WSI = 64
 
@@ -113,9 +130,53 @@ def test_the_kernels_take_the_jax_range():
     assert tcoattn._slabs(8) == 1 and tcoattn._slabs(9) == 2 and tcoattn._slabs(256) == 32
 
 
+def _cuda_rows(name):
+    """{(D, bfloat16): queries a block} from the rows {D, float32, bfloat16}
+    of the table ``name`` in csrc/plain_k_tiles.cuh."""
+    src = (Path(tcoattn.__file__).parents[1] / "csrc" / "plain_k_tiles.cuh").read_text()
+    body = re.search(rf"constexpr int {name}\[3\]\[3\] = \{{(.*?)\}};", src).group(1)
+    rows = [tuple(int(x) for x in r.split(",")) for r in re.findall(r"\{([^{}]*)\}", body)]
+    return {(d, bf): row[2 if bf else 1] for row in rows for d in (row[0],) for bf in (False, True)}
+
+
 @pytest.mark.parametrize("pre_gate", [False, True], ids=["plain", "pre-gate"])
-@pytest.mark.parametrize("m_len,case", MASK_CASES)
-@pytest.mark.parametrize("n", N_VALUES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [128, 256, 512])
+def test_query_tile_geometry(d, dtype, pre_gate):
+    """The wrapper's query tiles and buffers agree with the card's kernels:
+    the tile sizes are csrc/plain_k_tiles.cuh's (the partial buffers
+    [max(1, blocks // S) + B, N, *] hold what a grid (per_tile, S) writes
+    only if S is the kernels'); at N = QT - 1, QT, QT + 1 one, one and two
+    tiles, a block count per tile of blocks // S (at least 1); at most
+    eight queries one tile (the kernels at up to eight queries); the
+    backward's scratch the dq partials and, past eight queries, the dk / dv
+    pass's da (du with the pre-gate) over S QT queries; the export passes'
+    slabs of eight unchanged."""
+    bf = dtype == torch.bfloat16
+    assert tcoattn.QUERY_TILE == _cuda_rows("QUERY_TILE")
+    qt = tcoattn.QUERY_TILE[(d, bf)]
+    assert qt % 16 == 0 and 16 <= qt <= 64
+    blocks, b, m_len = 2 * 132, 32, 1077
+    for n, tiles in ((qt - 1, 1), (qt, 1), (qt + 1, 2), (256, -(-256 // qt))):
+        if n <= tcoattn.MAX_QUERIES:
+            continue
+        assert tcoattn._query_tiles(n, d, dtype) == tiles
+        parts = tcoattn._slab_parts(blocks, tiles) + b
+        assert parts == max(1, blocks // tiles) + b
+        # every block of the grid writes at most one partial a bag it visits,
+        # at index block + bag: per_tile = max(1, resident // tiles) <= parts - B
+        for resident in (132, 264):
+            assert max(1, resident // tiles) + b <= parts
+        got = tcoattn._dq_scratch(blocks, b, n, d, m_len, dtype, pre_gate)
+        assert got == parts * n * d + (1 + pre_gate) * b * m_len * tiles * qt
+    for n in (1, 8):
+        assert tcoattn._query_tiles(n, d, dtype) == 1
+        assert tcoattn._slab_parts(blocks, 1) == blocks
+        assert tcoattn._dq_scratch(blocks, b, n, d, m_len, dtype, pre_gate) == (blocks + b) * n * d
+    assert tcoattn._slab_parts(blocks, tcoattn._slabs(50)) == blocks // 7
+
+
+@pytest.mark.parametrize("n,m_len,case,pre_gate", FORWARD_CASES)
 def test_forward_with_values_matches_pallas(n, m_len, case, pre_gate):
     """o, l, m, ssq, sumw of the plain version and of the wrapper's CPU path
     (training form at rate 0; eval form o, l, m) against the forward Pallas
@@ -140,7 +201,7 @@ def test_forward_with_values_matches_pallas(n, m_len, case, pre_gate):
                                        rtol=L_RTOL if name == "l" else 0.0, err_msg=name)
 
 
-@pytest.mark.parametrize("n,m_len,case,pre_gate", TURNING)
+@pytest.mark.parametrize("n,m_len,case,pre_gate", TURNING + EDGES)
 def test_coattention_vjp_matches_pallas(n, m_len, case, pre_gate):
     """dq, dk, dv of the plain backward, of the wrapper's CPU path and of
     autograd through ``coattention`` (``PlainKAttention``) against jax.vjp
