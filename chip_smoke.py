@@ -11,6 +11,9 @@ HTTP server) and its CUDA-graphed, multi-step training on one GPU.
                                        # at 50 signature groups (copy the
                                        # script beside another commit's
                                        # package to time that commit)
+    python3 chip_smoke.py --bf16-flash # the bf16 flash rows beside sdpa, bf16
+                                       # GE medium train and serving bags/s,
+                                       # the instances' registers (the same)
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -291,10 +294,13 @@ Phases (any failure exits non-zero, and no result line is printed):
     bfloat16 plain version: GE medium's at B=8, M=16384 with phase 9's
     ragged masks, small's and big's at phase 17's B=4, M=4096, and every
     width on four bags of 1500 keys (a ragged prefix, masked key tiles
-    mid-bag, one valid key, none valid): o to one bfloat16 unit of its
-    terms' magnitude, m and l to 1e-4 relative, dq, dk, dv to 2e-2 of each
-    one's largest magnitude, two runs bitwise equal, dq and dk exactly 0
-    through masked keys, the bag
+    mid-bag, one valid key, none valid) and on three bags of 1, 20 (fewer
+    than a key tile) and 333 keys (a multiple of no tile; a ragged prefix,
+    a bag whose one valid key is the last, none valid): o to one bfloat16
+    unit of its terms' magnitude, m and l to 1e-4 relative, dq, dk, dv to
+    2e-2 of each one's largest magnitude (a bag of one valid key, whose
+    score gradients are float32 noise, to 2e-2 of the terms that cancel),
+    two runs bitwise equal, dq and dk exactly 0 through masked keys, the bag
     without a valid key at m = -1e9, l = M; each timed at B=8, M=16384
     beside its float32 row, its plain version, its bound (bfloat16 products)
     and the bfloat16 ``scaled_dot_product_attention`` (backward). (b)
@@ -302,13 +308,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     epochs graphed and eager (bit for bit equal) in bf16 from an int8
     store, host-fed through int8 transfers (bit for bit the cached run) and
     in float32: epoch 2's launches held to the plan, train and val bags/s
-    and peak memory against float32. (c) One epoch in bf16 on the card and
+    and peak memory against float32; a bf16 GE medium ``Predictor``'s
+    ``predict_bags`` bags/s on phase 8's 12 bags. (c) One epoch in bf16 on the card and
     on the CPU on phase 21's shorter-bag GE cohort, dropout 0, three
     training seeds: losses within 4e-4 / 2e-3 relative (about twice the
     largest reading), each run unequal to its float32-compute control on
     the card. (d) GE small and big in bf16: a Trainer epoch (every step and
     validation batch on their widths' instances) and a
-    ``Predictor.from_trainer`` call each.
+    ``Predictor.from_trainer`` call each, timed after a warm call (bags/s).
 26. NaCAGaT ``big`` (E = F = D = 512) under bfloat16. (a) The E = F = 512
     bf16 instances of the fuse-K forward (both forms) and backward and the
     D = 512 instances of the export passes (with and without the
@@ -4497,6 +4504,23 @@ def flash_bf16_masks(m_len, dev):
     return mask.to(dev)
 
 
+# (a)'s edge lengths at every width: one key; fewer keys than the smallest
+# tile (32); a length no tile (32, 64, 128) or block of queries (64, 128,
+# 192) divides
+FLASH_EDGE_LENGTHS = (1, 20, 333)
+
+
+def flash_edge_masks(m_len, dev):
+    """Three bags of m_len keys: a ragged prefix of about two thirds, one
+    valid key (the last, in the last tile), none valid."""
+    import torch
+
+    mask = torch.zeros(3, m_len, dtype=torch.bool)
+    mask[0, :max(1, m_len * 2 // 3)] = True
+    mask[1, m_len - 1] = True
+    return mask.to(dev)
+
+
 def bf16_flash_bound_ms(way, heads, mask, e) -> tuple:
     """(bound ms, 'bytes' | 'operations') of a bfloat16 flash instance at
     B=8, M=16384, heads * width = e: the products over the valid keys (a bag
@@ -4516,6 +4540,23 @@ def bf16_flash_bound_ms(way, heads, mask, e) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The exp unit: 16 exponentials a clock an SM (H100 SXM: 132 SMs, a
+# 1,980 MHz boost clock)
+EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def bf16_flash_exp_floor_ms(way, heads, mask) -> float:
+    """The exp unit's floor of a bfloat16 flash instance: one exponential a
+    score over the valid keys in the forward, one in each backward pass (the
+    bound's key count)."""
+    import torch
+
+    b, m = mask.shape
+    n_valid = mask.sum(dim=1)
+    keys = int(torch.where(n_valid == 0, m, n_valid).sum().item())
+    return heads * m * keys * (1 if way == "fwd" else 2) / EXP_PER_S * 1e3
 
 
 def check_flash_o(name, got, ref, terms) -> float:
@@ -4576,15 +4617,74 @@ def check_flash_bf16(tag, q, k, v, mask, errs, width) -> None:
                                                                         dout))):
         raise AssertionError(f"{tag}: two backward runs differ")
     ref = flash.flash_attention_bwd_plain(q, k, v, mask, out, m, l, dout, chunk=chunk)
-    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
-        errs[bwd] = max(errs[bwd], check_rel(f"{bwd}.{gname}", a.float(), r.float(),
-                                             BF16_GRAD_RTOL))
+    # a bag with one valid key (every bag at L = 1) has no score gradient:
+    # p is 0 or 1 and dp = delta, so dq and dk there are float32 noise of dp
+    # - delta in both versions, held to BF16_GRAD_RTOL of the terms that
+    # cancel (scale |delta_i| |k| for a dq row, the sum over query rows i of
+    # scale |delta_i| |q_i| for dk; the float32 tests' rule). Where no bag has
+    # two valid keys nothing else sets dq's and dk's scale, and the rule
+    # holds them alone; elsewhere the whole tensors are held as before too.
+    one, multi = mask.sum(-1) == 1, bool((mask.sum(-1) > 1).any())
+    scale = width ** -0.5
+    delta = (dout.float() * out.float()).sum(-1).abs()  # [B, H, L]
+    floors = (scale * delta.amax(-1) * k.float().abs().amax((-2, -1)),
+              scale * (delta[..., None] * q.float().abs()).sum(-2).amax(-1), None)
+    for gname, a, r, floor in zip(("dq", "dk", "dv"), got, ref, floors):
+        a, r = a.float(), r.float()
+        if floor is not None and bool(one.any()):
+            limit = BF16_GRAD_RTOL * floor[one][..., None, None]
+            worst = float(torch.maximum(a[one].abs(), r[one].abs()).div(limit).max())
+            log(f"  {bwd}.{gname}: one-key bags at {worst:.3e} of {BF16_GRAD_RTOL:g} of the "
+                f"terms that cancel {'ok' if worst <= 1.0 else 'FAIL'}")
+            if worst > 1.0:
+                raise AssertionError(f"{bwd}.{gname}: a one-key bag's score gradient")
+            if not multi:
+                a, r = a[~one], r[~one]
+        if a.numel():
+            errs[bwd] = max(errs[bwd], check_rel(f"{bwd}.{gname}", a, r, BF16_GRAD_RTOL))
     dq, dk, _ = got
     pad = ~mask[:, None, :, None].expand_as(dk)
     if float(dk[pad].float().abs().max()) != 0.0 or float(dq[none].float().abs().max()) != 0.0:
         raise AssertionError(f"{tag}: a masked key passed a gradient to q or k")
     log(f"  {tag}: two runs bitwise equal; dq, dk exactly 0 through masked keys; the bag "
         "without a valid key at m = -1e9, l = M")
+
+
+def time_bf16_flash_row(dev, heads, width, e, way, iters=3, plain=False) -> dict:
+    """One bfloat16 flash row at phase 25 (a)'s timing inputs (phases 9's
+    and 12's, B=8, M=16384, in bfloat16): the kernel's ms (CUDA events, the
+    mean of ``iters``), the bfloat16 ``scaled_dot_product_attention`` call's
+    (forward; backward), the plain version's where ``plain``, the bound and
+    the exp unit's floor."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import flash
+
+    bf = torch.bfloat16
+    chunk = plain_chunk(GE_B, heads, GE_M)
+    seed = 13 if way == "fwd" else 17
+    q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, seed + heads, dev, e, bf)
+    if way == "fwd":
+        kern = lambda: flash.flash_fwd(q, k, v, mask)  # noqa: E731
+        ref = lambda: flash.flash_attention_plain(q, k, v, mask, chunk=chunk)  # noqa: E731
+        lib = lambda: sdpa_ms(q, k, v, mask)[0]  # noqa: E731
+    else:
+        out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
+        g = torch.Generator(device="cpu").manual_seed(seed + heads + 1)
+        dout = torch.randn(GE_B, GE_M, e, generator=g).to(dev).to(bf)
+        dout = dout.reshape(GE_B, GE_M, heads, width).transpose(1, 2)
+        kern = lambda: flash.flash_bwd(q, k, v, mask, out, m, l, dout)  # noqa: E731
+        ref = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
+            q, k, v, mask, out, m, l, dout, chunk=chunk)
+        lib = lambda: sdpa_bwd_ms(q, k, v, mask, dout)[0]  # noqa: E731
+    row = {"ms": cuda_ms(kern, iters=iters, warmup=1),
+           "plain_ms": cuda_ms(ref, iters=1, warmup=1) if plain else None,
+           "library_ms": lib(), "chunk": chunk,
+           "exp_floor_ms": bf16_flash_exp_floor_ms(way, heads, mask)}
+    row["bound_ms"], row["bound_by"] = bf16_flash_bound_ms(way, heads, mask, e)
+    del q, k, v, mask, kern, ref, lib
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase25_bf16_flash_kernels(dev, f32_rows) -> tuple:
@@ -4613,47 +4713,67 @@ def phase25_bf16_flash_kernels(dev, f32_rows) -> tuple:
         q, k, v, _ = ge_flash_inputs(4, heads, 1500, width + 25, dev, e, bf)
         check_flash_bf16(f"flash bf16 d{width} M=1500", q, k, v, flash_bf16_masks(1500, dev),
                          errs, width)
+        for m_len in FLASH_EDGE_LENGTHS:
+            log(f"phase 25 (a): flash bf16 H={heads} dh={width}: B=3 M={m_len} (key tile "
+                f"{flash.KEY_TILE[width]}), a ragged bag, one valid key (the last), none valid")
+            q, k, v, _ = ge_flash_inputs(3, heads, m_len, m_len + width, dev, e, bf)
+            check_flash_bf16(f"flash bf16 d{width} M={m_len}", q, k, v,
+                             flash_edge_masks(m_len, dev), errs, width)
         del q, k, v, mask
     torch.cuda.synchronize()
     power = gpu_name_and_power()
     rows = []
     for heads, width, e in FLASH_INSTANCES:  # at the medium path's B and M
-        chunk = plain_chunk(GE_B, heads, GE_M)
-        for way, seed in (("fwd", 13), ("bwd", 17)):  # phases 9's and 12's inputs, in bf16
-            q, k, v, mask = ge_flash_inputs(GE_B, heads, GE_M, seed + heads, dev, e, bf)
-            if way == "fwd":
-                kern = lambda: flash.flash_fwd(q, k, v, mask)  # noqa: E731
-                plain = lambda: flash.flash_attention_plain(  # noqa: E731
-                    q, k, v, mask, chunk=chunk)
-                lib = lambda: sdpa_ms(q, k, v, mask)[0]  # noqa: E731
-            else:
-                out, m, l = flash.flash_fwd(q, k, v, mask, need_stats=True)
-                g = torch.Generator(device="cpu").manual_seed(seed + heads + 1)
-                dout = torch.randn(GE_B, GE_M, e, generator=g).to(dev).to(bf)
-                dout = dout.reshape(GE_B, GE_M, heads, width).transpose(1, 2)
-                kern = lambda: flash.flash_bwd(q, k, v, mask, out, m, l, dout)  # noqa: E731
-                plain = lambda: flash.flash_attention_bwd_plain(  # noqa: E731
-                    q, k, v, mask, out, m, l, dout, chunk=chunk)
-                lib = lambda: sdpa_bwd_ms(q, k, v, mask, dout)[0]  # noqa: E731
+        for way in ("fwd", "bwd"):
             name = f"flash_{way}_d{width}_bf16"
-            ms = cuda_ms(kern, iters=3, warmup=1)
-            plain_ms = cuda_ms(plain, iters=1, warmup=1)
-            lib_ms = lib()
-            bms, by = bf16_flash_bound_ms(way, heads, mask, e)
+            t = time_bf16_flash_row(dev, heads, width, e, way, plain=True)
+            ms, bms = t["ms"], t["bound_ms"]
             ms32 = f32_rows.get(f"flash_{way}_d{width}")
             log(f"phase 25 (a): {name} B={GE_B} H={heads} dh={width} M={GE_M}: kernel "
                 f"{ms:.4f} ms, its float32 row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain "
-                f"{plain_ms:.4f} ms (chunks of {chunk} rows), bf16 scaled_dot_product_attention"
-                f"{' backward' if way == 'bwd' else ''} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-                f"bf16 products over the valid keys; {bms / ms:.3f} of it reached) ({power})")
+                f"{t['plain_ms']:.4f} ms (chunks of {t['chunk']} rows), bf16 "
+                f"scaled_dot_product_attention{' backward' if way == 'bwd' else ''} "
+                f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({t['bound_by']}, bf16 products "
+                f"over the valid keys; {bms / ms:.3f} of it reached); the exp unit's floor "
+                f"{t['exp_floor_ms']:.4f} ms ({power})")
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": 0, "max_abs_err": errs[name], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                "plain_ms": t["plain_ms"], "bound_ms": bms, "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
             })
-            del q, k, v, mask, kern, plain, lib
-            torch.cuda.empty_cache()
     return errs, rows
+
+
+def ge_bf16_serving(dev, power, calls=3) -> dict:
+    """(b)'s serving rate: a bf16 GE medium Predictor (seed-0 weights, the
+    serving buckets and batch) on phase 8's 12 bags, ``calls`` timed
+    ``predict_bags`` calls after a warm one (host clock to a device sync),
+    each call on the two widths' bf16 forward instances only. Returns the
+    launches."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.serve import Predictor
+
+    pred = Predictor("GE-NaCAGaT", model_size="medium", buckets=GE_BUCKETS, batch_size=GE_B,
+                     seed=0, device=dev, dtype=torch.bfloat16)
+    bags = make_ge_bags(0)
+    pred.predict_bags(bags)
+    torch.cuda.synchronize()
+    before = read_counts()
+    rates = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        pred.predict_bags(bags)
+        torch.cuda.synchronize()
+        rates.append(len(bags) / (time.perf_counter() - t0))
+    got = _counts_delta(before, read_counts())
+    if set(got) != {f"flash_fwd_d{w}_bf16" for w in ge_widths("medium")}:
+        raise AssertionError(f"GE bf16 serving: launches {got}")
+    log(f"  (b) GE medium bf16 predict_bags, {len(bags)} bags of 5000-16384 patches, "
+        f"{calls} calls: {', '.join(f'{r:.2f}' for r in rates)} bags/s; launches {got} "
+        f"({power})")
+    return got
 
 
 def phase25_ge_bf16(dev) -> dict:
@@ -4717,6 +4837,7 @@ def phase25_ge_bf16(dev) -> dict:
                 f"({power})")
         if runs[("int8 store, bf16 compute", True)]["epochs"][0][0] == f32["epochs"][0][0]:
             raise AssertionError("GE: the bf16 run's train loss equals float32's")
+        add(ge_bf16_serving(dev, power))
 
         log("phase 25 (c): GE medium in bf16 from the int8 store, one epoch on the card and on "
             f"the CPU, dropout 0 on both, on {GE_CPU_COHORT} + {GE_CPU_SET}, training seeds "
@@ -4789,9 +4910,15 @@ def phase25_ge_bf16(dev) -> dict:
             if not (set(got) == {f"flash_fwd_d{w1}_bf16", f"flash_fwd_d{w2}_bf16"}
                     and np.isfinite(y).all() and np.allclose(y.sum(-1), 1.0, atol=1e-5)):
                 raise AssertionError(f"GE {size} bf16 Predictor: launches {got}, y {y}")
+            before = read_counts()
+            t0 = time.perf_counter()
+            pred.predict_bags(bags)
+            torch.cuda.synchronize()
+            rate = len(bags) / (time.perf_counter() - t0)
+            add(_counts_delta(before, read_counts()))
             log(f"  GE {size}: epoch train_loss {train['train_loss']:.6f}, val_loss "
                 f"{val['val_loss']:.6f}, launches as planned; predict_bags launches {got}, y "
-                "finite, rows summing to 1")
+                f"finite, rows summing to 1; a second call {rate:.2f} bags/s ({power})")
             del trainer, pred
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -7471,6 +7598,57 @@ def step_time(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def bf16_flash_times(dev) -> None:
+    """``--bf16-flash``: the twelve bfloat16 flash rows at phase 25 (a)'s
+    timing inputs (B=8, M=16384; CUDA events) beside the bfloat16
+    ``scaled_dot_product_attention`` call, their bounds and, at
+    widths 16 and 32, the exp unit's floor; GE medium in bfloat16 from an
+    int8 store through the graphed Trainer (phase 25 (b)'s first run, epoch
+    2's train and val bags/s); phase 25 (b)'s serving rate; and the flash
+    libraries' ptxas registers and spills by instance. Copy the script beside
+    another commit's package to time that commit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+    from multimodal_path_omic_tpu_torch.ops import kernels
+
+    power = gpu_name_and_power()
+    for name in ("flash", "flash_bwd"):
+        entry = ""
+        for line in kernels.BUILD_LOGS.get(name, "").splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = found.group(1)
+            if ("bfloat16" in entry or "wg_kernel" in entry) and ("Used" in line or "spill" in line):
+                kind = re.search(r"(flash_\w+?kernel)", entry)
+                args = ", ".join(re.findall(r"Li(\d+)E", entry))
+                log(f"bf16-flash: ptxas {kind.group(1) if kind else entry}<{args}>: "
+                    f"{line.split('info    :')[-1].strip()}")
+    for heads, width, e in FLASH_INSTANCES:
+        for way in ("fwd", "bwd"):  # phase 25 (a)'s timing inputs
+            t = time_bf16_flash_row(dev, heads, width, e, way, iters=5)
+            ms, bms = t["ms"], t["bound_ms"]
+            log(f"bf16-flash: flash_{way}_d{width}_bf16 B={GE_B} H={heads} M={GE_M}: {ms:.4f} ms, "
+                f"sdpa {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({t['bound_by']}; "
+                f"{bms / ms:.3f} of it), the exp unit's floor {t['exp_floor_ms']:.4f} ms ({power})")
+    root = tempfile.mkdtemp(prefix="chip_smoke_bf16_flash_")
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "ge"), **GE_TRAINER_COHORT)
+        what, settings = GE_BF16_RUNS[0]
+        cfg = trainer_config("ge_nacagat.yaml", paths, os.path.join(root, "b"),
+                             {**GE_TRAINER_SET, "training.epochs": 2, **settings})
+        run = _trainer_run("b", f"GE {what}, graphed", cfg, True, power)
+        log(f"bf16-flash: GE medium {what}, graphed, epoch 2: "
+            f"{run['n_train'] / run['train_s']:.2f} train bags/s, "
+            f"{run['n_val'] / run['val_s']:.2f} val bags/s ({power})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ge_bf16_serving(dev, power)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7482,6 +7660,10 @@ def main() -> int:
     ap.add_argument("--step-time", action="store_true",
                     help="time a graphed training step and validation batch of NaCAGaT cesar "
                          "and MCAT ces at 50 signature groups instead of phases 1-31")
+    ap.add_argument("--bf16-flash", action="store_true",
+                    help="time the twelve bfloat16 flash instances beside sdpa, GE medium's "
+                         "bf16 training and serving bags/s, and print the flash instances' "
+                         "registers, instead of phases 1-31")
     args = ap.parse_args()
     try:
         import torch
@@ -7512,6 +7694,9 @@ def main() -> int:
 
     if args.step_time:
         step_time(dev)
+        return 0
+    if args.bf16_flash:
+        bf16_flash_times(dev)
         return 0
     bags, omics = make_bags(0)
     if args.profile:

@@ -1,0 +1,438 @@
+// Shared by the bfloat16 instances of csrc/flash.cu (forward) and
+// csrc/flash_bwd.cu (every backward pass but the width-512 dkv pass):
+// Hopper's warpgroup MMA (wgmma) on bfloat16 operands, the swizzled
+// shared-memory tiles its descriptors read, and the per-tile key mask.
+//
+// wgmma.mma_async.m64nNk16.f32.bf16.bf16: the four warps of a warpgroup
+// compute a 64 x N tile of float32 sums, 16 depths a step, asynchronously
+// (fence / commit / wait below). A is either a 64 x 16 tile in shared memory
+// read through a descriptor ("ss" form: the scores, A = the block's rows) or
+// four 32-bit registers a thread holding bfloat16 pairs ("rs" form: P V and
+// its kin, A = p or ds formed in registers). B always comes from shared
+// memory: K-major for the scores (rows of the column side, depth contiguous),
+// MN-major (the transpose bit) for the acc products (the same tiles read
+// (key, column)), so neither product needs a transposed copy.
+//
+// Accumulator layout (PTX ISA, wgmma .f32, 64 x N), warp w of the group,
+// g = lane / 4, t = lane % 4: d[4j + 2h + e] = (row 16w + g + 8h, column
+// 8j + 2t + e). The A registers of k step kk (columns 16kk .. 16kk+15) are
+// then the accumulator's own values as bfloat16 pairs:
+//   a0 = (d[8kk], d[8kk+1])  a1 = (d[8kk+2], +3)  a2 = (d[8kk+4], +5)  a3 = (d[8kk+6], +7)
+// so a score tile turns into the next product's A without leaving the thread.
+//
+// Shared tiles: an operand [ROWS][DH] of bfloat16 lies as DH / CW column
+// blocks of CW = min(DH, 64) values, each [ROWS][CW], rows of RB = 2 CW bytes
+// (32, 64 or 128), with the matching swizzle (the 16-byte chunk index XORed
+// with address bits 7..9, as wgmma's 32 / 64 / 128-byte modes read it; tiles
+// 1024-byte aligned). One layout serves both descriptor kinds:
+//   K-major (rows = M or N, depth contiguous): start + 32 bytes a k step inside
+//     a block, the next block at ROWS * RB; SBO = 8 rows = 8 RB, LBO unused;
+//   MN-major (rows = the K dimension): start + 16 rows a k step; LBO = the
+//     column block stride ROWS * RB, SBO = 8 RB.
+// cp.async copies 16-byte chunks straight into the swizzled places.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace mpo {
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// Swizzled tiles
+// ---------------------------------------------------------------------------
+
+template <int DH>
+struct Sw {
+  static constexpr int CW = DH < 64 ? DH : 64;  // values a swizzled row
+  static constexpr int RB = 2 * CW;             // its bytes
+  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;  // descriptor layout type
+  static_assert(DH % CW == 0 && DH >= 16, "widths 16, 32, 64 and multiples of 64");
+  __device__ static __forceinline__ uint32_t swz(uint32_t off) {
+    return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes device -> shared (a shared-space address), zeros without pred.
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+// 4 bytes device -> shared, zeros without pred.
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+
+// Rows r0 .. r0+ROWS-1 of a bfloat16 operand [L][DH] (row stride sl values)
+// into the swizzled tile at shared address `tile`, by cp.async from NTH
+// threads; zero rows past L.
+template <int ROWS, int DH, int NTH>
+__device__ __forceinline__ void load_sw(uint32_t tile, const bf16* __restrict__ src, long long sl,
+                                        int r0, int L) {
+  using S = Sw<DH>;
+  constexpr int CPR = DH / 8, CPB = S::CW / 8;  // 16-byte chunks a row, a block row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NTH) {
+    const int row = idx / CPR, c = idx % CPR;
+    const uint32_t off = (c / CPB) * (ROWS * S::RB) + row * S::RB + (c % CPB) * 16;
+    const bool ok = r0 + row < L;
+    cp16(tile + S::swz(off), ok ? src + (long long)(r0 + row) * sl + 8 * c : src, ok);
+  }
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (mode << 62);
+}
+
+// K-major operand of a ROWS-row tile: rows r0 .. r0+63 (A) or all (B), k
+// step ks (depths 16 ks .. 16 ks + 15).
+template <int ROWS, int DH>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int ks) {
+  using S = Sw<DH>;
+  const int k = 16 * ks;
+  return make_desc(tile + (k / S::CW) * (ROWS * S::RB) + r0 * S::RB + (k % S::CW) * 2, 16,
+                   8 * S::RB, S::MODE);
+}
+
+// MN-major operand of a ROWS-row tile whose rows are the product's depth:
+// k step ks (rows 16 ks ..), columns c0 .. (c0 a multiple of CW).
+template <int ROWS, int DH>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks, int c0) {
+  using S = Sw<DH>;
+  return make_desc(tile + (c0 / S::CW) * (ROWS * S::RB) + 16 * ks * S::RB, ROWS * S::RB,
+                   8 * S::RB, S::MODE);
+}
+
+// ---------------------------------------------------------------------------
+// Ordering
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Shared-memory writes of the generic proxy (cp.async, st.shared) made
+// visible to wgmma's operand reads (the async proxy); then a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Registers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A registers of k step kk from an accumulator of bfloat16-bound values
+// (kk a constant once the caller's loop is unrolled).
+template <int N>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[N], int kk) {
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Max and sum over the four threads of a row (lanes 4g .. 4g+3).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// e^x on the exp unit: 2^(x log2 e) by ex2.approx (within 2 units in the
+// last place of float32, subnormal results flushed to 0; e^0 = 1 and e^-inf
+// = 0 exactly). x = s - m is formed first, so a masked score against its own
+// fill (a bag without a valid key) gives exactly 1.
+__device__ __forceinline__ float exp_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// e^x / l as 2^(x log2 e - log2 l), lg2l = log2 l (lg2.approx, within 2^-22
+// absolute): the backward's p without a division.
+__device__ __forceinline__ float exp_over(float x, float lg2l) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(fmaf(x, 1.4426950408889634f, -lg2l)));
+  return y;
+}
+__device__ __forceinline__ float lg2_fast(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// The key mask, read once a tile
+// ---------------------------------------------------------------------------
+
+// Bit j of word i: key c0 + 32 i + j exists (< L) and is valid. Every lane of
+// the warp gets the same words (one byte read a lane a word).
+template <int BC>
+__device__ __forceinline__ void tile_bits(uint32_t (&w)[(BC + 31) / 32],
+                                          const uint8_t* __restrict__ mask_b, int c0, int L,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < (BC + 31) / 32; ++i) {
+    const int key = c0 + 32 * i + lane;
+    w[i] = __ballot_sync(0xffffffffu,
+                         32 * i + lane < BC && key < L && (mask_b == nullptr || mask_b[key] != 0));
+  }
+}
+
+// Bits (8j + 2t, 8j + 2t + 1) of a tile's words, in bits 0 and 1: the
+// thread's two columns of accumulator column tile j (a constant once
+// unrolled).
+template <int NW>
+__device__ __forceinline__ uint32_t col_bits(const uint32_t (&w)[NW], int j, int t) {
+  return w[j / 4] >> (8 * (j % 4) + 2 * t);
+}
+
+// Every key of the tile exists and is valid (the words are the warp's).
+template <int NW>
+__device__ __forceinline__ bool all_valid(const uint32_t (&w)[NW]) {
+  uint32_t all = ~0u;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) all &= w[i];
+  return all == ~0u;
+}
+
+// The first key tile from t on (tiles of BC keys) that holds a valid key, or
+// n_tiles; t itself without `skip`. Warp-level: every warp of a block reads
+// the same bytes and reaches the same tile, with no block barrier.
+template <int BC>
+__device__ __forceinline__ int next_tile_warp(const uint8_t* __restrict__ mask_b, int t,
+                                              int n_tiles, int L, bool skip, int lane) {
+  if (!skip) return t;
+  for (; t < n_tiles; ++t) {
+    bool any = false;
+#pragma unroll
+    for (int c = lane; c < BC; c += 32) {
+      const int key = t * BC + c;
+      any |= key < L && mask_b[key] != 0;
+    }
+    if (__any_sync(0xffffffffu, any)) break;
+  }
+  return t;
+}
+
+// The first 1024-byte aligned shared address at or after the dynamic block
+// (its launch asks for 1024 bytes more than the tiles need).
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.mma_async, bfloat16 in, float32 sums: d (+)= A B over one 16-deep
+// step, acc = 0 overwrites d. ss (the score products, N = 16 .. 128): A and
+// B K-major in shared memory. rs (the acc products, N = 16 .. 256): A in
+// registers, B MN-major in shared memory.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+}  // namespace sm90
+}  // namespace mpo

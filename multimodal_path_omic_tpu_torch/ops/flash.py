@@ -36,7 +36,12 @@ rounded to bfloat16 before P V while m and l come from the unrounded p, out
 is bfloat16; the backward recomputes p in float32, rounds it for dv = p^T
 dout, and rounds ds = p (dp - delta) * scale for dq = ds k and dk = ds^T q;
 dq, dk, dv are bfloat16, m, l and delta float32. The plain versions pass
-the gradient straight through their roundings (``layers.round_bf16``).
+the gradient straight through their roundings (``layers.round_bf16``). On
+the card the bfloat16 instances run on Hopper's warpgroup MMA
+(``csrc/flash_sm90.cuh``; the backward's dkv pass at width 512 on
+``mma.sync``), their exponentials on the exp unit (``ex2.approx``, the
+backward's 1 / l as ``-log2 l`` in the exponent): within a few units in the
+last place of float32's, which the card's bars absorb.
 """
 
 from __future__ import annotations
@@ -56,11 +61,11 @@ from multimodal_path_omic_tpu_torch.ops.layers import NEG_INF, round_bf16
 # (256, 32) and big (512, 64).
 HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 
-# The forward kernel's keys a tile by head width (csrc/flash.cu): the
-# bfloat16 instances round p against the running maximum over the tiles seen
-# so far, as the TPU kernel does over its key blocks, and the plain version
-# follows the same tiles.
-KEY_TILE = {16: 64, 32: 64, 64: 64, 128: 64, 256: 64, 512: 32}
+# The bfloat16 forward kernel's keys a tile by head width (csrc/flash.cu,
+# ``mpo_flash_fwd_bf16``): it rounds p against the running maximum over the
+# tiles seen so far, as the TPU kernel does over its key blocks, and the plain
+# version follows the same tiles.
+KEY_TILE = {16: 64, 32: 64, 64: 128, 128: 128, 256: 64, 512: 32}
 
 # one count per template instance of each kernel
 LAUNCH_COUNTS = {f"flash_{way}_d{d}{sfx}": 0 for way in ("fwd", "bwd") for d in HEAD_DIMS

@@ -230,3 +230,195 @@ def test_bf16_plain_rounds_where_the_kernels_do():
                        flash.flash_attention_plain(*f32, tmask))
     mean = tv[1].float().mean(dim=1, keepdim=True).expand(1, L, 256)
     assert _ulps(tiled[1].float().numpy(), mean.to(BF16).float().numpy()) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 kernels on Hopper's warpgroup MMA (csrc/flash.cu,
+# csrc/flash_bwd.cu): the plain version's tiles are the forward kernel's, and
+# the arithmetic of the warpgroup splits matches the plain versions.
+# ---------------------------------------------------------------------------
+
+import os  # noqa: E402
+import re  # noqa: E402
+
+WIDTHS = (16, 32, 64, 128, 256, 512)
+# o within two bfloat16 units of its largest magnitude across key tilings: p
+# is rounded against the running maximum of the tiles seen so far, so two
+# tilings may round a p to the two neighbours (the bound of
+# test_bf16_plain_rounds_where_the_kernels_do)
+TILING_TOL = 2.0 ** -7
+
+
+def _kernel_key_tiles():
+    """{width: keys a tile} from the bfloat16 forward's instance table."""
+    src = os.path.join(os.path.dirname(flash.__file__), os.pardir, "csrc", "flash.cu")
+    with open(src) as fh:
+        text = fh.read()
+    table = text[text.index("int mpo_flash_fwd_bf16("):]
+    return {int(w): int(bc) for w, bc in
+            re.findall(r"case (\d+): return MPO_FWD_WG\(\1, (\d+),", table)}
+
+
+def test_key_tile_follows_the_bf16_forward_kernel():
+    """``flash.KEY_TILE`` (where the plain version rounds p) is the bfloat16
+    forward kernel's keys a tile at every width."""
+    assert _kernel_key_tiles() == flash.KEY_TILE
+    assert sorted(flash.KEY_TILE) == list(WIDTHS)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_bf16_plain_at_the_kernel_tiles(width):
+    """At the kernel's tiles (``KEY_TILE``) the plain forward stays within two
+    bfloat16 units of o's largest magnitude of JAX's library TPU kernel in
+    interpret mode (128-key blocks) on valid rows, and of the untiled
+    function; m and l at the untiled function's within 1e-5 (they do not
+    depend on the tiles)."""
+    lengths = (256, 141)
+    q, k, v, mask, dout = _inputs(len(lengths), 1, width, lengths, 7 * width)
+    o_j, *_ = _tpu_kernel(q, k, v, mask, dout, width ** -0.5)
+    tq, tk, tv = (_t(x).to(BF16) for x in (q, k, v))
+    tmask = _t(mask)
+    tiled, m, l = flash.flash_attention_plain(tq, tk, tv, tmask, return_stats=True)
+    one, m1, l1 = flash.flash_attention_plain(tq, tk, tv, tmask, return_stats=True, key_tile=L)
+    rows = np.broadcast_to(mask[:, None, :], q.shape[:3])
+    readings = {"tpu": _of_top(tiled.float().numpy()[rows], o_j[rows]),
+                "untiled": _of_top(tiled.float().numpy(), one.float().numpy())}
+    print(flash.KEY_TILE[width], readings)
+    assert max(readings.values()) <= TILING_TOL, readings
+    assert torch.allclose(m, m1, rtol=0, atol=STAT_TOL)
+    assert torch.allclose(l, l1, rtol=STAT_TOL, atol=0)
+
+
+def _split_forward(q, k, v, mask, tile, halves):
+    """The width-512 forward's arithmetic (float32 from bfloat16 values):
+    per key tile the scores as the sum of ``halves`` depth-slice products,
+    added in order, times the scale; the online softmax with p rounded to
+    bfloat16 against the running maximum; O as ``halves`` column slices. (o,
+    m, l) as the kernel writes them."""
+    n, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    q, k, v = q.float(), k.float(), v.float()
+    sl = [slice(i * d // halves, (i + 1) * d // halves) for i in range(halves)]
+    o = [torch.zeros(q.shape[:3] + (d // halves,)) for _ in sl]
+    m = torch.full(q.shape[:3], -3.0e38)
+    l = torch.zeros(q.shape[:3])
+    for c0 in range(0, n, tile):
+        keys = slice(c0, min(c0 + tile, n))
+        s = torch.matmul(q[..., sl[0]], k[:, :, keys, sl[0]].transpose(-1, -2))
+        for h in sl[1:]:
+            s = s + torch.matmul(q[..., h], k[:, :, keys, h].transpose(-1, -2))
+        s = torch.where(mask[:, None, None, keys], s * scale, torch.full_like(s, -1e9))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        pr = p.to(BF16).float()
+        o = [oh * alpha[..., None] + torch.matmul(pr, v[:, :, keys, h]) for oh, h in zip(o, sl)]
+    return (torch.cat(o, dim=-1) / l[..., None]).to(BF16), m, l
+
+
+def test_split_forward_at_512_matches_the_plain_version():
+    """Width 512 (two warpgroups on 64 query rows, S over two depth halves
+    summed in a fixed order, O in two column halves) against the plain
+    version at the kernel's 32-key tiles: o within one bfloat16 unit of its
+    terms' magnitude (the card's bar), m and l within 1e-5."""
+    lengths = (256, 141)
+    q, k, v, mask, _ = _inputs(len(lengths), 1, 512, lengths, 51)
+    tq, tk, tv = (_t(x).to(BF16) for x in (q, k, v))
+    tmask = _t(mask)
+    o, m, l = _split_forward(tq, tk, tv, tmask, flash.KEY_TILE[512], 2)
+    ref, ref_m, ref_l = flash.flash_attention_plain(tq, tk, tv, tmask, return_stats=True)
+    terms = flash.flash_attention_plain(tq, tk, tv.abs(), tmask).float()
+    excess = float(((o.float() - ref.float()).abs() / (2.0 ** -7 * terms)).max())
+    print(f"o at {excess:.3f} of one unit of its terms")
+    assert excess <= 1.0
+    assert torch.allclose(m, ref_m, rtol=0, atol=STAT_TOL)
+    assert torch.allclose(l, ref_l, rtol=STAT_TOL, atol=0)
+
+
+def _split_dkv(q, k, v, mask, m, l, dout, tile, halves):
+    """The width-256 dkv pass's arithmetic: per query tile, S^T (one
+    warpgroup) and dP^T (the other) over the whole depth, p^T and ds^T from
+    them in both, dv and dk summed in ``halves`` column slices. (dk, dv)."""
+    n, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+    out = flash.flash_attention_plain(*(t.to(BF16) for t in (q, k, v)), mask).float()
+    delta = (dout * out).sum(-1)
+    sl = [slice(i * d // halves, (i + 1) * d // halves) for i in range(halves)]
+    dk = [torch.zeros(k.shape[:3] + (d // halves,)) for _ in sl]
+    dv = [torch.zeros(k.shape[:3] + (d // halves,)) for _ in sl]
+    valid = mask[:, None, :, None]  # the keys are the rows
+    for c0 in range(0, n, tile):
+        qs = slice(c0, min(c0 + tile, n))
+        st = torch.matmul(k, q[:, :, qs].transpose(-1, -2))  # [B, H, keys, queries]
+        dpt = torch.matmul(v, dout[:, :, qs].transpose(-1, -2))
+        st = torch.where(valid, st * scale, torch.full_like(st, -1e9))
+        pt = torch.exp(st - m[:, :, None, qs]) * (1.0 / l[:, :, None, qs])
+        dst = torch.where(valid, pt * (dpt - delta[:, :, None, qs]), torch.zeros_like(pt))
+        pr, dsr = pt.to(BF16).float(), (dst * scale).to(BF16).float()
+        dv = [a + torch.matmul(pr, dout[:, :, qs, h]) for a, h in zip(dv, sl)]
+        dk = [a + torch.matmul(dsr, q[:, :, qs, h]) for a, h in zip(dk, sl)]
+    return torch.cat(dk, dim=-1).to(BF16), torch.cat(dv, dim=-1).to(BF16)
+
+
+def test_split_dkv_at_256_matches_the_plain_version():
+    """Width 256's dkv pass (two warpgroups on 64 keys trading S^T and dP^T,
+    dk and dv in two column halves, 32-query tiles) against the plain
+    backward: dk and dv within 2e-2 of each one's largest magnitude (the
+    card's bar), dk exactly 0 at masked keys."""
+    lengths = (256, 141)
+    q, k, v, mask, dout = _inputs(len(lengths), 1, 256, lengths, 52)
+    tq, tk, tv, tdo = (_t(x).to(BF16) for x in (q, k, v, dout))
+    tmask = _t(mask)
+    o, m, l = flash.flash_attention_plain(tq, tk, tv, tmask, return_stats=True)
+    _, ref_dk, ref_dv = flash.flash_attention_bwd_plain(tq, tk, tv, tmask, o, m, l, tdo)
+    dk, dv = _split_dkv(tq, tk, tv, tmask, m, l, tdo, 32, 2)
+    for name, got, ref in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        err = _of_top(got.float().numpy(), ref.float().numpy())
+        print(f"{name}: {err:.3e} of the largest")
+        assert err <= ST_GRAD_RTOL, name
+    assert float(dk[~tmask[:, None, :, None].expand_as(dk)].float().abs().max()) == 0.0
+
+
+def _split_dq(q, k, v, mask, m, l, dout, tile, halves):
+    """The width-512 dq pass's arithmetic: per key tile, S and dP as the sums
+    of ``halves`` depth-slice products added in order, p and ds from them,
+    dq summed in ``halves`` column slices. dq."""
+    n, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+    out = flash.flash_attention_plain(*(t.to(BF16) for t in (q, k, v)), mask).float()
+    delta = (dout * out).sum(-1)
+    sl = [slice(i * d // halves, (i + 1) * d // halves) for i in range(halves)]
+    dq = [torch.zeros(q.shape[:3] + (d // halves,)) for _ in sl]
+    for c0 in range(0, n, tile):
+        keys = slice(c0, min(c0 + tile, n))
+        s = sum(torch.matmul(q[..., h], k[:, :, keys, h].transpose(-1, -2)) for h in sl)
+        dp = sum(torch.matmul(dout[..., h], v[:, :, keys, h].transpose(-1, -2)) for h in sl)
+        valid = mask[:, None, None, keys]
+        s = torch.where(valid, s * scale, torch.full_like(s, -1e9))
+        p = torch.exp(s - m[..., None]) * (1.0 / l[..., None])
+        ds = torch.where(valid, p * (dp - delta[..., None]), torch.zeros_like(p))
+        dsr = (ds * scale).to(BF16).float()
+        dq = [a + torch.matmul(dsr, k[:, :, keys, h]) for a, h in zip(dq, sl)]
+    return torch.cat(dq, dim=-1).to(BF16)
+
+
+def test_split_dq_at_512_matches_the_plain_version():
+    """Width 512's dq pass (two warpgroups on 64 query rows, S and dP over two
+    depth halves summed in a fixed order, dq in two column halves, 16-key
+    tiles) against the plain backward: dq within 2e-2 of its largest
+    magnitude (the card's bar), exactly 0 in the bag without a valid key."""
+    lengths = (256, 141, 0)
+    q, k, v, mask, dout = _inputs(len(lengths), 1, 512, lengths, 53)
+    tq, tk, tv, tdo = (_t(x).to(BF16) for x in (q, k, v, dout))
+    tmask = _t(mask)
+    o, m, l = flash.flash_attention_plain(tq, tk, tv, tmask, return_stats=True)
+    ref_dq, _, _ = flash.flash_attention_bwd_plain(tq, tk, tv, tmask, o, m, l, tdo)
+    dq = _split_dq(tq, tk, tv, tmask, m, l, tdo, 16, 2)
+    err = _of_top(dq.float().numpy(), ref_dq.float().numpy())
+    print(f"dq: {err:.3e} of the largest")
+    assert err <= ST_GRAD_RTOL
+    assert float(dq[-1].float().abs().max()) == 0.0
