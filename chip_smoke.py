@@ -14,6 +14,10 @@ HTTP server) and its CUDA-graphed, multi-step training on one GPU.
     python3 chip_smoke.py --bf16-flash # the bf16 flash rows beside sdpa, bf16
                                        # GE medium train and serving bags/s,
                                        # the instances' registers (the same)
+    python3 chip_smoke.py --bf16-fuse-k # the bf16 fuse-K rows beside their
+                                       # float32 rows, plain versions and
+                                       # bounds, bf16 NaCAGaT medium and big
+                                       # train bags/s, the registers (the same)
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -268,8 +272,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     E=F=D=256 on phase 1's and 4's masks (M=8192 ragged with a filler bag,
     M=8192 with masked tiles mid-bag, M=1500 with a one-key bag that pools
     exactly its kv row): two runs bitwise equal, dkv and w exactly 0 at the
-    masked keys of bags with a valid key; each timed beside its float32
-    row, its plain version and its bound. (b) Phase 21's Trainer
+    masked keys of bags with a valid key; the fuse-K instances also at N=1
+    and N=8 (M=4000 with masked tiles mid-bag, M=1500 with a one-key bag),
+    the ends of their padding of the queries to 8; each timed beside its
+    float32 row, its plain version and its bound. (b) Phase 21's Trainer
     (examples/nacagat.yaml, its cohort and settings), two epochs graphed and
     eager (bit for bit equal) in each of: bf16 compute from an int8 store;
     the same host-fed through int8 transfers (bit for bit the cached run);
@@ -324,8 +330,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     mid-bag, M=1500 with a one-key bag and a bag without a valid key), at
     phase 24's bars: two runs bitwise equal, dkv and w exactly 0 at the
     masked keys of bags with a valid key, the filler bag at l = M, m = NEG,
-    w = 1/M; each timed beside its float32 row, its plain version and its
-    bound. (b) examples/nacagat.yaml at ``model_size: big`` on phase 21's
+    w = 1/M; the fuse-K instances also at N=1 and N=8, as in phase 24;
+    each timed beside its float32 row, its plain version and its bound.
+    (b) examples/nacagat.yaml at ``model_size: big`` on phase 21's
     cohort and settings, two epochs: bf16 compute from an int8 store cached,
     graphed and eager (bit for bit equal), host-fed through int8 transfers
     (bit for bit the cached run), with ``ces`` validation (the eval form),
@@ -525,15 +532,15 @@ SOURCES = {
     "coattn_plain_bwd": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
     "gather_rows": "multimodal_path_omic_tpu_torch/csrc/gather.cu",
     # the bfloat16 instances (phase 24)
-    "coattn_fwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
-    "coattn_fwd_fused_k_train_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
-    "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "coattn_fwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
+    "coattn_fwd_fused_k_train_bf16": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
+    "coattn_bwd_fused_k_bf16": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
     "coattn_stats_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights_bf16": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     # NaCAGaT big's bfloat16 instances, E = F = D = 512 (phase 26)
-    "coattn_fwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
-    "coattn_fwd_fused_k_train_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
-    "coattn_bwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/coattn_bwd.cu",
+    "coattn_fwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
+    "coattn_fwd_fused_k_train_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
+    "coattn_bwd_fused_k_bf16_e512": "multimodal_path_omic_tpu_torch/csrc/fused_k_sm90.cuh",
     "coattn_stats_bf16_d512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     "coattn_weights_bf16_d512": "multimodal_path_omic_tpu_torch/csrc/coattn.cu",
     # the flash kernels' bfloat16 instances (phase 25)
@@ -4074,21 +4081,23 @@ BF16_RUNS = (
 )
 
 
-def bf16_bound_ms(name, mask, e=E) -> tuple:
+def bf16_bound_ms(name, mask, e=E, f=None, n=N, design=False) -> tuple:
     """(bound ms, 'bytes' | 'operations') of a bfloat16 instance at B=32,
-    N=6, E=F=D=``e``: bytes with bfloat16 inputs and outputs where the
-    instance reads and writes bfloat16 (each input read once, each output
-    written once; the export passes read only the k rows of the keys they
-    need); operations of the products the instance runs over the keys it
-    needs (a tile without a valid key is skipped): the projection k = kv wk
-    (and the backward's recompute of it) has bfloat16 operands, so it is
-    bounded at the bfloat16 tensor-core rate; the backward's dk wk^T and
-    kv^T dk at two TF32 products each over the TF32 rate (dk is float32 and
-    needs its big and small parts; wk and kv are bfloat16, exact in TF32);
-    the export passes' float32 FMAs on the CUDA cores."""
+    ``n`` queries, E=D=``e`` and F=``f`` (default E): bytes with bfloat16
+    inputs and outputs where the instance reads and writes bfloat16 (each
+    input read once, each output written once; the export passes read only
+    the k rows of the keys they need); operations of the products the
+    function needs over the keys it needs (a tile without a valid key is
+    skipped) at the bfloat16 tensor-core rate: the projection k = kv wk, and
+    in the backward its recompute, dk wk^T and kv^T dk (three products of 2
+    keys F E); the export passes' float32 FMAs on the CUDA cores. With
+    ``design``, the backward's bound as csrc/fused_k_sm90.cuh runs it: the
+    dk scratch (float32) written and read once more, and dk wk^T and kv^T dk
+    each on two bfloat16 parts of dk (five products)."""
     b, m_len = mask.shape
     keys = valid_keys(mask)
-    f = e
+    f = e if f is None else f
+    N = n
     if name.startswith("coattn_fwd_fused_k"):
         n_stats = 4 if "train" in name else 3
         nbytes = 2 * (b * N * e + b * m_len * f + f * e + e) + b * m_len \
@@ -4097,8 +4106,11 @@ def bf16_bound_ms(name, mask, e=E) -> tuple:
     elif name == "coattn_bwd_fused_k_bf16":
         nbytes = 2 * (b * N * e + b * m_len * f + f * e + e + b * N * f) + 4 * 5 * b * N \
             + b * m_len + 2 * (b * N * e + b * m_len * f) + 4 * (f * e + e)
-        proj = 2 * keys * f * e  # one product's operations
-        t_ops = (proj / PEAK_BF16_FLOP_PER_S + 4 * proj / PEAK_TF32_FLOP_PER_S) * 1e3
+        products = 3
+        if design:
+            nbytes += 2 * 4 * b * m_len * e  # the dk scratch, written and read
+            products = 5
+        t_ops = products * 2 * keys * f * e / PEAK_BF16_FLOP_PER_S * 1e3
     else:  # the export passes: the k rows of the valid keys
         need = int(mask.sum())
         nbytes = 2 * (b * N * e + need * e) + 4 * 2 * b * N + b * m_len
@@ -4107,6 +4119,16 @@ def bf16_bound_ms(name, mask, e=E) -> tuple:
         t_ops = 4 * N * need * e / PEAK_F32_FLOP_PER_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def design_note(name, mask, e, f, ms) -> str:
+    """The bfloat16 fuse-K backward's bound as its design runs it
+    (:func:`bf16_bound_ms` with ``design``) and the share of it reached,
+    for its log line; "" for another row."""
+    if name != "coattn_bwd_fused_k_bf16":
+        return ""
+    dms, dby = bf16_bound_ms(name, mask, e, f, design=True)
+    return f"; with the dk scratch and the split, {dms:.4f} ms ({dby}; {dms / ms:.3f} of it)"
 
 
 def check_bf16(name, got, ref, kind) -> float:
@@ -4138,11 +4160,121 @@ def count_of(row_name) -> str:
     return base if width in ("e512", "d512") else row_name
 
 
+def bf16_fuse_k_case(fk, m_len, note) -> tuple:
+    """The bfloat16 fuse-K eval and training forms and the backward on
+    ``fk`` = (q, kv, wk, bk, mask) against their plain versions, with the
+    BF16_* tolerances (errors into ``note``); two runs bitwise equal; dkv
+    exactly 0 at masked keys; a one-key bag pools exactly its kv row.
+    Returns (dout, dssq, dsumw, seed)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    bf = torch.bfloat16
+    q16, kv16, wk16, bk16, mask = fk
+    b, n = q16.shape[:2]
+    dev = q16.device
+    got = coattn.coattn_fwd_fused_k(*fk)
+    ref = coattn.coattn_fwd_fused_k_plain(*fk)
+    for what, a, r, kd in zip(("o", "l", "m", "sumw"), got, ref, ("o", "l", "abs", "abs")):
+        note("coattn_fwd_fused_k_bf16", check_bf16(f"fused_k_bf16.{what}", a, r, kd))
+    if not all(torch.equal(a, b) for a, b in zip(got, coattn.coattn_fwd_fused_k(*fk))):
+        raise AssertionError("fused_k_bf16: two runs differ")
+    one = mask.sum(-1) == 1
+    if bool(one.any()):  # the pooled row is that key's kv row, rounded once: itself
+        row = kv16[one][torch.arange(int(one.sum()), device=dev), mask[one].float().argmax(-1)]
+        if not torch.equal(got[0][one], row[:, None, :].expand_as(got[0][one])):
+            raise AssertionError("fused_k_bf16: a one-key bag does not pool its kv row")
+        log("  fused_k_bf16: the bag with one valid key pools exactly its kv row")
+    seed = torch.tensor([m_len + 24], dtype=torch.int32, device=dev)
+    fwd = coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE)
+    ref = coattn.coattn_fwd_fused_k_train_plain(*fk, seed, TRAIN_RATE)
+    for what, a, r, kd in zip(("o", "l", "m", "ssq", "sumw"), fwd, ref,
+                              ("o", "l", "abs", "abs", "abs")):
+        note("coattn_fwd_fused_k_train_bf16",
+             check_bf16(f"fused_k_train_bf16.{what}", a, r, kd))
+    if not all(torch.equal(a, b) for a, b in
+               zip(fwd, coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE))):
+        raise AssertionError("fused_k_train_bf16: two runs differ")
+    g = torch.Generator(device="cpu").manual_seed(m_len)
+    dout = torch.randn(b, n, kv16.shape[-1], generator=g).to(dev).to(bf)
+    dssq, dsumw = (torch.randn(b, n, generator=g).to(dev) for _ in range(2))
+    o, l, m, ssq, sumw = fwd
+    di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    bwd_args = (*fk, seed, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
+    grads = coattn.coattn_bwd_fused_k(*bwd_args)
+    ref = coattn.coattn_bwd_fused_k_plain(*fk, seed, TRAIN_RATE, dout, dssq, dsumw)
+    for what, a, r in zip(("dq", "dkv", "dwk", "dbk"), grads, ref):
+        if what == "dq":  # a one-key bag's dq: noise on both sides (its terms cancel)
+            a, r = a[~one], r[~one]
+        note("coattn_bwd_fused_k_bf16", check_bf16(f"bwd_bf16.{what}", a, r, "grad"))
+    if not all(torch.equal(a, b) for a, b in zip(grads, coattn.coattn_bwd_fused_k(*bwd_args))):
+        raise AssertionError("bwd_bf16: two runs differ")
+    has = mask.any(-1)
+    if not bool((grads[1][has][~mask[has]] == 0).all()):
+        raise AssertionError("bwd_bf16: dkv is not exactly 0 at a masked key")
+    log("  fused_k_bf16, fused_k_train_bf16, bwd_bf16: two runs bitwise equal; dkv exactly "
+        "0 at the masked keys of bags with a valid key")
+    return dout, dssq, dsumw, seed
+
+
+BF16_QUERY_CASES = ((4000, "holes"), (1500, "one"))  # masks of the N = 1 and N = 8 checks
+
+
+def bf16_fuse_k_query_checks(dev, e, tag, note) -> None:
+    """:func:`bf16_fuse_k_case` at E = F = ``e`` and 1 and 8 queries, the
+    ends of the wgmma kernels' padding of the queries to 8, on masked tiles
+    mid-bag and a one-key bag (BF16_QUERY_CASES)."""
+    import torch
+
+    for n in (1, 8):
+        for m_len, kind in BF16_QUERY_CASES:
+            log(f"{tag}: bfloat16 fuse-K B={B} N={n} E=F={e} M={m_len}, {kind} masks")
+            _, kv, wk, bk, _, mask = make_inputs(m_len, e, 2700 + m_len + n, dev, e, kind,
+                                                 with_k=False)
+            g = torch.Generator(device="cpu").manual_seed(2800 + m_len + n)
+            q = (0.7 * torch.randn(B, n, e, generator=g)).to(dev)
+            bf16_fuse_k_case(tuple(t.to(torch.bfloat16) for t in (q, kv, wk, bk)) + (mask,),
+                             m_len, note)
+
+
+def fuse_k_row_calls(fk16, fk32, seed, dout, dssq, dsumw) -> dict:
+    """{name: (bfloat16 kernel, its float32 row, its plain version)} of the
+    three bfloat16 fuse-K rows on (q, kv, wk, bk, mask) in bfloat16
+    (``fk16``) and float32 (``fk32``): the backward's l, m and di from each
+    type's training forward, di from its o as FusedKTrain forms it."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.ops import coattn
+
+    o, l, m, ssq, sumw = coattn.coattn_fwd_fused_k_train(*fk16, seed, TRAIN_RATE)
+    di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
+    f32 = coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE)
+    di32 = (f32[0] * dout.float()).sum(-1) + 2.0 * dssq * f32[3] + dsumw * f32[4]
+    dout32 = dout.to(torch.float32)
+    return {
+        "coattn_fwd_fused_k_bf16": (
+            lambda: coattn.coattn_fwd_fused_k(*fk16), lambda: coattn.coattn_fwd_fused_k(*fk32),
+            lambda: coattn.coattn_fwd_fused_k_plain(*fk16)),
+        "coattn_fwd_fused_k_train_bf16": (
+            lambda: coattn.coattn_fwd_fused_k_train(*fk16, seed, TRAIN_RATE),
+            lambda: coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE),
+            lambda: coattn.coattn_fwd_fused_k_train_plain(*fk16, seed, TRAIN_RATE)),
+        "coattn_bwd_fused_k_bf16": (
+            lambda: coattn.coattn_bwd_fused_k(*fk16, seed, TRAIN_RATE, dout, l, m, di, dssq,
+                                              dsumw),
+            lambda: coattn.coattn_bwd_fused_k(*fk32, seed, TRAIN_RATE, dout32, f32[1], f32[2],
+                                              di32, dssq, dsumw),
+            lambda: coattn.coattn_bwd_fused_k_plain(*fk16, seed, TRAIN_RATE, dout, dssq, dsumw)),
+    }
+
+
 def bf16_kernel_checks(dev, e, tag) -> tuple:
     """The bfloat16 instances at E = F = D = ``e`` against their plain
     versions at B=32, N=6 on phase 1's and 4's masks (BF16_CASES), two runs
-    bitwise equal, exactly 0 through masked keys; then each timed beside its
-    float32 row, its plain version and its bound. Returns (errors, rows
+    bitwise equal, exactly 0 through masked keys; the fuse-K instances also
+    at N = 1 and 8 (:func:`bf16_fuse_k_query_checks`); then each timed beside
+    its float32 row, its plain version and its bound. Returns (errors, rows
     without their launches), keyed and named by :func:`bf16_row`."""
     import torch
 
@@ -4160,47 +4292,8 @@ def bf16_kernel_checks(dev, e, tag) -> tuple:
         q, kv, wk, bk, k, mask = make_inputs(m_len, e, 2400 + m_len, dev, e, kind)
         q16, kv16, wk16, bk16, k16 = (t.to(bf) for t in (q, kv, wk, bk, k))
         fk = (q16, kv16, wk16, bk16, mask)
-        got = coattn.coattn_fwd_fused_k(*fk)
-        ref = coattn.coattn_fwd_fused_k_plain(*fk)
-        for what, a, r, kd in zip(("o", "l", "m", "sumw"), got, ref, ("o", "l", "abs", "abs")):
-            note("coattn_fwd_fused_k_bf16", check_bf16(f"fused_k_bf16.{what}", a, r, kd))
-        if not all(torch.equal(a, b) for a, b in zip(got, coattn.coattn_fwd_fused_k(*fk))):
-            raise AssertionError("fused_k_bf16: two runs differ")
-        one = mask.sum(-1) == 1
-        if bool(one.any()):  # the pooled row is that key's kv row, rounded once: itself
-            row = kv16[one][torch.arange(int(one.sum()), device=dev), mask[one].float().argmax(-1)]
-            if not torch.equal(got[0][one], row[:, None, :].expand_as(got[0][one])):
-                raise AssertionError("fused_k_bf16: a one-key bag does not pool its kv row")
-            log("  fused_k_bf16: the bag with one valid key pools exactly its kv row")
-        seed = torch.tensor([m_len + 24], dtype=torch.int32, device=dev)
-        fwd = coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE)
-        ref = coattn.coattn_fwd_fused_k_train_plain(*fk, seed, TRAIN_RATE)
-        for what, a, r, kd in zip(("o", "l", "m", "ssq", "sumw"), fwd, ref,
-                                  ("o", "l", "abs", "abs", "abs")):
-            note("coattn_fwd_fused_k_train_bf16",
-                 check_bf16(f"fused_k_train_bf16.{what}", a, r, kd))
-        if not all(torch.equal(a, b) for a, b in
-                   zip(fwd, coattn.coattn_fwd_fused_k_train(*fk, seed, TRAIN_RATE))):
-            raise AssertionError("fused_k_train_bf16: two runs differ")
-        g = torch.Generator(device="cpu").manual_seed(m_len)
-        dout = torch.randn(B, N, e, generator=g).to(dev).to(bf)
-        dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
-        o, l, m, ssq, sumw = fwd
-        di = (o.float() * dout.float()).sum(-1) + 2.0 * dssq * ssq + dsumw * sumw
-        bwd_args = (*fk, seed, TRAIN_RATE, dout, l, m, di, dssq, dsumw)
-        grads = coattn.coattn_bwd_fused_k(*bwd_args)
-        ref = coattn.coattn_bwd_fused_k_plain(*fk, seed, TRAIN_RATE, dout, dssq, dsumw)
-        for what, a, r in zip(("dq", "dkv", "dwk", "dbk"), grads, ref):
-            if what == "dq":  # a one-key bag's dq: noise on both sides (its terms cancel)
-                a, r = a[~one], r[~one]
-            note("coattn_bwd_fused_k_bf16", check_bf16(f"bwd_bf16.{what}", a, r, "grad"))
-        if not all(torch.equal(a, b) for a, b in zip(grads, coattn.coattn_bwd_fused_k(*bwd_args))):
-            raise AssertionError("bwd_bf16: two runs differ")
+        dout, dssq, dsumw, seed = bf16_fuse_k_case(fk, m_len, note)
         has = mask.any(-1)
-        if not bool((grads[1][has][~mask[has]] == 0).all()):
-            raise AssertionError("bwd_bf16: dkv is not exactly 0 at a masked key")
-        log("  fused_k_bf16, fused_k_train_bf16, bwd_bf16: two runs bitwise equal; dkv exactly "
-            "0 at the masked keys of bags with a valid key")
         for pre_gate in (True, False):
             lk, mk = coattn.coattn_stats(q16, k16, mask, pre_gate=pre_gate)
             lp, mp = coattn.coattn_stats_plain(q16, k16, mask, pre_gate=pre_gate)
@@ -4220,31 +4313,15 @@ def bf16_kernel_checks(dev, e, tag) -> tuple:
             "of bags with a valid key; the bag without one at l = M, m = NEG, w = 1/M")
         if kind == "prefix":
             timing = (q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq,
-                      dsumw, fwd, di)
-        del got, fwd, grads, ref
+                      dsumw)
+    bf16_fuse_k_query_checks(dev, e, tag, note)
     power = gpu_name_and_power()
-    (q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq, dsumw, fwd,
-     di) = timing
-    o, l, m, ssq, sumw = fwd
-    fk16, fk32 = (q16, kv16, wk16, bk16, mask), (q, kv, wk, bk, mask)
-    f32 = coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE)
-    di32 = (f32[0] * dout.float()).sum(-1) + 2.0 * dssq * f32[3] + dsumw * f32[4]
+    q, kv, wk, bk, k, mask, q16, kv16, wk16, bk16, k16, seed, dout, dssq, dsumw = timing
     l32, m32 = coattn.coattn_stats_plain(q, k, mask)
     l16, m16 = coattn.coattn_stats_plain(q16, k16, mask)
     calls = {  # (bf16 kernel, its float32 row, its plain version)
-        "coattn_fwd_fused_k_bf16": (
-            lambda: coattn.coattn_fwd_fused_k(*fk16), lambda: coattn.coattn_fwd_fused_k(*fk32),
-            lambda: coattn.coattn_fwd_fused_k_plain(*fk16)),
-        "coattn_fwd_fused_k_train_bf16": (
-            lambda: coattn.coattn_fwd_fused_k_train(*fk16, seed, TRAIN_RATE),
-            lambda: coattn.coattn_fwd_fused_k_train(*fk32, seed, TRAIN_RATE),
-            lambda: coattn.coattn_fwd_fused_k_train_plain(*fk16, seed, TRAIN_RATE)),
-        "coattn_bwd_fused_k_bf16": (
-            lambda: coattn.coattn_bwd_fused_k(*fk16, seed, TRAIN_RATE, dout, l, m, di, dssq,
-                                              dsumw),
-            lambda: coattn.coattn_bwd_fused_k(*fk32, seed, TRAIN_RATE, dout.float(), f32[1],
-                                              f32[2], di32, dssq, dsumw),
-            lambda: coattn.coattn_bwd_fused_k_plain(*fk16, seed, TRAIN_RATE, dout, dssq, dsumw)),
+        **fuse_k_row_calls((q16, kv16, wk16, bk16, mask), (q, kv, wk, bk, mask), seed, dout,
+                           dssq, dsumw),
         "coattn_stats_bf16": (
             lambda: coattn.coattn_stats(q16, k16, mask), lambda: coattn.coattn_stats(q, k, mask),
             lambda: coattn.coattn_stats_plain(q16, k16, mask)),
@@ -4260,7 +4337,7 @@ def bf16_kernel_checks(dev, e, tag) -> tuple:
         row = bf16_row(name, e)
         log(f"{tag}: {row} B={B} N={N} M={TRAIN_M} E=F=D={e}: kernel {ms:.4f} ms, its float32 "
             f"row {ms32:.4f} ms ({ms32 / ms:.2f}x), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by}; {bms / ms:.3f} of it reached) ({power})")
+            f"({by}; {bms / ms:.3f} of it reached{design_note(name, mask, e, e, ms)}) ({power})")
         rows.append({
             "name": row, "route": "cuda", "source": SOURCES[row], "replaces": REPLACES[row],
             "launches": 0, "max_abs_err": errs[row], "ms": ms, "plain_ms": plain_ms,
@@ -7598,35 +7675,98 @@ def step_time(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def bf16_flash_times(dev) -> None:
-    """``--bf16-flash``: the twelve bfloat16 flash rows at phase 25 (a)'s
-    timing inputs (B=8, M=16384; CUDA events) beside the bfloat16
-    ``scaled_dot_product_attention`` call, their bounds and, at
-    widths 16 and 32, the exp unit's floor; GE medium in bfloat16 from an
-    int8 store through the graphed Trainer (phase 25 (b)'s first run, epoch
-    2's train and val bags/s); phase 25 (b)'s serving rate; and the flash
-    libraries' ptxas registers and spills by instance. Copy the script beside
-    another commit's package to time that commit."""
-    import shutil
-    import tempfile
-
-    import torch
-
-    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+def ptxas_lines(libs, kinds):
+    """(kernel, mangled entry, ptxas's register and spill line) of each
+    instance in the kernel libraries ``libs`` whose entry's name matches the
+    pattern ``kinds`` (its first group names the kernel)."""
     from multimodal_path_omic_tpu_torch.ops import kernels
 
-    power = gpu_name_and_power()
-    for name in ("flash", "flash_bwd"):
+    for name in libs:
         entry = ""
         for line in kernels.BUILD_LOGS.get(name, "").splitlines():
             found = re.search(r"Compiling entry function '(\S+)'", line)
             if found:
                 entry = found.group(1)
-            if ("bfloat16" in entry or "wg_kernel" in entry) and ("Used" in line or "spill" in line):
-                kind = re.search(r"(flash_\w+?kernel)", entry)
-                args = ", ".join(re.findall(r"Li(\d+)E", entry))
-                log(f"bf16-flash: ptxas {kind.group(1) if kind else entry}<{args}>: "
-                    f"{line.split('info    :')[-1].strip()}")
+            kind = re.search(kinds, entry)
+            if kind and ("Used" in line or "spill" in line):
+                yield kind.group(1), entry, line.split("info    :")[-1].strip()
+
+
+TRAIN_WINDOW_S, VAL_WINDOW_S = 4.0, 1.0  # the Trainer rates' windows
+
+
+def trainer_window(cfg) -> dict:
+    """The graphed Trainer on ``cfg``: epoch 1 through ``validated_epoch``
+    (the warm-up: graphs captured, the cache uploaded), then training epochs
+    until TRAIN_WINDOW_S have passed and validations until VAL_WINDOW_S,
+    each timed to a device sync. Returns, for "train" and "val", (bags/s
+    over the window; the median, slowest and fastest epoch's; epochs; those
+    under half the median)."""
+    import torch
+
+    from multimodal_path_omic_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, verbose=False, graphs=True)
+    trainer.validated_epoch(0)
+    torch.cuda.synchronize()
+    out = {}
+    for what, call, bags, window in (("train", trainer.train_epoch, len(trainer.train_ds),
+                                      TRAIN_WINDOW_S),
+                                     ("val", trainer.validate, len(trainer.val_ds),
+                                      VAL_WINDOW_S)):
+        times = []
+        while sum(times) < window:
+            t0 = time.perf_counter()
+            call(len(times) + 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rates = np.sort(bags / np.array(times))
+        med = float(np.median(rates))
+        out[what] = (bags * len(times) / sum(times), med, rates[0], rates[-1], len(times),
+                     int((rates < med / 2).sum()))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainer_rates(tag, yaml_name, cohort, runs, power) -> None:
+    """:func:`trainer_window` on a synthetic ``cohort`` for each (label,
+    settings) of ``runs`` under ``yaml_name``; one log line each."""
+    import shutil
+    import tempfile
+
+    from multimodal_path_omic_tpu_torch.data.synthetic import make_synthetic_cohort
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_rates_")
+    try:
+        paths = make_synthetic_cohort(os.path.join(root, "cohort"), **cohort)
+        for i, (label, settings) in enumerate(runs):
+            cfg = trainer_config(yaml_name, paths, os.path.join(root, str(i)),
+                                 {**settings, "training.epochs": 10_000})
+            r = trainer_window(cfg)
+            log(f"{tag}: {label}, graphed, after the first epoch: " + "; ".join(
+                f"{what} {rate:.2f} bags/s over {n} epochs (epochs: median {med:.2f}, "
+                f"{lo:.2f}-{hi:.2f}, {slow} under half the median)"
+                for what, (rate, med, lo, hi, n, slow) in r.items())
+                + f" ({power})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def bf16_flash_times(dev) -> None:
+    """``--bf16-flash``: the twelve bfloat16 flash rows at phase 25 (a)'s
+    timing inputs (B=8, M=16384; CUDA events) beside the bfloat16
+    ``scaled_dot_product_attention`` call, their bounds and, at
+    widths 16 and 32, the exp unit's floor; GE medium in bfloat16 from an
+    int8 store through the graphed Trainer (phase 25 (b)'s first run:
+    :func:`trainer_rates`); phase 25 (b)'s serving rate; and the flash
+    libraries' ptxas registers and spills by instance. Copy the script beside
+    another commit's package to time that commit."""
+    power = gpu_name_and_power()
+    for kind, entry, info in ptxas_lines(("flash", "flash_bwd"), r"(flash_\w+?kernel)"):
+        if "bfloat16" in entry or "wg_kernel" in entry:
+            args = ", ".join(re.findall(r"Li(\d+)E", entry))
+            log(f"bf16-flash: ptxas {kind}<{args}>: {info}")
     for heads, width, e in FLASH_INSTANCES:
         for way in ("fwd", "bwd"):  # phase 25 (a)'s timing inputs
             t = time_bf16_flash_row(dev, heads, width, e, way, iters=5)
@@ -7634,19 +7774,76 @@ def bf16_flash_times(dev) -> None:
             log(f"bf16-flash: flash_{way}_d{width}_bf16 B={GE_B} H={heads} M={GE_M}: {ms:.4f} ms, "
                 f"sdpa {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({t['bound_by']}; "
                 f"{bms / ms:.3f} of it), the exp unit's floor {t['exp_floor_ms']:.4f} ms ({power})")
-    root = tempfile.mkdtemp(prefix="chip_smoke_bf16_flash_")
-    try:
-        paths = make_synthetic_cohort(os.path.join(root, "ge"), **GE_TRAINER_COHORT)
-        what, settings = GE_BF16_RUNS[0]
-        cfg = trainer_config("ge_nacagat.yaml", paths, os.path.join(root, "b"),
-                             {**GE_TRAINER_SET, "training.epochs": 2, **settings})
-        run = _trainer_run("b", f"GE {what}, graphed", cfg, True, power)
-        log(f"bf16-flash: GE medium {what}, graphed, epoch 2: "
-            f"{run['n_train'] / run['train_s']:.2f} train bags/s, "
-            f"{run['n_val'] / run['val_s']:.2f} val bags/s ({power})")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    what, settings = GE_BF16_RUNS[0]
+    trainer_rates("bf16-flash", "ge_nacagat.yaml", GE_TRAINER_COHORT,
+                  ((f"GE medium {what}", {**GE_TRAINER_SET, **settings}),), power)
     ge_bf16_serving(dev, power)
+
+
+BF16_FK_TIMED = ((128, 128), (256, 256), (512, 512), (256, 128))  # (E, F) of --bf16-fuse-k
+FK_KINDS = r"(fused_k_kernel|fused_k_bwd_kernel|fk_fwd_wg_kernel|fk_bwd_wg_kernel|" \
+    r"dwk_wg_kernel|dwk_kernel)"
+
+
+def bf16_fuse_k_times(dev) -> None:
+    """``--bf16-fuse-k``: the bfloat16 fuse-K rows (eval form, training form
+    at dropout TRAIN_RATE, backward) at B=32, N=6, M=8192 on phase 24 (a)'s
+    prefix masks, at each (E, F) of BF16_FK_TIMED, each beside its float32
+    row, its plain version and its bound (CUDA events); the fuse-K
+    libraries' ptxas registers and spills by instance; NaCAGaT medium and
+    big in bfloat16 from an int8 store through the cached graphed Trainer
+    (phase 24 (b)'s and 26 (b)'s first run: :func:`trainer_rates`). Copy
+    the script beside another commit's package to time that commit."""
+    import torch
+
+    power = gpu_name_and_power()
+    for kind, entry, info in ptxas_lines(("coattn", "coattn_bwd"), FK_KINDS):
+        targs = re.search(kind + r"I(.*?)EEv", entry)
+        targs = targs.group(1) if targs else ""
+        args = ", ".join(re.findall(r"L[ib](\d+)E", targs))
+        bf = "bf16" if "bfloat16" in targs or "wg_kernel" in kind else "f32"
+        log(f"bf16-fuse-k: ptxas {kind}<{args}> ({bf}): {info}")
+    bf = torch.bfloat16
+
+    def row_calls(e, f):
+        """(mask, :func:`fuse_k_row_calls`) at (E, F) = (e, f), the inputs
+        drawn from the same seeds each time."""
+        q, kv, wk, bk, _, mask = make_inputs(TRAIN_M, f, 7700 + e + f, dev, e, "prefix",
+                                             with_k=False)
+        seed = torch.tensor([e + f], dtype=torch.int32, device=dev)
+        g = torch.Generator(device="cpu").manual_seed(e + f)
+        dout = torch.randn(B, N, f, generator=g).to(dev).to(bf)
+        dssq, dsumw = (torch.randn(B, N, generator=g).to(dev) for _ in range(2))
+        fk16 = tuple(t.to(bf) for t in (q, kv, wk, bk)) + (mask,)
+        return mask, fuse_k_row_calls(fk16, (q, kv, wk, bk, mask), seed, dout, dssq, dsumw)
+
+    # every float32 row first, before any bfloat16 kernel has run, so that a
+    # float32 row's time does not depend on the bfloat16 kernels timed
+    # before it
+    ms32 = {}
+    for e, f in BF16_FK_TIMED:
+        _, calls = row_calls(e, f)
+        for name, (_, row32, _) in calls.items():
+            ms32[name, e, f] = cuda_ms(row32, iters=20)
+        del calls
+        torch.cuda.empty_cache()
+    for e, f in BF16_FK_TIMED:
+        mask, calls = row_calls(e, f)
+        for name, (kern, _, plain) in calls.items():
+            ms = cuda_ms(kern, iters=20)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            bms, by = bf16_bound_ms(name, mask, e, f)
+            row32 = ms32[name, e, f]
+            log(f"bf16-fuse-k: {name} B={B} N={N} M={TRAIN_M} E={e} F={f}: kernel {ms:.4f} ms, "
+                f"its float32 row {row32:.4f} ms ({row32 / ms:.2f}x), plain {plain_ms:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}; {bms / ms:.3f} of it reached"
+                f"{design_note(name, mask, e, f, ms)}) ({power})")
+        del mask, calls
+        torch.cuda.empty_cache()
+    what, settings = BF16_RUNS[0][:2]
+    trainer_rates("bf16-fuse-k", "nacagat.yaml", TRAINER_COHORT,
+                  [(f"NaCAGaT {size} {what}, cached", {**base, **settings})
+                   for size, base in (("medium", TRAINER_SET), ("big", BIG_SET))], power)
 
 
 def main() -> int:
@@ -7660,6 +7857,11 @@ def main() -> int:
     ap.add_argument("--step-time", action="store_true",
                     help="time a graphed training step and validation batch of NaCAGaT cesar "
                          "and MCAT ces at 50 signature groups instead of phases 1-31")
+    ap.add_argument("--bf16-fuse-k", action="store_true",
+                    help="time the bfloat16 fuse-K rows (eval, training, backward at four "
+                         "(E, F)) beside their float32 rows, plain versions and bounds, "
+                         "NaCAGaT medium's and big's bf16 training bags/s, and print the "
+                         "fuse-K instances' registers, instead of phases 1-31")
     ap.add_argument("--bf16-flash", action="store_true",
                     help="time the twelve bfloat16 flash instances beside sdpa, GE medium's "
                          "bf16 training and serving bags/s, and print the flash instances' "
@@ -7697,6 +7899,9 @@ def main() -> int:
         return 0
     if args.bf16_flash:
         bf16_flash_times(dev)
+        return 0
+    if args.bf16_fuse_k:
+        bf16_fuse_k_times(dev)
         return 0
     bags, omics = make_bags(0)
     if args.profile:

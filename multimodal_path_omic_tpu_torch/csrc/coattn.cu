@@ -165,31 +165,23 @@
 // the arithmetic the float32 instance's: q.k and tanh(q).tanh(k) summed in
 // float32, tanh(q) and tanh(k) rounded to bfloat16, p v in float32, o
 // written in bfloat16 by combine_kernel<bf16>; l, m, ssq, sumw float32.
-// fused_k_kernel, stats_kernel and weights_kernel with T = __nv_bfloat16
-// read bfloat16 q, kv, wk, bk (k) and compute what the JAX kernel computes
-// from them: float32 sums; k = kv wk + bk rounded to bfloat16 after the
-// projection; tanh(q) and tanh(k) rounded to bfloat16; p kv in float32 (p
-// float32, kv exact); o written in bfloat16 by combine_kernel<bf16>; l, m,
-// ssq, sumw and the weights float32. They are these kernels with their input
-// type a template parameter, not a new design: the tile list, the Philox
-// dropout, the fixed-order merges and the skipped tiles are the float32
-// instances'. Values are converted to float32 on their way into the same
-// float32 tiles (flash_common.cuh: a synchronous converting load where the
-// float32 instance has cp.async), so the bytes read from device memory
-// halve and the shared memory does not; the projection k = kv wk, whose two
-// operands are exact in TF32, runs as one TF32 mma.sync a step where the
-// float32 instance runs three (the EXACT products; bfloat16 mma.sync
-// m16n8k16 would be an equal choice, and this keeps one product code).
-// Instances: (E, F) in {128, 256}^2 and (512, 512) (both forms), D in {128,
-// 256, 512} (export, and the plain-K forward with values). At E = 512 the k
-// tile is two E chunks of 256 through
-// the same FkFwdSmem<512> (231,968 bytes) and the register prefetch carries
-// the 256-column chunk it carries at E = 256.
+// stats_kernel and weights_kernel with T = __nv_bfloat16 read bfloat16 q
+// and k and compute what the JAX kernel computes from them (float32 sums,
+// tanh(q) and tanh(k) rounded to bfloat16, l, m and the weights float32):
+// the float32 instances with their input type a template parameter, values
+// widened to float32 where they are read (D in {128, 256, 512}). The
+// bfloat16 fuse-K forward (both forms, (E, F) in {128, 256}^2 and (512,
+// 512)) is a design of its own on Hopper's warpgroup MMA, fk_fwd_wg_kernel
+// in fused_k_sm90.cuh (its notes there): wk resident in shared memory where
+// it fits, k = kv wk by wgmma into registers, the scores from k's
+// fragments, o += p kv in float32, the tile list, dropout and merges of
+// fused_k_kernel; o written in bfloat16 by combine_kernel<bf16>.
 //
 // Interface: plain C, called through ctypes. Every function returns
 // cudaGetLastError() after its launches (0 = success); nothing allocates,
 // everything runs on the caller's stream.
 
+#include "fused_k_sm90.cuh"
 #include "plain_k_fwd.cuh"
 
 namespace {
@@ -231,10 +223,10 @@ struct FkFwdSmem {
 // undropped p; o, ssq and sumw take the dropped pd = keep * p / (1 - rate)),
 // bits from dropout_bits(seed, b, n, key) with keep iff bits >= thresh
 // (thresh 0: no dropout). Thread tid owns the o columns tid + 256 c, c < FC.
-template <int E, int FC, bool TRAIN, typename T>
+template <int E, int FC, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
-fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-               const T* __restrict__ wk, const T* __restrict__ bk,
+fused_k_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+               const float* __restrict__ wk, const float* __restrict__ bk,
                const uint8_t* __restrict__ mask, const int* __restrict__ list,
                const int* __restrict__ off, float* __restrict__ o_part,
                float* __restrict__ ml_part, float* __restrict__ sq_part,
@@ -265,7 +257,7 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     if (i >= i1) return;
     const int u = list[i], c = s % NC, ec = c / NCF, f0 = (c % NCF) * WC;
     const int r0 = (u % n_tiles) * FK_BM;
-    const T* src = kv + (size_t)(u / n_tiles) * M * F;
+    const float* src = kv + (size_t)(u / n_tiles) * M * F;
     float* slot = S.ring[s % 3];
     for (int idx = tid; idx < FK_BM * WC / 4; idx += THREADS) {
       const int row = idx / (WC / 4), col = 4 * (idx % (WC / 4));
@@ -278,56 +270,6 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   cp_async_commit();
   issue_chunk(1);
   cp_async_commit();
-  // bfloat16: in the loop, chunk step s + 2 travels through registers,
-  // fetched before step s's product and stored into its slot (free since
-  // step s's barrier) after it, so its loads overlap the product: the
-  // converting copy's counterpart of the cp.async ring.
-  constexpr int KV_IT = FK_BM * WC / 4 / THREADS, W_IT = WC * EC / 4 / THREADS;
-  static_assert(KV_IT * THREADS * 4 == FK_BM * WC && W_IT * THREADS * 4 == WC * EC,
-                "whole prefetch iterations");
-  uint2 pre[KV_IT + W_IT];
-  int pre_s = -1;  // the chunk step `pre` holds (-1: none)
-  auto fetch_chunk = [&](int s) {
-    if constexpr (IS_BF16<T>) {
-      pre_s = -1;
-      const int i = i0 + s / NC;
-      if (i >= i1) return;
-      const int u = list[i], c = s % NC, ec = c / NCF, f0 = (c % NCF) * WC;
-      const int r0 = (u % n_tiles) * FK_BM;
-      const T* src = kv + (size_t)(u / n_tiles) * M * F;
-#pragma unroll
-      for (int x = 0; x < KV_IT; ++x) {
-        const int idx = tid + x * THREADS, row = idx / (WC / 4), col = 4 * (idx % (WC / 4));
-        pre[x] = fetch_bf16x4(src + (size_t)(r0 + row) * F + f0 + col,
-                              r0 + row < M && f0 + col < F);
-      }
-#pragma unroll
-      for (int x = 0; x < W_IT; ++x) {
-        const int idx = tid + x * THREADS, row = idx / (EC / 4), c4 = idx % (EC / 4);
-        pre[KV_IT + x] = fetch_bf16x4(wk + (size_t)(f0 + row) * E + ec * EC + 4 * c4,
-                                      f0 + row < F);
-      }
-      pre_s = s;
-    }
-  };
-  auto store_chunk = [&]() {
-    if constexpr (IS_BF16<T>) {
-      if (pre_s < 0) return;
-      float* slot = S.ring[pre_s % 3];
-#pragma unroll
-      for (int x = 0; x < KV_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        store_bf16x4(slot + (idx / (WC / 4)) * KVS + 4 * (idx % (WC / 4)), pre[x]);
-      }
-#pragma unroll
-      for (int x = 0; x < W_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        store_bf16x4(slot + FK_BM * KVS + (idx / (EC / 4)) * RS + 4 * (idx % (EC / 4)),
-                     pre[KV_IT + x]);
-      }
-    }
-  };
-
   float oacc[NMAX][FC];  // set when the first bag begins
   float m_run = NEG, l_run = 0.f;       // the softmax state of query `warp`
   float ssq_run = 0.f, sumw_run = 0.f;  // TRAIN: sums of pd^2 and pd
@@ -364,9 +306,9 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       b = ub;
       // the last unit's score pass is done with S.q (two barriers since)
       for (int j = tid; j < N * E; j += THREADS) {
-        const float v = to_f32(q[(size_t)b * N * E + j]);
+        const float v = q[(size_t)b * N * E + j];
         S.q[j / E][j % E] = v;
-        S.tq[j / E][j % E] = round_to<T>(tanhf(v));
+        S.tq[j / E][j % E] = tanhf(v);
       }
 #pragma unroll
       for (int n = 0; n < NMAX; ++n)
@@ -390,22 +332,20 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         for (int ch = 0; ch < NCF; ++ch, ++s) {
           cp_async_wait<1>();
           __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-          if constexpr (IS_BF16<T>) fetch_chunk(s + 2);
-          else issue_chunk(s + 2);
+          issue_chunk(s + 2);
           cp_async_commit();
           const float* slot = S.ring[s % 3];
-          acc_product_rows<2, NT, WC, S_::G, false, IS_BF16<T>>(c, slot, KVS, slot + FK_BM * KVS,
-                                                               RS, 32 * wr, 8 * NT * wc, lane);
-          store_chunk();  // bfloat16: step s + 2 into its slot
+          acc_product_rows<2, NT, WC, S_::G>(c, slot, KVS, slot + FK_BM * KVS, RS, 32 * wr,
+                                             8 * NT * wc, lane);
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int col = ec * EC + 8 * NT * wc + 8 * j + 2 * t4;
-          const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
+          const float b0 = bk[col], b1 = bk[col + 1];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {  // k in T's precision (bfloat16: rounded once)
-            c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
-            c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
+          for (int r = 0; r < 2; ++r) {
+            c[r][j][0] += b0; c[r][j][1] += b1;
+            c[r][j][2] += b0; c[r][j][3] += b1;
           }
         }
         // S.k is free: the last chunk's score pass ended before this chunk's
@@ -442,7 +382,7 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int r = 0; r < FK_RPW; ++r)
 #pragma unroll
-        for (int j = 0; j < EPT; ++j) kr[r][j] = round_to<T>(tanhf(kr[r][j]));
+        for (int j = 0; j < EPT; ++j) kr[r][j] = tanhf(kr[r][j]);
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
         if (n >= N) break;
@@ -480,7 +420,7 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     // which the score pass is done with, during the softmax
     const bool kv_in_smem = F <= EC;
     if (kv_in_smem) {
-      const T* src = kv + ((size_t)b * M + m0) * F;
+      const float* src = kv + ((size_t)b * M + m0) * F;
       for (int idx = tid; idx < FK_BM * F / 4; idx += THREADS) {
         const int row = idx / (F / 4), c4 = idx % (F / 4);
         const bool ok = m0 + row < M;
@@ -522,7 +462,7 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       }
     }
     const int rows = min(FK_BM, M - m0);
-    const T* kv_t = kv + ((size_t)b * M + m0) * F;
+    const float* kv_t = kv + ((size_t)b * M + m0) * F;
     if (kv_in_smem) {
       cp_async_wait<0>();
       __syncthreads();
@@ -533,7 +473,7 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int c = 0; c < FC; ++c) {
         const int f = tid + THREADS * c;
-        x[c] = f < F ? (kv_in_smem ? S.k[r][f] : to_f32(kv_t[(size_t)r * F + f])) : 0.f;
+        x[c] = f < F ? (kv_in_smem ? S.k[r][f] : kv_t[(size_t)r * F + f]) : 0.f;
       }
 #pragma unroll
       for (int n = 0; n < NMAX; ++n) {
@@ -554,8 +494,8 @@ fused_k_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 // The fuse-K forward's launches: the tile flags and list, fused_k_kernel
 // over `blocks` blocks, combine_kernel. sq_part and ssq are used by the
 // TRAIN form only.
-template <int E, int FC, bool TRAIN, typename T>
-int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
+template <int E, int FC, bool TRAIN>
+int launch_fk_instance(const float* q, const float* kv, const float* wk, const float* bk,
                        const uint8_t* mask, const int* list, const int* off, float* o_part,
                        float* ml_part, float* sq_part, const int* seed, uint32_t thresh,
                        float keep_scale, uint32_t bag0, int B, int N, int M, int F, int blocks,
@@ -564,9 +504,9 @@ int launch_fk_instance(const T* q, const T* kv, const T* wk, const T* bk,
   static bool allowed[64] = {};
   constexpr int smem = (int)sizeof(FkFwdSmem<E>);
   static_assert(smem <= 232448, "shared memory of one block");
-  const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN, T>, smem, allowed);
+  const int err = allow_dynamic_smem(fused_k_kernel<E, FC, TRAIN>, smem, allowed);
   if (err) return err;
-  fused_k_kernel<E, FC, TRAIN, T><<<blocks, THREADS, smem, st>>>(
+  fused_k_kernel<E, FC, TRAIN><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, list, off, o_part, ml_part, sq_part, seed, thresh, keep_scale, bag0,
       B, N,
       M, F, scale);
@@ -590,14 +530,19 @@ int launch_fused_k(const T* q, const T* kv, const T* wk, const T* bk,
   const int fc = F <= 256 ? 1 : (F <= 512 ? 2 : 4);  // o columns a thread
 #define MPO_FK(E_, FC_)                                                                    \
   if (E == E_ && fc == FC_)                                                                \
-    err = launch_fk_instance<E_, FC_, TRAIN, T>(q, kv, wk, bk, mask, list, off, o_part,      \
+    err = launch_fk_instance<E_, FC_, TRAIN>(q, kv, wk, bk, mask, list, off, o_part,         \
                                                 ml_part, sq_part, seed, thresh, keep_scale, \
                                                 bag0, B, \
                                                 N, M, F, blocks, scale, st);
   if constexpr (IS_BF16<T>) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py BF16_EF), both forms
-    if (E == 512 ? F != 512 : F > 256) return (int)cudaErrorInvalidValue;
-    MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
-    else return (int)cudaErrorInvalidValue;
+#define MPO_FKW(E_, F_)                                                                        \
+  if (E == E_ && F == F_)                                                                      \
+    err = fk90::launch_fwd<E_, F_, TRAIN>(q, kv, wk, bk, mask, list, off, o_part, ml_part,     \
+                                          sq_part, seed, thresh, keep_scale, bag0, B, N, M,    \
+                                          blocks, scale, st);
+    MPO_FKW(256, 256) else MPO_FKW(128, 128) else MPO_FKW(256, 128) else MPO_FKW(128, 256)
+    else MPO_FKW(512, 512) else return (int)cudaErrorInvalidValue;
+#undef MPO_FKW
   } else if constexpr (TRAIN) {  // E, F in {128, 256}, or E = F = 512 (ops/coattn.py FUSED_K_TRAIN_EF)
     MPO_FK(256, 1) else MPO_FK(128, 1) else MPO_FK(512, 2)
     else return (int)cudaErrorInvalidValue;

@@ -83,34 +83,23 @@
 //    blocks that held the bag, dbk over blocks, dwk over shares): two runs
 //    give identical gradients.
 
-// The bfloat16 instances (fused_k_bwd_kernel and dwk_kernel with T =
-// __nv_bfloat16; (E, F) in {128, 256}^2 and (512, 512)): q, kv, wk, bk and
-// dO are read as bfloat16 (the JAX kernel's bfloat16 tiles,
-// ops/coattn.py:490-503); k is recomputed as the forward's bfloat16
-// instance computes it (one TF32 MMA an 8-deep step on values exact in
-// TF32, in the forward's order, rounded to bfloat16), tanh(q) and tanh(k) rounded to
-// bfloat16; every sum is float32. dq and dkv are written in bfloat16; dk
-// (the scratch), dwk and dbk stay float32 (the wrapper casts dwk and dbk to
-// wk's type, as _coattn_fk_bwd does). The dkv and dwk products keep the
-// 3xTF32 split of dk (float32); wk's and kv's small parts are 0.
-//  * Narrow (E, F <= 256): the values are converted into the same float32
-//    tiles (flash_common.cuh): the next chunk step (and, in the dkv loop,
-//    the next unit's kv slice) is fetched into registers before a step's
-//    product and stored after it, the converting copy's counterpart of
-//    cp.async.
-//  * E = F = 512: the float32 instance sits at 255 registers, so no
-//    register prefetch; the ring's slots hold bfloat16 instead, copied raw
-//    by cp.async as the float32 slices are (FkWideSmem: 16 deep a step, the
-//    same 36,864 bytes for twice the depth, half the steps and barriers),
-//    and the fragments widen each value on its way to the MMA
-//    (flash_common.cuh): the k product one TF32 MMA an 8-deep step, the dkv
-//    product two (dk's big and small parts against wk).
+// The bfloat16 instances ((E, F) in {128, 256}^2 and (512, 512);
+// mpo_coattn_bwd_fused_k_bf16) are a design of their own on Hopper's
+// warpgroup MMA, fk_bwd_wg_kernel and dwk_wg_kernel in fused_k_sm90.cuh (its
+// notes there): k recomputed by the forward's device functions, dk formed
+// 64 columns at a time and split into two bfloat16 parts, the A registers
+// against wk for dkv and, through the scratch, the B tiles against kv for
+// dwk; the tile list, dropout and fixed-order reductions of the float32
+// instances. q, kv, wk, bk and dO are read as bfloat16; dq and dkv written
+// in bfloat16; dwk and dbk summed in float32 (the wrapper casts them to
+// wk's type, as _coattn_fk_bwd does).
 //
 // Interface: plain C, called through ctypes; returns cudaGetLastError() after
 // its launches (0 = success); allocates nothing; runs on the caller's stream.
 
 #include <type_traits>
 
+#include "fused_k_sm90.cuh"
 #include "plain_k_bwd.cuh"
 
 namespace {
@@ -144,29 +133,25 @@ struct FkSmem {
   float stat[5][NMAX];  // m, 1/l, di, dssq, dsumw per query
 };
 
-// E = F = 512: kv streams through the ring (see the design notes). The
-// ring holds T: float32 slices 8 deep, or (the bfloat16 instance) bfloat16
-// slices 16 deep, copied raw by cp.async (rows padded to 16 bytes).
-template <int E, int F, typename T>
+// E = F = 512: kv streams through the ring (see the design notes), float32
+// slices 8 deep.
+template <int E, int F>
 struct FkWideSmem {
   static constexpr bool WIDE = true;
-  static constexpr bool BF = IS_BF16<T>;
-  static constexpr int WC = BF ? 16 : 8;        // depth of a chunk step, both products
-  static constexpr int PAD = BF ? 8 : 4;        // row padding of the ring's slices
+  static constexpr int WC = 8;                  // depth of a chunk step, both products
   static constexpr int EC = 256, NEC = E / EC;  // k product: E columns a chunk
   static constexpr int FH = 256, NFH = F / FH;  // dkv product: F columns a pass
-  // kv slice [64][WC]: acc-product A (float32 8 words a row, 8 mod 32; bfloat16 12)
-  static constexpr int KVS = BF ? WC + PAD : WC;
-  static constexpr int RS = EC + PAD;           // wk row slice [WC][EC]: acc-product B
+  static constexpr int KVS = WC;                // kv slice [64][WC]: acc-product A, 8 mod 32
+  static constexpr int RS = EC + 4;             // wk row slice [WC][EC]: acc-product B
   static constexpr int KS = E + 4;              // k / tanh(k) / dk: row-product A, 4 mod 32
-  static constexpr int CS = WC + PAD;           // wk column chunk [FH][WC]: row-product B (12 or 24: no conflict)
+  static constexpr int CS = WC + 4;             // wk column chunk [FH][WC]: row-product B (12: no conflict)
   static constexpr int SLOT = FK_BM * KVS + WC * RS > FH * CS ? FK_BM * KVS + WC * RS : FH * CS;
   static constexpr int NCF = F / WC, NCE = E / WC;  // chunk steps an E chunk, an F half
   static constexpr int NK = NEC * NCF;              // chunk steps of the k product
   static constexpr int NTE = EC / 32, NTF = FH / 32;
   static constexpr int GK = 4, GD = 4;
   static constexpr int KV_ROWS = 0;  // kv is not resident
-  alignas(16) T ring[3][SLOT];
+  alignas(16) float ring[3][SLOT];
   alignas(16) float k[FK_BM][KS];  // k, then tanh(k), then dk
   alignas(16) float q[NMAX][E];
   alignas(16) float tq[NMAX][E];
@@ -177,25 +162,23 @@ struct FkWideSmem {
   float stat[5][NMAX];
 };
 
-template <int E, int F, typename T>
-using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F, T>, FkSmem<E, F>>;
+template <int E, int F>
+using FkBwdSmem = std::conditional_t<(E > 256 || F > 256), FkWideSmem<E, F>, FkSmem<E, F>>;
 
-template <int E, int F, typename T>
+template <int E, int F>
 __global__ void __launch_bounds__(THREADS)
-fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                   const T* __restrict__ wk, const T* __restrict__ bk,
+fused_k_bwd_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+                   const float* __restrict__ wk, const float* __restrict__ bk,
                    const uint8_t* __restrict__ mask, const int* __restrict__ seed_ptr,
-                   uint32_t thresh, float keep_scale, uint32_t bag0, const T* __restrict__ dout,
+                   uint32_t thresh, float keep_scale, uint32_t bag0, const float* __restrict__ dout,
                    const float* __restrict__ l, const float* __restrict__ m,
                    const float* __restrict__ di, const float* __restrict__ dssq,
-                   const float* __restrict__ dsumw, T* __restrict__ dkv,
+                   const float* __restrict__ dsumw, float* __restrict__ dkv,
                    float* __restrict__ dk_out, const int* __restrict__ list,
                    const int* __restrict__ off, float* __restrict__ dq_part,
                    float* __restrict__ dbk_part, int B, int N, int M, float scale) {
-  using S_ = FkBwdSmem<E, F, T>;
+  using S_ = FkBwdSmem<E, F>;
   constexpr bool WIDE = S_::WIDE;
-  // bfloat16, narrow: the ring's float32 tiles filled through registers
-  constexpr bool REG_FETCH = IS_BF16<T> && !WIDE;
   constexpr int EPT = E / 32;  // E columns per lane
   constexpr int FPT = F / 32;  // F columns per lane
   constexpr int CE = (E + THREADS - 1) / THREADS;  // E columns a column owner holds
@@ -251,80 +234,6 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   cp_async_commit();
   issue_chunk(1);
   cp_async_commit();
-  // bfloat16 (narrow): in the loops, chunk step s + 2, and in the dkv loop
-  // the next unit's kv slice, travel through registers, fetched before a
-  // step's product and stored into their places after it, so the loads
-  // overlap the product (the converting copy's counterpart of cp.async).
-  constexpr int WK_GROUPS = (WC * E > F * WC ? WC * E : F * WC) / 4;
-  constexpr int WK_IT = (WK_GROUPS + THREADS - 1) / THREADS;
-  constexpr int KVN_GROUPS = S_::KV_ROWS * F / 4;
-  constexpr int KVN_IT = (KVN_GROUPS + THREADS - 1) / THREADS;
-  uint2 pre_w[WK_IT], pre_kv[KVN_IT > 0 ? KVN_IT : 1];
-  int pre_s = -1, pre_ch = -1;  // the chunk step / kv slice held (-1: none)
-  auto fetch_chunk = [&](int s) {
-    if constexpr (REG_FETCH) {
-      pre_s = -1;
-      if (i0 + s / NC >= i1) return;
-      const int c = s % NC;
-#pragma unroll
-      for (int x = 0; x < WK_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        if (c < NCF) {  // wk rows c WC .. [WC][E]
-          pre_w[x] = fetch_bf16x4(wk + (size_t)(c * WC + idx / (E / 4)) * E + 4 * (idx % (E / 4)),
-                                  idx < WC * E / 4);
-        } else {  // wk columns (c - NCF) WC .. [F][WC]
-          pre_w[x] = fetch_bf16x4(wk + (size_t)(idx / (WC / 4)) * E + (c - NCF) * WC +
-                                      4 * (idx % (WC / 4)), idx < F * WC / 4);
-        }
-      }
-      pre_s = s;
-    }
-  };
-  auto store_chunk = [&]() {
-    if constexpr (REG_FETCH) {
-      if (pre_s < 0) return;
-      const int c = pre_s % NC;
-      float* slot = S.ring[pre_s % 3];
-#pragma unroll
-      for (int x = 0; x < WK_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        if (c < NCF) {
-          if (idx < WC * E / 4) store_bf16x4(slot + (idx / (E / 4)) * RS + 4 * (idx % (E / 4)),
-                                             pre_w[x]);
-        } else if (idx < F * WC / 4) {
-          store_bf16x4(slot + (idx / (WC / 4)) * CS + 4 * (idx % (WC / 4)), pre_w[x]);
-        }
-      }
-    }
-  };
-  // kv slice ch of the unit at rows m0n .. of bag tile kvn (zero rows past M)
-  auto fetch_kv = [&](const T* kvn, int m0n, int ch) {
-    if constexpr (REG_FETCH) {
-      pre_ch = -1;
-      if (kvn == nullptr) return;
-#pragma unroll
-      for (int x = 0; x < KVN_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        const int row = m0n + ch * S_::KV_ROWS + idx / (F / 4);
-        pre_kv[x] = fetch_bf16x4(kvn + (size_t)row * F + 4 * (idx % (F / 4)),
-                                 idx < KVN_GROUPS && row < M);
-      }
-      pre_ch = ch;
-    }
-  };
-  auto store_kv = [&]() {
-    if constexpr (REG_FETCH) {
-      if (pre_ch < 0) return;
-#pragma unroll
-      for (int x = 0; x < KVN_IT; ++x) {
-        const int idx = tid + x * THREADS;
-        if (idx < KVN_GROUPS)
-          store_bf16x4(&S.kv[pre_ch * S_::KV_ROWS + idx / (F / 4)][4 * (idx % (F / 4))],
-                       pre_kv[x]);
-      }
-    }
-  };
-
   // column-owner accumulators of the current bag: thread tid owns E columns
   // tid + 256 h, h < CE (dq's tanh term) and F columns tid + 256 h, h < CF
   // (z = sum_r da_r kv_r); thread n < N owns sum_r da; dbk sums over every
@@ -354,12 +263,12 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
         for (int n = 0; n < NMAX; ++n) v[n] = 0.f;
         for (int f = 0; f < F; ++f) {
-          const float w = to_f32(wk[(size_t)f * E + col]);
+          const float w = wk[(size_t)f * E + col];
 #pragma unroll
           for (int n = 0; n < NMAX; ++n)
             if (n < N) v[n] = fmaf(zs[n * F + f], w, v[n]);
         }
-        const float bkv = to_f32(bk[col]);
+        const float bkv = bk[col];
         float* dst = dq_part + ((size_t)blockIdx.x + b) * N * E;
 #pragma unroll
         for (int n = 0; n < NMAX; ++n) {
@@ -380,12 +289,11 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       if (b >= 0) flush();
       b = ub;
       for (int j = tid; j < N * E; j += THREADS) {
-        const float v = to_f32(q[(size_t)b * N * E + j]);
+        const float v = q[(size_t)b * N * E + j];
         S.q[j / E][j % E] = v;
-        S.tq[j / E][j % E] = round_to<T>(tanhf(v));
+        S.tq[j / E][j % E] = tanhf(v);
       }
-      for (int j = tid; j < N * F; j += THREADS)
-        S.dout[j / F][j % F] = to_f32(dout[(size_t)b * N * F + j]);
+      for (int j = tid; j < N * F; j += THREADS) S.dout[j / F][j % F] = dout[(size_t)b * N * F + j];
       if (tid < N) {
         const size_t bn = (size_t)b * N + tid;
         const float lv = l[bn];
@@ -405,9 +313,9 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       sda = 0.f;
     }
     const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * M;
-    const T* kv_t = kv + ((size_t)b * M + m0) * F;  // WIDE: the tile's kv rows, read in place
+    const float* kv_t = kv + ((size_t)b * M + m0) * F;  // WIDE: the tile's kv rows, read in place
     const int rows = min(FK_BM, M - m0);
-    const T* kv_next = nullptr;  // narrow: the next unit's kv tile, loaded during dkv
+    const float* kv_next = nullptr;  // narrow: the next unit's kv tile, loaded during dkv
     int m0_next = 0;
     if (!WIDE && i + 1 < i1) {
       const int un = list[i + 1];
@@ -428,19 +336,18 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
           __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
           issue_chunk(s + 2);
           cp_async_commit();
-          // bfloat16: the forward's k product (csrc/coattn.cu), step for step
-          const auto* slot = S.ring[s % 3];
+          const float* slot = S.ring[s % 3];
           acc_product_rows<2, NTE, WC, S_::GK>(c, slot, S_::KVS, slot + FK_BM * S_::KVS, RS,
                                                32 * wr, 8 * NTE * wc, lane);
         }
 #pragma unroll
         for (int j = 0; j < NTE; ++j) {
           const int col = ec * S_::EC + 8 * NTE * wc + 8 * j + 2 * t4;
-          const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
+          const float b0 = bk[col], b1 = bk[col + 1];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {  // k as the forward computes it (bfloat16: rounded)
-            c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
-            c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
+          for (int r = 0; r < 2; ++r) {
+            c[r][j][0] += b0; c[r][j][1] += b1;
+            c[r][j][2] += b0; c[r][j][3] += b1;
           }
         }
         // S.k is free: the last unit's dkv product ended before this unit's
@@ -457,21 +364,19 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         if (ch == 0) cp_async_wait<0>();  // this tile's kv too
         else cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-        if constexpr (IS_BF16<T>) fetch_chunk(s + 2);
-        else issue_chunk(s + 2);
+        issue_chunk(s + 2);
         cp_async_commit();
-        acc_product_rows<2, NTE, WC, S_::GK, false, IS_BF16<T>>(
-            c, &S.kv[0][ch * WC], S_::KVS, S.ring[s % 3], RS, 32 * wr, 8 * NTE * wc, lane);
-        store_chunk();  // bfloat16: step s + 2 into its slot
+        acc_product_rows<2, NTE, WC, S_::GK>(c, &S.kv[0][ch * WC], S_::KVS, S.ring[s % 3], RS,
+                                             32 * wr, 8 * NTE * wc, lane);
       }
 #pragma unroll
       for (int j = 0; j < NTE; ++j) {
         const int col = 8 * NTE * wc + 8 * j + 2 * t4;
-        const float b0 = to_f32(bk[col]), b1 = to_f32(bk[col + 1]);
+        const float b0 = bk[col], b1 = bk[col + 1];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {  // k as the forward computes it (bfloat16: rounded)
-          c[r][j][0] = round_to<T>(c[r][j][0] + b0); c[r][j][1] = round_to<T>(c[r][j][1] + b1);
-          c[r][j][2] = round_to<T>(c[r][j][2] + b0); c[r][j][3] = round_to<T>(c[r][j][3] + b1);
+        for (int r = 0; r < 2; ++r) {
+          c[r][j][0] += b0; c[r][j][1] += b1;
+          c[r][j][2] += b0; c[r][j][3] += b1;
         }
       }
       store_c<NTE>(c[0], &S.k[0][0], KS, 32 * wr, 8 * NTE * wc, lane);
@@ -515,7 +420,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
         for (int i = 0; i < FK_RPW; ++i) {
 #pragma unroll
-          for (int j = 0; j < EPH; ++j) kr[i][j] = round_to<T>(tanhf(kr[i][j]));
+          for (int j = 0; j < EPH; ++j) kr[i][j] = tanhf(kr[i][j]);
 #pragma unroll
           for (int j4 = 0; j4 < EPH / 4; ++j4)
             *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][h * EH + j4 * 128 + 4 * lane]) =
@@ -601,7 +506,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int i = 0; i < FK_RPW; ++i) {
 #pragma unroll
-        for (int j = 0; j < EPT; ++j) kr[i][j] = round_to<T>(tanhf(kr[i][j]));
+        for (int j = 0; j < EPT; ++j) kr[i][j] = tanhf(kr[i][j]);
 #pragma unroll
         for (int j4 = 0; j4 < EPT / 4; ++j4)
           *reinterpret_cast<float4*>(&S.k[warp * FK_RPW + i][j4 * 128 + 4 * lane]) =
@@ -689,7 +594,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         // WIDE: the kv rows from L2 (rows past M do not exist; their da is 0)
         for (int r = 0; r < (WIDE ? rows : FK_BM); ++r) {
           float x;
-          if constexpr (WIDE) x = to_f32(kv_t[(size_t)r * F + col]);
+          if constexpr (WIDE) x = kv_t[(size_t)r * F + col];
           else x = S.kv[r][col];
 #pragma unroll
           for (int n = 0; n < NMAX; ++n)
@@ -782,22 +687,15 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       for (int ch = 0; ch < NCE; ++ch, ++s) {
         cp_async_wait<1>();
         __syncthreads();  // chunk s landed; slot (s + 2) % 3 is free
-        if constexpr (REG_FETCH) {  // registers now, their places after the product
-          fetch_chunk(s + 2);
-          fetch_kv(kv_next, m0_next, ch);
-        } else {
-          issue_chunk(s + 2);
-          if constexpr (!WIDE) {
-            if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
-              load_tile_async<S_::KV_ROWS, F, S_::KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
-                                                       m0_next + ch * S_::KV_ROWS, M);
-          }
+        issue_chunk(s + 2);
+        if constexpr (!WIDE) {
+          if (kv_next != nullptr)  // a slice of the next unit's kv tile (S.kv is free now)
+            load_tile_async<S_::KV_ROWS, F, S_::KVS>(&S.kv[ch * S_::KV_ROWS][0], kv_next, F,
+                                                     m0_next + ch * S_::KV_ROWS, M);
         }
         cp_async_commit();
         row_product_rows<2, NTF, WC, S_::GD>(d, &S.k[0][ch * WC], KS, S.ring[s % 3], CS, 32 * wr,
                                              8 * NTF * wc, 0, lane);
-        store_chunk();
-        store_kv();
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -805,7 +703,7 @@ fused_k_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         for (int h = 0; h < 2; ++h) {
           const int key = m0 + 32 * wr + 16 * r + g4 + 8 * h;
           if (key >= M) continue;
-          T* dst = dkv + ((size_t)b * M + key) * F + f0 + 8 * NTF * wc + 2 * t4;
+          float* dst = dkv + ((size_t)b * M + key) * F + f0 + 8 * NTF * wc + 2 * t4;
 #pragma unroll
           for (int j = 0; j < NTF; ++j) store2(dst + 8 * j, d[r][j][2 * h], d[r][j][2 * h + 1]);
         }
@@ -829,9 +727,9 @@ constexpr int DW_S = DW_T + 4;                // staged slice stride: 4 mod 32
 constexpr int DW_STAGE = 2 * FK_BM * DW_S;    // kv slice + dk slice (floats)
 constexpr int DW_SMEM = 2 * DW_STAGE * 4;     // two stages, bytes
 
-template <int E, int F, typename T>
+template <int E, int F>
 __global__ void __launch_bounds__(THREADS)
-dwk_kernel(const T* __restrict__ kv, const float* __restrict__ dk,
+dwk_kernel(const float* __restrict__ kv, const float* __restrict__ dk,
            const int* __restrict__ list, const int* __restrict__ off,
            float* __restrict__ dwk_part, int B, int M) {
   extern __shared__ __align__(16) float dw_smem[];
@@ -892,7 +790,7 @@ int launch_plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask,
   if (err) return err;
   const size_t total = (size_t)B * N * D;
   bwd_reduce_kernel<T><<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, blocks, 0, N, D, 0);
+      dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, blocks, 0, 0, N, D, 0);
   return (int)cudaGetLastError();
 }
 
@@ -918,27 +816,27 @@ int plain_bwd(const T* q, const T* k, const T* v, const uint8_t* mask, const int
   return (int)cudaErrorInvalidValue;
 }
 
-template <int E, int F, typename T>
-int launch_bwd(const T* q, const T* kv, const T* wk, const T* bk,
+template <int E, int F>
+int launch_bwd(const float* q, const float* kv, const float* wk, const float* bk,
                const uint8_t* mask, const int* seed, uint32_t thresh, float keep_scale,
                uint32_t bag0,
-               const T* dout, const float* l, const float* m, const float* di,
-               const float* dssq, const float* dsumw, T* dkv, float* dk_scratch,
+               const float* dout, const float* l, const float* m, const float* di,
+               const float* dssq, const float* dsumw, float* dkv, float* dk_scratch,
                uint8_t* flags, int* list, int* off, float* dq_part, float* dwk_part,
                float* dbk_part, int B, int N, int M, int blocks, int wsplits, float scale,
                cudaStream_t st) {
   static bool allowed_main[64] = {}, allowed_dwk[64] = {};
-  constexpr int smem = (int)sizeof(FkBwdSmem<E, F, T>);
+  constexpr int smem = (int)sizeof(FkBwdSmem<E, F>);
   static_assert(smem <= 232448, "shared memory of one block");
-  int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F, T>, smem, allowed_main);
+  int err = allow_dynamic_smem(fused_k_bwd_kernel<E, F>, smem, allowed_main);
   if (err) return err;
-  err = allow_dynamic_smem(dwk_kernel<E, F, T>, DW_SMEM, allowed_dwk);
+  err = allow_dynamic_smem(dwk_kernel<E, F>, DW_SMEM, allowed_dwk);
   if (err) return err;
-  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st, false, (int)sizeof(T));
-  fused_k_bwd_kernel<E, F, T><<<blocks, THREADS, smem, st>>>(
+  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st);
+  fused_k_bwd_kernel<E, F><<<blocks, THREADS, smem, st>>>(
       q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, l, m, di, dssq, dsumw, dkv,
       dk_scratch, list, off, dq_part, dbk_part, B, N, M, scale);
-  dwk_kernel<E, F, T><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
+  dwk_kernel<E, F><<<dim3((F / DW_T) * (E / DW_T), wsplits), THREADS, DW_SMEM, st>>>(
       kv, dk_scratch, list, off, dwk_part, B, M);
   return (int)cudaGetLastError();
 }
@@ -970,7 +868,7 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
   int err;
 #define MPO_BWD(E_, F_)                                                                    \
   if (E == E_ && F == F_)                                                                  \
-    err = launch_bwd<E_, F_, float>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, l, \
+    err = launch_bwd<E_, F_>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, l,        \
                                     m, di, dssq, dsumw, dkv, dk_scratch, flags, list, off,  \
                                     dq_part, dwk_part, dbk_part, B, N, M, blocks, wsplits,  \
                                     scale, st);
@@ -981,13 +879,14 @@ int mpo_coattn_bwd_fused_k(const float* q, const float* kv, const float* wk, con
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;
   const int grid = (int)((total + THREADS - 1) / THREADS);
   bwd_reduce_kernel<float><<<grid, THREADS, 0, st>>>(dq_part, dwk_part, dbk_part, off, dq, dwk,
-                                                     dbk, B, blocks, wsplits, N, E, F);
+                                                     dbk, B, blocks, wsplits, blocks, N, E, F);
   return (int)cudaGetLastError();
 }
 
-// The bfloat16 instances: q, kv, wk, bk, dout, dq and dkv bfloat16,
-// everything else (dwk and dbk included) as above; E, F in {128, 256}, or
-// E = F = 512.
+// The bfloat16 instances (fused_k_sm90.cuh): q, kv, wk, bk, dout, dq and
+// dkv bfloat16, everything else (dwk and dbk included) as above; E, F in
+// {128, 256}, or E = F = 512. dk_scratch's bytes hold dk's two bfloat16
+// parts; dbk_part [wsplits, E] the dwk pass's dbk partials.
 int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
                                 const __nv_bfloat16* wk, const __nv_bfloat16* bk,
                                 const uint8_t* mask, const int* seed,
@@ -1002,12 +901,14 @@ int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
+  // the tile flags and list (dkv = 0 on the skipped tiles), then the wgmma
+  // kernels (fused_k_sm90.cuh); dbk's partials come from the dwk pass
+  launch_tile_list(mask, dkv, nullptr, flags, list, off, B, M, F, st, false, 2);
 #define MPO_BWD16(E_, F_)                                                                  \
   if (E == E_ && F == F_)                                                                  \
-    err = launch_bwd<E_, F_, __nv_bfloat16>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0,  \
-                                            dout, l, m, di, dssq, dsumw, dkv, dk_scratch,   \
-                                            flags, list, off, dq_part, dwk_part, dbk_part, \
-                                            B, N, M, blocks, wsplits, scale, st);
+    err = fk90::launch_bwd<E_, F_>(q, kv, wk, bk, mask, seed, thresh, keep_scale, bag0, dout, \
+                                   l, m, di, dssq, dsumw, dkv, dk_scratch, list, off, dq_part, \
+                                   dwk_part, dbk_part, B, N, M, blocks, wsplits, scale, st);
   MPO_BWD16(256, 256) else MPO_BWD16(128, 128) else MPO_BWD16(256, 128)
   else MPO_BWD16(128, 256) else MPO_BWD16(512, 512) else return (int)cudaErrorInvalidValue;
 #undef MPO_BWD16
@@ -1015,7 +916,7 @@ int mpo_coattn_bwd_fused_k_bf16(const __nv_bfloat16* q, const __nv_bfloat16* kv,
   const size_t total = (size_t)B * N * E + (size_t)F * E + E;
   const int grid = (int)((total + THREADS - 1) / THREADS);
   bwd_reduce_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-      dq_part, dwk_part, dbk_part, off, dq, dwk, dbk, B, blocks, wsplits, N, E, F);
+      dq_part, dwk_part, dbk_part, off, dq, dwk, dbk, B, blocks, wsplits, wsplits, N, E, F);
   return (int)cudaGetLastError();
 }
 

@@ -33,13 +33,6 @@
 //   A a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B b0 (k=t, n=g)  b1 (k=t+4, n=g)
 //   C c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
-//
-// Inputs in bfloat16 (the co-attention kernels' bfloat16 instances): the
-// copies below take a `const __nv_bfloat16*` source as well, converting each
-// value to float32 on its way into the same float32 tiles (a synchronous
-// 8-byte load a thread and a 16-byte shared store; cp.async copies bytes and
-// cannot convert). A bfloat16 value is exact in TF32, so a product of two
-// bfloat16 operands needs one TF32 MMA, not three (the EXACT products).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,7 +111,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pr
 }
 
 // Four bfloat16 values into four shared floats, synchronously (zeros
-// without pred); the float32 overload is cp_async16.
+// without pred; the export passes' bfloat16 instances); the float32
+// overload is cp_async16.
 __device__ __forceinline__ void cp_async16(float* dst, const __nv_bfloat16* src, bool pred) {
   *reinterpret_cast<float4*>(dst) = pred ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
@@ -231,10 +225,7 @@ __device__ __forceinline__ void load_a(uint32_t (&big)[4], uint32_t (&small)[4],
 // limit at width 256), where the fresh sums keep it to one 8-deep step and
 // the adds into c round to nearest. Independent MMAs in flight between
 // dependent ones keep the tensor cores fed.
-// EXACT: both operands hold values exact in TF32 (bfloat16 inputs), whose
-// small parts are 0: the big x big MMA alone gives the same sums. B_EXACT:
-// only B does (b_small unused): the two MMAs with b_big give the same sums.
-template <int NT, int G, bool EXACT = false, bool B_EXACT = false>
+template <int NT, int G>
 __device__ __forceinline__ void mma_group(float (&c)[NT][4], int j0, const uint32_t (&a_big)[4],
                                           const uint32_t (&a_small)[4],
                                           const uint32_t (&b_big)[G][2],
@@ -242,14 +233,10 @@ __device__ __forceinline__ void mma_group(float (&c)[NT][4], int j0, const uint3
   float t[G][4];
 #pragma unroll
   for (int u = 0; u < G; ++u) t[u][0] = t[u][1] = t[u][2] = t[u][3] = 0.f;
-  if constexpr (!EXACT) {
-    if constexpr (!B_EXACT) {
 #pragma unroll
-      for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_small[u]);
-    }
+  for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_small[u]);
 #pragma unroll
-    for (int u = 0; u < G; ++u) mma_tf32(t[u], a_small, b_big[u]);
-  }
+  for (int u = 0; u < G; ++u) mma_tf32(t[u], a_small, b_big[u]);
 #pragma unroll
   for (int u = 0; u < G; ++u) mma_tf32(t[u], a_big, b_big[u]);
 #pragma unroll
@@ -306,7 +293,7 @@ __device__ __forceinline__ void row_product(float (&c)[NT][4], const float* __re
 // step has a bank conflict. TA: P lies transposed, element (row, k) at
 // p[k * ps + row] (an A fragment read column-major: kvT dk, whose kv tile
 // lies [keys][features]); conflict free with ps = 4 mod 32.
-template <int MR, int NT, int KC, int G, bool TA = false, bool EXACT = false>
+template <int MR, int NT, int KC, int G, bool TA = false>
 __device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
                                                  const float* __restrict__ p, int ps,
                                                  const float* __restrict__ y, int ys, int r0,
@@ -343,7 +330,7 @@ __device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
         split_tf32(yk[8 * (j0 + u) + ys], bb[u][1], bs[u][1]);
       }
 #pragma unroll
-      for (int i = 0; i < MR; ++i) mma_group<NT, G, EXACT>(c[i], j0, ab[i], as[i], bb, bs);
+      for (int i = 0; i < MR; ++i) mma_group<NT, G>(c[i], j0, ab[i], as[i], bb, bs);
     }
   }
 }
@@ -496,87 +483,10 @@ __device__ __forceinline__ void acc_product(float (&c)[NT][4],
   }
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 tiles in the TF32 products (the fuse-K backward's E = F = 512
-// bfloat16 instance): the ring's slices stay bfloat16 as cp.async copies them,
-// and a fragment widens each value to float32 on its way to the MMA. A
-// bfloat16 value widened is its own TF32 big part (small part 0), so these
-// run the MMAs the float32 forms run on a float32 copy of the same tile, in
-// the same order: the fuse-K forward's k (acc_product_rows with EXACT) and
-// 3xTF32 against a float32 operand (less the MMA of a zero small part).
-// ---------------------------------------------------------------------------
-
+// A bfloat16 value widened to float32: its own TF32 big part (small part 0),
+// as the plain-K kernels' value products take a bfloat16 B operand.
 __device__ __forceinline__ uint32_t bf16_tf32(__nv_bfloat16 x) {
   return __float_as_uint(__bfloat162float(x));
-}
-
-// "acc" product over MR row groups, P and Y bfloat16: the float32 form with
-// EXACT (one TF32 MMA an 8-deep step, its sum added into c), the same k
-// order (lane t holds k = 2t, 2t+1: one 4-byte load of a P pair).
-template <int MR, int NT, int KC, int G>
-__device__ __forceinline__ void acc_product_rows(float (&c)[MR][NT][4],
-                                                 const __nv_bfloat16* __restrict__ p, int ps,
-                                                 const __nv_bfloat16* __restrict__ y, int ys,
-                                                 int r0, int n0, int lane) {
-  static_assert(NT % G == 0, "column tile groups");
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int kk = 0; kk < KC; kk += 8) {
-    uint32_t ab[MR][4];
-#pragma unroll
-    for (int i = 0; i < MR; ++i) {
-      const int r = r0 + 16 * i + g;
-      const float2 lo = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p + r * ps + kk + 2 * t));
-      const float2 hi = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p + (r + 8) * ps + kk + 2 * t));
-      ab[i][0] = __float_as_uint(lo.x);  // (r, 2t)
-      ab[i][1] = __float_as_uint(hi.x);  // (r + 8, 2t)
-      ab[i][2] = __float_as_uint(lo.y);  // (r, 2t + 1)
-      ab[i][3] = __float_as_uint(hi.y);  // (r + 8, 2t + 1)
-    }
-    const __nv_bfloat16* yk = y + (kk + 2 * t) * ys + n0 + g;
-#pragma unroll
-    for (int j0 = 0; j0 < NT; j0 += G) {
-      uint32_t bb[G][2];
-#pragma unroll
-      for (int u = 0; u < G; ++u) {
-        bb[u][0] = bf16_tf32(yk[8 * (j0 + u)]);
-        bb[u][1] = bf16_tf32(yk[8 * (j0 + u) + ys]);
-      }
-#pragma unroll
-      for (int i = 0; i < MR; ++i) mma_group<NT, G, true>(c[i], j0, ab[i], ab[i], bb, bb);
-    }
-  }
-}
-
-// "row" product over MR row groups, X float32 and Y bfloat16: the float32
-// form's 3xTF32 with Y's small parts 0 (B_EXACT: two MMAs an 8-deep step).
-template <int MR, int NT, int KD, int G>
-__device__ __forceinline__ void row_product_rows(float (&c)[MR][NT][4],
-                                                 const float* __restrict__ x, int xs,
-                                                 const __nv_bfloat16* __restrict__ y, int ys,
-                                                 int r0, int n0, int k0, int lane) {
-  static_assert(NT % G == 0, "column tile groups");
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int kk = 0; kk < KD; kk += 8) {
-    uint32_t ab[MR][4], as[MR][4];
-#pragma unroll
-    for (int i = 0; i < MR; ++i) load_a(ab[i], as[i], x, xs, r0 + 16 * i, k0 + kk, lane);
-#pragma unroll
-    for (int j0 = 0; j0 < NT; j0 += G) {
-      uint32_t bb[G][2];
-#pragma unroll
-      for (int u = 0; u < G; ++u) {
-        const __nv_bfloat16* p = y + (n0 + 8 * (j0 + u) + g) * ys + k0 + kk + t;
-        bb[u][0] = bf16_tf32(p[0]);
-        bb[u][1] = bf16_tf32(p[4]);
-      }
-#pragma unroll
-      for (int i = 0; i < MR; ++i) mma_group<NT, G, false, true>(c[i], j0, ab[i], as[i], bb, bb);
-    }
-  }
 }
 
 // The tile shape both kernels share. A block of NW warps owns BR rows (held in

@@ -13,7 +13,8 @@ namespace mpo {
 // dq [B, N, E] = sum of bag b's partials g + b over the main pass's blocks g
 // that held its units (off: the tile list's bag offsets), in g order; with
 // dwk != NULL (the fuse-K form) also dwk [F, E] = sum of the W partials
-// dwk_part and dbk [E] = sum of the P main blocks' partials. Each output
+// dwk_part and dbk [E] = sum of the PB partials dbk_part (float32: the P
+// main blocks'; bfloat16: the W dwk blocks'). Each output
 // element is summed by one thread in a fixed order (no atomics:
 // deterministic).
 template <typename TQ = float>
@@ -21,7 +22,7 @@ __global__ void __launch_bounds__(THREADS)
 bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dwk_part,
                   const float* __restrict__ dbk_part, const int* __restrict__ off,
                   TQ* __restrict__ dq, float* __restrict__ dwk, float* __restrict__ dbk,
-                  int B, int P, int W, int N, int E, int F) {
+                  int B, int P, int W, int PB, int N, int E, int F) {
   const size_t nq = (size_t)B * N * E, nw = (size_t)F * E;
   const size_t total = dwk != nullptr ? nq + nw + E : nq;
   const size_t ne = (size_t)N * E;
@@ -40,7 +41,7 @@ bwd_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ d
       dwk[j] = acc;
     } else {
       const size_t j = i - nq - nw;
-      for (int k = 0; k < P; ++k) acc += dbk_part[(size_t)k * E + j];
+      for (int k = 0; k < PB; ++k) acc += dbk_part[(size_t)k * E + j];
       dbk[j] = acc;
     }
   }

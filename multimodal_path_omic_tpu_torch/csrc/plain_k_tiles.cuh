@@ -146,7 +146,7 @@ __device__ __forceinline__ void score_product(float (&c)[NT][4],
 // with flash_common.cuh acc_product_rows' k order (lane t holds k = 2t,
 // 2t + 1: one 8-byte load of a P pair). float32 Y: 3xTF32 (split_tf32i);
 // bfloat16 Y: P split into TF32 big + small against Y widened, which TF32
-// holds exactly, two MMAs a step (mma_group B_EXACT): P at float32
+// holds exactly, two MMAs a step (Y's small part is 0): P at float32
 // accuracy, never rounded to bfloat16 (the JAX kernel's float32 pd . v).
 // Fresh sums over two 8-deep steps where KC allows (fresh_sums' rule).
 template <int NT, int KC, int G, typename TY>
@@ -1032,7 +1032,7 @@ int launch_tile_bwd(const T* q, const T* k, const T* v, const uint8_t* mask, con
   if (err) return err;
   const size_t total = (size_t)B * N * D;
   bwd_reduce_kernel<T><<<(int)((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, per_tile, 0, N, D, 0);
+      dq_part, nullptr, nullptr, off, dq, nullptr, nullptr, B, per_tile, 0, 0, N, D, 0);
   return (int)cudaGetLastError();
 }
 

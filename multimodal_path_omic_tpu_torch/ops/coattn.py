@@ -73,8 +73,12 @@ rounded tanh (the kernels) or from the unrounded one (the plain versions'
 autograd); the plain versions' dq and dk stay within 1.2e-2 of each one's
 largest magnitude of the JAX kernel's
 (``tests/test_torch_port_plain_values_bf16.py``). The plain versions take bfloat16 inputs with the same roundings
-(``layers.round_bf16``). The flash kernels have bfloat16 instances too
-(``ops/flash.py``). The only float32 shapes without a bfloat16 instance are
+(``layers.round_bf16``). The fuse-K pair's bfloat16 instances run on
+Hopper's warpgroup MMA (``csrc/fused_k_sm90.cuh``): their float32 operands
+of bfloat16 products (dk against wk and kv, da, du and pd against q,
+tanh(q), kv and dO) go in as two bfloat16 parts, hi + lo, within 2^-16 of
+each value (``tests/test_torch_port_fuse_k_sm90.py``). The flash kernels
+have bfloat16 instances too (``ops/flash.py``). The only float32 shapes without a bfloat16 instance are
 the eval fuse-K form's at E != F (E = 512 with F = 256, for one), which no
 shipped configuration reaches: the predicate refuses bfloat16 there, and
 the dispatchers take ``attention_core`` on the CPU and raise on the card
@@ -569,10 +573,12 @@ def coattn_bwd_fused_k(
         kernels.require(t, name, (b, n))
     # One block an SM shares out the 64-key tiles that hold a valid key (or
     # every tile of a bag without one) evenly, across bags; dwk = kv^T dk in
-    # a second kernel, blocks of (a 128 x 128 tile of dwk, a share of those
+    # a second kernel, blocks of (a 128 x 128 tile of dwk, in bfloat16 256 x
+    # 128 where F allows: csrc/fused_k_sm90.cuh DwkCfg, a share of those
     # tiles), each writing one partial.
     sms = kernels.sm_count(dev)
-    wsplits = max(1, sms // ((f // 128) * (e // 128)))
+    rows = 256 if q.dtype == torch.bfloat16 and f >= 256 else 128
+    wsplits = max(1, sms // ((f // rows) * (e // 128)))
     dq = torch.empty((b, n, e), device=dev, dtype=q.dtype)
     dkv = torch.empty((b, m_len, f), device=dev, dtype=q.dtype)
     dwk = torch.empty((f, e), device=dev)

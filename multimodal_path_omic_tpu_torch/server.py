@@ -284,8 +284,16 @@ class PredictHandler(BaseHTTPRequestHandler):
         pass
 
     def _reply(self, code: int, payload: Dict[str, Any]) -> None:
-        self._last_code = code
         body = json.dumps(payload).encode()
+        if self.command == "POST":
+            # counted before the body goes out: a client that has read its
+            # reply and then asks /metrics finds this request counted
+            from urllib.parse import urlsplit
+
+            self.metrics.observe(
+                urlsplit(self.path).path, code, self._infer_seconds,
+                int(self.headers.get("Content-Length") or 0),
+            )
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
@@ -310,14 +318,7 @@ class PredictHandler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         self._infer_seconds = 0.0
-        n_bytes = int(self.headers.get("Content-Length") or 0)
-        self._handle_post()
-        from urllib.parse import urlsplit
-
-        self.metrics.observe(
-            urlsplit(self.path).path, getattr(self, "_last_code", 500),
-            self._infer_seconds, n_bytes,
-        )
+        self._handle_post()  # every path replies through _reply, which counts
 
     def _handle_post(self):
         from urllib.parse import parse_qs, urlsplit

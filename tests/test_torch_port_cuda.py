@@ -1664,14 +1664,16 @@ def _close_bf16_fwd(got, ref):
         _close(a, r, atol=BF16_STAT_TOL)
 
 
+@pytest.mark.parametrize("n", [1, 6, 8])
 @pytest.mark.parametrize("e", [128, 256, 512])
 @pytest.mark.parametrize("m_len,kind", [(4096, "prefix"), (4000, "holes"), (1500, "one")])
-def test_bf16_fused_k_instances_match_plain_on_card(dev, e, m_len, kind):
+def test_bf16_fused_k_instances_match_plain_on_card(dev, e, m_len, kind, n):
     """The bfloat16 fuse-K eval and training forms (dropout 0.25) and the
-    backward against their plain versions; two runs bitwise equal; dkv
-    exactly 0 at the masked keys of bags with a valid key; each launch
+    backward against their plain versions at 1, 6 and 8 queries (the ends of
+    the wgmma kernels' padding of the queries to 8); two runs bitwise equal;
+    dkv exactly 0 at the masked keys of bags with a valid key; each launch
     counted under its _bf16 name."""
-    b, n = 3, 6
+    b = 3
     q, kv, wk, bk, _, mask = _bf16_inputs(dev, b, n, e, m_len, kind, m_len + e)
     seed = torch.tensor([e + m_len], dtype=torch.int32, device=dev)
     before = dict(coattn.LAUNCH_COUNTS)
